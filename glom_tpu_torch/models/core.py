@@ -1,0 +1,235 @@
+"""The functional GLOM core: parameter init, one column-update step, and the
+T-iteration forward.
+
+Counterpart of `glom_tpu/models/core.py`. Reference parity: Glom.__init__ /
+Glom.forward (glom_pytorch/glom_pytorch.py:75-152). Plain functions over a
+`GlomParams` tuple of tensors, in the reference's layouts: images
+[b, c, H, W], levels [b, n, L, d], `return_all` -> [T+1, b, n, L, d].
+
+Two routes behind `glom_forward`:
+  * the reference layout (`use_pallas=False`): concat, the two grouped
+    FFWs, dense consensus and the mean, one op at a time;
+  * the fused route (`use_pallas=True`, the name kept for parity): a
+    level-major carry and, per iteration, the K1 kernel twice (bottom-up,
+    top-down with the positional addend folded in) and the K2 kernel once
+    (consensus + 4-way mean). On CPU tensors the kernels' plain versions run.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from glom_tpu_torch.kernels.consensus_update import fused_consensus_update
+from glom_tpu_torch.kernels.grouped_mlp import fused_grouped_ffw_lm
+from glom_tpu_torch.ops.consensus import build_local_mask, consensus_attention
+from glom_tpu_torch.ops.ffw import GroupedFFWParams, grouped_ffw, init_grouped_ffw
+from glom_tpu_torch.ops.patch import LinearParams, image_to_tokens, init_linear
+from glom_tpu_torch.utils.config import GlomConfig
+from glom_tpu_torch.utils.helpers import default, exists
+
+ConsensusFn = Callable[[torch.Tensor], torch.Tensor]
+FFWFn = Callable[[GroupedFFWParams, torch.Tensor], torch.Tensor]
+
+
+class GlomParams(NamedTuple):
+    """Learnable state, mirroring the reference module tree."""
+
+    token_embed: LinearParams  # Linear(p*p*c -> d)        (reference :88-91)
+    pos_emb: torch.Tensor  # [n, d] learned position table   (reference :92)
+    init_levels: torch.Tensor  # [L, d] learned column init  (reference :95)
+    bottom_up: GroupedFFWParams  # groups = L               (reference :98)
+    top_down: GroupedFFWParams  # groups = L - 1            (reference :99)
+
+
+def map_params(fn, params: GlomParams) -> GlomParams:
+    """Apply `fn` to every tensor of `params`."""
+    return GlomParams(
+        token_embed=LinearParams(*map(fn, params.token_embed)),
+        pos_emb=fn(params.pos_emb),
+        init_levels=fn(params.init_levels),
+        bottom_up=GroupedFFWParams(*map(fn, params.bottom_up)),
+        top_down=GroupedFFWParams(*map(fn, params.top_down)),
+    )
+
+
+def init_glom(
+    cfg: GlomConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device="cpu",
+    dtype=torch.float32,
+) -> GlomParams:
+    """The reference's shapes and init families, drawn on the CPU from
+    `generator` (so a seed gives the same weights on every device), then
+    moved to `device`."""
+    params = GlomParams(
+        token_embed=init_linear(cfg.patch_dim, cfg.dim, generator=generator, dtype=dtype),
+        pos_emb=torch.randn(cfg.num_patches, cfg.dim, generator=generator, dtype=dtype),
+        init_levels=torch.randn(cfg.levels, cfg.dim, generator=generator, dtype=dtype),
+        bottom_up=init_grouped_ffw(
+            cfg.levels, cfg.dim, cfg.mult, generator=generator, dtype=dtype
+        ),
+        top_down=init_grouped_ffw(
+            cfg.levels - 1, cfg.dim, cfg.mult, generator=generator, dtype=dtype
+        ),
+    )
+    return map_params(lambda t: t.to(device), params)
+
+
+def contribution_divisor(levels: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[L, 1] per-level mean divisor: 4 contributions everywhere except the
+    top level, which has no top-down input and divides by 3 (reference
+    :121-122)."""
+    div = torch.full((levels, 1), 4.0, dtype=dtype, device=device)
+    div[-1] = 3.0
+    return div
+
+
+def update_step(
+    params: GlomParams,
+    levels: torch.Tensor,
+    bottom: torch.Tensor,
+    pos: torch.Tensor,
+    divisor: torch.Tensor,
+    *,
+    consensus_fn: ConsensusFn,
+    ffw_fn: FFWFn = grouped_ffw,
+) -> torch.Tensor:
+    """One column update: the mean of (previous value, bottom-up, top-down,
+    consensus) (reference :124-140).
+
+    levels: [b, n, L, d]   bottom: [b, n, 1, d]   pos: [1, n, 1, d]
+    """
+    with_input = torch.cat([bottom, levels], dim=-2)  # [b, n, L+1, d]
+    # Bottom-up sees (image tokens, levels 1..L-1): level 1 re-reads the
+    # raw tokens every iteration (reference :127).
+    bottom_up_out = ffw_fn(params.bottom_up, with_input[..., :-1, :])
+    # Top-down sees levels 2..L with the positional embedding injected here
+    # only (reference :129), zero-padded at the top (reference :130).
+    top_down_out = ffw_fn(params.top_down, with_input[..., 2:, :] + pos)
+    top_down_out = torch.nn.functional.pad(top_down_out, (0, 0, 0, 1))
+    consensus = consensus_fn(levels)
+    new_levels = (levels + bottom_up_out + top_down_out + consensus) / divisor
+    return new_levels.to(levels.dtype)
+
+
+def glom_forward(
+    params: GlomParams,
+    img: torch.Tensor,
+    cfg: GlomConfig,
+    *,
+    iters: Optional[int] = None,
+    levels: Optional[torch.Tensor] = None,
+    return_all: bool = False,
+    compute_dtype=None,
+    consensus_fn: Optional[ConsensusFn] = None,
+    use_pallas: bool = False,
+) -> torch.Tensor:
+    """The T-iteration GLOM forward (reference :103-152).
+
+    img: [b, c, H, W] -> [b, n, L, d], or [T+1, b, n, L, d] with return_all
+    (T+1 includes the initial state). `levels` [b, n, L, d] continues from a
+    previous call. Params, image and levels are cast to `compute_dtype`
+    once, before the loop. use_pallas=True selects the fused level-major
+    route through the K1/K2 kernels.
+    """
+    T = default(iters, cfg.default_iters)
+    if compute_dtype is not None:
+        params = map_params(lambda t: t.to(compute_dtype), params)
+        img = img.to(compute_dtype)
+        if exists(levels):
+            levels = levels.to(compute_dtype)
+
+    if use_pallas:
+        if consensus_fn is not None:
+            raise NotImplementedError(
+                "use_pallas with a custom consensus_fn is the sharded route "
+                "(ROADMAP queue A item 8)"
+            )
+        return _glom_forward_fused(
+            params, img, cfg, iters=T, levels_in=levels, return_all=return_all
+        )
+
+    if consensus_fn is None:
+        mask = build_local_mask(cfg.num_patches_side, cfg.local_consensus_radius)
+        consensus_fn = partial(
+            consensus_attention,
+            attend_self=cfg.consensus_self,
+            local_mask=None if mask is None else torch.as_tensor(mask, device=img.device),
+        )
+
+    tokens = image_to_tokens(params.token_embed, img, cfg.patch_size)  # [b, n, d]
+    b, n, d = tokens.shape
+    pos = params.pos_emb[None, :, None, :]
+    bottom = tokens[:, :, None, :]
+    if not exists(levels):
+        levels = params.init_levels[None, None].expand(b, n, cfg.levels, d).to(tokens.dtype)
+    divisor = contribution_divisor(cfg.levels, torch.float32, img.device)
+
+    states = [levels]
+    for _ in range(T):
+        levels = update_step(params, levels, bottom, pos, divisor, consensus_fn=consensus_fn)
+        if return_all:
+            states.append(levels)
+    if return_all:
+        return torch.stack(states, dim=0)  # [T+1, b, n, L, d]
+    return levels
+
+
+def _glom_forward_fused(
+    params: GlomParams,
+    img: torch.Tensor,
+    cfg: GlomConfig,
+    *,
+    iters: int,
+    levels_in: Optional[torch.Tensor],
+    return_all: bool,
+) -> torch.Tensor:
+    """The fused forward: a level-major carry and three kernel launches per
+    iteration.
+
+    The carry is one [L+1, b, n, d] buffer with the image tokens in slot 0
+    and the levels in slots 1..L, so the bottom-up input (slots 0..L-1), the
+    top-down input (slots 2..L) and the consensus input (slots 1..L) are all
+    contiguous views and no concat is built. K2 writes the next levels into
+    a second such buffer (it must not write over rows other blocks still
+    read), and the two buffers swap each iteration. A carried-in `levels`
+    takes the tokens' dtype.
+    """
+    tokens = image_to_tokens(params.token_embed, img, cfg.patch_size)  # [b, n, d]
+    b, n, d = tokens.shape
+    L = cfg.levels
+    if params.pos_emb.shape != (n, d):
+        raise ValueError(f"pos_emb {tuple(params.pos_emb.shape)} != ({n}, {d})")
+    carry = torch.empty((L + 1, b, n, d), dtype=tokens.dtype, device=tokens.device)
+    carry[0] = tokens
+    if exists(levels_in):
+        carry[1:] = levels_in.permute(2, 0, 1, 3)
+    else:
+        carry[1:] = params.init_levels[:, None, None, :]
+    spare = torch.empty_like(carry)
+    spare[0] = tokens
+    states = [carry[1:].clone()] if return_all else None
+
+    for _ in range(iters):
+        bu = fused_grouped_ffw_lm(params.bottom_up, carry[:L].reshape(L, b * n, d))
+        td = fused_grouped_ffw_lm(
+            params.top_down, carry[2:].reshape(L - 1, b * n, d), add=params.pos_emb
+        )
+        fused_consensus_update(
+            carry[1:], bu.view(L, b, n, d), td.view(L - 1, b, n, d),
+            side=cfg.num_patches_side,
+            radius=float(cfg.local_consensus_radius),
+            attend_self=cfg.consensus_self,
+            out=spare[1:],
+        )
+        carry, spare = spare, carry
+        if return_all:
+            states.append(carry[1:].clone())
+
+    if return_all:
+        return torch.stack(states).permute(0, 2, 3, 1, 4)  # [T+1, b, n, L, d]
+    return carry[1:].permute(1, 2, 0, 3)  # [b, n, L, d]

@@ -1,0 +1,89 @@
+"""The port stands alone: it imports neither JAX nor glom_tpu, and its entry
+points run on the card unless the caller names the CPU.
+
+tests/conftest.py imports jax into every pytest process, so the runtime
+check runs in a fresh subprocess.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "glom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "glom_tpu")
+
+
+def _module_names():
+    names = []
+    for path in sorted((REPO / "glom_tpu_torch").rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        names.append(".".join(parts))
+    return names
+
+
+def test_subprocess_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_module_names() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not set(roots) & set(FORBIDDEN), f"{path}:{node.lineno} imports {roots}"
+
+
+def test_glom_defaults_to_the_card(monkeypatch):
+    from glom_tpu_torch import Glom, entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Glom(dim=32, levels=3, image_size=16, patch_size=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_kernel_sources_carry_their_notes():
+    import glom_tpu_torch.kernels._build as build
+
+    for name in ("grouped_mlp", "consensus_update"):
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for note in ("Replaces:", "Bound on the H100:", "Kept out of device memory:"):
+            assert note in text, (name, note)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    import glom_tpu_torch.kernels._build as build
+
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.prebuild(["grouped_mlp"])
+    assert not (tmp_path / "build").exists()
