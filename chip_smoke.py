@@ -4,13 +4,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from glom_tpu_torch/csrc/ (one nvcc per source, in
-parallel, into build/glom_tpu_torch/), holds each kernel against its plain
-PyTorch version at the flagship shapes, times both, serves the flagship
-model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
-seed) at every bucket through InferenceEngine, checks the kernel launch
-counts of that run, its float32 parity with the plain path and the bf16
-answer's distance from that path, and prints one JSON line per phase. The
-last line is
+parallel, into build/glom_tpu_torch/), holds each kernel -- the K1 and K2
+forwards and their backwards -- against its plain PyTorch version at the
+flagship shapes, times both, then drives the port's two main paths on the
+flagship model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random
+weights from a seed):
+
+  * serving: every bucket through InferenceEngine, with the launch counts
+    of that run, its float32 parity with the plain path and the bf16
+    answer's distance from that path;
+  * training: six Adam steps of the denoising trainer at batch 8 on
+    synthetic shapes images, through both of Trainer.fit's step variants
+    (with and without the grad norm), with exact launch counts per step,
+    the step time and a profiled step, and the float32 loss and gradients
+    of the fused route against the plain route at batch 2.
+
+It prints one JSON line per phase. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -23,6 +32,7 @@ TFLOP/s f32, 3.35 TB/s HBM.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,6 +44,17 @@ SEED = 0
 # Max abs gap allowed between the bf16 served levels and the plain f32
 # path at bucket 2 (the flagship, T = 12, seed-0 weights).
 BF16_SERVE_ATOL = 1e-2
+# Backward bars: max abs error over max |want|, per output, about 4x the
+# largest ratio seen on the card with these inputs (one bf16 ulp is 2^-8
+# to 2^-7 of a value; weight grads are sums over M = 2048 rows).
+BWD_BARS = {"K1": {"bf16": 2.5e-2, "f32": 8e-6}, "K2": {"bf16": 1.8e-2, "f32": 4e-5}}
+# The fused f32 training loss and gradients against the plain f32 route at
+# batch 2: max abs error over max |want| per parameter leaf.
+TRAIN_F32_BAR = 8e-6
+TRAIN_STEPS = 6
+# Trainer.fit runs the full step (with the grad norm) every TRAIN_LOG_EVERY
+# steps and step_fast on the others: both variants run and are counted.
+TRAIN_LOG_EVERY = 3
 
 
 def emit(phase: str, **kw) -> None:
@@ -61,7 +82,9 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.prebuild(["grouped_mlp", "consensus_update"])
+    logs = _build.prebuild(
+        ["grouped_mlp", "consensus_update", "grouped_mlp_bwd", "consensus_update_bwd"]
+    )
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -178,6 +201,111 @@ def main() -> int:
     if failures:
         raise AssertionError(f"kernel/plain mismatch: {failures}")
 
+    # -- backward kernels vs plain -------------------------------------------------
+    def err_over_max(got, want):
+        """max |got - want| over max |want|."""
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max()), float(
+            (got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+    def check_bwd(kernel, case, pairs, bar):
+        """Compare each (name, got, want); record and emit; return the
+        largest max-abs error."""
+        errs = {name: err_over_max(got, want) for name, got, want in pairs}
+        ok = all(r <= bar for _, r in errs.values())
+        emit(f"{kernel.lower()}_bwd_vs_plain", **case, bar=bar,
+             max_abs_err={k: v[0] for k, v in errs.items()},
+             err_over_max={k: v[1] for k, v in errs.items()},
+             bar_ratio=max(r for _, r in errs.values()) / bar, ok=ok)
+        if not ok:
+            failures.append(f"{kernel} bwd {case}")
+        return max(a for a, _ in errs.values())
+
+    k1_bwd_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        k1_cases = [("bottom_up", L, None), ("top_down", L - 1, None)]
+        if dtype == bf16:
+            # b1 near -4, where the tanh GELU's derivative and the erf one
+            # differ by a third: the derivative form is what this case sees.
+            k1_cases.append(("gelu_tail", L, -4.0))
+        for which, G, b1_center in k1_cases:
+            src = ffw["top_down" if which == "top_down" else "bottom_up"]
+            params = GroupedFFWParams(*(t.to(dev, dtype) for t in src))
+            if b1_center is not None:
+                params = GroupedFFWParams(
+                    params.w1 * 0.1, b1_center + 0.1 * randn(G, f, dtype=dtype),
+                    params.w2, params.b2)
+            x = randn(G, M8, d, dtype=dtype)
+            g = randn(G, M8, d, dtype=dtype)
+            add = pos.to(dev, dtype) if which == "top_down" else None
+            pre = None
+            if k1.save_pre_ok(params, x):  # the training forward's saved pre
+                pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+            got = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+            torch.cuda.synchronize()
+            want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+            pairs = [("dx", got[0], want[0]),
+                     *((nm, a, b) for nm, a, b in zip(("dw1", "db1", "dw2", "db2"),
+                                                       got[1], want[1]))]
+            if add is not None:
+                pairs.append(("da", got[2], want[2]))  # over 8 batch copies
+            err = check_bwd("K1", dict(which=which, shape=[G, M8, d], dtype=str(dtype),
+                                       saved_pre=pre is not None), pairs, BWD_BARS["K1"][dname])
+            if dtype == bf16 and which in ("bottom_up", "top_down"):
+                k1_bwd_err[which] = err
+
+    def flat_levels(shape, dtype):
+        """Unit-variance levels: scores near 0, so inside a radius-1 window
+        the diagonal carries about a fifth of each row's weight."""
+        return randn(*shape, dtype=dtype)
+
+    k2_bwd_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        k2_cases = [
+            ((L, 8, n, d), side, 0.0, False, "peaked"),
+            ((L, 8, n, d), side, 0.0, True, "peaked"),
+            ((L, 8, n, d), side, 3.0, False, "peaked"),
+            ((L, 8, n, d), side, 3.0, True, "peaked"),
+            ((L, 8, n, d), side, 1.0, False, "flat"),
+            ((2, 1, 1024, d), 32, 0.0, False, "peaked"),
+        ]
+        for shape, sd, radius, attend_self, kind in k2_cases:
+            lv = (consensus_inputs(shape, dtype)[0] if kind == "peaked"
+                  else flat_levels(shape, dtype))
+            bu, td = randn(*shape, dtype=dtype), randn(shape[0] - 1, *shape[1:], dtype=dtype)
+            kw = dict(side=sd, radius=radius, attend_self=attend_self)
+            _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+            g = randn(*shape, dtype=dtype)
+            dq, dd = k2.consensus_bwd_dq(lv, g, m, l, **kw)
+            dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, **kw)
+            torch.cuda.synchronize()
+            want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **kw)
+            want_dlv, want_dmean, parts = k2.consensus_bwd_dkv_plain(
+                lv, g, m, l, want_dq, want_dd, parts=True, **kw)
+            bar = BWD_BARS["K2"][dname]
+            # On the peaked inputs each summed term must be larger than the
+            # error the bar allows in dlevels, so dropping any one of them
+            # fails the check. The flat inputs are for the diagonal rule,
+            # which the dq check sees.
+            allowed = bar * float(want_dlv.float().abs().max())
+            terms = {"dq": float(want_dq.abs().max()), "dv": float(parts["dv"].abs().max()),
+                     "dxn": float(parts["dxn"].abs().max())}
+            case = dict(shape=list(shape), dtype=str(dtype), radius=radius,
+                        attend_self=attend_self, levels=kind,
+                        term_over_allowed={k: v / allowed for k, v in terms.items()})
+            err = check_bwd("K2", case, [("dq", dq, want_dq), ("dd", dd, want_dd),
+                                         ("dlevels", dlv, want_dlv), ("dmean", dmean, want_dmean)],
+                            bar)
+            if kind == "peaked" and min(terms.values()) <= allowed:
+                failures.append(f"K2 bwd terms too small to check: {case}")
+            if dtype == bf16 and shape == (L, 8, n, d) and radius == 0 and not attend_self:
+                k2_bwd_err["dq"] = err_over_max(dq, want_dq)[0]
+                k2_bwd_err["dkv"] = err_over_max(dlv, want_dlv)[0]
+    if failures:
+        raise AssertionError(f"backward kernel/plain mismatch: {failures}")
+
     # -- timing ----------------------------------------------------------------
     def time_ms(fn, reps=20):
         for _ in range(3):
@@ -197,6 +325,14 @@ def main() -> int:
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
     timings = {}
+
+    def record_timing(label, shape, ms, plain_ms, ops, nbytes):
+        """Keep and print one bf16 kernel's times beside its bound."""
+        b_ms, b_by = bound(ops, nbytes, PEAK_BF16)
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms)
+
     for label, which, G, M in (
         ("k1_bottom_up_b8", "bottom_up", L, M8),
         ("k1_top_down_b8", "top_down", L - 1, M8),
@@ -208,10 +344,7 @@ def main() -> int:
         ms = time_ms(lambda: k1.fused_grouped_ffw_lm(params, x, add=add))
         plain_ms = time_ms(lambda: k1.grouped_mlp_plain(params, x, add))
         nbytes = 2 * (2 * G * M * d + 2 * G * d * f + G * (f + d) + (n * d if add is not None else 0))
-        b_ms, b_by = bound(4 * G * M * d * f, nbytes, PEAK_BF16)
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        emit("timing", kernel=label, shape=[G, M, d], dtype="bfloat16", ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms)
+        record_timing(label, [G, M, d], ms, plain_ms, 4 * G * M * d * f, nbytes)
     # K2 at bucket 8, and one long row (the TPU's streamed kernel's regime).
     for label, (Lc, B, nc), sd in (("k2_b8", (L, 8, n), side), ("k2_long_row", (2, 1, 4096), 64)):
         lv = randn(Lc, B, nc, d, dtype=bf16)
@@ -219,10 +352,44 @@ def main() -> int:
         td = randn(Lc - 1, B, nc, d, dtype=bf16)
         ms = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=sd))
         plain_ms = time_ms(lambda: k2.consensus_update_plain(lv, bu, td, side=sd))
-        b_ms, b_by = bound(4 * Lc * B * nc * nc * d, 2 * (4 * Lc - 1) * B * nc * d, PEAK_BF16)
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        emit("timing", kernel=label, shape=[Lc, B, nc, d], dtype="bfloat16", ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms)
+        record_timing(label, [Lc, B, nc, d], ms, plain_ms, 4 * Lc * B * nc * nc * d,
+                      2 * (4 * Lc - 1) * B * nc * d)
+    # The backward kernels at bucket 8, bf16, as the training step runs them:
+    # K1 from the saved pre (4 products), K2 at global consensus (all pairs).
+    for label, which, G in (("k1_bwd_b8", "bottom_up", L), ("k1_bwd_add_b8", "top_down", L - 1)):
+        params = type(ffw[which])(*(t.to(dev, bf16) for t in ffw[which]))
+        x, g = randn(G, M8, d, dtype=bf16), randn(G, M8, d, dtype=bf16)
+        add = pos.to(dev, bf16) if which == "top_down" else None
+        pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+        ms = time_ms(lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+        plain_ms = time_ms(lambda: k1.grouped_mlp_bwd_plain(params, x, g, add, pre))
+        # read x, pre, g, w1, w2 (+ a); write dx, dw1, db1, dw2, db2 (+ da)
+        nbytes = 2 * (3 * G * M8 * d + G * M8 * f + 4 * G * d * f + G * (f + d)
+                      + (2 * n * d if add is not None else 0))
+        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes)
+    lv = consensus_inputs((L, 8, n, d), bf16)[0]
+    g = randn(L, 8, n, d, dtype=bf16)
+    _, m, l = k2.fused_consensus_update(lv, g, g[1:], side=side, stats=True)
+    dq, dd = k2.consensus_bwd_dq(lv, g, m, l, side=side)
+    elems = L * 8 * n * d
+    for label, run, plain, n_products, nbytes in (
+        # read levels, g, m, l; write f32 dq, dd. Products: s, dP, ds.k
+        ("k2_bwd_dq_b8", lambda: k2.consensus_bwd_dq(lv, g, m, l, side=side),
+         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, side=side), 3,
+         2 * 2 * elems + 4 * elems + 4 * 3 * L * 8 * n),
+        # read levels, g, m, l, dq, dd; write dlevels, dmean. Products: s, dP, dv, dk
+        ("k2_bwd_dkv_b8", lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, side=side),
+         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side), 4,
+         2 * 2 * elems + 4 * elems + 2 * 2 * elems + 4 * 3 * L * 8 * n),
+    ):
+        record_timing(label, [L, 8, n, d], time_ms(run), time_ms(plain),
+                      n_products * 2 * L * 8 * n * n * d, nbytes)
+    # The whole K2 backward against its least work: the single-tile form's
+    # five products (s, dP, dq, dv, dk) and its bytes.
+    b_ms, b_by = bound(5 * 2 * L * 8 * n * n * d, 2 * 4 * elems + 4 * 2 * L * 8 * n, PEAK_BF16)
+    emit("timing", kernel="k2_bwd_b8", shape=[L, 8, n, d], dtype="bfloat16",
+         ms=timings["k2_bwd_dq_b8"]["ms"] + timings["k2_bwd_dkv_b8"]["ms"],
+         bound_ms=b_ms, bound_by=b_by)
 
     # -- serve: the main path ----------------------------------------------------
     cfg = GlomConfig()  # flagship: dim 512, L 6, 224 px, patch 14
@@ -274,19 +441,23 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def device_ms_by_kernel(prof):
+        """Device time of each kernel name in a profile, largest first (ms)."""
+        us: dict = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                key = evt.name if len(evt.name) < 60 else evt.name[:57] + "..."
+                us[key] = us.get(key, 0.0) + evt.time_range.elapsed_us()
+        return {key: v / 1e3 for key, v in sorted(us.items(), key=lambda kv: -kv[1])}
+
     imgs8 = torch.randn(8, 3, 224, 224, generator=gen)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_ms = 1e3 * engine.infer(imgs8).latency_s
-    kernel_us: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            key = evt.name if len(evt.name) < 60 else evt.name[:57] + "..."
-            kernel_us[key] = kernel_us.get(key, 0.0) + evt.time_range.elapsed_us()
-    busy_ms = sum(kernel_us.values()) / 1e3
+    kernel_ms = device_ms_by_kernel(prof)
+    busy_ms = sum(kernel_ms.values())
     emit("serve_profile", bucket=8, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms if busy_ms else None,
-         p50_unprofiled_ms=1e3 * sorted(lat[8])[len(lat[8]) // 2],
-         kernel_ms={k: v / 1e3 for k, v in sorted(kernel_us.items(), key=lambda kv: -kv[1])})
+         p50_unprofiled_ms=1e3 * sorted(lat[8])[len(lat[8]) // 2], kernel_ms=kernel_ms)
 
     # f32 end-to-end parity on the card: fused kernels vs the plain path.
     img2 = torch.randn(2, 3, 224, 224, generator=gen)
@@ -309,20 +480,134 @@ def main() -> int:
     if not bf16_ok:
         raise AssertionError("bf16 served levels are too far from the plain f32 path")
 
+    # -- train: the flagship denoising trainer, the second main path -------------
+    from glom_tpu_torch import TrainConfig, Trainer
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.models.core import param_leaves, unflatten_params
+    from glom_tpu_torch.models.transplant import HEAD_KEYS, PARAM_KEYS
+    from glom_tpu_torch.train import default_recon_index, denoise_loss, init_denoise
+
+    tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
+    k = default_recon_index(T)  # iterations the loss runs: 7
+    dparams = init_denoise(cfg, generator=torch.Generator().manual_seed(SEED))
+    trainer = Trainer(cfg, tcfg, params=dparams, device="cuda")
+
+    def counts():
+        return {"K1 fwd": k1.LAUNCHES, "K1 fwd add": k1.LAUNCHES_ADD,
+                "K2 fwd": k2.LAUNCHES, "K1 bwd": k1.LAUNCHES_BWD,
+                "K1 bwd add": k1.LAUNCHES_BWD_ADD, "K2 bwd dq": k2.LAUNCHES_BWD_DQ,
+                "K2 bwd dkv": k2.LAUNCHES_BWD_DKV}
+
+    want_step = {"K1 fwd": 2 * k, "K1 fwd add": k, "K2 fwd": k, "K1 bwd": 2 * k,
+                 "K1 bwd add": k, "K2 bwd dq": k, "K2 bwd dkv": k}
+    per_step = []  # (variant, launches, metrics) of every step
+
+    def counted(fn, variant):
+        def run(batch):
+            before = counts()
+            out = fn(batch)
+            per_step.append((variant, {key: v - before[key] for key, v in counts().items()},
+                             out))
+            return out
+        return run
+
+    trainer.step = counted(trainer.step, "step")
+    trainer.step_fast = counted(trainer.step_fast, "step_fast")
+    k1.LAUNCHES = k1.LAUNCHES_ADD = k1.LAUNCHES_BWD = k1.LAUNCHES_BWD_ADD = 0
+    k2.LAUNCHES = k2.LAUNCHES_BWD_DQ = k2.LAUNCHES_BWD_DKV = 0
+    records = trainer.fit(shapes_dataset(8, cfg.image_size, seed=SEED), TRAIN_STEPS,
+                          log_every=TRAIN_LOG_EVERY, prefetch=2)
+    train_launches = counts()
+    variants = [v for v, _, _ in per_step]
+    losses = [float(m["loss"]) for _, _, m in per_step]
+    n_full = TRAIN_STEPS // TRAIN_LOG_EVERY
+    if variants != (["step_fast"] * (TRAIN_LOG_EVERY - 1) + ["step"]) * n_full:
+        raise AssertionError(f"step variants {variants}")
+    if len(records) != n_full or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses {losses}, {len(records)} records")
+    if any(c != want_step for _, c, _ in per_step):
+        raise AssertionError(f"launches per step {[(v, c) for v, c, _ in per_step]} "
+                             f"!= {want_step}")
+    if {(r["vjp_path"], r["grad_accum"]) for r in records} != {("scan_blockwise", 1)}:
+        raise AssertionError(f"route {[(r['vjp_path'], r['grad_accum']) for r in records]}")
+    p50_ms = records[-1]["step_time_p50_ms"]
+    emit("train", config=dict(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
+                              iters=k, steps=TRAIN_STEPS, log_every=TRAIN_LOG_EVERY,
+                              prefetch=2),
+         variants=variants, losses=losses, grad_norms=[r["grad_norm"] for r in records],
+         vjp_path=records[-1]["vjp_path"], grad_accum=records[-1]["grad_accum"],
+         step_time_p50_ms=p50_ms, step_time_p95_ms=records[-1]["step_time_p95_ms"],
+         steps_timed=records[-1]["steps_timed"],
+         column_iters_per_s=8 * k / (p50_ms / 1e3), launches_per_step=want_step,
+         launches=train_launches)
+
+    # Where one training step spends its device time (torch.profiler).
+    batch8 = next(shapes_dataset(8, cfg.image_size, seed=SEED + 1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(batch8)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernel_ms = device_ms_by_kernel(prof)
+    busy_ms = sum(kernel_ms.values())
+    emit("train_profile", batch=8, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms if busy_ms else None, p50_unprofiled_ms=p50_ms,
+         kernel_ms=dict(list(kernel_ms.items())[:25]))
+
+    # f32 loss and gradients: the fused route against the plain route, on
+    # the card, same weights and noise, batch 2.
+    img2 = torch.from_numpy(next(shapes_dataset(2, cfg.image_size, seed=SEED + 2))).to(dev)
+    noise2 = randn(2, 3, cfg.image_size, cfg.image_size)
+    leaves0 = [t.to(dev) for t in param_leaves(dparams)]
+    result = {}
+    for route in (True, False):
+        leaves = [t.clone().requires_grad_() for t in leaves0]
+        loss = denoise_loss(unflatten_params(dparams, leaves), img2, noise2, cfg,
+                            use_pallas=route)
+        result[route] = (loss, torch.autograd.grad(loss, leaves))
+    leaf_err = {nm: err_over_max(a, b) for nm, a, b in
+                zip(PARAM_KEYS + HEAD_KEYS, result[True][1], result[False][1])}
+    loss_rel = abs(float(result[True][0]) - float(result[False][0])) / abs(float(result[False][0]))
+    worst = max(max(r for _, r in leaf_err.values()), loss_rel)
+    emit("train_parity_f32", batch=2, iters=k, loss_fused=float(result[True][0]),
+         loss_plain=float(result[False][0]), loss_rel_err=loss_rel,
+         max_abs_err={nm: v[0] for nm, v in leaf_err.items()},
+         err_over_max={nm: v[1] for nm, v in leaf_err.items()}, bar=TRAIN_F32_BAR,
+         bar_ratio=worst / TRAIN_F32_BAR, ok=worst <= TRAIN_F32_BAR)
+    if worst > TRAIN_F32_BAR:
+        raise AssertionError("f32 fused training gradients disagree with the plain route")
+
     # -- kernels -----------------------------------------------------------------
+    launches.update({
+        "grouped_mlp_bwd": train_launches["K1 bwd"] - train_launches["K1 bwd add"],
+        "grouped_mlp_bwd_add": train_launches["K1 bwd add"],
+        "consensus_update_bwd_dq": train_launches["K2 bwd dq"],
+        "consensus_update_bwd_dkv": train_launches["K2 bwd dkv"],
+    })
+    csrc = "glom_tpu_torch/csrc/"
     kernels = []
-    for kname, replaces, err, tkey in (
-        ("grouped_mlp_fwd", "glom_tpu/kernels/grouped_mlp.py:88", k1_err["bottom_up"],
-         "k1_bottom_up_b8"),
-        ("grouped_mlp_fwd_add", "glom_tpu/kernels/grouped_mlp.py:127", k1_err["top_down"],
-         "k1_top_down_b8"),
-        ("consensus_update_fwd", "glom_tpu/kernels/consensus_update.py:115", k2_err, "k2_b8"),
+    for kname, src, replaces, err, tkey in (
+        ("grouped_mlp_fwd", "grouped_mlp.cu", "glom_tpu/kernels/grouped_mlp.py:170",
+         k1_err["bottom_up"], "k1_bottom_up_b8"),
+        ("grouped_mlp_fwd_add", "grouped_mlp.cu", "glom_tpu/kernels/grouped_mlp.py:218",
+         k1_err["top_down"], "k1_top_down_b8"),
+        ("consensus_update_fwd", "consensus_update.cu",
+         "glom_tpu/kernels/consensus_update.py:473", k2_err, "k2_b8"),
+        ("grouped_mlp_bwd", "grouped_mlp_bwd.cu", "glom_tpu/kernels/grouped_mlp.py:503",
+         k1_bwd_err["bottom_up"], "k1_bwd_b8"),
+        ("grouped_mlp_bwd_add", "grouped_mlp_bwd.cu", "glom_tpu/kernels/grouped_mlp.py:543",
+         k1_bwd_err["top_down"], "k1_bwd_add_b8"),
+        ("consensus_update_bwd_dq", "consensus_update_bwd.cu",
+         "glom_tpu/kernels/consensus_update.py:1142", k2_bwd_err["dq"], "k2_bwd_dq_b8"),
+        ("consensus_update_bwd_dkv", "consensus_update_bwd.cu",
+         "glom_tpu/kernels/consensus_update.py:1179", k2_bwd_err["dkv"], "k2_bwd_dkv_b8"),
     ):
-        src = ("glom_tpu_torch/csrc/grouped_mlp.cu" if kname.startswith("grouped")
-               else "glom_tpu_torch/csrc/consensus_update.cu")
-        kernels.append(dict(name=kname, route="cuda", source=src, replaces=replaces,
+        kernels.append(dict(name=kname, route="cuda", source=csrc + src, replaces=replaces,
                             launches=launches[kname], max_abs_err=err,
                             **timings[tkey], library_ms=None))
+    if min(kd["launches"] for kd in kernels) == 0:
+        raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

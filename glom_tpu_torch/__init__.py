@@ -1,11 +1,13 @@
-"""glom_tpu_torch: the GLOM forward and its fixed-route server in PyTorch,
-with hand-written CUDA kernels for Hopper (sm_90a).
+"""glom_tpu_torch: the GLOM forward, its fixed-route server and its
+single-device denoising trainer in PyTorch, with hand-written CUDA kernels
+for Hopper (sm_90a).
 
 A port of `glom_tpu` that imports neither JAX nor `glom_tpu`. The fused
 path runs the grouped-MLP kernel (K1) twice and the consensus-update
-kernel (K2) once per iteration on a CUDA device; on CPU tensors the same
-functions run as plain PyTorch. Entry points default to `device="cuda"`
-and raise when no card is present unless the caller passes `device="cpu"`.
+kernel (K2) once per iteration on a CUDA device, and training adds their
+backward kernels; on CPU tensors the same functions run as plain PyTorch.
+Entry points default to `device="cuda"` and raise when no card is present
+unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from glom_tpu_torch.models import (
     params_from_numpy,
 )
 from glom_tpu_torch.serve import InferenceEngine, ServeResult
-from glom_tpu_torch.utils import GlomConfig, ServeConfig, resolve_device
+from glom_tpu_torch.train import Trainer
+from glom_tpu_torch.utils import GlomConfig, ServeConfig, TrainConfig, resolve_device
 
 
 def entry(device="cuda"):
@@ -49,6 +52,8 @@ __all__ = [
     "InferenceEngine",
     "ServeConfig",
     "ServeResult",
+    "TrainConfig",
+    "Trainer",
     "entry",
     "glom_forward",
     "init_glom",

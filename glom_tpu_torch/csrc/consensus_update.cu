@@ -4,7 +4,9 @@
 //   cons_i = softmax_j(q_i . normalize(k_j) * d^-1/2 [masks]) . v_j
 //   out_i  = (levels_i + bu_i + td_i + cons_i) / (g < L-1 ? 4 : 3)
 //
-// with q = v = levels and td = 0 at the top level g = L-1.
+// with q = v = levels and td = 0 at the top level g = L-1. For training it
+// can also write each row's softmax statistics m (max score) and l (sum of
+// exp(s - m)), f32 [L, B, n], for the backward (csrc/consensus_update_bwd.cu).
 //
 // Replaces: glom_tpu/kernels/consensus_update.py:_consensus_update_kernel
 // (resident k/v row) and :_consensus_update_kernel_streamed (streamed j
@@ -96,7 +98,8 @@ struct Layout {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 consensus_update_kernel(const T* __restrict__ lv, const T* __restrict__ bu,
-                        const T* __restrict__ td, T* __restrict__ out, int L, int B,
+                        const T* __restrict__ td, T* __restrict__ out,
+                        float* __restrict__ m_out, float* __restrict__ l_out, int L, int B,
                         int n, int d, int side, int reach, float r2, int attend_self,
                         float scale) {
   constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
@@ -273,6 +276,11 @@ consensus_update_kernel(const T* __restrict__ lv, const T* __restrict__ bu,
     const float v = (((to_f(qs[r * lay.ld + c]) + to_f(bu[base + e])) + t) + cons) / div;
     out[base + e] = from_f<T>(v);
   }
+  if (m_out != nullptr && tid < TI) {
+    const size_t row = ((size_t)g * B + b) * n + i0 + tid;
+    m_out[row] = m_row[tid];
+    l_out[row] = l_row[tid];
+  }
 }
 
 // Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
@@ -295,10 +303,12 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
 }
 
 template <typename T>
-int launch(const void* lv, const void* bu, const void* td, void* out, int L, int B, int n,
-           int d, int side, double radius, int attend_self, cudaStream_t stream) {
+int launch(const void* lv, const void* bu, const void* td, void* out, float* m_out,
+           float* l_out, int L, int B, int n, int d, int side, double radius, int attend_self,
+           cudaStream_t stream) {
   constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
-  if (L < 2 || B < 1 || n % TI != 0 || n % TJ != 0 || d % 64 != 0 || side < 1)
+  if (L < 2 || B < 1 || n % TI != 0 || n % TJ != 0 || d % 64 != 0 || side < 1 ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool lifted[MAX_DEVICES];
   const cudaError_t err = lift_smem_cap(consensus_update_kernel<T>, lifted);
@@ -310,7 +320,7 @@ int launch(const void* lv, const void* bu, const void* td, void* out, int L, int
   const dim3 grid(n / TI, B, L);
   consensus_update_kernel<T><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(lv), static_cast<const T*>(bu), static_cast<const T*>(td),
-      static_cast<T*>(out), L, B, n, d, side, reach, r2, attend_self, scale);
+      static_cast<T*>(out), m_out, l_out, L, B, n, d, side, reach, r2, attend_self, scale);
   return (int)cudaGetLastError();
 }
 
@@ -319,15 +329,17 @@ int launch(const void* lv, const void* bu, const void* td, void* out, int L, int
 extern "C" {
 
 // lv, bu, out: [L, B, n, d]; td: [L-1, B, n, d]; contiguous, one dtype
-// (is_bf16 selects bf16, else f32); side: patch-grid side (n = side^2 for a
-// local radius); radius <= 0 means global consensus. Returns a cudaError_t.
-int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* out, int L,
-                         int B, int n, int d, int side, double radius, int attend_self,
-                         int is_bf16, void* stream) {
+// (is_bf16 selects bf16, else f32); m_out, l_out: f32 [L, B, n], both or
+// neither; side: patch-grid side (n = side^2 for a local radius); radius <= 0
+// means global consensus. Returns a cudaError_t.
+int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* out,
+                         float* m_out, float* l_out, int L, int B, int n, int d, int side,
+                         double radius, int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(lv, bu, td, out, L, B, n, d, side, radius,
-                                         attend_self, s)
-                 : launch<float>(lv, bu, td, out, L, B, n, d, side, radius, attend_self, s);
+  return is_bf16 ? launch<__nv_bfloat16>(lv, bu, td, out, m_out, l_out, L, B, n, d, side,
+                                         radius, attend_self, s)
+                 : launch<float>(lv, bu, td, out, m_out, l_out, L, B, n, d, side, radius,
+                                 attend_self, s);
 }
 
 const char* consensus_update_error_string(int err) {

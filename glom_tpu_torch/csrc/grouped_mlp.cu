@@ -2,6 +2,10 @@
 //
 //   out[g, r] = GELU((x[g, r] (+ a[r mod n])) . w1[g] + b1[g]) . w2[g] + b2[g]
 //
+// For training it can also write the pre-activation pre = xa . w1 + b1,
+// [G, M, f] in x's type, for the backward (csrc/grouped_mlp_bwd.cu). The
+// store is a template parameter, so the serving launch compiles it out.
+//
 // Replaces: glom_tpu/kernels/grouped_mlp.py:_mlp_kernel (bottom-up) and
 // :_mlp_kernel_add (top-down, with the positional addend folded into the
 // tile load), as one kernel with an optional addend pointer.
@@ -60,12 +64,13 @@ struct Bf16Layout {
   }
 };
 
+template <bool SAVE_PRE>
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
              int n, const __nv_bfloat16* __restrict__ w1,
              const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-             int M, int d, int f) {
+             __nv_bfloat16* __restrict__ pre, int M, int d, int f) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Bf16Layout lay(d);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -118,10 +123,11 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
                               wmma::mem_row_major);
     }
     __syncthreads();
-    // + b1, GELU in f32, round to bf16.
+    // + b1 (saved, rounded, when training), GELU in f32, round to bf16.
     for (int e = tid; e < TM * FC; e += THREADS) {
       const int r = e / FC, j = e - r * FC;
       const float z = hf[r * lay.ldhf + j] + __bfloat162float(b1g[c0 + j]);
+      if constexpr (SAVE_PRE) pre[((size_t)g * M + m0 + r) * f + c0 + j] = __float2bfloat16(z);
       hb[r * lay.ldhb + j] = __float2bfloat16(gelu_tanh(z));
     }
     __syncthreads();
@@ -165,11 +171,12 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 // f32: the same blocking on the CUDA cores. Phase one gives each thread one
 // hidden column and 8 rows; phase two gives each thread whole output
 // columns (all TM rows in registers) so every w2 value is read once.
+template <bool SAVE_PRE>
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
             const float* __restrict__ w1, const float* __restrict__ b1,
             const float* __restrict__ w2, const float* __restrict__ b2,
-            float* __restrict__ out, int M, int d, int f) {
+            float* __restrict__ out, float* __restrict__ pre, int M, int d, int f) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);  // [TM][d]
   float* acc = xs + TM * d;                     // [TM][d]
@@ -205,7 +212,11 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
     }
     const float bias = b1[(size_t)g * f + c0 + j];
 #pragma unroll
-    for (int r = 0; r < ROWS_A; ++r) hs[(r0 + r) * FC + j] = gelu_erf(s[r] + bias);
+    for (int r = 0; r < ROWS_A; ++r) {
+      const float z = s[r] + bias;
+      if constexpr (SAVE_PRE) pre[((size_t)g * M + m0 + r0 + r) * f + c0 + j] = z;
+      hs[(r0 + r) * FC + j] = gelu_erf(z);
+    }
     __syncthreads();
     for (int c = tid; c < d; c += THREADS) {
       float o[TM];
@@ -248,43 +259,54 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
   return err;
 }
 
+// One launch of the forward, with the pre-activation store compiled in
+// (training) or out (serving).
+template <bool SAVE_PRE>
+cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* out, void* pre, int G, int M,
+                       int d, int f, int is_bf16, cudaStream_t s) {
+  static bool lifted_bf16[MAX_DEVICES], lifted_f32[MAX_DEVICES];
+  const dim3 grid(M / TM, G);
+  cudaError_t err;
+  if (is_bf16) {
+    err = lift_smem_cap(mlp_fwd_bf16<SAVE_PRE>, lifted_bf16);
+    if (err != cudaSuccess) return err;
+    mlp_fwd_bf16<SAVE_PRE><<<grid, THREADS, Bf16Layout(d).bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a), n,
+        static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
+        static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
+        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(pre), M, d, f);
+  } else {
+    err = lift_smem_cap(mlp_fwd_f32<SAVE_PRE>, lifted_f32);
+    if (err != cudaSuccess) return err;
+    mlp_fwd_f32<SAVE_PRE><<<grid, THREADS, f32_smem_bytes(d), s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(a), n,
+        static_cast<const float*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<const float*>(b2),
+        static_cast<float*>(out), static_cast<float*>(pre), M, d, f);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, out: [G, M, d]; a: [n, d] or NULL; w1: [G, d, f]; b1: [G, f];
-// w2: [G, f, d]; b2: [G, d]. All contiguous, on the current device, of one
-// dtype (is_bf16 selects bf16, else f32). Returns a cudaError_t.
+// w2: [G, f, d]; b2: [G, d]; pre: [G, M, f] or NULL. All contiguous, on the
+// current device, of one dtype (is_bf16 selects bf16, else f32). Returns a
+// cudaError_t.
 int grouped_mlp_fwd(const void* x, const void* a, int n, const void* w1, const void* b1,
-                    const void* w2, const void* b2, void* out, int G, int M, int d, int f,
-                    int is_bf16, void* stream) {
+                    const void* w2, const void* b2, void* out, void* pre, int G, int M, int d,
+                    int f, int is_bf16, void* stream) {
   if (G < 1 || M % TM != 0 || d % 64 != 0 || f % FC != 0 ||
       (a != nullptr && (n < 1 || M % n != 0)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(M / TM, G);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool lifted_bf16[MAX_DEVICES], lifted_f32[MAX_DEVICES];
-  cudaError_t err;
-  if (is_bf16) {
-    const size_t bytes = Bf16Layout(d).bytes;
-    err = lift_smem_cap(mlp_fwd_bf16, lifted_bf16);
-    if (err != cudaSuccess) return (int)err;
-    mlp_fwd_bf16<<<grid, THREADS, bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a), n,
-        static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
-        static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
-        static_cast<__nv_bfloat16*>(out), M, d, f);
-  } else {
-    const size_t bytes = f32_smem_bytes(d);
-    err = lift_smem_cap(mlp_fwd_f32, lifted_f32);
-    if (err != cudaSuccess) return (int)err;
-    mlp_fwd_f32<<<grid, THREADS, bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(a), n,
-        static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<float*>(out), M, d, f);
-  }
-  return (int)cudaGetLastError();
+  return (int)(pre != nullptr
+                   ? launch_fwd<true>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16, s)
+                   : launch_fwd<false>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16,
+                                       s));
 }
 
 const char* grouped_mlp_error_string(int err) {

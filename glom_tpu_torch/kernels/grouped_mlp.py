@@ -1,7 +1,7 @@
-"""K1 forward: the fused grouped per-level MLP, level-major [G, M, d].
+"""K1: the fused grouped per-level MLP, level-major [G, M, d], and its VJP.
 
-Counterpart of `glom_tpu/kernels/grouped_mlp.py` (forward). The CUDA
-kernel `csrc/grouped_mlp.cu` replaces both `_mlp_kernel` (bottom-up) and
+Counterpart of `glom_tpu/kernels/grouped_mlp.py`. The CUDA kernel
+`csrc/grouped_mlp.cu` replaces both `_mlp_kernel` (bottom-up) and
 `_mlp_kernel_add` (top-down, positional addend folded into the load):
 
     out[g] = GELU((x[g] + tile(add)) @ w1[g] + b1[g]) @ w2[g] + b2[g]
@@ -9,11 +9,22 @@ kernel `csrc/grouped_mlp.cu` replaces both `_mlp_kernel` (bottom-up) and
 with the [G, M, f] hidden kept on chip. Per-dtype rules of the reference
 kernel: bf16 uses the tanh GELU, f32 the exact erf; both products
 accumulate in f32, the hidden is rounded to x's dtype before the second.
+For training the forward can also write the pre-activation [G, M, f].
 
-`fused_grouped_ffw_lm` runs the plain PyTorch version `grouped_mlp_plain`
-for tensors on the CPU and launches the kernel for CUDA tensors (raising
-on anything it does not take). `LAUNCHES` counts kernel launches,
-`LAUNCHES_ADD` those with an addend.
+`csrc/grouped_mlp_bwd.cu` replaces the backward kernels `_mlp_bwd_kernel`,
+`_mlp_bwd_kernel_saved` and `_mlp_bwd_kernel_saved_add`: dx, the four
+weight and bias grads (f32 sums, cast to the parameter dtype) and, with an
+addend, da. `grouped_ffw_lm_vjp` is the differentiable entry, the twin of
+`_fused_lm`/`_fused_lm_add`: it saves the pre-activation where `_fwd` does
+(bf16 under a 512 MB cap) and recomputes it otherwise.
+
+`fused_grouped_ffw_lm` and `grouped_mlp_bwd` run the plain PyTorch versions
+(`grouped_mlp_plain`, `grouped_mlp_bwd_plain`) for tensors on the CPU and
+launch the kernels for CUDA tensors (raising on anything they do not take).
+The raw forward writes through a pointer autograd cannot see, so it refuses
+an input that requires grad while grad mode is on. `LAUNCHES` counts
+forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_BWD` and
+`LAUNCHES_BWD_ADD` count backward launches.
 """
 
 from __future__ import annotations
@@ -29,14 +40,23 @@ from glom_tpu_torch.ops.ffw import GroupedFFWParams
 
 LAUNCHES = 0
 LAUNCHES_ADD = 0
+LAUNCHES_BWD = 0
+LAUNCHES_BWD_ADD = 0
 
 ROW_TILE = 32  # rows of x per block (csrc/grouped_mlp.cu TM)
 WIDTH_MULTIPLE = 64  # d and f must be multiples of this
+# Per-call cap on the saved [G, M, f] pre-activation (glom_tpu's
+# _SAVE_PRE_LIMIT): past it the backward recomputes the first product.
+SAVE_PRE_LIMIT = 512 * 1024 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "grouped_mlp_fwd": ([_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_fwd": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
+}
+_BWD_SIGNATURES = {
+    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
 
@@ -44,20 +64,101 @@ def _lib() -> ctypes.CDLL:
     return _build.load("grouped_mlp", _SIGNATURES)
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    return _build.load("grouped_mlp_bwd", _BWD_SIGNATURES)
+
+
+def refuse_grad(*tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: a raw kernel
+    writes through a pointer autograd cannot see, so its result would carry
+    no gradient. The autograd Functions call the kernels with grad off."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            "a raw kernel wrapper got an input that requires grad under grad "
+            "mode; differentiate through the autograd entry instead"
+        )
+
+
+def gelu_value_and_grad(z: torch.Tensor, *, tanh_form: bool):
+    """GELU and its derivative in f32 (glom_tpu's _gelu_value_and_grad):
+    the tanh form in bf16, the erf form in f32."""
+    if tanh_form:
+        c, k = 0.7978845608028654, 0.044715
+        t = torch.tanh(c * (z + k * z * z * z))
+        val = 0.5 * z * (1.0 + t)
+        grad = 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * c * (1.0 + 3.0 * k * z * z)
+        return val, grad
+    phi = torch.exp(-0.5 * z * z) * (2.0 * torch.pi) ** -0.5
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    return z * cdf, cdf + z * phi
+
+
+def _with_addend(x: torch.Tensor, add: Optional[torch.Tensor]) -> torch.Tensor:
+    """x + tile(add), rounded once to x's dtype, as the kernels load it."""
+    if add is None:
+        return x
+    return (x + add.repeat(x.shape[1] // add.shape[0], 1)[None]).to(x.dtype)
+
+
 def grouped_mlp_plain(
-    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, with its rounding points."""
+    params: GroupedFFWParams,
+    x: torch.Tensor,
+    add: Optional[torch.Tensor] = None,
+    *,
+    save_pre: bool = False,
+):
+    """The kernel's function in plain PyTorch, with its rounding points.
+    save_pre=True also returns the pre-activation [G, M, f] in x's dtype."""
     w1, b1, w2, b2 = params
     f32 = torch.float32
-    G, M, d = x.shape
-    if add is not None:
-        x = (x + add.repeat(M // add.shape[0], 1)[None]).to(x.dtype)
+    x = _with_addend(x, add)
     pre = torch.bmm(x.to(f32), w1.to(f32)) + b1.to(f32)[:, None, :]
     h = F.gelu(pre, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
     h = h.to(x.dtype)
     out = torch.bmm(h.to(f32), w2.to(f32)) + b2.to(f32)[:, None, :]
-    return out.to(x.dtype)
+    out = out.to(x.dtype)
+    return (out, pre.to(x.dtype)) if save_pre else out
+
+
+def grouped_mlp_bwd_plain(
+    params: GroupedFFWParams,
+    x: torch.Tensor,
+    g: torch.Tensor,
+    add: Optional[torch.Tensor] = None,
+    pre: Optional[torch.Tensor] = None,
+):
+    """The backward kernel's function in plain PyTorch, with its rounding
+    points (glom_tpu's _mlp_bwd_tail): h and dpre rounded to x's dtype,
+    every product and sum in f32. `pre` is the forward's saved
+    pre-activation, or None to recompute it. Returns (dx, grads, da): grads
+    in the parameter dtypes, da [n, d] (the addend's dtype) or None."""
+    w1, b1, w2, b2 = params
+    f32 = torch.float32
+    G, M, d = x.shape
+    xa = _with_addend(x, add)
+    if pre is None:
+        z = torch.bmm(xa.to(f32), w1.to(f32)) + b1.to(f32)[:, None, :]
+    else:
+        z = pre.to(f32)
+    val, grad = gelu_value_and_grad(z, tanh_form=x.dtype == torch.bfloat16)
+    h = val.to(x.dtype).to(f32)
+    g32 = g.to(f32)
+    dh = torch.bmm(g32, w2.to(f32).transpose(1, 2))
+    dpre = (dh * grad).to(x.dtype).to(f32)
+    dx32 = torch.bmm(dpre, w1.to(f32).transpose(1, 2))
+    grads = GroupedFFWParams(
+        torch.bmm(xa.to(f32).transpose(1, 2), dpre).to(w1.dtype),
+        dpre.sum(dim=1).to(b1.dtype),
+        torch.bmm(h.transpose(1, 2), g32).to(w2.dtype),
+        g32.sum(dim=1).to(b2.dtype),
+    )
+    da = None
+    if add is not None:
+        n = add.shape[0]
+        da = dx32.reshape(G, M // n, n, d).sum(dim=(0, 1)).to(add.dtype)
+    return dx32.to(x.dtype), grads, da
 
 
 def check_kernel_args(
@@ -98,17 +199,24 @@ def check_kernel_args(
         raise ValueError(f"addend rows {add.shape[0]} must divide M={M}")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def fused_grouped_ffw_lm(
     params: GroupedFFWParams,
     x: torch.Tensor,
     *,
     add: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    save_pre: bool = False,
+):
     """x [G, M, d] -> [G, M, d]; add: optional [n, d] positional addend with
-    M = b * n (n inner), added to row r as add[r mod n] on load."""
+    M = b * n (n inner), added to row r as add[r mod n] on load.
+    save_pre=True returns (out, pre) with the [G, M, f] pre-activation."""
     global LAUNCHES, LAUNCHES_ADD
+    refuse_grad(x, add, *params)
     if x.device.type == "cpu":
-        return grouped_mlp_plain(params, x, add)
+        return grouped_mlp_plain(params, x, add, save_pre=save_pre)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     check_kernel_args(params, x, add)
@@ -117,15 +225,137 @@ def fused_grouped_ffw_lm(
     f = params.w1.shape[-1]
     is_bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty_like(x)
+    pre = x.new_empty((G, M, f)) if save_pre else None
     w1, b1, w2, b2 = params
     err = lib.grouped_mlp_fwd(
-        x.data_ptr(), add.data_ptr() if add is not None else None,
-        add.shape[0] if add is not None else 0,
+        x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        G, M, d, f, is_bf16, torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(pre), G, M, d, f, is_bf16, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_fwd", lib.grouped_mlp_error_string)
     LAUNCHES += 1
     if add is not None:
         LAUNCHES_ADD += 1
-    return out
+    return (out, pre) if save_pre else out
+
+
+def grouped_mlp_bwd(
+    params: GroupedFFWParams,
+    x: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    add: Optional[torch.Tensor] = None,
+    pre: Optional[torch.Tensor] = None,
+):
+    """The VJP of `fused_grouped_ffw_lm` at (params, x, add) for the output
+    cotangent g [G, M, d]: (dx, grads, da), as `grouped_mlp_bwd_plain`.
+    `pre` is the forward's saved pre-activation, or None to recompute it."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_ADD
+    if x.device.type == "cpu":
+        return grouped_mlp_bwd_plain(params, x, g, add, pre)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    check_kernel_args(params, x, add)
+    G, M, d = x.shape
+    f = params.w1.shape[-1]
+    for name, t, shape in (("g", g, (G, M, d)), ("pre", pre, (G, M, f))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} must be {shape} {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _bwd_lib()
+    w1, b1, w2, b2 = params
+    dx = torch.empty_like(x)
+    grads = GroupedFFWParams(*(torch.empty_like(t) for t in params))
+    # h is formed from a saved pre in the weight pass; without one, the row
+    # pass writes it here.
+    h_ws = x.new_empty((G, M, f)) if pre is None else None
+    dpre_ws = x.new_empty((G, M, f))
+    da = dx32 = None
+    if add is not None:
+        da = torch.empty_like(add)
+        dx32 = x.new_empty((G, M, d), dtype=torch.float32)
+    err = lib.grouped_mlp_bwd(
+        x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(pre), g.data_ptr(),
+        dx.data_ptr(), *(t.data_ptr() for t in grads), _ptr(da),
+        _ptr(h_ws), dpre_ws.data_ptr(), _ptr(dx32),
+        G, M, d, f, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "grouped_mlp_bwd", lib.grouped_mlp_bwd_error_string)
+    LAUNCHES_BWD += 1
+    if add is not None:
+        LAUNCHES_BWD_ADD += 1
+    return dx, grads, da
+
+
+def save_pre_ok(params: GroupedFFWParams, x: torch.Tensor) -> bool:
+    """Whether the training forward saves the pre-activation (glom_tpu's
+    _save_pre_ok): bf16, and the [G, M, f] residual under SAVE_PRE_LIMIT.
+    f32 recomputes it in the backward."""
+    G, M, _ = x.shape
+    return (
+        x.dtype == torch.bfloat16
+        and G * M * params.w1.shape[-1] * x.element_size() <= SAVE_PRE_LIMIT
+    )
+
+
+class _GroupedFFW(torch.autograd.Function):
+    """The differentiable grouped FFW: glom_tpu's _fused_lm (custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        params = GroupedFFWParams(w1, b1, w2, b2)
+        pre = None
+        if save_pre_ok(params, x):
+            out, pre = fused_grouped_ffw_lm(params, x, save_pre=True)
+        else:
+            out = fused_grouped_ffw_lm(params, x)
+        ctx.save_for_backward(x, w1, b1, w2, b2, pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, pre = ctx.saved_tensors
+        params = GroupedFFWParams(w1, b1, w2, b2)
+        dx, grads, _ = grouped_mlp_bwd(params, x, g.contiguous().to(x.dtype), pre=pre)
+        return (dx, *grads)
+
+
+class _GroupedFFWAdd(torch.autograd.Function):
+    """The differentiable grouped FFW with a folded positional addend:
+    glom_tpu's _fused_lm_add (custom_vjp). da is summed over groups, batch
+    copies and rows in f32, then cast to the addend's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, add, w1, b1, w2, b2):
+        params = GroupedFFWParams(w1, b1, w2, b2)
+        pre = None
+        if save_pre_ok(params, x):
+            out, pre = fused_grouped_ffw_lm(params, x, add=add, save_pre=True)
+        else:
+            out = fused_grouped_ffw_lm(params, x, add=add)
+        ctx.save_for_backward(x, add, w1, b1, w2, b2, pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, add, w1, b1, w2, b2, pre = ctx.saved_tensors
+        params = GroupedFFWParams(w1, b1, w2, b2)
+        dx, grads, da = grouped_mlp_bwd(
+            params, x, g.contiguous().to(x.dtype), add=add, pre=pre
+        )
+        return (dx, da, *grads)
+
+
+def grouped_ffw_lm_vjp(
+    params: GroupedFFWParams, x: torch.Tensor, *, add: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """`fused_grouped_ffw_lm` with a gradient: the kernels' forward and
+    backward under autograd (plain versions for CPU tensors)."""
+    if add is None:
+        return _GroupedFFW.apply(x, *params)
+    return _GroupedFFWAdd.apply(x, add, *params)

@@ -5,6 +5,9 @@ from glom_tpu_torch.models.core import (
     glom_forward,
     init_glom,
     map_params,
+    param_leaves,
+    resolve_vjp_path,
+    unflatten_params,
     update_step,
 )
 from glom_tpu_torch.models.transplant import params_from_numpy
@@ -16,6 +19,9 @@ __all__ = [
     "glom_forward",
     "init_glom",
     "map_params",
+    "param_leaves",
     "params_from_numpy",
+    "resolve_vjp_path",
+    "unflatten_params",
     "update_step",
 ]

@@ -13,6 +13,13 @@ Two routes behind `glom_forward`:
     level-major carry and, per iteration, the K1 kernel twice (bottom-up,
     top-down with the positional addend folded in) and the K2 kernel once
     (consensus + 4-way mean). On CPU tensors the kernels' plain versions run.
+    When grad mode is on and an input requires grad, each launch goes
+    through an autograd Function whose backward is the K1 or K2 backward
+    kernel (glom_tpu's per-iteration custom VJPs, its "scan_blockwise"
+    route); `resolve_vjp_path` names the route a training step takes.
+
+`remat=True` recomputes each iteration in the backward
+(`torch.utils.checkpoint`, glom_tpu's jax.checkpoint over the scan body).
 """
 
 from __future__ import annotations
@@ -21,9 +28,13 @@ from functools import partial
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from glom_tpu_torch.kernels.consensus_update import fused_consensus_update
-from glom_tpu_torch.kernels.grouped_mlp import fused_grouped_ffw_lm
+from glom_tpu_torch.kernels.consensus_update import (
+    consensus_update_vjp,
+    fused_consensus_update,
+)
+from glom_tpu_torch.kernels.grouped_mlp import fused_grouped_ffw_lm, grouped_ffw_lm_vjp
 from glom_tpu_torch.ops.consensus import build_local_mask, consensus_attention
 from glom_tpu_torch.ops.ffw import GroupedFFWParams, grouped_ffw, init_grouped_ffw
 from glom_tpu_torch.ops.patch import LinearParams, image_to_tokens, init_linear
@@ -42,6 +53,26 @@ class GlomParams(NamedTuple):
     init_levels: torch.Tensor  # [L, d] learned column init  (reference :95)
     bottom_up: GroupedFFWParams  # groups = L               (reference :98)
     top_down: GroupedFFWParams  # groups = L - 1            (reference :99)
+
+
+def param_leaves(params) -> list:
+    """The tensors of a (nested) params NamedTuple, in field order."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    return [t for field in params for t in param_leaves(field)]
+
+
+def unflatten_params(template, leaves):
+    """`template`'s (nested) NamedTuple structure over `leaves`, given in
+    `param_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        return type(node)(*(build(field) for field in node))
+
+    return build(template)
 
 
 def map_params(fn, params: GlomParams) -> GlomParams:
@@ -127,6 +158,7 @@ def glom_forward(
     compute_dtype=None,
     consensus_fn: Optional[ConsensusFn] = None,
     use_pallas: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """The T-iteration GLOM forward (reference :103-152).
 
@@ -134,7 +166,8 @@ def glom_forward(
     (T+1 includes the initial state). `levels` [b, n, L, d] continues from a
     previous call. Params, image and levels are cast to `compute_dtype`
     once, before the loop. use_pallas=True selects the fused level-major
-    route through the K1/K2 kernels.
+    route through the K1/K2 kernels. remat=True recomputes each iteration's
+    activations in the backward instead of keeping them.
     """
     T = default(iters, cfg.default_iters)
     if compute_dtype is not None:
@@ -150,7 +183,8 @@ def glom_forward(
                 "(ROADMAP queue A item 8)"
             )
         return _glom_forward_fused(
-            params, img, cfg, iters=T, levels_in=levels, return_all=return_all
+            params, img, cfg, iters=T, levels_in=levels, return_all=return_all,
+            remat=remat,
         )
 
     if consensus_fn is None:
@@ -169,14 +203,42 @@ def glom_forward(
         levels = params.init_levels[None, None].expand(b, n, cfg.levels, d).to(tokens.dtype)
     divisor = contribution_divisor(cfg.levels, torch.float32, img.device)
 
+    step = partial(update_step, params, bottom=bottom, pos=pos, divisor=divisor,
+                   consensus_fn=consensus_fn)
     states = [levels]
     for _ in range(T):
-        levels = update_step(params, levels, bottom, pos, divisor, consensus_fn=consensus_fn)
+        levels = checkpoint(step, levels, use_reentrant=False) if remat else step(levels)
         if return_all:
             states.append(levels)
     if return_all:
         return torch.stack(states, dim=0)  # [T+1, b, n, L, d]
     return levels
+
+
+def resolve_vjp_path(
+    *, use_pallas: bool = False, custom_consensus: bool = False, device="cuda"
+) -> str:
+    """Which backward a training forward takes (glom_tpu's resolve_vjp_path,
+    the one source both the dispatch and the records read):
+
+      'scan_blockwise' -- the fused route on the card: per iteration, the
+                          K1 and K2 backward kernels;
+      'scan_dense'     -- anything else (the reference route, a custom
+                          consensus_fn, or the plain versions on the CPU).
+
+    glom_tpu sends batch >= 8 to the whole-loop VJP ('fused_loop', K3),
+    deciding on the shapes. K3 is not ported yet (ROADMAP queue B), so no
+    input reaches it here, and the shapes are not read.
+    """
+    if use_pallas and not custom_consensus and torch.device(device).type == "cuda":
+        return "scan_blockwise"
+    return "scan_dense"
+
+
+def _wants_grad(params: GlomParams, *tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (*param_leaves(params), *tensors)
+    )
 
 
 def _glom_forward_fused(
@@ -187,6 +249,7 @@ def _glom_forward_fused(
     iters: int,
     levels_in: Optional[torch.Tensor],
     return_all: bool,
+    remat: bool = False,
 ) -> torch.Tensor:
     """The fused forward: a level-major carry and three kernel launches per
     iteration.
@@ -194,16 +257,51 @@ def _glom_forward_fused(
     The carry is one [L+1, b, n, d] buffer with the image tokens in slot 0
     and the levels in slots 1..L, so the bottom-up input (slots 0..L-1), the
     top-down input (slots 2..L) and the consensus input (slots 1..L) are all
-    contiguous views and no concat is built. K2 writes the next levels into
-    a second such buffer (it must not write over rows other blocks still
-    read), and the two buffers swap each iteration. A carried-in `levels`
-    takes the tokens' dtype.
+    contiguous views. A carried-in `levels` takes the tokens' dtype.
+
+    Without a gradient (serving), K2 writes the next levels into a second
+    such buffer (it must not write over rows other blocks still read), and
+    the two buffers swap each iteration: no concat and no copy. With one,
+    the launches go through the autograd Functions, and each iteration
+    builds a fresh carry: autograd keeps the carry for the backward, and a
+    kernel's write into a kept buffer would change it unseen.
     """
     tokens = image_to_tokens(params.token_embed, img, cfg.patch_size)  # [b, n, d]
     b, n, d = tokens.shape
     L = cfg.levels
     if params.pos_emb.shape != (n, d):
         raise ValueError(f"pos_emb {tuple(params.pos_emb.shape)} != ({n}, {d})")
+    geometry = dict(
+        side=cfg.num_patches_side,
+        radius=float(cfg.local_consensus_radius),
+        attend_self=cfg.consensus_self,
+    )
+    if _wants_grad(params, img, levels_in):
+        if exists(levels_in):
+            levels_lm = levels_in.permute(2, 0, 1, 3)
+        else:
+            levels_lm = params.init_levels[:, None, None, :].expand(L, b, n, d)
+        carry = torch.cat([tokens[None], levels_lm.to(tokens.dtype)])
+
+        def step(carry):
+            bu = grouped_ffw_lm_vjp(params.bottom_up, carry[:L].reshape(L, b * n, d))
+            td = grouped_ffw_lm_vjp(
+                params.top_down, carry[2:].reshape(L - 1, b * n, d), add=params.pos_emb
+            )
+            new = consensus_update_vjp(
+                carry[1:], bu.view(L, b, n, d), td.view(L - 1, b, n, d), **geometry
+            )
+            return torch.cat([tokens[None], new])
+
+        states = [carry[1:]]
+        for _ in range(iters):
+            carry = checkpoint(step, carry, use_reentrant=False) if remat else step(carry)
+            if return_all:
+                states.append(carry[1:])
+        if return_all:
+            return torch.stack(states).permute(0, 2, 3, 1, 4)  # [T+1, b, n, L, d]
+        return carry[1:].permute(1, 2, 0, 3)  # [b, n, L, d]
+
     carry = torch.empty((L + 1, b, n, d), dtype=tokens.dtype, device=tokens.device)
     carry[0] = tokens
     if exists(levels_in):
@@ -221,10 +319,7 @@ def _glom_forward_fused(
         )
         fused_consensus_update(
             carry[1:], bu.view(L, b, n, d), td.view(L - 1, b, n, d),
-            side=cfg.num_patches_side,
-            radius=float(cfg.local_consensus_radius),
-            attend_self=cfg.consensus_self,
-            out=spare[1:],
+            out=spare[1:], **geometry,
         )
         carry, spare = spare, carry
         if return_all:

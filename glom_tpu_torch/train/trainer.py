@@ -1,0 +1,430 @@
+"""The single-device denoising trainer.
+
+Counterpart of `glom_tpu/train/trainer.py`, single device. A step draws
+the noise on the device from an explicit `torch.Generator`, runs the
+denoising loss forward and backward (on the card through the K1/K2 forward
+and backward kernels when `use_pallas`), and applies Adam or AdamW with the
+configured learning-rate schedule. Under `telemetry_level != "off"` it also
+computes the grad/update/param norms and the NaN/Inf guard; the "skip"
+policy keeps parameters and optimizer state bit-identical on a non-finite
+step.
+
+Every record names the backward it ran (`vjp_path`, from
+`resolve_vjp_path`) and the microbatch count (`grad_accum`). The whole-loop
+VJP (K3) is not ported yet, so no step takes "fused_loop" and nothing
+splits a batch to reach it. Not ported yet, and refused with the ROADMAP
+item that brings them: ZeRO stages, the quantized reduce and meshes (queue
+A item 8); schema stamping, metrics writers, trace capture and the memory
+probe (items 6 and 9); per-level agreement at telemetry "full" (item 9).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from glom_tpu_torch.data.prefetch import prefetch_to_device
+from glom_tpu_torch.models.core import (
+    ConsensusFn,
+    param_leaves,
+    resolve_vjp_path,
+    unflatten_params,
+)
+from glom_tpu_torch.telemetry import diagnostics as diag
+from glom_tpu_torch.train.objectives import (
+    DenoiseParams,
+    denoise_loss,
+    init_denoise,
+)
+from glom_tpu_torch.utils.config import GlomConfig, TrainConfig
+from glom_tpu_torch.utils.helpers import resolve_device
+
+_NOT_PORTED = "is not ported yet: ROADMAP queue A item {}"
+
+Optimizer = Callable[[DenoiseParams], torch.optim.Optimizer]
+
+
+class TrainState(NamedTuple):
+    params: DenoiseParams  # leaf tensors that require grad
+    optimizer: torch.optim.Optimizer  # holds the moment state
+    step: int
+
+
+def make_lr_schedule(tcfg: TrainConfig):
+    """The learning rate from the config: a float (constant) or a function
+    of the update count, with optax's semantics. Cosine decays to
+    lr_final_fraction * lr; for warmup_cosine, schedule_steps is the TOTAL
+    length including the linear warmup from 0."""
+    lr, final = tcfg.learning_rate, tcfg.learning_rate * tcfg.lr_final_fraction
+
+    def cosine(count, init, steps, end):
+        frac = min(count, steps) / steps
+        alpha = end / init if init else 0.0
+        return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac)) + alpha)
+
+    if tcfg.lr_schedule == "constant":
+        return lr
+    if tcfg.lr_schedule == "cosine":
+        return lambda count: cosine(count, lr, tcfg.schedule_steps, final)
+    if tcfg.lr_schedule == "warmup_cosine":
+        warm = tcfg.warmup_steps
+        if not 0 <= warm < tcfg.schedule_steps:
+            raise ValueError(
+                f"warmup_steps={warm} must be < schedule_steps={tcfg.schedule_steps} "
+                "(schedule_steps is the TOTAL length including warmup)"
+            )
+
+        def warmup_cosine(count):
+            if count < warm:
+                return lr * count / warm
+            return cosine(count - warm, lr, tcfg.schedule_steps - warm, final)
+
+        return warmup_cosine
+    raise ValueError(
+        f"lr_schedule={tcfg.lr_schedule!r}: one of 'constant', 'cosine', 'warmup_cosine'"
+    )
+
+
+def default_optimizer(tcfg: TrainConfig) -> Optimizer:
+    """Adam (AdamW with weight decay) as a factory over the params.
+    torch's Adam matches optax.adam (b1 0.9, b2 0.999, eps 1e-8 outside the
+    square root); AdamW's decay is decoupled and scaled by the learning
+    rate, as optax.adamw's. The step sets the scheduled rate."""
+
+    def build(params: DenoiseParams) -> torch.optim.Optimizer:
+        leaves = param_leaves(params)
+        if tcfg.weight_decay > 0:
+            return torch.optim.AdamW(
+                leaves, lr=tcfg.learning_rate, weight_decay=tcfg.weight_decay, eps=1e-8
+            )
+        return torch.optim.Adam(leaves, lr=tcfg.learning_rate, eps=1e-8)
+
+    return build
+
+
+def create_train_state(
+    cfg: GlomConfig,
+    tcfg: TrainConfig,
+    optimizer: Optional[Optimizer] = None,
+    *,
+    params: Optional[DenoiseParams] = None,
+    device="cuda",
+) -> Tuple[TrainState, Optimizer]:
+    """Params (seeded from tcfg.seed unless given) on `device`, made leaves
+    that require grad, and the optimizer built over them."""
+    device = resolve_device(device)
+    optimizer = optimizer if optimizer is not None else default_optimizer(tcfg)
+    if params is None:
+        params = init_denoise(cfg, generator=torch.Generator().manual_seed(tcfg.seed))
+    params = unflatten_params(
+        params, [t.detach().to(device).clone().requires_grad_() for t in param_leaves(params)]
+    )
+    return TrainState(params=params, optimizer=optimizer(params), step=0), optimizer
+
+
+def pinned_grad_accum(tcfg: TrainConfig) -> int:
+    """The microbatch count an explicit grad_accum pins, or 1 for None."""
+    accum = 1 if tcfg.grad_accum is None else tcfg.grad_accum
+    if accum < 1:
+        raise ValueError(f"grad_accum={tcfg.grad_accum} must be >= 1 or None")
+    return accum
+
+
+def accumulate_grads(loss_fn, params, img, noise, accum: int):
+    """Exact microbatch gradient accumulation with glom_tpu's STRIDED split
+    (microbatch i takes rows i, i + accum, ...): the mean of the
+    microbatch means equals the full-batch loss and gradient. Returns
+    (loss, grads) with grads in `param_leaves(params)` order."""
+    leaves = param_leaves(params)
+    imgs = img.reshape(-1, accum, *img.shape[1:]).transpose(0, 1)
+    noises = noise.reshape(-1, accum, *noise.shape[1:]).transpose(0, 1)
+    loss_sum, grads = None, None
+    for mi, mn in zip(imgs, noises):
+        loss = loss_fn(params, mi.contiguous(), mn.contiguous())
+        g = torch.autograd.grad(loss, leaves)
+        grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
+        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+    if accum == 1:
+        return loss_sum, grads
+    return loss_sum / accum, [g / accum for g in grads]
+
+
+def resolve_training_route(
+    tcfg: TrainConfig, *, custom_consensus: bool = False, device="cuda"
+) -> Tuple[int, str]:
+    """(grad_accum, vjp_path) for this config. glom_tpu splits an
+    auto-routed batch (grad_accum None) when that reaches the fused loop;
+    no route reaches it until K3 is ported, so nothing splits here."""
+    path = resolve_vjp_path(
+        use_pallas=tcfg.use_pallas, custom_consensus=custom_consensus, device=device
+    )
+    return pinned_grad_accum(tcfg), path
+
+
+def _refuse_unported(tcfg: TrainConfig, **kw) -> None:
+    asks = {
+        "zero_stage >= 1": tcfg.zero_stage != 0 or kw.get("zero_stage", 0) != 0,
+        "zero_shardings": kw.get("zero_shardings") is not None,
+        "quantized_reduce": bool(tcfg.quantized_reduce or kw.get("quantized_reduce")),
+    }
+    for what, asked in asks.items():
+        if asked:
+            raise NotImplementedError(f"{what} {_NOT_PORTED.format(8)}")
+    if tcfg.collective_timing != "off":
+        raise NotImplementedError(f"collective_timing {_NOT_PORTED.format(9)}")
+
+
+def make_train_step(
+    cfg: GlomConfig,
+    tcfg: TrainConfig,
+    *,
+    consensus_fn: Optional[ConsensusFn] = None,
+    with_grad_norm: bool = True,
+    zero_stage: int = 0,
+    zero_shardings=None,
+    quantized_reduce: Optional[bool] = None,
+    device="cuda",
+) -> Callable[[TrainState, torch.Tensor, torch.Generator], Tuple[TrainState, dict]]:
+    """The train step: (state, img, generator) -> (state, metrics). The
+    noise is drawn on the image's device from `generator`. Parameters and
+    optimizer state update in place; the returned state carries step + 1.
+    The returned function carries `.grad_accum` and `.vjp_path`."""
+    _refuse_unported(
+        tcfg, zero_stage=zero_stage, zero_shardings=zero_shardings,
+        quantized_reduce=quantized_reduce,
+    )
+    if tcfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"compute_dtype={tcfg.compute_dtype!r}: must be 'float32' or 'bfloat16'"
+        )
+    grad_accum, vjp_path = resolve_training_route(
+        tcfg, custom_consensus=consensus_fn is not None, device=device
+    )
+    if tcfg.batch_size % grad_accum:
+        raise ValueError(
+            f"grad_accum={tcfg.grad_accum} must divide batch_size={tcfg.batch_size}"
+        )
+    level = diag.resolve_telemetry_level(tcfg)
+    if level == "full":
+        raise NotImplementedError(
+            "telemetry_level='full' (per-level agreement) " + _NOT_PORTED.format(9)
+        )
+    compute_dtype = torch.bfloat16 if tcfg.compute_dtype == "bfloat16" else None
+    lr = make_lr_schedule(tcfg)
+
+    def loss_of(params, img, noise):
+        return denoise_loss(
+            params, img, noise, cfg, recon_index=tcfg.recon_iter_index, iters=tcfg.iters,
+            remat=tcfg.remat, compute_dtype=compute_dtype, consensus_fn=consensus_fn,
+            use_pallas=tcfg.use_pallas,
+        )
+
+    def train_step(state: TrainState, img: torch.Tensor, generator: torch.Generator):
+        noise = tcfg.noise_std * torch.randn(
+            img.shape, generator=generator, device=img.device, dtype=img.dtype
+        )
+        leaves = param_leaves(state.params)
+        loss, grads = accumulate_grads(loss_of, state.params, img, noise, grad_accum)
+        metrics = {"loss": loss, "step": state.step}
+        grad_norm = diag.global_norm(grads) if with_grad_norm or level != "off" else None
+        if with_grad_norm:
+            metrics["grad_norm"] = grad_norm
+        opt = state.optimizer
+        if level != "off":
+            old = [t.detach().clone() for t in leaves]
+            old_state = [t.clone() for t in _state_tensors(opt)]
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        for group in opt.param_groups:
+            group["lr"] = lr(state.step) if callable(lr) else lr
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        if level != "off":
+            with torch.no_grad():
+                new = [t.detach() for t in leaves]
+                taps = diag.scalar_taps(
+                    loss=loss, grad_norm=grad_norm,
+                    updates=[n - o for n, o in zip(new, old)], params=new,
+                )
+                nonfinite = taps.pop("nonfinite")
+                if tcfg.nonfinite_policy == "skip":
+                    for t, v in zip(new, diag.guard_update(nonfinite, new, old)):
+                        t.copy_(v)
+                    cur = _state_tensors(opt)
+                    if not old_state:  # the first step made the state: its
+                        # "before" is all zeros, which Adam reads as fresh
+                        old_state = [torch.zeros_like(t) for t in cur]
+                    for t, v in zip(cur, diag.guard_update(nonfinite, cur, old_state)):
+                        t.copy_(v)
+                    metrics["skipped_nonfinite"] = nonfinite.to(torch.int32)
+                metrics.update(taps)
+                metrics["nonfinite_step"] = nonfinite.to(torch.int32)
+        return state._replace(step=state.step + 1), metrics
+
+    train_step.grad_accum = grad_accum
+    train_step.vjp_path = vjp_path
+    return train_step
+
+
+def _state_tensors(opt: torch.optim.Optimizer) -> list:
+    """Every tensor of the optimizer's state, in a fixed order."""
+    return [
+        v for p in (p for g in opt.param_groups for p in g["params"])
+        for _, v in sorted(opt.state.get(p, {}).items()) if torch.is_tensor(v)
+    ]
+
+
+def _scalar(v):
+    """A metrics value as a JSON scalar (tensors are fetched)."""
+    if v is None or isinstance(v, (str, bool, int)):
+        return v
+    return float(v)
+
+
+def _quantile_ms(sorted_xs, q: float) -> Optional[float]:
+    """Nearest-rank quantile of sorted seconds, in ms (None when empty)."""
+    if not sorted_xs:
+        return None
+    return 1e3 * sorted_xs[min(len(sorted_xs) - 1, max(0, math.ceil(q * len(sorted_xs)) - 1))]
+
+
+def fit_loop(
+    step: Callable[[Any], dict],
+    data: Iterator,
+    num_steps: int,
+    *,
+    log_every: int = 10,
+    metrics_writer=None,
+    step_fast: Optional[Callable[[Any], dict]] = None,
+    compile_tracker: Optional[set] = None,
+    trace_capture=None,
+    memory_probe=None,
+    aux_records_probe=None,
+) -> list:
+    """Pull batches, step, and log every `log_every` steps (and the last).
+    step_fast, when given, runs the non-logging steps. Each step ends in a
+    device synchronize, so its host-clock time is the step's device time;
+    the first call of each variant (kernel builds, allocator warm-up) is
+    kept out of the percentiles, as glom_tpu keeps its compiles out.
+
+    Each record carries loss, step, grad_norm, steps_per_sec, the step-time
+    p50/p95 in ms, and vjp_path and grad_accum (from the metrics or the
+    step function's attributes)."""
+    for what, val, item in (
+        ("metrics_writer", metrics_writer, 6), ("trace_capture", trace_capture, 9),
+        ("memory_probe", memory_probe, 9), ("aux_records_probe", aux_records_probe, 9),
+    ):
+        if val is not None:
+            raise NotImplementedError(f"fit_loop({what}=...) {_NOT_PORTED.format(item)}")
+    history = []
+    times: list = []
+    seen = compile_tracker if compile_tracker is not None else set()
+    t0 = time.perf_counter()
+    for i in range(num_steps):
+        logging_step = (i + 1) % log_every == 0 or i == num_steps - 1
+        use_full = logging_step or step_fast is None
+        fn, key = (step, "step") if use_full else (step_fast, "step_fast")
+        first = key not in seen
+        seen.add(key)
+        batch = next(data)
+        t_step = time.perf_counter()
+        metrics = fn(batch)
+        _synchronize(metrics)
+        if not first:
+            times.append(time.perf_counter() - t_step)
+        if not logging_step:
+            continue
+        rec = {k: _scalar(v) for k, v in metrics.items()}
+        for k in ("vjp_path", "grad_accum"):
+            rec.setdefault(k, getattr(fn, k, None))
+        xs = sorted(times)
+        rec["steps_per_sec"] = (i + 1) / (time.perf_counter() - t0)
+        rec["step_time_p50_ms"] = _quantile_ms(xs, 0.50)
+        rec["step_time_p95_ms"] = _quantile_ms(xs, 0.95)
+        rec["steps_timed"] = len(xs)
+        history.append(rec)
+    return history
+
+
+def _synchronize(metrics: dict) -> None:
+    loss = metrics.get("loss")
+    if torch.is_tensor(loss) and loss.device.type == "cuda":
+        torch.cuda.synchronize(loss.device)
+
+
+class Trainer:
+    """Single-device wrapper: state, noise generator, steps, the fit loop.
+    Runs on the card unless the caller passes device="cpu"."""
+
+    def __init__(
+        self,
+        cfg: GlomConfig,
+        tcfg: TrainConfig,
+        *,
+        optimizer: Optional[Optimizer] = None,
+        consensus_fn: Optional[ConsensusFn] = None,
+        metrics_writer=None,
+        params: Optional[DenoiseParams] = None,
+        device="cuda",
+    ):
+        if metrics_writer is not None:
+            raise NotImplementedError(f"Trainer(metrics_writer=...) {_NOT_PORTED.format(6)}")
+        self.cfg, self.tcfg = cfg, tcfg
+        self.device = resolve_device(device)
+        self.state, self.optimizer = create_train_state(
+            cfg, tcfg, optimizer, params=params, device=self.device
+        )
+        self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        self.telemetry_level = diag.resolve_telemetry_level(tcfg)
+        self._step = make_train_step(
+            cfg, tcfg, consensus_fn=consensus_fn, device=self.device
+        )
+        self._step_fast = make_train_step(
+            cfg, tcfg, consensus_fn=consensus_fn, with_grad_norm=False, device=self.device
+        )
+        self.vjp_path = self._step.vjp_path
+        self.grad_accum = self._step.grad_accum
+        self._compile_tracker: set = set()
+
+    def _run(self, fn, batch) -> dict:
+        img = torch.as_tensor(
+            np.asarray(batch) if not torch.is_tensor(batch) else batch,
+            dtype=torch.float32, device=self.device,
+        )
+        self.state, metrics = fn(self.state, img, self.generator)
+        metrics["vjp_path"] = self.vjp_path
+        metrics["grad_accum"] = self.grad_accum
+        metrics["telemetry_level"] = self.telemetry_level
+        return metrics
+
+    def step(self, batch) -> dict:
+        return self._run(self._step, batch)
+
+    def step_fast(self, batch) -> dict:
+        """The step without the grad-norm sweep (fit runs it on the
+        non-logging steps)."""
+        return self._run(self._step_fast, batch)
+
+    def fit(
+        self,
+        data: Iterator,
+        num_steps: int,
+        *,
+        log_every: int = 10,
+        prefetch: int = 0,
+        trace_capture=None,
+    ) -> list:
+        """Run `num_steps` updates over [b, c, H, W] batches from `data`.
+        prefetch > 0 stages that many batches ahead (pinned host memory and
+        a side CUDA stream on the card)."""
+        if prefetch > 0:
+            data = prefetch_to_device(data, size=prefetch, device=self.device)
+        return fit_loop(
+            self.step, iter(data), num_steps, log_every=log_every,
+            step_fast=self.step_fast, compile_tracker=self._compile_tracker,
+            trace_capture=trace_capture,
+        )

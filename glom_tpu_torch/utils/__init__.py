@@ -1,4 +1,4 @@
-from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+from glom_tpu_torch.utils.config import GlomConfig, ServeConfig, TrainConfig
 from glom_tpu_torch.utils.helpers import (
     TOKEN_ATTEND_SELF_VALUE,
     default,
@@ -12,6 +12,7 @@ __all__ = [
     "TOKEN_ATTEND_SELF_VALUE",
     "GlomConfig",
     "ServeConfig",
+    "TrainConfig",
     "default",
     "exists",
     "l2norm",

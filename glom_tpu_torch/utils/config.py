@@ -1,14 +1,15 @@
 """Configuration dataclasses.
 
-Counterpart of `glom_tpu/utils/config.py`: `GlomConfig` field for field,
-and the part of `ServeConfig` that the fixed serving route reads. The
-port keeps its own copy because the reference module pulls in JAX.
+Counterpart of `glom_tpu/utils/config.py`: `GlomConfig` and `TrainConfig`
+field for field, and the part of `ServeConfig` that the fixed serving route
+reads. The port keeps its own copy because the reference module pulls in
+JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +83,44 @@ class ServeConfig:
                 raise ValueError(f"iters={self.iters!r}: an int >= 1, 'auto', or None")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}: 'float32' or 'bfloat16'")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Self-supervised denoising trainer (the reference's README recipe):
+    glom_tpu's fields, names and defaults. The trainer validates them
+    (train/trainer.py, telemetry/diagnostics.py), as glom_tpu's does."""
+
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    # "constant" | "cosine" | "warmup_cosine"; cosine decays to
+    # lr_final_fraction * learning_rate; schedule_steps is the TOTAL length,
+    # including warmup_steps for warmup_cosine (optax semantics).
+    lr_schedule: str = "constant"
+    schedule_steps: int = 10_000
+    warmup_steps: int = 0
+    lr_final_fraction: float = 0.0
+    # Microbatches per optimizer update (exact strided accumulation). None
+    # is the auto-routing sentinel: one pass while no route needs a split.
+    grad_accum: Optional[int] = None
+    noise_std: float = 1.0
+    recon_iter_index: Optional[int] = None  # None -> T // 2 + 1 (7 at T=12)
+    iters: Optional[int] = None  # None -> model default (2L)
+    remat: bool = False  # torch.utils.checkpoint over each iteration
+    compute_dtype: str = "float32"  # "bfloat16" for tensor-core training
+    use_pallas: bool = False  # True: the fused kernel route (name kept)
+    # Sharded weight update and quantized reduce: multi-device only, not
+    # ported yet (ROADMAP queue A item 8); the trainer refuses them.
+    zero_stage: int = 0
+    quantized_reduce: bool = False
+    # "off" | "scalars" (grad/update/param norms + the NaN/Inf guard) |
+    # "full" (adds per-level agreement; not ported yet).
+    telemetry_level: str = "off"
+    nonfinite_policy: str = "skip"  # "skip" drops a non-finite update; "warn" applies it
+    # Eager PyTorch runs the iterations as a Python loop, which is what the
+    # JAX scan's unroll produced; kept for the reference's field set.
+    scan_unroll: bool = False
+    collective_timing: str = "off"  # multi-device only (ROADMAP queue A item 9)
+    collective_timing_interval: int = 10
+    seed: int = 0

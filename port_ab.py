@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Time the port's K1/K2 kernels and its serving path for several checkouts
+on one NVIDIA GPU, in one run.
+
+    python3 port_ab.py TREE [TREE ...] [--dispatches N]
+
+Each TREE is the root of a checkout that holds `glom_tpu_torch/` ("." is
+this one; unpack another commit's package with `git archive COMMIT
+glom_tpu_torch | tar -x -C DIR`). The trees run in the order given, each in
+a fresh process that imports that checkout's package and builds its kernels
+into that checkout's `build/`, so give two versions as A B B A to see the
+drift of the card between runs. Per tree it prints one JSON line:
+
+  * the K1 forward at the flagship bucket-8 shapes in bf16 (bottom-up
+    [6, 2048, 512], top-down [5, 2048, 512] with the positional addend),
+    without and, where the tree has it, with the saved pre-activation;
+  * the K1 backward from the saved pre at the same shapes, where the tree
+    has it;
+  * the K2 forward at [6, 8, 256, 512];
+  * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
+    min over N dispatches (host clock ending in a synchronize).
+
+Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
+warm). The last line gives, per tree, the median of its runs. Inputs and
+weights come from seed 0. It needs one card and exits nonzero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def child(tree: str, dispatches: int) -> dict:
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import torch
+
+    import glom_tpu_torch
+    import glom_tpu_torch.kernels.consensus_update as k2
+    import glom_tpu_torch.kernels.grouped_mlp as k1
+    from glom_tpu_torch import GlomConfig, InferenceEngine, ServeConfig
+    from glom_tpu_torch.kernels import _build
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.ops.ffw import GroupedFFWParams
+
+    if not os.path.abspath(glom_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {glom_tpu_torch.__file__}, not the one under {root}")
+    has_bwd = hasattr(k1, "grouped_mlp_bwd")
+    _build.prebuild(["grouped_mlp", "consensus_update"]
+                    + (["grouped_mlp_bwd"] if has_bwd else []))
+    save_pre = "save_pre" in inspect.signature(k1.fused_grouped_ffw_lm).parameters
+
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf16)
+
+    def time_ms(fn, reps=50):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    L, n, d, f = 6, 256, 512, 2048
+    M = 8 * n
+    out = {"tree": tree}
+    for which, G in (("bottom_up", L), ("top_down", L - 1)):
+        params = GroupedFFWParams(randn(G, d, f, scale=d ** -0.5), randn(G, f, scale=0.1),
+                                  randn(G, f, d, scale=f ** -0.5), randn(G, d, scale=0.1))
+        x = randn(G, M, d)
+        add = randn(n, d) if which == "top_down" else None
+        out[f"k1_fwd_{which}_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(params, x, add=add))
+        if save_pre:
+            out[f"k1_fwd_save_pre_{which}_ms"] = time_ms(
+                lambda: k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True))
+        if has_bwd:
+            pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+            g = randn(G, M, d)
+            out[f"k1_bwd_{which}_ms"] = time_ms(
+                lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+    lv, bu, td = randn(L, 8, n, d), randn(L, 8, n, d), randn(L - 1, 8, n, d)
+    out["k2_fwd_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+
+    cfg = GlomConfig()
+    engine = InferenceEngine(
+        cfg, ServeConfig(buckets=(8,), compute_dtype="bfloat16", use_pallas=True),
+        params=init_glom(cfg, generator=torch.Generator().manual_seed(0)), device="cuda",
+    )
+    engine.warmup()
+    lat = []
+    for _ in range(dispatches):
+        imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen)
+        lat.append(engine.infer(imgs).latency_s * 1e3)
+    lat.sort()
+    out.update(serve_b8_p50_ms=lat[len(lat) // 2], serve_b8_min_ms=lat[0],
+               serve_dispatches=dispatches)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*")
+    ap.add_argument("--dispatches", type=int, default=30)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        print(json.dumps(child(args.child, args.dispatches)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available() or not args.trees:
+        print("port_ab: needs a CUDA device and at least one tree", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs: dict = {}
+    for tree in args.trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", tree,
+             "--dispatches", str(args.dispatches)],
+            capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        runs.setdefault(tree, []).append(rec)
+    summary = {
+        tree: {key: statistics.median(r[key] for r in recs)
+               for key in recs[0] if key.endswith("_ms")}
+        for tree, recs in runs.items()
+    }
+    print(json.dumps({"device": smi, "median_by_tree": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

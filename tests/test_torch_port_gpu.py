@@ -1,13 +1,15 @@
-"""The port's CUDA kernels and fused path on the card, against their plain
-PyTorch versions. Every test here is marked `gpu` and skips without a CUDA
-device. The file imports no JAX, so it also runs where JAX is absent:
+"""The port's CUDA kernels, fused path and trainer on the card, against
+their plain PyTorch versions. Every test here is marked `gpu` and skips
+without a CUDA device. The file imports no JAX, so it also runs where JAX
+is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_gpu.py
 
 f32 tolerances are glom_tpu's own kernel bars (tests/test_kernels.py:26,
 :275) and its model bar (tests/test_model.py:43). bf16 kernel bars are about
 1-2 bf16 ulps of the output, on inputs where the biases (K1) and the
-consensus term (K2) move the output by many ulps.
+consensus term (K2) move the output by many ulps. Backward outputs are held
+to max abs error over max |want|, at chip_smoke.py's bars.
 """
 
 import numpy as np
@@ -16,11 +18,24 @@ import torch
 
 import glom_tpu_torch.kernels.consensus_update as k2
 import glom_tpu_torch.kernels.grouped_mlp as k1
-from glom_tpu_torch import GlomConfig, InferenceEngine, ServeConfig, glom_forward, init_glom
+from glom_tpu_torch import (
+    GlomConfig,
+    InferenceEngine,
+    ServeConfig,
+    TrainConfig,
+    Trainer,
+    glom_forward,
+    init_glom,
+)
+from glom_tpu_torch.data import prefetch_to_device, shapes_dataset
+from glom_tpu_torch.models.core import param_leaves, unflatten_params
 from glom_tpu_torch.ops.ffw import GroupedFFWParams
+from glom_tpu_torch.train import denoise_loss, init_denoise
 
 K1_BARS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1.6e-2)}
 K2_BARS = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1.6e-2)}
+K1_BWD_BARS = {torch.float32: 8e-6, torch.bfloat16: 2.5e-2}
+K2_BWD_BARS = {torch.float32: 4e-5, torch.bfloat16: 1.8e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
 pytestmark = pytest.mark.gpu
@@ -120,3 +135,99 @@ def test_engine_serves_on_card(dev):
     res = eng.infer(np.zeros((2, 3, 32, 32), np.float32), n_valid=1)
     assert res.levels.device.type == "cuda" and res.levels.dtype == torch.bfloat16
     assert bool(torch.isfinite(res.levels.float()).all())
+
+
+def _rel_close(got, want, bar, what=""):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert err <= bar, (what, err, bar)
+
+
+def _ffw_params(rng, G, d, f, dev, dtype):
+    params = GroupedFFWParams(
+        _rand(rng, G, d, f, scale=d ** -0.5), _rand(rng, G, f, scale=0.1),
+        _rand(rng, G, f, d, scale=f ** -0.5), _rand(rng, G, d, scale=0.1),
+    )
+    return GroupedFFWParams(*(t.to(dev, dtype) for t in params))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("saved_pre", [True, False])  # h from pre, or recomputed
+def test_grouped_mlp_bwd_kernel(dev, dtype, with_add, saved_pre):
+    rng = np.random.default_rng(3)
+    G, M, d, f, n = 3, 256, 128, 512, 64
+    params = _ffw_params(rng, G, d, f, dev, dtype)
+    x, g = (_rand(rng, G, M, d).to(dev, dtype) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, dtype) if with_add else None
+    pre = None
+    if saved_pre:
+        pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+    before = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ADD)
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+    assert (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ADD) == (before[0] + 1, before[1] + int(with_add))
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+    for name, got, exp in zip(("dx", "dw1", "db1", "dw2", "db2"), (dx, *grads), (want[0], *want[1])):
+        _rel_close(got, exp, K1_BWD_BARS[dtype], name)
+    if with_add:
+        _rel_close(da, want[2], K1_BWD_BARS[dtype], "da")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("radius", [0.0, 2.0])
+@pytest.mark.parametrize("attend_self", [False, True])
+def test_consensus_update_bwd_kernels(dev, dtype, radius, attend_self):
+    rng = np.random.default_rng(4)
+    L, B, side, d = 3, 2, 8, 128
+    n = side * side
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, L, B, n, d, dtype))
+    g = _rand(rng, L, B, n, d).to(dev, dtype)
+    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    out, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+    torch.testing.assert_close(out, k2.fused_consensus_update(lv, bu, td, **kw), rtol=0, atol=0)
+    before = (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV)
+    dq, dd = k2.consensus_bwd_dq(lv, g, m, l, **kw)
+    dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, **kw)
+    assert (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + 1)
+    want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **kw)
+    want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, g, m, l, want_dq, want_dd, **kw)
+    for name, got, exp in (("dq", dq, want_dq), ("dd", dd, want_dd),
+                           ("dlevels", dlv, want_dlv), ("dmean", dmean, want_dmean)):
+        _rel_close(got, exp, K2_BWD_BARS[dtype], name)
+
+
+def test_fused_forward_gradients_reach_every_leaf(dev):
+    """The fused route under grad on the card: every leaf gets a nonzero
+    gradient, close to the plain route's, through the backward kernels."""
+    cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4, local_consensus_radius=2)
+    params = init_denoise(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(5)
+    img, noise = (_rand(rng, 2, 3, 32, 32).to(dev) for _ in range(2))
+    grads = {}
+    for use_pallas in (True, False):
+        leaves = [t.clone().requires_grad_() for t in param_leaves(params)]
+        before = (k1.LAUNCHES_BWD, k2.LAUNCHES_BWD_DKV)
+        loss = denoise_loss(unflatten_params(params, leaves), img, noise, cfg,
+                            use_pallas=use_pallas)
+        grads[use_pallas] = torch.autograd.grad(loss, leaves)
+        if use_pallas:  # k = T // 2 + 1 = 4 iterations: two K1 and one K2 backward each
+            assert (k1.LAUNCHES_BWD - before[0], k2.LAUNCHES_BWD_DKV - before[1]) == (8, 4)
+    for got, want in zip(grads[True], grads[False]):
+        assert float(got.abs().max()) > 0
+        _rel_close(got, want, 1e-4)
+
+
+def test_trainer_on_card(dev):
+    cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4)
+    tr = Trainer(cfg, TrainConfig(batch_size=2, compute_dtype="bfloat16", use_pallas=True),
+                 device="cuda")
+    hist = tr.fit(shapes_dataset(2, 32), 3, log_every=1, prefetch=2)
+    assert [r["vjp_path"] for r in hist] == ["scan_blockwise"] * 3
+    assert all(np.isfinite(r["loss"]) for r in hist) and hist[-1]["steps_timed"] == 2
+
+
+def test_prefetch_on_card(dev):
+    batches = [np.full((2, 3), i, np.float32) for i in range(4)]
+    got = list(prefetch_to_device(iter(batches), size=2, device=dev))
+    assert all(b.device.type == "cuda" for b in got)
+    assert [float(b[0, 0]) for b in got] == [0.0, 1.0, 2.0, 3.0]

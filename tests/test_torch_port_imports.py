@@ -72,7 +72,7 @@ def test_glom_defaults_to_the_card(monkeypatch):
 def test_kernel_sources_carry_their_notes():
     import glom_tpu_torch.kernels._build as build
 
-    for name in ("grouped_mlp", "consensus_update"):
+    for name in ("grouped_mlp", "consensus_update", "grouped_mlp_bwd", "consensus_update_bwd"):
         text = (build.CSRC / f"{name}.cu").read_text()
         for note in ("Replaces:", "Bound on the H100:", "Kept out of device memory:"):
             assert note in text, (name, note)

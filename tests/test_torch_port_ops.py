@@ -70,6 +70,10 @@ class TestHelpersAndConfig:
         for f in dataclasses.fields(tconfig.ServeConfig):
             assert ref[f.name] == f.default, f.name
 
+    def test_train_config_matches_reference(self):
+        ref = [(f.name, f.default) for f in dataclasses.fields(jconfig.TrainConfig)]
+        assert [(f.name, f.default) for f in dataclasses.fields(tconfig.TrainConfig)] == ref
+
 
 class TestPatch:
     def test_patchify_unpatchify(self):
