@@ -5,19 +5,28 @@
 
 Builds the CUDA kernels from glom_tpu_torch/csrc/ (one nvcc per source, in
 parallel, into build/glom_tpu_torch/), holds each kernel -- the K1 and K2
-forwards and their backwards -- against its plain PyTorch version at the
-flagship shapes, times both, then drives the port's two main paths on the
-flagship model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random
-weights from a seed):
+forwards and their backwards, and the whole-loop VJP's modes of them (the
+pre-only K1 forward, the accumulating K1 backward, the K2 backward's
+three-stream combine) -- against its plain PyTorch version at the flagship
+shapes, times both, then drives the port's main paths on the flagship
+model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
+seed), each with every launch count set to 0 just before it and read just
+after:
 
   * serving: every bucket through InferenceEngine, with the launch counts
     of that run, its float32 parity with the plain path and the bf16
     answer's distance from that path;
-  * training: six Adam steps of the denoising trainer at batch 8 on
-    synthetic shapes images, through both of Trainer.fit's step variants
-    (with and without the grad norm), with exact launch counts per step,
-    the step time and a profiled step, and the float32 loss and gradients
-    of the fused route against the plain route at batch 2.
+  * training at batch 8, the flagship's default, on the whole-loop VJP:
+    six Adam steps of the denoising trainer on synthetic shapes images,
+    through both of Trainer.fit's step variants (with and without the grad
+    norm), with the route and exact launch counts per step, the step time
+    and a profiled step; the same with remat (three steps, and one batch's
+    gradients equal to the non-remat loop's bit for bit); the step on the
+    loop and on the per-iteration route in turns, and the loop's forward
+    and backward alone on both routes at batches 1 to 8; the float32 loss
+    and gradients against the plain route;
+  * training at batch 4 on the per-iteration route (three steps, exact
+    launch counts), and its float32 gradients at batch 2.
 
 It prints one JSON line per phase. The last line is
 
@@ -49,8 +58,12 @@ BF16_SERVE_ATOL = 1e-2
 # to 2^-7 of a value; weight grads are sums over M = 2048 rows).
 BWD_BARS = {"K1": {"bf16": 2.5e-2, "f32": 8e-6}, "K2": {"bf16": 1.8e-2, "f32": 4e-5}}
 # The fused f32 training loss and gradients against the plain f32 route at
-# batch 2: max abs error over max |want| per parameter leaf.
+# batch 2 (the per-iteration route) and at batch 8 (the whole-loop VJP):
+# max abs error over max |want| per parameter leaf.
 TRAIN_F32_BAR = 8e-6
+LOOP_F32_BAR = 9e-6  # about 4x the 2.27e-6 seen at batch 8 (to_pixels.w)
+# Batch-8 steps timed per route in the loop / per-iteration A/B.
+AB_ROUNDS = 10
 TRAIN_STEPS = 6
 # Trainer.fit runs the full step (with the grad norm) every TRAIN_LOG_EVERY
 # steps and step_fast on the others: both variants run and are counted.
@@ -208,12 +221,12 @@ def main() -> int:
         return float((got - want).abs().max()), float(
             (got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
-    def check_bwd(kernel, case, pairs, bar):
+    def check_bwd(kernel, case, pairs, bar, phase=None):
         """Compare each (name, got, want); record and emit; return the
         largest max-abs error."""
         errs = {name: err_over_max(got, want) for name, got, want in pairs}
         ok = all(r <= bar for _, r in errs.values())
-        emit(f"{kernel.lower()}_bwd_vs_plain", **case, bar=bar,
+        emit(phase or f"{kernel.lower()}_bwd_vs_plain", **case, bar=bar,
              max_abs_err={k: v[0] for k, v in errs.items()},
              err_over_max={k: v[1] for k, v in errs.items()},
              bar_ratio=max(r for _, r in errs.values()) / bar, ok=ok)
@@ -278,8 +291,8 @@ def main() -> int:
             kw = dict(side=sd, radius=radius, attend_self=attend_self)
             _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
             g = randn(*shape, dtype=dtype)
-            dq, dd = k2.consensus_bwd_dq(lv, g, m, l, **kw)
-            dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, **kw)
+            dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, **kw)
+            dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, **kw)
             torch.cuda.synchronize()
             want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **kw)
             want_dlv, want_dmean, parts = k2.consensus_bwd_dkv_plain(
@@ -306,6 +319,130 @@ def main() -> int:
     if failures:
         raise AssertionError(f"backward kernel/plain mismatch: {failures}")
 
+    # -- the whole-loop VJP's kernels vs plain --------------------------------------
+    # The pre-only K1 launch, read through slot views of an [L+1] carry as the
+    # loop reads it: bottom-up slots 0..L-1, top-down slots 2..L with the
+    # addend. It must equal the pre the K1 forward saves, bit for bit.
+    k1_pre_err = {}
+    for dtype in (bf16, f32):
+        carry = randn(L + 1, M8, d, dtype=dtype)
+        for which, G, x in (("bottom_up", L, carry[:L]), ("top_down", L - 1, carry[2:])):
+            params = GroupedFFWParams(*(t.to(dev, dtype) for t in ffw[which]))
+            add = pos.to(dev, dtype) if which == "top_down" else None
+            got = k1.grouped_mlp_pre(params, x, add=add)
+            saved = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+            torch.cuda.synchronize()
+            rtol, atol = bars[dtype]
+            ok, abs_err, rel_err, ratio = compare(got, k1.grouped_mlp_pre_plain(params, x, add),
+                                                  rtol, atol)
+            equal = bool(torch.equal(got, saved))
+            if dtype == bf16:
+                k1_pre_err[which] = abs_err
+            emit("k1_pre_vs_plain", which=which, shape=[G, M8, d], dtype=str(dtype),
+                 max_abs_err=abs_err, max_rel_err=rel_err, rtol=rtol, atol=atol,
+                 bar_ratio=ratio, equals_saved_pre=equal, ok=ok and equal)
+            if not (ok and equal):
+                failures.append(f"K1 pre {which} {dtype}")
+
+    # The accumulating K1 backward: incoming f32 totals and da as large as one
+    # call's gradients, so a kernel that drops them (or writes over them)
+    # fails; acc_over_allowed is each total's size over the error the bar
+    # allows in the result.
+    k1_acc_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        bar = BWD_BARS["K1"][dname]
+        cases = [("bottom_up", L, None), ("top_down", L - 1, None)]
+        if dtype == bf16:
+            cases.append(("gelu_tail", L, -4.0))
+        for which, G, b1_center in cases:
+            src = ffw["top_down" if which == "top_down" else "bottom_up"]
+            params = GroupedFFWParams(*(t.to(dev, dtype) for t in src))
+            if b1_center is not None:
+                params = GroupedFFWParams(params.w1 * 0.1,
+                                          b1_center + 0.1 * randn(G, f, dtype=dtype),
+                                          params.w2, params.b2)
+            carry = randn(L + 1, M8, d, dtype=dtype)
+            x = carry[2:] if which == "top_down" else carry[:L]
+            dmean = randn(L, M8, d, dtype=dtype)
+            g = dmean[:G]  # the top-down call reads a prefix view of dmean
+            add = pos.to(dev, dtype) if which == "top_down" else None
+            pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+            fresh = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+            acc = GroupedFFWParams(*(randn(*t.shape) * float(t.float().abs().max())
+                                     for t in fresh[1]))
+            da_in = None if add is None else randn(n, d) * float(fresh[2].float().abs().max())
+            want = k1.grouped_mlp_bwd_plain(
+                params, x, g, add, pre, GroupedFFWParams(*(t.clone() for t in acc)),
+                None if da_in is None else da_in.clone())
+            totals_in = dict(zip(("dw1", "db1", "dw2", "db2"), acc))
+            if da_in is not None:
+                totals_in["da"] = da_in
+            totals_in = {k: float(v.abs().max()) for k, v in totals_in.items()}
+            got = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+            torch.cuda.synchronize()
+            pairs = [("dx", got[0], want[0]),
+                     *((nm, a, b) for nm, a, b in zip(("dw1", "db1", "dw2", "db2"),
+                                                      got[1], want[1]))]
+            if add is not None:
+                pairs.append(("da", got[2], want[2]))
+            allowed = {nm: bar * float(b.float().abs().max()) for nm, _, b in pairs}
+            case = dict(which=which, shape=[G, M8, d], dtype=str(dtype),
+                        acc_over_allowed={k: v / allowed[k] for k, v in totals_in.items()})
+            err = check_bwd("K1 acc", case, pairs, bar, phase="k1_bwd_acc_vs_plain")
+            if min(case["acc_over_allowed"].values()) <= 1.0:
+                failures.append(f"K1 acc totals too small to check: {case}")
+            if dtype == bf16 and which in ("bottom_up", "top_down"):
+                k1_acc_err[which] = err
+
+    # The K2 backward's combine: three nonzero cotangent streams, each
+    # independent, so a stream dropped or read one level off moves dmean (=
+    # their sum over the divisor) by about that stream / 4, far past the
+    # bar: term_over_allowed says by how much.
+    k2_comb_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        bar = BWD_BARS["K2"][dname]
+        for shape, sd, radius, kind, streams in (
+            ((L, 8, n, d), side, 0.0, "peaked", True),
+            ((L, 8, n, d), side, 3.0, "peaked", True),
+            ((L, 8, n, d), side, 1.0, "flat", True),
+            ((L, 8, n, d), side, 0.0, "peaked", False),
+        ):
+            lv = (consensus_inputs(shape, dtype)[0] if kind == "peaked"
+                  else flat_levels(shape, dtype))
+            kw = dict(side=sd, radius=radius, attend_self=False)
+            bu, td = randn(*shape, dtype=dtype), randn(shape[0] - 1, *shape[1:], dtype=dtype)
+            _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+            dg = randn(*shape, dtype=dtype)
+            dx_bu = randn(*shape, dtype=dtype) if streams else None
+            dx_td = randn(shape[0] - 1, *shape[1:], dtype=dtype) if streams else None
+            streams_kw = dict(kw, dx_bu=dx_bu, dx_td=dx_td)
+            dq, dd, dcons = k2.consensus_bwd_dq(lv, dg, m, l, combine=True, **streams_kw)
+            dlv, dmean = k2.consensus_bwd_dkv(lv, dg, m, l, dq, dd, dcons, combine=True,
+                                              **streams_kw)
+            torch.cuda.synchronize()
+            want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, dg, m, l, **streams_kw)
+            want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, dg, m, l, want_dq, want_dd,
+                                                              **streams_kw)
+            allowed = bar * float(want_dmean.float().abs().max())
+            terms = {nm: float(t.float().abs().max()) / 4.0 / allowed
+                     for nm, t in (("dg", dg), ("dx_bu", dx_bu), ("dx_td", dx_td))
+                     if t is not None}
+            case = dict(shape=list(shape), dtype=str(dtype), radius=radius, levels=kind,
+                        streams=streams, term_over_allowed=terms)
+            check_bwd("K2 combine", case, [("dq", dq, want_dq), ("dd", dd, want_dd),
+                                           ("dlevels", dlv, want_dlv),
+                                           ("dmean", dmean, want_dmean)],
+                      bar, phase="k2_bwd_combine_vs_plain")
+            if min(terms.values()) <= 1.0:
+                failures.append(f"K2 combine streams too small to check: {case}")
+            if dtype == bf16 and radius == 0 and streams:
+                k2_comb_err["dq"] = err_over_max(dq, want_dq)[0]
+                k2_comb_err["dkv"] = err_over_max(dlv, want_dlv)[0]
+    if failures:
+        raise AssertionError(f"whole-loop kernel/plain mismatch: {failures}")
+
     # -- timing ----------------------------------------------------------------
     def time_ms(fn, reps=20):
         for _ in range(3):
@@ -326,12 +463,14 @@ def main() -> int:
 
     timings = {}
 
-    def record_timing(label, shape, ms, plain_ms, ops, nbytes):
+    def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None, **extra):
         """Keep and print one bf16 kernel's times beside its bound."""
         b_ms, b_by = bound(ops, nbytes, PEAK_BF16)
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=library_ms)
         emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
-             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms)
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms,
+             library_ms=library_ms, **extra)
 
     for label, which, G, M in (
         ("k1_bottom_up_b8", "bottom_up", L, M8),
@@ -370,26 +509,96 @@ def main() -> int:
     lv = consensus_inputs((L, 8, n, d), bf16)[0]
     g = randn(L, 8, n, d, dtype=bf16)
     _, m, l = k2.fused_consensus_update(lv, g, g[1:], side=side, stats=True)
-    dq, dd = k2.consensus_bwd_dq(lv, g, m, l, side=side)
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, side=side)
     elems = L * 8 * n * d
+    # The TPU kernels' own traffic (the port's rounded dcons, handed from
+    # the dq pass to the dkv pass, is not counted): dq pass: read levels, g,
+    # m, l; write f32 dq, dd. dkv pass: read levels, g, m, l, dq, dd; write
+    # dlevels, dmean.
+    dq_bytes = 2 * 2 * elems + 4 * elems + 4 * 3 * L * 8 * n
+    dkv_bytes = 2 * 2 * elems + 4 * elems + 2 * 2 * elems + 4 * 3 * L * 8 * n
     for label, run, plain, n_products, nbytes in (
-        # read levels, g, m, l; write f32 dq, dd. Products: s, dP, ds.k
+        # Products: s, dP, ds.k
         ("k2_bwd_dq_b8", lambda: k2.consensus_bwd_dq(lv, g, m, l, side=side),
-         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, side=side), 3,
-         2 * 2 * elems + 4 * elems + 4 * 3 * L * 8 * n),
-        # read levels, g, m, l, dq, dd; write dlevels, dmean. Products: s, dP, dv, dk
-        ("k2_bwd_dkv_b8", lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, side=side),
-         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side), 4,
-         2 * 2 * elems + 4 * elems + 2 * 2 * elems + 4 * 3 * L * 8 * n),
+         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, side=side), 3, dq_bytes),
+        # Products: s, dP, dv, dk
+        ("k2_bwd_dkv_b8",
+         lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, side=side),
+         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side), 4, dkv_bytes),
     ):
         record_timing(label, [L, 8, n, d], time_ms(run), time_ms(plain),
                       n_products * 2 * L * 8 * n * n * d, nbytes)
     # The whole K2 backward against its least work: the single-tile form's
-    # five products (s, dP, dq, dv, dk) and its bytes.
-    b_ms, b_by = bound(5 * 2 * L * 8 * n * n * d, 2 * 4 * elems + 4 * 2 * L * 8 * n, PEAK_BF16)
+    # five products (s, dP, dq, dv, dk) and its bytes (read levels, g, m, l;
+    # write dlevels, dmean).
+    k2_bwd_ops, k2_bwd_bytes = 5 * 2 * L * 8 * n * n * d, 2 * 4 * elems + 4 * 2 * L * 8 * n
+    b_ms, b_by = bound(k2_bwd_ops, k2_bwd_bytes, PEAK_BF16)
     emit("timing", kernel="k2_bwd_b8", shape=[L, 8, n, d], dtype="bfloat16",
          ms=timings["k2_bwd_dq_b8"]["ms"] + timings["k2_bwd_dkv_b8"]["ms"],
          bound_ms=b_ms, bound_by=b_by)
+    # The whole-loop VJP's kernels at batch 8, bf16, as its step runs them.
+    for label, which, G in (("k1_pre_b8", "bottom_up", L), ("k1_pre_add_b8", "top_down", L - 1)):
+        params = type(ffw[which])(*(t.to(dev, bf16) for t in ffw[which]))
+        x = randn(G, M8, d, dtype=bf16)
+        add = pos.to(dev, bf16) if which == "top_down" else None
+        ms = time_ms(lambda: k1.grouped_mlp_pre(params, x, add=add))
+        plain_ms = time_ms(lambda: k1.grouped_mlp_pre_plain(params, x, add))
+        # The library's one call for the same function: cuBLAS's bf16 batched
+        # GEMM with the bias (f32 sums, rounded once), after the addend's add.
+        b1 = params.b1[:, None, :]
+        if add is None:
+            def library():
+                return torch.baddbmm(b1, x, params.w1)
+        else:
+            def library():
+                return torch.baddbmm(b1, (x.view(G, -1, n, d) + add).view(G, M8, d), params.w1)
+        lib_ms = time_ms(library)
+        lib_gap = float((library().float() - k1.grouped_mlp_pre(params, x, add=add).float())
+                        .abs().max())
+        # read x, w1, b1 (+ a); write pre. One product.
+        nbytes = 2 * (G * M8 * d + G * d * f + G * f + G * M8 * f
+                      + (n * d if add is not None else 0))
+        record_timing(label, [G, M8, d], ms, plain_ms, 2 * G * M8 * d * f, nbytes,
+                      library_ms=lib_ms, library_call="torch.baddbmm" + (
+                          "" if add is None else " after x + tile(add)"),
+                      library_max_abs_diff=lib_gap)
+    for label, which, G in (("k1_bwd_acc_b8", "bottom_up", L),
+                            ("k1_bwd_acc_add_b8", "top_down", L - 1)):
+        params = type(ffw[which])(*(t.to(dev, bf16) for t in ffw[which]))
+        x, g1 = randn(G, M8, d, dtype=bf16), randn(G, M8, d, dtype=bf16)
+        add = pos.to(dev, bf16) if which == "top_down" else None
+        pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+        acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in params))
+        da_in = torch.zeros(n, d, device=dev) if add is not None else None
+        ms = time_ms(lambda: k1.grouped_mlp_bwd(params, x, g1, add=add, pre=pre, acc=acc,
+                                                da_in=da_in))
+        plain_ms = time_ms(lambda: k1.grouped_mlp_bwd_plain(params, x, g1, add, pre, acc, da_in))
+        # read x, pre, g, w1, w2 (+ a); write dx; read and write the f32 totals
+        # of dw1, db1, dw2, db2 (+ da). Four products.
+        extra = n * d if add is not None else 0
+        nbytes = (2 * (3 * G * M8 * d + G * M8 * f + 2 * G * d * f + extra)
+                  + 4 * 2 * (2 * G * d * f + G * (f + d) + extra))
+        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes)
+    dx_bu, dx_td = randn(L, 8, n, d, dtype=bf16), randn(L - 1, 8, n, d, dtype=bf16)
+    comb = dict(side=side, dx_bu=dx_bu, dx_td=dx_td)
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=True, **comb)
+    passes = {}
+    for label, run, plain in (
+        ("dq", lambda: k2.consensus_bwd_dq(lv, g, m, l, combine=True, **comb),
+         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, **comb)),
+        ("dkv", lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, combine=True, **comb),
+         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, **comb)),
+    ):
+        passes[label] = dict(ms=time_ms(run), plain_ms=time_ms(plain))
+        emit("timing", kernel=f"k2_bwd_combine_{label}_b8", shape=[L, 8, n, d],
+             dtype="bfloat16", **passes[label])
+    # The pair replaces one TPU kernel (fused_loop.py:826): its bound is that
+    # function's least work, the whole K2 backward's plus the two streams it
+    # reads (bottom-up slots 1..L-1, top-down 0..L-2).
+    record_timing("k2_bwd_combine_b8", [L, 8, n, d],
+                  passes["dq"]["ms"] + passes["dkv"]["ms"],
+                  passes["dq"]["plain_ms"] + passes["dkv"]["plain_ms"],
+                  k2_bwd_ops, k2_bwd_bytes + 2 * 2 * (L - 1) * 8 * n * d, passes=passes)
 
     # -- serve: the main path ----------------------------------------------------
     cfg = GlomConfig()  # flagship: dim 512, L 6, 224 px, patch 14
@@ -483,65 +692,186 @@ def main() -> int:
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
     from glom_tpu_torch.data import shapes_dataset
-    from glom_tpu_torch.models.core import param_leaves, unflatten_params
+    from glom_tpu_torch.kernels.fused_loop import fused_glom_loop
+    from glom_tpu_torch.models.core import param_leaves, per_iteration_loop, unflatten_params
     from glom_tpu_torch.models.transplant import HEAD_KEYS, PARAM_KEYS
-    from glom_tpu_torch.train import default_recon_index, denoise_loss, init_denoise
+    from glom_tpu_torch.train import (
+        create_train_state,
+        default_recon_index,
+        denoise_loss,
+        init_denoise,
+        make_train_step,
+    )
 
-    tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
     k = default_recon_index(T)  # iterations the loss runs: 7
     dparams = init_denoise(cfg, generator=torch.Generator().manual_seed(SEED))
-    trainer = Trainer(cfg, tcfg, params=dparams, device="cuda")
+    counters = {
+        "K1 fwd": (k1, "LAUNCHES"), "K1 fwd add": (k1, "LAUNCHES_ADD"),
+        "K1 pre": (k1, "LAUNCHES_PRE"), "K1 pre add": (k1, "LAUNCHES_PRE_ADD"),
+        "K2 fwd": (k2, "LAUNCHES"),
+        "K1 bwd": (k1, "LAUNCHES_BWD"), "K1 bwd add": (k1, "LAUNCHES_BWD_ADD"),
+        "K1 bwd acc": (k1, "LAUNCHES_BWD_ACC"), "K1 bwd acc add": (k1, "LAUNCHES_BWD_ACC_ADD"),
+        "K2 bwd dq": (k2, "LAUNCHES_BWD_DQ"), "K2 bwd dkv": (k2, "LAUNCHES_BWD_DKV"),
+        "K2 combine dq": (k2, "LAUNCHES_BWD_COMBINE_DQ"),
+        "K2 combine dkv": (k2, "LAUNCHES_BWD_COMBINE_DKV"),
+    }
 
     def counts():
-        return {"K1 fwd": k1.LAUNCHES, "K1 fwd add": k1.LAUNCHES_ADD,
-                "K2 fwd": k2.LAUNCHES, "K1 bwd": k1.LAUNCHES_BWD,
-                "K1 bwd add": k1.LAUNCHES_BWD_ADD, "K2 bwd dq": k2.LAUNCHES_BWD_DQ,
-                "K2 bwd dkv": k2.LAUNCHES_BWD_DKV}
+        return {key: getattr(mod, attr) for key, (mod, attr) in counters.items()}
 
-    want_step = {"K1 fwd": 2 * k, "K1 fwd add": k, "K2 fwd": k, "K1 bwd": 2 * k,
-                 "K1 bwd add": k, "K2 bwd dq": k, "K2 bwd dkv": k}
-    per_step = []  # (variant, launches, metrics) of every step
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
-    def counted(fn, variant):
-        def run(batch):
-            before = counts()
-            out = fn(batch)
-            per_step.append((variant, {key: v - before[key] for key, v in counts().items()},
-                             out))
-            return out
-        return run
+    def launches_per_step(nonzero):
+        return {key: nonzero.get(key, 0) for key in counters}
 
-    trainer.step = counted(trainer.step, "step")
-    trainer.step_fast = counted(trainer.step_fast, "step_fast")
-    k1.LAUNCHES = k1.LAUNCHES_ADD = k1.LAUNCHES_BWD = k1.LAUNCHES_BWD_ADD = 0
-    k2.LAUNCHES = k2.LAUNCHES_BWD_DQ = k2.LAUNCHES_BWD_DKV = 0
-    records = trainer.fit(shapes_dataset(8, cfg.image_size, seed=SEED), TRAIN_STEPS,
-                          log_every=TRAIN_LOG_EVERY, prefetch=2)
-    train_launches = counts()
-    variants = [v for v, _, _ in per_step]
-    losses = [float(m["loss"]) for _, _, m in per_step]
-    n_full = TRAIN_STEPS // TRAIN_LOG_EVERY
-    if variants != (["step_fast"] * (TRAIN_LOG_EVERY - 1) + ["step"]) * n_full:
-        raise AssertionError(f"step variants {variants}")
-    if len(records) != n_full or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"training losses {losses}, {len(records)} records")
-    if any(c != want_step for _, c, _ in per_step):
-        raise AssertionError(f"launches per step {[(v, c) for v, c, _ in per_step]} "
-                             f"!= {want_step}")
-    if {(r["vjp_path"], r["grad_accum"]) for r in records} != {("scan_blockwise", 1)}:
-        raise AssertionError(f"route {[(r['vjp_path'], r['grad_accum']) for r in records]}")
+    forward = {"K1 fwd": 2 * k, "K1 fwd add": k, "K2 fwd": k}
+    want_loop = launches_per_step({**forward, "K1 bwd acc": 2 * k, "K1 bwd acc add": k,
+                                   "K2 combine dq": k, "K2 combine dkv": k})
+    want_remat = dict(want_loop, **{"K1 pre": 2 * k, "K1 pre add": k})
+    want_scan = launches_per_step({**forward, "K1 bwd": 2 * k, "K1 bwd add": k,
+                                   "K2 bwd dq": k, "K2 bwd dkv": k})
+
+    def drive_trainer(phase, tcfg, steps, want_step, want_route):
+        """Train `steps` Adam steps through Trainer.fit with every launch
+        count set to 0 just before and read just after; check the route and
+        the exact launches of every step; emit the phase."""
+        trainer = Trainer(cfg, tcfg, params=dparams, device="cuda")
+        per_step = []  # (variant, launches, metrics) of every step
+
+        def counted(fn, variant):
+            def run(batch):
+                before = counts()
+                out = fn(batch)
+                per_step.append((variant, {key: v - before[key] for key, v in counts().items()},
+                                 out))
+                return out
+            return run
+
+        trainer.step = counted(trainer.step, "step")
+        trainer.step_fast = counted(trainer.step_fast, "step_fast")
+        reset_counts()
+        records = trainer.fit(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=SEED), steps,
+                              log_every=TRAIN_LOG_EVERY, prefetch=2)
+        path_launches = counts()
+        variants = [v for v, _, _ in per_step]
+        losses = [float(mm["loss"]) for _, _, mm in per_step]
+        n_full = steps // TRAIN_LOG_EVERY
+        if variants != (["step_fast"] * (TRAIN_LOG_EVERY - 1) + ["step"]) * n_full:
+            raise AssertionError(f"{phase}: step variants {variants}")
+        if len(records) != n_full or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{phase}: losses {losses}, {len(records)} records")
+        if any(c != want_step for _, c, _ in per_step):
+            raise AssertionError(f"{phase}: launches per step {[c for _, c, _ in per_step]} "
+                                 f"!= {want_step}")
+        if {(r["vjp_path"], r["grad_accum"]) for r in records} != {want_route}:
+            raise AssertionError(f"{phase}: route "
+                                 f"{[(r['vjp_path'], r['grad_accum']) for r in records]}")
+        p50 = records[-1]["step_time_p50_ms"]
+        emit(phase, config=dict(batch_size=tcfg.batch_size, compute_dtype=tcfg.compute_dtype,
+                                use_pallas=True, remat=tcfg.remat, iters=k, steps=steps,
+                                log_every=TRAIN_LOG_EVERY, prefetch=2),
+             variants=variants, losses=losses, grad_norms=[r["grad_norm"] for r in records],
+             vjp_path=records[-1]["vjp_path"], grad_accum=records[-1]["grad_accum"],
+             step_time_p50_ms=p50, step_time_p95_ms=records[-1]["step_time_p95_ms"],
+             steps_timed=records[-1]["steps_timed"],
+             column_iters_per_s=tcfg.batch_size * k / (p50 / 1e3),
+             launches_per_step={key: v for key, v in want_step.items() if v},
+             launches=path_launches)
+        return trainer, records, path_launches
+
+    # The flagship's default TrainConfig batch: the whole-loop VJP.
+    tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
+    trainer, records, train_launches = drive_trainer("train", tcfg, TRAIN_STEPS, want_loop,
+                                                     ("fused_loop", 1))
     p50_ms = records[-1]["step_time_p50_ms"]
-    emit("train", config=dict(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
-                              iters=k, steps=TRAIN_STEPS, log_every=TRAIN_LOG_EVERY,
-                              prefetch=2),
-         variants=variants, losses=losses, grad_norms=[r["grad_norm"] for r in records],
-         vjp_path=records[-1]["vjp_path"], grad_accum=records[-1]["grad_accum"],
-         step_time_p50_ms=p50_ms, step_time_p95_ms=records[-1]["step_time_p95_ms"],
-         steps_timed=records[-1]["steps_timed"],
-         column_iters_per_s=8 * k / (p50_ms / 1e3), launches_per_step=want_step,
-         launches=train_launches)
+    # Its remat mode: the pre-activations recomputed by the pre-only kernel.
+    _, _, remat_launches = drive_trainer(
+        "train_remat", TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
+                                   remat=True),
+        TRAIN_LOG_EVERY, want_remat, ("fused_loop", 1))
+    # Below batch 8: the per-iteration route (the per-op K1/K2 backward kernels).
+    _, _, scan_launches = drive_trainer(
+        "train_scan_blockwise", TrainConfig(batch_size=4, compute_dtype="bfloat16",
+                                            use_pallas=True),
+        TRAIN_LOG_EVERY, want_scan, ("scan_blockwise", 1))
 
-    # Where one training step spends its device time (torch.profiler).
+    leaves0 = [t.to(dev) for t in param_leaves(dparams)]
+
+    def loss_and_grads(img, noise, **kw):
+        leaves = [t.clone().requires_grad_() for t in leaves0]
+        loss = denoise_loss(unflatten_params(dparams, leaves), img, noise, cfg, **kw)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    # remat gradients are the non-remat loop's, bit for bit: one batch, the
+    # same params and noise.
+    img8 = torch.from_numpy(next(shapes_dataset(8, cfg.image_size, seed=SEED + 3))).to(dev)
+    noise8 = randn(8, 3, cfg.image_size, cfg.image_size)
+    _, g_remat = loss_and_grads(img8, noise8, use_pallas=True, compute_dtype=bf16, remat=True)
+    _, g_keep = loss_and_grads(img8, noise8, use_pallas=True, compute_dtype=bf16)
+    unequal = [nm for nm, a, b in zip(PARAM_KEYS + HEAD_KEYS, g_remat, g_keep)
+               if not torch.equal(a, b)]
+    emit("train_remat_grads", batch=8, leaves=len(g_keep), bitwise_equal=not unequal,
+         unequal_leaves=unequal)
+    if unequal:
+        raise AssertionError(f"remat gradients differ from the non-remat loop's: {unequal}")
+
+    # The batch-8 step on the loop and on the per-iteration route (scan_only),
+    # in turns in this call, the step without the grad norm (step_fast).
+    routes = {"fused_loop": False, "scan_blockwise": True}
+    ab_steps = {r: make_train_step(cfg, tcfg, with_grad_norm=False, scan_only=so, device="cuda")
+                for r, so in routes.items()}
+    if {r: fn.vjp_path for r, fn in ab_steps.items()} != {r: r for r in routes}:
+        raise AssertionError(f"A/B routes {[fn.vjp_path for fn in ab_steps.values()]}")
+    ab_state = {r: create_train_state(cfg, tcfg, params=dparams, device="cuda")[0] for r in routes}
+    ab_gen = {r: torch.Generator(device=dev).manual_seed(SEED) for r in routes}
+    ab_data = shapes_dataset(8, cfg.image_size, seed=SEED + 4)
+    ab_ms = {r: [] for r in routes}
+    for i in range(AB_ROUNDS + 1):  # round 0 warms both up and is not timed
+        batch = torch.from_numpy(next(ab_data)).to(dev)
+        for r in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ab_state[r], _ = ab_steps[r](ab_state[r], batch, ab_gen[r])
+            torch.cuda.synchronize()
+            if i:
+                ab_ms[r].append(1e3 * (time.perf_counter() - t0))
+    ab_p50 = {r: sorted(v)[len(v) // 2] for r, v in ab_ms.items()}
+    emit("train_ab", batch=8, rounds=AB_ROUNDS, order="alternating", step="without grad norm",
+         p50_ms=ab_p50, min_ms={r: min(v) for r, v in ab_ms.items()},
+         loop_over_scan=ab_p50["fused_loop"] / ab_p50["scan_blockwise"])
+
+    # The two routes' only difference, the k-iteration loop's forward and
+    # backward (bf16, global consensus), at batches 1 to 8, in turns: where
+    # the batch >= 8 rule (glom_tpu's) sits against this card.
+    loop_leaves = [t.to(dev, bf16).requires_grad_()
+                   for t in (*ffw["bottom_up"], *ffw["top_down"], pos)]
+    geometry = dict(side=side, radius=0.0, attend_self=False)
+    sweep = {}
+    for bs in (1, 2, 4, 8):
+        tok = randn(bs, n, d, dtype=bf16).requires_grad_()
+        lv0 = randn(L, bs, n, d, dtype=bf16).requires_grad_()
+        gout = randn(L, bs, n, d, dtype=bf16)
+        ins = [*loop_leaves, tok, lv0]
+        route_fn = {"fused_loop": fused_glom_loop, "scan_blockwise": per_iteration_loop}
+        ms_by = {r: [] for r in route_fn}
+        for i in range(AB_ROUNDS + 1):  # round 0 warms both up and is not timed
+            for r in (list(route_fn) if i % 2 == 0 else list(route_fn)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = route_fn[r](GroupedFFWParams(*ins[:4]), GroupedFFWParams(*ins[4:8]),
+                                  *ins[8:], k, **geometry)
+                torch.autograd.grad(out, ins, grad_outputs=gout)
+                torch.cuda.synchronize()
+                if i:
+                    ms_by[r].append(1e3 * (time.perf_counter() - t0))
+        p50s = {r: sorted(v)[len(v) // 2] for r, v in ms_by.items()}
+        sweep[bs] = dict(p50_ms=p50s, loop_over_scan=p50s["fused_loop"] / p50s["scan_blockwise"])
+    emit("train_ab_batches", iters=k, rounds=AB_ROUNDS, order="alternating",
+         timed="loop forward + backward", by_batch=sweep)
+
+    # Where one training step on the loop spends its device time (torch.profiler).
     batch8 = next(shapes_dataset(8, cfg.image_size, seed=SEED + 1))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -551,41 +881,76 @@ def main() -> int:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernel_ms = device_ms_by_kernel(prof)
     busy_ms = sum(kernel_ms.values())
-    emit("train_profile", batch=8, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms if busy_ms else None, p50_unprofiled_ms=p50_ms,
-         kernel_ms=dict(list(kernel_ms.items())[:25]))
+    emit("train_profile", batch=8, vjp_path=trainer.vjp_path, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms if busy_ms else None,
+         p50_unprofiled_ms=p50_ms, kernel_ms=dict(list(kernel_ms.items())[:25]))
+
+    def parity(phase, got, want, bar, **extra):
+        """Loss relative error and every leaf's max abs error over max
+        |want|; emit; return the worst (None when `bar` is None: printed
+        only)."""
+        leaf_err = {nm: err_over_max(a, b) for nm, a, b in
+                    zip(PARAM_KEYS + HEAD_KEYS, got[1], want[1])}
+        loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        worst = max(max(r for _, r in leaf_err.values()), loss_rel)
+        emit(phase, **extra, loss_got=float(got[0]), loss_want=float(want[0]),
+             loss_rel_err=loss_rel, max_abs_err={nm: v[0] for nm, v in leaf_err.items()},
+             err_over_max={nm: v[1] for nm, v in leaf_err.items()}, worst=worst, bar=bar,
+             bar_ratio=None if bar is None else worst / bar,
+             ok=None if bar is None else worst <= bar)
+        return worst
 
     # f32 loss and gradients: the fused route against the plain route, on
-    # the card, same weights and noise, batch 2.
+    # the card, same weights and noise, batch 2 (the per-iteration route).
     img2 = torch.from_numpy(next(shapes_dataset(2, cfg.image_size, seed=SEED + 2))).to(dev)
     noise2 = randn(2, 3, cfg.image_size, cfg.image_size)
-    leaves0 = [t.to(dev) for t in param_leaves(dparams)]
-    result = {}
-    for route in (True, False):
-        leaves = [t.clone().requires_grad_() for t in leaves0]
-        loss = denoise_loss(unflatten_params(dparams, leaves), img2, noise2, cfg,
-                            use_pallas=route)
-        result[route] = (loss, torch.autograd.grad(loss, leaves))
-    leaf_err = {nm: err_over_max(a, b) for nm, a, b in
-                zip(PARAM_KEYS + HEAD_KEYS, result[True][1], result[False][1])}
-    loss_rel = abs(float(result[True][0]) - float(result[False][0])) / abs(float(result[False][0]))
-    worst = max(max(r for _, r in leaf_err.values()), loss_rel)
-    emit("train_parity_f32", batch=2, iters=k, loss_fused=float(result[True][0]),
-         loss_plain=float(result[False][0]), loss_rel_err=loss_rel,
-         max_abs_err={nm: v[0] for nm, v in leaf_err.items()},
-         err_over_max={nm: v[1] for nm, v in leaf_err.items()}, bar=TRAIN_F32_BAR,
-         bar_ratio=worst / TRAIN_F32_BAR, ok=worst <= TRAIN_F32_BAR)
+    worst = parity("train_parity_f32", loss_and_grads(img2, noise2, use_pallas=True),
+                   loss_and_grads(img2, noise2), TRAIN_F32_BAR, batch=2, iters=k,
+                   vjp_path="scan_blockwise")
     if worst > TRAIN_F32_BAR:
         raise AssertionError("f32 fused training gradients disagree with the plain route")
 
+    # The same at batch 8, where the fused route is the loop; then the bf16
+    # loop's and the bf16 per-iteration route's gradients against the f32
+    # plain ones (printed: how far each dtype's rounding moves them).
+    reset_counts()
+    loop32 = loss_and_grads(img8, noise8, use_pallas=True)
+    took_loop = counts()["K2 combine dkv"] == k and counts()["K2 bwd dkv"] == 0
+    plain32 = loss_and_grads(img8, noise8)
+    worst = parity("train_loop_parity_f32", loop32, plain32, LOOP_F32_BAR, batch=8, iters=k,
+                   vjp_path="fused_loop", took_the_loop=took_loop)
+    # The per-iteration route at the same batch, for scale (printed only).
+    parity("train_scan_parity_f32", loss_and_grads(img8, noise8, use_pallas=True,
+                                                   scan_only=True),
+           plain32, None, batch=8, iters=k, vjp_path="scan_blockwise")
+    for route, kw in (("fused_loop", {}), ("scan_blockwise", {"scan_only": True})):
+        parity("train_bf16_vs_f32", loss_and_grads(img8, noise8, use_pallas=True,
+                                                   compute_dtype=bf16, **kw),
+               plain32, None, batch=8, iters=k, vjp_path=route)
+    if not took_loop or worst > LOOP_F32_BAR:
+        raise AssertionError("f32 loop training gradients disagree with the plain route")
+
     # -- kernels -----------------------------------------------------------------
+    # Each kernel's launches on the path that drives it: the forwards on the
+    # serve path, the loop's kernels on the batch-8 train path (the pre-only
+    # launch under remat), the per-iteration backward on the batch-4 path.
     launches.update({
-        "grouped_mlp_bwd": train_launches["K1 bwd"] - train_launches["K1 bwd add"],
-        "grouped_mlp_bwd_add": train_launches["K1 bwd add"],
-        "consensus_update_bwd_dq": train_launches["K2 bwd dq"],
-        "consensus_update_bwd_dkv": train_launches["K2 bwd dkv"],
+        "grouped_mlp_pre": remat_launches["K1 pre"] - remat_launches["K1 pre add"],
+        "grouped_mlp_pre_add": remat_launches["K1 pre add"],
+        "grouped_mlp_bwd": scan_launches["K1 bwd"] - scan_launches["K1 bwd add"],
+        "grouped_mlp_bwd_add": scan_launches["K1 bwd add"],
+        "grouped_mlp_bwd_acc": train_launches["K1 bwd acc"] - train_launches["K1 bwd acc add"],
+        "grouped_mlp_bwd_acc_add": train_launches["K1 bwd acc add"],
+        "consensus_update_bwd_dq": scan_launches["K2 bwd dq"],
+        "consensus_update_bwd_dkv": scan_launches["K2 bwd dkv"],
+        # the dq and dkv passes that together replace one TPU kernel
+        "consensus_update_bwd_combine": (train_launches["K2 combine dq"]
+                                         + train_launches["K2 combine dkv"]),
     })
+    if min(train_launches["K2 combine dq"], train_launches["K2 combine dkv"]) == 0:
+        raise AssertionError(f"a combine pass ran no time on its main path: {train_launches}")
     csrc = "glom_tpu_torch/csrc/"
+    loop_src = "glom_tpu/kernels/fused_loop.py:"
     kernels = []
     for kname, src, replaces, err, tkey in (
         ("grouped_mlp_fwd", "grouped_mlp.cu", "glom_tpu/kernels/grouped_mlp.py:170",
@@ -602,10 +967,22 @@ def main() -> int:
          "glom_tpu/kernels/consensus_update.py:1142", k2_bwd_err["dq"], "k2_bwd_dq_b8"),
         ("consensus_update_bwd_dkv", "consensus_update_bwd.cu",
          "glom_tpu/kernels/consensus_update.py:1179", k2_bwd_err["dkv"], "k2_bwd_dkv_b8"),
+        ("grouped_mlp_pre", "grouped_mlp.cu", loop_src + "210", k1_pre_err["bottom_up"],
+         "k1_pre_b8"),
+        ("grouped_mlp_pre_add", "grouped_mlp.cu", loop_src + "198", k1_pre_err["top_down"],
+         "k1_pre_add_b8"),
+        ("grouped_mlp_bwd_acc", "grouped_mlp_bwd.cu", loop_src + "648",
+         k1_acc_err["bottom_up"], "k1_bwd_acc_b8"),
+        ("grouped_mlp_bwd_acc_add", "grouped_mlp_bwd.cu", loop_src + "621",
+         k1_acc_err["top_down"], "k1_bwd_acc_add_b8"),
+        ("consensus_update_bwd_combine", "consensus_update_bwd.cu", loop_src + "826",
+         max(k2_comb_err.values()), "k2_bwd_combine_b8"),
     ):
         kernels.append(dict(name=kname, route="cuda", source=csrc + src, replaces=replaces,
-                            launches=launches[kname], max_abs_err=err,
-                            **timings[tkey], library_ms=None))
+                            launches=launches[kname], max_abs_err=err, **timings[tkey]))
+    # The combine's two passes, each with its launches and times.
+    kernels[-1]["passes"] = {p: dict(launches=train_launches[f"K2 combine {p}"], **t)
+                             for p, t in passes.items()}
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

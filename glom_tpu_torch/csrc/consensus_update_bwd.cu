@@ -14,14 +14,43 @@
 // with q = v = levels and k = l2norm(levels). dv uses the unmasked p (the
 // diagonal's constant score still weights v); masked pairs have p = 0.
 //
+// The combine (the whole-loop VJP): the output cotangent of level g is not
+// one stream but three, read in place from the loop's buffers and summed in
+// f32 before the divide, never rounded in between:
+//
+//   cot[g] = dg[g] + [g < L-1] dx_bu[g+1] + [g >= 1] dx_td[g-1],
+//   dcons = cot / div
+//
+// dg is the previous (later) iteration's dlevels, dx_bu [L, B, n, d] the
+// bottom-up FFW's input cotangent by carry slot (slot g+1 is level g; slot
+// 0, the tokens, is not read), dx_td [L-1, B, n, d] the top-down one (slot
+// g-1 is level g). Level 0 has no top-down stream, the top level no
+// bottom-up one (and divides by 3). The loop's first backward iteration
+// passes no streams: cot = dg. dmean is the f32 dcons rounded once; the
+// f32 dcons itself enters dlevels.
+//
+// The products read dcons rounded to the compute type. The dq pass forms
+// it for its query rows and writes it once; the dkv pass reads that copy
+// for each streamed query tile and forms the f32 dcons (from the streams,
+// in the combine) only in its epilogue, for its own key rows. Forming it
+// on every query tile instead (a load, a divide and a rounding per
+// element, repeated by each of a slab's n / 16 key-tile blocks) took the
+// dkv pass 1.84 ms at the flagship bucket-8 shape (1.96 ms with the
+// combine's three streams) against 0.87 ms (0.81 ms) reading the copy
+// (bf16, measured on an H100). An f32 copy would carry 4 bytes where the
+// products need 2.
+//
 // Replaces: glom_tpu/kernels/consensus_update.py:_consensus_bwd_small_kernel
 // (one tile, n <= 512), :_consensus_bwd_dq_kernel and
-// :_consensus_bwd_dkv_kernel (two passes, any n). The single-tile form needs
+// :_consensus_bwd_dkv_kernel (two passes, any n), and
+// glom_tpu/kernels/fused_loop.py:_cons_bwd_combine_kernel (the three-stream
+// combine, single tile there). The single-tile form needs
 // the whole f32 [n, n] score tile in fast memory: 256 KB at n = 256, more
 // than a block's 227 KB of shared memory. So two kernels cover every n:
 //   * the dq pass, one block per (query tile, image, level), streams the
 //     key tiles twice: once for dd (the full sum, diagonal included), once
-//     for ds and dq += ds . k (f32 in shared memory). It writes f32 dq and dd;
+//     for ds and dq += ds . k (f32 in shared memory). It writes f32 dq and
+//     dd, and the rounded dcons;
 //   * the dkv pass, one block per (key tile, image, level), streams the
 //     query tiles once, summing dv and dk in shared memory, and its epilogue
 //     applies the norm VJP and writes the complete dlevels and dmean.
@@ -33,11 +62,13 @@
 //
 // Bound on the H100: tensor-core operations. At the flagship bucket-8 shape
 // ([6, 8, 256, 512] bf16) the five products of the single-tile form are
-// 16.1 GFLOP, against 50 MB of levels, cotangent, dlevels and dmean; this
-// design computes nine (s and dP three times, dq, dv, dk).
+// 16.1 GFLOP, against 50 MB of levels, cotangent, dlevels and dmean (23 MB
+// more with the combine's two streams); this design computes nine (s and
+// dP three times, dq, dv, dk).
 //
 // Kept out of device memory: the scores, probabilities and ds, and dv and
-// dk; only f32 dq and dd pass between the two kernels.
+// dk; only f32 dq and dd, and the rounded dcons, pass between the two
+// kernels.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes.
 
@@ -97,6 +128,19 @@ __device__ __forceinline__ float masked(float s, int i, int j, int side, int rea
     if ((float)dist2 > r2) s = NEG_MAX;
   }
   return s;
+}
+
+// The f32 output cotangent of level g at element idx (see the combine
+// above); plane = B * n * d elements per level. Without streams it is dg.
+template <typename T>
+__device__ __forceinline__ float cotangent(const T* gout, const T* dx_bu, const T* dx_td,
+                                           size_t idx, size_t plane, int g, int L) {
+  float c = to_f(gout[idx]);
+  if (dx_bu != nullptr) {
+    if (g < L - 1) c += to_f(dx_bu[idx + plane]);
+    if (g >= 1) c += to_f(dx_td[idx - plane]);
+  }
+  return c;
 }
 
 // ds on the diagonal is 0 without attend_self: its score was replaced by a
@@ -250,8 +294,10 @@ struct DqLayout {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
+                        const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
-                        float* __restrict__ dq_out, float* __restrict__ dd_out, int L, int B,
+                        float* __restrict__ dq_out, float* __restrict__ dd_out,
+                        T* __restrict__ dcons_out, int L, int B,
                         int n, int d, int side, int reach, float r2, int attend_self,
                         float scale) {
   constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
@@ -273,13 +319,16 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float div = g == L - 1 ? 3.0f : 4.0f;
   const size_t slab = ((size_t)g * B + b) * n;  // row offset of levels[g, b]
+  const size_t plane = (size_t)B * n * d;
   const T* row0 = lv + slab * d;
 
   for (int e = tid; e < TI * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
     const size_t idx = (slab + i0 + r) * d + c;
     qs[r * lay.ld + c] = lv[idx];
-    dcs[r * lay.ld + c] = from_f<T>(to_f(gout[idx]) / div);
+    const T dc = from_f<T>(cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div);
+    dcs[r * lay.ld + c] = dc;
+    dcons_out[idx] = dc;
     acc[r * lay.ldacc + c] = 0.0f;
   }
   if (tid < TI) {
@@ -362,9 +411,11 @@ struct DkvLayout {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
+                         const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
                          const float* __restrict__ m_in, const float* __restrict__ l_in,
                          const float* __restrict__ dq_in, const float* __restrict__ dd_in,
-                         T* __restrict__ dlv_out, T* __restrict__ dmean_out, int L, int B,
+                         const T* __restrict__ dcons_in, T* __restrict__ dlv_out,
+                         T* __restrict__ dmean_out, int L, int B,
                          int n, int d, int side, int reach, float r2, int attend_self,
                          float scale) {
   constexpr int KJ = Tiles<T>::KJ, KI = Tiles<T>::KI;
@@ -388,6 +439,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float div = g == L - 1 ? 3.0f : 4.0f;
   const size_t slab = ((size_t)g * B + b) * n;
+  const size_t plane = (size_t)B * n * d;
   const T* row0 = lv + slab * d;
 
   load_rows_and_k(row0 + (size_t)j0 * d, KJ, d, lay.ld, xj, kj, warp, lane);
@@ -406,7 +458,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
       const int r = e / d, c = e - r * d;
       const size_t idx = (slab + i0 + r) * d + c;
       qs[r * lay.ld + c] = lv[idx];
-      dcs[r * lay.ld + c] = from_f<T>(to_f(gout[idx]) / div);
+      dcs[r * lay.ld + c] = dcons_in[idx];
     }
     if (tid < KI) {
       m_row[tid] = m_in[slab + i0 + tid];
@@ -453,7 +505,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
       const float x = to_f(xj[r * lay.ld + c]);
       const float dkc = dk[r * lay.ldacc + c] * scale;
       const float dxn = dkc * inv - (norm >= 1e-12f ? kx * x * inv * inv / norm : 0.0f);
-      const float dcons = to_f(gout[idx]) / div;
+      const float dcons = cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div;
       dlv_out[idx] = from_f<T>(dcons + dq_in[idx] + dv[r * lay.ldacc + c] + dxn);
       dmean_out[idx] = from_f<T>(dcons);
     }
@@ -482,8 +534,10 @@ struct Geometry {
   float r2, scale;
 };
 
-bool valid(int L, int B, int n, int d, int side, int tile) {
-  return L >= 2 && B >= 1 && n % tile == 0 && d % 64 == 0 && side >= 1;
+bool valid(int L, int B, int n, int d, int side, int tile, const void* dx_bu,
+           const void* dx_td) {
+  return L >= 2 && B >= 1 && n % tile == 0 && d % 64 == 0 && side >= 1 &&
+         (dx_bu == nullptr) == (dx_td == nullptr);
 }
 
 Geometry geometry(int d, int side, double radius) {
@@ -492,10 +546,11 @@ Geometry geometry(int d, int side, double radius) {
 }
 
 template <typename T>
-int launch_dq(const void* lv, const void* gout, const float* m, const float* l, float* dq,
-              float* dd, int L, int B, int n, int d, int side, double radius, int attend_self,
-              cudaStream_t stream) {
-  if (!valid(L, B, n, d, side, Tiles<T>::TI) || n % Tiles<T>::TJ != 0)
+int launch_dq(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
+              const float* m, const float* l, float* dq, float* dd, void* dcons, int L, int B,
+              int n, int d, int side, double radius, int attend_self, cudaStream_t stream) {
+  if (!valid(L, B, n, d, side, Tiles<T>::TI, dx_bu, dx_td) || n % Tiles<T>::TJ != 0 ||
+      dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   static bool lifted[MAX_DEVICES];
   const cudaError_t err = lift_smem_cap(consensus_bwd_dq_kernel<T>, lifted);
@@ -503,16 +558,19 @@ int launch_dq(const void* lv, const void* gout, const float* m, const float* l, 
   const Geometry geo = geometry(d, side, radius);
   consensus_bwd_dq_kernel<T><<<dim3(n / Tiles<T>::TI, B, L), THREADS, DqLayout<T>(d).bytes,
                                stream>>>(
-      static_cast<const T*>(lv), static_cast<const T*>(gout), m, l, dq, dd, L, B, n, d, side,
+      static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
+      static_cast<const T*>(dx_td), m, l, dq, dd, static_cast<T*>(dcons), L, B, n, d, side,
       geo.reach, geo.r2, attend_self, geo.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dkv(const void* lv, const void* gout, const float* m, const float* l,
-               const float* dq, const float* dd, void* dlv, void* dmean, int L, int B, int n,
-               int d, int side, double radius, int attend_self, cudaStream_t stream) {
-  if (!valid(L, B, n, d, side, Tiles<T>::KJ) || n % Tiles<T>::KI != 0)
+int launch_dkv(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
+               const float* m, const float* l, const float* dq, const float* dd,
+               const void* dcons, void* dlv, void* dmean, int L, int B, int n, int d, int side,
+               double radius, int attend_self, cudaStream_t stream) {
+  if (!valid(L, B, n, d, side, Tiles<T>::KJ, dx_bu, dx_td) || n % Tiles<T>::KI != 0 ||
+      dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   static bool lifted[MAX_DEVICES];
   const cudaError_t err = lift_smem_cap(consensus_bwd_dkv_kernel<T>, lifted);
@@ -520,7 +578,8 @@ int launch_dkv(const void* lv, const void* gout, const float* m, const float* l,
   const Geometry geo = geometry(d, side, radius);
   consensus_bwd_dkv_kernel<T><<<dim3(n / Tiles<T>::KJ, B, L), THREADS,
                                 DkvLayout<T>(d).bytes, stream>>>(
-      static_cast<const T*>(lv), static_cast<const T*>(gout), m, l, dq, dd,
+      static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
+      static_cast<const T*>(dx_td), m, l, dq, dd, static_cast<const T*>(dcons),
       static_cast<T*>(dlv), static_cast<T*>(dmean), L, B, n, d, side, geo.reach, geo.r2,
       attend_self, geo.scale);
   return (int)cudaGetLastError();
@@ -530,31 +589,35 @@ int launch_dkv(const void* lv, const void* gout, const float* m, const float* l,
 
 extern "C" {
 
-// lv, gout: [L, B, n, d], one dtype (is_bf16 selects bf16, else f32); m, l:
-// the forward's f32 [L, B, n] row statistics; dq: f32 [L, B, n, d] and dd:
-// f32 [L, B, n] outputs. Contiguous, on the current device. Returns a
-// cudaError_t.
-int consensus_update_bwd_dq(const void* lv, const void* gout, const float* m, const float* l,
-                            float* dq, float* dd, int L, int B, int n, int d, int side,
+// lv, gout: [L, B, n, d], one dtype (is_bf16 selects bf16, else f32);
+// dx_bu [L, B, n, d] and dx_td [L-1, B, n, d] in that dtype, both or
+// neither (the combine's streams); m, l: the forward's f32 [L, B, n] row
+// statistics; dq: f32 [L, B, n, d] and dd: f32 [L, B, n] outputs; dcons:
+// the [L, B, n, d] output, in the levels dtype, of the rounded dcons.
+// Contiguous, on the current device. Returns a cudaError_t.
+int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
+                            const void* dx_td, const float* m, const float* l, float* dq,
+                            float* dd, void* dcons, int L, int B, int n, int d, int side,
                             double radius, int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dq<bf16>(lv, gout, m, l, dq, dd, L, B, n, d, side, radius,
-                                   attend_self, s)
-                 : launch_dq<float>(lv, gout, m, l, dq, dd, L, B, n, d, side, radius,
-                                    attend_self, s);
+  return is_bf16 ? launch_dq<bf16>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, L, B, n, d,
+                                   side, radius, attend_self, s)
+                 : launch_dq<float>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, L, B, n, d,
+                                    side, radius, attend_self, s);
 }
 
-// The dq pass's inputs plus its dq and dd; dlv, dmean: [L, B, n, d] in the
-// levels dtype.
-int consensus_update_bwd_dkv(const void* lv, const void* gout, const float* m, const float* l,
-                             const float* dq, const float* dd, void* dlv, void* dmean, int L,
-                             int B, int n, int d, int side, double radius, int attend_self,
-                             int is_bf16, void* stream) {
+// The dq pass's inputs plus its dq, dd and rounded dcons; dlv, dmean:
+// [L, B, n, d] in the levels dtype.
+int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu,
+                             const void* dx_td, const float* m, const float* l,
+                             const float* dq, const float* dd, const void* dcons, void* dlv,
+                             void* dmean, int L, int B, int n, int d, int side, double radius,
+                             int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dkv<bf16>(lv, gout, m, l, dq, dd, dlv, dmean, L, B, n, d, side,
-                                    radius, attend_self, s)
-                 : launch_dkv<float>(lv, gout, m, l, dq, dd, dlv, dmean, L, B, n, d, side,
-                                     radius, attend_self, s);
+  return is_bf16 ? launch_dkv<bf16>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L,
+                                    B, n, d, side, radius, attend_self, s)
+                 : launch_dkv<float>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L,
+                                     B, n, d, side, radius, attend_self, s);
 }
 
 const char* consensus_update_bwd_error_string(int err) {

@@ -5,14 +5,24 @@
 // For training it can also write the pre-activation pre = xa . w1 + b1,
 // [G, M, f] in x's type, for the backward (csrc/grouped_mlp_bwd.cu). The
 // store is a template parameter, so the serving launch compiles it out.
+// A third instance, PRE_ONLY, stops after the first product: it writes pre
+// and nothing else (the whole-loop VJP's remat recompute). It forms and
+// stores z with the very code the training forward saves it with, so the
+// recomputed pre is bit for bit the one the forward would have saved, and
+// remat gradients equal non-remat ones exactly.
 //
 // Replaces: glom_tpu/kernels/grouped_mlp.py:_mlp_kernel (bottom-up) and
 // :_mlp_kernel_add (top-down, with the positional addend folded into the
-// tile load), as one kernel with an optional addend pointer.
+// tile load), as one kernel with an optional addend pointer; also
+// glom_tpu/kernels/fused_loop.py:_ffw_fwd_ext (the same kernels reading a
+// slot of the loop's carry: here the caller passes the slot's pointer) and
+// :_pre_kernel / :_pre_add_kernel (the PRE_ONLY instance).
 //
 // Bound on the H100: tensor-core operations. At the flagship bottom-up
 // shape (G = 6, M = 2048, d = 512, f = 2048) the two products are 51.5
-// GFLOP against about 50 MB of weights, input and output.
+// GFLOP against about 50 MB of weights, input and output. PRE_ONLY does
+// one product (25.8 GFLOP, 0.026 ms) and moves about 75 MB, the [G, M, f]
+// pre included (0.022 ms): still bound by operations, barely.
 //
 // Kept out of device memory: the [G, M, f] hidden activation. A block owns
 // TM rows of one group; it walks f in FC-wide chunks, computes the chunk of
@@ -64,7 +74,7 @@ struct Bf16Layout {
   }
 };
 
-template <bool SAVE_PRE>
+template <bool SAVE_PRE, bool PRE_ONLY>
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
              int n, const __nv_bfloat16* __restrict__ w1,
@@ -128,9 +138,10 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
       const int r = e / FC, j = e - r * FC;
       const float z = hf[r * lay.ldhf + j] + __bfloat162float(b1g[c0 + j]);
       if constexpr (SAVE_PRE) pre[((size_t)g * M + m0 + r) * f + c0 + j] = __float2bfloat16(z);
-      hb[r * lay.ldhb + j] = __float2bfloat16(gelu_tanh(z));
+      if constexpr (!PRE_ONLY) hb[r * lay.ldhb + j] = __float2bfloat16(gelu_tanh(z));
     }
     __syncthreads();
+    if constexpr (PRE_ONLY) continue;
     // Output tile [TM, d] += hb . w2g[c0:c0+FC, :]: a warp owns column
     // tiles cf = warp, warp + 8, ... for both 16-row halves.
     FragA ha[TM / 16][FC / 16];
@@ -160,6 +171,7 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
     // The next chunk's first write (hf) is read only after a barrier that
     // every warp reaches after finishing this product, so none is needed.
   }
+  if constexpr (PRE_ONLY) return;
   __syncthreads();
   for (int e = tid; e < TM * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
@@ -171,7 +183,7 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 // f32: the same blocking on the CUDA cores. Phase one gives each thread one
 // hidden column and 8 rows; phase two gives each thread whole output
 // columns (all TM rows in registers) so every w2 value is read once.
-template <bool SAVE_PRE>
+template <bool SAVE_PRE, bool PRE_ONLY>
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
             const float* __restrict__ w1, const float* __restrict__ b1,
@@ -215,8 +227,9 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
     for (int r = 0; r < ROWS_A; ++r) {
       const float z = s[r] + bias;
       if constexpr (SAVE_PRE) pre[((size_t)g * M + m0 + r0 + r) * f + c0 + j] = z;
-      hs[(r0 + r) * FC + j] = gelu_erf(z);
+      if constexpr (!PRE_ONLY) hs[(r0 + r) * FC + j] = gelu_erf(z);
     }
+    if constexpr (PRE_ONLY) continue;
     __syncthreads();
     for (int c = tid; c < d; c += THREADS) {
       float o[TM];
@@ -232,6 +245,7 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
     }
     __syncthreads();
   }
+  if constexpr (PRE_ONLY) return;
   for (int e = tid; e < TM * d; e += THREADS) {
     const int c = e % d;
     out[xoff + e] = acc[e] + b2[(size_t)g * d + c];
@@ -260,8 +274,8 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
 }
 
 // One launch of the forward, with the pre-activation store compiled in
-// (training) or out (serving).
-template <bool SAVE_PRE>
+// (training) or out (serving), or of the pre-only recompute.
+template <bool SAVE_PRE, bool PRE_ONLY = false>
 cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* out, void* pre, int G, int M,
                        int d, int f, int is_bf16, cudaStream_t s) {
@@ -269,17 +283,17 @@ cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, cons
   const dim3 grid(M / TM, G);
   cudaError_t err;
   if (is_bf16) {
-    err = lift_smem_cap(mlp_fwd_bf16<SAVE_PRE>, lifted_bf16);
+    err = lift_smem_cap(mlp_fwd_bf16<SAVE_PRE, PRE_ONLY>, lifted_bf16);
     if (err != cudaSuccess) return err;
-    mlp_fwd_bf16<SAVE_PRE><<<grid, THREADS, Bf16Layout(d).bytes, s>>>(
+    mlp_fwd_bf16<SAVE_PRE, PRE_ONLY><<<grid, THREADS, Bf16Layout(d).bytes, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a), n,
         static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
         static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
         static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(pre), M, d, f);
   } else {
-    err = lift_smem_cap(mlp_fwd_f32<SAVE_PRE>, lifted_f32);
+    err = lift_smem_cap(mlp_fwd_f32<SAVE_PRE, PRE_ONLY>, lifted_f32);
     if (err != cudaSuccess) return err;
-    mlp_fwd_f32<SAVE_PRE><<<grid, THREADS, f32_smem_bytes(d), s>>>(
+    mlp_fwd_f32<SAVE_PRE, PRE_ONLY><<<grid, THREADS, f32_smem_bytes(d), s>>>(
         static_cast<const float*>(x), static_cast<const float*>(a), n,
         static_cast<const float*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(w2), static_cast<const float*>(b2),
@@ -307,6 +321,17 @@ int grouped_mlp_fwd(const void* x, const void* a, int n, const void* w1, const v
                    ? launch_fwd<true>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16, s)
                    : launch_fwd<false>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16,
                                        s));
+}
+
+// The pre-only recompute: pre [G, M, f] = (x (+ a)) . w1 + b1 in x's dtype,
+// bit for bit what grouped_mlp_fwd saves. Arguments as grouped_mlp_fwd's.
+int grouped_mlp_pre(const void* x, const void* a, int n, const void* w1, const void* b1,
+                    void* pre, int G, int M, int d, int f, int is_bf16, void* stream) {
+  if (G < 1 || M % TM != 0 || d % 64 != 0 || f % FC != 0 || pre == nullptr ||
+      (a != nullptr && (n < 1 || M % n != 0)))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_fwd<true, true>(x, a, n, w1, b1, nullptr, nullptr, nullptr, pre, G, M, d,
+                                     f, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 const char* grouped_mlp_error_string(int err) {

@@ -9,11 +9,33 @@
 //
 // Replaces: glom_tpu/kernels/grouped_mlp.py:_mlp_bwd_kernel (recompute),
 // :_mlp_bwd_kernel_saved (saved pre) and :_mlp_bwd_kernel_saved_add (saved
-// pre plus the da reduction), whose shared tail is :_mlp_bwd_tail.
+// pre plus the da reduction), whose shared tail is :_mlp_bwd_tail; in its
+// accumulate mode also glom_tpu/kernels/fused_loop.py:_ffw_bwd_acc_kernel
+// and :_ffw_bwd_acc_add_kernel (the whole-loop VJP's backward, which seeds
+// the weight-gradient sums from the previous iteration's f32 totals).
+//
+// Accumulate mode (the whole-loop VJP): dw1, db1, dw2, db2 and da are f32
+// and hold the totals of the iterations already done; this call adds its
+// own gradients to them in place. Each weight-pass block owns its tile
+// (and, in the first tile row, its column sums) across all M rows, and
+// each da_reduce thread owns one element, so the update is a
+// read-modify-write that no other block touches. The weight pass sums
+// this call's gradients from zero exactly as the per-op launch does (a
+// template instance, so the per-op instance is unchanged) and adds the
+// incoming total in its epilogue: total + this call's sum, the order of
+// the plain version. Seeding the WMMA accumulators with the incoming tile
+// before the row loop, as the TPU kernel seeds its VMEM sums, kept the
+// tile's pointer and the mode live through the loop: 58 registers instead
+// of 48, four blocks an SM instead of five, and a weight pass about 5 %
+// slower in both modes (measured on the H100). The sums stay f32 across
+// the iterations and are rounded to the parameter dtype once, after the
+// loop.
 //
 // Bound on the H100: tensor-core operations. At the flagship bottom-up shape
 // (G = 6, M = 2048, d = 512, f = 2048, bf16, saved pre) the four products
-// are 103 GFLOP against about 150 MB of inputs and outputs.
+// are 103 GFLOP against about 150 MB of inputs and outputs; the accumulate
+// mode reads and writes the f32 totals instead of writing bf16 grads (about
+// 100 MB more), still far below the operations' time.
 //
 // Kept out of device memory: dh. The TPU kernel walks the row tiles of a
 // group in order and sums dw/db in VMEM across them; CUDA blocks run in
@@ -40,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -311,7 +335,9 @@ mlp_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ a, int n
 // blockIdx.z = 1: dw2 [f, d] = h^T . g,     db2 = column sums of g.
 // C[i, j] = sum_m A[m, i] B[m, j] over the group's M rows, one WT x WT tile
 // a block. h is read from the row pass's workspace, or formed from the
-// saved pre as it is staged: GELU(pre) rounded to x's type.
+// saved pre as it is staged: GELU(pre) rounded to x's type. With ACC, C
+// and the column sums are f32 totals: the block adds its sums to its tile
+// of them in place.
 
 struct WeightOperands {
   const void* A;       // [G, M, NA]
@@ -333,10 +359,11 @@ __device__ __forceinline__ WeightOperands operands(int z, const void* x, const v
   return {h_ws, nullptr, false, gout, dw2, db2, f, d};
 }
 
+template <bool ACC>
 __global__ void __launch_bounds__(THREADS)
-mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre,
-                     const bf16* h_ws, const bf16* dpre_ws, const bf16* gout, bf16* dw1, bf16* db1, bf16* dw2,
-                     bf16* db2, int M, int d, int f) {
+mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const bf16* h_ws,
+                     const bf16* dpre_ws, const bf16* gout, void* dw1, void* db1, void* dw2,
+                     void* db2, int M, int d, int f) {
   constexpr int LDW = WT + 8, LDC = WT + 4;
   __shared__ __align__(128) unsigned char staged[2 * sizeof(bf16) * WK * LDW];
   __shared__ __align__(128) float Cs[WT * LDC];
@@ -397,16 +424,25 @@ mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre,
   for (int q = 0; q < 2; ++q)
     wmma::store_matrix_sync(Cs + rf * 16 * LDC + (cf0 + q) * 16, c[q], LDC, wmma::mem_row_major);
   __syncthreads();
-  bf16* C = static_cast<bf16*>(op.C);
   for (int e = tid; e < WT * WT; e += THREADS) {
     const int r = e / WT, cc = e - r * WT;
-    C[((size_t)g * op.NA + i0 + r) * op.NB + j0 + cc] = __float2bfloat16(Cs[r * LDC + cc]);
+    const size_t at = ((size_t)g * op.NA + i0 + r) * op.NB + j0 + cc;
+    if constexpr (ACC)
+      static_cast<float*>(op.C)[at] += Cs[r * LDC + cc];
+    else
+      static_cast<bf16*>(op.C)[at] = __float2bfloat16(Cs[r * LDC + cc]);
   }
-  if (sums && tid < WT)
-    static_cast<bf16*>(op.colsum)[(size_t)g * op.NB + j0 + tid] = __float2bfloat16(csum);
+  if (sums && tid < WT) {
+    const size_t at = (size_t)g * op.NB + j0 + tid;
+    if constexpr (ACC)
+      static_cast<float*>(op.colsum)[at] += csum;
+    else
+      static_cast<bf16*>(op.colsum)[at] = __float2bfloat16(csum);
+  }
 }
 
 // f32: a thread owns a 4 x 4 block of the tile.
+template <bool ACC>
 __global__ void __launch_bounds__(THREADS)
 mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
                     const float* h_ws, const float* dpre_ws, const float* gout, float* dw1,
@@ -457,27 +493,35 @@ mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
     __syncthreads();
   }
   float* C = static_cast<float*>(op.C);
+  float* colsum = static_cast<float*>(op.colsum);
 #pragma unroll
   for (int p = 0; p < 4; ++p)
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      C[((size_t)g * op.NA + i0 + ti + p) * op.NB + j0 + tj + q] = c[p][q];
-  if (sums && tid < WT) static_cast<float*>(op.colsum)[(size_t)g * op.NB + j0 + tid] = csum;
+    for (int q = 0; q < 4; ++q) {
+      float& out = C[((size_t)g * op.NA + i0 + ti + p) * op.NB + j0 + tj + q];
+      out = ACC ? out + c[p][q] : c[p][q];
+    }
+  if (sums && tid < WT) {
+    float& out = colsum[(size_t)g * op.NB + j0 + tid];
+    out = ACC ? out + csum : csum;
+  }
 }
 
-// da[r, c] = sum over groups g and batch copies b of dx32[g, b * n + r, c].
+// da[r, c] = sum over groups g and batch copies b of dx32[g, b * n + r, c];
+// with `accumulate` (f32 only) the sum is added to da's incoming total.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-da_reduce(const float* __restrict__ dx32, T* __restrict__ da, int G, int M, int n, int d) {
+da_reduce(const float* __restrict__ dx32, T* __restrict__ da, int G, int M, int n, int d,
+          int accumulate) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= n * d) return;
   float s = 0.0f;
   for (int g = 0; g < G; ++g)
     for (int b = 0; b < M / n; ++b) s += dx32[((size_t)g * M + (size_t)b * n) * d + e];
-  if constexpr (sizeof(T) == 2)
-    da[e] = __float2bfloat16(s);
+  if constexpr (std::is_same<T, float>::value)
+    da[e] = accumulate ? da[e] + s : s;
   else
-    da[e] = s;
+    da[e] = __float2bfloat16(s);
 }
 
 // Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
@@ -505,12 +549,15 @@ extern "C" {
 // w1, dw1: [G, d, f]; b1, db1: [G, f]; w2, dw2: [G, f, d]; db2: [G, d];
 // pre: the forward's saved [G, M, f] pre-activation, or NULL to recompute
 // it; dpre_ws: [G, M, f] workspace; h_ws: [G, M, f] workspace when pre is
-// NULL, else unused; dx32_ws: f32 [G, M, d]; da: [n, d]. All but dx32_ws of one dtype (is_bf16 selects bf16, else f32),
-// contiguous, on the current device. Returns a cudaError_t.
+// NULL, else unused; dx32_ws: f32 [G, M, d]; da: [n, d]. All but dx32_ws
+// of one dtype (is_bf16 selects bf16, else f32), contiguous, on the
+// current device. With `accumulate`, dw1, db1, dw2, db2 and da are f32
+// totals that this call adds to in place. Returns a cudaError_t.
 int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                     const void* w2, const void* pre, const void* gout, void* dx, void* dw1,
                     void* db1, void* dw2, void* db2, void* da, void* h_ws, void* dpre_ws,
-                    void* dx32_ws, int G, int M, int d, int f, int is_bf16, void* stream) {
+                    void* dx32_ws, int G, int M, int d, int f, int accumulate, int is_bf16,
+                    void* stream) {
   const int tm = is_bf16 ? TMB : TMF;
   const bool add = a != nullptr;
   if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || f % WT != 0 ||
@@ -532,16 +579,19 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
         static_cast<const bf16*>(gout), static_cast<bf16*>(dx), static_cast<float*>(dx32_ws),
         static_cast<bf16*>(h_ws), static_cast<bf16*>(dpre_ws), M, d, f);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    mlp_bwd_weights_bf16<<<weights, THREADS, 0, s>>>(
+    auto weights_bf16 = accumulate ? mlp_bwd_weights_bf16<true> : mlp_bwd_weights_bf16<false>;
+    weights_bf16<<<weights, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
         static_cast<const bf16*>(pre), static_cast<const bf16*>(h_ws),
-        static_cast<const bf16*>(dpre_ws),
-        static_cast<const bf16*>(gout), static_cast<bf16*>(dw1), static_cast<bf16*>(db1),
-        static_cast<bf16*>(dw2), static_cast<bf16*>(db2), M, d, f);
+        static_cast<const bf16*>(dpre_ws), static_cast<const bf16*>(gout), dw1, db1, dw2, db2,
+        M, d, f);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (add)
+    if (add && accumulate)
+      da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+          static_cast<const float*>(dx32_ws), static_cast<float*>(da), G, M, n, d, 1);
+    else if (add)
       da_reduce<bf16><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<bf16*>(da), G, M, n, d);
+          static_cast<const float*>(dx32_ws), static_cast<bf16*>(da), G, M, n, d, 0);
   } else {
     err = lift_smem_cap(mlp_bwd_rows_f32, lifted_f32);
     if (err != cudaSuccess) return (int)err;
@@ -554,7 +604,8 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
         static_cast<float*>(dx32_ws), static_cast<float*>(h_ws),
         static_cast<float*>(dpre_ws), M, d, f);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    mlp_bwd_weights_f32<<<weights, THREADS, 0, s>>>(
+    auto weights_f32 = accumulate ? mlp_bwd_weights_f32<true> : mlp_bwd_weights_f32<false>;
+    weights_f32<<<weights, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(a), n,
         static_cast<const float*>(pre), static_cast<const float*>(h_ws),
         static_cast<const float*>(dpre_ws),
@@ -563,7 +614,7 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if (add)
       da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<float*>(da), G, M, n, d);
+          static_cast<const float*>(dx32_ws), static_cast<float*>(da), G, M, n, d, accumulate);
   }
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,11 @@ For training the forward also writes the f32 row statistics m, l.
 `_consensus_bwd_dkv_kernel` with two passes that cover every n: the dq pass
 (f32 dq and dd) and the dkv pass (dv, dk through the norm VJP, and the
 complete dlevels = dmean + dq + dv + normVJP(dk), plus dmean). Its
-arithmetic is the single-tile kernel's (`_small_bwd_math`).
+arithmetic is the single-tile kernel's (`_small_bwd_math`). Their combine
+mode is glom_tpu's `fused_loop._cons_bwd_combine_kernel`, the whole-loop
+VJP's consensus backward: the output cotangent of a level is the sum, in
+f32, of the previous iteration's dlevels and the slot-shifted input
+cotangents of the two FFWs (`dx_bu`, `dx_td`).
 `consensus_update_vjp` is the differentiable entry, the twin of `_fused`:
 d(bu) = dmean and d(td) = dmean[:L-1].
 
@@ -30,7 +34,9 @@ anything they do not take). Unlike the TPU dispatch, they never hand small
 batches to a dense op: on the card the kernels run at every batch. The raw
 forward refuses an input that requires grad while grad mode is on.
 `LAUNCHES` counts forward launches, `LAUNCHES_BWD_DQ` and
-`LAUNCHES_BWD_DKV` the two backward passes.
+`LAUNCHES_BWD_DKV` the two backward passes, and `LAUNCHES_BWD_COMBINE_DQ`
+and `LAUNCHES_BWD_COMBINE_DKV` those launched in combine mode (counted
+there only).
 """
 
 from __future__ import annotations
@@ -41,12 +47,14 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels import _build
-from glom_tpu_torch.kernels.grouped_mlp import refuse_grad
+from glom_tpu_torch.kernels.grouped_mlp import _ptr, refuse_grad
 from glom_tpu_torch.utils.helpers import TOKEN_ATTEND_SELF_VALUE
 
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
+LAUNCHES_BWD_COMBINE_DQ = 0
+LAUNCHES_BWD_COMBINE_DKV = 0
 
 WIDTH_MULTIPLE = 64  # d must be a multiple of this
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # n must be a multiple
@@ -62,12 +70,8 @@ _SIGNATURES = {
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "consensus_update_bwd_dq": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
-    ),
-    "consensus_update_bwd_dkv": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
-    ),
+    "consensus_update_bwd_dq": ([*[_P] * 9, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_dkv": ([*[_P] * 11, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
     "consensus_update_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -137,7 +141,19 @@ def consensus_update_plain(
     return (out, m, l) if stats else out
 
 
-def _bwd_terms(levels_lm, g, m, l, *, side, radius, attend_self):
+def _cotangent(g, dx_bu, dx_td):
+    """The f32 output cotangent of each level: g alone, or, in combine mode,
+    g + dx_bu[level + 1] (below the top) + dx_td[level - 1] (above level 0),
+    summed in that order as the kernels sum it."""
+    cot = g.to(torch.float32)
+    if dx_bu is not None:
+        cot = cot.clone()
+        cot[:-1] += dx_bu[1:].to(torch.float32)
+        cot[1:] += dx_td.to(torch.float32)
+    return cot
+
+
+def _bwd_terms(levels_lm, g, m, l, *, side, radius, attend_self, dx_bu=None, dx_td=None):
     """What both backward passes recompute: f32 x, k, p, dcons and its
     rounding, dP, and ds rounded to the levels dtype (needs dd: None)."""
     L = levels_lm.shape[0]
@@ -148,7 +164,7 @@ def _bwd_terms(levels_lm, g, m, l, *, side, radius, attend_self):
         levels_lm, k, side=side, radius=radius, attend_self=attend_self
     )
     p = torch.exp(s - m) / l  # [L, B, n(i), n(j)]
-    dcons = g.to(f32) / _divisor(L, levels_lm.device)
+    dcons = _cotangent(g, dx_bu, dx_td) / _divisor(L, levels_lm.device)
     dcr = dcons.to(dt).to(f32)
     dp = torch.matmul(dcr, x.transpose(-1, -2))  # dP_ij = dcons_i . v_j
 
@@ -161,18 +177,22 @@ def _bwd_terms(levels_lm, g, m, l, *, side, radius, attend_self):
     return x, k, p, dcons, dcr, dp, ds_rounded
 
 
-def consensus_bwd_dq_plain(levels_lm, g, m, l, *, side, radius=0.0, attend_self=False):
+def consensus_bwd_dq_plain(
+    levels_lm, g, m, l, *, side, radius=0.0, attend_self=False, dx_bu=None, dx_td=None
+):
     """The dq pass in plain PyTorch (glom_tpu's _small_bwd_math up to dq):
     f32 dq = scale * ds . k and dd = rowsum(p * dP), the full sum."""
     _, k, p, _, _, dp, ds_rounded = _bwd_terms(
-        levels_lm, g, m, l, side=side, radius=radius, attend_self=attend_self
+        levels_lm, g, m, l, side=side, radius=radius, attend_self=attend_self,
+        dx_bu=dx_bu, dx_td=dx_td,
     )
     dd = (p * dp).sum(dim=-1, keepdim=True)
     return torch.matmul(ds_rounded(dd), k) * levels_lm.shape[-1] ** -0.5, dd
 
 
 def consensus_bwd_dkv_plain(
-    levels_lm, g, m, l, dq, dd, *, side, radius=0.0, attend_self=False, parts=False
+    levels_lm, g, m, l, dq, dd, *, side, radius=0.0, attend_self=False, dx_bu=None,
+    dx_td=None, parts=False,
 ):
     """The dkv pass in plain PyTorch: dv, dk through the VJP of the k
     normalization (glom_tpu's _norm_vjp), and (dlevels = dcons + dq + dv +
@@ -180,7 +200,8 @@ def consensus_bwd_dkv_plain(
     returns {"dv": ..., "dxn": ...} in f32."""
     dt = levels_lm.dtype
     x, _, p, dcons, dcr, _, ds_rounded = _bwd_terms(
-        levels_lm, g, m, l, side=side, radius=radius, attend_self=attend_self
+        levels_lm, g, m, l, side=side, radius=radius, attend_self=attend_self,
+        dx_bu=dx_bu, dx_td=dx_td,
     )
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dcr)  # unmasked p
     dk = torch.matmul(ds_rounded(dd).transpose(-1, -2), x) * levels_lm.shape[-1] ** -0.5
@@ -201,12 +222,16 @@ def consensus_update_bwd_plain(
     side: int,
     radius: float = 0.0,
     attend_self: bool = False,
+    dx_bu: Optional[torch.Tensor] = None,
+    dx_td: Optional[torch.Tensor] = None,
 ):
     """The backward kernels' function in plain PyTorch, with their rounding
     points (glom_tpu's _small_bwd_math and _norm_vjp): for the output
     cotangent g [L, B, n, d] and the forward's row statistics m, l
-    [L, B, n, 1], returns (dlevels, dmean) in the levels dtype."""
-    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    [L, B, n, 1], returns (dlevels, dmean) in the levels dtype. With the
+    combine's streams dx_bu [L, B, n, d] and dx_td [L-1, B, n, d], the
+    cotangent is their f32 sum with g (glom_tpu's _cons_bwd_combine_kernel)."""
+    kw = dict(side=side, radius=radius, attend_self=attend_self, dx_bu=dx_bu, dx_td=dx_td)
     dq, dd = consensus_bwd_dq_plain(levels_lm, g, m, l, **kw)
     return consensus_bwd_dkv_plain(levels_lm, g, m, l, dq, dd, **kw)
 
@@ -311,44 +336,69 @@ def fused_consensus_update(
     return (out, m, l) if stats else out
 
 
-def _check_bwd_args(levels_lm, g, m, l, side, radius) -> None:
+def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons=None) -> None:
     """Raise ValueError for anything the backward kernels do not take."""
     _check_levels(levels_lm, side=side, radius=radius)
     L, B, n, d = levels_lm.shape
-    for name, t, shape, dtype in (
+    if (dx_bu is None) != (dx_td is None):
+        raise ValueError("dx_bu and dx_td come together")
+    if dx_bu is not None and not combine:
+        raise ValueError("the dx_bu/dx_td streams are the combine's: pass combine=True")
+    checks = [
         ("g", g, (L, B, n, d), levels_lm.dtype),
         ("m", m, (L, B, n, 1), torch.float32),
         ("l", l, (L, B, n, 1), torch.float32),
-    ):
+    ]
+    if dx_bu is not None:
+        checks += [("dx_bu", dx_bu, (L, B, n, d), levels_lm.dtype),
+                   ("dx_td", dx_td, (L - 1, B, n, d), levels_lm.dtype)]
+    if dcons is not None:
+        checks.append(("dcons", dcons, (L, B, n, d), levels_lm.dtype))
+    for name, t, shape, dtype in checks:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != levels_lm.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {levels_lm.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def consensus_bwd_dq(levels_lm, g, m, l, *, side, radius=0.0, attend_self=False):
-    """The dq pass on the card: (f32 dq [L, B, n, d], f32 dd [L, B, n, 1])."""
-    global LAUNCHES_BWD_DQ
-    _check_bwd_args(levels_lm, g, m, l, side, radius)
+def consensus_bwd_dq(
+    levels_lm, g, m, l, *, side, radius=0.0, attend_self=False, dx_bu=None, dx_td=None,
+    combine=False,
+):
+    """The dq pass on the card: (f32 dq [L, B, n, d], f32 dd [L, B, n, 1],
+    dcons [L, B, n, d] rounded to the levels dtype, which the dkv pass
+    reads). combine=True is the whole-loop VJP's launch (with or without
+    streams)."""
+    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_COMBINE_DQ
+    _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine)
     lib = _bwd_lib()
     L, B, n, d = levels_lm.shape
     dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
     dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
+    dcons = torch.empty_like(levels_lm)
     err = lib.consensus_update_bwd_dq(
-        levels_lm.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dq.data_ptr(), dd.data_ptr(), L, B, n, d, side, float(radius),
+        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
+        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), L, B, n, d, side,
+        float(radius),
         int(attend_self), int(levels_lm.dtype == torch.bfloat16),
         torch.cuda.current_stream(levels_lm.device).cuda_stream,
     )
     _build.check(err, "consensus_update_bwd_dq", lib.consensus_update_bwd_error_string)
-    LAUNCHES_BWD_DQ += 1
-    return dq, dd
+    if combine:
+        LAUNCHES_BWD_COMBINE_DQ += 1
+    else:
+        LAUNCHES_BWD_DQ += 1
+    return dq, dd, dcons
 
 
-def consensus_bwd_dkv(levels_lm, g, m, l, dq, dd, *, side, radius=0.0, attend_self=False):
-    """The dkv pass on the card: (dlevels, dmean) in the levels dtype."""
-    global LAUNCHES_BWD_DKV
-    _check_bwd_args(levels_lm, g, m, l, side, radius)
+def consensus_bwd_dkv(
+    levels_lm, g, m, l, dq, dd, dcons, *, side, radius=0.0, attend_self=False, dx_bu=None,
+    dx_td=None, combine=False,
+):
+    """The dkv pass on the card, from the dq pass's outputs: (dlevels,
+    dmean) in the levels dtype."""
+    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_COMBINE_DKV
+    _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons)
     for name, t in (("dq", dq), ("dd", dd)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
@@ -357,28 +407,43 @@ def consensus_bwd_dkv(levels_lm, g, m, l, dq, dd, *, side, radius=0.0, attend_se
     dlv = torch.empty_like(levels_lm)
     dmean = torch.empty_like(levels_lm)
     err = lib.consensus_update_bwd_dkv(
-        levels_lm.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dq.data_ptr(), dd.data_ptr(), dlv.data_ptr(), dmean.data_ptr(),
+        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
+        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), dlv.data_ptr(),
+        dmean.data_ptr(),
         L, B, n, d, side, float(radius), int(attend_self),
         int(levels_lm.dtype == torch.bfloat16),
         torch.cuda.current_stream(levels_lm.device).cuda_stream,
     )
     _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
-    LAUNCHES_BWD_DKV += 1
+    if combine:
+        LAUNCHES_BWD_COMBINE_DKV += 1
+    else:
+        LAUNCHES_BWD_DKV += 1
     return dlv, dmean
 
 
-def consensus_update_bwd(levels_lm, g, m, l, *, side, radius=0.0, attend_self=False):
+def consensus_update_bwd(
+    levels_lm, g, m, l, *, side, radius=0.0, attend_self=False, dx_bu=None, dx_td=None,
+    combine=False,
+):
     """The VJP of `fused_consensus_update` for the output cotangent g:
     (dlevels, dmean), as `consensus_update_bwd_plain`. On the card: the dq
-    pass, then the dkv pass."""
+    pass, then the dkv pass.
+    combine=True is the whole-loop VJP's call: it
+    may add the streams dx_bu [L, B, n, d] and dx_td [L-1, B, n, d] to g
+    (the loop's first backward iteration has none) and counts its launches
+    as the combine's. levels_lm, g and the streams may be contiguous views
+    of larger buffers (the loop's carry slots)."""
     kw = dict(side=side, radius=radius, attend_self=attend_self)
     if levels_lm.device.type == "cpu":
-        return consensus_update_bwd_plain(levels_lm, g, m, l, **kw)
+        if dx_bu is not None and not combine:
+            raise ValueError("the dx_bu/dx_td streams are the combine's: pass combine=True")
+        return consensus_update_bwd_plain(levels_lm, g, m, l, dx_bu=dx_bu, dx_td=dx_td, **kw)
     if levels_lm.device.type != "cuda":
         raise ValueError(f"no kernel for device {levels_lm.device}")
-    dq, dd = consensus_bwd_dq(levels_lm, g, m, l, **kw)
-    return consensus_bwd_dkv(levels_lm, g, m, l, dq, dd, **kw)
+    kw.update(dx_bu=dx_bu, dx_td=dx_td, combine=combine)
+    dq, dd, dcons = consensus_bwd_dq(levels_lm, g, m, l, **kw)
+    return consensus_bwd_dkv(levels_lm, g, m, l, dq, dd, dcons, **kw)
 
 
 class _ConsensusUpdate(torch.autograd.Function):

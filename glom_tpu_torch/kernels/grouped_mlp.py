@@ -9,22 +9,30 @@ Counterpart of `glom_tpu/kernels/grouped_mlp.py`. The CUDA kernel
 with the [G, M, f] hidden kept on chip. Per-dtype rules of the reference
 kernel: bf16 uses the tanh GELU, f32 the exact erf; both products
 accumulate in f32, the hidden is rounded to x's dtype before the second.
-For training the forward can also write the pre-activation [G, M, f].
+For training the forward can also write the pre-activation [G, M, f], and
+`grouped_mlp_pre` runs only its first product (glom_tpu's
+`fused_loop._pre_kernel`/`_pre_add_kernel`, the whole-loop VJP's remat
+recompute): a pre bit for bit equal to the one the forward saves.
 
 `csrc/grouped_mlp_bwd.cu` replaces the backward kernels `_mlp_bwd_kernel`,
 `_mlp_bwd_kernel_saved` and `_mlp_bwd_kernel_saved_add`: dx, the four
 weight and bias grads (f32 sums, cast to the parameter dtype) and, with an
 addend, da. `grouped_ffw_lm_vjp` is the differentiable entry, the twin of
 `_fused_lm`/`_fused_lm_add`: it saves the pre-activation where `_fwd` does
-(bf16 under a 512 MB cap) and recomputes it otherwise.
+(bf16 under a 512 MB cap) and recomputes it otherwise. With `acc` (f32
+weight-gradient totals) the backward adds its gradients into them in place
+(glom_tpu's `fused_loop._ffw_bwd_acc_kernel`/`_ffw_bwd_acc_add_kernel`),
+and with an addend its da into `da_in`.
 
 `fused_grouped_ffw_lm` and `grouped_mlp_bwd` run the plain PyTorch versions
 (`grouped_mlp_plain`, `grouped_mlp_bwd_plain`) for tensors on the CPU and
 launch the kernels for CUDA tensors (raising on anything they do not take).
 The raw forward writes through a pointer autograd cannot see, so it refuses
 an input that requires grad while grad mode is on. `LAUNCHES` counts
-forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_BWD` and
-`LAUNCHES_BWD_ADD` count backward launches.
+forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_PRE` and
+`LAUNCHES_PRE_ADD` the pre-only launches; `LAUNCHES_BWD` and
+`LAUNCHES_BWD_ADD` backward launches, and `LAUNCHES_BWD_ACC` and
+`LAUNCHES_BWD_ACC_ADD` those in accumulate mode (counted there only).
 """
 
 from __future__ import annotations
@@ -40,8 +48,12 @@ from glom_tpu_torch.ops.ffw import GroupedFFWParams
 
 LAUNCHES = 0
 LAUNCHES_ADD = 0
+LAUNCHES_PRE = 0
+LAUNCHES_PRE_ADD = 0
 LAUNCHES_BWD = 0
 LAUNCHES_BWD_ADD = 0
+LAUNCHES_BWD_ACC = 0
+LAUNCHES_BWD_ACC_ADD = 0
 
 ROW_TILE = 32  # rows of x per block (csrc/grouped_mlp.cu TM)
 WIDTH_MULTIPLE = 64  # d and f must be multiples of this
@@ -52,10 +64,11 @@ SAVE_PRE_LIMIT = 512 * 1024 * 1024
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "grouped_mlp_fwd": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_pre": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P], _I),
     "grouped_mlp_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -122,18 +135,35 @@ def grouped_mlp_plain(
     return (out, pre.to(x.dtype)) if save_pre else out
 
 
+def grouped_mlp_pre_plain(
+    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The pre-only kernel's function: pre = (x + tile(add)) @ w1 + b1,
+    summed in f32 and rounded to x's dtype, as `grouped_mlp_plain` saves it."""
+    f32 = torch.float32
+    xa = _with_addend(x, add)
+    pre = torch.bmm(xa.to(f32), params.w1.to(f32)) + params.b1.to(f32)[:, None, :]
+    return pre.to(x.dtype)
+
+
 def grouped_mlp_bwd_plain(
     params: GroupedFFWParams,
     x: torch.Tensor,
     g: torch.Tensor,
     add: Optional[torch.Tensor] = None,
     pre: Optional[torch.Tensor] = None,
+    acc: Optional[GroupedFFWParams] = None,
+    da_in: Optional[torch.Tensor] = None,
 ):
     """The backward kernel's function in plain PyTorch, with its rounding
     points (glom_tpu's _mlp_bwd_tail): h and dpre rounded to x's dtype,
     every product and sum in f32. `pre` is the forward's saved
     pre-activation, or None to recompute it. Returns (dx, grads, da): grads
-    in the parameter dtypes, da [n, d] (the addend's dtype) or None."""
+    in the parameter dtypes, da [n, d] (the addend's dtype) or None.
+
+    Accumulate mode (`acc`, f32 totals shaped like the params; with an
+    addend also `da_in`, f32 [n, d]): this call's f32 gradients are added
+    to them in place, as the kernel does, and grads = acc, da = da_in."""
     w1, b1, w2, b2 = params
     f32 = torch.float32
     G, M, d = x.shape
@@ -148,17 +178,22 @@ def grouped_mlp_bwd_plain(
     dh = torch.bmm(g32, w2.to(f32).transpose(1, 2))
     dpre = (dh * grad).to(x.dtype).to(f32)
     dx32 = torch.bmm(dpre, w1.to(f32).transpose(1, 2))
-    grads = GroupedFFWParams(
-        torch.bmm(xa.to(f32).transpose(1, 2), dpre).to(w1.dtype),
-        dpre.sum(dim=1).to(b1.dtype),
-        torch.bmm(h.transpose(1, 2), g32).to(w2.dtype),
-        g32.sum(dim=1).to(b2.dtype),
+    sums = (
+        torch.bmm(xa.to(f32).transpose(1, 2), dpre),
+        dpre.sum(dim=1),
+        torch.bmm(h.transpose(1, 2), g32),
+        g32.sum(dim=1),
     )
-    da = None
+    da32 = None
     if add is not None:
         n = add.shape[0]
-        da = dx32.reshape(G, M // n, n, d).sum(dim=(0, 1)).to(add.dtype)
-    return dx32.to(x.dtype), grads, da
+        da32 = dx32.reshape(G, M // n, n, d).sum(dim=(0, 1))
+    if acc is not None:
+        for total, s in zip(acc, sums):
+            total.add_(s)
+        return dx32.to(x.dtype), acc, None if da32 is None else da_in.add_(da32)
+    grads = GroupedFFWParams(*(s.to(p.dtype) for s, p in zip(sums, params)))
+    return dx32.to(x.dtype), grads, None if da32 is None else da32.to(add.dtype)
 
 
 def check_kernel_args(
@@ -239,6 +274,50 @@ def fused_grouped_ffw_lm(
     return (out, pre) if save_pre else out
 
 
+def grouped_mlp_pre(
+    params: GroupedFFWParams, x: torch.Tensor, *, add: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The pre-activation [G, M, f] alone, bit for bit the one
+    `fused_grouped_ffw_lm(..., save_pre=True)` returns for the same inputs."""
+    global LAUNCHES_PRE, LAUNCHES_PRE_ADD
+    refuse_grad(x, add, *params)
+    if x.device.type == "cpu":
+        return grouped_mlp_pre_plain(params, x, add)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    check_kernel_args(params, x, add)
+    lib = _lib()
+    G, M, d = x.shape
+    f = params.w1.shape[-1]
+    pre = x.new_empty((G, M, f))
+    err = lib.grouped_mlp_pre(
+        x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
+        params.w1.data_ptr(), params.b1.data_ptr(), pre.data_ptr(), G, M, d, f,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "grouped_mlp_pre", lib.grouped_mlp_error_string)
+    LAUNCHES_PRE += 1
+    if add is not None:
+        LAUNCHES_PRE_ADD += 1
+    return pre
+
+
+def _check_accumulators(params, x, add, acc, da_in) -> None:
+    """Raise ValueError for accumulators the kernel's accumulate mode does
+    not take: f32, contiguous, shaped like the params (da_in like the
+    addend, and given exactly when the addend is)."""
+    pairs = list(zip(("dw1", "db1", "dw2", "db2"), acc, params))
+    if (da_in is None) != (add is None):
+        raise ValueError("da_in goes with an addend in accumulate mode, and only then")
+    if add is not None:
+        pairs.append(("da_in", da_in, add))
+    for name, t, like in pairs:
+        if t.shape != like.shape or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def grouped_mlp_bwd(
     params: GroupedFFWParams,
     x: torch.Tensor,
@@ -246,13 +325,19 @@ def grouped_mlp_bwd(
     *,
     add: Optional[torch.Tensor] = None,
     pre: Optional[torch.Tensor] = None,
+    acc: Optional[GroupedFFWParams] = None,
+    da_in: Optional[torch.Tensor] = None,
 ):
     """The VJP of `fused_grouped_ffw_lm` at (params, x, add) for the output
     cotangent g [G, M, d]: (dx, grads, da), as `grouped_mlp_bwd_plain`.
-    `pre` is the forward's saved pre-activation, or None to recompute it."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_ADD
+    `pre` is the forward's saved pre-activation, or None to recompute it.
+    With `acc` (and `da_in` for an addend) the f32 totals are updated in
+    place and returned as grads and da. x and g may be views into larger
+    buffers (a carry slot, a prefix of levels) as long as each is
+    contiguous: the kernel reads them through their pointers."""
+    global LAUNCHES_BWD, LAUNCHES_BWD_ADD, LAUNCHES_BWD_ACC, LAUNCHES_BWD_ACC_ADD
     if x.device.type == "cpu":
-        return grouped_mlp_bwd_plain(params, x, g, add, pre)
+        return grouped_mlp_bwd_plain(params, x, g, add, pre, acc, da_in)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     check_kernel_args(params, x, add)
@@ -265,30 +350,37 @@ def grouped_mlp_bwd(
             raise ValueError(f"{name} must be {shape} {x.dtype} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if acc is not None:
+        _check_accumulators(params, x, add, acc, da_in)
+    elif da_in is not None:
+        raise ValueError("da_in needs acc (accumulate mode)")
     lib = _bwd_lib()
     w1, b1, w2, b2 = params
     dx = torch.empty_like(x)
-    grads = GroupedFFWParams(*(torch.empty_like(t) for t in params))
+    grads = acc if acc is not None else GroupedFFWParams(*(torch.empty_like(t) for t in params))
     # h is formed from a saved pre in the weight pass; without one, the row
     # pass writes it here.
     h_ws = x.new_empty((G, M, f)) if pre is None else None
     dpre_ws = x.new_empty((G, M, f))
     da = dx32 = None
     if add is not None:
-        da = torch.empty_like(add)
+        da = da_in if acc is not None else torch.empty_like(add)
         dx32 = x.new_empty((G, M, d), dtype=torch.float32)
     err = lib.grouped_mlp_bwd(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(pre), g.data_ptr(),
         dx.data_ptr(), *(t.data_ptr() for t in grads), _ptr(da),
         _ptr(h_ws), dpre_ws.data_ptr(), _ptr(dx32),
-        G, M, d, f, int(x.dtype == torch.bfloat16),
+        G, M, d, f, int(acc is not None), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_bwd", lib.grouped_mlp_bwd_error_string)
-    LAUNCHES_BWD += 1
-    if add is not None:
-        LAUNCHES_BWD_ADD += 1
+    if acc is not None:
+        LAUNCHES_BWD_ACC += 1
+        LAUNCHES_BWD_ACC_ADD += int(add is not None)
+    else:
+        LAUNCHES_BWD += 1
+        LAUNCHES_BWD_ADD += int(add is not None)
     return dx, grads, da
 
 

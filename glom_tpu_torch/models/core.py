@@ -13,13 +13,17 @@ Two routes behind `glom_forward`:
     level-major carry and, per iteration, the K1 kernel twice (bottom-up,
     top-down with the positional addend folded in) and the K2 kernel once
     (consensus + 4-way mean). On CPU tensors the kernels' plain versions run.
-    When grad mode is on and an input requires grad, each launch goes
+    When grad mode is on and an input requires grad, the route depends on
+    the shapes (`resolve_vjp_path`, glom_tpu's rule): at batch >= 8 the
+    whole loop runs under the hand-written whole-loop VJP (K3,
+    `kernels/fused_loop.py`, "fused_loop"); otherwise each launch goes
     through an autograd Function whose backward is the K1 or K2 backward
-    kernel (glom_tpu's per-iteration custom VJPs, its "scan_blockwise"
-    route); `resolve_vjp_path` names the route a training step takes.
+    kernel (glom_tpu's per-iteration custom VJPs, "scan_blockwise").
 
-`remat=True` recomputes each iteration in the backward
-(`torch.utils.checkpoint`, glom_tpu's jax.checkpoint over the scan body).
+`remat=True` recomputes each iteration in the backward: on the whole-loop
+VJP it recomputes the FFWs' pre-activations with the pre-only kernel, and
+elsewhere it is `torch.utils.checkpoint` (glom_tpu's jax.checkpoint over
+the scan body).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from glom_tpu_torch.kernels.consensus_update import (
     consensus_update_vjp,
     fused_consensus_update,
 )
+from glom_tpu_torch.kernels.fused_loop import fused_glom_loop, loop_supported
 from glom_tpu_torch.kernels.grouped_mlp import fused_grouped_ffw_lm, grouped_ffw_lm_vjp
 from glom_tpu_torch.ops.consensus import build_local_mask, consensus_attention
 from glom_tpu_torch.ops.ffw import GroupedFFWParams, grouped_ffw, init_grouped_ffw
@@ -43,6 +48,13 @@ from glom_tpu_torch.utils.helpers import default, exists
 
 ConsensusFn = Callable[[torch.Tensor], torch.Tensor]
 FFWFn = Callable[[GroupedFFWParams, torch.Tensor], torch.Tensor]
+
+
+def _on_card(device) -> bool:
+    """Seam for the dispatch policy's device check, the twin of glom_tpu's
+    `_on_tpu` (the CPU tests patch it to drive the card's routing through
+    the kernels' plain versions)."""
+    return torch.device(device).type == "cuda"
 
 
 class GlomParams(NamedTuple):
@@ -159,6 +171,7 @@ def glom_forward(
     consensus_fn: Optional[ConsensusFn] = None,
     use_pallas: bool = False,
     remat: bool = False,
+    scan_only: bool = False,
 ) -> torch.Tensor:
     """The T-iteration GLOM forward (reference :103-152).
 
@@ -167,7 +180,9 @@ def glom_forward(
     previous call. Params, image and levels are cast to `compute_dtype`
     once, before the loop. use_pallas=True selects the fused level-major
     route through the K1/K2 kernels. remat=True recomputes each iteration's
-    activations in the backward instead of keeping them.
+    activations in the backward instead of keeping them. scan_only=True
+    keeps a training forward off the whole-loop VJP (glom_tpu's
+    `scan_only`): its backward is then the per-iteration kernels'.
     """
     T = default(iters, cfg.default_iters)
     if compute_dtype is not None:
@@ -184,7 +199,7 @@ def glom_forward(
             )
         return _glom_forward_fused(
             params, img, cfg, iters=T, levels_in=levels, return_all=return_all,
-            remat=remat,
+            remat=remat, scan_only=scan_only,
         )
 
     if consensus_fn is None:
@@ -216,29 +231,115 @@ def glom_forward(
 
 
 def resolve_vjp_path(
-    *, use_pallas: bool = False, custom_consensus: bool = False, device="cuda"
+    cfg: GlomConfig,
+    b: int,
+    iters: int,
+    *,
+    remat: bool = False,
+    use_pallas: bool = False,
+    itemsize: int = 2,
+    custom_consensus: bool = False,
+    return_all: bool = False,
+    scan_only: bool = False,
+    device="cuda",
 ) -> str:
-    """Which backward a training forward takes (glom_tpu's resolve_vjp_path,
-    the one source both the dispatch and the records read):
+    """Which backward a training forward at these shapes takes (glom_tpu's
+    resolve_vjp_path, the one source both the dispatch and the records
+    read):
 
-      'scan_blockwise' -- the fused route on the card: per iteration, the
-                          K1 and K2 backward kernels;
+      'fused_loop'     -- the whole-loop VJP (K3, kernels/fused_loop.py):
+                          on the card, batch >= 8, the final state only
+                          (not return_all), not scan_only, and shapes
+                          `loop_supported` takes;
+      'scan_blockwise' -- the fused route on the card otherwise: per
+                          iteration, the K1 and K2 backward kernels;
       'scan_dense'     -- anything else (the reference route, a custom
                           consensus_fn, or the plain versions on the CPU).
 
-    glom_tpu sends batch >= 8 to the whole-loop VJP ('fused_loop', K3),
-    deciding on the shapes. K3 is not ported yet (ROADMAP queue B), so no
-    input reaches it here, and the shapes are not read.
+    The batch >= 8 threshold is glom_tpu's, measured on the TPU and kept
+    for route parity. Where glom_tpu answers 'scan_dense' on the TPU for a
+    small global-consensus batch, the port answers 'scan_blockwise': its
+    K2 backward kernel runs at every batch. Its `loop_supported` has the
+    port's own limits (see kernels/fused_loop.py).
     """
-    if use_pallas and not custom_consensus and torch.device(device).type == "cuda":
-        return "scan_blockwise"
-    return "scan_dense"
+    if not use_pallas or custom_consensus or not _on_card(device):
+        return "scan_dense"
+    n, d, L = cfg.num_patches, cfg.dim, cfg.levels
+    if (
+        not scan_only
+        and not return_all
+        and b >= 8
+        and loop_supported(
+            L, b, n, d, d * cfg.mult, itemsize, iters, n, remat,
+            side=cfg.num_patches_side, radius=float(cfg.local_consensus_radius),
+        )
+    ):
+        return "fused_loop"
+    return "scan_blockwise"
 
 
 def _wants_grad(params: GlomParams, *tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (*param_leaves(params), *tensors)
     )
+
+
+def _use_fused_loop(
+    params: GlomParams, cfg: GlomConfig, tokens: torch.Tensor, iters: int,
+    levels_in: Optional[torch.Tensor], return_all: bool, remat: bool, scan_only: bool,
+) -> bool:
+    """Dispatch to the whole-loop VJP (glom_tpu's `_use_fused_loop`): what
+    needs the actual tensors (a carried-in levels dtype, the token and FFW
+    widths against the config; the caller has checked the positional table
+    against the tokens) is checked here; the policy lives in
+    `resolve_vjp_path`."""
+    b, n, d = tokens.shape
+    if exists(levels_in) and levels_in.dtype != params.init_levels.dtype:
+        return False
+    if (n, d) != (cfg.num_patches, cfg.dim) or params.bottom_up.w1.shape[-1] != d * cfg.mult:
+        return False
+    return resolve_vjp_path(
+        cfg, b, iters, remat=remat, use_pallas=True, itemsize=tokens.element_size(),
+        return_all=return_all, scan_only=scan_only, device=tokens.device,
+    ) == "fused_loop"
+
+
+def per_iteration_loop(
+    bu_params: GroupedFFWParams,
+    td_params: GroupedFFWParams,
+    pos_emb: torch.Tensor,  # [n, d]
+    tokens: torch.Tensor,  # [B, n, d]
+    levels0: torch.Tensor,  # [L, B, n, d] level-major
+    iters: int,
+    side: int,
+    radius: float,
+    attend_self: bool,
+    remat: bool = False,
+    return_all: bool = False,
+) -> torch.Tensor:
+    """The per-iteration route ('scan_blockwise'): `fused_glom_loop`'s
+    arguments and result, each launch through its own autograd Function
+    with a fresh carry each iteration. Returns the final level-major
+    [L, B, n, d] state, or [T+1, L, B, n, d] with return_all."""
+    L = levels0.shape[0]
+    b, n, d = tokens.shape
+    geometry = dict(side=side, radius=float(radius), attend_self=bool(attend_self))
+    carry = torch.cat([tokens[None], levels0])
+
+    def step(carry):
+        bu = grouped_ffw_lm_vjp(bu_params, carry[:L].reshape(L, b * n, d))
+        td = grouped_ffw_lm_vjp(td_params, carry[2:].reshape(L - 1, b * n, d), add=pos_emb)
+        new = consensus_update_vjp(
+            carry[1:], bu.view(L, b, n, d), td.view(L - 1, b, n, d), **geometry
+        )
+        return torch.cat([tokens[None], new])
+
+    states = [carry[1:]]
+    for _ in range(iters):
+        carry = checkpoint(step, carry, use_reentrant=False) if remat else step(carry)
+        if return_all:
+            states.append(carry[1:])
+    return torch.stack(states) if return_all else carry[1:]
 
 
 def _glom_forward_fused(
@@ -250,6 +351,7 @@ def _glom_forward_fused(
     levels_in: Optional[torch.Tensor],
     return_all: bool,
     remat: bool = False,
+    scan_only: bool = False,
 ) -> torch.Tensor:
     """The fused forward: a level-major carry and three kernel launches per
     iteration.
@@ -262,9 +364,11 @@ def _glom_forward_fused(
     Without a gradient (serving), K2 writes the next levels into a second
     such buffer (it must not write over rows other blocks still read), and
     the two buffers swap each iteration: no concat and no copy. With one,
-    the launches go through the autograd Functions, and each iteration
-    builds a fresh carry: autograd keeps the carry for the backward, and a
-    kernel's write into a kept buffer would change it unseen.
+    the whole loop goes through the whole-loop VJP where `_use_fused_loop`
+    says so, or else each launch through the per-iteration autograd
+    Functions, with a fresh carry each iteration: autograd keeps the carry
+    for the backward, and a kernel's write into a kept buffer would change
+    it unseen.
     """
     tokens = image_to_tokens(params.token_embed, img, cfg.patch_size)  # [b, n, d]
     b, n, d = tokens.shape
@@ -281,26 +385,15 @@ def _glom_forward_fused(
             levels_lm = levels_in.permute(2, 0, 1, 3)
         else:
             levels_lm = params.init_levels[:, None, None, :].expand(L, b, n, d)
-        carry = torch.cat([tokens[None], levels_lm.to(tokens.dtype)])
-
-        def step(carry):
-            bu = grouped_ffw_lm_vjp(params.bottom_up, carry[:L].reshape(L, b * n, d))
-            td = grouped_ffw_lm_vjp(
-                params.top_down, carry[2:].reshape(L - 1, b * n, d), add=params.pos_emb
-            )
-            new = consensus_update_vjp(
-                carry[1:], bu.view(L, b, n, d), td.view(L - 1, b, n, d), **geometry
-            )
-            return torch.cat([tokens[None], new])
-
-        states = [carry[1:]]
-        for _ in range(iters):
-            carry = checkpoint(step, carry, use_reentrant=False) if remat else step(carry)
-            if return_all:
-                states.append(carry[1:])
+        args = (params.bottom_up, params.top_down, params.pos_emb, tokens,
+                levels_lm.to(tokens.dtype), iters)
+        if _use_fused_loop(params, cfg, tokens, iters, levels_in, return_all, remat, scan_only):
+            final = fused_glom_loop(*args, remat=remat, **geometry)
+            return final.permute(1, 2, 0, 3)  # [b, n, L, d]
+        out = per_iteration_loop(*args, remat=remat, return_all=return_all, **geometry)
         if return_all:
-            return torch.stack(states).permute(0, 2, 3, 1, 4)  # [T+1, b, n, L, d]
-        return carry[1:].permute(1, 2, 0, 3)  # [b, n, L, d]
+            return out.permute(0, 2, 3, 1, 4)  # [T+1, b, n, L, d]
+        return out.permute(1, 2, 0, 3)  # [b, n, L, d]
 
     carry = torch.empty((L + 1, b, n, d), dtype=tokens.dtype, device=tokens.device)
     carry[0] = tokens

@@ -15,6 +15,7 @@ from glom_tpu_torch.train.trainer import (
     make_lr_schedule,
     make_train_step,
     pinned_grad_accum,
+    resolve_route_keys,
     resolve_training_route,
 )
 
@@ -33,5 +34,6 @@ __all__ = [
     "make_train_step",
     "pinned_grad_accum",
     "reconstruct",
+    "resolve_route_keys",
     "resolve_training_route",
 ]

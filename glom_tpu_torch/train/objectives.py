@@ -68,10 +68,12 @@ def denoise_loss(
     compute_dtype=None,
     consensus_fn: Optional[ConsensusFn] = None,
     use_pallas: bool = False,
+    scan_only: bool = False,
 ) -> torch.Tensor:
     """MSE between the clean image and the reconstruction from the noised
     image's top level at iteration `recon_index` (exactly that many
-    iterations run)."""
+    iterations run). scan_only keeps the forward off the whole-loop VJP
+    (see `glom_forward`)."""
     T = iters if iters is not None else cfg.default_iters
     k = recon_index if recon_index is not None else default_recon_index(T)
     if not 1 <= k <= T:
@@ -85,6 +87,7 @@ def denoise_loss(
         compute_dtype=compute_dtype,
         consensus_fn=consensus_fn,
         use_pallas=use_pallas,
+        scan_only=scan_only,
     )
     top = final[:, :, -1]  # [b, n, d]: the top level
     recon = tokens_to_image(

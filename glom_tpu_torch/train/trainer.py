@@ -10,12 +10,15 @@ policy keeps parameters and optimizer state bit-identical on a non-finite
 step.
 
 Every record names the backward it ran (`vjp_path`, from
-`resolve_vjp_path`) and the microbatch count (`grad_accum`). The whole-loop
-VJP (K3) is not ported yet, so no step takes "fused_loop" and nothing
-splits a batch to reach it. Not ported yet, and refused with the ROADMAP
-item that brings them: ZeRO stages, the quantized reduce and meshes (queue
-A item 8); schema stamping, metrics writers, trace capture and the memory
-probe (items 6 and 9); per-level agreement at telemetry "full" (item 9).
+`resolve_vjp_path`) and the microbatch count (`grad_accum`), both from
+`resolve_training_route`, glom_tpu's rule: on the card a batch of 8 or more
+at the flagship trains through the whole-loop VJP ("fused_loop"), and with
+`grad_accum=None` a batch that misses it is split into the fewest
+power-of-two microbatches that reach it. Not ported yet, and refused with
+the ROADMAP item that brings them: ZeRO stages, the quantized reduce and
+meshes (queue A item 8); schema stamping, metrics writers, trace capture
+and the memory probe (items 6 and 9); per-level agreement at telemetry
+"full" (item 9).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from glom_tpu_torch.models.core import (
 from glom_tpu_torch.telemetry import diagnostics as diag
 from glom_tpu_torch.train.objectives import (
     DenoiseParams,
+    default_recon_index,
     denoise_loss,
     init_denoise,
 )
@@ -153,16 +157,44 @@ def accumulate_grads(loss_fn, params, img, noise, accum: int):
     return loss_sum / accum, [g / accum for g in grads]
 
 
+def resolve_route_keys(cfg: GlomConfig, tcfg: TrainConfig) -> Tuple[int, int]:
+    """(loss iterations k, compute itemsize) for the route resolution: the
+    one copy of the T/k defaulting and the dtype prologue (glom_tpu's
+    resolve_route_keys)."""
+    T = tcfg.iters if tcfg.iters is not None else cfg.default_iters
+    k = tcfg.recon_iter_index if tcfg.recon_iter_index is not None else default_recon_index(T)
+    return k, 2 if tcfg.compute_dtype == "bfloat16" else 4
+
+
 def resolve_training_route(
-    tcfg: TrainConfig, *, custom_consensus: bool = False, device="cuda"
+    cfg: GlomConfig,
+    tcfg: TrainConfig,
+    *,
+    custom_consensus: bool = False,
+    scan_only: bool = False,
+    device="cuda",
 ) -> Tuple[int, str]:
-    """(grad_accum, vjp_path) for this config. glom_tpu splits an
-    auto-routed batch (grad_accum None) when that reaches the fused loop;
-    no route reaches it until K3 is ported, so nothing splits here."""
-    path = resolve_vjp_path(
-        use_pallas=tcfg.use_pallas, custom_consensus=custom_consensus, device=device
+    """(grad_accum, vjp_path) for this config (glom_tpu's rule). With
+    grad_accum None (auto), a batch whose full-batch route misses the
+    whole-loop VJP tries power-of-two microbatch splits (2 to 16, each
+    microbatch >= 8) and takes the first that reaches it: the accumulation
+    is exact, so this changes the schedule, not the math. An explicit
+    grad_accum, 1 included, is honored. scan_only excludes the loop and the
+    split that exists only to reach it."""
+    k, itemsize = resolve_route_keys(cfg, tcfg)
+    kw = dict(
+        remat=tcfg.remat, use_pallas=tcfg.use_pallas, itemsize=itemsize,
+        custom_consensus=custom_consensus, scan_only=scan_only, device=device,
     )
-    return pinned_grad_accum(tcfg), path
+    accum = pinned_grad_accum(tcfg)
+    path = resolve_vjp_path(cfg, tcfg.batch_size // accum, k, **kw)
+    if tcfg.grad_accum is None and not scan_only and path != "fused_loop":
+        a = 2
+        while a <= 16 and tcfg.batch_size % a == 0 and tcfg.batch_size // a >= 8:
+            if resolve_vjp_path(cfg, tcfg.batch_size // a, k, **kw) == "fused_loop":
+                return a, "fused_loop"
+            a *= 2
+    return accum, path
 
 
 def _refuse_unported(tcfg: TrainConfig, **kw) -> None:
@@ -187,12 +219,15 @@ def make_train_step(
     zero_stage: int = 0,
     zero_shardings=None,
     quantized_reduce: Optional[bool] = None,
+    scan_only: bool = False,
     device="cuda",
 ) -> Callable[[TrainState, torch.Tensor, torch.Generator], Tuple[TrainState, dict]]:
     """The train step: (state, img, generator) -> (state, metrics). The
     noise is drawn on the image's device from `generator`. Parameters and
     optimizer state update in place; the returned state carries step + 1.
-    The returned function carries `.grad_accum` and `.vjp_path`."""
+    The returned function carries `.grad_accum` and `.vjp_path`.
+    scan_only=True keeps the step off the whole-loop VJP (glom_tpu's
+    argument), so its backward is the per-iteration kernels' at any batch."""
     _refuse_unported(
         tcfg, zero_stage=zero_stage, zero_shardings=zero_shardings,
         quantized_reduce=quantized_reduce,
@@ -202,7 +237,8 @@ def make_train_step(
             f"compute_dtype={tcfg.compute_dtype!r}: must be 'float32' or 'bfloat16'"
         )
     grad_accum, vjp_path = resolve_training_route(
-        tcfg, custom_consensus=consensus_fn is not None, device=device
+        cfg, tcfg, custom_consensus=consensus_fn is not None, scan_only=scan_only,
+        device=device,
     )
     if tcfg.batch_size % grad_accum:
         raise ValueError(
@@ -220,7 +256,7 @@ def make_train_step(
         return denoise_loss(
             params, img, noise, cfg, recon_index=tcfg.recon_iter_index, iters=tcfg.iters,
             remat=tcfg.remat, compute_dtype=compute_dtype, consensus_fn=consensus_fn,
-            use_pallas=tcfg.use_pallas,
+            use_pallas=tcfg.use_pallas, scan_only=scan_only,
         )
 
     def train_step(state: TrainState, img: torch.Tensor, generator: torch.Generator):

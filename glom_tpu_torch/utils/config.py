@@ -107,7 +107,9 @@ class TrainConfig:
     noise_std: float = 1.0
     recon_iter_index: Optional[int] = None  # None -> T // 2 + 1 (7 at T=12)
     iters: Optional[int] = None  # None -> model default (2L)
-    remat: bool = False  # torch.utils.checkpoint over each iteration
+    # Recompute in the backward: the whole-loop VJP recomputes the FFWs'
+    # pre-activations; the per-iteration route checkpoints each iteration.
+    remat: bool = False
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core training
     use_pallas: bool = False  # True: the fused kernel route (name kept)
     # Sharded weight update and quantized reduce: multi-device only, not

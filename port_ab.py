@@ -16,9 +16,14 @@ drift of the card between runs. Per tree it prints one JSON line:
     without and, where the tree has it, with the saved pre-activation;
   * the K1 backward from the saved pre at the same shapes, where the tree
     has it;
-  * the K2 forward at [6, 8, 256, 512];
+  * the K2 forward at [6, 8, 256, 512], and its whole backward (both
+    passes) where the tree has it;
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
-    min over N dispatches (host clock ending in a synchronize).
+    min over N dispatches (host clock ending in a synchronize);
+  * where the tree has the trainer, the flagship's bf16 training step at
+    batch 8 (`make_train_step` without the grad norm, the route the tree
+    resolves, named in `train_vjp_path`): p50 and min over N steps after
+    two warm-up steps (host clock ending in a synchronize).
 
 Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
 warm). The last line gives, per tree, the median of its runs. Inputs and
@@ -28,12 +33,14 @@ weights come from seed 0. It needs one card and exits nonzero without one.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def child(tree: str, dispatches: int) -> dict:
@@ -52,8 +59,7 @@ def child(tree: str, dispatches: int) -> dict:
     if not os.path.abspath(glom_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {glom_tpu_torch.__file__}, not the one under {root}")
     has_bwd = hasattr(k1, "grouped_mlp_bwd")
-    _build.prebuild(["grouped_mlp", "consensus_update"]
-                    + (["grouped_mlp_bwd"] if has_bwd else []))
+    _build.prebuild([src.stem for src in sorted(_build.CSRC.glob("*.cu"))])
     save_pre = "save_pre" in inspect.signature(k1.fused_grouped_ffw_lm).parameters
 
     dev, bf16 = torch.device("cuda", 0), torch.bfloat16
@@ -94,6 +100,10 @@ def child(tree: str, dispatches: int) -> dict:
                 lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
     lv, bu, td = randn(L, 8, n, d), randn(L, 8, n, d), randn(L - 1, 8, n, d)
     out["k2_fwd_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+    if has_bwd:
+        _, m, l = k2.fused_consensus_update(lv, bu, td, side=16, stats=True)
+        g = randn(L, 8, n, d)
+        out["k2_bwd_ms"] = time_ms(lambda: k2.consensus_update_bwd(lv, g, m, l, side=16))
 
     cfg = GlomConfig()
     engine = InferenceEngine(
@@ -108,6 +118,29 @@ def child(tree: str, dispatches: int) -> dict:
     lat.sort()
     out.update(serve_b8_p50_ms=lat[len(lat) // 2], serve_b8_min_ms=lat[0],
                serve_dispatches=dispatches)
+
+    if importlib.util.find_spec("glom_tpu_torch.train") is not None:
+        from glom_tpu_torch import TrainConfig
+        from glom_tpu_torch.train import create_train_state, init_denoise, make_train_step
+
+        tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
+        step = make_train_step(cfg, tcfg, with_grad_norm=False, device="cuda")
+        state, _ = create_train_state(
+            cfg, tcfg, params=init_denoise(cfg, generator=torch.Generator().manual_seed(0)),
+            device="cuda")
+        noise_gen = torch.Generator(device=dev).manual_seed(0)
+        imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
+        steps = []
+        for i in range(dispatches + 2):  # the first two warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, imgs, noise_gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                steps.append(1e3 * (time.perf_counter() - t0))
+        steps.sort()
+        out.update(train_b8_p50_ms=steps[len(steps) // 2], train_b8_min_ms=steps[0],
+                   train_vjp_path=step.vjp_path, train_steps=len(steps))
     return out
 
 

@@ -186,8 +186,8 @@ def test_consensus_update_bwd_kernels(dev, dtype, radius, attend_self):
     out, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
     torch.testing.assert_close(out, k2.fused_consensus_update(lv, bu, td, **kw), rtol=0, atol=0)
     before = (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV)
-    dq, dd = k2.consensus_bwd_dq(lv, g, m, l, **kw)
-    dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, **kw)
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, **kw)
+    dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, **kw)
     assert (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + 1)
     want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **kw)
     want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, g, m, l, want_dq, want_dd, **kw)
@@ -231,3 +231,120 @@ def test_prefetch_on_card(dev):
     got = list(prefetch_to_device(iter(batches), size=2, device=dev))
     assert all(b.device.type == "cuda" for b in got)
     assert [float(b[0, 0]) for b in got] == [0.0, 1.0, 2.0, 3.0]
+
+
+# -- the whole-loop VJP (K3) ---------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_pre_kernel(dev, dtype, with_add):
+    """The pre-only K1 launch: the forward's saved pre, bit for bit, read
+    through a slot view of a larger carry."""
+    rng = np.random.default_rng(6)
+    G, M, d, f, n = 3, 256, 128, 512, 64
+    params = _ffw_params(rng, G, d, f, dev, dtype)
+    carry = _rand(rng, G + 2, M, d).to(dev, dtype)
+    x = carry[2:]  # slots 2.. of the carry, as the top-down FFW reads them
+    add = _rand(rng, n, d).to(dev, dtype) if with_add else None
+    before = (k1.LAUNCHES_PRE, k1.LAUNCHES_PRE_ADD)
+    pre = k1.grouped_mlp_pre(params, x, add=add)
+    assert (k1.LAUNCHES_PRE, k1.LAUNCHES_PRE_ADD) == (before[0] + 1, before[1] + int(with_add))
+    assert torch.equal(pre, k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1])
+    _close(pre, k1.grouped_mlp_pre_plain(params, x, add), K1_BARS[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_bwd_acc_kernel(dev, dtype, with_add):
+    """The accumulating K1 backward: incoming f32 totals (as large as one
+    call's gradients) updated in place, against the plain version."""
+    rng = np.random.default_rng(7)
+    G, M, d, f, n = 3, 256, 128, 512, 64
+    params = _ffw_params(rng, G, d, f, dev, dtype)
+    x, g = (_rand(rng, G, M, d).to(dev, dtype) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, dtype) if with_add else None
+    pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+    scale = 4.0 if dtype == torch.bfloat16 else 0.5
+    acc = GroupedFFWParams(*(_rand(rng, *t.shape, scale=scale).to(dev) for t in params))
+    da_in = _rand(rng, n, d, scale=scale * 8).to(dev) if with_add else None
+    want_acc = GroupedFFWParams(*(t.clone() for t in acc))
+    want_da = None if da_in is None else da_in.clone()
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre, want_acc, want_da)
+    before = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD)
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+    assert (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD) == (
+        before[0], before[1] + 1, before[2] + int(with_add))
+    assert grads is acc and da is da_in
+    for name, got, exp in zip(("dx", "dw1", "db1", "dw2", "db2"), (dx, *grads), (want[0], *want[1])):
+        _rel_close(got, exp, K1_BWD_BARS[dtype], name)
+    if with_add:
+        _rel_close(da, want[2], K1_BWD_BARS[dtype], "da")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("radius", [0.0, 2.0])
+@pytest.mark.parametrize("streams", [True, False])
+def test_consensus_combine_kernels(dev, dtype, radius, streams):
+    """The K2 backward in combine mode: three cotangent streams, or none (the
+    loop's first backward iteration), against the plain version."""
+    rng = np.random.default_rng(8)
+    L, B, side, d = 3, 2, 8, 128
+    n = side * side
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, L, B, n, d, dtype))
+    kw = dict(side=side, radius=radius, attend_self=False)
+    _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+    dg = _rand(rng, L, B, n, d).to(dev, dtype)
+    dx_bu = _rand(rng, L, B, n, d).to(dev, dtype) if streams else None
+    dx_td = _rand(rng, L - 1, B, n, d).to(dev, dtype) if streams else None
+    before = (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV)
+    dlv, dmean = k2.consensus_update_bwd(lv, dg, m, l, dx_bu=dx_bu, dx_td=dx_td, combine=True, **kw)
+    assert (k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV) == (
+        before[0], before[1] + 1, before[2] + 1)
+    want = k2.consensus_update_bwd_plain(lv, dg, m, l, dx_bu=dx_bu, dx_td=dx_td, **kw)
+    _rel_close(dlv, want[0], K2_BWD_BARS[dtype], "dlevels")
+    _rel_close(dmean, want[1], K2_BWD_BARS[dtype], "dmean")
+
+
+def test_fused_loop_trains_on_card(dev):
+    """At batch 8 the training forward takes the whole-loop VJP: f32 loss and
+    gradients against the plain route, the loop's launch counts, and remat
+    gradients equal to non-remat ones bit for bit (bf16)."""
+    cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4, local_consensus_radius=2)
+    rng = np.random.default_rng(9)
+    img, noise = (_rand(rng, 8, 3, 32, 32).to(dev) for _ in range(2))
+    k = 4  # T // 2 + 1 at T = 6
+    params = init_denoise(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+
+    def grads(**kw):
+        leaves = [t.clone().requires_grad_() for t in param_leaves(params)]
+        loss = denoise_loss(unflatten_params(params, leaves), img, noise, cfg, **kw)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    before = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD,
+              k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV)
+    loss, got = grads(use_pallas=True)
+    after = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD,
+             k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV)
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 2 * k, k, k, k)
+    want_loss, want = grads(use_pallas=False)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    for g, w in zip(got, want):
+        assert float(g.abs().max()) > 0
+        _rel_close(g, w, 1e-4)
+    kw = dict(use_pallas=True, compute_dtype=torch.bfloat16)
+    before = k1.LAUNCHES_PRE
+    _, g_remat = grads(remat=True, **kw)
+    assert k1.LAUNCHES_PRE - before == 2 * k
+    _, g_keep = grads(**kw)
+    assert all(torch.equal(a, b) for a, b in zip(g_remat, g_keep))
+
+
+def test_trainer_on_card_batch8_takes_the_loop(dev):
+    cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4)
+    tr = Trainer(cfg, TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True),
+                 device="cuda")
+    assert (tr.vjp_path, tr.grad_accum) == ("fused_loop", 1)
+    hist = tr.fit(shapes_dataset(8, 32), 2, log_every=1)
+    assert [r["vjp_path"] for r in hist] == ["fused_loop"] * 2
+    assert all(np.isfinite(r["loss"]) for r in hist)

@@ -298,19 +298,20 @@ class TestTrainerPieces:
                    for v in s.values())  # Adam's fresh state
 
     def test_routes(self):
-        assert resolve_vjp_path(use_pallas=True, device="cuda") == "scan_blockwise"
-        assert resolve_vjp_path(use_pallas=True, device="cuda:0") == "scan_blockwise"
-        assert resolve_vjp_path(use_pallas=True, device="cpu") == "scan_dense"
-        assert resolve_vjp_path(use_pallas=False, device="cuda") == "scan_dense"
-        assert resolve_vjp_path(use_pallas=True, custom_consensus=True,
+        cfg = GlomConfig()  # the flagship; k = 7 loss iterations
+        assert resolve_vjp_path(cfg, 4, 7, use_pallas=True, device="cuda") == "scan_blockwise"
+        assert resolve_vjp_path(cfg, 4, 7, use_pallas=True, device="cuda:0") == "scan_blockwise"
+        assert resolve_vjp_path(cfg, 8, 7, use_pallas=True, device="cpu") == "scan_dense"
+        assert resolve_vjp_path(cfg, 8, 7, use_pallas=False, device="cuda") == "scan_dense"
+        assert resolve_vjp_path(cfg, 8, 7, use_pallas=True, custom_consensus=True,
                                 device="cuda") == "scan_dense"
-        # Batch 64 reaches glom_tpu's fused loop; here it stays per iteration.
+        # Batch 64 reaches the whole-loop VJP, as glom_tpu's does.
         tcfg = TrainConfig(batch_size=64, use_pallas=True, compute_dtype="bfloat16")
-        assert resolve_training_route(tcfg, device="cuda") == (1, "scan_blockwise")
+        assert resolve_training_route(cfg, tcfg, device="cuda") == (1, "fused_loop")
         tcfg = dataclasses.replace(tcfg, grad_accum=4)
-        assert resolve_training_route(tcfg, device="cuda") == (4, "scan_blockwise")
+        assert resolve_training_route(cfg, tcfg, device="cuda") == (4, "fused_loop")
         with pytest.raises(ValueError, match="grad_accum"):
-            resolve_training_route(dataclasses.replace(tcfg, grad_accum=0))
+            resolve_training_route(cfg, dataclasses.replace(tcfg, grad_accum=0))
 
     @pytest.mark.parametrize("kw", [
         {"zero_stage": 1}, {"quantized_reduce": True}, {"telemetry_level": "full"},
