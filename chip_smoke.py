@@ -5,10 +5,12 @@
 
 Builds the CUDA kernels from glom_tpu_torch/csrc/ (one nvcc per source, in
 parallel, into build/glom_tpu_torch/), holds each kernel -- the K1 and K2
-forwards and their backwards, and the whole-loop VJP's modes of them (the
+forwards and their backwards, the whole-loop VJP's modes of them (the
 pre-only K1 forward, the accumulating K1 backward, the K2 backward's
-three-stream combine) -- against its plain PyTorch version at the flagship
-shapes, times both, then drives the port's main paths on the flagship
+three-stream combine) and the banded ragged consensus (K4) -- against its
+plain PyTorch version at the flagship shapes, times both (and, where one
+PyTorch call computes the same function, that call), then drives the
+port's main paths on the flagship
 model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
 seed), each with every launch count set to 0 just before it and read just
 after:
@@ -26,7 +28,16 @@ after:
     and backward alone on both routes at batches 1 to 8; the float32 loss
     and gradients against the plain route;
   * training at batch 4 on the per-iteration route (three steps, exact
-    launch counts), and its float32 gradients at batch 2.
+    launch counts), and its float32 gradients at batch 2;
+  * ragged serving (before training in the script): mixed-resolution rows
+    (224/168/112/56 px) packed page-aligned at 8, 24 and 32 pages through
+    InferenceEngine.infer_ragged, K1 twice and the banded consensus kernel
+    (K4) once per iteration, with exact launch counts per dispatch, its
+    float32 parity with the plain banded route and with the bucket route,
+    and its early-exit form (bit for bit the fixed route at threshold 0);
+  * early-exit serving on the bucket route (iters="auto": K1 and the plain
+    consensus), timed at threshold 0 against the fixed loop of the same
+    step to show the per-iteration host read of the exit flag.
 
 It prints one JSON line per phase. The last line is
 
@@ -35,13 +46,14 @@ It prints one JSON line per phase. The last line is
 Any failed phase raises, and the script exits nonzero without that line.
 It also exits nonzero, printing no result, when no CUDA device is present.
 Bounds use the H100 SXM's published peaks: 989 TFLOP/s bf16 tensor, 67
-TFLOP/s f32, 3.35 TB/s HBM.
+TFLOP/s f32 (K4 computes in f32), 3.35 TB/s HBM.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -64,6 +76,12 @@ TRAIN_F32_BAR = 8e-6
 LOOP_F32_BAR = 9e-6  # about 4x the 2.27e-6 seen at batch 8 (to_pixels.w)
 # Batch-8 steps timed per route in the loop / per-iteration A/B.
 AB_ROUNDS = 10
+# Dispatches per ragged ladder entry and per route in the serve phases.
+RAGGED_DISPATCHES = 5
+# Timed dispatches per bucket, and rounds per arm of the exit-test A/B, on
+# the bucket auto route (after AUTO_WARM untimed ones).
+AUTO_DISPATCHES = 15
+AUTO_WARM = 2
 TRAIN_STEPS = 6
 # Trainer.fit runs the full step (with the grad norm) every TRAIN_LOG_EVERY
 # steps and step_fast on the others: both variants run and are counted.
@@ -81,6 +99,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    import glom_tpu_torch.kernels.banded_consensus as k4
     import glom_tpu_torch.kernels.consensus_update as k2
     import glom_tpu_torch.kernels.grouped_mlp as k1
     from glom_tpu_torch import GlomConfig, InferenceEngine, ServeConfig, entry, glom_forward
@@ -95,9 +114,7 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.prebuild(
-        ["grouped_mlp", "consensus_update", "grouped_mlp_bwd", "consensus_update_bwd"]
-    )
+    logs = _build.prebuild()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -136,6 +153,25 @@ def main() -> int:
     # that a dropped bias term or softmax rescale fails on the inputs below.
     bars = {bf16: (1e-2, 1.6e-2), f32: (1e-4, 1e-5)}
     cons_bars = {bf16: (1e-2, 1.6e-2), f32: (2e-4, 2e-5)}
+    # K4 (f32 arithmetic in both dtypes): K2's bars; bf16 is 1-2 ulps of
+    # the output, f32 about 20x the 1.2e-6 seen at these inputs.
+    k4_bars = cons_bars
+
+    def ragged_maps(counts, pages, page_tokens, device):
+        """Per-token row_start / row_len of rows packed page-aligned onto
+        `pages` pages, each row's page span, and the used-token count."""
+        T = pages * page_tokens
+        rs, rl = torch.zeros(T, dtype=torch.int32), torch.zeros(T, dtype=torch.int32)
+        spans, off = [], 0
+        for c in counts:
+            k = -(-c // page_tokens)
+            rs[off * page_tokens:(off + k) * page_tokens] = off * page_tokens
+            rl[off * page_tokens:(off + k) * page_tokens] = c
+            if k:
+                spans.append((off * page_tokens, (off + k) * page_tokens))
+            off += k
+        return (dict(row_start=rs.to(device), row_len=rl.to(device)), spans,
+                off * page_tokens)
     failures = []
 
     # -- K1 vs plain -----------------------------------------------------------
@@ -211,6 +247,37 @@ def main() -> int:
                  rtol=rtol, atol=atol, bar_ratio=ratio, ok=ok)
             if not ok:
                 failures.append(f"K2 {shape} {dtype} r={radius} self={attend_self}")
+    # -- K4 vs plain ------------------------------------------------------------
+    # The flagship's largest ragged signature: 32 pages of 64 tokens, window
+    # 256 (one 224-px row). Rows of 256/144/64/16/49/100 patches packed
+    # page-aligned, with intra-row pads, an empty row slot, a last real row
+    # whose band runs past the last page (the clamp), and an unused trailing
+    # page (row length 0: finite, outside the parity contract).
+    pt, P_sig, window = 64, 32, 256
+    k4_counts = [256, 144, 64, 16, 256, 49, 0, 256, 144, 64, 16, 256, 49, 100, 16]
+    k4_maps, k4_spans, k4_used = ragged_maps(k4_counts, P_sig, pt, dev)
+    k4_err = 0.0
+    for dtype in (bf16, f32):
+        for attend_self in (False, True):
+            lv = randn(P_sig * pt, L, d, dtype=dtype, scale=2.0)
+            kw = dict(k4_maps, window=window, page_tokens=pt, attend_self=attend_self)
+            got = k4.banded_ragged_consensus(lv, **kw)
+            torch.cuda.synchronize()
+            want = k4.banded_ragged_consensus_plain(lv, **kw)
+            rtol, atol = k4_bars[dtype]
+            worst = [compare(got[a:b], want[a:b], rtol, atol) for a, b in k4_spans]
+            ok = all(w[0] for w in worst)
+            abs_err = max(w[1] for w in worst)
+            tail_finite = bool(torch.isfinite(got[k4_used:].float()).all())
+            if dtype == bf16:
+                k4_err = max(k4_err, abs_err)
+            emit("k4_vs_plain", shape=[P_sig * pt, L, d], page_tokens=pt, window=window,
+                 dtype=str(dtype), attend_self=attend_self, rows=k4_counts,
+                 max_abs_err=abs_err, max_rel_err=max(w[2] for w in worst), rtol=rtol,
+                 atol=atol, bar_ratio=max(w[3] for w in worst), unused_tail_finite=tail_finite,
+                 ok=ok and tail_finite)
+            if not (ok and tail_finite):
+                failures.append(f"K4 {dtype} self={attend_self}")
     if failures:
         raise AssertionError(f"kernel/plain mismatch: {failures}")
 
@@ -463,9 +530,11 @@ def main() -> int:
 
     timings = {}
 
-    def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None, **extra):
-        """Keep and print one bf16 kernel's times beside its bound."""
-        b_ms, b_by = bound(ops, nbytes, PEAK_BF16)
+    def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None,
+                      peak=PEAK_BF16, **extra):
+        """Keep and print one bf16 kernel's times beside its bound (its
+        operations at `peak`: the bf16 tensor rate, or f32 for K4)."""
+        b_ms, b_by = bound(ops, nbytes, peak)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=library_ms)
         emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
@@ -493,6 +562,54 @@ def main() -> int:
         plain_ms = time_ms(lambda: k2.consensus_update_plain(lv, bu, td, side=sd))
         record_timing(label, [Lc, B, nc, d], ms, plain_ms, 4 * Lc * B * nc * nc * d,
                       2 * (4 * Lc - 1) * B * nc * d)
+    # K4 at the largest ragged signature, bf16, as the ragged route runs it:
+    # 32 full-resolution rows' pages (every slot of every band valid) and
+    # the k4_vs_plain row mix. Its work depends on the row lengths: each
+    # query row of a page scores and averages min(len, window) slots (all
+    # `window` on an unused page), 2 x 2 x d f32 operations a slot and
+    # level; bytes: levels read once and written once.
+    def k4_ops(counts):
+        slots = [min(c, window) for c in counts for _ in range(-(-c // pt))]
+        return 4 * L * d * pt * (sum(slots) + (P_sig - len(slots)) * window)
+
+    lib_call = ("torch.nn.functional.scaled_dot_product_attention on the band gathered "
+                "beforehand (q [P, L, pt, d], normalised k and v [P, L, window, d], f32, "
+                "an additive f32 length mask): the attention alone, attend_self=True")
+    for label, counts in (("k4_ragged32_full", [256] * 8), ("k4_ragged32_mixed", k4_counts)):
+        maps, _, used = ragged_maps(counts, P_sig, pt, dev)
+        lv = randn(P_sig * pt, L, d, dtype=bf16, scale=2.0)
+        kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
+        ms = time_ms(lambda: k4.banded_ragged_consensus(lv, **kw))
+        plain_ms = time_ms(lambda: k4.banded_ragged_consensus_plain(lv, **kw))
+        # The library's one call for the same function (attend_self=True:
+        # an additive mask cannot replace the self score), on the same
+        # levels gathered into bands by the plain version's indexing first.
+        band0, len_page = k4.page_maps(maps["row_start"], maps["row_len"], pt)
+        pages = (band0[:, None].long() + torch.arange(window // pt, device=dev)).clamp(
+            max=P_sig - 1)
+        kv = lv.float().view(P_sig, pt, L, d)
+        khat = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+        q_b = kv.permute(0, 2, 1, 3)  # [P, L, pt, d]
+        k_b = khat[pages].reshape(P_sig, window, L, d).permute(0, 2, 1, 3).contiguous()
+        v_b = kv[pages].reshape(P_sig, window, L, d).permute(0, 2, 1, 3).contiguous()
+        past = torch.arange(window, device=dev)[None, :] >= len_page[:, None]
+        mask = torch.zeros(P_sig, 1, 1, window, device=dev).masked_fill(
+            past[:, None, None, :], float(torch.finfo(f32).min))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(q_b, k_b, v_b,
+                                                                    attn_mask=mask)
+        lib_ms = time_ms(library)
+        # Over the used pages: on an unused page (every slot masked) the
+        # library call returns zeros, the function a uniform average.
+        self_kw = dict(kw, attend_self=True)
+        lib_gap = float((library().permute(0, 2, 1, 3).reshape(P_sig * pt, L, d)[:used]
+                         - k4.banded_ragged_consensus(lv, **self_kw)[:used].float()).abs().max())
+        full_ops = 4 * L * d * P_sig * pt * window
+        record_timing(label, [P_sig * pt, L, d], ms, plain_ms, k4_ops(counts),
+                      2 * 2 * P_sig * pt * L * d, library_ms=lib_ms, peak=PEAK_F32,
+                      rows=counts, bound_full_band_ms=bound(full_ops, 0, PEAK_F32)[0],
+                      library_call=lib_call, library_max_abs_diff=lib_gap)
     # The backward kernels at bucket 8, bf16, as the training step runs them:
     # K1 from the saved pre (4 products), K2 at global consensus (all pairs).
     for label, which, G in (("k1_bwd_b8", "bottom_up", L), ("k1_bwd_add_b8", "top_down", L - 1)):
@@ -671,7 +788,7 @@ def main() -> int:
     # f32 end-to-end parity on the card: fused kernels vs the plain path.
     img2 = torch.randn(2, 3, 224, 224, generator=gen)
     f32_engine = InferenceEngine(
-        cfg, ServeConfig(buckets=(2,), compute_dtype="float32", use_pallas=True),
+        cfg, ServeConfig(buckets=(2,), max_batch=2, compute_dtype="float32", use_pallas=True),
         params=params, device="cuda",
     )
     fused32 = f32_engine.infer(img2).levels.float()
@@ -688,6 +805,258 @@ def main() -> int:
         raise AssertionError("f32 fused serve path disagrees with the plain path")
     if not bf16_ok:
         raise AssertionError("bf16 served levels are too far from the plain f32 path")
+
+    # -- serve: the ragged route, K1 and K4 ------------------------------------------
+    import dataclasses
+
+    from glom_tpu_torch.serve import pack_ragged
+    from glom_tpu_torch.serve.early_exit import _build_update_step
+
+    px = {256: 224, 144: 168, 64: 112, 16: 56}  # patches -> image side (patch 14)
+
+    def ragged_batch(counts, pages):
+        imgs = [torch.randn(3, px[c], px[c], generator=gen).numpy() for c in counts]
+        return pack_ragged(imgs, cfg.patch_size, pt, pages)
+
+    def p50(xs):
+        return statistics.median(xs)
+
+    def ragged_counts():
+        return (k1.LAUNCHES, k4.LAUNCHES, k2.LAUNCHES)
+
+    rcfg = ServeConfig(ragged=True, ragged_attention="banded-pallas", use_pallas=True,
+                       compute_dtype="bfloat16", max_batch=8)
+    ragged = InferenceEngine(cfg, rcfg, params=params, device="cuda")
+    if ragged.page_tokens != pt:
+        raise AssertionError(f"flagship page_tokens {ragged.page_tokens} != {pt}")
+    warm_r = ragged.warmup_ragged()
+    emit("warmup_ragged", ladder=list(ragged.ragged_page_buckets),
+         seconds={str(p): t for p, t in warm_r.items()})
+    # 224/168/112/56-px rows (256/144/64/16 patches, 4/3/1/1 pages) at three
+    # ladder entries; 32 pages of full-resolution rows hold bucket 8's tokens.
+    mixes = {8: [256, 144, 64], 24: [256, 256, 256, 256, 144, 144, 16, 16], 32: [256] * 8}
+    batches = {p: [ragged_batch(m, p) for _ in range(RAGGED_DISPATCHES)] for p, m in mixes.items()}
+    want_ragged = (2 * T, T, 0)  # K1, K4, K2 per fixed dispatch
+    k1.LAUNCHES = k1.LAUNCHES_ADD = k2.LAUNCHES = k4.LAUNCHES = 0
+    ragged_lat = {p: [] for p in mixes}
+    for i in range(RAGGED_DISPATCHES):
+        for p in mixes:
+            flat, n_p = batches[p][i]
+            before = ragged_counts()
+            res = ragged.infer_ragged(flat, n_p)
+            got = tuple(a - b for a, b in zip(ragged_counts(), before))
+            if got != want_ragged:
+                raise AssertionError(f"ragged {p} pages: launches (K1, K4, K2) {got} != "
+                                     f"{want_ragged}")
+            used = sum(-(-c // pt) for c in mixes[p]) * pt
+            if (tuple(res.levels.shape) != (p * pt, L, d) or res.pages != p
+                    or not bool(torch.isfinite(res.levels[:used].float()).all())):
+                raise AssertionError(f"ragged {p} pages: bad result shape or values")
+            ragged_lat[p].append(res.latency_s)
+    ragged_launches = {"grouped_mlp_fwd": k1.LAUNCHES, "banded_consensus_fwd": k4.LAUNCHES,
+                       "consensus_update_fwd": k2.LAUNCHES}
+    for p, xs in ragged_lat.items():
+        emit("serve_ragged", pages=p, rows=mixes[p], patches=sum(mixes[p]),
+             dispatches=len(xs), p50_ms=1e3 * p50(xs), min_ms=1e3 * min(xs),
+             valid_patch_iters_per_s=sum(mixes[p]) * T / p50(xs),
+             launches_per_dispatch={"K1": 2 * T, "K4": T, "K2": 0})
+    # The same tokens on the two routes, in turns: 8 full-resolution rows as
+    # 32 ragged pages, and as a bucket-8 dispatch (K1 + K2).
+    turns = {"ragged32_full": [], "bucket8": []}
+    flat32, n32 = batches[32][0]
+    imgs8 = torch.randn(8, 3, 224, 224, generator=gen)
+    for i in range(RAGGED_DISPATCHES):
+        for r in (("ragged32_full", "bucket8") if i % 2 == 0 else ("bucket8", "ragged32_full")):
+            res = ragged.infer_ragged(flat32, n32) if r == "ragged32_full" else engine.infer(imgs8)
+            turns[r].append(res.latency_s)
+    emit("serve_ragged_total", dispatches=sum(len(x) for x in ragged_lat.values()),
+         launches=ragged_launches, order="bucket 8 and ragged 32 in turns",
+         p50_ms={r: 1e3 * p50(x) for r, x in turns.items()},
+         ragged_over_bucket=p50(turns["ragged32_full"]) / p50(turns["bucket8"]))
+
+    # Where the device time of the two goes: one profiled dispatch each, the
+    # kernels split into the ported kernels and the rest (the plain glue).
+    def split_profile(run):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_ms = 1e3 * run().latency_s
+        kernel_ms = device_ms_by_kernel(prof)
+        ported = {key: v for key, v in kernel_ms.items()
+                  if any(k in key for k in ("mlp_fwd_", "consensus_update_kernel",
+                                            "banded_consensus_kernel"))}
+        glue = {key: v for key, v in kernel_ms.items() if key not in ported}
+        busy = sum(kernel_ms.values())
+        return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+                    ported_kernels_ms=ported, glue_ms=sum(glue.values()),
+                    glue_top_ms=dict(list(glue.items())[:8]))
+    emit("serve_ragged_profile",
+         ragged32_full=split_profile(lambda: ragged.infer_ragged(flat32, n32)),
+         bucket8=split_profile(lambda: engine.infer(imgs8)))
+
+    # f32 parity on the card, every row's page span: the K4 route against
+    # the port's plain "banded" route, and one full-resolution ragged row
+    # against the bucket route's answer for the same image alone.
+    r32 = {mode: InferenceEngine(cfg, dataclasses.replace(rcfg, compute_dtype="float32",
+                                                          ragged_attention=mode),
+                                 params=params, device="cuda")
+           for mode in ("banded-pallas", "banded")}
+    mix32 = [256, 144, 64, 16]
+    flat, n_p = ragged_batch(mix32, r32["banded"].pick_pages(9))
+    got, want = (r32[m].infer_ragged(flat, n_p).levels for m in ("banded-pallas", "banded"))
+    _, spans, _ = ragged_maps(mix32, len(flat) // pt, pt, dev)
+    span_cmp = [compare(got[a:b], want[a:b], 2e-3, 2e-4) for a, b in spans]
+    img1 = torch.randn(1, 3, 224, 224, generator=gen)
+    flat1, n1 = pack_ragged([img1[0].numpy()], cfg.patch_size, pt, 4)
+    row = r32["banded-pallas"].infer_ragged(flat1, n1).levels[:256]
+    bucket1 = InferenceEngine(cfg, ServeConfig(buckets=(1,), max_batch=1, compute_dtype="float32",
+                                               use_pallas=True), params=params, device="cuda")
+    row_cmp = compare(row, bucket1.infer(img1).levels[0], 2e-3, 2e-4)
+    ok = all(c[0] for c in span_cmp) and row_cmp[0]
+    emit("serve_ragged_parity_f32", rows=mix32, rtol=2e-3, atol=2e-4,
+         banded_pallas_vs_banded_max_abs_err=max(c[1] for c in span_cmp),
+         banded_pallas_vs_banded_bar_ratio=max(c[3] for c in span_cmp),
+         full_row_vs_bucket_max_abs_err=row_cmp[1], full_row_vs_bucket_bar_ratio=row_cmp[3],
+         ok=ok)
+    if not ok:
+        raise AssertionError("f32 ragged route disagrees with the plain banded or bucket route")
+
+    # The ragged auto route: at threshold 0 the fixed route's levels bit for
+    # bit; at the default threshold, what exits.
+    rauto0 = InferenceEngine(cfg, dataclasses.replace(rcfg, iters="auto", exit_threshold=0.0),
+                             params=params, device="cuda")
+    flat, n_p = batches[24][0]
+    fixed_res, auto_res = ragged.infer_ragged(flat, n_p), rauto0.infer_ragged(flat, n_p)
+    bitwise = auto_res.iters_run == T and torch.equal(fixed_res.levels, auto_res.levels)
+    rauto = InferenceEngine(cfg, dataclasses.replace(rcfg, iters="auto"), params=params,
+                            device="cuda")
+    rauto.warmup_ragged(tuple(mixes))
+    auto_runs = {p: [] for p in mixes}
+    for i in range(RAGGED_DISPATCHES):
+        for p in mixes:
+            before = ragged_counts()
+            res = rauto.infer_ragged(*batches[p][i])
+            got = tuple(a - b for a, b in zip(ragged_counts(), before))
+            if got != (2 * res.iters_run, res.iters_run, 0):
+                raise AssertionError(f"ragged auto {p} pages: launches {got}, {res.iters_run} "
+                                     "iterations")
+            auto_runs[p].append(res)
+    emit("serve_ragged_auto", threshold0_bitwise_equal_fixed=bitwise,
+         exit_threshold=rauto.scfg.exit_threshold, budget=rauto.auto_budget,
+         by_pages={str(p): dict(p50_ms=1e3 * p50([r.latency_s for r in rs]),
+                                iters_run=[r.iters_run for r in rs],
+                                row_iters=rs[0].row_iters[:len(mixes[p])].tolist())
+                   for p, rs in auto_runs.items()})
+    if not bitwise:
+        raise AssertionError("ragged auto route at threshold 0 differs from the fixed route")
+
+    # The bucket route with iters="auto": K1 and plain consensus (no K2), one
+    # host read of the exit flag per iteration. Every bucket in turns, with
+    # and without a pad row, AUTO_DISPATCHES timed dispatches each.
+    import contextlib
+
+    import glom_tpu_torch.serve.early_exit as early_exit
+
+    acfg = ServeConfig(buckets=(1, 2, 4, 8), iters="auto", compute_dtype="bfloat16",
+                       use_pallas=True)
+    auto_eng = InferenceEngine(cfg, acfg, params=params, device="cuda")
+    auto_eng.warmup()
+    auto_imgs = {b: torch.randn(b, 3, 224, 224, generator=gen) for b in acfg.buckets}
+    auto_lat = {b: [] for b in acfg.buckets}
+    auto_iters = {b: set() for b in acfg.buckets}
+    for i in range(AUTO_WARM + AUTO_DISPATCHES):
+        for b in acfg.buckets:
+            n_req = max(1, b - i % 2)
+            imgs = auto_imgs[b].clone()
+            imgs[n_req:] = 0.0
+            before = ragged_counts()
+            res = auto_eng.infer(imgs, n_valid=n_req)
+            got = tuple(now - was for now, was in zip(ragged_counts(), before))
+            if got != (2 * res.iters_run, 0, 0) or not bool(torch.isfinite(res.levels.float()).all()):
+                raise AssertionError(f"auto bucket {b}: launches {got}, {res.iters_run} iterations")
+            if i >= AUTO_WARM:
+                auto_lat[b].append(res.latency_s)
+                auto_iters[b].add(res.iters_run)
+
+    # The exit test's price at bucket 8, threshold 0 (the flag never rises,
+    # so every arm runs all T updates): in turns, the auto route; the same
+    # engine with the flag's one host read removed (early_exit's `bool`
+    # answers False without reading the device); and the fixed loop of the
+    # same step, with no witness and none of the engine's per-dispatch work.
+    auto0 = InferenceEngine(cfg, dataclasses.replace(acfg, exit_threshold=0.0), params=params,
+                            device="cuda")
+
+    @contextlib.contextmanager
+    def no_exit_read():
+        early_exit.bool = lambda flag: False
+        try:
+            yield
+        finally:
+            del early_exit.bool
+
+    def auto0_no_read(imgs):
+        with no_exit_read():
+            return auto0.infer(imgs)
+
+    def same_step_fixed(imgs):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            img = torch.as_tensor(imgs, dtype=f32, device=dev)
+            step, lv = _build_update_step(auto0.params, img, cfg, None, bf16, True)
+            for _ in range(T):
+                lv = step(lv)
+        torch.cuda.synchronize()
+        return lv, time.perf_counter() - t0
+
+    arms = {"auto_threshold0": lambda: auto0.infer(imgs8),
+            "auto_threshold0_no_read": lambda: auto0_no_read(imgs8),
+            "fixed_same_step": lambda: same_step_fixed(imgs8)}
+    sync_turns = {r: [] for r in arms}
+    for i in range(AUTO_WARM + AUTO_DISPATCHES):
+        order = list(arms)[i % 3:] + list(arms)[:i % 3]
+        for r in order:
+            out = arms[r]()
+            if i >= AUTO_WARM:
+                sync_turns[r].append(out[1] if r == "fixed_same_step" else out.latency_s)
+    want_lv = same_step_fixed(imgs8)[0]
+    equal = {r: torch.equal(arms[r]().levels, want_lv)
+             for r in ("auto_threshold0", "auto_threshold0_no_read")}
+
+    def paired(a, b):
+        """Per-iteration ms of arm a over arm b: the median, min and max of
+        the per-round differences over T."""
+        diffs = [1e3 * (x - y) / T for x, y in zip(sync_turns[a], sync_turns[b])]
+        return dict(median=statistics.median(diffs), min=min(diffs), max=max(diffs))
+
+    # The witness's device time alone, at bucket 8 (CUDA events): the loop's
+    # per-row agreement, delta and converged-row updates on one state.
+    with torch.inference_mode():
+        lv8 = same_step_fixed(imgs8)[0]
+        prev8 = early_exit.batch_agreement(lv8)
+        conv8 = torch.zeros(8, dtype=torch.bool, device=dev)
+        iters8 = torch.full((8,), T, dtype=torch.int32, device=dev)
+
+        def witness():
+            agree = early_exit.batch_agreement(lv8)
+            newly = early_exit.row_agreement_delta(agree, prev8) < 0.0
+            return torch.where(newly & ~conv8, 1, iters8), conv8 | newly
+        witness_ms = time_ms(witness)
+    emit("serve_auto", exit_threshold=acfg.exit_threshold, budget=auto_eng.auto_budget,
+         by_bucket={str(b): dict(dispatches=len(xs), p50_ms=1e3 * p50(xs), min_ms=1e3 * min(xs),
+                                 max_ms=1e3 * max(xs), iters_run=sorted(auto_iters[b]))
+                    for b, xs in auto_lat.items()},
+         launches_per_iteration={"K1": 2, "K2": 0},
+         threshold0_bucket8={r: dict(rounds=len(xs), p50_ms=1e3 * p50(xs), min_ms=1e3 * min(xs),
+                                     max_ms=1e3 * max(xs)) for r, xs in sync_turns.items()},
+         order="the three arms in rotating turns",
+         # the one host read of the exit flag, per iteration
+         exit_read_ms_per_iteration=paired("auto_threshold0", "auto_threshold0_no_read"),
+         # the witness math plus the engine's per-dispatch work, over T
+         witness_and_dispatch_ms_per_iteration=paired("auto_threshold0_no_read",
+                                                      "fixed_same_step"),
+         witness_device_ms_per_iteration=witness_ms,
+         threshold0_bitwise_equal_same_step=equal)
+    if not all(equal.values()):
+        raise AssertionError(f"auto route at threshold 0 differs from the fixed loop of its step: "
+                             f"{equal}")
 
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
@@ -983,6 +1352,12 @@ def main() -> int:
     # The combine's two passes, each with its launches and times.
     kernels[-1]["passes"] = {p: dict(launches=train_launches[f"K2 combine {p}"], **t)
                              for p, t in passes.items()}
+    # K4 on the ragged serve path, timed at its largest signature.
+    kernels.append(dict(name="banded_consensus_fwd", route="cuda",
+                        source=csrc + "banded_consensus.cu",
+                        replaces="glom_tpu/kernels/banded_consensus.py:174",
+                        launches=ragged_launches["banded_consensus_fwd"], max_abs_err=k4_err,
+                        **timings["k4_ragged32_full"]))
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

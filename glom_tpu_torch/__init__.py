@@ -1,11 +1,13 @@
-"""glom_tpu_torch: the GLOM forward, its fixed-route server and its
-single-device denoising trainer in PyTorch, with hand-written CUDA kernels
-for Hopper (sm_90a).
+"""glom_tpu_torch: the GLOM forward, its server (fixed, early-exit and
+ragged routes) and its single-device denoising trainer in PyTorch, with
+hand-written CUDA kernels for Hopper (sm_90a).
 
 A port of `glom_tpu` that imports neither JAX nor `glom_tpu`. The fused
 path runs the grouped-MLP kernel (K1) twice and the consensus-update
-kernel (K2) once per iteration on a CUDA device, and training adds their
-backward kernels; on CPU tensors the same functions run as plain PyTorch.
+kernel (K2) once per iteration on a CUDA device, training adds their
+backward kernels, and the ragged serving route runs K1 twice and the
+banded consensus kernel (K4) once per iteration; on CPU tensors the same
+functions run as plain PyTorch.
 Entry points default to `device="cuda"` and raise when no card is present
 unless the caller passes `device="cpu"`.
 """
@@ -21,7 +23,7 @@ from glom_tpu_torch.models import (
     init_glom,
     params_from_numpy,
 )
-from glom_tpu_torch.serve import InferenceEngine, ServeResult
+from glom_tpu_torch.serve import InferenceEngine, RaggedServeResult, ServeResult
 from glom_tpu_torch.train import Trainer
 from glom_tpu_torch.utils import GlomConfig, ServeConfig, TrainConfig, resolve_device
 
@@ -50,6 +52,7 @@ __all__ = [
     "GlomConfig",
     "GlomParams",
     "InferenceEngine",
+    "RaggedServeResult",
     "ServeConfig",
     "ServeResult",
     "TrainConfig",

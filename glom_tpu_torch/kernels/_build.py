@@ -8,7 +8,8 @@ Each `glom_tpu_torch/csrc/<name>.cu` is compiled on first use with
 into `build/glom_tpu_torch/<name>-<hash>.so` beside the package, keyed by a
 hash of the source and the flags, and loaded with ctypes. The sources have
 a plain C interface (no PyTorch headers), so a build takes seconds.
-`prebuild()` starts one nvcc per source, all at once. ptxas' report
+`prebuild()` starts one nvcc per source (every one in `SOURCES` by
+default), all at once. ptxas' report
 (registers, shared memory, spills) is kept in `<so>.log`.
 """
 
@@ -27,6 +28,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "glom_tpu_
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Every kernel source of the port, csrc/<name>.cu.
+SOURCES = (
+    "grouped_mlp", "consensus_update", "grouped_mlp_bwd", "consensus_update_bwd",
+    "banded_consensus",
 )
 
 _LIBS: dict = {}
@@ -76,7 +83,7 @@ def _finish(name: str, proc, tmp: Path, so: Path) -> None:
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
-def prebuild(names) -> dict:
+def prebuild(names=SOURCES) -> dict:
     """Compile every named source in parallel; returns {name: ptxas log}."""
     started = {n: _start(n) for n in names}
     for n, job in started.items():

@@ -274,6 +274,17 @@ def fused_grouped_ffw_lm(
     return (out, pre) if save_pre else out
 
 
+def fused_grouped_ffw(params: GroupedFFWParams, x: torch.Tensor) -> torch.Tensor:
+    """The reference-layout entry, glom_tpu's `fused_grouped_ffw`: x
+    [..., G, d] -> [..., G, d] through `fused_grouped_ffw_lm`, transposed
+    to level-major [G, M, d] and back around the launch. The early-exit
+    and ragged serving routes call it where they call the grouped FFW."""
+    *lead, G, d = x.shape
+    x_lm = x.reshape(-1, G, d).transpose(0, 1).contiguous()
+    out = fused_grouped_ffw_lm(params, x_lm)
+    return out.transpose(0, 1).reshape(*lead, G, d)
+
+
 def grouped_mlp_pre(
     params: GroupedFFWParams, x: torch.Tensor, *, add: Optional[torch.Tensor] = None
 ) -> torch.Tensor:

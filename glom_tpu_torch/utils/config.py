@@ -1,8 +1,8 @@
 """Configuration dataclasses.
 
 Counterpart of `glom_tpu/utils/config.py`: `GlomConfig` and `TrainConfig`
-field for field, and the part of `ServeConfig` that the fixed serving route
-reads. The port keeps its own copy because the reference module pulls in
+field for field, and the part of `ServeConfig` that the port's serving
+routes read. The port keeps its own copy because the reference module pulls in
 JAX.
 """
 
@@ -55,21 +55,50 @@ class GlomConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Batched-inference serving policy, fixed-iteration route only.
+    """Batched-inference serving policy: the part of glom_tpu's
+    `ServeConfig` that the port's engine reads, with its names, defaults
+    and checks.
 
-    The fields keep the reference's names and defaults; the reference's
-    other fields (the batcher's `max_batch`, early exit, meshes, pages,
-    retry, telemetry) belong to parts the port does not run yet (ROADMAP
-    queue A item 7)."""
+    The bucket route (fixed `iters` or `"auto"` early exit) and the ragged
+    route (`ragged=True`: rows of differing patch counts packed onto one
+    page-aligned token axis) are ported. The reference's other fields (the
+    batcher's admission and retry, meshes, the column cache, pool aliasing,
+    delta streaming, telemetry) belong to parts the port does not run yet
+    (ROADMAP queue A items 7-9); `page_pool_pages > 0` and
+    `max_continuations > 0` are accepted here and refused by the engine."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
     buckets: Tuple[int, ...] = (1, 2, 4, 8)
+    # Rows a dispatch gathers; also the row capacity of a ragged signature.
+    max_batch: int = 8
     # Forward iteration budget: an int pins the count, None uses the model
-    # default (2L). "auto" (early exit) is not ported yet.
+    # default (2L), "auto" runs the early-exit route: up to max_auto_iters
+    # updates, a row converging once no level's agreement moves more than
+    # exit_threshold between iterations, the dispatch exiting once
+    # ceil(exit_quorum * valid rows) rows have converged.
     iters: Union[int, str, None] = None
+    exit_threshold: float = 1e-3
+    min_iters: int = 1
+    max_auto_iters: Optional[int] = None  # None -> model default (2L)
+    exit_quorum: float = 1.0
+    # Continuation hops for stragglers: the batcher's, not ported yet, so
+    # the engine refuses a value > 0 (ROADMAP queue A item 7).
+    max_continuations: int = 0
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core serving
-    use_pallas: bool = False  # True: the fused level-major kernel path
+    use_pallas: bool = False  # True: the fused kernel path (name kept)
+    # Paged column memory: the page pool itself is not ported yet;
+    # page_tokens is the page granularity of the ragged route too (0
+    # resolves from the model, serve/paged_columns.resolve_page_tokens).
+    page_pool_pages: int = 0
+    page_tokens: int = 0
+    # Ragged admission: the page-count ladder (empty resolves from
+    # max_batch and the pages of one full-resolution row) and the
+    # consensus gather: "windowed" (per-token window), "banded" (per-page
+    # band, plain PyTorch) or "banded-pallas" (the K4 kernel on the card).
+    ragged: bool = False
+    ragged_pages: Tuple[int, ...] = ()
+    ragged_attention: str = "windowed"
 
     def __post_init__(self):
         if not self.buckets:
@@ -78,11 +107,56 @@ class ServeConfig:
             raise ValueError(f"buckets {self.buckets} must be strictly ascending")
         if any(b < 1 for b in self.buckets):
             raise ValueError(f"buckets {self.buckets} must be >= 1")
+        if self.max_batch > max(self.buckets):
+            raise ValueError(
+                f"max_batch {self.max_batch} exceeds the largest bucket "
+                f"{max(self.buckets)} (the dispatch ceiling)"
+            )
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch {self.max_batch} must be >= 1")
         if self.iters is not None and self.iters != "auto":
             if not isinstance(self.iters, int) or self.iters < 1:
                 raise ValueError(f"iters={self.iters!r}: an int >= 1, 'auto', or None")
+        if self.exit_threshold < 0:
+            raise ValueError(f"exit_threshold {self.exit_threshold} must be >= 0")
+        if self.min_iters < 1:
+            raise ValueError(f"min_iters {self.min_iters} must be >= 1")
+        if not 0.0 < self.exit_quorum <= 1.0:
+            raise ValueError(
+                f"exit_quorum {self.exit_quorum} outside (0, 1] (1.0 = all "
+                "valid rows must converge before the bucket exits)"
+            )
+        if self.max_continuations < 0:
+            raise ValueError(f"max_continuations {self.max_continuations} must be >= 0")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}: 'float32' or 'bfloat16'")
+        if self.page_pool_pages < 0:
+            raise ValueError(
+                f"page_pool_pages {self.page_pool_pages} must be >= 0 "
+                "(0 disables the device-resident column page pool)"
+            )
+        if self.page_tokens < 0:
+            raise ValueError(
+                f"page_tokens {self.page_tokens} must be >= 0 (0 resolves "
+                "from the model's patch count)"
+            )
+        if self.ragged and self.max_continuations > 0 and self.iters != "auto":
+            raise ValueError(
+                "ragged continuations need iters='auto': a fixed route "
+                "has no convergence witness to leave stragglers behind"
+            )
+        if self.ragged_attention not in ("windowed", "banded", "banded-pallas"):
+            raise ValueError(
+                f"ragged_attention {self.ragged_attention!r}: 'windowed', "
+                "'banded', or 'banded-pallas'"
+            )
+        if self.ragged_pages:
+            if list(self.ragged_pages) != sorted(set(self.ragged_pages)):
+                raise ValueError(
+                    f"ragged_pages {self.ragged_pages} must be strictly ascending"
+                )
+            if any(p < 1 for p in self.ragged_pages):
+                raise ValueError(f"ragged_pages {self.ragged_pages} must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,7 @@ def engines():
     port = {
         use_pallas: InferenceEngine(
             GlomConfig(**TINY),
-            ServeConfig(buckets=BUCKETS, use_pallas=use_pallas),
+            ServeConfig(buckets=BUCKETS, max_batch=4, use_pallas=use_pallas),
             params=tp, device="cpu",
         )
         for use_pallas in (False, True)
@@ -74,7 +74,7 @@ def test_warm_levels_and_iters_override(engines):
 
 def test_warmup_and_first_dispatch_flags():
     eng = InferenceEngine(
-        GlomConfig(**TINY), ServeConfig(buckets=BUCKETS), device="cpu"
+        GlomConfig(**TINY), ServeConfig(buckets=BUCKETS, max_batch=4), device="cpu"
     )
     first = eng.warmup((1, 2))
     assert set(first) == {1, 2} and all(s > 0 for s in first.values())
@@ -101,15 +101,17 @@ def test_rejects_non_bucket_batches(engines):
 
 
 def test_unported_routes_raise():
+    """The early-exit and ragged routes are ported (test_torch_port_early_exit,
+    test_torch_port_ragged); the page pool and meshes still raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(GlomConfig(**TINY), ServeConfig(iters="auto"), device="cpu")
+        InferenceEngine(GlomConfig(**TINY), ServeConfig(page_pool_pages=8), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         InferenceEngine(GlomConfig(**TINY), device="cpu", mesh=object())
     eng = InferenceEngine(GlomConfig(**TINY), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.infer(_batch(0, 1, 1), page_rows=np.zeros((1, 4), np.int32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.infer_ragged(None, None)
+        eng.infer_ragged(np.zeros((16, 48), np.float32), [16], page_idx=np.zeros(4, np.int32))
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

@@ -128,7 +128,7 @@ def test_fused_forward_matches_plain_route(dev):
 def test_engine_serves_on_card(dev):
     cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4)
     eng = InferenceEngine(
-        cfg, ServeConfig(buckets=(1, 2), compute_dtype="bfloat16",
+        cfg, ServeConfig(buckets=(1, 2), max_batch=2, compute_dtype="bfloat16",
                          use_pallas=True), device="cuda",
     )
     eng.warmup()
@@ -348,3 +348,83 @@ def test_trainer_on_card_batch8_takes_the_loop(dev):
     hist = tr.fit(shapes_dataset(8, 32), 2, log_every=1)
     assert [r["vjp_path"] for r in hist] == ["fused_loop"] * 2
     assert all(np.isfinite(r["loss"]) for r in hist)
+
+
+K4_BARS = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1.6e-2)}
+
+
+def _ragged_maps(counts, pages, pt):
+    """Per-token (row_start, row_len) of rows packed page-aligned onto
+    `pages` pages, and each row's page span."""
+    T = pages * pt
+    rs, rl = np.zeros(T, np.int32), np.zeros(T, np.int32)
+    spans, off = [], 0
+    for c in counts:
+        k = -(-c // pt)
+        rs[off * pt:(off + k) * pt], rl[off * pt:(off + k) * pt] = off * pt, c
+        spans.append((off * pt, (off + k) * pt))
+        off += k
+    return torch.from_numpy(rs), torch.from_numpy(rl), spans, off * pt
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attend_self", [False, True])
+@pytest.mark.parametrize("pt,d,counts,pages", [
+    (64, 512, [256, 144, 64, 16, 256, 49], 20),  # the flagship's page size and width
+    (16, 256, [64, 37, 1, 16], 12),  # pages of fewer than 32 tokens; d = 256
+])
+def test_banded_consensus_kernel(dev, dtype, attend_self, pt, d, counts, pages):
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    rng = np.random.default_rng(10)
+    rs, rl, spans, used = _ragged_maps(counts, pages, pt)
+    lv = (_rand(rng, pages * pt, 3, d) * 2).to(dev, dtype)
+    window = -(-max(counts) // pt) * pt
+    kw = dict(row_start=rs.to(dev), row_len=rl.to(dev), window=window, page_tokens=pt,
+              attend_self=attend_self)
+    before = k4.LAUNCHES
+    got = k4.banded_ragged_consensus(lv, **kw)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == before + 1
+    want = k4.banded_ragged_consensus_plain(lv, **kw)
+    for s, e in spans:
+        _close(got[s:e], want[s:e], K4_BARS[dtype])
+    assert bool(torch.isfinite(got[used:].float()).all())  # the unused trailing pages
+
+
+def test_banded_consensus_kernel_refuses(dev):
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    rs, rl, _, _ = _ragged_maps([48], 4, 16)
+    for lv, match in ((torch.zeros(64, 2, 96, device=dev), "multiple of 128"),
+                      (torch.zeros(64, 2, 128, device=dev, dtype=torch.float16), "dtype")):
+        with pytest.raises(ValueError, match=match):
+            k4.banded_ragged_consensus(lv, row_start=rs.to(dev), row_len=rl.to(dev), window=64,
+                                       page_tokens=16)
+
+
+def test_ragged_dispatch_runs_k1_and_k4(dev):
+    """A fixed-route ragged dispatch launches K1 twice and K4 once per
+    iteration and K2 never; the auto route at threshold 0 gives the same
+    levels bit for bit."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+    from glom_tpu_torch.serve import pack_ragged
+
+    cfg = GlomConfig(dim=128, levels=3, image_size=32, patch_size=4)  # n = 64, pages of 16
+    common = dict(buckets=(1, 2), max_batch=2, ragged=True, ragged_attention="banded-pallas",
+                  use_pallas=True, compute_dtype="bfloat16")
+    fixed = InferenceEngine(cfg, ServeConfig(**common), device="cuda")
+    auto = InferenceEngine(cfg, ServeConfig(**common, iters="auto", exit_threshold=0.0),
+                           params=fixed.params, device="cuda")
+    rng = np.random.default_rng(11)
+    imgs = [rng.standard_normal((3, 32, 32)).astype(np.float32),
+            rng.standard_normal((3, 16, 24)).astype(np.float32)]
+    flat, n = pack_ragged(imgs, 4, fixed.page_tokens, fixed.pick_pages(6))
+    before = (k1.LAUNCHES, k4.LAUNCHES, k2.LAUNCHES)
+    res = fixed.infer_ragged(flat, n)
+    after = (k1.LAUNCHES, k4.LAUNCHES, k2.LAUNCHES)
+    T = cfg.default_iters
+    assert tuple(a - b for a, b in zip(after, before)) == (2 * T, T, 0)
+    assert res.levels.device.type == "cuda" and bool(torch.isfinite(res.levels.float()).all())
+    again = auto.infer_ragged(flat, n)
+    assert again.iters_run == T and torch.equal(again.levels, res.levels)

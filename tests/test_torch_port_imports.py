@@ -28,6 +28,15 @@ def _module_names():
     return names
 
 
+def test_the_checks_cover_every_module():
+    names = _module_names()
+    for module in ("glom_tpu_torch.serve.early_exit", "glom_tpu_torch.serve.paged_columns",
+                   "glom_tpu_torch.serve.batcher", "glom_tpu_torch.kernels.banded_consensus"):
+        assert module in names
+        path = REPO / (module.replace(".", "/") + ".py")
+        assert path in PORT_FILES
+
+
 def test_subprocess_imports_no_jax():
     code = (
         "import importlib, sys\n"
@@ -72,7 +81,8 @@ def test_glom_defaults_to_the_card(monkeypatch):
 def test_kernel_sources_carry_their_notes():
     import glom_tpu_torch.kernels._build as build
 
-    for name in ("grouped_mlp", "consensus_update", "grouped_mlp_bwd", "consensus_update_bwd"):
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    for name in build.SOURCES:
         text = (build.CSRC / f"{name}.cu").read_text()
         for note in ("Replaces:", "Bound on the H100:", "Kept out of device memory:"):
             assert note in text, (name, note)
