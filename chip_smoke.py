@@ -7,10 +7,12 @@ Builds the CUDA kernels from glom_tpu_torch/csrc/ (one nvcc per source, in
 parallel, into build/glom_tpu_torch/), holds each kernel -- the K1 and K2
 forwards and their backwards, the whole-loop VJP's modes of them (the
 pre-only K1 forward, the accumulating K1 backward, the K2 backward's
-three-stream combine) and the banded ragged consensus (K4) -- against its
-plain PyTorch version at the flagship shapes, times both (and, where one
-PyTorch call computes the same function, that call), then drives the
-port's main paths on the flagship
+three-stream combine), the banded ragged consensus (K4), the K2 forward's
+saved attention output and the one-sweep K2 backward at the long-row shape
+[6, 2, 4096, 512] (twice, bit for bit), and the combined td || bu K1 grid
+(bit for bit the two split launches) -- against its plain PyTorch version,
+times both (and, where one PyTorch call computes the same function, that
+call), then drives the port's main paths on the flagship
 model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
 seed), each with every launch count set to 0 just before it and read just
 after:
@@ -18,7 +20,8 @@ after:
   * serving: every bucket through InferenceEngine, with the launch counts
     of that run, its float32 parity with the plain path and the bf16
     answer's distance from that path;
-  * training at batch 8, the flagship's default, on the whole-loop VJP:
+  * training at batch 8, the flagship's default, on the whole-loop VJP
+    (its K1 launches over the combined td || bu grid, one a phase):
     six Adam steps of the denoising trainer on synthetic shapes images,
     through both of Trainer.fit's step variants (with and without the grad
     norm), with the route and exact launch counts per step, the step time
@@ -29,6 +32,12 @@ after:
     and gradients against the plain route;
   * training at batch 4 on the per-iteration route (three steps, exact
     launch counts), and its float32 gradients at batch 2;
+  * long global rows: the flagship widths at 896 px (side 64, n = 4096),
+    batch 2, through Trainer.fit on the per-iteration route, whose K2
+    forward saves cons and whose K2 backward is the one-sweep (exact
+    launches per step, a profiled step); its float32 loss and gradients at
+    batch 1 against the plain route; and the loop's forward and backward
+    (two-pass combine) against the per-iteration route's in turns;
   * ragged serving (before training in the script): mixed-resolution rows
     (224/168/112/56 px) packed page-aligned at 8, 24 and 32 pages through
     InferenceEngine.infer_ragged, K1 twice and the banded consensus kernel
@@ -74,6 +83,13 @@ BWD_BARS = {"K1": {"bf16": 2.5e-2, "f32": 8e-6}, "K2": {"bf16": 1.8e-2, "f32": 4
 # max abs error over max |want| per parameter leaf.
 TRAIN_F32_BAR = 8e-6
 LOOP_F32_BAR = 9e-6  # about 4x the 2.27e-6 seen at batch 8 (to_pixels.w)
+# The one-sweep K2 backward at [6, 2, 4096, 512]: max abs error over max
+# |want| of dlevels, and in bf16 the share of elements that differ at all.
+ONESWEEP_BARS = {"bf16": 1.8e-2, "f32": 1.8e-6}  # about 4x the 4.6e-3 and 4.5e-7 seen
+ONESWEEP_MISMATCH_BAR = 1.2e-2  # about 4x the 0.30 % seen
+# The long-row f32 training loss and gradients (batch 1, n = 4096) against
+# the plain route: about 4x the 3.41e-5 seen (to_pixels.w).
+LONGROW_F32_BAR = 1.4e-4
 # Batch-8 steps timed per route in the loop / per-iteration A/B.
 AB_ROUNDS = 10
 # Dispatches per ragged ladder entry and per route in the serve phases.
@@ -83,6 +99,10 @@ RAGGED_DISPATCHES = 5
 AUTO_DISPATCHES = 15
 AUTO_WARM = 2
 TRAIN_STEPS = 6
+# Long-row training steps (the first untimed, then three timed step_fast
+# calls and one full step) and loop / per-iteration rounds at n = 4096.
+LONGROW_STEPS = 5
+LONGROW_AB_ROUNDS = 3
 # Trainer.fit runs the full step (with the grad norm) every TRAIN_LOG_EVERY
 # steps and step_fast on the others: both variants run and are counted.
 TRAIN_LOG_EVERY = 3
@@ -390,7 +410,6 @@ def main() -> int:
     # The pre-only K1 launch, read through slot views of an [L+1] carry as the
     # loop reads it: bottom-up slots 0..L-1, top-down slots 2..L with the
     # addend. It must equal the pre the K1 forward saves, bit for bit.
-    k1_pre_err = {}
     for dtype in (bf16, f32):
         carry = randn(L + 1, M8, d, dtype=dtype)
         for which, G, x in (("bottom_up", L, carry[:L]), ("top_down", L - 1, carry[2:])):
@@ -403,8 +422,6 @@ def main() -> int:
             ok, abs_err, rel_err, ratio = compare(got, k1.grouped_mlp_pre_plain(params, x, add),
                                                   rtol, atol)
             equal = bool(torch.equal(got, saved))
-            if dtype == bf16:
-                k1_pre_err[which] = abs_err
             emit("k1_pre_vs_plain", which=which, shape=[G, M8, d], dtype=str(dtype),
                  max_abs_err=abs_err, max_rel_err=rel_err, rtol=rtol, atol=atol,
                  bar_ratio=ratio, equals_saved_pre=equal, ok=ok and equal)
@@ -415,7 +432,6 @@ def main() -> int:
     # call's gradients, so a kernel that drops them (or writes over them)
     # fails; acc_over_allowed is each total's size over the error the bar
     # allows in the result.
-    k1_acc_err = {}
     for dtype in (bf16, f32):
         dname = "bf16" if dtype == bf16 else "f32"
         bar = BWD_BARS["K1"][dname]
@@ -456,11 +472,9 @@ def main() -> int:
             allowed = {nm: bar * float(b.float().abs().max()) for nm, _, b in pairs}
             case = dict(which=which, shape=[G, M8, d], dtype=str(dtype),
                         acc_over_allowed={k: v / allowed[k] for k, v in totals_in.items()})
-            err = check_bwd("K1 acc", case, pairs, bar, phase="k1_bwd_acc_vs_plain")
+            check_bwd("K1 acc", case, pairs, bar, phase="k1_bwd_acc_vs_plain")
             if min(case["acc_over_allowed"].values()) <= 1.0:
                 failures.append(f"K1 acc totals too small to check: {case}")
-            if dtype == bf16 and which in ("bottom_up", "top_down"):
-                k1_acc_err[which] = err
 
     # The K2 backward's combine: three nonzero cotangent streams, each
     # independent, so a stream dropped or read one level off moves dmean (=
@@ -509,6 +523,135 @@ def main() -> int:
                 k2_comb_err["dkv"] = err_over_max(dlv, want_dlv)[0]
     if failures:
         raise AssertionError(f"whole-loop kernel/plain mismatch: {failures}")
+
+    # -- the long-row training route's kernels vs plain ----------------------------
+    # The K2 forward with the attention output saved, at the long-row training
+    # shape (side 64, n = 4096, batch 2): cons, m, l and out against the plain
+    # version, and out, m, l the same bits as the launch without the store.
+    Lr, Br, nr, sr = L, 2, 4096, 64
+    long_shape = (Lr, Br, nr, d)
+    # m and l are f32 in both dtypes. In bf16 an element of k (normalised in
+    # f32, its norm summed in another order) can round to the other bf16
+    # neighbour in one of the two versions, which moves a whole column of
+    # scores by up to about 1e-3 of its value: the row max m by that (1.9e-3
+    # seen at a max score near 11), and l by the factor e^(that). About 4x.
+    stat_bars = {bf16: {"m": (1e-3, 1e-3), "l": (8e-3, 1e-5)},
+                 f32: {"m": cons_bars[f32], "l": cons_bars[f32]}}
+    k2_cons_err = None
+    for dtype in (bf16, f32):
+        lv, bu, td = consensus_inputs(long_shape, dtype)
+        got = k2.fused_consensus_update(lv, bu, td, side=sr, cons=True)
+        no_store = k2.fused_consensus_update(lv, bu, td, side=sr, stats=True)
+        torch.cuda.synchronize()
+        want = k2.consensus_update_plain(lv, bu, td, side=sr, cons=True)
+        same = all(torch.equal(a, b) for a, b in zip(got[:3], no_store))
+        res = {nm: compare(a, b, *stat_bars[dtype].get(nm, cons_bars[dtype]))
+               for nm, a, b in zip(("out", "m", "l", "cons"), got, want)}
+        ok = same and all(r[0] for r in res.values())
+        if dtype == bf16:
+            k2_cons_err = res["cons"][1]
+        emit("k2_fwd_cons_vs_plain", shape=list(long_shape), dtype=str(dtype), side=sr,
+             max_abs_err={k: r[1] for k, r in res.items()},
+             bar_ratio={k: r[3] for k, r in res.items()}, equals_launch_without_cons=same,
+             ok=ok)
+        if not ok:
+            failures.append(f"K2 cons {dtype}")
+
+    # The one-sweep backward at the same shape: peaked levels at global
+    # consensus, attend_self both ways, and flat levels in a radius-1 window
+    # (the diagonal carries about a fifth of each row's weight there, so the
+    # diagonal rule is seen). Bars on max abs error over max |want|, and in
+    # bf16 on the share of elements that differ at all (a moved rounding
+    # point moves many by one ulp); each run twice, bit for bit.
+    onesweep_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        for radius, attend_self, kind in ((0.0, False, "peaked"), (0.0, True, "peaked"),
+                                          (1.0, False, "flat")):
+            lv = (consensus_inputs(long_shape, dtype)[0] if kind == "peaked"
+                  else flat_levels(long_shape, dtype))
+            kw = dict(side=sr, radius=radius, attend_self=attend_self)
+            bu, td = randn(*long_shape, dtype=dtype), randn(Lr - 1, Br, nr, d, dtype=dtype)
+            _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+            g = randn(*long_shape, dtype=dtype)
+            got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+            again = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+            torch.cuda.synchronize()
+            want = k2.consensus_bwd_onesweep_plain(lv, g, m, l, cons, **kw)
+            abs_err, ratio = err_over_max(got, want)
+            mismatch = float((got != want).float().mean())
+            bar = ONESWEEP_BARS[dname]
+            mbar = ONESWEEP_MISMATCH_BAR if dtype == bf16 else None  # f32: every bit moves
+            repeat = bool(torch.equal(got, again))
+            ok = ratio <= bar and (mbar is None or mismatch <= mbar) and repeat
+            onesweep_err[(dname, radius, attend_self)] = abs_err
+            emit("k2_onesweep_vs_plain", shape=list(long_shape), dtype=str(dtype),
+                 radius=radius, attend_self=attend_self, levels=kind, max_abs_err=abs_err,
+                 err_over_max=ratio, bar=bar, bar_ratio=ratio / bar, mismatch_share=mismatch,
+                 mismatch_bar=mbar, mismatch_bar_ratio=None if mbar is None else mismatch / mbar,
+                 bitwise_repeat=repeat, ok=ok)
+            if not ok:
+                failures.append(f"K2 one-sweep {dtype} r={radius} self={attend_self}")
+
+    # The combined td || bu K1 grid at flagship batch 8 (11 groups): forward
+    # with the saved pre, pre-only, accumulating backward, each against the
+    # two split launches on the same carry and dmean, bit for bit; the
+    # forward's error against the plain version for the kernels line.
+    k1_cat_err = None
+    for dtype in (bf16, f32):
+        bu_p = GroupedFFWParams(*(t.to(dev, dtype) for t in ffw["bottom_up"]))
+        td_p = GroupedFFWParams(*(t.to(dev, dtype) for t in ffw["top_down"]))
+        wcat = k1.cat_params(td_p, bu_p)
+        carry = randn(L + 1, M8, d, dtype=dtype)
+        add = pos.to(dev, dtype)
+        out, pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)
+        pre_only = k1.grouped_mlp_pre(wcat, carry, add=add, cat=True)
+        out_td, pre_td = k1.fused_grouped_ffw_lm(td_p, carry[2:], add=add, save_pre=True)
+        out_bu, pre_bu = k1.fused_grouped_ffw_lm(bu_p, carry[:L], save_pre=True)
+        dmean = randn(L, M8, d, dtype=dtype)
+        acc = GroupedFFWParams(*(randn(*t.shape) for t in wcat))
+        da_in = randn(n, d)
+        acc_td = GroupedFFWParams(*(t[:L - 1].clone() for t in acc))
+        acc_bu = GroupedFFWParams(*(t[L - 1:].clone() for t in acc))
+        acc0, da0 = GroupedFFWParams(*(t.clone() for t in acc)), da_in.clone()
+        da_split = da_in.clone()
+        dx, grads, da = k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre, acc=acc,
+                                           da_in=da_in, cat=True)
+        dx_td, _, _ = k1.grouped_mlp_bwd(td_p, carry[2:], dmean[:L - 1], add=add, pre=pre_td,
+                                         acc=acc_td, da_in=da_split)
+        dx_bu, _, _ = k1.grouped_mlp_bwd(bu_p, carry[:L], dmean, pre=pre_bu, acc=acc_bu)
+        torch.cuda.synchronize()
+        equal = {
+            "fwd_out": torch.equal(out, torch.cat([out_td, out_bu])),
+            "fwd_pre": torch.equal(pre, torch.cat([pre_td, pre_bu])),
+            "pre_only": torch.equal(pre_only, pre),
+            "bwd_dx": torch.equal(dx, torch.cat([dx_td, dx_bu])),
+            "bwd_totals": all(torch.equal(a, torch.cat([t, b]))
+                              for a, t, b in zip(grads, acc_td, acc_bu)),
+            "bwd_da": torch.equal(da, da_split),
+        }
+        # Against the plain versions: the forward's out and the pre-only
+        # launch at the forward bars, the backward's dx at K1's backward bar.
+        want_out, want_pre = k1.grouped_mlp_plain(wcat, carry, add, save_pre=True, cat=True)
+        want_dx = k1.grouped_mlp_bwd_plain(wcat, carry, dmean, add, pre, acc0, da0, cat=True)[0]
+        vs_plain = {"fwd": compare(out, want_out, *bars[dtype]),
+                    "pre": compare(pre_only, want_pre, *bars[dtype])}
+        dx_err, dx_ratio = err_over_max(dx, want_dx)
+        dx_bar = BWD_BARS["K1"]["bf16" if dtype == bf16 else "f32"]
+        ok_p = all(r[0] for r in vs_plain.values()) and dx_ratio <= dx_bar
+        if dtype == bf16:
+            k1_cat_err = {"fwd": vs_plain["fwd"][1], "pre": vs_plain["pre"][1], "bwd": dx_err}
+        emit("k1_cat_vs_plain", groups=2 * L - 1, shape=[L + 1, M8, d], dtype=str(dtype),
+             equal_to_split=equal,
+             max_abs_err_vs_plain={"fwd": vs_plain["fwd"][1], "pre": vs_plain["pre"][1],
+                                   "bwd_dx": dx_err},
+             bar_ratio_vs_plain={"fwd": vs_plain["fwd"][3], "pre": vs_plain["pre"][3],
+                                 "bwd_dx": dx_ratio / dx_bar},
+             ok=all(equal.values()) and ok_p)
+        if not (all(equal.values()) and ok_p):
+            failures.append(f"K1 cat grid {dtype}: {equal}")
+    if failures:
+        raise AssertionError(f"long-row / combined-grid kernel mismatch: {failures}")
 
     # -- timing ----------------------------------------------------------------
     def time_ms(fn, reps=20):
@@ -716,6 +859,105 @@ def main() -> int:
                   passes["dq"]["ms"] + passes["dkv"]["ms"],
                   passes["dq"]["plain_ms"] + passes["dkv"]["plain_ms"],
                   k2_bwd_ops, k2_bwd_bytes + 2 * 2 * (L - 1) * 8 * n * d, passes=passes)
+    # The combined K1 grid at batch 8 (11 groups), each launch beside the
+    # split pair it replaces. Bytes: the [L+1]-slot carry read once, the
+    # weights, the addend; written out and pre (forward), pre (pre-only), dx
+    # and the f32 totals read and written (backward).
+    Gc = 2 * L - 1
+    bu_p = GroupedFFWParams(*(t.to(dev, bf16) for t in ffw["bottom_up"]))
+    td_p = GroupedFFWParams(*(t.to(dev, bf16) for t in ffw["top_down"]))
+    wcat = k1.cat_params(td_p, bu_p)
+    carry = randn(L + 1, M8, d, dtype=bf16)
+    add = pos.to(dev, bf16)
+    carry_bytes, w_bytes = 2 * (L + 1) * M8 * d, 2 * (2 * Gc * d * f + Gc * (f + d))
+    pre_cat = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)[1]
+    pre_td, pre_bu = pre_cat[:L - 1], pre_cat[L - 1:]
+    dmean = randn(L, M8, d, dtype=bf16)
+    acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+    acc_td = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in td_p))
+    acc_bu = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in bu_p))
+    da_cat, da_split = torch.zeros(n, d, device=dev), torch.zeros(n, d, device=dev)
+
+    # The library's one call for the pre-only grid's function: one cuBLAS
+    # bf16 batched GEMM with the bias over the 11 groups' inputs (the
+    # top-down slots after the addend's add, then the bottom-up slots).
+    def pre_cat_library():
+        x_cat = torch.cat([(carry[2:].view(L - 1, -1, n, d) + add).view(L - 1, M8, d),
+                           carry[:L]])
+        return torch.baddbmm(wcat.b1[:, None], x_cat, wcat.w1)
+
+    for label, run, split_pair, plain, library, ops, nbytes in (
+        ("k1_fwd_cat_b8",
+         lambda: k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True),
+         lambda: (k1.fused_grouped_ffw_lm(td_p, carry[2:], add=add, save_pre=True),
+                  k1.fused_grouped_ffw_lm(bu_p, carry[:L], save_pre=True)),
+         lambda: k1.grouped_mlp_plain(wcat, carry, add, save_pre=True, cat=True), None,
+         4 * Gc * M8 * d * f, carry_bytes + w_bytes + 2 * n * d + 2 * Gc * M8 * (d + f)),
+        ("k1_pre_cat_b8", lambda: k1.grouped_mlp_pre(wcat, carry, add=add, cat=True),
+         lambda: (k1.grouped_mlp_pre(td_p, carry[2:], add=add),
+                  k1.grouped_mlp_pre(bu_p, carry[:L])),
+         lambda: k1.grouped_mlp_pre_plain(wcat, carry, add, cat=True), pre_cat_library,
+         2 * Gc * M8 * d * f, carry_bytes + 2 * (Gc * d * f + Gc * f + n * d + Gc * M8 * f)),
+        ("k1_bwd_acc_cat_b8",
+         lambda: k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre_cat, acc=acc,
+                                    da_in=da_cat, cat=True),
+         lambda: (k1.grouped_mlp_bwd(td_p, carry[2:], dmean[:L - 1], add=add, pre=pre_td,
+                                     acc=acc_td, da_in=da_split),
+                  k1.grouped_mlp_bwd(bu_p, carry[:L], dmean, pre=pre_bu, acc=acc_bu)),
+         lambda: k1.grouped_mlp_bwd_plain(wcat, carry, dmean, add, pre_cat, acc, da_cat,
+                                          cat=True), None,
+         8 * Gc * M8 * d * f,
+         carry_bytes + 2 * (Gc * M8 * f + L * M8 * d + 2 * Gc * d * f + n * d + Gc * M8 * d)
+         + 4 * 2 * (2 * Gc * d * f + Gc * (f + d) + n * d)),
+    ):
+        lib = {}
+        if library is not None:
+            lib = dict(library_ms=time_ms(library),
+                       library_call="torch.baddbmm over the 11 groups after x + tile(add)",
+                       library_max_abs_diff=float((library().float() - run().float())
+                                                  .abs().max()))
+        record_timing(label, [Gc, M8, d], time_ms(run), time_ms(plain), ops, nbytes,
+                      split_pair_ms=time_ms(split_pair), **lib)
+    # The long-row route's K2 launches at [6, 2, 4096, 512] (fewer
+    # repetitions: each takes tens of ms). Forward bytes: levels, bu, td read;
+    # out, m, l (and cons) written.
+    lv_r = consensus_inputs(long_shape, bf16)[0]
+    bu_r, td_r = randn(*long_shape, dtype=bf16), randn(Lr - 1, Br, nr, d, dtype=bf16)
+    elems_r, rows_r = Lr * Br * nr * d, Lr * Br * nr
+    fwd_ops_r = 4 * Lr * Br * nr * nr * d
+    fwd_bytes_r = 2 * (3 * elems_r + (Lr - 1) * Br * nr * d) + 4 * 2 * rows_r
+    for label, cons_out, nbytes in (("k2_fwd_longrow", False, fwd_bytes_r),
+                                    ("k2_fwd_cons_longrow", True, fwd_bytes_r + 2 * elems_r)):
+        kw = dict(side=sr, stats=True, cons=cons_out)
+        record_timing(label, list(long_shape),
+                      time_ms(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw), reps=5),
+                      time_ms(lambda: k2.consensus_update_plain(lv_r, bu_r, td_r, **kw), reps=3),
+                      fwd_ops_r, nbytes)
+    _, m_r, l_r, cons_r = k2.fused_consensus_update(lv_r, bu_r, td_r, side=sr, cons=True)
+    g_r = randn(*long_shape, dtype=bf16)
+    # The library's one call for the attention backward alone: SDPA's
+    # backward from the normalised k, attend_self=True, bf16 (the mean, the
+    # divisor and the norm VJP left out), timed with retain_graph.
+    q_l = lv_r.view(Lr * Br, 1, nr, d).clone().requires_grad_()
+    k_l = k2._normalized_k(lv_r).to(bf16).view(Lr * Br, 1, nr, d).requires_grad_()
+    v_l = lv_r.view(Lr * Br, 1, nr, d).clone().requires_grad_()
+    att_l = torch.nn.functional.scaled_dot_product_attention(q_l, k_l, v_l)
+    g_l = g_r.view(Lr * Br, 1, nr, d)
+    lib_ms = time_ms(lambda: torch.autograd.grad(att_l, (q_l, k_l, v_l), grad_outputs=g_l,
+                                                 retain_graph=True), reps=5)
+    del att_l
+    twopass_ms = time_ms(lambda: k2.consensus_update_bwd(lv_r, g_r, m_r, l_r, side=sr), reps=5)
+    # Bound: the TPU kernel's five products (s, dP, dq, dv, dk); bytes:
+    # levels, g, cons, m, l read, dlevels written.
+    record_timing(
+        "k2_bwd_onesweep_longrow", list(long_shape),
+        time_ms(lambda: k2.consensus_bwd_onesweep(lv_r, g_r, m_r, l_r, cons_r, side=sr), reps=5),
+        time_ms(lambda: k2.consensus_bwd_onesweep_plain(lv_r, g_r, m_r, l_r, cons_r, side=sr),
+                reps=3),
+        5 * 2 * Lr * Br * nr * nr * d, 2 * 4 * elems_r + 4 * 2 * rows_r, library_ms=lib_ms,
+        library_call=("torch.nn.functional.scaled_dot_product_attention backward (q = levels, "
+                      "normalised k, v = levels, bf16, attend_self=True), retain_graph"),
+        products_per_pair=7, two_pass_ms=twopass_ms)
 
     # -- serve: the main path ----------------------------------------------------
     cfg = GlomConfig()  # flagship: dim 512, L 6, 224 px, patch 14
@@ -1083,6 +1325,9 @@ def main() -> int:
         "K2 bwd dq": (k2, "LAUNCHES_BWD_DQ"), "K2 bwd dkv": (k2, "LAUNCHES_BWD_DKV"),
         "K2 combine dq": (k2, "LAUNCHES_BWD_COMBINE_DQ"),
         "K2 combine dkv": (k2, "LAUNCHES_BWD_COMBINE_DKV"),
+        "K1 fwd cat": (k1, "LAUNCHES_CAT"), "K1 pre cat": (k1, "LAUNCHES_PRE_CAT"),
+        "K1 bwd acc cat": (k1, "LAUNCHES_BWD_ACC_CAT"),
+        "K2 fwd cons": (k2, "LAUNCHES_CONS"), "K2 onesweep": (k2, "LAUNCHES_BWD_ONESWEEP"),
     }
 
     def counts():
@@ -1096,17 +1341,22 @@ def main() -> int:
         return {key: nonzero.get(key, 0) for key in counters}
 
     forward = {"K1 fwd": 2 * k, "K1 fwd add": k, "K2 fwd": k}
-    want_loop = launches_per_step({**forward, "K1 bwd acc": 2 * k, "K1 bwd acc add": k,
-                                   "K2 combine dq": k, "K2 combine dkv": k})
-    want_remat = dict(want_loop, **{"K1 pre": 2 * k, "K1 pre add": k})
+    # The loop: one K1 launch a phase over the combined grid.
+    want_loop = launches_per_step({"K1 fwd": k, "K1 fwd cat": k, "K2 fwd": k, "K1 bwd acc": k,
+                                   "K1 bwd acc cat": k, "K2 combine dq": k,
+                                   "K2 combine dkv": k})
+    want_remat = dict(want_loop, **{"K1 pre": k, "K1 pre cat": k})
     want_scan = launches_per_step({**forward, "K1 bwd": 2 * k, "K1 bwd add": k,
                                    "K2 bwd dq": k, "K2 bwd dkv": k})
 
-    def drive_trainer(phase, tcfg, steps, want_step, want_route):
+    def drive_trainer(phase, tcfg, steps, want_step, want_route, model=None,
+                      log_every=TRAIN_LOG_EVERY):
         """Train `steps` Adam steps through Trainer.fit with every launch
         count set to 0 just before and read just after; check the route and
-        the exact launches of every step; emit the phase."""
-        trainer = Trainer(cfg, tcfg, params=dparams, device="cuda")
+        the exact launches of every step; emit the phase. `model` is a
+        (GlomConfig, DenoiseParams) pair, the flagship's by default."""
+        mcfg, mparams = model if model is not None else (cfg, dparams)
+        trainer = Trainer(mcfg, tcfg, params=mparams, device="cuda")
         per_step = []  # (variant, launches, metrics) of every step
 
         def counted(fn, variant):
@@ -1121,13 +1371,13 @@ def main() -> int:
         trainer.step = counted(trainer.step, "step")
         trainer.step_fast = counted(trainer.step_fast, "step_fast")
         reset_counts()
-        records = trainer.fit(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=SEED), steps,
-                              log_every=TRAIN_LOG_EVERY, prefetch=2)
+        records = trainer.fit(shapes_dataset(tcfg.batch_size, mcfg.image_size, seed=SEED), steps,
+                              log_every=log_every, prefetch=2)
         path_launches = counts()
         variants = [v for v, _, _ in per_step]
         losses = [float(mm["loss"]) for _, _, mm in per_step]
-        n_full = steps // TRAIN_LOG_EVERY
-        if variants != (["step_fast"] * (TRAIN_LOG_EVERY - 1) + ["step"]) * n_full:
+        n_full = steps // log_every
+        if variants != (["step_fast"] * (log_every - 1) + ["step"]) * n_full:
             raise AssertionError(f"{phase}: step variants {variants}")
         if len(records) != n_full or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{phase}: losses {losses}, {len(records)} records")
@@ -1140,7 +1390,8 @@ def main() -> int:
         p50 = records[-1]["step_time_p50_ms"]
         emit(phase, config=dict(batch_size=tcfg.batch_size, compute_dtype=tcfg.compute_dtype,
                                 use_pallas=True, remat=tcfg.remat, iters=k, steps=steps,
-                                log_every=TRAIN_LOG_EVERY, prefetch=2),
+                                log_every=log_every, prefetch=2, image_size=mcfg.image_size,
+                                num_patches=mcfg.num_patches),
              variants=variants, losses=losses, grad_norms=[r["grad_norm"] for r in records],
              vjp_path=records[-1]["vjp_path"], grad_accum=records[-1]["grad_accum"],
              step_time_p50_ms=p50, step_time_p95_ms=records[-1]["step_time_p95_ms"],
@@ -1168,9 +1419,13 @@ def main() -> int:
 
     leaves0 = [t.to(dev) for t in param_leaves(dparams)]
 
-    def loss_and_grads(img, noise, **kw):
-        leaves = [t.clone().requires_grad_() for t in leaves0]
-        loss = denoise_loss(unflatten_params(dparams, leaves), img, noise, cfg, **kw)
+    def loss_and_grads(img, noise, model=None, **kw):
+        """The denoising loss and its gradients on fresh leaves (the
+        flagship's params, or a (GlomConfig, DenoiseParams) `model`)."""
+        mcfg, mparams = model if model is not None else (cfg, dparams)
+        base = leaves0 if model is None else [t.to(dev) for t in param_leaves(mparams)]
+        leaves = [t.clone().requires_grad_() for t in base]
+        loss = denoise_loss(unflatten_params(mparams, leaves), img, noise, mcfg, **kw)
         return loss, torch.autograd.grad(loss, leaves)
 
     # remat gradients are the non-remat loop's, bit for bit: one batch, the
@@ -1299,17 +1554,95 @@ def main() -> int:
     if not took_loop or worst > LOOP_F32_BAR:
         raise AssertionError("f32 loop training gradients disagree with the plain route")
 
+    # -- train: long global rows (n = 4096) through the one-sweep K2 backward ---------
+    # GlomConfig at 896 px, patch 14: side 64, n = 4096, global consensus,
+    # flagship widths; batch 2 resolves to the per-iteration route, whose K2
+    # forward saves cons and whose K2 backward is the one-sweep.
+    cfg_long = GlomConfig(dim=512, levels=6, image_size=896, patch_size=14)
+    if cfg_long.num_patches != 4096:
+        raise AssertionError(f"long-row config has {cfg_long.num_patches} patches")
+    lparams = init_denoise(cfg_long, generator=torch.Generator().manual_seed(SEED))
+    long_model = (cfg_long, lparams)
+    want_long = launches_per_step({**forward, "K2 fwd cons": k, "K1 bwd": 2 * k,
+                                   "K1 bwd add": k, "K2 onesweep": k})
+    long_trainer, long_records, long_launches = drive_trainer(
+        "train_longrow", TrainConfig(batch_size=2, compute_dtype="bfloat16", use_pallas=True),
+        LONGROW_STEPS, want_long, ("scan_blockwise", 1), model=long_model,
+        log_every=LONGROW_STEPS)
+    batch_long = next(shapes_dataset(2, cfg_long.image_size, seed=SEED + 7))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        long_trainer.step(batch_long)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernel_ms = device_ms_by_kernel(prof)
+    busy_ms = sum(kernel_ms.values())
+    emit("train_longrow_profile", batch=2, num_patches=4096, vjp_path=long_trainer.vjp_path,
+         wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms if busy_ms else None,
+         p50_unprofiled_ms=long_records[-1]["step_time_p50_ms"],
+         kernel_ms=dict(list(kernel_ms.items())[:25]))
+
+    # f32 loss and gradients at batch 1, n = 4096: the fused route (the
+    # one-sweep) against the plain route, same weights and noise.
+    img_l = torch.from_numpy(next(shapes_dataset(1, cfg_long.image_size, seed=SEED + 8))).to(dev)
+    noise_l = randn(1, 3, cfg_long.image_size, cfg_long.image_size)
+    reset_counts()
+    long32 = loss_and_grads(img_l, noise_l, model=long_model, use_pallas=True)
+    took_onesweep = counts()["K2 onesweep"] == k and counts()["K2 bwd dkv"] == 0
+    worst = parity("train_longrow_parity_f32", long32,
+                   loss_and_grads(img_l, noise_l, model=long_model), LONGROW_F32_BAR, batch=1,
+                   iters=k, num_patches=4096, vjp_path="scan_blockwise",
+                   took_the_onesweep=took_onesweep)
+    if not took_onesweep or worst > LONGROW_F32_BAR:
+        raise AssertionError("f32 long-row training gradients disagree with the plain route")
+
+    # The loop (two-pass combine) against the per-iteration route (the
+    # one-sweep) at n = 4096, batch 2: forward and backward of the k-iteration
+    # loop alone, bf16, in turns. No route changes: the evidence for whether
+    # the loop should take long rows.
+    tok_l = randn(2, 4096, d, dtype=bf16).requires_grad_()
+    lv0_l = randn(L, 2, 4096, d, dtype=bf16).requires_grad_()
+    pos_l = randn(4096, d, dtype=bf16).requires_grad_()
+    gout_l = randn(L, 2, 4096, d, dtype=bf16)
+    ins_l = [*loop_leaves[:8], pos_l, tok_l, lv0_l]
+    geometry_l = dict(side=64, radius=0.0, attend_self=False)
+    long_ms = {r: [] for r in route_fn}
+    route_counts = {}
+    for i in range(LONGROW_AB_ROUNDS + 1):  # round 0 warms both up and is not timed
+        for r in (list(route_fn) if i % 2 == 0 else list(route_fn)[::-1]):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = route_fn[r](GroupedFFWParams(*ins_l[:4]), GroupedFFWParams(*ins_l[4:8]),
+                              *ins_l[8:], k, **geometry_l)
+            torch.autograd.grad(out, ins_l, grad_outputs=gout_l)
+            torch.cuda.synchronize()
+            if i:
+                long_ms[r].append(1e3 * (time.perf_counter() - t0))
+            route_counts[r] = {key: v - before[key] for key, v in counts().items() if v != before[key]}
+            del out
+    if (route_counts["scan_blockwise"].get("K2 onesweep") != k
+            or route_counts["fused_loop"].get("K2 combine dkv") != k):
+        raise AssertionError(f"long-row A/B routes: {route_counts}")
+    long_p50 = {r: statistics.median(v) for r, v in long_ms.items()}
+    emit("train_longrow_ab", batch=2, num_patches=4096, iters=k, rounds=LONGROW_AB_ROUNDS,
+         order="alternating", timed="loop forward + backward", p50_ms=long_p50,
+         min_ms={r: min(v) for r, v in long_ms.items()}, launches_per_round=route_counts,
+         loop_over_scan=long_p50["fused_loop"] / long_p50["scan_blockwise"])
+
     # -- kernels -----------------------------------------------------------------
     # Each kernel's launches on the path that drives it: the forwards on the
     # serve path, the loop's kernels on the batch-8 train path (the pre-only
     # launch under remat), the per-iteration backward on the batch-4 path.
+    # The loop's K1 launches all run over the combined grid, so the split
+    # pre-only and accumulating launches (fused_loop.py:210/:198, :648/:621)
+    # run on no path: their groups run inside the cat-grid launches, whose
+    # entries name those sites under `also_replaces`.
     launches.update({
-        "grouped_mlp_pre": remat_launches["K1 pre"] - remat_launches["K1 pre add"],
-        "grouped_mlp_pre_add": remat_launches["K1 pre add"],
         "grouped_mlp_bwd": scan_launches["K1 bwd"] - scan_launches["K1 bwd add"],
         "grouped_mlp_bwd_add": scan_launches["K1 bwd add"],
-        "grouped_mlp_bwd_acc": train_launches["K1 bwd acc"] - train_launches["K1 bwd acc add"],
-        "grouped_mlp_bwd_acc_add": train_launches["K1 bwd acc add"],
         "consensus_update_bwd_dq": scan_launches["K2 bwd dq"],
         "consensus_update_bwd_dkv": scan_launches["K2 bwd dkv"],
         # the dq and dkv passes that together replace one TPU kernel
@@ -1336,14 +1669,6 @@ def main() -> int:
          "glom_tpu/kernels/consensus_update.py:1142", k2_bwd_err["dq"], "k2_bwd_dq_b8"),
         ("consensus_update_bwd_dkv", "consensus_update_bwd.cu",
          "glom_tpu/kernels/consensus_update.py:1179", k2_bwd_err["dkv"], "k2_bwd_dkv_b8"),
-        ("grouped_mlp_pre", "grouped_mlp.cu", loop_src + "210", k1_pre_err["bottom_up"],
-         "k1_pre_b8"),
-        ("grouped_mlp_pre_add", "grouped_mlp.cu", loop_src + "198", k1_pre_err["top_down"],
-         "k1_pre_add_b8"),
-        ("grouped_mlp_bwd_acc", "grouped_mlp_bwd.cu", loop_src + "648",
-         k1_acc_err["bottom_up"], "k1_bwd_acc_b8"),
-        ("grouped_mlp_bwd_acc_add", "grouped_mlp_bwd.cu", loop_src + "621",
-         k1_acc_err["top_down"], "k1_bwd_acc_add_b8"),
         ("consensus_update_bwd_combine", "consensus_update_bwd.cu", loop_src + "826",
          max(k2_comb_err.values()), "k2_bwd_combine_b8"),
     ):
@@ -1352,6 +1677,29 @@ def main() -> int:
     # The combine's two passes, each with its launches and times.
     kernels[-1]["passes"] = {p: dict(launches=train_launches[f"K2 combine {p}"], **t)
                              for p, t in passes.items()}
+    # This slice's kernels: the K2 forward's cons store and the one-sweep on
+    # the long-row training path (glom_tpu's bf16 long row, n*d*2 = 4 MB,
+    # is within its resident-row limit: the :473 kernel with save_cons);
+    # the combined K1 grid on the loop.
+    for kname, src, replaces, n_launch, err, tkey, also in (
+        ("consensus_update_fwd_cons", "consensus_update.cu",
+         "glom_tpu/kernels/consensus_update.py:473", long_launches["K2 fwd cons"], k2_cons_err,
+         "k2_fwd_cons_longrow", None),
+        ("consensus_update_bwd_onesweep", "consensus_update_bwd.cu",
+         "glom_tpu/kernels/consensus_update.py:1004", long_launches["K2 onesweep"],
+         onesweep_err[("bf16", 0.0, False)], "k2_bwd_onesweep_longrow", None),
+        ("grouped_mlp_fwd_cat", "grouped_mlp.cu", loop_src + "354", train_launches["K1 fwd cat"],
+         k1_cat_err["fwd"], "k1_fwd_cat_b8", ["144", "132"]),
+        ("grouped_mlp_pre_cat", "grouped_mlp.cu", loop_src + "387", remat_launches["K1 pre cat"],
+         k1_cat_err["pre"], "k1_pre_cat_b8", ["210", "198"]),
+        ("grouped_mlp_bwd_acc_cat", "grouped_mlp_bwd.cu", loop_src + "525",
+         train_launches["K1 bwd acc cat"], k1_cat_err["bwd"], "k1_bwd_acc_cat_b8",
+         ["648", "621"]),
+    ):
+        kernels.append(dict(name=kname, route="cuda", source=csrc + src, replaces=replaces,
+                            launches=n_launch, max_abs_err=err, **timings[tkey]))
+        if also:  # the split-grid sites whose groups this launch runs
+            kernels[-1]["also_replaces"] = [loop_src + line for line in also]
     # K4 on the ragged serve path, timed at its largest signature.
     kernels.append(dict(name="banded_consensus_fwd", route="cuda",
                         source=csrc + "banded_consensus.cu",

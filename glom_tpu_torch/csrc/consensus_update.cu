@@ -6,19 +6,27 @@
 //
 // with q = v = levels and td = 0 at the top level g = L-1. For training it
 // can also write each row's softmax statistics m (max score) and l (sum of
-// exp(s - m)), f32 [L, B, n], for the backward (csrc/consensus_update_bwd.cu).
+// exp(s - m)), f32 [L, B, n], for the backward (csrc/consensus_update_bwd.cu),
+// and, for the one-sweep backward of long rows, the attention output cons_i
+// itself, rounded to the levels type (glom_tpu's save_cons). That store is a
+// template parameter, so serving and the short-row training forward compile
+// it out.
 //
 // Replaces: glom_tpu/kernels/consensus_update.py:_consensus_update_kernel
 // (resident k/v row) and :_consensus_update_kernel_streamed (streamed j
-// tiles). The TPU split between the two is a VMEM-residency matter; here
-// one kernel streams j tiles through shared memory at any n.
+// tiles), with their save_cons output (`_forward`'s save_cons branches). The
+// TPU split between the two is a VMEM-residency matter; here one kernel
+// streams j tiles through shared memory at any n.
 //
 // Bound on the H100: device-memory bytes. At the flagship bucket-8 shape
 // ([6, 8, 256, 512] bf16) the op must read levels, bu and td and write out,
-// 48 MB, against 6.4 GFLOP of products.
+// 48 MB, against 6.4 GFLOP of products. At the long-row training shape
+// ([6, 2, 4096, 512] bf16) it is bound by operations: 412 GFLOP against
+// 244 MB with m, l and cons.
 //
 // Kept out of device memory: the [n, n] similarity and probabilities, the
-// normalized k, and the attention output `cons`. A block owns TI query rows
+// normalized k, and (unless asked for) the attention output `cons`. A block
+// owns TI query rows
 // of one (level, image); it walks the j tiles with an online softmax
 // (running max m, sum l and f32 accumulator in shared memory) and writes
 // only the updated levels. Under a local radius, j tiles wholly outside the
@@ -95,13 +103,13 @@ struct Layout {
   }
 };
 
-template <typename T>
+template <typename T, bool SAVE_CONS>
 __global__ void __launch_bounds__(THREADS)
 consensus_update_kernel(const T* __restrict__ lv, const T* __restrict__ bu,
                         const T* __restrict__ td, T* __restrict__ out,
-                        float* __restrict__ m_out, float* __restrict__ l_out, int L, int B,
-                        int n, int d, int side, int reach, float r2, int attend_self,
-                        float scale) {
+                        float* __restrict__ m_out, float* __restrict__ l_out,
+                        T* __restrict__ cons_out, int L, int B, int n, int d, int side,
+                        int reach, float r2, int attend_self, float scale) {
   constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -272,6 +280,7 @@ consensus_update_kernel(const T* __restrict__ lv, const T* __restrict__ bu,
   for (int e = tid; e < TI * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
     const float cons = acc[r * lay.ldacc + c] / l_row[r];
+    if constexpr (SAVE_CONS) cons_out[base + e] = from_f<T>(cons);
     const float t = top ? 0.0f : to_f(td[td_base + e]);
     const float v = (((to_f(qs[r * lay.ld + c]) + to_f(bu[base + e])) + t) + cons) / div;
     out[base + e] = from_f<T>(v);
@@ -302,26 +311,40 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
   return err;
 }
 
-template <typename T>
+// One instance per (type, cons store): each lifts its own cap once.
+template <typename T, bool SAVE_CONS>
 int launch(const void* lv, const void* bu, const void* td, void* out, float* m_out,
-           float* l_out, int L, int B, int n, int d, int side, double radius, int attend_self,
-           cudaStream_t stream) {
-  constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
-  if (L < 2 || B < 1 || n % TI != 0 || n % TJ != 0 || d % 64 != 0 || side < 1 ||
-      (m_out == nullptr) != (l_out == nullptr))
-    return (int)cudaErrorInvalidValue;
+           float* l_out, void* cons_out, int L, int B, int n, int d, int side, double radius,
+           int attend_self, cudaStream_t stream) {
+  constexpr int TI = Tiles<T>::TI;
   static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(consensus_update_kernel<T>, lifted);
+  const cudaError_t err = lift_smem_cap(consensus_update_kernel<T, SAVE_CONS>, lifted);
   if (err != cudaSuccess) return (int)err;
   const size_t bytes = Layout<T>(d).bytes;
   const int reach = radius > 0 ? (int)(radius + 1.0) * side : 0;
   const float r2 = (float)(radius * radius);
   const float scale = (float)(1.0 / sqrt((double)d));
   const dim3 grid(n / TI, B, L);
-  consensus_update_kernel<T><<<grid, THREADS, bytes, stream>>>(
+  consensus_update_kernel<T, SAVE_CONS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(lv), static_cast<const T*>(bu), static_cast<const T*>(td),
-      static_cast<T*>(out), m_out, l_out, L, B, n, d, side, reach, r2, attend_self, scale);
+      static_cast<T*>(out), m_out, l_out, static_cast<T*>(cons_out), L, B, n, d, side, reach,
+      r2, attend_self, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const void* lv, const void* bu, const void* td, void* out, float* m_out,
+               float* l_out, void* cons_out, int L, int B, int n, int d, int side,
+               double radius, int attend_self, cudaStream_t stream) {
+  constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
+  if (L < 2 || B < 1 || n % TI != 0 || n % TJ != 0 || d % 64 != 0 || side < 1 ||
+      (m_out == nullptr) != (l_out == nullptr) || (cons_out != nullptr && m_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return cons_out != nullptr
+             ? launch<T, true>(lv, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, radius,
+                               attend_self, stream)
+             : launch<T, false>(lv, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side,
+                                radius, attend_self, stream);
 }
 
 }  // namespace
@@ -330,16 +353,17 @@ extern "C" {
 
 // lv, bu, out: [L, B, n, d]; td: [L-1, B, n, d]; contiguous, one dtype
 // (is_bf16 selects bf16, else f32); m_out, l_out: f32 [L, B, n], both or
-// neither; side: patch-grid side (n = side^2 for a local radius); radius <= 0
-// means global consensus. Returns a cudaError_t.
+// neither; cons_out: [L, B, n, d] in the levels dtype, or NULL (only with
+// m_out and l_out); side: patch-grid side (n = side^2 for a local radius);
+// radius <= 0 means global consensus. Returns a cudaError_t.
 int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* out,
-                         float* m_out, float* l_out, int L, int B, int n, int d, int side,
-                         double radius, int attend_self, int is_bf16, void* stream) {
+                         float* m_out, float* l_out, void* cons_out, int L, int B, int n, int d,
+                         int side, double radius, int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(lv, bu, td, out, m_out, l_out, L, B, n, d, side,
-                                         radius, attend_self, s)
-                 : launch<float>(lv, bu, td, out, m_out, l_out, L, B, n, d, side, radius,
-                                 attend_self, s);
+  return is_bf16 ? launch_any<__nv_bfloat16>(lv, bu, td, out, m_out, l_out, cons_out, L, B, n,
+                                             d, side, radius, attend_self, s)
+                 : launch_any<float>(lv, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side,
+                                     radius, attend_self, s);
 }
 
 const char* consensus_update_error_string(int err) {

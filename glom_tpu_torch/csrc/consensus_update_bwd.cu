@@ -29,6 +29,20 @@
 // passes no streams: cot = dg. dmean is the f32 dcons rounded once; the
 // f32 dcons itself enters dlevels.
 //
+// The one-sweep form (long rows, glom_tpu's _consensus_bwd_onesweep): the
+// forward also saved the attention output cons, so D_i = sum_j p_ij dP_ij
+// equals dcons_i . cons_i, a row-local dot of the unrounded f32 dcons = g *
+// (1 / div) with the rounded cons. The dq pass takes D from it and sweeps
+// the key tiles once (s, dP, dq: three products a pair), the dkv pass is
+// unchanged (s, dP, dv, dk: four), seven products a pair where the TPU
+// kernel has five and the two-pass form nine. Its epilogue rounds the
+// partial g / div + dv + normVJP(dk) to the levels type, then adds the f32
+// dq and rounds again, glom_tpu's rounding points; no dmean is written (the
+// caller forms g / div, as glom_tpu's _fused_bwd). The TPU kernel keeps the
+// whole row's f32 dq resident in VMEM across every key tile (8 MB a level
+// and image at n = 4096, d = 512); here the dq pass owns its query rows'
+// dq, so no block shares a sum and no float atomics are needed.
+//
 // The products read dcons rounded to the compute type. The dq pass forms
 // it for its query rows and writes it once; the dkv pass reads that copy
 // for each streamed query tile and forms the f32 dcons (from the streams,
@@ -42,7 +56,8 @@
 //
 // Replaces: glom_tpu/kernels/consensus_update.py:_consensus_bwd_small_kernel
 // (one tile, n <= 512), :_consensus_bwd_dq_kernel and
-// :_consensus_bwd_dkv_kernel (two passes, any n), and
+// :_consensus_bwd_dkv_kernel (two passes, any n),
+// :_consensus_bwd_onesweep_kernel (long rows, with the saved cons), and
 // glom_tpu/kernels/fused_loop.py:_cons_bwd_combine_kernel (the three-stream
 // combine, single tile there). The single-tile form needs
 // the whole f32 [n, n] score tile in fast memory: 256 KB at n = 256, more
@@ -64,7 +79,10 @@
 // ([6, 8, 256, 512] bf16) the five products of the single-tile form are
 // 16.1 GFLOP, against 50 MB of levels, cotangent, dlevels and dmean (23 MB
 // more with the combine's two streams); this design computes nine (s and
-// dP three times, dq, dv, dk).
+// dP three times, dq, dv, dk). At the long-row training shape ([6, 2, 4096,
+// 512] bf16) the one-sweep kernel's five products are 1031 GFLOP against
+// 202 MB of levels, cotangent, cons, m, l and dlevels; the one-sweep form
+// here computes seven.
 //
 // Kept out of device memory: the scores, probabilities and ds, and dv and
 // dk; only f32 dq and dd, and the rounded dcons, pass between the two
@@ -291,10 +309,11 @@ struct DqLayout {
   }
 };
 
-template <typename T>
+template <typename T, bool ONESWEEP>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
                         const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
+                        const T* __restrict__ cons_in,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
                         float* __restrict__ dq_out, float* __restrict__ dd_out,
                         T* __restrict__ dcons_out, int L, int B,
@@ -322,11 +341,14 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   const size_t plane = (size_t)B * n * d;
   const T* row0 = lv + slab * d;
 
+  const float inv_div = 1.0f / div;
   for (int e = tid; e < TI * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
     const size_t idx = (slab + i0 + r) * d + c;
     qs[r * lay.ld + c] = lv[idx];
-    const T dc = from_f<T>(cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div);
+    // The one-sweep form scales by 1/div, as glom_tpu's one-sweep kernel.
+    const T dc = ONESWEEP ? from_f<T>(to_f(gout[idx]) * inv_div)
+                          : from_f<T>(cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div);
     dcs[r * lay.ld + c] = dc;
     dcons_out[idx] = dc;
     acc[r * lay.ldacc + c] = 0.0f;
@@ -334,14 +356,28 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   if (tid < TI) {
     m_row[tid] = m_in[slab + i0 + tid];
     l_row[tid] = l_in[slab + i0 + tid];
-    dd_row[tid] = 0.0f;
+    if (!ONESWEEP) dd_row[tid] = 0.0f;
+  }
+  if constexpr (ONESWEEP) {
+    // D_i = sum_c dcons_ic cons_ic, a warp a row: the unrounded f32 dcons
+    // against the forward's saved attention output, so dd needs no sweep.
+    for (int r = warp; r < TI; r += WARPS) {
+      const size_t row = (slab + i0 + r) * d;
+      float D = 0.0f;
+      for (int c = lane; c < d; c += 32)
+        D = fmaf(to_f(gout[row + c]) * inv_div, to_f(cons_in[row + c]), D);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) D += __shfl_xor_sync(0xffffffffu, D, o);
+      if (lane == 0) dd_row[r] = D;
+    }
   }
   int j_lo, j_hi;
   window(i0, TI, TJ, n / TJ, reach, j_lo, j_hi);
   __syncthreads();
 
-  // Sweep 0 sums dd; sweep 1 forms ds with the finished dd and sums dq.
-  for (int sweep = 0; sweep < 2; ++sweep) {
+  // Sweep 0 sums dd (the two-pass form only); sweep 1 forms ds with the
+  // finished dd and sums dq.
+  for (int sweep = ONESWEEP ? 1 : 0; sweep < 2; ++sweep) {
     for (int jt = j_lo; jt < j_hi; ++jt) {
       const int j0 = jt * TJ;
       load_rows_and_k(row0 + (size_t)j0 * d, TJ, d, lay.ld, vs, ks, warp, lane);
@@ -408,7 +444,7 @@ struct DkvLayout {
   }
 };
 
-template <typename T>
+template <typename T, bool ONESWEEP>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
                          const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
@@ -485,7 +521,11 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   }
 
   // Epilogue, a warp a key row: dk through the VJP of k = x / max(|x|, eps),
-  // then dlevels = dcons + dq + dv + normVJP(dk).
+  // then dlevels = dcons + dq + dv + normVJP(dk). The one-sweep form rounds
+  // the partial (g / div + dv + normVJP(dk)) to the levels type first and
+  // adds the f32 dq after, as glom_tpu joins dq outside its kernel; it
+  // writes no dmean.
+  const float inv_div = 1.0f / div;
   for (int r = warp; r < KJ; r += WARPS) {
     float xx = 0.0f, kx = 0.0f;
     for (int c = lane; c < d; c += 32) {
@@ -505,9 +545,14 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
       const float x = to_f(xj[r * lay.ld + c]);
       const float dkc = dk[r * lay.ldacc + c] * scale;
       const float dxn = dkc * inv - (norm >= 1e-12f ? kx * x * inv * inv / norm : 0.0f);
-      const float dcons = cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div;
-      dlv_out[idx] = from_f<T>(dcons + dq_in[idx] + dv[r * lay.ldacc + c] + dxn);
-      dmean_out[idx] = from_f<T>(dcons);
+      if constexpr (ONESWEEP) {
+        const T partial = from_f<T>(to_f(gout[idx]) * inv_div + dv[r * lay.ldacc + c] + dxn);
+        dlv_out[idx] = from_f<T>(to_f(partial) + dq_in[idx]);
+      } else {
+        const float dcons = cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div;
+        dlv_out[idx] = from_f<T>(dcons + dq_in[idx] + dv[r * lay.ldacc + c] + dxn);
+        dmean_out[idx] = from_f<T>(dcons);
+      }
     }
   }
 }
@@ -545,44 +590,59 @@ Geometry geometry(int d, int side, double radius) {
           (float)(1.0 / sqrt((double)d))};
 }
 
-template <typename T>
+// One instance per (type, form): each lifts its own cap once. The
+// one-sweep form (cons given) takes no streams and writes no dmean.
+template <typename T, bool ONESWEEP>
 int launch_dq(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
-              const float* m, const float* l, float* dq, float* dd, void* dcons, int L, int B,
-              int n, int d, int side, double radius, int attend_self, cudaStream_t stream) {
+              const void* cons, const float* m, const float* l, float* dq, float* dd,
+              void* dcons, int L, int B, int n, int d, int side, double radius, int attend_self,
+              cudaStream_t stream) {
   if (!valid(L, B, n, d, side, Tiles<T>::TI, dx_bu, dx_td) || n % Tiles<T>::TJ != 0 ||
-      dcons == nullptr)
+      dcons == nullptr || ONESWEEP != (cons != nullptr) || (ONESWEEP && dx_bu != nullptr))
     return (int)cudaErrorInvalidValue;
   static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(consensus_bwd_dq_kernel<T>, lifted);
+  const cudaError_t err = lift_smem_cap(consensus_bwd_dq_kernel<T, ONESWEEP>, lifted);
   if (err != cudaSuccess) return (int)err;
   const Geometry geo = geometry(d, side, radius);
-  consensus_bwd_dq_kernel<T><<<dim3(n / Tiles<T>::TI, B, L), THREADS, DqLayout<T>(d).bytes,
-                               stream>>>(
+  consensus_bwd_dq_kernel<T, ONESWEEP><<<dim3(n / Tiles<T>::TI, B, L), THREADS,
+                                         DqLayout<T>(d).bytes, stream>>>(
       static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
-      static_cast<const T*>(dx_td), m, l, dq, dd, static_cast<T*>(dcons), L, B, n, d, side,
-      geo.reach, geo.r2, attend_self, geo.scale);
+      static_cast<const T*>(dx_td), static_cast<const T*>(cons), m, l, dq, dd,
+      static_cast<T*>(dcons), L, B, n, d, side, geo.reach, geo.r2, attend_self, geo.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ONESWEEP>
 int launch_dkv(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
                const float* m, const float* l, const float* dq, const float* dd,
                const void* dcons, void* dlv, void* dmean, int L, int B, int n, int d, int side,
                double radius, int attend_self, cudaStream_t stream) {
   if (!valid(L, B, n, d, side, Tiles<T>::KJ, dx_bu, dx_td) || n % Tiles<T>::KI != 0 ||
-      dcons == nullptr)
+      dcons == nullptr || ONESWEEP != (dmean == nullptr) || (ONESWEEP && dx_bu != nullptr))
     return (int)cudaErrorInvalidValue;
   static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(consensus_bwd_dkv_kernel<T>, lifted);
+  const cudaError_t err = lift_smem_cap(consensus_bwd_dkv_kernel<T, ONESWEEP>, lifted);
   if (err != cudaSuccess) return (int)err;
   const Geometry geo = geometry(d, side, radius);
-  consensus_bwd_dkv_kernel<T><<<dim3(n / Tiles<T>::KJ, B, L), THREADS,
-                                DkvLayout<T>(d).bytes, stream>>>(
+  consensus_bwd_dkv_kernel<T, ONESWEEP><<<dim3(n / Tiles<T>::KJ, B, L), THREADS,
+                                          DkvLayout<T>(d).bytes, stream>>>(
       static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
       static_cast<const T*>(dx_td), m, l, dq, dd, static_cast<const T*>(dcons),
       static_cast<T*>(dlv), static_cast<T*>(dmean), L, B, n, d, side, geo.reach, geo.r2,
       attend_self, geo.scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_onesweep(const void* lv, const void* gout, const void* cons, const float* m,
+                    const float* l, float* dq, float* dd, void* dcons, void* dlv, int L, int B,
+                    int n, int d, int side, double radius, int attend_self,
+                    cudaStream_t stream) {
+  const int err = launch_dq<T, true>(lv, gout, nullptr, nullptr, cons, m, l, dq, dd, dcons, L,
+                                     B, n, d, side, radius, attend_self, stream);
+  if (err != 0) return err;
+  return launch_dkv<T, true>(lv, gout, nullptr, nullptr, m, l, dq, dd, dcons, dlv, nullptr, L,
+                             B, n, d, side, radius, attend_self, stream);
 }
 
 }  // namespace
@@ -600,10 +660,10 @@ int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
                             float* dd, void* dcons, int L, int B, int n, int d, int side,
                             double radius, int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dq<bf16>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, L, B, n, d,
-                                   side, radius, attend_self, s)
-                 : launch_dq<float>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, L, B, n, d,
-                                    side, radius, attend_self, s);
+  return is_bf16 ? launch_dq<bf16, false>(lv, gout, dx_bu, dx_td, nullptr, m, l, dq, dd, dcons,
+                                          L, B, n, d, side, radius, attend_self, s)
+                 : launch_dq<float, false>(lv, gout, dx_bu, dx_td, nullptr, m, l, dq, dd, dcons,
+                                           L, B, n, d, side, radius, attend_self, s);
 }
 
 // The dq pass's inputs plus its dq, dd and rounded dcons; dlv, dmean:
@@ -614,10 +674,26 @@ int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu
                              void* dmean, int L, int B, int n, int d, int side, double radius,
                              int attend_self, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dkv<bf16>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L,
-                                    B, n, d, side, radius, attend_self, s)
-                 : launch_dkv<float>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L,
-                                     B, n, d, side, radius, attend_self, s);
+  return is_bf16 ? launch_dkv<bf16, false>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv,
+                                           dmean, L, B, n, d, side, radius, attend_self, s)
+                 : launch_dkv<float, false>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv,
+                                            dmean, L, B, n, d, side, radius, attend_self, s);
+}
+
+// The one-sweep backward (long rows): the dq pass with D from the saved
+// attention output, then the dkv pass, which writes the complete dlevels.
+// lv, gout, cons: [L, B, n, d] in the levels dtype; m, l: the forward's f32
+// [L, B, n]; dq (f32 [L, B, n, d]), dd (f32 [L, B, n]) and dcons ([L, B, n,
+// d], levels dtype): workspaces the passes hand over; dlv: [L, B, n, d].
+int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* cons,
+                                  const float* m, const float* l, float* dq, float* dd,
+                                  void* dcons, void* dlv, int L, int B, int n, int d, int side,
+                                  double radius, int attend_self, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_onesweep<bf16>(lv, gout, cons, m, l, dq, dd, dcons, dlv, L, B, n, d,
+                                         side, radius, attend_self, s)
+                 : launch_onesweep<float>(lv, gout, cons, m, l, dq, dd, dcons, dlv, L, B, n, d,
+                                          side, radius, attend_self, s);
 }
 
 const char* consensus_update_bwd_error_string(int err) {

@@ -11,12 +11,24 @@
 // recomputed pre is bit for bit the one the forward would have saved, and
 // remat gradients equal non-remat ones exactly.
 //
+// The combined td || bu grid (the whole-loop VJP's `loop_grid="combined"`):
+// one launch over 2L-1 groups whose weights are the top-down groups'
+// followed by the bottom-up ones'. A group rule replaces the caller's slot
+// views: group g < split takes the addend and reads x slot g + x_lo, group
+// g >= split reads slot g - split, so the launch reads the loop's [L+1]-slot
+// carry in place (split = L-1, x_lo = 2: top-down reads slots 2..L,
+// bottom-up slots 0..L-1). A plain launch is split = G (addend) or 0, x_lo =
+// 0. Each group's arithmetic is the split launches', so the two grids give
+// the same bits.
+//
 // Replaces: glom_tpu/kernels/grouped_mlp.py:_mlp_kernel (bottom-up) and
 // :_mlp_kernel_add (top-down, with the positional addend folded into the
 // tile load), as one kernel with an optional addend pointer; also
 // glom_tpu/kernels/fused_loop.py:_ffw_fwd_ext (the same kernels reading a
 // slot of the loop's carry: here the caller passes the slot's pointer) and
-// :_pre_kernel / :_pre_add_kernel (the PRE_ONLY instance).
+// :_pre_kernel / :_pre_add_kernel (the PRE_ONLY instance), and, over the
+// combined grid, :_ffw_fwd_cat and :_pre_fwd_cat (there through a zero
+// addend for the bottom-up groups; here the group rule skips the add).
 //
 // Bound on the H100: tensor-core operations. At the flagship bottom-up
 // shape (G = 6, M = 2048, d = 512, f = 2048) the two products are 51.5
@@ -80,7 +92,7 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
              int n, const __nv_bfloat16* __restrict__ w1,
              const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
              const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-             __nv_bfloat16* __restrict__ pre, int M, int d, int f) {
+             __nv_bfloat16* __restrict__ pre, int M, int d, int f, int split, int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Bf16Layout lay(d);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -92,7 +104,9 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
   const int g = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const size_t xoff = ((size_t)g * M + m0) * d;
+  const size_t xoff = ((size_t)(g < split ? g + x_lo : g - split) * M + m0) * d;
+  const size_t ooff = ((size_t)g * M + m0) * d;
+  if (g >= split) a = nullptr;
 
   // x tile (+ addend, rounded once to bf16) and a zeroed f32 output tile.
   for (int e = tid; e < TM * d; e += THREADS) {
@@ -176,7 +190,7 @@ mlp_fwd_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
   for (int e = tid; e < TM * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
     const float v = acc[r * lay.ldacc + c] + __bfloat162float(b2[(size_t)g * d + c]);
-    out[xoff + (size_t)r * d + c] = __float2bfloat16(v);
+    out[ooff + (size_t)r * d + c] = __float2bfloat16(v);
   }
 }
 
@@ -188,7 +202,8 @@ __global__ void __launch_bounds__(THREADS)
 mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
             const float* __restrict__ w1, const float* __restrict__ b1,
             const float* __restrict__ w2, const float* __restrict__ b2,
-            float* __restrict__ out, float* __restrict__ pre, int M, int d, int f) {
+            float* __restrict__ out, float* __restrict__ pre, int M, int d, int f, int split,
+            int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem);  // [TM][d]
   float* acc = xs + TM * d;                     // [TM][d]
@@ -197,7 +212,9 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
   const int m0 = blockIdx.x * TM;
   const int g = blockIdx.y;
   const int tid = threadIdx.x;
-  const size_t xoff = ((size_t)g * M + m0) * d;
+  const size_t xoff = ((size_t)(g < split ? g + x_lo : g - split) * M + m0) * d;
+  const size_t ooff = ((size_t)g * M + m0) * d;
+  if (g >= split) a = nullptr;
 
   for (int e = tid; e < TM * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
@@ -248,7 +265,7 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
   if constexpr (PRE_ONLY) return;
   for (int e = tid; e < TM * d; e += THREADS) {
     const int c = e % d;
-    out[xoff + e] = acc[e] + b2[(size_t)g * d + c];
+    out[ooff + e] = acc[e] + b2[(size_t)g * d + c];
   }
 }
 
@@ -278,7 +295,7 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
 template <bool SAVE_PRE, bool PRE_ONLY = false>
 cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                        const void* w2, const void* b2, void* out, void* pre, int G, int M,
-                       int d, int f, int is_bf16, cudaStream_t s) {
+                       int d, int f, int split, int x_lo, int is_bf16, cudaStream_t s) {
   static bool lifted_bf16[MAX_DEVICES], lifted_f32[MAX_DEVICES];
   const dim3 grid(M / TM, G);
   cudaError_t err;
@@ -289,7 +306,8 @@ cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, cons
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(a), n,
         static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
         static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
-        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(pre), M, d, f);
+        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(pre), M, d, f, split,
+        x_lo);
   } else {
     err = lift_smem_cap(mlp_fwd_f32<SAVE_PRE, PRE_ONLY>, lifted_f32);
     if (err != cudaSuccess) return err;
@@ -297,41 +315,47 @@ cudaError_t launch_fwd(const void* x, const void* a, int n, const void* w1, cons
         static_cast<const float*>(x), static_cast<const float*>(a), n,
         static_cast<const float*>(w1), static_cast<const float*>(b1),
         static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<float*>(out), static_cast<float*>(pre), M, d, f);
+        static_cast<float*>(out), static_cast<float*>(pre), M, d, f, split, x_lo);
   }
   return cudaGetLastError();
+}
+
+bool valid(const void* a, int n, int G, int M, int d, int f, int split, int x_lo) {
+  return G >= 1 && M % TM == 0 && d % 64 == 0 && f % FC == 0 && split >= 0 && split <= G &&
+         x_lo >= 0 && (a != nullptr) == (split > 0) && (a == nullptr || (n >= 1 && M % n == 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out: [G, M, d]; a: [n, d] or NULL; w1: [G, d, f]; b1: [G, f];
-// w2: [G, f, d]; b2: [G, d]; pre: [G, M, f] or NULL. All contiguous, on the
+// x: [S, M, d] slots, group g reading slot g < split ? g + x_lo : g - split
+// (see the combined grid above; a plain launch: S = G, x_lo = 0, split = G
+// with an addend, else 0); a: [n, d], taken by the groups below split, or
+// NULL (then split = 0); out: [G, M, d]; w1: [G, d, f]; b1: [G, f]; w2:
+// [G, f, d]; b2: [G, d]; pre: [G, M, f] or NULL. All contiguous, on the
 // current device, of one dtype (is_bf16 selects bf16, else f32). Returns a
 // cudaError_t.
 int grouped_mlp_fwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                     const void* w2, const void* b2, void* out, void* pre, int G, int M, int d,
-                    int f, int is_bf16, void* stream) {
-  if (G < 1 || M % TM != 0 || d % 64 != 0 || f % FC != 0 ||
-      (a != nullptr && (n < 1 || M % n != 0)))
-    return (int)cudaErrorInvalidValue;
+                    int f, int split, int x_lo, int is_bf16, void* stream) {
+  if (!valid(a, n, G, M, d, f, split, x_lo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(pre != nullptr
-                   ? launch_fwd<true>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16, s)
-                   : launch_fwd<false>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, is_bf16,
-                                       s));
+  return (int)(pre != nullptr ? launch_fwd<true>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f,
+                                                 split, x_lo, is_bf16, s)
+                              : launch_fwd<false>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f,
+                                                  split, x_lo, is_bf16, s));
 }
 
 // The pre-only recompute: pre [G, M, f] = (x (+ a)) . w1 + b1 in x's dtype,
 // bit for bit what grouped_mlp_fwd saves. Arguments as grouped_mlp_fwd's.
 int grouped_mlp_pre(const void* x, const void* a, int n, const void* w1, const void* b1,
-                    void* pre, int G, int M, int d, int f, int is_bf16, void* stream) {
-  if (G < 1 || M % TM != 0 || d % 64 != 0 || f % FC != 0 || pre == nullptr ||
-      (a != nullptr && (n < 1 || M % n != 0)))
+                    void* pre, int G, int M, int d, int f, int split, int x_lo, int is_bf16,
+                    void* stream) {
+  if (!valid(a, n, G, M, d, f, split, x_lo) || pre == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)launch_fwd<true, true>(x, a, n, w1, b1, nullptr, nullptr, nullptr, pre, G, M, d,
-                                     f, is_bf16, static_cast<cudaStream_t>(stream));
+                                     f, split, x_lo, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 const char* grouped_mlp_error_string(int err) {

@@ -12,7 +12,18 @@
 // pre plus the da reduction), whose shared tail is :_mlp_bwd_tail; in its
 // accumulate mode also glom_tpu/kernels/fused_loop.py:_ffw_bwd_acc_kernel
 // and :_ffw_bwd_acc_add_kernel (the whole-loop VJP's backward, which seeds
-// the weight-gradient sums from the previous iteration's f32 totals).
+// the weight-gradient sums from the previous iteration's f32 totals), and,
+// over the combined grid, :_ffw_bwd_cat_acc_kernel (its unchained twin
+// :_ffw_bwd_cat_kernel, like :_mlp_bwd_kernel_saved beside the chained
+// kernels, is glom_tpu's VMEM fallback; the port always chains).
+//
+// The combined td || bu grid (csrc/grouped_mlp.cu says more): group g <
+// split takes the addend and reads x slot g + x_lo and cotangent slot g;
+// group g >= split reads x slot g - split and cotangent slot g - split. So
+// one launch reads the loop's [L+1]-slot carry and its [L]-level dmean in
+// place for all 2L-1 groups, and da sums the f32 dx of the groups below
+// split only, in the split launch's group order. A plain launch is split =
+// G (addend) or 0, x_lo = 0.
 //
 // Accumulate mode (the whole-loop VJP): dw1, db1, dw2, db2 and da are f32
 // and hold the totals of the iterations already done; this call adds its
@@ -125,7 +136,7 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
                   const bf16* __restrict__ w2, const bf16* __restrict__ pre,
                   const bf16* __restrict__ gout, bf16* __restrict__ dx,
                   float* __restrict__ dx32, bf16* __restrict__ h_ws,
-                  bf16* __restrict__ dpre_ws, int M, int d, int f) {
+                  bf16* __restrict__ dpre_ws, int M, int d, int f, int split, int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
   const bool recompute = pre == nullptr;
   const RowBf16Layout lay(d, recompute);
@@ -140,12 +151,18 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
   const int g = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32;
   const size_t row0 = (size_t)g * M + m0;
+  const size_t xrow0 = (size_t)(g < split ? g + x_lo : g - split) * M + m0;
+  const size_t grow0 = (size_t)(g < split ? g : g - split) * M + m0;
+  if (g >= split) {
+    a = nullptr;
+    dx32 = nullptr;  // da sums the groups below split only
+  }
 
   for (int e = tid; e < TMB * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
-    gs[r * lay.ld + c] = gout[(row0 + r) * d + c];
+    gs[r * lay.ld + c] = gout[(grow0 + r) * d + c];
     if (recompute) {
-      bf16 v = x[(row0 + r) * d + c];
+      bf16 v = x[(xrow0 + r) * d + c];
       if (a != nullptr)
         v = __float2bfloat16(__bfloat162float(v) +
                              __bfloat162float(a[(size_t)((m0 + r) % n) * d + c]));
@@ -249,7 +266,7 @@ mlp_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ a, int n
                  const float* __restrict__ w2, const float* __restrict__ pre,
                  const float* __restrict__ gout, float* __restrict__ dx,
                  float* __restrict__ dx32, float* __restrict__ h_ws,
-                 float* __restrict__ dpre_ws, int M, int d, int f) {
+                 float* __restrict__ dpre_ws, int M, int d, int f, int split, int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* gs = reinterpret_cast<float*>(smem);  // [TMF][d]
   float* xs = gs + TMF * d;                     // [TMF][d]
@@ -261,11 +278,17 @@ mlp_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ a, int n
   const int g = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)g * M + m0;
+  const size_t xrow0 = (size_t)(g < split ? g + x_lo : g - split) * M + m0;
+  const size_t grow0 = (size_t)(g < split ? g : g - split) * M + m0;
+  if (g >= split) {
+    a = nullptr;
+    dx32 = nullptr;  // da sums the groups below split only
+  }
 
   for (int e = tid; e < TMF * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
-    gs[e] = gout[(row0 + r) * d + c];
-    float v = x[(row0 + r) * d + c];
+    gs[e] = gout[(grow0 + r) * d + c];
+    float v = x[(xrow0 + r) * d + c];
     if (a != nullptr) v = v + a[(size_t)((m0 + r) % n) * d + c];
     xs[e] = v;
     acc[e] = 0.0f;
@@ -340,42 +363,48 @@ mlp_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ a, int n
 // of them in place.
 
 struct WeightOperands {
-  const void* A;       // [G, M, NA]
+  const void* A;       // [S, M, NA]
   const void* addend;  // [n, NA] or NULL, added to A rows on load
   bool gelu;           // A is the saved pre: stage GELU(A)
-  const void* B;       // [G, M, NB]
+  const void* B;       // [S, M, NB]
   void* C;             // [G, NA, NB]
   void* colsum;        // [G, NB]
   int NA, NB;
+  int a_slot, b_slot;  // the group's slot of A and of B
 };
 
-__device__ __forceinline__ WeightOperands operands(int z, const void* x, const void* a,
+// Group g's operands under the group rule (see the combined grid above).
+__device__ __forceinline__ WeightOperands operands(int z, int g, int split, int x_lo,
+                                                   const void* x, const void* a,
                                                    const void* pre, const void* h_ws,
                                                    const void* dpre_ws, const void* gout,
                                                    void* dw1, void* db1, void* dw2, void* db2,
                                                    int d, int f) {
-  if (z == 0) return {x, a, false, dpre_ws, dw1, db1, d, f};
-  if (pre != nullptr) return {pre, nullptr, true, gout, dw2, db2, f, d};
-  return {h_ws, nullptr, false, gout, dw2, db2, f, d};
+  const bool lo = g < split;
+  if (z == 0) return {x, lo ? a : nullptr, false, dpre_ws, dw1, db1, d, f,
+                      lo ? g + x_lo : g - split, g};
+  const int gslot = lo ? g : g - split;
+  if (pre != nullptr) return {pre, nullptr, true, gout, dw2, db2, f, d, g, gslot};
+  return {h_ws, nullptr, false, gout, dw2, db2, f, d, g, gslot};
 }
 
 template <bool ACC>
 __global__ void __launch_bounds__(THREADS)
 mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const bf16* h_ws,
                      const bf16* dpre_ws, const bf16* gout, void* dw1, void* db1, void* dw2,
-                     void* db2, int M, int d, int f) {
+                     void* db2, int M, int d, int f, int split, int x_lo) {
   constexpr int LDW = WT + 8, LDC = WT + 4;
   __shared__ __align__(128) unsigned char staged[2 * sizeof(bf16) * WK * LDW];
   __shared__ __align__(128) float Cs[WT * LDC];
   bf16* As = reinterpret_cast<bf16*>(staged);  // [WK][LDW]
   bf16* Bs = As + WK * LDW;                    // [WK][LDW]
 
-  const WeightOperands op = operands(blockIdx.z, x, a, pre, h_ws, dpre_ws, gout, dw1, db1,
-                                     dw2, db2, d, f);
+  const int g = blockIdx.y;
+  const WeightOperands op = operands(blockIdx.z, g, split, x_lo, x, a, pre, h_ws, dpre_ws, gout,
+                                     dw1, db1, dw2, db2, d, f);
   const int tiles_b = op.NB / WT;
   if ((int)blockIdx.x >= (op.NA / WT) * tiles_b) return;
   const int i0 = (blockIdx.x / tiles_b) * WT, j0 = (blockIdx.x % tiles_b) * WT;
-  const int g = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32;
   const bf16* A = static_cast<const bf16*>(op.A);
   const bf16* addend = static_cast<const bf16*>(op.addend);
@@ -391,8 +420,8 @@ mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const
   for (int m0 = 0; m0 < M; m0 += WK) {
     for (int e = tid; e < WK * WT; e += THREADS) {
       const int r = e / WT, cc = e - r * WT;
-      const size_t row = (size_t)g * M + m0 + r;
-      bf16 va = A[row * op.NA + i0 + cc];
+      const size_t arow = (size_t)op.a_slot * M + m0 + r, brow = (size_t)op.b_slot * M + m0 + r;
+      bf16 va = A[arow * op.NA + i0 + cc];
       if (addend != nullptr)
         va = __float2bfloat16(__bfloat162float(va) +
                               __bfloat162float(addend[(size_t)((m0 + r) % n) * op.NA + i0 + cc]));
@@ -402,7 +431,7 @@ mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const
         va = __float2bfloat16(val);
       }
       As[r * LDW + cc] = va;
-      Bs[r * LDW + cc] = Bm[row * op.NB + j0 + cc];
+      Bs[r * LDW + cc] = Bm[brow * op.NB + j0 + cc];
     }
     __syncthreads();
     if (sums && tid < WT)
@@ -446,16 +475,17 @@ template <bool ACC>
 __global__ void __launch_bounds__(THREADS)
 mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
                     const float* h_ws, const float* dpre_ws, const float* gout, float* dw1,
-                    float* db1, float* dw2, float* db2, int M, int d, int f) {
+                    float* db1, float* dw2, float* db2, int M, int d, int f, int split,
+                    int x_lo) {
   __shared__ float As[WK * WT];
   __shared__ float Bs[WK * WT];
 
-  const WeightOperands op = operands(blockIdx.z, x, a, pre, h_ws, dpre_ws, gout, dw1, db1,
-                                     dw2, db2, d, f);
+  const int g = blockIdx.y;
+  const WeightOperands op = operands(blockIdx.z, g, split, x_lo, x, a, pre, h_ws, dpre_ws, gout,
+                                     dw1, db1, dw2, db2, d, f);
   const int tiles_b = op.NB / WT;
   if ((int)blockIdx.x >= (op.NA / WT) * tiles_b) return;
   const int i0 = (blockIdx.x / tiles_b) * WT, j0 = (blockIdx.x % tiles_b) * WT;
-  const int g = blockIdx.y;
   const int tid = threadIdx.x;
   const float* A = static_cast<const float*>(op.A);
   const float* addend = static_cast<const float*>(op.addend);
@@ -468,8 +498,8 @@ mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
   for (int m0 = 0; m0 < M; m0 += WK) {
     for (int e = tid; e < WK * WT; e += THREADS) {
       const int r = e / WT, cc = e - r * WT;
-      const size_t row = (size_t)g * M + m0 + r;
-      float va = A[row * op.NA + i0 + cc];
+      const size_t arow = (size_t)op.a_slot * M + m0 + r, brow = (size_t)op.b_slot * M + m0 + r;
+      float va = A[arow * op.NA + i0 + cc];
       if (addend != nullptr) va = va + addend[(size_t)((m0 + r) % n) * op.NA + i0 + cc];
       if (op.gelu) {
         float val, grad;
@@ -477,7 +507,7 @@ mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
         va = val;
       }
       As[e] = va;
-      Bs[e] = Bm[row * op.NB + j0 + cc];
+      Bs[e] = Bm[brow * op.NB + j0 + cc];
     }
     __syncthreads();
     if (sums && tid < WT)
@@ -507,7 +537,8 @@ mlp_bwd_weights_f32(const float* x, const float* a, int n, const float* pre,
   }
 }
 
-// da[r, c] = sum over groups g and batch copies b of dx32[g, b * n + r, c];
+// da[r, c] = sum over groups g < G and batch copies b of dx32[g, b * n + r, c]
+// (G: the launch's split, the groups that take the addend);
 // with `accumulate` (f32 only) the sum is added to da's incoming total.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -545,23 +576,28 @@ cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
 
 extern "C" {
 
-// x, gout, dx: [G, M, d]; a: [n, d] or NULL (then da, dx32_ws are NULL too);
-// w1, dw1: [G, d, f]; b1, db1: [G, f]; w2, dw2: [G, f, d]; db2: [G, d];
-// pre: the forward's saved [G, M, f] pre-activation, or NULL to recompute
-// it; dpre_ws: [G, M, f] workspace; h_ws: [G, M, f] workspace when pre is
-// NULL, else unused; dx32_ws: f32 [G, M, d]; da: [n, d]. All but dx32_ws
-// of one dtype (is_bf16 selects bf16, else f32), contiguous, on the
-// current device. With `accumulate`, dw1, db1, dw2, db2 and da are f32
-// totals that this call adds to in place. Returns a cudaError_t.
+// x: [S, M, d] slots and gout: [S', M, d] slots, group g reading x slot
+// g < split ? g + x_lo : g - split and gout slot g < split ? g : g - split
+// (a plain launch: S = S' = G, x_lo = 0, split = G with an addend, else 0);
+// dx: [G, M, d]; a: [n, d], taken by the groups below split, or NULL (then
+// split = 0 and da, dx32_ws are NULL too); w1, dw1: [G, d, f]; b1, db1:
+// [G, f]; w2, dw2: [G, f, d]; db2: [G, d]; pre: the forward's saved [G, M,
+// f] pre-activation, or NULL to recompute it; dpre_ws: [G, M, f]
+// workspace; h_ws: [G, M, f] workspace when pre is NULL, else unused;
+// dx32_ws: f32 [split, M, d]; da: [n, d]. All but dx32_ws of one dtype
+// (is_bf16 selects bf16, else f32), contiguous, on the current device.
+// With `accumulate`, dw1, db1, dw2, db2 and da are f32 totals that this
+// call adds to in place. Returns a cudaError_t.
 int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                     const void* w2, const void* pre, const void* gout, void* dx, void* dw1,
                     void* db1, void* dw2, void* db2, void* da, void* h_ws, void* dpre_ws,
-                    void* dx32_ws, int G, int M, int d, int f, int accumulate, int is_bf16,
-                    void* stream) {
+                    void* dx32_ws, int G, int M, int d, int f, int split, int x_lo,
+                    int accumulate, int is_bf16, void* stream) {
   const int tm = is_bf16 ? TMB : TMF;
   const bool add = a != nullptr;
   if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || f % WT != 0 ||
-      (pre == nullptr && h_ws == nullptr) ||
+      (pre == nullptr && h_ws == nullptr) || split < 0 || split > G || x_lo < 0 ||
+      add != (split > 0) ||
       (add && (n < 1 || M % n != 0 || da == nullptr || dx32_ws == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -577,21 +613,21 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
         static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
         static_cast<const bf16*>(w2), static_cast<const bf16*>(pre),
         static_cast<const bf16*>(gout), static_cast<bf16*>(dx), static_cast<float*>(dx32_ws),
-        static_cast<bf16*>(h_ws), static_cast<bf16*>(dpre_ws), M, d, f);
+        static_cast<bf16*>(h_ws), static_cast<bf16*>(dpre_ws), M, d, f, split, x_lo);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     auto weights_bf16 = accumulate ? mlp_bwd_weights_bf16<true> : mlp_bwd_weights_bf16<false>;
     weights_bf16<<<weights, THREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
         static_cast<const bf16*>(pre), static_cast<const bf16*>(h_ws),
         static_cast<const bf16*>(dpre_ws), static_cast<const bf16*>(gout), dw1, db1, dw2, db2,
-        M, d, f);
+        M, d, f, split, x_lo);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if (add && accumulate)
       da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<float*>(da), G, M, n, d, 1);
+          static_cast<const float*>(dx32_ws), static_cast<float*>(da), split, M, n, d, 1);
     else if (add)
       da_reduce<bf16><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<bf16*>(da), G, M, n, d, 0);
+          static_cast<const float*>(dx32_ws), static_cast<bf16*>(da), split, M, n, d, 0);
   } else {
     err = lift_smem_cap(mlp_bwd_rows_f32, lifted_f32);
     if (err != cudaSuccess) return (int)err;
@@ -602,7 +638,7 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
         static_cast<const float*>(w2), static_cast<const float*>(pre),
         static_cast<const float*>(gout), static_cast<float*>(dx),
         static_cast<float*>(dx32_ws), static_cast<float*>(h_ws),
-        static_cast<float*>(dpre_ws), M, d, f);
+        static_cast<float*>(dpre_ws), M, d, f, split, x_lo);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     auto weights_f32 = accumulate ? mlp_bwd_weights_f32<true> : mlp_bwd_weights_f32<false>;
     weights_f32<<<weights, THREADS, 0, s>>>(
@@ -610,11 +646,12 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
         static_cast<const float*>(pre), static_cast<const float*>(h_ws),
         static_cast<const float*>(dpre_ws),
         static_cast<const float*>(gout), static_cast<float*>(dw1), static_cast<float*>(db1),
-        static_cast<float*>(dw2), static_cast<float*>(db2), M, d, f);
+        static_cast<float*>(dw2), static_cast<float*>(db2), M, d, f, split, x_lo);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if (add)
       da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<float*>(da), G, M, n, d, accumulate);
+          static_cast<const float*>(dx32_ws), static_cast<float*>(da), split, M, n, d,
+          accumulate);
   }
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,15 @@ cotangents of the two FFWs (`dx_bu`, `dx_td`).
 `consensus_update_vjp` is the differentiable entry, the twin of `_fused`:
 d(bu) = dmean and d(td) = dmean[:L-1].
 
+Long rows (`use_onesweep`: n > 512 where glom_tpu's one-sweep fits) train
+through the one-sweep backward, glom_tpu's `_consensus_bwd_onesweep`: the
+forward also writes the attention output `cons` (`cons=True`), which makes
+D_i = dcons_i . cons_i row-local, so the dq pass needs one sweep of the key
+tiles instead of two (`consensus_bwd_onesweep`, its plain version
+`consensus_bwd_onesweep_plain`). glom_tpu's rounding points are kept:
+dcons = g * (1 / div) in f32 feeds D, its rounding feeds dv and dP, and
+the partial g / div + dv + normVJP(dk) is rounded before dq is added.
+
 `fused_consensus_update` and `consensus_update_bwd` run the plain PyTorch
 versions (`consensus_update_plain`, `consensus_update_bwd_plain`) for
 tensors on the CPU and launch the kernels for CUDA tensors (raising on
@@ -36,7 +45,8 @@ forward refuses an input that requires grad while grad mode is on.
 `LAUNCHES` counts forward launches, `LAUNCHES_BWD_DQ` and
 `LAUNCHES_BWD_DKV` the two backward passes, and `LAUNCHES_BWD_COMBINE_DQ`
 and `LAUNCHES_BWD_COMBINE_DKV` those launched in combine mode (counted
-there only).
+there only); `LAUNCHES_CONS` the forwards that wrote `cons`, and
+`LAUNCHES_BWD_ONESWEEP` the one-sweep backwards (its two passes, one call).
 """
 
 from __future__ import annotations
@@ -55,6 +65,8 @@ LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_COMBINE_DQ = 0
 LAUNCHES_BWD_COMBINE_DKV = 0
+LAUNCHES_CONS = 0
+LAUNCHES_BWD_ONESWEEP = 0
 
 WIDTH_MULTIPLE = 64  # d must be a multiple of this
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # n must be a multiple
@@ -65,15 +77,54 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "consensus_update_fwd": (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
     ),
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
     "consensus_update_bwd_dq": ([*[_P] * 9, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
     "consensus_update_bwd_dkv": ([*[_P] * 11, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_onesweep": ([*[_P] * 9, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
     "consensus_update_bwd_error_string": ([_I], ctypes.c_char_p),
 }
+
+# glom_tpu's one-sweep eligibility (consensus_update.py:316-319, :960-978),
+# kept for route parity: it is the TPU's VMEM rule (the whole-row f32 dq
+# block resident beside the tiles), not a measurement on the card.
+_SMALL_BWD_N = 512
+_ONESWEEP_BUDGET = 48 * 1024 * 1024
+
+
+def _pick_tile(n: int) -> int:
+    for t in (256, 128, 64, 32, 16, 8):
+        if n % t == 0 and t <= n:
+            return t
+    return n
+
+
+def _onesweep_ok(n: int, d: int, itemsize: int) -> bool:
+    """The one-sweep's working set at batch tile 1 within the budget: the
+    whole-row f32 dq, resident and streamed tiles, scratch, sim tiles, out."""
+    tile = _pick_tile(n)
+    ws = (n * d * 4 + 2 * tile * d * itemsize * 2
+          + 3 * tile * d * itemsize * 2 + 2 * tile * 4 * 2
+          + 2 * tile * d * 4 + 3 * tile * tile * 4 + tile * d * itemsize * 2)
+    return ws <= _ONESWEEP_BUDGET
+
+
+def use_onesweep(levels_shape, itemsize: int) -> bool:
+    """Whether the training forward saves `cons` and the backward runs the
+    one-sweep kernel: glom_tpu's save_cons gate (consensus_update.py:
+    1349-1353), n > 512 and `_onesweep_ok`, with its blockwise side always
+    taken. glom_tpu sends a mid-length global row (n < 4096) to its dense
+    XLA backward instead; the port has no dense backward, so it takes the
+    one-sweep there. The size rule is the TPU's VMEM arithmetic; the card
+    has no such limit (the port's one-sweep keeps no whole-row dq). It is
+    kept on purpose, for route parity: past it (n near 22k at d = 512)
+    glom_tpu trains with the two passes, and so does the port, so both run
+    the same backward, with the same rounding, at every n."""
+    n, d = levels_shape[-2:]
+    return n > _SMALL_BWD_N and _onesweep_ok(n, d, itemsize)
 
 
 def _lib() -> ctypes.CDLL:
@@ -121,10 +172,13 @@ def consensus_update_plain(
     radius: float = 0.0,
     attend_self: bool = False,
     stats: bool = False,
+    cons: bool = False,
 ):
     """The kernel's function in plain PyTorch, with its rounding points (one
     j tile: the softmax statistics are taken over the whole row).
-    stats=True returns (out, m, l) with the f32 row statistics [L, B, n, 1]."""
+    stats=True returns (out, m, l) with the f32 row statistics [L, B, n, 1];
+    cons=True returns (out, m, l, cons) with the attention output [L, B, n,
+    d] rounded to the levels dtype."""
     L = levels_lm.shape[0]
     dt, f32 = levels_lm.dtype, torch.float32
     kv = levels_lm.to(f32)
@@ -135,9 +189,11 @@ def consensus_update_plain(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    cons = torch.matmul(p.to(dt).to(f32), kv) / l
+    att = torch.matmul(p.to(dt).to(f32), kv) / l
     td = torch.cat([td_lm.to(f32), torch.zeros_like(kv[:1])], dim=0)
-    out = ((((kv + bu_lm.to(f32)) + td) + cons) / _divisor(L, levels_lm.device)).to(dt)
+    out = ((((kv + bu_lm.to(f32)) + td) + att) / _divisor(L, levels_lm.device)).to(dt)
+    if cons:
+        return out, m, l, att.to(dt)
     return (out, m, l) if stats else out
 
 
@@ -205,10 +261,7 @@ def consensus_bwd_dkv_plain(
     )
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dcr)  # unmasked p
     dk = torch.matmul(ds_rounded(dd).transpose(-1, -2), x) * levels_lm.shape[-1] ** -0.5
-    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
-    inv = 1.0 / torch.clamp_min(norm, 1e-12)
-    a = torch.sum(dk * x, dim=-1, keepdim=True)
-    dxn = dk * inv - torch.where(norm >= 1e-12, a * x * inv * inv / norm, 0.0)
+    dxn = _norm_vjp(dk, x)
     out = ((dcons + dq + dv + dxn).to(dt), dcons.to(dt))
     return (*out, {"dv": dv, "dxn": dxn}) if parts else out
 
@@ -234,6 +287,43 @@ def consensus_update_bwd_plain(
     kw = dict(side=side, radius=radius, attend_self=attend_self, dx_bu=dx_bu, dx_td=dx_td)
     dq, dd = consensus_bwd_dq_plain(levels_lm, g, m, l, **kw)
     return consensus_bwd_dkv_plain(levels_lm, g, m, l, dq, dd, **kw)
+
+
+def _norm_vjp(dk, x):
+    """The VJP of k = x / max(||x||, 1e-12) (glom_tpu's _norm_vjp), f32."""
+    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    inv = 1.0 / torch.clamp_min(norm, 1e-12)
+    a = torch.sum(dk * x, dim=-1, keepdim=True)
+    return dk * inv - torch.where(norm >= 1e-12, a * x * inv * inv / norm, 0.0)
+
+
+def consensus_bwd_onesweep_plain(
+    levels_lm, g, m, l, cons, *, side, radius=0.0, attend_self=False
+):
+    """The one-sweep backward in plain PyTorch, with glom_tpu's rounding
+    points (`_consensus_bwd_onesweep_kernel` and its dq join): dlevels in
+    the levels dtype from the raw cotangent g, the row statistics m, l and
+    the forward's saved attention output cons."""
+    L = levels_lm.shape[0]
+    dt, f32 = levels_lm.dtype, torch.float32
+    scale = levels_lm.shape[-1] ** -0.5
+    x = levels_lm.to(f32)
+    k = _normalized_k(levels_lm)
+    s, diag = _masked_scores(levels_lm, k, side=side, radius=radius, attend_self=attend_self)
+    p = torch.exp(s - m) / l
+    dcons = g.to(f32) * (1.0 / _divisor(L, levels_lm.device))  # unrounded: D takes it
+    D = torch.sum(dcons * cons.to(f32), dim=-1, keepdim=True)
+    dcr = dcons.to(dt).to(f32)
+    dp = torch.matmul(dcr, x.transpose(-1, -2))  # dP_ij = dcons_i . v_j
+    ds = p * (dp - D)
+    if not attend_self:
+        ds = ds.masked_fill(diag, 0.0)
+    ds = ds.to(dt).to(f32)
+    dv = torch.matmul(p.to(dt).to(f32).transpose(-1, -2), dcr)
+    dk = torch.matmul(ds.transpose(-1, -2), x) * scale
+    dq = torch.matmul(ds, k) * scale
+    partial = (dcons + dv + _norm_vjp(dk, x)).to(dt)
+    return (partial.to(f32) + dq).to(dt)
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -294,19 +384,22 @@ def fused_consensus_update(
     attend_self: bool = False,
     out: Optional[torch.Tensor] = None,
     stats: bool = False,
+    cons: bool = False,
 ):
     """new_levels = (levels + bu + pad(td) + consensus(levels)) / div.
 
     levels_lm, bu_lm: [L, B, n, d]; td_lm: [L-1, B, n, d]. Returns
     [L, B, n, d], written into `out` when given (it must not overlap the
     inputs); stats=True returns (out, m, l) with the f32 row statistics
-    [L, B, n, 1] the backward reads."""
-    global LAUNCHES
+    [L, B, n, 1] the backward reads; cons=True returns (out, m, l, cons)
+    with the attention output the one-sweep backward reads."""
+    global LAUNCHES, LAUNCHES_CONS
     refuse_grad(levels_lm, bu_lm, td_lm)
+    stats = stats or cons
     if levels_lm.device.type == "cpu":
         res = consensus_update_plain(
             levels_lm, bu_lm, td_lm, side=side, radius=radius,
-            attend_self=attend_self, stats=stats,
+            attend_self=attend_self, stats=stats, cons=cons,
         )
         if out is None:
             return res
@@ -320,23 +413,29 @@ def fused_consensus_update(
     check_kernel_args(levels_lm, bu_lm, td_lm, out, side=side, radius=radius)
     lib = _lib()
     L, B, n, d = levels_lm.shape
-    m = l = None
+    m = l = att = None
     if stats:
         m = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
         l = torch.empty_like(m)
+    if cons:
+        att = torch.empty_like(levels_lm)
     is_bf16 = int(levels_lm.dtype == torch.bfloat16)
     err = lib.consensus_update_fwd(
         levels_lm.data_ptr(), bu_lm.data_ptr(), td_lm.data_ptr(), out.data_ptr(),
-        None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+        _ptr(m), _ptr(l), _ptr(att),
         L, B, n, d, side, float(radius), int(attend_self), is_bf16,
         torch.cuda.current_stream(levels_lm.device).cuda_stream,
     )
     _build.check(err, "consensus_update_fwd", lib.consensus_update_error_string)
     LAUNCHES += 1
+    LAUNCHES_CONS += int(cons)
+    if cons:
+        return out, m, l, att
     return (out, m, l) if stats else out
 
 
-def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons=None) -> None:
+def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons=None,
+                    cons=None) -> None:
     """Raise ValueError for anything the backward kernels do not take."""
     _check_levels(levels_lm, side=side, radius=radius)
     L, B, n, d = levels_lm.shape
@@ -354,6 +453,8 @@ def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dco
                    ("dx_td", dx_td, (L - 1, B, n, d), levels_lm.dtype)]
     if dcons is not None:
         checks.append(("dcons", dcons, (L, B, n, d), levels_lm.dtype))
+    if cons is not None:
+        checks.append(("cons", cons, (L, B, n, d), levels_lm.dtype))
     for name, t, shape, dtype in checks:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != levels_lm.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {levels_lm.device}")
@@ -422,6 +523,36 @@ def consensus_bwd_dkv(
     return dlv, dmean
 
 
+def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend_self=False):
+    """The one-sweep backward: dlevels [L, B, n, d] in the levels dtype, as
+    `consensus_bwd_onesweep_plain`, from the raw cotangent g, the forward's
+    m, l and its saved attention output cons. On the card: the dq pass
+    with D from cons (one sweep of the key tiles), then the dkv pass,
+    one launch count."""
+    global LAUNCHES_BWD_ONESWEEP
+    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    if levels_lm.device.type == "cpu":
+        return consensus_bwd_onesweep_plain(levels_lm, g, m, l, cons, **kw)
+    if levels_lm.device.type != "cuda":
+        raise ValueError(f"no kernel for device {levels_lm.device}")
+    _check_bwd_args(levels_lm, g, m, l, side, radius, None, None, False, cons=cons)
+    lib = _bwd_lib()
+    L, B, n, d = levels_lm.shape
+    dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
+    dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
+    dcons = torch.empty_like(levels_lm)
+    dlv = torch.empty_like(levels_lm)
+    err = lib.consensus_update_bwd_onesweep(
+        levels_lm.data_ptr(), g.data_ptr(), cons.data_ptr(), m.data_ptr(), l.data_ptr(),
+        dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), dlv.data_ptr(), L, B, n, d, side,
+        float(radius), int(attend_self), int(levels_lm.dtype == torch.bfloat16),
+        torch.cuda.current_stream(levels_lm.device).cuda_stream,
+    )
+    _build.check(err, "consensus_update_bwd_onesweep", lib.consensus_update_bwd_error_string)
+    LAUNCHES_BWD_ONESWEEP += 1
+    return dlv
+
+
 def consensus_update_bwd(
     levels_lm, g, m, l, *, side, radius=0.0, attend_self=False, dx_bu=None, dx_td=None,
     combine=False,
@@ -449,24 +580,34 @@ def consensus_update_bwd(
 class _ConsensusUpdate(torch.autograd.Function):
     """The differentiable fused consensus update: glom_tpu's _fused
     (custom_vjp). The mean is linear, so d(bu) = dmean = g / div and d(td)
-    is its first L-1 levels; bu and td are not saved."""
+    is its first L-1 levels; bu and td are not saved. Where `use_onesweep`
+    holds, the forward also saves cons and the backward is the one-sweep
+    (which gives no dmean: g / div is formed here, rounded once, as
+    glom_tpu's _fused_bwd forms it); elsewhere the dq and dkv passes."""
 
     @staticmethod
     def forward(ctx, levels_lm, bu_lm, td_lm, side, radius, attend_self):
-        out, m, l = fused_consensus_update(
-            levels_lm, bu_lm, td_lm, side=side, radius=radius,
-            attend_self=attend_self, stats=True,
-        )
-        ctx.save_for_backward(levels_lm, m, l)
-        ctx.geometry = dict(side=side, radius=radius, attend_self=attend_self)
+        geometry = dict(side=side, radius=radius, attend_self=attend_self)
+        cons = None
+        if use_onesweep(levels_lm.shape, levels_lm.element_size()):
+            out, m, l, cons = fused_consensus_update(
+                levels_lm, bu_lm, td_lm, cons=True, **geometry)
+        else:
+            out, m, l = fused_consensus_update(levels_lm, bu_lm, td_lm, stats=True, **geometry)
+        ctx.save_for_backward(levels_lm, m, l, cons)
+        ctx.geometry = geometry
         return out
 
     @staticmethod
     def backward(ctx, g):
-        levels_lm, m, l = ctx.saved_tensors
-        dlv, dmean = consensus_update_bwd(
-            levels_lm, g.contiguous().to(levels_lm.dtype), m, l, **ctx.geometry
-        )
+        levels_lm, m, l, cons = ctx.saved_tensors
+        g = g.contiguous().to(levels_lm.dtype)
+        if cons is None:
+            dlv, dmean = consensus_update_bwd(levels_lm, g, m, l, **ctx.geometry)
+        else:
+            dlv = consensus_bwd_onesweep(levels_lm, g, m, l, cons, **ctx.geometry)
+            div = _divisor(levels_lm.shape[0], g.device)
+            dmean = (g.to(torch.float32) / div).to(levels_lm.dtype)
         return dlv, dmean, dmean[:-1], None, None, None
 
 

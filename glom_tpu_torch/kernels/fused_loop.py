@@ -1,6 +1,7 @@
 """K3: the hand-written VJP of the whole T-iteration GLOM loop.
 
-Counterpart of `glom_tpu/kernels/fused_loop.py` (its split-grid layout).
+Counterpart of `glom_tpu/kernels/fused_loop.py` on its combined td || bu
+grid (`GLOM_LOOP_GRID=combined`).
 Training at batch >= 8 takes this route (`models/core.py:resolve_vjp_path`).
 It removes the glue that per-iteration autograd leaves between the K1 and
 K2 kernels:
@@ -10,17 +11,28 @@ K2 kernels:
     top-down FFW slots 2..L and consensus slots 1..L as contiguous views:
     no concatenate in the forward and no split in the backward (each
     kernel gets the slot's pointer);
+  * each K1 phase of an iteration (forward, remat's pre-only, backward) is
+    one launch over the 2L-1 groups, the L-1 top-down ones first, with the
+    weights concatenated once per forward and once per backward
+    (`cat_params`, glom_tpu's `_ffw_fwd_cat`, `_pre_fwd_cat`,
+    `_ffw_bwd_cat`): the kernels' group rule reads the carry's slots and
+    dmean's levels in place, the top-down and bottom-up outputs (and dx,
+    the saved pre) are views of the one [2L-1] result that the K2 launches
+    read through their pointers, and d pos_emb sums the top-down groups
+    only. Each group's arithmetic is a split launch's, so the results are
+    the split grid's bit for bit (`chip_smoke.py`'s `k1_cat_vs_plain`);
   * the K1 backward runs in accumulate mode: it adds each iteration's
-    weight and bias gradients (and d pos_emb) into f32 totals in place,
-    rounded to the parameter dtype once, after the loop, where autograd
-    would sum the per-iteration gradients in the parameter dtype;
+    weight and bias gradients (and d pos_emb) into one [2L-1] set of f32
+    totals in place, split back into the top-down and bottom-up gradients
+    and rounded to the parameter dtype once, after the loop, where
+    autograd would sum the per-iteration gradients in the parameter dtype;
   * the K2 backward runs in combine mode: it reads the previous
-    iteration's dlevels and the two FFWs' input cotangents (slot-shifted)
-    and sums them in f32 before the divide, so no pad, slice or add of the
-    three streams reaches device memory; the top-down K1 backward then
-    reads dmean's first L-1 levels as a prefix view.
+    iteration's dlevels and the two FFWs' input cotangents (slot-shifted
+    views of dx) and sums them in f32 before the divide, so no pad, slice
+    or add of the three streams reaches device memory; the top-down
+    groups then read dmean's first L-1 levels.
 
-The forward saves, per iteration, the carry, both FFWs' pre-activations
+The forward saves, per iteration, the carry, the [2L-1] pre-activations
 and the consensus row statistics (m, l). With remat=True it saves only the
 carry and the statistics, and the backward recomputes the pre-activations
 with the pre-only K1 kernel, bit for bit the ones the forward would have
@@ -34,9 +46,12 @@ What the port's limits change against glom_tpu's (`loop_supported`):
     residuals) stays on the loop without a split, where glom_tpu splits it;
   * no VMEM working-set rules: the accumulating K1 backward keeps one f32
     tile per block, so the port always chains the accumulators (glom_tpu's
-    unchained fallback, `fused_loop.py:632`/`:659`, has no counterpart);
-  * the combined td || bu grid (`GLOM_LOOP_GRID=combined`) is not ported:
-    the split layout is glom_tpu's default, and no env var selects a route.
+    unchained fallback, `fused_loop.py:536`/`:632`/`:659`, has no
+    counterpart);
+  * one grid: glom_tpu's default is the split grid (a top-down and a
+    bottom-up launch per phase) and its env var selects the combined one;
+    the port always runs the combined grid, whose gradients are the split
+    grid's bit for bit, and reads no env var.
 
 On CPU tensors every launch runs its kernel's plain version, through the
 same autograd Function.
@@ -57,6 +72,7 @@ from glom_tpu_torch.kernels.consensus_update import (
 from glom_tpu_torch.kernels.grouped_mlp import (
     ROW_TILE,
     WIDTH_MULTIPLE,
+    cat_params,
     fused_grouped_ffw_lm,
     grouped_mlp_bwd,
     grouped_mlp_pre,
@@ -114,8 +130,7 @@ class _FusedGlomLoop(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos_emb, tokens, levels0, iters, geometry, remat, *weights):
-        bu_params = GroupedFFWParams(*weights[:4])
-        td_params = GroupedFFWParams(*weights[4:])
+        wcat = cat_params(GroupedFFWParams(*weights[4:]), GroupedFFWParams(*weights[:4]))
         L = levels0.shape[0]
         B, n, d = tokens.shape
         M = B * n
@@ -126,19 +141,17 @@ class _FusedGlomLoop(torch.autograd.Function):
         for _ in range(iters):
             ext2 = ext.view(L + 1, M, d)
             if remat:
-                bu = fused_grouped_ffw_lm(bu_params, ext2[:L])
-                td = fused_grouped_ffw_lm(td_params, ext2[2:], add=pos_emb)
+                out = fused_grouped_ffw_lm(wcat, ext2, add=pos_emb, cat=True)
             else:
-                bu, pre_bu = fused_grouped_ffw_lm(bu_params, ext2[:L], save_pre=True)
-                td, pre_td = fused_grouped_ffw_lm(td_params, ext2[2:], add=pos_emb, save_pre=True)
+                out, pre = fused_grouped_ffw_lm(wcat, ext2, add=pos_emb, save_pre=True, cat=True)
             # A fresh carry every iteration: the backward keeps this one.
             new = torch.empty_like(ext)
             _, m, l = fused_consensus_update(
-                ext[1:], bu.view(L, B, n, d), td.view(L - 1, B, n, d), out=new[1:],
-                stats=True, **geometry,
+                ext[1:], out[L - 1:].view(L, B, n, d), out[: L - 1].view(L - 1, B, n, d),
+                out=new[1:], stats=True, **geometry,
             )
             new[0] = tokens
-            saved += (ext, m, l) if remat else (ext, pre_bu, pre_td, m, l)
+            saved += (ext, m, l) if remat else (ext, pre, m, l)
             ext = new
         # Every residual goes through save_for_backward, so autograd's
         # version check guards it and saved-tensor hooks see it.
@@ -152,14 +165,15 @@ class _FusedGlomLoop(torch.autograd.Function):
         weights, flat = rest[:8], rest[8:]
         bu_params = GroupedFFWParams(*weights[:4])
         td_params = GroupedFFWParams(*weights[4:])
-        per_iter = 3 if ctx.remat else 5  # (ext, m, l) or (ext, pre_bu, pre_td, m, l)
+        per_iter = 3 if ctx.remat else 4  # (ext, m, l) or (ext, pre, m, l)
         saved = [flat[i : i + per_iter] for i in range(0, len(flat), per_iter)]
         geometry = ctx.geometry
         L, B, n, d = g.shape
         M = B * n
         f32 = torch.float32
         dtype = saved[0][0].dtype
-        acc_bu, acc_td = _zeros_f32(bu_params), _zeros_f32(td_params)
+        wcat = cat_params(td_params, bu_params)
+        acc = _zeros_f32(wcat)
         da = torch.zeros((n, d), dtype=f32, device=g.device)
         dtok = torch.zeros((B, n, d), dtype=f32, device=g.device)
         dlv = g.contiguous().to(dtype)
@@ -168,23 +182,18 @@ class _FusedGlomLoop(torch.autograd.Function):
             if ctx.remat:
                 ext, m, l = saved[t]
                 ext2 = ext.view(L + 1, M, d)
-                pre_bu = grouped_mlp_pre(bu_params, ext2[:L])
-                pre_td = grouped_mlp_pre(td_params, ext2[2:], add=pos_emb)
+                pre = grouped_mlp_pre(wcat, ext2, add=pos_emb, cat=True)
             else:
-                ext, pre_bu, pre_td, m, l = saved[t]
+                ext, pre, m, l = saved[t]
                 ext2 = ext.view(L + 1, M, d)
             dlv, dmean = consensus_update_bwd(
                 ext[1:], dlv, m, l, dx_bu=dx_bu, dx_td=dx_td, combine=True, **geometry
             )
-            dmean2 = dmean.view(L, M, d)
-            dx_td2, acc_td, da = grouped_mlp_bwd(
-                td_params, ext2[2:], dmean2[: L - 1], add=pos_emb, pre=pre_td, acc=acc_td,
-                da_in=da,
+            dx, acc, da = grouped_mlp_bwd(
+                wcat, ext2, dmean.view(L, M, d), add=pos_emb, pre=pre, acc=acc, da_in=da,
+                cat=True,
             )
-            dx_bu2, acc_bu, _ = grouped_mlp_bwd(
-                bu_params, ext2[:L], dmean2, pre=pre_bu, acc=acc_bu
-            )
-            dx_bu, dx_td = dx_bu2.view(L, B, n, d), dx_td2.view(L - 1, B, n, d)
+            dx_bu, dx_td = dx[L - 1:].view(L, B, n, d), dx[: L - 1].view(L - 1, B, n, d)
             dtok += dx_bu[0].to(f32)
 
         # d(levels0) gathers all three streams at the loop's entry, in f32
@@ -195,13 +204,11 @@ class _FusedGlomLoop(torch.autograd.Function):
         parts.append(dlv[L - 1 :].to(f32) + dx_td[L - 2 :])
         dlv0 = torch.cat(parts)
 
-        def cast(acc, params):
-            return [a.to(p.dtype) for a, p in zip(acc, params)]
-
-        return (
-            da.to(pos_emb.dtype), dtok.to(dtype), dlv0.to(dtype), None, None, None,
-            *cast(acc_bu, bu_params), *cast(acc_td, td_params),
-        )
+        # The f32 totals, top-down groups first, rounded to the parameters'
+        # dtype as the bottom-up then the top-down gradients.
+        grads = [a[L - 1:].to(p.dtype) for a, p in zip(acc, bu_params)]
+        grads += [a[: L - 1].to(p.dtype) for a, p in zip(acc, td_params)]
+        return (da.to(pos_emb.dtype), dtok.to(dtype), dlv0.to(dtype), None, None, None, *grads)
 
 
 def fused_glom_loop(

@@ -24,6 +24,16 @@ weight-gradient totals) the backward adds its gradients into them in place
 (glom_tpu's `fused_loop._ffw_bwd_acc_kernel`/`_ffw_bwd_acc_add_kernel`),
 and with an addend its da into `da_in`.
 
+With `cat=True` the three launches run over the whole-loop VJP's combined
+td || bu grid (glom_tpu's `fused_loop._ffw_fwd_cat`, `_pre_fwd_cat`,
+`_ffw_bwd_cat`): the weights hold 2L-1 groups, the L-1 top-down ones first
+(`cat_params`), x is the loop's [L+1, M, d] slot carry, read in place by
+the kernels' group rule (top-down group g reads slot g + 2 with the addend,
+bottom-up group g' reads slot g'), and the backward's cotangent is dmean
+[L, M, d] (top-down group g reads level g, bottom-up group g' level g').
+Each group's arithmetic is the split launches', so the results are theirs
+bit for bit; the plain versions are the two split calls on views.
+
 `fused_grouped_ffw_lm` and `grouped_mlp_bwd` run the plain PyTorch versions
 (`grouped_mlp_plain`, `grouped_mlp_bwd_plain`) for tensors on the CPU and
 launch the kernels for CUDA tensors (raising on anything they do not take).
@@ -33,6 +43,9 @@ forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_PRE` and
 `LAUNCHES_PRE_ADD` the pre-only launches; `LAUNCHES_BWD` and
 `LAUNCHES_BWD_ADD` backward launches, and `LAUNCHES_BWD_ACC` and
 `LAUNCHES_BWD_ACC_ADD` those in accumulate mode (counted there only).
+`LAUNCHES_CAT`, `LAUNCHES_PRE_CAT` and `LAUNCHES_BWD_ACC_CAT` count the
+combined-grid launches, which count in `LAUNCHES`, `LAUNCHES_PRE` and
+`LAUNCHES_BWD_ACC` too, but not in the `_ADD` counts.
 """
 
 from __future__ import annotations
@@ -54,6 +67,9 @@ LAUNCHES_BWD = 0
 LAUNCHES_BWD_ADD = 0
 LAUNCHES_BWD_ACC = 0
 LAUNCHES_BWD_ACC_ADD = 0
+LAUNCHES_CAT = 0
+LAUNCHES_PRE_CAT = 0
+LAUNCHES_BWD_ACC_CAT = 0
 
 ROW_TILE = 32  # rows of x per block (csrc/grouped_mlp.cu TM)
 WIDTH_MULTIPLE = 64  # d and f must be multiples of this
@@ -63,14 +79,17 @@ SAVE_PRE_LIMIT = 512 * 1024 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "grouped_mlp_fwd": ([_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "grouped_mlp_pre": ([_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_fwd": ([_P, _P, _I, *[_P] * 6, *[_I] * 7, _P], _I),
+    "grouped_mlp_pre": ([_P, _P, _I, _P, _P, _P, *[_I] * 7, _P], _I),
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, _I, _I, _I, _I, _I, _I, _P], _I),
+    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, *[_I] * 8, _P], _I),
     "grouped_mlp_bwd_error_string": ([_I], ctypes.c_char_p),
 }
+# The combined grid's top-down groups read carry slots 2..L (glom_tpu's
+# `_cat_x_spec`).
+CAT_TD_SLOT = 2
 
 
 def _lib() -> ctypes.CDLL:
@@ -115,15 +134,47 @@ def _with_addend(x: torch.Tensor, add: Optional[torch.Tensor]) -> torch.Tensor:
     return (x + add.repeat(x.shape[1] // add.shape[0], 1)[None]).to(x.dtype)
 
 
+def cat_params(td_params: GroupedFFWParams, bu_params: GroupedFFWParams) -> GroupedFFWParams:
+    """The combined grid's weights: each leaf's top-down groups, then its
+    bottom-up ones (glom_tpu's `_cat_params`)."""
+    return GroupedFFWParams(*(torch.cat([t, b]) for t, b in zip(td_params, bu_params)))
+
+
+def cat_split(params: GroupedFFWParams) -> int:
+    """The combined grid's top-down group count, L - 1 of its 2L - 1."""
+    G = params.w1.shape[0]
+    if G < 3 or G % 2 == 0:
+        raise ValueError(f"a combined grid has 2L-1 >= 3 groups, got {G}")
+    return (G - 1) // 2
+
+
+def _cat_views(params: GroupedFFWParams, x: torch.Tensor):
+    """The combined grid as its two split launches: (top-down params, their
+    slot view of the carry, bottom-up params, theirs)."""
+    split = cat_split(params)
+    td = GroupedFFWParams(*(t[:split] for t in params))
+    bu = GroupedFFWParams(*(t[split:] for t in params))
+    return td, x[CAT_TD_SLOT:CAT_TD_SLOT + split], bu, x[:split + 1]
+
+
 def grouped_mlp_plain(
     params: GroupedFFWParams,
     x: torch.Tensor,
     add: Optional[torch.Tensor] = None,
     *,
     save_pre: bool = False,
+    cat: bool = False,
 ):
     """The kernel's function in plain PyTorch, with its rounding points.
-    save_pre=True also returns the pre-activation [G, M, f] in x's dtype."""
+    save_pre=True also returns the pre-activation [G, M, f] in x's dtype.
+    cat=True: the combined grid, as its two split calls."""
+    if cat:
+        td, x_td, bu, x_bu = _cat_views(params, x)
+        parts = (grouped_mlp_plain(td, x_td, add, save_pre=save_pre),
+                 grouped_mlp_plain(bu, x_bu, save_pre=save_pre))
+        if save_pre:
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return torch.cat(parts)
     w1, b1, w2, b2 = params
     f32 = torch.float32
     x = _with_addend(x, add)
@@ -136,10 +187,14 @@ def grouped_mlp_plain(
 
 
 def grouped_mlp_pre_plain(
-    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor] = None
+    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor] = None,
+    *, cat: bool = False,
 ) -> torch.Tensor:
     """The pre-only kernel's function: pre = (x + tile(add)) @ w1 + b1,
     summed in f32 and rounded to x's dtype, as `grouped_mlp_plain` saves it."""
+    if cat:
+        td, x_td, bu, x_bu = _cat_views(params, x)
+        return torch.cat([grouped_mlp_pre_plain(td, x_td, add), grouped_mlp_pre_plain(bu, x_bu)])
     f32 = torch.float32
     xa = _with_addend(x, add)
     pre = torch.bmm(xa.to(f32), params.w1.to(f32)) + params.b1.to(f32)[:, None, :]
@@ -154,6 +209,8 @@ def grouped_mlp_bwd_plain(
     pre: Optional[torch.Tensor] = None,
     acc: Optional[GroupedFFWParams] = None,
     da_in: Optional[torch.Tensor] = None,
+    *,
+    cat: bool = False,
 ):
     """The backward kernel's function in plain PyTorch, with its rounding
     points (glom_tpu's _mlp_bwd_tail): h and dpre rounded to x's dtype,
@@ -163,7 +220,18 @@ def grouped_mlp_bwd_plain(
 
     Accumulate mode (`acc`, f32 totals shaped like the params; with an
     addend also `da_in`, f32 [n, d]): this call's f32 gradients are added
-    to them in place, as the kernel does, and grads = acc, da = da_in."""
+    to them in place, as the kernel does, and grads = acc, da = da_in.
+    cat=True (accumulate mode only): the combined grid as its two split
+    calls, each adding into its part of `acc`."""
+    if cat:
+        td, x_td, bu, x_bu = _cat_views(params, x)
+        split = cat_split(params)
+        pre_td, pre_bu = (None, None) if pre is None else (pre[:split], pre[split:])
+        dx_td, _, da = grouped_mlp_bwd_plain(
+            td, x_td, g[:split], add, pre_td, GroupedFFWParams(*(t[:split] for t in acc)), da_in)
+        dx_bu, _, _ = grouped_mlp_bwd_plain(
+            bu, x_bu, g[:split + 1], None, pre_bu, GroupedFFWParams(*(t[split:] for t in acc)))
+        return torch.cat([dx_td, dx_bu]), acc, da
     w1, b1, w2, b2 = params
     f32 = torch.float32
     G, M, d = x.shape
@@ -197,13 +265,20 @@ def grouped_mlp_bwd_plain(
 
 
 def check_kernel_args(
-    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor]
+    params: GroupedFFWParams, x: torch.Tensor, add: Optional[torch.Tensor], cat: bool = False
 ) -> None:
     """Raise ValueError for anything the CUDA kernel does not take."""
     w1, b1, w2, b2 = params
     if x.dim() != 3:
         raise ValueError(f"x must be [G, M, d], got {tuple(x.shape)}")
     G, M, d = x.shape
+    if cat:
+        G = w1.shape[0]
+        if x.shape[0] != cat_split(params) + 2:
+            raise ValueError(f"the combined grid reads an [L+1, M, d] carry: x {tuple(x.shape)} "
+                             f"for {G} groups")
+        if add is None:
+            raise ValueError("the combined grid's top-down groups take the addend")
     f = w1.shape[-1]
     want = {"w1": (G, d, f), "b1": (G, f), "w2": (G, f, d), "b2": (G, d)}
     got = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
@@ -238,38 +313,53 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _group_rule(params: GroupedFFWParams, add: Optional[torch.Tensor], cat: bool):
+    """(split, x_lo) for the kernels' group rule: the combined grid, or a
+    plain launch (every group takes the addend, or none does)."""
+    if cat:
+        return cat_split(params), CAT_TD_SLOT
+    return (params.w1.shape[0] if add is not None else 0), 0
+
+
 def fused_grouped_ffw_lm(
     params: GroupedFFWParams,
     x: torch.Tensor,
     *,
     add: Optional[torch.Tensor] = None,
     save_pre: bool = False,
+    cat: bool = False,
 ):
     """x [G, M, d] -> [G, M, d]; add: optional [n, d] positional addend with
     M = b * n (n inner), added to row r as add[r mod n] on load.
-    save_pre=True returns (out, pre) with the [G, M, f] pre-activation."""
-    global LAUNCHES, LAUNCHES_ADD
+    save_pre=True returns (out, pre) with the [G, M, f] pre-activation.
+    cat=True: the combined grid (see the module note) over the [L+1, M, d]
+    carry x, returning [2L-1, M, d] (and pre [2L-1, M, f])."""
+    global LAUNCHES, LAUNCHES_ADD, LAUNCHES_CAT
     refuse_grad(x, add, *params)
     if x.device.type == "cpu":
-        return grouped_mlp_plain(params, x, add, save_pre=save_pre)
+        return grouped_mlp_plain(params, x, add, save_pre=save_pre, cat=cat)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    check_kernel_args(params, x, add)
+    check_kernel_args(params, x, add, cat)
     lib = _lib()
-    G, M, d = x.shape
-    f = params.w1.shape[-1]
+    M, d = x.shape[1:]
+    G, f = params.w1.shape[0], params.w1.shape[-1]
+    split, x_lo = _group_rule(params, add, cat)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    out = torch.empty_like(x)
+    out = x.new_empty((G, M, d))
     pre = x.new_empty((G, M, f)) if save_pre else None
     w1, b1, w2, b2 = params
     err = lib.grouped_mlp_fwd(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        _ptr(pre), G, M, d, f, is_bf16, torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(pre), G, M, d, f, split, x_lo, is_bf16,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_fwd", lib.grouped_mlp_error_string)
     LAUNCHES += 1
-    if add is not None:
+    if cat:
+        LAUNCHES_CAT += 1
+    elif add is not None:
         LAUNCHES_ADD += 1
     return (out, pre) if save_pre else out
 
@@ -286,29 +376,34 @@ def fused_grouped_ffw(params: GroupedFFWParams, x: torch.Tensor) -> torch.Tensor
 
 
 def grouped_mlp_pre(
-    params: GroupedFFWParams, x: torch.Tensor, *, add: Optional[torch.Tensor] = None
+    params: GroupedFFWParams, x: torch.Tensor, *, add: Optional[torch.Tensor] = None,
+    cat: bool = False,
 ) -> torch.Tensor:
     """The pre-activation [G, M, f] alone, bit for bit the one
-    `fused_grouped_ffw_lm(..., save_pre=True)` returns for the same inputs."""
-    global LAUNCHES_PRE, LAUNCHES_PRE_ADD
+    `fused_grouped_ffw_lm(..., save_pre=True)` returns for the same inputs
+    (cat=True: over the combined grid)."""
+    global LAUNCHES_PRE, LAUNCHES_PRE_ADD, LAUNCHES_PRE_CAT
     refuse_grad(x, add, *params)
     if x.device.type == "cpu":
-        return grouped_mlp_pre_plain(params, x, add)
+        return grouped_mlp_pre_plain(params, x, add, cat=cat)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    check_kernel_args(params, x, add)
+    check_kernel_args(params, x, add, cat)
     lib = _lib()
-    G, M, d = x.shape
-    f = params.w1.shape[-1]
+    M, d = x.shape[1:]
+    G, f = params.w1.shape[0], params.w1.shape[-1]
+    split, x_lo = _group_rule(params, add, cat)
     pre = x.new_empty((G, M, f))
     err = lib.grouped_mlp_pre(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
-        params.w1.data_ptr(), params.b1.data_ptr(), pre.data_ptr(), G, M, d, f,
+        params.w1.data_ptr(), params.b1.data_ptr(), pre.data_ptr(), G, M, d, f, split, x_lo,
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_pre", lib.grouped_mlp_error_string)
     LAUNCHES_PRE += 1
-    if add is not None:
+    if cat:
+        LAUNCHES_PRE_CAT += 1
+    elif add is not None:
         LAUNCHES_PRE_ADD += 1
     return pre
 
@@ -338,6 +433,7 @@ def grouped_mlp_bwd(
     pre: Optional[torch.Tensor] = None,
     acc: Optional[GroupedFFWParams] = None,
     da_in: Optional[torch.Tensor] = None,
+    cat: bool = False,
 ):
     """The VJP of `fused_grouped_ffw_lm` at (params, x, add) for the output
     cotangent g [G, M, d]: (dx, grads, da), as `grouped_mlp_bwd_plain`.
@@ -345,16 +441,23 @@ def grouped_mlp_bwd(
     With `acc` (and `da_in` for an addend) the f32 totals are updated in
     place and returned as grads and da. x and g may be views into larger
     buffers (a carry slot, a prefix of levels) as long as each is
-    contiguous: the kernel reads them through their pointers."""
+    contiguous: the kernel reads them through their pointers. cat=True
+    (accumulate mode only): the combined grid over the [L+1, M, d] carry x
+    and dmean g [L, M, d]; dx is [2L-1, M, d], top-down groups first."""
     global LAUNCHES_BWD, LAUNCHES_BWD_ADD, LAUNCHES_BWD_ACC, LAUNCHES_BWD_ACC_ADD
+    global LAUNCHES_BWD_ACC_CAT
+    if cat and acc is None:
+        raise ValueError("the combined grid's backward runs in accumulate mode: pass acc")
     if x.device.type == "cpu":
-        return grouped_mlp_bwd_plain(params, x, g, add, pre, acc, da_in)
+        return grouped_mlp_bwd_plain(params, x, g, add, pre, acc, da_in, cat=cat)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    check_kernel_args(params, x, add)
-    G, M, d = x.shape
-    f = params.w1.shape[-1]
-    for name, t, shape in (("g", g, (G, M, d)), ("pre", pre, (G, M, f))):
+    check_kernel_args(params, x, add, cat)
+    M, d = x.shape[1:]
+    G, f = params.w1.shape[0], params.w1.shape[-1]
+    split, x_lo = _group_rule(params, add, cat)
+    g_groups = split + 1 if cat else G  # dmean's L levels, or one a group
+    for name, t, shape in (("g", g, (g_groups, M, d)), ("pre", pre, (G, M, f))):
         if t is None:
             continue
         if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
@@ -367,7 +470,7 @@ def grouped_mlp_bwd(
         raise ValueError("da_in needs acc (accumulate mode)")
     lib = _bwd_lib()
     w1, b1, w2, b2 = params
-    dx = torch.empty_like(x)
+    dx = x.new_empty((G, M, d))
     grads = acc if acc is not None else GroupedFFWParams(*(torch.empty_like(t) for t in params))
     # h is formed from a saved pre in the weight pass; without one, the row
     # pass writes it here.
@@ -376,17 +479,20 @@ def grouped_mlp_bwd(
     da = dx32 = None
     if add is not None:
         da = da_in if acc is not None else torch.empty_like(add)
-        dx32 = x.new_empty((G, M, d), dtype=torch.float32)
+        dx32 = x.new_empty((split, M, d), dtype=torch.float32)  # the addend's groups
     err = lib.grouped_mlp_bwd(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(pre), g.data_ptr(),
         dx.data_ptr(), *(t.data_ptr() for t in grads), _ptr(da),
         _ptr(h_ws), dpre_ws.data_ptr(), _ptr(dx32),
-        G, M, d, f, int(acc is not None), int(x.dtype == torch.bfloat16),
+        G, M, d, f, split, x_lo, int(acc is not None), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_bwd", lib.grouped_mlp_bwd_error_string)
-    if acc is not None:
+    if cat:
+        LAUNCHES_BWD_ACC += 1
+        LAUNCHES_BWD_ACC_CAT += 1
+    elif acc is not None:
         LAUNCHES_BWD_ACC += 1
         LAUNCHES_BWD_ACC_ADD += int(add is not None)
     else:

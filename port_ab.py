@@ -23,7 +23,8 @@ drift of the card between runs. Per tree it prints one JSON line:
   * where the tree has the trainer, the flagship's bf16 training step at
     batch 8 (`make_train_step` without the grad norm, the route the tree
     resolves, named in `train_vjp_path`): p50 and min over N steps after
-    two warm-up steps (host clock ending in a synchronize).
+    two warm-up steps (host clock ending in a synchronize), and the same
+    with remat (`train_b8_remat_*`).
 
 Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
 warm). The last line gives, per tree, the median of its runs. Inputs and
@@ -123,24 +124,27 @@ def child(tree: str, dispatches: int) -> dict:
         from glom_tpu_torch import TrainConfig
         from glom_tpu_torch.train import create_train_state, init_denoise, make_train_step
 
-        tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
-        step = make_train_step(cfg, tcfg, with_grad_norm=False, device="cuda")
-        state, _ = create_train_state(
-            cfg, tcfg, params=init_denoise(cfg, generator=torch.Generator().manual_seed(0)),
-            device="cuda")
-        noise_gen = torch.Generator(device=dev).manual_seed(0)
-        imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
-        steps = []
-        for i in range(dispatches + 2):  # the first two warm up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = step(state, imgs, noise_gen)
-            torch.cuda.synchronize()
-            if i >= 2:
-                steps.append(1e3 * (time.perf_counter() - t0))
-        steps.sort()
-        out.update(train_b8_p50_ms=steps[len(steps) // 2], train_b8_min_ms=steps[0],
-                   train_vjp_path=step.vjp_path, train_steps=len(steps))
+        for tag, remat in (("", False), ("_remat", True)):
+            tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
+                               remat=remat)
+            step = make_train_step(cfg, tcfg, with_grad_norm=False, device="cuda")
+            state, _ = create_train_state(
+                cfg, tcfg, params=init_denoise(cfg, generator=torch.Generator().manual_seed(0)),
+                device="cuda")
+            noise_gen = torch.Generator(device=dev).manual_seed(0)
+            imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
+            steps = []
+            for i in range(dispatches + 2):  # the first two warm up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, imgs, noise_gen)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    steps.append(1e3 * (time.perf_counter() - t0))
+            steps.sort()
+            out.update({f"train_b8{tag}_p50_ms": steps[len(steps) // 2],
+                        f"train_b8{tag}_min_ms": steps[0]})
+        out.update(train_vjp_path=step.vjp_path, train_steps=len(steps))
     return out
 
 

@@ -194,7 +194,8 @@ class TestLoopAgainstGlomTpu:
         with torch.autograd.graph.saved_tensors_hooks(lambda t: packed.append(t) or t,
                                                       lambda t: t):
             out = loop()
-        assert len(packed) == 1 + 8 + 2 * (3 if remat else 5)  # pos, weights, 2 iterations
+        # pos, weights, 2 iterations of (carry, [2L-1] pre unless remat, m, l)
+        assert len(packed) == 1 + 8 + 2 * (3 if remat else 4)
         g0 = torch.autograd.grad(out.sum(), leaves, retain_graph=True)
         g1 = torch.autograd.grad(out.sum(), leaves)
         assert all(torch.equal(a, b) for a, b in zip(g0, g1))

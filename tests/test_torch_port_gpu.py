@@ -321,23 +321,149 @@ def test_fused_loop_trains_on_card(dev):
         loss = denoise_loss(unflatten_params(params, leaves), img, noise, cfg, **kw)
         return loss, torch.autograd.grad(loss, leaves)
 
-    before = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD,
-              k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV)
+    names = ("LAUNCHES_BWD", "LAUNCHES_BWD_ACC", "LAUNCHES_BWD_ACC_CAT", "LAUNCHES_BWD_ACC_ADD")
+
+    def counts():
+        return ([getattr(k1, nm) for nm in names]
+                + [k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV])
+
+    before = counts()
     loss, got = grads(use_pallas=True)
-    after = (k1.LAUNCHES_BWD, k1.LAUNCHES_BWD_ACC, k1.LAUNCHES_BWD_ACC_ADD,
-             k2.LAUNCHES_BWD_COMBINE_DQ, k2.LAUNCHES_BWD_COMBINE_DKV)
-    assert tuple(a - b for a, b in zip(after, before)) == (0, 2 * k, k, k, k)
+    # one accumulating K1 backward an iteration, over the combined grid
+    assert [a - b for a, b in zip(counts(), before)] == [0, k, k, 0, k, k]
     want_loss, want = grads(use_pallas=False)
     torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
     for g, w in zip(got, want):
         assert float(g.abs().max()) > 0
         _rel_close(g, w, 1e-4)
     kw = dict(use_pallas=True, compute_dtype=torch.bfloat16)
-    before = k1.LAUNCHES_PRE
+    before = (k1.LAUNCHES_PRE, k1.LAUNCHES_PRE_CAT)
     _, g_remat = grads(remat=True, **kw)
-    assert k1.LAUNCHES_PRE - before == 2 * k
+    assert (k1.LAUNCHES_PRE - before[0], k1.LAUNCHES_PRE_CAT - before[1]) == (k, k)
     _, g_keep = grads(**kw)
     assert all(torch.equal(a, b) for a, b in zip(g_remat, g_keep))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_loop_cat_grid_on_card(dev, dtype):
+    """The loop runs one combined-grid K1 launch a phase (forward, remat's
+    pre-only, backward) and no split one; remat gives the kept pre's
+    output and gradients bit for bit."""
+    from glom_tpu_torch.kernels.fused_loop import fused_glom_loop
+
+    rng = np.random.default_rng(12)
+    L, B, n, d, f, iters = 4, 2, 64, 128, 512, 3
+    leaves = [*_ffw_params(rng, L, d, f, dev, dtype), *_ffw_params(rng, L - 1, d, f, dev, dtype),
+              _rand(rng, n, d).to(dev, dtype), _rand(rng, B, n, d).to(dev, dtype),
+              _rand(rng, L, B, n, d).to(dev, dtype)]
+    leaves = [t.requires_grad_() for t in leaves]
+    gout = _rand(rng, L, B, n, d).to(dev, dtype)
+    names = ("LAUNCHES", "LAUNCHES_CAT", "LAUNCHES_PRE", "LAUNCHES_PRE_CAT", "LAUNCHES_BWD_ACC",
+             "LAUNCHES_BWD_ACC_CAT")
+
+    def run(remat):
+        before = [getattr(k1, nm) for nm in names]
+        out = fused_glom_loop(GroupedFFWParams(*leaves[:4]), GroupedFFWParams(*leaves[4:8]),
+                              *leaves[8:], iters, 8, 0.0, False, remat)
+        res = out.detach(), torch.autograd.grad(out, leaves, grad_outputs=gout)
+        return res, [getattr(k1, nm) - b for nm, b in zip(names, before)]
+
+    keep, c_keep = run(False)
+    remat, c_remat = run(True)
+    assert c_keep == [iters, iters, 0, 0, iters, iters]
+    assert c_remat == [iters] * 6
+    assert torch.equal(keep[0], remat[0])
+    assert all(torch.equal(a, b) for a, b in zip(keep[1], remat[1]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cat_grid_kernels_equal_split(dev, dtype):
+    """Each combined-grid K1 launch (forward with and without the saved
+    pre, pre-only, accumulating backward) against the two split launches
+    on the same carry, bit for bit."""
+    rng = np.random.default_rng(13)
+    L, M, d, f, n = 4, 256, 128, 512, 64
+    bu, td = _ffw_params(rng, L, d, f, dev, dtype), _ffw_params(rng, L - 1, d, f, dev, dtype)
+    wcat = k1.cat_params(td, bu)
+    carry = _rand(rng, L + 1, M, d).to(dev, dtype)
+    add = _rand(rng, n, d).to(dev, dtype)
+    out, pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)
+    out_td, pre_td = k1.fused_grouped_ffw_lm(td, carry[2:], add=add, save_pre=True)
+    out_bu, pre_bu = k1.fused_grouped_ffw_lm(bu, carry[:L], save_pre=True)
+    assert torch.equal(out, torch.cat([out_td, out_bu]))
+    assert torch.equal(pre, torch.cat([pre_td, pre_bu]))
+    assert torch.equal(k1.fused_grouped_ffw_lm(wcat, carry, add=add, cat=True), out)
+    assert torch.equal(k1.grouped_mlp_pre(wcat, carry, add=add, cat=True), pre)
+    dmean = _rand(rng, L, M, d).to(dev, dtype)
+    acc = GroupedFFWParams(*(_rand(rng, *t.shape).to(dev) for t in wcat))
+    da_in = _rand(rng, n, d).to(dev)
+    acc_td = GroupedFFWParams(*(t[: L - 1].clone() for t in acc))
+    acc_bu = GroupedFFWParams(*(t[L - 1:].clone() for t in acc))
+    da_split = da_in.clone()
+    dx, grads, da = k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre, acc=acc,
+                                       da_in=da_in, cat=True)
+    dx_td, _, _ = k1.grouped_mlp_bwd(td, carry[2:], dmean[: L - 1], add=add, pre=pre_td,
+                                     acc=acc_td, da_in=da_split)
+    dx_bu, _, _ = k1.grouped_mlp_bwd(bu, carry[:L], dmean, pre=pre_bu, acc=acc_bu)
+    assert torch.equal(dx, torch.cat([dx_td, dx_bu]))
+    assert all(torch.equal(a, torch.cat([t, b])) for a, t, b in zip(grads, acc_td, acc_bu))
+    assert torch.equal(da, da_split)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("radius", [0.0, 3.0])
+def test_consensus_cons_output(dev, dtype, radius):
+    """The forward's cons store: cons against the plain version, and out,
+    m, l unchanged by it, bit for bit."""
+    rng = np.random.default_rng(14)
+    L, B, side, d = 2, 1, 24, 128
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, L, B, side * side, d, dtype))
+    kw = dict(side=side, radius=radius, attend_self=False)
+    before = (k2.LAUNCHES, k2.LAUNCHES_CONS)
+    out, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+    assert (k2.LAUNCHES, k2.LAUNCHES_CONS) == (before[0] + 1, before[1] + 1)
+    for a, b in zip((out, m, l), k2.fused_consensus_update(lv, bu, td, stats=True, **kw)):
+        assert torch.equal(a, b)
+    _close(cons, k2.consensus_update_plain(lv, bu, td, cons=True, **kw)[3], K2_BARS[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("radius", [0.0, 3.0])
+@pytest.mark.parametrize("attend_self", [False, True])
+def test_consensus_onesweep_kernel(dev, dtype, radius, attend_self):
+    """The one-sweep backward at n = 576 against its plain version, and the
+    same bits on a second run (no atomics)."""
+    rng = np.random.default_rng(15)
+    L, B, side, d = 2, 2, 24, 128
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, L, B, side * side, d, dtype))
+    g = _rand(rng, L, B, side * side, d).to(dev, dtype)
+    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+    before = (k2.LAUNCHES_BWD_ONESWEEP, k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV)
+    got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+    again = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+    assert (k2.LAUNCHES_BWD_ONESWEEP, k2.LAUNCHES_BWD_DQ, k2.LAUNCHES_BWD_DKV) == (
+        before[0] + 2, before[1], before[2])
+    assert torch.equal(got, again)
+    _rel_close(got, k2.consensus_bwd_onesweep_plain(lv, g, m, l, cons, **kw),
+               K2_BWD_BARS[dtype], "dlevels")
+
+
+def test_consensus_vjp_long_row_on_card(dev):
+    """At n = 576 the differentiable update saves cons and runs the
+    one-sweep: f32 gradients against autograd through the plain version."""
+    rng = np.random.default_rng(16)
+    L, B, side, d = 3, 1, 24, 128
+    ins = [t.to(dev).requires_grad_() for t in _consensus_inputs(
+        rng, L, B, side * side, d, torch.float32)]
+    w = _rand(rng, L, B, side * side, d).to(dev)
+    before = (k2.LAUNCHES_BWD_ONESWEEP, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_CONS)
+    got = torch.autograd.grad((k2.consensus_update_vjp(*ins, side=side) * w).sum(), ins)
+    assert (k2.LAUNCHES_BWD_ONESWEEP, k2.LAUNCHES_BWD_DKV, k2.LAUNCHES_CONS) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want = torch.autograd.grad((k2.consensus_update_plain(*ins, side=side) * w).sum(), ins)
+    for name, a, b in zip(("levels", "bu", "td"), got, want):
+        _rel_close(a, b, 1e-4, name)
 
 
 def test_trainer_on_card_batch8_takes_the_loop(dev):
