@@ -10,9 +10,13 @@ pre-only K1 forward, the accumulating K1 backward, the K2 backward's
 three-stream combine), the banded ragged consensus (K4), the K2 forward's
 saved attention output and the one-sweep K2 backward at the long-row shape
 [6, 2, 4096, 512] (twice, bit for bit), and the combined td || bu K1 grid
-(bit for bit the two split launches) -- against its plain PyTorch version,
-times both (and, where one PyTorch call computes the same function, that
-call), then drives the port's main paths on the flagship
+(bit for bit the two split launches) -- against its plain PyTorch version
+(the bf16 K1 forward, a TMA + wgmma GEMM, also at edge shapes of its
+128-row, 128-column tiles), times both (and, where one PyTorch call
+computes the same function, that call: scaled_dot_product_attention for
+K2's attention and K4, torch.baddbmm for the pre-only K1; for K1's forward
+the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`), then
+drives the port's main paths on the flagship
 model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
 seed), each with every launch count set to 0 just before it and read just
 after:
@@ -207,12 +211,37 @@ def main() -> int:
 
     ffw = {"bottom_up": ffw_params(L), "top_down": ffw_params(L - 1)}
     pos = torch.randn(n, d, generator=gen)
+    # Edge shapes of the bf16 GEMM (128-row, 128-column tiles): M not a
+    # multiple of the row tile, d = 64 and f = 192 not of the column tile, an
+    # addend of n = 64 rows that wraps twice inside a row tile. (which, G,
+    # M, d, f, n); n = 0: no addend.
+    k1_edge = (("edge_bottom_up", 3, 2080, 64, 192, 0), ("edge_top_down", 2, 2112, 64, 192, 64))
+    # Their inputs come from a generator of their own, so every later
+    # phase draws what it drew before they were added.
+    gen_e = torch.Generator().manual_seed(SEED + 1)
+    edge_inputs = {}
+    for which, G_e, M_e, d_e, f_e, n_e in k1_edge:
+        edge_params = GroupedFFWParams(
+            torch.randn(G_e, d_e, f_e, generator=gen_e) * d_e ** -0.5,
+            torch.randn(G_e, f_e, generator=gen_e) * 0.1,
+            torch.randn(G_e, f_e, d_e, generator=gen_e) * f_e ** -0.5,
+            torch.randn(G_e, d_e, generator=gen_e) * 0.1)
+        edge_inputs[which] = (edge_params, torch.randn(G_e, M_e, d_e, generator=gen_e),
+                              torch.randn(n_e, d_e, generator=gen_e) if n_e else None)
+
+    def edge_cases(dtype):
+        """(which, params, x, add) at the edge shapes."""
+        return [(which, GroupedFFWParams(*(t.to(dev, dtype) for t in p_e)), x_e.to(dev, dtype),
+                 None if a_e is None else a_e.to(dev, dtype))
+                for which, (p_e, x_e, a_e) in edge_inputs.items()]
+
     k1_err = {}
     for dtype in (bf16, f32):
-        for which, G in (("bottom_up", L), ("top_down", L - 1)):
-            params = type(ffw[which])(*(t.to(dev, dtype) for t in ffw[which]))
-            x = randn(G, M8, d, dtype=dtype)
-            add = pos.to(dev, dtype) if which == "top_down" else None
+        flagship = [(which, GroupedFFWParams(*(t.to(dev, dtype) for t in ffw[which])),
+                     randn(G, M8, d, dtype=dtype),
+                     pos.to(dev, dtype) if which == "top_down" else None)
+                    for which, G in (("bottom_up", L), ("top_down", L - 1))]
+        for which, params, x, add in flagship + edge_cases(dtype):
             got = k1.fused_grouped_ffw_lm(params, x, add=add)
             torch.cuda.synchronize()
             want = k1.grouped_mlp_plain(params, x, add)
@@ -220,7 +249,8 @@ def main() -> int:
             ok, abs_err, rel_err, ratio = compare(got, want, rtol, atol)
             if dtype == bf16:
                 k1_err[which] = abs_err
-            emit("k1_vs_plain", which=which, shape=[G, M8, d], dtype=str(dtype),
+            emit("k1_vs_plain", which=which, shape=list(x.shape), f=params.w1.shape[-1],
+                 addend_rows=None if add is None else add.shape[0], dtype=str(dtype),
                  max_abs_err=abs_err, max_rel_err=rel_err, rtol=rtol, atol=atol,
                  bar_ratio=ratio, ok=ok)
             if not ok:
@@ -409,12 +439,14 @@ def main() -> int:
     # -- the whole-loop VJP's kernels vs plain --------------------------------------
     # The pre-only K1 launch, read through slot views of an [L+1] carry as the
     # loop reads it: bottom-up slots 0..L-1, top-down slots 2..L with the
-    # addend. It must equal the pre the K1 forward saves, bit for bit.
+    # addend; and at the edge shapes. It must equal the pre the K1 forward
+    # saves, bit for bit.
     for dtype in (bf16, f32):
         carry = randn(L + 1, M8, d, dtype=dtype)
-        for which, G, x in (("bottom_up", L, carry[:L]), ("top_down", L - 1, carry[2:])):
-            params = GroupedFFWParams(*(t.to(dev, dtype) for t in ffw[which]))
-            add = pos.to(dev, dtype) if which == "top_down" else None
+        cases = [(which, GroupedFFWParams(*(t.to(dev, dtype) for t in ffw[which])), x, add)
+                 for which, x, add in (("bottom_up", carry[:L], None),
+                                       ("top_down", carry[2:], pos.to(dev, dtype)))]
+        for which, params, x, add in cases + edge_cases(dtype):
             got = k1.grouped_mlp_pre(params, x, add=add)
             saved = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
             torch.cuda.synchronize()
@@ -422,7 +454,7 @@ def main() -> int:
             ok, abs_err, rel_err, ratio = compare(got, k1.grouped_mlp_pre_plain(params, x, add),
                                                   rtol, atol)
             equal = bool(torch.equal(got, saved))
-            emit("k1_pre_vs_plain", which=which, shape=[G, M8, d], dtype=str(dtype),
+            emit("k1_pre_vs_plain", which=which, shape=list(x.shape), dtype=str(dtype),
                  max_abs_err=abs_err, max_rel_err=rel_err, rtol=rtol, atol=atol,
                  bar_ratio=ratio, equals_saved_pre=equal, ok=ok and equal)
             if not (ok and equal):
@@ -674,16 +706,29 @@ def main() -> int:
     timings = {}
 
     def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None,
-                      peak=PEAK_BF16, **extra):
+                      peak=PEAK_BF16, library_seq_ms=None, **extra):
         """Keep and print one bf16 kernel's times beside its bound (its
-        operations at `peak`: the bf16 tensor rate, or f32 for K4)."""
+        operations at `peak`: the bf16 tensor rate, or f32 for K4).
+        library_seq_ms: a short sequence of PyTorch calls for the same
+        function, where no one call computes it."""
         b_ms, b_by = bound(ops, nbytes, peak)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=library_ms)
+        if library_seq_ms is not None:
+            timings[label]["library_seq_ms"] = library_seq_ms
         emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms,
-             library_ms=library_ms, **extra)
+             library_ms=library_ms, library_seq_ms=library_seq_ms, **extra)
 
+    def k1_library_seq(params, x):
+        """The K1 forward as three PyTorch calls on its input (the addend
+        already added): baddbmm, gelu(approximate="tanh"), baddbmm."""
+        h = torch.nn.functional.gelu(torch.baddbmm(params.b1[:, None], x, params.w1),
+                                     approximate="tanh")
+        return torch.baddbmm(params.b2[:, None], h, params.w2)
+
+    k1_seq_call = ("torch.baddbmm, gelu(approximate='tanh'), torch.baddbmm (three calls; "
+                   "with the addend, x + tile(add) first)")
     for label, which, G, M in (
         ("k1_bottom_up_b8", "bottom_up", L, M8),
         ("k1_top_down_b8", "top_down", L - 1, M8),
@@ -694,8 +739,45 @@ def main() -> int:
         add = pos.to(dev, bf16) if which == "top_down" else None
         ms = time_ms(lambda: k1.fused_grouped_ffw_lm(params, x, add=add))
         plain_ms = time_ms(lambda: k1.grouped_mlp_plain(params, x, add))
+        if add is None:
+            seq_ms = time_ms(lambda: k1_library_seq(params, x))
+        else:
+            seq_ms = time_ms(lambda: k1_library_seq(params, (x.view(G, -1, n, d) + add)
+                                                    .view(G, M, d)))
+        # The host's cost of one call (checks, scratch, tensor maps, launches):
+        # calls enqueued back to back, far fewer than the launch queue holds.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            k1.fused_grouped_ffw_lm(params, x, add=add)
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
         nbytes = 2 * (2 * G * M * d + 2 * G * d * f + G * (f + d) + (n * d if add is not None else 0))
-        record_timing(label, [G, M, d], ms, plain_ms, 4 * G * M * d * f, nbytes)
+        record_timing(label, [G, M, d], ms, plain_ms, 4 * G * M * d * f, nbytes,
+                      library_seq_ms=seq_ms, library_seq_call=k1_seq_call,
+                      host_us_per_call=host_us)
+
+    # The library's one call for K2's attention alone, forward or backward:
+    # scaled_dot_product_attention (q = levels, k = the l2-normalised levels,
+    # v = levels, scale d^-1/2, bf16, attend_self=True). It leaves out the
+    # self-score replacement, the mean update with bu and td (forward) and
+    # the l2 norm's VJP and the mean's streams (backward).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k2_lib_call = ("torch.nn.functional.scaled_dot_product_attention (q = levels, normalised "
+                   "k, v = levels, bf16, attend_self=True): no self-score replacement, no mean "
+                   "update")
+    k2_lib_bwd_call = ("torch.nn.functional.scaled_dot_product_attention backward (dq, dk, dv "
+                       "on q = levels, normalised k, v = levels, bf16, attend_self=True), "
+                       "retain_graph: no norm VJP, no mean streams; the whole backward, both "
+                       "passes")
+
+    def k2_qkv(lv):
+        """SDPA's q, k̂, v for levels [L, B, n, d], as [L*B, 1, n, d]."""
+        Lc, B, nc, dc = lv.shape
+        return (lv.reshape(Lc * B, 1, nc, dc),
+                k2._normalized_k(lv).to(lv.dtype).reshape(Lc * B, 1, nc, dc),
+                lv.reshape(Lc * B, 1, nc, dc))
+
     # K2 at bucket 8, and one long row (the TPU's streamed kernel's regime).
     for label, (Lc, B, nc), sd in (("k2_b8", (L, 8, n), side), ("k2_long_row", (2, 1, 4096), 64)):
         lv = randn(Lc, B, nc, d, dtype=bf16)
@@ -703,8 +785,10 @@ def main() -> int:
         td = randn(Lc - 1, B, nc, d, dtype=bf16)
         ms = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=sd))
         plain_ms = time_ms(lambda: k2.consensus_update_plain(lv, bu, td, side=sd))
+        q_s, k_s, v_s = k2_qkv(lv)
         record_timing(label, [Lc, B, nc, d], ms, plain_ms, 4 * Lc * B * nc * nc * d,
-                      2 * (4 * Lc - 1) * B * nc * d)
+                      2 * (4 * Lc - 1) * B * nc * d,
+                      library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call)
     # K4 at the largest ragged signature, bf16, as the ragged route runs it:
     # 32 full-resolution rows' pages (every slot of every band valid) and
     # the k4_vs_plain row mix. Its work depends on the row lengths: each
@@ -777,6 +861,13 @@ def main() -> int:
     # dlevels, dmean.
     dq_bytes = 2 * 2 * elems + 4 * elems + 4 * 3 * L * 8 * n
     dkv_bytes = 2 * 2 * elems + 4 * elems + 2 * 2 * elems + 4 * 3 * L * 8 * n
+    # SDPA's backward at the same shape, the whole attention backward.
+    q_b, k_b, v_b = (t.clone().requires_grad_() for t in k2_qkv(lv))
+    att_b = sdpa(q_b, k_b, v_b)
+    g_b = g.reshape(L * 8, 1, n, d)
+    k2_bwd_lib_ms = time_ms(lambda: torch.autograd.grad(att_b, (q_b, k_b, v_b),
+                                                        grad_outputs=g_b, retain_graph=True))
+    del att_b
     for label, run, plain, n_products, nbytes in (
         # Products: s, dP, ds.k
         ("k2_bwd_dq_b8", lambda: k2.consensus_bwd_dq(lv, g, m, l, side=side),
@@ -787,7 +878,8 @@ def main() -> int:
          lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side), 4, dkv_bytes),
     ):
         record_timing(label, [L, 8, n, d], time_ms(run), time_ms(plain),
-                      n_products * 2 * L * 8 * n * n * d, nbytes)
+                      n_products * 2 * L * 8 * n * n * d, nbytes, library_ms=k2_bwd_lib_ms,
+                      library_call=k2_lib_bwd_call)
     # The whole K2 backward against its least work: the single-tile form's
     # five products (s, dP, dq, dv, dk) and its bytes (read levels, g, m, l;
     # write dlevels, dmean).
@@ -795,7 +887,7 @@ def main() -> int:
     b_ms, b_by = bound(k2_bwd_ops, k2_bwd_bytes, PEAK_BF16)
     emit("timing", kernel="k2_bwd_b8", shape=[L, 8, n, d], dtype="bfloat16",
          ms=timings["k2_bwd_dq_b8"]["ms"] + timings["k2_bwd_dkv_b8"]["ms"],
-         bound_ms=b_ms, bound_by=b_by)
+         bound_ms=b_ms, bound_by=b_by, library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call)
     # The whole-loop VJP's kernels at batch 8, bf16, as its step runs them.
     for label, which, G in (("k1_pre_b8", "bottom_up", L), ("k1_pre_add_b8", "top_down", L - 1)):
         params = type(ffw[which])(*(t.to(dev, bf16) for t in ffw[which]))
@@ -858,7 +950,8 @@ def main() -> int:
     record_timing("k2_bwd_combine_b8", [L, 8, n, d],
                   passes["dq"]["ms"] + passes["dkv"]["ms"],
                   passes["dq"]["plain_ms"] + passes["dkv"]["plain_ms"],
-                  k2_bwd_ops, k2_bwd_bytes + 2 * 2 * (L - 1) * 8 * n * d, passes=passes)
+                  k2_bwd_ops, k2_bwd_bytes + 2 * 2 * (L - 1) * 8 * n * d, passes=passes,
+                  library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call)
     # The combined K1 grid at batch 8 (11 groups), each launch beside the
     # split pair it replaces. Bytes: the [L+1]-slot carry read once, the
     # weights, the addend; written out and pre (forward), pre (pre-only), dx
@@ -885,6 +978,11 @@ def main() -> int:
         x_cat = torch.cat([(carry[2:].view(L - 1, -1, n, d) + add).view(L - 1, M8, d),
                            carry[:L]])
         return torch.baddbmm(wcat.b1[:, None], x_cat, wcat.w1)
+
+    def fwd_cat_library_seq():
+        x_cat = torch.cat([(carry[2:].view(L - 1, -1, n, d) + add).view(L - 1, M8, d),
+                           carry[:L]])
+        return k1_library_seq(wcat, x_cat)
 
     for label, run, split_pair, plain, library, ops, nbytes in (
         ("k1_fwd_cat_b8",
@@ -916,6 +1014,9 @@ def main() -> int:
                        library_call="torch.baddbmm over the 11 groups after x + tile(add)",
                        library_max_abs_diff=float((library().float() - run().float())
                                                   .abs().max()))
+        if label == "k1_fwd_cat_b8":
+            lib = dict(library_seq_ms=time_ms(fwd_cat_library_seq),
+                       library_seq_call=k1_seq_call + ", over the 11 groups' concatenated input")
         record_timing(label, [Gc, M8, d], time_ms(run), time_ms(plain), ops, nbytes,
                       split_pair_ms=time_ms(split_pair), **lib)
     # The long-row route's K2 launches at [6, 2, 4096, 512] (fewer
@@ -926,13 +1027,15 @@ def main() -> int:
     elems_r, rows_r = Lr * Br * nr * d, Lr * Br * nr
     fwd_ops_r = 4 * Lr * Br * nr * nr * d
     fwd_bytes_r = 2 * (3 * elems_r + (Lr - 1) * Br * nr * d) + 4 * 2 * rows_r
+    q_r, k_r, v_r = k2_qkv(lv_r)
+    fwd_lib_ms_r = time_ms(lambda: sdpa(q_r, k_r, v_r), reps=5)
     for label, cons_out, nbytes in (("k2_fwd_longrow", False, fwd_bytes_r),
                                     ("k2_fwd_cons_longrow", True, fwd_bytes_r + 2 * elems_r)):
         kw = dict(side=sr, stats=True, cons=cons_out)
         record_timing(label, list(long_shape),
                       time_ms(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw), reps=5),
                       time_ms(lambda: k2.consensus_update_plain(lv_r, bu_r, td_r, **kw), reps=3),
-                      fwd_ops_r, nbytes)
+                      fwd_ops_r, nbytes, library_ms=fwd_lib_ms_r, library_call=k2_lib_call)
     _, m_r, l_r, cons_r = k2.fused_consensus_update(lv_r, bu_r, td_r, side=sr, cons=True)
     g_r = randn(*long_shape, dtype=bf16)
     # The library's one call for the attention backward alone: SDPA's

@@ -6,7 +6,8 @@ Each `glom_tpu_torch/csrc/<name>.cu` is compiled on first use with
          -Xcompiler -fPIC -Xptxas -v
 
 into `build/glom_tpu_torch/<name>-<hash>.so` beside the package, keyed by a
-hash of the source and the flags, and loaded with ctypes. The sources have
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, and
+loaded with ctypes. The sources have
 a plain C interface (no PyTorch headers), so a build takes seconds.
 `prebuild()` starts one nvcc per source (every one in `SOURCES` by
 default), all at once. ptxas' report
@@ -54,7 +55,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

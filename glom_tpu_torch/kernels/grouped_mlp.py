@@ -6,10 +6,16 @@ Counterpart of `glom_tpu/kernels/grouped_mlp.py`. The CUDA kernel
 
     out[g] = GELU((x[g] + tile(add)) @ w1[g] + b1[g]) @ w2[g] + b2[g]
 
-with the [G, M, f] hidden kept on chip. Per-dtype rules of the reference
-kernel: bf16 uses the tanh GELU, f32 the exact erf; both products
-accumulate in f32, the hidden is rounded to x's dtype before the second.
-For training the forward can also write the pre-activation [G, M, f], and
+Per-dtype rules of the reference kernel: bf16 uses the tanh GELU, f32 the
+exact erf; both products accumulate in f32, the hidden is rounded to x's
+dtype before the second. In bf16 the kernel is two passes of the Hopper
+GEMM mainloop (`csrc/sm90_gemm.cuh`: TMA, mbarriers, wgmma), the rounded
+hidden written once to a [G, R, f] scratch between them; past
+`H_SCRATCH_CAP` the passes run over row slabs of R rows (`slab_rows`). The
+wrapper allocates that scratch, and for the addend's groups an [split, R,
+d] scratch of x + tile(add), with `torch.empty`. f32 runs on the CUDA
+cores with the [G, M, f] hidden kept in shared memory. For training the
+forward can also write the pre-activation [G, M, f], and
 `grouped_mlp_pre` runs only its first product (glom_tpu's
 `fused_loop._pre_kernel`/`_pre_add_kernel`, the whole-loop VJP's remat
 recompute): a pre bit for bit equal to the one the forward saves.
@@ -71,16 +77,20 @@ LAUNCHES_CAT = 0
 LAUNCHES_PRE_CAT = 0
 LAUNCHES_BWD_ACC_CAT = 0
 
-ROW_TILE = 32  # rows of x per block (csrc/grouped_mlp.cu TM)
+ROW_TILE = 32  # M must be a multiple of this (the f32 kernel's rows a block)
 WIDTH_MULTIPLE = 64  # d and f must be multiples of this
+GEMM_ROW_TILE = 128  # the bf16 GEMM's rows a tile (csrc/sm90_gemm.cuh BM)
+# Cap on the bf16 forward's [G, R, f] hidden scratch: past it the two
+# passes run over row slabs (`slab_rows`).
+H_SCRATCH_CAP = 256 * 1024 * 1024
 # Per-call cap on the saved [G, M, f] pre-activation (glom_tpu's
 # _SAVE_PRE_LIMIT): past it the backward recomputes the first product.
 SAVE_PRE_LIMIT = 512 * 1024 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "grouped_mlp_fwd": ([_P, _P, _I, *[_P] * 6, *[_I] * 7, _P], _I),
-    "grouped_mlp_pre": ([_P, _P, _I, _P, _P, _P, *[_I] * 7, _P], _I),
+    "grouped_mlp_fwd": ([_P, _P, _I, *[_P] * 8, *[_I] * 8, _P], _I),
+    "grouped_mlp_pre": ([_P, _P, _I, *[_P] * 4, *[_I] * 8, _P], _I),
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
@@ -298,9 +308,9 @@ def check_kernel_args(
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("w1", "w2"):  # read as WMMA fragments straight from memory
-        if got[name].data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned")
+    for name in ("x", "w1", "w2", "add"):  # read by TMA or in 16-byte vectors
+        if name in tensors and tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE:
         raise ValueError(f"d={d} and f={f} must be multiples of {WIDTH_MULTIPLE}")
     if M % ROW_TILE:
@@ -311,6 +321,28 @@ def check_kernel_args(
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def slab_rows(G: int, M: int, f: int) -> int:
+    """Rows per slab of the bf16 forward: all M while the [G, M, f] bf16
+    hidden fits under `H_SCRATCH_CAP`, else the most whole GEMM row tiles
+    that do, and at least one tile."""
+    if G * M * f * 2 <= H_SCRATCH_CAP:
+        return M
+    return max(GEMM_ROW_TILE, H_SCRATCH_CAP // (G * f * 2) // GEMM_ROW_TILE * GEMM_ROW_TILE)
+
+
+def _scratch(x: torch.Tensor, G: int, f: int, split: int, hidden: bool):
+    """(R, h, xa): the bf16 forward's slab rows, its [G, R, f] hidden
+    scratch (when `hidden`) and the addend groups' [split, R, d] scratch
+    (when split > 0); f32 takes none of them (R = M)."""
+    M, d = x.shape[1:]
+    if x.dtype != torch.bfloat16:
+        return M, None, None
+    R = slab_rows(G, M, f)
+    h = torch.empty((G, R, f), dtype=x.dtype, device=x.device) if hidden else None
+    xa = torch.empty((split, R, d), dtype=x.dtype, device=x.device) if split else None
+    return R, h, xa
 
 
 def _group_rule(params: GroupedFFWParams, add: Optional[torch.Tensor], cat: bool):
@@ -348,11 +380,12 @@ def fused_grouped_ffw_lm(
     is_bf16 = int(x.dtype == torch.bfloat16)
     out = x.new_empty((G, M, d))
     pre = x.new_empty((G, M, f)) if save_pre else None
+    R, h, xa = _scratch(x, G, f, split, hidden=True)
     w1, b1, w2, b2 = params
     err = lib.grouped_mlp_fwd(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        _ptr(pre), G, M, d, f, split, x_lo, is_bf16,
+        _ptr(pre), _ptr(h), _ptr(xa), G, M, d, f, split, x_lo, R, is_bf16,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_fwd", lib.grouped_mlp_error_string)
@@ -394,10 +427,12 @@ def grouped_mlp_pre(
     G, f = params.w1.shape[0], params.w1.shape[-1]
     split, x_lo = _group_rule(params, add, cat)
     pre = x.new_empty((G, M, f))
+    R, _, xa = _scratch(x, G, f, split, hidden=False)
     err = lib.grouped_mlp_pre(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
-        params.w1.data_ptr(), params.b1.data_ptr(), pre.data_ptr(), G, M, d, f, split, x_lo,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        params.w1.data_ptr(), params.b1.data_ptr(), pre.data_ptr(), _ptr(xa), G, M, d, f,
+        split, x_lo, R, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_pre", lib.grouped_mlp_error_string)
     LAUNCHES_PRE += 1

@@ -13,18 +13,26 @@ drift of the card between runs. Per tree it prints one JSON line:
 
   * the K1 forward at the flagship bucket-8 shapes in bf16 (bottom-up
     [6, 2048, 512], top-down [5, 2048, 512] with the positional addend),
-    without and, where the tree has it, with the saved pre-activation;
+    without and, where the tree has it, with the saved pre-activation; and
+    bottom-up at bucket 1 ([6, 256, 512]), with the host's time a call
+    there (calls enqueued back to back, `k1_host_us_b1`);
   * the K1 backward from the saved pre at the same shapes, where the tree
     has it;
   * the K2 forward at [6, 8, 256, 512], and its whole backward (both
     passes) where the tree has it;
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
-    min over N dispatches (host clock ending in a synchronize);
+    min over N dispatches (host clock ending in a synchronize), and the peak
+    device memory of one dispatch (`serve_b8_peak_mib`);
   * where the tree has the trainer, the flagship's bf16 training step at
     batch 8 (`make_train_step` without the grad norm, the route the tree
     resolves, named in `train_vjp_path`): p50 and min over N steps after
     two warm-up steps (host clock ending in a synchronize), and the same
-    with remat (`train_b8_remat_*`).
+    with remat (`train_b8_remat_*`), each with the peak device memory of
+    one step (`*_peak_mib`).
+
+Peak memory is `torch.cuda.max_memory_allocated()` after
+`reset_peak_memory_stats()`, in MiB, the weights and optimizer state
+included.
 
 Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
 warm). The last line gives, per tree, the median of its runs. Inputs and
@@ -99,6 +107,16 @@ def child(tree: str, dispatches: int) -> dict:
             g = randn(G, M, d)
             out[f"k1_bwd_{which}_ms"] = time_ms(
                 lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+        if which == "bottom_up":
+            bu_params = params
+    x1 = randn(L, n, d)
+    out["k1_fwd_bottom_up_b1_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        k1.fused_grouped_ffw_lm(bu_params, x1)
+    out["k1_host_us_b1"] = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
     lv, bu, td = randn(L, 8, n, d), randn(L, 8, n, d), randn(L - 1, 8, n, d)
     out["k2_fwd_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
     if has_bwd:
@@ -117,8 +135,12 @@ def child(tree: str, dispatches: int) -> dict:
         imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen)
         lat.append(engine.infer(imgs).latency_s * 1e3)
     lat.sort()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.infer(imgs)
     out.update(serve_b8_p50_ms=lat[len(lat) // 2], serve_b8_min_ms=lat[0],
-               serve_dispatches=dispatches)
+               serve_dispatches=dispatches,
+               serve_b8_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
 
     if importlib.util.find_spec("glom_tpu_torch.train") is not None:
         from glom_tpu_torch import TrainConfig
@@ -136,14 +158,18 @@ def child(tree: str, dispatches: int) -> dict:
             steps = []
             for i in range(dispatches + 2):  # the first two warm up
                 torch.cuda.synchronize()
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 state, _ = step(state, imgs, noise_gen)
                 torch.cuda.synchronize()
+                if i == 1:
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 20
                 if i >= 2:
                     steps.append(1e3 * (time.perf_counter() - t0))
             steps.sort()
             out.update({f"train_b8{tag}_p50_ms": steps[len(steps) // 2],
-                        f"train_b8{tag}_min_ms": steps[0]})
+                        f"train_b8{tag}_min_ms": steps[0], f"train_b8{tag}_peak_mib": peak})
         out.update(train_vjp_path=step.vjp_path, train_steps=len(steps))
     return out
 
@@ -182,7 +208,7 @@ def main() -> int:
         runs.setdefault(tree, []).append(rec)
     summary = {
         tree: {key: statistics.median(r[key] for r in recs)
-               for key in recs[0] if key.endswith("_ms")}
+               for key in recs[0] if key.endswith(("_ms", "_mib", "_us_b1"))}
         for tree, recs in runs.items()
     }
     print(json.dumps({"device": smi, "median_by_tree": summary}), flush=True)

@@ -73,12 +73,22 @@ def _close(got, want, bars):
     )
 
 
+# K1 shapes: small, the flagship, and edge shapes of the bf16 GEMM (M not a
+# multiple of its 128-row tile, d = 64 and f = 192 not of its 128 columns).
+K1_SHAPES = [(256, 128, 512), (2048, 512, 2048), (2080, 64, 192), (2112, 64, 192)]
+
+
+def _addend_rows(M):
+    """n = 64 where it divides M (it wraps twice in a 128-row tile), else 32."""
+    return 64 if M % 64 == 0 else 32
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_add", [False, True])
-@pytest.mark.parametrize("M,d,f", [(256, 128, 512), (2048, 512, 2048)])
+@pytest.mark.parametrize("M,d,f", K1_SHAPES)
 def test_grouped_mlp_kernel(dev, dtype, with_add, M, d, f):
     rng = np.random.default_rng(0)
-    G, n = 3, 64
+    G, n = 3, _addend_rows(M)
     params = GroupedFFWParams(
         _rand(rng, G, d, f, scale=d ** -0.5), _rand(rng, G, f, scale=0.1),
         _rand(rng, G, f, d, scale=f ** -0.5), _rand(rng, G, d, scale=0.1),
@@ -238,11 +248,12 @@ def test_prefetch_on_card(dev):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("with_add", [False, True])
-def test_grouped_mlp_pre_kernel(dev, dtype, with_add):
+@pytest.mark.parametrize("M,d,f", [K1_SHAPES[0], K1_SHAPES[2], K1_SHAPES[3]])
+def test_grouped_mlp_pre_kernel(dev, dtype, with_add, M, d, f):
     """The pre-only K1 launch: the forward's saved pre, bit for bit, read
     through a slot view of a larger carry."""
     rng = np.random.default_rng(6)
-    G, M, d, f, n = 3, 256, 128, 512, 64
+    G, n = 3, _addend_rows(M)
     params = _ffw_params(rng, G, d, f, dev, dtype)
     carry = _rand(rng, G + 2, M, d).to(dev, dtype)
     x = carry[2:]  # slots 2.. of the carry, as the top-down FFW reads them
@@ -252,6 +263,48 @@ def test_grouped_mlp_pre_kernel(dev, dtype, with_add):
     assert (k1.LAUNCHES_PRE, k1.LAUNCHES_PRE_ADD) == (before[0] + 1, before[1] + int(with_add))
     assert torch.equal(pre, k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1])
     _close(pre, k1.grouped_mlp_pre_plain(params, x, add), K1_BARS[dtype])
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_rows_do_not_depend_on_the_grid(dev, with_add):
+    """A row's bf16 output, saved pre and pre-only pre are the same bits
+    whether its group runs inside G = 6 or alone at G = 1, and whether
+    its rows run at M = 2048 or as the first half of M = 4096."""
+    rng = np.random.default_rng(14)
+    G, d, f, n = 6, 512, 2048, 256
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x = _rand(rng, G, 4096, d).to(dev, torch.bfloat16)
+    add = _rand(rng, n, d).to(dev, torch.bfloat16) if with_add else None
+
+    def run(p, xs):
+        out, pre = k1.fused_grouped_ffw_lm(p, xs, add=add, save_pre=True)
+        return out, pre, k1.grouped_mlp_pre(p, xs, add=add)
+
+    full = run(params, x)
+    alone = run(GroupedFFWParams(*(t[3:4].contiguous() for t in params)), x[3:4].contiguous())
+    half = run(params, x[:, :2048].contiguous())
+    for a, b, c in zip(full, alone, half):
+        assert torch.equal(a[3:4], b)
+        assert torch.equal(a[:, :2048], c)
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_slabs_equal_one_pass(dev, monkeypatch, with_add):
+    """Past the hidden scratch's cap the bf16 forward runs over row slabs
+    (here of 128 rows, the last one partial): the same bits as one pass."""
+    rng = np.random.default_rng(15)
+    G, M, d, f, n = 3, 2080, 64, 192, 32
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x = _rand(rng, G, M, d).to(dev, torch.bfloat16)
+    add = _rand(rng, n, d).to(dev, torch.bfloat16) if with_add else None
+    assert k1.slab_rows(G, M, f) == M
+    one = (*k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True),
+           k1.grouped_mlp_pre(params, x, add=add))
+    monkeypatch.setattr(k1, "H_SCRATCH_CAP", G * 128 * f * 2)
+    assert k1.slab_rows(G, M, f) == 128
+    slabs = (*k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True),
+             k1.grouped_mlp_pre(params, x, add=add))
+    assert all(torch.equal(a, b) for a, b in zip(one, slabs))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "glom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "glom_tpu_torch").rglob("*.py")) + [
+    REPO / name for name in ("chip_smoke.py", "port_ab.py", "k1_probe.py")
+]
 FORBIDDEN = ("jax", "jaxlib", "glom_tpu")
 
 

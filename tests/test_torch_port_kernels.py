@@ -77,7 +77,7 @@ class TestGroupedMLP:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         assert (tk1.LAUNCHES, tk1.LAUNCHES_ADD) == before
 
-    @pytest.mark.parametrize("case", ["d", "f", "M", "n", "dtype", "layout", "weight"])
+    @pytest.mark.parametrize("case", ["d", "f", "M", "n", "dtype", "layout", "weight", "align"])
     def test_kernel_arg_check_raises(self, case):
         def tensors(arrays):
             return [torch.from_numpy(t).clone() for t in arrays]
@@ -103,8 +103,30 @@ class TestGroupedMLP:
             xt = xt.transpose(0, 1).contiguous().transpose(0, 1)
         elif case == "weight":
             params = params._replace(w1=params.w1[:, :, :256])
+        elif case == "align":  # TMA reads x from a 16-byte-aligned address
+            xt = torch.zeros(xt.numel() + 2)[2:].view(xt.shape)
         with pytest.raises(ValueError):
             tk1.check_kernel_args(params, xt, at)
+
+    @pytest.mark.parametrize("G,M,f", [(6, 2048, 2048), (11, 2048, 2048), (6, 8192, 2048),
+                                       (6, 32768, 2048), (3, 2080, 192)])
+    def test_slab_rows_bound_the_hidden_scratch(self, G, M, f):
+        """The bf16 forward's [G, R, f] hidden scratch stays under its cap:
+        all M rows when they fit, else whole 128-row GEMM tiles, the most
+        that fit."""
+        R = tk1.slab_rows(G, M, f)
+        tile, cap = tk1.GEMM_ROW_TILE, tk1.H_SCRATCH_CAP
+        assert G * R * f * 2 <= cap
+        if G * M * f * 2 <= cap:
+            assert R == M
+        else:
+            assert R % tile == 0 and R < M and G * (R + tile) * f * 2 > cap
+
+    def test_slab_rows_take_at_least_one_tile(self, monkeypatch):
+        monkeypatch.setattr(tk1, "H_SCRATCH_CAP", 1)
+        assert tk1.slab_rows(6, 2048, 2048) == tk1.GEMM_ROW_TILE
+        monkeypatch.setattr(tk1, "H_SCRATCH_CAP", 6 * 300 * 2048 * 2)
+        assert tk1.slab_rows(6, 2048, 2048) == 256
 
 
 class TestConsensusUpdate:
