@@ -12,7 +12,9 @@ saved attention output and the one-sweep K2 backward at the long-row shape
 [6, 2, 4096, 512] (twice, bit for bit), and the combined td || bu K1 grid
 (bit for bit the two split launches) -- against its plain PyTorch version
 (the bf16 K1 forward, a TMA + wgmma GEMM, also at edge shapes of its
-128-row, 128-column tiles), times both (and, where one PyTorch call
+128-row, 128-column tiles; the bf16 K2 forward, TMA + wgmma attention, also
+at edge shapes of its 64-row, 64-key tiles), times both (with K2's host
+time a call and its k pre-pass's share; and, where one PyTorch call
 computes the same function, that call: scaled_dot_product_attention for
 K2's attention and K4, torch.baddbmm for the pre-only K1; for K1's forward
 the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`), then
@@ -123,6 +125,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_timing import device_us_by_kernel, host_us, time_ms
     import glom_tpu_torch.kernels.banded_consensus as k4
     import glom_tpu_torch.kernels.consensus_update as k2
     import glom_tpu_torch.kernels.grouped_mlp as k1
@@ -257,17 +263,19 @@ def main() -> int:
                 failures.append(f"K1 {which} {dtype}")
 
     # -- K2 vs plain -----------------------------------------------------------
-    def consensus_inputs(shape, dtype, rank=4, rms=8.0):
+    def consensus_inputs(shape, dtype, rank=4, rms=8.0, g=None):
         """Levels of rank `rank` and rms `rms`: scores spread with std about
         rms / sqrt(rank) = 4, so the softmax is peaked and its running max
         moves between j tiles. bu = -(levels + pad(td)) cancels the other
         terms of the mean, so out = cons / div: the consensus term is what
-        the check sees, while bu and td are still read."""
+        the check sees, while bu and td are still read. g: the generator
+        (default `gen`)."""
+        g = gen if g is None else g
         Lc, B, nc, dc = shape
-        coef = torch.randn(Lc, B, nc, rank, generator=gen)
-        basis = torch.randn(Lc, B, rank, dc, generator=gen) / rank ** 0.5
+        coef = torch.randn(Lc, B, nc, rank, generator=g)
+        basis = torch.randn(Lc, B, rank, dc, generator=g) / rank ** 0.5
         lv = (rms * (coef @ basis)).to(dev, dtype)
-        td = randn(Lc - 1, B, nc, dc, dtype=dtype)
+        td = torch.randn(Lc - 1, B, nc, dc, generator=g).to(dev, dtype)
         td_pad = torch.cat([td.float(), torch.zeros_like(lv[:1], dtype=f32)])
         return lv, (-(lv.float() + td_pad)).to(dtype), td
 
@@ -278,11 +286,22 @@ def main() -> int:
         ((L, 8, n, d), side, 0.0, True),
         ((L, 8, n, d), side, 3.0, False),
     ]
+    # Edge shapes of the bf16 kernel's 64-row, 64-key tiles: n % 64 == 32
+    # (query rows past n, key columns past n that must get p = 0), a radius
+    # window that crosses tile edges (side 24), attend_self both ways. Score
+    # std about 1 (rms 2), so the keys past n would carry weight if unmasked.
+    # Their inputs come from a generator of their own, so every later phase
+    # draws what it drew before they were added.
+    gen_k2e = torch.Generator().manual_seed(SEED + 2)
+    k2_edge = [((L, 2, 96, d), 1, 0.0, False), ((L, 2, 160, d), 1, 0.0, True),
+               ((L, 2, 576, d), 24, 3.0, False), ((L, 2, 576, d), 24, 3.0, True)]
     for dtype in (bf16, f32):
-        for shape, sd, radius, attend_self in cases + (
+        for shape, sd, radius, attend_self in cases + k2_edge + (
             [((2, 1, 4096, d), 64, 0.0, False)] if dtype == bf16 else []
         ):
-            lv, bu, td = consensus_inputs(shape, dtype)
+            edge = (shape, sd, radius, attend_self) in k2_edge
+            lv, bu, td = consensus_inputs(shape, dtype, **(dict(rms=2.0, g=gen_k2e) if edge
+                                                           else {}))
             got = k2.fused_consensus_update(lv, bu, td, side=sd, radius=radius,
                                             attend_self=attend_self)
             torch.cuda.synchronize()
@@ -293,7 +312,8 @@ def main() -> int:
             if dtype == bf16 and shape == (L, 8, n, d) and radius == 0 and not attend_self:
                 k2_err = abs_err
             emit("k2_vs_plain", shape=list(shape), dtype=str(dtype), radius=radius,
-                 attend_self=attend_self, max_abs_err=abs_err, max_rel_err=rel_err,
+                 attend_self=attend_self, edge_case=edge, max_abs_err=abs_err,
+                 max_rel_err=rel_err,
                  rtol=rtol, atol=atol, bar_ratio=ratio, ok=ok)
             if not ok:
                 failures.append(f"K2 {shape} {dtype} r={radius} self={attend_self}")
@@ -686,19 +706,6 @@ def main() -> int:
         raise AssertionError(f"long-row / combined-grid kernel mismatch: {failures}")
 
     # -- timing ----------------------------------------------------------------
-    def time_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     def bound(ops, nbytes, peak_ops):
         t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -744,18 +751,10 @@ def main() -> int:
         else:
             seq_ms = time_ms(lambda: k1_library_seq(params, (x.view(G, -1, n, d) + add)
                                                     .view(G, M, d)))
-        # The host's cost of one call (checks, scratch, tensor maps, launches):
-        # calls enqueued back to back, far fewer than the launch queue holds.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            k1.fused_grouped_ffw_lm(params, x, add=add)
-        host_us = (time.perf_counter() - t0) / 50 * 1e6
-        torch.cuda.synchronize()
         nbytes = 2 * (2 * G * M * d + 2 * G * d * f + G * (f + d) + (n * d if add is not None else 0))
         record_timing(label, [G, M, d], ms, plain_ms, 4 * G * M * d * f, nbytes,
                       library_seq_ms=seq_ms, library_seq_call=k1_seq_call,
-                      host_us_per_call=host_us)
+                      host_us_per_call=host_us(lambda: k1.fused_grouped_ffw_lm(params, x, add=add)))
 
     # The library's one call for K2's attention alone, forward or backward:
     # scaled_dot_product_attention (q = levels, k = the l2-normalised levels,
@@ -778,8 +777,21 @@ def main() -> int:
                 k2._normalized_k(lv).to(lv.dtype).reshape(Lc * B, 1, nc, dc),
                 lv.reshape(Lc * B, 1, nc, dc))
 
-    # K2 at bucket 8, and one long row (the TPU's streamed kernel's regime).
-    for label, (Lc, B, nc), sd in (("k2_b8", (L, 8, n), side), ("k2_long_row", (2, 1, 4096), 64)):
+    def k2_host(run):
+        """The host's time a K2 forward call (checks, scratch, tensor maps,
+        two launches) in us, and the share of the call's device time its k
+        pre-pass takes (torch.profiler)."""
+        us = device_us_by_kernel(run, calls=3, key=lambda name: (
+            "khat" if "khat" in name else "main" if "consensus_update_kernel" in name
+            else "other"))
+        khat, all_us = us.get("khat", 0.0), us.get("khat", 0.0) + us.get("main", 0.0)
+        return dict(host_us_per_call=host_us(run), prepass_ms=khat / 1e3,
+                    prepass_share=khat / all_us if all_us else None)
+
+    # K2 at buckets 1 and 8, and one long row (the TPU's streamed kernel's
+    # regime).
+    for label, (Lc, B, nc), sd in (("k2_b1", (L, 1, n), side), ("k2_b8", (L, 8, n), side),
+                                   ("k2_long_row", (2, 1, 4096), 64)):
         lv = randn(Lc, B, nc, d, dtype=bf16)
         bu = randn(Lc, B, nc, d, dtype=bf16)
         td = randn(Lc - 1, B, nc, d, dtype=bf16)
@@ -788,7 +800,8 @@ def main() -> int:
         q_s, k_s, v_s = k2_qkv(lv)
         record_timing(label, [Lc, B, nc, d], ms, plain_ms, 4 * Lc * B * nc * nc * d,
                       2 * (4 * Lc - 1) * B * nc * d,
-                      library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call)
+                      library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call,
+                      **k2_host(lambda: k2.fused_consensus_update(lv, bu, td, side=sd)))
     # K4 at the largest ragged signature, bf16, as the ragged route runs it:
     # 32 full-resolution rows' pages (every slot of every band valid) and
     # the k4_vs_plain row mix. Its work depends on the row lengths: each
@@ -1035,7 +1048,8 @@ def main() -> int:
         record_timing(label, list(long_shape),
                       time_ms(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw), reps=5),
                       time_ms(lambda: k2.consensus_update_plain(lv_r, bu_r, td_r, **kw), reps=3),
-                      fwd_ops_r, nbytes, library_ms=fwd_lib_ms_r, library_call=k2_lib_call)
+                      fwd_ops_r, nbytes, library_ms=fwd_lib_ms_r, library_call=k2_lib_call,
+                      **k2_host(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw)))
     _, m_r, l_r, cons_r = k2.fused_consensus_update(lv_r, bu_r, td_r, side=sr, cons=True)
     g_r = randn(*long_shape, dtype=bf16)
     # The library's one call for the attention backward alone: SDPA's
@@ -1109,9 +1123,6 @@ def main() -> int:
     emit("serve_total", requests=n_served, dispatches=len(requests), launches=launches)
 
     # Where one bucket-8 dispatch spends its device time (torch.profiler).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def device_ms_by_kernel(prof):
         """Device time of each kernel name in a profile, largest first (ms)."""
         us: dict = {}

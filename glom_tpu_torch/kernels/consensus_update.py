@@ -12,7 +12,10 @@ Per-dtype rules of the reference kernel: k is normalized in f32 and rounded
 to the compute dtype; scores and the softmax statistics are f32; p is
 rounded to the compute dtype before p @ v; the diagonal is replaced by
 -5e-4 when attend_self is off; pairs past the radius get finfo(f32).min.
-For training the forward also writes the f32 row statistics m, l.
+For training the forward also writes the f32 row statistics m, l. In bf16
+the kernel first writes the normalized k once a launch to a [L, B, n, d]
+scratch the wrapper allocates (`khat_scratch`), then runs its attention
+on Hopper's tensor cores (wgmma, TMA); f32 runs on the CUDA cores.
 
 `csrc/consensus_update_bwd.cu` replaces the backward kernels
 `_consensus_bwd_small_kernel`, `_consensus_bwd_dq_kernel` and
@@ -70,6 +73,7 @@ LAUNCHES_BWD_ONESWEEP = 0
 
 WIDTH_MULTIPLE = 64  # d must be a multiple of this
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # n must be a multiple
+TMA_ALIGN = 16  # bytes: the bf16 kernel reads levels and the k scratch by TMA
 
 _NEG_MAX = torch.finfo(torch.float32).min
 
@@ -77,7 +81,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
     "consensus_update_fwd": (
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
     ),
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
@@ -326,9 +330,13 @@ def consensus_bwd_onesweep_plain(
     return (partial.to(f32) + dq).to(dt)
 
 
-def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
+def khat_scratch(levels_lm: torch.Tensor) -> Optional[torch.Tensor]:
+    """The bf16 kernel's scratch for the normalized keys, [L, B, n, d] bf16
+    (what `_normalized_k` gives, rounded): filled by the kernel's pre-pass
+    and read by its attention, once a launch. f32 needs none (None)."""
+    if levels_lm.dtype != torch.bfloat16:
+        return None
+    return torch.empty_like(levels_lm)
 
 
 def _check_levels(levels_lm, *, side, radius) -> None:
@@ -355,22 +363,27 @@ def check_kernel_args(levels_lm, bu_lm, td_lm, out, *, side, radius) -> None:
     """Raise ValueError for anything the CUDA kernel does not take."""
     _check_levels(levels_lm, side=side, radius=radius)
     L, B, n, d = levels_lm.shape
-    dt = levels_lm.dtype
-    want = {"bu": (L, B, n, d), "td": (L - 1, B, n, d), "out": (L, B, n, d)}
-    got = {"bu": bu_lm, "td": td_lm, "out": out}
-    for name, shape in want.items():
-        t = got[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
-    for name, t in dict(got, levels=levels_lm).items():
+    dt, dev = levels_lm.dtype, levels_lm.device
+    full = levels_lm.shape
+    for name, t, shape in (("bu", bu_lm, full), ("td", td_lm, (L - 1, B, n, d)),
+                           ("out", out, full)):
+        if t.shape != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    align = TMA_ALIGN if dt == torch.bfloat16 else 1
+    ptrs = {}
+    for name, t in (("bu", bu_lm), ("td", td_lm), ("out", out), ("levels", levels_lm)):
         if t.dtype != dt:
             raise ValueError(f"{name} dtype {t.dtype} != levels dtype {dt}")
-        if t.device != levels_lm.device:
-            raise ValueError(f"{name} on {t.device}, levels on {levels_lm.device}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, levels on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("levels", "bu", "td"):
-        if _overlaps(out, dict(got, levels=levels_lm)[name]):
+        ptrs[name] = ptr = t.data_ptr()
+        if ptr % align:
+            raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary in bf16")
+    o0, o1 = ptrs["out"], ptrs["out"] + out.nbytes
+    for name, t in (("levels", levels_lm), ("bu", bu_lm), ("td", td_lm)):
+        if o0 < ptrs[name] + t.nbytes and ptrs[name] < o1:
             raise ValueError(f"out must not alias {name}: other row tiles still read it")
 
 
@@ -420,9 +433,10 @@ def fused_consensus_update(
     if cons:
         att = torch.empty_like(levels_lm)
     is_bf16 = int(levels_lm.dtype == torch.bfloat16)
+    khat = khat_scratch(levels_lm)  # held until the launch is enqueued
     err = lib.consensus_update_fwd(
         levels_lm.data_ptr(), bu_lm.data_ptr(), td_lm.data_ptr(), out.data_ptr(),
-        _ptr(m), _ptr(l), _ptr(att),
+        _ptr(m), _ptr(l), _ptr(att), _ptr(khat),
         L, B, n, d, side, float(radius), int(attend_self), is_bf16,
         torch.cuda.current_stream(levels_lm.device).cuda_stream,
     )

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Build, check and time one of the port's bf16 forward kernels on one
+NVIDIA GPU, quickly.
+
+    python3 kernel_probe.py k1|k2 [ROOT ...]
+
+Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
+package with one change can be held against this one in one run on the
+card; the roots run in turn, each in a fresh process. Per root it builds the
+kernel's source (printing ptxas' registers and spills), then:
+
+  * k1 (`csrc/grouped_mlp.cu`): a structured check of the pre-only launch
+    (x = identity rows, w1[k, n] = (k % 16) * 16 + n % 16, b1 = 0, so pre
+    must equal w1 element for element; a wrong operand layout shows which
+    element landed where); device times of the forward, the pre-only launch
+    and `torch.baddbmm` at bucket 8 (bottom-up [6, 2048, 512], top-down
+    [5, 2048, 512] with the addend), of the forward at bucket 1 and of the
+    combined 11-group grid; the host's time a call at bucket 1; device time
+    by kernel of the bucket-8 forward and the combined grid;
+  * k2 (`csrc/consensus_update.cu`): the largest distance of out and cons
+    from the plain version over the bf16 cases of the `-m gpu` tests
+    (K2_CASES, K2_WIDTHS) and seeds 0-7, in units of K2_BARS and as the
+    atol each would need at K2_BARS's rtol (what the tests' bars are set
+    from; a faulty copy shows what they catch); device times of the
+    forward at
+    [6, 1, 256, 512], [6, 8, 256, 512], [2, 1, 4096, 512] and
+    [6, 2, 4096, 512] (with cons), each beside
+    scaled_dot_product_attention on the same q, normalised k, v; the
+    device time of the k pre-pass and of the main kernel; and the host's
+    time a call, whole and in its parts: the argument checks, the
+    allocations (out, statistics, cons, the k scratch) and the bare C call
+    on buffers allocated beforehand.
+
+Device times are CUDA events (chip_timing.time_ms, L2 warm), host times the
+median of batches started on an idle card (chip_timing.host_us). The
+kernels' comparisons with their plain versions are the `-m gpu` tests
+(tests/test_torch_port_gpu.py) and chip_smoke.py. Inputs come from seed 0.
+It exits nonzero without a card or on a failed check.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+SOURCES = {"k1": "grouped_mlp", "k2": "consensus_update"}
+
+
+def probe(kernel: str, root: str) -> int:
+    import torch
+
+    from chip_timing import device_us_by_kernel, host_us, time_ms
+
+    sys.path.insert(0, root)
+    from glom_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device is available", file=sys.stderr)
+        return 1
+    assert _build.__file__.startswith(root), _build.__file__
+    t0 = time.perf_counter()
+    logs = _build.prebuild([SOURCES[kernel]])
+    print("build_s", round(time.perf_counter() - t0, 2), flush=True)
+    for ln in logs[SOURCES[kernel]].splitlines():
+        if any(k in ln for k in ("registers", "spill", "error", "warning", "Function properties",
+                                 "bytes stack", "C7508")):
+            print("  ", ln.strip())
+    gen = torch.Generator().manual_seed(0)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
+
+    tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
+    return (probe_k1 if kernel == "k1" else probe_k2)(torch, **tools)
+
+
+def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
+    import glom_tpu_torch.kernels.grouped_mlp as k1
+    from glom_tpu_torch.ops.ffw import GroupedFFWParams
+
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    G, M, d, f = 1, 128, 128, 256
+    x = torch.zeros(G, M, d)
+    x[0, torch.arange(M), torch.arange(M) % d] = 1.0
+    w1 = ((torch.arange(d)[:, None] % 16) * 16 + torch.arange(f)[None, :] % 16).float()[None]
+    params = GroupedFFWParams(w1.to(dev, bf16), torch.zeros(G, f, device=dev, dtype=bf16),
+                              rn(G, f, d, scale=f ** -0.5), torch.zeros(G, d, device=dev, dtype=bf16))
+    pre = k1.grouped_mlp_pre(params, x.to(dev, bf16)).float()
+    bad = pre != k1.grouped_mlp_pre_plain(params, x.to(dev, bf16)).float()
+    print(json.dumps(dict(check="identity_pre", mismatches=int(bad.sum()), of=bad.numel())),
+          flush=True)
+    if bad.any():
+        print("got rows 0..9, 64, 65, 72, cols 0..17 (value = (k%16)*16 + n%16):")
+        for r in list(range(10)) + [64, 65, 72]:
+            print(r, [int(v) for v in pre[0, r, :18].cpu()])
+        return 1
+
+    def ffw(G):
+        return GroupedFFWParams(rn(G, d, f, scale=d ** -0.5), rn(G, f, scale=0.1),
+                                rn(G, f, d, scale=f ** -0.5), rn(G, d, scale=0.1))
+
+    L, n, d, f = 6, 256, 512, 2048
+    p6, p5 = ffw(L), ffw(L - 1)
+    add = rn(n, d)
+    for which, p, x8, a in (("bottom_up", p6, rn(L, 8 * n, d), None),
+                            ("top_down", p5, rn(L - 1, 8 * n, d), add)):
+        print(json.dumps(dict(
+            timing=which, shape=list(x8.shape),
+            fwd_ms=time_ms(lambda: k1.fused_grouped_ffw_lm(p, x8, add=a)),
+            pre_ms=time_ms(lambda: k1.grouped_mlp_pre(p, x8, add=a)),
+            baddbmm_ms=time_ms(lambda: torch.baddbmm(p.b1[:, None], x8, p.w1)),
+            device_us=device_us(lambda: k1.fused_grouped_ffw_lm(p, x8, add=a)))), flush=True)
+    x1 = rn(L, n, d)
+    print(json.dumps(dict(timing="bottom_up_b1", shape=list(x1.shape),
+                          fwd_ms=time_ms(lambda: k1.fused_grouped_ffw_lm(p6, x1)),
+                          host_us=host_us(lambda: k1.fused_grouped_ffw_lm(p6, x1)))), flush=True)
+    wcat, carry = k1.cat_params(p5, p6), rn(L + 1, 8 * n, d)
+
+    def cat_fwd():
+        return k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)
+
+    print(json.dumps(dict(
+        timing="cat_grid", shape=list(carry.shape), fwd_save_pre_ms=time_ms(cat_fwd),
+        pre_ms=time_ms(lambda: k1.grouped_mlp_pre(wcat, carry, add=add, cat=True)),
+        device_us=device_us(cat_fwd))), flush=True)
+    return 0
+
+
+def probe_k2(torch, rn, time_ms, host_us, device_us) -> int:
+    import glom_tpu_torch.kernels.consensus_update as k2
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = k2._lib()
+
+    def kernel_key(name):
+        return "khat" if "khat" in name else "main" if "consensus_update" in name else "other"
+
+    # Readings behind the card tests' bars, over their bf16 cases, both
+    # attend_self and seeds 0-7: the largest |got - want| / (atol + rtol
+    # |want|) of out and cons at K2_BARS, and the atol each would need at
+    # K2_BARS's rtol, max(|got - want| - rtol |want|).
+    import importlib.util
+
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location(
+        "k2_card_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                      "test_torch_port_gpu.py"))
+    cards = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cards)
+    cases = [c[1:] for c in cards.K2_CASES if c[0] == torch.bfloat16]
+    cases += [(3, 2, 96, 1, d, 0.0) for d in cards.K2_WIDTHS]
+    rtol, atol = cards.K2_BARS[torch.bfloat16]
+    worst = {}
+    for L, B, n, side, d, radius in cases:
+        for attend_self in (False, True):
+            kw = dict(side=side, radius=radius, attend_self=attend_self, cons=True)
+            for seed in range(8):
+                lv, bu, td = (t.to("cuda") for t in cards._consensus_inputs(
+                    np.random.default_rng(seed), L, B, n, d, torch.bfloat16))
+                got = k2.fused_consensus_update(lv, bu, td, **kw)
+                want = k2.consensus_update_plain(lv, bu, td, **kw)
+                for name, i in (("out", 0), ("cons", 3)):
+                    diff = (got[i].float() - want[i].float()).abs()
+                    scale = rtol * want[i].float().abs()
+                    key = (name, L, B, n, d, side, radius, attend_self)
+                    ratio = float((diff / (atol + scale)).max())
+                    need = float((diff - scale).max())
+                    old = worst.get(key, (0.0, 0.0))
+                    worst[key] = (max(old[0], ratio), max(old[1], need))
+    for name in ("out", "cons"):
+        rows = sorted(((v, k) for k, v in worst.items() if k[0] == name), reverse=True)
+        print(json.dumps(dict(
+            reading=name, bars=[rtol, atol], seeds=8, max_ratio=rows[0][0][0],
+            max_atol_needed=max(v[1] for v, _ in rows),
+            worst_cases=[dict(ratio=v[0], atol_needed=v[1], case=k[1:]) for v, k in rows[:4]])),
+            flush=True)
+
+    for label, (L, B, n), side, cons in (
+            ("k2_b1", (6, 1, 256), 16, False), ("k2_b8", (6, 8, 256), 16, False),
+            ("k2_long_row", (2, 1, 4096), 64, False),
+            ("k2_fwd_cons_longrow", (6, 2, 4096), 64, True)):
+        d, reps = 512, 5 if cons else 20
+        lv, bu, td = rn(L, B, n, d, scale=8.0), rn(L, B, n, d), rn(L - 1, B, n, d)
+        kw = dict(side=side, stats=cons, cons=cons)
+
+        def call():
+            return k2.fused_consensus_update(lv, bu, td, **kw)
+
+        def allocs():
+            return (torch.empty_like(lv), lv.new_empty((L, B, n, 1), dtype=torch.float32),
+                    lv.new_empty((L, B, n, 1), dtype=torch.float32),
+                    torch.empty_like(lv) if cons else None, k2.khat_scratch(lv))
+
+        out, m, l, att, khat = allocs()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare():
+            err = lib.consensus_update_fwd(
+                lv.data_ptr(), bu.data_ptr(), td.data_ptr(), out.data_ptr(), m.data_ptr(),
+                l.data_ptr(), att.data_ptr() if cons else None, khat.data_ptr(), L, B, n, d,
+                side, 0.0, 0, 1, stream)
+            assert err == 0, err
+
+        q = lv.reshape(L * B, 1, n, d)
+        kh = k2._normalized_k(lv).to(torch.bfloat16).reshape(L * B, 1, n, d)
+        ms = time_ms(call, reps)
+        print(json.dumps(dict(
+            timing=label, shape=[L, B, n, d], ms=ms, sdpa_ms=time_ms(lambda: sdpa(q, kh, q), reps),
+            tflops=4 * L * B * n * n * d / ms / 1e9, device_us=device_us(call, key=kernel_key),
+            host_us=dict(call=host_us(call),
+                         checks=host_us(lambda: k2.check_kernel_args(lv, bu, td, out, side=side,
+                                                                     radius=0.0)),
+                         allocs=host_us(allocs), bare_c_call=host_us(bare)))), flush=True)
+    return 0
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        return probe(sys.argv[2], os.path.abspath(sys.argv[3]))
+    if len(sys.argv) < 2 or sys.argv[1] not in SOURCES:
+        print(__doc__.split("\n\n")[1], file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    rc = 0
+    for root in sys.argv[2:] or ["."]:
+        print("== root", root, flush=True)
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]
+        rc |= subprocess.run(cmd, timeout=900).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,11 +15,15 @@ drift of the card between runs. Per tree it prints one JSON line:
     [6, 2048, 512], top-down [5, 2048, 512] with the positional addend),
     without and, where the tree has it, with the saved pre-activation; and
     bottom-up at bucket 1 ([6, 256, 512]), with the host's time a call
-    there (calls enqueued back to back, `k1_host_us_b1`);
+    there (`k1_host_us_b1`: calls enqueued back to back, the median of
+    nine batches of 20);
   * the K1 backward from the saved pre at the same shapes, where the tree
     has it;
-  * the K2 forward at [6, 8, 256, 512], and its whole backward (both
-    passes) where the tree has it;
+  * the K2 forward at [6, 8, 256, 512] and at bucket 1 ([6, 1, 256, 512]),
+    with the host's time a call at both (`k2_host_us_b1`, `k2_host_us_b8`)
+    and what one bucket-8 call adds to the allocated memory at its peak
+    (`k2_call_b8_peak_mib`: its output and any scratch), and its whole
+    backward (both passes) where the tree has it;
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
     min over N dispatches (host clock ending in a synchronize), and the peak
     device memory of one dispatch (`serve_b8_peak_mib`);
@@ -28,14 +32,23 @@ drift of the card between runs. Per tree it prints one JSON line:
     resolves, named in `train_vjp_path`): p50 and min over N steps after
     two warm-up steps (host clock ending in a synchronize), and the same
     with remat (`train_b8_remat_*`), each with the peak device memory of
-    one step (`*_peak_mib`).
+    one step (`*_peak_mib`);
+  * where the tree has the trainer, the long-row training step: the
+    flagship widths at 896 px (n = 4096, global consensus), batch 2, k = 7,
+    the route the tree resolves (`train_longrow_vjp_path`): p50 and min over
+    three steps after one untimed step, and its peak device memory.
 
 Peak memory is `torch.cuda.max_memory_allocated()` after
 `reset_peak_memory_stats()`, in MiB, the weights and optimizer state
 included.
 
 Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
-warm). The last line gives, per tree, the median of its runs. Inputs and
+warm); host times are chip_timing.host_us (the median of nine batches of 20
+calls, each started on an idle card). The last line gives, per tree, the
+median of its runs, and, given two or more distinct trees, `host_pairs`:
+the host times of K2 (buckets 1 and 8) and K1 (bucket 1) with every tree
+loaded in one process and measured in turns, --host-rounds times (default
+30), with the median of the paired differences against the first tree. Inputs and
 weights come from seed 0. It needs one card and exits nonzero without one.
 """
 
@@ -53,9 +66,15 @@ import time
 
 
 def child(tree: str, dispatches: int) -> dict:
+    import torch
+    from chip_timing import host_us
+    from chip_timing import time_ms as _time_ms  # this script's, whatever the tree holds
+
+    def time_ms(fn):
+        return _time_ms(fn, reps=50)
+
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
-    import torch
 
     import glom_tpu_torch
     import glom_tpu_torch.kernels.consensus_update as k2
@@ -76,19 +95,6 @@ def child(tree: str, dispatches: int) -> dict:
 
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, bf16)
-
-    def time_ms(fn, reps=50):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
 
     L, n, d, f = 6, 256, 512, 2048
     M = 8 * n
@@ -111,14 +117,18 @@ def child(tree: str, dispatches: int) -> dict:
             bu_params = params
     x1 = randn(L, n, d)
     out["k1_fwd_bottom_up_b1_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
+    out["k1_host_us_b1"] = host_us(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
+    for B in (1, 8):
+        lv, bu, td = randn(L, B, n, d), randn(L, B, n, d), randn(L - 1, B, n, d)
+        out["k2_fwd_ms" if B == 8 else "k2_fwd_b1_ms"] = time_ms(
+            lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+        out[f"k2_host_us_b{B}"] = host_us(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+    torch.cuda.synchronize()  # one bucket-8 call's own peak: its output and scratch
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    k2.fused_consensus_update(lv, bu, td, side=16)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        k1.fused_grouped_ffw_lm(bu_params, x1)
-    out["k1_host_us_b1"] = (time.perf_counter() - t0) / 50 * 1e6
-    torch.cuda.synchronize()
-    lv, bu, td = randn(L, 8, n, d), randn(L, 8, n, d), randn(L - 1, 8, n, d)
-    out["k2_fwd_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+    out["k2_call_b8_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
     if has_bwd:
         _, m, l = k2.fused_consensus_update(lv, bu, td, side=16, stats=True)
         g = randn(L, 8, n, d)
@@ -171,17 +181,96 @@ def child(tree: str, dispatches: int) -> dict:
             out.update({f"train_b8{tag}_p50_ms": steps[len(steps) // 2],
                         f"train_b8{tag}_min_ms": steps[0], f"train_b8{tag}_peak_mib": peak})
         out.update(train_vjp_path=step.vjp_path, train_steps=len(steps))
+
+        cfg_long = GlomConfig(image_size=896)  # n = 4096
+        tcfg = TrainConfig(batch_size=2, compute_dtype="bfloat16", use_pallas=True)
+        step = make_train_step(cfg_long, tcfg, with_grad_norm=False, device="cuda")
+        state, _ = create_train_state(
+            cfg_long, tcfg,
+            params=init_denoise(cfg_long, generator=torch.Generator().manual_seed(0)),
+            device="cuda")
+        noise_gen = torch.Generator(device=dev).manual_seed(0)
+        imgs = torch.randn(2, 3, 896, 896, generator=gen).to(dev)
+        steps = []
+        for i in range(4):  # the first warms up
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, _ = step(state, imgs, noise_gen)
+            torch.cuda.synchronize()
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            if i >= 1:
+                steps.append(1e3 * (time.perf_counter() - t0))
+        steps.sort()
+        out.update(train_longrow_p50_ms=steps[len(steps) // 2], train_longrow_min_ms=steps[0],
+                   train_longrow_peak_mib=peak, train_longrow_vjp_path=step.vjp_path)
     return out
+
+
+def host_pairs(trees: list, rounds: int) -> dict:
+    """The host's time a call (chip_timing.host_us) of K2's forward at
+    buckets 1 and 8 and K1's at bucket 1 for every tree, all loaded in one
+    process and measured in turns, `rounds` times: per tree the median over
+    rounds, and against the first tree the median of the rounds' paired
+    differences, so the host's drift between runs cancels."""
+    import torch
+    from chip_timing import host_us
+
+    gen = torch.Generator().manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
+
+    L, n, d, f = 6, 256, 512, 2048
+    ins = {B: (randn(L, B, n, d), randn(L, B, n, d), randn(L - 1, B, n, d)) for B in (1, 8)}
+    w, x1 = (randn(L, d, f, scale=d ** -0.5), randn(L, f, scale=0.1),
+             randn(L, f, d, scale=f ** -0.5), randn(L, d, scale=0.1)), randn(L, n, d)
+    calls = {}
+    for tree in trees:  # each tree's package, imported afresh; its functions keep their modules
+        root = os.path.abspath(tree)
+        for name in [m for m in sys.modules if m.split(".")[0] == "glom_tpu_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, root)
+        import glom_tpu_torch.kernels.consensus_update as k2
+        import glom_tpu_torch.kernels.grouped_mlp as k1
+        from glom_tpu_torch.ops.ffw import GroupedFFWParams
+        sys.path.remove(root)
+        if not k2.__file__.startswith(root + os.sep):
+            raise RuntimeError(f"imported {k2.__file__}, not the one under {root}")
+        params = GroupedFFWParams(*w)
+        calls[tree] = {
+            "k2_host_us_b1": lambda k2=k2: k2.fused_consensus_update(*ins[1], side=16),
+            "k2_host_us_b8": lambda k2=k2: k2.fused_consensus_update(*ins[8], side=16),
+            "k1_host_us_b1": lambda k1=k1, p=params: k1.fused_grouped_ffw_lm(p, x1),
+        }
+    seen = {tree: {key: [] for key in calls[tree]} for tree in trees}
+    for _ in range(rounds):
+        for key in calls[trees[0]]:
+            for tree in trees:
+                seen[tree][key].append(host_us(calls[tree][key]))
+    base = trees[0]
+    return {"rounds": rounds, "median_by_tree": {
+        tree: {key: statistics.median(v) for key, v in seen[tree].items()} for tree in trees},
+        "paired_diff_median_vs_" + base: {
+            tree: {key: statistics.median(a - b for a, b in zip(v, seen[base][key]))
+                   for key, v in seen[tree].items()} for tree in trees[1:]}}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--dispatches", type=int, default=30)
+    ap.add_argument("--host-rounds", type=int, default=30)
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--pairs", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
         print(json.dumps(child(args.child, args.dispatches)), flush=True)
+        return 0
+    if args.pairs:
+        print(json.dumps(host_pairs(args.trees, args.host_rounds)), flush=True)
         return 0
     import torch
 
@@ -208,10 +297,23 @@ def main() -> int:
         runs.setdefault(tree, []).append(rec)
     summary = {
         tree: {key: statistics.median(r[key] for r in recs)
-               for key in recs[0] if key.endswith(("_ms", "_mib", "_us_b1"))}
+               for key in recs[0] if key.endswith(("_ms", "_mib", "_us_b1", "_us_b8"))}
         for tree, recs in runs.items()
     }
-    print(json.dumps({"device": smi, "median_by_tree": summary}), flush=True)
+    trees = list(dict.fromkeys(args.trees))
+    pairs = None
+    if len(trees) > 1:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--pairs", *trees,
+             "--host-rounds", str(args.host_rounds)],
+            capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        pairs = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps({"host_pairs": pairs}), flush=True)
+    print(json.dumps({"device": smi, "median_by_tree": summary, "host_pairs": pairs}), flush=True)
     return 0
 
 

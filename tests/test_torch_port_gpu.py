@@ -12,6 +12,11 @@ consensus term (K2) move the output by many ulps. Backward outputs are held
 to max abs error over max |want|, at chip_smoke.py's bars.
 """
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +44,7 @@ K2_BWD_BARS = {torch.float32: 4e-5, torch.bfloat16: 1.8e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
 pytestmark = pytest.mark.gpu
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -102,21 +108,119 @@ def test_grouped_mlp_kernel(dev, dtype, with_add, M, d, f):
     _close(got, k1.grouped_mlp_plain(params, x, add), K1_BARS[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("radius", [0.0, 2.0])
+# K2 forward cases (dtype, L, B, n, side, d, radius): both kernels on a small
+# local grid; then the bf16 kernel at n % 64 == 32 (rows and keys past its
+# 64-row tiles), a row shorter than one tile, the flagship and long rows,
+# global and local.
+K2_CASES = [(dt, 3, 2, 64, 8, 128, r) for dt in DTYPES for r in (0.0, 2.0)] + [
+    (torch.bfloat16, 2, 2, n, side, 512, r)
+    for n, side, r in ((32, 1, 0.0), (96, 1, 0.0), (160, 1, 0.0), (256, 16, 0.0),
+                       (256, 16, 3.0), (4096, 64, 0.0), (4096, 64, 3.0))]
+# The forward's row statistics against the plain version (chip_smoke.py's
+# stat_bars): in bf16 a k element may round the other way in the two
+# versions (its norm summed in another order), moving a column of scores.
+K2_STAT_BARS = {torch.float32: {"m": K2_BARS[torch.float32], "l": K2_BARS[torch.float32]},
+                torch.bfloat16: {"m": (1e-3, 1e-3), "l": (8e-3, 1e-5)}}
+# cons against the plain version: p is rounded to bf16 at the kernel's
+# running max and at the plain version's final one, so on these peaked
+# inputs a cons that cancels to about 0.01 can miss K2_BARS's atol. Over
+# the bf16 cases here and seeds 0-7 (`kernel_probe.py k2`, NVIDIA H100)
+# cons needed at most atol 0.028 at rtol 1e-2; a cons store scaled by
+# 1 + 2^-5 needs 1.84, the key mask past n dropped 6.88. out keeps K2_BARS.
+K2_CONS_BARS = {torch.float32: K2_BARS[torch.float32], torch.bfloat16: (1e-2, 5e-2)}
+
+
+@pytest.mark.parametrize("dtype,L,B,n,side,d,radius", K2_CASES)
 @pytest.mark.parametrize("attend_self", [False, True])
-def test_consensus_update_kernel(dev, dtype, radius, attend_self):
+def test_consensus_update_kernel(dev, dtype, L, B, n, side, d, radius, attend_self):
+    """The kernel against the plain version; out the same bits with and
+    without the stats and cons stores, m and l with and without cons."""
     rng = np.random.default_rng(1)
-    L, B, side, d = 3, 2, 8, 128
-    n = side * side
     lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, L, B, n, d, dtype))
-    before = k2.LAUNCHES
-    got = k2.fused_consensus_update(lv, bu, td, side=side, radius=radius,
-                                    attend_self=attend_self)
-    assert k2.LAUNCHES == before + 1
-    want = k2.consensus_update_plain(lv, bu, td, side=side, radius=radius,
-                                     attend_self=attend_self)
-    _close(got, want, K2_BARS[dtype])
+    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    before = (k2.LAUNCHES, k2.LAUNCHES_CONS)
+    plain = k2.fused_consensus_update(lv, bu, td, **kw)
+    stats = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+    cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+    assert (k2.LAUNCHES, k2.LAUNCHES_CONS) == (before[0] + 3, before[1] + 1)
+    assert torch.equal(plain, stats[0]) and torch.equal(plain, cons[0])
+    assert torch.equal(stats[1], cons[1]) and torch.equal(stats[2], cons[2])
+    want = k2.consensus_update_plain(lv, bu, td, cons=True, **kw)
+    _close(cons[0], want[0], K2_BARS[dtype])
+    _close(cons[1], want[1], K2_STAT_BARS[dtype]["m"])
+    _close(cons[2], want[2], K2_STAT_BARS[dtype]["l"])
+    _close(cons[3], want[3], K2_CONS_BARS[dtype])
+
+
+@pytest.mark.parametrize("n", [96, 4096])
+def test_consensus_update_khat_prepass(dev, monkeypatch, n):
+    """The bf16 pre-pass writes k = normalize(levels), rounded, into the
+    scratch the attention reads: within one bf16 ulp of the plain
+    version's k (the norm is summed in another order)."""
+    rng = np.random.default_rng(23)
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 2, 2, n, 512, torch.bfloat16))
+    held = []
+    monkeypatch.setattr(k2, "khat_scratch", lambda t, make=k2.khat_scratch: held.append(make(t))
+                        or held[-1])
+    k2.fused_consensus_update(lv, bu, td, side=1)
+    torch.cuda.synchronize()
+    assert len(held) == 1
+    _close(held[0], k2._normalized_k(lv), (2.0 ** -7, 0.0))
+
+
+def test_consensus_update_without_allocator_cache(dev):
+    """The forward's scratch lives through its launch: with the caching
+    allocator off, a tensor freed early is returned by cudaFree before the
+    kernel writes it. Runs in a fresh process (the switch is read once)."""
+    script = (
+        "import torch, glom_tpu_torch.kernels.consensus_update as k2\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "lv, bu, td = (torch.randn(*s, generator=g).to('cuda', torch.bfloat16)\n"
+        "              for s in ((2, 2, 256, 512), (2, 2, 256, 512), (1, 2, 256, 512)))\n"
+        "got = [k2.fused_consensus_update(lv, bu, td, side=16) for _ in range(3)]\n"
+        "want = k2.consensus_update_plain(lv, bu, td, side=16)\n"
+        "torch.testing.assert_close(got[0].float(), want.float(), rtol=1e-2, atol=1.6e-2)\n"
+        "assert all(torch.equal(got[0], x) for x in got[1:])\n"
+    )
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_consensus_update_bf16_rows_do_not_depend_on_batch(dev):
+    """Image b alone gives the bits it gives inside a batch of 8, and two
+    launches give the same bits."""
+    rng = np.random.default_rng(21)
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 6, 8, 256, 512, torch.bfloat16))
+    full = k2.fused_consensus_update(lv, bu, td, side=16, cons=True)
+    again = k2.fused_consensus_update(lv, bu, td, side=16, cons=True)
+    one = k2.fused_consensus_update(*(t[:, 3:4].contiguous() for t in (lv, bu, td)), side=16,
+                                    cons=True)
+    for a, b, c in zip(full, again, one):
+        assert torch.equal(a, b) and torch.equal(a[:, 3:4], c)
+
+
+K2_WIDTHS = [64, 128, 384, 576, 640]
+
+
+@pytest.mark.parametrize("d", K2_WIDTHS)
+def test_consensus_update_bf16_widths(dev, d):
+    """Widths that fill a warpgroup's four 64-column chunks in part (the
+    rest past d) and a second block of columns past 512."""
+    rng = np.random.default_rng(22)
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 3, 2, 96, d, torch.bfloat16))
+    got = k2.fused_consensus_update(lv, bu, td, side=1, cons=True)
+    want = k2.consensus_update_plain(lv, bu, td, side=1, cons=True)
+    _close(got[0], want[0], K2_BARS[torch.bfloat16])
+    _close(got[3], want[3], K2_CONS_BARS[torch.bfloat16])
+
+
+def test_consensus_update_bf16_refuses_wide_rows(dev):
+    """d > 640: the q and k tiles no longer fit in shared memory."""
+    lv = torch.zeros(2, 1, 64, 704, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="consensus_update_fwd"):
+        k2.fused_consensus_update(lv, lv.clone(), lv[:1].clone(), side=1)
 
 
 def test_kernel_raises_on_unsupported_shape(dev):

@@ -16,7 +16,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "glom_tpu_torch").rglob("*.py")) + [
-    REPO / name for name in ("chip_smoke.py", "port_ab.py", "k1_probe.py")
+    REPO / name for name in ("chip_smoke.py", "chip_timing.py", "port_ab.py", "kernel_probe.py")
 ]
 FORBIDDEN = ("jax", "jaxlib", "glom_tpu")
 

@@ -178,3 +178,41 @@ class TestConsensusUpdate:
             kw["side"] = 7
         with pytest.raises(ValueError):
             tk2.check_kernel_args(lv, bu, td, out, **kw)
+
+    @pytest.mark.parametrize("n,d", [(32, 512), (96, 512), (160, 512), (256, 512),
+                                     (4096, 512), (96, 64), (160, 640)])
+    def test_kernel_args_take_bf16_row_multiples(self, n, d):
+        """The bf16 kernel takes every n % 32 == 0 with d % 64 == 0, also
+        where n is not a multiple of its 64-row tiles."""
+        L, B = 2, 1
+        lv, bu, out = (torch.zeros(L, B, n, d, dtype=torch.bfloat16) for _ in range(3))
+        td = torch.zeros(L - 1, B, n, d, dtype=torch.bfloat16)
+        tk2.check_kernel_args(lv, bu, td, out, side=1, radius=0.0)
+
+    @pytest.mark.parametrize("case", ["n", "d", "align"])
+    def test_kernel_args_refuse_bf16(self, case):
+        L, B, n, d = 2, 1, 96, 128
+        shape = {"n": (L, B, 48, d), "d": (L, B, n, 96), "align": (L, B, n, d)}[case]
+        lv, bu, out = (torch.zeros(shape, dtype=torch.bfloat16) for _ in range(3))
+        td = torch.zeros((L - 1, *shape[1:]), dtype=torch.bfloat16)
+        if case == "align":  # TMA reads levels from a 16-byte-aligned address
+            lv = torch.zeros(lv.numel() + 1, dtype=torch.bfloat16)[1:].view(shape)
+        with pytest.raises(ValueError):
+            tk2.check_kernel_args(lv, bu, td, out, side=1, radius=0.0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_khat_scratch_shape_and_alignment(self, dtype):
+        """The bf16 kernel's k scratch has the shape, dtype and device of
+        the normalized keys its pre-pass writes (the plain version's k,
+        rounded; the card test test_consensus_update_khat_prepass holds the
+        contents) and starts on a TMA boundary; f32 normalizes in the
+        kernel and needs none."""
+        lv = torch.from_numpy(_k2_inputs(3)[0]).to(dtype)
+        scratch = tk2.khat_scratch(lv)
+        if dtype == torch.float32:
+            assert scratch is None
+            return
+        want = tk2._normalized_k(lv).to(dtype)
+        assert (scratch.shape, scratch.dtype, scratch.device) == (
+            want.shape, want.dtype, want.device)
+        assert scratch.is_contiguous() and scratch.data_ptr() % tk2.TMA_ALIGN == 0
