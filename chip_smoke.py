@@ -13,8 +13,11 @@ saved attention output and the one-sweep K2 backward at the long-row shape
 (bit for bit the two split launches) -- against its plain PyTorch version
 (the bf16 K1 forward, a TMA + wgmma GEMM, also at edge shapes of its
 128-row, 128-column tiles; the bf16 K2 forward, TMA + wgmma attention, also
-at edge shapes of its 64-row, 64-key tiles), times both (with K2's host
-time a call and its k pre-pass's share; and, where one PyTorch call
+at edge shapes of its 64-row, 64-key tiles; K4 in both instances, the bf16
+"wgmma" one at pages of 64 and 128 on flat and peaked inputs, "fma" at
+pages of 32, every row span and the unused trailing pages), times both
+(with K2's and K4's host time a call and their k pre-pass's share; and,
+where one PyTorch call
 computes the same function, that call: scaled_dot_product_attention for
 K2's attention and K4, torch.baddbmm for the pre-only K1; for K1's forward
 the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`), then
@@ -61,7 +64,7 @@ It prints one JSON line per phase. The last line is
 Any failed phase raises, and the script exits nonzero without that line.
 It also exits nonzero, printing no result, when no CUDA device is present.
 Bounds use the H100 SXM's published peaks: 989 TFLOP/s bf16 tensor, 67
-TFLOP/s f32 (K4 computes in f32), 3.35 TB/s HBM.
+TFLOP/s f32 (K4's "fma" instance computes in f32), 3.35 TB/s HBM.
 """
 
 from __future__ import annotations
@@ -96,6 +99,11 @@ ONESWEEP_MISMATCH_BAR = 1.2e-2  # about 4x the 0.30 % seen
 # The long-row f32 training loss and gradients (batch 1, n = 4096) against
 # the plain route: about 4x the 3.41e-5 seen (to_pixels.w).
 LONGROW_F32_BAR = 1.4e-4
+# K4's "wgmma" instance on peaked inputs (rank 4, rms 8) against the f32
+# plain version: p's bf16 rounding needs atol up to 0.110 at rtol 1e-2
+# there (kernel_probe.py k4, seeds 0-7; tests/test_torch_port_gpu.py's
+# K4_PEAKED_WGMMA_BARS). Flat inputs and "fma" keep K2's bars.
+K4_PEAKED_WGMMA_BARS = (1e-2, 0.25)
 # Batch-8 steps timed per route in the loop / per-iteration A/B.
 AB_ROUNDS = 10
 # Dispatches per ragged ladder entry and per route in the serve phases.
@@ -183,13 +191,18 @@ def main() -> int:
     # that a dropped bias term or softmax rescale fails on the inputs below.
     bars = {bf16: (1e-2, 1.6e-2), f32: (1e-4, 1e-5)}
     cons_bars = {bf16: (1e-2, 1.6e-2), f32: (2e-4, 2e-5)}
-    # K4 (f32 arithmetic in both dtypes): K2's bars; bf16 is 1-2 ulps of
-    # the output, f32 about 20x the 1.2e-6 seen at these inputs.
+    # K4: K2's bars; bf16 is 1-2 ulps of the output (K4_PEAKED_WGMMA_BARS
+    # for peaked inputs on "wgmma"), f32 about 20x the 1.2e-6 seen at these
+    # inputs.
     k4_bars = cons_bars
 
     def ragged_maps(counts, pages, page_tokens, device):
         """Per-token row_start / row_len of rows packed page-aligned onto
-        `pages` pages, each row's page span, and the used-token count."""
+        `pages` pages, each row's page span, and the used-token count. The
+        pages past the last row are an empty last slot, as the engine packs
+        one: they start at the used-token count with length 0, and their
+        band runs past the last page (the clamp) where the rows leave fewer
+        free pages than the band holds."""
         T = pages * page_tokens
         rs, rl = torch.zeros(T, dtype=torch.int32), torch.zeros(T, dtype=torch.int32)
         spans, off = [], 0
@@ -200,6 +213,7 @@ def main() -> int:
             if k:
                 spans.append((off * page_tokens, (off + k) * page_tokens))
             off += k
+        rs[off * page_tokens:] = off * page_tokens
         return (dict(row_start=rs.to(device), row_len=rl.to(device)), spans,
                 off * page_tokens)
     failures = []
@@ -321,33 +335,62 @@ def main() -> int:
     # The flagship's largest ragged signature: 32 pages of 64 tokens, window
     # 256 (one 224-px row). Rows of 256/144/64/16/49/100 patches packed
     # page-aligned, with intra-row pads, an empty row slot, a last real row
-    # whose band runs past the last page (the clamp), and an unused trailing
-    # page (row length 0: finite, outside the parity contract).
+    # whose band runs past the last page, and an unused trailing page
+    # (row length 0, its band clamped: the uniform average of the last page).
+    # bf16 runs the "wgmma" instance, f32 "fma". Then, from a generator of
+    # their own (so later phases draw as before): peaked levels (rank 4 a
+    # level, rms 8: p's rounding shows) at the same signature; pages of 128
+    # (two key tiles a page), flat and peaked; pages of 32 ("fma" in bf16).
+    # Every row span and the unused pages are held to the plain version.
     pt, P_sig, window = 64, 32, 256
     k4_counts = [256, 144, 64, 16, 256, 49, 0, 256, 144, 64, 16, 256, 49, 100, 16]
-    k4_maps, k4_spans, k4_used = ragged_maps(k4_counts, P_sig, pt, dev)
+    gen_k4 = torch.Generator().manual_seed(SEED + 3)
+
+    def k4_levels(T, dtype, inputs):
+        """[T, L, d] levels from gen_k4: "flat" iid at rms 2, "peaked" of
+        rank 4 a level at rms 8."""
+        if inputs == "flat":
+            return (2.0 * torch.randn(T, L, d, generator=gen_k4)).to(dev, dtype)
+        coef = torch.randn(T, L, 4, generator=gen_k4)
+        basis = torch.randn(L, 4, d, generator=gen_k4)
+        return (4.0 * torch.einsum("tlr,lrd->tld", coef, basis)).contiguous().to(dev, dtype)
+
+    # Each layout leaves fewer free pages than a band holds, so the unused
+    # pages' band runs past the last page.
+    k4_extra = [(64, P_sig, k4_counts, "peaked"),
+                (128, 11, [256, 200, 64, 256, 49, 0, 128, 100], "flat"),
+                (128, 11, [256, 200, 64, 256, 49, 0, 128, 100], "peaked"),
+                (32, 64, k4_counts, "flat")]
     k4_err = 0.0
-    for dtype in (bf16, f32):
-        for attend_self in (False, True):
-            lv = randn(P_sig * pt, L, d, dtype=dtype, scale=2.0)
-            kw = dict(k4_maps, window=window, page_tokens=pt, attend_self=attend_self)
-            got = k4.banded_ragged_consensus(lv, **kw)
-            torch.cuda.synchronize()
-            want = k4.banded_ragged_consensus_plain(lv, **kw)
-            rtol, atol = k4_bars[dtype]
-            worst = [compare(got[a:b], want[a:b], rtol, atol) for a, b in k4_spans]
-            ok = all(w[0] for w in worst)
-            abs_err = max(w[1] for w in worst)
-            tail_finite = bool(torch.isfinite(got[k4_used:].float()).all())
-            if dtype == bf16:
-                k4_err = max(k4_err, abs_err)
-            emit("k4_vs_plain", shape=[P_sig * pt, L, d], page_tokens=pt, window=window,
-                 dtype=str(dtype), attend_self=attend_self, rows=k4_counts,
-                 max_abs_err=abs_err, max_rel_err=max(w[2] for w in worst), rtol=rtol,
-                 atol=atol, bar_ratio=max(w[3] for w in worst), unused_tail_finite=tail_finite,
-                 ok=ok and tail_finite)
-            if not (ok and tail_finite):
-                failures.append(f"K4 {dtype} self={attend_self}")
+    for k4_pt, pages, counts, inputs in [(pt, P_sig, k4_counts, "flat")] + k4_extra:
+        maps, spans, used = ragged_maps(counts, pages, k4_pt, dev)
+        for dtype in (bf16, f32):
+            instance = k4.k4_instance(dtype, k4_pt)
+            rtol, atol = (K4_PEAKED_WGMMA_BARS if inputs == "peaked" and instance == "wgmma"
+                          else k4_bars[dtype])
+            for attend_self in (False, True):
+                if inputs == "flat" and k4_pt == pt:
+                    lv = randn(pages * k4_pt, L, d, dtype=dtype, scale=2.0)
+                else:
+                    lv = k4_levels(pages * k4_pt, dtype, inputs)
+                kw = dict(maps, window=window, page_tokens=k4_pt, attend_self=attend_self)
+                got = k4.banded_ragged_consensus(lv, **kw)
+                torch.cuda.synchronize()
+                want = k4.banded_ragged_consensus_plain(lv, **kw)
+                rows = [compare(got[a:b], want[a:b], rtol, atol) for a, b in spans]
+                unused = compare(got[used:], want[used:], rtol, atol)
+                ok = all(w[0] for w in rows) and unused[0]
+                abs_err = max(w[1] for w in rows)
+                if dtype == bf16 and k4_pt == pt:
+                    k4_err = max(k4_err, abs_err)
+                emit("k4_vs_plain", shape=[pages * k4_pt, L, d], page_tokens=k4_pt,
+                     window=window, dtype=str(dtype), instance=instance, inputs=inputs,
+                     attend_self=attend_self, rows=counts, max_abs_err=abs_err,
+                     max_rel_err=max(w[2] for w in rows), rtol=rtol, atol=atol,
+                     bar_ratio=max(w[3] for w in rows), unused_pages=(pages * k4_pt - used)
+                     // k4_pt, unused_max_abs_err=unused[1], unused_bar_ratio=unused[3], ok=ok)
+                if not ok:
+                    failures.append(f"K4 {dtype} pt={k4_pt} {inputs} self={attend_self}")
     if failures:
         raise AssertionError(f"kernel/plain mismatch: {failures}")
 
@@ -715,7 +758,7 @@ def main() -> int:
     def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None,
                       peak=PEAK_BF16, library_seq_ms=None, **extra):
         """Keep and print one bf16 kernel's times beside its bound (its
-        operations at `peak`: the bf16 tensor rate, or f32 for K4).
+        operations at `peak`: the bf16 tensor rate, or f32 for K4's "fma").
         library_seq_ms: a short sequence of PyTorch calls for the same
         function, where no one call computes it."""
         b_ms, b_by = bound(ops, nbytes, peak)
@@ -777,16 +820,22 @@ def main() -> int:
                 k2._normalized_k(lv).to(lv.dtype).reshape(Lc * B, 1, nc, dc),
                 lv.reshape(Lc * B, 1, nc, dc))
 
-    def k2_host(run):
-        """The host's time a K2 forward call (checks, scratch, tensor maps,
-        two launches) in us, and the share of the call's device time its k
-        pre-pass takes (torch.profiler)."""
-        us = device_us_by_kernel(run, calls=3, key=lambda name: (
-            "khat" if "khat" in name else "main" if "consensus_update_kernel" in name
-            else "other"))
+    def prepass_host(run, main="consensus_update_kernel"):
+        """The host's time a K2 or K4 forward call (checks, scratch, tensor
+        maps, two launches) in us, the device time of its k pre-pass and of
+        its two kernels together (`main` names the attention kernel;
+        torch.profiler, over ten calls; a profile that saw none of the call's
+        kernels is taken again, twice at most), and the pre-pass's share."""
+        for _ in range(3):
+            us = device_us_by_kernel(run, calls=10, key=lambda name: (
+                "khat" if "khat" in name else "main" if main in name else "other"))
+            if us.get("main"):
+                break
+        else:
+            raise AssertionError(f"three profiles of a {main} call saw no {main}")
         khat, all_us = us.get("khat", 0.0), us.get("khat", 0.0) + us.get("main", 0.0)
         return dict(host_us_per_call=host_us(run), prepass_ms=khat / 1e3,
-                    prepass_share=khat / all_us if all_us else None)
+                    prepass_share=khat / all_us if all_us else None, kernels_ms=all_us / 1e3)
 
     # K2 at buckets 1 and 8, and one long row (the TPU's streamed kernel's
     # regime).
@@ -801,25 +850,30 @@ def main() -> int:
         record_timing(label, [Lc, B, nc, d], ms, plain_ms, 4 * Lc * B * nc * nc * d,
                       2 * (4 * Lc - 1) * B * nc * d,
                       library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call,
-                      **k2_host(lambda: k2.fused_consensus_update(lv, bu, td, side=sd)))
-    # K4 at the largest ragged signature, bf16, as the ragged route runs it:
-    # 32 full-resolution rows' pages (every slot of every band valid) and
-    # the k4_vs_plain row mix. Its work depends on the row lengths: each
-    # query row of a page scores and averages min(len, window) slots (all
-    # `window` on an unused page), 2 x 2 x d f32 operations a slot and
-    # level; bytes: levels read once and written once.
+                      **prepass_host(lambda: k2.fused_consensus_update(lv, bu, td, side=sd)))
+    # K4 at the largest ragged signature, bf16, as the ragged route runs it
+    # (the "wgmma" instance): 32 full-resolution rows' pages (every slot of
+    # every band valid) and the k4_vs_plain row mix. Its work depends on the
+    # row lengths: each query row of a page scores and averages min(len,
+    # window) slots (all `window` on an unused page), 2 x 2 x d operations
+    # a slot and level, at the bf16 tensor rate; bytes: levels read once and
+    # written once.
     def k4_ops(counts):
         slots = [min(c, window) for c in counts for _ in range(-(-c // pt))]
         return 4 * L * d * pt * (sum(slots) + (P_sig - len(slots)) * window)
 
     lib_call = ("torch.nn.functional.scaled_dot_product_attention on the band gathered "
-                "beforehand (q [P, L, pt, d], normalised k and v [P, L, window, d], f32, "
-                "an additive f32 length mask): the attention alone, attend_self=True")
+                "beforehand (q [P, L, pt, d], normalised k and v [P, L, window, d], bf16, "
+                "an additive length mask): the attention alone, attend_self=True; "
+                "library_f32_ms: the same call in f32, the yardstick of the \"fma\" "
+                "instance")
     for label, counts in (("k4_ragged32_full", [256] * 8), ("k4_ragged32_mixed", k4_counts)):
         maps, _, used = ragged_maps(counts, P_sig, pt, dev)
         lv = randn(P_sig * pt, L, d, dtype=bf16, scale=2.0)
         kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
-        ms = time_ms(lambda: k4.banded_ragged_consensus(lv, **kw))
+        # 100 calls: the host's ~35 us a call is near the device's ~46 us, so
+        # one pause of the host inside 20 calls would show in their mean.
+        ms = time_ms(lambda: k4.banded_ragged_consensus(lv, **kw), reps=100)
         plain_ms = time_ms(lambda: k4.banded_ragged_consensus_plain(lv, **kw))
         # The library's one call for the same function (attend_self=True:
         # an additive mask cannot replace the self score), on the same
@@ -836,20 +890,31 @@ def main() -> int:
         mask = torch.zeros(P_sig, 1, 1, window, device=dev).masked_fill(
             past[:, None, None, :], float(torch.finfo(f32).min))
 
+        q_h, k_h, v_h = (t.to(bf16) for t in (q_b, k_b, v_b))
+        mask_h = mask.clamp_min(torch.finfo(bf16).min).to(bf16)  # finite in bf16
+
         def library():
-            return torch.nn.functional.scaled_dot_product_attention(q_b, k_b, v_b,
-                                                                    attn_mask=mask)
+            return torch.nn.functional.scaled_dot_product_attention(q_h, k_h, v_h,
+                                                                    attn_mask=mask_h)
         lib_ms = time_ms(library)
-        # Over the used pages: on an unused page (every slot masked) the
-        # library call returns zeros, the function a uniform average.
+        lib_f32_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_b, k_b, v_b, attn_mask=mask))
+        # Over the used pages (an unused page is outside the library call's
+        # function).
         self_kw = dict(kw, attend_self=True)
-        lib_gap = float((library().permute(0, 2, 1, 3).reshape(P_sig * pt, L, d)[:used]
+        lib_gap = float((library().float().permute(0, 2, 1, 3).reshape(P_sig * pt, L, d)[:used]
                          - k4.banded_ragged_consensus(lv, **self_kw)[:used].float()).abs().max())
         full_ops = 4 * L * d * P_sig * pt * window
+        instance = k4.k4_instance(bf16, pt)
+        peak = PEAK_BF16 if instance == "wgmma" else PEAK_F32
         record_timing(label, [P_sig * pt, L, d], ms, plain_ms, k4_ops(counts),
-                      2 * 2 * P_sig * pt * L * d, library_ms=lib_ms, peak=PEAK_F32,
-                      rows=counts, bound_full_band_ms=bound(full_ops, 0, PEAK_F32)[0],
-                      library_call=lib_call, library_max_abs_diff=lib_gap)
+                      2 * 2 * P_sig * pt * L * d, library_ms=lib_ms, peak=peak,
+                      rows=counts, instance=instance,
+                      bound_full_band_ms=bound(full_ops, 0, peak)[0],
+                      library_call=lib_call, library_max_abs_diff=lib_gap,
+                      library_f32_ms=lib_f32_ms,
+                      **prepass_host(lambda: k4.banded_ragged_consensus(lv, **kw),
+                                     "banded_consensus_kernel"))
     # The backward kernels at bucket 8, bf16, as the training step runs them:
     # K1 from the saved pre (4 products), K2 at global consensus (all pairs).
     for label, which, G in (("k1_bwd_b8", "bottom_up", L), ("k1_bwd_add_b8", "top_down", L - 1)):
@@ -1049,7 +1114,7 @@ def main() -> int:
                       time_ms(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw), reps=5),
                       time_ms(lambda: k2.consensus_update_plain(lv_r, bu_r, td_r, **kw), reps=3),
                       fwd_ops_r, nbytes, library_ms=fwd_lib_ms_r, library_call=k2_lib_call,
-                      **k2_host(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw)))
+                      **prepass_host(lambda: k2.fused_consensus_update(lv_r, bu_r, td_r, **kw)))
     _, m_r, l_r, cons_r = k2.fused_consensus_update(lv_r, bu_r, td_r, side=sr, cons=True)
     g_r = randn(*long_shape, dtype=bf16)
     # The library's one call for the attention backward alone: SDPA's
@@ -1238,7 +1303,7 @@ def main() -> int:
         kernel_ms = device_ms_by_kernel(prof)
         ported = {key: v for key, v in kernel_ms.items()
                   if any(k in key for k in ("mlp_fwd_", "consensus_update_kernel",
-                                            "banded_consensus_kernel"))}
+                                            "banded_consensus_kernel", "khat_kernel"))}
         glue = {key: v for key, v in kernel_ms.items() if key not in ported}
         busy = sum(kernel_ms.values())
         return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
@@ -1819,7 +1884,7 @@ def main() -> int:
                         source=csrc + "banded_consensus.cu",
                         replaces="glom_tpu/kernels/banded_consensus.py:174",
                         launches=ragged_launches["banded_consensus_fwd"], max_abs_err=k4_err,
-                        **timings["k4_ragged32_full"]))
+                        instance=k4.k4_instance(bf16, pt), **timings["k4_ragged32_full"]))
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,42 +5,79 @@
 //   out[t, l] = sum_w softmax_w(s[t, l, w]) . v[band(t, w), l]
 //   s[t, l, w] = q[t, l] . khat[band(t, w), l] * d^-1/2
 //
-// with q = v = levels and khat = kv / max(||kv||, 1e-12) in f32. Token t of
+// with q = v = levels and khat = kv / max(||kv||, 1e-12), the norm in f32. Token t of
 // page p attends over the W = n_band * pt slots of its row's page band:
 // slot w = j * pt + u reads token min(band_page0[p] + j, P - 1) * pt + u.
 // When attend_self is off the self slot ((band_page0[p] + j) * pt + u == t)
 // scores -5e-4; then every slot w >= len_page[p] scores finfo(float32).min.
+// The kernels take the per-token maps row_start and row_len (int32 [T]):
+// rows start on a page boundary, so band_page0[p] = row_start[p * pt] / pt
+// and len_page[p] = row_len[p * pt], which each block reads for its page.
 //
 // Replaces: glom_tpu/kernels/banded_consensus.py:_banded_kernel (the
 // pallas_call at :174). It computes what that kernel computes, not block for
 // block: the Pallas grid step is a whole [pt, L, d] page and its f32
 // accumulator (768 KB at the flagship's pt = 64, L = 6, d = 512), past a
 // block's 227 KB of shared memory. Levels never mix in this function, so a
-// block here owns one level of up to 32 query rows of one page and streams
-// its row's band, 32 key rows at a time, through shared memory, with a
-// running max, sum and accumulator per query row (an online softmax, as the
-// Pallas kernel's over band pages).
+// block here owns one level of the query rows of one page and streams its
+// row's band, a key tile at a time, through shared memory, with a running
+// max, sum and accumulator per query row (an online softmax, as the
+// Pallas kernel's over band pages). Two instances, chosen by the caller
+// (glom_tpu_torch/kernels/banded_consensus.py:k4_instance) and checked
+// here:
 //
-// Bound on the H100: operations. At the largest flagship ragged signature
-// (P = 32, pt = 64, T = 2048, W = 256, bf16) one launch reads and writes
-// 12.6 MB each (7.5 us at 3.35 TB/s) against 2 * 2 * T * L * W * d = 6.4
-// GFLOP of f32 products (96 us at 67 TFLOP/s).
+// "wgmma" (bf16, pt a multiple of 64: the flagship's pages of 64 and
+// their multiples), Hopper's tensor cores on sm90_attn.cuh:
+//   * a pre-pass (sm90::khat_kernel) writes khat = kv / max(||kv||, 1e-12),
+//     rounded once to bf16, for all T * L rows into a [T, L, d] scratch
+//     the caller allocates: a key row is normalised once a launch, not once
+//     for each of the (window / 64) query blocks whose bands cover it;
+//   * a block owns 64 query rows of one page (pt % 64 == 0: a block never
+//     spans two pages, so it has one band) and one level; grid (T / 64, L).
+//     Key tile it is band slots 64 it .. 64 it + 63, inside band page j =
+//     64 it / pt, read at token min(band_page0[p] + j, P - 1) * pt + 64 it %
+//     pt (the Pallas index map's clamp, never TMA's zero fill: an unused
+//     page averages the clamped pages). Q, then each tile's khat rows and v
+//     rows, come by TMA (128-byte swizzle) through maps of [T, L, d] as {d,
+//     L, T} with a 64 x 1 x 64 box (the level a coordinate, the token stride
+//     L * d), into single-stage rings;
+//   * sm90::attn_key_loop: two warpgroups each compute the whole S = Q .
+//     khat^T (wgmma m64n64k16), the masks, the online softmax in
+//     registers, and O += P . V over their halves of the columns with P
+//     rounded to bf16 (the RS form); O stays in registers;
+//   * masks as _banded_kernel's (:83-90): the self slot is found from the
+//     unclamped page index, so it lies in the tile whose band position
+//     (band_page0[p] + j) * pt + 64 it % pt equals the block's first token,
+//     on its diagonal; the length mask is applied on the tile holding len
+//     (on every tile of an unused page). Tiles wholly past len are skipped
+//     when the row has a valid slot;
+//   * the epilogue forms out = O / l, stages each warp's rows through
+//     shared memory and writes them as 16-byte row segments at the token
+//     stride L * d.
+// Rounding: khat and p are rounded to bf16 (as glom_tpu's bf16 K2 rounds
+// them, consensus_update.py:505 and :184); scores, the softmax statistics
+// and the sums are f32; the output is cast once.
 //
-// Kept out of device memory: the gathered band, the normalised k, the [W]
-// scores and probabilities of each query row. The per-page maps
-// (band_page0, len_page: int32 [P]) stay on the device; each block reads
-// its page's two.
-//
-// Arithmetic follows the Pallas body: everything after the load is f32 (k
-// normalised in f32, f32 scores, p kept in f32, f32 products and sums;
-// FMA, no tensor cores), the output is cast once. Each warp owns four query
-// rows: its lanes hold one key each for the scores and the softmax step,
-// and 4 x 4 x (d / 128) accumulator values each for p . v, with p handed
-// across lanes by shuffles. Key tiles wholly past the row length are
-// skipped when the row has a valid slot (they would add exactly 0); a page
-// with len_page 0 (an unused trailing page) walks the whole band, every
+// "fma" (f32, and bf16 at pt < 64), the CUDA cores: everything after the
+// load is f32, as in the Pallas body (k normalised in f32, f32 scores, p
+// kept in f32, f32 products and sums; FMA), the output is cast once. A
+// block owns up to 32 query rows and streams 32 key rows a step,
+// normalising each key row as it loads it. Each warp owns four query rows:
+// its lanes hold one key each for the scores and the softmax step, and 4 x
+// 4 x (d / 128) accumulator values each for p . v, with p handed across
+// lanes by shuffles. A page with len_page 0 walks the whole band, every
 // slot masked, so its output is the uniform average of the clamped band:
 // finite, as in the Pallas kernel.
+//
+// Bound on the H100: bytes, for "wgmma". At the largest flagship ragged
+// signature (P = 32, pt = 64, T = 2048, W = 256, bf16) one launch reads and
+// writes 12.6 MB each (7.5 us at 3.35 TB/s) against 2 * 2 * T * L * W * d =
+// 6.4 GFLOP of products (6.5 us at 989 TFLOP/s bf16; 96 us at 67 TFLOP/s
+// f32 for "fma", which operations bound).
+//
+// Kept out of device memory: the gathered band, the [W] scores and
+// probabilities of each query row, the f32 sums; the normalised k in
+// "fma". The maps stay on the device.
 //
 // The output must not alias the input: other blocks still read it.
 // Plain C interface (no PyTorch headers), bound with ctypes.
@@ -52,6 +89,8 @@
 #include <cstdint>
 #include <cstring>
 
+#include "sm90_attn.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // 8 warps
@@ -59,8 +98,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;        // query rows per warp
 constexpr int TILE = 32;       // query rows per block, key rows per step
 constexpr int MAX_CHUNKS = 4;  // d / 128 at most: d <= 512
-constexpr float NEG_MAX = -3.4028234663852886e38f;  // finfo(float32).min
-constexpr float SELF_VALUE = -5e-4f;               // TOKEN_ATTEND_SELF_VALUE
+using sm90::NEG_MAX;
+using sm90::SELF_VALUE;
 static_assert(WARPS * ROWS == TILE, "each warp owns four query rows of the tile");
 
 // Four consecutive elements: raw copies and conversion to f32 (exact).
@@ -140,7 +179,7 @@ struct Layout {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
-                        const int* __restrict__ band_page0, const int* __restrict__ len_page,
+                        const int* __restrict__ row_start, const int* __restrict__ row_len,
                         int P, int pt, int L, int d, int n_band, int tile, int attend_self,
                         float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -152,8 +191,8 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
   const int q0 = blockIdx.x * tile;  // first query token of the tile
   const int l = blockIdx.y;
   const int p = q0 / pt;  // a tile never crosses a page
-  const int band0 = band_page0[p];
-  const int len = len_page[p];
+  const int band0 = row_start[p * pt] / pt;
+  const int len = row_len[p * pt];
   const size_t tstride = (size_t)L * d;  // token stride of [T, L, d]
   const T* lv_l = lv + (size_t)l * d;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -301,38 +340,179 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
   }
 }
 
-// Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
-// once per device (`done` flags which devices are set).
-constexpr int MAX_DEVICES = 64;
-
-template <typename Kernel>
-cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
-
 template <typename T>
-int launch(const void* lv, void* out, const int* band_page0, const int* len_page, int P, int pt,
-           int L, int d, int n_band, int attend_self, cudaStream_t stream) {
-  if (P < 1 || pt < 1 || L < 1 || n_band < 1 || d < 128 || d % 128 != 0 ||
-      d > 128 * MAX_CHUNKS || (pt > TILE && pt % TILE != 0))
-    return (int)cudaErrorInvalidValue;
-  static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(banded_consensus_kernel<T>, lifted);
+int launch_fma(const void* lv, void* out, const int* row_start, const int* row_len, int P,
+               int pt, int L, int d, int n_band, int attend_self, cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel<T>, lifted);
   if (err != cudaSuccess) return (int)err;
   const int tile = pt < TILE ? pt : TILE;
   const dim3 grid(P * pt / tile, L);
   const float scale = (float)(1.0 / sqrt((double)d));
   banded_consensus_kernel<T><<<grid, THREADS, Layout<T>(d).bytes, stream>>>(
-      static_cast<const T*>(lv), static_cast<T*>(out), band_page0, len_page, P, pt, L, d,
+      static_cast<const T*>(lv), static_cast<T*>(out), row_start, row_len, P, pt, L, d,
       n_band, tile, attend_self, scale);
+  return (int)cudaGetLastError();
+}
+
+// --- "wgmma": bf16, pt a multiple of 64, on sm90_attn.cuh --------------------
+
+using bf16 = __nv_bfloat16;
+// The instances, as kernels/banded_consensus.py:K4_INSTANCES numbers them.
+constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1;
+
+int instance_for(int is_bf16, int pt) {
+  return is_bf16 && pt % sm90::ATTN_ROWS == 0 ? INSTANCE_WGMMA : INSTANCE_FMA;
+}
+
+// Grid: (T / 64, L). lv_map and k_map: the levels and khat [T, L, d] as
+// {d, L, T} maps with a 64 x 1 x 64 box (token_map).
+__global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
+banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
+                              const __grid_constant__ CUtensorMap k_map, bf16* __restrict__ out,
+                              const int* __restrict__ row_start,
+                              const int* __restrict__ row_len, int P, int pt, int L, int d,
+                              int n_band, int attend_self, float scale) {
+  constexpr int BOX = sm90::ATTN_BOX, KEYS = sm90::ATTN_KEYS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const sm90::AttnLayout lay(d);
+  unsigned char* qs = smem;
+  unsigned char* ks = smem + lay.k_off;
+  unsigned char* vs = smem + lay.v_off;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 2;
+
+  const int t0 = blockIdx.x * sm90::ATTN_ROWS;  // the block's first query token
+  const int l = blockIdx.y;
+  const int p = t0 / pt;  // a block never spans two pages (pt % 64 == 0)
+  const int band0 = row_start[p * pt] / pt;
+  const int len = row_len[p * pt];
+  // Slots to walk: the whole band for an unused page (len 0), else up to
+  // the key tile holding the row's last valid slot.
+  const int W = n_band * pt;
+  const int n_slots = len > 0 ? min(W, (len + KEYS - 1) / KEYS * KEYS) : W;
+
+  // Key tile it's first key token: its band page clamped to the last page.
+  auto key_token = [&](int it) {
+    const int w0 = KEYS * it, j = w0 / pt;
+    return min(band0 + j, P - 1) * pt + (w0 - j * pt);
+  };
+  auto load_k = [&](int it) {
+    const int row = key_token(it);
+    sm90::mbar_expect_tx(k_full, lay.boxes * BOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(ks + c * BOX, &k_map, 64 * c, l, row, k_full);
+  };
+  auto load_v = [&](int it) {
+    const int row = key_token(it);
+    sm90::mbar_expect_tx(v_full, lay.boxes * BOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(vs + c * BOX, &lv_map, 64 * c, l, row, v_full);
+  };
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(k_full, 1);
+    sm90::mbar_init(v_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sm90::mbar_expect_tx(q_full, lay.boxes * BOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(qs + c * BOX, &lv_map, 64 * c, l, t0, q_full);
+    load_k(0);
+    load_v(0);
+  }
+
+  // The thread's two rows of the block (wgmma's accumulator fragment) and
+  // its column pairs.
+  const int lane = threadIdx.x % 32, cq = 2 * (lane % 4);
+  const int r_a = 16 * ((threadIdx.x % 128) / 32) + lane / 4, r_b = r_a + 8;
+  auto mask = [&](int it, float (&s)[sm90::ACC64]) {
+    const int w0 = KEYS * it, j = w0 / pt;
+    // Slot w0 + col sits at band position (band0 + j) * pt + w0 % pt + col
+    // (unclamped); both that and t0 are multiples of 64, so the self slots
+    // lie on this tile's diagonal exactly when the two are equal.
+    const bool diag = !attend_self && (band0 + j) * pt + (w0 - j * pt) == t0;
+    const bool edge = w0 + KEYS > len;  // the tile holding len; every tile when len = 0
+    if (diag || edge) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * jj + cq + e;
+          float& sa = s[4 * jj + e];
+          float& sb = s[4 * jj + 2 + e];
+          if (diag) {
+            if (col == r_a) sa = SELF_VALUE;
+            if (col == r_b) sb = SELF_VALUE;
+          }
+          if (w0 + col >= len) sa = sb = NEG_MAX;
+        }
+      }
+    }
+  };
+  float o[sm90::ATTN_NC][sm90::ACC64];
+  float m_a, m_b, l_a, l_b;
+  sm90::attn_key_loop(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
+                      n_slots / KEYS, d, scale, load_k, load_v, mask);
+
+  // Epilogue: out = O / l through the warp's stage (k and v are free),
+  // 16-byte row segments at the token stride L * d.
+  const int warp = threadIdx.x / 32;
+  const int w16 = 16 * (warp % 4);  // the warp's first row of the block
+  float2* stage = reinterpret_cast<float2*>(ks + warp * sm90::ATTN_STAGE_BYTES);
+  const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
+  const size_t ld = (size_t)L * d;
+  bf16* dst = out + (size_t)(t0 + w16) * ld + (size_t)l * d;
+#pragma unroll
+  for (int c = 0; c < sm90::ATTN_NC; ++c) {
+    const int chunk = sm90::ATTN_NC * (threadIdx.x / 128) + c;  // 64-column chunk of d
+    if (chunk >= lay.boxes) continue;  // past d: its box was not loaded
+    sm90::stage_cons(o[c], l_a, inv_a, l_b, inv_b, stage);
+    __syncwarp();
+#pragma unroll
+    for (int pass = 0; pass < 4; ++pass) {
+      const int rw = 4 * pass + lane / 8, k = lane % 8;  // lane k of 8: columns 8k .. 8k+7
+      float v[8];
+      sm90::staged8(stage, rw, k, v);
+      *reinterpret_cast<uint4*>(dst + rw * ld + 64 * chunk + 8 * k) =
+          make_uint4(sm90::pack_bf16(v[0], v[1]), sm90::pack_bf16(v[2], v[3]),
+                     sm90::pack_bf16(v[4], v[5]), sm90::pack_bf16(v[6], v[7]));
+    }
+    __syncwarp();
+  }
+}
+
+// [T, L, d] bf16 as a {d, L, T} map with a 64 x 1 x 64 box: a box is 64
+// tokens of one level, 64 columns (cached).
+cudaError_t token_map(CUtensorMap* map, const void* ptr, int d, int L, int T) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)T};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)L * d * 2};
+  const cuuint32_t box[3] = {64, 1, 64};
+  return sm90::cached_map(map, ptr, dims, strides, box);
+}
+
+// The pre-pass and the attention.
+int launch_wgmma(const bf16* lv, bf16* out, bf16* khat, const int* row_start,
+                 const int* row_len, int P, int pt, int L, int d, int n_band, int attend_self,
+                 cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const int T = P * pt;
+  cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel_wgmma, lifted);
+  CUtensorMap lv_map, k_map;
+  if (err == cudaSuccess) err = token_map(&lv_map, lv, d, L, T);
+  if (err == cudaSuccess) err = token_map(&k_map, khat, d, L, T);
+  if (err == cudaSuccess) err = sm90::launch_khat(lv, khat, (size_t)T * L, d, stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(T / sm90::ATTN_ROWS, L);
+  const float scale = (float)(1.0 / sqrt((double)d));
+  banded_consensus_kernel_wgmma<<<grid, sm90::ATTN_THREADS, sm90::AttnLayout(d).bytes, stream>>>(
+      lv_map, k_map, out, row_start, row_len, P, pt, L, d, n_band, attend_self, scale);
   return (int)cudaGetLastError();
 }
 
@@ -341,17 +521,28 @@ int launch(const void* lv, void* out, const int* band_page0, const int* len_page
 extern "C" {
 
 // lv, out: [P * pt, L, d], contiguous, one dtype (is_bf16 selects bf16,
-// else f32), not aliased; band_page0, len_page: int32 [P] on the device;
-// n_band = window / pt. pt <= 32 or a multiple of 32; d a multiple of 128,
-// at most 512. Returns a cudaError_t.
-int banded_consensus_fwd(const void* lv, void* out, const int* band_page0, const int* len_page,
-                         int P, int pt, int L, int d, int n_band, int attend_self, int is_bf16,
-                         void* stream) {
+// else f32), not aliased; row_start, row_len: int32 [P * pt] on the device;
+// n_band = window / pt; d a multiple of 128, at most 512; pt <= 32 or a
+// multiple of 32. `instance` must be the one the caller's rule gives: 1
+// ("wgmma") for bf16 with pt a multiple of 64, with khat a bf16
+// [P * pt, L, d] scratch and lv 16-byte aligned; else 0 ("fma") with khat
+// NULL. A mismatch returns cudaErrorInvalidValue. Returns a cudaError_t.
+int banded_consensus_fwd(const void* lv, void* out, void* khat, const int* row_start,
+                         const int* row_len, int P, int pt, int L, int d, int n_band,
+                         int attend_self, int is_bf16, int instance, void* stream) {
+  if (P < 1 || pt < 1 || L < 1 || n_band < 1 || d < 128 || d % 128 != 0 ||
+      d > 128 * MAX_CHUNKS || (pt > TILE && pt % TILE != 0) ||
+      instance != instance_for(is_bf16, pt) || (khat != nullptr) != (instance == INSTANCE_WGMMA))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(lv, out, band_page0, len_page, P, pt, L, d, n_band,
-                                         attend_self, s)
-                 : launch<float>(lv, out, band_page0, len_page, P, pt, L, d, n_band,
-                                 attend_self, s);
+  if (instance == INSTANCE_WGMMA)
+    return launch_wgmma(static_cast<const bf16*>(lv), static_cast<bf16*>(out),
+                        static_cast<bf16*>(khat), row_start, row_len, P, pt, L, d, n_band,
+                        attend_self, s);
+  return is_bf16 ? launch_fma<bf16>(lv, out, row_start, row_len, P, pt, L, d, n_band,
+                                    attend_self, s)
+                 : launch_fma<float>(lv, out, row_start, row_len, P, pt, L, d, n_band,
+                                     attend_self, s);
 }
 
 const char* banded_consensus_error_string(int err) {

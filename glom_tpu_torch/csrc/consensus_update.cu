@@ -30,7 +30,8 @@
 // finfo(float32).min (never -inf, so a fully masked tile cannot make
 // inf - inf); p is rounded to the compute type before p . v.
 //
-// bf16 design (Hopper, sm_90a):
+// bf16 design (Hopper, sm_90a; the pre-pass and the key loop are
+// sm90_attn.cuh's, shared with K4's bf16 forward, banded_consensus.cu):
 //   * A pre-pass writes k = normalize(levels) rounded to bf16, [L, B, n, d],
 //     to a scratch the caller allocates (one warp a row, 16-byte loads): the
 //     key rows are normalized once a launch, not once for every query block
@@ -75,7 +76,6 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
-#include <mutex>
 
 #include "sm90_attn.cuh"
 
@@ -83,8 +83,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr float NEG_MAX = -3.4028234663852886e38f;  // finfo(float32).min
-constexpr float SELF_VALUE = -5e-4f;               // TOKEN_ATTEND_SELF_VALUE
+using sm90::NEG_MAX;
+using sm90::SELF_VALUE;
 
 // Rows i and j interact only within (floor(radius) + 1) * side flat
 // positions (glom_tpu consensus_update.py:_window): the key tiles
@@ -257,100 +257,20 @@ consensus_update_kernel_f32(const float* __restrict__ lv, const float* __restric
 
 // --- bf16: the Hopper kernel --------------------------------------------------
 
-constexpr int ROWS = 64;         // query rows a block: one wgmma m64
-constexpr int KEYS = 64;         // keys a tile: S is m64n64
-constexpr int BOX_BYTES = 64 * 128;  // one TMA box: 64 rows x 64 bf16 columns (128-byte swizzle)
-// A warpgroup holds NC chunks of 64 output columns, a block 2 NC (512
-// columns). Every wgmma runs for all NC chunks, also where d has fewer (a
-// wgmma under a branch the compiler cannot prove warpgroup-uniform is
-// serialized): chunks past d are neither loaded nor stored.
-constexpr int NC = 4;
-constexpr int WARPGROUPS = 2;
-constexpr int THREADS = 128 * WARPGROUPS;  // 255 registers a thread: O's sums fit
-constexpr int MAX_D = 640;        // Q and K tiles of 64 rows x d, and V's 512 columns, fit
-constexpr int STAGE_BYTES = 16 * 64 * 4;  // a warp's 16 rows x 64 columns of f32
-constexpr int KHAT_ROWS = 8;      // pre-pass rows a block: one a warp
-
-// Shared-memory layout from a 1024-byte-aligned base (the swizzle's period):
-// q [d/64 boxes], k [d/64 boxes], v [the block's 2 NC chunks], then the
-// barriers. The epilogue's staging reuses k and v.
-struct Bf16Layout {
-  int boxes, k_off, v_off, bar_off, bytes;
-  __host__ __device__ explicit Bf16Layout(int d) {
-    boxes = d / 64;
-    k_off = boxes * BOX_BYTES;
-    v_off = 2 * boxes * BOX_BYTES;
-    const int kv = (boxes + 2 * NC) * BOX_BYTES;
-    const int stage = WARPGROUPS * 4 * STAGE_BYTES;
-    bar_off = k_off + (kv > stage ? kv : stage);
-    bytes = 1024 + bar_off + 3 * 8;
-  }
-};
-
-// k = levels / max(||levels||, 1e-12), in f32, rounded: one warp a row.
-__global__ void __launch_bounds__(32 * KHAT_ROWS)
-consensus_update_kernel_khat(const bf16* __restrict__ lv, bf16* __restrict__ khat,
-                             size_t rows, int d) {
-  const size_t row = (size_t)blockIdx.x * KHAT_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const uint4* src = reinterpret_cast<const uint4*>(lv + row * d);
-  uint4* dst = reinterpret_cast<uint4*>(khat + row * d);
-  const int vecs = d / 8;
-  float ss = 0.0f;
-  for (int c = lane; c < vecs; c += 32) {
-    const uint4 u = __ldg(src + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float x = __bfloat162float(e[i]);
-      ss = fmaf(x, x, ss);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  const float denom = fmaxf(sqrtf(ss), 1e-12f);
-  for (int c = lane; c < vecs; c += 32) {
-    const uint4 u = __ldg(src + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-    uint4 o;
-    bf16* ko = reinterpret_cast<bf16*>(&o);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ko[i] = __float2bfloat16(__bfloat162float(e[i]) / denom);
-    dst[c] = o;
-  }
-}
-
-// e^x as 2^(x log2 e) on the special-function unit (ex2.approx: about 2
-// ulps, far below p's bf16 rounding); e^(-huge) is 0.
-__device__ __forceinline__ float exp_f32(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
-  return y;
-}
-
-// x / y from inv = RN(1 / y): q = RN(x inv) and one residual step, three
-// operations instead of a division. By Markstein's theorem the result is
-// RN(x / y) where nothing overflows or underflows, as for the sums over
-// l >= 1 it is given here.
-__device__ __forceinline__ float div_rn(float x, float y, float inv) {
-  const float q = __fmul_rn(x, inv);
-  return __fmaf_rn(__fmaf_rn(-q, y, x), inv, q);
-}
+constexpr int ROWS = sm90::ATTN_ROWS;
+constexpr int KEYS = sm90::ATTN_KEYS;
+constexpr int BOX_BYTES = sm90::ATTN_BOX;
+constexpr int NC = sm90::ATTN_NC;  // a warpgroup's 64-column chunks; a block's 2 NC
+constexpr int MAX_D = 640;         // Q and K tiles of 64 rows x d, and V's 512 columns, fit
 
 __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Grid: (row blocks, column groups of 512, L * B). lv_map and
 // k_map are [L * B, n, d] bf16 maps with a 64 x 64 box (sm90::make_map).
 template <bool SAVE_CONS>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
 consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const bf16* __restrict__ bu, const bf16* __restrict__ td,
@@ -361,7 +281,7 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const Bf16Layout lay(d);
+  const sm90::AttnLayout lay(d);
   unsigned char* qs = smem;
   unsigned char* ks = smem + lay.k_off;
   unsigned char* vs = smem + lay.v_off;
@@ -419,47 +339,11 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   const int ri_b = i_b / side, ci_b = i_b - ri_b * side;
 
   float o[NC][sm90::ACC64];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < sm90::ACC64; ++i) o[c][i] = 0.0f;
-  float m_a = NEG_MAX, m_b = NEG_MAX, l_a = 0.0f, l_b = 0.0f;
-  const uint32_t q_addr = sm90::smem_u32(qs), k_addr = sm90::smem_u32(ks);
-  const uint32_t v_addr = sm90::smem_u32(vs);
-  const int k_steps = d / 16;
-
-  sm90::mbar_wait(q_full, 0);
-  for (int jt = win.j_lo, it = 0; jt < win.j_hi; ++jt, ++it) {
-    const int j0 = jt * KEYS;
-    // S = Q . K^T over d: K step kk covers columns 16 kk .. 16 kk + 15, in
-    // box kk / 4, 32 bytes further along its 128-byte rows each step.
-    float s[sm90::ACC64];
-#pragma unroll
-    for (int i = 0; i < sm90::ACC64; ++i) s[i] = 0.0f;
-    sm90::mbar_wait(k_full, it & 1);
-    sm90::fence_acc(s);
-    sm90::wgmma_fence();
-    for (int kk = 0; kk < k_steps; ++kk) {
-      const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-      sm90::wgmma_m64n64k16_ss(s, sm90::smem_desc(q_addr + off, 16, 1024),
-                               sm90::smem_desc(k_addr + off, 16, 1024));
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_acc(s);
-    // Both warpgroups are past this tile's k rows: the loader refills the
-    // k ring with the next tile's (warpgroup 1 arrives, 0 waits).
-    if (w == 1) {
-      sm90::named_barrier_arrive(1, THREADS);
-    } else {
-      sm90::named_barrier_sync(1, THREADS);
-      if (loader && jt + 1 < win.j_hi) load_k(jt + 1);
-    }
-
-    // Scale, then the masks this tile needs: the diagonal (attend_self
-    // off), the radius, key columns past n (zero rows of the map).
-#pragma unroll
-    for (int i = 0; i < sm90::ACC64; ++i) s[i] = __fmul_rn(s[i], scale);
+  float m_a, m_b, l_a, l_b;
+  // The masks a key tile needs: the diagonal (attend_self off), the
+  // radius, key columns past n (zero rows of the map).
+  auto mask = [&](int it, float (&s)[sm90::ACC64]) {
+    const int j0 = (win.j_lo + it) * KEYS;
     const bool diag = !attend_self && j0 < i0 + ROWS && i0 < j0 + KEYS;
     if (diag || reach > 0 || j0 + KEYS > n) {
 #pragma unroll
@@ -484,85 +368,12 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
         }
       }
     }
-    // The online softmax's step for rows a and b.
-    float mx_a = NEG_MAX, mx_b = NEG_MAX;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      mx_a = fmaxf(mx_a, fmaxf(s[4 * jj], s[4 * jj + 1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
-    }
-#pragma unroll
-    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = mn_a == m_a ? 1.0f : exp_f32(__fsub_rn(m_a, mn_a));
-    const float corr_b = mn_b == m_b ? 1.0f : exp_f32(__fsub_rn(m_b, mn_b));
-    float sum_a = 0.0f, sum_b = 0.0f;
-    uint32_t p[16];  // P rounded to bf16: K step k's A registers are p[4k .. 4k+3]
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const float pa0 = exp_f32(__fsub_rn(s[4 * jj], mn_a));
-      const float pa1 = exp_f32(__fsub_rn(s[4 * jj + 1], mn_a));
-      const float pb0 = exp_f32(__fsub_rn(s[4 * jj + 2], mn_b));
-      const float pb1 = exp_f32(__fsub_rn(s[4 * jj + 3], mn_b));
-      sum_a = __fadd_rn(__fadd_rn(sum_a, pa0), pa1);
-      sum_b = __fadd_rn(__fadd_rn(sum_b, pb0), pb1);
-      p[2 * jj] = pack_bf16(pa0, pa1);
-      p[2 * jj + 1] = pack_bf16(pb0, pb1);
-    }
-#pragma unroll
-    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
-      sum_a = __fadd_rn(sum_a, __shfl_xor_sync(0xffffffffu, sum_a, o2));
-      sum_b = __fadd_rn(sum_b, __shfl_xor_sync(0xffffffffu, sum_b, o2));
-    }
-    l_a = __fmaf_rn(l_a, corr_a, sum_a);
-    l_b = __fmaf_rn(l_b, corr_b, sum_b);
-    m_a = mn_a;
-    m_b = mn_b;
+  };
+  sm90::attn_key_loop(
+      o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full, win.j_hi - win.j_lo, d, scale,
+      [&](int it) { load_k(win.j_lo + it); }, [&](int it) { load_v(win.j_lo + it); }, mask);
 
-    // O = O * corr + P . V over this warpgroup's chunks (64-column boxes of
-    // the v ring); K step k covers keys 16k .. 16k + 15, 2048 bytes on. A
-    // warp whose rows kept their max skips the product by 1.
-    if (__any_sync(0xffffffffu, corr_a != 1.0f || corr_b != 1.0f)) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          o[c][4 * jj] = __fmul_rn(o[c][4 * jj], corr_a);
-          o[c][4 * jj + 1] = __fmul_rn(o[c][4 * jj + 1], corr_a);
-          o[c][4 * jj + 2] = __fmul_rn(o[c][4 * jj + 2], corr_b);
-          o[c][4 * jj + 3] = __fmul_rn(o[c][4 * jj + 3], corr_b);
-        }
-    }
-    sm90::mbar_wait(v_full, it & 1);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) sm90::fence_acc(o[c]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const uint32_t vb = v_addr + (c_first + c) * BOX_BYTES;
-#pragma unroll
-      for (int kk = 0; kk < KEYS / 16; ++kk)
-        sm90::wgmma_m64n64k16_rs(o[c], p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                                 sm90::smem_desc(vb + 2048 * kk, BOX_BYTES, 1024));
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < NC; ++c) sm90::fence_acc(o[c]);
-    if (w == 1) {  // the same for the v ring
-      sm90::named_barrier_arrive(2, THREADS);
-    } else {
-      sm90::named_barrier_sync(2, THREADS);
-      if (loader && jt + 1 < win.j_hi) load_v(jt + 1);
-    }
-  }
-
-  // Epilogue. Both warpgroups are past their last products before the k
-  // and v rings become the staging area.
-  sm90::named_barrier_sync(3, THREADS);
+  // Epilogue (k and v are free: the key loop ended on a barrier).
   const bool top = g == L - 1;
   if (m_out != nullptr && chunk0 == 0 && w == 0 && t % 4 == 0) {
     if (i_a < n) {
@@ -576,8 +387,7 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int w16 = 16 * (warp % 4);  // the warp's first row of the block
-  float2* stage = reinterpret_cast<float2*>(ks + warp * STAGE_BYTES);  // [16][32] float2
-  const int rw_a = lane / 4;  // the warp's rows of r_a and r_b: rw_a, rw_a + 8
+  float2* stage = reinterpret_cast<float2*>(ks + warp * sm90::ATTN_STAGE_BYTES);
   const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -596,24 +406,15 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
         if (!top) tv[pass] = __ldg(reinterpret_cast<const uint4*>(td + off));
       }
     }
-    // cons = O / l into the stage, pair slots XOR-swizzled by row.
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int slot = (4 * jj + cq / 2) ^ (rw_a << 2);
-      stage[rw_a * 32 + slot] =
-          make_float2(div_rn(o[c][4 * jj], l_a, inv_a), div_rn(o[c][4 * jj + 1], l_a, inv_a));
-      stage[(rw_a + 8) * 32 + slot] =
-          make_float2(div_rn(o[c][4 * jj + 2], l_b, inv_b), div_rn(o[c][4 * jj + 3], l_b, inv_b));
-    }
+    sm90::stage_cons(o[c], l_a, inv_a, l_b, inv_b, stage);  // cons = O / l
     __syncwarp();
 #pragma unroll
     for (int pass = 0; pass < 4; ++pass) {
       const int rw = 4 * pass + lane / 8, k = lane % 8;
       const int i = i0 + w16 + rw;
       if (i < n) {
-        const float4* src = reinterpret_cast<const float4*>(stage + rw * 32 + 4 * (k ^ (rw & 7)));
-        const float4 c0 = src[0], c1 = src[1];
-        const float cons[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        float cons[8];
+        sm90::staged8(stage, rw, k, cons);
         const int qrow = w16 + rw;
         const uint4 qv = *reinterpret_cast<const uint4*>(qs + chunk * BOX_BYTES + qrow * 128 +
                                                          ((k ^ (qrow & 7)) * 16));
@@ -657,32 +458,12 @@ int launch_f32(const float* lv, const float* bu, const float* td, float* out, fl
   return (int)cudaGetLastError();
 }
 
-// A [slots, n, d] bf16 map with the kernel's 64 x 64 box, from a small
-// cache: a map depends only on the pointer and the extents, and the
-// serving and training loops pass the same few buffers again and again,
-// so most calls skip cuTensorMapEncodeTiled.
+// A [slots, n, d] bf16 map with the kernel's 64 x 64 box (cached).
 cudaError_t tile_map(CUtensorMap* map, const void* ptr, int d, int n, int slots) {
-  struct Entry {
-    const void* ptr;
-    int d, n, slots;
-    CUtensorMap map;
-  };
-  constexpr int ENTRIES = 16;
-  static Entry cache[ENTRIES];
-  static int next = 0;
-  static std::mutex lock;
-  std::lock_guard<std::mutex> guard(lock);
-  for (const Entry& e : cache)
-    if (e.ptr == ptr && e.d == d && e.n == n && e.slots == slots) {
-      *map = e.map;
-      return cudaSuccess;
-    }
-  const cudaError_t err = sm90::make_map(map, ptr, d, n, slots, 64, 64);
-  if (err == cudaSuccess) {
-    cache[next] = Entry{ptr, d, n, slots, *map};
-    next = (next + 1) % ENTRIES;
-  }
-  return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)slots};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * n * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return sm90::cached_map(map, ptr, dims, strides, box);
 }
 
 // The pre-pass and the main kernel.
@@ -696,13 +477,11 @@ int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float
   if (err == cudaSuccess) err = tile_map(&lv_map, lv, d, n, L * B);
   if (err == cudaSuccess) err = tile_map(&k_map, khat, d, n, L * B);
   if (err != cudaSuccess) return (int)err;
-  const size_t rows = (size_t)L * B * n;
-  consensus_update_kernel_khat<<<(unsigned)((rows + KHAT_ROWS - 1) / KHAT_ROWS), 32 * KHAT_ROWS,
-                                 0, stream>>>(lv, khat, rows, d);
-  err = cudaGetLastError();
+  err = sm90::launch_khat(lv, khat, (size_t)L * B * n, d, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + ROWS - 1) / ROWS, (d / 64 + 2 * NC - 1) / (2 * NC), L * B);
-  consensus_update_kernel_bf16<SAVE_CONS><<<grid, THREADS, Bf16Layout(d).bytes, stream>>>(
+  consensus_update_kernel_bf16<SAVE_CONS><<<grid, sm90::ATTN_THREADS, sm90::AttnLayout(d).bytes,
+                                            stream>>>(
       lv_map, k_map, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2,
       attend_self, scale);
   return (int)cudaGetLastError();

@@ -397,25 +397,32 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A bf16 tensor [slots, rows, inner], contiguous, as a 3-D map whose box is
-// [1, box_rows, box_inner] with the 128-byte swizzle (box_inner = 64).
+// A 3-D bf16 map with the 128-byte swizzle: extents dims (innermost
+// first), the byte strides of dims 1 and 2, and the box (box[0] = 64).
 // Out-of-bounds elements load as zeros.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int slots,
-                            int box_inner, int box_rows) {
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
+                               const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(slots)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
-                                 static_cast<cuuint64_t>(inner) * rows * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                           strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor [slots, rows, inner], contiguous, as a 3-D map whose box is
+// [1, box_rows, box_inner] (box_inner = 64).
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int slots,
+                            int box_inner, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slots)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * rows * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  return make_map_3d(map, ptr, dims, strides, box);
 }
 
 // An A operand map ([slots, rows, K], box BM x BK) and a B operand map

@@ -2,7 +2,7 @@
 """Build, check and time one of the port's bf16 forward kernels on one
 NVIDIA GPU, quickly.
 
-    python3 kernel_probe.py k1|k2 [ROOT ...]
+    python3 kernel_probe.py k1|k2|k4 [ROOT ...]
 
 Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
 package with one change can be held against this one in one run on the
@@ -29,7 +29,16 @@ kernel's source (printing ptxas' registers and spills), then:
     device time of the k pre-pass and of the main kernel; and the host's
     time a call, whole and in its parts: the argument checks, the
     allocations (out, statistics, cons, the k scratch) and the bare C call
-    on buffers allocated beforehand.
+    on buffers allocated beforehand;
+  * k4 (`csrc/banded_consensus.cu`): the same readings for K4 over the
+    cases of the `-m gpu` tests (K4_CASES, flat and peaked inputs, both
+    attend_self, seeds 0-7), per instance, over the row spans and the
+    unused trailing pages; device times at the largest flagship ragged
+    signature (32 pages of 64 tokens, window 256, [2048, 6, 512]) with
+    every band full and with the test's row mix, and at pages of 128, each
+    by kernel (k pre-pass, attention) and beside
+    scaled_dot_product_attention on the band gathered beforehand, in f32
+    and in bf16; and the host's time a call, whole and in its parts.
 
 Device times are CUDA events (chip_timing.time_ms, L2 warm), host times the
 median of batches started on an idle card (chip_timing.host_us). The
@@ -46,7 +55,7 @@ import subprocess
 import sys
 import time
 
-SOURCES = {"k1": "grouped_mlp", "k2": "consensus_update"}
+SOURCES = {"k1": "grouped_mlp", "k2": "consensus_update", "k4": "banded_consensus"}
 
 
 def probe(kernel: str, root: str) -> int:
@@ -74,7 +83,7 @@ def probe(kernel: str, root: str) -> int:
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
 
     tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
-    return (probe_k1 if kernel == "k1" else probe_k2)(torch, **tools)
+    return {"k1": probe_k1, "k2": probe_k2, "k4": probe_k4}[kernel](torch, **tools)
 
 
 def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
@@ -142,15 +151,9 @@ def probe_k2(torch, rn, time_ms, host_us, device_us) -> int:
     # attend_self and seeds 0-7: the largest |got - want| / (atol + rtol
     # |want|) of out and cons at K2_BARS, and the atol each would need at
     # K2_BARS's rtol, max(|got - want| - rtol |want|).
-    import importlib.util
-
     import numpy as np
 
-    spec = importlib.util.spec_from_file_location(
-        "k2_card_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                                      "test_torch_port_gpu.py"))
-    cards = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cards)
+    cards = card_tests()
     cases = [c[1:] for c in cards.K2_CASES if c[0] == torch.bfloat16]
     cases += [(3, 2, 96, 1, d, 0.0) for d in cards.K2_WIDTHS]
     rtol, atol = cards.K2_BARS[torch.bfloat16]
@@ -216,6 +219,119 @@ def probe_k2(torch, rn, time_ms, host_us, device_us) -> int:
                                                                      radius=0.0)),
                          allocs=host_us(allocs), bare_c_call=host_us(bare)))), flush=True)
     return 0
+
+
+def card_tests():
+    """tests/test_torch_port_gpu.py as a module: its cases, bars and inputs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "card_cases", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                   "test_torch_port_gpu.py"))
+    cards = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cards)
+    return cards
+
+
+def probe_k4(torch, rn, time_ms, host_us, device_us) -> int:
+    import numpy as np
+
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cards = card_tests()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kernel_key(name):
+        return "khat" if "khat" in name else "main" if "banded_consensus" in name else "other"
+
+    # Readings behind the card tests' bf16 bars: per instance and input kind,
+    # over every row span and the unused pages, seeds 0-7, both attend_self,
+    # at K4_BARS (the largest ratio, and the atol each needs at its rtol) and
+    # at the bar the tests hold the case to (k4_bars).
+    rtol, atol = cards.K4_BARS[bf16]
+    worst, worst_bar = {}, {}
+    for pt, d, counts, pages in cards.K4_CASES:
+        for inputs in cards.K4_INPUTS:
+            for attend_self in (False, True):
+                for seed in range(8):
+                    lv, kw, spans, used = cards._k4_case(np.random.default_rng(seed), bf16, pt,
+                                                         d, counts, pages, inputs, attend_self)
+                    got = k4.banded_ragged_consensus(lv, **kw).float()
+                    want = k4.banded_ragged_consensus_plain(lv, **kw).float()
+                    for part, (a, b) in [("rows", ab) for ab in spans] + [
+                            ("unused", (used, lv.shape[0]))]:
+                        diff = (got[a:b] - want[a:b]).abs()
+                        scale = rtol * want[a:b].abs()
+                        key = (k4.k4_instance(bf16, pt), inputs, part, pt, attend_self)
+                        bar = cards.k4_bars(bf16, pt, inputs)
+                        worst_bar[key] = max(worst_bar.get(key, 0.0), float(
+                            (diff / (bar[1] + bar[0] * want[a:b].abs())).max()))
+                        ratio = float((diff / (atol + scale)).max())
+                        need = float((diff - scale).max())
+                        old = worst.get(key, (0.0, 0.0))
+                        worst[key] = (max(old[0], ratio), max(old[1], need))
+    for key, (ratio, need) in sorted(worst.items()):
+        print(json.dumps(dict(reading="k4_bf16", instance=key[0], inputs=key[1], part=key[2],
+                              page_tokens=key[3], attend_self=key[4], bars=[rtol, atol], seeds=8,
+                              max_ratio=ratio, max_atol_needed=need,
+                              test_bars=list(cards.k4_bars(bf16, key[3], key[1])),
+                              max_ratio_test_bars=worst_bar[key])), flush=True)
+    fail = max(worst_bar.values()) > 1.0
+
+    lib = k4._lib()
+    L, d, window = 6, 512, 256
+    for label, pt, P, counts in (
+            ("k4_ragged32_full", 64, 32, [256] * 8),
+            ("k4_ragged32_mixed", 64, 32, [256, 144, 64, 16, 256, 49, 0, 256, 144, 64, 16, 256,
+                                           49, 100, 16]),
+            ("k4_pt128_full", 128, 16, [256] * 8)):
+        rs, rl, _, used = cards._ragged_maps(counts, P, pt)
+        lv = rn(P * pt, L, d, scale=2.0)
+        kw = dict(row_start=rs.cuda(), row_len=rl.cuda(), window=window, page_tokens=pt)
+
+        def call():
+            return k4.banded_ragged_consensus(lv, **kw)
+
+        out, khat = torch.empty_like(lv), k4.khat_scratch(lv, pt)
+        inst = k4.K4_INSTANCES.index(k4.k4_instance(lv.dtype, pt))
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def bare():
+            err = lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), k4._ptr(khat),
+                                           kw["row_start"].data_ptr(), kw["row_len"].data_ptr(),
+                                           P, pt, L, d, window // pt, 0, 1, inst, stream)
+            assert err == 0, err
+
+        # SDPA on the band gathered beforehand (attend_self, an additive
+        # length mask), in f32 and in bf16.
+        band0, len_page = k4.page_maps(kw["row_start"], kw["row_len"], pt)
+        pages = (band0[:, None].long() + torch.arange(window // pt, device="cuda")).clamp(
+            max=P - 1)
+        kv = lv.float().view(P, pt, L, d)
+        kn = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+        q_b = kv.permute(0, 2, 1, 3).contiguous()
+        k_b = kn[pages].reshape(P, window, L, d).permute(0, 2, 1, 3).contiguous()
+        v_b = kv[pages].reshape(P, window, L, d).permute(0, 2, 1, 3).contiguous()
+        past = torch.arange(window, device="cuda")[None, :] >= len_page[:, None]
+        mask = torch.zeros(P, 1, 1, window, device="cuda").masked_fill(
+            past[:, None, None, :], float(torch.finfo(f32).min))
+        qh, kh, vh = (t.to(bf16) for t in (q_b, k_b, v_b))
+        mh = mask.clamp_min(torch.finfo(bf16).min).to(bf16)  # finite in bf16
+        ms = time_ms(call)
+        print(json.dumps(dict(
+            timing=label, shape=[P * pt, L, d], page_tokens=pt, rows=counts,
+            instance=k4.K4_INSTANCES[inst], ms=ms,
+            sdpa_f32_ms=time_ms(lambda: sdpa(q_b, k_b, v_b, attn_mask=mask)),
+            sdpa_bf16_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mh)),
+            tflops=4 * P * pt * L * window * d / ms / 1e9,
+            device_us=device_us(call, key=kernel_key),
+            host_us=dict(call=host_us(call),
+                         checks=host_us(lambda: k4.check_kernel_args(
+                             lv, kw["row_start"], kw["row_len"], window, pt)),
+                         allocs=host_us(lambda: (torch.empty_like(lv), k4.khat_scratch(lv, pt))),
+                         bare_c_call=host_us(bare)))), flush=True)
+    return int(fail)
 
 
 def main() -> int:

@@ -24,9 +24,15 @@ drift of the card between runs. Per tree it prints one JSON line:
     and what one bucket-8 call adds to the allocated memory at its peak
     (`k2_call_b8_peak_mib`: its output and any scratch), and its whole
     backward (both passes) where the tree has it;
+  * K4 (the banded ragged consensus) at the flagship's largest ragged
+    signature in bf16 ([2048, 6, 512]: 32 pages of 64 tokens, window 256,
+    every band full), with the host's time a call (`k4_host_us_r32`);
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
     min over N dispatches (host clock ending in a synchronize), and the peak
     device memory of one dispatch (`serve_b8_peak_mib`);
+  * the same eight 224-px images as one ragged dispatch of 32 pages
+    (`infer_ragged`, K1 and K4): p50 and min over N dispatches and the peak
+    device memory of one (`serve_ragged32_*`);
   * where the tree has the trainer, the flagship's bf16 training step at
     batch 8 (`make_train_step` without the grad norm, the route the tree
     resolves, named in `train_vjp_path`): p50 and min over N steps after
@@ -46,7 +52,7 @@ Kernel times are CUDA events over 50 launches after 3 warm-up launches (L2
 warm); host times are chip_timing.host_us (the median of nine batches of 20
 calls, each started on an idle card). The last line gives, per tree, the
 median of its runs, and, given two or more distinct trees, `host_pairs`:
-the host times of K2 (buckets 1 and 8) and K1 (bucket 1) with every tree
+the host times of K2 (buckets 1 and 8), K1 (bucket 1) and K4 (32 pages) with every tree
 loaded in one process and measured in turns, --host-rounds times (default
 30), with the median of the paired differences against the first tree. Inputs and
 weights come from seed 0. It needs one card and exits nonzero without one.
@@ -77,12 +83,14 @@ def child(tree: str, dispatches: int) -> dict:
     sys.path.insert(0, root)
 
     import glom_tpu_torch
+    import glom_tpu_torch.kernels.banded_consensus as k4
     import glom_tpu_torch.kernels.consensus_update as k2
     import glom_tpu_torch.kernels.grouped_mlp as k1
     from glom_tpu_torch import GlomConfig, InferenceEngine, ServeConfig
     from glom_tpu_torch.kernels import _build
     from glom_tpu_torch.models.core import init_glom
     from glom_tpu_torch.ops.ffw import GroupedFFWParams
+    from glom_tpu_torch.serve import pack_ragged
 
     if not os.path.abspath(glom_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {glom_tpu_torch.__file__}, not the one under {root}")
@@ -133,6 +141,9 @@ def child(tree: str, dispatches: int) -> dict:
         _, m, l = k2.fused_consensus_update(lv, bu, td, side=16, stats=True)
         g = randn(L, 8, n, d)
         out["k2_bwd_ms"] = time_ms(lambda: k2.consensus_update_bwd(lv, g, m, l, side=16))
+    lv4, k4_kw = k4_inputs(randn)
+    out["k4_fwd_ragged32_ms"] = time_ms(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
+    out["k4_host_us_r32"] = host_us(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
 
     cfg = GlomConfig()
     engine = InferenceEngine(
@@ -151,6 +162,22 @@ def child(tree: str, dispatches: int) -> dict:
     out.update(serve_b8_p50_ms=lat[len(lat) // 2], serve_b8_min_ms=lat[0],
                serve_dispatches=dispatches,
                serve_b8_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    ragged = InferenceEngine(
+        cfg, ServeConfig(ragged=True, ragged_attention="banded-pallas", use_pallas=True,
+                         compute_dtype="bfloat16", max_batch=8),
+        params=engine.params, device="cuda")
+    ragged.warmup_ragged()
+    lat = []
+    for _ in range(dispatches):
+        imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen)
+        flat, n_p = pack_ragged(list(imgs.numpy()), cfg.patch_size, ragged.page_tokens, 32)
+        lat.append(ragged.infer_ragged(flat, n_p).latency_s * 1e3)
+    lat.sort()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ragged.infer_ragged(flat, n_p)
+    out.update(serve_ragged32_p50_ms=lat[len(lat) // 2], serve_ragged32_min_ms=lat[0],
+               serve_ragged32_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
 
     if importlib.util.find_spec("glom_tpu_torch.train") is not None:
         from glom_tpu_torch import TrainConfig
@@ -209,12 +236,26 @@ def child(tree: str, dispatches: int) -> dict:
     return out
 
 
+def k4_inputs(randn):
+    """K4's bf16 levels at the flagship's largest ragged signature (32 pages
+    of 64 tokens, eight full-resolution rows: every band full) and the
+    wrapper's keywords, on the card."""
+    import torch
+
+    pt, P = 64, 32
+    rs = (torch.arange(P * pt, dtype=torch.int32) // 256 * 256).to("cuda")
+    rl = torch.full((P * pt,), 256, dtype=torch.int32, device="cuda")
+    return randn(P * pt, 6, 512, scale=2.0), dict(row_start=rs, row_len=rl, window=256,
+                                                   page_tokens=pt)
+
+
 def host_pairs(trees: list, rounds: int) -> dict:
     """The host's time a call (chip_timing.host_us) of K2's forward at
-    buckets 1 and 8 and K1's at bucket 1 for every tree, all loaded in one
-    process and measured in turns, `rounds` times: per tree the median over
-    rounds, and against the first tree the median of the rounds' paired
-    differences, so the host's drift between runs cancels."""
+    buckets 1 and 8, K1's at bucket 1 and K4's at 32 pages for every tree,
+    all loaded in one process and measured in turns, `rounds` times: per
+    tree the median over rounds, and against the first tree the median of
+    the rounds' paired differences, so the host's drift between runs
+    cancels."""
     import torch
     from chip_timing import host_us
 
@@ -225,6 +266,7 @@ def host_pairs(trees: list, rounds: int) -> dict:
 
     L, n, d, f = 6, 256, 512, 2048
     ins = {B: (randn(L, B, n, d), randn(L, B, n, d), randn(L - 1, B, n, d)) for B in (1, 8)}
+    lv4, k4_kw = k4_inputs(randn)
     w, x1 = (randn(L, d, f, scale=d ** -0.5), randn(L, f, scale=0.1),
              randn(L, f, d, scale=f ** -0.5), randn(L, d, scale=0.1)), randn(L, n, d)
     calls = {}
@@ -233,6 +275,7 @@ def host_pairs(trees: list, rounds: int) -> dict:
         for name in [m for m in sys.modules if m.split(".")[0] == "glom_tpu_torch"]:
             del sys.modules[name]
         sys.path.insert(0, root)
+        import glom_tpu_torch.kernels.banded_consensus as k4
         import glom_tpu_torch.kernels.consensus_update as k2
         import glom_tpu_torch.kernels.grouped_mlp as k1
         from glom_tpu_torch.ops.ffw import GroupedFFWParams
@@ -244,6 +287,7 @@ def host_pairs(trees: list, rounds: int) -> dict:
             "k2_host_us_b1": lambda k2=k2: k2.fused_consensus_update(*ins[1], side=16),
             "k2_host_us_b8": lambda k2=k2: k2.fused_consensus_update(*ins[8], side=16),
             "k1_host_us_b1": lambda k1=k1, p=params: k1.fused_grouped_ffw_lm(p, x1),
+            "k4_host_us_r32": lambda k4=k4: k4.banded_ragged_consensus(lv4, **k4_kw),
         }
     seen = {tree: {key: [] for key in calls[tree]} for tree in trees}
     for _ in range(rounds):
@@ -297,7 +341,8 @@ def main() -> int:
         runs.setdefault(tree, []).append(rec)
     summary = {
         tree: {key: statistics.median(r[key] for r in recs)
-               for key in recs[0] if key.endswith(("_ms", "_mib", "_us_b1", "_us_b8"))}
+               for key in recs[0]
+               if key.endswith(("_ms", "_mib", "_us_b1", "_us_b8", "_us_r32"))}
         for tree, recs in runs.items()
     }
     trees = list(dict.fromkeys(args.trees))

@@ -634,11 +634,35 @@ def test_trainer_on_card_batch8_takes_the_loop(dev):
 
 
 K4_BARS = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (1e-2, 1.6e-2)}
+# The "wgmma" instance rounds k and p to bf16 where the plain version keeps
+# f32; on peaked inputs p's rounding (2^-9 of a value up to about 60) needs
+# more than K4_BARS's atol. Over the bf16 cases here, seeds 0-7 and both
+# attend_self (`kernel_probe.py k4`, NVIDIA H100) it needed at most atol
+# 0.110 at rtol 1e-2 (flat inputs 0.0031, within K4_BARS); the planted
+# faults need several times this bar (PERF.md).
+K4_PEAKED_WGMMA_BARS = (1e-2, 0.25)
+# (page_tokens, d, row patch counts, pages). bf16 takes the "wgmma"
+# instance at pt 64 and 128 (two key tiles a page) and "fma" at pt 16.
+# The rows fill all but the last few pages, so the band of the unused
+# pages (one empty slot at the used-token count) runs past the last page.
+K4_CASES = [
+    (64, 512, [256, 144, 64, 16, 256, 49], 16),  # the flagship's page size and width
+    (128, 512, [256, 200, 64, 128], 7),
+    (16, 256, [64, 37, 1, 16], 12),  # pages of fewer than 32 tokens; d = 256
+]
+# Flat levels (iid, rms 2: score std about 0.09, the self slot's about 2)
+# and peaked ones (rank 4, rms 8: score std about 4), where p's rounding
+# at the running max shows.
+K4_INPUTS = ["flat", "peaked"]
 
 
 def _ragged_maps(counts, pages, pt):
     """Per-token (row_start, row_len) of rows packed page-aligned onto
-    `pages` pages, and each row's page span."""
+    `pages` pages, each row's page span, and the used-token count. The
+    pages past the last row are an empty last slot, as the engine packs
+    one: they start at the used-token count with length 0, and their band
+    runs past the last page (the clamp) where the rows leave fewer free
+    pages than the band holds."""
     T = pages * pt
     rs, rl = np.zeros(T, np.int32), np.zeros(T, np.int32)
     spans, off = [], 0
@@ -647,32 +671,125 @@ def _ragged_maps(counts, pages, pt):
         rs[off * pt:(off + k) * pt], rl[off * pt:(off + k) * pt] = off * pt, c
         spans.append((off * pt, (off + k) * pt))
         off += k
+    rs[off * pt:] = off * pt
     return torch.from_numpy(rs), torch.from_numpy(rl), spans, off * pt
+
+
+def _k4_levels(rng, T, L, d, inputs, rank=4):
+    """[T, L, d] f32 levels: "flat" iid at rms 2, or "peaked" of rank 4 a
+    level at rms 8."""
+    if inputs == "flat":
+        return _rand(rng, T, L, d) * 2
+    coef, basis = rng.standard_normal((T, L, rank)), rng.standard_normal((L, rank, d))
+    return torch.from_numpy((8.0 * np.einsum("tlr,lrd->tld", coef, basis)
+                             / rank ** 0.5).astype(np.float32))
+
+
+def k4_bars(dtype, pt, inputs):
+    """The bar the kernel is held to: K4_BARS, or K4_PEAKED_WGMMA_BARS for
+    peaked inputs on the "wgmma" instance."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    if inputs == "peaked" and k4.k4_instance(dtype, pt) == "wgmma":
+        return K4_PEAKED_WGMMA_BARS
+    return K4_BARS[dtype]
+
+
+def _k4_case(rng, dtype, pt, d, counts, pages, inputs, attend_self):
+    """(levels on the card, the wrapper's keywords, row spans, used tokens)."""
+    rs, rl, spans, used = _ragged_maps(counts, pages, pt)
+    lv = _k4_levels(rng, pages * pt, 3, d, inputs)
+    window = -(-max(counts) // pt) * pt
+    kw = dict(row_start=rs.cuda(), row_len=rl.cuda(), window=window, page_tokens=pt,
+              attend_self=attend_self)
+    return lv.to("cuda", dtype), kw, spans, used
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attend_self", [False, True])
-@pytest.mark.parametrize("pt,d,counts,pages", [
-    (64, 512, [256, 144, 64, 16, 256, 49], 20),  # the flagship's page size and width
-    (16, 256, [64, 37, 1, 16], 12),  # pages of fewer than 32 tokens; d = 256
-])
-def test_banded_consensus_kernel(dev, dtype, attend_self, pt, d, counts, pages):
+@pytest.mark.parametrize("pt,d,counts,pages", K4_CASES)
+@pytest.mark.parametrize("inputs", K4_INPUTS)
+@pytest.mark.parametrize("seed", [10, 11])
+def test_banded_consensus_kernel(dev, dtype, attend_self, pt, d, counts, pages, inputs, seed):
+    """The kernel against the plain version over every row span and the
+    unused trailing pages (each the uniform average of its clamped band)."""
     import glom_tpu_torch.kernels.banded_consensus as k4
 
-    rng = np.random.default_rng(10)
-    rs, rl, spans, used = _ragged_maps(counts, pages, pt)
-    lv = (_rand(rng, pages * pt, 3, d) * 2).to(dev, dtype)
-    window = -(-max(counts) // pt) * pt
-    kw = dict(row_start=rs.to(dev), row_len=rl.to(dev), window=window, page_tokens=pt,
-              attend_self=attend_self)
+    lv, kw, spans, used = _k4_case(np.random.default_rng(seed), dtype, pt, d, counts, pages,
+                                   inputs, attend_self)
     before = k4.LAUNCHES
     got = k4.banded_ragged_consensus(lv, **kw)
     torch.cuda.synchronize()
     assert k4.LAUNCHES == before + 1
     want = k4.banded_ragged_consensus_plain(lv, **kw)
-    for s, e in spans:
-        _close(got[s:e], want[s:e], K4_BARS[dtype])
-    assert bool(torch.isfinite(got[used:].float()).all())  # the unused trailing pages
+    for s, e in spans + [(used, lv.shape[0])]:
+        _close(got[s:e], want[s:e], k4_bars(dtype, pt, inputs))
+
+
+@pytest.mark.parametrize("pt", [64, 128])
+def test_banded_consensus_khat_prepass(dev, monkeypatch, pt):
+    """The "wgmma" pre-pass writes k = normalize(levels), rounded, for every
+    token and level into the scratch the attention reads: within one bf16
+    ulp of the plain normalise (the norm is summed in another order)."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    lv, kw, _, _ = _k4_case(np.random.default_rng(24), torch.bfloat16, pt, 512,
+                            [256, 100], 8 * 64 // pt, "peaked", False)
+    held = []
+    monkeypatch.setattr(k4, "khat_scratch",
+                        lambda t, p, make=k4.khat_scratch: held.append(make(t, p)) or held[-1])
+    k4.banded_ragged_consensus(lv, **kw)
+    torch.cuda.synchronize()
+    assert len(held) == 1 and held[0].shape == lv.shape
+    kv = lv.float()
+    want = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+    _close(held[0], want, (2.0 ** -7, 0.0))
+
+
+def test_banded_consensus_without_allocator_cache(dev):
+    """The "wgmma" wrapper's k scratch lives through its launch: with the
+    caching allocator off, a tensor freed early is returned by cudaFree
+    before the pre-pass writes it. Runs in a fresh process (the switch is
+    read once)."""
+    script = (
+        "import torch, glom_tpu_torch.kernels.banded_consensus as k4\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "lv = (2 * torch.randn(1024, 6, 512, generator=g)).to('cuda', torch.bfloat16)\n"
+        "rs = torch.arange(1024, dtype=torch.int32) // 256 * 256\n"
+        "kw = dict(row_start=rs.cuda(), row_len=torch.full((1024,), 200, dtype=torch.int32)"
+        ".cuda(), window=256, page_tokens=64)\n"
+        "assert k4.k4_instance(lv.dtype, 64) == 'wgmma'\n"
+        "got = [k4.banded_ragged_consensus(lv, **kw) for _ in range(3)]\n"
+        "want = k4.banded_ragged_consensus_plain(lv, **kw)\n"
+        f"torch.testing.assert_close(got[0].float(), want.float(), "
+        f"rtol={K4_BARS[torch.bfloat16][0]}, atol={K4_BARS[torch.bfloat16][1]})\n"
+        "assert all(torch.equal(got[0], x) for x in got[1:])\n"
+    )
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_banded_consensus_entry_refuses_another_instance(dev):
+    """The C entry checks the caller's instance against its own rule."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    lv, kw, _, _ = _k4_case(np.random.default_rng(25), torch.bfloat16, 64, 128, [64], 2,
+                            "flat", False)
+    rs, rl = kw["row_start"], kw["row_len"]
+    out, khat = torch.empty_like(lv), torch.empty_like(lv)
+    lib = k4._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for instance, scratch in ((0, None), (1, None), (0, khat)):  # "wgmma" needs its scratch
+        err = lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), k4._ptr(scratch),
+                                       rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0, 1,
+                                       instance, stream)
+        assert err == 1, (instance, err)  # cudaErrorInvalidValue
+    assert lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), khat.data_ptr(),
+                                    rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0, 1, 1,
+                                    stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_banded_consensus_kernel_refuses(dev):

@@ -176,6 +176,49 @@ class TestK4Plain:
         with pytest.raises(ValueError, match="row_len"):
             tk4.check_kernel_args(ok, maps["row_start"], maps["row_len"][:-1], 128, 64)
 
+    @pytest.mark.parametrize("dtype,pt,instance", [
+        (torch.bfloat16, 64, "wgmma"),  # the flagship's resolved page size
+        (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 96, "fma"),  # a multiple of 32, not of 64
+        (torch.bfloat16, 32, "fma"),
+        (torch.bfloat16, 16, "fma"),
+        (torch.float32, 64, "fma"),
+        (torch.float32, 16, "fma"),
+    ])
+    def test_k4_instance(self, dtype, pt, instance):
+        assert tk4.k4_instance(dtype, pt) == instance
+        assert instance in tk4.K4_INSTANCES
+
+    @pytest.mark.parametrize("dtype,pt", [
+        (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 16), (torch.float32, 64),
+    ])
+    def test_khat_scratch(self, dtype, pt):
+        """The "wgmma" instance's k scratch is [T, L, d] bf16, contiguous;
+        "fma" has none."""
+        lv = torch.zeros(4 * pt, 3, 128, dtype=dtype)
+        khat = tk4.khat_scratch(lv, pt)
+        if tk4.k4_instance(dtype, pt) == "fma":
+            assert khat is None
+        else:
+            assert khat.shape == lv.shape and khat.dtype == torch.bfloat16
+            assert khat.is_contiguous() and khat.data_ptr() != lv.data_ptr()
+
+    @pytest.mark.parametrize("dtype,pt", [
+        (torch.bfloat16, 64),  # "wgmma" reads the levels by TMA
+        (torch.bfloat16, 16),  # "fma" in vectors of four elements
+        (torch.float32, 64),
+    ])
+    def test_kernel_args_alignment(self, dtype, pt):
+        """Levels that do not start on a 16-byte boundary are refused."""
+        T, L, d = 2 * pt, 2, 128
+        flat = torch.zeros(T * L * d + 1, dtype=dtype)
+        lv = flat[1:].view(T, L, d)
+        assert lv.is_contiguous() and lv.data_ptr() % tk4.TMA_ALIGN
+        rs = torch.zeros(T, dtype=torch.int32)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            tk4.check_kernel_args(lv, rs, rs, pt, pt)
+        tk4.check_kernel_args(flat[:-1].view(T, L, d), rs, rs, pt, pt)  # aligned: taken
+
 
 class TestRaggedAttention:
     def _inputs(self, pages_sig=None):
