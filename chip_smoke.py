@@ -13,14 +13,18 @@ saved attention output and the one-sweep K2 backward at the long-row shape
 (bit for bit the two split launches) -- against its plain PyTorch version
 (the bf16 K1 forward, a TMA + wgmma GEMM, also at edge shapes of its
 128-row, 128-column tiles; the bf16 K2 forward, TMA + wgmma attention, also
-at edge shapes of its 64-row, 64-key tiles; K4 in both instances, the bf16
+at edge shapes of its 64-row, 64-key tiles; the bf16 K2 backward, a pre-pass
+and TMA + wgmma dq, dv and dk passes, in its pair, combine and one-sweep
+forms; K4 in both instances, the bf16
 "wgmma" one at pages of 64 and 128 on flat and peaked inputs, "fma" at
 pages of 32, every row span and the unused trailing pages), times both
 (with K2's and K4's host time a call and their k pre-pass's share; and,
 where one PyTorch call
 computes the same function, that call: scaled_dot_product_attention for
 K2's attention and K4, torch.baddbmm for the pre-only K1; for K1's forward
-the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`), then
+the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`, and
+autograd through them for K1's backward; K2's backward by kernel, with its
+pre-pass share and SDPA's backward), then
 drives the port's main paths on the flagship
 model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
 seed), each with every launch count set to 0 just before it and read just
@@ -403,9 +407,10 @@ def main() -> int:
 
     def check_bwd(kernel, case, pairs, bar, phase=None):
         """Compare each (name, got, want); record and emit; return the
-        largest max-abs error."""
+        largest max-abs error. A case's `entry_equals_passes`, where it has
+        one, must hold too."""
         errs = {name: err_over_max(got, want) for name, got, want in pairs}
-        ok = all(r <= bar for _, r in errs.values())
+        ok = all(r <= bar for _, r in errs.values()) and case.get("entry_equals_passes", True)
         emit(phase or f"{kernel.lower()}_bwd_vs_plain", **case, bar=bar,
              max_abs_err={k: v[0] for k, v in errs.items()},
              err_over_max={k: v[1] for k, v in errs.items()},
@@ -473,6 +478,7 @@ def main() -> int:
             g = randn(*shape, dtype=dtype)
             dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, **kw)
             dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, **kw)
+            via_entry = k2.consensus_update_bwd(lv, g, m, l, **kw)
             torch.cuda.synchronize()
             want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **kw)
             want_dlv, want_dmean, parts = k2.consensus_bwd_dkv_plain(
@@ -485,9 +491,12 @@ def main() -> int:
             allowed = bar * float(want_dlv.float().abs().max())
             terms = {"dq": float(want_dq.abs().max()), "dv": float(parts["dv"].abs().max()),
                      "dxn": float(parts["dxn"].abs().max())}
+            # The entry shares the dq pass's keys with the dkv pass: the same
+            # bits as the two passes called alone.
             case = dict(shape=list(shape), dtype=str(dtype), radius=radius,
                         attend_self=attend_self, levels=kind,
-                        term_over_allowed={k: v / allowed for k, v in terms.items()})
+                        term_over_allowed={k: v / allowed for k, v in terms.items()},
+                        entry_equals_passes=all(map(torch.equal, via_entry, (dlv, dmean))))
             err = check_bwd("K2", case, [("dq", dq, want_dq), ("dd", dd, want_dd),
                                          ("dlevels", dlv, want_dlv), ("dmean", dmean, want_dmean)],
                             bar)
@@ -597,6 +606,7 @@ def main() -> int:
             dq, dd, dcons = k2.consensus_bwd_dq(lv, dg, m, l, combine=True, **streams_kw)
             dlv, dmean = k2.consensus_bwd_dkv(lv, dg, m, l, dq, dd, dcons, combine=True,
                                               **streams_kw)
+            via_entry = k2.consensus_update_bwd(lv, dg, m, l, combine=True, **streams_kw)
             torch.cuda.synchronize()
             want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, dg, m, l, **streams_kw)
             want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, dg, m, l, want_dq, want_dd,
@@ -606,7 +616,8 @@ def main() -> int:
                      for nm, t in (("dg", dg), ("dx_bu", dx_bu), ("dx_td", dx_td))
                      if t is not None}
             case = dict(shape=list(shape), dtype=str(dtype), radius=radius, levels=kind,
-                        streams=streams, term_over_allowed=terms)
+                        streams=streams, term_over_allowed=terms,
+                        entry_equals_passes=all(map(torch.equal, via_entry, (dlv, dmean))))
             check_bwd("K2 combine", case, [("dq", dq, want_dq), ("dd", dd, want_dd),
                                            ("dlevels", dlv, want_dlv),
                                            ("dmean", dmean, want_dmean)],
@@ -764,6 +775,10 @@ def main() -> int:
         b_ms, b_by = bound(ops, nbytes, peak)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=library_ms)
+        # A kernel made of several launches lists each with its own time. The
+        # products a design computes are constants of the script: they stay
+        # on the `timing` row, off the kernels line.
+        timings[label].update({k: extra[k] for k in ("kernels_ms", "instance") if k in extra})
         if library_seq_ms is not None:
             timings[label]["library_seq_ms"] = library_seq_ms
         emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
@@ -779,6 +794,21 @@ def main() -> int:
 
     k1_seq_call = ("torch.baddbmm, gelu(approximate='tanh'), torch.baddbmm (three calls; "
                    "with the addend, x + tile(add) first)")
+    k1_seq_bwd_call = ("seq backward: torch.autograd.grad through torch.baddbmm, "
+                       "gelu(approximate='tanh'), torch.baddbmm (dx, dw1, db1, dw2, db2, "
+                       "retain_graph; with the addend, x + tile(add) is the leaf and no da is "
+                       "formed; no f32 totals are accumulated)")
+
+    def k1_seq_bwd_ms(params, x_in, g):
+        """The K1 backward as autograd through the forward's three calls."""
+        leaves = [t.detach().clone().requires_grad_() for t in (x_in, *params)]
+        out = k1_library_seq(GroupedFFWParams(*leaves[1:]), leaves[0])
+        return time_ms(lambda: torch.autograd.grad(out, leaves, grad_outputs=g,
+                                                   retain_graph=True))
+
+    def with_add(x, add):
+        G = x.shape[0]
+        return x if add is None else (x.view(G, -1, n, d) + add).view(x.shape)
     for label, which, G, M in (
         ("k1_bottom_up_b8", "bottom_up", L, M8),
         ("k1_top_down_b8", "top_down", L - 1, M8),
@@ -927,7 +957,40 @@ def main() -> int:
         # read x, pre, g, w1, w2 (+ a); write dx, dw1, db1, dw2, db2 (+ da)
         nbytes = 2 * (3 * G * M8 * d + G * M8 * f + 4 * G * d * f + G * (f + d)
                       + (2 * n * d if add is not None else 0))
-        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes)
+        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes,
+                      library_seq_ms=k1_seq_bwd_ms(params, with_add(x, add), g),
+                      library_seq_call=k1_seq_bwd_call)
+    # K2's backward launches by kernel (torch.profiler): the pre-pass (k and
+    # the rounded dcons), the dq pass, the key side's k pre-pass, dv and dk
+    # passes ("wgmma"), with the host's time a call; products a pair as the
+    # bound counts them (the TPU kernels'), as the design computes them, and
+    # as the tensor cores execute them (each warpgroup of a block recomputes
+    # its whole S and dP).
+    def bwd_kernel_key(name):
+        """A backward kernel's function name (its instance: `_sm90` for
+        "wgmma", `_kernel` for "fma"), without its template arguments."""
+        for part in ("consensus_bwd_", "khat_kernel"):
+            if part in name:
+                return name[name.index(part):].split("(")[0].split("<")[0]
+        return "other"
+
+    def bwd_kernels(run, levels, calls=10):
+        for _ in range(3):
+            us = device_us_by_kernel(run, calls=calls, key=bwd_kernel_key)
+            if sum(us.values()):
+                break
+        else:
+            raise AssertionError("three profiles of a K2 backward call saw no kernel")
+        total = sum(us.values())
+        pre = us.get("consensus_bwd_prepass", 0.0) + us.get("khat_kernel", 0.0)
+        return dict(kernels_ms={k: v / 1e3 for k, v in us.items()}, prepass_ms=pre / 1e3,
+                    prepass_share=pre / total, host_us_per_call=host_us(run),
+                    instance=k2.k2_bwd_instance(levels.dtype, *levels.shape[-2:]))
+
+    def library_kernels(run):
+        """The kernels one PyTorch call ran (its backend), largest first."""
+        return list(device_us_by_kernel(run, calls=2))[:4]
+
     lv = consensus_inputs((L, 8, n, d), bf16)[0]
     g = randn(L, 8, n, d, dtype=bf16)
     _, m, l = k2.fused_consensus_update(lv, g, g[1:], side=side, stats=True)
@@ -943,29 +1006,44 @@ def main() -> int:
     q_b, k_b, v_b = (t.clone().requires_grad_() for t in k2_qkv(lv))
     att_b = sdpa(q_b, k_b, v_b)
     g_b = g.reshape(L * 8, 1, n, d)
-    k2_bwd_lib_ms = time_ms(lambda: torch.autograd.grad(att_b, (q_b, k_b, v_b),
-                                                        grad_outputs=g_b, retain_graph=True))
+    def k2_bwd_lib():
+        return torch.autograd.grad(att_b, (q_b, k_b, v_b), grad_outputs=g_b, retain_graph=True)
+    k2_bwd_lib_ms = time_ms(k2_bwd_lib)
+    k2_bwd_lib_kernels = library_kernels(k2_bwd_lib)
     del att_b
-    for label, run, plain, n_products, nbytes in (
-        # Products: s, dP, ds.k
+    for label, run, plain, products, nbytes in (
+        # Products: s, dP, ds.k (the design: s and dP twice, then dq)
         ("k2_bwd_dq_b8", lambda: k2.consensus_bwd_dq(lv, g, m, l, side=side),
-         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, side=side), 3, dq_bytes),
-        # Products: s, dP, dv, dk
+         lambda: k2.consensus_bwd_dq_plain(lv, g, m, l, side=side),
+         dict(bound=3, design=5, executed=9), dq_bytes),
+        # Products: s, dP, dv, dk (the design: s, dv; s, dP, dk)
         ("k2_bwd_dkv_b8",
          lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, side=side),
-         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side), 4, dkv_bytes),
+         lambda: k2.consensus_bwd_dkv_plain(lv, g, m, l, dq, dd, side=side),
+         dict(bound=4, design=5, executed=8), dkv_bytes),
     ):
         record_timing(label, [L, 8, n, d], time_ms(run), time_ms(plain),
-                      n_products * 2 * L * 8 * n * n * d, nbytes, library_ms=k2_bwd_lib_ms,
-                      library_call=k2_lib_bwd_call)
+                      products["bound"] * 2 * L * 8 * n * n * d, nbytes,
+                      library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call,
+                      library_kernels=k2_bwd_lib_kernels, products=products,
+                      **bwd_kernels(run, lv))
     # The whole K2 backward against its least work: the single-tile form's
     # five products (s, dP, dq, dv, dk) and its bytes (read levels, g, m, l;
     # write dlevels, dmean).
     k2_bwd_ops, k2_bwd_bytes = 5 * 2 * L * 8 * n * n * d, 2 * 4 * elems + 4 * 2 * L * 8 * n
+    # The pair as the per-iteration step calls it (`consensus_update_bwd`:
+    # both passes on one k pre-pass), beside its two passes called alone.
+    k2_pair_products = dict(bound=5, design=10, executed=17)
     b_ms, b_by = bound(k2_bwd_ops, k2_bwd_bytes, PEAK_BF16)
+    def k2_pair():
+        return k2.consensus_update_bwd(lv, g, m, l, side=side)
     emit("timing", kernel="k2_bwd_b8", shape=[L, 8, n, d], dtype="bfloat16",
-         ms=timings["k2_bwd_dq_b8"]["ms"] + timings["k2_bwd_dkv_b8"]["ms"],
-         bound_ms=b_ms, bound_by=b_by, library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call)
+         ms=time_ms(k2_pair),
+         plain_ms=time_ms(lambda: k2.consensus_update_bwd_plain(lv, g, m, l, side=side)),
+         passes_alone_ms=timings["k2_bwd_dq_b8"]["ms"] + timings["k2_bwd_dkv_b8"]["ms"],
+         bound_ms=b_ms, bound_by=b_by, library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call,
+         library_kernels=k2_bwd_lib_kernels, products=k2_pair_products,
+         **bwd_kernels(k2_pair, lv))
     # The whole-loop VJP's kernels at batch 8, bf16, as its step runs them.
     for label, which, G in (("k1_pre_b8", "bottom_up", L), ("k1_pre_add_b8", "top_down", L - 1)):
         params = type(ffw[which])(*(t.to(dev, bf16) for t in ffw[which]))
@@ -1008,7 +1086,9 @@ def main() -> int:
         extra = n * d if add is not None else 0
         nbytes = (2 * (3 * G * M8 * d + G * M8 * f + 2 * G * d * f + extra)
                   + 4 * 2 * (2 * G * d * f + G * (f + d) + extra))
-        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes)
+        record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes,
+                      library_seq_ms=k1_seq_bwd_ms(params, with_add(x, add), g1),
+                      library_seq_call=k1_seq_bwd_call)
     dx_bu, dx_td = randn(L, 8, n, d, dtype=bf16), randn(L - 1, 8, n, d, dtype=bf16)
     comb = dict(side=side, dx_bu=dx_bu, dx_td=dx_td)
     dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=True, **comb)
@@ -1024,12 +1104,17 @@ def main() -> int:
              dtype="bfloat16", **passes[label])
     # The pair replaces one TPU kernel (fused_loop.py:826): its bound is that
     # function's least work, the whole K2 backward's plus the two streams it
-    # reads (bottom-up slots 1..L-1, top-down 0..L-2).
-    record_timing("k2_bwd_combine_b8", [L, 8, n, d],
-                  passes["dq"]["ms"] + passes["dkv"]["ms"],
-                  passes["dq"]["plain_ms"] + passes["dkv"]["plain_ms"],
+    # reads (bottom-up slots 1..L-1, top-down 0..L-2). Timed as the loop
+    # calls it (`consensus_update_bwd`: one k pre-pass for both passes);
+    # `passes` are the two called alone.
+    def k2_combine():
+        return k2.consensus_update_bwd(lv, g, m, l, combine=True, **comb)
+    record_timing("k2_bwd_combine_b8", [L, 8, n, d], time_ms(k2_combine),
+                  time_ms(lambda: k2.consensus_update_bwd_plain(lv, g, m, l, **comb)),
                   k2_bwd_ops, k2_bwd_bytes + 2 * 2 * (L - 1) * 8 * n * d, passes=passes,
-                  library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call)
+                  library_ms=k2_bwd_lib_ms, library_call=k2_lib_bwd_call,
+                  library_kernels=k2_bwd_lib_kernels, products=k2_pair_products,
+                  **bwd_kernels(k2_combine, lv))
     # The combined K1 grid at batch 8 (11 groups), each launch beside the
     # split pair it replaces. Bytes: the [L+1]-slot carry read once, the
     # weights, the addend; written out and pre (forward), pre (pre-only), dx
@@ -1095,6 +1180,11 @@ def main() -> int:
         if label == "k1_fwd_cat_b8":
             lib = dict(library_seq_ms=time_ms(fwd_cat_library_seq),
                        library_seq_call=k1_seq_call + ", over the 11 groups' concatenated input")
+        if label == "k1_bwd_acc_cat_b8":
+            x_cat = torch.cat([with_add(carry[2:], add), carry[:L]])
+            lib = dict(library_seq_ms=k1_seq_bwd_ms(wcat, x_cat,
+                                                    torch.cat([dmean[:L - 1], dmean])),
+                       library_seq_call=k1_seq_bwd_call + ", over the 11 groups")
         record_timing(label, [Gc, M8, d], time_ms(run), time_ms(plain), ops, nbytes,
                       split_pair_ms=time_ms(split_pair), **lib)
     # The long-row route's K2 launches at [6, 2, 4096, 512] (fewer
@@ -1125,21 +1215,26 @@ def main() -> int:
     v_l = lv_r.view(Lr * Br, 1, nr, d).clone().requires_grad_()
     att_l = torch.nn.functional.scaled_dot_product_attention(q_l, k_l, v_l)
     g_l = g_r.view(Lr * Br, 1, nr, d)
-    lib_ms = time_ms(lambda: torch.autograd.grad(att_l, (q_l, k_l, v_l), grad_outputs=g_l,
-                                                 retain_graph=True), reps=5)
+
+    def onesweep_lib():
+        return torch.autograd.grad(att_l, (q_l, k_l, v_l), grad_outputs=g_l, retain_graph=True)
+    lib_ms = time_ms(onesweep_lib, reps=5)
+    lib_kernels = library_kernels(onesweep_lib)
     del att_l
     twopass_ms = time_ms(lambda: k2.consensus_update_bwd(lv_r, g_r, m_r, l_r, side=sr), reps=5)
     # Bound: the TPU kernel's five products (s, dP, dq, dv, dk); bytes:
     # levels, g, cons, m, l read, dlevels written.
+    def onesweep():
+        return k2.consensus_bwd_onesweep(lv_r, g_r, m_r, l_r, cons_r, side=sr)
     record_timing(
-        "k2_bwd_onesweep_longrow", list(long_shape),
-        time_ms(lambda: k2.consensus_bwd_onesweep(lv_r, g_r, m_r, l_r, cons_r, side=sr), reps=5),
+        "k2_bwd_onesweep_longrow", list(long_shape), time_ms(onesweep, reps=5),
         time_ms(lambda: k2.consensus_bwd_onesweep_plain(lv_r, g_r, m_r, l_r, cons_r, side=sr),
                 reps=3),
         5 * 2 * Lr * Br * nr * nr * d, 2 * 4 * elems_r + 4 * 2 * rows_r, library_ms=lib_ms,
         library_call=("torch.nn.functional.scaled_dot_product_attention backward (q = levels, "
                       "normalised k, v = levels, bf16, attend_self=True), retain_graph"),
-        products_per_pair=7, two_pass_ms=twopass_ms)
+        library_kernels=lib_kernels, products=dict(bound=5, design=8, executed=13),
+        two_pass_ms=twopass_ms, **bwd_kernels(onesweep, lv_r, calls=2))
 
     # -- serve: the main path ----------------------------------------------------
     cfg = GlomConfig()  # flagship: dim 512, L 6, 224 px, patch 14
@@ -1884,7 +1979,7 @@ def main() -> int:
                         source=csrc + "banded_consensus.cu",
                         replaces="glom_tpu/kernels/banded_consensus.py:174",
                         launches=ragged_launches["banded_consensus_fwd"], max_abs_err=k4_err,
-                        instance=k4.k4_instance(bf16, pt), **timings["k4_ragged32_full"]))
+                        **timings["k4_ragged32_full"]))
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,107 +32,115 @@
 // The one-sweep form (long rows, glom_tpu's _consensus_bwd_onesweep): the
 // forward also saved the attention output cons, so D_i = sum_j p_ij dP_ij
 // equals dcons_i . cons_i, a row-local dot of the unrounded f32 dcons = g *
-// (1 / div) with the rounded cons. The dq pass takes D from it and sweeps
-// the key tiles once (s, dP, dq: three products a pair), the dkv pass is
-// unchanged (s, dP, dv, dk: four), seven products a pair where the TPU
-// kernel has five and the two-pass form nine. Its epilogue rounds the
-// partial g / div + dv + normVJP(dk) to the levels type, then adds the f32
-// dq and rounds again, glom_tpu's rounding points; no dmean is written (the
-// caller forms g / div, as glom_tpu's _fused_bwd). The TPU kernel keeps the
-// whole row's f32 dq resident in VMEM across every key tile (8 MB a level
-// and image at n = 4096, d = 512); here the dq pass owns its query rows'
-// dq, so no block shares a sum and no float atomics are needed.
-//
-// The products read dcons rounded to the compute type. The dq pass forms
-// it for its query rows and writes it once; the dkv pass reads that copy
-// for each streamed query tile and forms the f32 dcons (from the streams,
-// in the combine) only in its epilogue, for its own key rows. Forming it
-// on every query tile instead (a load, a divide and a rounding per
-// element, repeated by each of a slab's n / 16 key-tile blocks) took the
-// dkv pass 1.84 ms at the flagship bucket-8 shape (1.96 ms with the
-// combine's three streams) against 0.87 ms (0.81 ms) reading the copy
-// (bf16, measured on an H100). An f32 copy would carry 4 bytes where the
-// products need 2.
+// (1 / div) with the rounded cons, and the dq pass sweeps the key tiles
+// once. Its epilogue rounds the partial g / div + dv + normVJP(dk) to the
+// levels type, then adds the f32 dq and rounds again, glom_tpu's rounding
+// points; no dmean is written (the caller forms g / div, as glom_tpu's
+// _fused_bwd). The TPU kernel keeps the whole row's f32 dq resident in VMEM
+// across every key tile (8 MB a level and image at n = 4096, d = 512); here
+// the dq pass owns its query rows' dq, so no block shares a sum and no float
+// atomics are needed.
 //
 // Replaces: glom_tpu/kernels/consensus_update.py:_consensus_bwd_small_kernel
 // (one tile, n <= 512), :_consensus_bwd_dq_kernel and
 // :_consensus_bwd_dkv_kernel (two passes, any n),
 // :_consensus_bwd_onesweep_kernel (long rows, with the saved cons), and
 // glom_tpu/kernels/fused_loop.py:_cons_bwd_combine_kernel (the three-stream
-// combine, single tile there). The single-tile form needs
-// the whole f32 [n, n] score tile in fast memory: 256 KB at n = 256, more
-// than a block's 227 KB of shared memory. So two kernels cover every n:
-//   * the dq pass, one block per (query tile, image, level), streams the
-//     key tiles twice: once for dd (the full sum, diagonal included), once
-//     for ds and dq += ds . k (f32 in shared memory). It writes f32 dq and
-//     dd, and the rounded dcons;
-//   * the dkv pass, one block per (key tile, image, level), streams the
-//     query tiles once, summing dv and dk in shared memory, and its epilogue
-//     applies the norm VJP and writes the complete dlevels and dmean.
-// Both skip tiles outside the radius band with the forward's window
-// arithmetic. Rounding points are the TPU single-tile kernel's: k is
-// normalized in f32 and rounded to the compute type, dcons is rounded before
-// the products that take it, p (for dv) and ds are rounded before theirs,
-// every sum is f32, and dlevels is rounded once.
+// combine, single tile there). The single-tile form needs the whole f32 [n,
+// n] score tile in fast memory: 256 KB at n = 256, more than a block's 227 KB
+// of shared memory. So a dq pass (one block a query tile) and a key-side
+// pass (one block a key tile) cover every n, and only f32 dq, dd, (bf16)
+// dv and the rounded dcons pass between them. Both skip tiles outside the
+// radius band with the forward's window arithmetic. Rounding points are
+// the TPU single-tile kernel's: k is normalized in f32 and rounded to the
+// compute type, dcons is rounded before the products that take it, p (for
+// dv) and ds are rounded before theirs, every sum is f32, and dlevels is
+// rounded once (twice in the one-sweep form, as above).
+//
+// Two instances, chosen by the caller (kernels/consensus_update.py:
+// k2_bwd_instance) and checked again by the C entries:
+//
+//   * "wgmma", bf16 at n % 32 == 0, d % 64 == 0, d <= 640, on Hopper's
+//     tensor cores (sm_90a; the shapes, barriers and pre-pass are
+//     sm90_attn.cuh's, as K2's bf16 forward):
+//       - a pre-pass, one warp a row, writes k = normalize(levels) rounded
+//         to a bf16 scratch the caller allocates, the rounded dcons (from
+//         the streams, in the combine) and, in the one-sweep form, D. The
+//         attention kernels then TMA-load both and never normalise a tile
+//         again (the CUDA-core form normalised each key tile once for every
+//         block that read it: 128 times a key row at n = 4096);
+//       - the dq pass: a block takes 64 query rows of one (level, image) and
+//         two warpgroups. Per tile of NT keys (32; 16 past d = 512, where
+//         four tiles of 64 rows exceed shared memory) both warpgroups
+//         compute the whole S = Q . k^T and dP = dcons . v^T (wgmma
+//         m64nNTk16, both operands K-major), p from the saved m, l (no
+//         online softmax) and ds in registers, and each accumulates its half
+//         of dq's columns, dq += ds . k with ds rounded as the register A
+//         operand and k read MN-major (as the forward reads V). Q and dcons
+//         stay resident; k rides a two-stage ring, v a single stage;
+//       - the key side in two passes, because dv and dk of 64 keys x 512
+//         columns in f32 are 2 x 128 KB, the SM's whole register file: the
+//         dv pass (S^T = k_j . Q_i^T, dv += p^T . dcons_i with p^T from the
+//         S^T accumulator) writes f32 dv; the dk pass (S^T, dP^T = v_j .
+//         dcons_i^T, dk += ds^T . Q_i) applies the norm VJP and writes the
+//         complete dlevels (and dmean), reading f32 dq and dv. A block holds
+//         64 key rows (k and v resident) and streams NT-row query tiles.
+//     Products: the two-pass forms compute ten a pair (s and dP twice, dq;
+//     s, dv; s, dP, dk), the one-sweep eight; each warpgroup of the dq and
+//     key passes recomputes the block's whole S (and dP), so the tensor
+//     cores run 17 (two-pass) or 13 (one-sweep) products' worth, where the
+//     TPU kernels need five.
+//   * "fma", f32, the parity instance, on the CUDA cores: the dq pass
+//     streams 16-key tiles twice (dd, then ds and dq += ds . k in shared
+//     memory), normalising each tile's keys as it loads them; the dkv pass
+//     streams 16-query tiles once for dv and dk and applies the norm VJP.
 //
 // Bound on the H100: tensor-core operations. At the flagship bucket-8 shape
 // ([6, 8, 256, 512] bf16) the five products of the single-tile form are
 // 16.1 GFLOP, against 50 MB of levels, cotangent, dlevels and dmean (23 MB
-// more with the combine's two streams); this design computes nine (s and
-// dP three times, dq, dv, dk). At the long-row training shape ([6, 2, 4096,
-// 512] bf16) the one-sweep kernel's five products are 1031 GFLOP against
-// 202 MB of levels, cotangent, cons, m, l and dlevels; the one-sweep form
-// here computes seven.
+// more with the combine's two streams). At the long-row training shape ([6,
+// 2, 4096, 512] bf16) the one-sweep kernel's five products are 1031 GFLOP
+// against 202 MB of levels, cotangent, cons, m, l and dlevels.
 //
-// Kept out of device memory: the scores, probabilities and ds, and dv and
-// dk; only f32 dq and dd, and the rounded dcons, pass between the two
-// kernels.
+// Kept out of device memory: the scores, probabilities and ds, and dk.
+// Tile shapes, the K order and the rounding points are fixed and nothing
+// is atomic: the results do not depend on the launch.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
-#include <type_traits>
 
-using namespace nvcuda;
+#include "sm90_attn.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using sm90::NEG_MAX;
+using sm90::SELF_VALUE;
+
+// Live tile window [lo, hi) on the other axis for the rows [t0, t0 + extent):
+// rows interact only within reach = (floor(radius) + 1) * side positions.
+__host__ __device__ __forceinline__ void window(int t0, int extent, int tile, int n_tiles,
+                                                int reach, int& lo, int& hi) {
+  lo = 0;
+  hi = n_tiles;
+  if (reach > 0) {
+    const int a = t0 - reach, b = t0 + extent + reach;
+    lo = a <= 0 ? 0 : a / tile;
+    hi = min((b + tile - 1) / tile, n_tiles);
+  }
+}
+
+// ================================================== f32: "fma", the CUDA cores
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr float NEG_MAX = -3.4028234663852886e38f;  // finfo(float32).min
-constexpr float SELF_VALUE = -5e-4f;               // TOKEN_ATTEND_SELF_VALUE
-
 // dq pass: TI query rows a block, TJ key rows a step. dkv pass: KJ key rows
-// a block, KI query rows a step.
-template <typename T>
-struct Tiles;
-template <>
-struct Tiles<bf16> {
-  static constexpr int TI = 32, TJ = 32, KJ = 16, KI = 32, PAD = 8;
-};
-template <>
-struct Tiles<float> {
-  static constexpr int TI = 16, TJ = 16, KJ = 16, KI = 16, PAD = 1;
-};
-
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
+// a block, KI query rows a step. PAD spreads rows over banks.
+constexpr int TI = 16, TJ = 16, KJ = 16, KI = 16, PAD = 1;
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
@@ -150,13 +158,13 @@ __device__ __forceinline__ float masked(float s, int i, int j, int side, int rea
 
 // The f32 output cotangent of level g at element idx (see the combine
 // above); plane = B * n * d elements per level. Without streams it is dg.
-template <typename T>
-__device__ __forceinline__ float cotangent(const T* gout, const T* dx_bu, const T* dx_td,
-                                           size_t idx, size_t plane, int g, int L) {
-  float c = to_f(gout[idx]);
+__device__ __forceinline__ float cotangent(const float* gout, const float* dx_bu,
+                                           const float* dx_td, size_t idx, size_t plane, int g,
+                                           int L) {
+  float c = gout[idx];
   if (dx_bu != nullptr) {
-    if (g < L - 1) c += to_f(dx_bu[idx + plane]);
-    if (g >= 1) c += to_f(dx_td[idx - plane]);
+    if (g < L - 1) c += dx_bu[idx + plane];
+    if (g >= 1) c += dx_td[idx - plane];
   }
   return c;
 }
@@ -167,169 +175,93 @@ __device__ __forceinline__ float zero_diag(float ds, int i, int j, int attend_se
   return (!attend_self && i == j) ? 0.0f : ds;
 }
 
-// Raw rows into vs and k = row / max(||row||, 1e-12) in f32 into ks, a warp
-// a row, exactly as the forward normalizes them.
-template <typename T>
-__device__ __forceinline__ void load_rows_and_k(const T* src, int rows, int d, int ld, T* vs,
-                                                T* ks, int warp, int lane) {
+// Raw rows into vs and k = row / max(||row||, 1e-12) into ks, a warp a row,
+// exactly as the forward normalizes them.
+__device__ __forceinline__ void load_rows_and_k(const float* src, int rows, int d, int ld,
+                                                float* vs, float* ks, int warp, int lane) {
   for (int r = warp; r < rows; r += WARPS) {
-    const T* row = src + (size_t)r * d;
+    const float* row = src + (size_t)r * d;
     float ss = 0.0f;
     for (int c = lane; c < d; c += 32) {
-      const T v = row[c];
+      const float v = row[c];
       vs[r * ld + c] = v;
-      const float vf = to_f(v);
-      ss = fmaf(vf, vf, ss);
+      ss = fmaf(v, v, ss);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     const float denom = fmaxf(sqrtf(ss), 1e-12f);
-    for (int c = lane; c < d; c += 32) ks[r * ld + c] = from_f<T>(to_f(vs[r * ld + c]) / denom);
+    for (int c = lane; c < d; c += 32) ks[r * ld + c] = vs[r * ld + c] / denom;
   }
 }
 
-// out[R x C] (f32, pitch ldo) = A[R x d] . B[C x d]^T for R, C in {16, 32}:
-// bf16 on tensor cores by warps [w0, w0 + (R/16)(C/16)), f32 by all threads.
-template <typename T, int R, int C>
-__device__ __forceinline__ void gemm_abt(const T* A, const T* B, int ld, int d, float* out,
-                                         int ldo, int w0) {
-  const int tid = threadIdx.x, warp = tid / 32;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int w = warp - w0;
-    if (w >= 0 && w < (R / 16) * (C / 16)) {
-      const int rf = w / (C / 16), cf = w % (C / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-      for (int k = 0; k < d; k += 16) {
-        wmma::load_matrix_sync(af, A + rf * 16 * ld + k, ld);
-        wmma::load_matrix_sync(bf, B + cf * 16 * ld + k, ld);
-        wmma::mma_sync(s, af, bf, s);
-      }
-      wmma::store_matrix_sync(out + rf * 16 * ldo + cf * 16, s, ldo, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = tid; e < R * C; e += THREADS) {
-      const int r = e / C, c = e - r * C;
-      float s = 0.0f;
-      for (int k = 0; k < d; ++k) s = fmaf(to_f(A[r * ld + k]), to_f(B[c * ld + k]), s);
-      out[r * ldo + c] = s;
-    }
+// out[R x C] (pitch ldo) = A[R x d] . B[C x d]^T, by all threads.
+template <int R, int C>
+__device__ __forceinline__ void gemm_abt(const float* A, const float* B, int ld, int d,
+                                         float* out, int ldo) {
+  for (int e = threadIdx.x; e < R * C; e += THREADS) {
+    const int r = e / C, c = e - r * C;
+    float s = 0.0f;
+    for (int k = 0; k < d; ++k) s = fmaf(A[r * ld + k], B[c * ld + k], s);
+    out[r * ldo + c] = s;
   }
 }
 
-// acc[R x d] (f32, pitch ldacc) += P[R x K] . V[K x d] for R in {16, 32}, K in
-// {16, 32}. With `two`, a second product acc2 += P2 . V2 shares the warps.
-template <typename T, int R, int K>
-__device__ __forceinline__ void gemm_acc(const T* P, int ldp, const T* V, int ld, int d,
-                                         float* acc, int ldacc, const T* P2, const T* V2,
+// acc[R x d] (pitch ldacc) += P[R x K] . V[K x d]. With P2, a second
+// product acc2 += P2 . V2 shares the threads.
+template <int R, int K>
+__device__ __forceinline__ void gemm_acc(const float* P, int ldp, const float* V, int ld, int d,
+                                         float* acc, int ldacc, const float* P2, const float* V2,
                                          float* acc2) {
-  const int tid = threadIdx.x, warp = tid / 32;
   const int n_products = P2 != nullptr ? 2 : 1;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-    using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-    using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-    const int tasks = n_products * (d / 16);
-    for (int t = warp; t < tasks; t += WARPS) {
-      const bool second = t >= d / 16;
-      const int cf = second ? t - d / 16 : t;
-      const T* Pp = second ? P2 : P;
-      const T* Vp = second ? V2 : V;
-      float* a = second ? acc2 : acc;
-      FragA pa[R / 16][K / 16];
+  for (int e = threadIdx.x; e < n_products * R * d; e += THREADS) {
+    const bool second = e >= R * d;
+    const int ee = second ? e - R * d : e;
+    const int r = ee / d, c = ee - r * d;
+    const float* Pp = second ? P2 : P;
+    const float* Vp = second ? V2 : V;
+    float* a = second ? acc2 : acc;
+    float pv = 0.0f;
 #pragma unroll
-      for (int rf = 0; rf < R / 16; ++rf)
-#pragma unroll
-        for (int kk = 0; kk < K / 16; ++kk)
-          wmma::load_matrix_sync(pa[rf][kk], Pp + rf * 16 * ldp + kk * 16, ldp);
-      FragC o[R / 16];
-#pragma unroll
-      for (int rf = 0; rf < R / 16; ++rf)
-        wmma::load_matrix_sync(o[rf], a + rf * 16 * ldacc + cf * 16, ldacc, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < K / 16; ++kk) {
-        FragB vb;
-        wmma::load_matrix_sync(vb, Vp + kk * 16 * ld + cf * 16, ld);
-#pragma unroll
-        for (int rf = 0; rf < R / 16; ++rf) wmma::mma_sync(o[rf], pa[rf][kk], vb, o[rf]);
-      }
-#pragma unroll
-      for (int rf = 0; rf < R / 16; ++rf)
-        wmma::store_matrix_sync(a + rf * 16 * ldacc + cf * 16, o[rf], ldacc, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = tid; e < n_products * R * d; e += THREADS) {
-      const bool second = e >= R * d;
-      const int ee = second ? e - R * d : e;
-      const int r = ee / d, c = ee - r * d;
-      const T* Pp = second ? P2 : P;
-      const T* Vp = second ? V2 : V;
-      float* a = second ? acc2 : acc;
-      float pv = 0.0f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) pv = fmaf(to_f(Pp[r * ldp + k]), to_f(Vp[k * ld + c]), pv);
-      a[r * ldacc + c] += pv;
-    }
+    for (int k = 0; k < K; ++k) pv = fmaf(Pp[r * ldp + k], Vp[k * ld + c], pv);
+    a[r * ldacc + c] += pv;
   }
 }
 
-// Live tile window [lo, hi) on the other axis for the rows [t0, t0 + extent):
-// rows interact only within reach = (floor(radius) + 1) * side positions.
-__device__ __forceinline__ void window(int t0, int extent, int tile, int n_tiles, int reach,
-                                       int& lo, int& hi) {
-  lo = 0;
-  hi = n_tiles;
-  if (reach > 0) {
-    const int a = t0 - reach, b = t0 + extent + reach;
-    lo = a <= 0 ? 0 : a / tile;
-    hi = min((b + tile - 1) / tile, n_tiles);
-  }
-}
-
-// ------------------------------------------------------------------ dq pass
-
-template <typename T>
 struct DqLayout {
-  static constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
-  int ld, ldacc, lds, ldp;
+  int ld, ldacc, lds;
   size_t dc_off, k_off, v_off, acc_off, s_off, dp_off, ds_off, st_off, bytes;
-  __host__ __device__ explicit DqLayout(int d)
-      : ld(d + Tiles<T>::PAD), ldacc(d + 4), lds(TJ + 4), ldp(TJ + 8) {
-    dc_off = align128(sizeof(T) * TI * ld);  // after the q tile
-    k_off = dc_off + align128(sizeof(T) * TI * ld);
-    v_off = k_off + align128(sizeof(T) * TJ * ld);
-    acc_off = v_off + align128(sizeof(T) * TJ * ld);
+  __host__ __device__ explicit DqLayout(int d) : ld(d + PAD), ldacc(d + 4), lds(TJ + 4) {
+    dc_off = align128(sizeof(float) * TI * ld);  // after the q tile
+    k_off = dc_off + align128(sizeof(float) * TI * ld);
+    v_off = k_off + align128(sizeof(float) * TJ * ld);
+    acc_off = v_off + align128(sizeof(float) * TJ * ld);
     s_off = acc_off + align128(sizeof(float) * TI * ldacc);
     dp_off = s_off + align128(sizeof(float) * TI * lds);
     ds_off = dp_off + align128(sizeof(float) * TI * lds);
-    st_off = ds_off + align128(sizeof(T) * TI * ldp);
+    st_off = ds_off + align128(sizeof(float) * TI * lds);
     bytes = st_off + align128(sizeof(float) * 3 * TI);
   }
 };
 
-template <typename T, bool ONESWEEP>
+template <bool ONESWEEP>
 __global__ void __launch_bounds__(THREADS)
-consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
-                        const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
-                        const T* __restrict__ cons_in,
-                        const float* __restrict__ m_in, const float* __restrict__ l_in,
-                        float* __restrict__ dq_out, float* __restrict__ dd_out,
-                        T* __restrict__ dcons_out, int L, int B,
+consensus_bwd_dq_kernel(const float* __restrict__ lv, const float* __restrict__ gout,
+                        const float* __restrict__ dx_bu, const float* __restrict__ dx_td,
+                        const float* __restrict__ cons_in, const float* __restrict__ m_in,
+                        const float* __restrict__ l_in, float* __restrict__ dq_out,
+                        float* __restrict__ dd_out, float* __restrict__ dcons_out, int L, int B,
                         int n, int d, int side, int reach, float r2, int attend_self,
                         float scale) {
-  constexpr int TI = Tiles<T>::TI, TJ = Tiles<T>::TJ;
   extern __shared__ __align__(128) unsigned char smem[];
-  const DqLayout<T> lay(d);
-  T* qs = reinterpret_cast<T*>(smem);                       // [TI][ld] query rows
-  T* dcs = reinterpret_cast<T*>(smem + lay.dc_off);         // [TI][ld] rounded dcons
-  T* ks = reinterpret_cast<T*>(smem + lay.k_off);           // [TJ][ld] normalized k
-  T* vs = reinterpret_cast<T*>(smem + lay.v_off);           // [TJ][ld] raw rows (v)
-  float* acc = reinterpret_cast<float*>(smem + lay.acc_off);  // [TI][ldacc] dq
-  float* S = reinterpret_cast<float*>(smem + lay.s_off);      // [TI][lds] scores
-  float* dP = reinterpret_cast<float*>(smem + lay.dp_off);    // [TI][lds]
-  T* DS = reinterpret_cast<T*>(smem + lay.ds_off);            // [TI][ldp]
+  const DqLayout lay(d);
+  float* qs = reinterpret_cast<float*>(smem);                   // [TI][ld] query rows
+  float* dcs = reinterpret_cast<float*>(smem + lay.dc_off);     // [TI][ld] dcons
+  float* ks = reinterpret_cast<float*>(smem + lay.k_off);       // [TJ][ld] normalized k
+  float* vs = reinterpret_cast<float*>(smem + lay.v_off);       // [TJ][ld] raw rows (v)
+  float* acc = reinterpret_cast<float*>(smem + lay.acc_off);    // [TI][ldacc] dq
+  float* S = reinterpret_cast<float*>(smem + lay.s_off);        // [TI][lds] scores
+  float* dP = reinterpret_cast<float*>(smem + lay.dp_off);      // [TI][lds]
+  float* DS = reinterpret_cast<float*>(smem + lay.ds_off);      // [TI][lds]
   float* m_row = reinterpret_cast<float*>(smem + lay.st_off);
   float* l_row = m_row + TI;
   float* dd_row = l_row + TI;
@@ -339,7 +271,7 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   const float div = g == L - 1 ? 3.0f : 4.0f;
   const size_t slab = ((size_t)g * B + b) * n;  // row offset of levels[g, b]
   const size_t plane = (size_t)B * n * d;
-  const T* row0 = lv + slab * d;
+  const float* row0 = lv + slab * d;
 
   const float inv_div = 1.0f / div;
   for (int e = tid; e < TI * d; e += THREADS) {
@@ -347,8 +279,8 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
     const size_t idx = (slab + i0 + r) * d + c;
     qs[r * lay.ld + c] = lv[idx];
     // The one-sweep form scales by 1/div, as glom_tpu's one-sweep kernel.
-    const T dc = ONESWEEP ? from_f<T>(to_f(gout[idx]) * inv_div)
-                          : from_f<T>(cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div);
+    const float dc = ONESWEEP ? gout[idx] * inv_div
+                              : cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div;
     dcs[r * lay.ld + c] = dc;
     dcons_out[idx] = dc;
     acc[r * lay.ldacc + c] = 0.0f;
@@ -359,13 +291,12 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
     if (!ONESWEEP) dd_row[tid] = 0.0f;
   }
   if constexpr (ONESWEEP) {
-    // D_i = sum_c dcons_ic cons_ic, a warp a row: the unrounded f32 dcons
-    // against the forward's saved attention output, so dd needs no sweep.
+    // D_i = sum_c dcons_ic cons_ic, a warp a row: dcons against the
+    // forward's saved attention output, so dd needs no sweep.
     for (int r = warp; r < TI; r += WARPS) {
       const size_t row = (slab + i0 + r) * d;
       float D = 0.0f;
-      for (int c = lane; c < d; c += 32)
-        D = fmaf(to_f(gout[row + c]) * inv_div, to_f(cons_in[row + c]), D);
+      for (int c = lane; c < d; c += 32) D = fmaf(gout[row + c] * inv_div, cons_in[row + c], D);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) D += __shfl_xor_sync(0xffffffffu, D, o);
       if (lane == 0) dd_row[r] = D;
@@ -382,9 +313,8 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
       const int j0 = jt * TJ;
       load_rows_and_k(row0 + (size_t)j0 * d, TJ, d, lay.ld, vs, ks, warp, lane);
       __syncthreads();
-      constexpr int W = (TI / 16) * (TJ / 16);  // warps per product (bf16)
-      gemm_abt<T, TI, TJ>(qs, ks, lay.ld, d, S, lay.lds, 0);
-      gemm_abt<T, TI, TJ>(dcs, vs, lay.ld, d, dP, lay.lds, W);
+      gemm_abt<TI, TJ>(qs, ks, lay.ld, d, S, lay.lds);
+      gemm_abt<TI, TJ>(dcs, vs, lay.ld, d, dP, lay.lds);
       __syncthreads();
       if (sweep == 0) {
         if (tid < TI) {
@@ -404,11 +334,10 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
                                  attend_self);
           const float p = expf(s - m_row[r]) / l_row[r];
           const float ds = p * (dP[r * lay.lds + j] - dd_row[r]);
-          DS[r * lay.ldp + j] = from_f<T>(zero_diag(ds, i, j0 + j, attend_self));
+          DS[r * lay.lds + j] = zero_diag(ds, i, j0 + j, attend_self);
         }
         __syncthreads();
-        gemm_acc<T, TI, TJ>(DS, lay.ldp, ks, lay.ld, d, acc, lay.ldacc, nullptr, nullptr,
-                            nullptr);
+        gemm_acc<TI, TJ>(DS, lay.lds, ks, lay.ld, d, acc, lay.ldacc, nullptr, nullptr, nullptr);
       }
       __syncthreads();
     }
@@ -421,52 +350,45 @@ consensus_bwd_dq_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   if (tid < TI) dd_out[slab + i0 + tid] = dd_row[tid];
 }
 
-// ----------------------------------------------------------------- dkv pass
-
-template <typename T>
 struct DkvLayout {
-  static constexpr int KJ = Tiles<T>::KJ, KI = Tiles<T>::KI;
-  int ld, ldacc, lds, ldp;
+  int ld, ldacc, lds;
   size_t k_off, dv_off, dk_off, q_off, dc_off, s_off, dp_off, p_off, ds_off, st_off, bytes;
-  __host__ __device__ explicit DkvLayout(int d)
-      : ld(d + Tiles<T>::PAD), ldacc(d + 4), lds(KI + 4), ldp(KI + 8) {
-    k_off = align128(sizeof(T) * KJ * ld);  // after the raw key rows
-    dv_off = k_off + align128(sizeof(T) * KJ * ld);
+  __host__ __device__ explicit DkvLayout(int d) : ld(d + PAD), ldacc(d + 4), lds(KI + 4) {
+    k_off = align128(sizeof(float) * KJ * ld);  // after the raw key rows
+    dv_off = k_off + align128(sizeof(float) * KJ * ld);
     dk_off = dv_off + align128(sizeof(float) * KJ * ldacc);
     q_off = dk_off + align128(sizeof(float) * KJ * ldacc);
-    dc_off = q_off + align128(sizeof(T) * KI * ld);
-    s_off = dc_off + align128(sizeof(T) * KI * ld);
+    dc_off = q_off + align128(sizeof(float) * KI * ld);
+    s_off = dc_off + align128(sizeof(float) * KI * ld);
     dp_off = s_off + align128(sizeof(float) * KJ * lds);
     p_off = dp_off + align128(sizeof(float) * KJ * lds);
-    ds_off = p_off + align128(sizeof(T) * KJ * ldp);
-    st_off = ds_off + align128(sizeof(T) * KJ * ldp);
+    ds_off = p_off + align128(sizeof(float) * KJ * lds);
+    st_off = ds_off + align128(sizeof(float) * KJ * lds);
     bytes = st_off + align128(sizeof(float) * 3 * KI);
   }
 };
 
-template <typename T, bool ONESWEEP>
+template <bool ONESWEEP>
 __global__ void __launch_bounds__(THREADS)
-consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
-                         const T* __restrict__ dx_bu, const T* __restrict__ dx_td,
+consensus_bwd_dkv_kernel(const float* __restrict__ lv, const float* __restrict__ gout,
+                         const float* __restrict__ dx_bu, const float* __restrict__ dx_td,
                          const float* __restrict__ m_in, const float* __restrict__ l_in,
                          const float* __restrict__ dq_in, const float* __restrict__ dd_in,
-                         const T* __restrict__ dcons_in, T* __restrict__ dlv_out,
-                         T* __restrict__ dmean_out, int L, int B,
-                         int n, int d, int side, int reach, float r2, int attend_self,
-                         float scale) {
-  constexpr int KJ = Tiles<T>::KJ, KI = Tiles<T>::KI;
+                         const float* __restrict__ dcons_in, float* __restrict__ dlv_out,
+                         float* __restrict__ dmean_out, int L, int B, int n, int d, int side,
+                         int reach, float r2, int attend_self, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DkvLayout<T> lay(d);
-  T* xj = reinterpret_cast<T*>(smem);                         // [KJ][ld] raw key rows (v)
-  T* kj = reinterpret_cast<T*>(smem + lay.k_off);             // [KJ][ld] normalized k
-  float* dv = reinterpret_cast<float*>(smem + lay.dv_off);    // [KJ][ldacc]
-  float* dk = reinterpret_cast<float*>(smem + lay.dk_off);    // [KJ][ldacc]
-  T* qs = reinterpret_cast<T*>(smem + lay.q_off);             // [KI][ld] query rows
-  T* dcs = reinterpret_cast<T*>(smem + lay.dc_off);           // [KI][ld] rounded dcons
-  float* S2 = reinterpret_cast<float*>(smem + lay.s_off);     // [KJ][lds] s transposed
-  float* dP2 = reinterpret_cast<float*>(smem + lay.dp_off);   // [KJ][lds]
-  T* P2 = reinterpret_cast<T*>(smem + lay.p_off);             // [KJ][ldp]
-  T* DS2 = reinterpret_cast<T*>(smem + lay.ds_off);           // [KJ][ldp]
+  const DkvLayout lay(d);
+  float* xj = reinterpret_cast<float*>(smem);                   // [KJ][ld] raw key rows (v)
+  float* kj = reinterpret_cast<float*>(smem + lay.k_off);       // [KJ][ld] normalized k
+  float* dv = reinterpret_cast<float*>(smem + lay.dv_off);      // [KJ][ldacc]
+  float* dk = reinterpret_cast<float*>(smem + lay.dk_off);      // [KJ][ldacc]
+  float* qs = reinterpret_cast<float*>(smem + lay.q_off);       // [KI][ld] query rows
+  float* dcs = reinterpret_cast<float*>(smem + lay.dc_off);     // [KI][ld] dcons
+  float* S2 = reinterpret_cast<float*>(smem + lay.s_off);       // [KJ][lds] s transposed
+  float* dP2 = reinterpret_cast<float*>(smem + lay.dp_off);     // [KJ][lds]
+  float* P2 = reinterpret_cast<float*>(smem + lay.p_off);       // [KJ][lds]
+  float* DS2 = reinterpret_cast<float*>(smem + lay.ds_off);     // [KJ][lds]
   float* m_row = reinterpret_cast<float*>(smem + lay.st_off);
   float* l_row = m_row + KI;
   float* dd_row = l_row + KI;
@@ -476,7 +398,7 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
   const float div = g == L - 1 ? 3.0f : 4.0f;
   const size_t slab = ((size_t)g * B + b) * n;
   const size_t plane = (size_t)B * n * d;
-  const T* row0 = lv + slab * d;
+  const float* row0 = lv + slab * d;
 
   load_rows_and_k(row0 + (size_t)j0 * d, KJ, d, lay.ld, xj, kj, warp, lane);
   for (int e = tid; e < KJ * d; e += THREADS) {
@@ -502,34 +424,32 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
       dd_row[tid] = dd_in[slab + i0 + tid];
     }
     __syncthreads();
-    constexpr int W = (KJ / 16) * (KI / 16);
-    gemm_abt<T, KJ, KI>(kj, qs, lay.ld, d, S2, lay.lds, 0);   // S2[j][i] = k_j . q_i
-    gemm_abt<T, KJ, KI>(xj, dcs, lay.ld, d, dP2, lay.lds, W);  // dP2[j][i] = v_j . dcons_i
+    gemm_abt<KJ, KI>(kj, qs, lay.ld, d, S2, lay.lds);   // S2[j][i] = k_j . q_i
+    gemm_abt<KJ, KI>(xj, dcs, lay.ld, d, dP2, lay.lds);  // dP2[j][i] = v_j . dcons_i
     __syncthreads();
     for (int e = tid; e < KJ * KI; e += THREADS) {
       const int jr = e / KI, ic = e - jr * KI, i = i0 + ic, j = j0 + jr;
       const float s = masked(S2[jr * lay.lds + ic] * scale, i, j, side, reach, r2, attend_self);
       const float p = expf(s - m_row[ic]) / l_row[ic];
       const float ds = p * (dP2[jr * lay.lds + ic] - dd_row[ic]);
-      P2[jr * lay.ldp + ic] = from_f<T>(p);
-      DS2[jr * lay.ldp + ic] = from_f<T>(zero_diag(ds, i, j, attend_self));
+      P2[jr * lay.lds + ic] = p;
+      DS2[jr * lay.lds + ic] = zero_diag(ds, i, j, attend_self);
     }
     __syncthreads();
     // dv += P2 . dcons, dk += DS2 . q.
-    gemm_acc<T, KJ, KI>(P2, lay.ldp, dcs, lay.ld, d, dv, lay.ldacc, DS2, qs, dk);
+    gemm_acc<KJ, KI>(P2, lay.lds, dcs, lay.ld, d, dv, lay.ldacc, DS2, qs, dk);
     __syncthreads();
   }
 
   // Epilogue, a warp a key row: dk through the VJP of k = x / max(|x|, eps),
-  // then dlevels = dcons + dq + dv + normVJP(dk). The one-sweep form rounds
-  // the partial (g / div + dv + normVJP(dk)) to the levels type first and
-  // adds the f32 dq after, as glom_tpu joins dq outside its kernel; it
-  // writes no dmean.
+  // then dlevels = dcons + dq + dv + normVJP(dk). The one-sweep form adds
+  // the partial (g / div + dv + normVJP(dk)) and the dq in that order (in
+  // f32 the two roundings are exact); it writes no dmean.
   const float inv_div = 1.0f / div;
   for (int r = warp; r < KJ; r += WARPS) {
     float xx = 0.0f, kx = 0.0f;
     for (int c = lane; c < d; c += 32) {
-      const float x = to_f(xj[r * lay.ld + c]);
+      const float x = xj[r * lay.ld + c];
       xx = fmaf(x, x, xx);
       kx = fmaf(dk[r * lay.ldacc + c] * scale, x, kx);
     }
@@ -542,36 +462,893 @@ consensus_bwd_dkv_kernel(const T* __restrict__ lv, const T* __restrict__ gout,
     const float inv = 1.0f / fmaxf(norm, 1e-12f);
     for (int c = lane; c < d; c += 32) {
       const size_t idx = (slab + j0 + r) * d + c;
-      const float x = to_f(xj[r * lay.ld + c]);
+      const float x = xj[r * lay.ld + c];
       const float dkc = dk[r * lay.ldacc + c] * scale;
       const float dxn = dkc * inv - (norm >= 1e-12f ? kx * x * inv * inv / norm : 0.0f);
       if constexpr (ONESWEEP) {
-        const T partial = from_f<T>(to_f(gout[idx]) * inv_div + dv[r * lay.ldacc + c] + dxn);
-        dlv_out[idx] = from_f<T>(to_f(partial) + dq_in[idx]);
+        dlv_out[idx] = gout[idx] * inv_div + dv[r * lay.ldacc + c] + dxn + dq_in[idx];
       } else {
         const float dcons = cotangent(gout, dx_bu, dx_td, idx, plane, g, L) / div;
-        dlv_out[idx] = from_f<T>(dcons + dq_in[idx] + dv[r * lay.ldacc + c] + dxn);
-        dmean_out[idx] = from_f<T>(dcons);
+        dlv_out[idx] = dcons + dq_in[idx] + dv[r * lay.ldacc + c] + dxn;
+        dmean_out[idx] = dcons;
       }
     }
   }
 }
 
-// Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
-// once per device (`done` flags which devices are set).
-constexpr int MAX_DEVICES = 64;
+// ====================================== bf16: "wgmma", Hopper's tensor cores
 
-template <typename Kernel>
-cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
+constexpr int MAX_D = 640;                // 2 warpgroups x NC chunks of 64 columns (WIDE)
+constexpr int RBOX = sm90::ATTN_BOX;      // a resident box: 64 rows x 64 bf16 columns
+constexpr int ROWS = sm90::ATTN_ROWS;     // rows a block owns: one wgmma m64
+constexpr int WG_THREADS = sm90::ATTN_THREADS;  // two warpgroups
+
+// The streamed tiles: NT rows (the wgmma N of S, the K of the accumulating
+// products); a warpgroup's NC 64-column chunks of its accumulator. WIDE (d
+// > 512) halves the tile so the resident operands of 64 rows x d fit.
+template <bool WIDE>
+struct Hop {
+  static constexpr int NT = WIDE ? 16 : 32;
+  static constexpr int NC = WIDE ? 5 : 4;
+  static constexpr int ACC = NT / 2;         // f32 sums a thread holds for m64nNT
+  static constexpr int TBOX = NT * 128;      // a streamed box: NT rows x 64 columns
+  static constexpr int TILE = 2 * NC * TBOX;  // every chunk an accumulating product reads
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+template <int NT>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NT / 2], uint64_t da, uint64_t db) {
+  if constexpr (NT == 32) {
+    sm90::wgmma_m64n32k16_ss(d, da, db);
+  } else {
+    sm90::wgmma_m64n16k16_ss(d, da, db);
+  }
+}
+
+// acc[64 x NT] += A[64 x d] . B[NT x d]^T: A a resident operand (64-row
+// boxes), B a streamed tile (NT-row boxes), both K-major; K step kk covers
+// columns 16 kk .. 16 kk + 15, in box kk / 4, 32 bytes along its rows.
+template <int NT>
+__device__ __forceinline__ void ss_product(float (&acc)[NT / 2], uint32_t a, uint32_t b,
+                                           int k_steps) {
+  for (int kk = 0; kk < k_steps; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss<NT>(acc, sm90::smem_desc(a + (kk / 4) * RBOX + col, 16, 1024),
+                 sm90::smem_desc(b + (kk / 4) * (NT * 128) + col, 16, 1024));
+  }
+}
+
+// acc[c] (64 x 64) += A[64 x NT] . B_c[NT x 64] for the warpgroup's NC
+// chunks: A in registers (four packed bf16 pairs a K step of 16), B the
+// streamed tile's chunk boxes from b on, MN-major (16 rows, 2048 bytes, a
+// K step). Every chunk runs, also past d (a wgmma under a branch the
+// compiler cannot prove warpgroup-uniform is serialized): the tile holds
+// room for all of them and their sums are not stored.
+template <int NT, int NC>
+__device__ __forceinline__ void rs_product(float (&acc)[NC][sm90::ACC64],
+                                           const uint32_t (&a)[NT / 4], uint32_t b) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int kk = 0; kk < NT / 16; ++kk)
+      sm90::wgmma_m64n64k16_rs(acc[c], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                               sm90::smem_desc(b + c * NT * 128 + 2048 * kk, NT * 128, 1024));
+}
+
+// fence_acc over a warpgroup's chunks.
+template <int NC>
+__device__ __forceinline__ void fence_all(float (&d)[NC][sm90::ACC64]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) sm90::fence_acc(d[c]);
+}
+
+// The forward's masks on a thread's scores of an m64nN tile: rows row_a
+// and row_a + 8, columns col0 + 8 jj + cq + {0, 1} in s[4 jj .. 4 jj + 3].
+// `diag`: the self score is in the tile (attend_self off); the radius mask
+// where reach > 0. Rows and columns are flat positions of one image, so
+// the rule is the same with queries on either axis.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N / 2], int row_a, int col0, int cq,
+                                          bool diag, int side, int reach, float r2) {
+  const int row_b = row_a + 8;
+  const int ra = row_a / side, ca = row_a - ra * side;
+  const int rb = row_b / side, cb = row_b - rb * side;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * jj + cq + e;
+      float& sa = s[4 * jj + e];
+      float& sb = s[4 * jj + 2 + e];
+      if (diag) {
+        if (col == row_a) sa = SELF_VALUE;
+        if (col == row_b) sb = SELF_VALUE;
+      }
+      if (reach > 0) {
+        const int rc = col / side, cc = col - rc * side;
+        const int da2 = (ra - rc) * (ra - rc) + (ca - cc) * (ca - cc);
+        const int db2 = (rb - rc) * (rb - rc) + (cb - cc) * (cb - cc);
+        if ((float)da2 > r2) sa = NEG_MAX;
+        if ((float)db2 > r2) sb = NEG_MAX;
+      }
+    }
+  }
+}
+
+// p = exp(s - m) / l, the division exact (Markstein) from inv = RN(1 / l).
+__device__ __forceinline__ float prob(float s, float m, float l, float inv) {
+  return sm90::div_rn(sm90::exp_f32(__fsub_rn(s, m)), l, inv);
+}
+
+// Warpgroup 1 arrives at named barrier `id`, warpgroup 0 waits for it
+// (then thread 0 refills the stage both are past). A two-stage ring takes
+// one id a stage: warpgroup 1 may run a tile ahead, and the stage's next
+// fill (after warpgroup 0's wait) gates its next arrival at the same id, so
+// no id ever sees its arrivals twice before the wait.
+__device__ __forceinline__ void named_pass(int id, int w) {
+  if (w == 1) {
+    sm90::named_barrier_arrive(id, WG_THREADS);
+  } else {
+    sm90::named_barrier_sync(id, WG_THREADS);
+  }
+}
+
+// Query-side statistics of a tile's columns i0 + 8 jj + cq + {0, 1} (the
+// key-side passes): m, l (and its reciprocal) and D, f32 [L * B * n].
+template <int NT>
+struct ColStats {
+  float m[NT / 4], l[NT / 4], inv[NT / 4], D[NT / 4];
+  __device__ __forceinline__ void load(const float* m_in, const float* l_in, const float* dd,
+                                       size_t base, int cq) {
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+      const size_t i = base + 8 * jj + cq;
+      const float2 mm = __ldg(reinterpret_cast<const float2*>(m_in + i));
+      const float2 ll = __ldg(reinterpret_cast<const float2*>(l_in + i));
+      m[2 * jj] = mm.x, m[2 * jj + 1] = mm.y;
+      l[2 * jj] = ll.x, l[2 * jj + 1] = ll.y;
+      inv[2 * jj] = __frcp_rn(ll.x), inv[2 * jj + 1] = __frcp_rn(ll.y);
+      if (dd != nullptr) {
+        const float2 dv = __ldg(reinterpret_cast<const float2*>(dd + i));
+        D[2 * jj] = dv.x, D[2 * jj + 1] = dv.y;
+      }
+    }
+  }
+};
+
+// ---- the pre-pass
+
+// One warp a row of [L, B, n, d]: khat = normalize(levels), rounded; dcons
+// = cot / div rounded (two-pass forms: cot the f32 sum of g and, in the
+// combine, its streams), or, given cons (the one-sweep form), dcons = g *
+// (1 / div) rounded and D = sum_c (g * (1 / div))_c cons_c of the unrounded
+// f32 dcons.
+__global__ void __launch_bounds__(32 * sm90::KHAT_ROWS)
+consensus_bwd_prepass(const bf16* __restrict__ lv, const bf16* __restrict__ gout,
+                      const bf16* __restrict__ dx_bu, const bf16* __restrict__ dx_td,
+                      const bf16* __restrict__ cons, bf16* __restrict__ khat,
+                      bf16* __restrict__ dcons, float* __restrict__ D, int L, int B, int n,
+                      int d) {
+  const size_t row = (size_t)blockIdx.x * sm90::KHAT_ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (size_t)L * B * n) return;
+  sm90::khat_row(lv + row * d, khat + row * d, d, lane);
+  const int g = (int)(row / ((size_t)B * n));
+  const size_t plane = (size_t)B * n * d;
+  const float div = g == L - 1 ? 3.0f : 4.0f;
+  const float inv_div = __fdiv_rn(1.0f, div);
+  const bool bu = dx_bu != nullptr && g < L - 1, td = dx_bu != nullptr && g >= 1;
+  float dot = 0.0f;
+  for (int c = lane; c < d / 8; c += 32) {
+    const size_t off = row * d + 8 * c;
+    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gout + off));
+    uint4 bv = gv, tv = gv, cv = gv;
+    if (bu) bv = __ldg(reinterpret_cast<const uint4*>(dx_bu + off + plane));
+    if (td) tv = __ldg(reinterpret_cast<const uint4*>(dx_td + off - plane));
+    if (cons != nullptr) cv = __ldg(reinterpret_cast<const uint4*>(cons + off));
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    const bf16* be = reinterpret_cast<const bf16*>(&bv);
+    const bf16* te = reinterpret_cast<const bf16*>(&tv);
+    const bf16* ce = reinterpret_cast<const bf16*>(&cv);
+    uint4 o;
+    bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float x = __bfloat162float(ge[e]);
+      if (cons != nullptr) {
+        x = __fmul_rn(x, inv_div);
+        dot = fmaf(x, __bfloat162float(ce[e]), dot);
+      } else {
+        if (bu) x = __fadd_rn(x, __bfloat162float(be[e]));
+        if (td) x = __fadd_rn(x, __bfloat162float(te[e]));
+        x = __fdiv_rn(x, div);
+      }
+      oe[e] = __float2bfloat16(x);
+    }
+    *reinterpret_cast<uint4*>(dcons + off) = o;
+  }
+  if (cons != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (lane == 0) D[row] = dot;
+  }
+}
+
+// ---- the dq pass
+
+// Shared memory from a 1024-byte-aligned base: Q and dcons (d/64 resident
+// boxes each), two k stages (TILE each), one v stage, the barriers q_full,
+// k_full[2], v_full.
+template <bool WIDE>
+struct DqSmem {
+  int boxes, dc_off, k_off, v_off, bar_off, bytes;
+  __host__ __device__ explicit DqSmem(int d) {
+    boxes = d / 64;
+    dc_off = boxes * RBOX;
+    k_off = 2 * boxes * RBOX;
+    v_off = k_off + 2 * Hop<WIDE>::TILE;
+    bar_off = v_off + boxes * Hop<WIDE>::TBOX;
+    bytes = 1024 + bar_off + 4 * 8;
+  }
+};
+
+// Grid: (query blocks of 64, L * B). q_map, dc_map: levels and the rounded
+// dcons, [L * B, n, d] with a 64-row box; k_map (khat), v_map (levels): an
+// NT-row box. Two-pass forms: sweep 0 sums dd over the live key tiles, then
+// sweep 1 forms ds and sums dq; writes f32 dq and dd. The one-sweep form
+// reads D from dd and sweeps once.
+template <bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, float* __restrict__ dq_out,
+                      float* __restrict__ dd, int onesweep, int n, int d, int side, int reach,
+                      float r2, int attend_self, float scale) {
+  using H = Hop<WIDE>;
+  constexpr int NT = H::NT, NC = H::NC, ACC = H::ACC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const DqSmem<WIDE> lay(d);
+  unsigned char* qs = smem;
+  unsigned char* dcs = smem + lay.dc_off;
+  unsigned char* ks = smem + lay.k_off;
+  unsigned char* vs = smem + lay.v_off;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;  // two stages
+  uint64_t* v_full = bars + 3;
+
+  const int i0 = blockIdx.x * ROWS, z = blockIdx.y;
+  const size_t zn = (size_t)z * n;
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = threadIdx.x == 0;  // issues every TMA load of the block
+  int j_lo, j_hi;
+  window(i0, ROWS, NT, n / NT, reach, j_lo, j_hi);
+  const int tiles = j_hi - j_lo;
+  const int total = (onesweep ? 1 : 2) * tiles;  // tile loads over both sweeps
+
+  auto load_k = [&](int u) {
+    const int s = u & 1, jt = j_lo + u % tiles;
+    sm90::mbar_expect_tx(k_full + s, lay.boxes * H::TBOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(ks + s * H::TILE + c * H::TBOX, &k_map, 64 * c, jt * NT, z, k_full + s);
+  };
+  auto load_v = [&](int u) {
+    const int jt = j_lo + u % tiles;
+    sm90::mbar_expect_tx(v_full, lay.boxes * H::TBOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(vs + c * H::TBOX, &v_map, 64 * c, jt * NT, z, v_full);
+  };
+  if (loader) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    sm90::mbar_expect_tx(q_full, 2 * lay.boxes * RBOX);
+    for (int c = 0; c < lay.boxes; ++c) {
+      sm90::tma_load_3d(qs + c * RBOX, &q_map, 64 * c, i0, z, q_full);
+      sm90::tma_load_3d(dcs + c * RBOX, &dc_map, 64 * c, i0, z, q_full);
+    }
+    load_k(0);
+    if (total > 1) load_k(1);
+    load_v(0);
+  }
+
+  // The thread's two query rows (wgmma's accumulator fragment) and column
+  // pairs; rows past n (the last block of an n = 32 x odd row) are zeros,
+  // computed with m = 0, l = 1 and not stored.
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int i_a = i0 + r_a, i_b = i0 + r_b;
+  const bool ok_a = i_a < n, ok_b = i_b < n;
+  const float m_a = ok_a ? m_in[zn + i_a] : 0.0f, m_b = ok_b ? m_in[zn + i_b] : 0.0f;
+  const float l_a = ok_a ? l_in[zn + i_a] : 1.0f, l_b = ok_b ? l_in[zn + i_b] : 1.0f;
+  const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
+  float D_a = 0.0f, D_b = 0.0f;
+  if (onesweep) {
+    D_a = ok_a ? dd[zn + i_a] : 0.0f;
+    D_b = ok_b ? dd[zn + i_b] : 0.0f;
+  }
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  const uint32_t q_addr = sm90::smem_u32(qs), dc_addr = sm90::smem_u32(dcs);
+  const uint32_t k_addr = sm90::smem_u32(ks), v_addr = sm90::smem_u32(vs);
+  const int k_steps = d / 16;
+
+  // Tile u's S and dP (both warpgroups, the whole tile), then v's stage is
+  // released; p in sc, scaled and masked. Returns whether the tile holds
+  // self scores.
+  auto scores = [&](int u, float (&sc)[ACC], float (&dp)[ACC]) {
+    const int s = u & 1;
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = dp[i] = 0.0f;
+    sm90::mbar_wait(k_full + s, (u >> 1) & 1);
+    sm90::mbar_wait(v_full, u & 1);
+    sm90::fence_acc(sc);
+    sm90::fence_acc(dp);
+    sm90::wgmma_fence();
+    ss_product<NT>(sc, q_addr, k_addr + s * H::TILE, k_steps);
+    ss_product<NT>(dp, dc_addr, v_addr, k_steps);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(sc);
+    sm90::fence_acc(dp);
+    named_pass(1, w);
+    if (loader && u + 1 < total) load_v(u + 1);
+    const int j0 = (j_lo + u % tiles) * NT;
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = __fmul_rn(sc[i], scale);
+    const bool diag = !attend_self && j0 < i0 + ROWS && i0 < j0 + NT;
+    if (diag || reach > 0) mask_tile<NT>(sc, i_a, j0, cq, diag, side, reach, r2);
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * jj + e] = prob(sc[4 * jj + e], m_a, l_a, inv_a);
+        sc[4 * jj + 2 + e] = prob(sc[4 * jj + 2 + e], m_b, l_b, inv_b);
+      }
+    }
+    return diag;
+  };
+  // Tile u's k stage is free once both warpgroups are past its products.
+  auto release_k = [&](int u) {
+    named_pass(2 + (u & 1), w);
+    if (loader && u + 2 < total) load_k(u + 2);
+  };
+
+  sm90::mbar_wait(q_full, 0);
+  int u = 0;
+  for (; u < total - tiles; ++u) {  // sweep 0 (two-pass forms): dd = sum_j p dP
+    float sc[ACC], dp[ACC];
+    scores(u, sc, dp);
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        D_a = fmaf(sc[4 * jj + e], dp[4 * jj + e], D_a);
+        D_b = fmaf(sc[4 * jj + 2 + e], dp[4 * jj + 2 + e], D_b);
+      }
+    }
+    release_k(u);
+  }
+  if (!onesweep) {  // a row's four threads hold its sums
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      D_a = __fadd_rn(D_a, __shfl_xor_sync(0xffffffffu, D_a, o));
+      D_b = __fadd_rn(D_b, __shfl_xor_sync(0xffffffffu, D_b, o));
+    }
+  }
+  for (; u < total; ++u) {  // ds, rounded, and dq += ds . k
+    float sc[ACC], dp[ACC];
+    const bool diag = scores(u, sc, dp);
+    const int j0 = (j_lo + u % tiles) * NT;
+    uint32_t a[NT / 4];
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 8 * jj + cq + e;
+        ds[e] = __fmul_rn(sc[4 * jj + e], __fsub_rn(dp[4 * jj + e], D_a));
+        ds[2 + e] = __fmul_rn(sc[4 * jj + 2 + e], __fsub_rn(dp[4 * jj + 2 + e], D_b));
+        if (diag && j == i_a) ds[e] = 0.0f;
+        if (diag && j == i_b) ds[2 + e] = 0.0f;
+      }
+      a[2 * jj] = sm90::pack_bf16(ds[0], ds[1]);
+      a[2 * jj + 1] = sm90::pack_bf16(ds[2], ds[3]);
+    }
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, k_addr + (u & 1) * H::TILE + w * NC * H::TBOX);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    release_k(u);
+  }
+
+  if (!onesweep && w == 0 && t % 4 == 0) {
+    if (ok_a) dd[zn + i_a] = D_a;
+    if (ok_b) dd[zn + i_b] = D_b;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int chunk = w * NC + c;
+    if (chunk >= lay.boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * chunk + 8 * jj + cq;
+      if (ok_a)
+        *reinterpret_cast<float2*>(dq_out + (zn + i_a) * d + col) =
+            make_float2(acc[c][4 * jj] * scale, acc[c][4 * jj + 1] * scale);
+      if (ok_b)
+        *reinterpret_cast<float2*>(dq_out + (zn + i_b) * d + col) =
+            make_float2(acc[c][4 * jj + 2] * scale, acc[c][4 * jj + 3] * scale);
+    }
+  }
+}
+
+// ---- the key side: the dv pass and the dk pass
+
+// p^T (or ds^T) of a key block's tile, packed as the register A operand:
+// rows are keys, columns queries (ColStats).
+template <int NT>
+__device__ __forceinline__ void pack_rows(const float (&v)[NT / 2], uint32_t (&a)[NT / 4]) {
+#pragma unroll
+  for (int jj = 0; jj < NT / 8; ++jj) {
+    a[2 * jj] = sm90::pack_bf16(v[4 * jj], v[4 * jj + 1]);
+    a[2 * jj + 1] = sm90::pack_bf16(v[4 * jj + 2], v[4 * jj + 3]);
+  }
+}
+
+// Scale, mask and p^T of a key block's scores against query columns i0t ..
+// i0t + NT - 1. Returns whether the tile holds self scores.
+template <int NT>
+__device__ __forceinline__ bool key_probs(float (&sc)[NT / 2], const ColStats<NT>& st, int j_a,
+                                          int j0, int i0t, int cq, int attend_self, int side,
+                                          int reach, float r2, float scale) {
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) sc[i] = __fmul_rn(sc[i], scale);
+  const bool diag = !attend_self && i0t < j0 + ROWS && j0 < i0t + NT;
+  if (diag || reach > 0) mask_tile<NT>(sc, j_a, i0t, cq, diag, side, reach, r2);
+#pragma unroll
+  for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = 2 * jj + e;
+      sc[4 * jj + e] = prob(sc[4 * jj + e], st.m[k], st.l[k], st.inv[k]);
+      sc[4 * jj + 2 + e] = prob(sc[4 * jj + 2 + e], st.m[k], st.l[k], st.inv[k]);
+    }
+  }
+  return diag;
+}
+
+// dv pass: k (64-row resident), then two stages of a query tile's levels
+// (SS operand, d/64 boxes) and dcons (RS operand, TILE); the barriers
+// kj_full, full[2].
+template <bool WIDE>
+struct DvSmem {
+  int boxes, st_off, q_bytes, stage, bar_off, bytes;
+  __host__ __device__ explicit DvSmem(int d) {
+    boxes = d / 64;
+    st_off = boxes * RBOX;
+    q_bytes = boxes * Hop<WIDE>::TBOX;
+    stage = q_bytes + Hop<WIDE>::TILE;
+    bar_off = st_off + 2 * stage;
+    bytes = 1024 + bar_off + 3 * 8;
+  }
+};
+
+// Grid: (key blocks of 64, L * B). kj_map: khat with a 64-row box; q_map
+// (levels), dc_map (dcons): an NT-row box. Writes f32 dv = p^T . dcons.
+template <bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dv_sm90(const __grid_constant__ CUtensorMap kj_map,
+                      const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, float* __restrict__ dv_out, int n, int d,
+                      int side, int reach, float r2, int attend_self, float scale) {
+  using H = Hop<WIDE>;
+  constexpr int NT = H::NT, NC = H::NC, ACC = H::ACC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const DvSmem<WIDE> lay(d);
+  unsigned char* kjs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* kj_full = bars;
+  uint64_t* full = bars + 1;  // two stages
+
+  const int j0 = blockIdx.x * ROWS, z = blockIdx.y;
+  const size_t zn = (size_t)z * n;
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = threadIdx.x == 0;
+  int i_lo, i_hi;
+  window(j0, ROWS, NT, n / NT, reach, i_lo, i_hi);
+  const int tiles = i_hi - i_lo;
+
+  auto load_tile = [&](int u) {
+    const int s = u & 1, it = i_lo + u;
+    unsigned char* st = smem + lay.st_off + s * lay.stage;
+    sm90::mbar_expect_tx(full + s, 2 * lay.boxes * H::TBOX);
+    for (int c = 0; c < lay.boxes; ++c) {
+      sm90::tma_load_3d(st + c * H::TBOX, &q_map, 64 * c, it * NT, z, full + s);
+      sm90::tma_load_3d(st + lay.q_bytes + c * H::TBOX, &dc_map, 64 * c, it * NT, z, full + s);
+    }
+  };
+  if (loader) {
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    sm90::mbar_expect_tx(kj_full, lay.boxes * RBOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(kjs + c * RBOX, &kj_map, 64 * c, j0, z, kj_full);
+    load_tile(0);
+    if (tiles > 1) load_tile(1);
+  }
+
+  // The thread's two key rows; rows past n are zeros and not stored.
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int j_a = j0 + r_a, j_b = j0 + r_b;
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  const uint32_t kj_addr = sm90::smem_u32(kjs);
+  const int k_steps = d / 16;
+
+  sm90::mbar_wait(kj_full, 0);
+  for (int u = 0; u < tiles; ++u) {
+    const int s = u & 1, i0t = (i_lo + u) * NT;
+    const uint32_t st = sm90::smem_u32(smem + lay.st_off + s * lay.stage);
+    ColStats<NT> cs;
+    cs.load(m_in, l_in, nullptr, zn + i0t, cq);
+    float sc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = 0.0f;
+    sm90::mbar_wait(full + s, (u >> 1) & 1);
+    sm90::fence_acc(sc);
+    sm90::wgmma_fence();
+    ss_product<NT>(sc, kj_addr, st, k_steps);  // S^T = k_j . Q_i^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(sc);
+    key_probs<NT>(sc, cs, j_a, j0, i0t, cq, attend_self, side, reach, r2, scale);
+    uint32_t a[NT / 4];
+    pack_rows<NT>(sc, a);  // p^T rounded: the diagonal keeps its p
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, st + lay.q_bytes + w * NC * H::TBOX);  // dv += p^T . dcons_i
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    named_pass(1 + s, w);
+    if (loader && u + 2 < tiles) load_tile(u + 2);
+  }
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int chunk = w * NC + c;
+    if (chunk >= lay.boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * chunk + 8 * jj + cq;
+      if (j_a < n)
+        *reinterpret_cast<float2*>(dv_out + (zn + j_a) * d + col) =
+            make_float2(acc[c][4 * jj], acc[c][4 * jj + 1]);
+      if (j_b < n)
+        *reinterpret_cast<float2*>(dv_out + (zn + j_b) * d + col) =
+            make_float2(acc[c][4 * jj + 2], acc[c][4 * jj + 3]);
+    }
+  }
+}
+
+// dk pass: k and v (levels) of the key block (64-row resident), two stages
+// of a query tile's levels (SS and RS operand, TILE), one of its dcons (SS
+// operand), the norm VJP's row sums [2 warpgroups][kx, xx][64], the
+// barriers kv_full, q_full[2], dc_full. The epilogue stages dxn over the
+// operand tiles.
+template <bool WIDE>
+struct DkSmem {
+  int boxes, vj_off, q_off, dc_off, red_off, bar_off, bytes;
+  __host__ __device__ explicit DkSmem(int d) {
+    boxes = d / 64;
+    vj_off = boxes * RBOX;
+    q_off = 2 * boxes * RBOX;
+    dc_off = q_off + 2 * Hop<WIDE>::TILE;
+    red_off = dc_off + boxes * Hop<WIDE>::TBOX;
+    bar_off = red_off + 2 * 2 * ROWS * 4;
+    bytes = 1024 + bar_off + 4 * 8;
+  }
+};
+
+// The bf16 pair of a resident 64-row box at (row, columns 8 jj + cq + {0,
+// 1}), through the 128-byte swizzle.
+__device__ __forceinline__ float2 resident_pair(const unsigned char* box, int row, int jj,
+                                                int cq) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      box + row * 128 + ((jj ^ (row & 7)) * 16) + cq * 2));
+}
+
+// Grid: (key blocks of 64, L * B). kj_map (khat), vj_map (levels): a
+// 64-row box; q_map (levels), dc_map (dcons): an NT-row box. dk = scale
+// ds^T . Q through the norm VJP, then dlevels (and dmean) with f32 dq, dv
+// and the cotangent (the streams in the combine); the one-sweep form
+// rounds g / div + dv + normVJP(dk) first and writes no dmean.
+template <bool WIDE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dk_sm90(const __grid_constant__ CUtensorMap kj_map,
+                      const __grid_constant__ CUtensorMap vj_map,
+                      const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, const float* __restrict__ dd,
+                      const float* __restrict__ dq_in, const float* __restrict__ dv_in,
+                      const bf16* __restrict__ gout, const bf16* __restrict__ dx_bu,
+                      const bf16* __restrict__ dx_td, bf16* __restrict__ dlv_out,
+                      bf16* __restrict__ dmean_out, int onesweep, int L, int B, int n, int d,
+                      int side, int reach, float r2, int attend_self, float scale) {
+  using H = Hop<WIDE>;
+  constexpr int NT = H::NT, NC = H::NC, ACC = H::ACC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const DkSmem<WIDE> lay(d);
+  unsigned char* kjs = smem;
+  unsigned char* vjs = smem + lay.vj_off;
+  unsigned char* qs = smem + lay.q_off;
+  unsigned char* dcs = smem + lay.dc_off;
+  float* red = reinterpret_cast<float*>(smem + lay.red_off);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* kv_full = bars;
+  uint64_t* q_full = bars + 1;  // two stages
+  uint64_t* dc_full = bars + 3;
+
+  const int j0 = blockIdx.x * ROWS, z = blockIdx.y;
+  const size_t zn = (size_t)z * n;
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = threadIdx.x == 0;
+  int i_lo, i_hi;
+  window(j0, ROWS, NT, n / NT, reach, i_lo, i_hi);
+  const int tiles = i_hi - i_lo;
+
+  auto load_q = [&](int u) {
+    const int s = u & 1;
+    sm90::mbar_expect_tx(q_full + s, lay.boxes * H::TBOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(qs + s * H::TILE + c * H::TBOX, &q_map, 64 * c, (i_lo + u) * NT, z,
+                        q_full + s);
+  };
+  auto load_dc = [&](int u) {
+    sm90::mbar_expect_tx(dc_full, lay.boxes * H::TBOX);
+    for (int c = 0; c < lay.boxes; ++c)
+      sm90::tma_load_3d(dcs + c * H::TBOX, &dc_map, 64 * c, (i_lo + u) * NT, z, dc_full);
+  };
+  if (loader) {
+    for (int i = 0; i < 4; ++i) sm90::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    sm90::mbar_expect_tx(kv_full, 2 * lay.boxes * RBOX);
+    for (int c = 0; c < lay.boxes; ++c) {
+      sm90::tma_load_3d(kjs + c * RBOX, &kj_map, 64 * c, j0, z, kv_full);
+      sm90::tma_load_3d(vjs + c * RBOX, &vj_map, 64 * c, j0, z, kv_full);
+    }
+    load_q(0);
+    if (tiles > 1) load_q(1);
+    load_dc(0);
+  }
+
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int j_a = j0 + r_a, j_b = j0 + r_b;
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  const uint32_t kj_addr = sm90::smem_u32(kjs), vj_addr = sm90::smem_u32(vjs);
+  const uint32_t q_addr = sm90::smem_u32(qs), dc_addr = sm90::smem_u32(dcs);
+  const int k_steps = d / 16;
+
+  sm90::mbar_wait(kv_full, 0);
+  for (int u = 0; u < tiles; ++u) {
+    const int s = u & 1, i0t = (i_lo + u) * NT;
+    ColStats<NT> cs;
+    cs.load(m_in, l_in, dd, zn + i0t, cq);
+    float sc[ACC], dp[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = dp[i] = 0.0f;
+    sm90::mbar_wait(q_full + s, (u >> 1) & 1);
+    sm90::mbar_wait(dc_full, u & 1);
+    sm90::fence_acc(sc);
+    sm90::fence_acc(dp);
+    sm90::wgmma_fence();
+    ss_product<NT>(sc, kj_addr, q_addr + s * H::TILE, k_steps);  // S^T = k_j . Q_i^T
+    ss_product<NT>(dp, vj_addr, dc_addr, k_steps);               // dP^T = v_j . dcons_i^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(sc);
+    sm90::fence_acc(dp);
+    named_pass(1, w);
+    if (loader && u + 1 < tiles) load_dc(u + 1);
+    const bool diag =
+        key_probs<NT>(sc, cs, j_a, j0, i0t, cq, attend_self, side, reach, r2, scale);
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 2 * jj + e, i = i0t + 8 * jj + cq + e;
+        float& da = sc[4 * jj + e];
+        float& db = sc[4 * jj + 2 + e];
+        da = __fmul_rn(da, __fsub_rn(dp[4 * jj + e], cs.D[k]));
+        db = __fmul_rn(db, __fsub_rn(dp[4 * jj + 2 + e], cs.D[k]));
+        if (diag && i == j_a) da = 0.0f;
+        if (diag && i == j_b) db = 0.0f;
+      }
+    }
+    uint32_t a[NT / 4];
+    pack_rows<NT>(sc, a);  // ds^T rounded
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, q_addr + s * H::TILE + w * NC * H::TBOX);  // dk += ds^T . Q_i
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    named_pass(2 + s, w);
+    if (loader && u + 2 < tiles) load_q(u + 2);
+  }
+  sm90::named_barrier_sync(4, WG_THREADS);  // every product done: the stages are free
+
+  // The norm VJP's row sums kx = sum_c (scale dk_c) x_c and xx = sum_c x_c^2,
+  // each warpgroup over its chunks, then both.
+  float kx_a = 0.0f, kx_b = 0.0f, xx_a = 0.0f, xx_b = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int chunk = w * NC + c;
+    if (chunk >= lay.boxes) continue;
+    const unsigned char* box = vjs + chunk * RBOX;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 xa = resident_pair(box, r_a, jj, cq), xb = resident_pair(box, r_b, jj, cq);
+      kx_a = fmaf(acc[c][4 * jj] * scale, xa.x, kx_a);
+      kx_a = fmaf(acc[c][4 * jj + 1] * scale, xa.y, kx_a);
+      kx_b = fmaf(acc[c][4 * jj + 2] * scale, xb.x, kx_b);
+      kx_b = fmaf(acc[c][4 * jj + 3] * scale, xb.y, kx_b);
+      xx_a = fmaf(xa.x, xa.x, fmaf(xa.y, xa.y, xx_a));
+      xx_b = fmaf(xb.x, xb.x, fmaf(xb.y, xb.y, xx_b));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    kx_a += __shfl_xor_sync(0xffffffffu, kx_a, o);
+    kx_b += __shfl_xor_sync(0xffffffffu, kx_b, o);
+    xx_a += __shfl_xor_sync(0xffffffffu, xx_a, o);
+    xx_b += __shfl_xor_sync(0xffffffffu, xx_b, o);
+  }
+  if (t % 4 == 0) {
+    red[w * 2 * ROWS + r_a] = kx_a;
+    red[w * 2 * ROWS + r_b] = kx_b;
+    red[w * 2 * ROWS + ROWS + r_a] = xx_a;
+    red[w * 2 * ROWS + ROWS + r_b] = xx_b;
+  }
+  __syncthreads();
+  kx_a = red[r_a] + red[2 * ROWS + r_a];
+  kx_b = red[r_b] + red[2 * ROWS + r_b];
+  const float norm_a = sqrtf(red[ROWS + r_a] + red[3 * ROWS + r_a]);
+  const float norm_b = sqrtf(red[ROWS + r_b] + red[3 * ROWS + r_b]);
+  const float inv_a = 1.0f / fmaxf(norm_a, 1e-12f), inv_b = 1.0f / fmaxf(norm_b, 1e-12f);
+
+  // dxn = dk inv - kx x inv^2 / norm, in the accumulators.
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int chunk = w * NC + c;
+    if (chunk >= lay.boxes) continue;
+    const unsigned char* box = vjs + chunk * RBOX;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 xa = resident_pair(box, r_a, jj, cq), xb = resident_pair(box, r_b, jj, cq);
+      const float x[4] = {xa.x, xa.y, xb.x, xb.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool a_row = e < 2;
+        const float kx = a_row ? kx_a : kx_b, norm = a_row ? norm_a : norm_b;
+        const float inv = a_row ? inv_a : inv_b;
+        const float dkc = acc[c][4 * jj + e] * scale;
+        acc[c][4 * jj + e] = dkc * inv - (norm >= 1e-12f ? kx * x[e] * inv * inv / norm : 0.0f);
+      }
+    }
+  }
+
+  // dxn staged as [64][d + 8] f32 over the operand tiles (free: every
+  // product is done and x is read), then dlevels (and dmean) as whole
+  // 16-byte segments of 8 columns, consecutive threads on consecutive
+  // segments of a row, four segments' loads in flight at a time.
+  const int pitch = d + 8;  // floats: rows 8 banks apart, 16-byte aligned
+  float* dxn_s = reinterpret_cast<float*>(smem);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int chunk = w * NC + c;
+    if (chunk >= lay.boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * chunk + 8 * jj + cq;
+      *reinterpret_cast<float2*>(dxn_s + r_a * pitch + col) =
+          make_float2(acc[c][4 * jj], acc[c][4 * jj + 1]);
+      *reinterpret_cast<float2*>(dxn_s + r_b * pitch + col) =
+          make_float2(acc[c][4 * jj + 2], acc[c][4 * jj + 3]);
+    }
+  }
+  __syncthreads();
+  const int g = z / B;
+  const float div = g == L - 1 ? 3.0f : 4.0f;
+  const float inv_div = __fdiv_rn(1.0f, div);
+  const size_t plane = (size_t)B * n * d;
+  const bool bu = dx_bu != nullptr && g < L - 1, td = dx_bu != nullptr && g >= 1;
+  const int row_segs = d / 8;
+#pragma unroll 4
+  for (int seg = threadIdx.x; seg < ROWS * row_segs; seg += WG_THREADS) {
+    const int r = seg / row_segs, c8 = seg - r * row_segs, j = j0 + r;
+    if (j >= n) continue;
+    const float4 x0 = *reinterpret_cast<const float4*>(dxn_s + r * pitch + 8 * c8);
+    const float4 x1 = *reinterpret_cast<const float4*>(dxn_s + r * pitch + 8 * c8 + 4);
+    const size_t off = (zn + j) * d + 8 * c8;
+    const float4 q0 = __ldg(reinterpret_cast<const float4*>(dq_in + off));
+    const float4 q1 = __ldg(reinterpret_cast<const float4*>(dq_in + off + 4));
+    const float4 v0 = __ldg(reinterpret_cast<const float4*>(dv_in + off));
+    const float4 v1 = __ldg(reinterpret_cast<const float4*>(dv_in + off + 4));
+    const float dxn[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float dq[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const float dv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gout + off));
+    uint4 bv = gv, tv = gv;
+    if (bu) bv = __ldg(reinterpret_cast<const uint4*>(dx_bu + off + plane));
+    if (td) tv = __ldg(reinterpret_cast<const uint4*>(dx_td + off - plane));
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    const bf16* be = reinterpret_cast<const bf16*>(&bv);
+    const bf16* te = reinterpret_cast<const bf16*>(&tv);
+    uint4 ov, mv;
+    bf16* oe = reinterpret_cast<bf16*>(&ov);
+    bf16* me = reinterpret_cast<bf16*>(&mv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float x = __bfloat162float(ge[e]);
+      if (onesweep) {
+        const bf16 partial =
+            __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(x, inv_div), dv[e]), dxn[e]));
+        oe[e] = __float2bfloat16(__fadd_rn(__bfloat162float(partial), dq[e]));
+      } else {
+        if (bu) x = __fadd_rn(x, __bfloat162float(be[e]));
+        if (td) x = __fadd_rn(x, __bfloat162float(te[e]));
+        const float dcons = __fdiv_rn(x, div);
+        oe[e] = __float2bfloat16(__fadd_rn(__fadd_rn(__fadd_rn(dcons, dq[e]), dv[e]), dxn[e]));
+        me[e] = __float2bfloat16(dcons);
+      }
+    }
+    *reinterpret_cast<uint4*>(dlv_out + off) = ov;
+    if (!onesweep) *reinterpret_cast<uint4*>(dmean_out + off) = mv;
+  }
+}
+
+// ========================================================= host side
+
+// The instances, as kernels/consensus_update.py:K2_BWD_INSTANCES numbers
+// them: "fma" for f32, "wgmma" for bf16 where n % 32 == 0, d % 64 == 0 and
+// d <= MAX_D; -1 where no instance takes the shape.
+constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1;
+
+int instance_for(int is_bf16, int n, int d) {
+  if (!is_bf16) return n % TI == 0 && d % 64 == 0 ? INSTANCE_FMA : -1;
+  return n % 32 == 0 && d % 64 == 0 && d <= MAX_D ? INSTANCE_WGMMA : -1;
 }
 
 struct Geometry {
@@ -579,70 +1356,142 @@ struct Geometry {
   float r2, scale;
 };
 
-bool valid(int L, int B, int n, int d, int side, int tile, const void* dx_bu,
-           const void* dx_td) {
-  return L >= 2 && B >= 1 && n % tile == 0 && d % 64 == 0 && side >= 1 &&
-         (dx_bu == nullptr) == (dx_td == nullptr);
-}
-
 Geometry geometry(int d, int side, double radius) {
   return {radius > 0 ? (int)(radius + 1.0) * side : 0, (float)(radius * radius),
           (float)(1.0 / sqrt((double)d))};
 }
 
-// One instance per (type, form): each lifts its own cap once. The
-// one-sweep form (cons given) takes no streams and writes no dmean.
-template <typename T, bool ONESWEEP>
-int launch_dq(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
-              const void* cons, const float* m, const float* l, float* dq, float* dd,
-              void* dcons, int L, int B, int n, int d, int side, double radius, int attend_self,
-              cudaStream_t stream) {
-  if (!valid(L, B, n, d, side, Tiles<T>::TI, dx_bu, dx_td) || n % Tiles<T>::TJ != 0 ||
-      dcons == nullptr || ONESWEEP != (cons != nullptr) || (ONESWEEP && dx_bu != nullptr))
-    return (int)cudaErrorInvalidValue;
-  static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(consensus_bwd_dq_kernel<T, ONESWEEP>, lifted);
-  if (err != cudaSuccess) return (int)err;
-  const Geometry geo = geometry(d, side, radius);
-  consensus_bwd_dq_kernel<T, ONESWEEP><<<dim3(n / Tiles<T>::TI, B, L), THREADS,
-                                         DqLayout<T>(d).bytes, stream>>>(
-      static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
-      static_cast<const T*>(dx_td), static_cast<const T*>(cons), m, l, dq, dd,
-      static_cast<T*>(dcons), L, B, n, d, side, geo.reach, geo.r2, attend_self, geo.scale);
-  return (int)cudaGetLastError();
+bool valid(int L, int B, int n, int d, int side, int is_bf16, int instance, const void* dx_bu,
+           const void* dx_td) {
+  return L >= 2 && B >= 1 && side >= 1 && (dx_bu == nullptr) == (dx_td == nullptr) &&
+         instance >= 0 && instance == instance_for(is_bf16, n, d);
 }
 
-template <typename T, bool ONESWEEP>
-int launch_dkv(const void* lv, const void* gout, const void* dx_bu, const void* dx_td,
-               const float* m, const float* l, const float* dq, const float* dd,
-               const void* dcons, void* dlv, void* dmean, int L, int B, int n, int d, int side,
-               double radius, int attend_self, cudaStream_t stream) {
-  if (!valid(L, B, n, d, side, Tiles<T>::KJ, dx_bu, dx_td) || n % Tiles<T>::KI != 0 ||
-      dcons == nullptr || ONESWEEP != (dmean == nullptr) || (ONESWEEP && dx_bu != nullptr))
-    return (int)cudaErrorInvalidValue;
-  static bool lifted[MAX_DEVICES];
-  const cudaError_t err = lift_smem_cap(consensus_bwd_dkv_kernel<T, ONESWEEP>, lifted);
+// ---- f32
+
+template <bool ONESWEEP>
+int launch_dq_f32(const float* lv, const float* gout, const float* dx_bu, const float* dx_td,
+                  const float* cons, const float* m, const float* l, float* dq, float* dd,
+                  float* dcons, int L, int B, int n, int d, const Geometry& geo, int side,
+                  int attend_self, cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_kernel<ONESWEEP>, lifted);
   if (err != cudaSuccess) return (int)err;
-  const Geometry geo = geometry(d, side, radius);
-  consensus_bwd_dkv_kernel<T, ONESWEEP><<<dim3(n / Tiles<T>::KJ, B, L), THREADS,
-                                          DkvLayout<T>(d).bytes, stream>>>(
-      static_cast<const T*>(lv), static_cast<const T*>(gout), static_cast<const T*>(dx_bu),
-      static_cast<const T*>(dx_td), m, l, dq, dd, static_cast<const T*>(dcons),
-      static_cast<T*>(dlv), static_cast<T*>(dmean), L, B, n, d, side, geo.reach, geo.r2,
+  consensus_bwd_dq_kernel<ONESWEEP><<<dim3(n / TI, B, L), THREADS, DqLayout(d).bytes, stream>>>(
+      lv, gout, dx_bu, dx_td, cons, m, l, dq, dd, dcons, L, B, n, d, side, geo.reach, geo.r2,
       attend_self, geo.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_onesweep(const void* lv, const void* gout, const void* cons, const float* m,
-                    const float* l, float* dq, float* dd, void* dcons, void* dlv, int L, int B,
-                    int n, int d, int side, double radius, int attend_self,
-                    cudaStream_t stream) {
-  const int err = launch_dq<T, true>(lv, gout, nullptr, nullptr, cons, m, l, dq, dd, dcons, L,
-                                     B, n, d, side, radius, attend_self, stream);
-  if (err != 0) return err;
-  return launch_dkv<T, true>(lv, gout, nullptr, nullptr, m, l, dq, dd, dcons, dlv, nullptr, L,
-                             B, n, d, side, radius, attend_self, stream);
+template <bool ONESWEEP>
+int launch_dkv_f32(const float* lv, const float* gout, const float* dx_bu, const float* dx_td,
+                   const float* m, const float* l, const float* dq, const float* dd,
+                   const float* dcons, float* dlv, float* dmean, int L, int B, int n, int d,
+                   const Geometry& geo, int side, int attend_self, cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dkv_kernel<ONESWEEP>, lifted);
+  if (err != cudaSuccess) return (int)err;
+  consensus_bwd_dkv_kernel<ONESWEEP><<<dim3(n / KJ, B, L), THREADS, DkvLayout(d).bytes,
+                                       stream>>>(
+      lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L, B, n, d, side, geo.reach,
+      geo.r2, attend_self, geo.scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- bf16
+
+// A [L * B, n, d] bf16 map with a 64-column box of `rows` rows (cached).
+cudaError_t row_map(CUtensorMap* map, const void* ptr, int d, int n, int slots, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)slots};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * n * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return sm90::cached_map(map, ptr, dims, strides, box);
+}
+
+cudaError_t launch_prepass(const bf16* lv, const bf16* gout, const bf16* dx_bu,
+                           const bf16* dx_td, const bf16* cons, bf16* khat, bf16* dcons,
+                           float* D, int L, int B, int n, int d, cudaStream_t stream) {
+  const size_t rows = (size_t)L * B * n;
+  consensus_bwd_prepass<<<(unsigned)((rows + sm90::KHAT_ROWS - 1) / sm90::KHAT_ROWS),
+                          32 * sm90::KHAT_ROWS, 0, stream>>>(lv, gout, dx_bu, dx_td, cons, khat,
+                                                             dcons, D, L, B, n, d);
+  return cudaGetLastError();
+}
+
+// The dq pass proper (after the pre-pass wrote khat and dcons, and D for
+// the one-sweep form).
+template <bool WIDE>
+cudaError_t launch_dq_sm90(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
+                           const float* l, float* dq, float* dd, int onesweep, int L, int B,
+                           int n, int d, const Geometry& geo, int side, int attend_self,
+                           cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_sm90<WIDE>, lifted);
+  CUtensorMap q_map, dc_map, k_map, v_map;
+  const int slots = L * B, nt = Hop<WIDE>::NT;
+  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&k_map, khat, d, n, slots, nt);
+  if (err == cudaSuccess) err = row_map(&v_map, lv, d, n, slots, nt);
+  if (err != cudaSuccess) return err;
+  consensus_bwd_dq_sm90<WIDE><<<dim3((n + ROWS - 1) / ROWS, slots), WG_THREADS,
+                                DqSmem<WIDE>(d).bytes, stream>>>(
+      q_map, dc_map, k_map, v_map, m, l, dq, dd, onesweep, n, d, side, geo.reach, geo.r2,
+      attend_self, geo.scale);
+  return cudaGetLastError();
+}
+
+// The key side: the dv pass, then the dk pass (khat and dcons written).
+template <bool WIDE>
+cudaError_t launch_key_side_sm90(const bf16* lv, const bf16* gout, const bf16* dx_bu,
+                                 const bf16* dx_td, const bf16* dcons, const bf16* khat,
+                                 const float* m, const float* l, const float* dq,
+                                 const float* dd, float* dv, bf16* dlv, bf16* dmean,
+                                 int onesweep, int L, int B, int n, int d, const Geometry& geo,
+                                 int side, int attend_self, cudaStream_t stream) {
+  static bool lifted_dv[sm90::MAX_DEVICES], lifted_dk[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dv_sm90<WIDE>, lifted_dv);
+  if (err == cudaSuccess) err = sm90::lift_smem_cap(consensus_bwd_dk_sm90<WIDE>, lifted_dk);
+  CUtensorMap kj_map, vj_map, q_map, dc_map;
+  const int slots = L * B, nt = Hop<WIDE>::NT;
+  if (err == cudaSuccess) err = row_map(&kj_map, khat, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&vj_map, lv, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, nt);
+  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, nt);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + ROWS - 1) / ROWS, slots);
+  consensus_bwd_dv_sm90<WIDE><<<grid, WG_THREADS, DvSmem<WIDE>(d).bytes, stream>>>(
+      kj_map, q_map, dc_map, m, l, dv, n, d, side, geo.reach, geo.r2, attend_self, geo.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  consensus_bwd_dk_sm90<WIDE><<<grid, WG_THREADS, DkSmem<WIDE>(d).bytes, stream>>>(
+      kj_map, vj_map, q_map, dc_map, m, l, dd, dq, dv, gout, dx_bu, dx_td, dlv, dmean, onesweep,
+      L, B, n, d, side, geo.reach, geo.r2, attend_self, geo.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_bf16(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
+                           const float* l, float* dq, float* dd, int onesweep, int L, int B,
+                           int n, int d, const Geometry& geo, int side, int attend_self,
+                           cudaStream_t stream) {
+  return d > 512 ? launch_dq_sm90<true>(lv, dcons, khat, m, l, dq, dd, onesweep, L, B, n, d, geo,
+                                        side, attend_self, stream)
+                 : launch_dq_sm90<false>(lv, dcons, khat, m, l, dq, dd, onesweep, L, B, n, d,
+                                         geo, side, attend_self, stream);
+}
+
+cudaError_t launch_key_side_bf16(const bf16* lv, const bf16* gout, const bf16* dx_bu,
+                                 const bf16* dx_td, const bf16* dcons, const bf16* khat,
+                                 const float* m, const float* l, const float* dq,
+                                 const float* dd, float* dv, bf16* dlv, bf16* dmean,
+                                 int onesweep, int L, int B, int n, int d, const Geometry& geo,
+                                 int side, int attend_self, cudaStream_t stream) {
+  return d > 512 ? launch_key_side_sm90<true>(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd,
+                                              dv, dlv, dmean, onesweep, L, B, n, d, geo, side,
+                                              attend_self, stream)
+                 : launch_key_side_sm90<false>(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd,
+                                               dv, dlv, dmean, onesweep, L, B, n, d, geo, side,
+                                               attend_self, stream);
 }
 
 }  // namespace
@@ -653,47 +1502,115 @@ extern "C" {
 // dx_bu [L, B, n, d] and dx_td [L-1, B, n, d] in that dtype, both or
 // neither (the combine's streams); m, l: the forward's f32 [L, B, n] row
 // statistics; dq: f32 [L, B, n, d] and dd: f32 [L, B, n] outputs; dcons:
-// the [L, B, n, d] output, in the levels dtype, of the rounded dcons.
-// Contiguous, on the current device. Returns a cudaError_t.
+// the [L, B, n, d] output, in the levels dtype, of the rounded dcons;
+// khat: the "wgmma" instance's bf16 [L, B, n, d] scratch (NULL for "fma").
+// `instance` must be instance_for's. Contiguous, on the current device,
+// bf16 tensors 16-byte aligned. Returns a cudaError_t.
 int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
                             const void* dx_td, const float* m, const float* l, float* dq,
-                            float* dd, void* dcons, int L, int B, int n, int d, int side,
-                            double radius, int attend_self, int is_bf16, void* stream) {
+                            float* dd, void* dcons, void* khat, int L, int B, int n, int d,
+                            int side, double radius, int attend_self, int is_bf16, int instance,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dq<bf16, false>(lv, gout, dx_bu, dx_td, nullptr, m, l, dq, dd, dcons,
-                                          L, B, n, d, side, radius, attend_self, s)
-                 : launch_dq<float, false>(lv, gout, dx_bu, dx_td, nullptr, m, l, dq, dd, dcons,
-                                           L, B, n, d, side, radius, attend_self, s);
+  if (!valid(L, B, n, d, side, is_bf16, instance, dx_bu, dx_td) || dcons == nullptr ||
+      (khat != nullptr) != (instance == INSTANCE_WGMMA))
+    return (int)cudaErrorInvalidValue;
+  const Geometry geo = geometry(d, side, radius);
+  if (instance == INSTANCE_FMA)
+    return launch_dq_f32<false>(static_cast<const float*>(lv), static_cast<const float*>(gout),
+                                static_cast<const float*>(dx_bu),
+                                static_cast<const float*>(dx_td), nullptr, m, l, dq, dd,
+                                static_cast<float*>(dcons), L, B, n, d, geo, side, attend_self,
+                                s);
+  const auto* x = static_cast<const bf16*>(lv);
+  auto* dc = static_cast<bf16*>(dcons);
+  auto* k = static_cast<bf16*>(khat);
+  cudaError_t err = launch_prepass(x, static_cast<const bf16*>(gout),
+                                   static_cast<const bf16*>(dx_bu),
+                                   static_cast<const bf16*>(dx_td), nullptr, k, dc, nullptr, L,
+                                   B, n, d, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dq_bf16(x, dc, k, m, l, dq, dd, 0, L, B, n, d, geo, side, attend_self, s);
 }
 
 // The dq pass's inputs plus its dq, dd and rounded dcons; dlv, dmean:
-// [L, B, n, d] in the levels dtype.
+// [L, B, n, d] in the levels dtype; "wgmma" also takes khat (bf16) and dv
+// (f32 [L, B, n, d]) scratches, NULL for "fma". khat_ready: khat already
+// holds the normalised keys (the dq pass of the same call wrote them);
+// else the call writes them first.
 int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu,
                              const void* dx_td, const float* m, const float* l,
-                             const float* dq, const float* dd, const void* dcons, void* dlv,
-                             void* dmean, int L, int B, int n, int d, int side, double radius,
-                             int attend_self, int is_bf16, void* stream) {
+                             const float* dq, const float* dd, const void* dcons, void* khat,
+                             int khat_ready, float* dv, void* dlv, void* dmean, int L, int B,
+                             int n, int d, int side, double radius, int attend_self,
+                             int is_bf16, int instance, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dkv<bf16, false>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv,
-                                           dmean, L, B, n, d, side, radius, attend_self, s)
-                 : launch_dkv<float, false>(lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv,
-                                            dmean, L, B, n, d, side, radius, attend_self, s);
+  const bool wg = instance == INSTANCE_WGMMA;
+  if (!valid(L, B, n, d, side, is_bf16, instance, dx_bu, dx_td) || dcons == nullptr ||
+      (khat != nullptr) != wg || (dv != nullptr) != wg || (khat_ready && !wg))
+    return (int)cudaErrorInvalidValue;
+  const Geometry geo = geometry(d, side, radius);
+  if (!wg)
+    return launch_dkv_f32<false>(
+        static_cast<const float*>(lv), static_cast<const float*>(gout),
+        static_cast<const float*>(dx_bu), static_cast<const float*>(dx_td), m, l, dq, dd,
+        static_cast<const float*>(dcons), static_cast<float*>(dlv), static_cast<float*>(dmean),
+        L, B, n, d, geo, side, attend_self, s);
+  const auto* x = static_cast<const bf16*>(lv);
+  auto* k = static_cast<bf16*>(khat);
+  if (!khat_ready) {
+    const cudaError_t err = sm90::launch_khat(x, k, (size_t)L * B * n, d, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch_key_side_bf16(x, static_cast<const bf16*>(gout),
+                                   static_cast<const bf16*>(dx_bu),
+                                   static_cast<const bf16*>(dx_td),
+                                   static_cast<const bf16*>(dcons), k, m, l, dq, dd, dv,
+                                   static_cast<bf16*>(dlv), static_cast<bf16*>(dmean), 0, L, B,
+                                   n, d, geo, side, attend_self, s);
 }
 
 // The one-sweep backward (long rows): the dq pass with D from the saved
-// attention output, then the dkv pass, which writes the complete dlevels.
+// attention output, then the key side, which writes the complete dlevels.
 // lv, gout, cons: [L, B, n, d] in the levels dtype; m, l: the forward's f32
 // [L, B, n]; dq (f32 [L, B, n, d]), dd (f32 [L, B, n]) and dcons ([L, B, n,
-// d], levels dtype): workspaces the passes hand over; dlv: [L, B, n, d].
+// d], levels dtype), and for "wgmma" khat (bf16) and dv (f32): workspaces
+// the launches hand over; dlv: [L, B, n, d].
 int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* cons,
                                   const float* m, const float* l, float* dq, float* dd,
-                                  void* dcons, void* dlv, int L, int B, int n, int d, int side,
-                                  double radius, int attend_self, int is_bf16, void* stream) {
+                                  void* dcons, void* khat, float* dv, void* dlv, int L, int B,
+                                  int n, int d, int side, double radius, int attend_self,
+                                  int is_bf16, int instance, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_onesweep<bf16>(lv, gout, cons, m, l, dq, dd, dcons, dlv, L, B, n, d,
-                                         side, radius, attend_self, s)
-                 : launch_onesweep<float>(lv, gout, cons, m, l, dq, dd, dcons, dlv, L, B, n, d,
-                                          side, radius, attend_self, s);
+  const bool wg = instance == INSTANCE_WGMMA;
+  if (!valid(L, B, n, d, side, is_bf16, instance, nullptr, nullptr) || cons == nullptr ||
+      dcons == nullptr || (khat != nullptr) != wg || (dv != nullptr) != wg)
+    return (int)cudaErrorInvalidValue;
+  const Geometry geo = geometry(d, side, radius);
+  if (!wg) {
+    const auto* x = static_cast<const float*>(lv);
+    const auto* g = static_cast<const float*>(gout);
+    auto* dc = static_cast<float*>(dcons);
+    const int err = launch_dq_f32<true>(x, g, nullptr, nullptr, static_cast<const float*>(cons),
+                                        m, l, dq, dd, dc, L, B, n, d, geo, side, attend_self, s);
+    if (err != 0) return err;
+    return launch_dkv_f32<true>(x, g, nullptr, nullptr, m, l, dq, dd, dc,
+                                static_cast<float*>(dlv), nullptr, L, B, n, d, geo, side,
+                                attend_self, s);
+  }
+  const auto* x = static_cast<const bf16*>(lv);
+  const auto* g = static_cast<const bf16*>(gout);
+  auto* dc = static_cast<bf16*>(dcons);
+  auto* k = static_cast<bf16*>(khat);
+  cudaError_t err = launch_prepass(x, g, nullptr, nullptr, static_cast<const bf16*>(cons), k, dc,
+                                   dd, L, B, n, d, s);
+  if (err == cudaSuccess)
+    err = launch_dq_bf16(x, dc, k, m, l, dq, dd, 1, L, B, n, d, geo, side, attend_self, s);
+  if (err == cudaSuccess)
+    err = launch_key_side_bf16(x, g, nullptr, nullptr, dc, k, m, l, dq, dd, dv,
+                               static_cast<bf16*>(dlv), nullptr, 1, L, B, n, d, geo, side,
+                               attend_self, s);
+  return (int)err;
 }
 
 const char* consensus_update_bwd_error_string(int err) {

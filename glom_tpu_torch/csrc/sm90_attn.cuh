@@ -6,7 +6,8 @@
 //   * `khat_kernel`, the keys' pre-pass: k = x / max(||x||, 1e-12) of each
 //     d-element row in f32, rounded once to bf16, into a scratch the caller
 //     allocates, so a key row is normalised once a launch, not once for
-//     every query block that reads it;
+//     every query block that reads it (`khat_row`, one warp's row, is also
+//     K2's backward pre-pass);
 //   * `attn_key_loop`, the key loop of a block of 64 query rows: two
 //     warpgroups (ATTN_THREADS, thread 0 the loader) each compute the whole
 //     S = Q . K^T of a 64-key tile, the caller's masks, the online softmax
@@ -77,6 +78,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[ACC64], uint32_t a
 #undef SM90_ACC64_OUTS
 #undef SM90_ACC64_REGS
 
+// d[64 x N] += A[64 x 16] . B[16 x N] for N = 32 or 16 (the backward's
+// streamed tiles): A and B K-major in shared memory, as the m64n64 form.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // Wait at named barrier `id` (1..15; 0 is __syncthreads') until `count`
 // threads, a multiple of 32, have arrived; or arrive without waiting.
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
@@ -118,16 +142,12 @@ struct AttnLayout {
   }
 };
 
-// k = lv / max(||lv||, 1e-12) of each of `rows` rows of d bf16 values, in
-// f32, rounded: one warp a row, 16-byte loads (d a multiple of 8).
-static __global__ void __launch_bounds__(32 * KHAT_ROWS)
-khat_kernel(const __nv_bfloat16* __restrict__ lv, __nv_bfloat16* __restrict__ khat, size_t rows,
-            int d) {
-  const size_t row = (size_t)blockIdx.x * KHAT_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const uint4* src = reinterpret_cast<const uint4*>(lv + row * d);
-  uint4* dst = reinterpret_cast<uint4*>(khat + row * d);
+// k = x / max(||x||, 1e-12) of one row of d bf16 values, in f32, rounded,
+// by the calling warp (`lane` its lane): 16-byte loads (d a multiple of 8).
+__device__ __forceinline__ void khat_row(const __nv_bfloat16* __restrict__ x,
+                                         __nv_bfloat16* __restrict__ k, int d, int lane) {
+  const uint4* src = reinterpret_cast<const uint4*>(x);
+  uint4* dst = reinterpret_cast<uint4*>(k);
   const int vecs = d / 8;
   float ss = 0.0f;
   for (int c = lane; c < vecs; c += 32) {
@@ -151,6 +171,14 @@ khat_kernel(const __nv_bfloat16* __restrict__ lv, __nv_bfloat16* __restrict__ kh
     for (int i = 0; i < 8; ++i) ko[i] = __float2bfloat16(__bfloat162float(e[i]) / denom);
     dst[c] = o;
   }
+}
+
+// khat_row for each of `rows` rows: one warp a row.
+static __global__ void __launch_bounds__(32 * KHAT_ROWS)
+khat_kernel(const __nv_bfloat16* __restrict__ lv, __nv_bfloat16* __restrict__ khat, size_t rows,
+            int d) {
+  const size_t row = (size_t)blockIdx.x * KHAT_ROWS + threadIdx.x / 32;
+  if (row < rows) khat_row(lv + row * d, khat + row * d, d, threadIdx.x % 32);
 }
 
 static inline cudaError_t launch_khat(const __nv_bfloat16* lv, __nv_bfloat16* khat, size_t rows,

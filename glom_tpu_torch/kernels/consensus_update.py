@@ -22,7 +22,13 @@ on Hopper's tensor cores (wgmma, TMA); f32 runs on the CUDA cores.
 `_consensus_bwd_dkv_kernel` with two passes that cover every n: the dq pass
 (f32 dq and dd) and the dkv pass (dv, dk through the norm VJP, and the
 complete dlevels = dmean + dq + dv + normVJP(dk), plus dmean). Its
-arithmetic is the single-tile kernel's (`_small_bwd_math`). Their combine
+arithmetic is the single-tile kernel's (`_small_bwd_math`). Two instances,
+one rule (`k2_bwd_instance`, checked again by the C entries): "wgmma" for
+bf16 (Hopper's tensor cores; the dq pass first runs a pre-pass that
+writes the normalised k and the rounded dcons to scratches the wrapper
+allocates, `bwd_workspaces`, and the dkv pass, a dv launch and a dk launch,
+reads that k, or normalises the keys again when called on its own), "fma"
+for f32 (the CUDA cores). Their combine
 mode is glom_tpu's `fused_loop._cons_bwd_combine_kernel`, the whole-loop
 VJP's consensus backward: the output cotangent of a level is the sum, in
 f32, of the previous iteration's dlevels and the slot-shifted input
@@ -49,7 +55,7 @@ forward refuses an input that requires grad while grad mode is on.
 `LAUNCHES_BWD_DKV` the two backward passes, and `LAUNCHES_BWD_COMBINE_DQ`
 and `LAUNCHES_BWD_COMBINE_DKV` those launched in combine mode (counted
 there only); `LAUNCHES_CONS` the forwards that wrote `cons`, and
-`LAUNCHES_BWD_ONESWEEP` the one-sweep backwards (its two passes, one call).
+`LAUNCHES_BWD_ONESWEEP` the one-sweep backwards (all its launches, one call).
 """
 
 from __future__ import annotations
@@ -73,7 +79,9 @@ LAUNCHES_BWD_ONESWEEP = 0
 
 WIDTH_MULTIPLE = 64  # d must be a multiple of this
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # n must be a multiple
-TMA_ALIGN = 16  # bytes: the bf16 kernel reads levels and the k scratch by TMA
+TMA_ALIGN = 16  # bytes: the bf16 kernels read by TMA and in 16-byte vectors
+BWD_MAX_D = 640  # the "wgmma" backward's widest row (csrc/consensus_update_bwd.cu)
+K2_BWD_INSTANCES = ("fma", "wgmma")  # the backward C entries' instance numbers
 
 _NEG_MAX = torch.finfo(torch.float32).min
 
@@ -86,9 +94,10 @@ _SIGNATURES = {
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "consensus_update_bwd_dq": ([*[_P] * 9, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
-    "consensus_update_bwd_dkv": ([*[_P] * 11, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
-    "consensus_update_bwd_onesweep": ([*[_P] * 9, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_dq": ([*[_P] * 10, *[_I] * 5, _D, _I, _I, _I, _P], _I),
+    "consensus_update_bwd_dkv": ([*[_P] * 10, _I, *[_P] * 3, *[_I] * 5, _D, _I, _I, _I, _P],
+                                 _I),
+    "consensus_update_bwd_onesweep": ([*[_P] * 11, *[_I] * 5, _D, _I, _I, _I, _P], _I),
     "consensus_update_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -330,6 +339,46 @@ def consensus_bwd_onesweep_plain(
     return (partial.to(f32) + dq).to(dt)
 
 
+def k2_bwd_instance(dtype: torch.dtype, n: int, d: int) -> str:
+    """The backward kernels' instance for a launch: "wgmma" for bfloat16
+    where n % 32 == 0, d % 64 == 0 and d <= BWD_MAX_D (the bf16 forward's
+    shapes), "fma" for float32. A rule by dtype and shape: other shapes
+    raise ValueError, nothing falls back."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        if n % ROW_TILE[dtype] or d % WIDTH_MULTIPLE or d > BWD_MAX_D:
+            raise ValueError(
+                f"no bf16 backward for n={n}, d={d}: it needs n % {ROW_TILE[dtype]} == 0, "
+                f"d % {WIDTH_MULTIPLE} == 0 and d <= {BWD_MAX_D}")
+        return "wgmma"
+    raise ValueError(f"dtype {dtype}: the backward takes bfloat16 or float32")
+
+
+def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
+    """The buffers a backward call hands between its launches, allocated on
+    the levels' device and held by the caller until every launch that reads
+    them is enqueued. form: "dq" (the "wgmma" pre-pass's normalised keys),
+    "dkv" (the keys, and the f32 dv the dk launch reads: what the dkv pass
+    needs alone, and what `consensus_update_bwd` hands to both passes) or
+    "onesweep" (also f32 dq, f32 dd and the rounded dcons). "fma" needs
+    neither keys nor dv."""
+    L, B, n, d = levels_lm.shape
+    wgmma = k2_bwd_instance(levels_lm.dtype, n, d) == "wgmma"
+    ws = {}
+    if form == "onesweep":
+        ws["dq"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
+        ws["dd"] = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
+        ws["dcons"] = torch.empty_like(levels_lm)
+    elif form not in ("dq", "dkv"):
+        raise ValueError(f"form {form!r}: one of 'dq', 'dkv', 'onesweep'")
+    if wgmma:
+        ws["khat"] = torch.empty_like(levels_lm)
+        if form != "dq":
+            ws["dv"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
+    return ws
+
+
 def khat_scratch(levels_lm: torch.Tensor) -> Optional[torch.Tensor]:
     """The bf16 kernel's scratch for the normalized keys, [L, B, n, d] bf16
     (what `_normalized_k` gives, rounded): filled by the kernel's pre-pass
@@ -448,32 +497,90 @@ def fused_consensus_update(
     return (out, m, l) if stats else out
 
 
-def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons=None,
-                    cons=None) -> None:
-    """Raise ValueError for anything the backward kernels do not take."""
+def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu=None, dx_td=None, combine=False,
+                    dcons=None, cons=None, dq=None, dd=None) -> None:
+    """Raise ValueError for anything the backward kernels do not take: the
+    shapes, dtypes, devices and contiguity, the instance rule, and in bf16
+    ("wgmma", which reads by TMA and in 16-byte vectors) a 16-byte aligned
+    start for every tensor, views of the loop's carry slots included."""
     _check_levels(levels_lm, side=side, radius=radius)
     L, B, n, d = levels_lm.shape
+    wgmma = k2_bwd_instance(levels_lm.dtype, n, d) == "wgmma"
     if (dx_bu is None) != (dx_td is None):
         raise ValueError("dx_bu and dx_td come together")
     if dx_bu is not None and not combine:
         raise ValueError("the dx_bu/dx_td streams are the combine's: pass combine=True")
-    checks = [
-        ("g", g, (L, B, n, d), levels_lm.dtype),
-        ("m", m, (L, B, n, 1), torch.float32),
-        ("l", l, (L, B, n, 1), torch.float32),
-    ]
+    full, rows, f32 = (L, B, n, d), (L, B, n, 1), torch.float32
+    checks = [("levels", levels_lm, full, levels_lm.dtype), ("g", g, full, levels_lm.dtype),
+              ("m", m, rows, f32), ("l", l, rows, f32)]
     if dx_bu is not None:
-        checks += [("dx_bu", dx_bu, (L, B, n, d), levels_lm.dtype),
+        checks += [("dx_bu", dx_bu, full, levels_lm.dtype),
                    ("dx_td", dx_td, (L - 1, B, n, d), levels_lm.dtype)]
-    if dcons is not None:
-        checks.append(("dcons", dcons, (L, B, n, d), levels_lm.dtype))
-    if cons is not None:
-        checks.append(("cons", cons, (L, B, n, d), levels_lm.dtype))
+    for name, t, shape, dtype in (("dcons", dcons, full, levels_lm.dtype),
+                                  ("cons", cons, full, levels_lm.dtype),
+                                  ("dq", dq, full, f32), ("dd", dd, rows, f32)):
+        if t is not None:
+            checks.append((name, t, shape, dtype))
     for name, t, shape, dtype in checks:
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != levels_lm.device:
             raise ValueError(f"{name} must be {shape} {dtype} on {levels_lm.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if wgmma and t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte boundary in bf16")
+
+
+def _bwd_call(levels_lm):
+    """(library, stream, is_bf16, instance number) of a backward launch."""
+    instance = K2_BWD_INSTANCES.index(k2_bwd_instance(levels_lm.dtype, *levels_lm.shape[-2:]))
+    return (_bwd_lib(), torch.cuda.current_stream(levels_lm.device).cuda_stream,
+            int(levels_lm.dtype == torch.bfloat16), instance)
+
+
+def _launch_dq(levels_lm, g, m, l, khat, *, side, radius, attend_self, dx_bu, dx_td,
+               combine):
+    """Enqueue the dq pass ("wgmma": its pre-pass writes the normalised keys
+    into khat): (dq, dd, dcons)."""
+    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_COMBINE_DQ
+    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
+    L, B, n, d = levels_lm.shape
+    dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
+    dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
+    dcons = torch.empty_like(levels_lm)
+    err = lib.consensus_update_bwd_dq(
+        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
+        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), _ptr(khat),
+        L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
+    )
+    _build.check(err, "consensus_update_bwd_dq", lib.consensus_update_bwd_error_string)
+    if combine:
+        LAUNCHES_BWD_COMBINE_DQ += 1
+    else:
+        LAUNCHES_BWD_DQ += 1
+    return dq, dd, dcons
+
+
+def _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, khat_ready, *, side, radius,
+                attend_self, dx_bu, dx_td, combine):
+    """Enqueue the dkv pass with the scratches ws ("dkv" form); khat_ready:
+    ws["khat"] already holds the keys the dq pass wrote. (dlevels, dmean)."""
+    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_COMBINE_DKV
+    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
+    L, B, n, d = levels_lm.shape
+    dlv = torch.empty_like(levels_lm)
+    dmean = torch.empty_like(levels_lm)
+    err = lib.consensus_update_bwd_dkv(
+        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
+        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), _ptr(ws.get("khat")),
+        int(khat_ready), _ptr(ws.get("dv")), dlv.data_ptr(), dmean.data_ptr(),
+        L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
+    )
+    _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
+    if combine:
+        LAUNCHES_BWD_COMBINE_DKV += 1
+    else:
+        LAUNCHES_BWD_DKV += 1
+    return dlv, dmean
 
 
 def consensus_bwd_dq(
@@ -484,26 +591,10 @@ def consensus_bwd_dq(
     dcons [L, B, n, d] rounded to the levels dtype, which the dkv pass
     reads). combine=True is the whole-loop VJP's launch (with or without
     streams)."""
-    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_COMBINE_DQ
     _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine)
-    lib = _bwd_lib()
-    L, B, n, d = levels_lm.shape
-    dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
-    dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
-    dcons = torch.empty_like(levels_lm)
-    err = lib.consensus_update_bwd_dq(
-        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
-        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), L, B, n, d, side,
-        float(radius),
-        int(attend_self), int(levels_lm.dtype == torch.bfloat16),
-        torch.cuda.current_stream(levels_lm.device).cuda_stream,
-    )
-    _build.check(err, "consensus_update_bwd_dq", lib.consensus_update_bwd_error_string)
-    if combine:
-        LAUNCHES_BWD_COMBINE_DQ += 1
-    else:
-        LAUNCHES_BWD_DQ += 1
-    return dq, dd, dcons
+    ws = bwd_workspaces(levels_lm, "dq")  # held until the launches are enqueued
+    return _launch_dq(levels_lm, g, m, l, ws.get("khat"), side=side, radius=radius,
+                      attend_self=attend_self, dx_bu=dx_bu, dx_td=dx_td, combine=combine)
 
 
 def consensus_bwd_dkv(
@@ -511,30 +602,14 @@ def consensus_bwd_dkv(
     dx_td=None, combine=False,
 ):
     """The dkv pass on the card, from the dq pass's outputs: (dlevels,
-    dmean) in the levels dtype."""
-    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_COMBINE_DKV
-    _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons)
-    for name, t in (("dq", dq), ("dd", dd)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-    lib = _bwd_lib()
-    L, B, n, d = levels_lm.shape
-    dlv = torch.empty_like(levels_lm)
-    dmean = torch.empty_like(levels_lm)
-    err = lib.consensus_update_bwd_dkv(
-        levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
-        l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), dlv.data_ptr(),
-        dmean.data_ptr(),
-        L, B, n, d, side, float(radius), int(attend_self),
-        int(levels_lm.dtype == torch.bfloat16),
-        torch.cuda.current_stream(levels_lm.device).cuda_stream,
-    )
-    _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
-    if combine:
-        LAUNCHES_BWD_COMBINE_DKV += 1
-    else:
-        LAUNCHES_BWD_DKV += 1
-    return dlv, dmean
+    dmean) in the levels dtype. Called on its own it normalises the keys
+    again ("wgmma")."""
+    _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine, dcons=dcons,
+                    dq=dq, dd=dd)
+    ws = bwd_workspaces(levels_lm, "dkv")  # held until the launches are enqueued
+    return _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, False, side=side,
+                       radius=radius, attend_self=attend_self, dx_bu=dx_bu, dx_td=dx_td,
+                       combine=combine)
 
 
 def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend_self=False):
@@ -542,25 +617,23 @@ def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend
     `consensus_bwd_onesweep_plain`, from the raw cotangent g, the forward's
     m, l and its saved attention output cons. On the card: the dq pass
     with D from cons (one sweep of the key tiles), then the dkv pass,
-    one launch count."""
+    one launch count ("wgmma": the pre-pass, the dq, dv and dk launches)."""
     global LAUNCHES_BWD_ONESWEEP
     kw = dict(side=side, radius=radius, attend_self=attend_self)
     if levels_lm.device.type == "cpu":
         return consensus_bwd_onesweep_plain(levels_lm, g, m, l, cons, **kw)
     if levels_lm.device.type != "cuda":
         raise ValueError(f"no kernel for device {levels_lm.device}")
-    _check_bwd_args(levels_lm, g, m, l, side, radius, None, None, False, cons=cons)
-    lib = _bwd_lib()
+    _check_bwd_args(levels_lm, g, m, l, side, radius, cons=cons)
+    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
-    dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
-    dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
-    dcons = torch.empty_like(levels_lm)
+    ws = bwd_workspaces(levels_lm, "onesweep")  # held until the launches are enqueued
     dlv = torch.empty_like(levels_lm)
     err = lib.consensus_update_bwd_onesweep(
         levels_lm.data_ptr(), g.data_ptr(), cons.data_ptr(), m.data_ptr(), l.data_ptr(),
-        dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), dlv.data_ptr(), L, B, n, d, side,
-        float(radius), int(attend_self), int(levels_lm.dtype == torch.bfloat16),
-        torch.cuda.current_stream(levels_lm.device).cuda_stream,
+        ws["dq"].data_ptr(), ws["dd"].data_ptr(), ws["dcons"].data_ptr(),
+        _ptr(ws.get("khat")), _ptr(ws.get("dv")), dlv.data_ptr(), L, B, n, d, side,
+        float(radius), int(attend_self), is_bf16, instance, stream,
     )
     _build.check(err, "consensus_update_bwd_onesweep", lib.consensus_update_bwd_error_string)
     LAUNCHES_BWD_ONESWEEP += 1
@@ -573,7 +646,7 @@ def consensus_update_bwd(
 ):
     """The VJP of `fused_consensus_update` for the output cotangent g:
     (dlevels, dmean), as `consensus_update_bwd_plain`. On the card: the dq
-    pass, then the dkv pass.
+    pass, then the dkv pass on the keys the dq pass normalised.
     combine=True is the whole-loop VJP's call: it
     may add the streams dx_bu [L, B, n, d] and dx_td [L-1, B, n, d] to g
     (the loop's first backward iteration has none) and counts its launches
@@ -587,8 +660,13 @@ def consensus_update_bwd(
     if levels_lm.device.type != "cuda":
         raise ValueError(f"no kernel for device {levels_lm.device}")
     kw.update(dx_bu=dx_bu, dx_td=dx_td, combine=combine)
-    dq, dd, dcons = consensus_bwd_dq(levels_lm, g, m, l, **kw)
-    return consensus_bwd_dkv(levels_lm, g, m, l, dq, dd, dcons, **kw)
+    _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu, dx_td, combine)
+    # One set of scratches for both passes: the dkv pass reads the keys the
+    # dq pass's pre-pass wrote ("wgmma"; "fma" has none). Held until both
+    # are enqueued.
+    ws = bwd_workspaces(levels_lm, "dkv")
+    dq, dd, dcons = _launch_dq(levels_lm, g, m, l, ws.get("khat"), **kw)
+    return _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, "khat" in ws, **kw)
 
 
 class _ConsensusUpdate(torch.autograd.Function):

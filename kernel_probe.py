@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build, check and time one of the port's bf16 forward kernels on one
-NVIDIA GPU, quickly.
+"""Build, check and time one of the port's bf16 kernels on one NVIDIA GPU,
+quickly.
 
-    python3 kernel_probe.py k1|k2|k4 [ROOT ...]
+    python3 kernel_probe.py k1|k2|k2bwd|k4 [ROOT ...]
 
 Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
 package with one change can be held against this one in one run on the
@@ -30,6 +30,16 @@ kernel's source (printing ptxas' registers and spills), then:
     time a call, whole and in its parts: the argument checks, the
     allocations (out, statistics, cons, the k scratch) and the bare C call
     on buffers allocated beforehand;
+  * k2bwd (`csrc/consensus_update_bwd.cu`, with the forward for m and l):
+    K2's bf16 backward ("wgmma": a pre-pass, the dq pass, the dv and dk
+    passes): the largest err / max |want| of each output over the card
+    tests' cases (K2_BWD_WGMMA_CASES), forms (the pair, the combine, the
+    one-sweep), both attend_self and seeds 0-7, in units of K2_BWD_BARS;
+    then device times of the pair, its passes and the combine at [6, 8,
+    256, 512] and of the one-sweep at [6, 2, 4096, 512], each by kernel and
+    beside the backward of scaled_dot_product_attention on the same q,
+    normalised k, v (with the kernels that ran it), and the host's time a
+    call;
   * k4 (`csrc/banded_consensus.cu`): the same readings for K4 over the
     cases of the `-m gpu` tests (K4_CASES, flat and peaked inputs, both
     attend_self, seeds 0-7), per instance, over the row spans and the
@@ -55,7 +65,8 @@ import subprocess
 import sys
 import time
 
-SOURCES = {"k1": "grouped_mlp", "k2": "consensus_update", "k4": "banded_consensus"}
+SOURCES = {"k1": ["grouped_mlp"], "k2": ["consensus_update"],
+           "k2bwd": ["consensus_update", "consensus_update_bwd"], "k4": ["banded_consensus"]}
 
 
 def probe(kernel: str, root: str) -> int:
@@ -71,11 +82,11 @@ def probe(kernel: str, root: str) -> int:
         return 1
     assert _build.__file__.startswith(root), _build.__file__
     t0 = time.perf_counter()
-    logs = _build.prebuild([SOURCES[kernel]])
+    logs = _build.prebuild(SOURCES[kernel])
     print("build_s", round(time.perf_counter() - t0, 2), flush=True)
-    for ln in logs[SOURCES[kernel]].splitlines():
+    for ln in logs[SOURCES[kernel][-1]].splitlines():
         if any(k in ln for k in ("registers", "spill", "error", "warning", "Function properties",
-                                 "bytes stack", "C7508")):
+                                 "bytes stack", "C7508", "Compiling entry")):
             print("  ", ln.strip())
     gen = torch.Generator().manual_seed(0)
 
@@ -83,7 +94,8 @@ def probe(kernel: str, root: str) -> int:
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
 
     tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
-    return {"k1": probe_k1, "k2": probe_k2, "k4": probe_k4}[kernel](torch, **tools)
+    return {"k1": probe_k1, "k2": probe_k2, "k2bwd": probe_k2bwd,
+            "k4": probe_k4}[kernel](torch, **tools)
 
 
 def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
@@ -219,6 +231,97 @@ def probe_k2(torch, rn, time_ms, host_us, device_us) -> int:
                                                                      radius=0.0)),
                          allocs=host_us(allocs), bare_c_call=host_us(bare)))), flush=True)
     return 0
+
+
+def probe_k2bwd(torch, rn, time_ms, host_us, device_us) -> int:
+    import numpy as np
+
+    import glom_tpu_torch.kernels.consensus_update as k2
+
+    cards = card_tests()
+    bar = cards.K2_BWD_BARS[torch.bfloat16]
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+    worst = {}
+    for form in cards.K2_BWD_FORMS:
+        for case in cards.K2_BWD_WGMMA_CASES:
+            here = {}
+            for attend_self in (False, True):
+                for seed in range(8):
+                    res = cards._k2_bwd_case(np.random.default_rng(seed), *case, attend_self,
+                                             form)
+                    for name, (got, want) in res.items():
+                        here[name] = max(here.get(name, 0.0), rel(got, want) / bar)
+            print(json.dumps(dict(reading="k2_bwd_bf16_case", form=form, case=list(case),
+                                  bar=bar, max_bar_ratio=here)), flush=True)
+            for name, r in here.items():
+                if r >= worst.get((form, name), (-1.0,))[0]:
+                    worst[(form, name)] = (r, list(case))
+    for (form, name), (r, case) in sorted(worst.items()):
+        print(json.dumps(dict(reading="k2_bwd_bf16", form=form, output=name, bar=bar, seeds=8,
+                              max_bar_ratio=r, worst_case=case)), flush=True)
+    fail = max(v[0] for v in worst.values()) > 1.0
+
+    def kernel_key(name):
+        for part in ("prepass", "dq_sm90", "dv_sm90", "dk_sm90", "khat"):
+            if part in name:
+                return part
+        return "other"
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_bwd(lv, g):
+        """SDPA's backward on q = levels, normalised k, v = levels (bf16,
+        attend_self): its time and the kernels that ran it."""
+        Lc, B, n, d = lv.shape
+        q = lv.reshape(Lc * B, 1, n, d).clone().requires_grad_()
+        kh = k2._normalized_k(lv).to(lv.dtype).reshape(Lc * B, 1, n, d).requires_grad_()
+        v = lv.reshape(Lc * B, 1, n, d).clone().requires_grad_()
+        att = sdpa(q, kh, v)
+        go = g.reshape(Lc * B, 1, n, d)
+
+        def run():
+            return torch.autograd.grad(att, (q, kh, v), grad_outputs=go, retain_graph=True)
+
+        return time_ms(run, reps=5 if n > 1024 else 20), list(device_us(run, calls=2))[:4]
+
+    L, n, d, side = 6, 256, 512, 16
+    lv, g = rn(L, 8, n, d, scale=8.0), rn(L, 8, n, d)
+    _, m, l = k2.fused_consensus_update(lv, lv, lv[1:], side=side, stats=True)
+    streams = dict(dx_bu=rn(L, 8, n, d), dx_td=rn(L - 1, 8, n, d))
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, side=side)
+    lib_ms, lib_kernels = sdpa_bwd(lv, g)
+    for label, run in (
+            ("k2_bwd_dq_b8", lambda: k2.consensus_bwd_dq(lv, g, m, l, side=side)),
+            ("k2_bwd_dkv_b8", lambda: k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons,
+                                                             side=side)),
+            ("k2_bwd_b8", lambda: k2.consensus_update_bwd(lv, g, m, l, side=side)),
+            ("k2_bwd_combine_b8", lambda: k2.consensus_update_bwd(lv, g, m, l, side=side,
+                                                                  combine=True, **streams))):
+        ms = time_ms(run)
+        print(json.dumps(dict(timing=label, shape=[L, 8, n, d], ms=ms, sdpa_bwd_ms=lib_ms,
+                              sdpa_bwd_kernels=lib_kernels,
+                              tflops_5_products=10 * L * 8 * n * n * d / ms / 1e9,
+                              device_us=device_us(run, key=kernel_key),
+                              host_us=host_us(run))), flush=True)
+    Lr, Br, nr = 6, 2, 4096
+    lv, g = rn(Lr, Br, nr, d, scale=8.0), rn(Lr, Br, nr, d)
+    _, m, l, cons = k2.fused_consensus_update(lv, lv, lv[1:], side=64, cons=True)
+
+    def onesweep():
+        return k2.consensus_bwd_onesweep(lv, g, m, l, cons, side=64)
+
+    ms = time_ms(onesweep, reps=5)
+    lib_ms, lib_kernels = sdpa_bwd(lv, g)
+    print(json.dumps(dict(timing="k2_bwd_onesweep_longrow", shape=[Lr, Br, nr, d], ms=ms,
+                          sdpa_bwd_ms=lib_ms, sdpa_bwd_kernels=lib_kernels,
+                          tflops_5_products=10 * Lr * Br * nr * nr * d / ms / 1e9,
+                          device_us=device_us(onesweep, calls=2, key=kernel_key),
+                          host_us=host_us(onesweep, batches=3, calls=3))), flush=True)
+    return int(fail)
 
 
 def card_tests():

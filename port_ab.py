@@ -23,7 +23,10 @@ drift of the card between runs. Per tree it prints one JSON line:
     with the host's time a call at both (`k2_host_us_b1`, `k2_host_us_b8`)
     and what one bucket-8 call adds to the allocated memory at its peak
     (`k2_call_b8_peak_mib`: its output and any scratch), and its whole
-    backward (both passes) where the tree has it;
+    backward (both passes) where the tree has it, with one backward call's
+    own peak (`k2_bwd_call_b8_peak_mib`), its combine mode with the two
+    streams (`k2_bwd_combine_ms`) and the one-sweep backward at the long
+    row [6, 2, 4096, 512] (`k2_bwd_onesweep_longrow_ms`, five launches);
   * K4 (the banded ragged consensus) at the flagship's largest ragged
     signature in bf16 ([2048, 6, 512]: 32 pages of 64 tokens, window 256,
     every band full), with the host's time a call (`k4_host_us_r32`);
@@ -35,10 +38,11 @@ drift of the card between runs. Per tree it prints one JSON line:
     device memory of one (`serve_ragged32_*`);
   * where the tree has the trainer, the flagship's bf16 training step at
     batch 8 (`make_train_step` without the grad norm, the route the tree
-    resolves, named in `train_vjp_path`): p50 and min over N steps after
-    two warm-up steps (host clock ending in a synchronize), and the same
-    with remat (`train_b8_remat_*`), each with the peak device memory of
-    one step (`*_peak_mib`);
+    resolves, named in `train_b8_vjp_path`): p50 and min over N steps after
+    two warm-up steps (host clock ending in a synchronize), the same with
+    remat (`train_b8_remat_*`) and at batch 4 (`train_b4_*`, the
+    per-iteration route), each with the peak device memory of one step
+    (`*_peak_mib`);
   * where the tree has the trainer, the long-row training step: the
     flagship widths at 896 px (n = 4096, global consensus), batch 2, k = 7,
     the route the tree resolves (`train_longrow_vjp_path`): p50 and min over
@@ -141,6 +145,22 @@ def child(tree: str, dispatches: int) -> dict:
         _, m, l = k2.fused_consensus_update(lv, bu, td, side=16, stats=True)
         g = randn(L, 8, n, d)
         out["k2_bwd_ms"] = time_ms(lambda: k2.consensus_update_bwd(lv, g, m, l, side=16))
+        torch.cuda.synchronize()  # one bucket-8 backward call's own peak
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        k2.consensus_update_bwd(lv, g, m, l, side=16)
+        torch.cuda.synchronize()
+        out["k2_bwd_call_b8_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        if hasattr(k2, "consensus_bwd_onesweep"):
+            streams = dict(dx_bu=randn(L, 8, n, d), dx_td=randn(L - 1, 8, n, d))
+            out["k2_bwd_combine_ms"] = time_ms(lambda: k2.consensus_update_bwd(
+                lv, g, m, l, side=16, combine=True, **streams))
+            lr = randn(L, 2, 4096, d, scale=8.0)
+            _, mr, lr_, cons = k2.fused_consensus_update(lr, lr, lr[1:], side=64, cons=True)
+            gr = randn(L, 2, 4096, d)
+            out["k2_bwd_onesweep_longrow_ms"] = _time_ms(
+                lambda: k2.consensus_bwd_onesweep(lr, gr, mr, lr_, cons, side=64), reps=5)
+            del lr, mr, lr_, cons, gr
     lv4, k4_kw = k4_inputs(randn)
     out["k4_fwd_ragged32_ms"] = time_ms(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
     out["k4_host_us_r32"] = host_us(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
@@ -183,15 +203,15 @@ def child(tree: str, dispatches: int) -> dict:
         from glom_tpu_torch import TrainConfig
         from glom_tpu_torch.train import create_train_state, init_denoise, make_train_step
 
-        for tag, remat in (("", False), ("_remat", True)):
-            tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
+        for tag, batch, remat in (("b8", 8, False), ("b8_remat", 8, True), ("b4", 4, False)):
+            tcfg = TrainConfig(batch_size=batch, compute_dtype="bfloat16", use_pallas=True,
                                remat=remat)
             step = make_train_step(cfg, tcfg, with_grad_norm=False, device="cuda")
             state, _ = create_train_state(
                 cfg, tcfg, params=init_denoise(cfg, generator=torch.Generator().manual_seed(0)),
                 device="cuda")
             noise_gen = torch.Generator(device=dev).manual_seed(0)
-            imgs = torch.randn(8, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
+            imgs = torch.randn(batch, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
             steps = []
             for i in range(dispatches + 2):  # the first two warm up
                 torch.cuda.synchronize()
@@ -205,9 +225,10 @@ def child(tree: str, dispatches: int) -> dict:
                 if i >= 2:
                     steps.append(1e3 * (time.perf_counter() - t0))
             steps.sort()
-            out.update({f"train_b8{tag}_p50_ms": steps[len(steps) // 2],
-                        f"train_b8{tag}_min_ms": steps[0], f"train_b8{tag}_peak_mib": peak})
-        out.update(train_vjp_path=step.vjp_path, train_steps=len(steps))
+            out.update({f"train_{tag}_p50_ms": steps[len(steps) // 2],
+                        f"train_{tag}_min_ms": steps[0], f"train_{tag}_peak_mib": peak,
+                        f"train_{tag}_vjp_path": step.vjp_path})
+        out.update(train_steps=len(steps))
 
         cfg_long = GlomConfig(image_size=896)  # n = 4096
         tcfg = TrainConfig(batch_size=2, compute_dtype="bfloat16", use_pallas=True)

@@ -623,6 +623,164 @@ def test_consensus_vjp_long_row_on_card(dev):
         _rel_close(a, b, 1e-4, name)
 
 
+# The bf16 backward's "wgmma" instance (k2_bwd_instance): (L, B, n, side,
+# d, radius, inputs). Peaked inputs (rank 4, rms 8) and flat ones (iid unit
+# variance: under radius 1 the diagonal carries about a fifth of each row's
+# weight, so the diagonal rule shows) at radius 0, 1 and 3; n = 32 x odd
+# (the last 64-row block half past n); widths that fill a warpgroup's
+# chunks in part (64), all of them (512) and the 16-row tiles past 512.
+K2_BWD_WGMMA_CASES = [
+    (3, 2, 64, 8, 128, radius, inputs)
+    for radius in (0.0, 1.0, 3.0) for inputs in ("peaked", "flat")
+] + [
+    (2, 2, 96, 1, 128, 0.0, "peaked"),
+    (2, 1, 160, 1, 512, 0.0, "peaked"),
+    (2, 1, 96, 1, 64, 0.0, "flat"),
+    (2, 1, 96, 1, 576, 0.0, "peaked"),
+    (2, 1, 96, 1, 640, 0.0, "peaked"),
+    (2, 1, 256, 16, 512, 1.0, "flat"),
+]
+K2_BWD_FORMS = ["pair", "combine", "onesweep"]
+
+
+def _k2_bwd_case(rng, L, B, n, side, d, radius, inputs, attend_self, form,
+                 dtype=torch.bfloat16):
+    """One backward on the card and its plain version on the same inputs:
+    {output: (got, want)}. "pair": the dq and dkv passes; "combine": the
+    same with the loop's two cotangent streams; "onesweep": from the saved
+    cons."""
+    if inputs == "peaked":
+        lv, bu, td = _consensus_inputs(rng, L, B, n, d, dtype)
+    else:
+        lv, bu, td = (_rand(rng, *s).to(dtype)
+                      for s in ((L, B, n, d), (L, B, n, d), (L - 1, B, n, d)))
+    lv, bu, td = (t.cuda() for t in (lv, bu, td))
+    g = _rand(rng, L, B, n, d).to("cuda", dtype)
+    kw = dict(side=side, radius=radius, attend_self=attend_self)
+    if form == "onesweep":
+        _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+        got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+        return {"dlevels": (got, k2.consensus_bwd_onesweep_plain(lv, g, m, l, cons, **kw))}
+    _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+    streams = {}
+    if form == "combine":
+        streams = dict(dx_bu=_rand(rng, L, B, n, d).to("cuda", dtype),
+                       dx_td=_rand(rng, L - 1, B, n, d).to("cuda", dtype))
+    combine = form == "combine"
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=combine, **streams, **kw)
+    dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, combine=combine, **streams,
+                                      **kw)
+    want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **streams, **kw)
+    want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, g, m, l, want_dq, want_dd, **streams,
+                                                      **kw)
+    return {"dq": (dq, want_dq), "dd": (dd, want_dd), "dcons": (dcons, want_dmean),
+            "dlevels": (dlv, want_dlv), "dmean": (dmean, want_dmean)}
+
+
+@pytest.mark.parametrize("L,B,n,side,d,radius,inputs", K2_BWD_WGMMA_CASES)
+@pytest.mark.parametrize("attend_self", [False, True])
+@pytest.mark.parametrize("form", K2_BWD_FORMS)
+def test_consensus_bwd_wgmma(dev, L, B, n, side, d, radius, inputs, attend_self, form):
+    """The bf16 backward's "wgmma" instance against its plain version, every
+    output at K2_BWD_BARS (the rounded dcons against the plain dcons's
+    rounding)."""
+    assert k2.k2_bwd_instance(torch.bfloat16, n, d) == "wgmma"
+    res = _k2_bwd_case(np.random.default_rng(31), L, B, n, side, d, radius, inputs,
+                       attend_self, form)
+    for name, (got, want) in res.items():
+        _rel_close(got, want, K2_BWD_BARS[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("form", K2_BWD_FORMS)
+def test_consensus_bwd_wgmma_repeats_bit_for_bit(dev, form):
+    """Two launches on the same inputs give the same bits (no atomics, fixed
+    tile shapes), at the flagship width."""
+    runs = [_k2_bwd_case(np.random.default_rng(32), 2, 2, 256, 16, 512, 0.0, "peaked", False,
+                         form) for _ in range(2)]
+    for name in runs[0]:
+        assert torch.equal(runs[0][name][0], runs[1][name][0]), name
+
+
+@pytest.mark.parametrize("L,B,n,side,d,radius,inputs", [K2_BWD_WGMMA_CASES[i]
+                                                         for i in (0, 5, 6, 10)])
+@pytest.mark.parametrize("combine", [False, True])
+def test_consensus_bwd_entry_shares_the_keys(dev, L, B, n, side, d, radius, inputs, combine):
+    """`consensus_update_bwd` hands the keys its dq pass normalised to its
+    dkv pass: the same bits as the two passes called alone (the dkv pass
+    then normalises them again), one launch of each pass."""
+    rng = np.random.default_rng(33)
+    lv, bu, td = (t.cuda() for t in _consensus_inputs(rng, L, B, n, d, torch.bfloat16))
+    g = _rand(rng, L, B, n, d).to("cuda", torch.bfloat16)
+    kw = dict(side=side, radius=radius, attend_self=False, combine=combine)
+    if combine:
+        kw.update(dx_bu=_rand(rng, L, B, n, d).to("cuda", torch.bfloat16),
+                  dx_td=_rand(rng, L - 1, B, n, d).to("cuda", torch.bfloat16))
+    _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, side=side, radius=radius)
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, **kw)
+    alone = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, **kw)
+    counts = ("LAUNCHES_BWD_COMBINE_DQ", "LAUNCHES_BWD_COMBINE_DKV") if combine else (
+        "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV")
+    before = [getattr(k2, c) for c in counts]
+    entry = k2.consensus_update_bwd(lv, g, m, l, **kw)
+    assert [getattr(k2, c) for c in counts] == [b + 1 for b in before]
+    for name, a, b in zip(("dlevels", "dmean"), entry, alone):
+        assert torch.equal(a, b), name
+
+
+def test_consensus_bwd_without_allocator_cache(dev):
+    """The backward's scratches (the normalised keys, dv, and the one-sweep's
+    dq, dd and dcons) live through their launches: with the caching
+    allocator off, a tensor freed early is returned by cudaFree before a
+    kernel reads or writes it. Runs in a fresh process (the switch is read
+    once)."""
+    script = (
+        "import torch, glom_tpu_torch.kernels.consensus_update as k2\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "lv, bu, td, go = (torch.randn(*s, generator=g).to('cuda', torch.bfloat16)\n"
+        "    for s in ((2, 2, 256, 512), (2, 2, 256, 512), (1, 2, 256, 512), (2, 2, 256, 512)))\n"
+        "_, m, l, cons = k2.fused_consensus_update(lv, bu, td, side=16, cons=True)\n"
+        "pair = [k2.consensus_update_bwd(lv, go, m, l, side=16) for _ in range(3)]\n"
+        "one = [k2.consensus_bwd_onesweep(lv, go, m, l, cons, side=16) for _ in range(3)]\n"
+        "want = k2.consensus_update_bwd_plain(lv, go, m, l, side=16)\n"
+        "want1 = k2.consensus_bwd_onesweep_plain(lv, go, m, l, cons, side=16)\n"
+        "def rel(a, b):\n"
+        "    return float((a.float() - b.float()).abs().max() / b.float().abs().max())\n"
+        f"assert rel(pair[0][0], want[0]) <= {K2_BWD_BARS[torch.bfloat16]}\n"
+        f"assert rel(one[0], want1) <= {K2_BWD_BARS[torch.bfloat16]}\n"
+        "assert all(torch.equal(pair[0][0], x[0]) for x in pair[1:])\n"
+        "assert all(torch.equal(one[0], x) for x in one[1:])\n"
+    )
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_consensus_bwd_entry_refuses_another_instance(dev):
+    """The C entries check the caller's instance against their own rule."""
+    lib = k2._bwd_lib()
+    L, B, n, d = 2, 1, 64, 128
+    lv = torch.zeros(L, B, n, d, device=dev, dtype=torch.bfloat16)
+    m = torch.zeros(L, B, n, 1, device=dev)
+    dq, dd = torch.empty(L, B, n, d, device=dev), torch.empty_like(m)
+    dcons, khat = torch.empty_like(lv), torch.empty_like(lv)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dq_pass(scratch, is_bf16, instance, n=n):
+        return lib.consensus_update_bwd_dq(
+            lv.data_ptr(), lv.data_ptr(), None, None, m.data_ptr(), m.data_ptr(),
+            dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), k2._ptr(scratch), L, B, n, d, 1,
+            0.0, 0, is_bf16, instance, stream)
+
+    # "fma" asked for bf16, "wgmma" without its scratch or for f32, a shape
+    # no bf16 instance takes (n = 48): each an invalid value.
+    for scratch, is_bf16, instance, rows in ((khat, 1, 0, n), (None, 1, 1, n), (khat, 0, 1, n),
+                                             (None, 1, 0, n), (khat, 1, 1, 48)):
+        assert dq_pass(scratch, is_bf16, instance, rows) == 1, (is_bf16, instance, rows)
+    assert dq_pass(khat, 1, 1) == 0
+    torch.cuda.synchronize()
+
+
 def test_trainer_on_card_batch8_takes_the_loop(dev):
     cfg = GlomConfig(dim=64, levels=3, image_size=32, patch_size=4)
     tr = Trainer(cfg, TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True),
