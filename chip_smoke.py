@@ -12,7 +12,9 @@ saved attention output and the one-sweep K2 backward at the long-row shape
 [6, 2, 4096, 512] (twice, bit for bit), and the combined td || bu K1 grid
 (bit for bit the two split launches) -- against its plain PyTorch version
 (the bf16 K1 forward, a TMA + wgmma GEMM, also at edge shapes of its
-128-row, 128-column tiles; the bf16 K2 forward, TMA + wgmma attention, also
+128-row, 128-column tiles; the bf16 K1 backward from the saved pre, three
+launches of the same GEMM with transposed operand orders, and its WMMA
+recompute path without one; the bf16 K2 forward, TMA + wgmma attention, also
 at edge shapes of its 64-row, 64-key tiles; the bf16 K2 backward, a pre-pass
 and TMA + wgmma dq, dv and dk passes, in its pair, combine and one-sweep
 forms; K4 in both instances, the bf16
@@ -23,7 +25,8 @@ where one PyTorch call
 computes the same function, that call: scaled_dot_product_attention for
 K2's attention and K4, torch.baddbmm for the pre-only K1; for K1's forward
 the three calls baddbmm, tanh GELU, baddbmm as `library_seq_ms`, and
-autograd through them for K1's backward; K2's backward by kernel, with its
+autograd through them for K1's backward, which is also timed by kernel
+with its host time a call and the path it took; K2's backward by kernel, with its
 pre-pass share and SDPA's backward), then
 drives the port's main paths on the flagship
 model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
@@ -422,12 +425,17 @@ def main() -> int:
     k1_bwd_err = {}
     for dtype in (bf16, f32):
         dname = "bf16" if dtype == bf16 else "f32"
-        k1_cases = [("bottom_up", L, None), ("top_down", L - 1, None)]
+        # (which, groups, b1 centre, recompute): the saved pre where the
+        # training forward saves it (bf16), else the recompute.
+        k1_cases = [("bottom_up", L, None, False), ("top_down", L - 1, None, False)]
         if dtype == bf16:
             # b1 near -4, where the tanh GELU's derivative and the erf one
             # differ by a third: the derivative form is what this case sees.
-            k1_cases.append(("gelu_tail", L, -4.0))
-        for which, G, b1_center in k1_cases:
+            k1_cases.append(("gelu_tail", L, -4.0, False))
+            # The bf16 recompute path (pre=None, past SAVE_PRE_LIMIT on no
+            # measured route), still the WMMA row and weight passes.
+            k1_cases += [("bottom_up", L, None, True), ("top_down", L - 1, None, True)]
+        for which, G, b1_center, recompute in k1_cases:
             src = ffw["top_down" if which == "top_down" else "bottom_up"]
             params = GroupedFFWParams(*(t.to(dev, dtype) for t in src))
             if b1_center is not None:
@@ -438,7 +446,7 @@ def main() -> int:
             g = randn(G, M8, d, dtype=dtype)
             add = pos.to(dev, dtype) if which == "top_down" else None
             pre = None
-            if k1.save_pre_ok(params, x):  # the training forward's saved pre
+            if k1.save_pre_ok(params, x) and not recompute:  # the forward's saved pre
                 pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
             got = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
             torch.cuda.synchronize()
@@ -450,7 +458,7 @@ def main() -> int:
                 pairs.append(("da", got[2], want[2]))  # over 8 batch copies
             err = check_bwd("K1", dict(which=which, shape=[G, M8, d], dtype=str(dtype),
                                        saved_pre=pre is not None), pairs, BWD_BARS["K1"][dname])
-            if dtype == bf16 and which in ("bottom_up", "top_down"):
+            if dtype == bf16 and which in ("bottom_up", "top_down") and pre is not None:
                 k1_bwd_err[which] = err
 
     def flat_levels(shape, dtype):
@@ -778,7 +786,8 @@ def main() -> int:
         # A kernel made of several launches lists each with its own time. The
         # products a design computes are constants of the script: they stay
         # on the `timing` row, off the kernels line.
-        timings[label].update({k: extra[k] for k in ("kernels_ms", "instance") if k in extra})
+        timings[label].update({k: extra[k] for k in ("kernels_ms", "instance", "path")
+                               if k in extra})
         if library_seq_ms is not None:
             timings[label]["library_seq_ms"] = library_seq_ms
         emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
@@ -805,6 +814,26 @@ def main() -> int:
         out = k1_library_seq(GroupedFFWParams(*leaves[1:]), leaves[0])
         return time_ms(lambda: torch.autograd.grad(out, leaves, grad_outputs=g,
                                                    retain_graph=True))
+
+    # K1's backward launches by kernel (torch.profiler): the saved pre's sm90
+    # passes (the addend's xa, dh, dx, the weight pass, da_reduce) or the
+    # recompute's WMMA row and weight passes; the path they make; the host's
+    # time a call.
+    k1_bwd_names = ("mlp_bwd_addend_bf16", "mlp_bwd_dh_sm90", "mlp_bwd_dx_sm90",
+                    "mlp_bwd_dw_sm90", "da_reduce", "mlp_bwd_rows_bf16", "mlp_bwd_weights_bf16")
+
+    def k1_bwd_profile(run):
+        for _ in range(3):
+            us = device_us_by_kernel(run, calls=10, key=lambda name: next(
+                (k for k in k1_bwd_names if k in name), "other"))
+            if sum(us.values()):
+                break
+        else:
+            raise AssertionError("three profiles of a K1 backward call saw no kernel")
+        path = ("sm90" if "mlp_bwd_dh_sm90" in us else
+                "wmma" if "mlp_bwd_rows_bf16" in us else "unknown")
+        return dict(kernels_ms={k: v / 1e3 for k, v in us.items()},
+                    host_us_per_call=host_us(run), path=path)
 
     def with_add(x, add):
         G = x.shape[0]
@@ -952,14 +981,17 @@ def main() -> int:
         x, g = randn(G, M8, d, dtype=bf16), randn(G, M8, d, dtype=bf16)
         add = pos.to(dev, bf16) if which == "top_down" else None
         pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
-        ms = time_ms(lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+
+        def k1_bwd():
+            return k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+        ms = time_ms(k1_bwd)
         plain_ms = time_ms(lambda: k1.grouped_mlp_bwd_plain(params, x, g, add, pre))
         # read x, pre, g, w1, w2 (+ a); write dx, dw1, db1, dw2, db2 (+ da)
         nbytes = 2 * (3 * G * M8 * d + G * M8 * f + 4 * G * d * f + G * (f + d)
                       + (2 * n * d if add is not None else 0))
         record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes,
                       library_seq_ms=k1_seq_bwd_ms(params, with_add(x, add), g),
-                      library_seq_call=k1_seq_bwd_call)
+                      library_seq_call=k1_seq_bwd_call, **k1_bwd_profile(k1_bwd))
     # K2's backward launches by kernel (torch.profiler): the pre-pass (k and
     # the rounded dcons), the dq pass, the key side's k pre-pass, dv and dk
     # passes ("wgmma"), with the host's time a call; products a pair as the
@@ -1078,8 +1110,10 @@ def main() -> int:
         pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
         acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in params))
         da_in = torch.zeros(n, d, device=dev) if add is not None else None
-        ms = time_ms(lambda: k1.grouped_mlp_bwd(params, x, g1, add=add, pre=pre, acc=acc,
-                                                da_in=da_in))
+
+        def k1_bwd_acc():
+            return k1.grouped_mlp_bwd(params, x, g1, add=add, pre=pre, acc=acc, da_in=da_in)
+        ms = time_ms(k1_bwd_acc)
         plain_ms = time_ms(lambda: k1.grouped_mlp_bwd_plain(params, x, g1, add, pre, acc, da_in))
         # read x, pre, g, w1, w2 (+ a); write dx; read and write the f32 totals
         # of dw1, db1, dw2, db2 (+ da). Four products.
@@ -1088,7 +1122,7 @@ def main() -> int:
                   + 4 * 2 * (2 * G * d * f + G * (f + d) + extra))
         record_timing(label, [G, M8, d], ms, plain_ms, 8 * G * M8 * d * f, nbytes,
                       library_seq_ms=k1_seq_bwd_ms(params, with_add(x, add), g1),
-                      library_seq_call=k1_seq_bwd_call)
+                      library_seq_call=k1_seq_bwd_call, **k1_bwd_profile(k1_bwd_acc))
     dx_bu, dx_td = randn(L, 8, n, d, dtype=bf16), randn(L - 1, 8, n, d, dtype=bf16)
     comb = dict(side=side, dx_bu=dx_bu, dx_td=dx_td)
     dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=True, **comb)
@@ -1184,7 +1218,8 @@ def main() -> int:
             x_cat = torch.cat([with_add(carry[2:], add), carry[:L]])
             lib = dict(library_seq_ms=k1_seq_bwd_ms(wcat, x_cat,
                                                     torch.cat([dmean[:L - 1], dmean])),
-                       library_seq_call=k1_seq_bwd_call + ", over the 11 groups")
+                       library_seq_call=k1_seq_bwd_call + ", over the 11 groups",
+                       **k1_bwd_profile(run))
         record_timing(label, [Gc, M8, d], time_ms(run), time_ms(plain), ops, nbytes,
                       split_pair_ms=time_ms(split_pair), **lib)
     # The long-row route's K2 launches at [6, 2, 4096, 512] (fewer
@@ -1907,6 +1942,10 @@ def main() -> int:
          loop_over_scan=long_p50["fused_loop"] / long_p50["scan_blockwise"])
 
     # -- kernels -----------------------------------------------------------------
+    k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
+                                                 "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
+    if set(k1_paths.values()) != {"sm90"}:
+        raise AssertionError(f"a saved-pre K1 backward left the sm90 passes: {k1_paths}")
     # Each kernel's launches on the path that drives it: the forwards on the
     # serve path, the loop's kernels on the batch-8 train path (the pre-only
     # launch under remat), the per-iteration backward on the batch-4 path.

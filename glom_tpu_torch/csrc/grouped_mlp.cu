@@ -185,8 +185,8 @@ cudaError_t hidden_pass(const CUtensorMap& xa_map, const CUtensorMap& x_map,
                         const CUtensorMap& w1_map, const sm90::Shape& shape,
                         const HiddenEpilogue<SAVE_PRE, STORE_H>& epi, cudaStream_t s) {
   static bool lifted[sm90::MAX_DEVICES];
-  return sm90::launch(mlp_fwd_hidden_bf16<SAVE_PRE, STORE_H>, lifted, xa_map, x_map, w1_map,
-                      shape, epi, s);
+  return sm90::launch_tiles(mlp_fwd_hidden_bf16<SAVE_PRE, STORE_H>, lifted,
+                            sm90::tile_count(shape), s, xa_map, x_map, w1_map, shape, epi);
 }
 
 // The bf16 forward over row slabs of R rows: per slab, the addend's xa
@@ -197,11 +197,11 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* a, int n, const bf16* w1, const 
                      int G, int M, int d, int f, int split, int x_lo, int R, cudaStream_t s) {
   CUtensorMap x_map, xa_map, w1_map, h_map, w2_map;
   const bool pre_only = out == nullptr;
-  cudaError_t err = sm90::make_a_map(&x_map, x, d, M, split < G ? G - split : 1);
-  if (err == cudaSuccess) err = split > 0 ? sm90::make_a_map(&xa_map, xa, d, R, split) : err;
-  if (err == cudaSuccess) err = sm90::make_b_map(&w1_map, w1, d, f, G);
-  if (err == cudaSuccess && !pre_only) err = sm90::make_a_map(&h_map, h, f, R, G);
-  if (err == cudaSuccess && !pre_only) err = sm90::make_b_map(&w2_map, w2, f, d, G);
+  cudaError_t err = sm90::make_kmajor_map(&x_map, x, d, M, split < G ? G - split : 1);
+  if (err == cudaSuccess) err = split > 0 ? sm90::make_kmajor_map(&xa_map, xa, d, R, split) : err;
+  if (err == cudaSuccess) err = sm90::make_mnmajor_map(&w1_map, w1, d, f, G);
+  if (err == cudaSuccess && !pre_only) err = sm90::make_kmajor_map(&h_map, h, f, R, G);
+  if (err == cudaSuccess && !pre_only) err = sm90::make_mnmajor_map(&w2_map, w2, f, d, G);
   if (err != cudaSuccess) return err;
   if (split == 0) xa_map = x_map;  // not read: no group is below split
   for (int r0 = 0; r0 < M && err == cudaSuccess; r0 += R) {
@@ -223,8 +223,8 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* a, int n, const bf16* w1, const 
     if (err != cudaSuccess || pre_only) continue;
     const sm90::Shape s2{f, d, G, G, r0, r0 + rows};  // every group reads the h scratch
     static bool lifted_out[sm90::MAX_DEVICES];
-    err = sm90::launch(mlp_fwd_out_bf16, lifted_out, h_map, h_map, w2_map, s2,
-                       OutEpilogue{b2, out, M}, s);
+    err = sm90::launch_tiles(mlp_fwd_out_bf16, lifted_out, sm90::tile_count(s2), s, h_map, h_map,
+                             w2_map, s2, OutEpilogue{b2, out, M});
   }
   return err;
 }

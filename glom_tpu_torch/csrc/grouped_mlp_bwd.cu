@@ -27,46 +27,83 @@
 //
 // Accumulate mode (the whole-loop VJP): dw1, db1, dw2, db2 and da are f32
 // and hold the totals of the iterations already done; this call adds its
-// own gradients to them in place. Each weight-pass block owns its tile
-// (and, in the first tile row, its column sums) across all M rows, and
-// each da_reduce thread owns one element, so the update is a
-// read-modify-write that no other block touches. The weight pass sums
-// this call's gradients from zero exactly as the per-op launch does (a
-// template instance, so the per-op instance is unchanged) and adds the
-// incoming total in its epilogue: total + this call's sum, the order of
-// the plain version. Seeding the WMMA accumulators with the incoming tile
-// before the row loop, as the TPU kernel seeds its VMEM sums, kept the
-// tile's pointer and the mode live through the loop: 58 registers instead
-// of 48, four blocks an SM instead of five, and a weight pass about 5 %
-// slower in both modes (measured on the H100). The sums stay f32 across
-// the iterations and are rounded to the parameter dtype once, after the
-// loop.
+// own gradients to them in place. One block (one consumer warpgroup on the
+// bf16 saved-pre path) owns each weight tile and its column sums across all
+// M rows, and each da_reduce thread owns one element, so the update is a
+// read-modify-write that no other block touches. The call sums its own
+// gradients from zero exactly as the per-op launch does (a template
+// instance, so the per-op instance is unchanged) and adds the incoming
+// total in its epilogue: total + this call's sum, the order of the plain
+// version. The sums stay f32 across the iterations and are rounded to the
+// parameter dtype once, after the loop.
 //
-// Bound on the H100: tensor-core operations. At the flagship bottom-up shape
-// (G = 6, M = 2048, d = 512, f = 2048, bf16, saved pre) the four products
-// are 103 GFLOP against about 150 MB of inputs and outputs; the accumulate
-// mode reads and writes the f32 totals instead of writing bf16 grads (about
-// 100 MB more), still far below the operations' time.
+// Three paths, picked by is_bf16 and pre alone:
 //
-// Kept out of device memory: dh. The TPU kernel walks the row tiles of a
-// group in order and sums dw/db in VMEM across them; CUDA blocks run in
-// parallel, so the work is split in two passes with no float atomics (the
-// result is the same on every run):
-//   * a row pass, one block per (group, row tile): per f chunk, dh = g . w2^T
-//     on tensor cores (and, without a saved pre, z = xa . w1 + b1), then the
-//     GELU derivative, and dx += dpre . w1^T into an f32 tile in shared
-//     memory. It writes dx, and dpre to a [G, M, f] workspace; without a
-//     saved pre it also writes h to a second one;
-//   * a weight pass, one block per (group, 64 x 64 tile of dw1 or dw2): it
-//     walks all M rows, staging xa/dpre (or h/g) chunks in shared memory,
-//     with the f32 sums in registers; from a saved pre it forms h as it
-//     stages the chunk. The blocks of the first tile row also sum the
-//     columns of dpre (db1) or g (db2);
-//   * with an addend, a third kernel sums the row pass's f32 dx over groups
-//     and batch copies into da.
+// * bf16 with the saved pre (every training route: the per-iteration
+//   backward, the loop's accumulate mode, the combined grid, long rows
+//   under SAVE_PRE_LIMIT; it replaces :_mlp_bwd_kernel_saved,
+//   :_mlp_bwd_kernel_saved_add, :_ffw_bwd_acc(_add)_kernel and
+//   :_ffw_bwd_cat_acc_kernel in bf16): three launches of the Hopper GEMM
+//   mainloop (sm90_gemm.cuh: a persistent grid of 128 x 128 tiles, two
+//   consumer warpgroups on wgmma, each fed by its own producer warp
+//   through a 3-stage TMA ring), after the addend's xa scratch when there
+//   is one:
+//     - dh pass (`mlp_bwd_dh_sm90`), [G, M, f] tiles: A = the cotangent
+//       (K-major, read in place at the group rule's slots), B = w2 read
+//       K-major as it lies ([f, d]), K = d. The epilogue reads the saved
+//       pre through the warp's stage as 16-byte row loads and writes
+//       dpre = round(dh * GELU'(pre)) and h = round(GELU(pre)) to two
+//       [G, M, f] scratches;
+//     - dx pass (`mlp_bwd_dx_sm90`), [G, M, d] tiles: A = dpre, B = w1
+//       read K-major ([d, f]), K = f; dx rounded once, and for the addend's
+//       groups the f32 dx that da_reduce sums;
+//     - weight pass (`mlp_bwd_dw_sm90`), dw1 [d, f] tiles (A = xa^T read
+//       MN-major as xa lies, [M, d]; B = dpre) and dw2 [f, d] tiles (A =
+//       h^T, MN-major; B = the cotangent at the group rule's slots), both
+//       problems in one persistent grid, K = M rounded up to whole 64-row
+//       steps (TMA fills the rows past M with zeros, exact for sums and
+//       products). The tiles of the first row block sum B's columns from
+//       the shared-memory stages (db1 = sum_r dpre, db2 = sum_r g) in f32.
+//       TMA cannot add: the addend's groups read an [split, M, d] scratch
+//       xa = round(x + a[r mod n]) (`mlp_bwd_addend_bf16`, the forward's
+//       rounding point), the others x in place.
+// * bf16 recompute (pre == NULL, past SAVE_PRE_LIMIT only, on no measured
+//   route; it replaces :_mlp_bwd_kernel in bf16): glom_tpu's
+//   _mlp_bwd_kernel keeps z unrounded in f32, so the first product is
+//   recomputed beside dh in a WMMA row pass (one block
+//   per 32-row tile, per 64-column chunk of f: dh = g . w2^T and z = xa .
+//   w1 + b1, the GELU derivative, dx += dpre . w1^T in shared memory),
+//   which writes dx, dpre and h; a WMMA weight pass (one block per 64 x 64
+//   tile of dw1 or dw2) walks all M rows.
+// * f32 (every site in f32): the same two passes on the CUDA cores with
+//   the erf GELU (the saved pre, where there is one, forms h in the weight
+//   pass).
+//
+// Bound on the H100: at 989 TFLOP/s bf16 and 3.35 TB/s, at the flagship
+// bucket 8 (G = 6, M = 2048, d = 512, f = 2048), bf16 from the saved pre, the
+// function (read x, pre, g, w1, w2; write dx and the grads) is bound by its
+// four products, 103 GFLOP, 0.104 ms. Per launch: dh 25.8 GFLOP (0.026 ms)
+// against the pre read and the h and dpre writes, 3 x 50 MB, with g and w2
+// 176 MB (0.053 ms): bound by bytes, so its epilogue reads pre as whole
+// rows, after an L2 prefetch issued when the tile starts, and runs beside
+// the other consumer's products; dx 25.8 GFLOP (0.026 ms) against 76 MB
+// (0.023 ms); the weight pass 51.5 GFLOP (0.052 ms) against 151 MB (0.045
+// ms), 2 x 384 tiles in one grid of 264 consumer slots (2.9 waves where
+// each product alone is 1.45); in accumulate mode the f32 totals' read and
+// write add 100 MB (0.075 ms: bytes), prefetched to L2 per tile and read
+// back in batches.
+//
+// Kept out of device memory: every f32 sum (in registers from the first
+// product to its rounding or its add into the totals) and dh (scaled by
+// GELU'(pre) in the dh epilogue). h and dpre go through device memory once
+// each way as [G, M, f] bf16 scratch, the price of parallel passes with no
+// float atomics (the TPU kernel walks a group's rows in order and keeps its
+// dw/db sums in VMEM).
+//
 // Rounding points are the TPU kernel's: h and dpre are rounded to x's type,
 // every product accumulates in f32, dx is rounded once. bf16 uses the tanh
-// GELU's derivative and tensor cores (WMMA), f32 the erf form and FMA.
+// GELU's derivative, f32 the erf form. With an addend, da_reduce sums the f32
+// dx over the addend's groups and batch copies into da.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes.
 
@@ -75,6 +112,8 @@
 #include <mma.h>
 
 #include <type_traits>
+
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 
@@ -92,10 +131,18 @@ constexpr int WK = 32;        // weight-pass rows staged per step
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
-// GELU value and derivative in f32: the tanh form (bf16) or the erf form (f32).
+// GELU value and derivative in f32: the tanh form (bf16) or the erf form
+// (f32). The tanh form takes t = tanh(u), u = c (z + k z^3), as 2 s - 1
+// with s = 1 / (1 + exp(-2u)) from the fast exp and reciprocal: about half
+// tanhf's instructions and none of its range branches, for the dh epilogue,
+// which runs it on every [G, M, f] element and is bound by instruction
+// issue. t rounds to f32 as tanhf's does, so 1 + t keeps the reference's
+// rounding where GELU's tail cancels; exp overflows to inf far below 0,
+// where t = -1.
 __device__ __forceinline__ void gelu_tanh_vg(float z, float& val, float& grad) {
   const float c = 0.7978845608028654f, k = 0.044715f;
-  const float t = tanhf(c * (z + k * (z * z * z)));
+  const float s = __fdividef(1.0f, 1.0f + __expf(-2.0f * c * (z + k * (z * z * z))));
+  const float t = 2.0f * s - 1.0f;
   val = z * (0.5f * (1.0f + t));
   grad = 0.5f * (1.0f + t) + 0.5f * z * (1.0f - t * t) * c * (1.0f + 3.0f * k * z * z);
 }
@@ -107,22 +154,264 @@ __device__ __forceinline__ void gelu_erf_vg(float z, float& val, float& grad) {
   grad = Phi + z * phi;
 }
 
+// ------------------------------------------------- bf16, saved pre (sm90)
+
+// xa[g, r, :] = round_bf16(x[g + x_lo, r, :] + a[r mod n, :]) for the
+// addend's groups g < split, 8 elements (16 bytes) a thread: the weight
+// pass's A operand for those groups (the forward's rounding point; its
+// `mlp_fwd_addend_bf16` over one whole-M slab).
+__global__ void mlp_bwd_addend_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
+                                    bf16* __restrict__ xa, int split, int x_lo, int M, int d) {
+  const size_t per_group = static_cast<size_t>(M) * d / 8;
+  const size_t total = per_group * split;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int g = static_cast<int>(i / per_group);
+    const size_t e = (i - g * per_group) * 8;
+    const int r = static_cast<int>(e / d), c = static_cast<int>(e % d);
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + ((size_t)(g + x_lo) * M + r) * d + c);
+    const uint4 av = *reinterpret_cast<const uint4*>(a + (size_t)(r % n) * d + c);
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&av);
+    uint4 ov;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 xf = __bfloat1622float2(xp[k]), af = __bfloat1622float2(ap[k]);
+      op[k] = __floats2bfloat162_rn(xf.x + af.x, xf.y + af.y);
+    }
+    *reinterpret_cast<uint4*>(xa + ((size_t)g * M + r) * d + c) = ov;
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat162 round2(float v0, float v1) {
+  return __floats2bfloat162_rn(v0, v1);
+}
+
+// The dh pass's epilogue over a [G, M, f] tile half: the warp's 16 rows of
+// the saved pre come in through its stage as 16-byte row loads; each pair
+// takes GELU and GELU' of pre, leaves h = round(GELU(pre)) in the stage
+// (written out as whole rows) and dh * GELU'(pre) in the sums, stored as
+// dpre = round(dh * GELU'(pre)).
+struct DhEpilogue {
+  const bf16* pre;
+  bf16* h;
+  bf16* dpre;
+  int M;
+  // The tile's pre, row t: its two 128-byte lines.
+  __device__ void prefetch(int g, int abs_row, int col0, int t, const sm90::Shape& s) const {
+    if (abs_row + t >= s.row_end) return;
+    const bf16* p = pre + ((size_t)g * M + abs_row + t) * s.N + col0;
+    sm90::prefetch_l2(p);
+    if (col0 + 64 < s.N) sm90::prefetch_l2(p + 64);
+  }
+  __device__ void operator()(float (&acc)[sm90::ACC], int g, int abs_row, int, int col0, int t,
+                             uint32_t* stage, const sm90::Shape& s) const {
+    const size_t at = ((size_t)g * M + abs_row) * s.N + col0;
+    const int rows = s.row_end - abs_row, cols = s.N - col0;
+    const int w16 = 16 * (t / 32);
+    sm90::fill_stage(stage, t, pre + at, s.N, rows, cols);
+    sm90::for_each_pair(acc, t, [&](int r, int c, float& v0, float& v1) {
+      uint32_t& u = sm90::stage_at(stage, r - w16, c);
+      const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+      float h0, h1, d0, d1;
+      gelu_tanh_vg(z.x, h0, d0);
+      gelu_tanh_vg(z.y, h1, d1);
+      const __nv_bfloat162 hv = round2(h0, h1);
+      u = *reinterpret_cast<const uint32_t*>(&hv);
+      v0 *= d0;
+      v1 *= d1;
+    });
+    __syncwarp();
+    sm90::flush_stage(stage, t, h + at, s.N, rows, cols);
+    sm90::store_half(acc, t, stage, dpre + at, s.N, rows, cols,
+                     [](int, int, float v0, float v1) { return round2(v0, v1); });
+  }
+};
+
+// The dx pass's epilogue over a [G, M, d] tile half: dx rounded once; the
+// addend's groups (g < split) also store the f32 sums for da_reduce.
+struct DxEpilogue {
+  bf16* dx;
+  float* dx32;
+  int M, split;
+  __device__ void operator()(const float (&acc)[sm90::ACC], int g, int abs_row, int, int col0,
+                             int t, uint32_t* stage, const sm90::Shape& s) const {
+    const size_t at = ((size_t)g * M + abs_row) * s.N + col0;
+    const int rows = s.row_end - abs_row, cols = s.N - col0;
+    sm90::store_half(acc, t, stage, dx + at, s.N, rows, cols,
+                     [](int, int, float v0, float v1) { return round2(v0, v1); });
+    if (g < split)
+      sm90::for_each_pair(acc, t, [&](int r, int c, float v0, float v1) {
+        if (r < rows && c < cols)
+          *reinterpret_cast<float2*>(dx32 + at + (size_t)r * s.N + c) = make_float2(v0, v1);
+      });
+  }
+};
+
+// The weight pass's epilogue: problem 0 is dw1 [G, d, f] with db1 [G, f],
+// problem 1 dw2 [G, f, d] with db2 [G, d] (shape.id). A tile's sums are
+// stored rounded to bf16, or with ACC added to the f32 totals in place
+// (total + this call's sum); so are its column sums.
+template <bool ACC>
+struct DwEpilogue {
+  void* C[2];
+  void* colsum[2];
+  // With ACC, the tile's f32 totals, row t: its four 128-byte lines.
+  __device__ void prefetch(int g, int abs_row, int col0, int t, const sm90::Shape& s) const {
+    if constexpr (ACC) {
+      if (abs_row + t >= s.row_end) return;
+      const float* p = static_cast<const float*>(C[s.id]) +
+                       ((size_t)g * s.row_end + abs_row + t) * s.N + col0;
+      for (int c = 0; c < sm90::BN && col0 + c < s.N; c += 32) sm90::prefetch_l2(p + c);
+    }
+  }
+  __device__ void operator()(const float (&acc)[sm90::ACC], int g, int abs_row, int, int col0,
+                             int t, uint32_t* stage, const sm90::Shape& s) const {
+    const size_t at = ((size_t)g * s.row_end + abs_row) * s.N + col0;
+    const int rows = s.row_end - abs_row, cols = s.N - col0;
+    if constexpr (ACC) {
+      // The fragment's pairs (for_each_pair's layout: rows r and r + 8,
+      // columns 8j + c) in batches of four j, each batch's eight loads of
+      // the totals issued before its stores, so a batch waits on memory
+      // once and not once a pair.
+      const int r = 16 * (t / 32) + (t % 32) / 4, c = 2 * (t % 4);
+      float* total = static_cast<float*>(C[s.id]) + at + (size_t)r * s.N + c;
+      const bool ok0 = r < rows, ok1 = r + 8 < rows;
+#pragma unroll
+      for (int j0 = 0; j0 < sm90::BN / 8; j0 += 4) {
+        float2 old[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool col_ok = 8 * (j0 + j) + c < cols;
+          float* p = total + 8 * (j0 + j);
+          if (ok0 && col_ok) old[j][0] = *reinterpret_cast<const float2*>(p);
+          if (ok1 && col_ok) old[j][1] = *reinterpret_cast<const float2*>(p + 8 * (size_t)s.N);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool col_ok = 8 * (j0 + j) + c < cols;
+          const float* v = acc + 4 * (j0 + j);
+          float* p = total + 8 * (j0 + j);
+          if (ok0 && col_ok)
+            *reinterpret_cast<float2*>(p) = make_float2(old[j][0].x + v[0], old[j][0].y + v[1]);
+          if (ok1 && col_ok)
+            *reinterpret_cast<float2*>(p + 8 * (size_t)s.N) =
+                make_float2(old[j][1].x + v[2], old[j][1].y + v[3]);
+        }
+      }
+    } else {
+      sm90::store_half(acc, t, stage, static_cast<bf16*>(C[s.id]) + at, s.N, rows, cols,
+                       [](int, int, float v0, float v1) { return round2(v0, v1); });
+    }
+  }
+  __device__ void col_sum(float v, int g, int col, const sm90::Shape& s) const {
+    if (col >= s.N) return;
+    const size_t at = (size_t)g * s.N + col;
+    if constexpr (ACC)
+      static_cast<float*>(colsum[s.id])[at] += v;
+    else
+      static_cast<bf16*>(colsum[s.id])[at] = __float2bfloat16(v);
+  }
+};
+
+// The three passes' kernels, named for profiles.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+mlp_bwd_dh_sm90(const __grid_constant__ CUtensorMap g_map,
+                const __grid_constant__ CUtensorMap w2_map, const sm90::Shape shape,
+                const DhEpilogue epi) {
+  sm90::gemm_tiles<false, true>(g_map, g_map, w2_map, shape, epi);
+}
+
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+mlp_bwd_dx_sm90(const __grid_constant__ CUtensorMap dpre_map,
+                const __grid_constant__ CUtensorMap w1_map, const sm90::Shape shape,
+                const DxEpilogue epi) {
+  sm90::gemm_tiles<false, true>(dpre_map, dpre_map, w1_map, shape, epi);
+}
+
+template <bool ACC>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+mlp_bwd_dw_sm90(const __grid_constant__ CUtensorMap xa_map,
+                const __grid_constant__ CUtensorMap x_map,
+                const __grid_constant__ CUtensorMap dpre_map,
+                const __grid_constant__ CUtensorMap h_map,
+                const __grid_constant__ CUtensorMap g_map,
+                const sm90::Shape s1, const sm90::Shape s2, const DwEpilogue<ACC> epi) {
+  const sm90::Operands ops[2] = {{&xa_map, &x_map, &dpre_map, s1}, {&h_map, &h_map, &g_map, s2}};
+  sm90::gemm_problems<true, false, true>(ops, epi);
+}
+
+// The bf16 saved-pre backward: [xa], dh, dx, the weight pass. The
+// cotangent has max(split, G - split) slots (every slot a group reads), x
+// G - split past x_lo's (the forward's x map).
+cudaError_t bwd_bf16_saved(const bf16* x, const bf16* a, int n, const bf16* w1, const bf16* w2,
+                           const bf16* pre, const bf16* gout, bf16* dx, void* dw1, void* db1,
+                           void* dw2, void* db2, bf16* h_ws, bf16* dpre_ws, float* dx32,
+                           bf16* xa, int G, int M, int d, int f, int split, int x_lo,
+                           bool accumulate, cudaStream_t s) {
+  const int g_slots = split > G - split ? split : G - split;
+  CUtensorMap g_a, w2_b, dpre_a, w1_b, xa_mn, x_mn, dpre_b, h_mn, g_b;
+  cudaError_t err = sm90::make_kmajor_map(&g_a, gout, d, M, g_slots);
+  if (err == cudaSuccess) err = sm90::make_kmajor_map(&w2_b, w2, d, f, G);
+  if (err == cudaSuccess) err = sm90::make_kmajor_map(&dpre_a, dpre_ws, f, M, G);
+  if (err == cudaSuccess) err = sm90::make_kmajor_map(&w1_b, w1, f, d, G);
+  if (err == cudaSuccess) err = sm90::make_mnmajor_map(&x_mn, x, M, d, split < G ? G - split : 1);
+  if (err == cudaSuccess && split > 0) err = sm90::make_mnmajor_map(&xa_mn, xa, M, d, split);
+  if (err == cudaSuccess) err = sm90::make_mnmajor_map(&dpre_b, dpre_ws, M, f, G);
+  if (err == cudaSuccess) err = sm90::make_mnmajor_map(&h_mn, h_ws, M, f, G);
+  if (err == cudaSuccess) err = sm90::make_mnmajor_map(&g_b, gout, M, d, g_slots);
+  if (err != cudaSuccess) return err;
+  if (split == 0) xa_mn = x_mn;  // not read: no group is below split
+  if (split > 0) {
+    const size_t vecs = static_cast<size_t>(split) * M * d / 8;
+    const int blocks = static_cast<int>((vecs + 255) / 256 < 8192 ? (vecs + 255) / 256 : 8192);
+    mlp_bwd_addend_bf16<<<blocks, 256, 0, s>>>(x, a, n, xa, split, x_lo, M, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  static bool lifted_dh[sm90::MAX_DEVICES], lifted_dx[sm90::MAX_DEVICES],
+      lifted_dw[2][sm90::MAX_DEVICES];
+  // dh: the cotangent's slots by the group rule, w2 [f, d] K-major.
+  const sm90::Shape s_dh{d, f, G, split, 0, M};
+  err = sm90::launch_tiles(mlp_bwd_dh_sm90, lifted_dh, sm90::tile_count(s_dh), s, g_a, w2_b, s_dh,
+                           DhEpilogue{pre, h_ws, dpre_ws, M});
+  if (err != cudaSuccess) return err;
+  // dx: dpre at slot g for every group (split 0), w1 [d, f] K-major.
+  const sm90::Shape s_dx{f, d, G, 0, 0, M};
+  err = sm90::launch_tiles(mlp_bwd_dx_sm90, lifted_dx, sm90::tile_count(s_dx), s, dpre_a, w1_b,
+                           s_dx, DxEpilogue{dx, dx32, M, split});
+  if (err != cudaSuccess) return err;
+  // dw1 = xa^T . dpre (A: xa for the addend's groups, x for the rest);
+  // dw2 = h^T . g (A: h at slot g; B: the cotangent by the group rule).
+  sm90::Shape s_dw1{M, f, G, split, 0, d};
+  sm90::Shape s_dw2{M, d, G, 0, 0, f};
+  s_dw2.b_split = split;
+  s_dw2.id = 1;
+  const int tiles = sm90::tile_count(s_dw1) + sm90::tile_count(s_dw2);
+  if (accumulate)
+    return sm90::launch_tiles(mlp_bwd_dw_sm90<true>, lifted_dw[1], tiles, s, xa_mn, x_mn, dpre_b,
+                              h_mn, g_b, s_dw1, s_dw2,
+                              DwEpilogue<true>{{dw1, dw2}, {db1, db2}});
+  return sm90::launch_tiles(mlp_bwd_dw_sm90<false>, lifted_dw[0], tiles, s, xa_mn, x_mn, dpre_b,
+                            h_mn, g_b, s_dw1, s_dw2, DwEpilogue<false>{{dw1, dw2}, {db1, db2}});
+}
+
+// ------------------------------------------------ bf16 recompute, f32 (row pass)
+
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// ---------------------------------------------------------------- row pass
-
-// Shared memory of the bf16 row pass; xs only when z is recomputed.
+// Shared memory of the bf16 recompute row pass.
 struct RowBf16Layout {
   int ld, ldacc, ldc, ldcb;
   size_t x_off, acc_off, dh_off, z_off, dp_off, bytes;
-  __host__ __device__ RowBf16Layout(int d, bool recompute)
+  __host__ __device__ explicit RowBf16Layout(int d)
       : ld(d + 8), ldacc(d + 4), ldc(FC + 4), ldcb(FC + 8) {
     x_off = align128(sizeof(bf16) * TMB * ld);  // after the g tile
-    acc_off = x_off + (recompute ? align128(sizeof(bf16) * TMB * ld) : 0);
+    acc_off = x_off + align128(sizeof(bf16) * TMB * ld);
     dh_off = acc_off + align128(sizeof(float) * TMB * ldacc);
     z_off = dh_off + align128(sizeof(float) * TMB * ldc);
     dp_off = z_off + align128(sizeof(float) * TMB * ldc);
@@ -133,13 +422,11 @@ struct RowBf16Layout {
 __global__ void __launch_bounds__(THREADS)
 mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
                   const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                  const bf16* __restrict__ w2, const bf16* __restrict__ pre,
-                  const bf16* __restrict__ gout, bf16* __restrict__ dx,
-                  float* __restrict__ dx32, bf16* __restrict__ h_ws,
+                  const bf16* __restrict__ w2, const bf16* __restrict__ gout,
+                  bf16* __restrict__ dx, float* __restrict__ dx32, bf16* __restrict__ h_ws,
                   bf16* __restrict__ dpre_ws, int M, int d, int f, int split, int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const bool recompute = pre == nullptr;
-  const RowBf16Layout lay(d, recompute);
+  const RowBf16Layout lay(d);
   bf16* gs = reinterpret_cast<bf16*>(smem);
   bf16* xs = reinterpret_cast<bf16*>(smem + lay.x_off);
   float* acc = reinterpret_cast<float*>(smem + lay.acc_off);
@@ -161,13 +448,11 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
   for (int e = tid; e < TMB * d; e += THREADS) {
     const int r = e / d, c = e - r * d;
     gs[r * lay.ld + c] = gout[(grow0 + r) * d + c];
-    if (recompute) {
-      bf16 v = x[(xrow0 + r) * d + c];
-      if (a != nullptr)
-        v = __float2bfloat16(__bfloat162float(v) +
-                             __bfloat162float(a[(size_t)((m0 + r) % n) * d + c]));
-      xs[r * lay.ld + c] = v;
-    }
+    bf16 v = x[(xrow0 + r) * d + c];
+    if (a != nullptr)
+      v = __float2bfloat16(__bfloat162float(v) +
+                           __bfloat162float(a[(size_t)((m0 + r) % n) * d + c]));
+    xs[r * lay.ld + c] = v;
     acc[r * lay.ldacc + c] = 0.0f;
   }
   __syncthreads();
@@ -177,7 +462,7 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
   const bf16* b1g = b1 + (size_t)g * f;
 
   for (int c0 = 0; c0 < f; c0 += FC) {
-    // dh [TM, FC] = g . w2[c0:c0+FC, :]^T (and z = xa . w1[:, c0:c0+FC]):
+    // dh [TM, FC] = g . w2[c0:c0+FC, :]^T and z = xa . w1[:, c0:c0+FC]:
     // one 16x16 tile a warp.
     {
       const int rf = warp / (FC / 16), cf = warp % (FC / 16);
@@ -191,29 +476,25 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
         wmma::mma_sync(t, af, bf, t);
       }
       wmma::store_matrix_sync(dhs + rf * 16 * lay.ldc + cf * 16, t, lay.ldc, wmma::mem_row_major);
-      if (recompute) {
-        wmma::fill_fragment(t, 0.0f);
-        for (int k = 0; k < d; k += 16) {
-          FragB bf;
-          wmma::load_matrix_sync(af, xs + rf * 16 * lay.ld + k, lay.ld);
-          wmma::load_matrix_sync(bf, w1g + (size_t)k * f + c0 + cf * 16, f);
-          wmma::mma_sync(t, af, bf, t);
-        }
-        wmma::store_matrix_sync(zs + rf * 16 * lay.ldc + cf * 16, t, lay.ldc,
-                                wmma::mem_row_major);
+      wmma::fill_fragment(t, 0.0f);
+      for (int k = 0; k < d; k += 16) {
+        FragB bf;
+        wmma::load_matrix_sync(af, xs + rf * 16 * lay.ld + k, lay.ld);
+        wmma::load_matrix_sync(bf, w1g + (size_t)k * f + c0 + cf * 16, f);
+        wmma::mma_sync(t, af, bf, t);
       }
+      wmma::store_matrix_sync(zs + rf * 16 * lay.ldc + cf * 16, t, lay.ldc, wmma::mem_row_major);
     }
     __syncthreads();
-    // GELU value and derivative; h and dpre rounded to bf16.
+    // GELU value and derivative of z = sum + b1 in f32; h and dpre rounded
+    // to bf16.
     for (int e = tid; e < TMB * FC; e += THREADS) {
       const int r = e / FC, j = e - r * FC;
       const size_t idx = (row0 + r) * f + c0 + j;
-      const float z = recompute ? zs[r * lay.ldc + j] + __bfloat162float(b1g[c0 + j])
-                                : __bfloat162float(pre[idx]);
       float val, grad;
-      gelu_tanh_vg(z, val, grad);
+      gelu_tanh_vg(zs[r * lay.ldc + j] + __bfloat162float(b1g[c0 + j]), val, grad);
       const bf16 dp = __float2bfloat16(dhs[r * lay.ldc + j] * grad);
-      if (recompute) h_ws[idx] = __float2bfloat16(val);
+      h_ws[idx] = __float2bfloat16(val);
       dpre_ws[idx] = dp;
       dps[r * lay.ldcb + j] = dp;
     }
@@ -357,15 +638,15 @@ mlp_bwd_rows_f32(const float* __restrict__ x, const float* __restrict__ a, int n
 // blockIdx.z = 0: dw1 [d, f] = xa^T . dpre, db1 = column sums of dpre;
 // blockIdx.z = 1: dw2 [f, d] = h^T . g,     db2 = column sums of g.
 // C[i, j] = sum_m A[m, i] B[m, j] over the group's M rows, one WT x WT tile
-// a block. h is read from the row pass's workspace, or formed from the
-// saved pre as it is staged: GELU(pre) rounded to x's type. With ACC, C
-// and the column sums are f32 totals: the block adds its sums to its tile
-// of them in place.
+// a block. h is read from the row pass's workspace (bf16: recompute only),
+// or in f32 formed from the saved pre as it is staged. With ACC, C and the
+// column sums are f32 totals: the block adds its sums to its tile of them
+// in place.
 
 struct WeightOperands {
   const void* A;       // [S, M, NA]
   const void* addend;  // [n, NA] or NULL, added to A rows on load
-  bool gelu;           // A is the saved pre: stage GELU(A)
+  bool gelu;           // A is the saved pre: stage GELU(A) (f32 only)
   const void* B;       // [S, M, NB]
   void* C;             // [G, NA, NB]
   void* colsum;        // [G, NB]
@@ -390,9 +671,9 @@ __device__ __forceinline__ WeightOperands operands(int z, int g, int split, int 
 
 template <bool ACC>
 __global__ void __launch_bounds__(THREADS)
-mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const bf16* h_ws,
-                     const bf16* dpre_ws, const bf16* gout, void* dw1, void* db1, void* dw2,
-                     void* db2, int M, int d, int f, int split, int x_lo) {
+mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* h_ws, const bf16* dpre_ws,
+                     const bf16* gout, void* dw1, void* db1, void* dw2, void* db2, int M, int d,
+                     int f, int split, int x_lo) {
   constexpr int LDW = WT + 8, LDC = WT + 4;
   __shared__ __align__(128) unsigned char staged[2 * sizeof(bf16) * WK * LDW];
   __shared__ __align__(128) float Cs[WT * LDC];
@@ -400,8 +681,8 @@ mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const
   bf16* Bs = As + WK * LDW;                    // [WK][LDW]
 
   const int g = blockIdx.y;
-  const WeightOperands op = operands(blockIdx.z, g, split, x_lo, x, a, pre, h_ws, dpre_ws, gout,
-                                     dw1, db1, dw2, db2, d, f);
+  const WeightOperands op = operands(blockIdx.z, g, split, x_lo, x, a, nullptr, h_ws, dpre_ws,
+                                     gout, dw1, db1, dw2, db2, d, f);
   const int tiles_b = op.NB / WT;
   if ((int)blockIdx.x >= (op.NA / WT) * tiles_b) return;
   const int i0 = (blockIdx.x / tiles_b) * WT, j0 = (blockIdx.x % tiles_b) * WT;
@@ -425,11 +706,6 @@ mlp_bwd_weights_bf16(const bf16* x, const bf16* a, int n, const bf16* pre, const
       if (addend != nullptr)
         va = __float2bfloat16(__bfloat162float(va) +
                               __bfloat162float(addend[(size_t)((m0 + r) % n) * op.NA + i0 + cc]));
-      if (op.gelu) {
-        float val, grad;
-        gelu_tanh_vg(__bfloat162float(va), val, grad);
-        va = __float2bfloat16(val);
-      }
       As[r * LDW + cc] = va;
       Bs[r * LDW + cc] = Bm[brow * op.NB + j0 + cc];
     }
@@ -555,23 +831,6 @@ da_reduce(const float* __restrict__ dx32, T* __restrict__ da, int G, int M, int 
     da[e] = __float2bfloat16(s);
 }
 
-// Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
-// once per device (`done` flags which devices are set).
-constexpr int MAX_DEVICES = 64;
-
-template <typename Kernel>
-cudaError_t lift_smem_cap(Kernel kernel, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
-  return err;
-}
-
 }  // namespace
 
 extern "C" {
@@ -580,78 +839,91 @@ extern "C" {
 // g < split ? g + x_lo : g - split and gout slot g < split ? g : g - split
 // (a plain launch: S = S' = G, x_lo = 0, split = G with an addend, else 0);
 // dx: [G, M, d]; a: [n, d], taken by the groups below split, or NULL (then
-// split = 0 and da, dx32_ws are NULL too); w1, dw1: [G, d, f]; b1, db1:
-// [G, f]; w2, dw2: [G, f, d]; db2: [G, d]; pre: the forward's saved [G, M,
-// f] pre-activation, or NULL to recompute it; dpre_ws: [G, M, f]
-// workspace; h_ws: [G, M, f] workspace when pre is NULL, else unused;
-// dx32_ws: f32 [split, M, d]; da: [n, d]. All but dx32_ws of one dtype
-// (is_bf16 selects bf16, else f32), contiguous, on the current device.
-// With `accumulate`, dw1, db1, dw2, db2 and da are f32 totals that this
-// call adds to in place. Returns a cudaError_t.
+// split = 0 and da, dx32_ws, xa_ws are NULL too); w1, dw1: [G, d, f]; b1,
+// db1: [G, f]; w2, dw2: [G, f, d]; db2: [G, d]; pre: the forward's saved
+// [G, M, f] pre-activation, or NULL to recompute it; dpre_ws: [G, M, f]
+// workspace; h_ws: [G, M, f] workspace, unused in f32 with a saved pre;
+// dx32_ws: f32 [split, M, d]; xa_ws: [split, M, d] workspace, bf16 with a
+// saved pre and an addend only; da: [n, d]. All but dx32_ws of one dtype
+// (is_bf16 selects bf16, else f32), contiguous, on the current device; in
+// bf16 with a saved pre x, gout, pre, w1, w2 and the workspaces 16-byte
+// aligned (TMA). With `accumulate`, dw1, db1, dw2, db2 and da are f32
+// totals that this call adds to in place. Returns a cudaError_t.
 int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const void* b1,
                     const void* w2, const void* pre, const void* gout, void* dx, void* dw1,
                     void* db1, void* dw2, void* db2, void* da, void* h_ws, void* dpre_ws,
-                    void* dx32_ws, int G, int M, int d, int f, int split, int x_lo,
+                    void* dx32_ws, void* xa_ws, int G, int M, int d, int f, int split, int x_lo,
                     int accumulate, int is_bf16, void* stream) {
   const int tm = is_bf16 ? TMB : TMF;
   const bool add = a != nullptr;
-  if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || f % WT != 0 ||
-      (pre == nullptr && h_ws == nullptr) || split < 0 || split > G || x_lo < 0 ||
+  const bool saved_sm90 = is_bf16 && pre != nullptr;
+  if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || f % WT != 0 || dpre_ws == nullptr ||
+      ((pre == nullptr || is_bf16) && h_ws == nullptr) || split < 0 || split > G || x_lo < 0 ||
       add != (split > 0) ||
-      (add && (n < 1 || M % n != 0 || da == nullptr || dx32_ws == nullptr)))
+      (add && (n < 1 || M % n != 0 || da == nullptr || dx32_ws == nullptr)) ||
+      (saved_sm90 && add && xa_ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool lifted_bf16[MAX_DEVICES], lifted_f32[MAX_DEVICES];
-  const dim3 rows(M / tm, G);
-  const dim3 weights((d / WT) * (f / WT), G, 2);
   cudaError_t err;
-  if (is_bf16) {
-    err = lift_smem_cap(mlp_bwd_rows_bf16, lifted_bf16);
+  if (saved_sm90) {
+    err = bwd_bf16_saved(static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
+                         static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+                         static_cast<const bf16*>(pre), static_cast<const bf16*>(gout),
+                         static_cast<bf16*>(dx), dw1, db1, dw2, db2, static_cast<bf16*>(h_ws),
+                         static_cast<bf16*>(dpre_ws), static_cast<float*>(dx32_ws),
+                         static_cast<bf16*>(xa_ws), G, M, d, f, split, x_lo, accumulate != 0, s);
     if (err != cudaSuccess) return (int)err;
-    mlp_bwd_rows_bf16<<<rows, THREADS, RowBf16Layout(d, pre == nullptr).bytes, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
-        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-        static_cast<const bf16*>(w2), static_cast<const bf16*>(pre),
-        static_cast<const bf16*>(gout), static_cast<bf16*>(dx), static_cast<float*>(dx32_ws),
-        static_cast<bf16*>(h_ws), static_cast<bf16*>(dpre_ws), M, d, f, split, x_lo);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    auto weights_bf16 = accumulate ? mlp_bwd_weights_bf16<true> : mlp_bwd_weights_bf16<false>;
-    weights_bf16<<<weights, THREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
-        static_cast<const bf16*>(pre), static_cast<const bf16*>(h_ws),
-        static_cast<const bf16*>(dpre_ws), static_cast<const bf16*>(gout), dw1, db1, dw2, db2,
-        M, d, f, split, x_lo);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (add && accumulate)
-      da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<float*>(da), split, M, n, d, 1);
-    else if (add)
-      da_reduce<bf16><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<bf16*>(da), split, M, n, d, 0);
   } else {
-    err = lift_smem_cap(mlp_bwd_rows_f32, lifted_f32);
-    if (err != cudaSuccess) return (int)err;
-    const size_t bytes = sizeof(float) * (3 * TMF * d + TMF * FC);
-    mlp_bwd_rows_f32<<<rows, THREADS, bytes, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(a), n,
-        static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<const float*>(pre),
-        static_cast<const float*>(gout), static_cast<float*>(dx),
-        static_cast<float*>(dx32_ws), static_cast<float*>(h_ws),
-        static_cast<float*>(dpre_ws), M, d, f, split, x_lo);
+    static bool lifted_bf16[sm90::MAX_DEVICES], lifted_f32[sm90::MAX_DEVICES];
+    const dim3 rows(M / tm, G);
+    const dim3 weights((d / WT) * (f / WT), G, 2);
+    if (is_bf16) {
+      err = sm90::lift_smem_cap(mlp_bwd_rows_bf16, lifted_bf16);
+      if (err != cudaSuccess) return (int)err;
+      mlp_bwd_rows_bf16<<<rows, THREADS, RowBf16Layout(d).bytes, s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
+          static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+          static_cast<const bf16*>(w2), static_cast<const bf16*>(gout), static_cast<bf16*>(dx),
+          static_cast<float*>(dx32_ws), static_cast<bf16*>(h_ws), static_cast<bf16*>(dpre_ws),
+          M, d, f, split, x_lo);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      auto weights_bf16 = accumulate ? mlp_bwd_weights_bf16<true> : mlp_bwd_weights_bf16<false>;
+      weights_bf16<<<weights, THREADS, 0, s>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
+          static_cast<const bf16*>(h_ws), static_cast<const bf16*>(dpre_ws),
+          static_cast<const bf16*>(gout), dw1, db1, dw2, db2, M, d, f, split, x_lo);
+    } else {
+      err = sm90::lift_smem_cap(mlp_bwd_rows_f32, lifted_f32);
+      if (err != cudaSuccess) return (int)err;
+      const size_t bytes = sizeof(float) * (3 * TMF * d + TMF * FC);
+      mlp_bwd_rows_f32<<<rows, THREADS, bytes, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(a), n,
+          static_cast<const float*>(w1), static_cast<const float*>(b1),
+          static_cast<const float*>(w2), static_cast<const float*>(pre),
+          static_cast<const float*>(gout), static_cast<float*>(dx),
+          static_cast<float*>(dx32_ws), static_cast<float*>(h_ws),
+          static_cast<float*>(dpre_ws), M, d, f, split, x_lo);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      auto weights_f32 = accumulate ? mlp_bwd_weights_f32<true> : mlp_bwd_weights_f32<false>;
+      weights_f32<<<weights, THREADS, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(a), n,
+          static_cast<const float*>(pre), static_cast<const float*>(h_ws),
+          static_cast<const float*>(dpre_ws),
+          static_cast<const float*>(gout), static_cast<float*>(dw1), static_cast<float*>(db1),
+          static_cast<float*>(dw2), static_cast<float*>(db2), M, d, f, split, x_lo);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    auto weights_f32 = accumulate ? mlp_bwd_weights_f32<true> : mlp_bwd_weights_f32<false>;
-    weights_f32<<<weights, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(a), n,
-        static_cast<const float*>(pre), static_cast<const float*>(h_ws),
-        static_cast<const float*>(dpre_ws),
-        static_cast<const float*>(gout), static_cast<float*>(dw1), static_cast<float*>(db1),
-        static_cast<float*>(dw2), static_cast<float*>(db2), M, d, f, split, x_lo);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (add)
-      da_reduce<float><<<(n * d + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-          static_cast<const float*>(dx32_ws), static_cast<float*>(da), split, M, n, d,
-          accumulate);
+  }
+  if (add) {
+    // da: an f32 total (accumulate mode, or f32), or bf16.
+    const int blocks = (n * d + THREADS - 1) / THREADS;
+    if (accumulate || !is_bf16)
+      da_reduce<float><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(dx32_ws),
+                                                  static_cast<float*>(da), split, M, n, d,
+                                                  accumulate);
+    else
+      da_reduce<bf16><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(dx32_ws),
+                                                 static_cast<bf16*>(da), split, M, n, d, 0);
   }
   return (int)cudaGetLastError();
 }

@@ -23,12 +23,17 @@ recompute): a pre bit for bit equal to the one the forward saves.
 `csrc/grouped_mlp_bwd.cu` replaces the backward kernels `_mlp_bwd_kernel`,
 `_mlp_bwd_kernel_saved` and `_mlp_bwd_kernel_saved_add`: dx, the four
 weight and bias grads (f32 sums, cast to the parameter dtype) and, with an
-addend, da. `grouped_ffw_lm_vjp` is the differentiable entry, the twin of
-`_fused_lm`/`_fused_lm_add`: it saves the pre-activation where `_fwd` does
-(bf16 under a 512 MB cap) and recomputes it otherwise. With `acc` (f32
-weight-gradient totals) the backward adds its gradients into them in place
-(glom_tpu's `fused_loop._ffw_bwd_acc_kernel`/`_ffw_bwd_acc_add_kernel`),
-and with an addend its da into `da_in`.
+addend, da. In bf16 from the saved pre it is three passes of the same GEMM
+mainloop (dh with the GELU derivative, dx, and dw1 and dw2 in one grid,
+reading w1, w2 K-major and xa, h MN-major); the bf16 recompute and f32
+paths run a row pass and a weight pass. The scratch each call hands
+between its launches comes from `bwd_workspaces`. `grouped_ffw_lm_vjp` is
+the differentiable entry, the twin of `_fused_lm`/`_fused_lm_add`: it
+saves the pre-activation where `_fwd` does (bf16 under a 512 MB cap) and
+recomputes it otherwise. With `acc` (f32 weight-gradient totals) the
+backward adds its gradients into them in place (glom_tpu's
+`fused_loop._ffw_bwd_acc_kernel`/`_ffw_bwd_acc_add_kernel`), and with an
+addend its da into `da_in`.
 
 With `cat=True` the three launches run over the whole-loop VJP's combined
 td || bu grid (glom_tpu's `fused_loop._ffw_fwd_cat`, `_pre_fwd_cat`,
@@ -94,7 +99,7 @@ _SIGNATURES = {
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 14, *[_I] * 8, _P], _I),
+    "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 15, *[_I] * 8, _P], _I),
     "grouped_mlp_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 # The combined grid's top-down groups read carry slots 2..L (glom_tpu's
@@ -443,6 +448,26 @@ def grouped_mlp_pre(
     return pre
 
 
+def bwd_workspaces(x: torch.Tensor, G: int, f: int, split: int, saved_pre: bool) -> dict:
+    """The scratch a backward call hands between its launches, allocated on
+    x's device and held by the caller until every launch is enqueued:
+    `dpre_ws` [G, M, f] (x's dtype) always; `h_ws` [G, M, f] unless f32
+    forms h from the saved pre in its weight pass; with an addend (split >
+    0) the f32 `dx32_ws` [split, M, d] that da sums and, in bf16 from the
+    saved pre, `xa` [split, M, d], the addend's groups' x + tile(add) (TMA
+    cannot add)."""
+    M, d = x.shape[1:]
+    bf16 = x.dtype == torch.bfloat16
+    ws = {"dpre_ws": x.new_empty((G, M, f))}
+    if bf16 or not saved_pre:
+        ws["h_ws"] = x.new_empty((G, M, f))
+    if split:
+        ws["dx32_ws"] = x.new_empty((split, M, d), dtype=torch.float32)
+        if bf16 and saved_pre:
+            ws["xa"] = x.new_empty((split, M, d))
+    return ws
+
+
 def _check_accumulators(params, x, add, acc, da_in) -> None:
     """Raise ValueError for accumulators the kernel's accumulate mode does
     not take: f32, contiguous, shaped like the params (da_in like the
@@ -457,6 +482,32 @@ def _check_accumulators(params, x, add, acc, da_in) -> None:
             raise ValueError(f"{name} must be float32 {tuple(like.shape)} on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_bwd_args(params, x, g, *, add=None, pre=None, acc=None, da_in=None, cat=False):
+    """Raise ValueError for anything the backward kernels do not take:
+    `check_kernel_args`, the cotangent's and the saved pre's shapes,
+    dtypes, devices and contiguity, in bf16 a 16-byte aligned start for
+    both (the saved-pre path reads them by TMA; views of the loop's carry
+    slots and dmean prefixes start whole slots in), and the accumulators."""
+    check_kernel_args(params, x, add, cat)
+    M, d = x.shape[1:]
+    G, f = params.w1.shape[0], params.w1.shape[-1]
+    split, _ = _group_rule(params, add, cat)
+    g_groups = split + 1 if cat else G  # dmean's L levels, or one a group
+    for name, t, shape in (("g", g, (g_groups, M, d)), ("pre", pre, (G, M, f))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} must be {shape} {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary in bf16")
+    if acc is not None:
+        _check_accumulators(params, x, add, acc, da_in)
+    elif da_in is not None:
+        raise ValueError("da_in needs acc (accumulate mode)")
 
 
 def grouped_mlp_bwd(
@@ -487,39 +538,23 @@ def grouped_mlp_bwd(
         return grouped_mlp_bwd_plain(params, x, g, add, pre, acc, da_in, cat=cat)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    check_kernel_args(params, x, add, cat)
+    check_bwd_args(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in, cat=cat)
     M, d = x.shape[1:]
     G, f = params.w1.shape[0], params.w1.shape[-1]
     split, x_lo = _group_rule(params, add, cat)
-    g_groups = split + 1 if cat else G  # dmean's L levels, or one a group
-    for name, t, shape in (("g", g, (g_groups, M, d)), ("pre", pre, (G, M, f))):
-        if t is None:
-            continue
-        if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
-            raise ValueError(f"{name} must be {shape} {x.dtype} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if acc is not None:
-        _check_accumulators(params, x, add, acc, da_in)
-    elif da_in is not None:
-        raise ValueError("da_in needs acc (accumulate mode)")
     lib = _bwd_lib()
     w1, b1, w2, b2 = params
     dx = x.new_empty((G, M, d))
     grads = acc if acc is not None else GroupedFFWParams(*(torch.empty_like(t) for t in params))
-    # h is formed from a saved pre in the weight pass; without one, the row
-    # pass writes it here.
-    h_ws = x.new_empty((G, M, f)) if pre is None else None
-    dpre_ws = x.new_empty((G, M, f))
-    da = dx32 = None
+    ws = bwd_workspaces(x, G, f, split, pre is not None)  # held until the launches are enqueued
+    da = None
     if add is not None:
         da = da_in if acc is not None else torch.empty_like(add)
-        dx32 = x.new_empty((split, M, d), dtype=torch.float32)  # the addend's groups
     err = lib.grouped_mlp_bwd(
         x.data_ptr(), _ptr(add), add.shape[0] if add is not None else 0,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), _ptr(pre), g.data_ptr(),
         dx.data_ptr(), *(t.data_ptr() for t in grads), _ptr(da),
-        _ptr(h_ws), dpre_ws.data_ptr(), _ptr(dx32),
+        *(_ptr(ws.get(k)) for k in ("h_ws", "dpre_ws", "dx32_ws", "xa")),
         G, M, d, f, split, x_lo, int(acc is not None), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -2,7 +2,7 @@
 """Build, check and time one of the port's bf16 kernels on one NVIDIA GPU,
 quickly.
 
-    python3 kernel_probe.py k1|k2|k2bwd|k4 [ROOT ...]
+    python3 kernel_probe.py k1|k1bwd|k2|k2bwd|k4 [ROOT ...]
 
 Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
 package with one change can be held against this one in one run on the
@@ -17,6 +17,20 @@ kernel's source (printing ptxas' registers and spills), then:
     [5, 2048, 512] with the addend), of the forward at bucket 1 and of the
     combined 11-group grid; the host's time a call at bucket 1; device time
     by kernel of the bucket-8 forward and the combined grid;
+  * k1bwd (`csrc/grouped_mlp_bwd.cu`, with the forward for the saved
+    pre): a structured check of the bf16 saved-pre backward's operand
+    orders at G = 1, M = d = 128, f = 256 (x and g identity rows, w2[n, k]
+    = (k % 16) * 16 + n % 16, w1 = identity columns, pre = 16 + (r % 16) *
+    8 + c % 8, where GELU is the identity and GELU' 1 in f32), so dx = dw1
+    = dpre = g . w2^T (w2 read K-major by the dh pass, w1 K-major by the
+    dx pass, x MN-major by dw1) and dw2 = pre^T (h read MN-major): every
+    output is a pattern of small integers, exact in bf16 and f32, and a
+    wrong descriptor shows which element landed where; then device times
+    of the five bucket-8 rows (the per-op backward bottom-up [6, 2048,
+    512] and top-down [5, 2048, 512] with the addend, both in accumulate
+    mode, and the 11-group combined grid) beside autograd through
+    baddbmm, tanh GELU and baddbmm, each by kernel, with the host's time a
+    call;
   * k2 (`csrc/consensus_update.cu`): the largest distance of out and cons
     from the plain version over the bf16 cases of the `-m gpu` tests
     (K2_CASES, K2_WIDTHS) and seeds 0-7, in units of K2_BARS and as the
@@ -65,7 +79,8 @@ import subprocess
 import sys
 import time
 
-SOURCES = {"k1": ["grouped_mlp"], "k2": ["consensus_update"],
+SOURCES = {"k1": ["grouped_mlp"], "k1bwd": ["grouped_mlp", "grouped_mlp_bwd"],
+           "k2": ["consensus_update"],
            "k2bwd": ["consensus_update", "consensus_update_bwd"], "k4": ["banded_consensus"]}
 
 
@@ -94,7 +109,7 @@ def probe(kernel: str, root: str) -> int:
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
 
     tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
-    return {"k1": probe_k1, "k2": probe_k2, "k2bwd": probe_k2bwd,
+    return {"k1": probe_k1, "k1bwd": probe_k1bwd, "k2": probe_k2, "k2bwd": probe_k2bwd,
             "k4": probe_k4}[kernel](torch, **tools)
 
 
@@ -147,6 +162,102 @@ def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
         timing="cat_grid", shape=list(carry.shape), fwd_save_pre_ms=time_ms(cat_fwd),
         pre_ms=time_ms(lambda: k1.grouped_mlp_pre(wcat, carry, add=add, cat=True)),
         device_us=device_us(cat_fwd))), flush=True)
+    return 0
+
+
+def probe_k1bwd(torch, rn, time_ms, host_us, device_us) -> int:
+    import glom_tpu_torch.kernels.grouped_mlp as k1
+    from glom_tpu_torch.ops.ffw import GroupedFFWParams
+
+    dev, bf16, f32 = torch.device("cuda", 0), torch.bfloat16, torch.float32
+    G, M, d, f = 1, 128, 128, 256
+    r = torch.arange(M)[:, None]
+    eye = torch.eye(M, d)[None]
+    w2 = ((torch.arange(d)[None, :] % 16) * 16 + torch.arange(f)[:, None] % 16).float()[None]
+    w1 = torch.eye(d, f)[None]
+    pre = (16 + (r % 16) * 8 + torch.arange(f)[None, :] % 8).float()[None]
+    params = GroupedFFWParams(w1.to(dev, bf16), torch.zeros(G, f, device=dev, dtype=bf16),
+                              w2.to(dev, bf16), torch.zeros(G, d, device=dev, dtype=bf16))
+    x, g, pre = eye.to(dev, bf16), eye.to(dev, bf16), pre.to(dev, bf16)
+    fail = 0
+    for mode in ("grads", "accumulate"):
+        acc = None
+        if mode == "accumulate":
+            acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in params))
+        got = k1.grouped_mlp_bwd(params, x, g, pre=pre, acc=acc)
+        want = k1.grouped_mlp_bwd_plain(
+            params, x, g, None, pre,
+            None if acc is None else GroupedFFWParams(*(torch.zeros_like(t) for t in acc)))
+        for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), (got[0], *got[1]),
+                              (want[0], *want[1])):
+            bad = a.float() != b.float()
+            print(json.dumps(dict(check="identity_bwd", mode=mode, output=name,
+                                  mismatches=int(bad.sum()), of=bad.numel())), flush=True)
+            if bad.any():
+                fail = 1
+                a2, b2 = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+                for row in sorted({0, 1, 2, 8, 15, 16, 63, 64, 65, a2.shape[0] - 1}):
+                    if row < a2.shape[0]:
+                        print(name, row, "got", [int(v) for v in a2[row, :18].cpu()],
+                              "want", [int(v) for v in b2[row, :18].cpu()])
+    if fail:
+        return 1
+
+    def ffw(G):
+        return GroupedFFWParams(rn(G, d, f, scale=d ** -0.5), rn(G, f, scale=0.1),
+                                rn(G, f, d, scale=f ** -0.5), rn(G, d, scale=0.1))
+
+    def seq_bwd_ms(p, x_in, g):
+        leaves = [t.detach().clone().requires_grad_() for t in (x_in, *p)]
+        h = torch.nn.functional.gelu(torch.baddbmm(leaves[2][:, None], leaves[0], leaves[1]),
+                                     approximate="tanh")
+        out = torch.baddbmm(leaves[4][:, None], h, leaves[3])
+        return time_ms(lambda: torch.autograd.grad(out, leaves, grad_outputs=g,
+                                                   retain_graph=True))
+
+    def kernel_key(name):
+        for part in ("mlp_bwd_dh_sm90", "mlp_bwd_dx_sm90", "mlp_bwd_dw_sm90",
+                     "mlp_bwd_addend_bf16", "da_reduce", "mlp_bwd_rows_bf16",
+                     "mlp_bwd_weights_bf16"):
+            if part in name:
+                return part
+        return "other"
+
+    L, n, d, f = 6, 256, 512, 2048
+    M8 = 8 * n
+    p6, p5 = ffw(L), ffw(L - 1)
+    add = rn(n, d)
+    rows = []
+    for label, p, G, a, accumulate in (("k1_bwd_b8", p6, L, None, False),
+                                       ("k1_bwd_add_b8", p5, L - 1, add, False),
+                                       ("k1_bwd_acc_b8", p6, L, None, True),
+                                       ("k1_bwd_acc_add_b8", p5, L - 1, add, True)):
+        x8, g8 = rn(G, M8, d), rn(G, M8, d)
+        pre8 = k1.fused_grouped_ffw_lm(p, x8, add=a, save_pre=True)[1]
+        acc = da_in = None
+        if accumulate:
+            acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in p))
+            da_in = torch.zeros(n, d, device=dev) if a is not None else None
+        x_in = x8 if a is None else (x8.view(G, -1, n, d) + a).view(G, M8, d)
+        rows.append((label, [G, M8, d], lambda p=p, x8=x8, g8=g8, a=a, pre8=pre8, acc=acc,
+                     da_in=da_in: k1.grouped_mlp_bwd(p, x8, g8, add=a, pre=pre8, acc=acc,
+                                                     da_in=da_in),
+                     seq_bwd_ms(p, x_in, g8)))
+    wcat, carry, dmean = k1.cat_params(p5, p6), rn(L + 1, M8, d), rn(L, M8, d)
+    pre_cat = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)[1]
+    acc_cat = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+    da_cat = torch.zeros(n, d, device=dev)
+    x_cat = torch.cat([(carry[2:].view(L - 1, -1, n, d) + add).view(L - 1, M8, d), carry[:L]])
+    rows.append(("k1_bwd_acc_cat_b8", [2 * L - 1, M8, d],
+                 lambda: k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre_cat,
+                                            acc=acc_cat, da_in=da_cat, cat=True),
+                 seq_bwd_ms(wcat, x_cat, torch.cat([dmean[:L - 1], dmean]))))
+    for label, shape, run, seq_ms in rows:
+        ms = time_ms(run)
+        print(json.dumps(dict(timing=label, shape=shape, ms=ms, seq_bwd_ms=seq_ms,
+                              tflops=8 * shape[0] * shape[1] * d * f / ms / 1e9,
+                              device_us=device_us(run, key=kernel_key),
+                              host_us=host_us(run))), flush=True)
     return 0
 
 

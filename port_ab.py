@@ -18,7 +18,10 @@ drift of the card between runs. Per tree it prints one JSON line:
     there (`k1_host_us_b1`: calls enqueued back to back, the median of
     nine batches of 20);
   * the K1 backward from the saved pre at the same shapes, where the tree
-    has it;
+    has it, with one bottom-up call's own peak memory
+    (`k1_bwd_call_b8_peak_mib`: its outputs and scratch), and the loop's
+    combined 11-group grid in accumulate mode (`k1_bwd_acc_cat_ms`, and
+    its call's own peak `k1_bwd_acc_cat_call_peak_mib`);
   * the K2 forward at [6, 8, 256, 512] and at bucket 1 ([6, 1, 256, 512]),
     with the host's time a call at both (`k2_host_us_b1`, `k2_host_us_b8`)
     and what one bucket-8 call adds to the allocated memory at its peak
@@ -125,8 +128,36 @@ def child(tree: str, dispatches: int) -> dict:
             g = randn(G, M, d)
             out[f"k1_bwd_{which}_ms"] = time_ms(
                 lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+            if which == "bottom_up":
+                pre_bu = pre
         if which == "bottom_up":
-            bu_params = params
+            bu_params, bu_x, bu_g = params, x, (g if has_bwd else None)
+        else:
+            td_params, pos = params, add
+    if has_bwd:
+        torch.cuda.synchronize()  # one bottom-up backward call's own peak: outputs, scratch
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        k1.grouped_mlp_bwd(bu_params, bu_x, bu_g, pre=pre_bu)
+        torch.cuda.synchronize()
+        out["k1_bwd_call_b8_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        # The loop's combined grid (11 groups) in accumulate mode.
+        wcat = k1.cat_params(td_params, bu_params)
+        carry, dmean = randn(L + 1, M, d), randn(L, M, d)
+        pre_cat = k1.fused_grouped_ffw_lm(wcat, carry, add=pos, save_pre=True, cat=True)[1]
+        acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+        da_in = torch.zeros(n, d, device=dev)
+
+        def bwd_cat():
+            return k1.grouped_mlp_bwd(wcat, carry, dmean, add=pos, pre=pre_cat, acc=acc,
+                                      da_in=da_in, cat=True)
+        out["k1_bwd_acc_cat_ms"] = time_ms(bwd_cat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        bwd_cat()
+        torch.cuda.synchronize()
+        out["k1_bwd_acc_cat_call_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
     x1 = randn(L, n, d)
     out["k1_fwd_bottom_up_b1_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
     out["k1_host_us_b1"] = host_us(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))

@@ -567,6 +567,143 @@ def test_cat_grid_kernels_equal_split(dev, dtype):
     assert torch.equal(da, da_split)
 
 
+# -- K1's bf16 backward from the saved pre (the sm90 dh, dx and weight passes)
+
+
+def _k1_bwd_kernels(run):
+    """The names of the kernels one call of `run` launched (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {evt.name for evt in prof.events() if evt.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("M,d,f", [(96, 128, 192), (160, 64, 320)])
+def test_grouped_mlp_bwd_sm90_partial_k_steps(dev, with_add, accumulate, M, d, f):
+    """M not a multiple of the weight pass's 64-row K step (and of the dh
+    and dx passes' 128-row tiles), d and f not multiples of 128: the
+    rounded-up K steps read TMA's zero fill, and the column sums with them."""
+    rng = np.random.default_rng(17)
+    G, n = 3, 32
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x, g = (_rand(rng, G, M, d).to(dev, torch.bfloat16) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, torch.bfloat16) if with_add else None
+    pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+    acc = da_in = want_acc = want_da = None
+    if accumulate:
+        acc = GroupedFFWParams(*(_rand(rng, *t.shape, scale=4.0).to(dev) for t in params))
+        da_in = _rand(rng, n, d, scale=32.0).to(dev) if with_add else None
+        want_acc = GroupedFFWParams(*(t.clone() for t in acc))
+        want_da = None if da_in is None else da_in.clone()
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre, want_acc, want_da)
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+    for name, got, exp in zip(("dx", "dw1", "db1", "dw2", "db2"), (dx, *grads), (want[0], *want[1])):
+        _rel_close(got, exp, K1_BWD_BARS[torch.bfloat16], name)
+    if with_add:
+        _rel_close(da, want[2], K1_BWD_BARS[torch.bfloat16], "da")
+
+
+def test_grouped_mlp_bwd_sm90_cat_equals_split(dev):
+    """The 11-group combined launch in accumulate mode, at the flagship's
+    level count, against its split pair on the same carry and dmean, bit
+    for bit."""
+    rng = np.random.default_rng(19)
+    L, M, d, f, n = 6, 256, 128, 512, 64
+    dtype = torch.bfloat16
+    bu, td = _ffw_params(rng, L, d, f, dev, dtype), _ffw_params(rng, L - 1, d, f, dev, dtype)
+    wcat = k1.cat_params(td, bu)
+    carry = _rand(rng, L + 1, M, d).to(dev, dtype)
+    add = _rand(rng, n, d).to(dev, dtype)
+    pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)[1]
+    dmean = _rand(rng, L, M, d).to(dev, dtype)
+    acc = GroupedFFWParams(*(_rand(rng, *t.shape).to(dev) for t in wcat))
+    da_in = _rand(rng, n, d).to(dev)
+    acc_td = GroupedFFWParams(*(t[: L - 1].clone() for t in acc))
+    acc_bu = GroupedFFWParams(*(t[L - 1:].clone() for t in acc))
+    da_split = da_in.clone()
+    dx, grads, da = k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre, acc=acc,
+                                       da_in=da_in, cat=True)
+    dx_td, _, _ = k1.grouped_mlp_bwd(td, carry[2:], dmean[: L - 1], add=add, pre=pre[: L - 1],
+                                     acc=acc_td, da_in=da_split)
+    dx_bu, _, _ = k1.grouped_mlp_bwd(bu, carry[:L], dmean, pre=pre[L - 1:], acc=acc_bu)
+    assert torch.equal(dx, torch.cat([dx_td, dx_bu]))
+    assert all(torch.equal(a, torch.cat([t, b])) for a, t, b in zip(grads, acc_td, acc_bu))
+    assert torch.equal(da, da_split)
+
+
+@pytest.mark.parametrize("saved_pre", [True, False])
+def test_grouped_mlp_bwd_bf16_path_by_pre(dev, saved_pre):
+    """The bf16 C entry picks its path from pre alone: from the saved pre
+    the sm90 dh, dx and weight passes, without it (the recompute past
+    SAVE_PRE_LIMIT) the WMMA row and weight passes, which are still right."""
+    rng = np.random.default_rng(23)
+    G, M, d, f, n = 3, 256, 128, 512, 64
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x, g = (_rand(rng, G, M, d).to(dev, torch.bfloat16) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, torch.bfloat16)
+    pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1] if saved_pre else None
+    names = _k1_bwd_kernels(lambda: k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre))
+    sm90 = {"mlp_bwd_dh_sm90", "mlp_bwd_dx_sm90", "mlp_bwd_dw_sm90", "mlp_bwd_addend_bf16"}
+    wmma = {"mlp_bwd_rows_bf16", "mlp_bwd_weights_bf16"}
+    ran = {k for k in sm90 | wmma if any(k in name for name in names)}
+    assert ran == (sm90 if saved_pre else wmma), names
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+    for name, got, exp in zip(("dx", "dw1", "db1", "dw2", "db2", "da"), (dx, *grads, da),
+                              (want[0], *want[1], want[2])):
+        _rel_close(got, exp, K1_BWD_BARS[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_grouped_mlp_bwd_sm90_repeats_bit_for_bit(dev, accumulate):
+    """Two calls on the same inputs give the same bits: one consumer owns
+    each tile and its column sums, and no sum is taken with atomics."""
+    rng = np.random.default_rng(29)
+    G, M, d, f, n = 3, 512, 128, 512, 64
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x, g = (_rand(rng, G, M, d).to(dev, torch.bfloat16) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, torch.bfloat16)
+    pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+    acc0 = GroupedFFWParams(*(_rand(rng, *t.shape).to(dev) for t in params))
+    da0 = _rand(rng, n, d).to(dev)
+
+    def run():
+        if not accumulate:
+            return k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+        acc, da_in = GroupedFFWParams(*(t.clone() for t in acc0)), da0.clone()
+        return k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+
+    first, second = run(), run()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("M,d,f", [(96, 128, 192), (2048, 512, 2048)])
+def test_forward_instance_unchanged_by_the_backward(dev, with_add, M, d, f):
+    """The mainloop's forward instance (A K-major, B MN-major) beside the
+    backward's: the pre-only launch still equals the saved pre bit for bit,
+    before and after a backward call built from the same header."""
+    rng = np.random.default_rng(31)
+    G, n = 3, 32
+    params = _ffw_params(rng, G, d, f, dev, torch.bfloat16)
+    x, g = (_rand(rng, G, M, d).to(dev, torch.bfloat16) for _ in range(2))
+    add = _rand(rng, n, d).to(dev, torch.bfloat16) if with_add else None
+    out, pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)
+    assert torch.equal(k1.grouped_mlp_pre(params, x, add=add), pre)
+    k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+    assert torch.equal(k1.grouped_mlp_pre(params, x, add=add), pre)
+    assert torch.equal(k1.fused_grouped_ffw_lm(params, x, add=add), out)
+    _close(pre, k1.grouped_mlp_pre_plain(params, x, add), K1_BARS[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("radius", [0.0, 3.0])
 def test_consensus_cons_output(dev, dtype, radius):
