@@ -63,6 +63,16 @@ after:
   * early-exit serving on the bucket route (iters="auto": K1 and the plain
     consensus), timed at threshold 0 against the fixed loop of the same
     step to show the per-iteration host read of the exit flag.
+  * the training CLI (`python -m glom_tpu_torch.train.cli`, in process)
+    at the imagenet224-dp8 preset, batch 64, on the loop: 4 steps on .npy
+    shards with a checkpoint every 2, then --resume to 6, with the exact
+    launches of each run, finite records, verified manifests, the step
+    p50 and MFU from the records, the checkpoints' save times and sizes
+    and the peak device memory; a restored step at batch 8 bit for bit
+    the uninterrupted one; fit_supervised with a fault at step 3 bit for
+    bit the clean run, with its recovery events; temporal rollouts (3
+    frames, batch 2) fused against plain in f32, the bf16 ms a frame; and
+    the peak device memory of one loop step at batch 128.
 
 It prints one JSON line per phase. The last line is
 
@@ -127,6 +137,15 @@ LONGROW_AB_ROUNDS = 3
 # Trainer.fit runs the full step (with the grad norm) every TRAIN_LOG_EVERY
 # steps and step_fast on the others: both variants run and are counted.
 TRAIN_LOG_EVERY = 3
+# The training CLI's phase: the flagship preset's batch, and the images
+# written to .npy shards for it (two shards of one batch each).
+CLI_BATCH = 64
+CLI_IMAGES = 128
+# The restart supervisor's run, and the temporal rollout's frames and timed
+# bf16 rounds.
+SUPERVISED_STEPS = 6
+TEMPORAL_FRAMES = 3
+TEMPORAL_ROUNDS = 5
 
 
 def emit(phase: str, **kw) -> None:
@@ -1940,6 +1959,260 @@ def main() -> int:
          order="alternating", timed="loop forward + backward", p50_ms=long_p50,
          min_ms={r: min(v) for r, v in long_ms.items()}, launches_per_round=route_counts,
          loop_over_scan=long_p50["fused_loop"] / long_p50["scan_blockwise"])
+
+    # -- train: the training CLI at the flagship preset, batch 64 -----------------
+    # python -m glom_tpu_torch.train.cli --preset imagenet224-dp8, in process:
+    # 4 steps with a checkpoint every 2, then --resume to 6, on .npy shards of
+    # 224-px shapes images. --log-every 1, so every step writes a record and
+    # a host_step_dispatch span of its own (the step ends in a synchronize).
+    import contextlib
+    import gc
+    import io
+    import os
+    import tempfile
+
+    from glom_tpu_torch.data import write_shapes_dataset
+    from glom_tpu_torch.kernels.fused_loop import residual_bytes
+    from glom_tpu_torch.resilience import FaultPlan, InjectedFault
+    from glom_tpu_torch.train import TrainSupervisor, fit_supervised, temporal_rollout
+    from glom_tpu_torch.train import cli as train_cli
+    from glom_tpu_torch.utils.checkpoint import CheckpointManager, verify_manifest
+    from glom_tpu_torch.utils.metrics import detect_chip, mfu
+    from glom_tpu_torch.utils.presets import get_preset
+
+    class Records:
+        """A metrics writer that keeps what it is given."""
+
+        def __init__(self):
+            self.records = []
+
+        def write(self, rec):
+            self.records.append(rec)
+
+    preset = get_preset("imagenet224-dp8")
+    if preset.model != cfg or preset.train.batch_size != CLI_BATCH:
+        raise AssertionError(f"the flagship preset changed: {preset.model}, {preset.train}")
+    work = tempfile.TemporaryDirectory(prefix="glom_chip_smoke_")
+    data_dir, ck_dir = os.path.join(work.name, "shards"), os.path.join(work.name, "ckpt")
+    metrics_path = os.path.join(work.name, "train.jsonl")
+    write_shapes_dataset(data_dir, CLI_IMAGES, cfg.image_size, seed=SEED, fmt="npy",
+                         shard_size=CLI_BATCH)
+    cli_argv = ["--preset", "imagenet224-dp8", "--data-dir", data_dir, "--checkpoint-every",
+                "2", "--checkpoint-dir", ck_dir, "--metrics-file", metrics_path,
+                "--log-every", "1"]
+
+    def run_cli(extra):
+        """main(argv) with its echoed records and notes kept off this log;
+        (exit code, stderr, launches by counter)."""
+        out, err = io.StringIO(), io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train_cli.main(cli_argv + extra)
+        torch.cuda.synchronize()
+        return rc, err.getvalue(), counts()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    cli_base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    rc1, _, cli_launches1 = run_cli(["--steps", "4"])
+    with open(metrics_path) as fh:
+        n_first = sum(1 for _ in fh)
+    rc2, err2, cli_launches2 = run_cli(["--steps", "6", "--resume"])
+    cli_peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    with open(metrics_path) as fh:
+        cli_records = [json.loads(ln) for ln in fh]
+    step_recs = [r for r in cli_records if r["kind"] == "train_step"]
+    # Each run's first step builds its step function's state (allocator
+    # warm-up); the rest are steady-state samples.
+    dispatch = [[r["dur_s"] for r in recs if r.get("name") == "host_step_dispatch"]
+                for recs in (cli_records[:n_first], cli_records[n_first:])]
+    step_ms = [1e3 * x for run in dispatch for x in run[1:]]
+    ck_spans = {name: [r for r in cli_records if r.get("name") == name]
+                for name in ("host_checkpoint_save", "host_checkpoint_write",
+                             "host_checkpoint_wait")}
+    mgr = CheckpointManager(ck_dir)
+    manifest_errors = {}
+    for s in mgr.all_steps():
+        with open(os.path.join(ck_dir, f"manifest_{s}.json")) as fh:
+            manifest_errors[s] = verify_manifest(os.path.join(ck_dir, str(s)), json.load(fh))
+    want_cli = [{key: steps * v for key, v in want_loop.items()} for steps in (4, 2)]
+    cli_p50 = statistics.median(step_ms)
+    cli_cips = CLI_BATCH * k / (cli_p50 / 1e3)
+    chip = detect_chip(dev)
+    emit("train_cli", preset="imagenet224-dp8", batch=CLI_BATCH, steps=[4, 6],
+         exit_codes=[rc1, rc2], resumed="resumed from step 4" in err2,
+         records=len(step_recs), losses=[r["loss"] for r in step_recs],
+         vjp_paths=sorted({r["vjp_path"] for r in step_recs}),
+         grad_accum=sorted({r["grad_accum"] for r in step_recs}),
+         step_ms=step_ms, step_p50_ms=cli_p50, column_iters_per_s=cli_cips,
+         chip=chip, mfu=mfu(cfg, cli_cips, chip=chip, backward=True),
+         checkpoint_save_ms=[1e3 * r["dur_s"] for r in ck_spans["host_checkpoint_save"]],
+         checkpoint_write_ms=[1e3 * r["dur_s"] for r in ck_spans["host_checkpoint_write"]],
+         checkpoint_wait_ms=[1e3 * r["dur_s"] for r in ck_spans["host_checkpoint_wait"]],
+         checkpoint_mib=[r["bytes"] / 2 ** 20 for r in ck_spans["host_checkpoint_write"]],
+         checkpoint_steps=mgr.all_steps(), manifests_verified=manifest_errors,
+         peak_mib=cli_peak_mib, base_mib=cli_base_mib,
+         launches_per_run=[cli_launches1, cli_launches2])
+    if (rc1, rc2) != (0, 0) or "resumed from step 4" not in err2:
+        raise AssertionError(f"train_cli: exit codes {rc1}, {rc2}; stderr {err2[-300:]}")
+    if len(step_recs) != 6 or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            and r["vjp_path"] == "fused_loop" for r in step_recs):
+        raise AssertionError(f"train_cli: records {step_recs}")
+    if mgr.all_steps() != [2, 4, 6] or mgr.valid_steps() != [2, 4, 6] or any(
+            manifest_errors.values()):
+        raise AssertionError(f"train_cli: checkpoints {manifest_errors}")
+    if [cli_launches1, cli_launches2] != want_cli:
+        raise AssertionError(f"train_cli: launches {cli_launches1}, {cli_launches2} "
+                             f"!= {want_cli}")
+
+    # -- train: a restored step equals the uninterrupted one, bit for bit ---------
+    # Three steps, an asynchronous save (its host copy is taken before save()
+    # returns, while the next step updates the parameters in place), one more
+    # step; then a fresh Trainer restored from the save takes the same step.
+    tcfg8 = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
+    data8 = shapes_dataset(8, cfg.image_size, seed=SEED + 11)
+    batches8 = [next(data8) for _ in range(4)]
+
+    def state_tensors(trainer):
+        opt = trainer.state.optimizer.state_dict()["state"]
+        return ([t.detach() for t in param_leaves(trainer.state.params)],
+                [v for st in opt.values() for v in st.values()])
+
+    tr_a = Trainer(cfg, tcfg8, params=dparams, device="cuda")
+    for b in batches8[:3]:
+        tr_a.step(b)
+    resume_mgr = CheckpointManager(os.path.join(work.name, "resume_exact"))
+    resume_mgr.save(3, tr_a.state, generator=tr_a.generator)
+    loss_a = tr_a.step(batches8[3])["loss"]
+    resume_mgr.wait()
+    tr_b = Trainer(cfg, tcfg8, params=dparams, device="cuda")
+    step_b, tr_b.state = resume_mgr.restore(state=tr_b.state, generator=tr_b.generator)
+    loss_b = tr_b.step(batches8[3])["loss"]
+    (pa, oa), (pb, ob) = state_tensors(tr_a), state_tensors(tr_b)
+    unequal = [nm for nm, a, b in zip(PARAM_KEYS + HEAD_KEYS, pa, pb) if not torch.equal(a, b)]
+    opt_equal = len(oa) == len(ob) and all(a.device == b.device and torch.equal(a, b)
+                                           for a, b in zip(oa, ob))
+    emit("train_resume_exact", batch=8, restored_step=step_b, vjp_path=tr_b.vjp_path,
+         loss=float(loss_a), loss_bitwise_equal=bool(torch.equal(loss_a, loss_b)),
+         params_bitwise_equal=not unequal, unequal_leaves=unequal,
+         optimizer_bitwise_equal=opt_equal)
+    if step_b != 3 or not torch.equal(loss_a, loss_b) or unequal or not opt_equal:
+        raise AssertionError("a restored step differs from the uninterrupted one")
+    del tr_a, tr_b
+
+    # -- train: the restart supervisor, a fault at step 3, bit for bit ---------------
+    def supervised(tag, at):
+        """fit_supervised for SUPERVISED_STEPS steps, a checkpoint every 2,
+        the data stream raising where the plan fires; (recoveries, last
+        trainer)."""
+        plan = FaultPlan(seed=SEED)
+        if at is not None:
+            plan.register("train-step", at=at, fault="trainer-crash")
+        rec = Records()
+        trainers = []
+
+        def make_trainer():
+            trainers.append(Trainer(cfg, tcfg8, params=dparams, device="cuda"))
+            return trainers[-1]
+
+        def make_data():
+            for batch in shapes_dataset(8, cfg.image_size, seed=SEED + 12):
+                if plan.fires("train-step"):
+                    raise InjectedFault("injected trainer crash")
+                yield batch
+
+        fit_supervised(make_trainer, make_data, SUPERVISED_STEPS,
+                       checkpoint_dir=os.path.join(work.name, tag), checkpoint_every=2,
+                       log_every=2, metrics_writer=rec,
+                       supervisor=TrainSupervisor(max_restarts=2, backoff_s=0.01, writer=rec))
+        recoveries = [(r["action"], r.get("attempt"), r.get("step"), r.get("backoff_s"))
+                      for r in rec.records if r.get("kind") == "recovery"]
+        return recoveries, trainers[-1]
+
+    got_rec, faulted = supervised("supervised_fault", (3,))
+    clean_rec, clean = supervised("supervised_clean", None)
+    want_rec = [("restart", 1, None, 0.01), ("resume-from-checkpoint", 2, 2, None)]
+    (pf, of), (pc, oc) = state_tensors(faulted), state_tensors(clean)
+    unequal = [nm for nm, a, b in zip(PARAM_KEYS + HEAD_KEYS, pf, pc) if not torch.equal(a, b)]
+    opt_equal = len(of) == len(oc) and all(a.device == b.device and torch.equal(a, b)
+                                           for a, b in zip(of, oc))
+    emit("train_supervised", batch=8, steps=SUPERVISED_STEPS, fault_at_batch=3,
+         recoveries=got_rec, clean_recoveries=clean_rec, final_steps=[faulted.state.step,
+                                                                      clean.state.step],
+         params_bitwise_equal=not unequal, unequal_leaves=unequal,
+         optimizer_bitwise_equal=opt_equal)
+    if got_rec != want_rec or clean_rec or unequal or not opt_equal or (
+            faulted.state.step, clean.state.step) != (SUPERVISED_STEPS,) * 2:
+        raise AssertionError("the supervised restart is not the uninterrupted run")
+    del faulted, clean
+
+    # -- temporal rollouts: the fused route against the plain one, f32 ----------------
+    gparams = map_params(lambda t: t.to(dev), params)
+    frames = torch.stack([torch.from_numpy(next(shapes_dataset(2, cfg.image_size,
+                                                               seed=SEED + 20 + i)))
+                          for i in range(TEMPORAL_FRAMES)]).to(dev)
+    with torch.inference_mode():
+        reset_counts()
+        fused_t = temporal_rollout(gparams, frames, cfg, use_pallas=True)
+        torch.cuda.synchronize()
+        temporal_launches = counts()
+        plain_t = temporal_rollout(gparams, frames, cfg)
+        rollout_ms = []
+        for i in range(TEMPORAL_ROUNDS + 1):  # round 0 warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bf16_t = temporal_rollout(gparams, frames, cfg, use_pallas=True, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            if i:
+                rollout_ms.append(1e3 * (time.perf_counter() - t0))
+    ok, abs_err, rel_err, ratio = compare(fused_t, plain_t, 2e-3, 2e-4)
+    want_t = launches_per_step({"K1 fwd": 2 * T * TEMPORAL_FRAMES, "K1 fwd add": T * TEMPORAL_FRAMES,
+                                "K2 fwd": T * TEMPORAL_FRAMES})
+    finite = bool(torch.isfinite(bf16_t.float()).all())
+    emit("temporal_parity_f32", frames=TEMPORAL_FRAMES, batch=2, iters=T,
+         shape=list(fused_t.shape), max_abs_err=abs_err, max_rel_err=rel_err, rtol=2e-3,
+         atol=2e-4, bar_ratio=ratio, ok=ok, launches=temporal_launches,
+         bf16_rollout_ms=statistics.median(rollout_ms),
+         bf16_ms_per_frame=statistics.median(rollout_ms) / TEMPORAL_FRAMES,
+         bf16_rounds=TEMPORAL_ROUNDS, bf16_finite=finite)
+    if not ok or temporal_launches != want_t or not finite or tuple(fused_t.shape) != (
+            TEMPORAL_FRAMES, 2, cfg.num_patches, cfg.levels, cfg.dim):
+        raise AssertionError("temporal rollout: the fused route disagrees with the plain one")
+    del fused_t, plain_t, bf16_t
+
+    # -- train: the peak device memory of one loop step at batch 128 ------------------
+    tcfg128 = TrainConfig(batch_size=128, compute_dtype="bfloat16", use_pallas=True)
+    step128 = make_train_step(cfg, tcfg128, with_grad_norm=False, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state128, _ = create_train_state(cfg, tcfg128, params=dparams, device="cuda")
+    img128 = torch.from_numpy(next(shapes_dataset(128, cfg.image_size, seed=SEED + 30))).to(dev)
+    noise128 = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    base128_mib = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state128, m128 = step128(state128, img128, noise128)
+    torch.cuda.synchronize()
+    peak128_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches128 = counts()
+    card_mib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 20
+    emit("train_peak_b128", batch=128, remat=False, vjp_path=step128.vjp_path,
+         grad_accum=step128.grad_accum, loss=float(m128["loss"]), peak_mib=peak128_mib,
+         base_mib=base128_mib, card_mib=card_mib,
+         residual_mib=residual_bytes(L, 128, n, d, f, 2, k) / 2 ** 20,
+         k1_bwd_scratch_mib=2 * (2 * L - 1) * 128 * n * f * 2 / 2 ** 20,
+         b64_peak_mib=cli_peak_mib, b64_base_mib=cli_base_mib, launches=launches128)
+    if (step128.vjp_path, step128.grad_accum) != ("fused_loop", 1) or launches128 != want_loop \
+            or not math.isfinite(float(m128["loss"])):
+        raise AssertionError("batch 128 left the loop or its step failed")
+    if max(peak128_mib, cli_peak_mib) > card_mib:
+        raise AssertionError("a training peak passes the card's memory")
+    del state128, img128
+    work.cleanup()
 
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",

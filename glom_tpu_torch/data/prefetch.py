@@ -6,6 +6,12 @@ memory. The consumer starts each batch's host-to-device copy on a side
 CUDA stream one batch ahead, so the copy of batch i+1 overlaps step i, and
 makes the compute stream wait on that copy's event before it hands the
 batch out. For the CPU the worker's staging is all there is.
+
+The worker's two host phases are span-covered, as glom_tpu's are:
+host_prefetch_next (pulling from the source iterator) and
+host_prefetch_stage (making the tensor, pinned for a CUDA device). Their
+per-phase rollup "span" records go to `metrics_writer` (else to the flight
+recorder) when the stream ends.
 """
 
 from __future__ import annotations
@@ -20,16 +26,29 @@ import torch
 _END = object()
 
 
-def prefetch_to_device(data: Iterator, *, size: int = 2, device="cuda") -> Iterator[torch.Tensor]:
+def prefetch_to_device(
+    data: Iterator, *, size: int = 2, device="cuda", metrics_writer=None
+) -> Iterator[torch.Tensor]:
     """Wrap `data` (numpy arrays or tensors) so up to `size` batches are
     staged ahead. Exceptions from `data` reach the consumer at the failed
     batch; dropping the iterator stops the worker."""
+    from glom_tpu_torch.tracing.flight import write_or_observe
+    from glom_tpu_torch.tracing.spans import SpanAggregator, spanned
+
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
     device = torch.device(device)
     cuda = device.type == "cuda"
     q: queue.Queue = queue.Queue(maxsize=size)
     stop = threading.Event()
+    spans = SpanAggregator()
+
+    def to_tensor(batch):
+        t = torch.as_tensor(np.asarray(batch) if not torch.is_tensor(batch) else batch)
+        return t.pin_memory() if cuda else t
+
+    stage = spanned("host_prefetch_stage", aggregator=spans)(to_tensor)
+    pull_next = spanned("host_prefetch_next", aggregator=spans)(lambda it: next(it, _END))
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -40,11 +59,15 @@ def prefetch_to_device(data: Iterator, *, size: int = 2, device="cuda") -> Itera
                 continue
         return False
 
+    iter_data = iter(data)
+
     def worker():
         try:
-            for batch in data:
-                t = torch.as_tensor(np.asarray(batch) if not torch.is_tensor(batch) else batch)
-                if not put(t.pin_memory() if cuda else t):
+            while True:
+                batch = pull_next(iter_data)
+                if batch is _END:
+                    break
+                if not put(stage(batch)):
                     return
         except BaseException as e:  # noqa: BLE001 - relayed to the consumer
             put((_END, e))
@@ -96,5 +119,7 @@ def prefetch_to_device(data: Iterator, *, size: int = 2, device="cuda") -> Itera
                 thread.join(timeout=0.1)
                 if not thread.is_alive():
                     break
+            for rec in spans.records(extra={"source": "prefetch_to_device"}):
+                write_or_observe(metrics_writer, rec)
 
     return gen()

@@ -5,6 +5,8 @@ The port's copy of `shapes_dataset` and `gaussian_dataset` from
 procedural images with real part-whole structure -- random coloured
 rectangles and circles on tinted backgrounds -- so the denoising objective
 has signal to learn. Batches are float32 [b, 3, H, W] in [-1, 1].
+`write_shapes_dataset` renders the same distribution to disk, for the
+file loaders (data/loaders.py).
 """
 
 from __future__ import annotations
@@ -55,3 +57,46 @@ def gaussian_dataset(batch_size: int, image_size: int, *, seed: int = 0) -> Iter
     rng = np.random.default_rng(seed)
     while True:
         yield rng.normal(size=(batch_size, 3, image_size, image_size)).astype(np.float32)
+
+
+def write_shapes_dataset(
+    out_dir: str,
+    num_images: int,
+    image_size: int,
+    *,
+    seed: int = 0,
+    fmt: str = "png",
+    shard_size: int = 512,
+) -> list:
+    """Render the seeded shapes distribution to disk (glom_tpu's
+    `write_shapes_dataset`, the same files).
+
+    fmt='png': one 8-bit RGB PNG per image (for image_folder_dataset;
+    needs PIL). fmt='npy': [shard_size, 3, H, W] float32 shards (for
+    npy_dataset; numpy only). Returns the list of file paths written.
+    """
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    if fmt == "png":
+        from PIL import Image
+
+        for i in range(num_images):
+            img = _draw_shapes(rng, image_size, 5)  # [3, H, W] in [-1, 1]
+            u8 = ((np.transpose(img, (1, 2, 0)) + 1.0) * 127.5).round()
+            u8 = np.clip(u8, 0, 255).astype(np.uint8)
+            p = os.path.join(out_dir, f"shape_{i:06d}.png")
+            Image.fromarray(u8).save(p)
+            paths.append(p)
+        return paths
+    if fmt == "npy":
+        for s in range(0, num_images, shard_size):
+            count = min(shard_size, num_images - s)
+            shard = np.stack([_draw_shapes(rng, image_size, 5) for _ in range(count)])
+            p = os.path.join(out_dir, f"shard_{s // shard_size:04d}.npy")
+            np.save(p, shard)
+            paths.append(p)
+        return paths
+    raise ValueError(f"fmt={fmt!r}: one of 'png', 'npy'")

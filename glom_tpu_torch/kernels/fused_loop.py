@@ -39,8 +39,6 @@ with the pre-only K1 kernel, bit for bit the ones the forward would have
 saved, so remat gradients equal non-remat ones exactly.
 
 What the port's limits change against glom_tpu's (`loop_supported`):
-  * no n <= 512 cap: glom_tpu's loop needs its single-tile consensus
-    backward, while the port's K2 backward covers every n;
   * a residual budget taken from the H100's 80 GB (`RESIDUAL_BUDGET`), not
     a v5e's 16: at the flagship, batch 128 without remat (12 GB of
     residuals) stays on the loop without a split, where glom_tpu splits it;
@@ -86,6 +84,12 @@ from glom_tpu_torch.ops.ffw import GroupedFFWParams
 # trainer splits the batch or the per-iteration route takes over.
 RESIDUAL_BUDGET = 32 * 1024 ** 3
 
+# The longest row the loop takes (glom_tpu's cap, fused_loop.py:865). On the
+# card at n = 4096 the loop's step cost 124.65 ms against the per-iteration
+# route's 102.63 (`chip_smoke.py` train_longrow_ab, PERF.md section 5): the
+# one-sweep K2 backward there beats the loop's two-pass combine.
+MAX_LOOP_N = 512
+
 _CONS_ROW_TILE = {2: CONS_ROW_TILE[torch.bfloat16], 4: CONS_ROW_TILE[torch.float32]}
 
 
@@ -108,9 +112,11 @@ def loop_supported(
     shape rules (d and f multiples of 64, rows a multiple of K1's row tile,
     n a multiple of K2's, the positional table one row per patch, a square
     patch grid under a radius), L >= 2, iters >= 1, a dtype the kernels
-    take, and the residuals within `RESIDUAL_BUDGET`."""
+    take, n <= MAX_LOOP_N, and the residuals within `RESIDUAL_BUDGET`."""
     M = B * n
     if iters < 1 or L < 2 or itemsize not in _CONS_ROW_TILE:
+        return False
+    if n > MAX_LOOP_N:
         return False
     if d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE or d % CONS_WIDTH_MULTIPLE:
         return False

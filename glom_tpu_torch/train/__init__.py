@@ -5,6 +5,8 @@ from glom_tpu_torch.train.objectives import (
     init_denoise,
     reconstruct,
 )
+from glom_tpu_torch.train.supervise import TrainSupervisor, fit_supervised
+from glom_tpu_torch.train.temporal import temporal_rollout
 from glom_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
@@ -22,6 +24,7 @@ from glom_tpu_torch.train.trainer import (
 __all__ = [
     "DenoiseParams",
     "TrainState",
+    "TrainSupervisor",
     "Trainer",
     "accumulate_grads",
     "create_train_state",
@@ -29,6 +32,7 @@ __all__ = [
     "default_recon_index",
     "denoise_loss",
     "fit_loop",
+    "fit_supervised",
     "init_denoise",
     "make_lr_schedule",
     "make_train_step",
@@ -36,4 +40,5 @@ __all__ = [
     "reconstruct",
     "resolve_route_keys",
     "resolve_training_route",
+    "temporal_rollout",
 ]

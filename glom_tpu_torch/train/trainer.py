@@ -14,11 +14,12 @@ Every record names the backward it ran (`vjp_path`, from
 `resolve_training_route`, glom_tpu's rule: on the card a batch of 8 or more
 at the flagship trains through the whole-loop VJP ("fused_loop"), and with
 `grad_accum=None` a batch that misses it is split into the fewest
-power-of-two microbatches that reach it. Not ported yet, and refused with
-the ROADMAP item that brings them: ZeRO stages, the quantized reduce and
-meshes (queue A item 8); schema stamping, metrics writers, trace capture
-and the memory probe (items 6 and 9); per-level agreement at telemetry
-"full" (item 9).
+power-of-two microbatches that reach it. `fit_loop` writes glom_tpu's
+record stream: schema-stamped "train_step" records, the host span rollups
+and the anomaly records, to a metrics writer or the flight recorder. Not
+ported yet, and refused with the ROADMAP item that brings them: ZeRO
+stages, the quantized reduce and meshes (queue A item 8); trace capture,
+the memory probe and per-level agreement at telemetry "full" (item 9).
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ from glom_tpu_torch.models.core import (
     unflatten_params,
 )
 from glom_tpu_torch.telemetry import diagnostics as diag
+from glom_tpu_torch.telemetry import schema
+from glom_tpu_torch.telemetry.sinks import StepTimeStats
+from glom_tpu_torch.tracing import flight
+from glom_tpu_torch.tracing.spans import SpanAggregator, span
 from glom_tpu_torch.train.objectives import (
     DenoiseParams,
     default_recon_index,
@@ -46,6 +51,7 @@ from glom_tpu_torch.train.objectives import (
 )
 from glom_tpu_torch.utils.config import GlomConfig, TrainConfig
 from glom_tpu_torch.utils.helpers import resolve_device
+from glom_tpu_torch.utils.metrics import live_bytes_model
 
 _NOT_PORTED = "is not ported yet: ROADMAP queue A item {}"
 
@@ -314,18 +320,25 @@ def _state_tensors(opt: torch.optim.Optimizer) -> list:
     ]
 
 
+def optimizer_state_layout(opt: torch.optim.Optimizer) -> list:
+    """The tensors the optimizer's state holds: its own once its first
+    step made them; before that, for torch's Adam and AdamW, two moments
+    shaped like each parameter and a scalar step, as meta tensors (for the
+    live-bytes model; nothing is allocated)."""
+    if opt.state or not isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        return _state_tensors(opt)
+    return [
+        (torch.empty_like(p, device="meta"), torch.empty_like(p, device="meta"),
+         torch.empty((), device="meta"))
+        for group in opt.param_groups for p in group["params"]
+    ]
+
+
 def _scalar(v):
     """A metrics value as a JSON scalar (tensors are fetched)."""
     if v is None or isinstance(v, (str, bool, int)):
         return v
     return float(v)
-
-
-def _quantile_ms(sorted_xs, q: float) -> Optional[float]:
-    """Nearest-rank quantile of sorted seconds, in ms (None when empty)."""
-    if not sorted_xs:
-        return None
-    return 1e3 * sorted_xs[min(len(sorted_xs) - 1, max(0, math.ceil(q * len(sorted_xs)) - 1))]
 
 
 def fit_loop(
@@ -341,48 +354,88 @@ def fit_loop(
     memory_probe=None,
     aux_records_probe=None,
 ) -> list:
-    """Pull batches, step, and log every `log_every` steps (and the last).
-    step_fast, when given, runs the non-logging steps. Each step ends in a
-    device synchronize, so its host-clock time is the step's device time;
-    the first call of each variant (kernel builds, allocator warm-up) is
-    kept out of the percentiles, as glom_tpu keeps its compiles out.
+    """Pull batches, step, and log every `log_every` steps (and the last):
+    glom_tpu's fit loop. step_fast, when given, runs the non-logging steps.
+    Each step ends in a device synchronize, so its host-clock time is the
+    step's device time; the first call of each variant (kernel builds,
+    allocator warm-up) is kept out of the percentiles, as glom_tpu keeps
+    its compiles out (pass a persistent `compile_tracker` across calls).
 
-    Each record carries loss, step, grad_norm, steps_per_sec, the step-time
-    p50/p95 in ms, and vjp_path and grad_accum (from the metrics or the
-    step function's attributes)."""
-    for what, val, item in (
-        ("metrics_writer", metrics_writer, 6), ("trace_capture", trace_capture, 9),
-        ("memory_probe", memory_probe, 9), ("aux_records_probe", aux_records_probe, 9),
+    Every logging record is a schema-stamped "train_step" event: the step's
+    metrics, vjp_path and grad_accum (from the metrics or the step
+    function's attributes), steps_per_sec and the step-time histogram. At
+    each log boundary the host spans (host_data_next, host_step_dispatch,
+    host_log_fetch) are drained as one "span" record per phase, and a step
+    the NaN/Inf guard flagged since the last boundary emits an "anomaly"
+    record. Records go to `metrics_writer`, or to the flight recorder when
+    there is none; the returned history holds the train_step records only.
+    An unhandled exception dumps the flight recorder before re-raising."""
+    for what, val in (
+        ("trace_capture", trace_capture), ("memory_probe", memory_probe),
+        ("aux_records_probe", aux_records_probe),
     ):
         if val is not None:
-            raise NotImplementedError(f"fit_loop({what}=...) {_NOT_PORTED.format(item)}")
+            raise NotImplementedError(f"fit_loop({what}=...) {_NOT_PORTED.format(9)}")
+
+    def emit(rec):
+        flight.write_or_observe(metrics_writer, rec)
+
     history = []
-    times: list = []
+    stats = StepTimeStats()
+    spans = SpanAggregator()
     seen = compile_tracker if compile_tracker is not None else set()
+    pending_flags = []  # (iteration, device-scalar nonfinite flag)
     t0 = time.perf_counter()
-    for i in range(num_steps):
-        logging_step = (i + 1) % log_every == 0 or i == num_steps - 1
-        use_full = logging_step or step_fast is None
-        fn, key = (step, "step") if use_full else (step_fast, "step_fast")
-        first = key not in seen
-        seen.add(key)
-        batch = next(data)
-        t_step = time.perf_counter()
-        metrics = fn(batch)
-        _synchronize(metrics)
-        if not first:
-            times.append(time.perf_counter() - t_step)
-        if not logging_step:
-            continue
-        rec = {k: _scalar(v) for k, v in metrics.items()}
-        for k in ("vjp_path", "grad_accum"):
-            rec.setdefault(k, getattr(fn, k, None))
-        xs = sorted(times)
-        rec["steps_per_sec"] = (i + 1) / (time.perf_counter() - t0)
-        rec["step_time_p50_ms"] = _quantile_ms(xs, 0.50)
-        rec["step_time_p95_ms"] = _quantile_ms(xs, 0.95)
-        rec["steps_timed"] = len(xs)
-        history.append(rec)
+    i = -1
+    try:
+        for i in range(num_steps):
+            logging_step = (i + 1) % log_every == 0 or i == num_steps - 1
+            use_full = logging_step or step_fast is None
+            fn, key = (step, "step") if use_full else (step_fast, "step_fast")
+            first = key not in seen
+            seen.add(key)
+            with span("host_data_next", aggregator=spans):
+                batch = next(data)
+            t_step = time.perf_counter()
+            with span("host_step_dispatch", aggregator=spans):
+                metrics = fn(batch)
+                _synchronize(metrics)
+            stats.observe(time.perf_counter() - t_step, is_compile=first)
+            if "nonfinite_step" in metrics and not logging_step:
+                pending_flags.append((i, metrics["nonfinite_step"]))
+            if not logging_step:
+                continue
+            with span("host_log_fetch", aggregator=spans):
+                rec = {k: _scalar(v) for k, v in metrics.items()}
+            for k in ("vjp_path", "grad_accum"):
+                rec.setdefault(k, getattr(fn, k, None))
+            rec["steps_per_sec"] = (i + 1) / (time.perf_counter() - t0)
+            rec.update(stats.summary())
+            rec = schema.stamp(rec, kind="train_step")
+            history.append(rec)
+            emit(rec)
+            for srec in spans.records(extra={"step": rec.get("step", float(i))}):
+                emit(srec)
+            flagged = [k for k, v in pending_flags if float(v)]
+            pending_flags = []
+            if rec.get("nonfinite_step"):
+                flagged.append(i)
+            if flagged:
+                emit(schema.stamp({
+                    "step": rec.get("step", float(i)),
+                    "reason": "nonfinite_loss_or_grad",
+                    "policy": "skip" if "skipped_nonfinite" in rec else "warn",
+                    "count": len(flagged),
+                    "flagged_iterations": flagged,
+                    "loss": rec.get("loss"),
+                    "grad_norm": rec.get("grad_norm"),
+                }, kind="anomaly"))
+    except BaseException as e:
+        flight.dump_flight_recorder(
+            "fit-loop-exception",
+            context={"exception": f"{type(e).__name__}: {e}"[:300], "at_iteration": i},
+        )
+        raise
     return history
 
 
@@ -407,9 +460,8 @@ class Trainer:
         params: Optional[DenoiseParams] = None,
         device="cuda",
     ):
-        if metrics_writer is not None:
-            raise NotImplementedError(f"Trainer(metrics_writer=...) {_NOT_PORTED.format(6)}")
         self.cfg, self.tcfg = cfg, tcfg
+        self.metrics_writer = metrics_writer
         self.device = resolve_device(device)
         self.state, self.optimizer = create_train_state(
             cfg, tcfg, optimizer, params=params, device=self.device
@@ -424,17 +476,40 @@ class Trainer:
         )
         self.vjp_path = self._step.vjp_path
         self.grad_accum = self._step.grad_accum
+        # glom_tpu's static record fields. One device: ZeRO resolves to 0,
+        # the quantized reduce off, and no collective moves a byte.
+        self._static_record = {
+            "zero_stage": 0,
+            "quantized_reduce": False,
+            "telemetry_level": self.telemetry_level,
+            **live_bytes_model(self.state.params, optimizer_state_layout(self.state.optimizer)),
+            "comm_reduce_bytes_per_step": 0,
+            "comm_gather_bytes_per_step": 0,
+            "comm_bytes_per_step": 0,
+        }
+        # Persistent across fit() calls: span 2+ of a checkpointed run is
+        # warm, and its first steps are steady-state samples.
         self._compile_tracker: set = set()
+        self.in_step = False
 
     def _run(self, fn, batch) -> dict:
         img = torch.as_tensor(
             np.asarray(batch) if not torch.is_tensor(batch) else batch,
             dtype=torch.float32, device=self.device,
         )
-        self.state, metrics = fn(self.state, img, self.generator)
+        # The parameters and optimizer state change in place inside the
+        # step: a preemption save must not copy them half-updated.
+        self.in_step = True
+        try:
+            self.state, metrics = fn(self.state, img, self.generator)
+        finally:
+            self.in_step = False
         metrics["vjp_path"] = self.vjp_path
         metrics["grad_accum"] = self.grad_accum
-        metrics["telemetry_level"] = self.telemetry_level
+        metrics.update(self._static_record)
+        # A trainer mid-step is the proof its device is up (glom_tpu's
+        # backend_record without a registered watchdog).
+        metrics["backend_state"] = "up"
         return metrics
 
     def step(self, batch) -> dict:
@@ -456,11 +531,14 @@ class Trainer:
     ) -> list:
         """Run `num_steps` updates over [b, c, H, W] batches from `data`.
         prefetch > 0 stages that many batches ahead (pinned host memory and
-        a side CUDA stream on the card)."""
+        a side CUDA stream on the card). It wraps `data` per call: a loop of
+        fit calls over one iterator (checkpoint spans) wraps it once itself
+        with data.prefetch_to_device and passes prefetch=0, as the CLI
+        does."""
         if prefetch > 0:
             data = prefetch_to_device(data, size=prefetch, device=self.device)
         return fit_loop(
             self.step, iter(data), num_steps, log_every=log_every,
-            step_fast=self.step_fast, compile_tracker=self._compile_tracker,
-            trace_capture=trace_capture,
+            metrics_writer=self.metrics_writer, step_fast=self.step_fast,
+            compile_tracker=self._compile_tracker, trace_capture=trace_capture,
         )

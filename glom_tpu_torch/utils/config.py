@@ -1,8 +1,10 @@
 """Configuration dataclasses.
 
-Counterpart of `glom_tpu/utils/config.py`: `GlomConfig` and `TrainConfig`
-field for field, and the part of `ServeConfig` that the port's serving
-routes read. The port keeps its own copy because the reference module pulls in
+Counterpart of `glom_tpu/utils/config.py`: `GlomConfig`, `MeshConfig` and
+`TrainConfig` field for field, and the part of `ServeConfig` that the
+port's serving routes read. `MeshConfig` is data only here: the presets
+carry it, and the port's parallel paths (ROADMAP queue A item 8) will
+read it. The port keeps its own copy because the reference module pulls in
 JAX.
 """
 
@@ -51,6 +53,44 @@ class GlomConfig:
         # "twice the levels, for information to propagate up and back down"
         # (reference :105)
         return 2 * self.levels
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Parallelism layout (glom_tpu's names). Axis sizes of 1 disable an
+    axis.
+
+    data:  batch sharding (DP)
+    seq:   patch-axis sharding (SP)
+    model: dim sharding (TP) of the FFW weights
+
+    num_slices > 1 marks a multi-slice topology: the data axis is laid out
+    slice-major, its outermost num_slices-way split crossing slices.
+    """
+
+    data: int = 1
+    seq: int = 1
+    model: int = 1
+    num_slices: int = 1
+
+    def __post_init__(self):
+        if self.num_slices > 1 and self.data % self.num_slices != 0:
+            raise ValueError(
+                f"data axis {self.data} not divisible by num_slices "
+                f"{self.num_slices} (the slice split is the outer data axis)"
+            )
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "seq", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data, self.seq, self.model)
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.seq * self.model
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,8 @@ Counterpart of `glom_tpu/utils/helpers.py`, kept as the port's own copy
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # The *soft* self-attention penalty used by consensus attention when
@@ -26,6 +28,17 @@ def l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """x / max(||x||_2, eps) along `dim` (torch.nn.functional.normalize)."""
     norm = torch.linalg.vector_norm(x, ord=2, dim=dim, keepdim=True)
     return x / torch.clamp_min(norm, eps)
+
+
+def halo_supported(seq: int, side: int, radius: float) -> bool:
+    """True when one-hop halo-exchange consensus is valid for `seq`-way
+    row-band sharding of a side x side patch grid with the given local
+    radius: the floor(radius) grid rows a shard needs from each neighbour
+    must fit inside one neighbouring shard. Pure geometry, so the presets
+    can check it without a parallel runtime."""
+    if radius <= 0 or side % seq != 0:
+        return False
+    return (side // seq) >= math.floor(radius)
 
 
 def max_neg_value(dtype) -> float:

@@ -350,10 +350,11 @@ class TestRoutes:
         assert self._both({}, 8, 7, use_pallas=True, remat=remat) == ("fused_loop",) * 2
 
     def test_named_differences(self):
-        # n = 1024 > 512: glom_tpu's loop needs its single-tile consensus
-        # backward; the port's covers every n.
+        # n = 1024 > 512: both packages leave the loop (glom_tpu's cap, kept
+        # by the port because its one-sweep per-iteration route is faster
+        # there on the card).
         jp, tp = self._both({"image_size": 448}, 8, 7, use_pallas=True)
-        assert jp != "fused_loop" and tp == "fused_loop"
+        assert jp != "fused_loop" and tp != "fused_loop"
         # Batch 128 without remat: 12 GB of residuals, past glom_tpu's 10 GB
         # (a v5e's HBM) and within the port's 32 GB.
         jp, tp = self._both({}, 128, 7, use_pallas=True)

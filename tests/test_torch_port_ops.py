@@ -74,6 +74,21 @@ class TestHelpersAndConfig:
         ref = [(f.name, f.default) for f in dataclasses.fields(jconfig.TrainConfig)]
         assert [(f.name, f.default) for f in dataclasses.fields(tconfig.TrainConfig)] == ref
 
+    def test_mesh_config_matches_reference(self):
+        ref = [(f.name, f.default) for f in dataclasses.fields(jconfig.MeshConfig)]
+        assert [(f.name, f.default) for f in dataclasses.fields(tconfig.MeshConfig)] == ref
+        for kw in ({}, {"data": 8}, {"data": 64, "seq": 2, "model": 2, "num_slices": 4}):
+            j, t = jconfig.MeshConfig(**kw), tconfig.MeshConfig(**kw)
+            for prop in ("axis_names", "shape", "num_devices"):
+                assert getattr(t, prop) == getattr(j, prop)
+        with pytest.raises(ValueError):
+            tconfig.MeshConfig(data=6, num_slices=4)
+
+    def test_halo_supported(self):
+        for seq, side, radius in ((2, 8, 7), (4, 32, 7), (4, 32, 0), (3, 32, 2), (2, 16, 8.5)):
+            assert thelpers.halo_supported(seq, side, radius) == jhelpers.halo_supported(
+                seq, side, radius)
+
 
 class TestPatch:
     def test_patchify_unpatchify(self):

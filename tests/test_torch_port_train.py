@@ -31,6 +31,7 @@ from glom_tpu_torch.train import (
     accumulate_grads,
     create_train_state,
     denoise_loss,
+    fit_loop,
     init_denoise,
     make_lr_schedule,
     make_train_step,
@@ -349,11 +350,11 @@ class TestTrainerAndData:
 
     def test_trainer_refuses_unported(self, monkeypatch):
         cfg = GlomConfig(**TINY)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Trainer(cfg, TrainConfig(), metrics_writer=object(), device="cpu")
         tr = Trainer(cfg, TrainConfig(batch_size=2), device="cpu")
         with pytest.raises(NotImplementedError, match="item 9"):
             tr.fit(gaussian_dataset(2, 8), 1, trace_capture=object())
+        with pytest.raises(NotImplementedError, match="item 9"):
+            fit_loop(tr.step, gaussian_dataset(2, 8), 1, memory_probe=dict)
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(cfg, TrainConfig())
