@@ -63,6 +63,19 @@ after:
   * early-exit serving on the bucket route (iters="auto": K1 and the plain
     consensus), timed at threshold 0 against the fixed loop of the same
     step to show the per-iteration host read of the exit flag.
+  * the serving device layer, with a page pool of 96 pages: a paged warm
+    bucket-8 dispatch (levels0 gathered from the pool) against the
+    host-carried one, bit for bit, with no levels0 bytes from the host and
+    the fixed route's launches, both timed in turns, and the peak memory;
+    the paged route's float32 parity with the plain path; 32 ragged pages
+    from the pool, mixed cold and warm, bit for bit their levels0 form;
+    the incremental route's hold frame (exactly min_iters), a perturbed
+    frame, and threshold 0 bit for bit the paged tiered dispatch; the same
+    write-backs into a copy-on-write and an aliasing pool (identical bytes,
+    the analytic bytes moved, one fallback under a read pin, ms a
+    write-back); Glom(iters="auto"); a dispatch fault that the retry
+    recovers bit for bit and a KernelError that it does not retry; and the
+    release of an engine's pool.
   * the training CLI (`python -m glom_tpu_torch.train.cli`, in process)
     at the imagenet224-dp8 preset, batch 64, on the loop: 4 steps on .npy
     shards with a checkpoint every 2, then --resume to 6, with the exact
@@ -146,6 +159,14 @@ CLI_IMAGES = 128
 SUPERVISED_STEPS = 6
 TEMPORAL_FRAMES = 3
 TEMPORAL_ROUNDS = 5
+# The serving device layer: the page pool's pages (384 KiB each at the
+# flagship in bf16, 36 MiB), the dispatches per arm of the paged / host-carry
+# and the ragged pool / levels0 turns, the incremental route's min_iters
+# (the hold frame pays exactly that), and the timed write-backs per pool.
+POOL_PAGES = 96
+PAGED_DISPATCHES = 20
+INC_MIN_ITERS = 2
+WRITEBACK_ROUNDS = 20
 
 
 def emit(phase: str, **kw) -> None:
@@ -153,6 +174,7 @@ def emit(phase: str, **kw) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1628,6 +1650,328 @@ def main() -> int:
         raise AssertionError(f"auto route at threshold 0 differs from the fixed loop of its step: "
                              f"{equal}")
 
+    # -- serve: the device page pool, paged and incremental dispatches ----------------
+    # The flagship at bf16, T = 12, with a pool of POOL_PAGES pages (384 KiB
+    # each): the warm paged dispatch gathers levels0 from the pool, the
+    # host-carry one uploads it. Both run the fixed route's kernels.
+    from glom_tpu_torch import Glom
+    from glom_tpu_torch.kernels._build import KernelError
+    from glom_tpu_torch.resilience import FaultPlan, dispatch_fault
+    from glom_tpu_torch.serve import PagedColumnPool
+    from glom_tpu_torch.serve.early_exit import glom_forward_auto
+
+    class Records:
+        def __init__(self):
+            self.recs = []
+
+        def write(self, rec):
+            self.recs.append(rec)
+
+    def fixed_counts():
+        return (k1.LAUNCHES, k1.LAUNCHES_ADD, k2.LAUNCHES)
+
+    def delta(before, after):
+        return tuple(a - b for a, b in zip(after, before))
+
+    side, n_tok = cfg.image_size, cfg.num_patches
+    pcfg = ServeConfig(buckets=(1, 2, 4, 8), compute_dtype="bfloat16", use_pallas=True,
+                       page_pool_pages=POOL_PAGES)
+    paged_eng = InferenceEngine(cfg, pcfg, params=params, device=dev)
+    pool = paged_eng.pool
+    ppr = paged_eng.pages_per_row
+    for warm in (False, "paged", True):
+        paged_eng.warmup((8,), warm=warm)
+    imgs_p = torch.randn(8, 3, side, side, generator=gen)
+    cold = paged_eng.infer(imgs_p)
+    for i in range(8):
+        if not pool.write_back(f"row{i}", cold.levels[i], cfg.num_patches):
+            raise AssertionError(f"pool of {POOL_PAGES} pages refused row {i}")
+    page_rows = np.array([pool.lookup(f"row{i}")[0] for i in range(8)], np.int32)
+    host_levels = cold.levels.cpu()  # the same columns, carried from the host
+    want_fixed = (2 * T, T, T)
+    k1.LAUNCHES = k1.LAUNCHES_ADD = k2.LAUNCHES = 0
+    paged_turns = {"paged": [], "host_carry": []}
+    paged_phases = {"paged": [], "host_carry": []}
+    first = {}
+    for i in range(PAGED_DISPATCHES):
+        for arm in (("paged", "host_carry") if i % 2 == 0 else ("host_carry", "paged")):
+            before = fixed_counts()
+            res = (paged_eng.infer(imgs_p, page_rows=page_rows) if arm == "paged"
+                   else paged_eng.infer(imgs_p, levels0=host_levels))
+            got = delta(before, fixed_counts())
+            if got != want_fixed:
+                raise AssertionError(f"{arm}: launches (K1, K1 add, K2) {got} != {want_fixed}")
+            first.setdefault(arm, res)
+            paged_turns[arm].append(res.latency_s)
+            paged_phases[arm].append(res.phases)
+    paged_launches = {"grouped_mlp_fwd": k1.LAUNCHES - k1.LAUNCHES_ADD,
+                      "grouped_mlp_fwd_add": k1.LAUNCHES_ADD, "consensus_update_fwd": k2.LAUNCHES}
+    paged_bitwise = torch.equal(first["paged"].levels, first["host_carry"].levels)
+    h2d = {arm: r.levels0_h2d_bytes for arm, r in first.items()}
+    torch.cuda.synchronize()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    paged_eng.infer(imgs_p, page_rows=page_rows)
+    paged_peak = torch.cuda.max_memory_allocated() / 2**20
+    emit("serve_paged", bucket=8, pool_pages=POOL_PAGES, pool_mib=pool.pool_bytes / 2**20,
+         page_rows_first=page_rows[0].tolist(), bitwise_equal_host_carry=paged_bitwise,
+         levels0_h2d_bytes=h2d, launches_per_dispatch={"K1": 2 * T, "K2": T},
+         launches=paged_launches, dispatches=PAGED_DISPATCHES, order="in turns",
+         p50_ms={a: 1e3 * p50(xs) for a, xs in paged_turns.items()},
+         min_ms={a: 1e3 * min(xs) for a, xs in paged_turns.items()},
+         h2d_ms_p50={a: p50([p["h2d_ms"] for p in ps]) for a, ps in paged_phases.items()},
+         resolve_ms_p50={a: p50([p["resolve_ms"] for p in ps])
+                         for a, ps in paged_phases.items()},
+         paged_over_host_carry=p50(paged_turns["paged"]) / p50(paged_turns["host_carry"]),
+         memory_allocated_mib=base_mib, paged_dispatch_peak_mib=paged_peak)
+    if not paged_bitwise:
+        raise AssertionError("the paged warm dispatch differs from the host-carried one")
+    if h2d != {"paged": 0, "host_carry": 8 * cfg.num_patches * L * d * 2}:
+        raise AssertionError(f"levels0 bytes from the host {h2d}")
+    if min(paged_launches.values()) == 0:
+        raise AssertionError(f"a kernel ran no time on the paged path: {paged_launches}")
+
+    # The f32 paged route against the plain f32 path from the same columns,
+    # and the bf16 paged route against it, at serve_parity_f32's bars.
+    f32_paged = InferenceEngine(cfg, ServeConfig(buckets=(2,), max_batch=2, use_pallas=True,
+                                                 page_pool_pages=2 * ppr),
+                                params=params, device=dev)
+    img2p = torch.randn(2, 3, side, side, generator=gen)
+    rows32 = f32_paged.infer(img2p).levels
+    rows16 = rows32.to(bf16)
+    bf_rows = np.array([pool.lookup(f"row{i}")[0] for i in range(2)], np.int32)
+    for i in range(2):
+        f32_paged.pool.write_back(f"row{i}", rows32[i], cfg.num_patches)
+        pool.write_back(f"row{i}", rows16[i], cfg.num_patches)
+    rows_f32 = np.array([f32_paged.pool.lookup(f"row{i}")[0] for i in range(2)], np.int32)
+    got32 = f32_paged.infer(img2p, page_rows=rows_f32).levels
+    p_dev = map_params(lambda t: t.to(dev), params)
+    with torch.inference_mode():
+        plain32 = glom_forward(p_dev, img2p.to(dev), cfg, levels=rows32, use_pallas=False)
+        plain16 = glom_forward(p_dev, img2p.to(dev), cfg, levels=rows16.float(), use_pallas=False)
+    ok32, err32, rel32, ratio32 = compare(got32, plain32, 2e-3, 2e-4)
+    got16 = paged_eng.infer(torch.cat([img2p, torch.zeros(6, 3, side, side)]),
+                            page_rows=np.concatenate([bf_rows, page_rows[2:]])).levels[:2]
+    ok16, err16, _, _ = compare(got16, plain16, 0.0, BF16_SERVE_ATOL)
+    emit("serve_paged_parity_f32", bucket=2, rtol=2e-3, atol=2e-4, max_abs_err=err32,
+         max_rel_err=rel32, bar_ratio=ratio32, ok=ok32, bf16_vs_f32_max_abs_err=err16,
+         bf16_atol=BF16_SERVE_ATOL, bf16_ok=ok16)
+    if not (ok32 and ok16):
+        raise AssertionError("the paged route disagrees with the plain f32 path")
+
+    # The ragged route from the pool: 32 pages, rows 0-3 warm from pool
+    # pages, rows 4-7 cold (-1), against the levels0 form of the same state.
+    rp_eng = InferenceEngine(cfg, dataclasses.replace(rcfg, page_pool_pages=POOL_PAGES),
+                             params=params, device=dev)
+    rp_eng.warmup_ragged((32,))
+    flat32p, n32p = batches[32][1]
+    first_r = rp_eng.infer_ragged(flat32p, n32p)
+    for i in range(4):
+        rp_eng.pool.write_back(f"row{i}", first_r.levels[i * n_tok:(i + 1) * n_tok], n_tok)
+    page_idx = np.full(32, -1, np.int32)
+    page_idx[:4 * ppr] = np.concatenate([rp_eng.pool.lookup(f"row{i}")[0] for i in range(4)])
+    cold_tok = rp_eng.cold_levels()[0]
+    lv0_r = torch.stack([cold_tok] * (32 * pt)).to(dev)
+    lv0_r[:4 * n_tok] = first_r.levels[:4 * n_tok]
+    k1.LAUNCHES = k4.LAUNCHES = k2.LAUNCHES = 0
+    rp_turns = {"pool": [], "levels0": []}
+    rp_first = {}
+    for i in range(PAGED_DISPATCHES):
+        for arm in (("pool", "levels0") if i % 2 == 0 else ("levels0", "pool")):
+            before = ragged_counts()
+            res = (rp_eng.infer_ragged(flat32p, n32p, page_idx=page_idx) if arm == "pool"
+                   else rp_eng.infer_ragged(flat32p, n32p, levels0=lv0_r))
+            got = delta(before, ragged_counts())
+            if got != want_ragged:
+                raise AssertionError(f"ragged {arm}: launches (K1, K4, K2) {got} != "
+                                     f"{want_ragged}")
+            rp_first.setdefault(arm, res)
+            rp_turns[arm].append(res.latency_s)
+    rp_launches = {"grouped_mlp_fwd": k1.LAUNCHES, "banded_consensus_fwd": k4.LAUNCHES}
+    rp_bitwise = torch.equal(rp_first["pool"].levels, rp_first["levels0"].levels)
+    emit("serve_ragged_paged", pages=32, warm_pages=4 * ppr, cold_pages=32 - 4 * ppr,
+         bitwise_equal_levels0_form=rp_bitwise,
+         levels0_h2d_bytes={a: r.levels0_h2d_bytes for a, r in rp_first.items()},
+         launches_per_dispatch={"K1": 2 * T, "K4": T, "K2": 0}, launches=rp_launches,
+         dispatches=PAGED_DISPATCHES, order="in turns",
+         p50_ms={a: 1e3 * p50(xs) for a, xs in rp_turns.items()},
+         min_ms={a: 1e3 * min(xs) for a, xs in rp_turns.items()})
+    if not rp_bitwise or rp_first["pool"].levels0_h2d_bytes != 0:
+        raise AssertionError("the ragged pool dispatch differs from its levels0 form")
+
+    # The incremental route (iters="auto", K1 and plain consensus): a hold
+    # frame, a frame with one page perturbed in two rows, and threshold 0.
+    icfg = ServeConfig(buckets=(8,), iters="auto", compute_dtype="bfloat16", use_pallas=True,
+                       page_pool_pages=POOL_PAGES, min_iters=INC_MIN_ITERS)
+    inc = InferenceEngine(cfg, icfg, params=params, device=dev)
+    inc0 = InferenceEngine(cfg, dataclasses.replace(icfg, exit_threshold=0.0), params=params,
+                           device=dev)
+    for e in (inc, inc0):
+        e.warmup(warm="paged-inc")
+    frame0 = torch.randn(8, 3, side, side, generator=gen)
+    warm_rows = inc.infer(frame0).levels
+    for e in (inc, inc0):
+        for i in range(8):
+            e.pool.write_back(f"row{i}", warm_rows[i], cfg.num_patches)
+    inc_rows = np.array([inc.pool.lookup(f"row{i}")[0] for i in range(8)], np.int32)
+    frame1 = frame0.clone()
+    page_px = pt // cfg.num_patches_side * cfg.patch_size  # the pixel rows of one page
+    frame1[:2, :, page_px:2 * page_px] += torch.randn(2, 3, page_px, side, generator=gen)
+    support = np.zeros((8, ppr), bool)
+    support[:2, 1] = True
+    inc_runs = {}
+    for label, e, img, supp in (("hold", inc, frame0, np.zeros((8, ppr), bool)),
+                                ("perturbed", inc, frame1, support),
+                                ("threshold0", inc0, frame1, support)):
+        k1.LAUNCHES = k2.LAUNCHES = 0
+        res = e.infer(img, page_rows=inc_rows, support_rows=supp)
+        launched = (k1.LAUNCHES, k2.LAUNCHES)
+        if launched != (2 * res.iters_run, 0) or not bool(torch.isfinite(res.levels.float()).all()):
+            raise AssertionError(f"incremental {label}: launches {launched}, "
+                                 f"{res.iters_run} iterations")
+        inc_runs[label] = res
+    tiered0 = inc0.infer(frame1, page_rows=inc_rows)
+    hold = inc_runs["hold"]
+    inc_bitwise = (inc_runs["threshold0"].iters_run == T
+                   and torch.equal(inc_runs["threshold0"].levels, tiered0.levels))
+    hold_ok = (hold.iters_run == INC_MIN_ITERS and not hold.row_iters.any()
+               and bool(hold.row_converged.all()))
+    emit("serve_incremental", bucket=8, exit_threshold=icfg.exit_threshold,
+         min_iters=INC_MIN_ITERS, budget=inc.auto_budget,
+         hold=dict(iters_run=hold.iters_run, row_iters=hold.row_iters.tolist(),
+                   ms=1e3 * hold.latency_s),
+         perturbed=dict(iters_run=inc_runs["perturbed"].iters_run,
+                        row_iters=inc_runs["perturbed"].row_iters.tolist(),
+                        row_converged=inc_runs["perturbed"].row_converged.tolist(),
+                        ms=1e3 * inc_runs["perturbed"].latency_s),
+         threshold0_bitwise_equal_tiered=inc_bitwise, hold_pays_min_iters=hold_ok)
+    if not (inc_bitwise and hold_ok):
+        raise AssertionError("incremental route: the hold frame or the threshold-0 contract")
+
+    # The same write-backs into a copy-on-write pool and an aliasing one; one
+    # read pin forces one fallback. Then ms per write-back for each, in turns.
+    pools = {a: PagedColumnPool(cfg, dataclasses.replace(pcfg, pool_aliasing=a), device=dev)
+             for a in (False, True)}
+    wb_rows = [cold.levels[i] for i in range(8)] + [first["paged"].levels[i] for i in range(4)]
+    for a, p in pools.items():
+        for i, row in enumerate(wb_rows):
+            if i == 10:
+                p.acquire_read()
+            p.write_back(f"s{i % 8}", row, cfg.num_patches)
+            if i == 10:
+                p.release_read()
+    torch.cuda.synchronize()
+    same_bytes = torch.equal(pools[False].buffer().view(torch.int16),
+                             pools[True].buffer().view(torch.int16))
+    recs = {a: p.record() for a, p in pools.items()}
+    n_wb, row_bytes = len(wb_rows), ppr * pool.page_bytes
+    analytic = {"cow": n_wb * pool.pool_bytes,
+                "alias": (n_wb - 1) * row_bytes, "alias_cow": pool.pool_bytes}
+    moved = {"cow": recs[False]["cow_bytes_moved"],
+             "alias": recs[True]["alias"]["alias_bytes_moved"],
+             "alias_cow": recs[True]["cow_bytes_moved"]}
+    fallbacks = recs[True]["alias"]["n_alias_fallbacks"]
+    wb_ms = {"cow": [], "alias": []}
+    for i in range(WRITEBACK_ROUNDS):
+        for arm in (("cow", "alias") if i % 2 == 0 else ("alias", "cow")):
+            p = pools[arm == "alias"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.write_back(f"s{i % 8}", wb_rows[i % len(wb_rows)], cfg.num_patches)
+            torch.cuda.synchronize()
+            wb_ms[arm].append(1e3 * (time.perf_counter() - t0))
+    emit("serve_pool_alias", pool_pages=POOL_PAGES, writes=n_wb, pinned_writes=1,
+         identical_pool_bytes=same_bytes, bytes_moved=moved, analytic_bytes_moved=analytic,
+         alias_fallbacks=fallbacks, epoch=recs[True]["alias"]["epoch"],
+         writeback_ms_p50={a: p50(xs) for a, xs in wb_ms.items()},
+         writeback_ms_min={a: min(xs) for a, xs in wb_ms.items()}, rounds=WRITEBACK_ROUNDS,
+         order="in turns")
+    if not same_bytes or moved != analytic or fallbacks != 1:
+        raise AssertionError(f"pool aliasing: bytes equal {same_bytes}, moved {moved} vs "
+                             f"{analytic}, fallbacks {fallbacks}")
+    del pools
+
+    # Glom(iters="auto") on the card: the early exit at the default
+    # threshold, and at threshold 0 the budget, equal to glom_forward_auto.
+    shape_kw = dict(dim=cfg.dim, levels=cfg.levels, image_size=side, patch_size=cfg.patch_size)
+    gm = Glom(**shape_kw, params=params, compute_dtype=bf16, use_pallas=True, device=dev)
+    gm0 = Glom(**shape_kw, params=params, compute_dtype=bf16, use_pallas=True, device=dev,
+               exit_threshold=0.0)
+    img_g = torch.randn(2, 3, side, side, generator=gen).to(dev)
+    gm(img_g, iters="auto")  # the first call warms the allocator
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out_g = gm(img_g, iters="auto")
+    torch.cuda.synchronize()
+    g_ms = 1e3 * (time.perf_counter() - t0)
+    g_iters = int(gm.last_auto_iters)
+    g_launches = (k1.LAUNCHES, k2.LAUNCHES)
+    out_g0 = gm0(img_g, iters="auto")
+    with torch.inference_mode():
+        want_g0, _, _ = glom_forward_auto(gm0.params, img_g, cfg, max_iters=T, threshold=0.0,
+                                          compute_dtype=bf16, use_pallas=True)
+    g_ok = (g_launches == (2 * g_iters, 0) and int(gm0.last_auto_iters) == T
+            and torch.equal(out_g0, want_g0) and bool(torch.isfinite(out_g.float()).all())
+            and tuple(out_g.shape) == (2, n_tok, L, d))
+    emit("glom_auto", batch=2, exit_threshold=gm.exit_threshold, last_auto_iters=g_iters,
+         launches={"K1": g_launches[0], "K2": g_launches[1]}, ms=g_ms,
+         threshold0_iters=int(gm0.last_auto_iters), threshold0_bitwise_equal_auto=g_ok)
+    if not g_ok:
+        raise AssertionError("Glom(iters='auto') on the card")
+
+    # Retry: an injected fault recovers, bit for bit; a launch failure, raised
+    # by the kernels' own check() with the loaded library's error string, is
+    # not retried.
+    rec = Records()
+    plan = FaultPlan(0, writer=rec).register("engine-dispatch", at=(0,))
+    faulty = InferenceEngine(cfg, scfg, params=params, device=dev, writer=rec,
+                             fault_hook=dispatch_fault(plan))
+    recovered = faulty.infer(imgs_p)
+    again = engine.infer(imgs_p)
+    actions = [r["action"] for r in rec.recs if r.get("kind") == "recovery"]
+    calls = []
+
+    def kernel_fault(ctx):
+        calls.append(ctx["attempt"])
+        _build.check(700, "grouped_mlp_fwd", k1._lib().grouped_mlp_error_string)
+
+    broken = InferenceEngine(cfg, scfg, params=params, device=dev, writer=rec,
+                             fault_hook=kernel_fault)
+    try:
+        broken.infer(imgs_p)
+        kernel_raised = False
+    except KernelError:
+        kernel_raised = True
+    retry_ok = (torch.equal(recovered.levels, again.levels)
+                and actions == ["dispatch-retry", "dispatch-recovered"]
+                and kernel_raised and calls == [1] and broken.retry.record()["n_retries"] == 0)
+    emit("serve_retry", recovery_actions=actions, recovered_bitwise=torch.equal(
+        recovered.levels, again.levels), kernel_error_attempts=calls,
+         kernel_error_raised=kernel_raised, retry=faulty.retry.record(),
+         kernel_retry=broken.retry.record())
+    if not retry_ok:
+        raise AssertionError("dispatch retry: the fault did not recover bit for bit, or a "
+                             "KernelError was retried")
+    del faulty, broken
+
+    # Release: the pool's device memory returns, and the engine refuses work.
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    paged_eng.release()
+    freed = held - torch.cuda.memory_allocated()
+    try:
+        paged_eng.infer(imgs_p)
+        refused = False
+    except RuntimeError as e:  # only the release refusal; anything else propagates
+        if not (paged_eng.released and "was released" in str(e)):
+            raise
+        refused = True
+    emit("engine_release", freed_mib=freed / 2**20, pool_mib=pool.pool_bytes / 2**20,
+         refuses_dispatch=refused)
+    if freed < pool.pool_bytes or not refused:
+        raise AssertionError(f"release freed {freed} bytes of a {pool.pool_bytes}-byte pool, "
+                             f"refused {refused}")
+
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
     from glom_tpu_torch.data import shapes_dataset
@@ -2292,6 +2636,14 @@ def main() -> int:
                         replaces="glom_tpu/kernels/banded_consensus.py:174",
                         launches=ragged_launches["banded_consensus_fwd"], max_abs_err=k4_err,
                         **timings["k4_ragged32_full"]))
+    # The serving device layer's paths run these kernels again: their
+    # launches on the paged bucket route and on the ragged route from the
+    # pool (each counted from 0 over its timed turns).
+    for kd in kernels:
+        if kd["name"] in paged_launches:
+            kd["paged_launches"] = paged_launches[kd["name"]]
+        if kd["name"] in rp_launches:
+            kd["ragged_pool_launches"] = rp_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

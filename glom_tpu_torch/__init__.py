@@ -1,5 +1,6 @@
-"""glom_tpu_torch: the GLOM forward, its server (fixed, early-exit and
-ragged routes) and its single-device denoising trainer in PyTorch, with
+"""glom_tpu_torch: the GLOM forward, its server (fixed, early-exit,
+incremental and ragged routes, warm from the host or from a device page
+pool) and its single-device denoising trainer in PyTorch, with
 hand-written CUDA kernels for Hopper (sm_90a).
 
 A port of `glom_tpu` that imports neither JAX nor `glom_tpu`. The fused
@@ -23,7 +24,12 @@ from glom_tpu_torch.models import (
     init_glom,
     params_from_numpy,
 )
-from glom_tpu_torch.serve import InferenceEngine, RaggedServeResult, ServeResult
+from glom_tpu_torch.serve import (
+    InferenceEngine,
+    PagedColumnPool,
+    RaggedServeResult,
+    ServeResult,
+)
 from glom_tpu_torch.train import Trainer
 from glom_tpu_torch.utils import GlomConfig, ServeConfig, TrainConfig, resolve_device
 
@@ -52,6 +58,7 @@ __all__ = [
     "GlomConfig",
     "GlomParams",
     "InferenceEngine",
+    "PagedColumnPool",
     "RaggedServeResult",
     "ServeConfig",
     "ServeResult",

@@ -41,12 +41,18 @@ _LIBS: dict = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build or launch. Not transient: a retry would
+    hide a faulty kernel, so the engine's retry policy raises it on the
+    first attempt (resilience/retry.py)."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found: the CUDA kernels build only where the CUDA "
             "toolkit is installed"
         )
@@ -82,7 +88,7 @@ def _finish(name: str, proc, tmp: Path, so: Path) -> None:
         return
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{out}")
     so.with_suffix(".so.log").write_text(out)
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
@@ -119,4 +125,4 @@ def check(err: int, what: str, error_string) -> None:
     `error_string` is the library's cudaGetErrorString binding."""
     if err != 0:
         msg = error_string(err).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
+        raise KernelError(f"{what}: CUDA error {err} at launch ({msg})")

@@ -5,7 +5,9 @@ Counterpart of `glom_tpu/models/api.py`. Reference parity:
 consensus_self=False, local_consensus_radius=0)` and
 `forward(img, iters=None, levels=None, return_all=False)`
 (glom_pytorch/glom_pytorch.py:76-83, :103), plus `compute_dtype`,
-`use_pallas` and `params` as in glom_tpu, and `device` and `generator`.
+`use_pallas`, `params` and the `iters="auto"` early exit's
+`exit_threshold`, `auto_max_iters` and `auto_min_iters` as in glom_tpu,
+and `device` and `generator`.
 
 The parameters are buffers of the module (this slice is forward-only), so
 `.to(device)` moves them. The forward runs under `torch.no_grad()`.
@@ -47,6 +49,9 @@ class Glom(nn.Module):
         mesh=None,
         device="cuda",
         generator: Optional[torch.Generator] = None,
+        exit_threshold: float = 1e-3,
+        auto_max_iters: Optional[int] = None,
+        auto_min_iters: int = 1,
     ):
         super().__init__()
         if mesh is not None:
@@ -75,6 +80,16 @@ class Glom(nn.Module):
         )
         for name, t in zip(_FLAT, flat):
             self.register_buffer(name, t.to(device))
+        # The iters="auto" policy (serve/early_exit.glom_forward_auto):
+        # exit once no level's agreement moves more than exit_threshold
+        # between iterations, within auto_max_iters (None: 2L) and after
+        # auto_min_iters.
+        self.exit_threshold = exit_threshold
+        self.auto_max_iters = auto_max_iters
+        self.auto_min_iters = auto_min_iters
+        # How many iterations the last iters="auto" call ran: a 0-d int32
+        # tensor on the module's device (read it with int(...)).
+        self.last_auto_iters: Optional[torch.Tensor] = None
 
     @property
     def params(self) -> GlomParams:
@@ -97,16 +112,38 @@ class Glom(nn.Module):
         levels: Optional[torch.Tensor] = None,
         return_all: bool = False,
     ) -> torch.Tensor:
-        """img [b, c, H, W] -> levels [b, n, L, d] ([T+1, ...] with return_all)."""
-        if iters == "auto":
-            raise NotImplementedError(
-                "iters='auto' (consensus early exit) is not ported yet: "
-                "ROADMAP queue A item 7"
-            )
+        """img [b, c, H, W] -> levels [b, n, L, d] ([T+1, ...] with return_all).
+
+        iters="auto" runs the consensus early exit: up to auto_max_iters
+        updates, stopping once no level's agreement moves more than
+        exit_threshold between iterations; the count lands on
+        `last_auto_iters`. At exit_threshold 0.0 exactly auto_max_iters
+        updates run. The auto route runs the reference layout with K1 and
+        plain dense consensus (one witness across routes, as glom_tpu's),
+        so with use_pallas it agrees with the fixed fused route to kernel
+        tolerance, not bit for bit."""
         dev = self.pos_emb.device
         img = torch.as_tensor(img, device=dev)
         if levels is not None:
             levels = torch.as_tensor(levels, device=dev)
+        if iters == "auto":
+            if return_all:
+                raise ValueError(
+                    "iters='auto' is incompatible with return_all=True: the "
+                    "early exit makes the number of stacked states data-dependent"
+                )
+            # Imported here to keep the models layer below serve.
+            from glom_tpu_torch.serve.early_exit import glom_forward_auto
+
+            max_iters = (self.auto_max_iters if self.auto_max_iters is not None
+                         else self.config.default_iters)
+            final, iters_run, _ = glom_forward_auto(
+                self.params, img, self.config, max_iters=max_iters,
+                threshold=self.exit_threshold, min_iters=self.auto_min_iters,
+                levels=levels, compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
+            )
+            self.last_auto_iters = torch.tensor(iters_run, dtype=torch.int32, device=dev)
+            return final
         return glom_forward(
             self.params,
             img,

@@ -1,9 +1,10 @@
-"""Fault injection and the recovery contract the training side is held to.
+"""Fault injection and the recovery contract training and serving are held to.
 
     faults -- seedable, scoped, stamped injectors (FaultPlan, the
               "fault"/"recovery" emitters, a poisoned batch, a failing
               dispatch, a torn checkpoint)
-    retry  -- the bounded exponential backoff contract
+    retry  -- the bounded exponential backoff contract and RetryPolicy,
+              the serving dispatch's watchdog-aware retry
 
 The restart loop lives with the trainers (train/supervise.fit_supervised);
 the checkpoint integrity layer with the checkpoints (utils/checkpoint.py).
@@ -20,11 +21,12 @@ from glom_tpu_torch.resilience.faults import (
     nan_storm,
     truncate_newest_checkpoint,
 )
-from glom_tpu_torch.resilience.retry import next_backoff, validate_backoff
+from glom_tpu_torch.resilience.retry import RetryPolicy, next_backoff, validate_backoff
 
 __all__ = [
     "FaultPlan",
     "InjectedFault",
+    "RetryPolicy",
     "dispatch_fault",
     "emit_fault",
     "emit_recovery",

@@ -21,10 +21,12 @@ threshold.
     row's length hard-masked. Three consensus gathers: "windowed" (per
     token), "banded" (per page, the same values from a smaller working
     set), "banded-pallas" (the K4 kernel, `kernels/banded_consensus.py`;
-    its plain version on CPU tensors).
-
-The device page pool (`pool`/`page_idx`), `support_agreement` and
-`glom_forward_incremental` are not ported yet (ROADMAP queue A item 7).
+    its plain version on CPU tensors). Warm state arrives as a flat
+    `levels0` (a continuation's carry) or as pool pages by index
+    (`pool`/`page_idx`, serve/paged_columns.py; -1 takes the cold init).
+  * `glom_forward_incremental` is the tiered forward seeded from the input
+    delta's page support (`support_agreement` is its witness): rows whose
+    frame did not change start converged and pay the `min_iters` floor.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ from glom_tpu_torch.utils.helpers import (
     l2norm,
     max_neg_value,
 )
-
-_POOL_NOT_PORTED = "the page pool is not ported yet: ROADMAP queue A item 7"
 
 
 def batch_agreement(levels: torch.Tensor) -> torch.Tensor:
@@ -175,15 +175,20 @@ def quorum_need(quorum: float, n_valid: torch.Tensor) -> torch.Tensor:
     return need.to(torch.int32).clamp_min(1)
 
 
-def _tiered_loop(step, lv, row_agreement, valid, T, threshold, min_iters, quorum):
-    """The quorum-exit loop shared by the tiered and ragged auto routes:
-    (final state, iters_run, row_converged, row_iters)."""
+def _tiered_loop(step, lv, row_agreement, valid, T, threshold, min_iters, quorum,
+                 conv0=None, row_iters0=None):
+    """The quorum-exit loop shared by the tiered, incremental and ragged
+    auto routes: (final state, iters_run, row_converged, row_iters).
+    `conv0`/`row_iters0` seed rows that start converged (the incremental
+    route's clean rows); the min_iters floor sits in the exit test, so a
+    bucket converged from the start still pays it."""
     R = valid.shape[0]
     dev = valid.device
     need = quorum_need(quorum, valid.float().sum())
     prev = row_agreement(lv)
-    conv = torch.zeros(R, dtype=torch.bool, device=dev)
-    row_iters = torch.full((R,), T, dtype=torch.int32, device=dev)
+    conv = torch.zeros(R, dtype=torch.bool, device=dev) if conv0 is None else conv0
+    row_iters = (torch.full((R,), T, dtype=torch.int32, device=dev)
+                 if row_iters0 is None else row_iters0)
     i = 0
     while i < T:
         new = step(lv)
@@ -193,7 +198,8 @@ def _tiered_loop(step, lv, row_agreement, valid, T, threshold, min_iters, quorum
         row_iters = torch.where(newly & ~conv, i + 1, row_iters)
         conv = conv | newly
         lv, prev, i = new, agree, i + 1
-        if i < T and bool((conv & valid).sum() >= need):  # the one host read
+        # The one host read, taken only once the floor is paid.
+        if i < T and i >= min_iters and bool((conv & valid).sum() >= need):
             break
     # Rows that never converged executed (and still need) iters_run.
     row_iters = torch.where(conv, row_iters, i).to(torch.int32)
@@ -227,6 +233,79 @@ def glom_forward_tiered(
              else valid_mask.to(device=lv.device, dtype=torch.bool))
     final, iters_run, conv, row_iters = _tiered_loop(
         step, lv, batch_agreement, valid, T, threshold, min_iters, quorum
+    )
+    agreement = masked_level_agreement(final, valid_mask)
+    return TieredAutoResult(final, iters_run, agreement, conv, row_iters)
+
+
+def support_agreement(levels: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """Per-row [b, L] agreement restricted to the support token positions
+    ([b, n] bool: the input delta's page support expanded to tokens):
+    batch_agreement with both the mean direction and the cosine average
+    taken over support tokens only. Rows with empty support read 0.0 at
+    every level (constant across iterations: their delta is 0)."""
+    x = levels.float()
+    eps = 1e-8
+    xhat = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+    s = support.float()
+    w = s[:, :, None, None]  # [b, n, 1, 1]
+    cnt = w.sum(dim=(1, 2, 3)).clamp_min(1.0)  # [b]
+    mean = (xhat * w).sum(dim=1, keepdim=True) / cnt[:, None, None, None]
+    mhat = mean / (torch.linalg.vector_norm(mean, dim=-1, keepdim=True) + eps)
+    cos = (xhat * mhat).sum(dim=-1)  # [b, n, L]
+    return (cos * s[:, :, None]).sum(dim=1) / cnt[:, None]
+
+
+def glom_forward_incremental(
+    params,
+    img: torch.Tensor,
+    cfg: GlomConfig,
+    *,
+    max_iters: Optional[int] = None,
+    threshold: float = 1e-3,
+    min_iters: int = 1,
+    quorum: float = 1.0,
+    levels: Optional[torch.Tensor] = None,
+    support_mask: Optional[torch.Tensor] = None,
+    valid_mask: Optional[torch.Tensor] = None,
+    compute_dtype=None,
+    use_pallas: bool = False,
+) -> TieredAutoResult:
+    """The sparse incremental warm forward: glom_forward_tiered seeded from
+    the input delta's support. `support_mask` [b, n] marks the token
+    positions whose input changed since the frame that produced `levels`:
+
+      * rows with empty support (a hold frame) start converged: they count
+        toward the quorum from iteration zero, and a bucket of clean rows
+        pays exactly the `min_iters` floor (the floor sits in the exit
+        test);
+      * rows with support iterate under a witness computed on the support
+        (support_agreement), so the perturbed region's settling gates the
+        exit.
+
+    threshold 0.0, or no support, is exactly glom_forward_tiered: no row
+    converges and max_iters updates run, bit for bit the full warm path.
+    """
+    if threshold == 0.0 or support_mask is None:
+        return glom_forward_tiered(
+            params, img, cfg, max_iters=max_iters, threshold=threshold,
+            min_iters=min_iters, quorum=quorum, levels=levels, valid_mask=valid_mask,
+            compute_dtype=compute_dtype, use_pallas=use_pallas,
+        )
+    T = max_iters if max_iters is not None else cfg.default_iters
+    _validate_auto_args(T, min_iters, threshold)
+    step, lv = _build_update_step(params, img, cfg, levels, compute_dtype, use_pallas)
+    b = lv.shape[0]
+    dev = lv.device
+    valid = (torch.ones(b, dtype=torch.bool, device=dev) if valid_mask is None
+             else valid_mask.to(device=dev, dtype=torch.bool))
+    support = support_mask.to(device=dev, dtype=torch.bool)
+    row_dirty = support.any(dim=1)  # [b]
+    final, iters_run, conv, row_iters = _tiered_loop(
+        step, lv, lambda x: support_agreement(x, support), valid, T, threshold,
+        min_iters, quorum,
+        conv0=~row_dirty,  # empty support: converged before the first update
+        row_iters0=torch.where(row_dirty, T, 0).to(torch.int32),
     )
     agreement = masked_level_agreement(final, valid_mask)
     return TieredAutoResult(final, iters_run, agreement, conv, row_iters)
@@ -405,9 +484,12 @@ def glom_forward_ragged(
     order (T = pages x page_tokens; the embed runs here). n_patches: [R]
     per-row patch counts (int tensor on the patches' device), 0 marking
     unused row slots. route: "auto" (per-row witness, quorum exit, budget
-    max_iters) or an int (a fixed count). levels0 [T, L, d] carries warm
-    state in (the continuation form). threshold 0 runs exactly max_iters
-    updates, bit for bit the fixed route of the same budget.
+    max_iters) or an int (a fixed count). Warm state arrives one of two
+    ways: levels0 [T, L, d] (the continuation form), or pool [N,
+    page_tokens, L, d] with page_idx [T / page_tokens] int (the device page
+    pool; -1 takes the cold init page), gathered here so warm columns never
+    cross from the host. threshold 0 runs exactly max_iters updates, bit
+    for bit the fixed route of the same budget.
     """
     if cfg.local_consensus_radius > 0:
         raise ValueError(
@@ -415,8 +497,10 @@ def glom_forward_ragged(
             "row window has no per-resolution 2D grid to build a radius "
             "mask from)"
         )
-    if pool is not None or page_idx is not None:
-        raise NotImplementedError(f"glom_forward_ragged(pool=, page_idx=): {_POOL_NOT_PORTED}")
+    if pool is not None and levels0 is not None:
+        raise ValueError("pass levels0 OR pool+page_idx, not both")
+    if (pool is None) != (page_idx is None):
+        raise ValueError("pool and page_idx come together")
     auto = route == "auto"
     if auto:
         T_budget = max_iters if max_iters is not None else cfg.default_iters
@@ -453,10 +537,18 @@ def glom_forward_ragged(
     pos_flat = params.pos_emb[tok_off.clamp(0, params.pos_emb.shape[0] - 1).long()]
     pos = pos_flat[None, :, None, :]  # [1, T, 1, d]
     bottom = tokens[None, :, None, :]  # [1, T, 1, d]
-    if exists(levels0):
+    init = params.init_levels.to(tokens.dtype)  # [L, d]
+    if pool is not None:
+        # glom_tpu's order of casts: the pages to the tokens' dtype, then
+        # the cold pages (-1) replaced by the init broadcast.
+        page_idx = page_idx.to(device=patches.device, dtype=torch.long)
+        pages = pool[page_idx.clamp(0, pool.shape[0] - 1)].to(tokens.dtype)
+        pages = torch.where((page_idx >= 0)[:, None, None, None], pages, init)
+        levels = pages.reshape(1, T, cfg.levels, d)
+    elif exists(levels0):
         levels = levels0.to(tokens.dtype).reshape(1, T, cfg.levels, d).contiguous()
     else:
-        levels = params.init_levels.to(tokens.dtype).expand(1, T, cfg.levels, d).contiguous()
+        levels = init.expand(1, T, cfg.levels, d).contiguous()
     divisor = contribution_divisor(cfg.levels, torch.float32, patches.device)
 
     band = dict(row_start=row_start_tok, row_len=row_len_tok, window=window,

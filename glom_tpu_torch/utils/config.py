@@ -99,13 +99,14 @@ class ServeConfig:
     `ServeConfig` that the port's engine reads, with its names, defaults
     and checks.
 
-    The bucket route (fixed `iters` or `"auto"` early exit) and the ragged
+    The bucket route (fixed `iters` or `"auto"` early exit), the ragged
     route (`ragged=True`: rows of differing patch counts packed onto one
-    page-aligned token axis) are ported. The reference's other fields (the
-    batcher's admission and retry, meshes, the column cache, pool aliasing,
-    delta streaming, telemetry) belong to parts the port does not run yet
-    (ROADMAP queue A items 7-9); `page_pool_pages > 0` and
-    `max_continuations > 0` are accepted here and refused by the engine."""
+    page-aligned token axis), the device page pool with its delta streaming
+    and aliasing, and the engine's retry and phase split are ported. The
+    reference's other fields (the batcher's admission, QoS, the column
+    cache, elastic serving, meshes) belong to the host serving stack and
+    the parallel paths (ROADMAP queue A items 7 and 8);
+    `max_continuations > 0` is accepted here and refused by the engine."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
@@ -127,11 +128,30 @@ class ServeConfig:
     max_continuations: int = 0
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core serving
     use_pallas: bool = False  # True: the fused kernel path (name kept)
-    # Paged column memory: the page pool itself is not ported yet;
-    # page_tokens is the page granularity of the ragged route too (0
-    # resolves from the model, serve/paged_columns.resolve_page_tokens).
+    # Input donation: eager PyTorch donates nothing, so None resolves to
+    # False (glom_tpu resolves it to False off the TPU too).
+    donate: Optional[bool] = None
+    # Transient-dispatch retry (resilience/retry.RetryPolicy): a failed
+    # dispatch retries up to dispatch_retries times with exponential
+    # backoff from retry_backoff_ms, unless the backend is down. 0
+    # disables. Caller bugs (ValueError, TypeError) and kernel faults
+    # (kernels/_build.KernelError) never retry.
+    dispatch_retries: int = 2
+    retry_backoff_ms: float = 25.0
+    # Paged column memory (serve/paged_columns.py): page_pool_pages > 0
+    # preallocates one device buffer of [page_pool_pages, page_tokens, L,
+    # d] per engine; warm dispatches gather levels0 from it by page index
+    # (no levels0 crosses from the host) and write-backs copy converged
+    # columns into owned pages on the device. page_tokens is the page
+    # granularity (of the ragged route too; 0 resolves from the model,
+    # serve/paged_columns.resolve_page_tokens).
     page_pool_pages: int = 0
     page_tokens: int = 0
+    # In-place pool write-backs: True updates the pool's pages in place
+    # when no dispatch holds a read pin (the epoch advances), and falls
+    # back to copy-on-write, counted and stamped, when one does. False
+    # copies the whole pool on every write-back.
+    pool_aliasing: bool = False
     # Ragged admission: the page-count ladder (empty resolves from
     # max_batch and the pages of one full-resolution row) and the
     # consensus gather: "windowed" (per-token window), "banded" (per-page
@@ -139,6 +159,27 @@ class ServeConfig:
     ragged: bool = False
     ragged_pages: Tuple[int, ...] = ()
     ragged_attention: str = "windowed"
+    # Delta streaming (serve/paged_columns.PagedColumnPool.write_back_stream):
+    # a session keeps a paged base plus a chain of deltas holding only the
+    # pages whose residual exceeds delta_page_atol (0.0: any changed bit);
+    # the chain folds into the base at delta_chain_cap; delta_base_share
+    # lets content-identical bases share pool pages; delta_incremental is
+    # read by the batcher (not ported yet), which would route warm frames
+    # through serve/early_exit.glom_forward_incremental; it is kept here
+    # for default parity. Needs a page pool; the bucket route only.
+    delta_streaming: bool = False
+    delta_page_atol: float = 0.0
+    delta_chain_cap: int = 4
+    delta_base_share: bool = True
+    delta_incremental: bool = True
+    # The engine's latency split: each dispatch reports the ms it spent
+    # staging inputs (h2d) and reading results back (resolve).
+    phase_split: bool = True
+    # Per-collective wall time: a single-device engine has no collectives,
+    # so any mode resolves to "off" there, with a warning (the meshes are
+    # ROADMAP queue A item 8).
+    collective_timing: str = "off"
+    collective_timing_interval: int = 16
 
     def __post_init__(self):
         if not self.buckets:
@@ -170,6 +211,10 @@ class ServeConfig:
             raise ValueError(f"max_continuations {self.max_continuations} must be >= 0")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}: 'float32' or 'bfloat16'")
+        if self.dispatch_retries < 0:
+            raise ValueError(f"dispatch_retries {self.dispatch_retries} must be >= 0")
+        if self.retry_backoff_ms < 0:
+            raise ValueError(f"retry_backoff_ms {self.retry_backoff_ms} must be >= 0")
         if self.page_pool_pages < 0:
             raise ValueError(
                 f"page_pool_pages {self.page_pool_pages} must be >= 0 "
@@ -190,6 +235,11 @@ class ServeConfig:
                 f"ragged_attention {self.ragged_attention!r}: 'windowed', "
                 "'banded', or 'banded-pallas'"
             )
+        if self.pool_aliasing and self.page_pool_pages <= 0:
+            raise ValueError(
+                "pool_aliasing needs a device page pool "
+                "(page_pool_pages > 0): there is no buffer to alias"
+            )
         if self.ragged_pages:
             if list(self.ragged_pages) != sorted(set(self.ragged_pages)):
                 raise ValueError(
@@ -197,6 +247,34 @@ class ServeConfig:
                 )
             if any(p < 1 for p in self.ragged_pages):
                 raise ValueError(f"ragged_pages {self.ragged_pages} must be >= 1")
+        if self.delta_streaming:
+            if self.page_pool_pages <= 0:
+                raise ValueError(
+                    "delta_streaming needs a device page pool "
+                    "(page_pool_pages > 0): delta entries are pool pages"
+                )
+            if self.ragged:
+                raise ValueError(
+                    "delta_streaming rides the bucket route only (ragged "
+                    "delta chains are a documented follow-on)"
+                )
+        if self.delta_page_atol < 0:
+            raise ValueError(
+                f"delta_page_atol {self.delta_page_atol} must be >= 0 "
+                "(0.0 = exact: any changed bit stores the page)"
+            )
+        if self.delta_chain_cap < 1:
+            raise ValueError(f"delta_chain_cap {self.delta_chain_cap} must be >= 1")
+        if self.collective_timing not in ("off", "sampled", "full"):
+            raise ValueError(
+                f"collective_timing {self.collective_timing!r}: one of "
+                "('off', 'sampled', 'full')"
+            )
+        if self.collective_timing_interval < 1:
+            raise ValueError(
+                f"collective_timing_interval "
+                f"{self.collective_timing_interval} must be >= 1"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,9 +10,8 @@ its CLI reads the model and train configs and carries the mesh as data
 
 `serve` holds the fields of glom_tpu's serving policy that the port's
 `ServeConfig` has. The batcher's admission and the column cache (queue
-depth, admission delay, cache bytes and TTL, rejoin threshold, pool
-aliasing) and the serve mesh (mesh_data, mesh_seq) come with queue A items
-7 and 8.
+depth, admission delay, cache bytes and TTL, rejoin threshold) and the
+serve mesh (mesh_data, mesh_seq) come with queue A items 7 and 8.
 """
 
 from __future__ import annotations
@@ -122,7 +121,8 @@ _register(
 
 # 4. ImageNet-224, patch=14, levels=6, dim=512: the flagship. Its serving
 # policy: bf16 fused forward, a deeper bucket ladder, two-tier early exit
-# with continuations, and the paged pool (1 GiB of 64-token pages).
+# with continuations, and the paged pool (1 GiB of 64-token pages, aliased
+# write-backs).
 _register(
     Preset(
         name="imagenet224-dp8",
@@ -143,6 +143,7 @@ _register(
             page_pool_pages=2728,
             page_tokens=64,
             ragged_attention="banded",
+            pool_aliasing=True,
         ),
     )
 )

@@ -101,16 +101,18 @@ def test_rejects_non_bucket_batches(engines):
 
 
 def test_unported_routes_raise():
-    """The early-exit and ragged routes are ported (test_torch_port_early_exit,
-    test_torch_port_ragged); the page pool and meshes still raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(GlomConfig(**TINY), ServeConfig(page_pool_pages=8), device="cpu")
+    """The early-exit, ragged and paged routes are ported
+    (test_torch_port_early_exit, test_torch_port_ragged,
+    test_torch_port_paged); meshes and the batcher's continuation hops
+    still raise, and the paged forms need a pool."""
     with pytest.raises(NotImplementedError, match="item 8"):
         InferenceEngine(GlomConfig(**TINY), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 7"):
+        InferenceEngine(GlomConfig(**TINY), ServeConfig(max_continuations=1), device="cpu")
     eng = InferenceEngine(GlomConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="page pool"):
         eng.infer(_batch(0, 1, 1), page_rows=np.zeros((1, 4), np.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="page pool"):
         eng.infer_ragged(np.zeros((16, 48), np.float32), [16], page_idx=np.zeros(4, np.int32))
 
 

@@ -1123,3 +1123,90 @@ def test_ragged_dispatch_runs_k1_and_k4(dev):
     assert res.levels.device.type == "cuda" and bool(torch.isfinite(res.levels.float()).all())
     again = auto.infer_ragged(flat, n)
     assert again.iters_run == T and torch.equal(again.levels, res.levels)
+
+
+def _pool_config(**over):
+    cfg = GlomConfig(dim=128, levels=3, image_size=32, patch_size=4)  # n = 64, pages of 16
+    kw = dict(buckets=(1, 2), max_batch=2, page_pool_pages=16, compute_dtype="bfloat16",
+              use_pallas=True)
+    return cfg, ServeConfig(**dict(kw, **over))
+
+
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_page_pool_on_card(dev, aliasing):
+    """Write-backs, reads, a pinned write's fallback, delta pages and the
+    release, on CUDA tensors: the same page bytes under copy-on-write and
+    in place, and the buffer's memory returned on release."""
+    from glom_tpu_torch.serve.paged_columns import PagedColumnPool
+
+    cfg, scfg = _pool_config(pool_aliasing=aliasing)
+    pool = PagedColumnPool(cfg, scfg, device=dev)
+    assert pool.buffer().device.type == "cuda" and pool.buffer().dtype == torch.bfloat16
+    rows = [_rand(np.random.default_rng(s), 64, 3, 128).to(dev, torch.bfloat16) for s in (3, 4)]
+    assert pool.write_back("a", rows[0], 64)
+    snap = pool.acquire_read()
+    assert pool.write_back("b", rows[1], 64)  # pinned: copy-on-write either way
+    pool.release_read()
+    assert not snap[4:8].any()  # the pinned snapshot kept its pages
+    assert pool.write_back("a", rows[1], 64)
+    assert torch.equal(pool.read_block("a").to(dev), rows[1])
+    assert torch.equal(pool.read_block("b").to(dev), rows[1])
+    alias = pool.record().get("alias")
+    assert alias is None or (alias["n_alias_writes"], alias["n_alias_fallbacks"]) == (2, 1)
+    del snap
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    pool.release()
+    assert held - torch.cuda.memory_allocated(dev) >= pool.pool_bytes
+
+
+def test_delta_stream_on_card(dev):
+    from glom_tpu_torch.serve.paged_columns import PagedColumnPool
+
+    cfg, scfg = _pool_config(delta_streaming=True, delta_chain_cap=2)
+    pool = PagedColumnPool(cfg, scfg, device=dev)
+    row = torch.zeros(64, 3, 128, dtype=torch.bfloat16, device=dev)
+    pool.write_back_stream("s", row, 64)
+    neg = row.clone()
+    neg[20, 0, 0] = -0.0  # page 1: a changed bit
+    assert pool.write_back_stream("s", neg, 64)["pages_written"] == 1
+    neg2 = neg.clone()
+    neg2[50] = 1.0  # page 3: the chain folds at the cap
+    assert pool.write_back_stream("s", neg2, 64)["kind"] == "compact"
+    assert torch.equal(pool.read_block("s").to(dev).view(torch.int16), neg2.view(torch.int16))
+
+
+def test_paged_dispatches_on_card(dev):
+    """The paged warm dispatch equals the host-carried one bit for bit, with
+    the fixed route's launches; the ragged pool form equals its levels0
+    form."""
+    from glom_tpu_torch.serve import pack_ragged
+
+    cfg, scfg = _pool_config()
+    eng = InferenceEngine(cfg, scfg, device="cuda")
+    imgs = _rand(np.random.default_rng(5), 2, 3, 32, 32)
+    cold = eng.infer(imgs)
+    assert eng.pool.write_back("r0", cold.levels[1], 64)
+    page_rows = np.array([[-1] * 4, eng.pool.lookup("r0")[0]], np.int32)
+    before = (k1.LAUNCHES, k2.LAUNCHES)
+    paged = eng.infer(imgs, page_rows=page_rows)
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (2 * 6, 6)
+    carry = torch.stack([eng.cold_levels(), cold.levels[1].cpu()])
+    host = eng.infer(imgs, levels0=carry)
+    assert torch.equal(paged.levels, host.levels)
+    assert paged.levels0_h2d_bytes == 0 and host.levels0_h2d_bytes == carry.numel() * 2
+
+    rcfg, rscfg = _pool_config(ragged=True, ragged_attention="banded-pallas")
+    ragged = InferenceEngine(rcfg, rscfg, params=eng.params, device="cuda")
+    rng = np.random.default_rng(6)
+    flat, n = pack_ragged([rng.standard_normal((3, 32, 32)).astype(np.float32),
+                           rng.standard_normal((3, 16, 24)).astype(np.float32)],
+                          4, ragged.page_tokens, ragged.pick_pages(6))
+    assert ragged.pool.write_back("r0", cold.levels[0], 64)
+    page_idx = np.full(len(flat) // ragged.page_tokens, -1, np.int32)
+    page_idx[:4] = ragged.pool.lookup("r0")[0]
+    warm = ragged.infer_ragged(flat, n, page_idx=page_idx)
+    lv0 = torch.stack([ragged.cold_levels()[0]] * len(flat)).to(dev)
+    lv0[:64] = cold.levels[0]
+    again = ragged.infer_ragged(flat, n, levels0=lv0)
+    assert torch.equal(warm.levels, again.levels) and warm.levels0_h2d_bytes == 0

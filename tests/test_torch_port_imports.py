@@ -33,7 +33,9 @@ def _module_names():
 def test_the_checks_cover_every_module():
     names = _module_names()
     for module in ("glom_tpu_torch.serve.early_exit", "glom_tpu_torch.serve.paged_columns",
-                   "glom_tpu_torch.serve.batcher", "glom_tpu_torch.kernels.banded_consensus"):
+                   "glom_tpu_torch.serve.batcher", "glom_tpu_torch.kernels.banded_consensus",
+                   "glom_tpu_torch.serve.engine", "glom_tpu_torch.serve.events",
+                   "glom_tpu_torch.resilience.retry", "glom_tpu_torch.telemetry.watchdog"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         assert path in PORT_FILES

@@ -126,9 +126,11 @@ def test_glom_module_matches_reference(use_pallas):
 
 
 def test_glom_unported_routes_raise():
+    """iters="auto" is ported (test_torch_port_serve_engine); with
+    return_all it is refused, as glom_tpu refuses it, and meshes raise."""
     m = Glom(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 3, 16, 16), iters="auto")
+    with pytest.raises(ValueError, match="return_all"):
+        m(torch.zeros(1, 3, 16, 16), iters="auto", return_all=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Glom(**TINY, device="cpu", mesh=object())
 

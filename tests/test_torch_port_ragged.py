@@ -418,9 +418,14 @@ class TestGlomForwardRagged:
         _, tcfg, _, tp = model
         flat, _ = _flat_patches(MIX, 10)
         kw = dict(n_patches=torch.from_numpy(MIX_N), page_tokens=PT, route=2)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="come together"):
             tee.glom_forward_ragged(tp, torch.from_numpy(flat), tcfg,
                                     page_idx=torch.zeros(10, dtype=torch.int32), **kw)
+        with pytest.raises(ValueError, match="levels0 OR pool"):
+            tee.glom_forward_ragged(tp, torch.from_numpy(flat), tcfg,
+                                    pool=torch.zeros(4, PT, 3, 32),
+                                    page_idx=torch.zeros(10, dtype=torch.int32),
+                                    levels0=torch.zeros(flat.shape[0], 3, 32), **kw)
         with pytest.raises(ValueError, match="local_consensus_radius"):
             tee.glom_forward_ragged(tp, torch.from_numpy(flat),
                                     GlomConfig(**TINY, local_consensus_radius=1), **kw)
@@ -510,11 +515,15 @@ class TestEngineRagged:
     def test_pool_refused(self, engines):
         _, port = engines["fixed"]
         flat, _ = _flat_patches([16], 4)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="page pool"):
             port.infer_ragged(flat, [16], page_idx=np.zeros(4, np.int32))
-        with pytest.raises(NotImplementedError, match="item 7"):
-            InferenceEngine(GlomConfig(**TINY), ServeConfig(**SCFG, page_pool_pages=8),
-                            device="cpu")
+        pooled = InferenceEngine(GlomConfig(**TINY), ServeConfig(**SCFG, page_pool_pages=8),
+                                 device="cpu")
+        with pytest.raises(ValueError, match="mid-flight"):
+            pooled.infer_ragged(flat, [16], page_idx=np.zeros(4, np.int32),
+                                levels0=np.zeros((16, 3, 32), np.float32))
+        with pytest.raises(ValueError, match=r"page_idx shape"):
+            pooled.infer_ragged(flat, [16], page_idx=np.zeros(3, np.int32))
         with pytest.raises(NotImplementedError, match="item 7"):
             InferenceEngine(GlomConfig(**TINY),
                             ServeConfig(**dict(SCFG, max_continuations=1, iters="auto")),
