@@ -76,6 +76,23 @@ after:
     write-back); Glom(iters="auto"); a dispatch fault that the retry
     recovers bit for bit and a KernelError that it does not retry; and the
     release of an engine's pool.
+  * the serving host stack (`serve_host_stack`): DynamicBatcher over the
+    engines. The fixed route behind the batcher (closed-loop clients for
+    the ceiling, then open-loop arrivals at fractions of it: request
+    latency p50/p95/p99, requests/s, dispatches per bucket, exact launches
+    per dispatch, every ticket bit for bit an engine.infer replay of its
+    padded bucket, an f32 engine against the plain path); the auto route
+    with quorum exit and continuation hops against the batch-level exit on
+    heterogeneous traffic, in turns (iterations by tier, hops, the
+    continuations' levels0 bytes; threshold 0 bit for bit the fixed loop);
+    session streams warm from the page pool (48 hits, no levels0 bytes on
+    warm rows, the cache within its budget); two engines on the card, one
+    failing, failing over, dying, on probation and rejoining (its cache
+    entries dropped before any requeue); ragged admission of 224/168/112/
+    56-px requests bit for bit `infer_ragged`; and `python -m
+    glom_tpu_torch.serve` at the imagenet224-dp8 preset with a killed
+    engine, its stream linted. Each kernel's launches there ride the
+    kernels line as `batcher_launches`.
   * the training CLI (`python -m glom_tpu_torch.train.cli`, in process)
     at the imagenet224-dp8 preset, batch 64, on the loop: 4 steps on .npy
     shards with a checkpoint every 2, then --resume to 6, with the exact
@@ -167,10 +184,506 @@ POOL_PAGES = 96
 PAGED_DISPATCHES = 20
 INC_MIN_ITERS = 2
 WRITEBACK_ROUNDS = 20
+# The serving host stack (DynamicBatcher over the engine): closed-loop
+# clients and requests each for the ceiling, open-loop requests per load
+# (as fractions of that ceiling), the two-tier mix (requests, the hard
+# share at 100x scale, passes per arm in turns), the stream's sessions and
+# frames, and the serve CLI's ramp.
+BATCHER_CLIENTS = 8
+BATCHER_PER_CLIENT = 16
+OPEN_LOOP_REQUESTS = 96
+OPEN_LOOP_LOADS = (0.5, 0.9)
+TWO_TIER_REQUESTS = 32
+TWO_TIER_HARD = 0.25
+TWO_TIER_PASSES = 2
+STREAM_SESSIONS = 16
+STREAM_FRAMES = 4
+CLI_RAMP = "8x2,32x0,8x2"
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+class _Tap:
+    """A writer that keeps every stamped record (list appends are atomic,
+    so worker threads may write concurrently)."""
+
+    def __init__(self):
+        self.recs = []
+
+    def write(self, rec):
+        self.recs.append(rec)
+
+    def events(self, *names):
+        return [r for r in self.recs if r.get("event") in names]
+
+
+def serve_host_stack(cfg, params, dev, engine, ragged, fixed_loop, compare,
+                     cli_argv=None) -> dict:
+    """The serving host stack on the card: DynamicBatcher over the port's
+    engines at the given width, in six phases (serve_batcher,
+    serve_two_tier, serve_stream, serve_fanout, serve_ragged_batcher,
+    serve_cli). `engine` is a warmed fixed-route bucket engine, `ragged` a
+    warmed ragged one, `fixed_loop(imgs)` the fixed loop of the auto
+    route's step; `cli_argv` the serve CLI's preset and device arguments.
+    Returns each kernel's launches over the phases' main-path runs (the
+    replays that hold them to the engine are not counted). Raises on the
+    first failed check."""
+    import collections
+    import dataclasses
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import glom_tpu_torch.kernels.banded_consensus as k4
+    import glom_tpu_torch.kernels.consensus_update as k2
+    import glom_tpu_torch.kernels.grouped_mlp as k1
+    from glom_tpu_torch import InferenceEngine, ServeConfig, glom_forward
+    from glom_tpu_torch.models.core import map_params
+    from glom_tpu_torch.resilience import FaultPlan, dispatch_fault
+    from glom_tpu_torch.serve import DynamicBatcher, ShedError, column_state_bytes, pack_ragged
+    from glom_tpu_torch.serve.batcher import ragged_row_starts
+
+    T, side, n_tok = cfg.default_iters, cfg.image_size, cfg.num_patches
+    shape = (cfg.channels, side, side)
+    rng = np.random.default_rng(SEED)
+    pool_imgs = [rng.standard_normal(shape).astype(np.float32) for _ in range(32)]
+    batcher_launches = collections.Counter()
+
+    def zero():
+        k1.LAUNCHES = k1.LAUNCHES_ADD = k2.LAUNCHES = k4.LAUNCHES = 0
+
+    def take():
+        """This run's launches (K1, K1 with the addend, K2, K4), added to
+        the kernels line's batcher totals."""
+        got = (k1.LAUNCHES, k1.LAUNCHES_ADD, k2.LAUNCHES, k4.LAUNCHES)
+        batcher_launches.update({"grouped_mlp_fwd": got[0] - got[1],
+                                 "grouped_mlp_fwd_add": got[1],
+                                 "consensus_update_fwd": got[2],
+                                 "banded_consensus_fwd": got[3]})
+        return got
+
+    def ms(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+
+    def conserved(b, tickets, tap):
+        """(summary, ok): every admitted request served, none failed, each
+        resolved exactly once (one resolve leaf per trace)."""
+        s = b.summary_record()
+        leaves = collections.Counter(r["trace_id"] for r in tap.events("resolve"))
+        ok = (s["n_submitted"] == s["n_served"] == len(tickets) and s["n_failed"] == 0
+              and all(t.done() for t in tickets) and len(leaves) == len(tickets)
+              and all(leaves[t.trace_id] == 1 for t in tickets))
+        return s, ok
+
+    def fixed_launches_ok(got, n_dispatch):
+        return got == (2 * T * n_dispatch, T * n_dispatch, T * n_dispatch, 0)
+
+    def replay_buckets(eng, tap, by_trace):
+        """Each dispatch again through engine.infer on the same padded
+        bucket: True iff every ticket's levels equal it bit for bit."""
+        ok = True
+        for r in tap.events("dispatch"):
+            rows = [by_trace[tid] for tid in r["trace_ids"]]
+            imgs = np.zeros((r["bucket"], *shape), np.float32)
+            for i, (img, _) in enumerate(rows):
+                imgs[i] = img
+            want = eng.infer(imgs, n_valid=r["n_valid"]).levels[:r["n_valid"]].cpu()
+            ok &= all(torch.equal(t.result()[0], want[i]) for i, (_, t) in enumerate(rows))
+        return ok
+
+    # -- serve_batcher: the fixed route behind the batcher --------------------
+    def closed_loop(b):
+        done = [[] for _ in range(BATCHER_CLIENTS)]
+
+        def client(c):
+            for j in range(BATCHER_PER_CLIENT):
+                k = (c * BATCHER_PER_CLIENT + j) % len(pool_imgs)
+                t = b.submit(pool_imgs[k])
+                t.result(timeout=300)
+                done[c].append((pool_imgs[k], t))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(BATCHER_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        return [x for xs in done for x in xs], time.perf_counter() - t0, 0
+
+    def open_loop(b, rate):
+        gaps = np.random.default_rng(SEED + 1).exponential(1.0 / rate, OPEN_LOOP_REQUESTS)
+        out, shed = [], 0
+        t0 = t_next = time.perf_counter()
+        for k in range(OPEN_LOOP_REQUESTS):
+            t_next += gaps[k]
+            wait = t_next - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            img = pool_imgs[k % len(pool_imgs)]
+            try:
+                out.append((img, b.submit(img)))
+            except ShedError:
+                shed += 1
+        for _, t in out:
+            t.result(timeout=300)
+        return out, time.perf_counter() - t0, shed
+
+    runs, ceiling = {}, None
+    for name in ("closed", *(f"open_{f}" for f in OPEN_LOOP_LOADS)):
+        tap = _Tap()
+        b = DynamicBatcher(engine, writer=tap)
+        b.start()
+        zero()
+        if name == "closed":
+            done, wall, shed = closed_loop(b)
+        else:
+            done, wall, shed = open_loop(b, float(name.split("_")[1]) * ceiling)
+        b.stop()
+        got = take()
+        s, ok = conserved(b, [t for _, t in done], tap)
+        disp = tap.events("dispatch")
+        launches_ok = fixed_launches_ok(got, len(disp))
+        bitwise = replay_buckets(engine, tap, {t.trace_id: (img, t) for img, t in done})
+        lat = [t.result()[2] for _, t in done]
+        rps = len(done) / wall
+        if name == "closed":
+            ceiling = rps
+        busy = [r["h2d_ms"] + r["device_ms"] + r["resolve_ms"] for r in disp]
+        runs[name] = dict(
+            requests=len(done), shed=shed, requests_per_s=rps, wall_s=wall,
+            latency_ms={"p50": ms(lat, 50), "p95": ms(lat, 95), "p99": ms(lat, 99)},
+            dispatch_engine_ms_p50=float(np.median(busy)), dispatches=len(disp),
+            dispatches_per_bucket=dict(collections.Counter(str(r["bucket"]) for r in disp)),
+            mean_batch=s["mean_batch"], latency_phases_ms=s.get("latency_phases"),
+            launches={"K1": got[0], "K1_add": got[1], "K2": got[2], "K4": got[3]},
+            launches_exact=launches_ok, conserved=ok, bitwise_equal_engine_replay=bitwise)
+        if not (ok and launches_ok and bitwise):
+            emit("serve_batcher", failed_run=name, **runs[name])
+            raise AssertionError(f"serve_batcher {name}: conserved {ok}, launches {got} "
+                                 f"over {len(disp)} dispatches, replay bitwise {bitwise}")
+    # An f32 engine through the batcher against the plain f32 path.
+    f32_eng = InferenceEngine(cfg, ServeConfig(buckets=(2,), max_batch=2, use_pallas=True),
+                              params=params, device=dev)
+    with DynamicBatcher(f32_eng, max_delay_ms=1000.0) as b32:
+        ts = [b32.submit(img) for img in pool_imgs[:2]]
+        got32 = torch.stack([t.result(timeout=300)[0] for t in ts])
+    with torch.inference_mode():
+        plain32 = glom_forward(map_params(lambda t: t.to(dev), params),
+                               torch.from_numpy(np.stack(pool_imgs[:2])).to(dev), cfg,
+                               use_pallas=False).cpu()
+    ok32, err32, rel32, ratio32 = compare(got32, plain32, 2e-3, 2e-4)
+    emit("serve_batcher", max_batch=engine.scfg.max_batch,
+         max_delay_ms=engine.scfg.max_delay_ms, clients=BATCHER_CLIENTS,
+         ceiling_requests_per_s=ceiling, runs=runs,
+         f32_parity=dict(rtol=2e-3, atol=2e-4, max_abs_err=err32, max_rel_err=rel32,
+                         bar_ratio=ratio32, ok=ok32))
+    if not ok32:
+        raise AssertionError("an f32 engine through the batcher disagrees with the plain path")
+
+    # -- serve_two_tier: the auto route, quorum exit with continuation hops ------
+    base = ServeConfig(buckets=(1, 2, 4, 8), max_batch=8, iters="auto",
+                       compute_dtype="bfloat16", use_pallas=True)
+    arms = {"two_tier": dataclasses.replace(base, exit_quorum=0.5, max_continuations=2),
+            "batch_level": dataclasses.replace(base, exit_quorum=1.0, max_continuations=0)}
+    tt_engines = {a: InferenceEngine(cfg, c, params=params, device=dev) for a, c in arms.items()}
+    for e in tt_engines.values():
+        e.warmup()
+    n_hard = int(round(TWO_TIER_HARD * TWO_TIER_REQUESTS))
+    hard = set(np.linspace(0, TWO_TIER_REQUESTS - 1, n_hard).astype(int).tolist())
+    trng = np.random.default_rng(SEED + 7)
+    tt_imgs = [trng.standard_normal(shape).astype(np.float32) * (100.0 if i in hard else 1.0)
+               for i in range(TWO_TIER_REQUESTS)]
+    budget = tt_engines["two_tier"].auto_budget
+    tt = {a: dict(iters=[], hard_iters=[], hops=[], lat=[], h2d=0, cont_h2d=0, k1=0)
+          for a in arms}
+    for p in range(TWO_TIER_PASSES):
+        for arm in (("two_tier", "batch_level") if p % 2 == 0 else ("batch_level", "two_tier")):
+            tap, acc = _Tap(), tt[arm]
+            b = DynamicBatcher(tt_engines[arm], writer=tap)
+            b.start()
+            zero()
+            tickets = []
+            for w in range(0, TWO_TIER_REQUESTS, 8):
+                window = [b.submit(img) for img in tt_imgs[w:w + 8]]
+                for t in window:
+                    t.result(timeout=300)
+                tickets += window
+            b.stop()
+            got = take()
+            s, ok = conserved(b, tickets, tap)
+            disp = tap.events("dispatch")
+            steps = sum(r["iters_run"] for r in disp)
+            within = all(t.result()[1] <= budget for t in tickets)
+            if not (ok and within and got == (2 * steps, got[1], 0, 0)):
+                raise AssertionError(f"serve_two_tier {arm}: conserved {ok}, within budget "
+                                     f"{within}, launches {got} for {steps} updates")
+            for i, t in enumerate(tickets):
+                acc["iters"].append(t.result()[1])
+                acc["hops"].append(t.hops)
+                acc["lat"].append(t.result()[2])
+                if i in hard:
+                    acc["hard_iters"].append(t.result()[1])
+            acc["h2d"] += s["levels0_h2d_bytes"]
+            acc["cont_h2d"] += sum(r["levels0_h2d_bytes"] for r in disp if r["tier"] > 0)
+            acc["k1"] += got[0]
+    # Threshold 0: nothing exits, no row straggles, and every ticket equals
+    # the fixed loop of the same step on its padded bucket, bit for bit.
+    eng0 = InferenceEngine(cfg, dataclasses.replace(arms["two_tier"], exit_threshold=0.0),
+                           params=params, device=dev)
+    with DynamicBatcher(eng0, max_delay_ms=1000.0) as b0:
+        ts0 = [b0.submit(img) for img in tt_imgs[:8]]
+        for t in ts0:
+            t.result(timeout=300)
+    want0 = fixed_loop(np.stack(tt_imgs[:8]))[:8].cpu()
+    bitwise0 = all(torch.equal(t.result()[0], want0[i]) and t.result()[1] == T and t.hops == 0
+                   for i, t in enumerate(ts0))
+
+    def tier_means(acc):
+        out = collections.defaultdict(list)
+        for it, h in zip(acc["iters"], acc["hops"]):
+            out[str(h)].append(it)
+        return {h: float(np.mean(v)) for h, v in sorted(out.items())}
+
+    emit("serve_two_tier", budget=budget, requests=TWO_TIER_REQUESTS, hard_share=TWO_TIER_HARD,
+         hard_scale=100.0, passes_per_arm=TWO_TIER_PASSES, order="arms in turns",
+         exit_threshold=base.exit_threshold,
+         arms={a: dict(quorum=arms[a].exit_quorum, max_continuations=arms[a].max_continuations,
+                       mean_executed_iters=float(np.mean(acc["iters"])),
+                       mean_iters_hard=float(np.mean(acc["hard_iters"])),
+                       mean_iters_by_tier=tier_means(acc),
+                       hops_histogram=dict(collections.Counter(map(str, acc["hops"]))),
+                       latency_ms={"p50": ms(acc["lat"], 50), "p99": ms(acc["lat"], 99)},
+                       levels0_h2d_bytes=acc["h2d"],
+                       continuation_levels0_h2d_bytes=acc["cont_h2d"],
+                       k1_launches=acc["k1"])
+               for a, acc in tt.items()},
+         launches_per_update={"K1": 2, "K2": 0}, threshold0_bitwise_equal_fixed=bitwise0)
+    if not bitwise0:
+        raise AssertionError("two-tier at threshold 0 differs from the fixed loop of its step")
+
+    # -- serve_stream: session warm starts from the page pool --------------------
+    scfg_s = ServeConfig(buckets=(1, 2, 4, 8), max_batch=8, iters="auto",
+                         compute_dtype="bfloat16", use_pallas=True, page_pool_pages=POOL_PAGES)
+    budget_s = STREAM_SESSIONS * column_state_bytes(cfg, scfg_s)
+    scfg_s = dataclasses.replace(scfg_s, column_cache_bytes=budget_s)
+    s_eng = InferenceEngine(cfg, scfg_s, params=params, device=dev)
+    for warm in (False, "paged"):
+        s_eng.warmup(warm=warm)
+    srng = np.random.default_rng(SEED + 11)
+    bases = [100.0 * srng.standard_normal(shape).astype(np.float32)
+             for _ in range(STREAM_SESSIONS)]
+    frames = [[(bases[s] + 0.05 * srng.standard_normal(shape)).astype(np.float32)
+               for _ in range(STREAM_FRAMES)] for s in range(STREAM_SESSIONS)]
+    tap = _Tap()
+    b = DynamicBatcher(s_eng, writer=tap)
+    b.start()
+    zero()
+    results = [[None] * STREAM_FRAMES for _ in range(STREAM_SESSIONS)]
+
+    def stream(s):
+        for f in range(STREAM_FRAMES):
+            t = b.submit(frames[s][f], session_id=f"cam{s}")
+            t.result(timeout=300)
+            results[s][f] = t
+
+    threads = [threading.Thread(target=stream, args=(s,)) for s in range(STREAM_SESSIONS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    b.stop()
+    got = take()
+    tickets = [t for row in results for t in row]
+    s, ok = conserved(b, tickets, tap)
+    disp = tap.events("dispatch")
+    steps = sum(r["iters_run"] for r in disp)
+    cache = s["column_cache"]
+    warm_h2d = sum(r["levels0_h2d_bytes"] for r in disp if r["n_page_warm"])
+    stream_ok = (ok and cache["n_hits"] == STREAM_SESSIONS * (STREAM_FRAMES - 1)
+                 and warm_h2d == 0 and s["levels0_h2d_bytes"] == 0
+                 and cache["bytes_peak"] <= cache["budget_bytes"]
+                 and got == (2 * steps, got[1], 0, 0))
+    first_iters = [row[0].result()[1] for row in results]
+    later_iters = [t.result()[1] for row in results for t in row[1:]]
+    emit("serve_stream", sessions=STREAM_SESSIONS, frames=STREAM_FRAMES, pool_pages=POOL_PAGES,
+         budget_bytes=budget_s, hits=cache["n_hits"], misses=cache["n_misses"],
+         evictions=cache["n_evictions"], bytes_peak=cache["bytes_peak"],
+         warm_rows=s["n_page_warm"], warm_levels0_h2d_bytes=warm_h2d,
+         levels0_h2d_bytes=s["levels0_h2d_bytes"], mean_iters_frame1=float(np.mean(first_iters)),
+         mean_iters_frames2_4=float(np.mean(later_iters)), dispatches=len(disp),
+         mean_batch=s["mean_batch"],
+         latency_ms={"p50": ms([t.result()[2] for t in tickets], 50),
+                     "p99": ms([t.result()[2] for t in tickets], 99)},
+         launches={"K1": got[0], "K2": got[2]}, conserved=ok, ok=stream_ok)
+    if not stream_ok:
+        raise AssertionError("serve_stream: hits, warm bytes, budget, launches or conservation")
+    del s_eng
+
+    # -- serve_fanout: two engines on the card, failover and rejoin -------------
+    fcfg = ServeConfig(buckets=(1, 2, 4, 8), max_batch=8, compute_dtype="bfloat16",
+                       use_pallas=True, rejoin_threshold=2, rejoin_interval_ms=20.0)
+    fcfg = dataclasses.replace(fcfg, column_cache_bytes=4 * column_state_bytes(cfg, fcfg))
+    tap = _Tap()
+    # Engine 1's dispatch calls 2..7 raise: its third and fourth dispatches
+    # fail after their retries (three attempts each), then the window closes.
+    plan = FaultPlan(SEED, writer=tap).register("engine1-dispatch", at=range(2, 8),
+                                                fault="engine-dead")
+    fan = [InferenceEngine(cfg, fcfg, params=params, device=dev, name=f"engine{i}",
+                           fault_hook=dispatch_fault(plan, "engine1-dispatch") if i else None)
+           for i in range(2)]
+    for e in fan:
+        e.warmup()
+    b = DynamicBatcher(engines=fan, writer=tap)
+    for i in range(2):  # entries engine 1 wrote: its failure must drop them
+        b.cache.store(f"pre{i}", torch.zeros(n_tok, cfg.levels, cfg.dim, dtype=torch.bfloat16),
+                      engine="engine1")
+    stale_at_failover = []
+
+    def watch(rec):
+        if rec.get("event") == "engine_failover" and rec.get("engine") == "engine1":
+            stale_at_failover.append(sum(e.engine == "engine1"
+                                         for e in list(b.cache._entries.values())))
+
+    b.add_event_tap(watch)
+    b.start()
+    zero()
+    stop_at = time.monotonic() + 120.0
+    done = []
+
+    def rejoined_and_serving():
+        with b._engine_lock:
+            st = dict(b._engine_state["engine1"])
+        return st["rejoins"] >= 1 and st["dispatches"] >= 3
+
+    def fan_client(c):
+        k = c
+        while time.monotonic() < stop_at and not rejoined_and_serving():
+            img = pool_imgs[k % len(pool_imgs)]
+            t = b.submit(img)
+            t.result(timeout=300)
+            done.append((img, t))
+            k += BATCHER_CLIENTS
+
+    threads = [threading.Thread(target=fan_client, args=(c,)) for c in range(BATCHER_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    b.stop()
+    got = take()
+    s, ok = conserved(b, [t for _, t in done], tap)
+    disp = tap.events("dispatch")
+    life = [(r["event"], r.get("engine")) for r in tap.events(
+        "engine_failover", "engine_dead", "engine_probation", "engine_rejoin",
+        "cache_invalidate")]
+    order = [e for e, who in life if who == "engine1" and e != "cache_invalidate"]
+    first_fail = next(i for i, (e, _) in enumerate(life) if e == "engine_failover")
+    invalidated_first = any(e == "cache_invalidate" and who == "engine1"
+                            for e, who in life[:first_fail])
+    probes = sum(r["health_dispatches"] for r in tap.events("engine_rejoin"))
+    n_fwd = len(disp) + probes
+    fan_ok = (ok and order == ["engine_failover", "engine_failover", "engine_dead",
+                               "engine_probation", "engine_rejoin"]
+              and invalidated_first and stale_at_failover == [0, 0]
+              and fixed_launches_ok(got, n_fwd) and s["n_redispatched"] > 0)
+    bitwise = replay_buckets(fan[0], tap, {t.trace_id: (img, t) for img, t in done})
+    emit("serve_fanout", engines={n: {k: v for k, v in st.items() if k != "retry"}
+                                  for n, st in s["engines"].items()},
+         requests=len(done), dispatches=len(disp), health_dispatches=probes,
+         redispatched=s["n_redispatched"], lifecycle=order,
+         cache_invalidated_before_requeue=invalidated_first,
+         engine1_entries_at_failover=stale_at_failover,
+         launches={"K1": got[0], "K1_add": got[1], "K2": got[2]},
+         launches_per_dispatch={"K1": 2 * T, "K2": T},
+         faults_injected=sum(1 for r in tap.recs if r.get("kind") == "fault"),
+         bitwise_equal_engine_replay=bitwise, conserved=ok, ok=fan_ok and bitwise)
+    if not (fan_ok and bitwise):
+        raise AssertionError(f"serve_fanout: lifecycle {order}, invalidated first "
+                             f"{invalidated_first}, launches {got} over {n_fwd}, conserved {ok}")
+    del fan
+
+    # -- serve_ragged_batcher: mixed resolutions through ragged admission --------
+    pt = ragged.page_tokens
+    sides = [side, side * 3 // 4, side // 2, side // 4]
+    rrng = np.random.default_rng(SEED + 13)
+    tap = _Tap()
+    b = DynamicBatcher(ragged, writer=tap, max_delay_ms=1000.0)
+    b.start()
+    zero()
+    done = []
+    for _ in range(4):
+        imgs = [rrng.standard_normal((cfg.channels, sd, sd)).astype(np.float32)
+                for sd in sides for _ in range(2)]
+        window = [(img, b.submit(img)) for img in imgs]
+        for _, t in window:
+            t.result(timeout=300)
+        done += window
+    b.stop()
+    got = take()
+    s, ok = conserved(b, [t for _, t in done], tap)
+    disp = tap.events("dispatch")
+    by_trace = {t.trace_id: (img, t) for img, t in done}
+    bitwise = True
+    for r in disp:
+        rows = [by_trace[tid] for tid in r["trace_ids"]]
+        flat, n_p = pack_ragged([img for img, _ in rows], cfg.patch_size, pt, r["n_pages"])
+        want = ragged.infer_ragged(flat, n_p).levels.cpu()
+        for (_, t), st, c in zip(rows, ragged_row_starts(n_p, pt), n_p):
+            bitwise &= torch.equal(t.result()[0], want[st:st + c])
+    rag_ok = ok and bitwise and got == (2 * T * len(disp), got[1], 0, T * len(disp))
+    emit("serve_ragged_batcher", sides=sides, requests=len(done), dispatches=len(disp),
+         pages=[r["n_pages"] for r in disp], pad_fraction_mean=s["pad_fraction_mean"],
+         latency_ms={"p50": ms([t.result()[2] for _, t in done], 50),
+                     "p99": ms([t.result()[2] for _, t in done], 99)},
+         launches={"K1": got[0], "K2": got[2], "K4": got[3]},
+         launches_per_dispatch={"K1": 2 * T, "K4": T, "K2": 0},
+         bitwise_equal_infer_ragged=bitwise, conserved=ok, ok=rag_ok)
+    if not rag_ok:
+        raise AssertionError(f"serve_ragged_batcher: launches {got} over {len(disp)} "
+                             f"dispatches, bitwise {bitwise}, conserved {ok}")
+
+    # -- serve_cli: python -m glom_tpu_torch.serve with a killed engine ----------
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve.jsonl")
+        argv = [sys.executable, "-m", "glom_tpu_torch.serve",
+                *(cli_argv or ["--preset", "imagenet224-dp8"]), "--engines", "2",
+                "--kill-engine", "1:after=2", "--ramp", CLI_RAMP, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                              cwd=root, capture_output=True, text=True, timeout=120)
+        recs = []
+        if os.path.exists(out):
+            with open(out) as fh:
+                recs = [json.loads(line) for line in fh if line.startswith("{")]
+    summary = [r for r in recs if r.get("event") == "summary"]
+    n_ramp = sum(int(p.split("x")[0]) for p in CLI_RAMP.split(","))
+    s = summary[-1] if summary else {}
+    lat = [r["latency_ms"] for r in recs if r.get("event") == "response" and r.get("ok")]
+    cli_ok = (proc.returncode == 0 and lint.returncode == 0 and len(summary) == 1
+              and s.get("n_requests") == s.get("n_served") == n_ramp)
+    emit("serve_cli", argv=argv[1:], rc=proc.returncode, lint_rc=lint.returncode,
+         seconds=cli_s, requests=s.get("n_requests"), served=s.get("n_served"),
+         failed=s.get("n_failed"), redispatched=s.get("n_redispatched"),
+         engines={n: {k: v for k, v in st.items() if k != "retry"}
+                  for n, st in s.get("engines", {}).items()},
+         latency_ms={"p50": float(np.median(lat)) if lat else None},
+         events=dict(collections.Counter(r.get("event") for r in recs
+                                         if str(r.get("event", "")).startswith("engine_"))),
+         ok=cli_ok, stderr_tail=None if cli_ok else proc.stderr[-2000:])
+    if not cli_ok:
+        raise AssertionError(f"serve_cli: rc {proc.returncode}, lint {lint.returncode}, "
+                             f"summary {s.get('n_requests')}/{s.get('n_served')}")
+    if min(batcher_launches.values()) == 0:
+        raise AssertionError(f"a kernel ran no time behind the batcher: {batcher_launches}")
+    return dict(batcher_launches)
 
 
 def main() -> int:
@@ -1972,6 +2485,10 @@ def main() -> int:
         raise AssertionError(f"release freed {freed} bytes of a {pool.pool_bytes}-byte pool, "
                              f"refused {refused}")
 
+    # -- serve: the host stack (DynamicBatcher) over the engines -----------------
+    batcher_launches = serve_host_stack(
+        cfg, params, dev, engine, ragged, lambda imgs: same_step_fixed(imgs)[0], compare)
+
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
     from glom_tpu_torch.data import shapes_dataset
@@ -2644,6 +3161,9 @@ def main() -> int:
             kd["paged_launches"] = paged_launches[kd["name"]]
         if kd["name"] in rp_launches:
             kd["ragged_pool_launches"] = rp_launches[kd["name"]]
+        # ... and behind the batcher (serve_host_stack's main-path runs).
+        if kd["name"] in batcher_launches:
+            kd["batcher_launches"] = batcher_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

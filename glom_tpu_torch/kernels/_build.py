@@ -39,6 +39,18 @@ SOURCES = (
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(namespace: dict, *names) -> None:
+    """Add one to each named launch counter in `namespace` (a kernel
+    module's globals()), skipping None, under one process-wide lock: the
+    batcher's engine workers launch from several threads, and a bare `+=`
+    on a module global can lose an increment between them."""
+    with _COUNT_LOCK:
+        for name in names:
+            if name is not None:
+                namespace[name] += 1
 
 
 class KernelError(RuntimeError):

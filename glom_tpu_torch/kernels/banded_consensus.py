@@ -166,7 +166,6 @@ def banded_ragged_consensus(
 ) -> torch.Tensor:
     """levels [T, L, d] -> [T, L, d]; row_start / row_len: per-token int
     maps [T] (each row's first flat token and its patch count)."""
-    global LAUNCHES
     refuse_grad(levels)
     kw = dict(row_start=row_start, row_len=row_len, window=window,
               page_tokens=page_tokens, attend_self=attend_self)
@@ -192,5 +191,5 @@ def banded_ragged_consensus(
         torch.cuda.current_stream(levels.device).cuda_stream,
     )
     _build.check(err, "banded_consensus_fwd", lib.banded_consensus_error_string)
-    LAUNCHES += 1
+    _build.count(globals(), "LAUNCHES")
     return out

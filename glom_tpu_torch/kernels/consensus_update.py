@@ -455,7 +455,6 @@ def fused_consensus_update(
     inputs); stats=True returns (out, m, l) with the f32 row statistics
     [L, B, n, 1] the backward reads; cons=True returns (out, m, l, cons)
     with the attention output the one-sweep backward reads."""
-    global LAUNCHES, LAUNCHES_CONS
     refuse_grad(levels_lm, bu_lm, td_lm)
     stats = stats or cons
     if levels_lm.device.type == "cpu":
@@ -490,8 +489,7 @@ def fused_consensus_update(
         torch.cuda.current_stream(levels_lm.device).cuda_stream,
     )
     _build.check(err, "consensus_update_fwd", lib.consensus_update_error_string)
-    LAUNCHES += 1
-    LAUNCHES_CONS += int(cons)
+    _build.count(globals(), "LAUNCHES", "LAUNCHES_CONS" if cons else None)
     if cons:
         return out, m, l, att
     return (out, m, l) if stats else out
@@ -541,7 +539,6 @@ def _launch_dq(levels_lm, g, m, l, khat, *, side, radius, attend_self, dx_bu, dx
                combine):
     """Enqueue the dq pass ("wgmma": its pre-pass writes the normalised keys
     into khat): (dq, dd, dcons)."""
-    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_COMBINE_DQ
     lib, stream, is_bf16, instance = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
     dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
@@ -553,10 +550,7 @@ def _launch_dq(levels_lm, g, m, l, khat, *, side, radius, attend_self, dx_bu, dx
         L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
     )
     _build.check(err, "consensus_update_bwd_dq", lib.consensus_update_bwd_error_string)
-    if combine:
-        LAUNCHES_BWD_COMBINE_DQ += 1
-    else:
-        LAUNCHES_BWD_DQ += 1
+    _build.count(globals(), "LAUNCHES_BWD_COMBINE_DQ" if combine else "LAUNCHES_BWD_DQ")
     return dq, dd, dcons
 
 
@@ -564,7 +558,6 @@ def _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, khat_ready, *, side, radi
                 attend_self, dx_bu, dx_td, combine):
     """Enqueue the dkv pass with the scratches ws ("dkv" form); khat_ready:
     ws["khat"] already holds the keys the dq pass wrote. (dlevels, dmean)."""
-    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_COMBINE_DKV
     lib, stream, is_bf16, instance = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
     dlv = torch.empty_like(levels_lm)
@@ -576,10 +569,7 @@ def _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, khat_ready, *, side, radi
         L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
     )
     _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
-    if combine:
-        LAUNCHES_BWD_COMBINE_DKV += 1
-    else:
-        LAUNCHES_BWD_DKV += 1
+    _build.count(globals(), "LAUNCHES_BWD_COMBINE_DKV" if combine else "LAUNCHES_BWD_DKV")
     return dlv, dmean
 
 
@@ -618,7 +608,6 @@ def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend
     m, l and its saved attention output cons. On the card: the dq pass
     with D from cons (one sweep of the key tiles), then the dkv pass,
     one launch count ("wgmma": the pre-pass, the dq, dv and dk launches)."""
-    global LAUNCHES_BWD_ONESWEEP
     kw = dict(side=side, radius=radius, attend_self=attend_self)
     if levels_lm.device.type == "cpu":
         return consensus_bwd_onesweep_plain(levels_lm, g, m, l, cons, **kw)
@@ -636,7 +625,7 @@ def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend
         float(radius), int(attend_self), is_bf16, instance, stream,
     )
     _build.check(err, "consensus_update_bwd_onesweep", lib.consensus_update_bwd_error_string)
-    LAUNCHES_BWD_ONESWEEP += 1
+    _build.count(globals(), "LAUNCHES_BWD_ONESWEEP")
     return dlv
 
 

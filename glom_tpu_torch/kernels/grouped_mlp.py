@@ -56,7 +56,9 @@ forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_PRE` and
 `LAUNCHES_BWD_ACC_ADD` those in accumulate mode (counted there only).
 `LAUNCHES_CAT`, `LAUNCHES_PRE_CAT` and `LAUNCHES_BWD_ACC_CAT` count the
 combined-grid launches, which count in `LAUNCHES`, `LAUNCHES_PRE` and
-`LAUNCHES_BWD_ACC` too, but not in the `_ADD` counts.
+`LAUNCHES_BWD_ACC` too, but not in the `_ADD` counts. Every count moves
+through `_build.count`, under one lock, so engines launching from several
+threads lose no increment.
 """
 
 from __future__ import annotations
@@ -371,7 +373,6 @@ def fused_grouped_ffw_lm(
     save_pre=True returns (out, pre) with the [G, M, f] pre-activation.
     cat=True: the combined grid (see the module note) over the [L+1, M, d]
     carry x, returning [2L-1, M, d] (and pre [2L-1, M, f])."""
-    global LAUNCHES, LAUNCHES_ADD, LAUNCHES_CAT
     refuse_grad(x, add, *params)
     if x.device.type == "cpu":
         return grouped_mlp_plain(params, x, add, save_pre=save_pre, cat=cat)
@@ -394,11 +395,8 @@ def fused_grouped_ffw_lm(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_fwd", lib.grouped_mlp_error_string)
-    LAUNCHES += 1
-    if cat:
-        LAUNCHES_CAT += 1
-    elif add is not None:
-        LAUNCHES_ADD += 1
+    _build.count(globals(), "LAUNCHES", "LAUNCHES_CAT" if cat
+                 else "LAUNCHES_ADD" if add is not None else None)
     return (out, pre) if save_pre else out
 
 
@@ -420,7 +418,6 @@ def grouped_mlp_pre(
     """The pre-activation [G, M, f] alone, bit for bit the one
     `fused_grouped_ffw_lm(..., save_pre=True)` returns for the same inputs
     (cat=True: over the combined grid)."""
-    global LAUNCHES_PRE, LAUNCHES_PRE_ADD, LAUNCHES_PRE_CAT
     refuse_grad(x, add, *params)
     if x.device.type == "cpu":
         return grouped_mlp_pre_plain(params, x, add, cat=cat)
@@ -440,11 +437,8 @@ def grouped_mlp_pre(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_pre", lib.grouped_mlp_error_string)
-    LAUNCHES_PRE += 1
-    if cat:
-        LAUNCHES_PRE_CAT += 1
-    elif add is not None:
-        LAUNCHES_PRE_ADD += 1
+    _build.count(globals(), "LAUNCHES_PRE", "LAUNCHES_PRE_CAT" if cat
+                 else "LAUNCHES_PRE_ADD" if add is not None else None)
     return pre
 
 
@@ -530,8 +524,6 @@ def grouped_mlp_bwd(
     contiguous: the kernel reads them through their pointers. cat=True
     (accumulate mode only): the combined grid over the [L+1, M, d] carry x
     and dmean g [L, M, d]; dx is [2L-1, M, d], top-down groups first."""
-    global LAUNCHES_BWD, LAUNCHES_BWD_ADD, LAUNCHES_BWD_ACC, LAUNCHES_BWD_ACC_ADD
-    global LAUNCHES_BWD_ACC_CAT
     if cat and acc is None:
         raise ValueError("the combined grid's backward runs in accumulate mode: pass acc")
     if x.device.type == "cpu":
@@ -559,15 +551,13 @@ def grouped_mlp_bwd(
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "grouped_mlp_bwd", lib.grouped_mlp_bwd_error_string)
+    has_add = add is not None
     if cat:
-        LAUNCHES_BWD_ACC += 1
-        LAUNCHES_BWD_ACC_CAT += 1
+        _build.count(globals(), "LAUNCHES_BWD_ACC", "LAUNCHES_BWD_ACC_CAT")
     elif acc is not None:
-        LAUNCHES_BWD_ACC += 1
-        LAUNCHES_BWD_ACC_ADD += int(add is not None)
+        _build.count(globals(), "LAUNCHES_BWD_ACC", "LAUNCHES_BWD_ACC_ADD" if has_add else None)
     else:
-        LAUNCHES_BWD += 1
-        LAUNCHES_BWD_ADD += int(add is not None)
+        _build.count(globals(), "LAUNCHES_BWD", "LAUNCHES_BWD_ADD" if has_add else None)
     return dx, grads, da
 
 

@@ -1,11 +1,42 @@
-"""Serving: the inference engine, its early-exit, incremental and ragged
-forwards, the device page pool and the serve-record emitter (the port's
-counterparts of glom_tpu's `serve/engine.py`, `early_exit.py`,
-`paged_columns.py` and `events.py`, with `batcher.py`'s packing). The
-host stack over the engine (batcher, QoS, column cache, elastic serving,
-the CLI) is ROADMAP queue A item 7's next part."""
+"""Serving: the inference engine and the host stack over it.
 
-from glom_tpu_torch.serve.batcher import pack_ragged
+The port's counterparts of glom_tpu's `serve/`:
+
+    engine        InferenceEngine: params and one forward per dispatch
+                  signature (bucket, route, warm form), warmup, retry,
+                  per-signature latency stats
+    early_exit    the auto, tiered, incremental and ragged forwards
+    paged_columns PagedColumnPool: the device page pool behind the warm
+                  paged route and ragged admission
+    batcher       DynamicBatcher: bounded admission, max_batch /
+                  max_delay_ms gathering, pad-to-bucket with a mask, the
+                  continuation queue, multi-engine fan-out with failover
+                  and rejoin, the shed path; `pack_ragged`
+    column_cache  ColumnCache: session-keyed warm-start column state
+    qos           SLO classes and the weighted-fair admission lane
+    workload      record, write, load, generate and replay traffic
+    events        the serve-record emitter
+    cli           `python -m glom_tpu_torch.serve`
+
+glom_tpu's `elastic.py` (the Autoscaler) is ROADMAP queue A item 7's next
+part.
+"""
+
+from glom_tpu_torch.serve.batcher import (
+    BackendDownError,
+    DynamicBatcher,
+    LadderShedError,
+    QueueFullError,
+    ShedError,
+    Ticket,
+    pack_ragged,
+)
+from glom_tpu_torch.serve.column_cache import (
+    ColumnCache,
+    PageHit,
+    column_state_bytes,
+    resolve_column_cache,
+)
 from glom_tpu_torch.serve.early_exit import (
     RaggedResult,
     TieredAutoResult,
@@ -28,15 +59,36 @@ from glom_tpu_torch.serve.paged_columns import (
     resolve_page_pool,
     resolve_page_tokens,
 )
+from glom_tpu_torch.serve.qos import (
+    ClassQueues,
+    QosSpec,
+    SLOClass,
+    class_slo_rules,
+    parse_slo_class,
+    resolve_slo_classes,
+)
 
 __all__ = [
+    "BackendDownError",
+    "ClassQueues",
+    "ColumnCache",
+    "DynamicBatcher",
     "InferenceEngine",
+    "LadderShedError",
+    "PageHit",
     "PagedColumnPool",
+    "QosSpec",
+    "QueueFullError",
     "RaggedResult",
     "RaggedServeResult",
+    "SLOClass",
     "ServeResult",
+    "ShedError",
+    "Ticket",
     "TieredAutoResult",
     "batch_agreement",
+    "class_slo_rules",
+    "column_state_bytes",
     "content_hash",
     "emit_serve",
     "glom_forward_auto",
@@ -47,9 +99,12 @@ __all__ = [
     "pack_ragged",
     "page_state_bytes",
     "pages_for_tokens",
+    "parse_slo_class",
     "ragged_row_layout",
+    "resolve_column_cache",
     "resolve_page_pool",
     "resolve_page_tokens",
+    "resolve_slo_classes",
     "stamp_serve",
     "support_agreement",
 ]

@@ -36,9 +36,10 @@ resilience/faults.dispatch_fault). Latency accounting rides
 telemetry/sinks.StepTimeStats per signature, drained by `stats_records()`
 into stamped "serve" records.
 
-Not ported yet: the batcher's continuation hops (max_continuations > 0,
-ROADMAP queue A item 7's host stack) and meshes (item 8). Asking for
-either raises NotImplementedError.
+Continuation hops (`ServeConfig.max_continuations > 0`) are the
+batcher's (serve/batcher.DynamicBatcher): the engine answers each hop as a
+warm dispatch with the remaining `auto_budget`. Not ported yet: meshes
+(ROADMAP queue A item 8); asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -136,11 +137,6 @@ class InferenceEngine:
             )
         self.cfg = cfg
         self.scfg = scfg = scfg if scfg is not None else ServeConfig()
-        if scfg.max_continuations > 0:
-            raise NotImplementedError(
-                "ServeConfig(max_continuations > 0): the batcher's continuation "
-                "hops come with the host serving stack, ROADMAP queue A item 7"
-            )
         if scfg.ragged:
             if cfg.local_consensus_radius > 0:
                 raise ValueError("ragged admission requires local_consensus_radius == 0")
@@ -437,8 +433,11 @@ class InferenceEngine:
 
     def _device_levels(self, levels0) -> Tuple[torch.Tensor, int]:
         """levels0 on the engine's device in the serving dtype, and the
-        bytes that crossed from the host (0 when it was already there)."""
-        on_device = isinstance(levels0, torch.Tensor) and levels0.device == self.device
+        bytes carried from the host: 0 when it is already a tensor on the
+        card, its bytes when it is host memory (numpy or a CPU tensor, on
+        a CPU engine too, as glom_tpu counts any carried levels0)."""
+        on_device = (isinstance(levels0, torch.Tensor) and levels0.device.type != "cpu"
+                     and levels0.device == self.device)
         lv = torch.as_tensor(levels0)
         if self._compute_dtype is not None:
             lv = lv.to(self._compute_dtype)

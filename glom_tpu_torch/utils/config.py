@@ -102,17 +102,23 @@ class ServeConfig:
     The bucket route (fixed `iters` or `"auto"` early exit), the ragged
     route (`ragged=True`: rows of differing patch counts packed onto one
     page-aligned token axis), the device page pool with its delta streaming
-    and aliasing, and the engine's retry and phase split are ported. The
-    reference's other fields (the batcher's admission, QoS, the column
-    cache, elastic serving, meshes) belong to the host serving stack and
-    the parallel paths (ROADMAP queue A items 7 and 8);
-    `max_continuations > 0` is accepted here and refused by the engine."""
+    and aliasing, and the engine's retry and phase split are ported, and so is the host
+    stack's policy over them (serve/batcher.py, qos.py, column_cache.py,
+    resilience/ladder.py): admission, continuation hops, the degradation
+    ladder, the session column cache, engine rejoin, request tracing and
+    SLO classes. The reference's elastic-serving fields (ROADMAP queue A
+    item 7's next part) and serve-mesh fields (item 8) are not here."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
     buckets: Tuple[int, ...] = (1, 2, 4, 8)
-    # Rows a dispatch gathers; also the row capacity of a ragged signature.
+    # Admission (serve/batcher.py): dispatch when max_batch requests wait,
+    # or once the oldest waiting one has aged max_delay_ms. max_batch is
+    # also the row capacity of a ragged signature. A submit past
+    # queue_depth waiting requests is shed at once (QueueFullError).
     max_batch: int = 8
+    max_delay_ms: float = 5.0
+    queue_depth: int = 64
     # Forward iteration budget: an int pins the count, None uses the model
     # default (2L), "auto" runs the early-exit route: up to max_auto_iters
     # updates, a row converging once no level's agreement moves more than
@@ -123,8 +129,10 @@ class ServeConfig:
     min_iters: int = 1
     max_auto_iters: Optional[int] = None  # None -> model default (2L)
     exit_quorum: float = 1.0
-    # Continuation hops for stragglers: the batcher's, not ported yet, so
-    # the engine refuses a value > 0 (ROADMAP queue A item 7).
+    # Continuation hops: rows still unconverged when the bucket exits
+    # re-bucket in the batcher's continuation queue with their column
+    # state and remaining budget, up to max_continuations hops (0: they
+    # resolve with the state they have).
     max_continuations: int = 0
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core serving
     use_pallas: bool = False  # True: the fused kernel path (name kept)
@@ -138,6 +146,25 @@ class ServeConfig:
     # (kernels/_build.KernelError) never retry.
     dispatch_retries: int = 2
     retry_backoff_ms: float = 25.0
+    # Degradation ladder (resilience/ladder.py; the batcher builds one per
+    # engine when ladder=True): under queue pressure or a flapping backend
+    # step down normal -> capped_iters -> bucket_cap -> shed, one rung at
+    # a time. degraded_iters None -> half the model budget (floor 1);
+    # degraded_max_batch None -> half max_batch (floor 1).
+    ladder: bool = False
+    degraded_iters: Optional[int] = None
+    degraded_max_batch: Optional[int] = None
+    ladder_high_water: float = 0.75  # queue fill that steps down a rung
+    ladder_low_water: float = 0.25  # queue fill that steps back up
+    # Session column cache (serve/column_cache.py): requests with a
+    # session_id write their converged columns back under the session and
+    # the stream's next frame starts warm from them. column_cache_bytes is
+    # the hard residency budget (LRU eviction; 0 disables the cache);
+    # column_cache_ttl_s expires a quiet stream's entry (None: never).
+    # With a page pool the entries are pool pages (no levels0 crosses
+    # from the host on the warm path).
+    column_cache_bytes: int = 0
+    column_cache_ttl_s: Optional[float] = None
     # Paged column memory (serve/paged_columns.py): page_pool_pages > 0
     # preallocates one device buffer of [page_pool_pages, page_tokens, L,
     # d] per engine; warm dispatches gather levels0 from it by page index
@@ -163,10 +190,10 @@ class ServeConfig:
     # a session keeps a paged base plus a chain of deltas holding only the
     # pages whose residual exceeds delta_page_atol (0.0: any changed bit);
     # the chain folds into the base at delta_chain_cap; delta_base_share
-    # lets content-identical bases share pool pages; delta_incremental is
-    # read by the batcher (not ported yet), which would route warm frames
-    # through serve/early_exit.glom_forward_incremental; it is kept here
-    # for default parity. Needs a page pool; the bucket route only.
+    # lets content-identical bases share pool pages; delta_incremental
+    # makes the batcher route warm frames through
+    # serve/early_exit.glom_forward_incremental, seeded from the input
+    # delta's page support. Needs a page pool; the bucket route only.
     delta_streaming: bool = False
     delta_page_atol: float = 0.0
     delta_chain_cap: int = 4
@@ -175,11 +202,35 @@ class ServeConfig:
     # The engine's latency split: each dispatch reports the ms it spent
     # staging inputs (h2d) and reading results back (resolve).
     phase_split: bool = True
+    # How a sharded paged dispatch gathers pool pages: kept for the
+    # reference's field set and checks; the serve mesh that reads it is
+    # ROADMAP queue A item 8.
+    page_gather: str = "auto"
+    # Engine rejoin: a dead engine of a multi-engine batcher serves again
+    # after rejoin_threshold consecutive successful probation dispatches,
+    # one every rejoin_interval_ms (0 keeps death terminal).
+    rejoin_threshold: int = 0
+    rejoin_interval_ms: float = 200.0
+    # Request tracing (telemetry/tracectx.py): each submit mints a trace
+    # and every serve record of the request carries it (False stamps the
+    # keys as null).
+    trace_requests: bool = True
     # Per-collective wall time: a single-device engine has no collectives,
     # so any mode resolves to "off" there, with a warning (the meshes are
     # ROADMAP queue A item 8).
     collective_timing: str = "off"
     collective_timing_interval: int = 16
+    # SLO classes (serve/qos.py): named classes such as
+    # ("premium:weight=8,p99_ms=150", "batch:weight=1") turn the shared
+    # admission FIFO into a weighted-fair class scheduler with per-class
+    # bounded lanes and class-aware ladder gates. None keeps the classless
+    # batcher. slo_default_class labels unclassed submits; slo_shed_order
+    # overrides the ascending-weight shed order; slo_starvation_floor is
+    # each lower class's guaranteed pick share under contention.
+    slo_classes: Optional[Tuple[str, ...]] = None
+    slo_default_class: Optional[str] = None
+    slo_shed_order: Optional[Tuple[str, ...]] = None
+    slo_starvation_floor: float = 0.05
 
     def __post_init__(self):
         if not self.buckets:
@@ -195,6 +246,10 @@ class ServeConfig:
             )
         if self.max_batch < 1:
             raise ValueError(f"max_batch {self.max_batch} must be >= 1")
+        if self.queue_depth < 1:
+            raise ValueError(f"queue_depth {self.queue_depth} must be >= 1")
+        if self.max_delay_ms < 0:
+            raise ValueError(f"max_delay_ms {self.max_delay_ms} must be >= 0")
         if self.iters is not None and self.iters != "auto":
             if not isinstance(self.iters, int) or self.iters < 1:
                 raise ValueError(f"iters={self.iters!r}: an int >= 1, 'auto', or None")
@@ -215,6 +270,26 @@ class ServeConfig:
             raise ValueError(f"dispatch_retries {self.dispatch_retries} must be >= 0")
         if self.retry_backoff_ms < 0:
             raise ValueError(f"retry_backoff_ms {self.retry_backoff_ms} must be >= 0")
+        if self.degraded_iters is not None and self.degraded_iters < 1:
+            raise ValueError(f"degraded_iters {self.degraded_iters} must be >= 1 or None")
+        if self.degraded_max_batch is not None and self.degraded_max_batch < 1:
+            raise ValueError(
+                f"degraded_max_batch {self.degraded_max_batch} must be >= 1 or None"
+            )
+        if not 0.0 <= self.ladder_low_water < self.ladder_high_water <= 1.0:
+            raise ValueError(
+                f"need 0 <= ladder_low_water ({self.ladder_low_water}) < "
+                f"ladder_high_water ({self.ladder_high_water}) <= 1"
+            )
+        if self.column_cache_bytes < 0:
+            raise ValueError(
+                f"column_cache_bytes {self.column_cache_bytes} must be >= 0 "
+                "(0 disables the streaming column cache)"
+            )
+        if self.column_cache_ttl_s is not None and self.column_cache_ttl_s <= 0:
+            raise ValueError(
+                f"column_cache_ttl_s {self.column_cache_ttl_s} must be > 0 or None"
+            )
         if self.page_pool_pages < 0:
             raise ValueError(
                 f"page_pool_pages {self.page_pool_pages} must be >= 0 "
@@ -265,6 +340,17 @@ class ServeConfig:
             )
         if self.delta_chain_cap < 1:
             raise ValueError(f"delta_chain_cap {self.delta_chain_cap} must be >= 1")
+        if self.page_gather not in ("auto", "pool", "needed"):
+            raise ValueError(
+                f"page_gather {self.page_gather!r}: 'auto', 'pool', or 'needed'"
+            )
+        if self.rejoin_threshold < 0:
+            raise ValueError(
+                f"rejoin_threshold {self.rejoin_threshold} must be >= 0 "
+                "(0 keeps engine death terminal)"
+            )
+        if self.rejoin_interval_ms <= 0:
+            raise ValueError(f"rejoin_interval_ms {self.rejoin_interval_ms} must be > 0")
         if self.collective_timing not in ("off", "sampled", "full"):
             raise ValueError(
                 f"collective_timing {self.collective_timing!r}: one of "
@@ -275,6 +361,22 @@ class ServeConfig:
                 f"collective_timing_interval "
                 f"{self.collective_timing_interval} must be >= 1"
             )
+        if not 0.0 <= self.slo_starvation_floor < 1.0:
+            raise ValueError(
+                f"slo_starvation_floor {self.slo_starvation_floor} must be in [0, 1)"
+            )
+        if self.slo_classes is not None or self.slo_shed_order is not None:
+            # The class table resolves here, so a typo'd class spec, a
+            # duplicate name or an unknown default or shed-order entry
+            # fails at construction, not mid-traffic.
+            if not self.slo_classes:
+                raise ValueError(
+                    "slo_shed_order needs slo_classes: there are no "
+                    "declared classes to order"
+                )
+            from glom_tpu_torch.serve.qos import resolve_slo_classes
+
+            resolve_slo_classes(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,9 +9,10 @@ its CLI reads the model and train configs and carries the mesh as data
 (the parallel paths are ROADMAP queue A item 8).
 
 `serve` holds the fields of glom_tpu's serving policy that the port's
-`ServeConfig` has. The batcher's admission and the column cache (queue
-depth, admission delay, cache bytes and TTL, rejoin threshold) and the
-serve mesh (mesh_data, mesh_seq) come with queue A items 7 and 8.
+`ServeConfig` has: the engine's, the page pool's and the host stack's
+(admission delay, queue depth, column cache bytes and TTL, rejoin
+threshold). The serve mesh (mesh_data, mesh_seq) comes with queue A
+item 8.
 """
 
 from __future__ import annotations
@@ -133,6 +134,8 @@ _register(
         serve=ServeConfig(
             buckets=(1, 2, 4, 8, 16),
             max_batch=16,
+            max_delay_ms=3.0,
+            queue_depth=256,
             iters="auto",
             exit_threshold=1e-3,
             min_iters=4,
@@ -140,6 +143,9 @@ _register(
             max_continuations=2,
             compute_dtype="bfloat16",
             use_pallas=True,
+            column_cache_bytes=1 << 30,
+            column_cache_ttl_s=60.0,
+            rejoin_threshold=3,
             page_pool_pages=2728,
             page_tokens=64,
             ragged_attention="banded",
@@ -168,12 +174,17 @@ _register(
         serve=ServeConfig(
             buckets=(4, 8, 16, 32),
             max_batch=32,
+            max_delay_ms=5.0,
+            queue_depth=512,
             iters="auto",
             exit_threshold=1e-3,
             min_iters=4,
             exit_quorum=0.75,
             max_continuations=2,
             compute_dtype="bfloat16",
+            column_cache_bytes=2 << 30,
+            column_cache_ttl_s=60.0,
+            rejoin_threshold=3,
             page_pool_pages=1364,
             page_tokens=64,
         ),

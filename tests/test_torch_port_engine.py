@@ -103,12 +103,13 @@ def test_rejects_non_bucket_batches(engines):
 def test_unported_routes_raise():
     """The early-exit, ragged and paged routes are ported
     (test_torch_port_early_exit, test_torch_port_ragged,
-    test_torch_port_paged); meshes and the batcher's continuation hops
-    still raise, and the paged forms need a pool."""
+    test_torch_port_paged), and so are the batcher's continuation hops
+    (test_torch_port_batcher); meshes still raise, and the paged forms
+    need a pool."""
     with pytest.raises(NotImplementedError, match="item 8"):
         InferenceEngine(GlomConfig(**TINY), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        InferenceEngine(GlomConfig(**TINY), ServeConfig(max_continuations=1), device="cpu")
+    cont = InferenceEngine(GlomConfig(**TINY), ServeConfig(max_continuations=1), device="cpu")
+    assert cont.scfg.max_continuations == 1
     eng = InferenceEngine(GlomConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="page pool"):
         eng.infer(_batch(0, 1, 1), page_rows=np.zeros((1, 4), np.int32))

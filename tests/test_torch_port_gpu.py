@@ -1210,3 +1210,94 @@ def test_paged_dispatches_on_card(dev):
     lv0[:64] = cold.levels[0]
     again = ragged.infer_ragged(flat, n, levels0=lv0)
     assert torch.equal(warm.levels, again.levels) and warm.levels0_h2d_bytes == 0
+
+
+def _batcher_config(**over):
+    """A card-aligned small model (n = 64, d = 128, bf16) for the batcher."""
+    cfg = GlomConfig(dim=128, levels=3, image_size=32, patch_size=4)
+    kw = dict(buckets=(1, 2, 4), max_batch=4, compute_dtype="bfloat16", use_pallas=True)
+    return cfg, ServeConfig(**dict(kw, **over))
+
+
+def _replays(eng, tickets, imgs, n_valid):
+    """Each ticket bit for bit its padded bucket's engine.infer replay."""
+    b = eng.pick_bucket(n_valid)
+    pad = np.zeros((b, *imgs[0].shape), np.float32)
+    pad[:n_valid] = imgs
+    want = eng.infer(pad, n_valid=n_valid).levels[:n_valid].cpu()
+    return all(torch.equal(t.result(timeout=60)[0], want[i]) for i, t in enumerate(tickets))
+
+
+def test_batcher_on_card_fixed_route(dev):
+    """A gathered bucket through the batcher: the K1/K2 launches of one
+    dispatch, each ticket a CPU tensor bit for bit the engine's replay."""
+    from glom_tpu_torch.serve import DynamicBatcher
+
+    cfg, scfg = _batcher_config()
+    eng = InferenceEngine(cfg, scfg, device="cuda")
+    eng.warmup()
+    imgs = [_rand(np.random.default_rng(s), 3, 32, 32).numpy() for s in range(3)]
+    b = DynamicBatcher(eng, max_delay_ms=5000.0)
+    ts = [b.submit(img) for img in imgs]
+    before = (k1.LAUNCHES, k1.LAUNCHES_ADD, k2.LAUNCHES)
+    b.start()
+    for t in ts:
+        lv, iters, _ = t.result(timeout=60)
+        assert lv.device.type == "cpu" and lv.dtype == torch.bfloat16 and iters == 6
+    b.stop()
+    got = tuple(a - w for a, w in zip((k1.LAUNCHES, k1.LAUNCHES_ADD, k2.LAUNCHES), before))
+    assert got == (12, 6, 6)
+    assert _replays(eng, ts, imgs, 3)
+
+
+def test_batcher_on_card_two_engines_and_the_counters(dev):
+    """Two engines on the card launch from two worker threads: the summed
+    launches are exact (the counters' lock), and every request resolves
+    once."""
+    from glom_tpu_torch.serve import DynamicBatcher
+
+    cfg, scfg = _batcher_config()
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(0))
+    engs = [InferenceEngine(cfg, scfg, params=params, device="cuda", name=f"engine{i}")
+            for i in range(2)]
+    for e in engs:
+        e.warmup()
+    img = _rand(np.random.default_rng(9), 3, 32, 32).numpy()
+    k1.LAUNCHES = k2.LAUNCHES = 0
+    with DynamicBatcher(engines=engs, max_delay_ms=1.0) as b:
+        ts = [b.submit(img) for _ in range(64)]
+        for t in ts:
+            t.result(timeout=120)
+        s = b.summary_record()
+    assert s["n_served"] == 64 and s["n_failed"] == 0
+    assert (k1.LAUNCHES, k2.LAUNCHES) == (12 * s["n_dispatches"], 6 * s["n_dispatches"])
+
+
+def test_batcher_on_card_continuations_and_pages(dev):
+    """The auto route with continuation hops, then session frames warm from
+    the pool: every request resolves once within its budget, and warm rows
+    carry no levels0 from the host."""
+    import dataclasses
+
+    from glom_tpu_torch.serve import DynamicBatcher, column_state_bytes
+
+    cfg, scfg = _batcher_config(iters="auto", exit_quorum=0.5, max_continuations=2,
+                                page_pool_pages=32)
+    scfg = dataclasses.replace(scfg, column_cache_bytes=4 * column_state_bytes(cfg, scfg))
+    eng = InferenceEngine(cfg, scfg, device="cuda")
+    rng = np.random.default_rng(12)
+    imgs = [(_rand(rng, 3, 32, 32) * (100.0 if i % 2 else 1.0)).numpy() for i in range(4)]
+    recs = []
+    with DynamicBatcher(eng, max_delay_ms=5000.0, writer=type("W", (), {
+            "write": staticmethod(recs.append)})()) as b:
+        ts = [b.submit(img) for img in imgs]
+        assert all(t.result(timeout=120)[1] <= eng.auto_budget for t in ts)
+        for frame in range(3):
+            fs = [b.submit(img + 0.05 * frame, session_id=f"s{i}") for i, img in enumerate(imgs)]
+            for t in fs:
+                t.result(timeout=120)
+        s = b.summary_record()
+    assert s["n_served"] == 16 and s["column_cache"]["n_hits"] == 8
+    paged = [r for r in recs if r.get("event") == "dispatch" and r["paged"] and r["tier"] == 0]
+    assert sum(r["n_cache_warm"] for r in paged) == 8
+    assert all(r["levels0_h2d_bytes"] == 0 for r in paged)

@@ -35,7 +35,10 @@ def test_the_checks_cover_every_module():
     for module in ("glom_tpu_torch.serve.early_exit", "glom_tpu_torch.serve.paged_columns",
                    "glom_tpu_torch.serve.batcher", "glom_tpu_torch.kernels.banded_consensus",
                    "glom_tpu_torch.serve.engine", "glom_tpu_torch.serve.events",
-                   "glom_tpu_torch.resilience.retry", "glom_tpu_torch.telemetry.watchdog"):
+                   "glom_tpu_torch.resilience.retry", "glom_tpu_torch.telemetry.watchdog",
+                   "glom_tpu_torch.resilience.ladder", "glom_tpu_torch.serve.qos",
+                   "glom_tpu_torch.serve.column_cache", "glom_tpu_torch.serve.workload",
+                   "glom_tpu_torch.serve.cli", "glom_tpu_torch.serve.__main__"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         assert path in PORT_FILES

@@ -216,3 +216,54 @@ class TestConsensusUpdate:
         assert (scratch.shape, scratch.dtype, scratch.device) == (
             want.shape, want.dtype, want.device)
         assert scratch.is_contiguous() and scratch.data_ptr() % tk2.TMA_ALIGN == 0
+
+
+@pytest.mark.parametrize("module,names", [
+    ("grouped_mlp", ("LAUNCHES", "LAUNCHES_ADD")),
+    ("consensus_update", ("LAUNCHES", "LAUNCHES_CONS")),
+    ("banded_consensus", ("LAUNCHES",)),
+])
+def test_launch_counters_count_exactly_under_threads(module, names, monkeypatch):
+    """The batcher's engine workers launch from several threads: every
+    wrapper's counts go through `_build.count`, whose lock loses no
+    increment when eight threads hammer one counter: the module's own, and
+    a namespace that hands the thread switch to another thread between
+    each read and its write (where an unlocked `+=` loses counts)."""
+    import importlib
+    import sys
+    import threading
+    import time
+
+    from glom_tpu_torch.kernels import _build
+
+    class Yielding(dict):
+        def __getitem__(self, key):
+            value = super().__getitem__(key)
+            time.sleep(0)  # let another thread run between read and write
+            return value
+
+    mod = importlib.import_module(f"glom_tpu_torch.kernels.{module}")
+    for name in names:
+        monkeypatch.setattr(mod, name, 0)
+    yielding = Yielding({name: 0 for name in names})
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the VM allows
+    try:
+        n_threads, n_each = 8, 1000
+        start = threading.Barrier(n_threads)
+
+        def hammer():
+            start.wait()
+            for _ in range(n_each):
+                _build.count(vars(mod), *names, None)
+                _build.count(yielding, *names)
+
+        threads = [threading.Thread(target=hammer) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    for name in names:
+        assert getattr(mod, name) == yielding[name] == n_threads * n_each

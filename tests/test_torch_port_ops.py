@@ -70,6 +70,32 @@ class TestHelpersAndConfig:
         for f in dataclasses.fields(tconfig.ServeConfig):
             assert ref[f.name] == f.default, f.name
 
+    def test_serve_config_host_stack_fields_and_checks(self):
+        """The host stack's fields are there, with glom_tpu's defaults, and
+        every bad value is refused with glom_tpu's message."""
+        names = {f.name for f in dataclasses.fields(tconfig.ServeConfig)}
+        assert names >= {
+            "max_delay_ms", "queue_depth", "ladder", "degraded_iters", "degraded_max_batch",
+            "ladder_high_water", "ladder_low_water", "column_cache_bytes",
+            "column_cache_ttl_s", "page_gather", "rejoin_threshold", "rejoin_interval_ms",
+            "trace_requests", "slo_classes", "slo_default_class", "slo_shed_order",
+            "slo_starvation_floor",
+        }
+        assert not names & {"min_engines", "max_engines", "husk_max", "warm_pool",
+                            "mesh_data", "mesh_seq", "elastic"}
+        for bad in (dict(queue_depth=0), dict(max_delay_ms=-1.0), dict(degraded_iters=0),
+                    dict(degraded_max_batch=0), dict(ladder_low_water=0.8),
+                    dict(ladder_high_water=1.5), dict(column_cache_bytes=-1),
+                    dict(column_cache_ttl_s=0.0), dict(page_gather="some"),
+                    dict(rejoin_threshold=-1), dict(rejoin_interval_ms=0.0),
+                    dict(slo_starvation_floor=1.0), dict(slo_shed_order=("a",)),
+                    dict(slo_classes=("a:weight=0",))):
+            with pytest.raises(ValueError) as want:
+                jconfig.ServeConfig(**bad)
+            with pytest.raises(ValueError) as got:
+                tconfig.ServeConfig(**bad)
+            assert str(got.value) == str(want.value), bad
+
     def test_train_config_matches_reference(self):
         ref = [(f.name, f.default) for f in dataclasses.fields(jconfig.TrainConfig)]
         assert [(f.name, f.default) for f in dataclasses.fields(tconfig.TrainConfig)] == ref

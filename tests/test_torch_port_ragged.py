@@ -524,10 +524,11 @@ class TestEngineRagged:
                                 levels0=np.zeros((16, 3, 32), np.float32))
         with pytest.raises(ValueError, match=r"page_idx shape"):
             pooled.infer_ragged(flat, [16], page_idx=np.zeros(3, np.int32))
-        with pytest.raises(NotImplementedError, match="item 7"):
-            InferenceEngine(GlomConfig(**TINY),
-                            ServeConfig(**dict(SCFG, max_continuations=1, iters="auto")),
-                            device="cpu")
+        # Continuation hops are the batcher's: the engine takes the config.
+        cont = InferenceEngine(GlomConfig(**TINY),
+                               ServeConfig(**dict(SCFG, max_continuations=1, iters="auto")),
+                               device="cpu")
+        assert cont.scfg.max_continuations == 1
 
     def test_config_checks(self):
         for bad in (dict(ragged_attention="dense"), dict(ragged_pages=(8, 4)),
