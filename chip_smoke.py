@@ -93,6 +93,24 @@ after:
     glom_tpu_torch.serve` at the imagenet224-dp8 preset with a killed
     engine, its stream linted. Each kernel's launches there ride the
     kernels line as `batcher_launches`.
+  * the elastic fleet (`serve_elastic`): flagship bucket engines with
+    96-page pools behind DynamicBatcher and the Autoscaler (one engine, up
+    to three, one warm spare), under an open-loop ramp (low, a spike above
+    one engine's measured ceiling, low) with streaming sessions: a spare
+    promoted, an injected spawn fault rolled back, a cold spawn, a
+    scale-in demoting to the pool and one draining and releasing, the
+    drained engines' session pages migrated to a sibling bit for bit.
+    Every request served once, each ticket bit for bit its bucket's
+    engine.infer replay, each decision's chain in order under its
+    decision_id, no dispatch on a replica before its warm-up and
+    registration, each release returning its pool, exact launches over
+    warm-ups and dispatches, the audit clean; fleet size over time,
+    requests/s and p50/p99 by fleet size, decision-to-admission and
+    decision-to-release times, migration pages, bytes and ms, the MiB each
+    release freed, and K2's host time a call by fleet size. Then `python -m
+    glom_tpu_torch.serve --elastic` with a warm pool and the forecaster,
+    its stream linted and audited. Each kernel's launches there ride the
+    kernels line as `elastic_launches`.
   * the training CLI (`python -m glom_tpu_torch.train.cli`, in process)
     at the imagenet224-dp8 preset, batch 64, on the loop: 4 steps on .npy
     shards with a checkpoint every 2, then --resume to 6, with the exact
@@ -199,6 +217,38 @@ TWO_TIER_PASSES = 2
 STREAM_SESSIONS = 16
 STREAM_FRAMES = 4
 CLI_RAMP = "8x2,32x0,8x2"
+# The elastic fleet (serve_elastic): max engines, the warm pool, the policy
+# (short times keep the phase within a minute; a p99 rule over a short
+# window drives the scale-outs through the spike, set above the latency a
+# drain's flush adds to the requests waiting on the drained engine, which
+# at 100 ms re-triggered a scale-out a cooldown after each drain on the
+# card; headroom above the high
+# water for the dwell the scale-ins; the low water sits under any headroom
+# a 4096-deep queue shows, the high water under the headroom of a pool
+# holding all the cache's sessions: 12 of 4 pages in 96 is 0.5), the
+# open-loop ramp (low at a fraction of one engine's measured ceiling; a
+# spike of a fixed count of requests over a fixed time, 2000 requests/s,
+# above one engine's closed-loop ceiling on an H100 at 700 W (377-902
+# requests/s over the readings this phase took), so a low reading of the
+# ceiling cannot leave the spike under it; low again
+# until the fleet is back at one engine or the settle ends), the
+# streaming clients (each a session of ELASTIC_FRAMES frames, then a
+# new one, so sessions land on every replica) and the cache's sessions,
+# and the elastic serve CLI's ramp.
+ELASTIC_MAX = 3
+ELASTIC_WARM_POOL = 1
+ELASTIC_QUEUE = 4096
+ELASTIC_POLICY = dict(elastic_dwell_s=0.5, elastic_cooldown_s=1.0, elastic_interval_s=0.1,
+                      elastic_window_s=2.0, elastic_low_water=0.05, elastic_high_water=0.45,
+                      elastic_p99_ms=300.0)
+ELASTIC_LOW = (0.3, 1.5)  # (fraction of the ceiling, seconds)
+ELASTIC_SPIKE = (800, 0.4)  # (requests, seconds)
+ELASTIC_TAIL = 0.1  # the last phase's fraction, until settled
+ELASTIC_SETTLE_S = 30.0
+ELASTIC_CLIENTS = 4
+ELASTIC_FRAMES = 3
+ELASTIC_SESSIONS = 12
+CLI_ELASTIC_RAMP = "8x20,240x0,40x20"
 
 
 def emit(phase: str, **kw) -> None:
@@ -684,6 +734,611 @@ def serve_host_stack(cfg, params, dev, engine, ragged, fixed_loop, compare,
     if min(batcher_launches.values()) == 0:
         raise AssertionError(f"a kernel ran no time behind the batcher: {batcher_launches}")
     return dict(batcher_launches)
+
+
+def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
+    """The elastic fleet on the card: flagship bf16 bucket engines, each with
+    a POOL_PAGES-page pool, behind DynamicBatcher with the Autoscaler, in
+    two phases (serve_elastic, serve_cli_elastic). `cli_argv` is the serve
+    CLI's preset and device arguments. Returns each kernel's launches over
+    the phase's main-path run (every replica's warm-ups and dispatches; the
+    replays that hold the tickets to their engine are not counted). Raises
+    on the first failed check."""
+    import collections
+    import dataclasses
+    import os
+    import tempfile
+    import threading
+    import weakref
+
+    import numpy as np
+    import torch
+
+    import glom_tpu_torch.kernels.consensus_update as k2
+    import glom_tpu_torch.kernels.grouped_mlp as k1
+    import glom_tpu_torch.models.core as core
+    from glom_tpu_torch import InferenceEngine, ServeConfig
+    from glom_tpu_torch.resilience import FaultPlan, spawn_fault
+    from glom_tpu_torch.serve import (
+        Autoscaler,
+        DynamicBatcher,
+        ShedError,
+        column_state_bytes,
+        content_hash,
+        resolve_policy,
+    )
+
+    T, side = cfg.default_iters, cfg.image_size
+    shape = (cfg.channels, side, side)
+    buckets = (1, 2, 4, 8)
+    scfg = ServeConfig(buckets=buckets, max_batch=8, compute_dtype="bfloat16", use_pallas=True,
+                       page_pool_pages=POOL_PAGES, queue_depth=ELASTIC_QUEUE, elastic=True,
+                       min_engines=1, max_engines=ELASTIC_MAX, warm_pool=ELASTIC_WARM_POOL,
+                       **ELASTIC_POLICY)
+    scfg = dataclasses.replace(
+        scfg, column_cache_bytes=ELASTIC_SESSIONS * column_state_bytes(cfg, scfg))
+    rng = np.random.default_rng(SEED + 17)
+    pool_imgs = [rng.standard_normal(shape).astype(np.float32) for _ in range(32)]
+
+    class TimedTap(_Tap):
+        """Every stamped record with the host clock at its write."""
+
+        def __init__(self):
+            super().__init__()
+            self.timed = []
+            self._lock = threading.Lock()
+
+        def write(self, rec):
+            with self._lock:
+                self.timed.append((time.monotonic(), rec))
+                self.recs.append(rec)
+
+    tap = TimedTap()
+    probe = dict(warm_end={}, calls=collections.defaultdict(list), releases=[],
+                 registrations=[], early=[], admitted={"engine0"})
+    # Replicas by the name each was built with; that name by object; and
+    # the built name of each fleet name (a re-promoted spare is renamed).
+    engines, made, alias = {}, {}, {"engine0": "engine0"}
+
+    def make(name):
+        """A replica on the card, its warm-up end, its dispatches (with the
+        rows the pool served warm) and its release instrumented."""
+        eng = InferenceEngine(cfg, scfg, params=params, device=dev, name=name, writer=tap)
+        warm, infer, release = eng.warmup, eng.infer, eng.release
+
+        def warmup(*a, **kw):
+            out = warm(*a, **kw)
+            probe["warm_end"][name] = time.monotonic()
+            return out
+
+        def traced_infer(imgs, n_valid=None, **kw):
+            if name not in probe["admitted"]:
+                probe["early"].append(name)
+            pr = kw.get("page_rows")
+            probe["calls"][name].append(None if pr is None else [bool(r[0] >= 0) for r in pr])
+            return infer(imgs, n_valid=n_valid, **kw)
+
+        def traced_release():
+            buf = eng.pool.buffer()
+            ref = weakref.ref(buf)
+            del buf
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            release()
+            torch.cuda.synchronize(dev)
+            probe["releases"].append(dict(
+                engine=name, freed_mib=(held - torch.cuda.memory_allocated(dev)) / 2**20,
+                pool_mib=eng.pool.pool_bytes / 2**20, buffer_freed=ref() is None,
+                released=eng.released))
+
+        eng.warmup, eng.infer, eng.release = warmup, traced_infer, traced_release
+        engines[name], made[id(eng)] = eng, name
+        return eng
+
+    k2_fn = core.fused_consensus_update
+
+    def closed_loop(fleet, clients):
+        """(requests/s, K2's median host µs a call) of `fleet` behind one
+        batcher with `clients` closed-loop clients of 12 stateless requests
+        each."""
+        k2_us = []
+
+        def timed(*a, **kw):
+            t_call = time.perf_counter()
+            out = k2_fn(*a, **kw)
+            k2_us.append(1e6 * (time.perf_counter() - t_call))
+            return out
+
+        core.fused_consensus_update = timed
+        try:
+            with DynamicBatcher(engines=list(fleet), writer=_Tap()) as cb:
+                done = []
+
+                def client(c):
+                    for j in range(12):
+                        img = pool_imgs[(c * 12 + j) % len(pool_imgs)]
+                        cb.submit(img).result(timeout=300)
+                        done.append(1)
+
+                threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                rps = len(done) / (time.perf_counter() - t0)
+        finally:
+            core.fused_consensus_update = k2_fn
+        return rps, statistics.median(k2_us)
+
+    # One engine's ceiling (closed loop, before the counted run).
+    eng0 = make("engine0")
+    eng0.warmup()
+    closed_loop([eng0], 8)  # the first pass reads low (allocator, host caches): dropped
+    ceiling, _ = closed_loop([eng0], 8)
+    probe["calls"].clear()
+
+    # -- the counted run --------------------------------------------------------
+    b = DynamicBatcher(engines=[eng0], writer=tap)
+    orig_add = b.add_engine
+
+    orig_drain = b.drain_engine
+
+    def traced_add(engine, **kw):
+        # Admitted before the call: the worker starts inside it. A
+        # re-promoted spare registers under a suffixed name; the probes
+        # stay keyed by the name it was built with.
+        built = made[id(engine)]
+        probe["registrations"].append((built, probe["warm_end"].get(built), time.monotonic()))
+        probe["admitted"].add(built)
+        fleet_name = orig_add(engine, **kw)
+        alias[fleet_name] = built
+        return fleet_name
+
+    def traced_drain(name, **kw):
+        out = orig_drain(name, **kw)
+        probe["admitted"].discard(alias[name])
+        return out
+
+    b.add_engine, b.drain_engine = traced_add, traced_drain
+    migrations = []
+    orig_migrate = b.cache.migrate_engine_sessions
+
+    def traced_migrate(src, dst, **kw):
+        """The drain's migration, with the source's rows gathered before it
+        and each destination row right after its write. The gathers stay on
+        the card (a copy to the host would wait on every replica's queued
+        work on the shared stream, stalling the drain): stream order makes
+        each read see the pool as it stood when it was enqueued."""
+        src_pool = b.cache.pools.get(src)
+        dst_pool = b.cache.pools.get(dst) if dst is not None else None
+        with b.cache._lock:
+            sids = [sid for sid, e in b.cache._entries.items() if e.engine == src]
+        before = {sid: src_pool.read_block(sid, on_device=True)
+                  for sid in sids if src_pool.holds(sid)}
+        after = {}
+        if dst_pool is not None:
+            write_back = dst_pool.write_back
+
+            def traced_wb(sid, row, n_tokens):
+                ok = write_back(sid, row, n_tokens)
+                if ok and sid in before:
+                    after[sid] = dst_pool.read_block(sid, on_device=True)
+                return ok
+
+            dst_pool.write_back = traced_wb
+        t0 = time.monotonic()
+        try:
+            out = orig_migrate(src, dst, **kw)
+        finally:
+            if dst_pool is not None:
+                del dst_pool.write_back
+        # Host time: the copies are enqueued on the device's stream.
+        migrations.append(dict(src=src, dst=dst, before=before, after=after, out=out,
+                               t_end=time.monotonic(), ms=1e3 * (time.monotonic() - t0),
+                               page_bytes=src_pool.page_bytes))
+        return out
+
+    b.cache.migrate_engine_sessions = traced_migrate
+    seq = [1]
+
+    def factory():
+        name = f"engine{seq[0]}"
+        seq[0] += 1
+        return make(name)
+
+    plan = FaultPlan(SEED, writer=tap).register("engine-spawn", at=(0,), fault="spawn-fault")
+    k2_calls = []
+
+    def timed_k2(*a, **kw):
+        t_call = time.perf_counter()
+        out = k2_fn(*a, **kw)
+        k2_calls.append((time.monotonic(), time.perf_counter() - t_call))
+        return out
+
+    k1.LAUNCHES = k1.LAUNCHES_ADD = k2.LAUNCHES = 0
+    core.fused_consensus_update = timed_k2
+    sc = Autoscaler(b, factory, policy=resolve_policy(scfg),
+                    rules={"p99_ms": scfg.elastic_p99_ms}, writer=tap,
+                    interval_s=scfg.elastic_interval_s, spawn_hook=spawn_fault(plan),
+                    warm_pool=scfg.warm_pool)
+    b.start()
+    sc.start()  # builds and warms the spare first
+    t_run = time.monotonic()
+    stateless, streams = [], []  # (submit t, img, ticket) / (session, frame, submit t, img, t)
+    shed = [0]
+    stop_streams = threading.Event()
+    bases = {}
+
+    def submit(img, session=None):
+        try:
+            return b.submit(img, session_id=session)
+        except ShedError:
+            shed[0] += 1
+            return None
+
+    def stream_client(c):
+        """Sessions of ELASTIC_FRAMES frames each, one after another."""
+        srng = np.random.default_rng(SEED + 100 + c)
+        gen = 0
+        while not stop_streams.is_set():
+            sid = f"c{c}g{gen}"
+            bases[sid] = 100.0 * srng.standard_normal(shape).astype(np.float32)
+            f = 0
+            while not stop_streams.is_set() and f < ELASTIC_FRAMES:
+                img = (bases[sid] + 0.05 * srng.standard_normal(shape)).astype(np.float32)
+                t_sub = time.monotonic()
+                t = submit(img, sid)
+                if t is None:
+                    break
+                t.result(timeout=300)
+                streams.append((sid, f, t_sub, img, t))
+                f += 1
+                time.sleep(0.1)
+            gen += 1
+
+    sthreads = [threading.Thread(target=stream_client, args=(c,))
+                for c in range(ELASTIC_CLIENTS)]
+    for th in sthreads:
+        th.start()
+    orng = np.random.default_rng(SEED + 19)
+
+    def open_loop(rate, until):
+        t_next = time.monotonic()
+        k = len(stateless)
+        while not until():
+            t_next += orng.exponential(1.0 / rate)
+            wait = t_next - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            img = pool_imgs[k % len(pool_imgs)]
+            k += 1
+            t_sub = time.monotonic()
+            t = submit(img)
+            if t is not None:
+                stateless.append((t_sub, img, t))
+
+    for rate, dur in ((ELASTIC_LOW[0] * ceiling, ELASTIC_LOW[1]),
+                      (ELASTIC_SPIKE[0] / ELASTIC_SPIKE[1], ELASTIC_SPIKE[1])):
+        end = time.monotonic() + dur
+        open_loop(rate, lambda: time.monotonic() >= end)
+    settle_end = time.monotonic() + ELASTIC_SETTLE_S
+
+    def settled():
+        el = sc.record()
+        return time.monotonic() >= settle_end or (
+            el["n_scale_ins"] >= 2 and b.n_active_engines() == scfg.min_engines)
+
+    open_loop(ELASTIC_TAIL * ceiling, settled)
+    stop_streams.set()
+    for th in sthreads:
+        th.join()
+    for _, _, t in stateless:
+        t.result(timeout=300)
+    # One more frame of every session the cache still holds: each starts
+    # warm from the surviving engine's pool, the migrated ones included.
+    last = {}
+    for sid, f, _, _, t in streams:
+        last[sid] = (f, t)
+    for sid in sorted(last):
+        if b.cache.lookup(sid) is None:
+            continue
+        img = (bases[sid] + 0.05 * orng.standard_normal(shape)).astype(np.float32)
+        t_sub = time.monotonic()
+        t = submit(img, sid)
+        if t is not None:
+            t.result(timeout=300)
+            streams.append((sid, last[sid][0] + 1, t_sub, img, t))
+    t_end = time.monotonic()
+    sc.stop()
+    b.stop()
+    core.fused_consensus_update = k2_fn
+    got = (k1.LAUNCHES, k1.LAUNCHES_ADD, k2.LAUNCHES)
+    el = sc.record()
+    s = b.summary_record()
+
+    # -- the checks -------------------------------------------------------------
+    tickets = [t for _, _, t in stateless] + [x[4] for x in streams]
+    leaves = collections.Counter(r["trace_id"] for r in tap.events("resolve"))
+    served_once = (shed[0] == 0 and s["n_failed"] == 0 and s["n_shed"] == 0
+                   and s["n_served"] == s["n_submitted"] == len(tickets)
+                   and all(t.done() for t in tickets)
+                   and all(leaves[t.trace_id] == 1 for t in tickets))
+    errors = [r for r in tap.recs if r.get("kind") == "error"]
+    # 3. Each decision's chain, in order, under its decision_id.
+    chain_events = ("scale_out_decision", "engine_add", "scale_out", "spare_promote",
+                    "admission_open", "spawn_rollback", "scale_in_decision", "drain_begin",
+                    "drain_flush", "drain_migrate", "drain_release", "spare_demote",
+                    "drain_abort")
+    by_id = collections.defaultdict(list)
+    for rec in tap.recs:
+        if rec.get("kind") == "decision":
+            by_id[rec.get("decision_id")].append("decision")
+        elif rec.get("kind") == "serve" and rec.get("event") in chain_events:
+            by_id[rec.get("decision_id")].append(rec["event"])
+    drain = ["decision", "scale_in_decision", "drain_begin", "drain_flush", "drain_migrate",
+             "drain_release"]
+    patterns = {
+        "spawn": ["decision", "scale_out_decision", "engine_add", "scale_out", "admission_open"],
+        "promote": ["decision", "scale_out_decision", "engine_add", "spare_promote",
+                    "admission_open"],
+        "rollback": ["decision", "scale_out_decision", "spawn_rollback"],
+        "release": drain, "demote": drain + ["spare_demote"],
+    }
+    kinds = {did: next((k for k, p in patterns.items() if p == evs), None)
+             for did, evs in by_id.items()}
+    rollbacks = tap.events("spawn_rollback")
+    chains_ok = (None not in by_id and None not in kinds.values()
+                 and sorted(by_id) == list(range(1, len(by_id) + 1))
+                 and all(sum(k == want for k in kinds.values()) >= 1
+                         for want in ("spawn", "promote", "release", "demote"))
+                 and len(rollbacks) == 1
+                 and rollbacks[0]["exception"].startswith("InjectedFault"))
+    # 4. No dispatch reaches an engine outside its registration (admission
+    # opens inside add_engine; admission_open is stamped right after), and
+    # every registration comes after the engine's warm-up returned.
+    added = sorted({n for n, _, _ in probe["registrations"]})
+    admission_ok = bool(added) and not probe["early"] and all(
+        w is not None and w <= t for _, w, t in probe["registrations"])
+    t_rec = {id(r): t for t, r in tap.timed}
+    first_disp, opened = {}, {}
+    for r in tap.events("dispatch"):
+        first_disp.setdefault(alias[r["engine"]], t_rec[id(r)])
+    for r in tap.events("admission_open"):
+        opened.setdefault(alias[r["engine"]], t_rec[id(r)])
+    dispatch_after_record = {n: first_disp.get(n, math.inf) >= opened.get(n, -math.inf)
+                             for n in added}
+    warm_to_admit_ms = [round(1e3 * (t - w), 3) for _, w, t in probe["registrations"]
+                        if w is not None]
+    # 5. Migrated pages bit for bit; each migrated session's next frame
+    # (the stream's, or the final one) served warm from the pool it landed
+    # in, with no levels0 from the host.
+    mig_ok, n_mig, next_frame = True, 0, {}
+    for m in migrations:
+        n_mig += m["out"]["n_migrated"]
+        mig_ok &= len(m["after"]) == m["out"]["n_migrated"]
+        for sid, row in m["after"].items():
+            mig_ok &= torch.equal(row, m["before"][sid])
+            mig_ok &= content_hash(row.cpu()) == content_hash(m["before"][sid].cpu())
+            later = [x for x in streams if x[0] == sid and x[2] > m["t_end"]]
+            if later:
+                next_frame[sid] = min(later, key=lambda x: x[2])[4]
+    disp_by_trace = {}
+    per_engine = collections.defaultdict(list)
+    for r in tap.events("dispatch"):
+        per_engine[alias[r["engine"]]].append(r)
+    warm_rows = {}
+    calls_ok = True
+    for name, recs in per_engine.items():
+        calls = probe["calls"][name]
+        calls_ok &= len(calls) == len(recs)
+        for r, call in zip(recs, calls):
+            for i, tid in enumerate(r["trace_ids"]):
+                disp_by_trace[tid] = r
+                warm_rows[tid] = bool(call and call[i])
+            calls_ok &= r["n_page_warm"] == sum(call or [])
+    next_hits = 0
+    for tick in next_frame.values():
+        r = disp_by_trace.get(tick.trace_id)
+        next_hits += bool(r and warm_rows[tick.trace_id] and r["levels0_h2d_bytes"] == 0)
+    migrate_ok = mig_ok and n_mig >= 1 and calls_ok and next_hits == len(next_frame) >= 1
+    # 6. Each release returned its pool's buffer.
+    demoted = sum(bool(r["demoted"]) for r in tap.events("drain_release"))
+    releases = probe["releases"]
+    release_ok = (len(releases) == len(tap.events("drain_release")) - demoted >= 1
+                  and all(r["buffer_freed"] and r["released"] for r in releases))
+    # 7. Exact launches: every warm-up forward and every bucket dispatch.
+    n_disp = len(tap.events("dispatch"))
+    n_warm = len(buckets) * len([n for n in probe["warm_end"] if n != "engine0"])
+    launches_ok = got == (2 * T * (n_disp + n_warm), T * (n_disp + n_warm), T * (n_disp + n_warm))
+    # 2. Every ticket bit for bit its bucket replayed through engine.infer
+    # on the engine that served it (a released engine's through a fresh
+    # replica with the same weights: it serves no more), warm rows from the
+    # session's previous frame.
+    replay_eng = InferenceEngine(cfg, dataclasses.replace(
+        scfg, page_pool_pages=0, column_cache_bytes=0, elastic=False), params=params,
+        device=dev, name="replay")
+    prev, by_trace = {}, {}
+    for sid, f, _, img, t in streams:
+        by_trace[t.trace_id] = (img, t, prev.get(sid))
+        prev[sid] = t
+    for _, img, t in stateless:
+        by_trace[t.trace_id] = (img, t, None)
+    bitwise, n_replayed_fresh = True, 0
+    cold = eng0.cold_levels()
+    for r in tap.events("dispatch"):
+        rows = [by_trace[tid] for tid in r["trace_ids"]]
+        eng = engines[alias[r["engine"]]]
+        if eng.released:
+            eng, n_replayed_fresh = replay_eng, n_replayed_fresh + 1
+        imgs = np.zeros((r["bucket"], *shape), np.float32)
+        lv0 = torch.zeros((r["bucket"], *cold.shape), dtype=cold.dtype)
+        warm_any = False
+        for i, (img, _, before_t) in enumerate(rows):
+            imgs[i] = img
+            if warm_rows[r["trace_ids"][i]]:
+                lv0[i] = before_t.result()[0]
+                warm_any = True
+            else:
+                lv0[i] = cold
+        kw = {"levels0": lv0} if warm_any else {}
+        want = eng.infer(imgs, n_valid=r["n_valid"], **kw).levels[:r["n_valid"]].cpu()
+        bitwise &= all(torch.equal(t.result()[0], want[i]) for i, (_, t, _) in enumerate(rows))
+    # 8. The decision chain audits clean from the phase's stream alone.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "elastic.jsonl")
+        with open(path, "w") as fh:
+            for rec in tap.recs:
+                fh.write(json.dumps(rec) + "\n")
+        audit = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "audit", path],
+                               cwd=os.path.dirname(os.path.abspath(__file__)),
+                               capture_output=True, text=True, timeout=120)
+    audit_rep = json.loads(audit.stdout.splitlines()[-1]) if audit.stdout.strip() else {}
+    # What each fleet size reaches on the card: closed-loop ceilings of
+    # fleets of 1, 2 and 3 replicas (8 clients an engine, sizes in turns
+    # 1, 2, 3, 3, 2, 1), with K2's host time a call under that load.
+    ceiling_fleet = [replay_eng] + [
+        InferenceEngine(cfg, replay_eng.scfg, params=params, device=dev, name=f"ceiling{i}")
+        for i in (1, 2)]
+    for e in ceiling_fleet:
+        e.warmup()
+    by_size_ceiling = collections.defaultdict(list)
+    for size in (1, 2, 3, 3, 2, 1):
+        by_size_ceiling[size].append(closed_loop(ceiling_fleet[:size], 8 * size))
+
+    # -- the numbers ----------------------------------------------------------
+    timeline = el["timeline"]
+
+    def fleet_at(t_mono):
+        rel, n = t_mono - sc._t0, timeline[0][1]
+        for t_rel, size in timeline:
+            if t_rel <= rel:
+                n = size
+        return n
+
+    per_size = collections.defaultdict(lambda: dict(lat=[], done=0))
+    for t_sub, _, t in stateless + [(x[2], x[3], x[4]) for x in streams]:
+        per_size[fleet_at(t_sub)]["lat"].append(t.result()[2])
+    span_s = collections.Counter()
+    edges = [(t_rel + sc._t0, n) for t_rel, n in timeline] + [(t_end, None)]
+    for (ta, n), (tb, _) in zip(edges, edges[1:]):
+        lo, hi = max(ta, t_run), min(tb, t_end)
+        if hi > lo:
+            span_s[n] += hi - lo
+    for t_sub, _, t in stateless + [(x[2], x[3], x[4]) for x in streams]:
+        per_size[fleet_at(t_sub + t.result()[2])]["done"] += 1
+    by_size = {str(n): dict(
+        seconds=span_s[n], requests=len(v["lat"]),
+        requests_per_s=v["done"] / span_s[n] if span_s[n] else None,
+        latency_ms={"p50": float(np.percentile(np.asarray(v["lat"]) * 1e3, 50)),
+                    "p99": float(np.percentile(np.asarray(v["lat"]) * 1e3, 99))})
+        for n, v in sorted(per_size.items()) if v["lat"]}
+    t_dec = {r["decision_id"]: t_rec[id(r)] for r in tap.recs if r.get("kind") == "decision"}
+    actions = []
+    for did, kind in sorted(kinds.items(), key=str):
+        if kind is None or did not in t_dec:
+            continue
+        end_ev = {"spawn": "admission_open", "promote": "admission_open",
+                  "rollback": "spawn_rollback", "release": "drain_release",
+                  "demote": "drain_release"}[kind]
+        t_done = next(t_rec[id(r)] for r in tap.events(end_ev) if r.get("decision_id") == did)
+        actions.append(dict(decision_id=did, action=kind, to=end_ev,
+                            ms=1e3 * (t_done - t_dec[did])))
+    k2_by_size = collections.defaultdict(list)
+    for t_call, dt in k2_calls:
+        k2_by_size[fleet_at(t_call)].append(dt * 1e6)
+    launches = {"grouped_mlp_fwd": got[0] - got[1], "grouped_mlp_fwd_add": got[1],
+                "consensus_update_fwd": got[2]}
+    spawn = tap.events("scale_out")
+    ok = (served_once and not errors and chains_ok and admission_ok and migrate_ok
+          and release_ok and launches_ok and bitwise and audit.returncode == 0)
+    emit("serve_elastic", ceiling_one_engine_requests_per_s=ceiling,
+         policy=dict(ELASTIC_POLICY, min_engines=1, max_engines=ELASTIC_MAX,
+                     warm_pool=ELASTIC_WARM_POOL, queue_depth=ELASTIC_QUEUE),
+         ramp=[dict(requests_per_s=ELASTIC_LOW[0] * ceiling, seconds=ELASTIC_LOW[1]),
+               dict(requests_per_s=ELASTIC_SPIKE[0] / ELASTIC_SPIKE[1],
+                    seconds=ELASTIC_SPIKE[1]),
+               dict(requests_per_s=ELASTIC_TAIL * ceiling, seconds=None)],
+         requests=len(tickets), stateless=len(stateless), stream_frames=len(streams),
+         fleet_timeline=timeline, by_fleet_size=by_size, actions=actions,
+         spawn_ms=[r["spawn_ms"] for r in spawn],
+         promote_ms=[r["promote_ms"] for r in tap.events("spare_promote")],
+         spare_spawn_ms=[r["spawn_ms"] for r in tap.events("spare_spawn")],
+         migrations=[dict(src=m["src"], dst=m["dst"], sessions=m["out"]["n_migrated"],
+                          invalidated=m["out"]["n_invalidated"],
+                          bytes=m["out"]["bytes_migrated"],
+                          pages=m["out"]["bytes_migrated"] // m["page_bytes"], ms=m["ms"])
+                     for m in migrations],
+         flush_ms=[r["flush_ms"] for r in tap.events("drain_flush")],
+         migrated_next_frame_hits=next_hits, releases=releases,
+         closed_loop_by_fleet_size={str(n): dict(
+             requests_per_s=[rps for rps, _ in v], k2_host_us_per_call=[us for _, us in v],
+             clients=8 * n) for n, v in sorted(by_size_ceiling.items())},
+         k2_host_us_per_call={str(n): dict(median=statistics.median(v), calls=len(v))
+                              for n, v in sorted(k2_by_size.items())},
+         launches={"K1": got[0], "K1_add": got[1], "K2": got[2]}, dispatches=n_disp,
+         warmup_forwards=n_warm, launches_per_dispatch={"K1": 2 * T, "K1_add": T, "K2": T},
+         decisions=len(by_id), chains={str(k): v for k, v in kinds.items()},
+         audit=audit_rep, summary_elastic=el,
+         replayed_on_fresh_replica=n_replayed_fresh,
+         dispatch_after_admission_record=dispatch_after_record,
+         warmup_to_registration_ms=warm_to_admit_ms,
+         checks=dict(served_once=served_once, autoscaler_errors=len(errors),
+                     chains=chains_ok, admission_after_warmup=admission_ok,
+                     migration_bitwise_and_next_hit=migrate_ok, release_frees_pool=release_ok,
+                     launches_exact=launches_ok, bitwise_equal_engine_replay=bitwise,
+                     audit_rc=audit.returncode), ok=ok)
+    if not ok:
+        raise AssertionError(
+            f"serve_elastic: served once {served_once}, errors {len(errors)}, chains "
+            f"{chains_ok} {dict(kinds)}, admission {admission_ok}, migration {migrate_ok}, "
+            f"release {release_ok}, launches {got} for {n_disp} + {n_warm}, bitwise {bitwise}, "
+            f"audit {audit.returncode} {audit.stderr[-500:]}")
+    del engines, replay_eng, ceiling_fleet, tickets, streams, stateless, migrations
+
+    # -- serve_cli_elastic: python -m glom_tpu_torch.serve --elastic -------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve.jsonl")
+        argv = [sys.executable, "-m", "glom_tpu_torch.serve",
+                *(cli_argv or ["--preset", "imagenet224-dp8", "--device", "cuda"]),
+                "--elastic", "--min-engines", "1", "--max-engines", "2", "--warm-pool", "1",
+                "--forecast", "--ramp", CLI_ELASTIC_RAMP, "--queue-depth", "512",
+                "--elastic-p99-ms", "100", "--elastic-window", "2",
+                "--elastic-low-water", "0.7", "--elastic-high-water", "0.9",
+                "--elastic-dwell", "0.05",
+                "--elastic-cooldown", "0.5", "--elastic-interval", "0.05",
+                "--elastic-settle", "10", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                              cwd=root, capture_output=True, text=True, timeout=120)
+        audit = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "audit", out],
+                               cwd=root, capture_output=True, text=True, timeout=120)
+        recs = []
+        if os.path.exists(out):
+            with open(out) as fh:
+                recs = [json.loads(line) for line in fh if line.startswith("{")]
+    summary = [r for r in recs if r.get("event") == "summary"]
+    n_ramp = sum(int(p.split("x")[0]) for p in CLI_ELASTIC_RAMP.split(","))
+    s = summary[-1] if summary else {}
+    cli_ok = (proc.returncode == 0 and lint.returncode == 0 and audit.returncode == 0
+              and len(summary) == 1 and s.get("n_requests") == s.get("n_served") == n_ramp)
+    emit("serve_cli_elastic", argv=argv[1:], rc=proc.returncode, lint_rc=lint.returncode,
+         audit_rc=audit.returncode, seconds=cli_s, requests=s.get("n_requests"),
+         served=s.get("n_served"), failed=s.get("n_failed"), elastic=s.get("elastic"),
+         forecasts=sum(1 for r in recs if r.get("kind") == "forecast"),
+         decisions=sum(1 for r in recs if r.get("kind") == "decision"),
+         audit=json.loads(audit.stdout.splitlines()[-1]) if audit.stdout.strip() else None,
+         ok=cli_ok, stderr_tail=None if cli_ok else (proc.stderr + audit.stderr)[-2000:])
+    if not cli_ok:
+        raise AssertionError(f"serve_cli_elastic: rc {proc.returncode}, lint {lint.returncode}, "
+                             f"audit {audit.returncode}, summary {s.get('n_requests')}/"
+                             f"{s.get('n_served')}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel ran no time in the elastic fleet: {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2489,6 +3144,9 @@ def main() -> int:
     batcher_launches = serve_host_stack(
         cfg, params, dev, engine, ragged, lambda imgs: same_step_fixed(imgs)[0], compare)
 
+    # -- serve: the elastic fleet (Autoscaler, spares, drains, migration) --------
+    elastic_launches = serve_elastic(cfg, params, dev)
+
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
     from glom_tpu_torch.data import shapes_dataset
@@ -3164,6 +3822,10 @@ def main() -> int:
         # ... and behind the batcher (serve_host_stack's main-path runs).
         if kd["name"] in batcher_launches:
             kd["batcher_launches"] = batcher_launches[kd["name"]]
+        # ... and in the elastic fleet (every replica's warm-ups and
+        # dispatches in serve_elastic's main-path run).
+        if kd["name"] in elastic_launches:
+            kd["elastic_launches"] = elastic_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,7 +2,7 @@
 
     faults -- seedable, scoped, stamped injectors (FaultPlan, the
               "fault"/"recovery" emitters, a poisoned batch, a failing
-              dispatch, a torn checkpoint)
+              dispatch, a failing elastic spawn, a torn checkpoint)
     retry  -- the bounded exponential backoff contract and RetryPolicy,
               the serving dispatch's watchdog-aware retry
     ladder -- the serving degradation ladder (normal -> capped_iters ->
@@ -21,6 +21,7 @@ from glom_tpu_torch.resilience.faults import (
     emit_fault,
     emit_recovery,
     nan_storm,
+    spawn_fault,
     truncate_newest_checkpoint,
 )
 from glom_tpu_torch.resilience.ladder import (
@@ -42,6 +43,7 @@ __all__ = [
     "emit_recovery",
     "nan_storm",
     "next_backoff",
+    "spawn_fault",
     "truncate_newest_checkpoint",
     "validate_backoff",
 ]

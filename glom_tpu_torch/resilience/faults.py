@@ -4,8 +4,9 @@ The port's copy of the part of `glom_tpu/resilience/faults.py` that the
 training side's recovery machinery is tested with: the FaultPlan every
 injector consults, the stamped "fault" and "recovery" emitters, and the
 injectors for a raising callable (`plan.wrap`), a poisoned batch
-(`nan_storm`), a failing dispatch (`dispatch_fault`) and a torn checkpoint
-(`truncate_newest_checkpoint`). The contract, in order of importance:
+(`nan_storm`), a failing dispatch (`dispatch_fault`), a failing elastic
+spawn (`spawn_fault`) and a torn checkpoint (`truncate_newest_checkpoint`).
+The contract, in order of importance:
 
   * DETERMINISTIC: every injection decision comes from a FaultPlan, a
     per-site schedule (explicit call indices, or a seeded per-site RNG
@@ -228,6 +229,30 @@ def dispatch_fault(
             **tracectx.current_fields(),
         ):
             raise exc_type(f"injected dispatch fault at {site}")
+
+    return hook
+
+
+def spawn_fault(
+    plan: FaultPlan,
+    site: str = "engine-spawn",
+    *,
+    exc_type: Callable[[str], BaseException] = InjectedFault,
+):
+    """Scale-out spawn-failure injector for the elastic autoscaler
+    (serve/elastic.Autoscaler(spawn_hook=...)): raises on scheduled spawn
+    ATTEMPTS before the engine factory runs. The autoscaler must roll back
+    loudly (a stamped spawn_rollback, no registration, the cooldown still
+    charged so a persistent fault cannot hot-spin spawns) instead of
+    admitting a half-built replica. Every injection is a stamped "fault"
+    event, so a run reconciles its rollbacks against what was injected."""
+
+    def hook(ctx: dict) -> None:
+        if plan.fires(
+            site,
+            **{k: (ctx or {}).get(k) for k in ("attempt", "n_engines")},
+        ):
+            raise exc_type(f"injected spawn fault at {site}")
 
     return hook
 

@@ -12,14 +12,17 @@ The port's counterparts of glom_tpu's `serve/`:
                   max_delay_ms gathering, pad-to-bucket with a mask, the
                   continuation queue, multi-engine fan-out with failover
                   and rejoin, the shed path; `pack_ragged`
-    column_cache  ColumnCache: session-keyed warm-start column state
+                  and the elastic fleet methods (add_engine,
+                  begin_drain, drain_engine, husk retention)
+    column_cache  ColumnCache: session-keyed warm-start column state and
+                  the drain's device-to-device session migration
+    elastic       ElasticPolicy and Autoscaler: the SLO-driven control
+                  loop (scale-out with warm-pool spares, graceful
+                  scale-in, stamped decision records)
     qos           SLO classes and the weighted-fair admission lane
     workload      record, write, load, generate and replay traffic
     events        the serve-record emitter
     cli           `python -m glom_tpu_torch.serve`
-
-glom_tpu's `elastic.py` (the Autoscaler) is ROADMAP queue A item 7's next
-part.
 """
 
 from glom_tpu_torch.serve.batcher import (
@@ -49,6 +52,7 @@ from glom_tpu_torch.serve.early_exit import (
     ragged_row_layout,
     support_agreement,
 )
+from glom_tpu_torch.serve.elastic import SCALE_EVENTS, Autoscaler, ElasticPolicy, resolve_policy
 from glom_tpu_torch.serve.engine import InferenceEngine, RaggedServeResult, ServeResult
 from glom_tpu_torch.serve.events import emit_serve, stamp_serve
 from glom_tpu_torch.serve.paged_columns import (
@@ -69,10 +73,12 @@ from glom_tpu_torch.serve.qos import (
 )
 
 __all__ = [
+    "Autoscaler",
     "BackendDownError",
     "ClassQueues",
     "ColumnCache",
     "DynamicBatcher",
+    "ElasticPolicy",
     "InferenceEngine",
     "LadderShedError",
     "PageHit",
@@ -81,6 +87,7 @@ __all__ = [
     "QueueFullError",
     "RaggedResult",
     "RaggedServeResult",
+    "SCALE_EVENTS",
     "SLOClass",
     "ServeResult",
     "ShedError",
@@ -104,6 +111,7 @@ __all__ = [
     "resolve_column_cache",
     "resolve_page_pool",
     "resolve_page_tokens",
+    "resolve_policy",
     "resolve_slo_classes",
     "stamp_serve",
     "support_agreement",

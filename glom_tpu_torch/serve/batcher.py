@@ -53,13 +53,21 @@ requests fast (BackendDownError); a dispatch exception with no sibling
 fails only that batch's tickets; the ladder steps serving down one
 reversible rung at a time before it sheds (LadderShedError).
 
+The elastic fleet (serve/elastic.py): `add_engine()` registers a warmed
+replica at runtime (admission opens the moment its worker starts), and
+`drain_engine()` runs the graceful scale-in: draining is an engine state
+of its own, distinct from dead (a draining worker stops pulling new work,
+finishes its in-flight dispatch, hands its affinity queue back to the
+shared queue and exits, never into probation); the engine's cache
+sessions migrate to a sibling pool device-to-device (or are invalidated
+with a stamped `drain` reason); the engine leaves the fleet as drained,
+excluded from the capacity records but kept in the summary's engines nest
+as evidence (a husk, retired under `husk_max` / `husk_max_age_s`). With no
+autoscaler attached none of this runs and the static fleet keeps its
+records' shape.
+
 Host phases ride tracing.spans (serve_enqueue, serve_batch,
 serve_dispatch, serve_fetch), drained by span_records().
-
-Not ported yet: the elastic fleet (`attach_elastic`, `add_engine`,
-`begin_drain`, `drain_engine` and drained-husk retention, with
-serve/elastic.py; ROADMAP queue A item 7). Those methods raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -551,14 +559,44 @@ class DynamicBatcher:
         self._iters_total = 0
         self._counter_lock = threading.Lock()
         self._seq = 0
+        # Elastic fleet state (serve/elastic.py). Draining engines stop
+        # admitting but are not dead (their in-flight work flushes);
+        # drained engines have left the fleet voluntarily, kept in
+        # `engines`/`_engine_state` as evidence husks (index math and the
+        # summary's engines nest stay stable) but excluded from capacity
+        # records, worker spawns and the failover fleet-size accounting.
+        # Both ride _engine_lock with the rest of the engine state.
+        self._draining: set = set()
+        self._drained: set = set()
+        # Affinity items a draining worker handed back to the shared
+        # queue on its way out (read by drain_engine's flush event).
+        self._drain_handoff: dict = {}
         # Event taps: each stamped serve record fans out to every tap
-        # after delivery. A tap never takes down a worker: exceptions are
-        # swallowed.
+        # after delivery (the autoscaler's in-process SLO monitor rides
+        # one). A tap never takes down a worker: exceptions are swallowed.
         self._taps: List = []
+        # The attached Autoscaler (None = static fleet, the default):
+        # summary_record() nests its rollup under "elastic".
+        self._elastic = None
         # Per-request admission events (schema v9, serve/workload.py):
         # armed by enable_admission_events() at setup time; off, the hot
         # path pays one boolean read.
         self._admit_events = False
+        # Drained-husk retention: a long-lived elastic server accumulates
+        # one evidence husk per scale-in. When the lead ServeConfig bounds
+        # retention (husk_max / husk_max_age_s; None keeps all), the
+        # oldest husks retire: removed from `engines`/`_engine_state`,
+        # their counters folded into the _husks_retired rollup and stamped
+        # as an `engine_husk_retired` event, so summary conservation still
+        # reconciles. The state half rides _engine_lock; the container
+        # half follows add_engine's single-atomic-op convention
+        # (see _prune_husks).
+        self._husk_max = getattr(scfg, "husk_max", None) if scfg else None
+        self._husk_max_age_s = getattr(scfg, "husk_max_age_s", None) if scfg else None
+        self._husk_drained_at: dict = {}  # name -> batcher-clock drain time
+        self._husks_retired: dict = {
+            "n": 0, "dispatches": 0, "rejoins": 0, "age_s_max": 0.0,
+        }
 
     @staticmethod
     def _ename(eng, i: int) -> str:
@@ -573,6 +611,9 @@ class DynamicBatcher:
             self._stop.clear()
             for i, eng in enumerate(self.engines):
                 name = self._ename(eng, i)
+                with self._engine_lock:
+                    if name in self._drained:
+                        continue  # a drained husk never serves again
                 t = threading.Thread(
                     target=self._worker,
                     args=(eng, name),
@@ -648,9 +689,24 @@ class DynamicBatcher:
     # -- submission --------------------------------------------------------
 
     def _alive_engines(self) -> List[str]:
-        """Engines that can take new work."""
+        """Engines that can take new work: alive and not draining (a
+        draining engine still flushes its in-flight dispatch, but
+        admission, affinity routing and the ladder-shed vote stop seeing
+        it)."""
         with self._engine_lock:
-            return [n for n, st in self._engine_state.items() if st["alive"]]
+            return [
+                n for n, st in self._engine_state.items()
+                if st["alive"] and n not in self._draining
+            ]
+
+    def n_active_engines(self) -> int:
+        """The live serving fleet size (alive, not draining): the count
+        the elastic policy clamps against."""
+        return len(self._alive_engines())
+
+    def engine_by_name(self, name: str):
+        idx = self._engine_index.get(name)
+        return self.engines[idx] if idx is not None else None
 
     def add_event_tap(self, tap) -> None:
         """Subscribe `tap(stamped_record)` to every record this batcher
@@ -894,13 +950,19 @@ class DynamicBatcher:
                 except queue.Full:
                     pass  # fall back to the shared queue
                 if placed:
-                    # Race with a concurrent death: the failure handler
-                    # sets alive=False before draining the affinity
-                    # queue, so either that drain saw this put, or we
-                    # see the flag here and drain ourselves; the ticket
-                    # never strands in a queue no worker reads.
+                    # Race with a concurrent death or drain: the failure
+                    # handler sets alive=False (and drain_engine the
+                    # draining flag) before draining the affinity queue,
+                    # so either that drain saw this put, or we see the
+                    # flag here and drain ourselves; the ticket never
+                    # strands in a queue no worker reads (a draining
+                    # worker has stopped reading its queue by the time
+                    # the flag is set).
                     with self._engine_lock:
-                        serving = self._engine_state[target]["alive"]
+                        serving = (
+                            self._engine_state[target]["alive"]
+                            and target not in self._draining
+                        )
                     if not serving:
                         self._drain_affinity(target)
             if not placed:
@@ -1155,6 +1217,20 @@ class DynamicBatcher:
             with self._engine_lock:
                 if not self._engine_state[engine_name]["alive"]:
                     break  # dead: queued work drains to siblings
+                draining = engine_name in self._draining
+            if draining:
+                # Voluntary drain (distinct from death, never into
+                # probation): the in-flight dispatch already completed
+                # (the flag is checked at loop top), so hand the affinity
+                # queue back to the shared queue and exit; stragglers this
+                # worker produced sit in the shared continuation queue for
+                # the siblings.
+                handed = self._drain_affinity(engine_name)
+                with self._counter_lock:
+                    self._drain_handoff[engine_name] = (
+                        self._drain_handoff.get(engine_name, 0) + handed
+                    )
+                return
             self._ladder_observe(engine_name)
             # Continuations first: stragglers are the OLDEST requests in
             # the system; waiting fresh rows fold into their bucket's pad
@@ -1177,8 +1253,14 @@ class DynamicBatcher:
             return  # normal stop-drain exit
         # Dead-engine exit: hand off to probation when rejoin is enabled
         # (N consecutive successful health dispatches re-admit the
-        # engine); otherwise death stays terminal until restart.
-        if self._rejoin_threshold > 0 and not self._stop.is_set():
+        # engine); otherwise death stays terminal until restart. A drained
+        # or draining engine never probes: a drain whose in-flight flush
+        # outlived the join timeout reaches here with alive already False,
+        # its device state being released, and a rejoin would re-admit a
+        # husk (_start_probation re-checks under the lock).
+        with self._engine_lock:
+            voluntary = engine_name in self._drained or engine_name in self._draining
+        if self._rejoin_threshold > 0 and not self._stop.is_set() and not voluntary:
             self._start_probation(engine, engine_name)
 
     # -- engine rejoin (probation re-admit) --------------------------------
@@ -1198,6 +1280,8 @@ class DynamicBatcher:
             st = self._engine_state[engine_name]
             if st["alive"] or st["probation"]:
                 return
+            if engine_name in self._drained or engine_name in self._draining:
+                return  # voluntary exit: released husks never probe back
             with self._counter_lock:
                 if self._stop.is_set():
                     return
@@ -1285,27 +1369,347 @@ class DynamicBatcher:
         with self._engine_lock:
             self._engine_state[engine_name]["probation"] = False
 
-    # -- elastic fleet (not ported) ----------------------------------------
-
-    @staticmethod
-    def _elastic_refusal(what: str):
-        return NotImplementedError(
-            f"DynamicBatcher.{what}: the elastic fleet (serve/elastic.py's "
-            "Autoscaler and the batcher's fleet methods) is not ported yet, "
-            "ROADMAP queue A item 7"
-        )
+    # -- elastic fleet (serve/elastic.py) ----------------------------------
 
     def attach_elastic(self, scaler) -> None:
-        raise self._elastic_refusal("attach_elastic")
+        """Attach the Autoscaler whose rollup summary_record() nests under
+        "elastic" (serve/elastic.py calls this; a static fleet never does,
+        and its summary keeps its shape)."""
+        with self._counter_lock:
+            self._elastic = scaler
 
-    def add_engine(self, engine, *, name=None, detail=None) -> str:
-        raise self._elastic_refusal("add_engine")
+    def add_engine(
+        self,
+        engine,
+        *,
+        name: Optional[str] = None,
+        detail: Optional[dict] = None,
+    ) -> str:
+        """Register a new engine replica at runtime: the autoscaler's
+        scale-out landing. The engine must arrive warmed: admission opens
+        the instant its worker starts (the autoscaler runs warmup() before
+        calling this, so a spawned engine takes no admitted work before
+        its warm-up returns). The worker binds the engine's CUDA device
+        before its first dispatch. Registration mirrors __init__'s
+        per-engine setup: ladder (from the engine's own ServeConfig),
+        affinity queue, engine state, page pool (a pages-mode fleet stays
+        homogeneous, loudly). `detail` merges into the stamped engine_add
+        event (the autoscaler threads the owning decision_id and fleet
+        through it, so the audit chains the registration to its
+        decision). Returns the engine's fleet name."""
+        ename = name or getattr(engine, "name", None)
+        pool = getattr(engine, "pool", None)
+        pages_mode = (
+            self.cache is not None and getattr(self.cache, "pools", None) is not None
+        )
+        if pages_mode and pool is None:
+            raise ValueError(
+                "pages-mode fleet: a runtime-added engine must carry a "
+                "page pool (mixed pool/pool-less fleets are unsupported)"
+            )
+        # The engine's ladder resolves outside the locks (pure config).
+        ladder = None
+        escfg = getattr(engine, "scfg", None)
+        if (
+            escfg is not None
+            and getattr(escfg, "ladder", False)
+            and getattr(engine, "cfg", None) is not None
+        ):
+            from glom_tpu_torch.resilience.ladder import DegradationLadder
 
-    def begin_drain(self, name: str, *, detail=None) -> None:
-        raise self._elastic_refusal("begin_drain")
+            ladder = DegradationLadder.from_config(
+                engine.cfg, escfg, writer=self.writer
+            )
+        # Phase 1, reserve the name: the state entry exists (a duplicate
+        # registration is impossible from here) but reads alive=False and
+        # probation=True, so admission, affinity routing, drain and the
+        # capacity stream (state "probation", excluded from the headroom
+        # min) all ignore the half-registered engine.
+        with self._engine_lock:
+            if ename is None:
+                k = len(self._engine_state)
+                while f"engine{k}" in self._engine_state:
+                    k += 1
+                ename = f"engine{k}"
+            elif ename in self._engine_state:
+                raise ValueError(f"engine name {ename!r} already registered")
+            self._engine_state[ename] = {
+                "alive": False,
+                "dispatches": 0,
+                "consecutive_failures": 0,
+                "probation": True,
+                "rejoins": 0,
+            }
+        # Phase 2, container registration: each is one atomic setitem or
+        # append on a container no reader locks, and nothing routes to
+        # the engine until phase 3 flips it alive.
+        self.engines.append(engine)
+        self._engine_index[ename] = len(self.engines) - 1
+        self._aff_q[ename] = queue.Queue(maxsize=self._q.maxsize)
+        self._ladders[ename] = ladder
+        if pool is not None:
+            self._pools[ename] = pool
+        if pages_mode and pool is not None:
+            self.cache.add_pool(ename, pool)
+        # Phase 3, open admission, atomically with stop()'s thread
+        # snapshot (the probation-spawn pattern): a stopped batcher keeps
+        # the engine registered but spawns no worker.
+        with self._engine_lock:
+            st = self._engine_state[ename]
+            with self._counter_lock:
+                st["alive"] = True
+                st["probation"] = False
+                if bool(self._threads) and not self._stop.is_set():
+                    t = threading.Thread(
+                        target=self._worker,
+                        args=(engine, ename),
+                        name=f"glom-serve-batcher-{ename}",
+                        daemon=True,
+                    )
+                    t.start()
+                    self._threads.append(t)
+        self._emit(
+            {
+                "event": "engine_add",
+                "engine": ename,
+                "n_engines": self.n_active_engines(),
+                **(detail or {}),
+            }
+        )
+        return ename
 
-    def drain_engine(self, name: str, *, timeout: float = 60.0, detail=None) -> dict:
-        raise self._elastic_refusal("drain_engine")
+    def begin_drain(self, name: str, *, detail: Optional[dict] = None) -> None:
+        """Enter the draining state: the engine stops admitting (it leaves
+        _alive_engines, so affinity routing, the ladder-shed vote and
+        failover sibling lists stop seeing it) while its worker finishes
+        the in-flight dispatch and exits. Refuses loudly when the engine
+        is dead, on probation, already draining, or the last live engine
+        (a fleet never drains itself to zero)."""
+        with self._engine_lock:
+            st = self._engine_state.get(name)
+            if st is None:
+                raise ValueError(f"unknown engine {name!r}")
+            if name in self._drained or name in self._draining:
+                raise ValueError(f"engine {name} is already drained/draining")
+            if not st["alive"] or st["probation"]:
+                raise ValueError(
+                    f"engine {name} is not drainable (dead or on "
+                    "probation: drain is a voluntary transition of a "
+                    "healthy engine)"
+                )
+            others = [
+                n for n, s in self._engine_state.items()
+                if n != name and s["alive"] and n not in self._draining
+            ]
+            if not others:
+                raise ValueError(
+                    f"refusing to drain {name}: it is the last live "
+                    "engine (min fleet is 1)"
+                )
+            self._draining.add(name)
+        self._emit({"event": "drain_begin", "engine": name, **(detail or {})})
+
+    def _join_worker(self, name: str, timeout: float) -> bool:
+        """Wait for `name`'s worker thread to exit (the in-flight flush).
+        True when it is gone inside the timeout."""
+        tname = f"glom-serve-batcher-{name}"
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._counter_lock:
+                workers = [t for t in self._threads if t.name == tname and t.is_alive()]
+            if not workers:
+                return True
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            workers[0].join(timeout=min(0.5, remaining))
+
+    def _migration_target(self, src: str) -> Optional[str]:
+        """Where a draining engine's cache sessions land: the live
+        non-draining sibling; in pages mode the one whose pool has the
+        most free pages (the best chance every session fits)."""
+        with self._engine_lock:
+            live = [
+                n for n, s in self._engine_state.items()
+                if n != src and s["alive"] and n not in self._draining
+            ]
+        if self.cache is not None and getattr(self.cache, "pools", None):
+            pooled = [
+                (self._pools[n].n_pages - self._pools[n].pages_used(), n)
+                for n in live
+                if n in self._pools
+            ]
+            return max(pooled)[1] if pooled else None
+        return live[0] if live else None
+
+    def drain_engine(
+        self,
+        name: str,
+        *,
+        timeout: float = 60.0,
+        detail: Optional[dict] = None,
+    ) -> dict:
+        """The graceful scale-in (the autoscaler's actuator, also callable
+        directly), in this order:
+
+          1. begin_drain: stop admitting (stamped drain_begin);
+          2. flush: the worker finishes its in-flight dispatch, hands its
+             affinity queue back to the shared queue and exits;
+             stragglers it produced sit in the shared continuation queue
+             for the siblings (stamped drain_flush);
+          3. migrate: every cache session whose state lives on this
+             engine moves to a sibling pool, device-to-device and bit for
+             bit, falling back to a stamped `drain` invalidation when no
+             sibling has page budget (stamped drain_migrate);
+          4. the engine leaves the fleet as drained, distinct from dead
+             (no probation, no failover accounting, no capacity record).
+
+        The worker has exited by step 3 (or the flush timed out, stamped
+        flush_ok False), so the migration reads the source pool after its
+        last write-back; every pool write runs on the device's current
+        stream, and so does the migration's copy. Device release
+        (InferenceEngine.release) is the caller's step: the autoscaler
+        stamps drain_release after it. Returns the drain stats. `detail`
+        (the decision_id) merges into every stamped event so the evidence
+        chain joins."""
+        detail = dict(detail or {})
+        self.begin_drain(name, detail=detail)
+        t0 = time.monotonic()
+        flushed = self._join_worker(name, timeout)
+        # A never-started batcher has no worker to hand the affinity queue
+        # back: drain it here either way.
+        handed = self._drain_affinity(name)
+        with self._counter_lock:
+            handed += self._drain_handoff.pop(name, 0)
+        self._emit(
+            {
+                "event": "drain_flush",
+                "engine": name,
+                "flush_ok": flushed,
+                "n_affinity_handed_back": handed,
+                "continuations_queued": self._cont_q.qsize(),
+                "flush_ms": round(1e3 * (time.monotonic() - t0), 3),
+                **detail,
+            }
+        )
+        stats = {
+            "engine": name,
+            "flush_ok": flushed,
+            "n_migrated": 0,
+            "n_invalidated": 0,
+            "bytes_migrated": 0,
+        }
+        dst = None
+        if self.cache is not None:
+            dst = self._migration_target(name)
+            stats.update(self.cache.migrate_engine_sessions(name, dst, reason="drain"))
+        # Emitted even with no cache (zero counts): the drain chain is
+        # always complete.
+        self._emit(
+            {
+                "event": "drain_migrate",
+                "engine": name,
+                "dst_engine": dst,
+                "n_migrated": stats["n_migrated"],
+                "n_invalidated": stats["n_invalidated"],
+                "bytes_migrated": stats["bytes_migrated"],
+                **detail,
+            }
+        )
+        # Namedness is decided here, outside the lock (engine_by_name's
+        # convention): only named husks enter _husk_drained_at and are
+        # ever retirement candidates; removing an unnamed engine (a test
+        # fake keyed by list index) would renumber its siblings' evidence.
+        eng = self.engine_by_name(name)
+        named = getattr(eng, "name", None) is not None
+        with self._engine_lock:
+            st = self._engine_state[name]
+            st["alive"] = False
+            self._draining.discard(name)
+            self._drained.add(name)
+            if named:
+                self._husk_drained_at[name] = self._clock()
+        # The drained pool leaves the fleet maps (its record would
+        # otherwise ride every later summary as live capacity).
+        self._pools.pop(name, None)
+        if self.cache is not None:
+            self.cache.remove_pool(name)
+        self._prune_husks()
+        return stats
+
+    def _prune_husks(self) -> None:
+        """Drained-husk retention (schema v9): bound the evidence husks a
+        long-lived elastic server keeps. With husk_max and husk_max_age_s
+        unset (the default) this is a no-op and every husk is kept.
+        Otherwise the oldest husks past either bound retire: removed from
+        `engines`/`_engine_state`/`_drained`, their counters folded into
+        the _husks_retired rollup (summary_record nests it, so per-engine
+        dispatch totals still reconcile against the globals), one
+        `engine_husk_retired` event stamped per retirement. Unnamed
+        engines are never retired."""
+        if self._husk_max is None and self._husk_max_age_s is None:
+            return
+        now = self._clock()
+        retired = []  # (name, age_s, reason, dispatches, rejoins)
+        # Phase 1, select victims and retire their state under the lock.
+        # Popping _engine_state is the commit point: concurrent prunes
+        # race to it and the loser skips, so each husk retires exactly
+        # once and the conservation fold is exact.
+        with self._engine_lock:
+            husks = sorted(
+                (n for n in self._drained if n in self._husk_drained_at),
+                key=lambda n: self._husk_drained_at[n],
+            )
+            marked = {}
+            if self._husk_max_age_s is not None:
+                for n in husks:
+                    if now - self._husk_drained_at[n] > self._husk_max_age_s:
+                        marked[n] = "age-bound"
+            if self._husk_max is not None:
+                kept = [n for n in husks if n not in marked]
+                for n in kept[: max(0, len(kept) - self._husk_max)]:
+                    marked[n] = "count-bound"
+            for n in husks:
+                if n not in marked:
+                    continue
+                st = self._engine_state.pop(n, None)
+                if st is None:
+                    continue  # a concurrent prune won the commit
+                self._drained.discard(n)
+                age = now - self._husk_drained_at.pop(n)
+                self._drain_handoff.pop(n, None)
+                fold = self._husks_retired
+                fold["n"] += 1
+                fold["dispatches"] += st.get("dispatches", 0)
+                fold["rejoins"] += st.get("rejoins", 0)
+                fold["age_s_max"] = round(max(fold["age_s_max"], age), 3)
+                retired.append(
+                    (n, age, marked[n], st.get("dispatches", 0), st.get("rejoins", 0))
+                )
+        # Phase 2, container teardown outside the lock, mirroring
+        # add_engine's registration convention: the husk serves nothing
+        # (phase 1 unregistered it), so the brief window where the list
+        # and the index disagree is visible only to fleet observers,
+        # never to a dispatch.
+        for name, age, reason, dispatches, rejoins in retired:
+            self._ladders.pop(name, None)
+            self._aff_q.pop(name, None)
+            idx = self._engine_index.get(name)
+            if idx is not None:
+                del self.engines[idx]
+                self._engine_index = {
+                    self._ename(eng, i): i for i, eng in enumerate(self.engines)
+                }
+            self._emit(
+                {
+                    "event": "engine_husk_retired",
+                    "engine": name,
+                    "reason": reason,
+                    "age_s": round(age, 3),
+                    "dispatches": dispatches,
+                    "rejoins": rejoins,
+                }
+            )
 
     # -- dispatch ----------------------------------------------------------
 
@@ -1399,15 +1803,20 @@ class DynamicBatcher:
             st = self._engine_state[engine_name]
             st["consecutive_failures"] += 1
             # The single-engine fleet never marks itself dead (it keeps
-            # serving and retrying).
+            # serving and retrying). Drained husks and draining engines
+            # do not count toward the fleet size: while a sibling drains,
+            # the one remaining admitting engine is the single-engine
+            # fleet and keeps that contract rather than kill all
+            # admission.
+            fleet = len(self._engine_state) - len(self._drained) - len(self._draining)
             if (
                 st["consecutive_failures"] >= self.engine_fail_threshold
-                and len(self._engine_state) > 1
+                and fleet > 1
             ):
                 st["alive"] = False
             siblings = [
                 n for n, s in self._engine_state.items()
-                if n != engine_name and s["alive"]
+                if n != engine_name and s["alive"] and n not in self._draining
             ]
             return {"alive": st["alive"], "siblings": siblings}
 
@@ -2460,13 +2869,21 @@ class DynamicBatcher:
         `telemetry watch --slo headroom=X` breaches when headroom drops
         BELOW X — the one lower-bound rule.
 
-        Every record stamps `state` ("ok" | "probation" | "dead"), in the
-        reference's vocabulary (which adds "draining" for its elastic
-        fleet)."""
+        Every record stamps `state` ("ok" | "draining" | "probation" |
+        "dead"): the SLO monitor excludes draining and probation engines
+        from the headroom windowed min (a deliberately draining engine's
+        headroom would otherwise fire a permanent false breach that
+        re-triggers the autoscaler that drained it), and drained engines
+        emit no record at all: they left the fleet."""
+        # Age-bounded husks retire on the capacity cadence (the
+        # autoscaler calls this every tick), not only at the next drain.
+        self._prune_husks()
         with self._engine_lock:  # LOCK ORDER: _engine_lock -> _counter_lock
             engines = {
                 name: dict(st) for name, st in self._engine_state.items()
             }
+            draining = set(self._draining)
+            drained = set(self._drained)
             with self._counter_lock:
                 dispatches = list(self.dispatches)
         qcap = max(1, self._q.maxsize)
@@ -2482,6 +2899,8 @@ class DynamicBatcher:
         out = []
         for i, eng in enumerate(self.engines):
             name = self._ename(eng, i)
+            if name in drained:
+                continue  # voluntarily left the fleet: no capacity record
             st = engines.get(name, {})
             own = [d for d in dispatches if d.get("engine") == name]
             # The service-rate denominator is ENGINE-BUSY time (h2d +
@@ -2526,7 +2945,8 @@ class DynamicBatcher:
                 else round(max(0.0, 1.0 - utilization), 4)
             )
             state = (
-                "probation" if st.get("probation")
+                "draining" if name in draining
+                else "probation" if st.get("probation")
                 else "ok" if alive
                 else "dead"
             )
@@ -2571,7 +2991,16 @@ class DynamicBatcher:
             engines = {
                 name: dict(st) for name, st in self._engine_state.items()
             }
+            # Drain-state annotation, added only on fleets that drained
+            # (a static fleet's engines nest keeps its shape).
+            for name in self._draining:
+                if name in engines:
+                    engines[name]["draining"] = True
+            for name in self._drained:
+                if name in engines:
+                    engines[name]["drained"] = True
             with self._counter_lock:
+                elastic = self._elastic
                 dispatches = list(self.dispatches)
                 hist = dict(self._iters_hist)
                 by_tier = {
@@ -2598,6 +3027,7 @@ class DynamicBatcher:
                 class_counts = {
                     c: dict(v) for c, v in self._class_counts.items()
                 }
+            husks_retired = dict(self._husks_retired)
         rec = {
             "event": "summary",
             "n_requests": n_requests,
@@ -2656,6 +3086,11 @@ class DynamicBatcher:
                 # The admission scheduler's own evidence: pick counts,
                 # floor preemptions, per-lane rejections.
                 rec["class_scheduler"] = self._q.record()
+        if husks_retired.get("n"):
+            # Retention trimmed the engines nest: the folded counters keep
+            # the books whole (global dispatch totals == the nest's sum +
+            # these); added only when a husk retired.
+            rec["husks_retired"] = husks_retired
         if dispatches and phase_sums:
             # The latency decomposition rollup: MEAN ms per phase per
             # dispatch (the same five fields every dispatch record splits
@@ -2695,6 +3130,10 @@ class DynamicBatcher:
             rec["page_pools"] = {
                 name: pool.record() for name, pool in self._pools.items()
             }
+        if elastic is not None:
+            # The autoscaler's rollup (serve/elastic.py): scale counts,
+            # spawn latency, migration totals and the fleet-size timeline.
+            rec["elastic"] = elastic.record()
         # Ladder/retry rollups: flat on a single-engine summary, nested
         # per engine under
         # `engines` on fan-out — a flat merge would let the last engine's

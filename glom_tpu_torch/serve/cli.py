@@ -2,7 +2,9 @@
 
 Counterpart of `glom_tpu/serve/cli.py`: the operational harness that drives
 the serving stack (warmup, admission, early exit, continuation hops, the
-ladder, the session column cache, failover and rejoin) from a shell.
+ladder, the session column cache, failover and rejoin, and the elastic
+fleet with its autoscaler, warm-pool spares and load forecast) from a
+shell.
 Requests come from `--synthetic N` (seeded gaussian images), `--requests
 FILE|-` (JSON lines `{"id": ..., "seed": ...}`), `--ramp N1xG1,...`
 (offered-load phases) or `--replay FILE` (a workload artifact). Every
@@ -13,11 +15,10 @@ The flags and exit codes are glom_tpu's, plus `--device` (default `cuda`;
 `cpu` runs the kernels' plain versions, as the tests do). Without a card
 and without `--device cpu` it raises: it never falls back to the CPU.
 Params come from the port's `init_glom` with a `torch.Generator` seeded 0.
-Flags whose machinery is not ported raise NotImplementedError naming the
-ROADMAP queue A item that brings it: the elastic fleet (`--elastic*`,
-`--min-engines`, `--max-engines`, `--warm-pool`, `--husk-*`; item 7), the
-serve mesh (`--mesh-data`, `--mesh-seq`; item 8) and the forecaster
-(`--forecast`; item 9).
+With `--elastic` the fleet starts at `--min-engines` and every replica the
+autoscaler spawns is built on `--device` (on one card the replicas share
+it). The serve mesh (`--mesh-data`, `--mesh-seq`) is not ported: those
+flags raise NotImplementedError naming ROADMAP queue A item 8.
 
 Exit codes: 0 when every request was served, 1 when any failed or was
 shed (or none was served), 2 for a bad command line.
@@ -163,12 +164,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--elastic", action="store_true",
-        help="SLO-driven elastic serving (serve/elastic.py, "
-        "docs/SERVING.md): run the Autoscaler control loop — scale OUT "
-        "spawns a fully-warmed engine replica at runtime (admission "
-        "opens only after precompile), scale IN gracefully drains the "
-        "least-loaded engine (migrate cache sessions, release devices). "
-        "The fleet starts at --min-engines; --engines is ignored",
+        help="SLO-driven elastic serving (serve/elastic.py): run the "
+        "Autoscaler control loop — scale OUT builds and warms an engine "
+        "replica on --device at runtime (admission opens only after its "
+        "warmup), scale IN gracefully drains the least-loaded engine "
+        "(migrate cache sessions, release its device memory). The fleet "
+        "starts at --min-engines; --engines is ignored",
     )
     p.add_argument(
         "--min-engines", type=int, default=None, metavar="N",
@@ -261,7 +262,7 @@ def build_parser() -> argparse.ArgumentParser:
         "forecaster's latest scored window plus the spawn-lead-time "
         "quantile, and every decision is stamped as a schema-v10 "
         "'decision' record carrying its full evidence bundle "
-        "(auditable with the reference's `telemetry audit`). "
+        "(auditable with `python -m glom_tpu_torch.telemetry audit`). "
         "Implies --forecast",
     )
     p.add_argument(
@@ -272,7 +273,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--warm-pool", type=int, default=None, metavar="N",
-        help="elastic: hold N pre-spawned, precompiled spare engines "
+        help="elastic: hold N pre-spawned, warmed spare engines "
         "OUTSIDE admission; scale-out promotes a spare (milliseconds) "
         "instead of paying a cold spawn, scale-in demotes the drained "
         "engine back into the pool. Every promotion/demotion is stamped "
@@ -368,28 +369,8 @@ def _req_source(args) -> Iterable[Tuple[object, int, object]]:
 
 def _refuse_unported(args) -> None:
     """Flags whose machinery is not ported: raise, never fall back."""
-    elastic = (
-        args.elastic or args.elastic_anticipatory or args.elastic_settle
-        or any(
-            getattr(args, f) is not None for f in (
-                "min_engines", "max_engines", "elastic_low_water",
-                "elastic_high_water", "elastic_dwell", "elastic_cooldown",
-                "elastic_interval", "elastic_window", "elastic_p99_ms",
-                "elastic_shed_rate", "elastic_target_utilization",
-            )
-        )
-    )
-    refusals = (
-        ("--elastic and its --elastic-*/--min-engines/--max-engines knobs", elastic, 7),
-        ("--warm-pool", args.warm_pool is not None, 7),
-        ("--husk-max/--husk-max-age",
-         args.husk_max is not None or args.husk_max_age is not None, 7),
-        ("--mesh-data/--mesh-seq", args.mesh_data is not None or args.mesh_seq is not None, 8),
-        ("--forecast", args.forecast, 9),
-    )
-    for flag, asked, item in refusals:
-        if asked:
-            raise NotImplementedError(_NOT_PORTED.format(flag, item))
+    if args.mesh_data is not None or args.mesh_seq is not None:
+        raise NotImplementedError(_NOT_PORTED.format("--mesh-data/--mesh-seq", 8))
 
 
 def _overrides(args) -> dict:
@@ -411,10 +392,28 @@ def _overrides(args) -> dict:
         ("column_cache_ttl", "column_cache_ttl_s"),
         ("slo_default_class", "slo_default_class"),
         ("slo_starvation_floor", "slo_starvation_floor"),
+        ("min_engines", "min_engines"),
+        ("max_engines", "max_engines"),
+        ("elastic_low_water", "elastic_low_water"),
+        ("elastic_high_water", "elastic_high_water"),
+        ("elastic_dwell", "elastic_dwell_s"),
+        ("elastic_cooldown", "elastic_cooldown_s"),
+        ("elastic_interval", "elastic_interval_s"),
+        ("elastic_window", "elastic_window_s"),
+        ("elastic_p99_ms", "elastic_p99_ms"),
+        ("elastic_shed_rate", "elastic_shed_rate"),
+        ("husk_max", "husk_max"),
+        ("husk_max_age", "husk_max_age_s"),
+        ("elastic_target_utilization", "elastic_target_utilization"),
+        ("warm_pool", "warm_pool"),
     ):
         v = getattr(args, flag)
         if v is not None:
             out[field] = v
+    if args.elastic:
+        out["elastic"] = True
+    if args.elastic_anticipatory:
+        out["elastic_anticipatory"] = True
     if args.buckets is not None:
         out["buckets"] = tuple(int(b) for b in args.buckets.split(",") if b)
     if args.ladder:
@@ -507,7 +506,9 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
     # One params init shared by every engine replica (fan-out serves one
     # model), from a seeded generator.
     params = init_glom(cfg, generator=torch.Generator().manual_seed(0))
-    n_init = args.engines
+    # Elastic mode starts at the policy floor (--engines is the static
+    # fleet size); scale-out spawns the rest at runtime.
+    n_init = scfg.min_engines if scfg.elastic else args.engines
     kill_idx, kill_plan = None, None
     if args.kill_engine is not None:
         # "IDX:after=K[,until=M]": engine IDX's dispatch hook raises on
@@ -603,12 +604,28 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
         }))
 
     served = failed = 0
+    scaler = None
     with DynamicBatcher(engines=engines, writer=writer) as batcher:
         recorder = None
         if args.record_workload is not None:
             from glom_tpu_torch.serve.workload import WorkloadRecorder
 
             recorder = WorkloadRecorder().attach(batcher)
+        forecaster = None
+        if args.forecast or scfg.elastic_anticipatory:
+            # Anticipatory scaling feeds on the forecaster: a policy told
+            # to act on predicted load with no prediction source would
+            # stay reactive forever, so --elastic-anticipatory implies
+            # --forecast.
+            from glom_tpu_torch.telemetry.forecast import ForecastEmitter
+            from glom_tpu_torch.tracing.flight import write_or_observe
+
+            batcher.enable_admission_events()
+            forecaster = ForecastEmitter(lambda r: write_or_observe(writer, r))
+            batcher.add_event_tap(forecaster.tap)
+        if scfg.elastic:
+            scaler = _autoscaler(batcher, cfg, scfg, params, writer, device,
+                                 len(engines), forecaster, degraded_iters)
         tickets = []
         if replay_records is not None:
             from glom_tpu_torch.serve import workload as wl
@@ -663,6 +680,20 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
                     float(torch.linalg.vector_norm(top)) / levels.shape[0], 4),
                 "trace_id": ticket.trace_id, "parent_span": ticket.span_id,
             }))
+        if scaler is not None:
+            # The settle window: the ramp's post-spike drain lands here
+            # (bounded: the loop exits the moment a scale-in completes).
+            deadline = time.monotonic() + max(0.0, args.elastic_settle)
+            while time.monotonic() < deadline:
+                if scaler.record()["n_scale_ins"] >= 1:
+                    break
+                time.sleep(0.05)
+            scaler.stop()
+        if forecaster is not None:
+            # Flush the final partial window and the lead-time model while
+            # the stream is open: the run's last traffic still scores the
+            # forecast.
+            forecaster.close()
         writer.write(serve_rec(batcher.summary_record()))
         for rec in batcher.span_records():
             writer.write(rec)
@@ -676,6 +707,48 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
         for rec in engine.stats_records():
             writer.write(serve_rec(rec))
     return 0 if failed == 0 and served > 0 else 1
+
+
+def _autoscaler(batcher, cfg, scfg, params, writer, device, n_init, forecaster, degraded_iters):
+    """The started Autoscaler over `batcher`: each replica it spawns is a
+    new InferenceEngine on `device` with the shared params (fan-out serves
+    one model); the autoscaler warms it before registration."""
+    from glom_tpu_torch.serve.elastic import Autoscaler, resolve_policy
+    from glom_tpu_torch.serve.engine import InferenceEngine
+
+    spawn_seq = [n_init]
+
+    def engine_factory():
+        i = spawn_seq[0]
+        eng = InferenceEngine(cfg, scfg, params=params, writer=writer,
+                              name=f"engine{i}", device=device)
+        spawn_seq[0] += 1
+        return eng
+
+    rules = {}
+    if scfg.elastic_p99_ms is not None:
+        rules["p99_ms"] = scfg.elastic_p99_ms
+    if scfg.elastic_shed_rate is not None:
+        rules["shed_rate"] = scfg.elastic_shed_rate
+    if scfg.slo_classes:
+        # Each class's declared targets become class-scoped monitor rules
+        # ("p99_ms[premium]"); low-class breaches are recorded but
+        # non-binding (the policy's low_classes filter, serve/qos.py).
+        from glom_tpu_torch.serve.qos import class_slo_rules, resolve_slo_classes
+
+        spec = resolve_slo_classes(scfg)
+        if spec is not None:
+            rules.update(class_slo_rules(spec))
+    return Autoscaler(
+        batcher, engine_factory,
+        policy=resolve_policy(scfg),
+        rules=rules,
+        writer=writer,
+        interval_s=scfg.elastic_interval_s,
+        warm_degraded_iters=degraded_iters,
+        forecast=forecaster,
+        warm_pool=scfg.warm_pool,
+    ).start()
 
 
 if __name__ == "__main__":

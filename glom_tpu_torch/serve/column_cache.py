@@ -21,7 +21,9 @@ Residency: entries are priced (`column_state_bytes`, or the pool pages
 they hold) and evicted LRU-first under `ServeConfig.column_cache_bytes`,
 which resident bytes never exceed; `column_cache_ttl_s` expires an entry
 at lookup (and under eviction pressure); `invalidate_engine` drops every
-entry an engine wrote the moment a dispatch on it fails. Counters roll up
+entry an engine wrote the moment a dispatch on it fails, and
+`migrate_engine_sessions` moves a drained engine's entries to a sibling
+pool device-to-device (serve/elastic.py's scale-in). Counters roll up
 in `record()`, and every eviction, expiry, rejection and invalidation is a
 stamped "serve" event. One lock guards the LRU map and the counters
 (events are emitted outside it); the cache lock is taken before any pool
@@ -30,6 +32,7 @@ lock, never the reverse.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import OrderedDict
@@ -669,6 +672,149 @@ class ColumnCache:
                 )
         self._flush(events)
         return len(victims)
+
+    # -- elastic drain (serve/elastic.py) ----------------------------------
+
+    def add_pool(self, engine: str, pool) -> None:
+        """Register a runtime-added engine's pool (the batcher's
+        add_engine calls this in pages mode)."""
+        with self._lock:
+            if self.pools is None:
+                raise ValueError(
+                    "add_pool on a host-mode cache (the fleet was built "
+                    "without page pools)"
+                )
+            self.pools[engine] = pool
+
+    def remove_pool(self, engine: str) -> None:
+        """Unregister a drained engine's pool. Any entry still pointing at
+        it (a migration raced a concurrent store) is invalidated first: an
+        entry never references a pool the cache no longer knows."""
+        events: List[dict] = []
+        with self._lock:
+            if self.pools is None or engine not in self.pools:
+                return
+            leftover = [
+                (sid, e) for sid, e in self._entries.items() if e.engine == engine
+            ]
+            for sid, entry in leftover:
+                self._drop(sid, entry)
+                self.n_invalidations += 1
+                events.append(
+                    {
+                        "event": "cache_invalidate",
+                        "session": sid,
+                        "engine": engine,
+                        "reason": "drain",
+                        "bytes": entry.nbytes,
+                    }
+                )
+            self.pools.pop(engine, None)
+        self._flush(events)
+
+    def migrate_engine_sessions(
+        self, src: str, dst: Optional[str], *, reason: str = "drain"
+    ) -> dict:
+        """Move every session whose state lives on `src` to `dst`: the
+        drain's migration step.
+
+        Host mode: the cached state is a host tensor any engine warms
+        from, so the entry re-tags to `dst` (zero bytes moved). Pages
+        mode: each session's columns are gathered from the source pool's
+        device buffer under a read pin and written into the sibling
+        pool's buffer, a device-to-device copy on the device's current
+        stream (every earlier pool write ran there, so the copy reads the
+        source after its last write-back). No float operation touches the
+        row, so the sibling serves bit for bit the state the drained
+        engine held and its `content_hash` is unchanged; the destination
+        write takes the destination pool's own write seam (in place or
+        copy-on-write by its read pins, the epoch advancing as for any
+        write-back). Delta chains migrate as their effective state and
+        start a fresh base on the destination. A session that cannot land
+        (no destination, no page budget there, or pinned by an in-flight
+        read) is invalidated with the stamped `reason`: never dropped
+        silently, never left pointing at a released pool.
+
+        Returns {"n_migrated", "n_invalidated", "bytes_migrated"}."""
+        out = {"n_migrated": 0, "n_invalidated": 0, "bytes_migrated": 0}
+        with self._lock:
+            sids = [sid for sid, e in self._entries.items() if e.engine == src]
+            host_mode = self.pools is None
+            src_pool = None if host_mode else self.pools.get(src)
+            dst_pool = (
+                self.pools.get(dst) if not host_mode and dst is not None else None
+            )
+        events: List[dict] = []
+        device = getattr(src_pool, "device", None)
+        bind = (
+            torch.cuda.device(device)
+            if isinstance(device, torch.device) and device.type == "cuda"
+            else contextlib.nullcontext()
+        )
+        for sid in sids:
+            if host_mode:
+                if dst is None:
+                    if self.invalidate(sid, reason=reason):
+                        out["n_invalidated"] += 1
+                    continue
+                with self._lock:
+                    e = self._entries.get(sid)
+                    if e is not None and e.engine == src:
+                        e.engine = dst
+                        out["n_migrated"] += 1
+                continue
+            migrated = stored = False
+            row = None
+            if (
+                src_pool is not None
+                and dst_pool is not None
+                and not src_pool.is_pinned(sid)
+            ):
+                got = src_pool.lookup(sid)
+                with bind:
+                    if got is not None:
+                        row = src_pool.read_block(sid, on_device=True)
+                    if row is not None:
+                        n_tokens = got[1]
+                        if getattr(dst_pool, "delta", False):
+                            stored = (
+                                dst_pool.write_back_stream(sid, row, n_tokens)
+                                is not None
+                            )
+                        else:
+                            stored = dst_pool.write_back(sid, row, n_tokens)
+                if stored:
+                    nbytes = _nbytes(row)
+                    with self._lock:
+                        e = self._entries.get(sid)
+                        if e is not None and e.engine == src:
+                            e.engine = dst
+                            migrated = True
+                        if self.delta:
+                            self._recount_locked()
+                    if migrated:
+                        src_pool.free(sid, reason="drain-migrate")
+                        out["n_migrated"] += 1
+                        out["bytes_migrated"] += nbytes
+                        events.append(
+                            {
+                                "event": "cache_migrate",
+                                "session": sid,
+                                "src_engine": src,
+                                "dst_engine": dst,
+                                "bytes": nbytes,
+                            }
+                        )
+                    else:
+                        # The entry vanished mid-copy (a TTL expiry or an
+                        # eviction raced): the destination copy is an
+                        # orphan, so free it.
+                        dst_pool.free(sid, reason="migrate-raced")
+            if not migrated:
+                if self.invalidate(sid, reason=reason):
+                    out["n_invalidated"] += 1
+        self._flush(events)
+        return out
 
     # -- internals ---------------------------------------------------------
 

@@ -753,10 +753,14 @@ class PagedColumnPool:
         self._flush(events)
         return info
 
-    def read_block(self, session_id: str) -> Optional[torch.Tensor]:
-        """A host copy of one session's [n_tokens, L, d] columns (a CPU
-        tensor: numpy has no bfloat16): the tests' window and the cold
-        path's fallback, not the warm dispatch path."""
+    def read_block(
+        self, session_id: str, *, on_device: bool = False
+    ) -> Optional[torch.Tensor]:
+        """One session's [n_tokens, L, d] columns: a host copy (a CPU
+        tensor: numpy has no bfloat16) for the tests' window and the cold
+        path's fallback, or with on_device=True a fresh tensor on the
+        pool's device (the drain migration's device-to-device copy, on the
+        device's current stream, after every earlier pool write)."""
         got = self.lookup(session_id)
         if got is None:
             return None
@@ -766,7 +770,7 @@ class PagedColumnPool:
         buf = self.acquire_read()
         try:
             flat = buf.index_select(0, self._idx(pages)).reshape(-1, *buf.shape[2:])
-            return flat[:n_tokens].cpu()
+            return flat[:n_tokens] if on_device else flat[:n_tokens].cpu()
         finally:
             self.release_read()
 

@@ -1,0 +1,1133 @@
+"""Pod-scale telemetry aggregation and the live SLO monitor.
+
+The port's copy of `glom_tpu/telemetry/aggregate.py`:
+
+  * `merge_timeline` reconciles N hosts' streams onto one pod time axis.
+    Clock families follow the trace exporter's vocabulary (CLOCK_KEYS /
+    EPOCH_CUTOFF_S): epoch clocks (wall_time_s and friends) are pod-wide
+    by construction; run-relative clocks (MetricsWriter's wall_time, the
+    watchdog's t) are mapped onto the epoch axis via each host's anchor
+    records, records carrying both families at once. A host mixing
+    families with no anchor is a clock-family violation: its events
+    cannot be honestly interleaved, and the aggregator says so instead of
+    guessing.
+
+  * `rollup` folds the merged streams into the pod-level numbers:
+    per-host / per-engine / per-bucket dispatch-latency percentiles,
+    per-request latency and executed-iterations histograms (from the v6
+    resolve leaves), cache hit rates, and the failover / ladder / barrier
+    event timelines.
+
+  * `SLOMonitor` evaluates windowed SLO rules over a live stream and
+    stamps a schema "slo_breach" record per violation, delivered through
+    the writer-else-flight path and stamped with the current backend
+    state. The elastic autoscaler (serve/elastic.py) runs one in process
+    over the batcher's own event stream.
+
+CLI (both registered in glom_tpu_torch/telemetry/__main__.py):
+
+    python -m glom_tpu_torch.telemetry aggregate PATH...   merged rollup + checks
+    python -m glom_tpu_torch.telemetry watch DIR --slo p99_ms=50 [--once]
+
+`watch` tails every *.jsonl under DIR (new files included), evaluates the
+rules each interval, and exits nonzero if any rule was breached (`--once`
+replays a finished stream). Pure stdlib apart from the lazy backend-state
+and flight-recorder imports of `SLOMonitor.evaluate`.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import OrderedDict, deque
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from glom_tpu_torch.telemetry import schema
+from glom_tpu_torch.telemetry.sinks import nearest_rank
+
+# The clock vocabulary of glom_tpu's trace exporter (its
+# `telemetry/perfetto.py`, not ported): the keys a record may carry a time
+# under, and the magnitude above which a clock value is an epoch
+# (time.time()) reading rather than a run-relative one.
+CLOCK_KEYS = ("t_start", "wall_time_s", "wall_time", "t")
+EPOCH_CUTOFF_S = 1e9
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile over unsorted values (delegates to the
+    one shared definition in telemetry/sinks.py)."""
+    return nearest_rank(sorted(values), q)
+
+
+def _pcts(values: List[float]) -> dict:
+    return {
+        "p50": round(percentile(values, 0.50), 3),
+        "p95": round(percentile(values, 0.95), 3),
+        "p99": round(percentile(values, 0.99), 3),
+        "n": len(values),
+    }
+
+
+# -- host streams -----------------------------------------------------------
+
+
+def expand_paths(paths: Iterable[str]) -> "OrderedDict[str, str]":
+    """host label -> file path. A directory contributes every *.jsonl
+    under it (sorted — chaos workdirs name streams metrics_h0, _h1, ...);
+    a file contributes itself. Labels are file stems, qualified by the
+    parent directory on collision."""
+    out: "OrderedDict[str, str]" = OrderedDict()
+    files: List[Path] = []
+    for p in paths:
+        path = Path(p)
+        if path.is_dir():
+            files.extend(sorted(path.glob("*.jsonl")))
+        else:
+            files.append(path)
+    for f in files:
+        # Qualify with ever more parent directories until unique, then a
+        # numeric suffix as the last resort — a third runX/pod/metrics_h0
+        # must never silently overwrite the second's stream.
+        parts = f.parts
+        label = f.stem
+        depth = 1
+        while label in out and depth < len(parts):
+            depth += 1
+            label = "/".join(parts[-depth:-1] + (f.stem,))
+        n = 2
+        while label in out:
+            label = f"{f.stem}#{n}"
+            n += 1
+        out[label] = str(f)
+    return out
+
+
+def load_host_records(
+    hosts: "OrderedDict[str, str]",
+) -> "OrderedDict[str, List[dict]]":
+    out: "OrderedDict[str, List[dict]]" = OrderedDict()
+    for host, path in hosts.items():
+        with open(path) as fh:
+            out[host] = [rec for _, rec in schema.iter_json_lines(fh)]
+    return out
+
+
+# -- clock-family reconciliation --------------------------------------------
+
+
+def _clocks(rec: dict) -> Tuple[Optional[float], Optional[float]]:
+    """(run_relative, epoch) seconds carried by one record — either may
+    be None. Family membership is by magnitude (EPOCH_CUTOFF_S), not key
+    name: MetricsWriter's `wall_time` is run-relative while the barrier
+    events' `wall_time_s` is an epoch, and a record routed through the
+    writer carries BOTH (the anchor this reconciliation needs)."""
+    rel = epoch = None
+    for key in CLOCK_KEYS:
+        v = rec.get(key)
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            continue
+        if v > EPOCH_CUTOFF_S:
+            if epoch is None:
+                epoch = float(v)
+        elif rel is None:
+            rel = float(v)
+    return rel, epoch
+
+
+def merge_timeline(
+    host_records: "OrderedDict[str, List[dict]]",
+) -> dict:
+    """{"events": [{t, host, clock, rec}...] sorted on ONE pod axis,
+    "violations": [str...]}.
+
+    Per host: epoch-clock records land directly on the pod axis;
+    run-relative records map through the host's anchor offset (min over
+    records carrying both families — min, because the offset is wall
+    epoch minus run-relative age, and any later anchor only adds queueing
+    delay); clockless records inherit the previous record's time plus
+    1ms, preserving stream order. The whole axis is then shifted to start
+    at ~0. Violations name what could NOT be reconciled — a host mixing
+    families with no anchor, or a host with no epoch mapping at all while
+    the pod has one (its events order only within the host)."""
+    events: List[dict] = []
+    violations: List[str] = []
+    anchored_hosts = 0
+    hosts_with_rel_only = []
+    for host, recs in host_records.items():
+        offsets = []
+        has_rel = has_epoch = False
+        for rec in recs:
+            rel, epoch = _clocks(rec)
+            has_rel = has_rel or rel is not None
+            has_epoch = has_epoch or epoch is not None
+            if rel is not None and epoch is not None:
+                offsets.append(epoch - rel)
+        offset = min(offsets) if offsets else None
+        if has_rel and has_epoch and offset is None:
+            violations.append(
+                f"host {host}: stream mixes run-relative and epoch clocks "
+                "with no anchor record carrying both — its families "
+                "cannot be reconciled onto one pod timeline"
+            )
+        if has_epoch or offset is not None:
+            anchored_hosts += 1
+        elif has_rel:
+            hosts_with_rel_only.append(host)
+        prev_t: Optional[float] = None
+        prev_on_axis = False
+        for rec in recs:
+            rel, epoch = _clocks(rec)
+            if epoch is not None:
+                t, clock, on_axis = epoch, "epoch", True
+            elif rel is not None and offset is not None:
+                t, clock, on_axis = rel + offset, "anchored", True
+            elif rel is not None:
+                t, clock, on_axis = rel, "relative", False
+            else:
+                # Clockless: 1ms after the previous record, INHERITING
+                # its axis — a seq record trailing an epoch-clock one
+                # must shift with the pod axis or it strands ~50 years
+                # out when the axis is re-zeroed below.
+                t = (prev_t + 1e-3) if prev_t is not None else 0.0
+                clock, on_axis = "seq", prev_on_axis
+            prev_t, prev_on_axis = t, on_axis
+            events.append(
+                {"t": t, "host": host, "clock": clock,
+                 "on_axis": on_axis, "rec": rec}
+            )
+    if anchored_hosts and hosts_with_rel_only:
+        violations.append(
+            "hosts "
+            + ", ".join(hosts_with_rel_only)
+            + ": no epoch anchor while the pod timeline has one — these "
+            "hosts' events order only within the host, not across it"
+        )
+    on_axis = [e["t"] for e in events if e["on_axis"]]
+    zero = min(on_axis) if on_axis else 0.0
+    for e in events:
+        if e.pop("on_axis"):
+            e["t"] = round(e["t"] - zero, 6)
+    events.sort(key=lambda e: e["t"])
+    return {"events": events, "violations": violations}
+
+
+# -- pod rollups ------------------------------------------------------------
+
+
+def rollup(host_records: "OrderedDict[str, List[dict]]") -> dict:
+    """The pod-level numbers, folded from every host's stream. Latency
+    and executed-iters come from the per-record evidence (dispatch
+    records, v6 resolve leaves), not the end-of-run summaries, so a
+    crashed host still contributes everything it stamped; cache counters
+    come from each host's LAST summary (they are cumulative)."""
+    per_host: "OrderedDict[str, dict]" = OrderedDict()
+    per_engine: Dict[str, dict] = {}
+    per_bucket: Dict[str, dict] = {}
+    request_ms: List[float] = []
+    response_ms: List[float] = []
+    dispatch_ms: List[float] = []
+    iters_hist: Dict[str, int] = {}
+    iters_total = 0
+    n_resolved = n_shed = n_responses = n_failed_responses = 0
+    cache_totals: Dict[str, int] = {}
+    seen_cache = False
+    class_totals: Dict[str, Dict[str, int]] = {}
+    class_ms: Dict[str, List[float]] = {}
+    failover_timeline: List[dict] = []
+    ladder_timeline: List[dict] = []
+    barrier_rounds: Dict[str, Dict[str, List[dict]]] = {}
+    decision_fleets: Dict[str, dict] = {}
+    for host, recs in host_records.items():
+        h = per_host.setdefault(
+            host,
+            {"n_records": 0, "n_dispatches": 0, "n_resolved": 0,
+             "n_shed": 0, "n_train_steps": 0, "dispatch_ms": []},
+        )
+        last_summary = None
+        for rec in recs:
+            h["n_records"] += 1
+            kind = rec.get("kind")
+            if kind == "train_step":
+                h["n_train_steps"] += 1
+                continue
+            if kind == "barrier":
+                rnd = str(rec.get("round"))
+                phase = str(rec.get("phase"))
+                barrier_rounds.setdefault(rnd, {}).setdefault(
+                    phase, []
+                ).append({"host": host, "step": rec.get("step")})
+                continue
+            if kind == "capacity":
+                # The capacity observatory's headroom rollup: last + min
+                # per engine across the pod — what the scale-out decision
+                # reads at pod scope. (glom_tpu binds the headroom to the
+                # name of the per-host dict here, so its rollup raises on
+                # the next record of the host; the port keeps the two
+                # apart.)
+                hr = rec.get("headroom")
+                if isinstance(hr, (int, float)) and not isinstance(hr, bool):
+                    eng = per_engine.setdefault(
+                        str(rec.get("engine")),
+                        {"n_dispatches": 0, "latency": [], "n_valid": 0,
+                         "n_failovers": 0, "n_deaths": 0, "n_rejoins": 0},
+                    )
+                    eng["headroom_last"] = float(hr)
+                    eng["headroom_min"] = min(
+                        float(hr), eng.get("headroom_min", float(hr))
+                    )
+                continue
+            if kind == "decision":
+                # The decision observatory (schema v10): per-fleet
+                # decision counts at pod scope. The full chain/evidence
+                # audit is `python -m glom_tpu_torch.telemetry audit`; the
+                # rollup just surfaces how often each fleet acted and
+                # how often it acted LATE (after a live breach).
+                fleet = str(rec.get("fleet", "fleet0"))
+                d = decision_fleets.setdefault(
+                    fleet,
+                    {"n_decisions": 0, "n_scale_outs": 0,
+                     "n_scale_ins": 0, "decisions_late": 0},
+                )
+                d["n_decisions"] += 1
+                action = rec.get("action")
+                if action == "scale_out":
+                    d["n_scale_outs"] += 1
+                    ev = rec.get("evidence")
+                    if isinstance(ev, dict) and ev.get("breaches"):
+                        d["decisions_late"] += 1
+                elif action == "scale_in":
+                    d["n_scale_ins"] += 1
+                continue
+            if kind != "serve":
+                continue
+            event = rec.get("event")
+            if event == "dispatch":
+                h["n_dispatches"] += 1
+                eng = per_engine.setdefault(
+                    str(rec.get("engine")),
+                    {"n_dispatches": 0, "latency": [], "n_valid": 0,
+                     "n_failovers": 0, "n_deaths": 0, "n_rejoins": 0},
+                )
+                eng["n_dispatches"] += 1
+                if isinstance(rec.get("n_valid"), int):
+                    eng["n_valid"] += rec["n_valid"]
+                bkt = per_bucket.setdefault(
+                    str(rec.get("bucket")),
+                    {"n_dispatches": 0, "latency": []},
+                )
+                bkt["n_dispatches"] += 1
+                ms = rec.get("latency_ms")
+                if isinstance(ms, (int, float)):
+                    dispatch_ms.append(float(ms))
+                    h["dispatch_ms"].append(float(ms))
+                    eng["latency"].append(float(ms))
+                    bkt["latency"].append(float(ms))
+            elif event == "resolve":
+                n_resolved += 1
+                h["n_resolved"] += 1
+                ms = rec.get("latency_ms")
+                if isinstance(ms, (int, float)):
+                    request_ms.append(float(ms))
+                    cls = rec.get("slo_class")
+                    if isinstance(cls, str):
+                        class_ms.setdefault(cls, []).append(float(ms))
+                it = rec.get("iters_total")
+                if isinstance(it, (int, float)):
+                    iters_hist[str(int(it))] = (
+                        iters_hist.get(str(int(it)), 0) + 1
+                    )
+                    iters_total += int(it)
+            elif event == "shed":
+                n_shed += 1
+                h["n_shed"] += 1
+            elif event == "response":
+                n_responses += 1
+                if rec.get("ok") is False:
+                    n_failed_responses += 1
+                else:
+                    ms = rec.get("latency_ms")
+                    if isinstance(ms, (int, float)):
+                        response_ms.append(float(ms))
+            elif event in ("engine_failover", "engine_dead",
+                           "engine_rejoin"):
+                name = str(rec.get("engine"))
+                eng = per_engine.setdefault(
+                    name,
+                    {"n_dispatches": 0, "latency": [], "n_valid": 0,
+                     "n_failovers": 0, "n_deaths": 0, "n_rejoins": 0},
+                )
+                key = {
+                    "engine_failover": "n_failovers",
+                    "engine_dead": "n_deaths",
+                    "engine_rejoin": "n_rejoins",
+                }[event]
+                eng[key] += 1
+                failover_timeline.append(
+                    {"host": host, "event": event, "engine": name}
+                )
+            elif event == "ladder":
+                ladder_timeline.append(
+                    {"host": host, "rung": rec.get("rung"),
+                     "direction": rec.get("direction")}
+                )
+            elif event == "summary":
+                last_summary = rec
+        if last_summary is not None:
+            cc = last_summary.get("column_cache")
+            if isinstance(cc, dict):
+                seen_cache = True
+                for k in ("n_hits", "n_misses", "n_writes", "n_evictions"):
+                    v = cc.get(k)
+                    if isinstance(v, int):
+                        cache_totals[k] = cache_totals.get(k, 0) + v
+            classes = last_summary.get("classes")
+            if isinstance(classes, dict):
+                # Per-SLO-class pod rollup (schema v11, serve/qos.py):
+                # each host's summary carries its per-tenant
+                # conservation counters — sum them across the pod.
+                for cls, cnt in classes.items():
+                    if not isinstance(cnt, dict):
+                        continue
+                    tot = class_totals.setdefault(str(cls), {})
+                    for k in ("n_requests", "n_served", "n_shed",
+                              "n_failed", "n_degraded"):
+                        v = cnt.get(k)
+                        if isinstance(v, int):
+                            tot[k] = tot.get(k, 0) + v
+    for h in per_host.values():
+        h["dispatch_latency_ms"] = _pcts(h.pop("dispatch_ms"))
+    for eng in per_engine.values():
+        eng["latency_ms"] = _pcts(eng.pop("latency"))
+    for bkt in per_bucket.values():
+        bkt["latency_ms"] = _pcts(bkt.pop("latency"))
+    # Successes for the shed rate and the request-latency histogram:
+    # resolve leaves when the stream has them, ok responses otherwise —
+    # max/fallback rather than sum, because a traced stream carries BOTH
+    # per request while an UNTRACED one (trace_requests=False) carries
+    # only responses; counting resolves alone would read such a stream's
+    # one shed as shed_rate 1.0 (same convention as SLOMonitor.observed).
+    n_ok_responses = n_responses - n_failed_responses
+    served_or_shed = max(n_resolved, n_ok_responses) + n_shed
+    if not request_ms:
+        request_ms = response_ms
+    per_class = None
+    if class_totals or class_ms:
+        per_class = {}
+        for cls in sorted(set(class_totals) | set(class_ms)):
+            tot = dict(class_totals.get(cls, {}))
+            req = tot.get("n_requests", 0)
+            tot["served_fraction"] = (
+                round(tot.get("n_served", 0) / req, 4) if req else None
+            )
+            tot["latency_ms"] = _pcts(class_ms.get(cls, []))
+            per_class[cls] = tot
+    cache = None
+    if seen_cache:
+        looked = cache_totals.get("n_hits", 0) + cache_totals.get(
+            "n_misses", 0
+        )
+        cache = dict(
+            cache_totals,
+            hit_rate=(
+                round(cache_totals.get("n_hits", 0) / looked, 4)
+                if looked else None
+            ),
+        )
+    return {
+        "n_hosts": len(per_host),
+        "n_records": sum(h["n_records"] for h in per_host.values()),
+        "requests": {
+            "n_resolved": n_resolved,
+            "n_shed": n_shed,
+            "n_responses": n_responses,
+            "n_failed_responses": n_failed_responses,
+            "shed_rate": (
+                round(n_shed / served_or_shed, 4) if served_or_shed else None
+            ),
+        },
+        "latency_ms": {
+            "request": _pcts(request_ms),
+            "dispatch": _pcts(dispatch_ms),
+        },
+        "executed_iters": {
+            "histogram": iters_hist,
+            "mean": (
+                round(iters_total / n_resolved, 3) if n_resolved else None
+            ),
+            "n": n_resolved,
+        },
+        "per_host": per_host,
+        "per_engine": per_engine,
+        "per_bucket": per_bucket,
+        "per_class": per_class,
+        "cache": cache,
+        "decisions": decision_fleets or None,
+        "timelines": {
+            "failover": failover_timeline,
+            "ladder": ladder_timeline,
+            "barrier": barrier_rounds,
+        },
+    }
+
+
+# Every barrier round that COMMITTED must show the full phase chain on
+# every participating host — the pod-consistency check the preempt-pod
+# chaos evidence is held to.
+BARRIER_CHAIN = ("propose", "commit", "saved", "complete")
+
+
+def check_barrier_chains(barrier_rounds: Dict[str, Dict[str, list]]) -> List[str]:
+    problems = []
+    for rnd, phases in sorted(barrier_rounds.items()):
+        if "abort" in phases or "commit" not in phases:
+            # Aborted / never-committed rounds are their own story — but
+            # a COMMITTED round is held to the full chain: a host dying
+            # between commit and complete is exactly the partial pod
+            # checkpoint this check exists to flag.
+            continue
+        hosts = {e["host"] for es in phases.values() for e in es}
+        for phase in BARRIER_CHAIN:
+            got = {e["host"] for e in phases.get(phase, [])}
+            if got != hosts:
+                problems.append(
+                    f"barrier round {rnd}: phase {phase!r} seen on "
+                    f"{sorted(got)}, expected every participant "
+                    f"{sorted(hosts)}"
+                )
+        commits = {e.get("step") for e in phases.get("commit", [])}
+        if len(commits) > 1:
+            problems.append(
+                f"barrier round {rnd}: hosts committed DIFFERENT steps "
+                f"{sorted(commits, key=str)} — the one-common-step "
+                "contract is broken"
+            )
+    return problems
+
+
+# -- the live SLO monitor ---------------------------------------------------
+
+# rule name -> (what it bounds, unit). Upper bounds unless listed in
+# SLO_LOWER_BOUND_RULES: observed > threshold is a breach.
+SLO_RULES = {
+    "p50_ms": "windowed p50 of per-request latency_ms",
+    "p95_ms": "windowed p95 of per-request latency_ms",
+    "p99_ms": "windowed p99 of per-request latency_ms",
+    "mean_ms": "windowed mean of per-request latency_ms",
+    "shed_rate": "sheds / (sheds + resolved) over the window",
+    "failure_rate": "failed responses / responses over the window",
+    "mean_iters": "windowed mean of per-request executed iterations",
+    "headroom": "windowed MIN of capacity.headroom across engines "
+    "(LOWER bound: breach when it drops below the threshold — the "
+    "scale-out signal)",
+    "forecast_abs_err": "windowed mean of forecast.forecast_abs_err "
+    "across matured windows (schema v9, telemetry/forecast.py): the "
+    "load forecast's predicted-vs-realized error — a drifting model "
+    "breaches here before the anticipatory policy would act on bad "
+    "predictions",
+}
+# Rules where LESS is the emergency: observed < threshold breaches.
+SLO_LOWER_BOUND_RULES = frozenset({"headroom"})
+
+# Rules that accept an SLO-class scope — "p99_ms[premium]=40" windows
+# ONLY premium's requests (schema v11, serve/qos.py). Per-request rules
+# only: headroom and forecast_abs_err are fleet-level signals with no
+# per-tenant meaning.
+CLASS_SCOPED_RULES = frozenset(
+    {"p50_ms", "p95_ms", "p99_ms", "mean_ms", "shed_rate",
+     "failure_rate", "mean_iters"}
+)
+
+
+def split_slo_rule(name: str) -> Tuple[str, Optional[str]]:
+    """'p99_ms[premium]' -> ('p99_ms', 'premium'); unscoped names ->
+    (name, None). Loud on a malformed scope — '[' with no closing
+    bracket or an empty class is a typo, not a rule."""
+    base, sep, rest = name.partition("[")
+    if not sep:
+        return name, None
+    if not rest.endswith("]") or not rest[:-1].strip():
+        raise ValueError(
+            f"SLO rule {name!r}: class scope must be RULE[CLASS]"
+        )
+    return base, rest[:-1].strip()
+
+
+def parse_slo(spec: str) -> Tuple[str, float]:
+    """'p99_ms=50' -> ('p99_ms', 50.0); 'p99_ms[premium]=40' keeps the
+    composite name as the rule key (the monitor windows that class
+    alone). Unknown rules fail loudly with the full vocabulary (a
+    typo'd SLO that silently never fires is worse than none)."""
+    name, sep, value = spec.partition("=")
+    base, cls = split_slo_rule(name) if sep else (name, None)
+    if not sep or base not in SLO_RULES:
+        raise ValueError(
+            f"--slo {spec!r}: expected RULE=THRESHOLD with RULE one of "
+            f"{sorted(SLO_RULES)} (optionally RULE[CLASS]=THRESHOLD for "
+            f"{sorted(CLASS_SCOPED_RULES)})"
+        )
+    if cls is not None and base not in CLASS_SCOPED_RULES:
+        raise ValueError(
+            f"--slo {spec!r}: rule {base!r} is fleet-level and takes no "
+            f"class scope; class-scoped rules: {sorted(CLASS_SCOPED_RULES)}"
+        )
+    try:
+        return name, float(value)
+    except ValueError:
+        raise ValueError(f"--slo {spec!r}: threshold {value!r} is not a "
+                         "number") from None
+
+
+class SLOMonitor:
+    """Windowed SLO evaluation over a stream of stamped records.
+
+    observe() feeds one record (per-request latency comes from the v6
+    "resolve" leaves, falling back to CLI "response" events — records
+    sharing a trace_id count ONCE, the resolve/response double-emission
+    dedup); evaluate() computes every rule over the trailing window and
+    stamps one "slo_breach" record per violated rule through the
+    writer-else-flight path. The clock is injectable so tests never
+    sleep; window_s=None disables windowing (the --once replay mode)."""
+
+    def __init__(
+        self,
+        rules: Dict[str, float],
+        *,
+        window_s: Optional[float] = 60.0,
+        min_samples: int = 1,
+        writer=None,
+        clock=time.monotonic,
+    ):
+        unknown = []
+        for name in rules:
+            try:
+                base, cls = split_slo_rule(name)
+            except ValueError:
+                unknown.append(name)
+                continue
+            if base not in SLO_RULES or (
+                cls is not None and base not in CLASS_SCOPED_RULES
+            ):
+                unknown.append(name)
+        if unknown:
+            raise ValueError(f"unknown SLO rules {sorted(unknown)}; valid: "
+                             f"{sorted(SLO_RULES)} (class-scoped: "
+                             f"{sorted(CLASS_SCOPED_RULES)})")
+        if window_s is not None and window_s <= 0:
+            raise ValueError(f"window_s {window_s} must be > 0 or None")
+        if min_samples < 1:
+            raise ValueError(f"min_samples {min_samples} must be >= 1")
+        self.rules = dict(rules)
+        self.window_s = window_s
+        self.min_samples = min_samples
+        self.writer = writer
+        self._clock = clock
+        self._latency: deque = deque()   # (t, latency_ms)
+        self._iters: deque = deque()     # (t, iters_total)
+        self._outcomes: deque = deque()  # (t, "resolved"|"shed"|"failed"|"ok")
+        self._headroom: deque = deque()  # (t, headroom)
+        self._forecast_err: deque = deque()  # (t, forecast_abs_err)
+        self._latency_traces: set = set()
+        # Per-SLO-class windows (schema v11, serve/qos.py), fed from
+        # class-stamped resolve/settle/shed records. Outcome entries are
+        # MUTABLE [t, rid, outcome] triples indexed by request_id: a
+        # shed's settle-"failed" fires BEFORE its "shed" leaf (the
+        # ticket fails first), so the later, richer terminal reclassifies
+        # the same entry instead of double-counting the request.
+        self._class_latency: Dict[str, deque] = {}   # (t, ms, rid)
+        self._class_lat_rids: Dict[str, set] = {}
+        self._class_iters: Dict[str, deque] = {}     # (t, iters_total)
+        self._class_events: Dict[str, deque] = {}    # [t, rid, outcome]
+        self._class_rid: Dict[str, dict] = {}        # rid -> entry
+        self.n_breaches = 0
+
+    def observe(self, rec: dict) -> None:
+        if rec.get("kind") == "capacity":
+            # The capacity observatory's per-engine headroom rollup
+            # (serve/batcher.capacity_records, emitted on every summary):
+            # the windowed MIN across engines feeds the one lower-bound
+            # rule — one exhausted engine IS the scale-out signal, even
+            # while its siblings idle. Engines stamped DRAINING or
+            # PROBATION are excluded: a deliberately draining engine's
+            # headroom is not load, and counting it would fire a
+            # permanent false breach that re-triggers the very
+            # autoscaler that caused the drain (schema v8,
+            # serve/elastic.py).
+            if rec.get("state") in ("draining", "probation"):
+                return
+            h = rec.get("headroom")
+            if isinstance(h, (int, float)) and not isinstance(h, bool):
+                now = self._clock()
+                self._headroom.append((now, float(h)))
+                self._prune(now)
+            return
+        if rec.get("kind") == "forecast":
+            # Forecast evidence (schema v9, telemetry/forecast.py): only
+            # matured windows carry a numeric forecast_abs_err — null
+            # means the horizon hasn't elapsed yet and is NOT a zero, so
+            # it never enters the window.
+            err = rec.get("forecast_abs_err")
+            if isinstance(err, (int, float)) and not isinstance(err, bool):
+                now = self._clock()
+                self._forecast_err.append((now, float(err)))
+                self._prune(now)
+            return
+        if rec.get("kind") != "serve":
+            return
+        now = self._clock()
+        event = rec.get("event")
+        if event in ("resolve", "response"):
+            ok = rec.get("ok", True)
+            if event == "resolve" or ok:
+                ms = rec.get("latency_ms")
+                trace = rec.get("trace_id")
+                duplicate = (
+                    isinstance(trace, str) and trace in self._latency_traces
+                )
+                if isinstance(ms, (int, float)) and not duplicate:
+                    t_id = trace if isinstance(trace, str) else None
+                    self._latency.append((now, float(ms), t_id))
+                    if t_id is not None:
+                        self._latency_traces.add(t_id)
+            if event == "resolve":
+                self._outcomes.append((now, "resolved"))
+                it = rec.get("iters_total")
+                if isinstance(it, (int, float)):
+                    self._iters.append((now, float(it)))
+            else:
+                self._outcomes.append((now, "ok" if ok else "failed"))
+        elif event == "shed":
+            self._outcomes.append((now, "shed"))
+        # Per-class windows (schema v11): class-stamped resolve/settle/
+        # shed records feed the class-scoped rules. A request's terminal
+        # counts ONCE per class window (request_id-deduped), with the
+        # richer "shed" leaf reclassifying its preceding settle-"failed".
+        cls = rec.get("slo_class")
+        if isinstance(cls, str):
+            rid = rec.get("request_id")
+            if event == "resolve":
+                self._class_terminal(cls, rid, "resolved", now)
+                self._class_lat(cls, rid, rec.get("latency_ms"), now)
+                it = rec.get("iters_total")
+                if isinstance(it, (int, float)) and not isinstance(it, bool):
+                    self._class_iters.setdefault(cls, deque()).append(
+                        (now, float(it))
+                    )
+            elif event == "settle":
+                outcome = rec.get("outcome")
+                if outcome == "served":
+                    self._class_terminal(cls, rid, "resolved", now)
+                    self._class_lat(cls, rid, rec.get("latency_ms"), now)
+                elif outcome == "failed":
+                    self._class_terminal(cls, rid, "failed", now)
+            elif event == "shed":
+                self._class_terminal(cls, rid, "shed", now)
+        self._prune(now)
+
+    def _class_terminal(
+        self, cls: str, rid, outcome: str, now: float
+    ) -> None:
+        by_rid = self._class_rid.setdefault(cls, {})
+        entry = by_rid.get(rid) if rid is not None else None
+        if entry is None:
+            entry = [now, rid, outcome]
+            self._class_events.setdefault(cls, deque()).append(entry)
+            if rid is not None:
+                by_rid[rid] = entry
+        elif outcome == "shed":
+            # The shed leaf arrives AFTER its settle-"failed" (the
+            # ticket fails first) — same request, richer terminal.
+            entry[2] = "shed"
+
+    def _class_lat(self, cls: str, rid, ms, now: float) -> None:
+        if not isinstance(ms, (int, float)) or isinstance(ms, bool):
+            return
+        rids = self._class_lat_rids.setdefault(cls, set())
+        if rid is not None and rid in rids:
+            return  # resolve + settle double-emission: count once
+        self._class_latency.setdefault(cls, deque()).append(
+            (now, float(ms), rid)
+        )
+        if rid is not None:
+            rids.add(rid)
+
+    def _prune(self, now: float) -> None:
+        if self.window_s is None:
+            return
+        horizon = now - self.window_s
+        while self._latency and self._latency[0][0] < horizon:
+            _, _, t_id = self._latency.popleft()
+            # The dedup set ages with the window — a monitor meant to run
+            # for days must not grow one entry per request forever.
+            if t_id is not None:
+                self._latency_traces.discard(t_id)
+        for q in (
+            self._iters, self._outcomes, self._headroom, self._forecast_err
+        ):
+            while q and q[0][0] < horizon:
+                q.popleft()
+        for cls, q in self._class_latency.items():
+            rids = self._class_lat_rids.get(cls, set())
+            while q and q[0][0] < horizon:
+                _, _, rid = q.popleft()
+                if rid is not None:
+                    rids.discard(rid)
+        for cls, q in self._class_events.items():
+            by_rid = self._class_rid.get(cls, {})
+            while q and q[0][0] < horizon:
+                e = q.popleft()
+                if e[1] is not None:
+                    by_rid.pop(e[1], None)
+        for q in self._class_iters.values():
+            while q and q[0][0] < horizon:
+                q.popleft()
+
+    def observed(self) -> Dict[str, Optional[float]]:
+        """Current windowed value of every configured rule (None = not
+        enough samples to say)."""
+        # Pruning on observe() alone is not enough: a live watch over an
+        # idle stream evaluates without ever observing, so a stale burst
+        # would keep firing breaches long after it left the window.
+        self._prune(self._clock())
+        lat = [v for _, v, _ in self._latency]
+        iters = [v for _, v in self._iters]
+        outcomes = [o for _, o in self._outcomes]
+        sheds = outcomes.count("shed")
+        responses = outcomes.count("ok") + outcomes.count("failed")
+        failed = outcomes.count("failed")
+        # Successes for the shed rate: resolve leaves when the stream has
+        # them, ok responses otherwise — max of the two, because a traced
+        # CLI stream carries BOTH per request (summing would halve the
+        # rate) while an UNTRACED stream carries only responses (counting
+        # resolves alone would read one shed as shed_rate 1.0).
+        resolved = max(outcomes.count("resolved"), outcomes.count("ok"))
+        out: Dict[str, Optional[float]] = {}
+        for rule in self.rules:
+            base, cls = split_slo_rule(rule)
+            if cls is not None:
+                out[rule] = self._class_observed(base, cls)
+                continue
+            if rule in ("p50_ms", "p95_ms", "p99_ms", "mean_ms"):
+                if len(lat) < self.min_samples:
+                    out[rule] = None
+                elif rule == "mean_ms":
+                    out[rule] = sum(lat) / len(lat)
+                else:
+                    q = {"p50_ms": 0.5, "p95_ms": 0.95, "p99_ms": 0.99}[rule]
+                    out[rule] = percentile(lat, q)
+            elif rule == "shed_rate":
+                total = sheds + resolved
+                out[rule] = sheds / total if total >= self.min_samples else None
+            elif rule == "failure_rate":
+                out[rule] = (
+                    failed / responses
+                    if responses >= self.min_samples else None
+                )
+            elif rule == "mean_iters":
+                out[rule] = (
+                    sum(iters) / len(iters)
+                    if len(iters) >= self.min_samples else None
+                )
+            elif rule == "headroom":
+                vals = [v for _, v in self._headroom]
+                out[rule] = (
+                    min(vals) if len(vals) >= self.min_samples else None
+                )
+            elif rule == "forecast_abs_err":
+                vals = [v for _, v in self._forecast_err]
+                out[rule] = (
+                    sum(vals) / len(vals)
+                    if len(vals) >= self.min_samples else None
+                )
+        return out
+
+    def _class_observed(self, base: str, cls: str) -> Optional[float]:
+        """One class-scoped rule's windowed value from that class's own
+        windows (None = not enough of THAT class's samples — another
+        tenant's traffic can never arm or mask a class rule)."""
+        if base in ("p50_ms", "p95_ms", "p99_ms", "mean_ms"):
+            lat = [v for _, v, _ in self._class_latency.get(cls, ())]
+            if len(lat) < self.min_samples:
+                return None
+            if base == "mean_ms":
+                return sum(lat) / len(lat)
+            q = {"p50_ms": 0.5, "p95_ms": 0.95, "p99_ms": 0.99}[base]
+            return percentile(lat, q)
+        outcomes = [e[2] for e in self._class_events.get(cls, ())]
+        if base == "shed_rate":
+            sheds = outcomes.count("shed")
+            total = sheds + outcomes.count("resolved")
+            return sheds / total if total >= self.min_samples else None
+        if base == "failure_rate":
+            total = len(outcomes)
+            return (
+                outcomes.count("failed") / total
+                if total >= self.min_samples else None
+            )
+        if base == "mean_iters":
+            vals = [v for _, v in self._class_iters.get(cls, ())]
+            return (
+                sum(vals) / len(vals)
+                if len(vals) >= self.min_samples else None
+            )
+        return None
+
+    def evaluate(self) -> List[dict]:
+        """One stamped "slo_breach" record per rule whose windowed value
+        exceeds its threshold, delivered writer-else-flight (the flight
+        recorder counts breaches toward its anomaly-storm trigger) and
+        returned. The record carries the watchdog's current backend state
+        like every serve row, so a breach during an outage is
+        attributable without a join."""
+        from glom_tpu_torch.telemetry.watchdog import backend_record
+        from glom_tpu_torch.tracing.flight import write_or_observe
+
+        breaches = []
+        values = self.observed()
+        n_samples = {
+            "shed_rate": len(self._outcomes),
+            "failure_rate": len(self._outcomes),
+            "mean_iters": len(self._iters),
+            "headroom": len(self._headroom),
+            "forecast_abs_err": len(self._forecast_err),
+        }
+        for rule, threshold in sorted(self.rules.items()):
+            observed = values.get(rule)
+            if observed is None:
+                continue
+            if rule in SLO_LOWER_BOUND_RULES:
+                if observed >= threshold:
+                    continue
+            elif observed <= threshold:
+                continue
+            base, cls = split_slo_rule(rule)
+            if cls is not None:
+                ns = (
+                    len(self._class_events.get(cls, ()))
+                    if base in ("shed_rate", "failure_rate")
+                    else len(self._class_iters.get(cls, ()))
+                    if base == "mean_iters"
+                    else len(self._class_latency.get(cls, ()))
+                )
+            else:
+                ns = n_samples.get(rule, len(self._latency))
+            rec = schema.stamp(
+                {
+                    "rule": rule,
+                    "threshold": threshold,
+                    "observed": round(observed, 4),
+                    "bound": (
+                        "lower" if rule in SLO_LOWER_BOUND_RULES
+                        else "upper"
+                    ),
+                    "window_s": self.window_s,
+                    "n_samples": ns,
+                    "wall_time_s": round(time.time(), 3),
+                },
+                kind="slo_breach",
+            )
+            if cls is not None:
+                # The breach names its tenant — the elastic policy
+                # reads this to decide whether the breach is BINDING
+                # (serve/elastic.py low_classes).
+                rec["slo_class"] = cls
+            for k, v in backend_record().items():
+                rec.setdefault(k, v)
+            write_or_observe(self.writer, rec)
+            breaches.append(rec)
+            self.n_breaches += 1
+        return breaches
+
+
+# -- CLIs -------------------------------------------------------------------
+
+
+def aggregate_main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m glom_tpu_torch.telemetry aggregate",
+        description="Merge N hosts' JSONL streams into one pod-level "
+        "rollup + timeline",
+    )
+    ap.add_argument(
+        "paths", nargs="+",
+        help="host JSONL files and/or directories of *.jsonl",
+    )
+    ap.add_argument(
+        "--out", default=None,
+        help="also write the full rollup object to this JSON file",
+    )
+    ap.add_argument(
+        "--timeline", type=int, default=0, metavar="N",
+        help="print the first N merged timeline entries (0 = none)",
+    )
+    ap.add_argument(
+        "--strict", action="store_true",
+        help="exit nonzero on clock-family violations or broken barrier "
+        "chains (the gating mode)",
+    )
+    args = ap.parse_args(argv)
+    hosts = expand_paths(args.paths)
+    if not hosts:
+        print(f"no JSONL streams under {args.paths}", file=sys.stderr)
+        return 1
+    try:
+        records = load_host_records(hosts)
+    except OSError as e:
+        print(f"cannot read host stream: {e}", file=sys.stderr)
+        return 1
+    merged = merge_timeline(records)
+    roll = rollup(records)
+    problems = list(merged["violations"])
+    problems += check_barrier_chains(roll["timelines"]["barrier"])
+    for i, e in enumerate(merged["events"][: args.timeline]):
+        rec = e["rec"]
+        label = (
+            rec.get("event")
+            or (f"{rec.get('kind')}:{rec.get('phase')}"
+                if rec.get("kind") == "barrier" else rec.get("kind"))
+        )
+        print(
+            f"{e['t']:>12.6f}s  {e['host']:<16} {e['clock']:<9} {label}",
+            file=sys.stderr,
+        )
+    for p in problems:
+        print(f"AGGREGATE: {p}", file=sys.stderr)
+    summary = schema.stamp(
+        {
+            "summary": True,
+            "pod_rollup": roll,
+            "n_timeline_events": len(merged["events"]),
+            "n_violations": len(problems),
+            "hosts": list(hosts),
+        },
+        kind="summary",
+    )
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(
+                {"rollup": roll, "violations": problems,
+                 "hosts": dict(hosts)},
+                fh, indent=2,
+            )
+    return 1 if (args.strict and problems) else 0
+
+
+def watch_main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m glom_tpu_torch.telemetry watch",
+        description="Live SLO monitor: tail JSONL streams, evaluate "
+        "windowed SLO rules, stamp slo_breach events",
+    )
+    ap.add_argument(
+        "paths", nargs="+",
+        help="JSONL files and/or directories to tail (*.jsonl; new files "
+        "are picked up between intervals)",
+    )
+    ap.add_argument(
+        "--slo", action="append", required=True, metavar="RULE=THRESHOLD",
+        help=f"repeatable; rules: {', '.join(sorted(SLO_RULES))}",
+    )
+    ap.add_argument(
+        "--window", type=float, default=60.0, metavar="S",
+        help="sliding evaluation window in seconds (default 60)",
+    )
+    ap.add_argument(
+        "--interval", type=float, default=2.0, metavar="S",
+        help="evaluation cadence while tailing (default 2)",
+    )
+    ap.add_argument(
+        "--min-samples", type=int, default=1, metavar="N",
+        help="a rule stays silent below N windowed samples (default 1)",
+    )
+    ap.add_argument(
+        "--once", action="store_true",
+        help="replay mode: read everything now, evaluate ONCE over the "
+        "whole stream (no window), exit — nonzero iff any rule breached "
+        "(the postmortem mode)",
+    )
+    ap.add_argument(
+        "--max-seconds", type=float, default=0.0, metavar="S",
+        help="stop tailing after S seconds (0 = until interrupted); exit "
+        "nonzero iff any breach fired while watching",
+    )
+    args = ap.parse_args(argv)
+    try:
+        rules = dict(parse_slo(s) for s in args.slo)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+
+    monitor = SLOMonitor(
+        rules,
+        window_s=None if args.once else args.window,
+        min_samples=args.min_samples,
+    )
+    offsets: Dict[str, int] = {}
+
+    def drain() -> int:
+        n = 0
+        for _, path in expand_paths(args.paths).items():
+            try:
+                with open(path, "rb") as fh:
+                    start = offsets.get(path, 0)
+                    fh.seek(start)
+                    data = fh.read()
+            except OSError:
+                continue
+            # Only consume up to the last complete line: a writer may be
+            # mid-flush, and advancing past a torn line would silently
+            # drop that record (the next read would start inside it).
+            cut = len(data) if args.once else data.rfind(b"\n") + 1
+            if cut == 0:
+                continue
+            offsets[path] = start + cut
+            lines = data[:cut].decode("utf-8", "replace").splitlines()
+            for _, rec in schema.iter_json_lines(lines):
+                monitor.observe(rec)
+                n += 1
+        return n
+
+    def report(breaches: List[dict]) -> None:
+        for b in breaches:
+            print(json.dumps(b), flush=True)
+            window = (
+                f"{b['window_s']}s" if b["window_s"] is not None else "all"
+            )
+            op = "<" if b.get("bound") == "lower" else ">"
+            print(
+                f"SLO BREACH: {b['rule']} observed {b['observed']} {op} "
+                f"threshold {b['threshold']} "
+                f"(n={b['n_samples']}, window={window})",
+                file=sys.stderr,
+            )
+
+    if args.once:
+        if drain() == 0:
+            print("no records found to evaluate", file=sys.stderr)
+            return 2
+        report(monitor.evaluate())
+        return 1 if monitor.n_breaches else 0
+
+    deadline = (
+        time.monotonic() + args.max_seconds if args.max_seconds > 0 else None
+    )
+    try:
+        while True:
+            drain()
+            report(monitor.evaluate())
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        pass
+    return 1 if monitor.n_breaches else 0
+
+
+if __name__ == "__main__":
+    sys.exit(aggregate_main())

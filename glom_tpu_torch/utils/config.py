@@ -106,8 +106,9 @@ class ServeConfig:
     stack's policy over them (serve/batcher.py, qos.py, column_cache.py,
     resilience/ladder.py): admission, continuation hops, the degradation
     ladder, the session column cache, engine rejoin, request tracing and
-    SLO classes. The reference's elastic-serving fields (ROADMAP queue A
-    item 7's next part) and serve-mesh fields (item 8) are not here."""
+    SLO classes, and the elastic fleet (serve/elastic.py: the autoscaler's
+    policy, warm-pool spares and drained-husk retention). The reference's
+    serve-mesh fields (ROADMAP queue A item 8) are not here."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
@@ -220,6 +221,57 @@ class ServeConfig:
     # ROADMAP queue A item 8).
     collective_timing: str = "off"
     collective_timing_interval: int = 16
+    # Elastic serving (serve/elastic.py): elastic=True runs an Autoscaler
+    # control loop beside the batcher that reads the live capacity records
+    # (headroom) and in-process SLO breaches and changes the fleet:
+    # scale-out builds a replica on the card and warms it before admission
+    # opens, scale-in drains the least-loaded engine (stop admitting,
+    # flush, migrate its cache sessions, release its device memory).
+    # False keeps the static fleet. The policy is windowed low/high water
+    # with min-dwell hysteresis and a post-action cooldown, clamped to
+    # [min_engines, max_engines]:
+    #   * worst eligible headroom < elastic_low_water continuously for
+    #     elastic_dwell_s (or any armed upper-bound SLO breach,
+    #     elastic_p99_ms / elastic_shed_rate, None = not armed) scales
+    #     out; a breach also vetoes scale-in;
+    #   * worst eligible headroom > elastic_high_water continuously for
+    #     elastic_dwell_s scales in (drains the max-headroom engine).
+    # elastic_interval_s paces the control ticks; elastic_window_s is the
+    # signal window the policy and its SLO monitor share.
+    elastic: bool = False
+    min_engines: int = 1
+    max_engines: int = 4
+    elastic_low_water: float = 0.15
+    elastic_high_water: float = 0.6
+    elastic_dwell_s: float = 2.0
+    elastic_cooldown_s: float = 5.0
+    elastic_window_s: float = 10.0
+    elastic_interval_s: float = 0.5
+    elastic_p99_ms: Optional[float] = None
+    elastic_shed_rate: Optional[float] = None
+    # Drained-husk retention: a scale-in leaves the drained engine in the
+    # summary as an evidence husk. None (both defaults) keeps every husk;
+    # husk_max keeps at most N (oldest retire first); husk_max_age_s
+    # retires a husk once it has been drained that long. Retirement folds
+    # the husk's counters into the summary's husks_retired nest and stamps
+    # one engine_husk_retired event, so conservation still reconciles.
+    husk_max: Optional[int] = None
+    husk_max_age_s: Optional[float] = None
+    # Anticipatory autoscaling: elastic_anticipatory=True lets the policy
+    # act on the forecast load at `now + spawn_lead_time`: a positive
+    # predicted deficit over the fleet's usable capacity (measured service
+    # rate x elastic_target_utilization) arms scale-out and vetoes
+    # scale-in, once both models have matured (a scored forecast_abs_err
+    # and spawn-lead evidence); until then the policy is the reactive one.
+    # Every decision stamps its evidence bundle (`python -m
+    # glom_tpu_torch.telemetry audit` replays it).
+    elastic_anticipatory: bool = False
+    elastic_target_utilization: float = 0.8
+    # Warm-pool spares: N engines built and warmed ahead, held outside
+    # admission (never registered with the batcher: a spare is not a husk
+    # and serves no traffic). Scale-out promotes a spare; scale-in demotes
+    # the drained engine back into the pool instead of releasing it.
+    warm_pool: int = 0
     # SLO classes (serve/qos.py): named classes such as
     # ("premium:weight=8,p99_ms=150", "batch:weight=1") turn the shared
     # admission FIFO into a weighted-fair class scheduler with per-class
@@ -361,6 +413,51 @@ class ServeConfig:
                 f"collective_timing_interval "
                 f"{self.collective_timing_interval} must be >= 1"
             )
+        if self.min_engines < 1:
+            raise ValueError(f"min_engines {self.min_engines} must be >= 1")
+        if self.max_engines < self.min_engines:
+            raise ValueError(
+                f"max_engines {self.max_engines} must be >= min_engines "
+                f"{self.min_engines}"
+            )
+        if not 0.0 <= self.elastic_low_water < self.elastic_high_water <= 1.0:
+            raise ValueError(
+                f"need 0 <= elastic_low_water ({self.elastic_low_water}) < "
+                f"elastic_high_water ({self.elastic_high_water}) <= 1"
+            )
+        if self.elastic_dwell_s < 0 or self.elastic_cooldown_s < 0:
+            raise ValueError(
+                f"elastic_dwell_s {self.elastic_dwell_s} and "
+                f"elastic_cooldown_s {self.elastic_cooldown_s} must be >= 0"
+            )
+        if self.elastic_window_s <= 0 or self.elastic_interval_s <= 0:
+            raise ValueError(
+                f"elastic_window_s {self.elastic_window_s} and "
+                f"elastic_interval_s {self.elastic_interval_s} must be > 0"
+            )
+        if self.elastic_p99_ms is not None and self.elastic_p99_ms <= 0:
+            raise ValueError(
+                f"elastic_p99_ms {self.elastic_p99_ms} must be > 0 or None"
+            )
+        if self.elastic_shed_rate is not None and not (
+            0.0 <= self.elastic_shed_rate <= 1.0
+        ):
+            raise ValueError(
+                f"elastic_shed_rate {self.elastic_shed_rate} must be in [0, 1] or None"
+            )
+        if self.husk_max is not None and self.husk_max < 0:
+            raise ValueError(f"husk_max {self.husk_max} must be >= 0 or None")
+        if self.husk_max_age_s is not None and self.husk_max_age_s < 0:
+            raise ValueError(
+                f"husk_max_age_s {self.husk_max_age_s} must be >= 0 or None"
+            )
+        if not 0.0 < self.elastic_target_utilization <= 1.0:
+            raise ValueError(
+                f"elastic_target_utilization "
+                f"{self.elastic_target_utilization} must be in (0, 1]"
+            )
+        if self.warm_pool < 0:
+            raise ValueError(f"warm_pool {self.warm_pool} must be >= 0")
         if not 0.0 <= self.slo_starvation_floor < 1.0:
             raise ValueError(
                 f"slo_starvation_floor {self.slo_starvation_floor} must be in [0, 1)"

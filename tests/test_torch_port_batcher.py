@@ -395,11 +395,46 @@ def test_paged_and_incremental_warm_routes(model, route):
         assert ts["n_incremental"] == 4
 
 
-def test_elastic_fleet_methods_refuse(model):
-    """The fleet methods of the elastic slice raise, naming their item."""
-    _, port = _engines(model, buckets=(1,), max_batch=1)
-    b = tbatcher.DynamicBatcher(engines=port, max_batch=1)
-    for call in (lambda: b.attach_elastic(None), lambda: b.add_engine(port[0]),
-                 lambda: b.begin_drain("engine0"), lambda: b.drain_engine("engine0")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+def test_elastic_fleet_methods_run(model):
+    """The fleet methods run in both batchers over real CPU engines: a warmed
+    engine added at runtime serves (engine_add), draining the original
+    engine stamps drain_begin, drain_flush and drain_migrate, leaves it
+    drained (no capacity record, excluded from the fleet size) and the
+    next requests go to the added engine; an attached scaler's record
+    nests under "elastic". Levels, dispatch records and counters held as
+    everywhere in this file."""
+    imgs = _images(4, seed=41)
+    ref, port = _engines(model, n=2, buckets=(1, 2), max_batch=2, iters=2)
+    runs, events = [], []
+
+    class Scaler:
+        def record(self):
+            return {"n_scale_outs": 0}
+
+    for mod, engs in ((jbatcher, ref), (tbatcher, port)):
+        w = ListWriter()
+        b = mod.DynamicBatcher(engines=[engs[0]], writer=w, max_delay_ms=5000.0, max_batch=2)
+        b.attach_elastic(Scaler())
+        ts = [b.submit(img) for img in imgs[:2]]
+        b.start()
+        res = [t.result(timeout=120) for t in ts]
+        engs[1].warmup()
+        assert b.add_engine(engs[1], detail={"decision_id": 7}) == "engine1"
+        assert b.n_active_engines() == 2 and b.engine_by_name("engine1") is engs[1]
+        stats = b.drain_engine("engine0", detail={"decision_id": 8})
+        assert stats["flush_ok"] and b.n_active_engines() == 1
+        assert [c["engine"] for c in b.capacity_records()] == ["engine1"]
+        ts2 = [b.submit(img) for img in imgs[2:]]
+        res += [t.result(timeout=120) for t in ts2]
+        b.stop()
+        runs.append((b, ts + ts2, res, w.recs))
+        events.append([(r["event"], r.get("engine"), r.get("decision_id")) for r in w.recs
+                       if r.get("event") in ("engine_add", "drain_begin", "drain_flush",
+                                             "drain_migrate")])
+    js, ts = _held(*runs)
+    assert events[1] == events[0] == [("engine_add", "engine1", 7), ("drain_begin", "engine0", 8),
+                                      ("drain_flush", "engine0", 8),
+                                      ("drain_migrate", "engine0", 8)]
+    assert [d["engine"] for d in runs[1][3] if d.get("event") == "dispatch"] == [
+        "engine0", "engine1"]
+    assert ts["engines"]["engine0"]["drained"] is True and ts["elastic"] == {"n_scale_outs": 0}

@@ -1301,3 +1301,105 @@ def test_batcher_on_card_continuations_and_pages(dev):
     paged = [r for r in recs if r.get("event") == "dispatch" and r["paged"] and r["tier"] == 0]
     assert sum(r["n_cache_warm"] for r in paged) == 8
     assert all(r["levels0_h2d_bytes"] == 0 for r in paged)
+
+
+def _fleet_on_card(scfg_over=None, **kw):
+    """Elastic fleet helpers on the card: the card-aligned config with a
+    page pool and a column cache, a writer, one shared params init."""
+    import dataclasses
+
+    from glom_tpu_torch.serve import column_state_bytes
+
+    cfg, scfg = _batcher_config(page_pool_pages=32, **(scfg_over or {}))
+    scfg = dataclasses.replace(scfg, column_cache_bytes=8 * column_state_bytes(cfg, scfg))
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(0))
+    recs = []
+    writer = type("W", (), {"write": staticmethod(recs.append)})()
+    mk = lambda name: InferenceEngine(cfg, scfg, params=params, device="cuda", name=name,
+                                      writer=writer)  # noqa: E731
+    return cfg, scfg, mk, writer, recs
+
+
+class _Scripted:
+    """A scripted elastic policy (its actions in order; the drain target
+    pinned)."""
+
+    def __new__(cls, actions, target):
+        from glom_tpu_torch.serve.elastic import ElasticPolicy
+
+        class P(ElasticPolicy):
+            def decide(self, n):
+                if not actions:
+                    return None
+                ev = self.evidence(n)
+                a = actions.pop(0)
+                if a == "scale_out":
+                    ev["breaches"] = ["p99_ms"]
+                else:
+                    ev["above_held_s"] = ev["dwell_s"] + 1.0
+                return {"action": a, "signal": {"rule": "test"}, "evidence": ev}
+
+            def pick_drain_target(self, caps):
+                return target
+
+        return P(min_engines=1, max_engines=4)
+
+
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_elastic_spawn_drain_migrate_on_card(dev, aliasing):
+    """On the card: engine 0 serves four sessions into its pool; the
+    autoscaler spawns engine 1 (warmed before admission: its first
+    dispatch comes after its admission_open), then drains engine 0: the
+    sessions' pages land in engine 1's pool bit for bit with the same
+    content hash, engine 0's release frees at least its pool's bytes, and
+    the next frames hit engine 1's pool with no levels0 from the host, and
+    the decision chain audits clean."""
+    from glom_tpu_torch.serve import Autoscaler, DynamicBatcher, content_hash
+    from glom_tpu_torch.telemetry.audit import audit_records
+
+    cfg, scfg, mk, writer, recs = _fleet_on_card(dict(pool_aliasing=aliasing))
+    eng0 = mk("engine0")
+    eng0.warmup()
+    eng0.warmup(warm="paged")
+    rng = np.random.default_rng(21)
+    imgs = [_rand(rng, 3, 32, 32).numpy() for _ in range(4)]
+    spawned = []
+
+    def factory():
+        e = mk("engine1")
+        spawned.append(e)
+        return e
+
+    b = DynamicBatcher(eng0, writer=writer, max_delay_ms=5000.0)
+    sc = Autoscaler(b, factory, writer=writer,
+                    policy=_Scripted(["scale_out", "scale_in"], "engine0"))
+    ts = [b.submit(img, session_id=f"s{i}") for i, img in enumerate(imgs)]
+    b.start()
+    for t in ts:
+        t.result(timeout=120)
+    before = {f"s{i}": eng0.pool.read_block(f"s{i}") for i in range(4)}
+    sc.tick()
+    spawned[0].warmup(warm="paged")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    sc.tick()
+    torch.cuda.synchronize()
+    freed = mem0 - torch.cuda.memory_allocated()
+    eng1 = spawned[0]
+    for s, row in before.items():
+        got = eng1.pool.read_block(s)
+        assert torch.equal(got, row) and content_hash(got) == content_hash(row)
+    assert eng0.released and freed >= eng0.pool.pool_bytes
+    fs = [b.submit(img + 0.05, session_id=f"s{i}") for i, img in enumerate(imgs)]
+    out = [t.result(timeout=120)[0] for t in fs]
+    b.stop()
+    s = b.summary_record()
+    assert s["n_served"] == 8 and s["n_failed"] == 0 and s["levels0_h2d_bytes"] == 0
+    assert s["elastic"]["n_migrated_sessions"] == 4 and s["column_cache"]["n_hits"] == 4
+    warm = [r for r in recs if r.get("event") == "dispatch" and r["engine"] == "engine1"]
+    assert warm and all(r["n_page_warm"] == r["n_valid"] for r in warm)
+    events = [r.get("event") for r in recs]
+    assert events.index("admission_open") < events.index("dispatch", events.index(
+        "engine_add"))
+    assert audit_records(recs)["errors"] == []
+    assert all(o.dtype == torch.bfloat16 and o.device.type == "cpu" for o in out)

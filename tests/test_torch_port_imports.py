@@ -38,7 +38,10 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.resilience.retry", "glom_tpu_torch.telemetry.watchdog",
                    "glom_tpu_torch.resilience.ladder", "glom_tpu_torch.serve.qos",
                    "glom_tpu_torch.serve.column_cache", "glom_tpu_torch.serve.workload",
-                   "glom_tpu_torch.serve.cli", "glom_tpu_torch.serve.__main__"):
+                   "glom_tpu_torch.serve.cli", "glom_tpu_torch.serve.__main__",
+                   "glom_tpu_torch.serve.elastic", "glom_tpu_torch.telemetry.forecast",
+                   "glom_tpu_torch.telemetry.audit", "glom_tpu_torch.telemetry.aggregate",
+                   "glom_tpu_torch.telemetry.__main__", "glom_tpu_torch.resilience.faults"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         assert path in PORT_FILES

@@ -81,8 +81,7 @@ class TestHelpersAndConfig:
             "trace_requests", "slo_classes", "slo_default_class", "slo_shed_order",
             "slo_starvation_floor",
         }
-        assert not names & {"min_engines", "max_engines", "husk_max", "warm_pool",
-                            "mesh_data", "mesh_seq", "elastic"}
+        assert not names & {"mesh_data", "mesh_seq"}
         for bad in (dict(queue_depth=0), dict(max_delay_ms=-1.0), dict(degraded_iters=0),
                     dict(degraded_max_batch=0), dict(ladder_low_water=0.8),
                     dict(ladder_high_water=1.5), dict(column_cache_bytes=-1),
@@ -95,6 +94,36 @@ class TestHelpersAndConfig:
             with pytest.raises(ValueError) as got:
                 tconfig.ServeConfig(**bad)
             assert str(got.value) == str(want.value), bad
+
+    def test_serve_config_elastic_fields_and_checks(self):
+        """The elastic fleet's fields are there with glom_tpu's names and
+        defaults, and every bad value is refused with glom_tpu's message."""
+        elastic = ("elastic", "min_engines", "max_engines", "elastic_low_water",
+                   "elastic_high_water", "elastic_dwell_s", "elastic_cooldown_s",
+                   "elastic_window_s", "elastic_interval_s", "elastic_p99_ms",
+                   "elastic_shed_rate", "husk_max", "husk_max_age_s", "elastic_anticipatory",
+                   "elastic_target_utilization", "warm_pool")
+        ref = {f.name: f.default for f in dataclasses.fields(jconfig.ServeConfig)}
+        got = {f.name: f.default for f in dataclasses.fields(tconfig.ServeConfig)}
+        for name in elastic:
+            assert got[name] == ref[name], name
+        for bad in (dict(min_engines=0), dict(max_engines=0), dict(min_engines=3, max_engines=2),
+                    dict(elastic_low_water=0.7), dict(elastic_high_water=1.5),
+                    dict(elastic_dwell_s=-1.0), dict(elastic_cooldown_s=-1.0),
+                    dict(elastic_window_s=0.0), dict(elastic_interval_s=0.0),
+                    dict(elastic_p99_ms=0.0), dict(elastic_shed_rate=1.5), dict(husk_max=-1),
+                    dict(husk_max_age_s=-1.0), dict(elastic_target_utilization=0.0),
+                    dict(elastic_target_utilization=1.5), dict(warm_pool=-1)):
+            with pytest.raises(ValueError) as want:
+                jconfig.ServeConfig(**bad)
+            with pytest.raises(ValueError) as got_e:
+                tconfig.ServeConfig(**bad)
+            assert str(got_e.value) == str(want.value), bad
+        ok = dict(elastic=True, min_engines=2, max_engines=3, elastic_p99_ms=50.0,
+                  elastic_shed_rate=0.1, husk_max=0, husk_max_age_s=0.0, warm_pool=2,
+                  elastic_anticipatory=True, elastic_target_utilization=1.0)
+        assert dataclasses.asdict(tconfig.ServeConfig(**ok))["warm_pool"] == 2
+        jconfig.ServeConfig(**ok)
 
     def test_train_config_matches_reference(self):
         ref = [(f.name, f.default) for f in dataclasses.fields(jconfig.TrainConfig)]
