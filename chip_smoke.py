@@ -121,6 +121,24 @@ after:
     bit the clean run, with its recovery events; temporal rollouts (3
     frames, batch 2) fused against plain in f32, the bf16 ms a frame; and
     the peak device memory of one loop step at batch 128.
+  * training across ranks (`dist_phases`): DistributedTrainer in an NCCL
+    group of one, 3 bf16 steps on the loop at batch 8, losses and
+    parameters bit for bit the single-device Trainer's with its launches
+    (`dist_world1_nccl`); then ranks spawned on the card over gloo (NCCL
+    refuses two ranks on one card): DP over 2 ranks at global batch 16
+    (the f32 all-reduced gradients against the single batch-16 step's,
+    3 bf16 steps against the single-device losses, the loop's launches a
+    rank a step; `dist_dp2`), ZeRO 0 / 1 / 2 and 2 with the quantized
+    reduce (f32 parameters against stage 0, each rank's moments and the
+    counted wire bytes against the layout's leaf-by-leaf schedule;
+    `dist_zero`), the ring and Ulysses at seq 2 and halo at seq 4
+    (imagenet256-local) with f32 gradients against the single device, K1
+    only (`dist_sp`), hidden TP at model 2 (K1 at f = 1024, K2 whole;
+    `dist_tp2`), and `python -m torch.distributed.run -m
+    glom_tpu_torch.train.cli --distributed` with two ranks on the card (a
+    resume, the stream linted, `--check-parity`;
+    `train_cli_distributed`). Each kernel's launches there ride the
+    kernels line as `dist_launches`.
 
 It prints one JSON line per phase. The last line is
 
@@ -249,6 +267,659 @@ ELASTIC_CLIENTS = 4
 ELASTIC_FRAMES = 3
 ELASTIC_SESSIONS = 12
 CLI_ELASTIC_RAMP = "8x20,240x0,40x20"
+
+
+# -- training across ranks (dist_* phases) -------------------------------------
+# Ranks are spawned processes with a file:// store, every one on cuda:0 over
+# gloo (NCCL refuses two ranks on one card; its route runs at world 1). The
+# kernels are built by the parent before any rank starts. A rank's failure
+# fails its phase.
+DIST_HALO_CFG = dict(dim=512, levels=6, image_size=256, patch_size=8, local_consensus_radius=7)
+DIST_DP_BATCH = 16  # global; 8 a rank, on the loop
+DIST_SP_BATCH = 2
+DIST_ZERO_BATCH = 4  # f32 steps: 2 a rank
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 600
+# The route a data rank's batch of 8 takes, by device type.
+LOOP_ROUTE = {"cuda": "fused_loop", "cpu": "scan_dense"}
+DIST_COUNTERS = {
+    "K1 fwd": ("grouped_mlp", "LAUNCHES"), "K1 fwd add": ("grouped_mlp", "LAUNCHES_ADD"),
+    "K1 fwd cat": ("grouped_mlp", "LAUNCHES_CAT"), "K1 pre cat": ("grouped_mlp", "LAUNCHES_PRE_CAT"),
+    "K1 bwd": ("grouped_mlp", "LAUNCHES_BWD"), "K1 bwd add": ("grouped_mlp", "LAUNCHES_BWD_ADD"),
+    "K1 bwd acc": ("grouped_mlp", "LAUNCHES_BWD_ACC"),
+    "K1 bwd acc cat": ("grouped_mlp", "LAUNCHES_BWD_ACC_CAT"),
+    "K2 fwd": ("consensus_update", "LAUNCHES"), "K2 fwd cons": ("consensus_update", "LAUNCHES_CONS"),
+    "K2 bwd dq": ("consensus_update", "LAUNCHES_BWD_DQ"),
+    "K2 bwd dkv": ("consensus_update", "LAUNCHES_BWD_DKV"),
+    "K2 combine dq": ("consensus_update", "LAUNCHES_BWD_COMBINE_DQ"),
+    "K2 combine dkv": ("consensus_update", "LAUNCHES_BWD_COMBINE_DKV"),
+    "K2 onesweep": ("consensus_update", "LAUNCHES_BWD_ONESWEEP"),
+    "K4": ("banded_consensus", "LAUNCHES"),
+}
+
+
+def _dist_counts(reset=False) -> dict:
+    import importlib
+
+    out = {}
+    for key, (mod, attr) in DIST_COUNTERS.items():
+        m = importlib.import_module(f"glom_tpu_torch.kernels.{mod}")
+        out[key] = getattr(m, attr)
+        if reset:
+            setattr(m, attr, 0)
+    return out
+
+
+def dist_kernel_launches(c: dict) -> dict:
+    """Counter readings -> launches by the kernels line's names."""
+    return {
+        "grouped_mlp_fwd": c["K1 fwd"] - c["K1 fwd add"] - c["K1 fwd cat"],
+        "grouped_mlp_fwd_add": c["K1 fwd add"],
+        "consensus_update_fwd": c["K2 fwd"] - c["K2 fwd cons"],
+        "grouped_mlp_bwd": c["K1 bwd"] - c["K1 bwd add"],
+        "grouped_mlp_bwd_add": c["K1 bwd add"],
+        "consensus_update_bwd_dq": c["K2 bwd dq"],
+        "consensus_update_bwd_dkv": c["K2 bwd dkv"],
+        "consensus_update_bwd_combine": c["K2 combine dq"] + c["K2 combine dkv"],
+        "consensus_update_fwd_cons": c["K2 fwd cons"],
+        "consensus_update_bwd_onesweep": c["K2 onesweep"],
+        "grouped_mlp_fwd_cat": c["K1 fwd cat"],
+        "grouped_mlp_pre_cat": c["K1 pre cat"],
+        "grouped_mlp_bwd_acc_cat": c["K1 bwd acc cat"],
+        "banded_consensus_fwd": c["K4"],
+    }
+
+
+def _zero_expected(cfg, dp: int, quantized: bool, accum: int = 1, stage: int = 1) -> dict:
+    """What a ZeRO step moves and keeps on each rank, leaf by leaf from the
+    shapes and the ZeRO layout (a leaf with no dp-divisible free axis stays
+    replicated: a full all-reduce, whole moments): the reduce and gather
+    wire bytes a step and the Adam moments' bytes a rank."""
+    from glom_tpu_torch.parallel.quantized import quantized_wire_bytes
+    from glom_tpu_torch.parallel.sharding import zero_param_specs
+    from glom_tpu_torch.utils.checkpoint import named_leaves
+
+    params = _dist_params(cfg, SEED)
+    specs = zero_param_specs(params, dp)
+    frac = (dp - 1) / dp
+    reduce_b = gather_b = moments = 0
+    for name, t in named_leaves(params):
+        nbytes = t.numel() * 4
+        wire = quantized_wire_bytes(nbytes // 4) if quantized else nbytes
+        scattered = "data" in specs[name]
+        reduce_b += (int(frac * wire) * (1 if scattered else 2)) * (accum if stage >= 2 else 1)
+        gather_b += int((dp - 1) * nbytes // dp) if scattered else 0
+        moments += 2 * (nbytes // dp if scattered else nbytes)
+    return {"reduce": reduce_b, "gather": gather_b, "moment_bytes": moments}
+
+
+def _dist_err(got, want):
+    """(max abs error, that over max |want|)."""
+    got, want = got.float(), want.float()
+    diff = float((got - want).abs().max())
+    return diff, diff / max(float(want.abs().max()), 1e-30)
+
+
+def _dist_params(cfg, seed):
+    import torch
+
+    from glom_tpu_torch.train import init_denoise
+
+    return init_denoise(cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def _dist_batch(cfg, batch, seed, dev):
+    """A global shapes batch and f32 noise, the same on every rank."""
+    import torch
+
+    from glom_tpu_torch.data import shapes_dataset
+
+    img = torch.from_numpy(next(shapes_dataset(batch, cfg.image_size, seed=seed))).to(dev)
+    noise = torch.randn(img.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    return img, noise
+
+
+def _dist_f32_grads(mesh, cfg, batch, sp, dev, rank):
+    """make_manual_loss's f32 loss and gradients (TP shards gathered) on
+    every rank, against the single-device fused step's on rank 0: (worst
+    of the loss's relative error and each leaf's error over max |want|,
+    per leaf)."""
+    import torch
+
+    from glom_tpu_torch.models.core import param_leaves, unflatten_params
+    from glom_tpu_torch.parallel.collectives import all_gather, mesh_axis
+    from glom_tpu_torch.parallel.manual import make_manual_loss, rank_axes
+    from glom_tpu_torch.parallel.sharding import denoise_param_specs, shard_leaf, spec_axis
+    from glom_tpu_torch.train import denoise_loss
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.checkpoint import named_leaves
+
+    tcfg = TrainConfig(batch_size=batch, use_pallas=True)
+    params = _dist_params(cfg, SEED)
+    img, noise = _dist_batch(cfg, batch, SEED + 40, dev)
+    axes = rank_axes(mesh)
+    specs = denoise_param_specs("hidden")
+    coords = {"model": (axes.model.index, axes.model.size)}
+    leaves = [shard_leaf(t, specs[nm], coords).to(dev).clone().requires_grad_()
+              for nm, t in named_leaves(params)]
+    pp = unflatten_params(params, leaves)
+    loss = make_manual_loss(mesh, cfg, tcfg, sp_strategy=sp)(pp, img, noise)
+    grads = torch.autograd.grad(loss, leaves)
+    model = mesh_axis(mesh, "model")
+    grads = [all_gather(g, model, spec_axis(specs[nm], "model"))
+             if spec_axis(specs[nm], "model") >= 0 else g
+             for (nm, _), g in zip(named_leaves(params), grads)]
+    if rank != 0:
+        return None
+    ref_leaves = [t.to(dev).clone().requires_grad_() for t in param_leaves(params)]
+    ref = denoise_loss(unflatten_params(params, ref_leaves), img, noise, cfg, use_pallas=True)
+    ref_grads = torch.autograd.grad(ref, ref_leaves)
+    errs = {nm: _dist_err(g, r)[1] for (nm, _), g, r in
+            zip(named_leaves(params), grads, ref_grads)}
+    loss_rel = abs(float(loss.detach()) - float(ref)) / abs(float(ref))
+    del ref_grads, grads
+    return max(max(errs.values()), loss_rel), loss_rel, errs
+
+
+def _dist_train(mesh_cfg, cfg, tcfg, sp, dev, steps, seed, *, single=False, params=None):
+    """DistributedTrainer steps on the same seeded global batches: per-step
+    launches (counted from 0 around each step), host ms, records; and on
+    rank 0 with `single`, the single-device Trainer's losses."""
+    import torch
+    import torch.distributed as dist
+
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.train import Trainer
+
+    params = params if params is not None else _dist_params(cfg, SEED)
+    tr = DistributedTrainer(cfg, tcfg, mesh_cfg, sp_strategy=sp,
+                            devices=[dev] * mesh_cfg.num_devices, backend="gloo",
+                            params=params)
+    batches = list(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=seed,
+                                  num_batches=steps))
+    launches, ms, recs = [], [], []
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    for b in batches:
+        dist.barrier()
+        sync()
+        _dist_counts(reset=True)
+        t0 = time.perf_counter()
+        m = tr.step(b)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(_dist_counts())
+        recs.append({k: (float(v) if hasattr(v, "item") else v) for k, v in m.items()})
+    out = dict(trainer=tr, launches=launches, ms=ms, records=recs,
+               losses=[r["loss"] for r in recs])
+    if single and dist.get_rank() == 0:
+        st = Trainer(cfg, tcfg, params=params, device=dev)
+        out["single_losses"] = [float(st.step(b)["loss"]) for b in batches]
+        del st
+    return out
+
+
+def _dist_child(rank, world, init, device, cases, q):
+    """One rank: the process group (gloo, on `device`), then each case."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    try:
+        from glom_tpu_torch.parallel.mesh import initialize_multihost
+
+        initialize_multihost(num_processes=world, process_id=rank, init_method=init,
+                             device=device, backend="gloo")
+        import collections
+
+        from glom_tpu_torch.parallel import collectives
+
+        out, staged = {}, {}
+        for i, (name, kw) in enumerate(cases):
+            before = collections.Counter(collectives.STAGED)
+            out[i] = DIST_CASES[name](rank=rank, device=device, **kw)
+            staged[i] = dict(collectives.STAGED - before)
+        out["staged"] = staged
+        q.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 - relayed to the parent, which fails the phase
+        q.put((rank, "err", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _dist_spawn(world: int, cases, device: str = "cuda:0") -> list:
+    """[(case, kwargs), ...] on `world` gloo ranks on `device` -> each
+    rank's {i: the i-th case's result, "staged": {i: the ops its gloo calls
+    staged through host memory}}. Raises with the failing ranks'
+    tracebacks."""
+    import os
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    results, errors = {}, []
+    with tempfile.TemporaryDirectory(prefix="glom_dist_") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_dist_child, args=(r, world, init, device, cases, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while len(results) + len(errors) < world:
+                try:
+                    rank, status, payload = q.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        errors.append(f"ranks exited {dead} or timed out")
+                        break
+                    continue
+                if status == "ok":
+                    results[rank] = payload
+                else:
+                    errors.append(f"rank {rank}:\n{payload}")
+        finally:
+            for p in procs:
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if errors:
+        raise AssertionError("a rank failed:\n" + "\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def _loop_launches(k):
+    return {"K1 fwd": k, "K1 fwd cat": k, "K2 fwd": k, "K1 bwd acc": k,
+            "K1 bwd acc cat": k, "K2 combine dq": k, "K2 combine dkv": k}
+
+
+def _per_op_launches(k, with_k2):
+    want = {"K1 fwd": 2 * k, "K1 fwd add": k, "K1 bwd": 2 * k, "K1 bwd add": k}
+    if with_k2:
+        want.update({"K2 fwd": k, "K2 bwd dq": k, "K2 bwd dkv": k})
+    return want
+
+
+def _full(counts_want):
+    return {key: counts_want.get(key, 0) for key in DIST_COUNTERS}
+
+
+def _case_dp2(rank, device, cfg_kw):
+    """imagenet224-dp8 at global batch 16 on 2 data ranks: the f32 first
+    step's all-reduced gradients against the single-process batch-16
+    step's; 3 bf16 steps against the single-device Trainer's losses; exact
+    launches a step (each rank's 8 on the loop)."""
+    import torch
+
+    from glom_tpu_torch.parallel.mesh import make_mesh
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    mesh, _ = make_mesh(MeshConfig(data=2), devices=[device] * 2, backend="gloo")
+    f32 = _dist_f32_grads(mesh, cfg, DIST_DP_BATCH, "none", dev, rank)
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=DIST_DP_BATCH, compute_dtype="bfloat16", use_pallas=True)
+    run = _dist_train(MeshConfig(data=2), cfg, tcfg, "none", dev, DIST_STEPS, SEED + 41,
+                      single=True)
+    tr = run.pop("trainer")
+    run.update(f32=f32, vjp_path=tr.vjp_path)
+    return run
+
+
+def _case_zero(rank, device, cfg_kw):
+    """The dp2 mesh at stages 0, 1, 2 and 2 with the quantized reduce: f32
+    steps (telemetry on, so the counters count); final params, losses,
+    optimizer-state bytes read from each rank's tensors, the records."""
+    import torch
+
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.checkpoint import named_leaves
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    out = {}
+    base_params = _dist_params(cfg, SEED)
+    finals = {}
+    for arm, kw in (("stage0", {}), ("stage1", {"zero_stage": 1}), ("stage2", {"zero_stage": 2}),
+                    ("stage2_quantized", {"zero_stage": 2, "quantized_reduce": True})):
+        tcfg = TrainConfig(batch_size=DIST_ZERO_BATCH, use_pallas=True,
+                           telemetry_level="scalars", learning_rate=1e-3, **kw)
+        run = _dist_train(MeshConfig(data=2), cfg, tcfg, "none", dev, DIST_STEPS, SEED + 42,
+                          params=base_params)
+        tr = run.pop("trainer")
+        state = [v for s_ in tr.state.optimizer.state.values() for v in s_.values()
+                 if torch.is_tensor(v)]
+        opt_bytes = sum(v.numel() * v.element_size() for v in state)
+        moment_bytes = sum(v.numel() * v.element_size() for v in state if v.dim())
+        g = tr.global_state()
+        if rank == 0:
+            finals[arm] = {nm: t.detach().clone() for nm, t in named_leaves(g.params)}
+        rec = run["records"][-1]
+        out[arm] = dict(losses=run["losses"], ms=run["ms"], opt_bytes=opt_bytes,
+                        moment_bytes=moment_bytes,
+                        record={k: rec.get(k) for k in (
+                            "zero_stage", "quantized_reduce", "opt_bytes_per_replica",
+                            "comm_bytes_per_step", "comm_reduce_bytes_per_step",
+                            "comm_gather_bytes_per_step", "comm_measured_bytes_per_step",
+                            "comm_measured_reduce_bytes_per_step",
+                            "comm_measured_gather_bytes_per_step", "comm_model_drift",
+                            "comm_measured_collective_count", "quant_rel_err", "grad_norm")})
+        del tr, g, run
+        torch.cuda.empty_cache()
+    if rank == 0:
+        for arm in ("stage1", "stage2", "stage2_quantized"):
+            errs = {nm: _dist_err(finals[arm][nm], finals["stage0"][nm])[1]
+                    for nm in finals["stage0"]}
+            out[arm]["params_err_over_max_vs_stage0"] = max(errs.values())
+    return out
+
+
+def _case_sp(rank, device, strategy, seq, cfg_kw):
+    """SP on `seq` ranks, dp 1: the f32 gradients of one step against the
+    single-device step's; then bf16 steps timed, with exact launches (K1
+    only: consensus is the shard body)."""
+    import torch
+
+    from glom_tpu_torch.parallel.mesh import make_mesh
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    mesh, _ = make_mesh(MeshConfig(seq=seq), devices=[device] * seq, backend="gloo")
+    f32 = _dist_f32_grads(mesh, cfg, DIST_SP_BATCH, strategy, dev, rank)
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=DIST_SP_BATCH, compute_dtype="bfloat16", use_pallas=True)
+    run = _dist_train(MeshConfig(seq=seq), cfg, tcfg, strategy, dev, DIST_STEPS, SEED + 43)
+    tr = run.pop("trainer")
+    run.update(f32=f32, sp_strategy=tr.sp_strategy, vjp_path=tr.vjp_path)
+    return run
+
+
+def _case_tp2(rank, device, cfg_kw):
+    """Hidden TP at model 2 on the flagship: K1 at f = 1024 a rank, K2 whole
+    on the per-op route; f32 gradients against the single device; bf16
+    steps timed with exact launches."""
+    import torch
+
+    from glom_tpu_torch.parallel.mesh import make_mesh
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    mesh, _ = make_mesh(MeshConfig(model=2), devices=[device] * 2, backend="gloo")
+    f32 = _dist_f32_grads(mesh, cfg, DIST_SP_BATCH, "none", dev, rank)
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=DIST_SP_BATCH, compute_dtype="bfloat16", use_pallas=True)
+    run = _dist_train(MeshConfig(model=2), cfg, tcfg, "none", dev, DIST_STEPS, SEED + 44)
+    tr = run.pop("trainer")
+    run.update(f32=f32, vjp_path=tr.vjp_path,
+               hidden_per_rank=int(tr.state.params.glom.bottom_up.w1.shape[-1]))
+    return run
+
+
+DIST_CASES = {"dp2": _case_dp2, "zero": _case_zero, "sp": _case_sp, "tp2": _case_tp2}
+
+
+def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
+                cli_preset: str = "imagenet224-dp8") -> dict:
+    """The dist_* phases and train_cli_distributed on `dev` (ranks spawned
+    on it too); returns each kernel's launches on their main-path runs
+    (every rank's counted steps and the world-1 steps), for the kernels
+    line's `dist_launches`."""
+    import collections
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.models.core import param_leaves
+    from glom_tpu_torch.parallel import collectives
+    from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.parallel.mesh import initialize_multihost
+    from glom_tpu_torch.train import Trainer, default_recon_index
+    from glom_tpu_torch.utils.config import TrainConfig
+    from glom_tpu_torch.utils.checkpoint import named_leaves
+    from glom_tpu_torch.utils.config import MeshConfig
+
+    k = default_recon_index(cfg.default_iters)
+    total = {key: 0 for key in DIST_COUNTERS}
+
+    def add(counts):
+        for key, v in counts.items():
+            total[key] += v
+
+    def p50(xs):
+        return statistics.median(xs[1:]) if len(xs) > 1 else xs[0]
+
+    # -- dist_world1_nccl: an NCCL group of one in this process ------------------
+    t0 = time.perf_counter()
+    tcfg = TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True)
+    params = _dist_params(cfg, SEED)
+    staged_before = collections.Counter(collectives.STAGED)
+    with tempfile.TemporaryDirectory(prefix="glom_nccl1_") as tmp:
+        nccl = "nccl" if dev.type == "cuda" else "gloo"
+        initialize_multihost(num_processes=1, process_id=0,
+                             init_method="file://" + os.path.join(tmp, "store"),
+                             device=dev, backend=nccl)
+        try:
+            dtr = DistributedTrainer(cfg, tcfg, MeshConfig(), devices=[dev], backend=nccl,
+                                     params=params)
+            backend = dist.get_backend()
+            single = Trainer(cfg, tcfg, params=params, device=dev)
+            batches = list(shapes_dataset(8, cfg.image_size, seed=SEED + 45,
+                                          num_batches=DIST_STEPS))
+            d_launch, s_launch, d_loss, s_loss = [], [], [], []
+            for b in batches:
+                for tr, ls, ln in ((dtr, d_loss, d_launch), (single, s_loss, s_launch)):
+                    _dist_counts(reset=True)
+                    ls.append(float(tr.step(b)["loss"]))
+                    ln.append(_dist_counts())
+            unequal = [nm for (nm, a), b_ in zip(named_leaves(dtr.state.params),
+                                                 param_leaves(single.state.params))
+                       if not torch.equal(a, b_)]
+            for c in d_launch:
+                add(c)
+            want = _full(_loop_launches(k))
+            emit("dist_world1_nccl", nvidia_smi=smi, backend=backend, batch=8,
+                 vjp_path=dtr.vjp_path, losses=d_loss, single_losses=s_loss,
+                 losses_bitwise=d_loss == s_loss, params_bitwise=not unequal,
+                 unequal_leaves=unequal, launches_per_step=d_launch,
+                 same_launches_as_trainer=d_launch == s_launch,
+                 exact_launches=all(c == want for c in d_launch),
+                 staged=dict(collectives.STAGED - staged_before),
+                 memory=dtr._memory_record(), seconds=time.perf_counter() - t0)
+            if d_loss != s_loss or unequal or d_launch != s_launch or any(
+                    c != want for c in d_launch) or backend != nccl:
+                raise AssertionError("dist_world1_nccl: the NCCL world-1 step differs from "
+                                     f"Trainer's: {unequal}, {d_loss} vs {s_loss}")
+            del dtr, single
+        finally:
+            dist.destroy_process_group()
+    cfg_kw = dict(dim=cfg.dim, levels=cfg.levels, image_size=cfg.image_size,
+                  patch_size=cfg.patch_size)
+    device = str(dev)
+
+    # -- dist_dp2, dist_zero, dist_sp (ring, ulysses), dist_tp2: one 2-rank spawn --
+    t0 = time.perf_counter()
+    res2 = _dist_spawn(2, [
+        ("dp2", {"cfg_kw": cfg_kw}), ("zero", {"cfg_kw": cfg_kw}),
+        ("sp", {"strategy": "ring", "seq": 2, "cfg_kw": cfg_kw}),
+        ("sp", {"strategy": "ulysses", "seq": 2, "cfg_kw": cfg_kw}),
+        ("tp2", {"cfg_kw": cfg_kw}),
+    ], device)
+    spawn2_s = time.perf_counter() - t0
+    staged = [r["staged"] for r in res2]
+    for r in res2:
+        r.update(dp2=r[0], zero=r[1], ring=r[2], ulysses=r[3], tp2=r[4])
+        for case in ("dp2", "ring", "ulysses", "tp2"):
+            for c in r[case]["launches"]:
+                add(c)
+    dp0 = res2[0]["dp2"]
+    worst, loss_rel, errs = dp0["f32"]
+    bf16_rel = max(abs(a - b) / abs(b) for a, b in zip(dp0["losses"], dp0["single_losses"]))
+    want_dp = _full(_loop_launches(k))
+    exact_dp = all(c == want_dp for r in res2 for c in r["dp2"]["launches"])
+    ok = (worst <= LOOP_F32_BAR and bf16_rel < 1e-2 and exact_dp
+          and dp0["vjp_path"] == LOOP_ROUTE[dev.type])
+    emit("dist_dp2", nvidia_smi=smi, backend="gloo", ranks_on=device, global_batch=16,
+         vjp_path=dp0["vjp_path"], f32_worst=worst, f32_loss_rel_err=loss_rel,
+         f32_err_over_max=errs, f32_bar=LOOP_F32_BAR, f32_bar_ratio=worst / LOOP_F32_BAR,
+         bf16_losses=dp0["losses"], single_losses=dp0["single_losses"],
+         bf16_worst_rel_loss=bf16_rel, bf16_bar=1e-2,
+         launches_per_step=[r["dp2"]["launches"] for r in res2], want_per_step=want_dp,
+         exact_launches=exact_dp,
+         step_ms=[r["dp2"]["ms"] for r in res2],
+         step_p50_ms=[p50(r["dp2"]["ms"]) for r in res2], staged=[st[0] for st in staged],
+         spawn_seconds=spawn2_s, ok=ok)
+    if not ok:
+        raise AssertionError("dist_dp2 failed its bars")
+
+    z0 = res2[0]["zero"]
+    zrows, zok = {}, True
+    for arm, row in z0.items():
+        rec = row["record"]
+        zrows[arm] = dict(row, opt_bytes_by_rank=[r["zero"][arm]["opt_bytes"] for r in res2],
+                          moment_bytes_by_rank=[r["zero"][arm]["moment_bytes"] for r in res2])
+        if arm == "stage0":
+            continue
+        # Each rank's Adam moments (read from its tensors) and the counted
+        # wire bytes against the layout's leaf-by-leaf schedule; the share
+        # of stage 0's moments and the drift from comm_volume_model beside.
+        want = _zero_expected(cfg, 2, rec["quantized_reduce"], stage=rec["zero_stage"])
+        moments_ok = all(r["zero"][arm]["moment_bytes"] == want["moment_bytes"] for r in res2)
+        counts_ok = (rec["comm_measured_reduce_bytes_per_step"] == want["reduce"]
+                     and rec["comm_measured_gather_bytes_per_step"] == want["gather"])
+        zrows[arm].update(expected=want, moments_as_laid_out=moments_ok,
+                          counters_equal_schedule=counts_ok,
+                          moment_share_of_stage0=row["moment_bytes"]
+                          / z0["stage0"]["moment_bytes"])
+        ok = moments_ok and counts_ok and rec["zero_stage"] in (1, 2)
+        if arm == "stage2_quantized":
+            close = max(abs(a - b) / abs(b) for a, b in
+                        zip(row["losses"], z0["stage0"]["losses"])) < 5e-2
+            zrows[arm]["losses_within_5e-2"] = close
+            ok = ok and close and rec["quantized_reduce"] is True
+        else:
+            ok = ok and row["params_err_over_max_vs_stage0"] <= LOOP_F32_BAR
+        zrows[arm]["ok"] = ok
+        zok = zok and ok
+    emit("dist_zero", nvidia_smi=smi, backend="gloo", global_batch=DIST_ZERO_BATCH,
+         steps=DIST_STEPS, dtype="float32", f32_bar=LOOP_F32_BAR, arms=zrows,
+         staged=[st[1] for st in staged], ok=zok)
+    if not zok:
+        raise AssertionError("dist_zero failed its bars")
+
+    # -- dist_sp: ring and Ulysses at seq 2 (above), halo at seq 4 (imagenet256-local) --
+    t0 = time.perf_counter()
+    res_h = _dist_spawn(4, [("sp", {"strategy": "halo", "seq": 4, "cfg_kw": halo_cfg})], device)
+    halo_s = time.perf_counter() - t0
+    want_sp = _full(_per_op_launches(k, with_k2=False))
+    sp_rows, sp_ok = {}, True
+    for name, res in (("ring", [r["ring"] for r in res2]),
+                      ("ulysses", [r["ulysses"] for r in res2]), ("halo", [r[0] for r in res_h])):
+        if name == "halo":
+            for r in res:
+                for c in r["launches"]:
+                    add(c)
+        worst, loss_rel, errs = res[0]["f32"]
+        exact = all(c == want_sp for r in res for c in r["launches"])
+        ok = worst <= TRAIN_F32_BAR and exact and res[0]["sp_strategy"] == name
+        sp_rows[name] = dict(ranks=len(res), sp_strategy=res[0]["sp_strategy"],
+                             vjp_path=res[0]["vjp_path"], f32_worst=worst,
+                             f32_loss_rel_err=loss_rel, f32_err_over_max=errs,
+                             f32_bar_ratio=worst / TRAIN_F32_BAR,
+                             bf16_losses=res[0]["losses"],
+                             step_p50_ms=[p50(r["ms"]) for r in res],
+                             launches_per_step=res[0]["launches"][-1], want_per_step=want_sp,
+                             exact_launches=exact, ok=ok)
+        sp_ok = sp_ok and ok
+    emit("dist_sp", nvidia_smi=smi, backend="gloo", batch=DIST_SP_BATCH, f32_bar=TRAIN_F32_BAR,
+         strategies=sp_rows, staged={"ring": [st[2] for st in staged],
+                                     "ulysses": [st[3] for st in staged],
+                                     "halo": [r["staged"][0] for r in res_h]},
+         halo_spawn_seconds=halo_s, ok=sp_ok)
+    if not sp_ok:
+        raise AssertionError("dist_sp failed its bars")
+
+    tp = [r["tp2"] for r in res2]
+    worst, loss_rel, errs = tp[0]["f32"]
+    want_tp = _full(_per_op_launches(k, with_k2=True))
+    exact_tp = all(c == want_tp for r in tp for c in r["launches"])
+    tp_ok = worst <= TRAIN_F32_BAR and exact_tp and (
+        tp[0]["hidden_per_rank"] == cfg.dim * cfg.mult // 2)
+    emit("dist_tp2", nvidia_smi=smi, backend="gloo", batch=DIST_SP_BATCH,
+         hidden_per_rank=tp[0]["hidden_per_rank"], vjp_path=tp[0]["vjp_path"],
+         f32_worst=worst, f32_loss_rel_err=loss_rel, f32_err_over_max=errs,
+         f32_bar=TRAIN_F32_BAR, f32_bar_ratio=worst / TRAIN_F32_BAR,
+         bf16_losses=tp[0]["losses"], step_p50_ms=[p50(r["ms"]) for r in tp],
+         launches_per_step=tp[0]["launches"][-1], want_per_step=want_tp, exact_launches=exact_tp,
+         staged=[st[4] for st in staged], ok=tp_ok)
+    if not tp_ok:
+        raise AssertionError("dist_tp2 failed its bars")
+
+    # -- train_cli_distributed: torch.distributed.run, 2 ranks on cuda:0 ----------
+    import subprocess
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="glom_dist_cli_") as tmp:
+        metrics, ck = os.path.join(tmp, "train.jsonl"), os.path.join(tmp, "ckpt")
+        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2", "--monitor-interval", "0.1", "-m", "glom_tpu_torch.train.cli", "--preset",
+                cli_preset, "--distributed", "--dist-backend", "gloo", "--device",
+                device, "--batch-size", str(DIST_DP_BATCH), "--log-every", "1"]
+        runs = []
+        for extra in (["--zero-stage", "2", "--steps", "4", "--checkpoint-every", "2",
+                       "--checkpoint-dir", ck, "--metrics-file", metrics,
+                       "--telemetry-level", "scalars"],
+                      ["--zero-stage", "2", "--steps", "6", "--checkpoint-every", "2",
+                       "--checkpoint-dir", ck, "--metrics-file", metrics, "--resume",
+                       "--telemetry-level", "scalars"],
+                      ["--check-parity", "--steps", "3"]):
+            t1 = time.perf_counter()
+            p = subprocess.run(base + extra, capture_output=True, text=True, timeout=600,
+                               cwd=os.path.dirname(os.path.abspath(__file__)))
+            p.seconds = time.perf_counter() - t1
+            runs.append(p)
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", metrics],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        with open(metrics) as fh:
+            recs = [json.loads(ln) for ln in fh]
+        steps = [r for r in recs if r.get("kind") == "train_step"]
+        ck_steps = sorted(int(n) for n in os.listdir(ck) if n.isdigit())
+    rcs = [p.returncode for p in runs]
+    mesh_line = [ln for ln in runs[0].stderr.splitlines() if ln.startswith("mesh ")]
+    parity_line = [ln for ln in runs[2].stdout.splitlines() if ln.startswith("parity:")]
+    ok = (rcs == [0, 0, 0] and "resumed from step 4" in runs[1].stderr and lint.returncode == 0
+          and [r["step"] for r in steps] == list(range(6)) and ck_steps == [2, 4, 6]
+          and all(math.isfinite(r["loss"]) and r["zero_stage"] == 2 for r in steps))
+    emit("train_cli_distributed", nvidia_smi=smi, exit_codes=rcs, mesh_line=mesh_line,
+         resumed="resumed from step 4" in runs[1].stderr, lint_rc=lint.returncode,
+         records=len(steps), losses=[r["loss"] for r in steps],
+         steps=[r["step"] for r in steps], checkpoint_steps=ck_steps,
+         step_p50_ms=[r.get("step_time_p50_ms") for r in steps][-1:],
+         comm_model_drift=[r.get("comm_model_drift") for r in steps][-1:],
+         parity=parity_line, run_seconds=[p.seconds for p in runs],
+         staged="none: a data-parallel mesh issues no point-to-point",
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        tails = [(p.stderr[-2000:]) for p in runs] + [lint.stdout[-500:]]
+        raise AssertionError(f"train_cli_distributed: {rcs}: {tails}")
+    return dist_kernel_launches(total)
 
 
 def emit(phase: str, **kw) -> None:
@@ -3733,6 +4404,11 @@ def main() -> int:
     del state128, img128
     work.cleanup()
 
+    # -- training across ranks: world 1 over NCCL, 2 and 4 ranks over gloo -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches = dist_phases(cfg, dev, smi)
+
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
                                                  "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
@@ -3826,6 +4502,9 @@ def main() -> int:
         # dispatches in serve_elastic's main-path run).
         if kd["name"] in elastic_launches:
             kd["elastic_launches"] = elastic_launches[kd["name"]]
+        # ... and across ranks (every rank's counted steps of the dist_*
+        # phases and the world-1 NCCL steps).
+        kd["dist_launches"] = dist_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -132,16 +132,27 @@ struct HiddenEpilogue {
                              int col0, int t, uint32_t* stage, const sm90::Shape& s) const {
     const bf16* bias = b1 + (size_t)g * s.N + col0;
     const int rows = s.row_end - abs_row, cols = s.N - col0;
-    auto z = [&](float v, int c) { return v + __bfloat162float(bias[c]); };  // + b1, in f32
+    // + b1, in f32, for the pair (c, c + 1). store_half evaluates every
+    // column of the tile and masks only its stores, so in a tile narrower
+    // than BN (the last, where f is not a multiple of BN) the pairs past
+    // `cols` read the bias at the tile's last pair instead of past its end
+    // (in the last group, past its buffer); their values are not stored.
+    // c is even and cols a multiple of 64, so a stored pair reads its own.
+    auto b = [&](int c) {
+      const int cc = min(c, cols - 2);
+      return make_float2(__bfloat162float(bias[cc]), __bfloat162float(bias[cc + 1]));
+    };
     if constexpr (SAVE_PRE)
       sm90::store_half(acc, t, stage, pre + ((size_t)g * M + abs_row) * s.N + col0, s.N, rows,
                        cols, [&](int, int c, float v0, float v1) {
-                         return __floats2bfloat162_rn(z(v0, c), z(v1, c + 1));
+                         const float2 z = b(c);
+                         return __floats2bfloat162_rn(v0 + z.x, v1 + z.y);
                        });
     if constexpr (STORE_H)
       sm90::store_half(acc, t, stage, h + ((size_t)g * R + rel_row) * s.N + col0, s.N, rows,
                        cols, [&](int, int c, float v0, float v1) {
-                         return __floats2bfloat162_rn(gelu_tanh(z(v0, c)), gelu_tanh(z(v1, c + 1)));
+                         const float2 z = b(c);
+                         return __floats2bfloat162_rn(gelu_tanh(v0 + z.x), gelu_tanh(v1 + z.y));
                        });
   }
 };
@@ -154,10 +165,13 @@ struct OutEpilogue {
   __device__ void operator()(const float (&acc)[sm90::ACC], int g, int abs_row, int, int col0,
                              int t, uint32_t* stage, const sm90::Shape& s) const {
     const bf16* bias = b2 + (size_t)g * s.N + col0;
+    const int cols = s.N - col0;
+    // The bias at the tile's last pair past `cols` (see HiddenEpilogue).
     sm90::store_half(acc, t, stage, out + ((size_t)g * M + abs_row) * s.N + col0, s.N,
-                     s.row_end - abs_row, s.N - col0, [&](int, int c, float v0, float v1) {
-                       return __floats2bfloat162_rn(v0 + __bfloat162float(bias[c]),
-                                                    v1 + __bfloat162float(bias[c + 1]));
+                     s.row_end - abs_row, cols, [&](int, int c, float v0, float v1) {
+                       const int cc = min(c, cols - 2);
+                       return __floats2bfloat162_rn(v0 + __bfloat162float(bias[cc]),
+                                                    v1 + __bfloat162float(bias[cc + 1]));
                      });
   }
 };

@@ -56,7 +56,7 @@ class Glom(nn.Module):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (sharded forward) is not ported yet: ROADMAP queue A item 8"
+                "mesh= (sharded forward) is not ported yet: ROADMAP queue A item 8b"
             )
         device = resolve_device(device)
         self.config = GlomConfig(

@@ -195,7 +195,7 @@ def glom_forward(
         if consensus_fn is not None:
             raise NotImplementedError(
                 "use_pallas with a custom consensus_fn is the sharded route "
-                "(ROADMAP queue A item 8)"
+                "(ROADMAP queue A item 8b)"
             )
         return _glom_forward_fused(
             params, img, cfg, iters=T, levels_in=levels, return_all=return_all,

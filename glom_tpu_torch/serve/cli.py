@@ -18,7 +18,7 @@ Params come from the port's `init_glom` with a `torch.Generator` seeded 0.
 With `--elastic` the fleet starts at `--min-engines` and every replica the
 autoscaler spawns is built on `--device` (on one card the replicas share
 it). The serve mesh (`--mesh-data`, `--mesh-seq`) is not ported: those
-flags raise NotImplementedError naming ROADMAP queue A item 8.
+flags raise NotImplementedError naming ROADMAP queue A item 8b.
 
 Exit codes: 0 when every request was served, 1 when any failed or was
 shed (or none was served), 2 for a bad command line.

@@ -39,7 +39,7 @@ into stamped "serve" records.
 Continuation hops (`ServeConfig.max_continuations > 0`) are the
 batcher's (serve/batcher.DynamicBatcher): the engine answers each hop as a
 warm dispatch with the remaining `auto_budget`. Not ported yet: meshes
-(ROADMAP queue A item 8); asking for one raises NotImplementedError.
+(ROADMAP queue A item 8b); asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -133,7 +133,7 @@ class InferenceEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "InferenceEngine(mesh=...) is not ported yet: ROADMAP queue A item 8"
+                "InferenceEngine(mesh=...) is not ported yet: ROADMAP queue A item 8b"
             )
         self.cfg = cfg
         self.scfg = scfg = scfg if scfg is not None else ServeConfig()

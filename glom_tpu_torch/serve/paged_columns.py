@@ -167,7 +167,7 @@ class PagedColumnPool:
     `device` is the engine's (the buffer lives there); the injectable
     `writer` receives the stamped page events through the writer-else-
     flight path. glom_tpu's `pool_sharding` (a pool sharded over a mesh)
-    comes with the meshes, ROADMAP queue A item 8."""
+    comes with the meshes, ROADMAP queue A item 8b."""
 
     def __init__(self, cfg, scfg, *, writer=None, name: str = "engine0", device="cuda"):
         if scfg.page_pool_pages < 1:

@@ -1,8 +1,8 @@
 """Training diagnostics computed on the device, beside the step.
 
 Counterpart of the part of `glom_tpu/telemetry/diagnostics.py` that the
-single-device train step calls: the telemetry-level resolution, the
-grad/update/param norms and the NaN/Inf guard. The guard is one scalar: a
+train steps call: the telemetry-level resolution, the grad/update/param
+norms, the NaN/Inf guard and the quantized reduce's error probe. The guard is one scalar: a
 non-finite gradient anywhere makes the grad norm non-finite, so
 `isfinite(loss + grad_norm)` covers every leaf. Under the "skip" policy,
 `guard_update` keeps the previous value of every parameter and optimizer
@@ -63,3 +63,11 @@ def scalar_taps(*, loss, grad_norm, updates, params) -> dict:
         "param_norm": global_norm(params),
         "nonfinite": nonfinite_flag(loss, grad_norm),
     }
+
+
+def quantization_error(grads: List[torch.Tensor], dq_grads: List[torch.Tensor]) -> torch.Tensor:
+    """Relative L2 error of one quantize-dequantize wire hop over the whole
+    gradient list (glom_tpu's probe of the quantized reduce's accuracy)."""
+    err_sq = sum(torch.sum((g.float() - q.float()) ** 2) for g, q in zip(grads, dq_grads))
+    ref_sq = sum(torch.sum(g.float() ** 2) for g in grads)
+    return torch.sqrt(err_sq) / (torch.sqrt(ref_sq) + 1e-12)

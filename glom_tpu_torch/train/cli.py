@@ -1,24 +1,38 @@
 """Command-line trainer: `python -m glom_tpu_torch.train.cli --preset cifar10 ...`
 
-Counterpart of `glom_tpu/train/cli.py`, on one device: presets, the JSONL
-metrics stream, manifest-verified checkpoints and resume, the restart
-supervisor (`--supervise`) and the crash flight recorder. The flags are
-glom_tpu's, plus `--device` (default `cuda`; `cpu` runs the kernels' plain
-versions, as the tests do). Without a card and without `--device cpu` it
-raises: it never falls back to the CPU.
+Counterpart of `glom_tpu/train/cli.py`: presets, the JSONL metrics
+stream, manifest-verified checkpoints and resume, the restart supervisor
+(`--supervise`), the crash flight recorder, and training across ranks.
+The flags are glom_tpu's, plus `--device` (default `cuda`; `cpu` runs the
+kernels' plain versions, as the tests do) and `--dist-backend`. Without a
+card and without `--device cpu` it raises: it never falls back to the CPU.
+
+`--distributed` runs DistributedTrainer on the preset's mesh scaled to
+the world size (ranks past the mesh widen its data axis), one process a
+rank, under `python -m
+torch.distributed.run --nproc-per-node N -m glom_tpu_torch.train.cli
+--distributed ...`; launched alone it is one rank, its group over a file
+store in a temporary directory. Each rank runs on cuda:LOCAL_RANK for `--device cuda`,
+on the named device for any other (`--device cuda:0` puts every rank on
+that card; `--device cpu` on the CPU), over `--dist-backend` (nccl for a
+card, gloo for the CPU by default). Rank 0 writes the metrics and the
+checkpoints; every rank restores. `--check-parity` trains the same
+batches on one device on rank 0 and exits 1 when the worst relative loss
+deviation reaches 1e-2. `--zero-stage` and `--quantized-reduce` shard the
+update across the data ranks (one device resolves them to 0 and off).
 
 Flags whose machinery is not ported raise NotImplementedError naming the
-ROADMAP queue A item that brings it: the parallel paths (`--distributed`,
-`--check-parity`, `--zero-stage` 1 or 2, `--quantized-reduce`; item 8),
-the pod coordinator and the backend watchdog (`--pod-*`,
-`--watchdog-interval`; item 9), and trace capture (`--profile-dir`,
-`--trace-steps`, `--telemetry-level full`; item 9).
+ROADMAP queue A item that brings it: the pod coordinator, the backend
+watchdog and `--supervise` across ranks (`--pod-*`, `--watchdog-interval`;
+item 9), and trace capture (`--profile-dir`, `--trace-steps`,
+`--telemetry-level full` on one device; item 9).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 _NOT_PORTED = "{} is not ported yet: ROADMAP queue A item {}"
@@ -60,11 +74,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--zero-stage", type=int, choices=[0, 1, 2], default=None,
-        help="ZeRO sharded weight update (1 and 2: not ported, ROADMAP item 8)",
+        help="ZeRO sharded weight update over the 'data' ranks: 1 shards the "
+        "optimizer state, 2 also the gradient accumulator (one device: 0)",
     )
     p.add_argument(
         "--quantized-reduce", action="store_true",
-        help="int8 block-scaled quantized reduce (not ported, ROADMAP item 8)",
+        help="EXPERIMENTAL int8 block-scaled quantized-reduce emulation on the "
+        "ZeRO reduce-scatter (needs --zero-stage >= 1 across ranks)",
     )
     p.add_argument(
         "--telemetry-level", choices=["off", "scalars", "full"], default=None,
@@ -142,9 +158,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="flight-recorder ring capacity (default 256)",
     )
     p.add_argument("--distributed", action="store_true",
-                   help="the preset's mesh (not ported, ROADMAP item 8)")
+                   help="DistributedTrainer on the preset's mesh scaled to the world "
+                   "size (launch under python -m torch.distributed.run)")
     p.add_argument("--check-parity", action="store_true",
-                   help="sharded vs single-device losses (not ported, ROADMAP item 8)")
+                   help="train the same batches sharded and on one device; exit 1 "
+                   "when the worst relative loss deviation reaches 1e-2")
+    p.add_argument(
+        "--dist-backend", choices=["nccl", "gloo"], default=None,
+        help="torch.distributed backend of --distributed (default nccl on a card, "
+        "gloo on the CPU; ranks sharing one card need gloo)",
+    )
     p.add_argument(
         "--debug-nans", action="store_true",
         help="torch.autograd anomaly detection with NaN checks in the backward",
@@ -155,16 +178,15 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Flags whose machinery is not ported: raise, never fall back."""
     refusals = (
-        ("--distributed", args.distributed, 8),
-        ("--check-parity", args.check_parity, 8),
-        ("--zero-stage 1 and 2", bool(args.zero_stage), 8),
-        ("--quantized-reduce", args.quantized_reduce, 8),
+        ("--supervise across ranks (the gang coordinator)",
+         args.supervise is not None and (args.distributed or args.check_parity), 9),
         ("--pod-index/--pod-count/--pod-dir",
          any(a is not None for a in (args.pod_index, args.pod_count, args.pod_dir)), 9),
         ("--watchdog-interval", args.watchdog_interval > 0, 9),
         ("--profile-dir", args.profile_dir is not None, 9),
         ("--trace-steps", args.trace_steps is not None, 9),
-        ("--telemetry-level full", args.telemetry_level == "full", 9),
+        ("--telemetry-level full on one device",
+         args.telemetry_level == "full" and not args.distributed, 9),
     )
     for flag, asked, item in refusals:
         if asked:
@@ -209,6 +231,10 @@ def main(argv=None) -> int:
         overrides["nonfinite_policy"] = args.nonfinite_policy
     if args.seed is not None:
         overrides["seed"] = args.seed
+    if args.zero_stage is not None:
+        overrides["zero_stage"] = args.zero_stage
+    if args.quantized_reduce:
+        overrides["quantized_reduce"] = True
     if overrides:
         tcfg = dataclasses.replace(tcfg, **overrides)
     cfg = preset.model
@@ -225,11 +251,16 @@ def main(argv=None) -> int:
         fr = FlightRecorder(args.flight_recorder, capacity=args.flight_events)
         fr.install_process_hooks()
         set_global_flight_recorder(fr)
-    writer = MetricsWriter(args.metrics_file, echo=True, tensorboard_dir=args.tensorboard)
+    # Across ranks only rank 0 writes the metrics (RANK is torchrun's).
+    rank0 = not (args.distributed or args.check_parity) or int(os.environ.get("RANK", 0)) == 0
+    writer = (MetricsWriter(args.metrics_file, echo=True, tensorboard_dir=args.tensorboard)
+              if rank0 else MetricsWriter(None, echo=False))
     anomaly_mode = torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True, check_nan=True)
     try:
+        if args.distributed or args.check_parity:
+            return _train_distributed(args, preset, cfg, tcfg, writer, device)
         return _train_body(args, cfg, tcfg, writer, device)
     finally:
         torch.autograd.set_detect_anomaly(*anomaly_mode)
@@ -347,6 +378,131 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
         if args.prefetch > 0:
             data.close()  # stop the worker; its span rollups reach the writer
     return 0
+
+
+def _train_distributed(args, preset, cfg, tcfg, writer, device) -> int:
+    """--distributed / --check-parity: this process is one rank."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from glom_tpu_torch.data import gaussian_dataset, shapes_dataset
+    from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.parallel.mesh import initialize_multihost, rank_device
+
+    if args.data_dir is not None:
+        from glom_tpu_torch.data import file_dataset
+
+        def make_data(batch_size, image_size, seed=0):
+            return file_dataset(args.data_dir, batch_size, image_size, seed=seed)
+    else:
+        make_data = shapes_dataset if args.data == "shapes" else gaussian_dataset
+
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    # --device cuda: each rank on cuda:LOCAL_RANK; a named device: every rank there.
+    devices = None if str(args.device) == "cuda" else [str(device)] * world
+    store = None
+    if "RANK" not in os.environ and not dist.is_initialized():
+        # Launched without torch.distributed.run: one rank, whose group this
+        # process brings up over a file store (glom_tpu's single host).
+        store = tempfile.TemporaryDirectory(prefix="glom_dist_")
+        initialize_multihost(num_processes=1, process_id=0,
+                             init_method="file://" + os.path.join(store.name, "store"),
+                             backend=args.dist_backend, device=rank_device(devices, rank=0))
+    scaled = preset.scaled_to(world)
+    mesh = scaled.mesh
+    if mesh.num_devices < world:
+        # More ranks than the preset's mesh: the data axis, the elastic one,
+        # takes them (glom_tpu leaves the extra devices unused; a process
+        # rank cannot sit out the group's collectives).
+        if world % (mesh.seq * mesh.model) or tcfg.batch_size % (world // (mesh.seq * mesh.model)):
+            raise SystemExit(f"{world} ranks do not fit the mesh {mesh.shape} at batch "
+                             f"{tcfg.batch_size}")
+        scaled = dataclasses.replace(scaled, mesh=dataclasses.replace(
+            mesh, data=world // (mesh.seq * mesh.model), num_slices=1))
+    print(f"mesh {scaled.mesh.shape} (axes data/seq/model), sp={scaled.sp_strategy}",
+          file=sys.stderr)
+    trainer = None
+    try:
+        trainer = DistributedTrainer(
+            cfg, tcfg, scaled.mesh, sp_strategy=scaled.sp_strategy, metrics_writer=writer,
+            devices=devices, backend=args.dist_backend,
+        )
+        return _run_ranks(args, cfg, tcfg, writer, trainer, make_data)
+    finally:
+        if trainer is not None and trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if store is not None:
+            store.cleanup()
+
+
+def _run_ranks(args, cfg, tcfg, writer, trainer, make_data) -> int:
+    import torch.distributed as dist
+
+    from glom_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    if args.check_parity:
+        data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed)
+        h2 = trainer.fit(data, num_steps=args.steps, log_every=args.log_every)
+        worst = [None]
+        if rank == 0:
+            single = Trainer(cfg, tcfg, device=trainer.device)
+            h1 = single.fit(make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed),
+                            num_steps=args.steps, log_every=args.log_every)
+            worst[0] = max(abs(a["loss"] - b["loss"]) / max(abs(a["loss"]), 1e-9)
+                           for a, b in zip(h1, h2))
+            print(f"parity: worst relative loss deviation = {worst[0]:.2e}")
+        dist.broadcast_object_list(worst, src=0)
+        return 0 if worst[0] < 1e-2 else 1
+
+    data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed)
+    ckpt = None
+    start_step = 0
+    if args.checkpoint_dir:
+        from glom_tpu_torch.telemetry import schema
+        from glom_tpu_torch.utils.checkpoint import CheckpointManager
+
+        if rank == 0:
+            ckpt = CheckpointManager(args.checkpoint_dir, metrics_writer=writer,
+                                     max_to_keep=args.checkpoint_keep)
+        if args.resume:
+            restored = trainer.restore_checkpoint(args.checkpoint_dir, manager=ckpt)
+            if restored is not None:
+                start_step = restored
+                writer.write(schema.stamp(
+                    {"action": "resume-from-checkpoint", "step": int(start_step)},
+                    kind="recovery",
+                ))
+                print(f"resumed from step {start_step}", file=sys.stderr)
+    remaining = args.steps - start_step
+    if remaining <= 0:
+        print("nothing to do (already past --steps)", file=sys.stderr)
+        return 0
+    if args.prefetch > 0:
+        from glom_tpu_torch.data import prefetch_to_device
+
+        data = prefetch_to_device(data, size=args.prefetch, device=trainer.device,
+                                  metrics_writer=writer if rank == 0 else None)
+    done = 0
+    try:
+        while done < remaining:
+            span = (min(args.checkpoint_every, remaining - done) if args.checkpoint_dir
+                    else remaining)
+            trainer.fit(data, num_steps=span, log_every=args.log_every)
+            done += span
+            if args.checkpoint_dir:
+                trainer.save_checkpoint(ckpt, start_step + done)
+        if ckpt:
+            ckpt.wait()
+    finally:
+        if args.prefetch > 0:
+            data.close()
+    return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

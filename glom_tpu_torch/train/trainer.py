@@ -16,10 +16,17 @@ at the flagship trains through the whole-loop VJP ("fused_loop"), and with
 `grad_accum=None` a batch that misses it is split into the fewest
 power-of-two microbatches that reach it. `fit_loop` writes glom_tpu's
 record stream: schema-stamped "train_step" records, the host span rollups
-and the anomaly records, to a metrics writer or the flight recorder. Not
-ported yet, and refused with the ROADMAP item that brings them: ZeRO
-stages, the quantized reduce and meshes (queue A item 8); trace capture,
-the memory probe and per-level agreement at telemetry "full" (item 9).
+and the anomaly records, to a metrics writer or the flight recorder.
+
+One device has no replica to shard over: `resolve_zero_stage` and
+`resolve_quantized_reduce` (glom_tpu's single resolution sources) give 0
+and off at dp = 1, so a single-device step runs them as stage 0 without
+the quantized hop, as glom_tpu's does. The ZeRO stages and the quantized
+reduce run across ranks in `parallel/manual.py`. glom_tpu's GSPMD
+`zero_shardings` has no counterpart (there is no GSPMD here) and raises.
+Not ported yet, and refused with the ROADMAP item that brings them: trace
+capture, the memory probe, per-level agreement at telemetry "full" and the
+collective timing (queue A item 9).
 """
 
 from __future__ import annotations
@@ -144,11 +151,14 @@ def pinned_grad_accum(tcfg: TrainConfig) -> int:
     return accum
 
 
-def accumulate_grads(loss_fn, params, img, noise, accum: int):
+def accumulate_grads(loss_fn, params, img, noise, accum: int, grad_transform=None):
     """Exact microbatch gradient accumulation with glom_tpu's STRIDED split
     (microbatch i takes rows i, i + accum, ...): the mean of the
     microbatch means equals the full-batch loss and gradient. Returns
-    (loss, grads) with grads in `param_leaves(params)` order."""
+    (loss, grads) with grads in `param_leaves(params)` order.
+    `grad_transform` (glom_tpu's ZeRO stage-2 hook) maps each
+    microbatch's gradient list before it is accumulated, so the
+    accumulator holds only what it returns (the rank's shards)."""
     leaves = param_leaves(params)
     imgs = img.reshape(-1, accum, *img.shape[1:]).transpose(0, 1)
     noises = noise.reshape(-1, accum, *noise.shape[1:]).transpose(0, 1)
@@ -156,6 +166,8 @@ def accumulate_grads(loss_fn, params, img, noise, accum: int):
     for mi, mn in zip(imgs, noises):
         loss = loss_fn(params, mi.contiguous(), mn.contiguous())
         g = torch.autograd.grad(loss, leaves)
+        if grad_transform is not None:
+            g = grad_transform(list(g))
         grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
     if accum == 1:
@@ -203,17 +215,90 @@ def resolve_training_route(
     return accum, path
 
 
+def resolve_zero_stage(tcfg: TrainConfig, dp: int) -> int:
+    """The effective ZeRO stage (glom_tpu's single resolution source, which
+    every trainer stamps): dp == 1 has nothing to shard and resolves to 0
+    silently."""
+    if tcfg.zero_stage not in (0, 1, 2):
+        raise ValueError(
+            f"zero_stage={tcfg.zero_stage!r}: must be 0 (replicated), "
+            "1 (sharded optimizer state), or 2 (+ sharded grad accumulator)"
+        )
+    return 0 if dp <= 1 else tcfg.zero_stage
+
+
+def resolve_quantized_reduce(tcfg: TrainConfig, dp: int) -> bool:
+    """The effective quantized-reduce flag: dp == 1 has no cross-replica
+    reduction to carry the wire hop, so it resolves off (glom_tpu's)."""
+    return bool(tcfg.quantized_reduce) and dp > 1
+
+
 def _refuse_unported(tcfg: TrainConfig, **kw) -> None:
-    asks = {
-        "zero_stage >= 1": tcfg.zero_stage != 0 or kw.get("zero_stage", 0) != 0,
-        "zero_shardings": kw.get("zero_shardings") is not None,
-        "quantized_reduce": bool(tcfg.quantized_reduce or kw.get("quantized_reduce")),
-    }
-    for what, asked in asks.items():
-        if asked:
-            raise NotImplementedError(f"{what} {_NOT_PORTED.format(8)}")
+    if kw.get("zero_shardings") is not None:
+        raise NotImplementedError(
+            "zero_shardings (glom_tpu's GSPMD ZeroShardings) has no counterpart: "
+            "the port's ZeRO stages run across ranks in parallel/manual.py "
+            "(DistributedTrainer)"
+        )
     if tcfg.collective_timing != "off":
         raise NotImplementedError(f"collective_timing {_NOT_PORTED.format(9)}")
+
+
+def apply_update(
+    state: TrainState,
+    leaves: list,
+    grads: list,
+    metrics: dict,
+    *,
+    lr,
+    level: str,
+    tcfg: TrainConfig,
+    with_grad_norm: bool,
+    norm=diag.global_norm,
+) -> dict:
+    """One optimizer update of `leaves` (the optimizer's parameters) by
+    `grads` at the scheduled rate, in place, with the grad norm and, under
+    telemetry, the scalar taps and the NaN/Inf guard; returns `metrics`
+    with those added. `norm` computes a global norm of a list shaped like
+    `leaves` (the distributed step passes one that sums over the shards
+    of the tensor-parallel leaves)."""
+    loss = metrics["loss"]
+    grad_norm = norm(grads) if with_grad_norm or level != "off" else None
+    if with_grad_norm:
+        metrics["grad_norm"] = grad_norm
+    opt = state.optimizer
+    if level != "off":
+        old = [t.detach().clone() for t in leaves]
+        old_state = [t.clone() for t in _state_tensors(opt)]
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    for group in opt.param_groups:
+        group["lr"] = lr(state.step) if callable(lr) else lr
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    if level != "off":
+        with torch.no_grad():
+            new = [t.detach() for t in leaves]
+            taps = {
+                "grad_norm": grad_norm,
+                "update_norm": norm([n - o for n, o in zip(new, old)]),
+                "param_norm": norm(new),
+                "nonfinite": diag.nonfinite_flag(loss, grad_norm),
+            }
+            nonfinite = taps.pop("nonfinite")
+            if tcfg.nonfinite_policy == "skip":
+                for t, v in zip(new, diag.guard_update(nonfinite, new, old)):
+                    t.copy_(v)
+                cur = _state_tensors(opt)
+                if not old_state:  # the first step made the state: its
+                    # "before" is all zeros, which Adam reads as fresh
+                    old_state = [torch.zeros_like(t) for t in cur]
+                for t, v in zip(cur, diag.guard_update(nonfinite, cur, old_state)):
+                    t.copy_(v)
+                metrics["skipped_nonfinite"] = nonfinite.to(torch.int32)
+            metrics.update(taps)
+            metrics["nonfinite_step"] = nonfinite.to(torch.int32)
+    return metrics
 
 
 def make_train_step(
@@ -234,10 +319,10 @@ def make_train_step(
     The returned function carries `.grad_accum` and `.vjp_path`.
     scan_only=True keeps the step off the whole-loop VJP (glom_tpu's
     argument), so its backward is the per-iteration kernels' at any batch."""
-    _refuse_unported(
-        tcfg, zero_stage=zero_stage, zero_shardings=zero_shardings,
-        quantized_reduce=quantized_reduce,
-    )
+    _refuse_unported(tcfg, zero_shardings=zero_shardings)
+    # One device: the stage resolves to 0 and the quantized reduce off, as
+    # glom_tpu's Trainer resolves them (the resolution validates the stage).
+    resolve_zero_stage(tcfg, 1)
     if tcfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"compute_dtype={tcfg.compute_dtype!r}: must be 'float32' or 'bfloat16'"
@@ -269,42 +354,11 @@ def make_train_step(
         noise = tcfg.noise_std * torch.randn(
             img.shape, generator=generator, device=img.device, dtype=img.dtype
         )
-        leaves = param_leaves(state.params)
         loss, grads = accumulate_grads(loss_of, state.params, img, noise, grad_accum)
-        metrics = {"loss": loss, "step": state.step}
-        grad_norm = diag.global_norm(grads) if with_grad_norm or level != "off" else None
-        if with_grad_norm:
-            metrics["grad_norm"] = grad_norm
-        opt = state.optimizer
-        if level != "off":
-            old = [t.detach().clone() for t in leaves]
-            old_state = [t.clone() for t in _state_tensors(opt)]
-        for p, g in zip(leaves, grads):
-            p.grad = g
-        for group in opt.param_groups:
-            group["lr"] = lr(state.step) if callable(lr) else lr
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        if level != "off":
-            with torch.no_grad():
-                new = [t.detach() for t in leaves]
-                taps = diag.scalar_taps(
-                    loss=loss, grad_norm=grad_norm,
-                    updates=[n - o for n, o in zip(new, old)], params=new,
-                )
-                nonfinite = taps.pop("nonfinite")
-                if tcfg.nonfinite_policy == "skip":
-                    for t, v in zip(new, diag.guard_update(nonfinite, new, old)):
-                        t.copy_(v)
-                    cur = _state_tensors(opt)
-                    if not old_state:  # the first step made the state: its
-                        # "before" is all zeros, which Adam reads as fresh
-                        old_state = [torch.zeros_like(t) for t in cur]
-                    for t, v in zip(cur, diag.guard_update(nonfinite, cur, old_state)):
-                        t.copy_(v)
-                    metrics["skipped_nonfinite"] = nonfinite.to(torch.int32)
-                metrics.update(taps)
-                metrics["nonfinite_step"] = nonfinite.to(torch.int32)
+        metrics = apply_update(
+            state, param_leaves(state.params), grads, {"loss": loss, "step": state.step},
+            lr=lr, level=level, tcfg=tcfg, with_grad_norm=with_grad_norm,
+        )
         return state._replace(step=state.step + 1), metrics
 
     train_step.grad_accum = grad_accum

@@ -220,7 +220,8 @@ class CheckpointManager:
     metrics stream. A save at a step at or below the newest committed one
     is declined (returns False), as Orbax declines it. `max_to_keep`
     newest steps are kept. `pod_peers` (the pod's reconciled restore) is
-    not ported (ROADMAP queue A items 8 and 9)."""
+    not ported (ROADMAP queue A item 9: the pod coordinator); a distributed
+    run's checkpoint is the global state (DistributedTrainer.save_checkpoint)."""
 
     def __init__(
         self,
@@ -234,7 +235,7 @@ class CheckpointManager:
         if pod_peers:
             raise NotImplementedError(
                 "CheckpointManager(pod_peers=...) is not ported yet: ROADMAP "
-                "queue A items 8 and 9"
+                "queue A item 9"
             )
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep {max_to_keep} must be >= 1")

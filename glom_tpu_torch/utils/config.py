@@ -2,9 +2,8 @@
 
 Counterpart of `glom_tpu/utils/config.py`: `GlomConfig`, `MeshConfig` and
 `TrainConfig` field for field, and the part of `ServeConfig` that the
-port's serving routes read. `MeshConfig` is data only here: the presets
-carry it, and the port's parallel paths (ROADMAP queue A item 8) will
-read it. The port keeps its own copy because the reference module pulls in
+port's serving routes read. `MeshConfig` lays the ranks of the port's
+parallel paths out (`glom_tpu_torch.parallel.mesh`). The port keeps its own copy because the reference module pulls in
 JAX.
 """
 
@@ -108,7 +107,7 @@ class ServeConfig:
     ladder, the session column cache, engine rejoin, request tracing and
     SLO classes, and the elastic fleet (serve/elastic.py: the autoscaler's
     policy, warm-pool spares and drained-husk retention). The reference's
-    serve-mesh fields (ROADMAP queue A item 8) are not here."""
+    serve-mesh fields (ROADMAP queue A item 8b) are not here."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
@@ -205,7 +204,7 @@ class ServeConfig:
     phase_split: bool = True
     # How a sharded paged dispatch gathers pool pages: kept for the
     # reference's field set and checks; the serve mesh that reads it is
-    # ROADMAP queue A item 8.
+    # ROADMAP queue A item 8b.
     page_gather: str = "auto"
     # Engine rejoin: a dead engine of a multi-engine batcher serves again
     # after rejoin_threshold consecutive successful probation dispatches,
@@ -218,7 +217,7 @@ class ServeConfig:
     trace_requests: bool = True
     # Per-collective wall time: a single-device engine has no collectives,
     # so any mode resolves to "off" there, with a warning (the meshes are
-    # ROADMAP queue A item 8).
+    # ROADMAP queue A item 8b).
     collective_timing: str = "off"
     collective_timing_interval: int = 16
     # Elastic serving (serve/elastic.py): elastic=True runs an Autoscaler
@@ -503,8 +502,8 @@ class TrainConfig:
     remat: bool = False
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core training
     use_pallas: bool = False  # True: the fused kernel route (name kept)
-    # Sharded weight update and quantized reduce: multi-device only, not
-    # ported yet (ROADMAP queue A item 8); the trainer refuses them.
+    # Sharded weight update and quantized reduce: across data ranks
+    # (parallel/manual.py); one device resolves them to 0 and off.
     zero_stage: int = 0
     quantized_reduce: bool = False
     # "off" | "scalars" (grad/update/param norms + the NaN/Inf guard) |

@@ -11,9 +11,10 @@ Counterpart of `glom_tpu/utils/metrics.py`. The FLOP model is glom_tpu's:
 A "column-iter" is one iteration's update of all n*L level vectors of one
 image. MFU divides the model's FLOP rate by the card's published bf16
 dense peak (NVIDIA's H100 data sheet); a card not in PEAK_FLOPS gives None.
-The collective-traffic model (`comm_volume_model`) and the sharded
-per-replica byte counts come with the parallel paths (ROADMAP queue A
-item 8).
+The sharded per-replica byte counts (`tree_bytes_per_replica`) and the
+gradient / update path's collective-traffic model (`comm_volume_model`)
+are glom_tpu's analytics over the port's leaf names; the distributed
+trainer stamps them beside its measured counters.
 """
 
 from __future__ import annotations
@@ -102,15 +103,94 @@ def tree_bytes(tree) -> int:
     return 0
 
 
-def live_bytes_model(params, opt_state) -> dict:
-    """Live bytes of the three train-state tenants on one device: the
+def _spec_divisor(spec, axis_sizes: dict) -> int:
+    """How many ways a spec (a tuple of axis names or None) splits a leaf."""
+    div = 1
+    for entry in spec or ():
+        if entry is not None:
+            div *= int(axis_sizes.get(entry, 1))
+    return div
+
+
+def tree_bytes_per_replica(tree, spec_tree, axis_sizes: dict) -> int:
+    """Live bytes of a tree PER REPLICA under a spec tree: each leaf's
+    global bytes divided by the ways its spec splits it. `tree` nests
+    dicts keyed like `spec_tree` (the port's dotted leaf names, and
+    sharding.opt_state_specs' per-leaf entries) over tensors, meta tensors
+    included; `spec_tree=None` is fully replicated. Pure analytics: no
+    device needed."""
+    if isinstance(tree, dict):
+        return sum(
+            tree_bytes_per_replica(v, None if spec_tree is None else spec_tree[k], axis_sizes)
+            for k, v in tree.items()
+        )
+    return tree_bytes(tree) // _spec_divisor(spec_tree, axis_sizes)
+
+
+def live_bytes_model(
+    params, opt_state, *, axis_sizes=None, param_specs=None, opt_specs=None, grad_specs=None
+) -> dict:
+    """Live bytes of the three train-state tenants a replica holds: the
     params, the gradient buffer (one per param), and the optimizer state
-    (glom_tpu's fields; on one device a replica holds everything)."""
-    params_bytes = tree_bytes(params)
+    (glom_tpu's fields). On one device (no `axis_sizes`) a replica holds
+    everything; across ranks each tenant divides by its spec tree (the
+    same specs the distributed trainer shards with): params by the TP
+    layout, the gradient buffer by the ZeRO layout at stage 2, the
+    optimizer moments by it from stage 1."""
+    if axis_sizes is None:
+        params_bytes = tree_bytes(params)
+        return {
+            "params_bytes_per_replica": params_bytes,
+            "grads_bytes_per_replica": params_bytes,
+            "opt_bytes_per_replica": tree_bytes(opt_state),
+        }
     return {
-        "params_bytes_per_replica": params_bytes,
-        "grads_bytes_per_replica": params_bytes,
-        "opt_bytes_per_replica": tree_bytes(opt_state),
+        "params_bytes_per_replica": tree_bytes_per_replica(params, param_specs, axis_sizes),
+        "grads_bytes_per_replica": tree_bytes_per_replica(params, grad_specs, axis_sizes),
+        "opt_bytes_per_replica": tree_bytes_per_replica(opt_state, opt_specs, axis_sizes),
+    }
+
+
+def comm_volume_model(
+    grad_bytes: int,
+    param_bytes: int,
+    dp: int,
+    zero_stage: int,
+    *,
+    quantized: bool = False,
+    grad_accum: int = 1,
+) -> dict:
+    """Per-replica per-step collective wire bytes of the gradient / update
+    path (ring-algorithm costs; SP and TP collectives are not priced here):
+
+      stage 0 -- one all-reduce of the full gradient: 2*(dp-1)/dp * G
+      stage 1 -- reduce-scatter G + all-gather P: (dp-1)/dp * (G + P)
+      stage 2 -- the reduce-scatter runs once PER MICROBATCH (that keeps
+                 the accumulator sharded): (dp-1)/dp * (accum * G + P)
+
+    The quantized reduce carries the gradient as int8 + block scales
+    (G/4 + G/512); the param all-gather stays f32."""
+    from glom_tpu_torch.parallel.quantized import DEFAULT_BLOCK
+
+    if dp <= 1:
+        return {"comm_reduce_bytes_per_step": 0, "comm_gather_bytes_per_step": 0,
+                "comm_bytes_per_step": 0}
+    frac = (dp - 1) / dp
+    wire_grad = grad_bytes
+    if quantized:
+        elems = grad_bytes // 4
+        wire_grad = elems + (-(-elems // DEFAULT_BLOCK)) * 4
+    if zero_stage == 0:
+        reduce_bytes = int(2 * frac * wire_grad)
+        gather_bytes = 0
+    else:
+        n_scatters = grad_accum if zero_stage >= 2 else 1
+        reduce_bytes = int(frac * wire_grad * n_scatters)
+        gather_bytes = int(frac * param_bytes)
+    return {
+        "comm_reduce_bytes_per_step": reduce_bytes,
+        "comm_gather_bytes_per_step": gather_bytes,
+        "comm_bytes_per_step": reduce_bytes + gather_bytes,
     }
 
 

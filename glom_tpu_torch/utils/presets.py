@@ -4,15 +4,14 @@ Counterpart of `glom_tpu/utils/presets.py`: the same names, model, train
 and mesh configs, and `scaled_to`. Each preset bundles the model config, a
 training config, and the mesh / SP strategy the config was designed to
 exercise. Mesh sizes describe the TARGET topology; `scaled_to(num_devices)`
-shrinks the mesh to what is available. The port trains on one device, so
-its CLI reads the model and train configs and carries the mesh as data
-(the parallel paths are ROADMAP queue A item 8).
+shrinks the mesh to what is available; the training CLI's
+`--distributed` runs DistributedTrainer on it (`glom_tpu_torch.parallel`).
 
 `serve` holds the fields of glom_tpu's serving policy that the port's
 `ServeConfig` has: the engine's, the page pool's and the host stack's
 (admission delay, queue depth, column cache bytes and TTL, rejoin
 threshold). The serve mesh (mesh_data, mesh_seq) comes with queue A
-item 8.
+item 8b.
 """
 
 from __future__ import annotations

@@ -188,6 +188,44 @@ def test_consensus_update_without_allocator_cache(dev):
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+@pytest.mark.parametrize("G, M, d, f", [(4, 32, 64, 256), (4, 128, 64, 256), (3, 64, 64, 192)])
+def test_grouped_mlp_biases_at_an_allocation_end(dev, G, M, d, f):
+    """K1's bf16 forward reads b1 and b2 for the tile's columns only: with
+    d (or f) not a multiple of the 128-column tile, the epilogue evaluates
+    columns past the end, and it once read the bias there, past the last
+    group's row and the buffer's end (an illegal address where the buffer
+    ends an allocation, found on the card by the small-width distributed
+    run). Fresh process, caching allocator off, each bias the last bytes
+    of its own 2 MiB allocation."""
+    script = (
+        "import sys, torch\n"
+        "import glom_tpu_torch.kernels.grouped_mlp as k1\n"
+        "from glom_tpu_torch.ops.ffw import GroupedFFWParams\n"
+        f"G, M, d, f = {G}, {M}, {d}, {f}\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "def at_end(*shape):\n"
+        "    n = shape[0] * shape[1]\n"
+        "    big = torch.empty(1 << 20, dtype=torch.bfloat16, device='cuda')\n"
+        "    v = big[-n:].view(*shape)\n"
+        "    v.copy_(torch.randn(*shape, generator=g).mul(0.1))\n"
+        "    return v, big\n"
+        "w1 = torch.randn(G, d, f, generator=g).mul(0.1).to('cuda', torch.bfloat16)\n"
+        "w2 = torch.randn(G, f, d, generator=g).mul(0.1).to('cuda', torch.bfloat16)\n"
+        "(b1, k1_), (b2, k2_) = at_end(G, f), at_end(G, d)\n"
+        "x = torch.randn(G, M, d, generator=g).to('cuda', torch.bfloat16)\n"
+        "p = GroupedFFWParams(w1, b1, w2, b2)\n"
+        "got = [k1.fused_grouped_ffw_lm(p, x) for _ in range(3)]\n"
+        "torch.cuda.synchronize()\n"
+        "want = k1.grouped_mlp_plain(GroupedFFWParams(*(t.cpu() for t in p)), x.cpu())\n"
+        "torch.testing.assert_close(got[0].cpu().float(), want.float(), rtol=1e-2, atol=1.6e-2)\n"
+        "assert all(torch.equal(got[0], y) for y in got[1:])\n"
+    )
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_consensus_update_bf16_rows_do_not_depend_on_batch(dev):
     """Image b alone gives the bits it gives inside a batch of 8, and two
     launches give the same bits."""
@@ -1403,3 +1441,20 @@ def test_elastic_spawn_drain_migrate_on_card(dev, aliasing):
         "engine_add"))
     assert audit_records(recs)["errors"] == []
     assert all(o.dtype == torch.bfloat16 and o.device.type == "cpu" for o in out)
+
+
+def test_distributed_phases_at_small_width(dev):
+    """chip_smoke.py's dist_* and train_cli_distributed phases at a small
+    width: the NCCL world-1 step bit for bit the Trainer's, DP / ZeRO / SP
+    / TP over gloo ranks sharing the card at their f32 bars with exact
+    launches, and the distributed CLI. Each phase raises on a miss."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    small = dict(dim=64, levels=4, image_size=32, patch_size=4)
+    launches = chip_smoke.dist_phases(
+        GlomConfig(**small), dev, "test",
+        halo_cfg=dict(small, local_consensus_radius=2), cli_preset="cifar10",
+    )
+    assert launches["grouped_mlp_fwd_cat"] > 0 and launches["consensus_update_bwd_dq"] > 0
+    assert launches["banded_consensus_fwd"] == 0

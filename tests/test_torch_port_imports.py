@@ -41,9 +41,17 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.serve.cli", "glom_tpu_torch.serve.__main__",
                    "glom_tpu_torch.serve.elastic", "glom_tpu_torch.telemetry.forecast",
                    "glom_tpu_torch.telemetry.audit", "glom_tpu_torch.telemetry.aggregate",
-                   "glom_tpu_torch.telemetry.__main__", "glom_tpu_torch.resilience.faults"):
+                   "glom_tpu_torch.telemetry.__main__", "glom_tpu_torch.resilience.faults",
+                   "glom_tpu_torch.parallel", "glom_tpu_torch.parallel.mesh",
+                   "glom_tpu_torch.parallel.sharding", "glom_tpu_torch.parallel.quantized",
+                   "glom_tpu_torch.parallel.collectives", "glom_tpu_torch.parallel.ring",
+                   "glom_tpu_torch.parallel.ulysses", "glom_tpu_torch.parallel.halo",
+                   "glom_tpu_torch.parallel.manual", "glom_tpu_torch.parallel.runtime",
+                   "glom_tpu_torch.telemetry.counters"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
+        if not path.exists():  # a package
+            path = REPO / module.replace(".", "/") / "__init__.py"
         assert path in PORT_FILES
 
 

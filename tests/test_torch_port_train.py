@@ -319,8 +319,36 @@ class TestTrainerPieces:
         {"collective_timing": "sampled"},
     ], ids=lambda kw: next(iter(kw)))
     def test_unported_options_raise(self, kw):
+        """ZeRO and the quantized reduce are ported (parallel/manual.py): on
+        one device the step runs them as glom_tpu's Trainer resolves them,
+        stage 0 without the hop, the same update as without them; the rest
+        stay refused with their ROADMAP item."""
+        cfg = GlomConfig(**TINY)
+        if next(iter(kw)) in ("zero_stage", "quantized_reduce"):
+            jt = jconfig.TrainConfig(batch_size=2, **kw)
+            assert (jtrainer.resolve_zero_stage(jt, 1), jtrainer.resolve_quantized_reduce(jt, 1)
+                    ) == (0, False)
+            _, _, _, tp, img, _ = setup()
+            results = []
+            for tk in (dict(batch_size=2, **kw), dict(batch_size=2)):
+                state, _ = create_train_state(cfg, TrainConfig(**tk), params=tp, device="cpu")
+                step = make_train_step(cfg, TrainConfig(**tk), zero_stage=tk.get("zero_stage", 0),
+                                       device="cpu")
+                state, m = step(state, torch.from_numpy(img), torch.Generator().manual_seed(0))
+                results.append((float(m["loss"]), param_leaves(state.params)))
+            assert results[0][0] == results[1][0]
+            for a, b in zip(results[0][1], results[1][1]):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-            make_train_step(GlomConfig(**TINY), TrainConfig(**kw), device="cpu")
+            make_train_step(cfg, TrainConfig(**kw), device="cpu")
+
+    def test_zero_shardings_has_no_counterpart(self):
+        with pytest.raises(NotImplementedError, match="parallel/manual.py"):
+            make_train_step(GlomConfig(**TINY), TrainConfig(), zero_shardings=object(),
+                            device="cpu")
+        with pytest.raises(ValueError, match="zero_stage"):
+            make_train_step(GlomConfig(**TINY), TrainConfig(zero_stage=3), device="cpu")
 
     def test_config_validation(self):
         cfg = GlomConfig(**TINY)
