@@ -152,7 +152,9 @@ TFLOP/s f32 (K4's "fma" instance computes in f32), 3.35 TB/s HBM.
 
 from __future__ import annotations
 
+import collections
 import json
+from functools import partial
 import math
 import statistics
 import subprocess
@@ -919,6 +921,450 @@ def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
     if not ok:
         tails = [(p.stderr[-2000:]) for p in runs] + [lint.stdout[-500:]]
         raise AssertionError(f"train_cli_distributed: {rcs}: {tails}")
+    return dist_kernel_launches(total)
+
+
+# -- sharded inference across ranks (mesh_* phases) -------------------------------
+# Two gloo ranks on the card in one spawn: Glom(mesh=) (`mesh_forward`) and
+# InferenceEngine(mesh=) with rank 1 following (`serve_mesh`); then the serve
+# CLI under torch.distributed.run (`serve_cli_mesh`). Launches are counted a
+# rank from 0 around each engine's or forward's main-path run.
+MESH_T = 12
+MESH_BUCKET = 8
+MESH_DISPATCHES = 10
+MESH_POOL_PAGES = 32  # 4 pages a row x 8 rows, split 16 a rank
+MESH_CLI_ARGV = ["--preset", "imagenet224-dp8", "--mesh-data", "2", "--buckets", "2,4,8,16",
+                 "--dist-backend", "gloo", "--synthetic", "32"]
+MESH_F32 = dict(rtol=2e-3, atol=2e-4)  # serve_parity_f32's bars
+
+
+def _within(got, want, rtol, atol):
+    """(every element within atol + rtol |want|, max abs error, the worst
+    element's error over its allowance)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    allow = atol + rtol * want.abs()
+    return bool((diff <= allow).all()), float(diff.max()), float((diff / allow).max())
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ring_allreduce(nbytes: int, k: int) -> int:
+    return int(2 * (k - 1) / k * nbytes) if k > 1 else 0
+
+
+def serve_wire_formula(cfg, bucket: int, dp: int, seq: int, *, auto: bool, T: int,
+                       paged=None, pool_pages=0, page_tokens=64, itemsize=2) -> dict:
+    """glom_tpu's counted wire bytes of one serve-mesh signature
+    (parallel/serve_mesh.py: each site's ring formula, the loop's sites at
+    the budget T), from the shapes alone: {reduce, gather, count}."""
+    L, d = cfg.levels, cfg.dim
+    b_loc = bucket // dp
+    reduce_b = gather_b = count = 0
+    if auto:
+        reduce_b += _ring_allreduce(4, dp)  # quorum_valid_psum (f32 scalar)
+        count += 1
+        if seq > 1:  # witness_mean_psum / witness_cos_psum: the initial one + T
+            reduce_b += (1 + T) * (_ring_allreduce(b_loc * L * d * 4, seq)
+                                   + _ring_allreduce(b_loc * L * 4, seq))
+            count += 4
+        reduce_b += T * _ring_allreduce(4, dp)  # quorum_exit_psum (int32 scalar)
+        count += 1
+    if paged is not None:
+        ppr = cfg.num_patches // page_tokens
+        page_bytes = page_tokens * L * d * itemsize
+        pps = pool_pages // dp
+        if paged == "auto":
+            paged = "needed" if b_loc * ppr < pps else "pool"
+        if paged == "pool":
+            gather_b += (dp - 1) * pps * page_bytes
+        else:
+            reduce_b += int((dp - 1) / dp * dp * b_loc * ppr * page_bytes)
+        count += 1
+    return {"comm_measured_reduce_bytes_per_step": reduce_b,
+            "comm_measured_gather_bytes_per_step": gather_b,
+            "comm_measured_bytes_per_step": reduce_b + gather_b,
+            "comm_measured_collective_count": count}
+
+
+def _case_mesh_forward(rank, device, cfg_kw):
+    """Glom(mesh=) at the flagship width: data 2 at batch 8 (K1 and K2 a
+    rank), seq 2 at batch 2 through the ring and Ulysses (K1 only). f32
+    final, return_all and with_levels against the single-device Glom on
+    rank 0; launches a rank around the f32 final forward; bf16 ms."""
+    import torch
+
+    from glom_tpu_torch.models.api import Glom
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+    kw = dict(cfg_kw, params=params, device=dev, use_pallas=True)
+    out = {}
+    for name, shape, sp, b in (("data2", (2, 1, 1), "none", 8), ("ring", (1, 2, 1), "ring", 2),
+                               ("ulysses", (1, 2, 1), "ulysses", 2)):
+        g = torch.Generator().manual_seed(SEED + 60)
+        x = torch.randn((b, cfg.channels, cfg.image_size, cfg.image_size), generator=g).to(dev)
+        lv0 = (0.5 * torch.randn((b, cfg.num_patches, cfg.levels, cfg.dim), generator=g)).to(dev)
+        m = Glom(**kw, mesh=MeshConfig(*shape), sp_strategy=sp)
+        _sync(dev)
+        _dist_counts(reset=True)
+        final = m(x, iters=MESH_T)
+        _sync(dev)
+        launches = _dist_counts()
+        every = m(x, iters=MESH_T, return_all=True)
+        warm = m(x, iters=MESH_T, levels=lv0)
+        m16 = Glom(**kw, mesh=MeshConfig(*shape), sp_strategy=sp, compute_dtype=torch.bfloat16)
+        ms = []
+        for _ in range(4):
+            _sync(dev)
+            t0 = time.perf_counter()
+            y16 = m16(x, iters=MESH_T)
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        row = dict(batch=b, launches=launches, bf16_ms=ms, bf16_finite=bool(y16.isfinite().all()),
+                   shapes=[list(final.shape), list(every.shape), list(warm.shape)])
+        if rank == 0:
+            single = Glom(**kw)
+            for key, got, want in (("final", final, single(x, iters=MESH_T)),
+                                   ("return_all", every, single(x, iters=MESH_T,
+                                                                return_all=True)),
+                                   ("with_levels", warm, single(x, iters=MESH_T, levels=lv0))):
+                ok, err, ratio = _within(got, want, **MESH_F32)
+                row[key] = dict(ok=ok, max_abs_err=err, bar_ratio=ratio)
+            del single
+        out[name] = row
+        del m, m16, final, every, warm
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_engine_script(eng, rank, dev, spec, img, single_f32=None):
+    """One leader-side engine run of `_case_serve_mesh` (see there)."""
+    import numpy as np
+    import torch
+
+    from glom_tpu_torch.parallel import collectives
+
+    res = {}
+    sync = partial(_sync, dev)
+    if spec["name"].startswith("f32"):
+        res["levels"] = eng.infer(img).levels.float()
+        want = single_f32.infer(img).levels.float()
+        ok, err, ratio = _within(res.pop("levels"), want, **MESH_F32)
+        res.update(ok=ok, max_abs_err=err, bar_ratio=ratio)
+        return res
+    staged = collections.Counter(collectives.STAGED)
+    eng.warmup()
+    eng.warmup(iters_override=MESH_T)
+    auto_ms, fixed_ms, reads = [], [], []
+    auto = fixed = None
+    for _ in range(MESH_DISPATCHES):  # the auto route and the fixed loop in turns
+        r0 = eng._mesh.worker.exit_reads.seconds
+        sync()
+        t0 = time.perf_counter()
+        auto = eng.infer(img)
+        auto_ms.append(1e3 * (time.perf_counter() - t0))
+        reads.append(1e3 * (eng._mesh.worker.exit_reads.seconds - r0))
+        t0 = time.perf_counter()
+        fixed = eng.infer(img, iters_override=MESH_T)
+        fixed_ms.append(1e3 * (time.perf_counter() - t0))
+    res.update(auto_ms=auto_ms, fixed_ms=fixed_ms, exit_read_ms=reads,
+               auto_iters=auto.iters_run,
+               auto_bitwise_fixed=bool(torch.equal(auto.levels, fixed.levels)),
+               finite=bool(auto.levels.float().isfinite().all()))
+    # The warm host carry: 12 more from the fixed result's columns equal a
+    # 24-iteration cold dispatch, bit for bit.
+    host = fixed.levels.cpu()
+    warm = eng.infer(img, levels0=host, iters_override=MESH_T)
+    cold24 = eng.infer(img, iters_override=2 * MESH_T)
+    res.update(warm_bitwise_cold24=bool(torch.equal(warm.levels, cold24.levels)),
+               warm_levels0_bytes=warm.levels0_h2d_bytes)
+    if eng.pool is not None:
+        for i in range(MESH_BUCKET):
+            assert eng.pool.write_back(f"s{i}", fixed.levels[i], eng.cfg.num_patches)
+        rows = np.stack([eng.pool.lookup(f"s{i}")[0] for i in range(MESH_BUCKET)])
+        paged = eng.infer(img, page_rows=rows.astype(np.int32), iters_override=MESH_T)
+        res.update(paged_bitwise_warm=bool(torch.equal(paged.levels, warm.levels)),
+                   paged_levels=paged.levels.cpu(), paged_levels0_bytes=paged.levels0_h2d_bytes,
+                   pool=eng.pool.record())
+    if spec.get("fault"):
+        # The follower's hook fails the next op (transient: retried) and the
+        # one after the retry's (a KernelError: raised, not retried).
+        ok1 = eng.infer(img, iters_override=MESH_T)
+        try:
+            eng.infer(img, iters_override=MESH_T)
+            res["kernel_fault"] = None
+        except Exception as e:  # noqa: BLE001 - the phase reads the type
+            res["kernel_fault"] = type(e).__name__
+        ok2 = eng.infer(img, iters_override=MESH_T)
+        res["fault_served_bitwise"] = bool(torch.equal(ok1.levels, fixed.levels)
+                                           and torch.equal(ok2.levels, fixed.levels))
+    sync()
+    res["stats"] = [{k: v for k, v in r.items() if isinstance(v, (int, float, str, bool))}
+                    for r in eng.stats_records()]
+    res["staged"] = dict(collections.Counter(collectives.STAGED) - staged)
+    res["wire"] = dict(eng._mesh.channel.wire)
+    res["exit_reads"] = eng._mesh.worker.exit_reads.n
+    return res
+
+
+MESH_ENGINES = [
+    dict(name="f32_data2", mesh_data=2, dtype="float32"),
+    dict(name="f32_seq2", mesh_seq=2, dtype="float32"),
+    dict(name="bf16_data2_pool", mesh_data=2, page_gather="pool"),
+    dict(name="bf16_data2_needed", mesh_data=2, page_gather="needed", fault=True),
+    dict(name="bf16_seq2", mesh_seq=2),
+]
+
+
+def _case_serve_mesh(rank, device, cfg_kw):
+    """InferenceEngine(mesh=) at the flagship width, bucket 8, T = 12, rank 0
+    leading and rank 1 following, one engine a spec of MESH_ENGINES: f32 at
+    data 2 and seq 2 against the single-device f32 engine; bf16 at data 2
+    (a 32-page pool gathered whole, then only the needed pages, with a
+    follower fault) and seq 2 (the engine's "auto" strategy: Ulysses at the
+    flagship, the ring where the levels do not split): the auto route at
+    threshold 0 and the fixed loop in turns, the warm host carry, the paged
+    dispatches, the counted wire bytes, the staged calls; launches a rank
+    over each engine."""
+    import dataclasses
+
+    import torch
+
+    from glom_tpu_torch.kernels._build import KernelError
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.parallel.serve_mesh import make_serve_mesh
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.serve.mesh_follower import run_follower
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+    img = torch.randn((MESH_BUCKET, cfg.channels, cfg.image_size, cfg.image_size),
+                      generator=torch.Generator().manual_seed(SEED + 61))
+    base = ServeConfig(buckets=(MESH_BUCKET,), max_batch=MESH_BUCKET, iters="auto",
+                       exit_threshold=0.0, max_auto_iters=MESH_T, compute_dtype="bfloat16",
+                       use_pallas=True, dispatch_retries=0)
+    out = {}
+    for spec in MESH_ENGINES:
+        f32 = spec.get("dtype") == "float32"
+        scfg = dataclasses.replace(
+            base, mesh_data=spec.get("mesh_data", 1), mesh_seq=spec.get("mesh_seq", 1),
+            compute_dtype="float32" if f32 else "bfloat16",
+            iters=MESH_T if f32 else "auto",
+            page_pool_pages=MESH_POOL_PAGES if "page_gather" in spec else 0,
+            page_gather=spec.get("page_gather", "auto"),
+            dispatch_retries=1 if spec.get("fault") else 0)
+        mesh = make_serve_mesh(scfg)
+        _sync(dev)
+        _dist_counts(reset=True)
+        if rank == mesh.leader:
+            eng = InferenceEngine(cfg, scfg, params=params, device=dev, mesh=mesh,
+                                  name=spec["name"])
+            single = None
+            if f32:
+                single = InferenceEngine(cfg, dataclasses.replace(scfg, mesh_data=1, mesh_seq=1),
+                                         params=params, device=dev)
+            try:
+                res = _mesh_engine_script(eng, rank, dev, spec, img, single)
+            finally:
+                eng.close()
+            del single
+        else:
+            seen = [0]
+            n_before = {}
+
+            def hook(h):
+                # The fault spec: the first dispatch after the paged one
+                # fails once, the one after its retry raises a KernelError.
+                seen[0] += 1
+                if not spec.get("fault"):
+                    return
+                n_before.setdefault("paged", None)
+                if h["op"] == "dispatch" and h["warm"] == 2:
+                    n_before["paged"] = seen[0]
+                at = n_before.get("paged")
+                if at is not None and seen[0] == at + 1:
+                    raise RuntimeError("the follower fails this op on purpose")
+                if at is not None and seen[0] == at + 3:
+                    raise KernelError("the follower's kernel fault, injected")
+
+            stats = run_follower(mesh, dev, fault_hook=hook)
+            res = {"ops": stats["ops"], "failed": stats["failed"],
+                   "exit_reads": stats["exit_reads"].n, "wire": dict(stats["wire"])}
+        _sync(dev)
+        res["launches"] = _dist_counts()
+        out[spec["name"]] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+DIST_CASES.update({"mesh_forward": _case_mesh_forward, "serve_mesh": _case_serve_mesh})
+
+
+def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
+    """mesh_forward, serve_mesh (one 2-rank spawn on `dev`) and
+    serve_cli_mesh; returns each kernel's launches over every rank's
+    main-path runs, for the kernels line's `mesh_launches`."""
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from glom_tpu_torch.serve.paged_columns import resolve_page_tokens
+    from glom_tpu_torch.utils.config import ServeConfig
+
+    cfg_kw = dict(dim=cfg.dim, levels=cfg.levels, image_size=cfg.image_size,
+                  patch_size=cfg.patch_size)
+    page_tokens = resolve_page_tokens(cfg, ServeConfig())
+    total = {key: 0 for key in DIST_COUNTERS}
+
+    def add(counts):
+        for key, v in counts.items():
+            total[key] += v
+
+    # The kernels count launches on the card only (a CPU run, the dry run of
+    # these phases, takes the plain versions).
+    counted = dev.type == "cuda"
+    t0 = time.perf_counter()
+    res = _dist_spawn(2, [("mesh_forward", {"cfg_kw": cfg_kw}),
+                          ("serve_mesh", {"cfg_kw": cfg_kw})], str(dev))
+    spawn_s = time.perf_counter() - t0
+
+    # -- mesh_forward ----------------------------------------------------------------
+    fwd = [r[0] for r in res]
+    k = MESH_T
+    want = {"data2": _full({"K1 fwd": 2 * k, "K1 fwd add": k, "K2 fwd": k}),
+            "ring": _full({"K1 fwd": 2 * k, "K1 fwd add": k}),
+            "ulysses": _full({"K1 fwd": 2 * k, "K1 fwd add": k})}
+    rows, ok = {}, True
+    for name in want:
+        for r in fwd:
+            add(r[name]["launches"])
+        exact = all(r[name]["launches"] == want[name] for r in fwd) or not counted
+        row = dict(fwd[0][name], exact_launches=exact, want_per_rank=want[name],
+                   launches_by_rank=[r[name]["launches"] for r in fwd],
+                   bf16_p50_ms_by_rank=[statistics.median(r[name]["bf16_ms"][1:]) for r in fwd])
+        row.pop("launches")
+        rows[name] = row
+        ok = ok and exact and all(row[key]["ok"] for key in ("final", "return_all",
+                                                             "with_levels"))
+        ok = ok and all(r[name]["bf16_finite"] for r in fwd)
+    emit("mesh_forward", nvidia_smi=smi, backend="gloo", ranks_on=str(dev), iters=k,
+         bars=MESH_F32, meshes=rows, spawn_seconds=spawn_s, ok=ok)
+    if not ok:
+        raise AssertionError("mesh_forward failed its bars")
+
+    # -- serve_mesh --------------------------------------------------------------------
+    lead, fol = res[0][1], res[1][1]
+    srows, ok = {}, True
+    for spec in MESH_ENGINES:
+        nm = spec["name"]
+        a, b = lead[nm], fol[nm]
+        add(a["launches"])
+        add(b["launches"])
+        if nm.startswith("f32"):
+            srows[nm] = dict(ok=a["ok"], max_abs_err=a["max_abs_err"], bar_ratio=a["bar_ratio"],
+                             launches=[a["launches"], b["launches"]])
+            ok = ok and a["ok"]
+            continue
+        dp, seq = spec.get("mesh_data", 1), spec.get("mesh_seq", 1)
+        # Iterations a rank ran: 2 warm-ups, the dispatches in turns, the
+        # warm carry and the 24-iteration cold one, the paged one, and the
+        # fault spec's 2 dispatches that ran a body (the transient failure's
+        # retry, and the one after the kernel fault; the failed attempts
+        # stop at the status before the body).
+        iters = (2 * k + MESH_DISPATCHES * 2 * k + k + 2 * k
+                 + (k if "page_gather" in spec else 0) + (2 * k if spec.get("fault") else 0))
+        want_l = _full({"K1 fwd": 2 * iters})
+        exact = (a["launches"] == want_l and b["launches"] == want_l) or not counted
+        formula, got = {}, {}
+        for r in a["stats"]:
+            key = "auto" if r["iters"] == "auto" else f"{r['iters']}:{r['warm_state']}"
+            got[key] = {kk: v for kk, v in r.items() if kk.startswith("comm_")}
+            formula[key] = serve_wire_formula(
+                cfg, MESH_BUCKET, dp, seq, auto=key == "auto",
+                T=k if key == "auto" else int(r["iters"]),
+                paged=spec["page_gather"] if r["warm_state"] == "paged" else None,
+                pool_pages=MESH_POOL_PAGES, page_tokens=page_tokens)
+        formula_ok = all(got[key] == formula[key] for key in got)
+        row = dict(mesh=[dp, seq], auto_p50_ms=statistics.median(a["auto_ms"][1:]),
+                   fixed_p50_ms=statistics.median(a["fixed_ms"][1:]),
+                   exit_read_ms_p50=statistics.median(a["exit_read_ms"][1:]),
+                   exit_read_share=statistics.median(
+                       [r / t for r, t in zip(a["exit_read_ms"][1:], a["auto_ms"][1:])]),
+                   auto_iters=a["auto_iters"], auto_bitwise_fixed=a["auto_bitwise_fixed"],
+                   warm_bitwise_cold24=a["warm_bitwise_cold24"],
+                   warm_levels0_bytes=a["warm_levels0_bytes"],
+                   counted=got, glom_tpu_formula=formula,
+                   counted_equal_formula=formula_ok, staged=a["staged"], wire_leader=a["wire"],
+                   wire_follower=b["wire"], follower_ops=b["ops"], exact_launches=exact,
+                   launches=[a["launches"], b["launches"]], want_per_rank=want_l,
+                   auto_ms=a["auto_ms"], fixed_ms=a["fixed_ms"])
+        okr = (exact and formula_ok and a["auto_bitwise_fixed"] and a["warm_bitwise_cold24"]
+               and a["finite"] and a["auto_iters"] == k)
+        if "page_gather" in spec:
+            row.update(paged_bitwise_warm=a["paged_bitwise_warm"],
+                       paged_levels0_bytes=a["paged_levels0_bytes"], pool=a["pool"])
+            okr = okr and a["paged_bitwise_warm"] and a["paged_levels0_bytes"] == 0
+        if spec.get("fault"):
+            row.update(kernel_fault=a["kernel_fault"], fault_served=a["fault_served_bitwise"],
+                       follower_failed=b["failed"])
+            okr = okr and a["kernel_fault"] == "KernelError" and a["fault_served_bitwise"] \
+                and b["failed"] == 2
+        row["ok"] = okr
+        srows[nm] = row
+        ok = ok and okr
+    pool_bits = bool(torch.equal(lead["bf16_data2_pool"]["paged_levels"],
+                                 lead["bf16_data2_needed"]["paged_levels"]))
+    ok = ok and pool_bits
+    emit("serve_mesh", nvidia_smi=smi, backend="gloo", bucket=MESH_BUCKET, iters=k,
+         engines=srows, paged_pool_bitwise_needed=pool_bits,
+         dispatch_p50_ms={nm: r.get("fixed_p50_ms") for nm, r in srows.items()}, ok=ok)
+    if not ok:
+        raise AssertionError("serve_mesh failed its checks")
+
+    # -- serve_cli_mesh: torch.distributed.run, 2 ranks on the card ---------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="glom_serve_mesh_cli_") as tmp:
+        out = os.path.join(tmp, "serve.jsonl")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2", "--monitor-interval", "0.1", "-m",
+                "glom_tpu_torch.serve", *cli_argv, "--device", str(dev), "--out", out]
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        recs = []
+        if os.path.exists(out):
+            with open(out) as fh:
+                recs = [json.loads(ln) for ln in fh]
+    summary = [r for r in recs if r.get("event") == "summary"]
+    n_req = int(cli_argv[cli_argv.index("--synthetic") + 1])
+    ok = (proc.returncode == 0 and lint.returncode == 0 and len(summary) == 1
+          and summary[0]["n_served"] == summary[0]["n_requests"] == n_req
+          and summary[0]["n_failed"] == 0)
+    stats = [r for r in recs if r.get("event") == "bucket_stats"]
+    emit("serve_cli_mesh", nvidia_smi=smi, argv=cli_argv, rc=proc.returncode,
+         lint_rc=lint.returncode, summary={kk: v for kk, v in (summary[0] if summary else {})
+                                           .items() if isinstance(v, (int, float, str))},
+         bucket_stats=[{kk: r.get(kk) for kk in ("bucket", "iters", "warm_state",
+                                                  "step_time_p50_ms",
+                                                  "comm_measured_bytes_per_step")}
+                       for r in stats],
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError(f"serve_cli_mesh: rc {proc.returncode}, lint {lint.returncode}: "
+                             f"{proc.stderr[-3000:]}")
     return dist_kernel_launches(total)
 
 
@@ -4409,6 +4855,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_launches = dist_phases(cfg, dev, smi)
 
+    # -- sharded inference across ranks: 2 gloo ranks on the card ----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phases(cfg, dev, smi)
+
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
                                                  "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
@@ -4505,6 +4956,9 @@ def main() -> int:
         # ... and across ranks (every rank's counted steps of the dist_*
         # phases and the world-1 NCCL steps).
         kd["dist_launches"] = dist_launches[kd["name"]]
+        # ... and in sharded inference (every rank's forwards and engines in
+        # mesh_forward and serve_mesh).
+        kd["mesh_launches"] = mesh_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,6 +9,14 @@ consensus_self=False, local_consensus_radius=0)` and
 `exit_threshold`, `auto_max_iters` and `auto_min_iters` as in glom_tpu,
 and `device` and `generator`.
 
+`mesh=` (a `MeshConfig`, or a ready mesh: the DeviceMesh of
+`parallel/mesh.make_mesh`) runs the forward across torch.distributed
+ranks through `parallel/manual.make_manual_forward`, with `sp_strategy`
+picking how consensus crosses the 'seq' axis. Every rank calls the module
+with the global batch and gets the global answer; the kernels run on each
+rank's band. glom_tpu drops Pallas for a mesh without 'data' and 'seq'
+axes and takes its GSPMD forward; the port has no GSPMD and raises.
+
 The parameters are buffers of the module (this slice is forward-only), so
 `.to(device)` moves them. The forward runs under `torch.no_grad()`.
 """
@@ -47,6 +55,7 @@ class Glom(nn.Module):
         use_pallas: Optional[bool] = None,
         params: Optional[GlomParams] = None,
         mesh=None,
+        sp_strategy: str = "none",
         device="cuda",
         generator: Optional[torch.Generator] = None,
         exit_threshold: float = 1e-3,
@@ -54,10 +63,6 @@ class Glom(nn.Module):
         auto_min_iters: int = 1,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded forward) is not ported yet: ROADMAP queue A item 8b"
-            )
         device = resolve_device(device)
         self.config = GlomConfig(
             dim=dim,
@@ -70,6 +75,17 @@ class Glom(nn.Module):
         self.compute_dtype = resolve_dtype(compute_dtype)
         # glom_tpu's default on its accelerator is the fused kernel path.
         self.use_pallas = True if use_pallas is None else use_pallas
+        self.mesh = _resolve_mesh(mesh, device)
+        if self.mesh is not None:
+            from glom_tpu_torch.parallel.manual import rank_axes
+
+            seq = rank_axes(self.mesh).seq.size
+            if self.config.num_patches % seq:
+                raise ValueError(
+                    f"patches {self.config.num_patches} not divisible by seq axis {seq}"
+                )
+        self.sp_strategy = sp_strategy
+        self._sharded = {}
         if params is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
@@ -132,6 +148,11 @@ class Glom(nn.Module):
                     "iters='auto' is incompatible with return_all=True: the "
                     "early exit makes the number of stacked states data-dependent"
                 )
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "iters='auto' is single-device (serving buckets replicate "
+                    "the model); drop mesh= or use a fixed iteration count"
+                )
             # Imported here to keep the models layer below serve.
             from glom_tpu_torch.serve.early_exit import glom_forward_auto
 
@@ -144,6 +165,9 @@ class Glom(nn.Module):
             )
             self.last_auto_iters = torch.tensor(iters_run, dtype=torch.int32, device=dev)
             return final
+        if self.mesh is not None:
+            return self._sharded_forward(iters, return_all, levels is not None)(
+                self.params, img, *(() if levels is None else (levels,)))
         return glom_forward(
             self.params,
             img,
@@ -154,3 +178,44 @@ class Glom(nn.Module):
             compute_dtype=self.compute_dtype,
             use_pallas=self.use_pallas,
         )
+
+    def _sharded_forward(self, iters, return_all: bool, with_levels: bool):
+        """make_manual_forward for one (iters, return_all, levels-presence),
+        memoized."""
+        from glom_tpu_torch.parallel.manual import make_manual_forward
+
+        iters = iters if iters is not None else self.config.default_iters
+        key = (iters, return_all, with_levels)
+        if key not in self._sharded:
+            self._sharded[key] = make_manual_forward(
+                self.mesh, self.config, iters=iters, sp_strategy=self.sp_strategy,
+                compute_dtype=self.compute_dtype, use_pallas=self.use_pallas,
+                return_all=return_all, with_levels=with_levels,
+            )
+        return self._sharded[key]
+
+
+def _resolve_mesh(mesh, device: torch.device):
+    """None, or the rank mesh `Glom(mesh=)` runs over: a MeshConfig is laid
+    over the process group (each rank on `device`, or on cuda:LOCAL_RANK
+    for a bare "cuda"); a ready mesh must name the 'data' and 'seq' axes."""
+    if mesh is None:
+        return None
+    from glom_tpu_torch.utils.config import MeshConfig
+
+    if isinstance(mesh, MeshConfig):
+        from glom_tpu_torch.parallel.mesh import make_mesh
+
+        devices = None
+        if device.type != "cuda" or device.index is not None:
+            devices = [device] * mesh.num_devices
+        return make_mesh(mesh, devices)[0]
+    names = set(getattr(mesh, "mesh_dim_names", None) or ())
+    if getattr(mesh, "axes", None) is not None:
+        names = {"data", "seq"}
+    if not {"data", "seq"} <= names:
+        raise ValueError(
+            f"mesh axes {sorted(names)}: the per-rank forward needs the 'data' and 'seq' "
+            "axes (glom_tpu falls back to its GSPMD forward here; the port has none)"
+        )
+    return mesh

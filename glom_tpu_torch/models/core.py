@@ -39,7 +39,11 @@ from glom_tpu_torch.kernels.consensus_update import (
     fused_consensus_update,
 )
 from glom_tpu_torch.kernels.fused_loop import fused_glom_loop, loop_supported
-from glom_tpu_torch.kernels.grouped_mlp import fused_grouped_ffw_lm, grouped_ffw_lm_vjp
+from glom_tpu_torch.kernels.grouped_mlp import (
+    fused_grouped_ffw,
+    fused_grouped_ffw_lm,
+    grouped_ffw_lm_vjp,
+)
 from glom_tpu_torch.ops.consensus import build_local_mask, consensus_attention
 from glom_tpu_torch.ops.ffw import GroupedFFWParams, grouped_ffw, init_grouped_ffw
 from glom_tpu_torch.ops.patch import LinearParams, image_to_tokens, init_linear
@@ -159,6 +163,14 @@ def update_step(
     return new_levels.to(levels.dtype)
 
 
+def _grouped_ffw_vjp(params: GroupedFFWParams, x: torch.Tensor) -> torch.Tensor:
+    """`fused_grouped_ffw` (x [..., G, d]) with a gradient: K1's forward and
+    backward under autograd, transposed to level-major around the launch."""
+    *lead, G, d = x.shape
+    out = grouped_ffw_lm_vjp(params, x.reshape(-1, G, d).transpose(0, 1).contiguous())
+    return out.transpose(0, 1).reshape(*lead, G, d)
+
+
 def glom_forward(
     params: GlomParams,
     img: torch.Tensor,
@@ -179,7 +191,8 @@ def glom_forward(
     (T+1 includes the initial state). `levels` [b, n, L, d] continues from a
     previous call. Params, image and levels are cast to `compute_dtype`
     once, before the loop. use_pallas=True selects the fused level-major
-    route through the K1/K2 kernels. remat=True recomputes each iteration's
+    route through the K1/K2 kernels; with a custom `consensus_fn` (a
+    sharded rank's) it runs the reference layout with K1 for the FFWs. remat=True recomputes each iteration's
     activations in the backward instead of keeping them. scan_only=True
     keeps a training forward off the whole-loop VJP (glom_tpu's
     `scan_only`): its backward is then the per-iteration kernels'.
@@ -191,16 +204,18 @@ def glom_forward(
         if exists(levels):
             levels = levels.to(compute_dtype)
 
-    if use_pallas:
-        if consensus_fn is not None:
-            raise NotImplementedError(
-                "use_pallas with a custom consensus_fn is the sharded route "
-                "(ROADMAP queue A item 8b)"
-            )
+    if use_pallas and consensus_fn is None:
         return _glom_forward_fused(
             params, img, cfg, iters=T, levels_in=levels, return_all=return_all,
             remat=remat, scan_only=scan_only,
         )
+    # A custom consensus_fn with use_pallas: the reference layout with K1
+    # in place of the plain FFW (glom_tpu's route for sharded per-rank
+    # bodies), through its autograd Function when a gradient is wanted.
+    ffw_fn = grouped_ffw
+    if use_pallas:
+        ffw_fn = (_grouped_ffw_vjp if _wants_grad(params, img, levels)
+                  else fused_grouped_ffw)
 
     if consensus_fn is None:
         mask = build_local_mask(cfg.num_patches_side, cfg.local_consensus_radius)
@@ -219,7 +234,7 @@ def glom_forward(
     divisor = contribution_divisor(cfg.levels, torch.float32, img.device)
 
     step = partial(update_step, params, bottom=bottom, pos=pos, divisor=divisor,
-                   consensus_fn=consensus_fn)
+                   consensus_fn=consensus_fn, ffw_fn=ffw_fn)
     states = [levels]
     for _ in range(T):
         levels = checkpoint(step, levels, use_reentrant=False) if remat else step(levels)

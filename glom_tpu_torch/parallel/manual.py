@@ -1,8 +1,7 @@
 """Per-rank training across torch.distributed ranks: glom_tpu's manual path.
 
-Counterpart of `glom_tpu/parallel/manual.py` (all of it but
-`make_manual_forward`, which comes with sharded inference, ROADMAP queue A
-item 8b). glom_tpu runs the whole loss inside one `shard_map` over (data,
+Counterpart of `glom_tpu/parallel/manual.py`. glom_tpu runs the whole loss
+(and `make_manual_forward`'s inference) inside one `shard_map` over (data,
 seq, model), where every array is local and a Pallas call is plain
 per-device work. The port has no GSPMD and no shard_map: each rank is a
 process, runs glom_tpu's per-shard body (`_forward_local`) on its own
@@ -49,6 +48,11 @@ the sharded weights' are their shards'.
 port takes this path for every DistributedTrainer (there is no GSPMD
 route to fall back to).
 
+`make_manual_forward` is the inference counterpart (the path `Glom(mesh=)`
+takes): every rank is given the global batch, runs its band and
+all-gathers the output over 'seq' and then 'data', so each rank returns
+the global answer (glom_tpu's out_specs, written out).
+
 The ZeRO step (`make_manual_zero_train_step`) differentiates the rank's
 own objective and writes glom_tpu's schedule out: the seq all-reduce, the
 optional quantized wire hop, the reduce-scatter over 'data' (or a mean
@@ -92,7 +96,12 @@ from glom_tpu_torch.parallel.collectives import (
 from glom_tpu_torch.parallel.halo import halo_consensus_shard
 from glom_tpu_torch.parallel.quantized import quantize_dequantize
 from glom_tpu_torch.parallel.ring import ring_consensus_shard
-from glom_tpu_torch.parallel.sharding import denoise_param_specs, spec_axis
+from glom_tpu_torch.parallel.sharding import (
+    denoise_param_specs,
+    glom_param_specs,
+    shard_leaf,
+    spec_axis,
+)
 from glom_tpu_torch.parallel.ulysses import ulysses_consensus_shard
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.telemetry import diagnostics as diag
@@ -121,8 +130,16 @@ class RankAxes(NamedTuple):
 
 
 def rank_axes(mesh) -> RankAxes:
-    """The rank's Axis for each of (data, seq, model) of a DeviceMesh."""
-    return RankAxes(*(mesh_axis(mesh, n) for n in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)))
+    """The rank's Axis for each of (data, seq, model): of a DeviceMesh, or
+    the `axes` a serve mesh (parallel/serve_mesh.ServeMesh) carries."""
+    if isinstance(mesh, RankAxes):
+        return mesh
+    axes = getattr(mesh, "axes", None)
+    if isinstance(axes, RankAxes):
+        return axes
+    names = tuple(mesh.mesh_dim_names)
+    return RankAxes(*(mesh_axis(mesh, n) if n in names else Axis(n, None, 1, 0)
+                      for n in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)))
 
 
 def manual_supported(mesh, tp_axis: str = "hidden") -> bool:
@@ -189,12 +206,23 @@ def _ffw_fn(use_pallas: bool, model: Axis):
     return tp
 
 
+RETURN_MODES = ("top", "final", "all")
+
+
 def _forward_local(gp, noised: torch.Tensor, cfg: GlomConfig, *, iters: int, axes: RankAxes,
-                   consensus_shard, remat: bool, use_pallas: bool) -> torch.Tensor:
+                   consensus_shard, remat: bool, use_pallas: bool,
+                   levels0_lm: Optional[torch.Tensor] = None,
+                   return_mode: str = "top") -> torch.Tensor:
     """The per-rank forward of a seq- or model-sharded rank: its batch band
     of `noised`, its patch band, its hidden shard; level-major carry, K1 per
     FFW, K2 whole at seq = 1 (per-op) or the shard consensus and the f32
-    mean at seq > 1. Returns the top level [b_loc, n_loc, d]."""
+    mean at seq > 1. `levels0_lm` carries in an [L, b_loc, n_loc, d] state
+    (the temporal API). return_mode: 'top' the final top level [b_loc,
+    n_loc, d] (the training loss), 'final' the final state [L, b_loc,
+    n_loc, d], 'all' all T+1 states [T+1, L, b_loc, n_loc, d], the initial
+    one included."""
+    if return_mode not in RETURN_MODES:
+        raise ValueError(f"return_mode={return_mode!r}: one of {RETURN_MODES}")
     L, d = cfg.levels, cfg.dim
     n_loc = cfg.num_patches // axes.seq.size
     # Patchify and embed the whole image, then keep the band: the grid is
@@ -227,11 +255,89 @@ def _forward_local(gp, noised: torch.Tensor, cfg: GlomConfig, *, iters: int, axe
                    / divisor).to(lv.dtype)
         return torch.cat([carry[:1], new])
 
-    levels0 = gp.init_levels[:, None, None, :].expand(L, b, n_loc, d).to(tokens.dtype)
+    if levels0_lm is not None:
+        levels0 = levels0_lm.to(tokens.dtype)
+    else:
+        levels0 = gp.init_levels[:, None, None, :].expand(L, b, n_loc, d).to(tokens.dtype)
     carry = torch.cat([tokens[None], levels0])
+    states = [carry[1:]]
     for _ in range(iters):
         carry = checkpoint(step, carry, use_reentrant=False) if remat else step(carry)
-    return carry[-1]
+        if return_mode == "all":
+            states.append(carry[1:])
+    if return_mode == "all":
+        return torch.stack(states)
+    return carry[1:] if return_mode == "final" else carry[-1]
+
+
+def make_manual_forward(mesh, cfg: GlomConfig, *, iters: Optional[int] = None,
+                        sp_strategy: str = "none", compute_dtype=None, use_pallas: bool = True,
+                        return_all: bool = False, with_levels: bool = False,
+                        remat: bool = False):
+    """Sharded inference through the kernels (glom_tpu `manual.py:464`):
+    glom_forward's contract -- the final [b, n, L, d], or all T+1 states
+    with return_all -- as the per-rank body over (data, seq, model). Returns
+    fn(params, img) (fn(params, img, levels0) with with_levels, a carried-in
+    [b, n, L, d] state): every rank passes the GLOBAL params, batch and
+    state, runs its band and gets the global answer (gathered over 'seq',
+    then 'data').
+
+    A rank at seq = 1 and model = 1 with use_pallas runs `glom_forward`'s
+    fused route on its batch band (without a gradient the no-grad fused
+    forward, K1 and K2 into two swapped carries; with one the whole-loop
+    VJP or the per-iteration Functions, as glom_tpu's `_use_loop_vjp` picks
+    at the rank-local batch). Any other rank runs `_forward_local`: K1 on
+    its hidden shard (the 'tp_ffw_psum' all-reduce at model > 1), K2 whole
+    at seq = 1, the ring / Ulysses / halo body at seq > 1."""
+    from glom_tpu_torch.models.core import glom_forward
+
+    axes = rank_axes(mesh)
+    seq, mp = axes.seq.size, axes.model.size
+    T = iters if iters is not None else cfg.default_iters
+    if cfg.num_patches % seq:
+        raise ValueError(f"patches {cfg.num_patches} not divisible by seq axis {seq}")
+    if mp > 1:
+        check_model_axis(mp)
+        if (cfg.dim * cfg.mult) % mp:
+            raise ValueError(f"hidden width {cfg.dim * cfg.mult} not divisible by model axis {mp}")
+    consensus_shard = shard_consensus_fn(cfg, axes.seq, sp_strategy)
+    fused = seq == 1 and mp == 1 and use_pallas
+    specs = glom_param_specs("hidden")
+    coords = {MODEL_AXIS: (axes.model.index, mp)}
+
+    def fwd(params, img, levels0=None):
+        if with_levels != (levels0 is not None):
+            raise ValueError("levels0 is required with with_levels=True and refused without")
+        if mp > 1:
+            from glom_tpu_torch.utils.checkpoint import named_leaves
+
+            params = unflatten_params(params, [
+                shard_leaf(t, specs[name], coords).contiguous()
+                for name, t in named_leaves(params)])
+        if compute_dtype is not None:
+            params = map_params(lambda t: t.to(compute_dtype), params)
+            img = img.to(compute_dtype)
+        img = _band(img, axes.data)
+        lv = None
+        if levels0 is not None:
+            lv = _band(_band(levels0, axes.data), axes.seq, dim=1).to(img.dtype)
+        if fused:
+            out = glom_forward(params, img, cfg, iters=T, levels=lv, return_all=return_all,
+                               use_pallas=True, remat=remat)
+        else:
+            out = _forward_local(
+                params, img, cfg, iters=T, axes=axes, consensus_shard=consensus_shard,
+                remat=remat, use_pallas=use_pallas,
+                levels0_lm=None if lv is None else lv.permute(2, 0, 1, 3),
+                return_mode="all" if return_all else "final")
+            # level-major -> the reference layout [.., b, n, L, d]
+            out = out.permute(0, 2, 3, 1, 4) if return_all else out.permute(1, 2, 0, 3)
+        n_dim, b_dim = (2, 1) if return_all else (1, 0)
+        return all_gather(all_gather(out, axes.seq, n_dim), axes.data, b_dim)
+
+    if with_levels:
+        return fwd
+    return lambda params, img: fwd(params, img)
 
 
 def _build_local_loss(axes: RankAxes, cfg: GlomConfig, tcfg: TrainConfig, *,

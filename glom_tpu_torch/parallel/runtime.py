@@ -1,14 +1,14 @@
 """The distributed training runtime: the SP strategy policy and
 DistributedTrainer.
 
-Counterpart of `glom_tpu/parallel/runtime.py` without the engine meshes
-(`make_engine_meshes` / `engine_mesh_for` come with sharded inference,
-ROADMAP queue A item 8b). glom_tpu picks between a GSPMD step and its
+Counterpart of `glom_tpu/parallel/runtime.py`, with the engine meshes
+(`make_engine_meshes`, `engine_mesh_for`: one rank group a serving
+engine). glom_tpu picks between a GSPMD step and its
 fully-manual shard_map step; the port has no GSPMD, so every
 DistributedTrainer runs the manual per-rank step (`parallel/manual.py`):
 with `use_pallas` through the Hopper kernels, without it through the plain
 ops. The EP-style `tp_axis="levels"` is GSPMD-only in glom_tpu and raises
-here (item 8b).
+here (ROADMAP queue A item 8b.3).
 
 One process per rank. Each rank builds the same global parameters from
 the seed, keeps its tensor-parallel shard, draws the same global noise
@@ -148,6 +148,60 @@ def make_consensus_fn(mesh, cfg: GlomConfig, strategy: str, axis_name: str = "se
     return build(axis, **kw)
 
 
+def make_engine_meshes(scfg, n_engines: int, ranks: Optional[list] = None, *,
+                       leader: Optional[int] = None) -> list:
+    """One serve mesh (or None for single-device engines) a serving engine:
+    the world's ranks (or `ranks`) split into contiguous groups of
+    mesh_data x mesh_seq (`mesh.replica_device_groups`), each with its own
+    process groups. `leader` (default: each group's first rank) is the rank
+    that holds every engine, for a batcher in one process: a leader outside
+    a group dispatches to it without a band. Every rank of the world calls
+    it, in the same order."""
+    from glom_tpu_torch.parallel.mesh import replica_device_groups
+    from glom_tpu_torch.parallel.serve_mesh import build_serve_mesh
+
+    if n_engines < 1:
+        raise ValueError(f"n_engines {n_engines} must be >= 1")
+    per = scfg.mesh_data * scfg.mesh_seq
+    if per == 1:
+        return [None] * n_engines
+    if ranks is None:
+        ranks = list(range(dist.get_world_size() if dist.is_initialized() else 1))
+    groups = replica_device_groups(list(ranks), per)
+    if len(groups) < n_engines:
+        raise ValueError(
+            f"{len(ranks)} ranks host only {len(groups)} {per}-rank engine replicas; "
+            f"{n_engines} requested"
+        )
+    return [build_serve_mesh(g, scfg.mesh_data, scfg.mesh_seq, leader)
+            for g in groups[:n_engines]]
+
+
+def engine_mesh_for(scfg, index: int, ranks: Optional[list] = None, *,
+                    leader: Optional[int] = None):
+    """The mesh of ONE engine replica by fleet index: the group the static
+    partitioning gives index `index` (glom_tpu's elastic scale-out
+    resolution). Raises when the ranks have no group `index`; None on the
+    single-device route. Every rank calls it."""
+    from glom_tpu_torch.parallel.mesh import replica_device_groups
+    from glom_tpu_torch.parallel.serve_mesh import build_serve_mesh
+
+    if index < 0:
+        raise ValueError(f"index {index} must be >= 0")
+    per = scfg.mesh_data * scfg.mesh_seq
+    if per == 1:
+        return None
+    if ranks is None:
+        ranks = list(range(dist.get_world_size() if dist.is_initialized() else 1))
+    groups = replica_device_groups(list(ranks), per)
+    if index >= len(groups):
+        raise ValueError(
+            f"{len(ranks)} ranks host only {len(groups)} {per}-rank engine replicas; "
+            f"{index + 1} requested"
+        )
+    return build_serve_mesh(groups[index], scfg.mesh_data, scfg.mesh_seq, leader)
+
+
 class _StateDictSink:
     """Stands in for an optimizer while a checkpoint restores into a host
     template: keeps the state dict it is given."""
@@ -194,7 +248,7 @@ class DistributedTrainer:
         if tp_axis == "levels":
             raise NotImplementedError(
                 "tp_axis='levels' (glom_tpu's GSPMD-only EP-style split) is not ported "
-                "yet: ROADMAP queue A item 8b"
+                "yet: ROADMAP queue A item 8b.3"
             )
         if tp_axis != "hidden":
             raise ValueError(f"tp_axis must be 'hidden' or 'levels', got {tp_axis!r}")

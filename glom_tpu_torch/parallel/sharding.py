@@ -16,7 +16,7 @@ splits its f contraction axis, and the second product's output is summed
 over 'model' (parallel/manual.py). Embeddings and init_levels replicate.
 `tp_axis="levels"` (the EP-style split of the group axis) is glom_tpu's
 spec and is kept here as data; the port's runtime refuses it (ROADMAP
-queue A item 8b).
+queue A item 8b.3).
 
 glom_tpu's `to_named` (PartitionSpec -> NamedSharding) has no
 counterpart: there is no GSPMD here. Each rank holds its shards as plain

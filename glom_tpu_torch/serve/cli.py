@@ -17,8 +17,20 @@ and without `--device cpu` it raises: it never falls back to the CPU.
 Params come from the port's `init_glom` with a `torch.Generator` seeded 0.
 With `--elastic` the fleet starts at `--min-engines` and every replica the
 autoscaler spawns is built on `--device` (on one card the replicas share
-it). The serve mesh (`--mesh-data`, `--mesh-seq`) is not ported: those
-flags raise NotImplementedError naming ROADMAP queue A item 8b.
+it).
+
+The serve mesh (`--mesh-data D`, `--mesh-seq S`) runs each engine on a
+group of D x S ranks: launch `python -m torch.distributed.run
+--nproc-per-node N -m glom_tpu_torch.serve ...` with N a multiple of D x S
+(`--engines` groups, `parallel/runtime.make_engine_meshes`). The process
+of global rank 0 holds every engine (it computes engine 0's first band and
+dispatches to the other groups), runs the batcher and writes the metrics
+stream; every other rank of a group follows its engine
+(serve/mesh_follower.run_follower) and exits 0 when rank 0 stops it. Each
+rank runs on cuda:LOCAL_RANK for `--device cuda`, or on the named device
+(ranks sharing one card: `--device cuda:0 --dist-backend gloo`).
+`--elastic` with a mesh raises NotImplementedError (ROADMAP queue A item
+8b.4: a spawned replica's group needs followers already running).
 
 Exit codes: 0 when every request was served, 1 when any failed or was
 shed (or none was served), 2 for a bad command line.
@@ -98,6 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--mesh-seq", type=int, default=None, metavar="S",
         help="serve mesh: shard the patch axis over an S-way 'seq' axis",
+    )
+    p.add_argument(
+        "--dist-backend", choices=["nccl", "gloo"], default=None,
+        help="torch.distributed backend of the serve mesh (default nccl on a card, "
+        "gloo on the CPU; ranks sharing one card need gloo)",
     )
     p.add_argument(
         "--quorum", type=float, default=None, metavar="Q",
@@ -367,10 +384,11 @@ def _req_source(args) -> Iterable[Tuple[object, int, object]]:
             fh.close()
 
 
-def _refuse_unported(args) -> None:
-    """Flags whose machinery is not ported: raise, never fall back."""
-    if args.mesh_data is not None or args.mesh_seq is not None:
-        raise NotImplementedError(_NOT_PORTED.format("--mesh-data/--mesh-seq", 8))
+def _refuse_unported(scfg) -> None:
+    """Settings whose machinery is not ported: raise, never fall back."""
+    if scfg.elastic and (scfg.mesh_data > 1 or scfg.mesh_seq > 1):
+        raise NotImplementedError(_NOT_PORTED.format(
+            "--elastic with a serve mesh (spawning a replica on a new rank group)", "8b.4"))
 
 
 def _overrides(args) -> dict:
@@ -384,6 +402,8 @@ def _overrides(args) -> dict:
         ("max_delay_ms", "max_delay_ms"),
         ("queue_depth", "queue_depth"),
         ("dispatch_retries", "dispatch_retries"),
+        ("mesh_data", "mesh_data"),
+        ("mesh_seq", "mesh_seq"),
         ("quorum", "exit_quorum"),
         ("max_continuations", "max_continuations"),
         ("rejoin", "rejoin_threshold"),
@@ -440,7 +460,6 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 2
-    _refuse_unported(args)
     ramp_phases = None
     if args.ramp is not None:
         try:
@@ -461,7 +480,6 @@ def main(argv=None) -> int:
             return 2
 
     from glom_tpu_torch.utils.helpers import resolve_device
-    from glom_tpu_torch.utils.metrics import MetricsWriter
     from glom_tpu_torch.utils.presets import get_preset
 
     device = resolve_device(args.device)
@@ -470,10 +488,79 @@ def main(argv=None) -> int:
     scfg = preset.serve
     overrides = _overrides(args)
     if overrides:
-        scfg = dataclasses.replace(scfg, **overrides)
+        try:
+            scfg = dataclasses.replace(scfg, **overrides)
+        except ValueError as e:  # e.g. a bucket --mesh-data does not divide
+            print(str(e), file=sys.stderr)
+            return 2
     if args.engines < 1:
         print("--engines must be >= 1", file=sys.stderr)
         return 2
+    n_init = scfg.min_engines if scfg.elastic else args.engines
+    if args.kill_engine is not None and not 0 <= int(args.kill_engine.partition(":")[0]) < n_init:
+        # Before any follower starts waiting for its engine.
+        print(f"--kill-engine index outside 0..{n_init - 1}", file=sys.stderr)
+        return 2
+    _refuse_unported(scfg)
+    meshes, created = None, False
+    if scfg.mesh_data > 1 or scfg.mesh_seq > 1:
+        got = _mesh_ranks(args, scfg, device)
+        if isinstance(got, int):
+            return got
+        meshes, device, created = got
+    try:
+        if meshes is not None and _follow(meshes, device):
+            return 0
+        return _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _mesh_ranks(args, scfg, device):
+    """The serve mesh's ranks: (one ServeMesh an engine, this rank's device,
+    whether this call brought the process group up), or an exit code."""
+    import torch.distributed as dist
+
+    from glom_tpu_torch.parallel.mesh import initialize_multihost, rank_device
+    from glom_tpu_torch.parallel.runtime import make_engine_meshes
+
+    # --device cuda: each rank on cuda:LOCAL_RANK; a named device: every rank there.
+    if str(args.device) == "cuda":
+        device = rank_device()
+    created = initialize_multihost(backend=args.dist_backend, device=device)
+    per = scfg.mesh_data * scfg.mesh_seq
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = scfg.min_engines if scfg.elastic else args.engines
+    if world < n * per:
+        print(f"{n} engine(s) of a {scfg.mesh_data} x {scfg.mesh_seq} serve mesh need "
+              f"{n * per} ranks, the world has {world}: launch under python -m "
+              f"torch.distributed.run --nproc-per-node {n * per}", file=sys.stderr)
+        return 2
+    return make_engine_meshes(scfg, n, leader=0), device, created
+
+
+def _follow(meshes, device) -> bool:
+    """On a rank other than global rank 0: follow this rank's engine until
+    rank 0 stops it, and return True; False on rank 0."""
+    import torch.distributed as dist
+
+    from glom_tpu_torch.serve.mesh_follower import run_follower
+
+    if dist.get_rank() == 0:
+        return False
+    for mesh in meshes:
+        if mesh.is_member:
+            run_follower(mesh, device)
+    return True
+
+
+def _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes) -> int:
+    """The serving process (global rank 0 on a mesh): the metrics stream,
+    the engines, the batcher."""
+    from glom_tpu_torch.utils.metrics import MetricsWriter
 
     writer = MetricsWriter(args.out, echo=True)
     fr = None
@@ -484,7 +571,7 @@ def main(argv=None) -> int:
         fr.install_process_hooks()
         set_global_flight_recorder(fr)
     try:
-        return _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records)
+        return _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes)
     finally:
         writer.close()
         if fr is not None:
@@ -494,14 +581,11 @@ def main(argv=None) -> int:
             set_global_flight_recorder(None)
 
 
-def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
-    import numpy as np
+def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes=None) -> int:
     import torch
 
     from glom_tpu_torch.models.core import init_glom
-    from glom_tpu_torch.serve.batcher import DynamicBatcher, ShedError
     from glom_tpu_torch.serve.engine import InferenceEngine
-    from glom_tpu_torch.serve.events import stamp_serve as serve_rec
 
     # One params init shared by every engine replica (fan-out serves one
     # model), from a seeded generator.
@@ -531,16 +615,34 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records) -> int:
             fault="engine-dead",
         )
     engines = []
-    for i in range(n_init):
-        hook = None
-        if kill_plan is not None and i == kill_idx:
-            hook = dispatch_fault(kill_plan, f"engine{i}-dispatch")
-        engines.append(
-            InferenceEngine(
-                cfg, scfg, params=params, writer=writer, name=f"engine{i}",
-                fault_hook=hook, device=device,
+    try:
+        for i in range(n_init):
+            hook = None
+            if kill_plan is not None and i == kill_idx:
+                hook = dispatch_fault(kill_plan, f"engine{i}-dispatch")
+            engines.append(
+                InferenceEngine(
+                    cfg, scfg, params=params, writer=writer, name=f"engine{i}",
+                    fault_hook=hook, device=device,
+                    mesh=None if meshes is None else meshes[i],
+                )
             )
-        )
+        return _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records,
+                              params, n_init, engines)
+    finally:
+        # A sharded engine's followers leave their loops.
+        for engine in engines:
+            engine.close()
+
+
+def _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records, params,
+                   n_init, engines) -> int:
+    import numpy as np
+    import torch
+
+    from glom_tpu_torch.serve.batcher import DynamicBatcher, ShedError
+    from glom_tpu_torch.serve.events import stamp_serve as serve_rec
+
     degraded_iters = None
     if scfg.ladder:
         degraded_iters = (

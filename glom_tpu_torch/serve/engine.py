@@ -38,8 +38,21 @@ into stamped "serve" records.
 
 Continuation hops (`ServeConfig.max_continuations > 0`) are the
 batcher's (serve/batcher.DynamicBatcher): the engine answers each hop as a
-warm dispatch with the remaining `auto_budget`. Not ported yet: meshes
-(ROADMAP queue A item 8b); asking for one raises NotImplementedError.
+warm dispatch with the remaining `auto_budget`.
+
+Sharded route (parallel/serve_mesh.py): with a `ServeMesh` (`mesh=`, or
+`ServeConfig.mesh_data` / `mesh_seq` > 1, laid over the first ranks of the
+world) the engine is the mesh's leader and every bucket signature runs on
+its rank group: the leader sends each warm-up, dispatch and write-back to
+the follower ranks (serve/mesh_follower.run_follower, which the other ranks
+run) and computes its own band, batch rows over 'data' and patches over
+'seq'. The page pool shards its page axis over 'data'
+(paged_columns.ShardedColumnPool). A signature's first dispatch counts its
+collective wire bytes (glom_tpu's sites and formulas) onto the signature's
+stats record. glom_tpu's errors for what the mesh refuses are kept (ragged
+admission, the incremental route, a bucket `mesh_data` does not divide);
+delta streams on a sharded pool and the timed collective modes raise
+NotImplementedError naming their ROADMAP items (A8b.5, A9a).
 """
 
 from __future__ import annotations
@@ -115,7 +128,8 @@ def _to_host(x) -> np.ndarray:
 
 class InferenceEngine:
     """Owns params, an optional device page pool, and answers bucket and
-    ragged dispatches on one device."""
+    ragged dispatches on one device, or bucket dispatches on a rank group as
+    its leader (`mesh`)."""
 
     def __init__(
         self,
@@ -131,12 +145,18 @@ class InferenceEngine:
         fault_hook=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "InferenceEngine(mesh=...) is not ported yet: ROADMAP queue A item 8b"
-            )
         self.cfg = cfg
         self.scfg = scfg = scfg if scfg is not None else ServeConfig()
+        # Serve mesh: an explicit mesh wins; else resolve from the config
+        # (mesh axes of 1 mean the single-device route).
+        if mesh is None and (scfg.mesh_data > 1 or scfg.mesh_seq > 1):
+            from glom_tpu_torch.parallel.serve_mesh import make_serve_mesh
+
+            _check_mesh_shape(cfg, scfg, scfg.mesh_data, scfg.mesh_seq)
+            mesh = make_serve_mesh(scfg)
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh(cfg, scfg, mesh)
         if scfg.ragged:
             if cfg.local_consensus_radius > 0:
                 raise ValueError("ragged admission requires local_consensus_radius == 0")
@@ -153,13 +173,19 @@ class InferenceEngine:
                 "resolving to False", stacklevel=2,
             )
         # A single-device engine has no collectives to time: any mode
-        # resolves to "off", with glom_tpu's warning.
-        if scfg.collective_timing != "off":
-            warnings.warn(
-                "collective_timing has no sites on a single-device engine "
-                "(no collectives): resolving 'off'", stacklevel=2,
-            )
-        self.collective_timing = "off"
+        # resolves to "off", with glom_tpu's warning. On a mesh the timed
+        # modes are ROADMAP queue A item 9a.
+        if mesh is not None:
+            from glom_tpu_torch.telemetry.counters import resolve_collective_timing
+
+            self.collective_timing = resolve_collective_timing(scfg.collective_timing)
+        else:
+            if scfg.collective_timing != "off":
+                warnings.warn(
+                    "collective_timing has no sites on a single-device engine "
+                    "(no collectives): resolving 'off'", stacklevel=2,
+                )
+            self.collective_timing = "off"
         self.name = name
         self.writer = writer
         device = resolve_device(device)
@@ -178,9 +204,21 @@ class InferenceEngine:
         # The latency split's engine half: a plain attribute, so an A/B can
         # flip it per arm on one engine.
         self.phase_split = bool(scfg.phase_split)
+        # The sharded route's counted wire bytes, by signature.
+        self._comm: Dict[Tuple, dict] = {}
+        self._mesh = None
+        if mesh is not None:
+            from glom_tpu_torch.serve.mesh_follower import MeshLeader
+
+            # Sends the configs and the params to the followers.
+            self._mesh = MeshLeader(cfg, scfg, mesh, self.params, self.device)
         # The device page pool (page_pool_pages > 0): warm column state in
-        # device pages, gathered by page index on the paged dispatches.
-        self.pool = resolve_page_pool(cfg, scfg, writer=writer, name=name, device=self.device)
+        # device pages, gathered by page index on the paged dispatches (on a
+        # mesh, sharded over the ranks' 'data' axis).
+        self.pool = resolve_page_pool(cfg, scfg, writer=writer, name=name, device=self.device,
+                                      leader=self._mesh)
+        if self._mesh is not None and self._mesh.worker is not None:
+            self._mesh.worker.pool = self.pool
         # Warm column state this engine uploaded from the host, in bytes:
         # zero on the paged warm path.
         self.levels0_h2d_bytes_total = 0
@@ -328,12 +366,18 @@ class InferenceEngine:
         return pages.reshape(b, cfg.num_patches, cfg.levels, cfg.dim)
 
     def _forward(self, img, mask, warm, levels0=None, page_idx=None, support=None,
-                 iters_override=None, auto_budget=None):
+                 iters_override=None, auto_budget=None, n_valid=None, op="dispatch",
+                 bucket=None):
         """(levels, iters_run, row_converged, row_iters) of one bucket
         dispatch, synchronized; the per-row outcome as device tensors on
         the auto routes. A paged dispatch holds a read pin on the pool from
-        its gather until the synchronize."""
+        its gather until the synchronize. On a mesh the dispatch runs on the
+        engine's ranks (`n_valid` rides the header; `op` "warmup" sends no
+        image)."""
         auto, budget = self._route(iters_override, auto_budget)
+        if self._mesh is not None:
+            return self._mesh_forward(img, warm, levels0, page_idx, auto, budget, n_valid, op,
+                                      bucket)
         scfg = self.scfg
         paged = warm in ("paged", "paged-inc")
         pool = self.pool.acquire_read() if paged else None
@@ -369,6 +413,38 @@ class InferenceEngine:
                 self.pool.release_read()
         return out
 
+    def _mesh_forward(self, img, warm, levels0, page_idx, auto, budget, n_valid, op, bucket):
+        """One op on the engine's ranks; a signature's first one counts its
+        wire bytes."""
+        if warm == "paged-inc":
+            raise ValueError(
+                "the incremental route rides the single-device paged path only "
+                "(sharded incremental is a documented follow-on; docs/SERVING.md)"
+            )
+        key = (bucket, auto, budget, warm)
+        levels, iters_run, conv, row_iters, comm = self._mesh.dispatch(
+            op=op, bucket=bucket, n_valid=n_valid, auto=auto, budget=budget, warm=warm,
+            img=img if op != "warmup" else None, levels0=levels0, page_idx=page_idx,
+            count=key not in self._comm,
+        )
+        if comm is not None:
+            self._comm[key] = comm
+        return levels, iters_run, conv, row_iters
+
+    def _comm_key(self, sig) -> Tuple:
+        """A signature's counted-bytes key: (bucket, auto, budget, warm)."""
+        bucket, route, _, warm = sig
+        if isinstance(route, str):
+            _, _, n = route.partition(":")
+            return (bucket, True, int(n) if n else self.auto_budget, warm)
+        return (bucket, False, route, warm)
+
+    def close(self) -> None:
+        """Stop a sharded engine's followers (their loops return); a no-op on
+        one device. The engine dispatches no more across its ranks."""
+        if self._mesh is not None:
+            self._mesh.stop()
+
     def _observe(self, sig, dt: float, first: bool, iters_override) -> None:
         """Per-signature latency stats; a signature's first dispatch is its
         warm-up, stamped as glom_tpu stamps a compile."""
@@ -381,7 +457,7 @@ class InferenceEngine:
                     "iters": sig[1],
                     "warm_state": sig[3],
                     "degraded": iters_override is not None,
-                    "sharded": False,
+                    "sharded": self.mesh is not None,
                     "use_pallas": self.scfg.use_pallas,
                     "compile_time_s": round(dt, 4),
                 }
@@ -426,7 +502,8 @@ class InferenceEngine:
                 kw["support"] = torch.zeros((b, self.pages_per_row), dtype=torch.bool,
                                             device=self.device)
             t0 = time.perf_counter()
-            self._forward(img, mask, warm, iters_override=iters_override, **kw)
+            self._forward(img, mask, warm, iters_override=iters_override, n_valid=b,
+                          op="warmup", bucket=b, **kw)
             out[b] = time.perf_counter() - t0
             self._observe(sig, out[b], True, iters_override)
         return out
@@ -527,6 +604,11 @@ class InferenceEngine:
                     "support_rows needs the iters='auto' route (a fixed "
                     "budget has no early exit to seed)"
                 )
+            if self.mesh is not None:
+                raise ValueError(
+                    "the incremental route rides the single-device paged "
+                    "path only (sharded incremental is a follow-on)"
+                )
             support_rows = np.asarray(support_rows, bool)
             if support_rows.shape != page_rows.shape:
                 raise ValueError(f"support_rows shape {support_rows.shape} != {page_rows.shape}")
@@ -563,7 +645,7 @@ class InferenceEngine:
             if self._fault_hook is not None:
                 self._fault_hook({"bucket": b, "n_valid": n_valid, "attempt": attempts[0]})
             return self._forward(img, mask, warm, iters_override=iters_override,
-                                 auto_budget=auto_budget, **kw)
+                                 auto_budget=auto_budget, n_valid=n_valid, bucket=b, **kw)
 
         levels, iters_run, conv, row_iters = self._run_attempts(
             attempt, ph, split, bucket=b, n_valid=n_valid)
@@ -656,6 +738,8 @@ class InferenceEngine:
         row-packed like patches, carries a continuation's mid-flight
         columns in instead (not with page_idx); its bytes are reported."""
         self._check_live()
+        if self.mesh is not None:
+            raise ValueError("ragged dispatch: single-device route only")
         self._check_budget_args(iters_override, auto_budget)
         pt = self.page_tokens
         patches = np.asarray(patches, np.float32) if not isinstance(patches, torch.Tensor) else patches
@@ -763,6 +847,8 @@ class InferenceEngine:
         self._seen.clear()
         self._cold_levels = None
         self.released = True
+        if self._mesh is not None:
+            self._mesh.stop("release")
         if self.pool is not None:
             self.pool.release()
         self._emit({"event": "engine_release"})
@@ -774,7 +860,8 @@ class InferenceEngine:
 
     def stats_records(self) -> list:
         """One stamped "serve" record per signature with its latency
-        histogram (p50/p95/p99/max, the warm-up split out)."""
+        histogram (p50/p95/p99/max, the warm-up split out) and, on the
+        sharded route, its counted collective wire bytes a dispatch."""
         out = []
         for sig, stats in sorted(self._stats.items(), key=lambda kv: str(kv[0])):
             bucket, iters_key, pallas, warm = sig
@@ -787,5 +874,46 @@ class InferenceEngine:
                 "use_pallas": pallas,
                 **stats.summary(),
             }
+            comm = self._comm.get(self._comm_key(sig))
+            if comm is not None:
+                rec.update(comm)
             out.append(schema.stamp(rec, kind="serve"))
         return out
+
+
+def _check_mesh(cfg: GlomConfig, scfg: ServeConfig, mesh) -> None:
+    """glom_tpu's refusals of a mesh the engine cannot serve, before any op
+    reaches the followers."""
+    import torch.distributed as dist
+
+    _check_mesh_shape(cfg, scfg, mesh.shape["data"], mesh.shape["seq"])
+    if dist.get_rank() != mesh.leader:
+        raise ValueError(
+            f"rank {dist.get_rank()} is not the leader ({mesh.leader}) of {mesh}: the other "
+            "ranks run serve.mesh_follower.run_follower"
+        )
+
+
+def _check_mesh_shape(cfg: GlomConfig, scfg: ServeConfig, data: int, seq: int) -> None:
+    if cfg.num_patches % seq != 0:
+        raise ValueError(f"patches {cfg.num_patches} not divisible by mesh_seq={seq}")
+    if any(b % data for b in scfg.buckets):
+        raise ValueError(
+            f"every bucket {scfg.buckets} must be divisible by "
+            f"mesh_data={data} (batch rows shard over 'data')"
+        )
+    if scfg.ragged:
+        raise ValueError(
+            "ragged admission rides the single-device route only (the sharded ragged "
+            "gather is a follow-on; docs/SERVING.md)"
+        )
+    if scfg.page_pool_pages > 0 and scfg.page_pool_pages % data != 0:
+        raise ValueError(
+            f"page_pool_pages {scfg.page_pool_pages} not divisible by mesh_data={data} "
+            "(the pool's page axis shards over 'data')"
+        )
+    if scfg.delta_streaming:
+        raise NotImplementedError(
+            "delta_streaming on a sharded engine is not ported yet: ROADMAP queue A "
+            "item 8b.5"
+        )

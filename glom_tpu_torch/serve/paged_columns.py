@@ -166,8 +166,7 @@ class PagedColumnPool:
 
     `device` is the engine's (the buffer lives there); the injectable
     `writer` receives the stamped page events through the writer-else-
-    flight path. glom_tpu's `pool_sharding` (a pool sharded over a mesh)
-    comes with the meshes, ROADMAP queue A item 8b."""
+    flight path. A sharded engine's pool is `ShardedColumnPool`."""
 
     def __init__(self, cfg, scfg, *, writer=None, name: str = "engine0", device="cuda"):
         if scfg.page_pool_pages < 1:
@@ -222,9 +221,13 @@ class PagedColumnPool:
         self.cow_bytes_moved = 0
         # The preallocated buffer, zeros; warm traffic never grows it.
         self._buffer: Optional[torch.Tensor] = torch.zeros(
-            (self.n_pages, self.page_tokens, cfg.levels, cfg.dim),
+            (self._local_pages(), self.page_tokens, cfg.levels, cfg.dim),
             dtype=self._dtype, device=self.device,
         )
+
+    def _local_pages(self) -> int:
+        """The pages this process's buffer holds (all of them here)."""
+        return self.n_pages
 
     # -- the page table ----------------------------------------------------
 
@@ -438,8 +441,16 @@ class PagedColumnPool:
         a read pin (the epoch advances, `page_alias` stamps what moved);
         any live pin forces the copy-on-write fallback, stamped and
         counted."""
-        if self.aliasing and self._read_pins == 0:
+        if self._note_write_locked(pages_written, session_id, events):
             self._buffer.index_copy_(0, idx, pages)
+        else:
+            self._buffer = self._buffer.clone().index_copy_(0, idx, pages)
+
+    def _note_write_locked(self, pages_written: int, session_id: Optional[str],
+                           events: List[dict]) -> bool:
+        """A write-back's in-place decision (caller holds the lock), with its
+        counters and events: True to write in place, False to copy."""
+        if self.aliasing and self._read_pins == 0:
             self._epoch += 1
             self.n_alias_writes += 1
             self.alias_bytes_moved += pages_written * self.page_bytes
@@ -452,20 +463,20 @@ class PagedColumnPool:
                     "bytes_moved": pages_written * self.page_bytes,
                 }
             )
-        else:
-            self._buffer = self._buffer.clone().index_copy_(0, idx, pages)
-            self.cow_bytes_moved += self.pool_bytes
-            if self.aliasing:
-                self.n_alias_fallbacks += 1
-                events.append(
-                    {
-                        "event": "alias_fallback",
-                        "session": session_id,
-                        "n_pages": pages_written,
-                        "read_pins": self._read_pins,
-                        "bytes_moved": self.pool_bytes,
-                    }
-                )
+            return True
+        self.cow_bytes_moved += self.pool_bytes
+        if self.aliasing:
+            self.n_alias_fallbacks += 1
+            events.append(
+                {
+                    "event": "alias_fallback",
+                    "session": session_id,
+                    "n_pages": pages_written,
+                    "read_pins": self._read_pins,
+                    "bytes_moved": self.pool_bytes,
+                }
+            )
+        return False
 
     def _copy_pages_locked(self, src: List[int], dst: List[int]) -> None:
         """Copy-on-write page copy: the next buffer holds src's pages at
@@ -900,11 +911,77 @@ class PagedColumnPool:
             return rec
 
 
+_SHARDED_NOT_PORTED = (
+    "{} on a sharded pool is not ported yet: ROADMAP queue A item 8b.5 (the "
+    "sharded engine's pool takes whole-row write-backs only)"
+)
+
+
+class ShardedColumnPool(PagedColumnPool):
+    """The page pool of a sharded engine (glom_tpu's `pool_sharding`): the
+    page axis is split over 'data', each compute rank holding pages
+    [index x pps, (index + 1) x pps) with pps = page_pool_pages /
+    mesh_data, replicated over 'seq'. This object, on the leader, keeps the
+    whole page table and the leader's own shard (none when the leader
+    computes no band). A write-back allocates in the table, then sends the
+    row's pages to the group as a `write_back` op (serve/mesh_follower.py),
+    and every rank that owns some of them writes them, in place or
+    copy-on-write as the leader decided under its read pins (the counters
+    and events are the single-device pool's; `cow_bytes_moved` counts the
+    whole pool a copy, summed over the shards). Delta streams, defrag and
+    read-back (the drain migration) stay single-device for now."""
+
+    def __init__(self, cfg, scfg, *, leader, writer=None, name: str = "engine0", device="cuda"):
+        self._leader = leader
+        mesh = leader.mesh
+        self._pps = scfg.page_pool_pages // mesh.shape["data"]
+        self._lo = mesh.axes.data.index * self._pps if mesh.is_member else 0
+        super().__init__(cfg, scfg, writer=writer, name=name, device=device)
+
+    def _local_pages(self) -> int:
+        return self._pps if self._leader.mesh.is_member else 0
+
+    def write_back(self, session_id: str, levels_row, n_tokens: int) -> bool:
+        pages = self.alloc(session_id, n_tokens)
+        if pages is None:
+            return False
+        rows = self._row_pages(levels_row, len(pages), n_tokens)
+        events: List[dict] = []
+        # The engine's op lock first, then the pool's: a dispatch takes them
+        # in that order too.
+        with self._leader.lock:
+            with self._lock:
+                in_place = self._note_write_locked(len(pages), session_id, events)
+                self.n_writebacks += 1
+            self._leader.write_back(pages, rows, in_place, self._apply_local)
+        self._flush(events)
+        return True
+
+    def _apply_local(self, ids: torch.Tensor, pages: torch.Tensor, in_place: bool) -> None:
+        from glom_tpu_torch.serve.mesh_follower import apply_owned
+
+        with self._lock:
+            self._buffer = apply_owned(self._buffer, self._lo, ids, pages, in_place)
+
+    def write_back_stream(self, *args, **kwargs):
+        raise NotImplementedError(_SHARDED_NOT_PORTED.format("write_back_stream"))
+
+    def read_block(self, *args, **kwargs):
+        raise NotImplementedError(_SHARDED_NOT_PORTED.format("read_block"))
+
+    def defrag(self) -> int:
+        raise NotImplementedError(_SHARDED_NOT_PORTED.format("defrag"))
+
+
 def resolve_page_pool(
-    cfg, scfg, *, writer=None, name: str = "engine0", device="cuda"
+    cfg, scfg, *, writer=None, name: str = "engine0", device="cuda", leader=None
 ) -> Optional[PagedColumnPool]:
     """The one config -> pool resolution: `page_pool_pages > 0` builds the
-    device pool, 0 builds none."""
+    device pool (sharded over the engine's ranks with a mesh `leader`), 0
+    builds none."""
     if scfg.page_pool_pages <= 0:
         return None
+    if leader is not None:
+        return ShardedColumnPool(cfg, scfg, leader=leader, writer=writer, name=name,
+                                 device=device)
     return PagedColumnPool(cfg, scfg, writer=writer, name=name, device=device)

@@ -7,7 +7,12 @@ named collective sites in `parallel/manual.py` (the seq all-reduce, the
 ZeRO reduce-scatter / mean fallback, the param all-gather, the TP FFW
 all-reduce) report their per-replica ring wire bytes from the actual
 tensors at each call, so aggregation decisions the model cannot see show
-up as measured-vs-modeled drift (`comm_model_drift`).
+up as measured-vs-modeled drift (`comm_model_drift`). The serve mesh's
+sites (`parallel/serve_mesh.py`: the quorum and witness all-reduces, the
+page gathers) are counted over a signature's first dispatch onto the
+engine's stats record; its `iters="auto"` loop runs in Python, so its
+sites are priced once before the loop under `scaled(T)`, the budget, and
+the loop's executions run `paused`: glom_tpu's while-loop convention.
 
 glom_tpu records over one abstract trace of the step. The port counts the
 calls of one real step inside a `recording(...)` context (the distributed

@@ -106,8 +106,8 @@ class ServeConfig:
     resilience/ladder.py): admission, continuation hops, the degradation
     ladder, the session column cache, engine rejoin, request tracing and
     SLO classes, and the elastic fleet (serve/elastic.py: the autoscaler's
-    policy, warm-pool spares and drained-husk retention). The reference's
-    serve-mesh fields (ROADMAP queue A item 8b) are not here."""
+    policy, warm-pool spares and drained-husk retention), and the serve
+    mesh (`mesh_data` x `mesh_seq` ranks an engine, parallel/serve_mesh.py)."""
 
     # Ascending batch-size buckets; a dispatch pads to the smallest bucket
     # >= its request count. The largest bucket is the dispatch ceiling.
@@ -134,6 +134,13 @@ class ServeConfig:
     # state and remaining budget, up to max_continuations hops (0: they
     # resolve with the state they have).
     max_continuations: int = 0
+    # Serve mesh (parallel/serve_mesh.py): axis sizes > 1 run every bucket
+    # signature on a group of mesh_data x mesh_seq ranks, batch rows split
+    # over 'data' and the patch axis over 'seq', the early-exit witness
+    # collectives inside the loop. Every bucket must be divisible by
+    # mesh_data.
+    mesh_data: int = 1
+    mesh_seq: int = 1
     compute_dtype: str = "float32"  # "bfloat16" for tensor-core serving
     use_pallas: bool = False  # True: the fused kernel path (name kept)
     # Input donation: eager PyTorch donates nothing, so None resolves to
@@ -202,9 +209,10 @@ class ServeConfig:
     # The engine's latency split: each dispatch reports the ms it spent
     # staging inputs (h2d) and reading results back (resolve).
     phase_split: bool = True
-    # How a sharded paged dispatch gathers pool pages: kept for the
-    # reference's field set and checks; the serve mesh that reads it is
-    # ROADMAP queue A item 8b.
+    # How a sharded paged dispatch gathers pool pages (the pool's page axis
+    # is split over 'data'): "pool" all-gathers every rank's pages,
+    # "needed" sends only the pages the dispatch's rows reference, "auto"
+    # takes whichever moves fewer bytes at the signature's shapes.
     page_gather: str = "auto"
     # Engine rejoin: a dead engine of a multi-engine batcher serves again
     # after rejoin_threshold consecutive successful probation dispatches,
@@ -216,8 +224,8 @@ class ServeConfig:
     # keys as null).
     trace_requests: bool = True
     # Per-collective wall time: a single-device engine has no collectives,
-    # so any mode resolves to "off" there, with a warning (the meshes are
-    # ROADMAP queue A item 8b).
+    # so any mode resolves to "off" there, with a warning; the timed modes
+    # are ROADMAP queue A item 9a.
     collective_timing: str = "off"
     collective_timing_interval: int = 16
     # Elastic serving (serve/elastic.py): elastic=True runs an Autoscaler
@@ -317,6 +325,16 @@ class ServeConfig:
             raise ValueError(f"max_continuations {self.max_continuations} must be >= 0")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}: 'float32' or 'bfloat16'")
+        if self.mesh_data < 1 or self.mesh_seq < 1:
+            raise ValueError(
+                f"mesh_data={self.mesh_data} mesh_seq={self.mesh_seq}: "
+                "serve mesh axes must be >= 1"
+            )
+        if self.mesh_data > 1 and any(b % self.mesh_data for b in self.buckets):
+            raise ValueError(
+                f"every bucket {self.buckets} must be divisible by "
+                f"mesh_data={self.mesh_data} (batch rows shard over 'data')"
+            )
         if self.dispatch_retries < 0:
             raise ValueError(f"dispatch_retries {self.dispatch_retries} must be >= 0")
         if self.retry_backoff_ms < 0:

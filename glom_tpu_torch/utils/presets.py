@@ -10,8 +10,7 @@ shrinks the mesh to what is available; the training CLI's
 `serve` holds the fields of glom_tpu's serving policy that the port's
 `ServeConfig` has: the engine's, the page pool's and the host stack's
 (admission delay, queue depth, column cache bytes and TTL, rejoin
-threshold). The serve mesh (mesh_data, mesh_seq) comes with queue A
-item 8b.
+threshold) and the serve mesh's axes (mesh_data, mesh_seq).
 """
 
 from __future__ import annotations
@@ -180,6 +179,9 @@ _register(
             min_iters=4,
             exit_quorum=0.75,
             max_continuations=2,
+            # Each engine replica is a data 4 x seq 2 serve mesh of ranks.
+            mesh_data=4,
+            mesh_seq=2,
             compute_dtype="bfloat16",
             column_cache_bytes=2 << 30,
             column_cache_ttl_s=60.0,

@@ -104,10 +104,14 @@ def test_unported_routes_raise():
     """The early-exit, ragged and paged routes are ported
     (test_torch_port_early_exit, test_torch_port_ragged,
     test_torch_port_paged), and so are the batcher's continuation hops
-    (test_torch_port_batcher); meshes still raise, and the paged forms
-    need a pool."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        InferenceEngine(GlomConfig(**TINY), device="cpu", mesh=object())
+    (test_torch_port_batcher) and meshes (test_torch_port_serve_mesh); a
+    mesh the engine cannot serve is refused before any rank is asked, and
+    the paged forms need a pool."""
+    from types import SimpleNamespace
+
+    with pytest.raises(ValueError, match="mesh_seq=3"):
+        InferenceEngine(GlomConfig(**TINY), device="cpu",
+                        mesh=SimpleNamespace(shape={"data": 1, "seq": 3}, leader=0))
     cont = InferenceEngine(GlomConfig(**TINY), ServeConfig(max_continuations=1), device="cpu")
     assert cont.scfg.max_continuations == 1
     eng = InferenceEngine(GlomConfig(**TINY), device="cpu")

@@ -1458,3 +1458,23 @@ def test_distributed_phases_at_small_width(dev):
     )
     assert launches["grouped_mlp_fwd_cat"] > 0 and launches["consensus_update_bwd_dq"] > 0
     assert launches["banded_consensus_fwd"] == 0
+
+
+def test_mesh_phases_at_small_width(dev):
+    """chip_smoke.py's mesh_forward, serve_mesh and serve_cli_mesh at a small
+    width: Glom(mesh=) at data 2 and seq 2 (ring, Ulysses) at the f32 bars
+    with exact launches a rank, the sharded engine's routes bit for bit
+    each other with glom_tpu's counted bytes and a follower fault surfaced,
+    and the serve CLI under torch.distributed.run. Each phase raises on a
+    miss."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    small = dict(dim=64, levels=4, image_size=32, patch_size=4)
+    launches = chip_smoke.mesh_phases(
+        GlomConfig(**small), dev, "test",
+        cli_argv=["--preset", "cifar10", "--mesh-data", "2", "--buckets", "2,4,8",
+                  "--dist-backend", "gloo", "--synthetic", "8"],
+    )
+    assert launches["grouped_mlp_fwd"] > 0 and launches["consensus_update_fwd"] > 0
+    assert launches["consensus_update_bwd_dq"] == 0

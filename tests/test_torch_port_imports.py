@@ -47,6 +47,7 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.parallel.collectives", "glom_tpu_torch.parallel.ring",
                    "glom_tpu_torch.parallel.ulysses", "glom_tpu_torch.parallel.halo",
                    "glom_tpu_torch.parallel.manual", "glom_tpu_torch.parallel.runtime",
+                   "glom_tpu_torch.parallel.serve_mesh", "glom_tpu_torch.serve.mesh_follower",
                    "glom_tpu_torch.telemetry.counters"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")

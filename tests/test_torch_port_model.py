@@ -127,12 +127,41 @@ def test_glom_module_matches_reference(use_pallas):
 
 def test_glom_unported_routes_raise():
     """iters="auto" is ported (test_torch_port_serve_engine); with
-    return_all it is refused, as glom_tpu refuses it, and meshes raise."""
+    return_all it is refused, as glom_tpu refuses it. Meshes are ported
+    (test_torch_port_serve_mesh); one without the 'data' and 'seq' axes
+    raises, where glom_tpu falls back to its GSPMD forward."""
     m = Glom(**TINY, device="cpu")
     with pytest.raises(ValueError, match="return_all"):
         m(torch.zeros(1, 3, 16, 16), iters="auto", return_all=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'data' and 'seq'"):
         Glom(**TINY, device="cpu", mesh=object())
+
+
+def test_pallas_with_a_custom_consensus_fn_matches_glom_tpu():
+    """glom_forward(use_pallas=True, consensus_fn=...): the reference layout
+    with K1 (its plain version on the CPU) for the FFWs, as glom_tpu runs a
+    sharded rank's body; against glom_tpu's at the f32 bar, its gradient
+    through K1's autograd Function against the plain route's."""
+    from functools import partial
+
+    from glom_tpu.ops.consensus import consensus_attention as j_consensus
+    from glom_tpu_torch.ops.consensus import consensus_attention
+
+    jcfg, tcfg, jp, tp, img = setup()
+    jout = jcore.glom_forward(jp, jnp.asarray(img), jcfg, iters=2, use_pallas=True,
+                              consensus_fn=partial(j_consensus, attend_self=False))
+    fn = partial(consensus_attention, attend_self=False)
+    x = torch.from_numpy(img)
+    out = tcore.glom_forward(tp, x, tcfg, iters=2, use_pallas=True, consensus_fn=fn)
+    close(out, jout)
+    leaves = [t.clone().requires_grad_() for t in tcore.param_leaves(tp)]
+    grads = {}
+    for pallas in (True, False):
+        p = tcore.unflatten_params(tp, leaves)
+        y = tcore.glom_forward(p, x, tcfg, iters=2, use_pallas=pallas, consensus_fn=fn)
+        grads[pallas] = torch.autograd.grad(y.square().sum(), leaves)
+    for a, b in zip(grads[True], grads[False]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
 
 
 def test_init_glom_shapes_and_determinism():

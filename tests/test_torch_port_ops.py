@@ -81,14 +81,19 @@ class TestHelpersAndConfig:
             "trace_requests", "slo_classes", "slo_default_class", "slo_shed_order",
             "slo_starvation_floor",
         }
-        assert not names & {"mesh_data", "mesh_seq"}
+        # The serve mesh's axes, with glom_tpu's defaults and its check.
+        ref = {f.name: f.default for f in dataclasses.fields(jconfig.ServeConfig)}
+        got = {f.name: f.default for f in dataclasses.fields(tconfig.ServeConfig)}
+        assert {"mesh_data", "mesh_seq"} <= names
+        assert got["mesh_data"] == ref["mesh_data"] and got["mesh_seq"] == ref["mesh_seq"]
         for bad in (dict(queue_depth=0), dict(max_delay_ms=-1.0), dict(degraded_iters=0),
                     dict(degraded_max_batch=0), dict(ladder_low_water=0.8),
                     dict(ladder_high_water=1.5), dict(column_cache_bytes=-1),
                     dict(column_cache_ttl_s=0.0), dict(page_gather="some"),
                     dict(rejoin_threshold=-1), dict(rejoin_interval_ms=0.0),
                     dict(slo_starvation_floor=1.0), dict(slo_shed_order=("a",)),
-                    dict(slo_classes=("a:weight=0",))):
+                    dict(slo_classes=("a:weight=0",)), dict(mesh_data=0), dict(mesh_seq=0),
+                    dict(buckets=(1, 2, 4), max_batch=4, mesh_data=2)):
             with pytest.raises(ValueError) as want:
                 jconfig.ServeConfig(**bad)
             with pytest.raises(ValueError) as got:

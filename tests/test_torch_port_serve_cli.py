@@ -3,8 +3,10 @@ in a subprocess on the CPU (`--device cpu`), on the mnist preset: glom_tpu's
 flags plus `--device`, a ramp with a killed engine that fails over and
 lints clean, a recorded workload replayed, the argv exit codes, the
 elastic fleet's and the forecaster's flags, a ramp the autoscaler scales
-out and back in, the serve-mesh flags it refuses with their ROADMAP item,
-and the refusal to run without a card."""
+out and back in, the serve mesh's refusal of `--elastic` with its ROADMAP
+item and of a mesh with no ranks to hold it (the mesh itself runs under
+gloo ranks in test_torch_port_serve_mesh), and the refusal to run without
+a card."""
 
 import json
 import subprocess
@@ -33,7 +35,10 @@ def _flags(parser):
 
 
 def test_flags_are_the_reference_flags_plus_device():
-    assert _flags(cli.build_parser()) == _flags(jcli.build_parser()) | {"--device"}
+    """glom_tpu's flags, plus `--device` and the serve mesh's
+    `--dist-backend` (ranks sharing one card need gloo)."""
+    assert _flags(cli.build_parser()) == _flags(jcli.build_parser()) | {"--device",
+                                                                        "--dist-backend"}
     assert cli.parse_ramp("6x120,48x0") == jcli.parse_ramp("6x120,48x0")
 
 
@@ -80,10 +85,25 @@ def test_argv_errors_exit_2(argv, tmp_path):
     assert cli.main([*BASE, *argv, "--out", str(tmp_path / "m.jsonl")]) == 2
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh-data", "2"], 8), (["--mesh-seq", "2"], 8)])
+@pytest.mark.parametrize("flag,item", [
+    (["--mesh-data", "2", "--buckets", "2,4", "--elastic"], "8b.4"),
+    (["--mesh-seq", "2", "--elastic"], "8b.4"),
+])
 def test_unported_flags_raise(flag, item):
+    """The mesh flags run (test_torch_port_serve_mesh); an elastic fleet on
+    a mesh is what stays unported."""
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         cli.main([*BASE, "--synthetic", "1", *flag])
+
+
+def test_a_mesh_without_its_ranks_exits_2(tmp_path, capsys):
+    """One process and no process group cannot hold a 2-rank mesh; a bucket
+    the data axis does not divide is an argv error too."""
+    out = str(tmp_path / "m.jsonl")
+    assert cli.main([*BASE, "--synthetic", "1", "--mesh-seq", "2", "--out", out]) == 2
+    assert "torch.distributed.run --nproc-per-node 2" in capsys.readouterr().err
+    assert cli.main([*BASE, "--synthetic", "1", "--mesh-data", "2", "--out", out]) == 2
+    assert "divisible by mesh_data=2" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag,check", [

@@ -310,5 +310,176 @@ def fail_on(rank_to_fail):
     return "ok"
 
 
+# -- sharded inference ----------------------------------------------------------
+
+
+def glom_mesh(shape, sp, cfg_kw, arrays, img, levels0, iters, use_pallas=True):
+    """Glom(mesh=MeshConfig(*shape)) on every rank: the final state, all
+    T+1 states, and the final state from a carried-in levels0; and the
+    auto route's refusal."""
+    from glom_tpu_torch.models.api import Glom
+    from glom_tpu_torch.utils.config import MeshConfig
+
+    m = Glom(**cfg_kw, params=_params(arrays), mesh=MeshConfig(*shape), sp_strategy=sp,
+             device="cpu", use_pallas=use_pallas)
+    x, lv = torch.from_numpy(img), torch.from_numpy(levels0)
+    out = {"final": _np(m(x, iters=iters)), "all": _np(m(x, iters=iters, return_all=True)),
+           "with_levels": _np(m(x, iters=iters, levels=lv))}
+    try:
+        m(x, iters="auto")
+    except NotImplementedError as e:
+        out["auto_refused"] = str(e)
+    return out
+
+
+def _serve_script(eng, calls):
+    """Run `calls` on the leader's engine: each a dict with "kind" infer /
+    warmup / write_back / lookup / stats / pool_record / release;
+    "levels0_from" and "from" name an earlier infer call by its index.
+    Returns one entry a call."""
+    import numpy as np
+
+    results, out = [], []  # one entry a call (the ServeResult of an infer)
+    for c in calls:
+        kind = c["kind"]
+        if kind != "infer":
+            results.append(None)
+        if kind == "infer":
+            kw = {k: c[k] for k in ("n_valid", "auto_budget", "iters_override", "page_rows",
+                                    "support_rows") if c.get(k) is not None}
+            if c.get("levels0_from") is not None:
+                kw["levels0"] = results[c["levels0_from"]].levels.cpu()
+            try:
+                r = eng.infer(c["img"], **kw)
+            except Exception as e:  # noqa: BLE001 - the test reads the error
+                results.append(None)
+                out.append({"error": type(e).__name__, "message": str(e)})
+                continue
+            results.append(r)
+            out.append({"levels": _np(r.levels), "iters_run": r.iters_run,
+                        "row_converged": np.asarray(r.row_converged),
+                        "row_iters": np.asarray(r.row_iters),
+                        "levels0_h2d_bytes": r.levels0_h2d_bytes})
+        elif kind == "warmup":
+            out.append(eng.warmup(**c.get("kw", {})))
+        elif kind == "write_back":
+            row = results[c["from"]].levels[c["row"]]
+            out.append(eng.pool.write_back(c["sid"], row, eng.cfg.num_patches))
+        elif kind == "lookup":
+            got = eng.pool.lookup(c["sid"])
+            out.append(None if got is None else list(got[0]))
+        elif kind == "stats":
+            out.append([{k: v for k, v in r.items() if isinstance(v, (int, float, str, bool))
+                         or v is None} for r in eng.stats_records()])
+        elif kind == "pool_record":
+            out.append(eng.pool.record())
+        elif kind == "release":
+            eng.release()
+            out.append(True)
+    return out
+
+
+def _batcher_script(eng, reqs, timeout=300.0):
+    """The two-tier test's traffic through DynamicBatcher over the engine:
+    each ticket's (levels row, iters) and the summary record."""
+    from glom_tpu_torch.serve.batcher import DynamicBatcher
+
+    with DynamicBatcher(eng) as b:
+        tickets = [b.submit(r) for r in reqs]
+        outs = [t.result(timeout=timeout) for t in tickets]
+        summary = b.summary_record()
+    return {"iters": [int(o[1]) for o in outs], "summary": {
+        k: v for k, v in summary.items() if isinstance(v, (int, float, str, bool))}}
+
+
+def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, engines=1,
+               leader=None):
+    """InferenceEngine(mesh=) on the leader, run_follower elsewhere. With
+    `engines` > 1 the ranks split into that many groups
+    (runtime.make_engine_meshes), every engine held by `leader`; each runs
+    the same calls. `fault`: {"rank": r, "fail": [(op index, "transient" |
+    "kernel")]} makes rank r's fault hook raise before those ops. Returns
+    the leader's results, or a follower's {"ops", "failed"}."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from glom_tpu_torch.kernels._build import KernelError
+    from glom_tpu_torch.parallel.runtime import make_engine_meshes
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.serve.mesh_follower import run_follower
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, scfg = GlomConfig(**cfg_kw), ServeConfig(**scfg_kw)
+    rank = dist.get_rank()
+    meshes = make_engine_meshes(scfg, engines, leader=leader)
+    if rank == meshes[0].leader:
+        out = []
+        for i, mesh in enumerate(meshes):
+            eng = InferenceEngine(cfg, dataclasses.replace(scfg), params=_params(arrays),
+                                  device="cpu", mesh=mesh, name=f"engine{i}")
+            try:
+                if batcher is not None:
+                    out.append(_batcher_script(eng, batcher))
+                else:
+                    out.append(_serve_script(eng, calls))
+                out[-1] = {"results": out[-1], "ranks": list(mesh.ranks),
+                           "wire": dict(eng._mesh.channel.wire)}
+            finally:
+                eng.close()
+        return out
+    seen = [0]
+
+    def hook(h):
+        seen[0] += 1
+        for at, what in (fault or {}).get("fail", []):
+            if fault["rank"] == rank and seen[0] == at:
+                raise (KernelError if what == "kernel" else RuntimeError)(
+                    f"rank {rank} fails op {at} on purpose")
+
+    for mesh in meshes:
+        if mesh.is_member:
+            stats = run_follower(mesh, "cpu", fault_hook=hook)
+            return {"ops": stats["ops"], "failed": stats["failed"], "ranks": list(mesh.ranks)}
+    return None
+
+
+def engine_meshes(scfg_kw, n_engines, leader=None):
+    """make_engine_meshes' groups as every rank sees them, and
+    engine_mesh_for's."""
+    from glom_tpu_torch.parallel.runtime import engine_mesh_for, make_engine_meshes
+    from glom_tpu_torch.utils.config import ServeConfig
+
+    scfg = ServeConfig(**scfg_kw)
+    meshes = make_engine_meshes(scfg, n_engines, leader=leader)
+    out = {"groups": [list(m.ranks) for m in meshes], "leaders": [m.leader for m in meshes],
+           "member": [m.is_member for m in meshes],
+           "index": [None if m.axes is None else (m.axes.data.index, m.axes.seq.index)
+                     for m in meshes],
+           "for_1": list(engine_mesh_for(scfg, 1).ranks)}
+    try:
+        make_engine_meshes(scfg, n_engines + 1)
+    except ValueError as e:
+        out["too_many"] = str(e)
+    return out
+
+
+def serve_cli(argv, out):
+    """`python -m glom_tpu_torch.serve` on every rank of the group that is
+    up: the exit code, and on rank 0 the stream's records."""
+    import json
+
+    import torch.distributed as dist
+
+    from glom_tpu_torch.serve import cli
+
+    rc = cli.main([*argv, "--out", out] if dist.get_rank() == 0 else argv)
+    if dist.get_rank() != 0:
+        return {"rc": rc}
+    with open(out) as fh:
+        return {"rc": rc, "records": [json.loads(ln) for ln in fh]}
+
+
 CASES = {f.__name__: f for f in (fail_on, loss_grads, trainer_run, checkpoint_roundtrip, sp_bodies,
-                                 consensus_fns, collective_grads, mesh_facts)}
+                                 consensus_fns, collective_grads, mesh_facts, glom_mesh,
+                                 serve_mesh, engine_meshes, serve_cli)}
