@@ -936,6 +936,10 @@ MESH_POOL_PAGES = 32  # 4 pages a row x 8 rows, split 16 a rank
 MESH_CLI_ARGV = ["--preset", "imagenet224-dp8", "--mesh-data", "2", "--buckets", "2,4,8,16",
                  "--dist-backend", "gloo", "--synthetic", "32"]
 MESH_F32 = dict(rtol=2e-3, atol=2e-4)  # serve_parity_f32's bars
+# The bf16 sharded engine's fixed loop against the single-device bf16
+# engine's (max abs): the bf16 serve bar, 2.6x the 3.9e-3 (one bf16 ulp
+# at 1) read at the flagship on an H100.
+MESH_BF16_ATOL = BF16_SERVE_ATOL
 
 
 def _within(got, want, rtol, atol):
@@ -1045,8 +1049,10 @@ def _case_mesh_forward(rank, device, cfg_kw):
     return out
 
 
-def _mesh_engine_script(eng, rank, dev, spec, img, single_f32=None):
-    """One leader-side engine run of `_case_serve_mesh` (see there)."""
+def _mesh_engine_script(eng, rank, dev, spec, img, single):
+    """One leader-side engine run of `_case_serve_mesh` (see there);
+    `single` is the single-device engine's levels on `img` (f32: the
+    engine's route, bf16: the fixed loop of T), on the host."""
     import numpy as np
     import torch
 
@@ -1055,9 +1061,8 @@ def _mesh_engine_script(eng, rank, dev, spec, img, single_f32=None):
     res = {}
     sync = partial(_sync, dev)
     if spec["name"].startswith("f32"):
-        res["levels"] = eng.infer(img).levels.float()
-        want = single_f32.infer(img).levels.float()
-        ok, err, ratio = _within(res.pop("levels"), want, **MESH_F32)
+        got = eng.infer(img).levels.float().cpu()
+        ok, err, ratio = _within(got, single, **MESH_F32)
         res.update(ok=ok, max_abs_err=err, bar_ratio=ratio)
         return res
     staged = collections.Counter(collectives.STAGED)
@@ -1075,10 +1080,12 @@ def _mesh_engine_script(eng, rank, dev, spec, img, single_f32=None):
         t0 = time.perf_counter()
         fixed = eng.infer(img, iters_override=MESH_T)
         fixed_ms.append(1e3 * (time.perf_counter() - t0))
+    single_err = float((fixed.levels.float().cpu() - single).abs().max())
     res.update(auto_ms=auto_ms, fixed_ms=fixed_ms, exit_read_ms=reads,
                auto_iters=auto.iters_run,
                auto_bitwise_fixed=bool(torch.equal(auto.levels, fixed.levels)),
-               finite=bool(auto.levels.float().isfinite().all()))
+               finite=bool(auto.levels.float().isfinite().all()),
+               single_max_abs_err=single_err, single_ok=single_err <= MESH_BF16_ATOL)
     # The warm host carry: 12 more from the fixed result's columns equal a
     # 24-iteration cold dispatch, bit for bit.
     host = fixed.levels.cpu()
@@ -1095,8 +1102,9 @@ def _mesh_engine_script(eng, rank, dev, spec, img, single_f32=None):
                    paged_levels=paged.levels.cpu(), paged_levels0_bytes=paged.levels0_h2d_bytes,
                    pool=eng.pool.record())
     if spec.get("fault"):
-        # The follower's hook fails the next op (transient: retried) and the
-        # one after the retry's (a KernelError: raised, not retried).
+        # The follower's hook fails the next op (transient: retried); its
+        # compute step then raises a KernelError inside the body of the op
+        # after (raised on the leader, not retried).
         ok1 = eng.infer(img, iters_override=MESH_T)
         try:
             eng.infer(img, iters_override=MESH_T)
@@ -1127,7 +1135,9 @@ MESH_ENGINES = [
 def _case_serve_mesh(rank, device, cfg_kw):
     """InferenceEngine(mesh=) at the flagship width, bucket 8, T = 12, rank 0
     leading and rank 1 following, one engine a spec of MESH_ENGINES: f32 at
-    data 2 and seq 2 against the single-device f32 engine; bf16 at data 2
+    data 2 and seq 2 against the single-device f32 engine, and each bf16
+    engine's fixed loop against the single-device bf16 engine's (each run
+    before the counters go to 0, so no launch of theirs counts); bf16 at data 2
     (a 32-page pool gathered whole, then only the needed pages, with a
     follower fault) and seq 2 (the engine's "auto" strategy: Ulysses at the
     flagship, the ring where the levels do not split): the auto route at
@@ -1144,6 +1154,8 @@ def _case_serve_mesh(rank, device, cfg_kw):
     from glom_tpu_torch.serve.engine import InferenceEngine
     from glom_tpu_torch.serve.mesh_follower import run_follower
     from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    from glom_tpu_torch.serve import mesh_follower
 
     cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
     params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
@@ -1163,40 +1175,52 @@ def _case_serve_mesh(rank, device, cfg_kw):
             page_gather=spec.get("page_gather", "auto"),
             dispatch_retries=1 if spec.get("fault") else 0)
         mesh = make_serve_mesh(scfg)
-        _sync(dev)
-        _dist_counts(reset=True)
         if rank == mesh.leader:
+            # The single-device engine's answer, before the counted window.
+            single = InferenceEngine(cfg, dataclasses.replace(scfg, mesh_data=1, mesh_seq=1,
+                                                              page_pool_pages=0),
+                                     params=params, device=dev)
+            want = single.infer(img, iters_override=None if f32 else MESH_T).levels
+            want = want.float().cpu()
+            del single
+            torch.cuda.empty_cache()
+            _sync(dev)
+            _dist_counts(reset=True)
             eng = InferenceEngine(cfg, scfg, params=params, device=dev, mesh=mesh,
                                   name=spec["name"])
-            single = None
-            if f32:
-                single = InferenceEngine(cfg, dataclasses.replace(scfg, mesh_data=1, mesh_seq=1),
-                                         params=params, device=dev)
             try:
-                res = _mesh_engine_script(eng, rank, dev, spec, img, single)
+                res = _mesh_engine_script(eng, rank, dev, spec, img, want)
             finally:
                 eng.close()
-            del single
         else:
+            _sync(dev)
+            _dist_counts(reset=True)
             seen = [0]
-            n_before = {}
+            at = {}
 
             def hook(h):
                 # The fault spec: the first dispatch after the paged one
-                # fails once, the one after its retry raises a KernelError.
+                # fails here once; the one after its retry fails inside
+                # the body (`failing_compute`).
                 seen[0] += 1
                 if not spec.get("fault"):
                     return
-                n_before.setdefault("paged", None)
                 if h["op"] == "dispatch" and h["warm"] == 2:
-                    n_before["paged"] = seen[0]
-                at = n_before.get("paged")
-                if at is not None and seen[0] == at + 1:
+                    at["paged"] = seen[0]
+                if "paged" in at and seen[0] == at["paged"] + 1:
                     raise RuntimeError("the follower fails this op on purpose")
-                if at is not None and seen[0] == at + 3:
-                    raise KernelError("the follower's kernel fault, injected")
 
-            stats = run_follower(mesh, dev, fault_hook=hook)
+            def failing_compute(worker, h, *args):
+                if "paged" in at and seen[0] == at["paged"] + 3:
+                    raise KernelError("the follower's kernel fault, injected in the body")
+                return compute(worker, h, *args)
+
+            compute = mesh_follower.MeshWorker.compute
+            mesh_follower.MeshWorker.compute = failing_compute
+            try:
+                stats = run_follower(mesh, dev, fault_hook=hook)
+            finally:
+                mesh_follower.MeshWorker.compute = compute
             res = {"ops": stats["ops"], "failed": stats["failed"],
                    "exit_reads": stats["exit_reads"].n, "wire": dict(stats["wire"])}
         _sync(dev)
@@ -1272,20 +1296,28 @@ def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
         add(a["launches"])
         add(b["launches"])
         if nm.startswith("f32"):
-            srows[nm] = dict(ok=a["ok"], max_abs_err=a["max_abs_err"], bar_ratio=a["bar_ratio"],
-                             launches=[a["launches"], b["launches"]])
-            ok = ok and a["ok"]
+            # One fixed dispatch of T on each rank, K1 only (the reference
+            # layout with the plain consensus).
+            want_l = _full({"K1 fwd": 2 * k})
+            exact = (a["launches"] == want_l and b["launches"] == want_l) or not counted
+            srows[nm] = dict(ok=a["ok"] and exact, max_abs_err=a["max_abs_err"],
+                             bar_ratio=a["bar_ratio"], exact_launches=exact,
+                             launches=[a["launches"], b["launches"]], want_per_rank=want_l)
+            ok = ok and a["ok"] and exact
             continue
         dp, seq = spec.get("mesh_data", 1), spec.get("mesh_seq", 1)
         # Iterations a rank ran: 2 warm-ups, the dispatches in turns, the
         # warm carry and the 24-iteration cold one, the paged one, and the
         # fault spec's 2 dispatches that ran a body (the transient failure's
-        # retry, and the one after the kernel fault; the failed attempts
-        # stop at the status before the body).
+        # retry, and the one after the kernel fault; the transient attempt
+        # stops at the status before the body). The kernel fault's attempt
+        # fails in the follower's compute step, so the leader alone runs its
+        # band of T there.
         iters = (2 * k + MESH_DISPATCHES * 2 * k + k + 2 * k
                  + (k if "page_gather" in spec else 0) + (2 * k if spec.get("fault") else 0))
         want_l = _full({"K1 fwd": 2 * iters})
-        exact = (a["launches"] == want_l and b["launches"] == want_l) or not counted
+        want_lead = _full({"K1 fwd": 2 * (iters + (k if spec.get("fault") else 0))})
+        exact = (a["launches"] == want_lead and b["launches"] == want_l) or not counted
         formula, got = {}, {}
         for r in a["stats"]:
             key = "auto" if r["iters"] == "auto" else f"{r['iters']}:{r['warm_state']}"
@@ -1302,15 +1334,16 @@ def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
                    exit_read_share=statistics.median(
                        [r / t for r, t in zip(a["exit_read_ms"][1:], a["auto_ms"][1:])]),
                    auto_iters=a["auto_iters"], auto_bitwise_fixed=a["auto_bitwise_fixed"],
+                   single_max_abs_err=a["single_max_abs_err"], single_atol=MESH_BF16_ATOL,
                    warm_bitwise_cold24=a["warm_bitwise_cold24"],
                    warm_levels0_bytes=a["warm_levels0_bytes"],
                    counted=got, glom_tpu_formula=formula,
                    counted_equal_formula=formula_ok, staged=a["staged"], wire_leader=a["wire"],
                    wire_follower=b["wire"], follower_ops=b["ops"], exact_launches=exact,
-                   launches=[a["launches"], b["launches"]], want_per_rank=want_l,
+                   launches=[a["launches"], b["launches"]], want_per_rank=[want_lead, want_l],
                    auto_ms=a["auto_ms"], fixed_ms=a["fixed_ms"])
         okr = (exact and formula_ok and a["auto_bitwise_fixed"] and a["warm_bitwise_cold24"]
-               and a["finite"] and a["auto_iters"] == k)
+               and a["finite"] and a["auto_iters"] == k and a["single_ok"])
         if "page_gather" in spec:
             row.update(paged_bitwise_warm=a["paged_bitwise_warm"],
                        paged_levels0_bytes=a["paged_levels0_bytes"], pool=a["pool"])

@@ -211,8 +211,6 @@ def _resolve_mesh(mesh, device: torch.device):
             devices = [device] * mesh.num_devices
         return make_mesh(mesh, devices)[0]
     names = set(getattr(mesh, "mesh_dim_names", None) or ())
-    if getattr(mesh, "axes", None) is not None:
-        names = {"data", "seq"}
     if not {"data", "seq"} <= names:
         raise ValueError(
             f"mesh axes {sorted(names)}: the per-rank forward needs the 'data' and 'seq' "

@@ -33,6 +33,10 @@ all_gather_into_tensor, all_to_all_single and broadcast, and refused them
 for point-to-point (isend / irecv, "writev: Bad address"), so only "p2p"
 is staged. Tensors travel in their own dtype: gloo refuses int16 for its
 gathers and all-to-all, and takes bf16.
+
+A torch.distributed call that raises (a timeout, a peer that left)
+raises `CollectiveError` (resilience/retry.py), which no retry policy
+retries: the group's transport is closed after a timeout.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from glom_tpu_torch.resilience.retry import CollectiveError
 from glom_tpu_torch.telemetry import counters
 
 # The ops gloo refuses for CUDA tensors (chip_smoke.py's dist phases print
@@ -72,16 +77,27 @@ def _staged(op: str, axis: Axis, tensors) -> bool:
             and dist.get_backend(axis.group) == "gloo")
 
 
+def transport(op: str, axis_name: str, fn, *args) -> None:
+    """fn(*args), one torch.distributed call; its failure raises
+    CollectiveError."""
+    try:
+        fn(*args)
+    except CollectiveError:
+        raise
+    except Exception as e:  # noqa: BLE001 - every backend failure, one type
+        raise CollectiveError(f"{op} over the {axis_name!r} group failed: {e}") from e
+
+
 def _call(op: str, axis: Axis, fn, ins: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
     """fn(*ins, *outs) over the axis's group, through pinned host copies
     where gloo takes no CUDA tensor for `op`."""
     if not _staged(op, axis, (*ins, *outs)):
-        fn(*ins, *outs)
+        transport(op, axis.name, fn, *ins, *outs)
         return
     STAGED[op] += 1
     h_ins = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t) for t in ins]
     h_outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
-    fn(*h_ins, *h_outs)
+    transport(op, axis.name, fn, *h_ins, *h_outs)
     for t, h in zip(outs, h_outs):
         t.copy_(h)
 
@@ -186,8 +202,12 @@ def _p2p(axis: Axis, sends, recvs) -> None:
     """Post every (tensor, peer offset) send and receive at once and wait."""
     ops = [dist.P2POp(dist.isend, t, _peer(axis, off), axis.group) for t, off in sends]
     ops += [dist.P2POp(dist.irecv, t, _peer(axis, off), axis.group) for t, off in recvs]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+
+    def post_and_wait():
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    transport("p2p", axis.name, post_and_wait)
 
 
 def _p2p_call(axis: Axis, sends, recvs) -> None:

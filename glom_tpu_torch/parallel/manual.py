@@ -130,13 +130,8 @@ class RankAxes(NamedTuple):
 
 
 def rank_axes(mesh) -> RankAxes:
-    """The rank's Axis for each of (data, seq, model): of a DeviceMesh, or
-    the `axes` a serve mesh (parallel/serve_mesh.ServeMesh) carries."""
-    if isinstance(mesh, RankAxes):
-        return mesh
-    axes = getattr(mesh, "axes", None)
-    if isinstance(axes, RankAxes):
-        return axes
+    """The rank's Axis for each of (data, seq, model) of a DeviceMesh (an
+    axis it does not name has size 1)."""
     names = tuple(mesh.mesh_dim_names)
     return RankAxes(*(mesh_axis(mesh, n) if n in names else Axis(n, None, 1, 0)
                       for n in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)))

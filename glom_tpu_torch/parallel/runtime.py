@@ -148,31 +148,41 @@ def make_consensus_fn(mesh, cfg: GlomConfig, strategy: str, axis_name: str = "se
     return build(axis, **kw)
 
 
+def _replica_groups(scfg, wanted: int, ranks: Optional[list]) -> Optional[list]:
+    """The world's ranks (or `ranks`) split into contiguous groups of
+    mesh_data x mesh_seq (`mesh.replica_device_groups`), at least `wanted`
+    of them; None on the single-device route."""
+    from glom_tpu_torch.parallel.mesh import replica_device_groups
+
+    per = scfg.mesh_data * scfg.mesh_seq
+    if per == 1:
+        return None
+    if ranks is None:
+        ranks = list(range(dist.get_world_size() if dist.is_initialized() else 1))
+    groups = replica_device_groups(list(ranks), per)
+    if len(groups) < wanted:
+        raise ValueError(
+            f"{len(ranks)} ranks host only {len(groups)} {per}-rank engine replicas; "
+            f"{wanted} requested"
+        )
+    return groups
+
+
 def make_engine_meshes(scfg, n_engines: int, ranks: Optional[list] = None, *,
                        leader: Optional[int] = None) -> list:
     """One serve mesh (or None for single-device engines) a serving engine:
-    the world's ranks (or `ranks`) split into contiguous groups of
-    mesh_data x mesh_seq (`mesh.replica_device_groups`), each with its own
+    the first `n_engines` groups of `_replica_groups`, each with its own
     process groups. `leader` (default: each group's first rank) is the rank
     that holds every engine, for a batcher in one process: a leader outside
     a group dispatches to it without a band. Every rank of the world calls
     it, in the same order."""
-    from glom_tpu_torch.parallel.mesh import replica_device_groups
     from glom_tpu_torch.parallel.serve_mesh import build_serve_mesh
 
     if n_engines < 1:
         raise ValueError(f"n_engines {n_engines} must be >= 1")
-    per = scfg.mesh_data * scfg.mesh_seq
-    if per == 1:
+    groups = _replica_groups(scfg, n_engines, ranks)
+    if groups is None:
         return [None] * n_engines
-    if ranks is None:
-        ranks = list(range(dist.get_world_size() if dist.is_initialized() else 1))
-    groups = replica_device_groups(list(ranks), per)
-    if len(groups) < n_engines:
-        raise ValueError(
-            f"{len(ranks)} ranks host only {len(groups)} {per}-rank engine replicas; "
-            f"{n_engines} requested"
-        )
     return [build_serve_mesh(g, scfg.mesh_data, scfg.mesh_seq, leader)
             for g in groups[:n_engines]]
 
@@ -183,22 +193,13 @@ def engine_mesh_for(scfg, index: int, ranks: Optional[list] = None, *,
     partitioning gives index `index` (glom_tpu's elastic scale-out
     resolution). Raises when the ranks have no group `index`; None on the
     single-device route. Every rank calls it."""
-    from glom_tpu_torch.parallel.mesh import replica_device_groups
     from glom_tpu_torch.parallel.serve_mesh import build_serve_mesh
 
     if index < 0:
         raise ValueError(f"index {index} must be >= 0")
-    per = scfg.mesh_data * scfg.mesh_seq
-    if per == 1:
+    groups = _replica_groups(scfg, index + 1, ranks)
+    if groups is None:
         return None
-    if ranks is None:
-        ranks = list(range(dist.get_world_size() if dist.is_initialized() else 1))
-    groups = replica_device_groups(list(ranks), per)
-    if index >= len(groups):
-        raise ValueError(
-            f"{len(ranks)} ranks host only {len(groups)} {per}-rank engine replicas; "
-            f"{index + 1} requested"
-        )
     return build_serve_mesh(groups[index], scfg.mesh_data, scfg.mesh_seq, leader)
 
 

@@ -56,7 +56,7 @@ import torch.distributed as dist
 from glom_tpu_torch.models.core import contribution_divisor, map_params, update_step
 from glom_tpu_torch.ops.consensus import build_local_mask, consensus_attention
 from glom_tpu_torch.ops.patch import image_to_tokens
-from glom_tpu_torch.parallel.collectives import Axis, all_gather, all_reduce
+from glom_tpu_torch.parallel.collectives import Axis, all_gather, all_reduce, transport
 from glom_tpu_torch.parallel.manual import RankAxes, shard_consensus_fn
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
@@ -65,8 +65,10 @@ DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 PAGE_GATHERS = ("auto", "pool", "needed")
 # How long a rank waits in one of an engine's collectives: a rank that
-# fails between two collectives of the body leaves its peers waiting until
-# this runs out (the status all-reduces catch every other failure).
+# fails inside a body that has collectives (seq > 1, or the auto route's
+# exit tests) leaves its peers waiting until this runs out, and the group
+# is then broken (serve/mesh_follower.py; the status all-reduces catch
+# every other failure).
 GROUP_TIMEOUT_S = 300
 
 
@@ -228,7 +230,9 @@ def _reduce_scatter_sum(x: torch.Tensor, data: Axis) -> torch.Tensor:
     if data.size == 1:
         return x
     out = x.new_empty((1, *x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x.contiguous(), group=data.group)
+    transport("reduce_scatter", data.name,
+              lambda o, i: dist.reduce_scatter_tensor(o, i, group=data.group), out,
+              x.contiguous())
     return out
 
 

@@ -14,9 +14,11 @@ with the training restart loop, train/supervise.TrainSupervisor) and
 
 Nonretryable types raise on the first attempt: caller bugs (ValueError,
 TypeError), as in glom_tpu, and, in the port, a kernel that failed to
-build or launch (kernels/_build.KernelError) and torch's CUDA errors. A
-CUDA fault is not transient, and a retry would hide a kernel that fails
-now and then. KeyboardInterrupt and SystemExit are never caught. The
+build or launch (kernels/_build.KernelError), torch's CUDA errors and a
+collective that failed (`CollectiveError`). A CUDA fault is not
+transient, and a retry would hide a kernel that fails now and then; after
+a collective times out, its group's transport is closed and every later
+call over it fails too. KeyboardInterrupt and SystemExit are never caught. The
 counters ride one lock: the engine may be called from a worker thread
 while a summary reads them from another.
 """
@@ -39,8 +41,17 @@ CUDA_ERRORS: Tuple[Type[BaseException], ...] = tuple(
                 getattr(torch.cuda, "CudaError", None))
     if t is not None
 )
+
+
+class CollectiveError(RuntimeError):
+    """A torch.distributed call of a rank group failed (a timeout, a peer
+    that left, a tensor the backend refuses). The group's transport is not
+    to be trusted after it, so no retry goes over the same group
+    (parallel/collectives.py raises it)."""
+
+
 NONRETRYABLE_DEFAULT: Tuple[Type[BaseException], ...] = (
-    ValueError, TypeError, KernelError, *CUDA_ERRORS,
+    ValueError, TypeError, KernelError, CollectiveError, *CUDA_ERRORS,
 )
 
 

@@ -15,22 +15,34 @@ engine's own process group (leader and ranks), in this order:
      the dispatch counts its wire bytes;
   2. the payload, broadcast: the image (not on `warmup`), then `levels0`
      or `page_idx`; a `write_back` sends the page ids and the pages;
-  3. a status all-reduce (MAX of 0 ok, 1 failed, 2 a kernel fault): a
-     follower's fault hook fires before it;
-  4. the body: each compute rank runs the same `MeshWorker` (the per-rank
-     forward of `serve_mesh.make_serve_forward`, then `levels` all-gathered
-     over 'seq' and 'data', `row_converged` / `row_iters` over 'data'), or
-     applies the pages it owns;
-  5. a second status all-reduce; a leader outside the group then receives
-     the outputs from the group's first rank.
+  3. a status all-reduce (MAX of three flags: failed, a kernel fault, a
+     broken collective): a follower's fault hook fires before it;
+  4. the body, in steps, each followed by a status all-reduce: every
+     compute rank runs the same `MeshWorker`, first `compute` (the
+     per-rank forward of `serve_mesh.make_serve_forward`), then `gather`
+     (`levels` all-gathered over 'seq' and 'data', `row_converged` /
+     `row_iters` over 'data'); a `write_back` applies the pages it owns;
+  5. a leader outside the group then receives the outputs from the
+     group's first rank.
 
-Any non-zero status makes the leader raise: `KernelError` for a kernel
-fault (nonretryable, resilience/retry.NONRETRYABLE_DEFAULT), else
-`FollowerError`, which the engine's retry policy retries by sending the
-header again. Ops on one engine are serialized by the leader's channel
-lock, so a batcher thread and a write-back never interleave their
-collectives. At start the leader sends the configs and the parameters, so
-every follower serves the leader's model.
+After any status with a flag set, every rank skips the rest of the op, and
+the leader raises: `KernelError` for a kernel fault on any rank
+(nonretryable, resilience/retry.NONRETRYABLE_DEFAULT), else its own error,
+else `FollowerError`, which the engine's retry policy retries by sending
+the header again. A rank that fails in `compute` on the fixed route at
+seq 1 fails the op cleanly: that step issues no collective, so every rank
+reaches the status. Where `compute` has collectives (the ring / Ulysses /
+halo consensus at seq > 1, the auto route's exit tests), a rank that fails
+there leaves its peers in a collective until the group's timeout
+(serve_mesh.GROUP_TIMEOUT_S); the collective then raises `CollectiveError`,
+which sets the broken flag, or fails the status itself. A broken group is
+never used again: the leader raises `CollectiveError` (nonretryable) for
+that op and every later one, and the followers' loops raise it.
+
+Ops on one engine are serialized by the leader's channel lock, so a
+batcher thread and a write-back never interleave their collectives. At
+start the leader sends the configs and the parameters, so every follower
+serves the leader's model.
 """
 
 from __future__ import annotations
@@ -48,8 +60,9 @@ from glom_tpu_torch.kernels._build import KernelError
 from glom_tpu_torch.models.core import GlomParams, param_leaves
 from glom_tpu_torch.ops.ffw import GroupedFFWParams
 from glom_tpu_torch.ops.patch import LinearParams
-from glom_tpu_torch.parallel.collectives import all_gather
+from glom_tpu_torch.parallel.collectives import all_gather, transport
 from glom_tpu_torch.parallel.serve_mesh import ExitReads, make_serve_forward
+from glom_tpu_torch.resilience.retry import CollectiveError
 from glom_tpu_torch.serve.paged_columns import resolve_page_tokens
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.utils.helpers import resolve_dtype
@@ -60,7 +73,10 @@ WARM_KINDS = (False, True, "paged")
 HEADER_LEN = 10
 # header slots
 H_OP, H_BUCKET, H_AUTO, H_BUDGET, H_WARM, H_PPR, H_NVALID, H_PAGES, H_INPLACE, H_COUNT = range(10)
-OK, FAILED, KERNEL_FAULT = 0, 1, 2
+# A dispatch's body steps (MeshWorker.steps: compute, gather).
+DISPATCH_STEPS = 2
+# status flags (slots of the status all-reduce)
+FAILED, KERNEL_FAULT, BROKEN = range(3)
 COUNT_KEYS = ("comm_measured_reduce_bytes_per_step", "comm_measured_gather_bytes_per_step",
               "comm_measured_bytes_per_step", "comm_measured_collective_count")
 
@@ -70,10 +86,14 @@ class FollowerError(RuntimeError):
     retry policy sends the op again)."""
 
 
-def _status_code(exc: BaseException) -> int:
-    if isinstance(exc, KernelError):
-        return KERNEL_FAULT
-    return FAILED
+def _status_flags(exc: Optional[BaseException]) -> list:
+    """This rank's status flags for an op step that raised `exc` (None: ok)."""
+    flags = [0, 0, 0]
+    if exc is not None:
+        flags[FAILED] = 1
+        flags[KERNEL_FAULT] = int(isinstance(exc, KernelError))
+        flags[BROKEN] = int(isinstance(exc, CollectiveError))
+    return flags
 
 
 def _wire_dtype(t: torch.Tensor) -> torch.Tensor:
@@ -99,8 +119,9 @@ class MeshChannel:
     def bcast(self, t: torch.Tensor, src: Optional[int] = None, kind: str = "payload",
               group=None):
         t = t.contiguous()
-        dist.broadcast(t, src=self.mesh.leader if src is None else src,
-                       group=self.mesh.group if group is None else group)
+        transport("broadcast", "engine", lambda: dist.broadcast(
+            t, src=self.mesh.leader if src is None else src,
+            group=self.mesh.group if group is None else group))
         self.wire[kind] += t.nelement() * t.element_size()
         return t
 
@@ -110,11 +131,14 @@ class MeshChannel:
             h.copy_(torch.as_tensor(values, dtype=torch.int64))
         return self.bcast(h, kind="header").tolist()
 
-    def status(self, code: int) -> int:
-        t = torch.tensor([code], dtype=torch.int32, device=self.host)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group)
-        self.wire["status"] += 4
-        return int(t.item())
+    def status(self, exc: Optional[BaseException] = None) -> list:
+        """Every rank's flags for one step, MAX-reduced over the group;
+        `exc` is what this rank's step raised, or None."""
+        t = torch.tensor(_status_flags(exc), dtype=torch.int32, device=self.host)
+        transport("status all_reduce", "engine",
+                  lambda: dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.group))
+        self.wire["status"] += t.nelement() * t.element_size()
+        return t.tolist()
 
 
 class PoolShard:
@@ -186,10 +210,16 @@ class MeshWorker:
             )
         return self._fns[key]
 
-    def forward(self, h: list, img: torch.Tensor, levels0=None, page_idx=None):
-        """The rank's band of one bucket dispatch from the GLOBAL inputs,
-        and the outputs gathered: (levels [b, n, L, d], iters_run,
-        row_converged [b], row_iters [b])."""
+    def steps(self, h: list, img: torch.Tensor, levels0=None, page_idx=None) -> list:
+        """One bucket dispatch from the GLOBAL inputs as the op's two body
+        steps: `compute` (this rank's band) and `gather` (the outputs
+        gathered: levels [b, n, L, d], iters_run, row_converged [b],
+        row_iters [b])."""
+        return [lambda _: self.compute(h, img, levels0, page_idx), self.gather]
+
+    def compute(self, h: list, img: torch.Tensor, levels0=None, page_idx=None):
+        """The per-rank forward on this rank's band, synchronized (so a
+        fault of its kernels shows before the step's status)."""
         data, seq = self.axes.data, self.axes.seq
         b = h[H_BUCKET]
         b_loc = b // data.size
@@ -207,23 +237,29 @@ class MeshWorker:
             args += [pool, page_idx]
         try:
             with torch.inference_mode():
-                levels, iters_run, conv, row_iters = fn(*args)
-                band = levels.nelement() * levels.element_size()
-                levels = all_gather(all_gather(levels, seq, 1), data, 0)
-                self.wire["gather"] += levels.nelement() * levels.element_size() - band
-                conv = all_gather(_wire_dtype(conv), data, 0).to(torch.bool)
-                row_iters = all_gather(row_iters, data, 0)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                out = fn(*args)
+            self._sync()
         finally:
             if pool is not None:
                 self.pool.release_read()
+        return out
+
+    def gather(self, local):
+        """The bands of `compute` gathered on every compute rank."""
+        levels, iters_run, conv, row_iters = local
+        data, seq = self.axes.data, self.axes.seq
+        with torch.inference_mode():
+            band = levels.nelement() * levels.element_size()
+            levels = all_gather(all_gather(levels, seq, 1), data, 0)
+            self.wire["gather"] += levels.nelement() * levels.element_size() - band
+            conv = all_gather(_wire_dtype(conv), data, 0).to(torch.bool)
+            row_iters = all_gather(row_iters, data, 0)
+        self._sync()
         return levels, int(iters_run), conv, row_iters
 
-
-def _counting(counters):
-    """Record the collectives called inside into `counters` (None: nothing)."""
-    return tele_counters.recording(counters) if counters is not None else contextlib.nullcontext()
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
 def send_params(channel: MeshChannel, cfg, scfg, params: GlomParams) -> None:
@@ -250,7 +286,8 @@ def recv_params(channel: MeshChannel):
 class MeshLeader:
     """The leader's side of a sharded engine: sends each op and returns the
     outputs. `worker` is the leader's own MeshWorker when it is a rank of
-    the group (None when it dispatches without a band)."""
+    the group (None when it dispatches without a band). `broken` is why
+    the group broke (None while it serves): a broken group takes no op."""
 
     def __init__(self, cfg, scfg, mesh, params: GlomParams, device):
         self.cfg, self.scfg, self.mesh = cfg, scfg, mesh
@@ -259,6 +296,7 @@ class MeshLeader:
         self.worker = (MeshWorker(cfg, scfg, mesh, params, device, wire=self.channel.wire)
                        if mesh.is_member else None)
         self.stopped = False
+        self.broken: Optional[str] = None
         with self.channel.lock:
             send_params(self.channel, cfg, scfg, params)
 
@@ -266,27 +304,51 @@ class MeshLeader:
     def lock(self) -> threading.Lock:
         return self.channel.lock
 
-    def _check(self, code: int, what: str) -> None:
-        if code == KERNEL_FAULT:
-            raise KernelError(f"a rank of the engine's mesh {list(self.mesh.ranks)} hit a "
-                              f"kernel fault in {what}")
-        if code != OK:
-            raise FollowerError(f"a rank of the engine's mesh {list(self.mesh.ranks)} failed "
-                                f"{what}")
+    @contextlib.contextmanager
+    def _op(self, held: bool = False):
+        """An op on a live group, under the lock (`held`: the caller holds
+        it); a CollectiveError inside marks the group broken."""
+        with contextlib.nullcontext() if held else self.lock:
+            if self.broken is not None:
+                raise CollectiveError(f"the engine's mesh {list(self.mesh.ranks)} broke earlier "
+                                      f"({self.broken}): it serves no more ops")
+            if self.stopped:
+                raise RuntimeError("the engine's followers were stopped")
+            try:
+                yield self.channel
+            except CollectiveError as e:
+                self.broken = str(e)
+                raise
 
-    def _run(self, what: str, body):
-        """Steps 3-5 of an op on the leader: the pre-body status, the body,
-        the post-body status."""
-        self._check(self.channel.status(OK), what)
-        code, out, err = OK, None, None
-        try:
-            out = body()
-        except Exception as e:  # noqa: BLE001 - every rank must reach the status
-            code, err = _status_code(e), e
-        final = self.channel.status(code)
+    def _check(self, flags: list, what: str, err: Optional[BaseException]) -> None:
+        """Raise for a step whose status has a flag set: a kernel fault on
+        any rank first, then a broken group, then the leader's own error,
+        then a follower's."""
+        where = f"the engine's mesh {list(self.mesh.ranks)}"
+        if flags[KERNEL_FAULT]:
+            if isinstance(err, KernelError):
+                raise err
+            raise KernelError(f"a rank of {where} hit a kernel fault in {what}") from err
+        if flags[BROKEN]:
+            raise CollectiveError(f"a collective of {where} failed in {what}: the group is "
+                                  "broken and serves no more ops") from err
         if err is not None:
             raise err
-        self._check(final, what)
+        if flags[FAILED]:
+            raise FollowerError(f"a rank of {where} failed {what}")
+
+    def _run(self, what: str, steps) -> object:
+        """Steps 3-4 of an op on the leader: the pre-body status, then each
+        body step and its status."""
+        self._check(self.channel.status(), what, None)
+        out = None
+        for step in steps:
+            err = None
+            try:
+                out = step(out)
+            except Exception as e:  # noqa: BLE001 - every rank must reach the status
+                err = e
+            self._check(self.channel.status(err), what, err)
         return out
 
     def dispatch(self, *, op: str, bucket: int, n_valid: int, auto: bool, budget: int, warm,
@@ -299,10 +361,7 @@ class MeshLeader:
         ppr = page_idx.shape[1] if page_idx is not None else 0
         h = [OP[op], bucket, int(auto), budget, WARM_KINDS.index(warm), ppr, n_valid, 0, 0,
              int(count)]
-        with self.lock:
-            if self.stopped:
-                raise RuntimeError("the engine's followers were stopped")
-            ch = self.channel
+        with self._op() as ch:
             ch.header(h)
             if img is None:
                 img = torch.zeros((bucket, cfg.channels, cfg.image_size, cfg.image_size),
@@ -314,14 +373,12 @@ class MeshLeader:
             elif warm == "paged":
                 page_idx = ch.bcast(page_idx.to(self.device, torch.int32))
             counters = tele_counters.CollectiveCounters() if count else None
-
-            def body():
-                if self.worker is None:
-                    return None
-                with _counting(counters):
-                    return self.worker.forward(h, img, levels0, page_idx)
-
-            out = self._run(f"{op} of bucket {bucket}", body)
+            # A leader outside the group joins every step's status idle.
+            steps = [_idle] * DISPATCH_STEPS
+            if self.worker is not None:
+                steps = [_counted_step(step, counters)
+                         for step in self.worker.steps(h, img, levels0, page_idx)]
+            out = self._run(f"{op} of bucket {bucket}", steps)
             comm = counters.totals() if counters is not None else None
             if self.worker is None:
                 out, comm = recv_outputs(ch, bucket, cfg, dtype, count)
@@ -334,25 +391,40 @@ class MeshLeader:
         """Send one write-back's pages; every compute rank writes the ones it
         owns (`apply_local(ids, pages, in_place)` on the leader, under the
         pool's lock). The caller holds `lock`."""
-        ch = self.channel
-        ids_t = torch.as_tensor(list(ids), dtype=torch.int64, device=self.device)
-        ch.header([OP["write_back"], 0, 0, 0, 0, 0, 0, len(ids), int(in_place), 0])
-        ids_t = ch.bcast(ids_t)
-        pages = ch.bcast(pages.to(self.device))
-
-        def body():
+        with self._op(held=True) as ch:
+            ids_t = torch.as_tensor(list(ids), dtype=torch.int64, device=self.device)
+            ch.header([OP["write_back"], 0, 0, 0, 0, 0, 0, len(ids), int(in_place), 0])
+            ids_t = ch.bcast(ids_t)
+            pages = ch.bcast(pages.to(self.device))
+            steps = [_idle]
             if self.worker is not None:
-                apply_local(ids_t, pages, in_place)
-
-        self._run(f"a write-back of {len(ids)} pages", body)
+                steps = [lambda _: apply_local(ids_t, pages, in_place)]
+            self._run(f"a write-back of {len(ids)} pages", steps)
 
     def stop(self, op: str = "stop") -> None:
-        """End the followers' loops ("release" also frees their state)."""
+        """End the followers' loops ("release" also frees their state); a
+        broken group is not sent anything (its followers' loops have
+        raised)."""
         with self.lock:
             if self.stopped:
                 return
-            self.channel.header([OP[op]] + [0] * (HEADER_LEN - 1))
             self.stopped = True
+            if self.broken is None:
+                self.channel.header([OP[op]] + [0] * (HEADER_LEN - 1))
+
+
+def _idle(prev):
+    return prev
+
+
+def _counted_step(step, counters):
+    """`step` with the collectives it calls recorded into `counters` (None:
+    nothing)."""
+    def run(prev):
+        with (tele_counters.recording(counters) if counters is not None
+              else contextlib.nullcontext()):
+            return step(prev)
+    return run
 
 
 def send_outputs(channel: MeshChannel, out, comm: Optional[dict]) -> None:
@@ -435,31 +507,37 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
             elif warm == "paged":
                 page_idx = channel.bcast(torch.empty((b, h[H_PPR]), dtype=torch.int32,
                                                      device=device))
-        code = OK
+        err = None
         try:
             if fault_hook is not None:
                 fault_hook(dict(zip(("op", "bucket", "auto", "budget", "warm"),
                                     (op, *h[1:5]))))
         except Exception as e:  # noqa: BLE001 - reported through the status
-            code = _status_code(e)
+            err = e
             traceback.print_exc(file=sys.stderr)
-        if channel.status(code) != OK:
-            stats["failed"] += code != OK
-            continue
-        out, comm, code = None, None, OK
+        flags = channel.status(err)
         counters = tele_counters.CollectiveCounters() if h[H_COUNT] else None
-        try:
-            if op == "write_back":
-                pool.apply(ids, pages, bool(h[H_INPLACE]))
-            else:
-                with _counting(counters):
-                    out = worker.forward(h, img, levels0, page_idx)
-                comm = counters.totals() if counters is not None else None
-        except Exception as e:  # noqa: BLE001 - reported through the status
-            code = _status_code(e)
-            traceback.print_exc(file=sys.stderr)
-        if channel.status(code) != OK:
-            stats["failed"] += code != OK
+        if op == "write_back":
+            steps = [lambda _: pool.apply(ids, pages, bool(h[H_INPLACE]))]
+        else:
+            steps = [_counted_step(step, counters)
+                     for step in worker.steps(h, img, levels0, page_idx)]
+        out = None
+        for step in steps:
+            if any(flags):
+                break
+            err = None
+            try:
+                out = step(out)
+            except Exception as e:  # noqa: BLE001 - reported through the status
+                err = e
+                traceback.print_exc(file=sys.stderr)
+            flags = channel.status(err)
+        if any(flags):
+            stats["failed"] += err is not None
+            if flags[BROKEN]:
+                raise CollectiveError(f"the engine's mesh {list(mesh.ranks)} broke in a "
+                                      f"{op}: rank {dist.get_rank()} follows no more") from err
             continue
-        if out is not None and first and not mesh.leader_in_group:
-            send_outputs(channel, out, comm)
+        if op != "write_back" and first and not mesh.leader_in_group:
+            send_outputs(channel, out, counters.totals() if counters is not None else None)

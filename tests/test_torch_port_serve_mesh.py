@@ -21,7 +21,9 @@ are numpy-seeded. Held here:
     DynamicBatcher; the needed-pages exchange bit for bit the whole-pool
     gather with fewer counted bytes, and "auto" picking it;
   * a follower that raises fails the leader's call (retried once when
-    transient, a KernelError never), and the engine serves on;
+    transient, a KernelError never), before the body or inside it, and
+    the engine serves on; a collective that times out breaks the engine's
+    group for good (CollectiveError, never retried);
   * a leader outside its group (`--engines 2`: global rank 0 holds both
     engines) gets its group's answer;
   * glom_tpu's `serve_shardings` has no counterpart.
@@ -115,6 +117,8 @@ PAGED_CALLS = [dict(kind="infer", img=IMG2, n_valid=2),
                dict(kind="pool_record")]
 FAULT_CALLS = [dict(kind="infer", img=IMG8), dict(kind="infer", img=IMG8),
                dict(kind="infer", img=IMG8), dict(kind="infer", img=IMG8)]
+# The collective timeout of the broken-group case's groups.
+BROKEN_TIMEOUT_S = 5
 # At these widths the 100x rows converge an iteration before the unit one.
 HARD = np.random.default_rng(5).standard_normal((3, 28, 28)).astype(np.float32)
 EASY = [(100.0 * np.random.default_rng(6 + i).standard_normal((3, 28, 28))).astype(np.float32)
@@ -142,6 +146,14 @@ SERVE2 = {
     "fault": _serve(dict(AUTO, mesh_data=2, dispatch_retries=1), FAULT_CALLS,
                     fault={"rank": 1, "fail": [(2, "transient"), (4, "kernel")]}),
     "two_tier": _serve(TWO_TIER, batcher=[EASY[0], HARD, EASY[1], EASY[2]]),
+    # Faults inside the body: the fixed route at seq 1 (no collective in
+    # the compute step), then the auto route, whose exit tests leave the
+    # leader in a collective until the group's (shortened) timeout.
+    "fault_body": _serve(dict(AUTO, iters=5, mesh_data=2, dispatch_retries=1), FAULT_CALLS,
+                         fault={"rank": 1, "body": [(2, "transient"), (4, "kernel")]}),
+    "fault_broken": _serve(dict(AUTO, mesh_data=2, dispatch_retries=1), FAULT_CALLS[:2],
+                           fault={"rank": 1, "body": [(1, "transient")]},
+                           group_timeout_s=BROKEN_TIMEOUT_S),
 }
 SERVE4 = {
     "auto_data2xseq2": _serve(dict(AUTO, exit_threshold=1e-3, max_auto_iters=12, mesh_data=2,
@@ -482,6 +494,40 @@ class TestFollowerFaults:
         follower = _res(runs, 2, "fault", 1)
         assert follower["failed"] == 2
         assert follower["ops"] == {"dispatch": 5, "stop": 1}
+
+    def test_a_follower_that_raises_inside_the_body_fails_the_leaders_call(self, runs):
+        """The fixed route at seq 1: rank 1's compute step raises in its 2nd
+        call (transient: retried, and the dispatch answers) and in its 4th
+        with a KernelError (the leader raises it, not its own error and not
+        a FollowerError); the status after the compute step reaches every
+        rank, so the group serves on."""
+        out = _leader(runs, 2, "fault_body")
+        want = _single(dict(AUTO, iters=5)).infer(IMG8).levels.numpy()
+        for i in (0, 1, 3):
+            assert np.array_equal(out[i]["levels"], want)
+        assert out[2]["error"] == "KernelError"
+        assert not _res(runs, 2, "fault_body")[0]["broken"]
+        follower = _res(runs, 2, "fault_body", 1)
+        assert follower["failed"] == 2
+        assert follower["ops"] == {"dispatch": 5, "stop": 1}
+
+    def test_a_broken_group_serves_no_more(self, runs):
+        """The auto route: rank 1's compute step raises before the quorum
+        all-reduce, so the leader waits in it until the group's timeout.
+        The leader then raises CollectiveError (nonretryable: the retry
+        budget of 1 is not spent on a closed group), marks the engine's
+        group broken and refuses the next dispatch at once; the follower's
+        loop raises the same error."""
+        from glom_tpu_torch.resilience.retry import NONRETRYABLE_DEFAULT, CollectiveError
+
+        assert CollectiveError in NONRETRYABLE_DEFAULT
+        lead = _res(runs, 2, "fault_broken")[0]
+        first, second = lead["results"]
+        assert first["error"] == "CollectiveError"
+        assert second["error"] == "CollectiveError" and "broke earlier" in second["message"]
+        assert lead["broken"]
+        follower = _res(runs, 2, "fault_broken", 1)
+        assert follower["error"] == "CollectiveError"
 
 
 def test_serve_cli_on_a_mesh(runs):

@@ -393,26 +393,36 @@ def _batcher_script(eng, reqs, timeout=300.0):
 
 
 def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, engines=1,
-               leader=None):
+               leader=None, group_timeout_s=None):
     """InferenceEngine(mesh=) on the leader, run_follower elsewhere. With
     `engines` > 1 the ranks split into that many groups
     (runtime.make_engine_meshes), every engine held by `leader`; each runs
     the same calls. `fault`: {"rank": r, "fail": [(op index, "transient" |
-    "kernel")]} makes rank r's fault hook raise before those ops. Returns
-    the leader's results, or a follower's {"ops", "failed"}."""
+    "kernel")], "body": [(compute call index, kind)]} makes rank r's fault
+    hook raise before those ops, and its MeshWorker.compute raise inside
+    those calls. `group_timeout_s` sets the groups' collective timeout.
+    Returns the leader's results, or a follower's {"ops", "failed"} (or
+    {"error"} when its loop raised)."""
     import dataclasses
 
     import torch.distributed as dist
 
     from glom_tpu_torch.kernels._build import KernelError
+    from glom_tpu_torch.parallel import serve_mesh as sm
     from glom_tpu_torch.parallel.runtime import make_engine_meshes
+    from glom_tpu_torch.serve import mesh_follower
     from glom_tpu_torch.serve.engine import InferenceEngine
-    from glom_tpu_torch.serve.mesh_follower import run_follower
     from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
 
     cfg, scfg = GlomConfig(**cfg_kw), ServeConfig(**scfg_kw)
     rank = dist.get_rank()
-    meshes = make_engine_meshes(scfg, engines, leader=leader)
+    saved_timeout = sm.GROUP_TIMEOUT_S
+    if group_timeout_s is not None:
+        sm.GROUP_TIMEOUT_S = group_timeout_s
+    try:
+        meshes = make_engine_meshes(scfg, engines, leader=leader)
+    finally:
+        sm.GROUP_TIMEOUT_S = saved_timeout
     if rank == meshes[0].leader:
         out = []
         for i, mesh in enumerate(meshes):
@@ -424,23 +434,47 @@ def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, en
                 else:
                     out.append(_serve_script(eng, calls))
                 out[-1] = {"results": out[-1], "ranks": list(mesh.ranks),
-                           "wire": dict(eng._mesh.channel.wire)}
+                           "wire": dict(eng._mesh.channel.wire),
+                           "broken": eng._mesh.broken is not None}
             finally:
                 eng.close()
         return out
+    fault = fault or {}
+    mine = fault.get("rank") == rank
+
+    def raise_at(n, table, what):
+        for at, kind in table:
+            if mine and n == at:
+                raise (KernelError if kind == "kernel" else RuntimeError)(
+                    f"rank {rank} fails {what} {at} on purpose")
+
     seen = [0]
 
     def hook(h):
         seen[0] += 1
-        for at, what in (fault or {}).get("fail", []):
-            if fault["rank"] == rank and seen[0] == at:
-                raise (KernelError if what == "kernel" else RuntimeError)(
-                    f"rank {rank} fails op {at} on purpose")
+        raise_at(seen[0], fault.get("fail", []), "op")
 
-    for mesh in meshes:
-        if mesh.is_member:
-            stats = run_follower(mesh, "cpu", fault_hook=hook)
-            return {"ops": stats["ops"], "failed": stats["failed"], "ranks": list(mesh.ranks)}
+    computed = [0]
+    compute = mesh_follower.MeshWorker.compute
+
+    def failing_compute(self, *args, **kw):
+        computed[0] += 1
+        raise_at(computed[0], fault.get("body", []), "compute call")
+        return compute(self, *args, **kw)
+
+    mesh_follower.MeshWorker.compute = failing_compute
+    try:
+        for mesh in meshes:
+            if mesh.is_member:
+                try:
+                    stats = mesh_follower.run_follower(mesh, "cpu", fault_hook=hook)
+                except Exception as e:  # noqa: BLE001 - the test reads the error
+                    return {"error": type(e).__name__, "message": str(e),
+                            "ranks": list(mesh.ranks)}
+                return {"ops": stats["ops"], "failed": stats["failed"],
+                        "ranks": list(mesh.ranks)}
+    finally:
+        mesh_follower.MeshWorker.compute = compute
     return None
 
 
