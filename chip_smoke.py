@@ -139,6 +139,20 @@ after:
     resume, the stream linted, `--check-parity`;
     `train_cli_distributed`). Each kernel's launches there ride the
     kernels line as `dist_launches`.
+  * sharded execution's last pieces (`sharded_phases`): tp_axis="levels" at
+    model 2 (bottom_up's 3 groups a rank at full f, the f32 gradients
+    against the single device, bf16 losses, exact launches, the K1 calls'
+    groups and widths, the counted group gathers against the design's
+    bytes; `dist_tp_levels`, its launches in `dist_launches`); a data-2
+    sharded engine's 96-page pool with delta streams driven with a
+    single-device pool by the same rows (every answer, table, record,
+    event and read-back bit for bit, a base shared by content hash, a chain
+    folded, defrag on a non-delta sharded pool, one warm dispatch from the
+    delta pages with no levels0 bytes; `serve_mesh_pool`, its launches in
+    `mesh_launches`); and `python -m glom_tpu_torch.serve --mesh-data 2
+    --elastic` on six ranks (three rank groups: a warm spare promoted, a
+    cold spawn, drains with migration checked page for page, each
+    release's freed bytes on every rank; `serve_cli_mesh_elastic`).
 
 It prints one JSON line per phase. The last line is
 
@@ -381,11 +395,11 @@ def _dist_batch(cfg, batch, seed, dev):
     return img, noise
 
 
-def _dist_f32_grads(mesh, cfg, batch, sp, dev, rank):
-    """make_manual_loss's f32 loss and gradients (TP shards gathered) on
-    every rank, against the single-device fused step's on rank 0: (worst
-    of the loss's relative error and each leaf's error over max |want|,
-    per leaf)."""
+def _dist_f32_grads(mesh, cfg, batch, sp, dev, rank, tp_axis="hidden"):
+    """make_manual_loss's f32 loss and gradients (TP shards, laid out by
+    `tp_axis`, gathered) on every rank, against the single-device fused
+    step's on rank 0: (worst of the loss's relative error and each leaf's
+    error over max |want|, per leaf)."""
     import torch
 
     from glom_tpu_torch.models.core import param_leaves, unflatten_params
@@ -400,12 +414,12 @@ def _dist_f32_grads(mesh, cfg, batch, sp, dev, rank):
     params = _dist_params(cfg, SEED)
     img, noise = _dist_batch(cfg, batch, SEED + 40, dev)
     axes = rank_axes(mesh)
-    specs = denoise_param_specs("hidden")
+    specs = denoise_param_specs(tp_axis)
     coords = {"model": (axes.model.index, axes.model.size)}
     leaves = [shard_leaf(t, specs[nm], coords).to(dev).clone().requires_grad_()
               for nm, t in named_leaves(params)]
     pp = unflatten_params(params, leaves)
-    loss = make_manual_loss(mesh, cfg, tcfg, sp_strategy=sp)(pp, img, noise)
+    loss = make_manual_loss(mesh, cfg, tcfg, sp_strategy=sp, tp_axis=tp_axis)(pp, img, noise)
     grads = torch.autograd.grad(loss, leaves)
     model = mesh_axis(mesh, "model")
     grads = [all_gather(g, model, spec_axis(specs[nm], "model"))
@@ -423,10 +437,12 @@ def _dist_f32_grads(mesh, cfg, batch, sp, dev, rank):
     return max(max(errs.values()), loss_rel), loss_rel, errs
 
 
-def _dist_train(mesh_cfg, cfg, tcfg, sp, dev, steps, seed, *, single=False, params=None):
+def _dist_train(mesh_cfg, cfg, tcfg, sp, dev, steps, seed, *, single=False, params=None,
+                tp_axis="hidden", sites=None):
     """DistributedTrainer steps on the same seeded global batches: per-step
     launches (counted from 0 around each step), host ms, records; and on
-    rank 0 with `single`, the single-device Trainer's losses."""
+    rank 0 with `single`, the single-device Trainer's losses. `sites`, a
+    CollectiveCounters, records the collective sites of the first step."""
     import torch
     import torch.distributed as dist
 
@@ -437,7 +453,7 @@ def _dist_train(mesh_cfg, cfg, tcfg, sp, dev, steps, seed, *, single=False, para
     params = params if params is not None else _dist_params(cfg, SEED)
     tr = DistributedTrainer(cfg, tcfg, mesh_cfg, sp_strategy=sp,
                             devices=[dev] * mesh_cfg.num_devices, backend="gloo",
-                            params=params)
+                            params=params, tp_axis=tp_axis)
     batches = list(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=seed,
                                   num_batches=steps))
     launches, ms, recs = [], [], []
@@ -446,8 +462,15 @@ def _dist_train(mesh_cfg, cfg, tcfg, sp, dev, steps, seed, *, single=False, para
         dist.barrier()
         sync()
         _dist_counts(reset=True)
+        import contextlib
+
+        from glom_tpu_torch.telemetry import counters as tele_counters
+
+        rec = (tele_counters.recording(sites) if sites is not None and not ms
+               else contextlib.nullcontext())
         t0 = time.perf_counter()
-        m = tr.step(b)
+        with rec:
+            m = tr.step(b)
         sync()
         ms.append(1e3 * (time.perf_counter() - t0))
         launches.append(_dist_counts())
@@ -671,6 +694,8 @@ def _case_tp2(rank, device, cfg_kw):
 
 
 DIST_CASES = {"dp2": _case_dp2, "zero": _case_zero, "sp": _case_sp, "tp2": _case_tp2}
+# Step p50s a rank of earlier dist phases, for the later ones' rows.
+DIST_P50: dict = {}
 
 
 def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
@@ -872,6 +897,8 @@ def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
          staged=[st[4] for st in staged], ok=tp_ok)
     if not tp_ok:
         raise AssertionError("dist_tp2 failed its bars")
+    # dist_tp_levels (sharded_phases) prints its p50 beside these.
+    DIST_P50["tp2"] = [p50(r["ms"]) for r in tp]
 
     # -- train_cli_distributed: torch.distributed.run, 2 ranks on cuda:0 ----------
     import subprocess
@@ -1399,6 +1426,445 @@ def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
         raise AssertionError(f"serve_cli_mesh: rc {proc.returncode}, lint {lint.returncode}: "
                              f"{proc.stderr[-3000:]}")
     return dist_kernel_launches(total)
+
+
+# -- sharded execution finished (dist_tp_levels, serve_mesh_pool, ----------------
+# serve_cli_mesh_elastic). Two gloo ranks on the card in one spawn, then the
+# serve CLI under torch.distributed.run with six ranks (three engine groups).
+LEVELS_GATHER_SITE = "tp_levels_all_gather"
+POOL_MESH_PAGES = 96  # 48 a rank
+POOL_ATOL = 0.05  # delta_page_atol: a frame's changed pages move by 0.5
+POOL_CHAIN_CAP = 3
+POOL_STREAMS = 4
+POOL_FRAMES = 6
+ELASTIC_MESH_RANKS = 6
+ELASTIC_MESH_RAMP = "8x20,240x0,120x40"
+ELASTIC_MESH_ARGV = ["--preset", "imagenet224-dp8", "--mesh-data", "2", "--buckets", "2,4,8,16",
+                     "--dist-backend", "gloo", "--elastic", "--min-engines", "1",
+                     "--max-engines", "3", "--warm-pool", "1", "--streams", "64",
+                     "--ramp", ELASTIC_MESH_RAMP, "--queue-depth", "512",
+                     "--elastic-p99-ms", "500", "--elastic-window", "1",
+                     "--elastic-low-water", "0.3", "--elastic-high-water", "0.5",
+                     "--elastic-dwell", "0.05", "--elastic-cooldown", "0.5",
+                     "--elastic-interval", "0.05", "--elastic-settle", "20"]
+
+
+def _case_tp_levels(rank, device, cfg_kw):
+    """tp_axis="levels" at model 2 on the flagship: bottom_up's 3 groups a
+    rank at full f, top_down's hidden shard at f = 1024; f32 gradients
+    against the single device; bf16 steps timed with exact launches, the
+    (G, f, addend) of each K1 call of one step and the counted gathers."""
+    import torch
+
+    from glom_tpu_torch.parallel import manual
+    from glom_tpu_torch.parallel.mesh import make_mesh
+    from glom_tpu_torch.telemetry import counters as tele_counters
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig, TrainConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    mesh, _ = make_mesh(MeshConfig(model=2), devices=[device] * 2, backend="gloo")
+    f32 = _dist_f32_grads(mesh, cfg, DIST_SP_BATCH, "none", dev, rank, tp_axis="levels")
+    torch.cuda.empty_cache()
+    tcfg = TrainConfig(batch_size=DIST_SP_BATCH, compute_dtype="bfloat16", use_pallas=True)
+    sites = tele_counters.CollectiveCounters()
+    calls, vjp = [], manual.grouped_ffw_lm_vjp
+
+    def recording_vjp(p, x, add=None):
+        if len(calls) < 64:
+            calls.append((int(p.w1.shape[0]), int(p.w1.shape[-1]), add is not None))
+        return vjp(p, x, add=add)
+
+    manual.grouped_ffw_lm_vjp = recording_vjp
+    try:
+        run = _dist_train(MeshConfig(model=2), cfg, tcfg, "none", dev, DIST_STEPS, SEED + 44,
+                          single=True, tp_axis="levels", sites=sites)
+    finally:
+        manual.grouped_ffw_lm_vjp = vjp
+    tr = run.pop("trainer")
+    run.update(f32=f32, vjp_path=tr.vjp_path, k1_calls=calls, sites=sites.sites,
+               bottom_up_groups=int(tr.state.params.glom.bottom_up.w1.shape[0]))
+    return run
+
+
+def _pool_rows(cfg, pt, n_streams, frames, seed):
+    """Each stream's rows frame by frame ([n, L, d] bf16 on the host, pages
+    of `pt` tokens): frame 0 a seeded row (streams 0 and 1 the same row: a
+    shared content hash), then each frame moves one or two pages by 0.5
+    (past POOL_ATOL) and a few tokens of another by 1e-3 (under it)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    shape = (cfg.num_patches, cfg.levels, cfg.dim)
+    base = [torch.randn(shape, generator=g).to(torch.bfloat16) for _ in range(n_streams)]
+    base[1] = base[0].clone()
+    k = cfg.num_patches // pt
+    out = []
+    for s in range(n_streams):
+        rows, row = [base[s]], base[s]
+        for f in range(1, frames):
+            row = row.clone()
+            pages = [(s + f) % k] + ([(s + f + 1) % k] if f % 2 else [])
+            for pg in pages:
+                row[pg * pt:(pg + 1) * pt] += 0.5
+            quiet = (s + f + 2) % k
+            row[quiet * pt:quiet * pt + 2] += 1e-3
+            rows.append(row)
+        out.append(rows)
+    return out
+
+
+def _case_serve_mesh_pool(rank, device, cfg_kw):
+    """A data-2 sharded engine's 96-page pool with delta streams, and a
+    single-device pool, driven by the same rows: every write's answer,
+    the tables, free lists, records and events after it, and each session's
+    read-back (host and device) bit for bit; the host ms of each write on
+    both; then one warm dispatch of bucket 8 from the streams' delta pages
+    against the same engine's host-carried dispatch; then defrag on a
+    non-delta sharded pool against the single-device pool's."""
+    import dataclasses
+
+    import torch
+
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.parallel.serve_mesh import make_serve_mesh
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.serve.mesh_follower import run_follower
+    from glom_tpu_torch.serve.paged_columns import PagedColumnPool, content_hash
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    scfg = ServeConfig(buckets=(MESH_BUCKET,), max_batch=MESH_BUCKET, iters="auto",
+                       exit_threshold=0.0, max_auto_iters=MESH_T, compute_dtype="bfloat16",
+                       use_pallas=True, dispatch_retries=0, mesh_data=2,
+                       page_pool_pages=POOL_MESH_PAGES, delta_streaming=True,
+                       delta_page_atol=POOL_ATOL, delta_chain_cap=POOL_CHAIN_CAP)
+    plain = dataclasses.replace(scfg, delta_streaming=False)
+    out = {}
+    for name, sc in (("delta", scfg), ("defrag", plain)):
+        mesh = make_serve_mesh(sc)
+        if rank != mesh.leader:
+            _sync(dev)
+            _dist_counts(reset=True)
+            stats = run_follower(mesh, dev)
+            _sync(dev)
+            out[name] = {"ops": stats["ops"], "launches": _dist_counts(),
+                         "wire": dict(stats["wire"])}
+            continue
+        params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+        taps = {"sharded": _Tap(), "single": _Tap()}
+        eng = InferenceEngine(cfg, sc, params=params, device=dev, mesh=mesh, name="pool",
+                              writer=taps["sharded"])
+        single = PagedColumnPool(cfg, dataclasses.replace(sc, mesh_data=1),
+                                 writer=taps["single"], name="pool", device=dev)
+        pools = {"sharded": eng.pool, "single": single}
+        sessions = [f"s{i}" for i in range(POOL_STREAMS if name == "delta" else 14)]
+
+        def state(pool, tap):
+            recs = [{k: v for k, v in r.items() if k != "backend_state"} for r in tap.recs]
+            tap.recs.clear()
+            return {"free": list(pool._free), "record": pool.record(), "events": recs,
+                    "table": {s: pool.lookup(s) for s in sessions}}
+
+        mismatches, ms = [], {"sharded": [], "single": []}
+        steps = 0
+        try:
+            def both(method, *args, **kw):
+                nonlocal steps
+                steps += 1
+                got = {}
+                for key, pool in pools.items():
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    got[key] = getattr(pool, method)(*args, **kw)
+                    _sync(dev)
+                    ms[key].append(1e3 * (time.perf_counter() - t0))
+                sh, si = (state(pools[k], taps[k]) for k in ("sharded", "single"))
+                if got["sharded"] != got["single"] or sh != si:
+                    mismatches.append((steps, method, str(got)[:300]))
+                for sid in sessions:
+                    a = pools["sharded"].read_block(sid, on_device=sid == sessions[0])
+                    b = pools["single"].read_block(sid)
+                    if (a is None) != (b is None) or (a is not None and not torch.equal(
+                            a.cpu().view(torch.int16), b.view(torch.int16))):
+                        mismatches.append((steps, f"read {sid}"))
+
+            if name == "delta":
+                rows = _pool_rows(cfg, eng.pool.page_tokens, POOL_STREAMS, POOL_FRAMES,
+                                  SEED + 70)
+                for f in range(POOL_FRAMES):
+                    for s, sid in enumerate(sessions):
+                        kw = {"content_hash": content_hash(rows[s][0])} if f == 0 else {}
+                        both("write_back_stream", sid, rows[s][f].to(dev), cfg.num_patches,
+                             **kw)
+                # The streams' columns as the pool holds them (pages moved by
+                # less than the atol kept their earlier frame's values).
+                held = [pools["sharded"].read_block(sid) for sid in sessions]
+                page_rows = torch.tensor([eng.pool.lookup(sessions[i % POOL_STREAMS])[0]
+                                          for i in range(MESH_BUCKET)], dtype=torch.int32)
+                img = torch.randn((MESH_BUCKET, cfg.channels, cfg.image_size, cfg.image_size),
+                                  generator=torch.Generator().manual_seed(SEED + 71))
+                _sync(dev)
+                _dist_counts(reset=True)
+                paged = eng.infer(img, page_rows=page_rows.numpy())
+                carried = eng.infer(img, levels0=torch.stack(
+                    [held[i % POOL_STREAMS] for i in range(MESH_BUCKET)]))
+                _sync(dev)
+                res = dict(launches=_dist_counts(), paged_levels0_bytes=paged.levels0_h2d_bytes,
+                           carried_levels0_bytes=carried.levels0_h2d_bytes,
+                           paged_bitwise_carried=bool(torch.equal(paged.levels, carried.levels)),
+                           paged_iters=paged.iters_run, finite=bool(
+                               paged.levels.float().isfinite().all()))
+            else:
+                rows = _pool_rows(cfg, eng.pool.page_tokens, len(sessions), 1, SEED + 72)
+                for s, sid in enumerate(sessions):
+                    both("write_back", sid, rows[s][0].to(dev), cfg.num_patches)
+                for sid in sessions[:12:2]:
+                    both("free", sid)
+                both("defrag")
+                res = {"moves": eng.pool.record()["n_defrag_moves"]}
+            res.update(mismatches=mismatches[:20], n_mismatches=len(mismatches), steps=steps,
+                       write_ms=ms, record=eng.pool.record(), wire=dict(eng._mesh.channel.wire))
+            out[name] = res
+        finally:
+            eng.close()
+            del single
+            torch.cuda.empty_cache()
+    return out
+
+
+DIST_CASES.update({"tp_levels": _case_tp_levels, "serve_mesh_pool": _case_serve_mesh_pool})
+
+
+def _elastic_cli_rank(check_path: str, argv: list) -> int:
+    """One rank of `python -m torch.distributed.run ... chip_smoke.py
+    --serve-cli-rank CHECK ARGV...`: `python -m glom_tpu_torch.serve ARGV`,
+    with rank 0's drain migrations checked page for page into CHECK as
+    JSON: each row the migration read from the drained pool against the
+    destination's read-back right after the migration's write (both through
+    their rank groups). A read-back that another write of the destination
+    pool overtook (traffic goes on during a drain) counts as raced, not
+    checked."""
+    import os
+    import threading
+
+    import torch
+
+    from glom_tpu_torch.serve import cli
+    from glom_tpu_torch.serve.column_cache import ColumnCache
+
+    checks = []
+    migrate = ColumnCache.migrate_engine_sessions
+
+    def checked(cache, src, dst, **kw):
+        pool = (cache.pools or {}).get(dst)
+        row = {"src": src, "dst": dst, "checked": 0, "bitwise": 0, "raced": 0}
+        me = threading.get_ident()
+        wrapped = {}
+        if pool is not None:
+            for name in ("write_back", "write_back_stream"):
+                orig = getattr(pool, name)
+
+                def write(sid, levels, n_tokens, _orig=orig, **wkw):
+                    before = pool.n_writebacks
+                    got = _orig(sid, levels, n_tokens, **wkw)
+                    # the migration's own writes (the batcher's workers
+                    # write the pool too meanwhile)
+                    if got and threading.get_ident() == me:
+                        back = pool.read_block(sid)
+                        if pool.n_writebacks != before + 1:
+                            row["raced"] += 1
+                        else:
+                            row["checked"] += 1
+                            row["bitwise"] += int(back is not None and torch.equal(
+                                back.view(torch.int16),
+                                levels[:n_tokens].cpu().view(torch.int16)))
+                    return got
+
+                wrapped[name] = write
+                setattr(pool, name, write)
+        t0 = time.perf_counter()
+        try:
+            got = migrate(cache, src, dst, **kw)
+        finally:
+            for name in wrapped:
+                delattr(pool, name)
+        row.update(ms=1e3 * (time.perf_counter() - t0), **got)
+        checks.append(row)
+        return got
+
+    ColumnCache.migrate_engine_sessions = checked
+    try:
+        rc = cli.main(argv)
+    finally:
+        ColumnCache.migrate_engine_sessions = migrate
+    # cli.main has taken its process group down: the launcher's RANK says
+    # which rank this is.
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(check_path, "w") as fh:
+            json.dump({"migrations": checks}, fh)
+    return rc
+
+
+def sharded_phases(cfg, dev, smi: str, *, cli_argv=ELASTIC_MESH_ARGV) -> tuple:
+    """dist_tp_levels and serve_mesh_pool (one 2-rank spawn on `dev`), then
+    serve_cli_mesh_elastic (six ranks under torch.distributed.run, the serve
+    CLI with `cli_argv`); returns the launches of each kernel over every
+    rank's main-path runs: (the levels TP steps', the pool engine's
+    dispatches')."""
+    import os
+    import statistics
+    import tempfile
+
+    from glom_tpu_torch.train import default_recon_index
+
+    cfg_kw = dict(dim=cfg.dim, levels=cfg.levels, image_size=cfg.image_size,
+                  patch_size=cfg.patch_size)
+    counted = dev.type == "cuda"
+    t0 = time.perf_counter()
+    res = _dist_spawn(2, [("tp_levels", {"cfg_kw": cfg_kw}),
+                          ("serve_mesh_pool", {"cfg_kw": cfg_kw})], str(dev))
+    spawn_s = time.perf_counter() - t0
+
+    # -- dist_tp_levels -----------------------------------------------------------------
+    k = default_recon_index(cfg.default_iters)
+    tp = [r[0] for r in res]
+    train_total = {key: 0 for key in DIST_COUNTERS}
+    for r in tp:
+        for c in r["launches"]:
+            for key, v in c.items():
+                train_total[key] += v
+    worst, loss_rel, errs = tp[0]["f32"]
+    bf16_rel = max(abs(a - b) / abs(b) for a, b in zip(tp[0]["losses"], tp[0]["single_losses"]))
+    want = _full(_per_op_launches(k, with_k2=True))
+    exact = all(c == want for r in tp for c in r["launches"]) or not counted
+    L, f = cfg.levels, cfg.dim * cfg.mult
+    want_calls = [(L // 2, f, False), (L - 1, f // 2, True)] * k
+    calls_ok = all(r["k1_calls"][:2 * k] == want_calls for r in tp)
+    # The design's count: one [L/2, b, n, d] bf16 shard into each rank a
+    # gather, k forward and k backward gathers a step.
+    shard = (L // 2) * DIST_SP_BATCH * cfg.num_patches * cfg.dim * 2
+    sites = [[st for st in r["sites"] if st["site"] == LEVELS_GATHER_SITE] for r in tp]
+    gathered = [sum(st["wire_bytes"] * st["calls"] for st in rs) for rs in sites]
+    gather_ok = gathered == [2 * k * shard] * 2
+    p50 = [statistics.median(r["ms"][1:]) for r in tp]
+    ok = (worst <= TRAIN_F32_BAR and bf16_rel < 1e-2 and exact and calls_ok and gather_ok
+          and tp[0]["bottom_up_groups"] == L // 2)
+    emit("dist_tp_levels", nvidia_smi=smi, backend="gloo", batch=DIST_SP_BATCH,
+         tp_axis="levels", bottom_up_groups_per_rank=tp[0]["bottom_up_groups"],
+         vjp_path=tp[0]["vjp_path"], f32_worst=worst, f32_loss_rel_err=loss_rel,
+         f32_err_over_max=errs, f32_bar=TRAIN_F32_BAR, f32_bar_ratio=worst / TRAIN_F32_BAR,
+         bf16_losses=tp[0]["losses"], single_losses=tp[0]["single_losses"],
+         bf16_worst_rel_loss=bf16_rel, bf16_bar=1e-2, k1_calls_first_step=tp[0]["k1_calls"][:2],
+         k1_calls_as_designed=calls_ok, gather_sites=sites[0],
+         gather_bytes_per_step=gathered, gather_bytes_design=2 * k * shard,
+         gather_equal_design=gather_ok, launches_per_step=tp[0]["launches"][-1],
+         want_per_step=want, exact_launches=exact, step_ms=[r["ms"] for r in tp],
+         step_p50_ms=p50, dist_tp2_step_p50_ms=DIST_P50.get("tp2"),
+         staged=[r["staged"][0] for r in res], spawn_seconds=spawn_s, ok=ok)
+    if not ok:
+        raise AssertionError("dist_tp_levels failed its bars")
+
+    # -- serve_mesh_pool ------------------------------------------------------------------
+    lead, fol = res[0][1], res[1][1]
+    pool_total = {key: 0 for key in DIST_COUNTERS}
+    d, fd = lead["delta"], fol["delta"]
+    for c in (d["launches"], fd["launches"]):
+        for key, v in c.items():
+            pool_total[key] += v
+    # Two dispatches (paged and host-carried) of T iterations a rank.
+    want_l = _full({"K1 fwd": 2 * 2 * MESH_T})
+    exact = (d["launches"] == want_l and fd["launches"] == want_l) or not counted
+    dl = d["record"].get("delta", {})
+    ok = (d["n_mismatches"] == 0 and lead["defrag"]["n_mismatches"] == 0 and exact
+          and d["paged_levels0_bytes"] == 0 and d["paged_bitwise_carried"] and d["finite"]
+          and dl.get("n_compactions", 0) >= 1
+          and dl.get("n_base_shares", 0) >= 1 and lead["defrag"]["moves"] > 0)
+    emit("serve_mesh_pool", nvidia_smi=smi, backend="gloo", pages=POOL_MESH_PAGES,
+         delta_page_atol=POOL_ATOL, delta_chain_cap=POOL_CHAIN_CAP, streams=POOL_STREAMS,
+         frames=POOL_FRAMES, steps={nm: lead[nm]["steps"] for nm in ("delta", "defrag")},
+         mismatches={nm: lead[nm]["mismatches"] for nm in ("delta", "defrag")},
+         write_ms_p50={nm: {key: statistics.median(v) for key, v in lead[nm]["write_ms"].items()}
+                       for nm in ("delta", "defrag")},
+         write_ms=lead["delta"]["write_ms"], delta=dl, defrag_moves=lead["defrag"]["moves"],
+         paged_levels0_bytes=d["paged_levels0_bytes"],
+         carried_levels0_bytes=d["carried_levels0_bytes"],
+         paged_bitwise_carried=d["paged_bitwise_carried"], wire_leader=d["wire"],
+         wire_follower=fd["wire"], follower_ops={nm: fol[nm]["ops"] for nm in fol},
+         launches=[d["launches"], fd["launches"]], want_per_rank=want_l, exact_launches=exact,
+         ok=ok)
+    if not ok:
+        raise AssertionError("serve_mesh_pool failed its checks")
+
+    # -- serve_cli_mesh_elastic: torch.distributed.run, six ranks on the card -----------
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="glom_serve_elastic_mesh_") as tmp:
+        out, check = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "migrations.json")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ELASTIC_MESH_RANKS), "--monitor-interval", "0.1",
+                os.path.abspath(__file__), "--serve-cli-rank", check, *cli_argv,
+                "--device", str(dev), "--out", out]
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=root)
+        cli_s = time.perf_counter() - t0
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                              capture_output=True, text=True, timeout=120, cwd=root)
+        audit = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "audit", out],
+                               capture_output=True, text=True, timeout=120, cwd=root)
+        recs, migrations = [], []
+        if os.path.exists(out):
+            with open(out) as fh:
+                recs = [json.loads(ln) for ln in fh if ln.startswith("{")]
+        if os.path.exists(check):
+            with open(check) as fh:
+                migrations = json.load(fh)["migrations"]
+    summary = [r for r in recs if r.get("event") == "summary"]
+    s = summary[-1] if summary else {}
+    el = s.get("elastic") or {}
+    ramp = cli_argv[cli_argv.index("--ramp") + 1]
+    n_ramp = sum(int(p.split("x")[0]) for p in ramp.split(","))
+    served = sorted(r["id"] for r in recs if r.get("event") == "response" and r.get("ok"))
+    # Each decision's chain in order: the decisions numbered in turn, every
+    # event after the decision it names (the audit replays the rest).
+    last, chains_ok = 0, True
+    for r in recs:
+        if r.get("kind") == "decision":
+            chains_ok = chains_ok and r["decision_id"] == last + 1
+            last = r["decision_id"]
+        elif r.get("decision_id") is not None and r.get("kind") == "serve":
+            chains_ok = chains_ok and 1 <= r["decision_id"] <= last
+    decided = {r["decision_id"]: r["wall_time"] for r in recs if r.get("kind") == "decision"}
+    admissions = [(r["engine"], round(1e3 * (r["wall_time"] - decided[r["decision_id"]]), 3),
+                   r.get("spare") is True or any(
+                       q.get("event") == "spare_promote" and q["decision_id"] == r["decision_id"]
+                       for q in recs))
+                  for r in recs if r.get("event") == "admission_open"]
+    releases = [{"engine": r["engine"], "freed_mib_by_rank": {
+        rk: b / 2 ** 20 for rk, b in r["freed_bytes_by_rank"].items()}}
+        for r in recs if r.get("event") == "engine_release" and "freed_bytes_by_rank" in r]
+    groups = [(r["group"], r["state"], r["generation"]) for r in recs
+              if r.get("event") == "rank_group"]
+    migrated_ok = (sum(m["checked"] for m in migrations) > 0
+                   and all(m["bitwise"] == m["checked"] for m in migrations))
+    ok = (proc.returncode == 0 and lint.returncode == 0 and audit.returncode == 0
+          and len(summary) == 1 and s.get("n_requests") == s.get("n_served") == n_ramp
+          and served == list(range(n_ramp)) and chains_ok and migrated_ok
+          and el.get("n_promotions", 0) >= 1 and el.get("n_scale_outs", 0) >= 1
+          and el.get("n_scale_ins", 0) >= 1
+          and all(all(b > 0 for rk, b in rel["freed_mib_by_rank"].items() if rk != "0")
+                  for rel in releases))
+    emit("serve_cli_mesh_elastic", nvidia_smi=smi, ranks=ELASTIC_MESH_RANKS,
+         argv=cli_argv, rc=proc.returncode, lint_rc=lint.returncode,
+         audit_rc=audit.returncode, seconds=cli_s, requests=s.get("n_requests"),
+         served=s.get("n_served"), served_once=served == list(range(n_ramp)),
+         chains_in_order=chains_ok, elastic={kk: v for kk, v in el.items()
+                                             if isinstance(v, (int, float, str, list))},
+         decision_to_admission_ms=admissions, releases=releases, rank_groups=groups,
+         migrations=migrations, migrated_bitwise=migrated_ok, ok=ok,
+         stderr_tail=None if ok else (proc.stderr[-3000:] + audit.stderr[-500:]))
+    if not ok:
+        raise AssertionError(f"serve_cli_mesh_elastic: rc {proc.returncode}, lint "
+                             f"{lint.returncode}, audit {audit.returncode}")
+    return dist_kernel_launches(train_total), dist_kernel_launches(pool_total)
 
 
 def emit(phase: str, **kw) -> None:
@@ -4893,6 +5359,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_launches = mesh_phases(cfg, dev, smi)
 
+    # -- levels TP, the sharded pool's other writers, an elastic fleet on rank groups ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    levels_launches, pool_launches = sharded_phases(cfg, dev, smi)
+    for key, v in levels_launches.items():
+        dist_launches[key] += v
+    for key, v in pool_launches.items():
+        mesh_launches[key] += v
+
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
                                                  "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
@@ -4987,10 +5462,10 @@ def main() -> int:
         if kd["name"] in elastic_launches:
             kd["elastic_launches"] = elastic_launches[kd["name"]]
         # ... and across ranks (every rank's counted steps of the dist_*
-        # phases and the world-1 NCCL steps).
+        # phases, dist_tp_levels included, and the world-1 NCCL steps).
         kd["dist_launches"] = dist_launches[kd["name"]]
         # ... and in sharded inference (every rank's forwards and engines in
-        # mesh_forward and serve_mesh).
+        # mesh_forward, serve_mesh and serve_mesh_pool).
         kd["mesh_launches"] = mesh_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
@@ -5001,4 +5476,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--serve-cli-rank":
+        # One rank of serve_cli_mesh_elastic (under torch.distributed.run).
+        sys.exit(_elastic_cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

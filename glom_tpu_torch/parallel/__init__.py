@@ -8,9 +8,9 @@ across ranks, and sharded inference (`make_manual_forward`, which
 forward over a `ServeMesh`; the engine meshes). One process per rank;
 every collective is an explicit call over the group of one mesh axis
 (`collectives.py`), and each rank runs glom_tpu's per-shard bodies
-through the port's kernels (`manual.py`). Not ported yet: the EP-style
-`tp_axis="levels"` (ROADMAP queue A item 8b.3). `to_named` and
-`serve_shardings` have no counterpart (there is no GSPMD; see
+through the port's kernels (`manual.py`), with tensor parallelism on the
+hidden axis or, EP-style, on bottom_up's level groups (`tp_axis`).
+`to_named` and `serve_shardings` have no counterpart (there is no GSPMD; see
 `sharding.py` and `serve_mesh.py`).
 """
 

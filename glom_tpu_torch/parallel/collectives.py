@@ -10,6 +10,12 @@ gets their transposes from JAX. Here each is an explicit
     forward, all-reduce backward) where a replicated tensor enters the
     rank's f/mp shard of the FFW, and `reduce_from_model` (all-reduce
     forward, identity backward) on its partial output;
+  * the pair for levels TP (the group axis over 'model'):
+    `split_to_model` (the rank's slice of a replicated tensor forward, an
+    all-gather of the slices' gradients backward) where the carry enters
+    the rank's groups, and `gather_from_model` (all-gather forward, the
+    rank's slice backward) on the groups' outputs; both gathers count at
+    the one site `tp_levels_all_gather`;
   * `all_to_all` (Ulysses), whose backward is the inverse all-to-all;
   * `halo_exchange` (halo SP), whose backward sends each halo's
     cotangent back to the neighbour that owns those rows.
@@ -281,6 +287,46 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None, None
 
 
+LEVELS_SITE = "tp_levels_all_gather"
+
+
+class _SplitToModel(torch.autograd.Function):
+    """Levels TP's entry: forward, this rank's contiguous 1/size of a
+    tensor that is the same on every model rank (dim 0); backward, the
+    slices' gradients all-gathered over 'model', so every rank holds the
+    whole gradient of the replicated tensor. The backward's gather is
+    recorded under the counters that were active at the forward (autograd
+    may run the backward on another thread)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        ctx.counters = counters.active()
+        size = x.shape[0] // axis.size
+        return x.narrow(0, axis.index * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        with counters.recording_all(ctx.counters):
+            return all_gather(g.contiguous(), ctx.axis, 0, site=LEVELS_SITE), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Levels TP's exit: forward, every rank's slice all-gathered on dim 0;
+    backward, this rank's slice of the gradient (the same on every model
+    rank: what follows the gather is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_gather(x, axis, 0, site=LEVELS_SITE)
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[0] // ctx.axis.size
+        return g.narrow(0, ctx.axis.index * size, size).contiguous(), None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, split_dim, concat_dim):
@@ -325,6 +371,18 @@ def copy_to_model(xs: Sequence[torch.Tensor], axis: Axis) -> list:
 
 def reduce_from_model(x: torch.Tensor, axis: Axis, *, site: Optional[str] = None) -> torch.Tensor:
     return x if axis.size == 1 else _ReduceFromModel.apply(x, axis, site)
+
+
+def split_to_model(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Levels TP: this rank's groups of a replicated [G, ...] tensor, whose
+    gradient is all-gathered over 'model' (see _SplitToModel)."""
+    return x if axis.size == 1 else _SplitToModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Levels TP: every rank's [G/size, ...] groups gathered into [G, ...]
+    (see _GatherFromModel)."""
+    return x if axis.size == 1 else _GatherFromModel.apply(x, axis)
 
 
 def all_to_all(x: torch.Tensor, axis: Axis, split_dim: int, concat_dim: int) -> torch.Tensor:

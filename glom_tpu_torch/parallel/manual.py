@@ -26,6 +26,15 @@ group of one mesh axis (`collectives.py`):
             The replicated inputs of the shard (x, the positional addend,
             b2) enter through `copy_to_model`, whose backward sums their
             partial gradients over 'model'; K2 runs whole on every rank.
+            With tp_axis="levels" (glom_tpu's EP-style split) bottom_up's
+            group axis is cut instead: model rank r holds groups [r L/mp,
+            (r+1) L/mp) at full f, runs K1 on the carry slots they read
+            (`split_to_model`, whose backward all-gathers those slots'
+            gradient) and all-gathers the outputs into [L, b, n, d]
+            (`gather_from_model`, whose backward keeps the rank's slice);
+            top_down (G = L-1) keeps the hidden split. glom_tpu runs this
+            layout under GSPMD only, without its kernels; here K1 runs on
+            the rank's groups, the same math.
   * loss -- the patch-space MSE on the rank's (batch band x patch band)
             block, divided by the seq size: summed over 'seq' it is each
             data rank's full-image loss, and the mean over 'data' is the
@@ -89,9 +98,11 @@ from glom_tpu_torch.parallel.collectives import (
     all_reduce,
     all_reduce_tensors,
     copy_to_model,
+    gather_from_model,
     mesh_axis,
     reduce_from_model,
     reduce_scatter,
+    split_to_model,
 )
 from glom_tpu_torch.parallel.halo import halo_consensus_shard
 from glom_tpu_torch.parallel.quantized import quantize_dequantize
@@ -137,10 +148,13 @@ def rank_axes(mesh) -> RankAxes:
                       for n in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)))
 
 
+TP_AXES = ("hidden", "levels")
+
+
 def manual_supported(mesh, tp_axis: str = "hidden") -> bool:
-    """The manual path covers DP x SP x hidden-TP; the EP-style 'levels'
-    TP shards the group axis with another collective pattern."""
-    return rank_axes(mesh).model.size == 1 or tp_axis == "hidden"
+    """The manual path covers DP x SP x TP on either axis (glom_tpu's
+    covers 'hidden' only; its 'levels' is GSPMD's)."""
+    return tp_axis in TP_AXES
 
 
 def check_model_axis(mp: int) -> None:
@@ -148,6 +162,22 @@ def check_model_axis(mp: int) -> None:
     when 1/mp is, i.e. for a power-of-two mp (glom_tpu's assumption)."""
     if mp < 1 or mp & (mp - 1):
         raise ValueError(f"the model axis ({mp}) must be a power of two")
+
+
+def check_tp_layout(cfg: GlomConfig, mp: int, tp_axis: str) -> None:
+    """The model axis against the layout: a power of two; the hidden width
+    (top_down's split on either axis) and, under 'levels', the level
+    count (bottom_up's groups) divisible by it."""
+    if tp_axis not in TP_AXES:
+        raise ValueError(f"tp_axis must be 'hidden' or 'levels', got {tp_axis!r}")
+    if mp == 1:
+        return
+    check_model_axis(mp)
+    if (cfg.dim * cfg.mult) % mp:
+        raise ValueError(f"hidden width {cfg.dim * cfg.mult} not divisible by model axis {mp}")
+    if tp_axis == "levels" and cfg.levels % mp:
+        raise ValueError(f"levels {cfg.levels} not divisible by model axis {mp} "
+                         "(tp_axis='levels' splits bottom_up's groups)")
 
 
 def shard_consensus_fn(cfg: GlomConfig, seq: Axis, sp_strategy: str):
@@ -176,10 +206,11 @@ def _band(t: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
     return t.narrow(dim, axis.index * size, size)
 
 
-def _ffw_fn(use_pallas: bool, model: Axis):
+def _ffw_fn(use_pallas: bool, model: Axis, split: str = "hidden"):
     """ffw(params, x [G, M, d], add=None [n, d]) -> [G, M, d]: K1 with its
     backward (or the plain grouped FFW), as this rank's hidden shard under
-    TP."""
+    TP, or with split="levels" on this rank's G/mp groups of x (`params`
+    holds those groups), the outputs gathered over 'model'."""
 
     def base(p, x, add=None):
         if use_pallas:
@@ -190,6 +221,11 @@ def _ffw_fn(use_pallas: bool, model: Axis):
 
     if model.size == 1:
         return base
+    if split == "levels":
+        def ep(p, x, add=None):
+            return gather_from_model(base(p, split_to_model(x, model), add=add), model)
+
+        return ep
     inv_mp = 1.0 / model.size
 
     def tp(p, x, add=None):
@@ -207,9 +243,10 @@ RETURN_MODES = ("top", "final", "all")
 def _forward_local(gp, noised: torch.Tensor, cfg: GlomConfig, *, iters: int, axes: RankAxes,
                    consensus_shard, remat: bool, use_pallas: bool,
                    levels0_lm: Optional[torch.Tensor] = None,
-                   return_mode: str = "top") -> torch.Tensor:
+                   return_mode: str = "top", tp_axis: str = "hidden") -> torch.Tensor:
     """The per-rank forward of a seq- or model-sharded rank: its batch band
-    of `noised`, its patch band, its hidden shard; level-major carry, K1 per
+    of `noised`, its patch band, its hidden shard (or under tp_axis
+    "levels" its bottom_up groups); level-major carry, K1 per
     FFW, K2 whole at seq = 1 (per-op) or the shard consensus and the f32
     mean at seq > 1. `levels0_lm` carries in an [L, b_loc, n_loc, d] state
     (the temporal API). return_mode: 'top' the final top level [b_loc,
@@ -227,6 +264,7 @@ def _forward_local(gp, noised: torch.Tensor, cfg: GlomConfig, *, iters: int, axe
     b = tokens.shape[0]
     M = b * n_loc
     ffw = _ffw_fn(use_pallas, axes.model)
+    bu_ffw = _ffw_fn(use_pallas, axes.model, tp_axis)
     geometry = dict(side=cfg.num_patches_side, radius=float(cfg.local_consensus_radius),
                     attend_self=cfg.consensus_self)
     if consensus_shard is None and not use_pallas:
@@ -239,7 +277,7 @@ def _forward_local(gp, noised: torch.Tensor, cfg: GlomConfig, *, iters: int, axe
 
     def step(carry):
         lv = carry[1:]
-        bu = ffw(gp.bottom_up, carry[:L].reshape(L, M, d)).view(L, b, n_loc, d)
+        bu = bu_ffw(gp.bottom_up, carry[:L].reshape(L, M, d)).view(L, b, n_loc, d)
         td = ffw(gp.top_down, carry[2:].reshape(L - 1, M, d), add=pos).view(L - 1, b, n_loc, d)
         if consensus_shard is None:
             new = consensus_update_vjp(lv, bu, td, **geometry)
@@ -291,10 +329,7 @@ def make_manual_forward(mesh, cfg: GlomConfig, *, iters: Optional[int] = None,
     T = iters if iters is not None else cfg.default_iters
     if cfg.num_patches % seq:
         raise ValueError(f"patches {cfg.num_patches} not divisible by seq axis {seq}")
-    if mp > 1:
-        check_model_axis(mp)
-        if (cfg.dim * cfg.mult) % mp:
-            raise ValueError(f"hidden width {cfg.dim * cfg.mult} not divisible by model axis {mp}")
+    check_tp_layout(cfg, mp, "hidden")
     consensus_shard = shard_consensus_fn(cfg, axes.seq, sp_strategy)
     fused = seq == 1 and mp == 1 and use_pallas
     specs = glom_param_specs("hidden")
@@ -336,7 +371,7 @@ def make_manual_forward(mesh, cfg: GlomConfig, *, iters: Optional[int] = None,
 
 
 def _build_local_loss(axes: RankAxes, cfg: GlomConfig, tcfg: TrainConfig, *,
-                      sp_strategy: str = "none"):
+                      sp_strategy: str = "none", tp_axis: str = "hidden"):
     """The per-rank objective both manual train steps share: returns
     (local_obj, seq, mp) where local_obj(params, img_band, noise_band) ->
     scalar is this rank's partial of its data rank's loss (the band MSE
@@ -349,10 +384,7 @@ def _build_local_loss(axes: RankAxes, cfg: GlomConfig, tcfg: TrainConfig, *,
         raise ValueError(f"recon_index {k} outside 1..{T}")
     if cfg.num_patches % seq:
         raise ValueError(f"patches {cfg.num_patches} not divisible by seq axis {seq}")
-    if mp > 1:
-        check_model_axis(mp)
-        if (cfg.dim * cfg.mult) % mp:
-            raise ValueError(f"hidden width {cfg.dim * cfg.mult} not divisible by model axis {mp}")
+    check_tp_layout(cfg, mp, tp_axis)
     compute_dtype = torch.bfloat16 if tcfg.compute_dtype == "bfloat16" else None
 
     if seq == 1 and mp == 1:
@@ -375,7 +407,7 @@ def _build_local_loss(axes: RankAxes, cfg: GlomConfig, tcfg: TrainConfig, *,
             gp = map_params(lambda t: t.to(compute_dtype), gp)
         noised = (img + noise).to(compute_dtype or img.dtype)
         top = _forward_local(gp, noised, cfg, iters=k, axes=axes, consensus_shard=consensus_shard,
-                             remat=tcfg.remat, use_pallas=tcfg.use_pallas)
+                             remat=tcfg.remat, use_pallas=tcfg.use_pallas, tp_axis=tp_axis)
         # The reconstruction and MSE in PATCH space: the same pixel set as
         # the image-space MSE (patchify is a permutation), on the band.
         recon = top.to(img.dtype) @ params.to_pixels.w + params.to_pixels.b
@@ -434,13 +466,16 @@ def _global_band_loss(local_obj, axes: RankAxes):
     return loss
 
 
-def make_manual_loss(mesh, cfg: GlomConfig, tcfg: TrainConfig, *, sp_strategy: str = "none"):
+def make_manual_loss(mesh, cfg: GlomConfig, tcfg: TrainConfig, *, sp_strategy: str = "none",
+                     tp_axis: str = "hidden"):
     """loss(params, img, noise) -> the global loss on every rank, from the
     GLOBAL img and noise (each rank takes its data band). Differentiable:
     torch.autograd.grad of it gives every rank the global gradient of each
-    of its leaves (the TP shards' for the model-sharded weights)."""
+    of its leaves (the TP shards' for the model-sharded weights, laid out
+    by `tp_axis`)."""
     axes = rank_axes(mesh)
-    local_obj, _, _ = _build_local_loss(axes, cfg, tcfg, sp_strategy=sp_strategy)
+    local_obj, _, _ = _build_local_loss(axes, cfg, tcfg, sp_strategy=sp_strategy,
+                                        tp_axis=tp_axis)
     band_loss = _global_band_loss(local_obj, axes)
 
     def loss(params, img, noise):
@@ -460,12 +495,12 @@ def _check_batch(tcfg: TrainConfig, dp: int) -> int:
     return accum
 
 
-def model_sharded(params) -> list:
-    """For each leaf (param_leaves order): whether the hidden TP layout
+def model_sharded(params, tp_axis: str = "hidden") -> list:
+    """For each leaf (param_leaves order): whether the `tp_axis` layout
     splits it over 'model'."""
     from glom_tpu_torch.utils.checkpoint import named_leaves
 
-    specs = denoise_param_specs("hidden")
+    specs = denoise_param_specs(tp_axis)
     return [MODEL_AXIS in specs[name] for name, _ in named_leaves(params)]
 
 
@@ -486,17 +521,19 @@ def mesh_norm(tensors, sharded, axis: Axis) -> torch.Tensor:
 
 def make_manual_train_step(mesh, cfg: GlomConfig, tcfg: TrainConfig, *,
                            sp_strategy: str = "none", with_grad_norm: bool = True,
-                           level: Optional[str] = None):
+                           level: Optional[str] = None, tp_axis: str = "hidden"):
     """(state, img, generator) -> (state, metrics): the stage-0 step (the
     single-device step's contract: the noise of the GLOBAL batch drawn from
     `generator`, each rank its band; the strided microbatches; Adam on the
     rank's leaves with the globally reduced gradients; grad norm and, under
     telemetry, the taps and the guard). `level` is the resolved telemetry
-    level (DistributedTrainer degrades "full" to "scalars")."""
+    level (DistributedTrainer degrades "full" to "scalars"); `tp_axis` the
+    layout of the rank's model-sharded leaves."""
     axes = rank_axes(mesh)
     accum = _check_batch(tcfg, axes.data.size)
     level = level if level is not None else diag.resolve_telemetry_level(tcfg)
-    local_obj, _, mp = _build_local_loss(axes, cfg, tcfg, sp_strategy=sp_strategy)
+    local_obj, _, mp = _build_local_loss(axes, cfg, tcfg, sp_strategy=sp_strategy,
+                                         tp_axis=tp_axis)
     band_loss = _global_band_loss(local_obj, axes)
     lr = make_lr_schedule(tcfg)
 
@@ -508,7 +545,8 @@ def make_manual_train_step(mesh, cfg: GlomConfig, tcfg: TrainConfig, *,
         loss, grads = accumulate_grads(band_loss, state.params, img, noise, accum)
         norm = diag.global_norm
         if mp > 1:
-            norm = partial(mesh_norm, sharded=model_sharded(state.params), axis=axes.model)
+            norm = partial(mesh_norm, sharded=model_sharded(state.params, tp_axis),
+                           axis=axes.model)
         metrics = apply_update(state, leaves, grads, {"loss": loss, "step": state.step}, lr=lr,
                                level=level, tcfg=tcfg, with_grad_norm=with_grad_norm, norm=norm)
         return state._replace(step=state.step + 1), metrics

@@ -7,8 +7,10 @@ engine). glom_tpu picks between a GSPMD step and its
 fully-manual shard_map step; the port has no GSPMD, so every
 DistributedTrainer runs the manual per-rank step (`parallel/manual.py`):
 with `use_pallas` through the Hopper kernels, without it through the plain
-ops. The EP-style `tp_axis="levels"` is GSPMD-only in glom_tpu and raises
-here (ROADMAP queue A item 8b.3).
+ops. That includes the EP-style `tp_axis="levels"`, which glom_tpu runs
+under GSPMD only (with `use_pallas` it warns and drops its kernels): here
+each model rank runs K1 on its bottom_up groups, the same math, and
+nothing falls back.
 
 One process per rank. Each rank builds the same global parameters from
 the seed, keeps its tensor-parallel shard, draws the same global noise
@@ -36,7 +38,7 @@ from glom_tpu_torch.data.prefetch import prefetch_to_device
 from glom_tpu_torch.models.core import param_leaves, resolve_vjp_path, unflatten_params
 from glom_tpu_torch.parallel.halo import make_halo_consensus
 from glom_tpu_torch.parallel.manual import (
-    check_model_axis,
+    check_tp_layout,
     make_manual_train_step,
     make_manual_zero_train_step,
     rank_axes,
@@ -168,21 +170,24 @@ def _replica_groups(scfg, wanted: int, ranks: Optional[list]) -> Optional[list]:
     return groups
 
 
-def make_engine_meshes(scfg, n_engines: int, ranks: Optional[list] = None, *,
+def make_engine_meshes(scfg, n_engines: Optional[int], ranks: Optional[list] = None, *,
                        leader: Optional[int] = None) -> list:
     """One serve mesh (or None for single-device engines) a serving engine:
-    the first `n_engines` groups of `_replica_groups`, each with its own
+    the first `n_engines` groups of `_replica_groups` (every group the
+    ranks hold for n_engines=None: an elastic fleet's), each with its own
     process groups. `leader` (default: each group's first rank) is the rank
     that holds every engine, for a batcher in one process: a leader outside
     a group dispatches to it without a band. Every rank of the world calls
     it, in the same order."""
     from glom_tpu_torch.parallel.serve_mesh import build_serve_mesh
 
-    if n_engines < 1:
+    if n_engines is not None and n_engines < 1:
         raise ValueError(f"n_engines {n_engines} must be >= 1")
-    groups = _replica_groups(scfg, n_engines, ranks)
+    groups = _replica_groups(scfg, n_engines or 1, ranks)
     if groups is None:
-        return [None] * n_engines
+        return [None] * (n_engines or 1)
+    if n_engines is None:
+        n_engines = len(groups)
     return [build_serve_mesh(g, scfg.mesh_data, scfg.mesh_seq, leader)
             for g in groups[:n_engines]]
 
@@ -246,13 +251,6 @@ class DistributedTrainer:
         backend: Optional[str] = None,
         params=None,
     ):
-        if tp_axis == "levels":
-            raise NotImplementedError(
-                "tp_axis='levels' (glom_tpu's GSPMD-only EP-style split) is not ported "
-                "yet: ROADMAP queue A item 8b.3"
-            )
-        if tp_axis != "hidden":
-            raise ValueError(f"tp_axis must be 'hidden' or 'levels', got {tp_axis!r}")
         if tcfg.batch_size % mesh_cfg.data:
             raise ValueError(f"batch {tcfg.batch_size} not divisible by data axis {mesh_cfg.data}")
         accum = pinned_grad_accum(tcfg)
@@ -263,9 +261,9 @@ class DistributedTrainer:
             )
         if cfg.num_patches % mesh_cfg.seq:
             raise ValueError(f"patches {cfg.num_patches} not divisible by seq axis {mesh_cfg.seq}")
-        if mesh_cfg.model > 1:
-            check_model_axis(mesh_cfg.model)
+        check_tp_layout(cfg, mesh_cfg.model, tp_axis)
         self.cfg = cfg
+        self.tp_axis = tp_axis
         self.mesh_cfg = mesh_cfg
         self.mesh, self.device = make_mesh(mesh_cfg, devices, backend)
         self.axes = rank_axes(self.mesh)
@@ -352,7 +350,7 @@ class DistributedTrainer:
                 )
             return make_manual_train_step(
                 self.mesh, cfg, tcfg, sp_strategy=self.sp_strategy,
-                with_grad_norm=with_grad_norm, level=self.telemetry_level,
+                with_grad_norm=with_grad_norm, level=self.telemetry_level, tp_axis=tp_axis,
             )
 
         self._step = build(True)

@@ -81,7 +81,8 @@ class ServeMesh:
     engine's own process group over the leader and the ranks (headers,
     payloads, statuses); `axes`: this rank's (data, seq, model) axes, each
     over its own group, or None on a rank outside the group; `out_group`:
-    the pair (leader, ranks[0]) when the leader is outside the group."""
+    the pair (leader, ranks[0]) when the leader is outside the group;
+    `gate`: see MeshChannel.header."""
 
     def __init__(self, ranks: Sequence[int], data: int, seq: int, leader: int, group,
                  axes: Optional[RankAxes], out_group=None):
@@ -93,6 +94,9 @@ class ServeMesh:
         # A leader outside the group receives the outputs from ranks[0]
         # over this pair's group.
         self.out_group = out_group
+        # An elastic fleet's engine: (store, prefix) its op headers wait on
+        # (serve/mesh_follower.MeshChannel.header); None: headers ungated.
+        self.gate = None
 
     @property
     def is_member(self) -> bool:

@@ -14,9 +14,9 @@ Tensor parallelism (TP) shards the grouped-FFW HIDDEN axis, Megatron
 style: w1 [G, d, f] and b1 [G, f] split f over 'model'; w2 [G, f, d]
 splits its f contraction axis, and the second product's output is summed
 over 'model' (parallel/manual.py). Embeddings and init_levels replicate.
-`tp_axis="levels"` (the EP-style split of the group axis) is glom_tpu's
-spec and is kept here as data; the port's runtime refuses it (ROADMAP
-queue A item 8b.3).
+`tp_axis="levels"` (the EP-style split) shards bottom_up's group axis
+instead (G = L groups, whole f each); top_down (G = L - 1) keeps the hidden
+split. The trainer's per-rank step runs both layouts (parallel/manual.py).
 
 glom_tpu's `to_named` (PartitionSpec -> NamedSharding) has no
 counterpart: there is no GSPMD here. Each rank holds its shards as plain

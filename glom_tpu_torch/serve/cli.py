@@ -29,8 +29,11 @@ stream; every other rank of a group follows its engine
 (serve/mesh_follower.run_follower) and exits 0 when rank 0 stops it. Each
 rank runs on cuda:LOCAL_RANK for `--device cuda`, or on the named device
 (ranks sharing one card: `--device cuda:0 --dist-backend gloo`).
-`--elastic` with a mesh raises NotImplementedError (ROADMAP queue A item
-8b.4: a spawned replica's group needs followers already running).
+With `--elastic` on a mesh every group the world holds is built at start
+and the fleet grows and shrinks over them (serve/elastic.RankGroupFleet): a
+spawn takes the first waiting group, a release gives it back, and the
+followers of a waiting group wait on the store, outside any collective,
+until rank 0 builds an engine there or ends the run.
 
 Exit codes: 0 when every request was served, 1 when any failed or was
 shed (or none was served), 2 for a bad command line.
@@ -44,9 +47,6 @@ import json
 import sys
 import time
 from typing import Iterable, Tuple
-
-_NOT_PORTED = "{} is not ported yet: ROADMAP queue A item {}"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -384,13 +384,6 @@ def _req_source(args) -> Iterable[Tuple[object, int, object]]:
             fh.close()
 
 
-def _refuse_unported(scfg) -> None:
-    """Settings whose machinery is not ported: raise, never fall back."""
-    if scfg.elastic and (scfg.mesh_data > 1 or scfg.mesh_seq > 1):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "--elastic with a serve mesh (spawning a replica on a new rank group)", "8b.4"))
-
-
 def _overrides(args) -> dict:
     """ServeConfig fields the command line sets over the preset's."""
     out = {}
@@ -501,17 +494,21 @@ def main(argv=None) -> int:
         # Before any follower starts waiting for its engine.
         print(f"--kill-engine index outside 0..{n_init - 1}", file=sys.stderr)
         return 2
-    _refuse_unported(scfg)
-    meshes, created = None, False
+    meshes, created, groups = None, False, None
     if scfg.mesh_data > 1 or scfg.mesh_seq > 1:
         got = _mesh_ranks(args, scfg, device)
         if isinstance(got, int):
             return got
         meshes, device, created = got
+        if scfg.elastic:
+            from glom_tpu_torch.serve.elastic import fleet_store
+
+            groups = fleet_store(meshes)
     try:
-        if meshes is not None and _follow(meshes, device):
+        if meshes is not None and _follow(meshes, device, groups):
             return 0
-        return _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes)
+        return _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes,
+                            groups)
     finally:
         if created:
             import torch.distributed as dist
@@ -539,25 +536,32 @@ def _mesh_ranks(args, scfg, device):
               f"{n * per} ranks, the world has {world}: launch under python -m "
               f"torch.distributed.run --nproc-per-node {n * per}", file=sys.stderr)
         return 2
-    return make_engine_meshes(scfg, n, leader=0), device, created
+    # An elastic fleet builds every group the world holds.
+    return make_engine_meshes(scfg, None if scfg.elastic else n, leader=0), device, created
 
 
-def _follow(meshes, device) -> bool:
+def _follow(meshes, device, groups=None) -> bool:
     """On a rank other than global rank 0: follow this rank's engine until
-    rank 0 stops it, and return True; False on rank 0."""
+    rank 0 stops it (an elastic fleet's group: every engine rank 0 builds on
+    it, until the run ends), and return True; False on rank 0."""
     import torch.distributed as dist
 
-    from glom_tpu_torch.serve.mesh_follower import run_follower
+    from glom_tpu_torch.serve.mesh_follower import follow_engines, group_prefix, run_follower
 
     if dist.get_rank() == 0:
         return False
-    for mesh in meshes:
+    for index, mesh in enumerate(meshes):
         if mesh.is_member:
-            run_follower(mesh, device)
+            if groups is None:
+                run_follower(mesh, device)
+            else:
+                store, prefix = groups
+                follow_engines(mesh, device, store, group_prefix(prefix, index))
     return True
 
 
-def _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes) -> int:
+def _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes,
+                 groups=None) -> int:
     """The serving process (global rank 0 on a mesh): the metrics stream,
     the engines, the batcher."""
     from glom_tpu_torch.utils.metrics import MetricsWriter
@@ -571,7 +575,8 @@ def _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes) -
         fr.install_process_hooks()
         set_global_flight_recorder(fr)
     try:
-        return _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes)
+        return _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes,
+                      groups)
     finally:
         writer.close()
         if fr is not None:
@@ -581,11 +586,18 @@ def _main_leader(args, cfg, scfg, device, ramp_phases, replay_records, meshes) -
             set_global_flight_recorder(None)
 
 
-def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes=None) -> int:
+def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes=None,
+           groups=None) -> int:
     import torch
 
     from glom_tpu_torch.models.core import init_glom
     from glom_tpu_torch.serve.engine import InferenceEngine
+
+    fleet = None
+    if groups is not None:
+        from glom_tpu_torch.serve.elastic import RankGroupFleet
+
+        fleet = RankGroupFleet(meshes, *groups, writer=writer)
 
     # One params init shared by every engine replica (fan-out serves one
     # model), from a seeded generator.
@@ -614,29 +626,34 @@ def _serve(args, cfg, scfg, device, writer, ramp_phases, replay_records, meshes=
             stop=int(until_s) if until_s else None,
             fault="engine-dead",
         )
+    # Every engine built (the autoscaler's spawns and spares too), closed at
+    # the end.
     engines = []
     try:
         for i in range(n_init):
             hook = None
             if kill_plan is not None and i == kill_idx:
                 hook = dispatch_fault(kill_plan, f"engine{i}-dispatch")
-            engines.append(
-                InferenceEngine(
-                    cfg, scfg, params=params, writer=writer, name=f"engine{i}",
-                    fault_hook=hook, device=device,
-                    mesh=None if meshes is None else meshes[i],
-                )
-            )
+            def make(mesh, i=i, hook=hook):
+                return InferenceEngine(cfg, scfg, params=params, writer=writer,
+                                       name=f"engine{i}", fault_hook=hook, device=device,
+                                       mesh=mesh)
+
+            engines.append(fleet.build(make) if fleet is not None
+                           else make(None if meshes is None else meshes[i]))
         return _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records,
-                              params, n_init, engines)
+                              params, n_init, list(engines), fleet, engines)
     finally:
-        # A sharded engine's followers leave their loops.
+        # A sharded engine's followers leave their loops (an elastic
+        # fleet's: wait for their group's next generation, then exit).
         for engine in engines:
             engine.close()
+        if fleet is not None:
+            fleet.close()
 
 
 def _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records, params,
-                   n_init, engines) -> int:
+                   n_init, engines, fleet=None, built=None) -> int:
     import numpy as np
     import torch
 
@@ -727,7 +744,7 @@ def _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records,
             batcher.add_event_tap(forecaster.tap)
         if scfg.elastic:
             scaler = _autoscaler(batcher, cfg, scfg, params, writer, device,
-                                 len(engines), forecaster, degraded_iters)
+                                 len(engines), forecaster, degraded_iters, fleet, built)
         tickets = []
         if replay_records is not None:
             from glom_tpu_torch.serve import workload as wl
@@ -811,19 +828,26 @@ def _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records,
     return 0 if failed == 0 and served > 0 else 1
 
 
-def _autoscaler(batcher, cfg, scfg, params, writer, device, n_init, forecaster, degraded_iters):
+def _autoscaler(batcher, cfg, scfg, params, writer, device, n_init, forecaster, degraded_iters,
+                fleet=None, built=None):
     """The started Autoscaler over `batcher`: each replica it spawns is a
     new InferenceEngine on `device` with the shared params (fan-out serves
-    one model); the autoscaler warms it before registration."""
+    one model), on the fleet's first waiting rank group on a mesh; the
+    autoscaler warms it before registration. No waiting group raises into
+    the spawn's rollback. Each engine built is appended to `built`."""
     from glom_tpu_torch.serve.elastic import Autoscaler, resolve_policy
     from glom_tpu_torch.serve.engine import InferenceEngine
 
     spawn_seq = [n_init]
 
     def engine_factory():
-        i = spawn_seq[0]
-        eng = InferenceEngine(cfg, scfg, params=params, writer=writer,
-                              name=f"engine{i}", device=device)
+        def make(mesh):
+            return InferenceEngine(cfg, scfg, params=params, writer=writer,
+                                   name=f"engine{spawn_seq[0]}", device=device, mesh=mesh)
+
+        eng = fleet.build(make) if fleet is not None else make(None)
+        if built is not None:
+            built.append(eng)
         spawn_seq[0] += 1
         return eng
 

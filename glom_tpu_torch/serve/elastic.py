@@ -56,6 +56,16 @@ warmed spares outside admission: scale-out promotes one, scale-in demotes
 the drained engine back into the pool ("spare_promote" / "spare_demote"),
 and the spares' build times ("spare_spawn") feed the lead-time model.
 
+With a serve mesh (`mesh_data` / `mesh_seq` > 1) every replica is a sharded
+engine on a rank group: `RankGroupFleet` holds every group of the world
+(their process groups made at start, since `new_group` is collective over
+the world), hands a spawn the first waiting group, and takes a group back
+when its engine is closed or released (a demoted spare keeps its group). A
+group whose collective broke is retired for good; a spawn that finds no
+waiting group raises into `spawn_rollback`. The followers of a waiting
+group wait on the store outside any collective
+(serve/mesh_follower.follow_engines).
+
 With `ServeConfig.elastic=False` (the default) none of this constructs and
 the fleet is static.
 """
@@ -427,6 +437,120 @@ def resolve_policy(scfg, *, clock=time.monotonic) -> ElasticPolicy:
     )
 
 
+class RankGroupFleet:
+    """The rank groups an elastic fleet's sharded engines run on, on the
+    leader (global rank 0, which holds every engine). `meshes` is every
+    group's ServeMesh (parallel/runtime.make_engine_meshes), `store` the
+    `torch.distributed` store the followers wait on and `prefix` this
+    run's key prefix (the same on every rank). A group is waiting, serving
+    (an engine, in the fleet or a spare, holds it) or retired. Each
+    transition is a stamped "rank_group" serve event."""
+
+    def __init__(self, meshes: list, store, prefix: str, *, writer=None):
+        self.meshes = list(meshes)
+        self.store = store
+        self.prefix = prefix
+        self.writer = writer
+        self._lock = threading.Lock()
+        self.state = ["waiting"] * len(self.meshes)
+        self.generation = [0] * len(self.meshes)
+
+    def _post(self, index: int, word: str) -> str:
+        from glom_tpu_torch.serve.mesh_follower import group_key, group_prefix
+
+        key = group_key(group_prefix(self.prefix, index), self.generation[index])
+        self.store.set(key, word)
+        return key
+
+    def _emit(self, index: int) -> None:
+        from glom_tpu_torch.serve.events import emit_serve
+
+        emit_serve(self.writer, {
+            "event": "rank_group", "group": index, "ranks": list(self.meshes[index].ranks),
+            "state": self.state[index], "generation": self.generation[index],
+            "n_waiting": self.state.count("waiting"),
+        })
+
+    def acquire(self):
+        """(index, mesh) of the first waiting group, now serving: its
+        followers start their next engine lifetime. Raises RuntimeError when
+        no group waits (the spawn rolls back)."""
+        with self._lock:
+            if "waiting" not in self.state:
+                raise RuntimeError(
+                    f"no waiting rank group: {self.state.count('serving')} of "
+                    f"{len(self.meshes)} hold an engine, {self.state.count('retired')} retired"
+                )
+            index = self.state.index("waiting")
+            self.state[index] = "serving"
+            mesh = self.meshes[index]
+            # The engine's headers are gated on the store under this
+            # generation's key (serve/mesh_follower.MeshChannel.header).
+            mesh.gate = (self.store, self._post(index, "serve"))
+        self._emit(index)
+        return index, mesh
+
+    def build(self, make):
+        """`make(mesh)` on the first waiting group: the engine, which gives
+        the group back when it is closed or released. A `make` that raises
+        loses the group (its followers wait in the parameters' broadcast
+        until their collectives time out), and the error propagates."""
+        index, mesh = self.acquire()
+        try:
+            engine = make(mesh)
+        except BaseException:
+            self.free(index, broken=True)
+            raise
+        engine.on_group_free = lambda broken=False: self.free(index, broken=broken)
+        return engine
+
+    def free(self, index: int, *, broken: bool = False) -> None:
+        """The group's engine is gone: back to waiting for its next
+        generation, or retired when its collective broke (its followers'
+        loops have raised)."""
+        with self._lock:
+            if self.state[index] != "serving":
+                return
+            self.state[index] = "retired" if broken else "waiting"
+            self.generation[index] += 1
+        self._emit(index)
+
+    def close(self) -> None:
+        """End every follower loop: each group not retired is told "exit" for
+        the generation it waits on (close or release the engines first)."""
+        with self._lock:
+            for index, st in enumerate(self.state):
+                if st == "serving":
+                    self.generation[index] += 1
+                if st != "retired":
+                    self._post(index, "exit")
+                    self.state[index] = "closed"
+
+
+def fleet_store(meshes) -> tuple:
+    """(the `torch.distributed` store, this run's key prefix) of an elastic
+    fleet's rank groups; every rank calls it once the groups are made. The
+    prefix numbers the runs that share the store, agreed from rank 0."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _get_default_store
+
+    store = _get_default_store()
+    run = [store.add("glom_tpu_torch/serve/runs", 1) if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(run, src=0)
+    return store, f"glom_tpu_torch/serve/run{run[0]}"
+
+
+def _close_quietly(engine) -> None:
+    """A failed spawn's engine: end its use of its ranks (a no-op on one
+    device), so a rank group returns to the fleet."""
+    close = getattr(engine, "close", None)
+    if callable(close):
+        try:
+            close()
+        except Exception:  # noqa: BLE001 - the rollback is already loud
+            pass
+
+
 class Autoscaler:
     """The supervised control loop around one DynamicBatcher.
 
@@ -558,6 +682,7 @@ class Autoscaler:
                     return n_built
                 n_spares = len(self._spares)
             t0 = self._clock()
+            engine = None
             try:
                 engine = self.engine_factory()
                 warmup = getattr(engine, "warmup", None)
@@ -566,6 +691,7 @@ class Autoscaler:
                     if self.warm_degraded_iters is not None:
                         warmup(iters_override=self.warm_degraded_iters)
             except BaseException as e:  # noqa: BLE001 — stamped, fill stops
+                _close_quietly(engine)
                 self._emit(
                     {
                         "event": "spawn_rollback",
@@ -744,6 +870,7 @@ class Autoscaler:
             self._spawn_attempts += 1
             attempt = self._spawn_attempts
         t0 = self._clock()
+        engine = None
         try:
             if self.spawn_hook is not None:
                 self.spawn_hook({"attempt": attempt, "n_engines": n})
@@ -761,6 +888,7 @@ class Autoscaler:
             # FAILED scale-out: no registration, loud evidence, cooldown
             # still charged (a persistently failing spawn must not retry
             # every tick at full speed).
+            _close_quietly(engine)
             with self._lock:
                 self.n_spawn_failures += 1
             self.policy.acted("spawn_rollback")

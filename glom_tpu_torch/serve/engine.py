@@ -47,12 +47,13 @@ its rank group: the leader sends each warm-up, dispatch and write-back to
 the follower ranks (serve/mesh_follower.run_follower, which the other ranks
 run) and computes its own band, batch rows over 'data' and patches over
 'seq'. The page pool shards its page axis over 'data'
-(paged_columns.ShardedColumnPool). A signature's first dispatch counts its
-collective wire bytes (glom_tpu's sites and formulas) onto the signature's
-stats record. glom_tpu's errors for what the mesh refuses are kept (ragged
-admission, the incremental route, a bucket `mesh_data` does not divide);
-delta streams on a sharded pool and the timed collective modes raise
-NotImplementedError naming their ROADMAP items (A8b.5, A9a).
+(paged_columns.ShardedColumnPool: whole-row write-backs, delta streams,
+defrag and read-back, each an op of the group). A signature's first
+dispatch counts its collective wire bytes (glom_tpu's sites and formulas)
+onto the signature's stats record. glom_tpu's errors for what the mesh
+refuses are kept (ragged admission, the incremental route, a bucket
+`mesh_data` does not divide); the timed collective modes raise
+NotImplementedError naming their ROADMAP item (A9a).
 """
 
 from __future__ import annotations
@@ -237,6 +238,10 @@ class InferenceEngine:
         self._fault_hook = fault_hook
         # Set by release(): the engine keeps its records but serves no more.
         self.released = False
+        # A sharded engine on an elastic fleet's rank group: called once,
+        # with broken=, when close() or release() ends the engine's use of
+        # its group (serve/elastic.RankGroupFleet.free).
+        self.on_group_free = None
 
     # -- signatures --------------------------------------------------------
 
@@ -444,6 +449,12 @@ class InferenceEngine:
         one device. The engine dispatches no more across its ranks."""
         if self._mesh is not None:
             self._mesh.stop()
+            self._free_group()
+
+    def _free_group(self) -> None:
+        hook, self.on_group_free = self.on_group_free, None
+        if hook is not None:
+            hook(broken=self._mesh.broken is not None)
 
     def _observe(self, sig, dt: float, first: bool, iters_override) -> None:
         """Per-signature latency stats; a signature's first dispatch is its
@@ -847,11 +858,21 @@ class InferenceEngine:
         self._seen.clear()
         self._cold_levels = None
         self.released = True
+        freed = {}
         if self._mesh is not None:
-            self._mesh.stop("release")
+            from glom_tpu_torch.serve.mesh_follower import allocated_bytes
+
+            # Each follower's bytes freed; the leader's own below.
+            freed = self._mesh.stop("release")
+            before = allocated_bytes(self.device)
         if self.pool is not None:
             self.pool.release()
-        self._emit({"event": "engine_release"})
+        rec = {"event": "engine_release"}
+        if self._mesh is not None:
+            freed[self._mesh.mesh.leader] = before - allocated_bytes(self.device)
+            rec["freed_bytes_by_rank"] = {str(r): b for r, b in sorted(freed.items())}
+            self._free_group()
+        self._emit(rec)
 
     def _emit(self, rec: dict) -> None:
         from glom_tpu_torch.serve.events import emit_serve
@@ -911,9 +932,4 @@ def _check_mesh_shape(cfg: GlomConfig, scfg: ServeConfig, data: int, seq: int) -
         raise ValueError(
             f"page_pool_pages {scfg.page_pool_pages} not divisible by mesh_data={data} "
             "(the pool's page axis shards over 'data')"
-        )
-    if scfg.delta_streaming:
-        raise NotImplementedError(
-            "delta_streaming on a sharded engine is not ported yet: ROADMAP queue A "
-            "item 8b.5"
         )

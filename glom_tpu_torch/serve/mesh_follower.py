@@ -8,22 +8,40 @@ glom_tpu serves a mesh from one controller: its engine's forward is one
 engine's own process group (leader and ranks), in this order:
 
   1. a fixed int64[HEADER_LEN] header, broadcast by the leader: the op
-     (`warmup`, `dispatch`, `write_back`, `release`, `stop`), the bucket,
+     (`warmup`, `dispatch`, the pool ops, `release`, `stop`), the bucket,
      the route (auto or fixed, and the budget), the warm kind (cold, host
      `levels0`, paged), pages per row, n_valid (the mask is `arange(b) <
-     n_valid`), a write-back's page count and in-place flag, and whether
-     the dispatch counts its wire bytes;
+     n_valid`), a pool op's page count and a write's in-place flag, and
+     whether the dispatch counts its wire bytes;
   2. the payload, broadcast: the image (not on `warmup`), then `levels0`
-     or `page_idx`; a `write_back` sends the page ids and the pages;
+     or `page_idx`; a pool op sends its page ids (and a write or a
+     residual the pages);
   3. a status all-reduce (MAX of three flags: failed, a kernel fault, a
      broken collective): a follower's fault hook fires before it;
   4. the body, in steps, each followed by a status all-reduce: every
      compute rank runs the same `MeshWorker`, first `compute` (the
      per-rank forward of `serve_mesh.make_serve_forward`), then `gather`
      (`levels` all-gathered over 'seq' and 'data', `row_converged` /
-     `row_iters` over 'data'); a `write_back` applies the pages it owns;
+     `row_iters` over 'data'); a pool op runs `pool_steps`;
   5. a leader outside the group then receives the outputs from the
      group's first rank.
+
+The pool ops carry the sharded page pool's device seams
+(paged_columns.ShardedColumnPool; the leader keeps the page table and
+decides everything the single-device pool decides):
+
+  * `write_back`: each rank writes the pages it owns, in place or
+    copy-on-write as the leader says;
+  * `residual` (a delta stream's next frame): each rank compares the
+    frame's pages with the pages it owns (any bit, max |diff|), and one
+    MAX all-reduce of the [2, k] flags gives every rank the whole answer;
+  * `read` (read-back, the drain migration) and `copy` (chain compaction,
+    defrag): the ranks at seq index 0 contribute the pages they own as
+    int32 words, zeros elsewhere, and one SUM all-reduce hands every rank
+    the pages bit for bit (one contributor a page: integer sums are
+    exact, where a float sum would turn -0.0 into 0.0); `copy` then
+    writes each destination page on its owner, copy-on-write, from the
+    buffers before the move.
 
 After any status with a flag set, every rank skips the rest of the op, and
 the leader raises: `KernelError` for a kernel fault on any rank
@@ -42,16 +60,31 @@ that op and every later one, and the followers' loops raise it.
 Ops on one engine are serialized by the leader's channel lock, so a
 batcher thread and a write-back never interleave their collectives. At
 start the leader sends the configs and the parameters, so every follower
-serves the leader's model.
+serves the leader's model. On `release` every follower drops its
+parameters and its pool shard and reports the device bytes that freed, in
+one all-gather the leader joins.
+
+An elastic fleet (serve/elastic.RankGroupFleet) runs engines on rank groups
+that come and go: a follower rank runs `follow_engines`, a loop over its
+group's engine lifetimes (generations). Between two engines it waits on a
+key of the `torch.distributed` store (the group's prefix and the
+generation), outside any collective, so a spare group may wait for
+minutes without reaching its collectives' timeout; "serve" starts the next
+`run_follower`, "exit" ends the loop. Such an engine's mesh carries a
+`gate` (the store and the generation's prefix): before each header the
+leader posts the op's number on the store and the followers wait for it
+there, so an idle engine (a warm spare, a quiet replica) holds no
+collective open either.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import sys
 import threading
 import traceback
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -67,7 +100,8 @@ from glom_tpu_torch.serve.paged_columns import resolve_page_tokens
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.utils.helpers import resolve_dtype
 
-OPS = ("stop", "warmup", "dispatch", "write_back", "release")
+OPS = ("stop", "warmup", "dispatch", "write_back", "release", "residual", "read", "copy")
+POOL_OPS = ("write_back", "residual", "read", "copy")
 OP = {name: i for i, name in enumerate(OPS)}
 WARM_KINDS = (False, True, "paged")
 HEADER_LEN = 10
@@ -113,19 +147,42 @@ class MeshChannel:
         self.host = (torch.device("cpu") if dist.get_backend(mesh.group) == "gloo"
                      else self.device)
         self.lock = threading.Lock()
+        # An elastic fleet's engine: (store, prefix) gating each header, and
+        # the number of headers so far.
+        self.gate = getattr(mesh, "gate", None)
+        self.n_headers = 0
         # Bytes this rank moved through the channel and the gathers, by kind.
-        self.wire = {"header": 0, "payload": 0, "status": 0, "gather": 0, "outputs": 0}
+        self.wire = {"header": 0, "payload": 0, "status": 0, "gather": 0, "outputs": 0,
+                     "pool": 0}
 
     def bcast(self, t: torch.Tensor, src: Optional[int] = None, kind: str = "payload",
               group=None):
+        """`t` from `src` (the leader) to the group, in place. Under
+        inference mode: gloo's broadcast of a CUDA tensor writes it in place
+        even at its source, and a dispatch's outputs are inference tensors."""
         t = t.contiguous()
-        transport("broadcast", "engine", lambda: dist.broadcast(
-            t, src=self.mesh.leader if src is None else src,
-            group=self.mesh.group if group is None else group))
+        with torch.inference_mode():
+            transport("broadcast", "engine", lambda: dist.broadcast(
+                t, src=self.mesh.leader if src is None else src,
+                group=self.mesh.group if group is None else group))
         self.wire[kind] += t.nelement() * t.element_size()
         return t
 
     def header(self, values=None) -> list:
+        """The op's header, from the leader (`values`) to every rank. With a
+        gate the leader first posts the header's number on the store (and
+        drops the previous one: every rank has passed it) and the followers
+        wait for it there."""
+        if self.gate is not None:
+            store, prefix = self.gate
+            key = f"{prefix}/op{self.n_headers}"
+            if values is not None:
+                store.set(key, "1")
+                if self.n_headers:
+                    store.delete_key(f"{prefix}/op{self.n_headers - 1}")
+            else:
+                wait_key(store, key)
+            self.n_headers += 1
         h = torch.zeros(HEADER_LEN, dtype=torch.int64, device=self.host)
         if values is not None:
             h.copy_(torch.as_tensor(values, dtype=torch.int64))
@@ -142,14 +199,17 @@ class MeshChannel:
 
 
 class PoolShard:
-    """A follower's shard of the engine's page pool: pages [index x pps,
+    """A rank's shard of the engine's page pool: pages [index x pps,
     (index + 1) x pps) of the pool, for its data index (replicated over
-    'seq'). Writes keep the single-device rules: in place when the leader
-    says so, else copy-on-write."""
+    'seq'; the rank at seq index 0 contributes them to reads). Writes keep
+    the single-device rules: in place when the leader says so, else
+    copy-on-write. The leader's ShardedColumnPool holds its shard the same
+    way."""
 
     def __init__(self, pps: int, page_tokens: int, levels: int, dim: int, dtype, device,
-                 data_index: int):
+                 data_index: int, contributes: bool = True):
         self.lo = data_index * pps
+        self.contributes = contributes
         self.buffer = torch.zeros((pps, page_tokens, levels, dim), dtype=dtype, device=device)
 
     def acquire_read(self) -> torch.Tensor:
@@ -161,8 +221,17 @@ class PoolShard:
     def apply(self, ids: torch.Tensor, pages: torch.Tensor, in_place: bool) -> None:
         self.buffer = apply_owned(self.buffer, self.lo, ids, pages, in_place)
 
+    def local_pages(self) -> Optional[torch.Tensor]:
+        return self.buffer
+
     def release(self) -> None:
         self.buffer = None
+
+
+def _owned(buffer: torch.Tensor, lo: int, ids: torch.Tensor):
+    """(local index, owned mask) of global page ids against a shard."""
+    local = ids.long() - lo
+    return local, (local >= 0) & (local < buffer.shape[0])
 
 
 def apply_owned(buffer: torch.Tensor, lo: int, ids: torch.Tensor, pages: torch.Tensor,
@@ -170,14 +239,71 @@ def apply_owned(buffer: torch.Tensor, lo: int, ids: torch.Tensor, pages: torch.T
     """`buffer` with the pages of global ids in [lo, lo + len(buffer))
     written: in place, or into a copy (copy-on-write). Returns the buffer
     now current."""
-    local = ids.long() - lo
-    own = (local >= 0) & (local < buffer.shape[0])
+    local, own = _owned(buffer, lo, ids)
     if not bool(own.any()):
         return buffer
     idx, rows = local[own], pages[own]
     if in_place:
         return buffer.index_copy_(0, idx, rows)
     return buffer.clone().index_copy_(0, idx, rows)
+
+
+def owned_residual(buffer: torch.Tensor, lo: int, ids: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """[2, k] f32 on the host: for each page id this shard owns, whether any
+    bit of `rows` differs from it (through an integer view of the same
+    width, so 0.0 against -0.0 is a change) and the max |diff| in f32;
+    zeros for the pages it does not own (the MAX over the group keeps the
+    owner's values exactly)."""
+    out = torch.zeros((2, ids.shape[0]), dtype=torch.float32, device=rows.device)
+    local, own = _owned(buffer, lo, ids)
+    if bool(own.any()):
+        cur, new = buffer.index_select(0, local[own]), rows[own]
+        int_t = torch.int16 if buffer.dtype == torch.bfloat16 else torch.int32
+        out[0, own] = (cur.view(int_t) != new.view(int_t)).flatten(1).any(dim=1).float()
+        out[1, own] = (cur.float() - new.float()).abs().flatten(1).amax(dim=1)
+    return out.cpu()
+
+
+def owned_words(buffer: torch.Tensor, lo: int, ids: torch.Tensor,
+                contributes: bool) -> torch.Tensor:
+    """[k, page_tokens, L, d x itemsize / 4] int32: the bits of the pages of
+    `ids` this shard owns (when it contributes), zeros elsewhere."""
+    words = torch.zeros((ids.shape[0], *buffer.shape[1:]), dtype=buffer.dtype,
+                        device=buffer.device).view(torch.int32)
+    local, own = _owned(buffer, lo, ids)
+    if contributes and bool(own.any()):
+        words[own] = buffer.index_select(0, local[own]).view(torch.int32)
+    return words
+
+
+def pool_steps(channel, shard, op: str, ids: torch.Tensor, pages=None,
+               in_place: bool = False) -> list:
+    """The body steps of a pool op on one rank, the same on the leader and
+    the followers (`shard`: a PoolShard, or anything with its
+    `local_pages`, `lo`, `contributes` and `apply`). Each step's collective is reached only after a clean
+    status, so every rank joins it. The last step returns the op's answer:
+    the [2, k] residual, the read pages, or None."""
+    group = channel.mesh.group
+
+    def all_reduce(t, op_):
+        transport("pool all_reduce", "engine",
+                  lambda: dist.all_reduce(t, op=op_, group=group))
+        channel.wire["pool"] += t.nelement() * t.element_size()
+        return t
+
+    if op == "write_back":
+        return [lambda _: shard.apply(ids, pages, in_place)]
+    if op == "residual":
+        return [lambda _: owned_residual(shard.local_pages(), shard.lo, ids, pages),
+                lambda res: all_reduce(res.to(channel.host), dist.ReduceOp.MAX).cpu()]
+    src = ids[0] if op == "copy" else ids
+    dtype = shard.local_pages().dtype
+    steps = [lambda _: owned_words(shard.local_pages(), shard.lo, src, shard.contributes),
+             lambda words: all_reduce(words, dist.ReduceOp.SUM).view(dtype)]
+    if op == "copy":
+        steps.append(lambda moved: shard.apply(ids[1], moved, False))
+    return steps
 
 
 class MeshWorker:
@@ -387,30 +513,49 @@ class MeshLeader:
     def worker_dtype(self):
         return resolve_dtype(self.scfg.compute_dtype) or torch.float32
 
-    def write_back(self, ids, pages: torch.Tensor, in_place: bool, apply_local) -> None:
-        """Send one write-back's pages; every compute rank writes the ones it
-        owns (`apply_local(ids, pages, in_place)` on the leader, under the
-        pool's lock). The caller holds `lock`."""
+    def pool_op(self, op: str, ids: torch.Tensor, shard, pages=None, in_place: bool = False):
+        """One pool op across the group (see the module docstring): `ids`
+        int64 [k] ([2, k] of (src, dst) for `copy`), `pages` the rows of a
+        write or a residual, `shard` the leader's own (its ShardedColumnPool,
+        under the pool's lock). Returns the op's answer. The caller holds
+        `lock`."""
         with self._op(held=True) as ch:
-            ids_t = torch.as_tensor(list(ids), dtype=torch.int64, device=self.device)
-            ch.header([OP["write_back"], 0, 0, 0, 0, 0, 0, len(ids), int(in_place), 0])
-            ids_t = ch.bcast(ids_t)
-            pages = ch.bcast(pages.to(self.device))
-            steps = [_idle]
-            if self.worker is not None:
-                steps = [lambda _: apply_local(ids_t, pages, in_place)]
-            self._run(f"a write-back of {len(ids)} pages", steps)
+            k = ids.shape[-1]
+            ch.header([OP[op], 0, 0, 0, 0, 0, 0, k, int(in_place), 0])
+            ids = ch.bcast(ids.to(self.device, torch.int64))
+            if op in ("write_back", "residual"):
+                pages = ch.bcast(pages.to(self.device))
+            return self._run(f"a {op} of {k} pages", pool_steps(ch, shard, op, ids, pages,
+                                                                 in_place))
 
-    def stop(self, op: str = "stop") -> None:
+    def stop(self, op: str = "stop") -> Dict[int, int]:
         """End the followers' loops ("release" also frees their state); a
         broken group is not sent anything (its followers' loops have
-        raised)."""
+        raised). Returns, for "release", the device bytes each follower
+        freed by global rank, else {}."""
         with self.lock:
             if self.stopped:
-                return
+                return {}
             self.stopped = True
-            if self.broken is None:
-                self.channel.header([OP[op]] + [0] * (HEADER_LEN - 1))
+            if self.broken is not None:
+                return {}
+            self.channel.header([OP[op]] + [0] * (HEADER_LEN - 1))
+            if op != "release":
+                return {}
+            freed = release_report(self.channel, 0)
+            return {r: b for r, b in freed.items() if r != self.mesh.leader}
+
+
+def release_report(channel: MeshChannel, freed: int) -> Dict[int, int]:
+    """Every rank of the group's freed device bytes, by global rank (one
+    int64 all-gather: the last collective of a released engine)."""
+    group = channel.mesh.group
+    ranks = dist.get_process_group_ranks(group)
+    mine = torch.tensor([freed], dtype=torch.int64, device=channel.host)
+    out = torch.zeros(len(ranks), dtype=torch.int64, device=channel.host)
+    transport("release all_gather", "engine",
+              lambda: dist.all_gather_into_tensor(out, mine, group=group))
+    return dict(zip(ranks, out.tolist()))
 
 
 def _idle(prev):
@@ -459,7 +604,8 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
     `release`. `fault_hook(header)` is called before each op's body (the
     chaos seam: a raise there fails the op on the leader). Returns {"ops":
     ops served by kind, "failed": ops this rank failed, "exit_reads": the
-    auto loop's exit tests, "wire": bytes moved by kind}."""
+    auto loop's exit tests, "wire": bytes moved by kind, "pool": the rank's
+    PoolShard or None, and after a release "freed_bytes"}."""
     device = torch.device(device)
     if not mesh.is_member:
         raise ValueError(f"rank {dist.get_rank()} is not a rank of {mesh}")
@@ -472,25 +618,33 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
     if scfg.page_pool_pages > 0:
         pt = resolve_page_tokens(cfg, scfg)
         pool = PoolShard(scfg.page_pool_pages // mesh.shape["data"], pt, cfg.levels, cfg.dim,
-                         dtype, device, mesh.axes.data.index)
+                         dtype, device, mesh.axes.data.index, mesh.axes.seq.index == 0)
     worker = MeshWorker(cfg, scfg, mesh, params, device, pool=pool, wire=channel.wire)
     first = dist.get_rank() == mesh.ranks[0]
-    stats = {"ops": {}, "failed": 0, "exit_reads": worker.exit_reads, "wire": channel.wire}
+    stats = {"ops": {}, "failed": 0, "exit_reads": worker.exit_reads, "wire": channel.wire,
+             "pool": pool}
     while True:
         h = channel.header()
         op = OPS[h[H_OP]]
         stats["ops"][op] = stats["ops"].get(op, 0) + 1
         if op in ("stop", "release"):
             if op == "release":
-                worker.params = None
+                before = allocated_bytes(device)
+                worker.params = params = None
+                worker._fns.clear()
                 if pool is not None:
                     pool.release()
+                stats["freed_bytes"] = before - allocated_bytes(device)
+                release_report(channel, stats["freed_bytes"])
             return stats
-        if op == "write_back":
+        if op in POOL_OPS:
             k = h[H_PAGES]
-            ids = channel.bcast(torch.empty(k, dtype=torch.int64, device=device))
-            pages = channel.bcast(torch.empty((k, pool.buffer.shape[1], cfg.levels, cfg.dim),
-                                              dtype=dtype, device=device))
+            ids = channel.bcast(torch.empty((2, k) if op == "copy" else k, dtype=torch.int64,
+                                            device=device))
+            pages = None
+            if op in ("write_back", "residual"):
+                pages = channel.bcast(torch.empty((k, *pool.buffer.shape[1:]), dtype=dtype,
+                                                  device=device))
         else:
             b = h[H_BUCKET]
             warm = WARM_KINDS[h[H_WARM]]
@@ -517,8 +671,8 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
             traceback.print_exc(file=sys.stderr)
         flags = channel.status(err)
         counters = tele_counters.CollectiveCounters() if h[H_COUNT] else None
-        if op == "write_back":
-            steps = [lambda _: pool.apply(ids, pages, bool(h[H_INPLACE]))]
+        if op in POOL_OPS:
+            steps = pool_steps(channel, pool, op, ids, pages, bool(h[H_INPLACE]))
         else:
             steps = [_counted_step(step, counters)
                      for step in worker.steps(h, img, levels0, page_idx)]
@@ -539,5 +693,55 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
                 raise CollectiveError(f"the engine's mesh {list(mesh.ranks)} broke in a "
                                       f"{op}: rank {dist.get_rank()} follows no more") from err
             continue
-        if op != "write_back" and first and not mesh.leader_in_group:
+        if op not in POOL_OPS and first and not mesh.leader_in_group:
             send_outputs(channel, out, counters.totals() if counters is not None else None)
+
+
+def allocated_bytes(device: torch.device) -> int:
+    """The device memory this process's tensors hold (0 off the card)."""
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
+# How long one wait on the store lasts before it is posted again: a waiting
+# group holds no collective, so it may wait any number of these.
+STORE_WAIT_S = 30.0
+
+
+def group_prefix(run_prefix: str, index: int) -> str:
+    """The store prefix of the run's `index`-th rank group."""
+    return f"{run_prefix}/group{index}"
+
+
+def group_key(prefix: str, generation: int) -> str:
+    """The store key that starts (or ends) a group's `generation`-th
+    engine lifetime."""
+    return f"{prefix}/gen{generation}"
+
+
+def wait_key(store, key: str) -> None:
+    """Wait until `key` is set on the store, however long: each wait that
+    times out is posted again (any other store failure raises)."""
+    while True:
+        try:
+            store.wait([key], datetime.timedelta(seconds=STORE_WAIT_S))
+            return
+        except RuntimeError as e:
+            if "timeout" not in str(e).lower():
+                raise
+
+
+def follow_engines(mesh, device, store, prefix: str, *, fault_hook=None) -> list:
+    """A follower rank of an elastic fleet's group: for each generation,
+    wait on the store (outside any collective) for the leader's word;
+    "serve" runs `run_follower` for the engine the leader builds on the
+    group (its headers gated on the store), "exit" returns. Returns each
+    lifetime's `run_follower` stats. A group whose collective broke raises
+    (the fleet retires it)."""
+    served = []
+    while True:
+        key = group_key(prefix, len(served))
+        wait_key(store, key)
+        if store.get(key) == b"exit":
+            return served
+        mesh.gate = (store, key)
+        served.append(run_follower(mesh, device, fault_hook=fault_hook))

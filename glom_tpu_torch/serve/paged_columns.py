@@ -780,10 +780,14 @@ class PagedColumnPool:
         # in-place write-back cannot change the pages mid-gather.
         buf = self.acquire_read()
         try:
-            flat = buf.index_select(0, self._idx(pages)).reshape(-1, *buf.shape[2:])
+            flat = self._gather_pages(buf, pages).reshape(-1, *buf.shape[2:])
             return flat[:n_tokens] if on_device else flat[:n_tokens].cpu()
         finally:
             self.release_read()
+
+    def _gather_pages(self, buf: torch.Tensor, pages: List[int]) -> torch.Tensor:
+        """[k, page_tokens, L, d]: the pages of `pages` from `buf`."""
+        return buf.index_select(0, self._idx(pages))
 
     def defrag(self) -> int:
         """Compact allocated, unpinned pages toward low indices (one
@@ -911,66 +915,77 @@ class PagedColumnPool:
             return rec
 
 
-_SHARDED_NOT_PORTED = (
-    "{} on a sharded pool is not ported yet: ROADMAP queue A item 8b.5 (the "
-    "sharded engine's pool takes whole-row write-backs only)"
-)
-
-
 class ShardedColumnPool(PagedColumnPool):
     """The page pool of a sharded engine (glom_tpu's `pool_sharding`): the
     page axis is split over 'data', each compute rank holding pages
     [index x pps, (index + 1) x pps) with pps = page_pool_pages /
     mesh_data, replicated over 'seq'. This object, on the leader, keeps the
     whole page table and the leader's own shard (none when the leader
-    computes no band). A write-back allocates in the table, then sends the
-    row's pages to the group as a `write_back` op (serve/mesh_follower.py),
-    and every rank that owns some of them writes them, in place or
-    copy-on-write as the leader decided under its read pins (the counters
-    and events are the single-device pool's; `cow_bytes_moved` counts the
-    whole pool a copy, summed over the shards). Delta streams, defrag and
-    read-back (the drain migration) stay single-device for now."""
+    computes no band), and runs the single-device pool's code on them:
+    every decision (allocation, CoW or in place under its read pins, delta
+    pages, supersession, compaction, base sharing, defrag's plan) is made
+    here, so the table, counters and events are the single-device pool's.
+    Its device seams are ops of the engine's group (serve/mesh_follower.py),
+    under the engine's op lock and then the pool's (a dispatch takes them
+    in that order too): a write is a `write_back`, a stream's residual a
+    `residual`, compaction's and defrag's page copies a `copy` (every
+    source page read before any destination page is written), and a
+    read-back a `read`. `cow_bytes_moved` counts the whole pool a copy,
+    summed over the shards."""
 
     def __init__(self, cfg, scfg, *, leader, writer=None, name: str = "engine0", device="cuda"):
         self._leader = leader
         mesh = leader.mesh
         self._pps = scfg.page_pool_pages // mesh.shape["data"]
-        self._lo = mesh.axes.data.index * self._pps if mesh.is_member else 0
+        self.lo = mesh.axes.data.index * self._pps if mesh.is_member else 0
+        # The leader's shard joins reads when it is the rank at seq index 0.
+        self.contributes = mesh.is_member and mesh.axes.seq.index == 0
         super().__init__(cfg, scfg, writer=writer, name=name, device=device)
 
     def _local_pages(self) -> int:
         return self._pps if self._leader.mesh.is_member else 0
 
-    def write_back(self, session_id: str, levels_row, n_tokens: int) -> bool:
-        pages = self.alloc(session_id, n_tokens)
-        if pages is None:
-            return False
-        rows = self._row_pages(levels_row, len(pages), n_tokens)
-        events: List[dict] = []
-        # The engine's op lock first, then the pool's: a dispatch takes them
-        # in that order too.
-        with self._leader.lock:
-            with self._lock:
-                in_place = self._note_write_locked(len(pages), session_id, events)
-                self.n_writebacks += 1
-            self._leader.write_back(pages, rows, in_place, self._apply_local)
-        self._flush(events)
-        return True
+    # The shard view the pool ops act on (mesh_follower.pool_steps); the
+    # caller holds the pool's lock.
+    def local_pages(self) -> Optional[torch.Tensor]:
+        return self._buffer
 
-    def _apply_local(self, ids: torch.Tensor, pages: torch.Tensor, in_place: bool) -> None:
+    def apply(self, ids: torch.Tensor, pages: torch.Tensor, in_place: bool) -> None:
         from glom_tpu_torch.serve.mesh_follower import apply_owned
 
-        with self._lock:
-            self._buffer = apply_owned(self._buffer, self._lo, ids, pages, in_place)
+        self._buffer = apply_owned(self._buffer, self.lo, ids, pages, in_place)
 
-    def write_back_stream(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED_NOT_PORTED.format("write_back_stream"))
+    # The public writers and readers: the engine's op lock first.
+    def write_back(self, session_id: str, levels_row, n_tokens: int) -> bool:
+        with self._leader.lock:
+            return super().write_back(session_id, levels_row, n_tokens)
 
-    def read_block(self, *args, **kwargs):
-        raise NotImplementedError(_SHARDED_NOT_PORTED.format("read_block"))
+    def write_back_stream(self, *args, **kwargs) -> Optional[dict]:
+        with self._leader.lock:
+            return super().write_back_stream(*args, **kwargs)
+
+    def read_block(self, session_id: str, *, on_device: bool = False) -> Optional[torch.Tensor]:
+        with self._leader.lock:
+            return super().read_block(session_id, on_device=on_device)
 
     def defrag(self) -> int:
-        raise NotImplementedError(_SHARDED_NOT_PORTED.format("defrag"))
+        with self._leader.lock:
+            return super().defrag()
+
+    # The device seams, as ops of the group (callers hold both locks).
+    def _scatter_locked(self, idx, pages, *, pages_written, session_id, events) -> None:
+        in_place = self._note_write_locked(pages_written, session_id, events)
+        self._leader.pool_op("write_back", idx, self, pages=pages, in_place=in_place)
+
+    def _residual(self, eff: List[int], rows: torch.Tensor):
+        res = self._leader.pool_op("residual", self._idx(eff), self, pages=rows)
+        return (res[0] > 0).numpy(), res[1].numpy()
+
+    def _copy_pages_locked(self, src: List[int], dst: List[int]) -> None:
+        self._leader.pool_op("copy", self._idx([*src, *dst]).reshape(2, -1), self)
+
+    def _gather_pages(self, buf: torch.Tensor, pages: List[int]) -> torch.Tensor:
+        return self._leader.pool_op("read", self._idx(pages), self)
 
 
 def resolve_page_pool(

@@ -5,10 +5,10 @@
 from top-level aggregates (G, P, dp, stage). This module MEASURES it: the
 named collective sites in `parallel/manual.py` (the seq all-reduce, the
 ZeRO reduce-scatter / mean fallback, the param all-gather, the TP FFW
-all-reduce) report their per-replica ring wire bytes from the actual
-tensors at each call, so aggregation decisions the model cannot see show
-up as measured-vs-modeled drift (`comm_model_drift`). The serve mesh's
-sites (`parallel/serve_mesh.py`: the quorum and witness all-reduces, the
+all-reduce, levels TP's group all-gather in both directions) report their
+per-replica ring wire bytes from the actual tensors at each call, so
+aggregation decisions the model cannot see show up as measured-vs-modeled
+drift (`comm_model_drift`). The serve mesh's sites (`parallel/serve_mesh.py`: the quorum and witness all-reduces, the
 page gathers) are counted over a signature's first dispatch onto the
 engine's stats record; its `iters="auto"` loop runs in Python, so its
 sites are priced once before the loop under `scaled(T)`, the budget, and
@@ -104,6 +104,26 @@ def recording(counters: CollectiveCounters):
         yield counters
     finally:
         _stack().pop()
+
+
+def active() -> List[CollectiveCounters]:
+    """The counters recording on this thread (a copy of the stack): what a
+    differentiable collective keeps at its forward for its backward."""
+    return list(_stack())
+
+
+@contextmanager
+def recording_all(stack: List[CollectiveCounters]):
+    """Activate every counter of `stack` on this thread that is not active
+    already (the backward of a collective whose forward ran under them:
+    autograd may run it on its own thread, or on this one)."""
+    mine = _stack()
+    extra = [c for c in stack if not any(c is m for m in mine)]
+    mine.extend(extra)
+    try:
+        yield
+    finally:
+        del mine[len(mine) - len(extra):]
 
 
 def _scale() -> int:

@@ -10,10 +10,15 @@ shapes batches, and use noise_std 0, so no random draw differs between
 the packages. Losses are held at rtol 5e-4 and parameters after 3 Adam
 steps at rtol 2e-3 / atol 1e-5 (tests/test_torch_port_train.py's bars).
 The four glom_tpu cases mirrored by name: test_dp_matches_single_device,
-test_tp_matches_single_device[hidden],
+test_tp_matches_single_device[hidden|levels],
 test_dp_sp_matches_single_device[ring|ulysses|halo] and
-test_manual_zero2_accum_matches.
+test_manual_zero2_accum_matches. tp_axis="levels" runs at model 2 and at
+data 2 x model 2 against glom_tpu's GSPMD levels trainer, and with
+use_pallas (the kernels' plain versions on the CPU, through the same
+Functions) against glom_tpu's, which drops its kernels for this layout.
 """
+
+import warnings
 
 import jax
 import numpy as np
@@ -37,10 +42,12 @@ HALO_KW = dict(CFG_KW, local_consensus_radius=1)
 BASE = dict(batch_size=4, learning_rate=1e-3, noise_std=0.0, seed=5)
 STEPS, DATA_SEED = 3, 3
 
-# name: (mesh shape, sp, config kwargs, train kwargs)
+# name: (mesh shape, sp, config kwargs, train kwargs[, tp_axis])
 WORLD2 = {
     "dp": ((2, 1, 1), "none", CFG_KW, BASE),
     "tp": ((1, 1, 2), "none", CFG_KW, BASE),
+    "tp_levels": ((1, 1, 2), "none", CFG_KW, BASE, "levels"),
+    "tp_levels_pallas": ((1, 1, 2), "none", CFG_KW, dict(BASE, use_pallas=True), "levels"),
     "zero1": ((2, 1, 1), "none", CFG_KW,
               dict(BASE, zero_stage=1, use_pallas=True, telemetry_level="scalars")),
     "zero2_accum": ((2, 1, 1), "none", CFG_KW,
@@ -56,6 +63,7 @@ WORLD4 = {
     "dp_sp_ulysses": ((2, 2, 1), "ulysses", CFG_KW, BASE),
     "dp_sp_halo": ((2, 2, 1), "halo", HALO_KW, BASE),
     "zero_on_tp": ((2, 1, 2), "none", CFG_KW, dict(BASE, zero_stage=1, telemetry_level="full")),
+    "dp_tp_levels": ((2, 1, 2), "none", CFG_KW, BASE, "levels"),
 }
 
 
@@ -81,10 +89,15 @@ def _init_arrays(cfg_kw, tcfg_kw) -> dict:
     return _flatten(state.params)
 
 
+def _tp_axis(row) -> str:
+    return row[4] if len(row) > 4 else "hidden"
+
+
 def _cases(table):
-    return [("trainer_run", dict(shape=shape, sp=sp, cfg_kw=ck, tcfg_kw=tk,
-                                 arrays=_init_arrays(ck, tk), steps=STEPS, data_seed=DATA_SEED))
-            for shape, sp, ck, tk in table.values()]
+    return [("trainer_run", dict(shape=row[0], sp=row[1], cfg_kw=row[2], tcfg_kw=row[3],
+                                 arrays=_init_arrays(row[2], row[3]), steps=STEPS,
+                                 data_seed=DATA_SEED, tp_axis=_tp_axis(row)))
+            for row in table.values()]
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +121,14 @@ def port(tmp_path_factory):
 def _jax_run(name, table):
     """glom_tpu's DistributedTrainer on the same mesh shape: (initial
     params, records, final params, static record)."""
-    shape, sp, ck, tk = table[name]
-    jd = JDistributedTrainer(jconfig.GlomConfig(**ck), jconfig.TrainConfig(**tk),
-                             jconfig.MeshConfig(*shape), sp_strategy=sp)
+    shape, sp, ck, tk = table[name][:4]
+    with warnings.catch_warnings():
+        # glom_tpu warns where use_pallas meets tp_axis="levels" (it drops
+        # its kernels for that layout).
+        warnings.simplefilter("ignore")
+        jd = JDistributedTrainer(jconfig.GlomConfig(**ck), jconfig.TrainConfig(**tk),
+                                 jconfig.MeshConfig(*shape), sp_strategy=sp,
+                                 tp_axis=_tp_axis(table[name]))
     init = _flatten(jd.state.params)
     hist = jd.fit(jshapes(tk["batch_size"], ck["image_size"], seed=DATA_SEED), STEPS,
                   log_every=1)
@@ -146,17 +164,51 @@ class TestDistributedTrainer:
             assert rec[key] == jstatic.get(key, jhist[-1].get(key)), key
         assert rec["vjp_path"] == "scan_dense" and rec["sp_strategy"] == "none"
 
-    @pytest.mark.parametrize("tp_axis", ["hidden"])
+    @pytest.mark.parametrize("tp_axis", ["hidden", "levels"])
     def test_tp_matches_single_device(self, port, tp_axis):
-        _assert_matches(port["tp"], "tp", WORLD2)
-        # the port runs the manual per-rank step; glom_tpu's GSPMD one here
-        assert port["tp"][0]["records"][-1]["comm_bytes_per_step"] == 0
+        name = "tp" if tp_axis == "hidden" else "tp_levels"
+        jhist, jstatic = _assert_matches(port[name], name, WORLD2)
+        # the port runs the manual per-rank step; glom_tpu's GSPMD one here,
+        # with the same static record
+        rec = port[name][0]["records"][-1]
+        for key in ("params_bytes_per_replica", "grads_bytes_per_replica",
+                    "comm_reduce_bytes_per_step", "comm_gather_bytes_per_step",
+                    "comm_bytes_per_step", "zero_stage"):
+            assert rec[key] == jstatic.get(key, jhist[-1].get(key)), key
+        assert rec["comm_bytes_per_step"] == 0
 
-    def test_tp_levels_is_refused(self):
+    @pytest.mark.parametrize("name", ["tp_levels_pallas", "dp_tp_levels"])
+    def test_tp_levels_matches_glom_tpu(self, port, name):
+        """Levels TP with the kernels' Functions, and at data 2 x model 2,
+        against glom_tpu's levels trainer (GSPMD, without its kernels)."""
+        table = WORLD2 if name in WORLD2 else WORLD4
+        _assert_matches(port[name], name, table)
+
+    def test_tp_levels_runs_k1_on_its_groups(self, port):
+        """use_pallas with tp_axis="levels": every model rank calls the K1
+        Function on its L/2 = 2 bottom_up groups at full f, and on top_down's
+        L-1 = 3 groups at f/2 with the addend, once each an iteration; the
+        group gathers (forward and backward) count at one site. No warning:
+        nothing falls back."""
+        cfg = GlomConfig(**CFG_KW)
+        k = cfg.default_iters // 2 + 1
+        f = cfg.dim * cfg.mult
+        for rank_res in port["tp_levels_pallas"]:
+            calls = rank_res["k1_calls"]
+            assert len(calls) == 2 * k * STEPS
+            assert calls[:2] == [(2, f, False), (3, f // 2, True)]
+            assert sorted(set(calls)) == [(2, f, False), (3, f // 2, True)]
+            (site,) = [s for s in rank_res["sites"] if s["site"] == "tp_levels_all_gather"]
+            assert site["calls"] == 2 * k * STEPS and site["dim"] == 0
+            # one shard [L/2, b, n, d] f32 into each rank a gather
+            assert site["wire_bytes"] == 2 * 4 * cfg.num_patches * cfg.dim * 4
+            assert not [w for w in rank_res["warnings"] if "levels" in w]
+
+    def test_tp_levels_refuses_indivisible_levels(self):
         from glom_tpu_torch.parallel import DistributedTrainer
 
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            DistributedTrainer(GlomConfig(**CFG_KW), TrainConfig(**BASE),
+        with pytest.raises(ValueError, match="levels 3 not divisible by model axis 2"):
+            DistributedTrainer(GlomConfig(**dict(CFG_KW, levels=3)), TrainConfig(**BASE),
                                MeshConfig(model=2), tp_axis="levels", devices=["cpu"] * 2)
 
     @pytest.mark.parametrize("strategy", ["ring", "ulysses", "halo"])

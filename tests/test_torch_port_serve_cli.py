@@ -85,15 +85,17 @@ def test_argv_errors_exit_2(argv, tmp_path):
     assert cli.main([*BASE, *argv, "--out", str(tmp_path / "m.jsonl")]) == 2
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--mesh-data", "2", "--buckets", "2,4", "--elastic"], "8b.4"),
-    (["--mesh-seq", "2", "--elastic"], "8b.4"),
+@pytest.mark.parametrize("flag,per", [
+    (["--mesh-data", "2", "--buckets", "2,4", "--elastic"], 2),
+    (["--mesh-seq", "2", "--elastic"], 2),
 ])
-def test_unported_flags_raise(flag, item):
-    """The mesh flags run (test_torch_port_serve_mesh); an elastic fleet on
-    a mesh is what stays unported."""
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main([*BASE, "--synthetic", "1", *flag])
+def test_elastic_on_a_mesh_needs_its_ranks(flag, per, tmp_path, capsys):
+    """An elastic fleet on a mesh runs (test_torch_port_serve_mesh_elastic);
+    one process without a process group holds none of its rank groups and
+    is told how to launch."""
+    out = str(tmp_path / "m.jsonl")
+    assert cli.main([*BASE, "--synthetic", "1", *flag, "--out", out]) == 2
+    assert f"torch.distributed.run --nproc-per-node {per}" in capsys.readouterr().err
 
 
 def test_a_mesh_without_its_ranks_exits_2(tmp_path, capsys):

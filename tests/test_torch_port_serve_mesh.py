@@ -155,6 +155,18 @@ SERVE2 = {
                            fault={"rank": 1, "body": [(1, "transient")]},
                            group_timeout_s=BROKEN_TIMEOUT_S),
 }
+# Delta streams on the sharded pool: two rows laid down as bases, the next
+# dispatch's rows written as deltas, then a warm dispatch from the
+# effective pages.
+DELTA_CALLS = [dict(kind="infer", img=IMG2, n_valid=2),
+               dict(kind="write_back_stream", sid="a", row=0, **{"from": 0}),
+               dict(kind="write_back_stream", sid="b", row=1, **{"from": 0}),
+               dict(kind="infer", img=IMG2, n_valid=2, page_rows_from=["a", "b"]),
+               dict(kind="write_back_stream", sid="a", row=0, **{"from": 3}),
+               dict(kind="write_back_stream", sid="b", row=1, **{"from": 3}),
+               dict(kind="infer", img=IMG2, n_valid=2, page_rows_from=["a", "b"]),
+               dict(kind="pool_record")]
+SERVE2["paged_delta"] = _serve(dict(PAGED, mesh_data=2, delta_streaming=True), DELTA_CALLS)
 SERVE4 = {
     "auto_data2xseq2": _serve(dict(AUTO, exit_threshold=1e-3, max_auto_iters=12, mesh_data=2,
                                    mesh_seq=2), [dict(kind="infer", img=IMG8), dict(kind="stats")]),
@@ -371,15 +383,42 @@ class TestServeMeshPlumbing:
     @pytest.mark.parametrize("bad,err,match", [
         (dict(ragged=True, mesh_data=2), ValueError, "single-device route only"),
         (dict(page_pool_pages=3, mesh_data=2), ValueError, "page_pool_pages 3 not divisible"),
-        (dict(page_pool_pages=4, delta_streaming=True, mesh_data=2), NotImplementedError,
-         "8b.5"),
     ])
     def test_refused_configs(self, bad, err, match):
         """glom_tpu's refusals of ragged admission and an indivisible pool on
-        a mesh, and the port's of delta streams on a sharded pool."""
+        a mesh."""
         scfg = ServeConfig(**dict(dict(buckets=(8,), max_batch=8), **bad))
         with pytest.raises(err, match=match):
             InferenceEngine(GlomConfig(**CFG_KW), scfg, device="cpu")
+
+    def test_delta_streams_on_a_sharded_engine(self, runs):
+        """mesh_data 2 with delta_streaming: the engine builds and serves.
+        Two rows go down as bases, the next dispatch's rows as deltas, and
+        the warm dispatch over the effective pages (0 levels0 bytes)
+        answers what the single-device engine answers after the same
+        writes, bit for bit; the pool's record is the single device's."""
+        out = _leader(runs, 2, "paged_delta")
+        single = _single(dict(PAGED, delta_streaming=True))
+        want = []
+        for c in DELTA_CALLS:
+            if c["kind"] == "infer":
+                kw = {}
+                if c.get("page_rows_from"):
+                    kw["page_rows"] = np.array([single.pool.lookup(s)[0]
+                                                for s in c["page_rows_from"]])
+                want.append(single.infer(IMG2, n_valid=2, **kw))
+            elif c["kind"] == "write_back_stream":
+                want.append(single.pool.write_back_stream(
+                    c["sid"], want[c["from"]].levels[c["row"]], 16))
+            else:
+                want.append(single.pool.record())
+        for i in (0, 3, 6):
+            assert np.array_equal(out[i]["levels"], want[i].levels.numpy()), i
+        assert out[3]["levels0_h2d_bytes"] == out[6]["levels0_h2d_bytes"] == 0
+        for i in (1, 2, 4, 5):
+            assert out[i] == want[i], i
+        assert out[1]["kind"] == "base" and out[4]["kind"] == "delta"
+        assert out[7] == want[7] and out[7]["delta"]["n_delta_writes"] == 2
 
     def test_make_engine_meshes_partitions_ranks(self, runs):
         """Four ranks, two 2-rank engines: contiguous groups, each rank in

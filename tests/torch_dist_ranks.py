@@ -139,14 +139,18 @@ def loss_grads(shape, sp, cfg_kw, tcfg_kw, arrays, img, noise):
     return {"loss": float(loss.detach()), "grads": _gathered_grads(mesh, params, grads)}
 
 
-def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=1):
+def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=1,
+                tp_axis="hidden"):
     """DistributedTrainer.fit over shapes_dataset(seed=data_seed): the
-    records, the final global params and optimizer state, and the bytes of
-    this rank's optimizer state."""
+    records, the final global params and optimizer state, the bytes of
+    this rank's optimizer state, and over the run the (G, f, addend) of
+    each K1 Function call and the counted collective sites."""
     import warnings
 
     from glom_tpu_torch.data import shapes_dataset
     from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.parallel import manual
+    from glom_tpu_torch.telemetry import counters
     from glom_tpu_torch.utils.checkpoint import named_leaves
     from glom_tpu_torch.utils.config import GlomConfig, MeshConfig, TrainConfig
 
@@ -156,9 +160,22 @@ def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=
         warnings.simplefilter("always")
         tr = DistributedTrainer(cfg, tcfg, MeshConfig(*shape), sp_strategy=sp,
                                 devices=["cpu"] * world, backend="gloo",
-                                params=None if arrays is None else _params(arrays))
-    hist = tr.fit(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=data_seed), steps,
-                  log_every=log_every)
+                                params=None if arrays is None else _params(arrays),
+                                tp_axis=tp_axis)
+    k1_calls, vjp = [], manual.grouped_ffw_lm_vjp
+
+    def recording_vjp(p, x, add=None):
+        k1_calls.append((int(p.w1.shape[0]), int(p.w1.shape[-1]), add is not None))
+        return vjp(p, x, add=add)
+
+    manual.grouped_ffw_lm_vjp = recording_vjp
+    sites = counters.CollectiveCounters()
+    try:
+        with counters.recording(sites):
+            hist = tr.fit(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=data_seed),
+                          steps, log_every=log_every)
+    finally:
+        manual.grouped_ffw_lm_vjp = vjp
     g = tr.global_state()
     opt_bytes = sum(v.numel() * v.element_size()
                     for s in tr.state.optimizer.state.values() for v in s.values()
@@ -172,6 +189,7 @@ def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=
         "opt_bytes": opt_bytes,
         "warnings": [str(w.message) for w in caught],
         "vjp_path": tr.vjp_path, "sp_strategy": tr.sp_strategy,
+        "k1_calls": k1_calls, "sites": sites.sites,
     }
 
 
@@ -334,8 +352,9 @@ def glom_mesh(shape, sp, cfg_kw, arrays, img, levels0, iters, use_pallas=True):
 
 def _serve_script(eng, calls):
     """Run `calls` on the leader's engine: each a dict with "kind" infer /
-    warmup / write_back / lookup / stats / pool_record / release;
-    "levels0_from" and "from" name an earlier infer call by its index.
+    warmup / write_back / write_back_stream / lookup / stats / pool_record
+    / release; "levels0_from" and "from" name an earlier infer call by its
+    index, "page_rows_from" the sessions whose pages an infer reads.
     Returns one entry a call."""
     import numpy as np
 
@@ -349,6 +368,9 @@ def _serve_script(eng, calls):
                                     "support_rows") if c.get(k) is not None}
             if c.get("levels0_from") is not None:
                 kw["levels0"] = results[c["levels0_from"]].levels.cpu()
+            if c.get("page_rows_from") is not None:
+                kw["page_rows"] = np.array([eng.pool.lookup(sid)[0]
+                                            for sid in c["page_rows_from"]], np.int32)
             try:
                 r = eng.infer(c["img"], **kw)
             except Exception as e:  # noqa: BLE001 - the test reads the error
@@ -365,6 +387,9 @@ def _serve_script(eng, calls):
         elif kind == "write_back":
             row = results[c["from"]].levels[c["row"]]
             out.append(eng.pool.write_back(c["sid"], row, eng.cfg.num_patches))
+        elif kind == "write_back_stream":
+            row = results[c["from"]].levels[c["row"]]
+            out.append(eng.pool.write_back_stream(c["sid"], row, eng.cfg.num_patches))
         elif kind == "lookup":
             got = eng.pool.lookup(c["sid"])
             out.append(None if got is None else list(got[0]))
@@ -478,6 +503,238 @@ def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, en
     return None
 
 
+class _ListWriter:
+    def __init__(self):
+        self.recs = []
+
+    def write(self, rec):
+        self.recs.append(rec)
+
+
+def _bits(t):
+    """The bits of a pool tensor as a signed integer numpy array (a copy: a
+    later in-place write must not reach a recorded state)."""
+    return t.detach().cpu().clone().view(
+        torch.int16 if t.dtype == torch.bfloat16 else torch.int32).numpy()
+
+
+def pool_state(pool, writer, sessions, read_all):
+    """A pool's observable state after an op: table, free list, counters,
+    record, pins, events (minus the backend state) and, with `read_all`,
+    every page's bits (on a sharded pool through a `read` op of the whole
+    pool: each page from its owner)."""
+    out = {"free": list(pool._free), "record": pool.record(),
+           "epoch": pool.epoch(), "read_pins": pool.read_pins(),
+           "events": [{k: v for k, v in r.items() if k != "backend_state"}
+                      for r in writer.recs],
+           "sessions": {sid: (pool.lookup(sid), pool.is_pinned(sid), pool.delta_chain_len(sid),
+                              pool.base_refs(sid)) for sid in sessions}}
+    writer.recs.clear()
+    if read_all and pool.buffer() is not None:
+        with pool._leader.lock, pool._lock:
+            out["pages"] = _bits(pool._gather_pages(None, list(range(pool.n_pages))))
+        out["own"] = _bits(pool.buffer())
+    return out
+
+
+def run_pool_script(pool, writer, script, sessions, dtype, read_all=True):
+    """Each (method, args, kwargs) of `script` on the pool (numpy rows as
+    tensors in the pool's dtype): [(answer, state after it)]."""
+    out = []
+    for method, args, kw in script:
+        args = [torch.from_numpy(a).to(dtype) if isinstance(a, np.ndarray) else a for a in args]
+        got = getattr(pool, method)(*args, **kw)
+        if torch.is_tensor(got):
+            got = {"bits": _bits(got), "device": got.device.type}
+        out.append((got, pool_state(pool, writer, sessions, read_all)))
+    return out
+
+
+def sharded_pool(cfg_kw, scfg_kw, script, sessions, engines=1, leader=None):
+    """ShardedColumnPool through `script` on the leader of each engine
+    (make_engine_meshes' groups; `leader` holds them all), every follower
+    running its engine's ops. The leader returns one run_pool_script list
+    an engine; a follower its shard's final bits and first page id."""
+    import torch.distributed as dist
+
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.parallel.runtime import make_engine_meshes
+    from glom_tpu_torch.serve import mesh_follower
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, scfg = GlomConfig(**cfg_kw), ServeConfig(**scfg_kw)
+    dtype = torch.bfloat16 if scfg.compute_dtype == "bfloat16" else torch.float32
+    meshes = make_engine_meshes(scfg, engines, leader=leader)
+    if dist.get_rank() == meshes[0].leader:
+        out = []
+        params = init_glom(cfg, generator=torch.Generator().manual_seed(0))
+        for i, mesh in enumerate(meshes):
+            w = _ListWriter()
+            # every engine named as glom_tpu's pool names itself
+            eng = InferenceEngine(cfg, scfg, params=params, device="cpu", mesh=mesh,
+                                  name="engine0", writer=w)
+            try:
+                w.recs.clear()
+                out.append(run_pool_script(eng.pool, w, script, sessions, dtype))
+            finally:
+                eng.close()
+        return out
+    for mesh in meshes:
+        if mesh.is_member:
+            shard = mesh_follower.run_follower(mesh, "cpu")["pool"]
+            return {"lo": shard.lo, "bits": None if shard.buffer is None else _bits(shard.buffer)}
+    return None
+
+
+def _scripted_policy(actions, targets):
+    """An ElasticPolicy that pops scripted actions (and drain targets)."""
+    from glom_tpu_torch.serve import elastic
+
+    class Scripted(elastic.ElasticPolicy):
+        def __init__(self):
+            super().__init__(min_engines=1, max_engines=8)
+            self._actions, self._targets = list(actions), list(targets)
+
+        def decide(self, n_engines):
+            if not self._actions:
+                return None
+            return {"action": self._actions.pop(0), "signal": {"rule": "test"}}
+
+        def pick_drain_target(self, caps):
+            return self._targets.pop(0)
+
+    return Scripted()
+
+
+def elastic_fleet(cfg_kw, scfg_kw, arrays, rounds, wait_s, group_timeout_s):
+    """An elastic fleet on the world's rank groups (data 2: three groups at
+    world 6), rank 0 holding every engine, driven by a scripted policy:
+
+      engine0 on group 0 and a warm spare (engine1) on group 1; round 0 of
+      two sessions; promote the spare; wait `wait_s` (past the groups'
+      collective timeout: group 2's followers wait on the store); a cold
+      spawn on group 2 (engine2); a spawn past the last group (rolled
+      back); drain engine0 (its sessions migrate; demoted into the pool);
+      drain engine2 (released: group 2 waits again); round 1 (warm from
+      the pages); promote engine0 back; a cold spawn on group 2 (engine3,
+      generation 1) whose follower rank 4 fails inside the auto route's
+      body, so its group breaks and is retired; a spawn with no waiting
+      group (rolled back).
+
+    The leader returns the tickets' rows and iterations, the migrated
+    sessions' bits before and after, the stamped records, the autoscaler's
+    and the fleet's rollups; a follower its engine lifetimes or its error."""
+    import time as _time
+
+    import torch.distributed as dist
+
+    from glom_tpu_torch.parallel import serve_mesh as sm
+    from glom_tpu_torch.parallel.runtime import make_engine_meshes
+    from glom_tpu_torch.serve import mesh_follower
+    from glom_tpu_torch.serve.batcher import DynamicBatcher
+    from glom_tpu_torch.serve.elastic import Autoscaler, RankGroupFleet, fleet_store
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, scfg = GlomConfig(**cfg_kw), ServeConfig(**scfg_kw)
+    saved = sm.GROUP_TIMEOUT_S
+    sm.GROUP_TIMEOUT_S = group_timeout_s
+    try:
+        meshes = make_engine_meshes(scfg, None, leader=0)
+    finally:
+        sm.GROUP_TIMEOUT_S = saved
+    store, prefix = fleet_store(meshes)
+    broke = f"{prefix}/break"
+    rank = dist.get_rank()
+    if rank != 0:
+        compute = mesh_follower.MeshWorker.compute
+
+        def failing_compute(self, *args, **kw):
+            if rank == 4 and store.check([broke]):
+                raise RuntimeError("rank 4 fails inside the body on purpose")
+            return compute(self, *args, **kw)
+
+        mesh_follower.MeshWorker.compute = failing_compute
+        try:
+            for index, mesh in enumerate(meshes):
+                if mesh.is_member:
+                    try:
+                        lives = mesh_follower.follow_engines(
+                            mesh, "cpu", store, mesh_follower.group_prefix(prefix, index))
+                    except Exception as e:  # noqa: BLE001 - the test reads the error
+                        return {"error": type(e).__name__, "group": index}
+                    return {"group": index, "lives": [
+                        {"ops": st["ops"], "freed_bytes": st.get("freed_bytes")}
+                        for st in lives]}
+        finally:
+            mesh_follower.MeshWorker.compute = compute
+        return None
+
+    w = _ListWriter()
+    params = _params(arrays)
+    fleet = RankGroupFleet(meshes, store, prefix, writer=w)
+    built = []
+
+    def factory():
+        eng = fleet.build(lambda mesh: InferenceEngine(
+            cfg, scfg, params=params, device="cpu", mesh=mesh, name=f"engine{len(built)}",
+            writer=w))
+        built.append(eng)
+        return eng
+
+    bat = DynamicBatcher(engines=[factory()], writer=w, max_delay_ms=5000.0, max_batch=2)
+    sc = Autoscaler(bat, factory, writer=w, warm_pool=1, policy=_scripted_policy(
+        ["scale_out"] * 3 + ["scale_in"] * 2 + ["scale_out"] * 3, ["engine0", "engine2"]))
+    out = {"tickets": []}
+    try:
+        sc.fill_warm_pool()
+        bat.start()
+
+        def serve(rnd):
+            ts = [bat.submit(img, session_id=sid) for img, sid in rnd]
+            for t in ts:
+                levels, iters, _ = t.result(timeout=120)
+                out["tickets"].append({"levels": _np(levels), "iters": int(iters)})
+
+        serve(rounds[0])
+        sc.tick()  # promote engine1
+        _time.sleep(wait_s)
+        sc.tick()  # engine2 on group 2
+        sc.tick()  # no group: rolled back
+        sessions = [sid for _, sid in rounds[0]]
+        out["before"] = {sid: _bits(built[0].pool.read_block(sid)) for sid in sessions}
+        sc.tick()  # drain engine0: migrate, demote
+        out["after"] = {}
+        for sid in sessions:
+            e = bat.cache._entries[sid].engine
+            out["after"][sid] = (e, _bits(bat.engine_by_name(e).pool.read_block(sid)))
+        sc.tick()  # drain engine2: release
+        serve(rounds[1])
+        sc.tick()  # promote engine0
+        sc.tick()  # engine3 on group 2, generation 1
+        store.set(broke, "1")
+        try:
+            built[3].infer(rounds[0][0][0][None].repeat(2, 0))
+        except Exception as e:  # noqa: BLE001 - the test reads the error
+            out["broken_error"] = type(e).__name__
+        built[3].close()  # the fleet retires group 2
+        sc.tick()  # no waiting group: rolled back
+        out["fleet"] = list(fleet.state)
+    finally:
+        bat.stop()
+        for eng in built:
+            eng.close()
+        fleet.close()
+        out["fleet_closed"] = list(fleet.state)
+    out["records"] = [{k: v for k, v in r.items() if isinstance(v, (int, float, str, bool, list,
+                                                                    dict)) or v is None}
+                      for r in w.recs]
+    out["elastic"] = {k: v for k, v in sc.record().items()
+                      if isinstance(v, (int, float, str, bool, list)) or v is None}
+    return out
+
+
 def engine_meshes(scfg_kw, n_engines, leader=None):
     """make_engine_meshes' groups as every rank sees them, and
     engine_mesh_for's."""
@@ -516,4 +773,5 @@ def serve_cli(argv, out):
 
 CASES = {f.__name__: f for f in (fail_on, loss_grads, trainer_run, checkpoint_roundtrip, sp_bodies,
                                  consensus_fns, collective_grads, mesh_facts, glom_mesh,
-                                 serve_mesh, engine_meshes, serve_cli)}
+                                 serve_mesh, sharded_pool, elastic_fleet, engine_meshes,
+                                 serve_cli)}
