@@ -153,6 +153,26 @@ after:
     --elastic` on six ranks (three rank groups: a warm spare promoted, a
     cold spawn, drains with migration checked page for page, each
     release's freed bytes on every rank; `serve_cli_mesh_elastic`).
+  * telemetry's measuring half (`telemetry_phases`): the batch-8 loop at
+    telemetry_level "full" (the per-level agreement on every record, in
+    [-1, 1], and in f32 against level_agreement of the plain route's final
+    state; every record's hbm_* fields against torch.cuda.memory_allocated
+    at the read; exactly the loop's launches; `train_telemetry_full`); ZeRO
+    stage 1 on 2 gloo ranks with collective timing off, sampled and full
+    (degraded to sampled, with its warning): every site's sampled wall_ms
+    and bytes, each row's bytes the counted bytes, losses and launches bit
+    for bit the off run's (`dist_collective_timing`); three data-2 engines
+    (bucket 8, T = 12) timed off, sampled every 2nd dispatch and full, in
+    turns: dispatch p50s, answers bit for bit the off arm's, the full log's
+    calls from both ranks, 24 K1 a rank a dispatch (`serve_mesh_timing`);
+    the training CLI in process with --trace-steps 2:3 and with
+    --profile-dir (one Chrome trace each naming K1's and K2's kernels, the
+    note records, hbm_* on every record; `train_cli_trace`); the CLI with
+    --watchdog-interval 1 (unknown -> up, "up" on the records), then an
+    injected probe fault driving the state down, a dispatch through the
+    engine's RetryPolicy failing after one attempt, and the state back up
+    (`watchdog`). Each kernel's launches there ride the kernels line as
+    `telemetry_launches`.
 
 It prints one JSON line per phase. The last line is
 
@@ -1865,6 +1885,510 @@ def sharded_phases(cfg, dev, smi: str, *, cli_argv=ELASTIC_MESH_ARGV) -> tuple:
         raise AssertionError(f"serve_cli_mesh_elastic: rc {proc.returncode}, lint "
                              f"{lint.returncode}, audit {audit.returncode}")
     return dist_kernel_launches(train_total), dist_kernel_launches(pool_total)
+
+
+# -- telemetry's measuring half (train_telemetry_full, dist_collective_timing, --------
+# serve_mesh_timing, train_cli_trace, watchdog). The two rank phases share one
+# 2-rank spawn on the card over gloo; the rest run in this process.
+TIMING_ARMS = ("off", "sampled", "full")
+TIMING_STEPS = 3
+TIMING_ROUNDS = 10  # dispatches an arm, in turns, after each arm's warm-up
+TIMING_INTERVAL = 2  # the serve engine's sampled arm samples every 2nd dispatch
+WATCHDOG_STEPS = 400  # long enough that the first probe (a fresh python) answers
+TRACE_KERNELS = ("mlp_fwd_hidden_bf16", "consensus_update_kernel_bf16")
+
+
+def _case_coll_timing(rank, device, cfg_kw):
+    """ZeRO stage 1 on 2 data ranks, f32 at DIST_ZERO_BATCH, telemetry
+    "scalars", through DistributedTrainer.fit (log_every 1) with collective
+    timing "off", "sampled" (interval 1: a sample at every logging step)
+    and "full" (degraded to "sampled"): per arm the losses, the writer
+    rank's collective_time records, the construction's warnings, the counted
+    bytes, the step ms and the launches over the fit."""
+    import warnings
+
+    import torch
+
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig, TrainConfig
+
+    class Records:
+        def __init__(self):
+            self.records = []
+
+        def write(self, rec):
+            self.records.append(rec)
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    params = _dist_params(cfg, SEED)
+    out = {}
+    for arm in TIMING_ARMS:
+        tcfg = TrainConfig(batch_size=DIST_ZERO_BATCH, use_pallas=True, telemetry_level="scalars",
+                           learning_rate=1e-3, zero_stage=1, collective_timing=arm,
+                           collective_timing_interval=1)
+        w = Records()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr = DistributedTrainer(cfg, tcfg, MeshConfig(data=2), devices=[dev] * 2,
+                                    backend="gloo", params=params, metrics_writer=w)
+        _sync(dev)
+        _dist_counts(reset=True)
+        hist = tr.fit(shapes_dataset(tcfg.batch_size, cfg.image_size, seed=SEED + 42),
+                      TIMING_STEPS, log_every=1)
+        _sync(dev)
+        launches = _dist_counts()
+        steps = [r for r in w.records if r.get("kind") == "span"
+                 and r.get("name") == "host_step_dispatch"]
+        out[arm] = dict(
+            losses=[r["loss"] for r in hist], launches=launches,
+            warnings=[str(c.message) for c in caught],
+            resolved=hist[-1]["collective_timing"],
+            counted={k: hist[0][k] for k in ("comm_measured_bytes_per_step",
+                                            "comm_measured_collective_count")},
+            step_ms=[r["mean_ms"] for r in steps],
+            rows=[r for r in w.records if r.get("kind") == "collective_time"])
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _case_serve_mesh_timing(rank, device, cfg_kw):
+    """Three data-2 engines at the flagship, bucket 8, the auto route at
+    threshold 0 with a budget of T = 12 (so every dispatch runs 12
+    iterations and the exit sites), one a timing arm ("off", "sampled"
+    every TIMING_INTERVAL-th dispatch, "full"), rank 0 leading all three and
+    rank 1 following each in a thread of its own: a warm-up dispatch an
+    arm, then TIMING_ROUNDS rounds of one dispatch an arm in turns; then
+    each engine's records. Launches a rank over the engines' dispatches."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.parallel.serve_mesh import make_serve_mesh
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.serve.mesh_follower import run_follower
+    from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
+
+    cfg, dev = GlomConfig(**cfg_kw), torch.device(device)
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+    img = torch.randn((MESH_BUCKET, cfg.channels, cfg.image_size, cfg.image_size),
+                      generator=torch.Generator().manual_seed(SEED + 61))
+    base = ServeConfig(buckets=(MESH_BUCKET,), max_batch=MESH_BUCKET, iters="auto",
+                       exit_threshold=0.0, max_auto_iters=MESH_T, compute_dtype="bfloat16",
+                       use_pallas=True, dispatch_retries=0, mesh_data=2,
+                       collective_timing_interval=TIMING_INTERVAL)
+    scfgs = {arm: dataclasses.replace(base, collective_timing=arm) for arm in TIMING_ARMS}
+    meshes = {arm: make_serve_mesh(scfgs[arm]) for arm in TIMING_ARMS}  # every rank, in order
+    _sync(dev)
+    _dist_counts(reset=True)
+    if rank != meshes["off"].leader:
+        stats, errors = {}, {}
+
+        def follow(arm):
+            try:
+                stats[arm] = run_follower(meshes[arm], dev)
+            except BaseException as e:  # noqa: BLE001 - the phase reads it
+                errors[arm] = f"{type(e).__name__}: {e}"
+
+        threads = [threading.Thread(target=follow, args=(arm,)) for arm in TIMING_ARMS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        _sync(dev)
+        return {"launches": _dist_counts(), "errors": errors,
+                "ops": {arm: st["ops"] for arm, st in stats.items()}}
+    engines = {arm: InferenceEngine(cfg, scfgs[arm], params=params, device=dev,
+                                    mesh=meshes[arm], name=f"timing_{arm}")
+               for arm in TIMING_ARMS}
+    import numpy as np
+
+    def same(a, b) -> bool:
+        return (torch.equal(a.levels, b.levels) and a.iters_run == b.iters_run
+                and np.array_equal(a.row_converged, b.row_converged)
+                and np.array_equal(a.row_iters, b.row_iters))
+
+    try:
+        ms = {arm: [] for arm in TIMING_ARMS}
+        bitwise = {arm: True for arm in TIMING_ARMS}
+        for arm, eng in engines.items():
+            eng.infer(img)  # the signature's first dispatch: its warm-up
+        for _ in range(TIMING_ROUNDS):
+            answers = {}
+            for arm, eng in engines.items():
+                _sync(dev)
+                t0 = time.perf_counter()
+                answers[arm] = eng.infer(img)
+                ms[arm].append(1e3 * (time.perf_counter() - t0))
+            for arm in TIMING_ARMS:
+                bitwise[arm] = bitwise[arm] and same(answers[arm], answers["off"])
+        rows = {arm: [{k: v for k, v in r.items() if isinstance(v, (int, float, str))
+                       or v is None} for r in eng.collective_time_records()]
+                for arm, eng in engines.items()}
+        iters = {arm: answers[arm].iters_run for arm in TIMING_ARMS}
+        finite = bool(answers["off"].levels.float().isfinite().all())
+    finally:
+        for eng in engines.values():
+            eng.close()
+    _sync(dev)
+    return {"launches": _dist_counts(), "ms": ms, "bitwise": bitwise, "rows": rows,
+            "iters": iters, "finite": finite}
+
+
+DIST_CASES.update({"coll_timing": _case_coll_timing, "serve_mesh_timing": _case_serve_mesh_timing})
+
+
+def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8") -> dict:
+    """train_telemetry_full, dist_collective_timing and serve_mesh_timing
+    (one 2-rank spawn on `dev`), train_cli_trace and watchdog (the CLI at
+    `cli_preset`, batch 8); returns the
+    launches of each kernel over every main-path run of these phases (every
+    rank's), for the kernels line's `telemetry_launches`."""
+    import contextlib
+    import io
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.models.core import glom_forward, map_params
+    from glom_tpu_torch.resilience.faults import InjectedFault
+    from glom_tpu_torch.serve.engine import InferenceEngine
+    from glom_tpu_torch.telemetry import watchdog as wd_mod
+    from glom_tpu_torch.telemetry.diagnostics import level_agreement
+    from glom_tpu_torch.train import Trainer, default_recon_index
+    from glom_tpu_torch.train import cli as train_cli
+    from glom_tpu_torch.train import trainer as trainer_mod
+    from glom_tpu_torch.utils.config import ServeConfig, TrainConfig
+
+    class Records:
+        def __init__(self):
+            self.records = []
+
+        def write(self, rec):
+            self.records.append(rec)
+
+    counted = dev.type == "cuda"
+    k = default_recon_index(cfg.default_iters)
+    want_loop = _full(_loop_launches(k))
+    total = {key: 0 for key in DIST_COUNTERS}
+
+    def add(counts):
+        for key, v in counts.items():
+            total[key] += v
+
+    def times(want, n):
+        return {key: v * n for key, v in want.items()}
+
+    # -- train_telemetry_full: batch 8 on the loop, bf16, then f32 --------------------
+    t0 = time.perf_counter()
+    dparams = _dist_params(cfg, SEED)
+    w = Records()
+    tr = Trainer(cfg, TrainConfig(batch_size=8, compute_dtype="bfloat16", use_pallas=True,
+                                  telemetry_level="full"),
+                 params=dparams, device=dev, metrics_writer=w)
+    reads = []
+    probe = tr._memory_record
+
+    def read_and_compare():
+        rec = probe()
+        reads.append((rec.get("hbm_bytes_in_use"),
+                      torch.cuda.memory_allocated(dev) if counted else None))
+        return rec
+
+    tr._memory_record = read_and_compare
+    _sync(dev)
+    _dist_counts(reset=True)
+    hist = tr.fit(shapes_dataset(8, cfg.image_size, seed=SEED + 70), TIMING_STEPS, log_every=1)
+    _sync(dev)
+    bf16_launches = _dist_counts()
+    add(bf16_launches)
+    keys = [f"consensus_agreement_l{i}" for i in range(cfg.levels)]
+    agreement = [[r.get(key) for key in keys] for r in hist]
+    agree_ok = all(v is not None and math.isfinite(v) and -1.0 <= v <= 1.0
+                   for row in agreement for v in row)
+    exact_bf16 = bf16_launches == times(want_loop, TIMING_STEPS) or not counted
+    hbm_ok = not counted or (all(a == b for a, b in reads) and all(
+        {"hbm_bytes_in_use", "hbm_peak_bytes", "hbm_bytes_limit", "hbm_model_drift"} <= set(r)
+        for r in hist))
+    del tr
+    # f32: the step's agreement against level_agreement on the plain route's
+    # final state from the same parameters and image (noise_std 0).
+    img = torch.from_numpy(next(shapes_dataset(8, cfg.image_size, seed=SEED + 71))).to(dev)
+    with torch.no_grad():
+        final = glom_forward(map_params(lambda t: t.to(dev), dparams.glom), img, cfg, iters=k,
+                             use_pallas=False)
+        want_agree = level_agreement(final).cpu()
+    del final
+    tr32 = Trainer(cfg, TrainConfig(batch_size=8, use_pallas=True, telemetry_level="full",
+                                    noise_std=0.0), params=dparams, device=dev)
+    _sync(dev)
+    _dist_counts(reset=True)
+    m = tr32.step(img)
+    _sync(dev)
+    f32_launches = _dist_counts()
+    add(f32_launches)
+    got_agree = m["level_agreement"].float().cpu()
+    f32_err = float((got_agree - want_agree).abs().max())
+    f32_route = tr32.vjp_path
+    del tr32, m
+    if counted:
+        torch.cuda.empty_cache()
+    exact_f32 = f32_launches == want_loop or not counted
+    ok = (agree_ok and exact_bf16 and exact_f32 and hbm_ok and f32_err <= 1e-5
+          and hist[0]["vjp_path"] == LOOP_ROUTE[dev.type] and f32_route == LOOP_ROUTE[dev.type])
+    emit("train_telemetry_full", nvidia_smi=smi, batch=8, steps=TIMING_STEPS,
+         vjp_path=hist[0]["vjp_path"], agreement_by_step=agreement, agreement_in_range=agree_ok,
+         launches=bf16_launches, want=times(want_loop, TIMING_STEPS), exact_launches=exact_bf16,
+         hbm_reads=reads, hbm_equals_memory_allocated=hbm_ok,
+         hbm=[{kk: r.get(kk) for kk in ("hbm_bytes_in_use", "hbm_peak_bytes",
+                                         "hbm_bytes_limit", "hbm_model_live_bytes",
+                                         "hbm_model_drift")} for r in hist],
+         step_p50_ms=hist[-1].get("step_time_p50_ms"),
+         f32_agreement=got_agree.tolist(), f32_plain_agreement=want_agree.tolist(),
+         f32_max_abs_err=f32_err, f32_bar=1e-5, f32_vjp_path=f32_route,
+         f32_launches=f32_launches, f32_exact_launches=exact_f32,
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("train_telemetry_full failed its checks")
+
+    # -- dist_collective_timing and serve_mesh_timing: one 2-rank spawn -----------------
+    cfg_kw = dict(dim=cfg.dim, levels=cfg.levels, image_size=cfg.image_size,
+                  patch_size=cfg.patch_size)
+    t0 = time.perf_counter()
+    res = _dist_spawn(2, [("coll_timing", {"cfg_kw": cfg_kw}),
+                          ("serve_mesh_timing", {"cfg_kw": cfg_kw})], str(dev))
+    spawn_s = time.perf_counter() - t0
+    coll = [r[0] for r in res]
+    lead = coll[0]
+    for r in coll:
+        for arm in TIMING_ARMS:
+            add(r[arm]["launches"])
+    off = lead["off"]
+    arms, ok = {}, True
+    for arm in ("sampled", "full"):
+        a = lead[arm]
+        rows = a["rows"]
+        model_at = [i for i, r in enumerate(rows) if r["site"] == "comm_time_model"]
+        sites = rows[:model_at[0]] if model_at else []
+        last = rows[model_at[-2] + 1:model_at[-1]] if len(model_at) > 1 else sites
+        counted_bytes = a["counted"]["comm_measured_bytes_per_step"]
+        bytes_ok = sum(r["wire_bytes"] * r["calls"] for r in sites) == counted_bytes
+        step_ms = statistics.median(a["step_ms"][1:]) if len(a["step_ms"]) > 1 else None
+        # The isolated collectives' time a step (each site's sampled wall_ms x
+        # its calls) against the step: an upper bound on the transport's share.
+        comm_ms = sum(r["wall_ms"] * r["calls"] for r in last)
+        bitwise = all(r[arm]["losses"] == r["off"]["losses"] for r in coll)
+        same_launches = all(r[arm]["launches"] == r["off"]["launches"] for r in coll)
+        warned = [x for x in a["warnings"] if "collective_timing" in x]
+        okr = (len(model_at) == TIMING_STEPS and bytes_ok and bitwise and same_launches
+               and a["resolved"] == "sampled" and coll[1][arm]["rows"] == []
+               and all(r["wall_ms"] > 0 for r in sites)
+               and (len(warned) == 1 if arm == "full" else not warned))
+        arms[arm] = dict(
+            resolved=a["resolved"], warnings=warned, samples=len(model_at),
+            sites=[{kk: r.get(kk) for kk in ("site", "wire_bytes", "calls", "wall_ms",
+                                              "bytes_per_s", "comm_time_model_drift")}
+                   for r in last],
+            comm_time_model={kk: rows[model_at[-1]].get(kk) for kk in (
+                "alpha_ms", "beta_ms_per_byte", "n_points", "wall_ms",
+                "comm_time_model_drift")} if model_at else None,
+            wire_bytes_equal_counted=bytes_ok, counted=a["counted"],
+            losses_bitwise_off=bitwise, launches_equal_off=same_launches,
+            step_ms_p50=step_ms, sampled_comm_ms_a_step=comm_ms,
+            transport_share_bound=comm_ms / step_ms if step_ms else None, ok=okr)
+        ok = ok and okr
+    emit("dist_collective_timing", nvidia_smi=smi, backend="gloo", zero_stage=1,
+         global_batch=DIST_ZERO_BATCH, dtype="float32", steps=TIMING_STEPS,
+         off_losses=off["losses"], off_step_ms=off["step_ms"], arms=arms,
+         launches_by_rank=[r["sampled"]["launches"] for r in coll],
+         spawn_seconds=spawn_s, ok=ok)
+    if not ok:
+        raise AssertionError("dist_collective_timing failed its checks")
+
+    sm = [r[1] for r in res]
+    lead_s, fol_s = sm[0], sm[1]
+    add(lead_s["launches"])
+    add(fol_s["launches"])
+    dispatches = len(TIMING_ARMS) * (1 + TIMING_ROUNDS)
+    want_s = _full({"K1 fwd": 2 * MESH_T * dispatches})
+    exact = (lead_s["launches"] == want_s and fol_s["launches"] == want_s) or not counted
+    full_rows = {r["site"]: r for r in lead_s["rows"]["full"]}
+    samp_rows = lead_s["rows"]["sampled"]
+    n_samples = (1 + TIMING_ROUNDS) // TIMING_INTERVAL
+    both_ranks = full_rows.get("quorum_valid_psum", {}).get("calls") == 2 * (1 + TIMING_ROUNDS)
+    want_ops = {"off": {"dispatch": 1 + TIMING_ROUNDS, "stop": 1},
+                "sampled": {"dispatch": 1 + TIMING_ROUNDS, "sample": n_samples, "stop": 1},
+                "full": {"dispatch": 1 + TIMING_ROUNDS, "drain": 1, "stop": 1}}
+    ok = (exact and all(lead_s["bitwise"].values()) and lead_s["finite"]
+          and set(lead_s["iters"].values()) == {MESH_T} and both_ranks
+          and not fol_s["errors"] and fol_s["ops"] == want_ops
+          and lead_s["rows"]["off"] == []
+          and sum(r["site"] == "comm_time_model" for r in samp_rows) == n_samples)
+    emit("serve_mesh_timing", nvidia_smi=smi, backend="gloo", bucket=MESH_BUCKET, iters=MESH_T,
+         rounds=TIMING_ROUNDS, sampled_interval=TIMING_INTERVAL,
+         dispatch_p50_ms={arm: statistics.median(v) for arm, v in lead_s["ms"].items()},
+         dispatch_ms=lead_s["ms"], answers_bitwise_off=lead_s["bitwise"],
+         full_records=list(full_rows.values()), sampled_records=samp_rows,
+         full_calls_count_both_ranks=both_ranks, follower_ops=fol_s["ops"],
+         follower_errors=fol_s["errors"], launches=[lead_s["launches"], fol_s["launches"]],
+         want_per_rank=want_s, exact_launches=exact, ok=ok)
+    if not ok:
+        raise AssertionError("serve_mesh_timing failed its checks")
+
+    # -- train_cli_trace: the CLI in process, a step window, then the whole run --------
+    def run_cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        _sync(dev)
+        _dist_counts(reset=True)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train_cli.main(argv)
+        _sync(dev)
+        return rc, err.getvalue(), _dist_counts()
+
+    def trace_names(path):
+        with open(path) as fh:
+            return {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+
+    reads = []
+    memory_record = trainer_mod.memory_record
+
+    def read_and_compare(model_live_bytes=None, device=None):
+        rec = memory_record(model_live_bytes, device)
+        reads.append((rec.get("hbm_bytes_in_use"),
+                      torch.cuda.memory_allocated(device) if counted else None))
+        return rec
+
+    t0 = time.perf_counter()
+    cli_steps = 4
+    with tempfile.TemporaryDirectory(prefix="glom_trace_") as tmp:
+        base = ["--preset", cli_preset, "--batch-size", "8", "--steps", str(cli_steps),
+                "--log-every", "1", "--device", str(dev)]
+        runs = {}
+        trainer_mod.memory_record = read_and_compare
+        try:
+            for name, extra in (("trace_steps", ["--trace-steps", "2:3", "--trace-dir",
+                                                 os.path.join(tmp, "window")]),
+                                ("profile_dir", ["--profile-dir", os.path.join(tmp, "run")])):
+                metrics = os.path.join(tmp, f"{name}.jsonl")
+                rc, err, launches = run_cli(base + extra + ["--metrics-file", metrics])
+                add(launches)
+                with open(metrics) as fh:
+                    recs = [json.loads(ln) for ln in fh]
+                trace_dir = os.path.join(tmp, "window" if name == "trace_steps" else "run")
+                files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+                names = trace_names(os.path.join(trace_dir, files[0])) if len(files) == 1 else set()
+                steps = [r for r in recs if r.get("kind") == "train_step"]
+                runs[name] = dict(
+                    rc=rc, trace_files=len(files),
+                    trace_bytes=os.path.getsize(os.path.join(trace_dir, files[0]))
+                    if files else 0,
+                    kernels_named={kn: any(kn in n for n in names) for kn in TRACE_KERNELS},
+                    step_markers=sorted(n for n in names if n.startswith("step#")),
+                    notes=[(r["note"], r.get("first_step"), r.get("last_step"),
+                            r.get("steps_captured")) for r in recs if r.get("kind") == "note"],
+                    hbm_on_every_record=all(any(kk.startswith("hbm_") for kk in r)
+                                            for r in steps) and bool(steps),
+                    records=len(steps), launches=launches,
+                    exact_launches=launches == times(want_loop, cli_steps) or not counted,
+                    step_p50_ms=steps[-1].get("step_time_p50_ms") if steps else None,
+                    stderr_tail=None if rc == 0 else err[-2000:])
+        finally:
+            trainer_mod.memory_record = memory_record
+    w_run, p_run = runs["trace_steps"], runs["profile_dir"]
+    hbm_equal = all(a == b for a, b in reads) and bool(reads)
+    ok = (w_run["rc"] == 0 and p_run["rc"] == 0
+          and w_run["notes"] == [("xla-trace-start", 2, None, None),
+                                 ("xla-trace-stop", None, 3, 2)]
+          and p_run["notes"] == [] and w_run["trace_files"] == 1 and p_run["trace_files"] == 1
+          and w_run["step_markers"] == ["step#2", "step#3"]
+          and ((w_run["hbm_on_every_record"] and p_run["hbm_on_every_record"]) or not counted)
+          and w_run["exact_launches"] and p_run["exact_launches"]
+          and (all(w_run["kernels_named"].values()) and all(p_run["kernels_named"].values())
+               or not counted)
+          and (hbm_equal or not counted))
+    emit("train_cli_trace", nvidia_smi=smi, preset=cli_preset, batch=8,
+         steps=cli_steps, runs=runs, hbm_reads=reads,
+         hbm_equals_memory_allocated=hbm_equal, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("train_cli_trace failed its checks")
+
+    # -- watchdog: the CLI's heartbeat, then an injected fault through the retry -------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="glom_watchdog_") as tmp:
+        metrics = os.path.join(tmp, "wd.jsonl")
+        rc, err, launches = run_cli(["--preset", cli_preset, "--batch-size", "8",
+                                     "--steps", str(WATCHDOG_STEPS), "--log-every", "20",
+                                     "--device", str(dev), "--watchdog-interval", "1",
+                                     "--metrics-file", metrics])
+        add(launches)
+        with open(metrics) as fh:
+            recs = [json.loads(ln) for ln in fh]
+    events = [(r.get("prev_state"), r.get("backend_state"), r.get("backend_devices"))
+              for r in recs if r.get("kind") == "watchdog"]
+    up_at = next((i for i, r in enumerate(recs) if r.get("kind") == "watchdog"), None)
+    after = [r["backend_state"] for r in recs[up_at or 0:]
+             if r.get("kind") == "train_step"] if up_at is not None else []
+    cli_ok = (rc == 0 and events[:1] == [("unknown", "up", torch.cuda.device_count()
+                                          if counted else 1)]
+              and len(events) == 1 and bool(after) and set(after) == {"up"}
+              and wd_mod.get_global_watchdog() is None
+              and (launches == times(want_loop, WATCHDOG_STEPS) or not counted))
+    # The state machine under a fault that makes the probe read no device
+    # (an in-process count: the CLI run above exercised the subprocess
+    # probe), and a dispatch through the engine's RetryPolicy while down.
+    w = Records()
+    n_dev = torch.cuda.device_count() if counted else 1
+    wd = wd_mod.BackendWatchdog(interval_s=1.0, writer=w, flap_threshold=10,
+                                probe=lambda timeout: n_dev)
+    states = [wd.probe_once()]
+    attempts = []
+
+    def failing(ctx):
+        attempts.append(ctx["attempt"])
+        raise InjectedFault("an injected transient dispatch failure")
+
+    eng = InferenceEngine(cfg, ServeConfig(buckets=(1,), max_batch=1, dispatch_retries=2,
+                                           retry_backoff_ms=0.0), device=dev, fault_hook=failing)
+    one = torch.zeros((1, cfg.channels, cfg.image_size, cfg.image_size))
+    tried = {}
+    wd_mod.set_global_watchdog(wd)
+    try:
+        for state in ("up", "down"):
+            if state == "down":
+                wd.set_probe_fault(lambda n: None)
+                states.append(wd.probe_once())
+            attempts.clear()
+            try:
+                eng.infer(one)
+                tried[state] = ("served", list(attempts))
+            except InjectedFault:
+                tried[state] = ("raised", list(attempts))
+        wd.set_probe_fault(None)
+        states.append(wd.probe_once())
+    finally:
+        wd_mod.set_global_watchdog(None)
+    retry_rec = eng.retry.record()
+    del eng
+    timeline = [(e["prev_state"], e["backend_state"]) for e in wd.timeline()]
+    ok = (cli_ok and states == ["up", "down", "up"]
+          and timeline == [("unknown", "up"), ("up", "down"), ("down", "up")]
+          and tried["up"] == ("raised", [1, 2, 3]) and tried["down"] == ("raised", [1])
+          and retry_rec["n_fast_failed"] == 1 and retry_rec["n_gave_up"] == 1)
+    emit("watchdog", nvidia_smi=smi, cli_rc=rc, cli_steps=WATCHDOG_STEPS, cli_events=events,
+         cli_records_after_up=len(after), cli_states_after_up=sorted(set(after)),
+         cli_launches=launches, states=states, timeline=timeline,
+         attempts_up=tried["up"][1], attempts_down=tried["down"][1], retry=retry_rec,
+         seconds=time.perf_counter() - t0, ok=ok,
+         stderr_tail=None if rc == 0 else err[-2000:])
+    if not ok:
+        raise AssertionError("watchdog failed its checks")
+    return dist_kernel_launches(total)
 
 
 def emit(phase: str, **kw) -> None:
@@ -5368,6 +5892,12 @@ def main() -> int:
     for key, v in pool_launches.items():
         mesh_launches[key] += v
 
+    # -- telemetry's measuring half: per-level agreement, collective timing on ranks
+    # and mesh engines, profiler captures, the memory probe, the watchdog --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    telemetry_launches = telemetry_phases(cfg, dev, smi)
+
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
                                                  "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
@@ -5467,6 +5997,10 @@ def main() -> int:
         # ... and in sharded inference (every rank's forwards and engines in
         # mesh_forward, serve_mesh and serve_mesh_pool).
         kd["mesh_launches"] = mesh_launches[kd["name"]]
+        # ... and under telemetry (train_telemetry_full, every rank's
+        # dist_collective_timing and serve_mesh_timing runs, train_cli_trace
+        # and the watchdog's CLI run).
+        kd["telemetry_launches"] = telemetry_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,7 +20,11 @@ for the same seed. Only rank 0 writes metrics. Where glom_tpu degrades
 loudly, the port does too, at the same point and with the resolved value
 stamped: `zero_stage >= 1` on a model-sharded mesh runs stage 0, the
 quantized reduce without ZeRO runs exact, telemetry "full" runs
-"scalars", and `effective_sp_strategy` falls back to the ring.
+"scalars", collective timing "full" runs "sampled" (and any timing mode
+runs "off" without the ZeRO step's sites), and `effective_sp_strategy`
+falls back to the ring. With timing on, every rank samples the ZeRO
+step's sites at each `collective_timing_interval`-th logging boundary
+(telemetry/comm_time.py); the writer rank writes the records.
 """
 
 from __future__ import annotations
@@ -58,9 +62,12 @@ from glom_tpu_torch.parallel.sharding import (
 from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.telemetry import diagnostics as diag
+from glom_tpu_torch.telemetry.comm_time import CollectiveTimeSampler, collective_time_records
+from glom_tpu_torch.tracing.memory import memory_record, model_live_bytes_total
 from glom_tpu_torch.train.objectives import init_denoise
 from glom_tpu_torch.train.trainer import (
     TrainState,
+    backend_fields,
     default_optimizer,
     fit_loop,
     pinned_grad_accum,
@@ -283,7 +290,6 @@ class DistributedTrainer:
             )
             self.telemetry_level = "scalars"
             tcfg = dataclasses.replace(tcfg, telemetry_level="scalars")
-        self.collective_timing = tele_counters.resolve_collective_timing(tcfg.collective_timing)
         self.tcfg = tcfg
 
         self.grad_accum = accum
@@ -313,6 +319,26 @@ class DistributedTrainer:
                 stacklevel=2,
             )
             self.quantized_reduce = False
+
+        # Per-collective wall time, resolved once and stamped (glom_tpu's
+        # gate): only the ZeRO step (zero_stage >= 1) has registered sites;
+        # "full" degrades to "sampled" with glom_tpu's warning, and anywhere
+        # else the mode resolves to "off" with its warning.
+        self._timing_sites_reachable = self.zero_stage >= 1
+        if self._timing_sites_reachable:
+            self.collective_timing = tele_counters.resolve_collective_timing(
+                tcfg.collective_timing, supports_full=False, path="the manual trainer")
+        else:
+            tele_counters.resolve_collective_timing(tcfg.collective_timing)  # validate
+            if tcfg.collective_timing != "off":
+                warnings.warn(
+                    "collective_timing has no registered sites on this route (GSPMD, or "
+                    "manual zero_stage 0) — resolving 'off'; the stamped mode is the "
+                    "resolved one",
+                    stacklevel=2,
+                )
+            self.collective_timing = "off"
+        self.collective_sampler = None
 
         # Every rank builds the same global parameters from the seed and
         # keeps its tensor-parallel shard.
@@ -361,10 +387,13 @@ class DistributedTrainer:
         # The measured collective counters: the ZeRO step's named sites
         # counted over its first real step (collective shapes do not change
         # between steps) and stamped from then on, with the drift against
-        # the model. glom_tpu counts one abstract trace of the step, under
+        # the model; with timing on, that count's site registry builds the
+        # sampler. glom_tpu counts one abstract trace of the step, under
         # the same gate.
+        counting = self.telemetry_level != "off" or self.collective_timing != "off"
         self._counters = (tele_counters.CollectiveCounters()
-                          if self.telemetry_level != "off" and self.zero_stage >= 1 else None)
+                          if counting and self._timing_sites_reachable else None)
+        self._model_live_bytes = model_live_bytes_total(self._static_record)
 
     # -- the static record -----------------------------------------------------
 
@@ -414,6 +443,10 @@ class DistributedTrainer:
                 self._static_record.update(tele_counters.comm_drift(measured,
                                                                     self._static_record))
                 self._counters = None
+                if self.collective_timing != "off":
+                    self.collective_sampler = CollectiveTimeSampler(
+                        self.axes, counting.sites,
+                        interval=self.tcfg.collective_timing_interval, device=self.device)
             else:
                 self.state, metrics = fn(self.state, img, self.generator)
         finally:
@@ -426,7 +459,7 @@ class DistributedTrainer:
         metrics["vjp_path"] = self.vjp_path
         metrics["grad_accum"] = self.grad_accum
         metrics.update(self._static_record)
-        metrics["backend_state"] = "up"
+        metrics.update(backend_fields())
         return metrics
 
     def step(self, batch) -> dict:
@@ -440,19 +473,22 @@ class DistributedTrainer:
 
     def _memory_record(self) -> dict:
         """The card's allocator watermarks beside the live-bytes model's
-        per-replica total (glom_tpu's memory_record); {} off the card."""
-        if self.device.type != "cuda":
-            return {}
-        model = sum(self._static_record[k] for k in (
-            "params_bytes_per_replica", "grads_bytes_per_replica", "opt_bytes_per_replica"))
-        in_use = torch.cuda.memory_allocated(self.device)
-        return {
-            "hbm_bytes_in_use": in_use,
-            "hbm_peak_bytes": torch.cuda.max_memory_allocated(self.device),
-            "hbm_bytes_limit": torch.cuda.get_device_properties(self.device).total_memory,
-            "hbm_model_live_bytes": model,
-            "hbm_model_drift": round((in_use - model) / model, 6),
-        }
+        per-replica total (tracing/memory.py); {} off the card."""
+        return memory_record(self._model_live_bytes, self.device)
+
+    def collective_time_records(self, *, force: bool = False) -> list:
+        """Stamped "collective_time" rows from the sampled harness: empty
+        with timing off, before the first step has registered the sites, and
+        between sampling intervals unless `force`. A sample is a collective:
+        every rank calls this at the same boundary (fit() does, at each
+        logging step); only the writer rank writes what it returns."""
+        if self.collective_sampler is None:
+            return []
+        path = f"train-zero{self.zero_stage}"
+        if force:
+            return collective_time_records(self.collective_sampler.sample(), path=path,
+                                           mode="sampled")
+        return self.collective_sampler.maybe_sample(path=path)
 
     def fit(self, data: Iterator, num_steps: int, *, log_every: int = 10,
             prefetch: int = 0, trace_capture=None) -> list:
@@ -465,6 +501,9 @@ class DistributedTrainer:
             self.step, iter(data), num_steps, log_every=log_every,
             metrics_writer=self.metrics_writer, step_fast=self.step_fast,
             compile_tracker=self._compile_tracker, trace_capture=trace_capture,
+            memory_probe=self._memory_record,
+            aux_records_probe=(self.collective_time_records
+                               if self.collective_timing != "off" else None),
         )
 
     # -- the global state: checkpoints ---------------------------------------------

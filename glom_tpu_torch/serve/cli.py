@@ -825,6 +825,10 @@ def _serve_engines(args, cfg, scfg, device, writer, ramp_phases, replay_records,
     for engine in batcher.engines:
         for rec in engine.stats_records():
             writer.write(serve_rec(rec))
+        # Stamped "collective_time" records (a mesh engine with timing on;
+        # empty otherwise).
+        for rec in engine.collective_time_records():
+            writer.write(rec)
     return 0 if failed == 0 and served > 0 else 1
 
 

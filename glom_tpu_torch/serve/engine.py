@@ -52,12 +52,25 @@ defrag and read-back, each an op of the group). A signature's first
 dispatch counts its collective wire bytes (glom_tpu's sites and formulas)
 onto the signature's stats record. glom_tpu's errors for what the mesh
 refuses are kept (ragged admission, the incremental route, a bucket
-`mesh_data` does not divide); the timed collective modes raise
-NotImplementedError naming their ROADMAP item (A9a).
+`mesh_data` does not divide).
+
+Per-collective wall time (`ServeConfig.collective_timing`), on a mesh
+only: a single-device engine has no collective and resolves any mode to
+"off", with glom_tpu's warning. Each signature's first dispatch registers
+its collective sites on every rank of the group (glom_tpu's AOT lower
+does). "sampled": every `collective_timing_interval`-th dispatch, after
+its result has resolved, the engine runs the follower op `sample`: every
+rank re-dispatches each site alone (telemetry/comm_time.py) and the records
+buffer here. "full": every execution of every site on every rank is
+bracketed into that rank's log; `collective_time_records()` runs the
+follower op `drain`, which gathers every rank's executions to the leader,
+so `calls` counts them all. Both ops run under the engine's op lock with
+the status all-reduces around their bodies, like the dispatches.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -76,7 +89,8 @@ from glom_tpu_torch.serve.paged_columns import (
     resolve_page_pool,
     resolve_page_tokens,
 )
-from glom_tpu_torch.telemetry import schema
+from glom_tpu_torch.telemetry import comm_time, schema
+from glom_tpu_torch.telemetry.counters import aggregate_events, resolve_collective_timing
 from glom_tpu_torch.telemetry.sinks import StepTimeStats
 from glom_tpu_torch.utils.config import GlomConfig, ServeConfig
 from glom_tpu_torch.utils.helpers import resolve_device, resolve_dtype
@@ -174,19 +188,22 @@ class InferenceEngine:
                 "resolving to False", stacklevel=2,
             )
         # A single-device engine has no collectives to time: any mode
-        # resolves to "off", with glom_tpu's warning. On a mesh the timed
-        # modes are ROADMAP queue A item 9a.
+        # resolves to "off", with glom_tpu's warning. On a mesh every mode
+        # runs ("full" included).
         if mesh is not None:
-            from glom_tpu_torch.telemetry.counters import resolve_collective_timing
-
-            self.collective_timing = resolve_collective_timing(scfg.collective_timing)
+            self.collective_timing = resolve_collective_timing(
+                scfg.collective_timing, supports_full=True)
         else:
+            resolve_collective_timing(scfg.collective_timing)  # validate
             if scfg.collective_timing != "off":
                 warnings.warn(
                     "collective_timing has no sites on a single-device engine "
                     "(no collectives): resolving 'off'", stacklevel=2,
                 )
             self.collective_timing = "off"
+        self._coll_samples: list = []  # sampled mode's stamped records
+        self._coll_dispatches = 0
+        self._coll_lock = threading.Lock()
         self.name = name
         self.writer = writer
         device = resolve_device(device)
@@ -663,6 +680,7 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self._observe(sig, dt, first, iters_override)
         self.levels0_h2d_bytes_total += levels0_bytes
+        self._tick_collective_timing()
         return ServeResult(
             levels=levels,
             iters_run=iters_run,
@@ -845,6 +863,46 @@ class InferenceEngine:
             phases=({"h2d_ms": 1e3 * ph["h2d_s"], "resolve_ms": 1e3 * ph["resolve_s"]}
                     if split else None),
         )
+
+    # -- collective timing (a mesh engine) ----------------------------------
+
+    def _tick_collective_timing(self) -> None:
+        """Sampled mode's cadence: every collective_timing_interval-th
+        dispatch (once a signature has registered sites), after its result
+        has resolved, the ranks sample each site (the follower op
+        `sample`) and the stamped records buffer for
+        collective_time_records(). The cost lands on one dispatch in N."""
+        if self.collective_timing != "sampled":
+            return
+        with self._coll_lock:
+            if not any(c.get("comm_measured_collective_count") for c in self._comm.values()):
+                return
+            self._coll_dispatches += 1
+            if self._coll_dispatches % self.scfg.collective_timing_interval:
+                return
+        samples = self._mesh.timing_op("sample")
+        recs = comm_time.collective_time_records(samples, path=self.name, mode="sampled")
+        with self._coll_lock:
+            self._coll_samples.extend(dict(r, engine=self.name) for r in recs)
+
+    def collective_time_records(self) -> list:
+        """Drain the per-collective wall-time records: under "full" every
+        rank's bracketed executions since the last drain (the follower op
+        `drain`), aggregated per (site, axis, bytes); under "sampled" the
+        buffered samples. Stamped "collective_time" records with the
+        alpha-beta model's fit and drift; empty with timing off, and the
+        full log is not drained once the group stopped or broke."""
+        out: list = []
+        mesh = self._mesh
+        if (self.collective_timing == "full" and mesh is not None and not mesh.stopped
+                and mesh.broken is None):
+            samples = aggregate_events(mesh.timing_op("drain"))
+            out.extend(dict(r, engine=self.name) for r in comm_time.collective_time_records(
+                samples, path=self.name, mode="full"))
+        with self._coll_lock:
+            buffered, self._coll_samples = self._coll_samples, []
+        out.extend(buffered)
+        return out
 
     # -- lifecycle and telemetry -------------------------------------------
 

@@ -8,7 +8,8 @@ glom_tpu serves a mesh from one controller: its engine's forward is one
 engine's own process group (leader and ranks), in this order:
 
   1. a fixed int64[HEADER_LEN] header, broadcast by the leader: the op
-     (`warmup`, `dispatch`, the pool ops, `release`, `stop`), the bucket,
+     (`warmup`, `dispatch`, the pool ops, the timing ops, `release`,
+     `stop`), the bucket,
      the route (auto or fixed, and the budget), the warm kind (cold, host
      `levels0`, paged), pages per row, n_valid (the mask is `arange(b) <
      n_valid`), a pool op's page count and a write's in-place flag, and
@@ -42,6 +43,20 @@ decides everything the single-device pool decides):
     exact, where a float sum would turn -0.0 into 0.0); `copy` then
     writes each destination page on its owner, copy-on-write, from the
     buffers before the move.
+
+The timing ops carry the engine's collective timing
+(`ServeConfig.collective_timing`; every rank's MeshWorker resolves the
+same mode from the config the leader sent, registers a signature's sites
+on its counted first dispatch, and under "full" brackets every site's
+execution into its own log):
+
+  * `sample`: every compute rank re-dispatches each registered site alone
+    (telemetry/comm_time.CollectiveTimeSampler, the sites in one sorted
+    order, each site's minimum MAX-reduced over 'data' and 'seq'), then
+    the group's first rank broadcasts the samples to the group (a leader
+    outside the group included);
+  * `drain`: every rank hands over its logged executions, and one object
+    all-gather over the group gives the leader every rank's.
 
 After any status with a flag set, every rank skips the rest of the op, and
 the leader raises: `KernelError` for a kernel fault on any rank
@@ -98,10 +113,13 @@ from glom_tpu_torch.parallel.serve_mesh import ExitReads, make_serve_forward
 from glom_tpu_torch.resilience.retry import CollectiveError
 from glom_tpu_torch.serve.paged_columns import resolve_page_tokens
 from glom_tpu_torch.telemetry import counters as tele_counters
+from glom_tpu_torch.telemetry.comm_time import CollectiveTimeSampler
 from glom_tpu_torch.utils.helpers import resolve_dtype
 
-OPS = ("stop", "warmup", "dispatch", "write_back", "release", "residual", "read", "copy")
+OPS = ("stop", "warmup", "dispatch", "write_back", "release", "residual", "read", "copy",
+       "sample", "drain")
 POOL_OPS = ("write_back", "residual", "read", "copy")
+TIMING_OPS = ("sample", "drain")
 OP = {name: i for i, name in enumerate(OPS)}
 WARM_KINDS = (False, True, "paged")
 HEADER_LEN = 10
@@ -321,6 +339,12 @@ class MeshWorker:
         self.wire = wire if wire is not None else {"gather": 0}
         self._fns = {}
         self.exit_reads = ExitReads()
+        # Collective timing: the mode, the sites the counted dispatches
+        # registered ((site, shape) -> site), the sampler, the full log.
+        self.timing = scfg.collective_timing
+        self.time_log = tele_counters.CollectiveTimeLog() if self.timing == "full" else None
+        self.sites: Dict[tuple, dict] = {}
+        self.sampler: Optional[CollectiveTimeSampler] = None
 
     def _fn(self, auto: bool, budget: int, warm):
         key = (auto, budget, warm)
@@ -340,8 +364,33 @@ class MeshWorker:
         """One bucket dispatch from the GLOBAL inputs as the op's two body
         steps: `compute` (this rank's band) and `gather` (the outputs
         gathered: levels [b, n, L, d], iters_run, row_converged [b],
-        row_iters [b])."""
-        return [lambda _: self.compute(h, img, levels0, page_idx), self.gather]
+        row_iters [b]), each under the engine's timing mode."""
+        return [lambda _: self._timed(self.compute, h, img, levels0, page_idx),
+                lambda local: self._timed(self.gather, local)]
+
+    def _timed(self, fn, *args):
+        with tele_counters.timing(self.timing, self.time_log):
+            return fn(*args)
+
+    def register_sites(self, sites: list) -> None:
+        """The sites a counted dispatch recorded (glom_tpu's registry)."""
+        for site in sites:
+            self.sites.setdefault((site["site"], site["shape"]), site)
+
+    def sample_sites(self) -> list:
+        """One sampled pass over the registered sites on this rank's groups
+        (every compute rank runs it in the `sample` op)."""
+        sites = list(self.sites.values())
+        if self.sampler is None:
+            self.sampler = CollectiveTimeSampler(self.axes, sites, interval=1,
+                                                 device=self.device)
+        else:
+            self.sampler.update_sites(sites)
+        return self.sampler.sample()
+
+    def take_events(self) -> list:
+        """This rank's logged executions since the last drain."""
+        return self.time_log.take() if self.time_log is not None else []
 
     def compute(self, h: list, img: torch.Tensor, levels0=None, page_idx=None):
         """The per-rank forward on this rank's band, synchronized (so a
@@ -386,6 +435,31 @@ class MeshWorker:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def timing_steps(channel: MeshChannel, worker: Optional[MeshWorker], op: str) -> list:
+    """The body steps of a timing op, the same on every rank of the group
+    (`worker` None: a leader outside the group). `sample`: the compute
+    ranks sample, then the group's first rank broadcasts the samples.
+    `drain`: each rank's logged executions, all-gathered over the group.
+    The last step returns the op's answer on every rank."""
+    mesh = channel.mesh
+
+    def share(samples):
+        obj = [samples]
+        transport("timing broadcast", "engine", lambda: dist.broadcast_object_list(
+            obj, src=mesh.ranks[0], group=mesh.group))
+        return obj[0]
+
+    def gather(events):
+        out = [None] * dist.get_world_size(mesh.group)
+        transport("timing all_gather", "engine",
+                  lambda: dist.all_gather_object(out, events, group=mesh.group))
+        return [e for rank_events in out for e in rank_events]
+
+    if op == "sample":
+        return [(lambda _: worker.sample_sites()) if worker is not None else _idle, share]
+    return [(lambda _: worker.take_events()) if worker is not None else (lambda _: []), gather]
 
 
 def send_params(channel: MeshChannel, cfg, scfg, params: GlomParams) -> None:
@@ -506,9 +580,19 @@ class MeshLeader:
                          for step in self.worker.steps(h, img, levels0, page_idx)]
             out = self._run(f"{op} of bucket {bucket}", steps)
             comm = counters.totals() if counters is not None else None
+            if counters is not None and self.worker is not None:
+                self.worker.register_sites(counters.sites)
             if self.worker is None:
                 out, comm = recv_outputs(ch, bucket, cfg, dtype, count)
             return (*out, comm)
+
+    def timing_op(self, op: str):
+        """One timing op across the group (`sample` or `drain`, see the
+        module docstring): the samples, or every rank's logged executions."""
+        with self._op() as ch:
+            ch.header([OP[op]] + [0] * (HEADER_LEN - 1))
+            return self._run(f"a {op} of the collective timing",
+                             timing_steps(ch, self.worker, op))
 
     def worker_dtype(self):
         return resolve_dtype(self.scfg.compute_dtype) or torch.float32
@@ -645,6 +729,8 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
             if op in ("write_back", "residual"):
                 pages = channel.bcast(torch.empty((k, *pool.buffer.shape[1:]), dtype=dtype,
                                                   device=device))
+        elif op in TIMING_OPS:
+            pass  # no payload
         else:
             b = h[H_BUCKET]
             warm = WARM_KINDS[h[H_WARM]]
@@ -673,6 +759,8 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
         counters = tele_counters.CollectiveCounters() if h[H_COUNT] else None
         if op in POOL_OPS:
             steps = pool_steps(channel, pool, op, ids, pages, bool(h[H_INPLACE]))
+        elif op in TIMING_OPS:
+            steps = timing_steps(channel, worker, op)
         else:
             steps = [_counted_step(step, counters)
                      for step in worker.steps(h, img, levels0, page_idx)]
@@ -693,7 +781,9 @@ def run_follower(mesh, device, *, fault_hook=None) -> dict:
                 raise CollectiveError(f"the engine's mesh {list(mesh.ranks)} broke in a "
                                       f"{op}: rank {dist.get_rank()} follows no more") from err
             continue
-        if op not in POOL_OPS and first and not mesh.leader_in_group:
+        if counters is not None:
+            worker.register_sites(counters.sites)
+        if op not in POOL_OPS + TIMING_OPS and first and not mesh.leader_in_group:
             send_outputs(channel, out, counters.totals() if counters is not None else None)
 
 

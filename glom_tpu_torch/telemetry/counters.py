@@ -28,16 +28,29 @@ Wire formulas (ring algorithms, matching comm_volume_model's pricing):
 Quantized-reduce arms price the reduce payload at the int8 + scales wire
 size (`quantized_wire_bytes`); the gather stays f32.
 
-Not ported (ROADMAP queue A item 9): the per-collective wall-time half
-(`resolve_collective_timing` modes other than "off", `comm_time.py`'s
-sampler and the full-mode brackets). `timed_collective` here only counts.
+The per-collective wall-time half: `resolve_collective_timing` resolves
+the mode once per path ("off", "sampled", "full"); "sampled" runs
+`telemetry/comm_time.CollectiveTimeSampler` outside the step; under
+`timing("full", log)` every execution of a registered site is bracketed
+and lands in a `CollectiveTimeLog`. glom_tpu brackets with io_callbacks
+inside its traced program; the port brackets the eager call itself. On a
+CUDA tensor the bracket is a pair of CUDA events on the current stream,
+resolved when the log is drained: a host clock around an NCCL call would
+measure only its enqueue, and gloo's CUDA path returns before its copy
+back lands (the current stream waits for it). On a CPU tensor a gloo
+call is synchronous and the bracket is a host clock. Neither touches a
+byte of the collective's output.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+import warnings
 from contextlib import contextmanager
-from typing import List
+from typing import List, Optional
+
+import torch
 
 TIMING_MODES = ("off", "sampled", "full")
 
@@ -164,28 +177,140 @@ def record_collective(kind: str, wire_bytes: int) -> None:
         c.record(kind, wire_bytes * scale)
 
 
-def resolve_collective_timing(mode: str, **_) -> str:
-    """Validate the collective-timing mode: only "off" runs here."""
+def resolve_collective_timing(mode: str, *, supports_full: bool = True, path: str = "") -> str:
+    """The single resolution source for the collective-timing mode:
+    validates it and degrades "full" to "sampled", with glom_tpu's
+    warning, where the path does not bracket each execution (the trainers:
+    the stamped mode is always the resolved one)."""
     if mode not in TIMING_MODES:
         raise ValueError(f"collective_timing={mode!r}: one of {TIMING_MODES}")
-    if mode != "off":
-        raise NotImplementedError(
-            f"collective_timing={mode!r} is not ported yet: ROADMAP queue A item 9"
+    if mode == "full" and not supports_full:
+        warnings.warn(
+            f"collective_timing='full' is unavailable on {path or 'this'} "
+            "path (no AOT trace seam to insert the io_callback brackets); "
+            "running 'sampled' — the stamped mode is the resolved one",
+            stacklevel=3,
         )
+        return "sampled"
     return mode
+
+
+def _elapsed_s(dt) -> float:
+    """A logged duration in seconds: a float, or a (start, end) pair of
+    CUDA events (synchronized on the end)."""
+    if isinstance(dt, tuple):
+        start, end = dt
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    return float(dt)
+
+
+def aggregate_events(events: List[tuple]) -> List[dict]:
+    """One dict per (site, axis, wire bytes) with the mean / max wall_ms
+    over the executions of `events` ((site, axis, collective, bytes,
+    seconds) tuples): glom_tpu's CollectiveTimeLog.drain."""
+    agg: dict = {}
+    for site, axis, collective, nbytes, dt in events:
+        slot = agg.setdefault(
+            (site, axis, nbytes),
+            {"site": site, "axis": axis, "collective": collective,
+             "wire_bytes": nbytes, "calls": 0, "_sum": 0.0, "_max": 0.0},
+        )
+        slot["calls"] += 1
+        slot["_sum"] += dt
+        slot["_max"] = max(slot["_max"], dt)
+    out = []
+    for slot in agg.values():
+        calls = slot.pop("calls")
+        total = slot.pop("_sum")
+        mx = slot.pop("_max")
+        out.append(dict(slot, calls=calls,
+                        wall_ms=round(1e3 * total / calls, 6) if calls else 0.0,
+                        wall_ms_max=round(1e3 * mx, 6), mode="full"))
+    return sorted(out, key=lambda r: r["site"])
+
+
+class CollectiveTimeLog:
+    """The sink of the full-mode brackets: thread-safe (engine threads
+    dispatch concurrently) and bounded (a long-running server must not grow
+    one entry per collective execution forever: drain() aggregates and
+    resets)."""
+
+    def __init__(self, max_events: int = 100_000):
+        self._events: List[tuple] = []
+        self._lock = threading.Lock()
+        self._max = max_events
+        self.base = time.perf_counter()
+
+    def add(self, site: str, axis: str, collective: str, wire_bytes: int, dt_s) -> None:
+        """One execution: `dt_s` in seconds, or a (start, end) pair of CUDA
+        events that `take` resolves."""
+        with self._lock:
+            if len(self._events) < self._max:
+                self._events.append((site, axis, collective, int(wire_bytes),
+                                     dt_s if isinstance(dt_s, tuple) else float(dt_s)))
+
+    def take(self) -> List[tuple]:
+        """The executions logged so far, each duration in seconds, and
+        reset (the raw events a sharded engine gathers from its ranks)."""
+        with self._lock:
+            events, self._events = self._events, []
+        return [(s, a, c, b, _elapsed_s(dt)) for s, a, c, b, dt in events]
+
+    def drain(self) -> List[dict]:
+        """Aggregate and reset: one dict per (site, axis) with the mean /
+        max wall_ms over the drained executions."""
+        return aggregate_events(self.take())
+
+
+def _timing_state():
+    return getattr(_local, "timing", None)
+
+
+@contextmanager
+def timing(mode: str, log: Optional[CollectiveTimeLog]):
+    """Activate a collective-timing mode for collectives called on this
+    thread: under "full" every timed_collective brackets its call into
+    `log`; "sampled" and "off" bracket nothing (the sampler runs outside
+    the step)."""
+    prev = _timing_state()
+    _local.timing = (mode, log)
+    try:
+        yield
+    finally:
+        _local.timing = prev
 
 
 def timed_collective(site: str, axis_name: str, kind: str, wire_bytes: int, fn, x, *,
                      collective: str, dim: int = 0):
-    """Run `fn(x)` and record its wire bytes and the site under the active
-    recording (glom_tpu's wrapper, without its timing modes)."""
+    """Run `fn(x)`, recording its wire bytes and the site under the active
+    recording (glom_tpu's wrapper). Under timing("full", log) the call is
+    bracketed: CUDA events on the current stream for a CUDA tensor, a host
+    clock for a CPU one. A priced site (a meta tensor: nothing moves) is
+    not bracketed."""
     record_collective(kind, wire_bytes)
     scale = _scale()
     for c in _stack():
         c.record_site(site=site, axis=axis_name, collective=collective,
                       wire_bytes=wire_bytes, calls=scale, shape=tuple(x.shape),
                       dtype=x.dtype, dim=dim)
-    return fn(x)
+    state = _timing_state()
+    if not state or state[0] != "full" or state[1] is None or x.device.type == "meta":
+        return fn(x)
+    log = state[1]
+    if x.is_cuda:
+        stream = torch.cuda.current_stream(x.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out = fn(x)
+        end.record(stream)
+        log.add(site, axis_name, collective, wire_bytes, (start, end))
+        return out
+    t0 = time.perf_counter()
+    out = fn(x)
+    log.add(site, axis_name, collective, wire_bytes, time.perf_counter() - t0)
+    return out
 
 
 def _nbytes(x) -> int:

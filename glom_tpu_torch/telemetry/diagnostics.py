@@ -1,8 +1,12 @@
 """Training diagnostics computed on the device, beside the step.
 
-Counterpart of the part of `glom_tpu/telemetry/diagnostics.py` that the
-train steps call: the telemetry-level resolution, the grad/update/param
-norms, the NaN/Inf guard and the quantized reduce's error probe. The guard is one scalar: a
+Counterpart of `glom_tpu/telemetry/diagnostics.py`: the telemetry-level
+resolution, the "scalars" bundle (`scalar_taps`: grad/update/param norms
+and the NaN/Inf flag, which the trainers' update computes through), the
+NaN/Inf guard, the quantized reduce's error probe and, at level "full",
+the per-level consensus agreement of the loss's final state
+(`level_agreement`, GLOM's islands-of-agreement signal as one [L] vector a
+step; `split_level_agreement` flattens it for the records). The guard is one scalar: a
 non-finite gradient anywhere makes the grad norm non-finite, so
 `isfinite(loss + grad_norm)` covers every leaf. Under the "skip" policy,
 `guard_update` keeps the previous value of every parameter and optimizer
@@ -54,15 +58,45 @@ def guard_update(
     ]
 
 
-def scalar_taps(*, loss, grad_norm, updates, params) -> dict:
+def scalar_taps(*, loss, grad_norm, updates, params, norm=global_norm) -> dict:
     """The "scalars" bundle: update and param norms plus the non-finite
-    flag (grad_norm rides in from the caller)."""
+    flag (grad_norm rides in from the caller). `norm` computes a global
+    norm of a tensor list (the distributed step's sums over the
+    tensor-parallel shards)."""
     return {
         "grad_norm": grad_norm,
-        "update_norm": global_norm(updates),
-        "param_norm": global_norm(params),
+        "update_norm": norm(updates),
+        "param_norm": norm(params),
         "nonfinite": nonfinite_flag(loss, grad_norm),
     }
+
+
+def level_agreement(final: torch.Tensor) -> torch.Tensor:
+    """Per-level consensus agreement from a final state [b, n, L, d]: the
+    mean over (b, n) of the cosine between each patch's level vector and
+    its image's mean vector at that level, in f32 on a detached state.
+    -> [L]: about 1 where a level has collapsed to one island, about 0
+    where the patches disagree."""
+    x = final.detach().float()
+    eps = 1e-8
+    xhat = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
+    mean = xhat.mean(dim=1, keepdim=True)  # [b, 1, L, d]
+    mhat = mean / (torch.linalg.vector_norm(mean, dim=-1, keepdim=True) + eps)
+    return (xhat * mhat).sum(dim=-1).mean(dim=(0, 1))  # [L]
+
+
+def split_level_agreement(metrics: dict) -> dict:
+    """A metrics dict's [L] `level_agreement` as per-level scalar keys
+    (consensus_agreement_l0..l{L-1}), so every sink sees flat scalars; a
+    no-op without the key."""
+    if "level_agreement" not in metrics:
+        return metrics
+    metrics = dict(metrics)
+    vec = metrics.pop("level_agreement")
+    vec = vec.detach().float().cpu().tolist() if torch.is_tensor(vec) else list(vec)
+    for i, v in enumerate(vec):
+        metrics[f"consensus_agreement_l{i}"] = v
+    return metrics
 
 
 def quantization_error(grads: List[torch.Tensor], dq_grads: List[torch.Tensor]) -> torch.Tensor:

@@ -9,7 +9,9 @@ Naming: the update step's phases are PHASES (bottom_up / top_down /
 consensus / mean_update); host phases the fit loop times are prefixed
 `host_` (host_data_next, host_step_dispatch, host_log_fetch).
 `span(..., annotate=True)` also opens `torch.profiler.record_function`, so
-a running `torch.profiler` trace shows the block under the same name.
+a running `torch.profiler` trace shows the block under the same name, and
+an NVTX range of that name once CUDA is up (tracing/nvtx.py: glom_tpu's
+named scope on the card's timeline).
 
 Cost: a bare span (aggregator only, no writer) is two perf_counter calls
 plus dict arithmetic. The fit loop therefore aggregates per name between
@@ -108,15 +110,20 @@ def span(
     depth, and the enclosing span's name. `aggregator` rolls the duration
     into a SpanAggregator instead (the cheap fit-loop form; both may be
     given). `annotate=True` additionally opens
-    torch.profiler.record_function(name), so a running profiler trace
-    shows the block under the same name. Extra keyword `fields` ride the
+    torch.profiler.record_function(name) and an NVTX range, so a running
+    profiler trace shows the block under the same name. Extra keyword `fields` ride the
     emitted event."""
     ann = None
     if annotate:
+        import contextlib
+
         import torch
 
-        ann = torch.profiler.record_function(name)
-        ann.__enter__()
+        from glom_tpu_torch.tracing.nvtx import nvtx_range
+
+        ann = contextlib.ExitStack()
+        ann.enter_context(torch.profiler.record_function(name))
+        ann.enter_context(nvtx_range(name))
     stack = _stack()
     parent = stack[-1] if stack else None
     stack.append(name)

@@ -21,19 +21,30 @@ batches on one device on rank 0 and exits 1 when the worst relative loss
 deviation reaches 1e-2. `--zero-stage` and `--quantized-reduce` shard the
 update across the data ranks (one device resolves them to 0 and off).
 
+Observability: `--telemetry-level full` adds the per-level consensus
+agreement to every record on one device (across ranks it runs "scalars",
+glom_tpu's degradation); every logging record carries the card's
+allocator watermarks (`hbm_*`, tracing/memory.py); `--trace-steps A:B`
+profiles steps A..B into a Chrome trace under `--trace-dir`, and
+`--profile-dir` the whole run (tracing/capture.py; one profiler session at a
+time, so the two exclude each other); `--watchdog-interval S` runs the
+backend watchdog (telemetry/watchdog.py) every S seconds, registered
+globally for the run, so every record stamps its backend state and the
+retry policies fail fast on a backend that is down.
+
 Flags whose machinery is not ported raise NotImplementedError naming the
-ROADMAP queue A item that brings it: the pod coordinator, the backend
-watchdog and `--supervise` across ranks (`--pod-*`, `--watchdog-interval`;
-item 9), and trace capture (`--profile-dir`, `--trace-steps`,
-`--telemetry-level full` on one device; item 9).
+ROADMAP queue A item that brings it: the pod coordinator and
+`--supervise` across ranks (`--pod-*`; item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
+import tempfile
 
 _NOT_PORTED = "{} is not ported yet: ROADMAP queue A item {}"
 
@@ -85,8 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--telemetry-level", choices=["off", "scalars", "full"], default=None,
         help="diagnostics depth: scalars = grad/update/param norms + the "
-        "NaN/Inf guard in the step; full (per-level agreement) is not "
-        "ported (ROADMAP item 9)",
+        "NaN/Inf guard in the step; full adds the per-level consensus "
+        "agreement (one device; across ranks it runs scalars)",
     )
     p.add_argument(
         "--nonfinite-policy", choices=["skip", "warn"], default=None,
@@ -95,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--watchdog-interval", type=float, default=0.0, metavar="SECONDS",
-        help="backend-liveness heartbeat (not ported, ROADMAP item 9; 0 = off)",
+        help="backend-liveness heartbeat: probe the device in a throwaway "
+        "subprocess every SECONDS and stamp its state on every record (0 = off)",
     )
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data", choices=["shapes", "gaussian"], default="shapes")
@@ -142,11 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
         "this deadline before dumping the flight ring",
     )
     p.add_argument("--profile-dir", default=None,
-                   help="whole-run profiler trace (not ported, ROADMAP item 9)")
+                   help="whole-run torch.profiler trace (a Chrome trace) into this dir")
     p.add_argument("--trace-steps", default=None, metavar="A:B",
-                   help="step-windowed profiler trace (not ported, ROADMAP item 9)")
-    p.add_argument("--trace-dir", default="/tmp/glom_tpu_trace", metavar="DIR",
-                   help="where --trace-steps writes its trace")
+                   help="torch.profiler trace of steps A..B only (a Chrome trace in "
+                   "--trace-dir); excludes --profile-dir")
+    p.add_argument("--trace-dir", default=os.path.join(tempfile.gettempdir(), "glom_tpu_trace"),
+                   metavar="DIR", help="where --trace-steps writes its trace")
     p.add_argument(
         "--flight-recorder", default=None, metavar="DIR",
         help="crash flight recorder: keep a ring of the last --flight-events "
@@ -182,20 +195,35 @@ def _refuse_unported(args) -> None:
          args.supervise is not None and (args.distributed or args.check_parity), 9),
         ("--pod-index/--pod-count/--pod-dir",
          any(a is not None for a in (args.pod_index, args.pod_count, args.pod_dir)), 9),
-        ("--watchdog-interval", args.watchdog_interval > 0, 9),
-        ("--profile-dir", args.profile_dir is not None, 9),
-        ("--trace-steps", args.trace_steps is not None, 9),
-        ("--telemetry-level full on one device",
-         args.telemetry_level == "full" and not args.distributed, 9),
     )
     for flag, asked, item in refusals:
         if asked:
             raise NotImplementedError(_NOT_PORTED.format(flag, item))
 
 
+def _trace_capture(args, writer):
+    """(the step-window TraceCapture or None, the whole-run trace context)."""
+    from glom_tpu_torch.tracing.capture import TraceCapture, trace
+
+    cap = (TraceCapture.parse(args.trace_steps, args.trace_dir, writer=writer)
+           if args.trace_steps else None)
+    return cap, trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.trace_steps and args.profile_dir:
+        # One profiler session at a time: the step window would open inside
+        # the whole-run session.
+        raise SystemExit(
+            "--profile-dir (whole-run trace) and --trace-steps (step window) are "
+            "mutually exclusive — torch.profiler runs one session at a time; pick one"
+        )
+    if args.trace_steps:
+        from glom_tpu_torch.tracing.capture import parse_trace_steps
+
+        parse_trace_steps(args.trace_steps)  # a bad window fails before any setup
 
     import torch
 
@@ -258,11 +286,27 @@ def main(argv=None) -> int:
     anomaly_mode = torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled()
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True, check_nan=True)
+    wd = None
+    if args.watchdog_interval > 0:
+        from glom_tpu_torch.telemetry.watchdog import BackendWatchdog, set_global_watchdog
+
+        wd = BackendWatchdog(interval_s=args.watchdog_interval, writer=writer,
+                             device_type=device.type)
+        set_global_watchdog(wd)
+        wd.start()
+    # Everything past the heartbeat's start runs under its try/finally: a
+    # setup failure must not leak a probing thread, or a stopped watchdog's
+    # state, into an in-process caller.
     try:
         if args.distributed or args.check_parity:
             return _train_distributed(args, preset, cfg, tcfg, writer, device)
         return _train_body(args, cfg, tcfg, writer, device)
     finally:
+        if wd is not None:
+            wd.stop()
+            from glom_tpu_torch.telemetry.watchdog import set_global_watchdog
+
+            set_global_watchdog(None)
         torch.autograd.set_detect_anomaly(*anomaly_mode)
         writer.close()
         if fr is not None:
@@ -363,16 +407,23 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
             data, size=args.prefetch, device=trainer.device, metrics_writer=writer
         )
     done = 0
+    # One TraceCapture across every checkpoint span (its step counter is the
+    # run's), closed in the finally so no window outlives the run.
+    cap, whole = _trace_capture(args, writer)
     try:
-        while done < remaining:
-            span = min(args.checkpoint_every, remaining - done) if ckpt else remaining
-            trainer.fit(data, num_steps=span, log_every=args.log_every)
-            done += span
+        with whole:
+            while done < remaining:
+                span = min(args.checkpoint_every, remaining - done) if ckpt else remaining
+                trainer.fit(data, num_steps=span, log_every=args.log_every,
+                            trace_capture=cap)
+                done += span
+                if ckpt:
+                    ckpt.save(start_step + done, trainer.state, generator=trainer.generator)
             if ckpt:
-                ckpt.save(start_step + done, trainer.state, generator=trainer.generator)
-        if ckpt:
-            ckpt.wait()
+                ckpt.wait()
     finally:
+        if cap is not None:
+            cap.close()
         if fr_live is not None:
             fr_live.set_checkpoint_hook(None)
         if args.prefetch > 0:
@@ -488,17 +539,22 @@ def _run_ranks(args, cfg, tcfg, writer, trainer, make_data) -> int:
         data = prefetch_to_device(data, size=args.prefetch, device=trainer.device,
                                   metrics_writer=writer if rank == 0 else None)
     done = 0
+    cap, whole = _trace_capture(args, writer)
     try:
-        while done < remaining:
-            span = (min(args.checkpoint_every, remaining - done) if args.checkpoint_dir
-                    else remaining)
-            trainer.fit(data, num_steps=span, log_every=args.log_every)
-            done += span
-            if args.checkpoint_dir:
-                trainer.save_checkpoint(ckpt, start_step + done)
-        if ckpt:
-            ckpt.wait()
+        with whole:
+            while done < remaining:
+                span = (min(args.checkpoint_every, remaining - done) if args.checkpoint_dir
+                        else remaining)
+                trainer.fit(data, num_steps=span, log_every=args.log_every,
+                            trace_capture=cap)
+                done += span
+                if args.checkpoint_dir:
+                    trainer.save_checkpoint(ckpt, start_step + done)
+            if ckpt:
+                ckpt.wait()
     finally:
+        if cap is not None:
+            cap.close()
         if args.prefetch > 0:
             data.close()
     return 0

@@ -26,6 +26,7 @@ from glom_tpu_torch.models.core import (
     init_glom,
 )
 from glom_tpu_torch.ops.patch import LinearParams, init_linear, tokens_to_image
+from glom_tpu_torch.tracing.nvtx import nvtx_range
 from glom_tpu_torch.utils.config import GlomConfig
 
 
@@ -69,11 +70,15 @@ def denoise_loss(
     consensus_fn: Optional[ConsensusFn] = None,
     use_pallas: bool = False,
     scan_only: bool = False,
-) -> torch.Tensor:
+    with_diagnostics: bool = False,
+):
     """MSE between the clean image and the reconstruction from the noised
     image's top level at iteration `recon_index` (exactly that many
     iterations run). scan_only keeps the forward off the whole-loop VJP
-    (see `glom_forward`)."""
+    (see `glom_forward`). with_diagnostics=True (telemetry_level "full")
+    returns (loss, aux), aux holding the per-level agreement of the same
+    final state the loss reads, detached: one [L] reduction, no second
+    forward, nothing in the backward."""
     T = iters if iters is not None else cfg.default_iters
     k = recon_index if recon_index is not None else default_recon_index(T)
     if not 1 <= k <= T:
@@ -90,10 +95,16 @@ def denoise_loss(
         scan_only=scan_only,
     )
     top = final[:, :, -1]  # [b, n, d]: the top level
-    recon = tokens_to_image(
-        params.to_pixels, top.to(img.dtype), cfg.patch_size, cfg.image_size
-    )
-    return torch.mean((img - recon) ** 2)
+    with nvtx_range("reconstruction"):
+        recon = tokens_to_image(
+            params.to_pixels, top.to(img.dtype), cfg.patch_size, cfg.image_size
+        )
+    loss = torch.mean((img - recon) ** 2)
+    if with_diagnostics:
+        from glom_tpu_torch.telemetry.diagnostics import level_agreement
+
+        return loss, {"level_agreement": level_agreement(final)}
+    return loss
 
 
 def reconstruct(

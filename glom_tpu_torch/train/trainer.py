@@ -16,7 +16,14 @@ at the flagship trains through the whole-loop VJP ("fused_loop"), and with
 `grad_accum=None` a batch that misses it is split into the fewest
 power-of-two microbatches that reach it. `fit_loop` writes glom_tpu's
 record stream: schema-stamped "train_step" records, the host span rollups
-and the anomaly records, to a metrics writer or the flight recorder.
+and the anomaly records, to a metrics writer or the flight recorder; at
+each logging step it also stamps the memory probe's fields, writes the
+aux records (the distributed trainer's collective timing) and, with a
+`tracing.capture.TraceCapture`, profiles its step window. Under
+`telemetry_level="full"` the step also returns the per-level consensus
+agreement of the loss's final state (`telemetry/diagnostics.level_agreement`;
+the mean over microbatches under accumulation), which the records carry as
+`consensus_agreement_l0..l{L-1}`.
 
 One device has no replica to shard over: `resolve_zero_stage` and
 `resolve_quantized_reduce` (glom_tpu's single resolution sources) give 0
@@ -24,13 +31,13 @@ and off at dp = 1, so a single-device step runs them as stage 0 without
 the quantized hop, as glom_tpu's does. The ZeRO stages and the quantized
 reduce run across ranks in `parallel/manual.py`. glom_tpu's GSPMD
 `zero_shardings` has no counterpart (there is no GSPMD here) and raises.
-Not ported yet, and refused with the ROADMAP item that brings them: trace
-capture, the memory probe, per-level agreement at telemetry "full" and the
-collective timing (queue A item 9).
+`collective_timing` has no site to time on one device and is ignored, as
+glom_tpu's Trainer ignores it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
@@ -48,7 +55,9 @@ from glom_tpu_torch.models.core import (
 from glom_tpu_torch.telemetry import diagnostics as diag
 from glom_tpu_torch.telemetry import schema
 from glom_tpu_torch.telemetry.sinks import StepTimeStats
+from glom_tpu_torch.telemetry.watchdog import get_global_watchdog
 from glom_tpu_torch.tracing import flight
+from glom_tpu_torch.tracing.memory import memory_record, model_live_bytes_total
 from glom_tpu_torch.tracing.spans import SpanAggregator, span
 from glom_tpu_torch.train.objectives import (
     DenoiseParams,
@@ -59,8 +68,6 @@ from glom_tpu_torch.train.objectives import (
 from glom_tpu_torch.utils.config import GlomConfig, TrainConfig
 from glom_tpu_torch.utils.helpers import resolve_device
 from glom_tpu_torch.utils.metrics import live_bytes_model
-
-_NOT_PORTED = "is not ported yet: ROADMAP queue A item {}"
 
 Optimizer = Callable[[DenoiseParams], torch.optim.Optimizer]
 
@@ -151,28 +158,38 @@ def pinned_grad_accum(tcfg: TrainConfig) -> int:
     return accum
 
 
-def accumulate_grads(loss_fn, params, img, noise, accum: int, grad_transform=None):
+def accumulate_grads(loss_fn, params, img, noise, accum: int, grad_transform=None,
+                     has_aux: bool = False):
     """Exact microbatch gradient accumulation with glom_tpu's STRIDED split
     (microbatch i takes rows i, i + accum, ...): the mean of the
     microbatch means equals the full-batch loss and gradient. Returns
     (loss, grads) with grads in `param_leaves(params)` order.
     `grad_transform` (glom_tpu's ZeRO stage-2 hook) maps each
     microbatch's gradient list before it is accumulated, so the
-    accumulator holds only what it returns (the rank's shards)."""
+    accumulator holds only what it returns (the rank's shards).
+    has_aux=True: loss_fn returns (loss, aux dict of tensors) and the call
+    returns ((loss, aux mean over microbatches), grads), as glom_tpu's."""
     leaves = param_leaves(params)
     imgs = img.reshape(-1, accum, *img.shape[1:]).transpose(0, 1)
     noises = noise.reshape(-1, accum, *noise.shape[1:]).transpose(0, 1)
-    loss_sum, grads = None, None
+    loss_sum, aux_sum, grads = None, None, None
     for mi, mn in zip(imgs, noises):
         loss = loss_fn(params, mi.contiguous(), mn.contiguous())
+        if has_aux:
+            loss, aux = loss
+            aux_sum = aux if aux_sum is None else {k: aux_sum[k] + v for k, v in aux.items()}
         g = torch.autograd.grad(loss, leaves)
         if grad_transform is not None:
             g = grad_transform(list(g))
         grads = list(g) if grads is None else [a + b for a, b in zip(grads, g)]
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-    if accum == 1:
-        return loss_sum, grads
-    return loss_sum / accum, [g / accum for g in grads]
+    if accum > 1:
+        loss_sum, grads = loss_sum / accum, [g / accum for g in grads]
+        if has_aux:
+            aux_sum = {k: v / accum for k, v in aux_sum.items()}
+    if has_aux:
+        return (loss_sum, aux_sum), grads
+    return loss_sum, grads
 
 
 def resolve_route_keys(cfg: GlomConfig, tcfg: TrainConfig) -> Tuple[int, int]:
@@ -240,8 +257,6 @@ def _refuse_unported(tcfg: TrainConfig, **kw) -> None:
             "the port's ZeRO stages run across ranks in parallel/manual.py "
             "(DistributedTrainer)"
         )
-    if tcfg.collective_timing != "off":
-        raise NotImplementedError(f"collective_timing {_NOT_PORTED.format(9)}")
 
 
 def apply_update(
@@ -279,12 +294,9 @@ def apply_update(
     if level != "off":
         with torch.no_grad():
             new = [t.detach() for t in leaves]
-            taps = {
-                "grad_norm": grad_norm,
-                "update_norm": norm([n - o for n, o in zip(new, old)]),
-                "param_norm": norm(new),
-                "nonfinite": diag.nonfinite_flag(loss, grad_norm),
-            }
+            taps = diag.scalar_taps(loss=loss, grad_norm=grad_norm,
+                                    updates=[n - o for n, o in zip(new, old)], params=new,
+                                    norm=norm)
             nonfinite = taps.pop("nonfinite")
             if tcfg.nonfinite_policy == "skip":
                 for t, v in zip(new, diag.guard_update(nonfinite, new, old)):
@@ -336,10 +348,7 @@ def make_train_step(
             f"grad_accum={tcfg.grad_accum} must divide batch_size={tcfg.batch_size}"
         )
     level = diag.resolve_telemetry_level(tcfg)
-    if level == "full":
-        raise NotImplementedError(
-            "telemetry_level='full' (per-level agreement) " + _NOT_PORTED.format(9)
-        )
+    full = level == "full"
     compute_dtype = torch.bfloat16 if tcfg.compute_dtype == "bfloat16" else None
     lr = make_lr_schedule(tcfg)
 
@@ -347,18 +356,24 @@ def make_train_step(
         return denoise_loss(
             params, img, noise, cfg, recon_index=tcfg.recon_iter_index, iters=tcfg.iters,
             remat=tcfg.remat, compute_dtype=compute_dtype, consensus_fn=consensus_fn,
-            use_pallas=tcfg.use_pallas, scan_only=scan_only,
+            use_pallas=tcfg.use_pallas, scan_only=scan_only, with_diagnostics=full,
         )
 
     def train_step(state: TrainState, img: torch.Tensor, generator: torch.Generator):
         noise = tcfg.noise_std * torch.randn(
             img.shape, generator=generator, device=img.device, dtype=img.dtype
         )
-        loss, grads = accumulate_grads(loss_of, state.params, img, noise, grad_accum)
+        loss, grads = accumulate_grads(loss_of, state.params, img, noise, grad_accum,
+                                       has_aux=full)
+        aux = None
+        if full:
+            loss, aux = loss
         metrics = apply_update(
             state, param_leaves(state.params), grads, {"loss": loss, "step": state.step},
             lr=lr, level=level, tcfg=tcfg, with_grad_norm=with_grad_norm,
         )
+        if aux is not None:
+            metrics["level_agreement"] = aux["level_agreement"]
         return state._replace(step=state.step + 1), metrics
 
     train_step.grad_accum = grad_accum
@@ -423,13 +438,18 @@ def fit_loop(
     the NaN/Inf guard flagged since the last boundary emits an "anomaly"
     record. Records go to `metrics_writer`, or to the flight recorder when
     there is none; the returned history holds the train_step records only.
-    An unhandled exception dumps the flight recorder before re-raising."""
-    for what, val in (
-        ("trace_capture", trace_capture), ("memory_probe", memory_probe),
-        ("aux_records_probe", aux_records_probe),
-    ):
-        if val is not None:
-            raise NotImplementedError(f"fit_loop({what}=...) {_NOT_PORTED.format(9)}")
+    An unhandled exception dumps the flight recorder before re-raising.
+
+    The observability hooks (glom_tpu's):
+      * trace_capture -- a tracing.capture.TraceCapture whose [A, B] step
+        window wraps each step in its `unit()`; its counter is global to
+        the run, so a window spans fit() calls;
+      * memory_probe -- called at logging steps; its dict (the card's
+        allocator watermarks and the model drift, tracing.memory) rides the
+        record;
+      * aux_records_probe -- called at logging steps; returns stamped
+        records of their own kinds (the distributed trainer's
+        "collective_time" rows), written after the step's span records."""
 
     def emit(rec):
         flight.write_or_observe(metrics_writer, rec)
@@ -452,24 +472,31 @@ def fit_loop(
                 batch = next(data)
             t_step = time.perf_counter()
             with span("host_step_dispatch", aggregator=spans):
-                metrics = fn(batch)
-                _synchronize(metrics)
+                with (trace_capture.unit() if trace_capture is not None
+                      else contextlib.nullcontext()):
+                    metrics = fn(batch)
+                    _synchronize(metrics)
             stats.observe(time.perf_counter() - t_step, is_compile=first)
             if "nonfinite_step" in metrics and not logging_step:
                 pending_flags.append((i, metrics["nonfinite_step"]))
             if not logging_step:
                 continue
             with span("host_log_fetch", aggregator=spans):
-                rec = {k: _scalar(v) for k, v in metrics.items()}
+                rec = {k: _scalar(v) for k, v in diag.split_level_agreement(metrics).items()}
             for k in ("vjp_path", "grad_accum"):
                 rec.setdefault(k, getattr(fn, k, None))
             rec["steps_per_sec"] = (i + 1) / (time.perf_counter() - t0)
             rec.update(stats.summary())
+            if memory_probe is not None:
+                rec.update(memory_probe() or {})
             rec = schema.stamp(rec, kind="train_step")
             history.append(rec)
             emit(rec)
             for srec in spans.records(extra={"step": rec.get("step", float(i))}):
                 emit(srec)
+            if aux_records_probe is not None:
+                for arec in aux_records_probe() or []:
+                    emit(arec)
             flagged = [k for k, v in pending_flags if float(v)]
             pending_flags = []
             if rec.get("nonfinite_step"):
@@ -491,6 +518,14 @@ def fit_loop(
         )
         raise
     return history
+
+
+def backend_fields() -> dict:
+    """The backend-state fields of a step record: the global watchdog's
+    when one is registered, else "up" (a trainer mid-step is the proof its
+    device is up: glom_tpu's backend_record with a live backend)."""
+    wd = get_global_watchdog()
+    return wd.record() if wd is not None else {"backend_state": "up"}
 
 
 def _synchronize(metrics: dict) -> None:
@@ -541,6 +576,7 @@ class Trainer:
             "comm_gather_bytes_per_step": 0,
             "comm_bytes_per_step": 0,
         }
+        self._model_live_bytes = model_live_bytes_total(self._static_record)
         # Persistent across fit() calls: span 2+ of a checkpointed run is
         # warm, and its first steps are steady-state samples.
         self._compile_tracker: set = set()
@@ -561,9 +597,7 @@ class Trainer:
         metrics["vjp_path"] = self.vjp_path
         metrics["grad_accum"] = self.grad_accum
         metrics.update(self._static_record)
-        # A trainer mid-step is the proof its device is up (glom_tpu's
-        # backend_record without a registered watchdog).
-        metrics["backend_state"] = "up"
+        metrics.update(backend_fields())
         return metrics
 
     def step(self, batch) -> dict:
@@ -573,6 +607,12 @@ class Trainer:
         """The step without the grad-norm sweep (fit runs it on the
         non-logging steps)."""
         return self._run(self._step_fast, batch)
+
+    def _memory_record(self) -> dict:
+        """The card's allocator watermarks reconciled against the analytic
+        live bytes (tracing/memory.py); {} on the CPU. fit_loop stamps it
+        on every logging record."""
+        return memory_record(self._model_live_bytes, self.device)
 
     def fit(
         self,
@@ -595,4 +635,5 @@ class Trainer:
             self.step, iter(data), num_steps, log_every=log_every,
             metrics_writer=self.metrics_writer, step_fast=self.step_fast,
             compile_tracker=self._compile_tracker, trace_capture=trace_capture,
+            memory_probe=self._memory_record,
         )

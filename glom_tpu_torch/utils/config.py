@@ -223,9 +223,10 @@ class ServeConfig:
     # and every serve record of the request carries it (False stamps the
     # keys as null).
     trace_requests: bool = True
-    # Per-collective wall time: a single-device engine has no collectives,
-    # so any mode resolves to "off" there, with a warning; the timed modes
-    # are ROADMAP queue A item 9a.
+    # Per-collective wall time (telemetry/comm_time.py): "sampled" re-runs
+    # each site every collective_timing_interval-th dispatch, "full"
+    # brackets every execution; a single-device engine has no collectives,
+    # so any mode resolves to "off" there, with a warning.
     collective_timing: str = "off"
     collective_timing_interval: int = 16
     # Elastic serving (serve/elastic.py): elastic=True runs an Autoscaler
@@ -525,12 +526,15 @@ class TrainConfig:
     zero_stage: int = 0
     quantized_reduce: bool = False
     # "off" | "scalars" (grad/update/param norms + the NaN/Inf guard) |
-    # "full" (adds per-level agreement; not ported yet).
+    # "full" (adds the per-level consensus agreement; across ranks it runs
+    # "scalars").
     telemetry_level: str = "off"
     nonfinite_policy: str = "skip"  # "skip" drops a non-finite update; "warn" applies it
     # Eager PyTorch runs the iterations as a Python loop, which is what the
     # JAX scan's unroll produced; kept for the reference's field set.
     scan_unroll: bool = False
-    collective_timing: str = "off"  # multi-device only (ROADMAP queue A item 9)
+    # The ZeRO step's collective timing (DistributedTrainer at zero_stage
+    # >= 1; "full" runs "sampled"): a sample every interval-th logging step.
+    collective_timing: str = "off"
     collective_timing_interval: int = 10
     seed: int = 0

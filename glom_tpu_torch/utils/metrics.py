@@ -14,7 +14,8 @@ dense peak (NVIDIA's H100 data sheet); a card not in PEAK_FLOPS gives None.
 The sharded per-replica byte counts (`tree_bytes_per_replica`) and the
 gradient / update path's collective-traffic model (`comm_volume_model`)
 are glom_tpu's analytics over the port's leaf names; the distributed
-trainer stamps them beside its measured counters.
+trainer stamps them beside its measured counters. `probe_device_count` is
+the backend watchdog's probe (telemetry/watchdog.py).
 """
 
 from __future__ import annotations
@@ -192,6 +193,36 @@ def comm_volume_model(
         "comm_gather_bytes_per_step": gather_bytes,
         "comm_bytes_per_step": reduce_bytes + gather_bytes,
     }
+
+
+# The probe's child: the device count of one device type, printed.
+_PROBE_CODE = {
+    "cuda": "import torch\nprint('DEVCOUNT=%d' % torch.cuda.device_count())",
+    "cpu": "print('DEVCOUNT=1')",
+}
+
+
+def probe_device_count(timeout: float = 120.0, device_type: str = "cuda") -> Optional[int]:
+    """The visible device count of `device_type` ("cuda": the CUDA devices,
+    "cpu": 1) from a THROWAWAY subprocess, or None when it fails or hangs
+    past `timeout` (glom_tpu's probe). Nothing touches a device in the
+    calling process: a wedged driver hangs the child, which the timeout
+    kills, never the caller."""
+    import subprocess
+
+    if device_type not in _PROBE_CODE:
+        raise ValueError(f"device_type={device_type!r}: one of {sorted(_PROBE_CODE)}")
+    try:
+        proc = subprocess.run([sys.executable, "-c", _PROBE_CODE[device_type]],
+                              capture_output=True, text=True, timeout=timeout)
+    except (subprocess.TimeoutExpired, OSError):
+        return None
+    if proc.returncode != 0:
+        return None
+    for line in proc.stdout.splitlines():
+        if line.startswith("DEVCOUNT="):
+            return int(line.split("=", 1)[1])
+    return None
 
 
 class MetricsWriter:

@@ -1,6 +1,8 @@
 """The port's training CLI, in process on the CPU (`--device cpu`), on the
 mnist preset: train with checkpoints, resume, the restart supervisor, the
-flight recorder, and the flags it refuses with their ROADMAP items.
+flight recorder, the observability flags (the watchdog, the profiler
+traces, telemetry "full"), and the flags it refuses with their ROADMAP
+items.
 """
 
 import json
@@ -99,20 +101,57 @@ def test_parser_matches_glom_tpu():
     (["--telemetry-level", "full"], 9),
 ])
 def test_refused_flags(flags, item, tmp_path):
-    """Item 9's flags stay refused. Item 8's (training across ranks) are
-    ported: launched alone each runs as glom_tpu's does on one device --
-    one rank, ZeRO resolved to stage 0 and the quantized reduce off (dp 1),
-    --check-parity exiting 0."""
-    if item == 9:
+    """Only the pod coordinator's flags stay refused (item 9's A9e). Item
+    8's (training across ranks) are ported: launched alone each runs as
+    glom_tpu's does on one device -- one rank, ZeRO resolved to stage 0 and
+    the quantized reduce off (dp 1), --check-parity exiting 0. The rest of
+    item 9's run on the CPU, each checked in its records: the watchdog's
+    transition and state, the whole-run and the step-window traces, the
+    per-level agreement."""
+    if "--pod-index" in flags:
         with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
             cli.main(BASE + ["--steps", "1", *flags])
         return
     metrics = tmp_path / "m.jsonl"
+    if item == 9:
+        from glom_tpu_torch.telemetry import watchdog
+
+        flags = [str(tmp_path / "prof") if f == "x" else f for f in flags]
+        assert cli.main(BASE + ["--steps", "3", "--log-every", "1", "--metrics-file",
+                                str(metrics), "--trace-dir", str(tmp_path / "tr"), *flags]) == 0
+        recs = records(metrics)
+        steps = [r for r in recs if r["kind"] == "train_step"]
+        assert len(steps) == 3 and all(schema.validate_record(r) == [] for r in recs)
+        assert watchdog.get_global_watchdog() is None
+        if "--watchdog-interval" in flags:
+            events = [r for r in recs if r["kind"] == "watchdog"]
+            assert [(e["prev_state"], e["backend_state"], e["backend_devices"])
+                    for e in events] == [("unknown", "up", 1)]
+            assert all(r["backend_state"] in ("unknown", "up") for r in steps)
+        if "--profile-dir" in flags:
+            assert len(os.listdir(tmp_path / "prof")) == 1
+        if "--trace-steps" in flags:
+            notes = [r for r in recs if r["kind"] == "note"]
+            assert [(r["note"], r.get("first_step"), r.get("last_step")) for r in notes] == [
+                ("xla-trace-start", 1, None), ("xla-trace-stop", None, 2)]
+            assert len(os.listdir(tmp_path / "tr")) == 1
+        if "--telemetry-level" in flags:
+            assert all({"consensus_agreement_l0", "consensus_agreement_l1"} <= set(r)
+                       and r["telemetry_level"] == "full" for r in steps)
+        return
     assert cli.main(BASE + ["--steps", "2", "--metrics-file", str(metrics), *flags]) == 0
     steps = [r for r in records(metrics) if r["kind"] == "train_step"]
     assert steps and all(r["zero_stage"] == 0 and r["quantized_reduce"] is False
                          for r in steps)
     assert not torch.distributed.is_initialized()
+
+
+def test_trace_flags_exclude_each_other(tmp_path):
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main(BASE + ["--steps", "1", "--profile-dir", str(tmp_path / "p"),
+                         "--trace-steps", "0:1"])
+    with pytest.raises(ValueError, match="expected 'A:B'"):
+        cli.main(BASE + ["--steps", "1", "--trace-steps", "a:b"])
 
 
 def test_needs_the_card_unless_told(monkeypatch):

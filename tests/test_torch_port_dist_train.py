@@ -57,7 +57,16 @@ WORLD2 = {
                         dict(BASE, zero_stage=1, quantized_reduce=True, use_pallas=True,
                              telemetry_level="scalars")),
     "quantized_without_zero": ((2, 1, 1), "none", CFG_KW, dict(BASE, quantized_reduce=True)),
+    # collective timing on zero1's run: a sample at every logging boundary
+    "zero1_sampled": ((2, 1, 1), "none", CFG_KW,
+                      dict(BASE, zero_stage=1, use_pallas=True, telemetry_level="scalars",
+                           collective_timing="sampled", collective_timing_interval=1)),
+    "zero1_full": ((2, 1, 1), "none", CFG_KW,
+                   dict(BASE, zero_stage=1, use_pallas=True, telemetry_level="scalars",
+                        collective_timing="full", collective_timing_interval=1)),
+    "zero0_sampled": ((2, 1, 1), "none", CFG_KW, dict(BASE, collective_timing="sampled")),
 }
+TIMED = ("zero1_sampled", "zero1_full")
 WORLD4 = {
     "dp_sp_ring": ((2, 2, 1), "ring", CFG_KW, BASE),
     "dp_sp_ulysses": ((2, 2, 1), "ulysses", CFG_KW, BASE),
@@ -282,6 +291,67 @@ class TestZero:
         np.testing.assert_allclose([r["loss"] for r in port["quantized_without_zero"][0]
                                     ["records"]],
                                    [r["loss"] for r in port["dp"][0]["records"]], rtol=1e-6)
+
+
+def _glom_tpu_trainer(name):
+    """glom_tpu's DistributedTrainer for a WORLD2 case and the warnings its
+    construction raised."""
+    shape, sp, ck, tk = WORLD2[name]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        jd = JDistributedTrainer(jconfig.GlomConfig(**ck), jconfig.TrainConfig(**tk),
+                                 jconfig.MeshConfig(*shape), sp_strategy=sp)
+    return jd, [str(w.message) for w in caught]
+
+
+class TestCollectiveTiming:
+    @pytest.mark.parametrize("name", TIMED)
+    def test_timing_leaves_every_loss_and_param_bit_for_bit(self, port, name):
+        for got, want in zip(port[name], port["zero1"]):
+            assert [r["loss"] for r in got["records"]] == [r["loss"] for r in want["records"]]
+            for k, v in want["params"].items():
+                np.testing.assert_array_equal(got["params"][k], v, err_msg=k)
+
+    @pytest.mark.parametrize("name", TIMED)
+    def test_records_price_the_counted_sites(self, port, name):
+        """A sample at each logging boundary (interval 1): one row a site
+        and one comm_time_model row, written by the writer rank only; each
+        row's wire bytes are its site's counted bytes, so the rows' bytes x
+        calls sum to the step's counted bytes."""
+        lead, other = port[name]
+        assert other["collective_time"] == []
+        rows = lead["collective_time"]
+        models = [i for i, r in enumerate(rows) if r["site"] == "comm_time_model"]
+        assert len(models) == STEPS
+        first = rows[:models[0]]
+        rec = lead["records"][0]
+        assert rec["collective_timing"] == "sampled"
+        assert sum(r["wire_bytes"] * r["calls"] for r in first) == (
+            rec["comm_measured_bytes_per_step"])
+        counted = {(s["site"], s["wire_bytes"]) for s in lead["sites"]}
+        assert {(r["site"], r["wire_bytes"]) for r in first} == counted
+        assert all(r["mode"] == "sampled" and r["path"] == "train-zero1" and r["wall_ms"] > 0
+                   for r in rows)
+        assert rows[models[0]]["n_points"] == len(first)
+
+    def test_sites_equal_glom_tpus_sampler(self, port):
+        jd, _ = _glom_tpu_trainer("zero1_sampled")
+        key = lambda s: (s["site"], s["axis"], s["collective"], s["wire_bytes"], s["calls"])  # noqa: E731
+        rows = port["zero1_sampled"][0]["collective_time"]
+        first = rows[:[r["site"] for r in rows].index("comm_time_model")]
+        assert sorted(map(key, first)) == sorted(map(key, jd.collective_sampler.sites))
+
+    def test_degradations_warn_glom_tpus_words(self, port):
+        """"full" runs "sampled" on the trainer and a route without the
+        ZeRO step's sites runs "off", each with glom_tpu's warning; "off"
+        writes no record."""
+        for name, want in (("zero1_full", "sampled"), ("zero0_sampled", "off")):
+            _, jwarn = _glom_tpu_trainer(name)
+            (msg,) = [w for w in jwarn if "collective_timing" in w]
+            for rank_res in port[name]:
+                assert msg in rank_res["warnings"]
+                assert all(r["collective_timing"] == want for r in rank_res["records"])
+        assert port["zero0_sampled"][0]["collective_time"] == []
 
 
 class TestCheckpoints:

@@ -48,7 +48,9 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.parallel.ulysses", "glom_tpu_torch.parallel.halo",
                    "glom_tpu_torch.parallel.manual", "glom_tpu_torch.parallel.runtime",
                    "glom_tpu_torch.parallel.serve_mesh", "glom_tpu_torch.serve.mesh_follower",
-                   "glom_tpu_torch.telemetry.counters"):
+                   "glom_tpu_torch.telemetry.counters", "glom_tpu_torch.telemetry.comm_time",
+                   "glom_tpu_torch.tracing.capture", "glom_tpu_torch.tracing.memory",
+                   "glom_tpu_torch.tracing.nvtx"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         if not path.exists():  # a package

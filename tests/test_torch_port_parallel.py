@@ -285,10 +285,15 @@ class TestCountersAndModels:
         assert [(s["site"], s["calls"], s["dim"]) for s in c.sites] == [("s", 2, 0), ("g", 3, 1)]
 
     def test_collective_timing_stays_refused(self):
-        assert counters.resolve_collective_timing("off") == "off"
-        for mode in ("sampled", "full"):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                counters.resolve_collective_timing(mode)
+        """The timed modes are ported (telemetry/comm_time.py): every mode
+        resolves as glom_tpu's, "full" degrades to "sampled" with a warning
+        where the path does not bracket executions, and an unknown mode is
+        still refused."""
+        for mode in ("off", "sampled", "full"):
+            assert counters.resolve_collective_timing(mode) == mode
+            assert jcounters.resolve_collective_timing(mode) == mode
+        with pytest.warns(UserWarning, match="running 'sampled'"):
+            assert counters.resolve_collective_timing("full", supports_full=False) == "sampled"
         with pytest.raises(ValueError):
             counters.resolve_collective_timing("always")
 

@@ -167,6 +167,18 @@ DELTA_CALLS = [dict(kind="infer", img=IMG2, n_valid=2),
                dict(kind="infer", img=IMG2, n_valid=2, page_rows_from=["a", "b"]),
                dict(kind="pool_record")]
 SERVE2["paged_delta"] = _serve(dict(PAGED, mesh_data=2, delta_streaming=True), DELTA_CALLS)
+# Collective timing on a data-2 engine: the same four dispatches under each
+# mode, then the drain; a follower that skips a sample.
+TIMING_CALLS = [dict(kind="infer", img=IMG8, n_valid=6)] * 4 + [dict(kind="timing"),
+                                                                dict(kind="stats")]
+TIMING_MODES = ("off", "sampled", "full")
+for _mode in TIMING_MODES:
+    SERVE2[f"timing_{_mode}"] = _serve(dict(AUTO, mesh_data=2, collective_timing=_mode,
+                                            collective_timing_interval=2), TIMING_CALLS)
+SERVE2["timing_missed"] = _serve(
+    dict(AUTO, mesh_data=2, collective_timing="sampled", collective_timing_interval=1),
+    TIMING_CALLS[:2], fault={"rank": 1, "skip_sample": True},
+    group_timeout_s=BROKEN_TIMEOUT_S)
 SERVE4 = {
     "auto_data2xseq2": _serve(dict(AUTO, exit_threshold=1e-3, max_auto_iters=12, mesh_data=2,
                                    mesh_seq=2), [dict(kind="infer", img=IMG8), dict(kind="stats")]),
@@ -567,6 +579,68 @@ class TestFollowerFaults:
         assert lead["broken"]
         follower = _res(runs, 2, "fault_broken", 1)
         assert follower["error"] == "CollectiveError"
+
+
+class TestCollectiveTiming:
+    """A data-2 engine's collective timing over its follower: four
+    threshold-0 dispatches (T = 6) under each mode, then a drain."""
+
+    def test_timed_modes_answer_bit_for_bit(self, runs):
+        off = _leader(runs, 2, "timing_off")
+        for mode in ("sampled", "full"):
+            got = _leader(runs, 2, f"timing_{mode}")
+            for a, b in zip(got[:4], off[:4]):
+                assert a["iters_run"] == b["iters_run"] == 6
+                for key in ("levels", "row_converged", "row_iters"):
+                    assert np.array_equal(a[key], b[key]), (mode, key)
+        assert off[4] == []  # "off" drains no record
+
+    def test_sampled_records_equal_glom_tpus_sites(self, runs):
+        """Every 2nd dispatch samples (the follower runs two `sample` ops);
+        each sample's sites and calls are glom_tpu's."""
+        rows = _leader(runs, 2, "timing_sampled")[4]
+        j = _jengine(dict(AUTO, mesh_data=2, collective_timing="sampled",
+                          collective_timing_interval=2))
+        for _ in range(4):
+            j.infer(IMG8, n_valid=6)
+        key = lambda r: (r["site"], r.get("axis"), r.get("collective"), r.get("wire_bytes"),  # noqa: E731
+                         r.get("calls"), r["mode"], r.get("n_points"))
+        assert sorted(map(key, rows)) == sorted(map(key, j.collective_time_records()))
+        assert all(r["wall_ms"] > 0 and r["engine"] == "engine0" for r in rows)
+        assert _res(runs, 2, "timing_sampled", 1)["ops"] == {"dispatch": 4, "sample": 2,
+                                                            "stop": 1}
+
+    def test_full_records_count_both_ranks(self, runs):
+        """One drain gathers both ranks' bracketed executions: the quorum
+        target's all-reduce once a dispatch a rank, the exit test's once a
+        trip that may exit (iterations 1..T-1 at min_iters 1: glom_tpu's
+        while loop also runs it around the trips, so its count is higher;
+        the same sites and bytes)."""
+        rows = _leader(runs, 2, "timing_full")[4]
+        by_site = {r["site"]: r for r in rows}
+        T, ranks_, dispatches = 6, 2, 4
+        assert by_site["quorum_valid_psum"]["calls"] == ranks_ * dispatches
+        assert by_site["quorum_exit_psum"]["calls"] == ranks_ * dispatches * (T - 1)
+        for r in (by_site["quorum_valid_psum"], by_site["quorum_exit_psum"]):
+            assert (r["axis"], r["collective"], r["wire_bytes"], r["mode"]) == (
+                "data", "psum", 4, "full")
+            assert r["wall_ms_max"] >= r["wall_ms"] > 0
+        assert by_site["comm_time_model"]["n_points"] == 2
+        assert _res(runs, 2, "timing_full", 1)["ops"] == {"dispatch": 4, "drain": 1, "stop": 1}
+        stats = _leader(runs, 2, "timing_full")[5]
+        assert _stats_comm(stats) == _stats_comm(_leader(runs, 2, "timing_off")[5])
+
+    def test_a_missed_sample_raises_not_hangs(self, runs):
+        """Rank 1 skips its sample's collectives: the leader's sample waits
+        in its all-reduce until the group's (shortened) timeout, then
+        raises CollectiveError and marks the group broken; the follower's
+        loop raises it too. No rank hangs."""
+        lead = _res(runs, 2, "timing_missed")[0]
+        first, second = lead["results"]
+        assert first["error"] == "CollectiveError"
+        assert second["error"] == "CollectiveError" and "broke earlier" in second["message"]
+        assert lead["broken"]
+        assert _res(runs, 2, "timing_missed", 1)["error"] == "CollectiveError"
 
 
 def test_serve_cli_on_a_mesh(runs):

@@ -11,6 +11,7 @@ train on the card.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -319,29 +320,34 @@ class TestTrainerPieces:
         {"collective_timing": "sampled"},
     ], ids=lambda kw: next(iter(kw)))
     def test_unported_options_raise(self, kw):
-        """ZeRO and the quantized reduce are ported (parallel/manual.py): on
-        one device the step runs them as glom_tpu's Trainer resolves them,
-        stage 0 without the hop, the same update as without them; the rest
-        stay refused with their ROADMAP item."""
+        """Every one of these options is ported, and on one device the step
+        runs it as glom_tpu's Trainer does: ZeRO and the quantized reduce
+        (parallel/manual.py) as stage 0 without the hop, the collective
+        timing ignored (one device has no collective), telemetry "full" as
+        the "scalars" update with the per-level agreement beside it. Each
+        gives the same update as the step without it, bit for bit."""
+        name = next(iter(kw))
         cfg = GlomConfig(**TINY)
-        if next(iter(kw)) in ("zero_stage", "quantized_reduce"):
+        if name in ("zero_stage", "quantized_reduce"):
             jt = jconfig.TrainConfig(batch_size=2, **kw)
             assert (jtrainer.resolve_zero_stage(jt, 1), jtrainer.resolve_quantized_reduce(jt, 1)
                     ) == (0, False)
-            _, _, _, tp, img, _ = setup()
-            results = []
-            for tk in (dict(batch_size=2, **kw), dict(batch_size=2)):
-                state, _ = create_train_state(cfg, TrainConfig(**tk), params=tp, device="cpu")
-                step = make_train_step(cfg, TrainConfig(**tk), zero_stage=tk.get("zero_stage", 0),
-                                       device="cpu")
-                state, m = step(state, torch.from_numpy(img), torch.Generator().manual_seed(0))
-                results.append((float(m["loss"]), param_leaves(state.params)))
-            assert results[0][0] == results[1][0]
-            for a, b in zip(results[0][1], results[1][1]):
-                torch.testing.assert_close(a, b, rtol=0, atol=0)
-            return
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-            make_train_step(cfg, TrainConfig(**kw), device="cpu")
+        base = {"telemetry_level": "scalars"} if name == "telemetry_level" else {}
+        _, _, _, tp, img, _ = setup()
+        results = []
+        for tk in (dict(batch_size=2, **kw), dict(batch_size=2, **base)):
+            state, _ = create_train_state(cfg, TrainConfig(**tk), params=tp, device="cpu")
+            step = make_train_step(cfg, TrainConfig(**tk), zero_stage=tk.get("zero_stage", 0),
+                                   device="cpu")
+            state, m = step(state, torch.from_numpy(img), torch.Generator().manual_seed(0))
+            results.append((float(m["loss"]), param_leaves(state.params), m))
+        assert results[0][0] == results[1][0]
+        for a, b in zip(results[0][1], results[1][1]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        agreement = results[0][2].get("level_agreement")
+        assert (agreement is not None) == (name == "telemetry_level")
+        if agreement is not None:
+            assert agreement.shape == (cfg.levels,) and bool(agreement.isfinite().all())
 
     def test_zero_shardings_has_no_counterpart(self):
         with pytest.raises(NotImplementedError, match="parallel/manual.py"):
@@ -376,13 +382,39 @@ class TestTrainerAndData:
         assert hist[-1]["steps_timed"] == 3 and hist[-1]["step_time_p50_ms"] > 0
         assert tr.state.step == 5
 
-    def test_trainer_refuses_unported(self, monkeypatch):
+    def test_trainer_refuses_unported(self, monkeypatch, tmp_path):
+        """fit_loop's hooks are ported: Trainer.fit profiles its trace
+        capture's window (the notes and one trace file), and fit_loop merges
+        the memory probe's fields into each logging record and writes the
+        aux records after it. The Trainer still needs the card unless the
+        caller names the CPU."""
+        from glom_tpu_torch.telemetry import schema
+        from glom_tpu_torch.tracing.capture import TraceCapture
+
+        class Writer:
+            def __init__(self):
+                self.records = []
+
+            def write(self, rec):
+                self.records.append(rec)
+
         cfg = GlomConfig(**TINY)
-        tr = Trainer(cfg, TrainConfig(batch_size=2), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tr.fit(gaussian_dataset(2, 8), 1, trace_capture=object())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fit_loop(tr.step, gaussian_dataset(2, 8), 1, memory_probe=dict)
+        w = Writer()
+        tr = Trainer(cfg, TrainConfig(batch_size=2), device="cpu", metrics_writer=w)
+        cap = TraceCapture.parse("1:1", str(tmp_path), writer=w)
+        tr.fit(gaussian_dataset(2, 8), 3, log_every=1, trace_capture=cap)
+        notes = [r for r in w.records if r["kind"] == "note"]
+        assert [(r["note"], r.get("first_step"), r.get("last_step")) for r in notes] == [
+            ("xla-trace-start", 1, None), ("xla-trace-stop", None, 1)]
+        assert [cap.path] == [str(tmp_path / f) for f in os.listdir(tmp_path)]
+        aux = schema.stamp({"site": "s", "wall_ms": 1.0}, kind="collective_time")
+        w2 = Writer()
+        hist = fit_loop(tr.step, gaussian_dataset(2, 8), 2, log_every=1, metrics_writer=w2,
+                        memory_probe=lambda: {"hbm_bytes_in_use": 7},
+                        aux_records_probe=lambda: [aux])
+        assert [r["hbm_bytes_in_use"] for r in hist] == [7, 7]
+        kinds = [r["kind"] for r in w2.records]
+        assert kinds.count("collective_time") == 2 and kinds[-1] == "collective_time"
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(cfg, TrainConfig())

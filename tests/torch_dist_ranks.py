@@ -143,8 +143,9 @@ def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=
                 tp_axis="hidden"):
     """DistributedTrainer.fit over shapes_dataset(seed=data_seed): the
     records, the final global params and optimizer state, the bytes of
-    this rank's optimizer state, and over the run the (G, f, addend) of
-    each K1 Function call and the counted collective sites."""
+    this rank's optimizer state, over the run the (G, f, addend) of each
+    K1 Function call and the counted collective sites, and the
+    "collective_time" records the writer rank wrote."""
     import warnings
 
     from glom_tpu_torch.data import shapes_dataset
@@ -156,12 +157,13 @@ def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=
 
     cfg, tcfg = GlomConfig(**cfg_kw), TrainConfig(**tcfg_kw)
     world = int(np.prod(shape))
+    writer = _ListWriter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         tr = DistributedTrainer(cfg, tcfg, MeshConfig(*shape), sp_strategy=sp,
                                 devices=["cpu"] * world, backend="gloo",
                                 params=None if arrays is None else _params(arrays),
-                                tp_axis=tp_axis)
+                                tp_axis=tp_axis, metrics_writer=writer)
     k1_calls, vjp = [], manual.grouped_ffw_lm_vjp
 
     def recording_vjp(p, x, add=None):
@@ -190,6 +192,7 @@ def trainer_run(shape, sp, cfg_kw, tcfg_kw, arrays, steps, data_seed, log_every=
         "warnings": [str(w.message) for w in caught],
         "vjp_path": tr.vjp_path, "sp_strategy": tr.sp_strategy,
         "k1_calls": k1_calls, "sites": sites.sites,
+        "collective_time": [r for r in writer.recs if r.get("kind") == "collective_time"],
     }
 
 
@@ -401,6 +404,9 @@ def _serve_script(eng, calls):
         elif kind == "release":
             eng.release()
             out.append(True)
+        elif kind == "timing":
+            out.append([{k: v for k, v in r.items() if isinstance(v, (int, float, str))
+                         or v is None} for r in eng.collective_time_records()])
     return out
 
 
@@ -423,9 +429,10 @@ def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, en
     `engines` > 1 the ranks split into that many groups
     (runtime.make_engine_meshes), every engine held by `leader`; each runs
     the same calls. `fault`: {"rank": r, "fail": [(op index, "transient" |
-    "kernel")], "body": [(compute call index, kind)]} makes rank r's fault
-    hook raise before those ops, and its MeshWorker.compute raise inside
-    those calls. `group_timeout_s` sets the groups' collective timeout.
+    "kernel")], "body": [(compute call index, kind)], "skip_sample": True}
+    makes rank r's fault hook raise before those ops, its MeshWorker.compute
+    raise inside those calls, and its `sample` ops skip their collectives.
+    `group_timeout_s` sets the groups' collective timeout.
     Returns the leader's results, or a follower's {"ops", "failed"} (or
     {"error"} when its loop raised)."""
     import dataclasses
@@ -488,6 +495,9 @@ def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, en
         return compute(self, *args, **kw)
 
     mesh_follower.MeshWorker.compute = failing_compute
+    sample_sites = mesh_follower.MeshWorker.sample_sites
+    if mine and fault.get("skip_sample"):
+        mesh_follower.MeshWorker.sample_sites = lambda self: []
     try:
         for mesh in meshes:
             if mesh.is_member:
@@ -500,6 +510,7 @@ def serve_mesh(cfg_kw, scfg_kw, arrays, calls=None, batcher=None, fault=None, en
                         "ranks": list(mesh.ranks)}
     finally:
         mesh_follower.MeshWorker.compute = compute
+        mesh_follower.MeshWorker.sample_sites = sample_sites
     return None
 
 
