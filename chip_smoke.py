@@ -173,6 +173,25 @@ after:
     engine's RetryPolicy failing after one attempt, and the state back up
     (`watchdog`). Each kernel's launches there ride the kernels line as
     `telemetry_launches`.
+  * resilience (`resilience_phases`), every worker the training CLI in a
+    subprocess at imagenet224-dp8 on the loop, each step's route and
+    launches counted: `python -m glom_tpu_torch.resilience --scenario
+    preempt-train` three times, the SIGTERM 0, 0.35 and 0.7 s after the
+    2nd committed checkpoint (batch 8, 6 steps, a checkpoint a step), and
+    once more with the worker's own SIGTERM inside its 4th optimizer step
+    (the save waits for the step's end): each grace save ok, its ms and
+    MiB, the resumed run's losses and final params, Adam state and noise
+    generator bit for bit an uninterrupted run's (`preempt_train`); `--scenario preempt-pod`, two CLI hosts on the
+    card over a shared directory: one common step committed at the min of
+    the proposals, both hosts resumed from it, the barrier round's ms from
+    the stamped phases (`preempt_pod`); the CLI's `--distributed
+    --supervise 1` on 2 gloo ranks (global batch 16) under
+    torch.distributed.run, clean, with rank 1 failing at a checkpoint-span
+    boundary and inside an optimizer step under a 10 s group timeout: both
+    faults resumed from the common step and ending bit for bit on the clean
+    run (`dist_gang`); `--scenario kill-serve` and `ramp-serve` through the
+    serve CLI (`chaos_serve`). Each kernel's launches there ride the kernels
+    line as `resilience_launches`.
 
 It prints one JSON line per phase. The last line is
 
@@ -2391,6 +2410,511 @@ def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8")
     return dist_kernel_launches(total)
 
 
+# -- resilience: the chaos harness and the gang (resilience_phases) -------------------
+# Every worker is a subprocess running the training CLI through this script:
+# `--counted-train-cli DIR ARGV` appends each step's route and launches to
+# DIR, and `--gang-cli-rank SPEC ARGV` is one rank of `--distributed
+# --supervise` under torch.distributed.run, with SPEC's planted fault.
+RES_STEPS = 6
+RES_BATCH = 8
+RES_KILL_AFTER = 2
+# The preempt_train SIGTERMs land this long after the RES_KILL_AFTER-th
+# committed checkpoint: at different points of a step or of its save.
+PREEMPT_OFFSETS_S = (0.0, 0.35, 0.7)
+GANG_BATCH = 16  # global: 8 a rank, on the loop
+GANG_STEPS = 6
+# The gang's group timeout: a rank left waiting in a collective by a failed
+# peer raises after this.
+GANG_TIMEOUT_S = 10.0
+RES_TIMEOUT_S = 300
+# resume_seek skips this many batches of the preset's batch.
+SEEK_SKIP = 8
+
+
+def _count_steps(cls, path: str):
+    """Wrap cls.step and cls.step_fast so that each call appends its step,
+    route and kernel launches to `path` (a step a SIGTERM ended writes
+    nothing); returns the function that puts them back."""
+    fh = open(path, "a", buffering=1)
+    origs = {name: getattr(cls, name) for name in ("step", "step_fast")}
+    for name, orig in origs.items():
+
+        def counted(self, batch, _orig=orig):
+            before = _dist_counts()
+            metrics = _orig(self, batch)
+            after = _dist_counts()
+            fh.write(json.dumps({"step": int(self.state.step) - 1, "vjp_path": self.vjp_path,
+                                 "launches": {k: after[k] - before[k] for k in after}}) + "\n")
+            return metrics
+
+        setattr(cls, name, counted)
+
+    def restore():
+        for name, orig in origs.items():
+            setattr(cls, name, orig)
+        fh.close()
+
+    return restore
+
+
+def _counted_train_cli(out_dir: str, argv: list) -> int:
+    """`python -m glom_tpu_torch.train.cli ARGV`, each step counted into
+    OUT_DIR/steps_<pid>.jsonl (the chaos harness's training worker)."""
+    import os
+
+    from glom_tpu_torch.train import cli as train_cli
+    from glom_tpu_torch.train.trainer import Trainer
+
+    _count_steps(Trainer, os.path.join(out_dir, f"steps_{os.getpid()}.jsonl"))
+    return train_cli.main(argv)
+
+
+def _sigterm_train_cli(out_dir: str, at: str, argv: list) -> int:
+    """_counted_train_cli with this process SIGTERMing itself from inside
+    its `at`-th optimizer step (0-based), before the in-place update: the
+    save must wait for the step's end."""
+    import os
+    import signal
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    count = [0]
+
+    def hook(opt, args, kwargs):
+        if count[0] == int(at):
+            os.kill(os.getpid(), signal.SIGTERM)
+        count[0] += 1
+
+    register_optimizer_step_pre_hook(hook)
+    return _counted_train_cli(out_dir, argv)
+
+
+def _gang_cli_rank(spec_path: str, argv: list) -> int:
+    """One rank of `python -m torch.distributed.run ... chip_smoke.py
+    --gang-cli-rank SPEC ARGV`: the training CLI with SPEC's group timeout,
+    each step counted, and SPEC's fault planted once on its rank in the
+    first attempt ("boundary": the data stream raises before batch `at`;
+    "in_step": the `at`-th optimizer step raises). Writes the exit code,
+    the seconds and whether the fault fired to OUT/rank<r>.json."""
+    import os
+
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    import glom_tpu_torch.data as data_mod
+    from glom_tpu_torch.parallel import mesh
+    from glom_tpu_torch.parallel.runtime import DistributedTrainer
+    from glom_tpu_torch.resilience import InjectedFault
+    from glom_tpu_torch.train import cli as train_cli
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    rank = int(os.environ["RANK"])
+    mesh.GROUP_TIMEOUT_S = spec["group_timeout_s"]
+    _count_steps(DistributedTrainer, os.path.join(spec["out"], f"steps_rank{rank}.jsonl"))
+    fault, fired = spec.get("fault"), [False]
+    if fault and fault["rank"] == rank:
+        if fault["kind"] == "boundary":
+            shapes = data_mod.shapes_dataset
+
+            def faulty(*a, **kw):
+                for i, b in enumerate(shapes(*a, **kw)):
+                    if i == fault["at"] and not fired[0]:
+                        fired[0] = True
+                        raise InjectedFault("injected fault at a step boundary")
+                    yield b
+
+            data_mod.shapes_dataset = faulty
+        else:
+            count = [0]
+
+            def hook(opt, args, kwargs):
+                count[0] += 1
+                if count[0] == fault["at"] + 1 and not fired[0]:
+                    fired[0] = True
+                    raise InjectedFault("injected fault inside an optimizer step")
+
+            register_optimizer_step_pre_hook(hook)
+    t0 = time.monotonic()
+    rc = train_cli.main(argv)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump({"rc": rc, "seconds": time.monotonic() - t0, "fired": fired[0]}, fh)
+    return rc
+
+
+def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
+                      batch: int = RES_BATCH, steps: int = RES_STEPS,
+                      gang_batch: int = GANG_BATCH, serve_preset: str = None) -> dict:
+    """preempt_train, preempt_pod and chaos_serve (python -m
+    glom_tpu_torch.resilience at `preset` on `dev`) and dist_gang (the CLI's
+    2-rank gang under torch.distributed.run on `dev`); returns the launches
+    of each kernel over every counted training step of their workers, for
+    the kernels line's `resilience_launches`."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from glom_tpu_torch.resilience import chaos
+    from glom_tpu_torch.resilience.coordinator import read_pod_commit
+    from glom_tpu_torch.train import default_recon_index
+    from glom_tpu_torch.utils.checkpoint import STATE_FILE
+
+    counted = dev.type == "cuda"
+    k = default_recon_index(cfg.default_iters)
+    want_loop = _full(_loop_launches(k))
+    route = LOOP_ROUTE[dev.type]
+    total = {key: 0 for key in DIST_COUNTERS}
+    here = os.path.abspath(__file__)
+    root = os.path.dirname(here)
+    work = tempfile.mkdtemp(prefix="glom_resilience_")
+
+    def step_rows(d):
+        rows = []
+        for path in sorted(glob.glob(os.path.join(d, "steps_*.jsonl"))):
+            with open(path) as fh:
+                rows += [json.loads(ln) for ln in fh]
+        return rows
+
+    def launch_check(rows):
+        """(every step on the loop with exactly its launches, routes, steps
+        counted); the launches join `total`."""
+        for r in rows:
+            for key, v in r["launches"].items():
+                total[key] += v
+        exact = bool(rows) and all(r["launches"] == want_loop for r in rows) or (
+            bool(rows) and not counted)
+        return exact and {r["vjp_path"] for r in rows} == {route}, sorted(
+            {r["vjp_path"] for r in rows}), len(rows)
+
+    def run_chaos(argv, steps_dir):
+        """chaos.main(argv) with its training workers counted into
+        steps_dir; (exit code, the harness's stamped records)."""
+        os.makedirs(steps_dir, exist_ok=True)
+        saved = chaos.TRAIN_WORKER
+        chaos.TRAIN_WORKER = [here, "--counted-train-cli", steps_dir]
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = chaos.main(argv)
+        finally:
+            chaos.TRAIN_WORKER = saved
+        return rc, [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+
+    def records(path):
+        if not os.path.exists(path):
+            return []
+        with open(path) as fh:
+            return [json.loads(ln) for ln in fh if ln.startswith("{")]
+
+    def payload(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    def bitwise(a, b):
+        """Params, optimizer state and generator of two payloads, bit for bit."""
+        if a["params"].keys() != b["params"].keys():
+            return False
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        return (all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+                and sa.keys() == sb.keys()
+                and all(torch.equal(v, sb[i][key]) if torch.is_tensor(v) else v == sb[i][key]
+                        for i in sa for key, v in sa[i].items())
+                and (a["generator"] is None) == (b["generator"] is None)
+                and (a["generator"] is None or torch.equal(a["generator"], b["generator"])))
+
+    base = ["--device", str(dev), "--preset", preset, "--steps", str(steps),
+            "--batch-size", str(batch), "--kill-after", str(RES_KILL_AFTER),
+            "--timeout", str(RES_TIMEOUT_S)]
+
+    # -- preempt_train: SIGTERM at three offsets, each resumed, against one
+    # uninterrupted run of the same worker's arguments, in this process -----------------
+    from glom_tpu_torch.train import cli as train_cli
+    from glom_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    clean_dir = os.path.join(work, "clean")
+    os.makedirs(clean_dir)
+    clean_args = chaos.build_parser().parse_args(["--dir", clean_dir, *base])
+    clean_paths = {"ckpt": os.path.join(clean_dir, "ckpt"),
+                   "metrics": os.path.join(clean_dir, "metrics.jsonl"),
+                   "flight": os.path.join(clean_dir, "flight")}
+    cmd = chaos._worker_cmd(clean_args, clean_paths)
+    at = cmd.index("--preset")
+    cli_argv = [a for a in cmd[at:] if a not in ("--flight-recorder", clean_paths["flight"])]
+    restore = _count_steps(Trainer, os.path.join(clean_dir, "steps_clean.jsonl"))
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            clean_rc = train_cli.main(cli_argv)
+    finally:
+        restore()
+    clean = subprocess.CompletedProcess(cli_argv, clean_rc, "", err.getvalue())
+    clean_losses = {r["step"]: r["loss"] for r in records(clean_paths["metrics"])
+                    if r.get("kind") == "train_step"}
+    clean_final = payload(os.path.join(clean_paths["ckpt"], str(steps), STATE_FILE))
+    clean_exact, clean_routes, clean_n = launch_check(step_rows(clean_dir))
+    wait = chaos._wait_for_checkpoints
+    runs = []
+    for off in PREEMPT_OFFSETS_S:
+        d = os.path.join(work, f"preempt_{off}")
+
+        def late(proc, ckpt_dir, n, deadline, _off=off):
+            ok = wait(proc, ckpt_dir, n, deadline)
+            time.sleep(_off)
+            return ok
+
+        chaos._wait_for_checkpoints = late
+        try:
+            rc, stamped = run_chaos(["--dir", d, "--scenario", "preempt-train", *base],
+                                   os.path.join(d, "steps"))
+        finally:
+            chaos._wait_for_checkpoints = wait
+        summary = ([r for r in stamped if r.get("event") == "chaos-summary"] or [{}])[-1]
+        recs = records(os.path.join(d, "metrics.jsonl"))
+        saves = []
+        for dump in sorted(glob.glob(os.path.join(d, "flight", "flight_*.jsonl"))):
+            saves += [r for r in records(dump) if r.get("action") == "preemption-checkpoint"]
+        saves = list({r["flight_seq"]: r for r in saves}.values())  # dumps repeat the ring
+        saved_step = saves[0].get("step") if saves else None
+        losses = {r["step"]: r["loss"] for r in recs if r.get("kind") == "train_step"}
+        final = os.path.join(d, "ckpt", str(steps), STATE_FILE)
+        # The saved step's write (the grace save's, or the loop's if it
+        # committed that step first).
+        writes = [r["bytes"] for r in recs if r.get("name") == "host_checkpoint_write"
+                  and r.get("step") == saved_step]
+        exact, routes, n_rows = launch_check(step_rows(os.path.join(d, "steps")))
+        runs.append(dict(
+            offset_s=off, rc=rc, summary_ok=summary.get("ok"),
+            failures=summary.get("failures"), resumed_from=summary.get("resumed_from_step"),
+            saves=[{key: r.get(key) for key in ("ok", "step", "elapsed_s", "deferred_s", "note")}
+                   for r in saves],
+            grace_save_ms=1e3 * saves[0]["elapsed_s"] if saves else None,
+            grace_deferred_ms=(1e3 * saves[0]["deferred_s"] if saves and "deferred_s" in saves[0]
+                               else None),
+            grace_mib=writes[-1] / 2 ** 20 if writes else None,
+            losses_bitwise=bool(losses) and all(clean_losses.get(s) == v
+                                                for s, v in losses.items()),
+            steps_logged=sorted(losses),
+            final_bitwise=os.path.exists(final) and bitwise(payload(final), clean_final),
+            exact_launches=exact, routes=routes, counted_steps=n_rows))
+    # ... and one SIGTERM the worker sends itself inside its 4th optimizer step
+    # (the chaos harness's land between steps), then the same worker resumed.
+    d = os.path.join(work, "preempt_in_step")
+    paths = {"ckpt": os.path.join(d, "ckpt"), "metrics": os.path.join(d, "metrics.jsonl"),
+             "flight": os.path.join(d, "flight")}
+    os.makedirs(os.path.join(d, "steps"))
+    cli_args = chaos._worker_cmd(chaos.build_parser().parse_args(["--dir", d, *base]), paths)
+    cli_args = cli_args[cli_args.index("--preset"):]
+    in_step = [subprocess.run([sys.executable, "-u", here, *entry, *cli_args],
+                              capture_output=True, text=True, timeout=RES_TIMEOUT_S, cwd=root)
+               for entry in (["--sigterm-train-cli", os.path.join(d, "steps"), "3"],
+                             ["--counted-train-cli", os.path.join(d, "steps")])]
+    recs = records(paths["metrics"])
+    saves = []
+    for dump in sorted(glob.glob(os.path.join(d, "flight", "flight_*.jsonl"))):
+        saves += [r for r in records(dump) if r.get("action") == "preemption-checkpoint"]
+    saves = list({r["flight_seq"]: r for r in saves}.values())
+    losses = {r["step"]: r["loss"] for r in recs if r.get("kind") == "train_step"}
+    resumes = [r["step"] for r in recs if r.get("action") == "resume-from-checkpoint"]
+    final = os.path.join(paths["ckpt"], str(steps), STATE_FILE)
+    writes = [r["bytes"] for r in recs if r.get("name") == "host_checkpoint_write"
+              and saves and r.get("step") == saves[0].get("step")]
+    exact, routes, n_rows = launch_check(step_rows(os.path.join(d, "steps")))
+    runs.append(dict(
+        offset_s="inside step 3", rc=[p.returncode for p in in_step], summary_ok=None,
+        failures=None, resumed_from=resumes[0] if resumes else None,
+        saves=[{key: r.get(key) for key in ("ok", "step", "elapsed_s", "deferred_s", "note")}
+               for r in saves],
+        grace_save_ms=1e3 * saves[0]["elapsed_s"] if saves else None,
+        grace_deferred_ms=(1e3 * saves[0]["deferred_s"] if saves and "deferred_s" in saves[0]
+                           else None),
+        grace_mib=writes[-1] / 2 ** 20 if writes else None,
+        losses_bitwise=bool(losses) and all(clean_losses.get(s) == v for s, v in losses.items()),
+        steps_logged=sorted(losses),
+        final_bitwise=os.path.exists(final) and bitwise(payload(final), clean_final),
+        exact_launches=exact, routes=routes, counted_steps=n_rows))
+    ok = (clean.returncode == 0 and clean_exact and len(clean_losses) == steps
+          and all((r["rc"] == 0 and r["summary_ok"]) or r["rc"] == [143, 0] for r in runs)
+          and all(len(r["saves"]) == 1
+                  and r["saves"][0]["ok"] and r["saves"][0]["step"] == r["resumed_from"]
+                  and r["losses_bitwise"] and r["final_bitwise"] and r["exact_launches"]
+                  for r in runs)
+          and runs[-1]["grace_deferred_ms"] is not None and runs[-1]["resumed_from"] == 4)
+    emit("preempt_train", nvidia_smi=smi, preset=preset, batch=batch, steps=steps,
+         kill_after=RES_KILL_AFTER, clean_rc=clean.returncode, clean_routes=clean_routes,
+         clean_counted_steps=clean_n, clean_exact_launches=clean_exact, runs=runs,
+         want_per_step=want_loop, seconds=time.perf_counter() - t0, ok=ok,
+         stderr_tail=None if clean.returncode == 0 else clean.stderr[-2000:])
+    if not ok:
+        raise AssertionError("preempt_train failed its checks")
+
+    # -- preempt_pod: two pod hosts on the card over a directory transport ------------------
+    t0 = time.perf_counter()
+    d = os.path.join(work, "pod")
+    rc, stamped = run_chaos(["--dir", d, "--scenario", "preempt-pod", "--hosts", "2", *base],
+                           os.path.join(d, "steps"))
+    summary = ([r for r in stamped if r.get("event") == "chaos-summary"] or [{}])[-1]
+    marker = read_pod_commit(os.path.join(d, "coord"))
+    phases = []
+    for h in (0, 1):
+        for dump in sorted(glob.glob(os.path.join(d, f"flight_h{h}", "flight_*.jsonl"))):
+            phases += [r for r in records(dump) if r.get("kind") == "barrier"
+                       and r.get("round") == "preempt-g0"]
+    phases = list({(r["host"], r["phase"]): r for r in phases}.values())
+    at = {(r["host"], r["phase"]): r["wall_time_s"] for r in phases}
+    round_ms = (1e3 * (max(t for (_, ph), t in at.items() if ph == "complete")
+                       - min(t for (_, ph), t in at.items() if ph == "propose"))
+                if any(ph == "complete" for _, ph in at) else None)
+    save_ms = {h: 1e3 * (at[(h, "saved")] - at[(h, "commit")])
+               for h in (0, 1) if (h, "saved") in at and (h, "commit") in at}
+    exact, routes, n_rows = launch_check(step_rows(os.path.join(d, "steps")))
+    resumes = {h: sorted({r["step"] for r in records(os.path.join(d, f"metrics_h{h}.jsonl"))
+                          if r.get("action") == "resume-from-checkpoint"}) for h in (0, 1)}
+    ok = (rc == 0 and summary.get("ok") is True and marker is not None
+          and marker["step"] == min(int(v) for v in marker["proposals"].values())
+          and all(v == [marker["step"]] for v in resumes.values()) and exact)
+    emit("preempt_pod", nvidia_smi=smi, preset=preset, batch=batch, steps=steps, hosts=2,
+         rc=rc, summary=summary, marker=marker, resumes=resumes, barrier_round_ms=round_ms,
+         barrier_save_ms=save_ms, kill_gap_s=0.5, exact_launches=exact, routes=routes,
+         counted_steps=n_rows, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("preempt_pod failed its checks")
+
+    # -- resume_seek: the host time a resumed run spends on its data stream before its
+    # first step, a skipped batch against a produced one, at the preset's batch ----------
+    from glom_tpu_torch.data import gaussian_dataset, shapes_dataset
+    from glom_tpu_torch.utils.presets import get_preset
+
+    t0 = time.perf_counter()
+    seek_batch = get_preset(preset).train.batch_size
+    seek = {}
+    for name, make in (("shapes", shapes_dataset), ("gaussian", gaussian_dataset)):
+        t1 = time.perf_counter()
+        first = next(make(seek_batch, cfg.image_size, seed=SEED))
+        t2 = time.perf_counter()
+        later = next(make(seek_batch, cfg.image_size, seed=SEED, start=SEEK_SKIP))
+        t3 = time.perf_counter()
+        seek[name] = dict(batch_ms=1e3 * (t2 - t1),
+                          skip_ms_per_batch=1e3 * ((t3 - t2) - (t2 - t1)) / SEEK_SKIP,
+                          shape=list(later.shape), finite=bool(np.isfinite(later).all()),
+                          differs=not np.array_equal(first, later))
+    ok = all(v["finite"] and v["differs"] and v["shape"] == [seek_batch, 3, cfg.image_size,
+                                                              cfg.image_size]
+             for v in seek.values())
+    emit("resume_seek", nvidia_smi=smi, preset=preset, batch=seek_batch, skipped=SEEK_SKIP,
+         sources=seek, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("resume_seek failed its checks")
+
+    # -- dist_gang: the CLI's --distributed --supervise on 2 gloo ranks sharing the card;
+    # the three launches run at once (six ranks on the card) ------------------------------
+    t0 = time.perf_counter()
+    gang, procs = {}, {}
+    for name, fault in (("clean", None),
+                        ("boundary", {"rank": 1, "kind": "boundary", "at": 4}),
+                        ("in_step", {"rank": 1, "kind": "in_step", "at": 3})):
+        gd = os.path.join(work, f"gang_{name}")
+        os.makedirs(gd)
+        spec = os.path.join(gd, "spec.json")
+        with open(spec, "w") as fh:
+            json.dump({"fault": fault, "group_timeout_s": GANG_TIMEOUT_S, "out": gd}, fh)
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2", "--monitor-interval", "0.1", here, "--gang-cli-rank",
+                spec, "--preset", preset, "--distributed", "--dist-backend", "gloo",
+                "--device", str(dev), "--batch-size", str(gang_batch),
+                "--steps", str(GANG_STEPS), "--checkpoint-every", "2", "--log-every", "1",
+                "--prefetch", "0", "--supervise", "1",
+                "--checkpoint-dir", os.path.join(gd, "ckpt"),
+                "--metrics-file", os.path.join(gd, "m.jsonl")]
+        logf = open(os.path.join(gd, "torchrun.log"), "w")
+        procs[name] = (subprocess.Popen(argv, stdout=logf, stderr=subprocess.STDOUT, cwd=root),
+                       time.perf_counter(), logf)
+    ended = {}
+    deadline = time.perf_counter() + RES_TIMEOUT_S
+    while len(ended) < len(procs) and time.perf_counter() < deadline:
+        for name, (proc, _, _) in procs.items():
+            if name not in ended and proc.poll() is not None:
+                ended[name] = time.perf_counter()
+        time.sleep(0.1)
+    for name, (proc, t1, logf) in procs.items():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+        seconds = ended.get(name, time.perf_counter()) - t1
+        gd = os.path.join(work, f"gang_{name}")
+        with open(os.path.join(gd, "torchrun.log")) as fh:
+            log_tail = fh.read()[-2000:]
+        ranks = []
+        for r in (0, 1):
+            path = os.path.join(gd, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    ranks.append(json.load(fh))
+            else:
+                ranks.append(None)
+        recs = records(os.path.join(gd, "m.jsonl"))
+        # One global-state copy, rank 0's, in the checkpoint dir itself.
+        final = os.path.join(gd, "ckpt", str(GANG_STEPS), STATE_FILE)
+        copies = sorted(os.listdir(os.path.join(gd, "ckpt"))) if os.path.isdir(
+            os.path.join(gd, "ckpt")) else []
+        exact, routes, n_rows = launch_check(step_rows(gd))
+        gang[name] = dict(
+            rc=proc.returncode, seconds=seconds, ranks=ranks,
+            restarts=[r.get("exception", "")[:120] for r in recs if r.get("action") == "restart"],
+            resumes=[(r["step"], r.get("attempt")) for r in recs
+                     if r.get("action") == "resume-from-checkpoint"],
+            steps_logged=sorted({r["step"] for r in recs if r.get("kind") == "train_step"}),
+            final=final if os.path.exists(final) else None,
+            per_rank_copies=[c for c in copies if c.startswith("host_")],
+            checkpoint_mib={r["step"]: r["bytes"] / 2 ** 20 for r in recs
+                            if r.get("name") == "host_checkpoint_write"},
+            exact_launches=exact, routes=routes, counted_steps=n_rows,
+            log_tail=None if proc.returncode == 0 else log_tail)
+    clean_final = payload(gang["clean"]["final"]) if gang["clean"]["final"] else None
+    for name, g in gang.items():
+        g["final_bitwise"] = (clean_final is not None and g["final"] is not None
+                              and bitwise(payload(g.pop("final")), clean_final))
+    clean_s = gang["clean"]["seconds"]
+    # The boundary fault leaves rank 0 in step 4's all-reduce until the
+    # groups time out; the in-step one lands after step 3's all-reduce, so
+    # rank 0 finishes that step and writes step 4.
+    ok = (all(g["rc"] == 0 and g["exact_launches"] and g["steps_logged"] == list(range(GANG_STEPS))
+              and g["final_bitwise"] and g["per_rank_copies"] == [] for g in gang.values())
+          and gang["clean"]["restarts"] == [] and gang["clean"]["resumes"] == []
+          and all(len(gang[n]["restarts"]) == 1 and (gang[n]["ranks"][1] or {}).get("fired")
+                  and gang[n]["resumes"] == [(4, 2)]
+                  and gang[n]["seconds"] < clean_s + GANG_TIMEOUT_S + 60.0
+                  for n in ("boundary", "in_step")))
+    emit("dist_gang", nvidia_smi=smi, preset=preset, batch=gang_batch, ranks=2, backend="gloo",
+         steps=GANG_STEPS, group_timeout_s=GANG_TIMEOUT_S, runs=gang,
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("dist_gang failed its checks")
+
+    # -- chaos_serve: kill-serve and ramp-serve through the serve CLI ----------------------
+    t0 = time.perf_counter()
+    serve = {}
+    for scenario in ("kill-serve", "ramp-serve"):
+        d = os.path.join(work, scenario)
+        rc, stamped = run_chaos(["--dir", d, "--scenario", scenario, "--device", str(dev),
+                                "--preset", serve_preset or preset,
+                                "--timeout", str(RES_TIMEOUT_S)], os.path.join(d, "steps"))
+        summary = ([r for r in stamped if r.get("event") == "chaos-summary"] or [{}])[-1]
+        serve[scenario] = dict(rc=rc, summary=summary)
+    ok = all(v["rc"] == 0 and v["summary"].get("ok") is True for v in serve.values())
+    emit("chaos_serve", nvidia_smi=smi, preset=serve_preset or preset, runs=serve,
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("chaos_serve failed its checks")
+    shutil.rmtree(work, ignore_errors=True)
+    return dist_kernel_launches(total)
+
+
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -3046,37 +3570,50 @@ def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
 
     def traced_migrate(src, dst, **kw):
         """The drain's migration, with the source's rows gathered before it
-        and each destination row right after its write. The gathers stay on
-        the card (a copy to the host would wait on every replica's queued
-        work on the shared stream, stalling the drain): stream order makes
-        each read see the pool as it stood when it was enqueued."""
+        and each destination row right after the migration's own write. The
+        gathers stay on the card (a copy to the host would wait on every
+        replica's queued work on the shared stream, stalling the drain):
+        stream order makes each read see the pool as it stood when it was
+        enqueued. The destination's other writers keep running (a sibling
+        storing a stream frame that reached it while this engine drained),
+        so only this thread's writes are read back, and the migrated
+        sessions are the ones the migration stamped `cache_migrate`: one
+        whose entry moved under the copy is invalidated, not migrated."""
         src_pool = b.cache.pools.get(src)
         dst_pool = b.cache.pools.get(dst) if dst is not None else None
         with b.cache._lock:
             sids = [sid for sid, e in b.cache._entries.items() if e.engine == src]
         before = {sid: src_pool.read_block(sid, on_device=True)
                   for sid in sids if src_pool.holds(sid)}
-        after = {}
+        after, others = {}, [0, 0]  # other threads' writes: all, of src's sessions
+        me = threading.get_ident()
         if dst_pool is not None:
             write_back = dst_pool.write_back
 
             def traced_wb(sid, row, n_tokens):
                 ok = write_back(sid, row, n_tokens)
-                if ok and sid in before:
+                if threading.get_ident() != me:
+                    others[0] += 1
+                    others[1] += sid in before
+                elif ok and sid in before:
                     after[sid] = dst_pool.read_block(sid, on_device=True)
                 return ok
 
             dst_pool.write_back = traced_wb
+        n0 = len(tap.recs)
         t0 = time.monotonic()
         try:
             out = orig_migrate(src, dst, **kw)
         finally:
             if dst_pool is not None:
                 del dst_pool.write_back
+        t_end = time.monotonic()
+        moved = [r["session"] for r in tap.recs[n0:]
+                 if r.get("event") == "cache_migrate" and r.get("src_engine") == src]
         # Host time: the copies are enqueued on the device's stream.
         migrations.append(dict(src=src, dst=dst, before=before, after=after, out=out,
-                               t_end=time.monotonic(), ms=1e3 * (time.monotonic() - t0),
-                               page_bytes=src_pool.page_bytes))
+                               moved=moved, t_end=t_end, ms=1e3 * (t_end - t0),
+                               dst_writes_by_others=others, page_bytes=src_pool.page_bytes))
         return out
 
     b.cache.migrate_engine_sessions = traced_migrate
@@ -3256,8 +3793,12 @@ def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
     mig_ok, n_mig, next_frame = True, 0, {}
     for m in migrations:
         n_mig += m["out"]["n_migrated"]
-        mig_ok &= len(m["after"]) == m["out"]["n_migrated"]
-        for sid, row in m["after"].items():
+        mig_ok &= len(set(m["moved"])) == len(m["moved"]) == m["out"]["n_migrated"]
+        mig_ok &= all(sid in m["after"] for sid in m["moved"])
+        for sid in m["moved"]:
+            row = m["after"].get(sid)
+            if row is None:
+                continue
             mig_ok &= torch.equal(row, m["before"][sid])
             mig_ok &= content_hash(row.cpu()) == content_hash(m["before"][sid].cpu())
             later = [x for x in streams if x[0] == sid and x[2] > m["t_end"]]
@@ -3407,7 +3948,10 @@ def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
          migrations=[dict(src=m["src"], dst=m["dst"], sessions=m["out"]["n_migrated"],
                           invalidated=m["out"]["n_invalidated"],
                           bytes=m["out"]["bytes_migrated"],
-                          pages=m["out"]["bytes_migrated"] // m["page_bytes"], ms=m["ms"])
+                          pages=m["out"]["bytes_migrated"] // m["page_bytes"], ms=m["ms"],
+                          written_not_migrated=len(set(m["after"]) - set(m["moved"])),
+                          dst_writes_by_others=m["dst_writes_by_others"][0],
+                          dst_writes_by_others_of_src_sessions=m["dst_writes_by_others"][1])
                      for m in migrations],
          flush_ms=[r["flush_ms"] for r in tap.events("drain_flush")],
          migrated_next_frame_hits=next_hits, releases=releases,
@@ -3431,7 +3975,9 @@ def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
     if not ok:
         raise AssertionError(
             f"serve_elastic: served once {served_once}, errors {len(errors)}, chains "
-            f"{chains_ok} {dict(kinds)}, admission {admission_ok}, migration {migrate_ok}, "
+            f"{chains_ok} {dict(kinds)}, admission {admission_ok}, migration {migrate_ok} (pages "
+            f"{mig_ok}, migrated {n_mig}, calls {calls_ok}, next frames warm {next_hits} of "
+            f"{len(next_frame)}), "
             f"release {release_ok}, launches {got} for {n_disp} + {n_warm}, bitwise {bitwise}, "
             f"audit {audit.returncode} {audit.stderr[-500:]}")
     del engines, replay_eng, ceiling_fleet, tickets, streams, stateless, migrations
@@ -5898,6 +6444,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     telemetry_launches = telemetry_phases(cfg, dev, smi)
 
+    # -- resilience: preemption saves, the pod barrier, the gang across ranks, serve chaos
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilience_launches = resilience_phases(cfg, dev, smi)
+
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
                                                  "k1_bwd_acc_add_b8", "k1_bwd_acc_cat_b8")}
@@ -6001,6 +6552,9 @@ def main() -> int:
         # dist_collective_timing and serve_mesh_timing runs, train_cli_trace
         # and the watchdog's CLI run).
         kd["telemetry_launches"] = telemetry_launches[kd["name"]]
+        # ... and in the resilience phases' training workers (every counted
+        # step of preempt_train, preempt_pod and dist_gang).
+        kd["resilience_launches"] = resilience_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6009,8 +6563,53 @@ def main() -> int:
     return 0
 
 
+def _repeat_serve_elastic(n: int) -> int:
+    """`python3 chip_smoke.py --repeat-serve-elastic N`: the flagship's
+    serve_elastic phase alone, N times on one card (a timing-dependent
+    phase's failure rate). Each pass prints its record on stdout and its
+    outcome on stderr; the last stdout line lists the outcomes. Exit 1 if
+    any pass failed."""
+    import torch
+
+    from glom_tpu_torch import GlomConfig
+    from glom_tpu_torch.kernels import _build
+    from glom_tpu_torch.models.core import init_glom
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.prebuild()
+    dev = torch.device("cuda", 0)
+    cfg = GlomConfig()
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+    outcomes = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        try:
+            serve_elastic(cfg, params, dev)
+            outcomes.append(dict(ok=True, seconds=time.perf_counter() - t0))
+        except AssertionError as e:
+            outcomes.append(dict(ok=False, seconds=time.perf_counter() - t0, error=str(e)[:600]))
+        print(f"serve_elastic pass {i}: {outcomes[-1]}", file=sys.stderr, flush=True)
+    print(json.dumps({"repeat_serve_elastic": outcomes}), flush=True)
+    return 0 if all(o["ok"] for o in outcomes) else 1
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--repeat-serve-elastic":
+        sys.exit(_repeat_serve_elastic(int(sys.argv[2])))
     if len(sys.argv) > 2 and sys.argv[1] == "--serve-cli-rank":
         # One rank of serve_cli_mesh_elastic (under torch.distributed.run).
         sys.exit(_elastic_cli_rank(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--counted-train-cli":
+        # A training worker of the resilience phases' chaos scenarios.
+        sys.exit(_counted_train_cli(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 3 and sys.argv[1] == "--sigterm-train-cli":
+        # preempt_train's worker whose SIGTERM lands inside a step.
+        sys.exit(_sigterm_train_cli(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--gang-cli-rank":
+        # One rank of dist_gang (under torch.distributed.run).
+        sys.exit(_gang_cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

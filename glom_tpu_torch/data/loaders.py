@@ -64,10 +64,12 @@ def image_folder_dataset(
     shard_index: int = 0,
     num_shards: int = 1,
     num_batches: Optional[int] = None,
+    start: int = 0,
 ) -> Iterator[np.ndarray]:
     """Recursively scan `data_dir` for images; yield shuffled, resized
     [b, 3, image_size, image_size] float32 batches in [-1, 1], reshuffling
-    every epoch. Requires PIL, imported here."""
+    every epoch, from batch `start` (its epochs' shuffles are drawn, no
+    image of a skipped batch is read). Requires PIL, imported here."""
     from PIL import Image
 
     paths = sorted(
@@ -91,11 +93,9 @@ def image_folder_dataset(
     produced = 0
     while num_batches is None or produced < num_batches:
         order = rng.permutation(len(paths))
-        for start in range(0, len(order) - batch_size + 1, batch_size):
-            batch = np.stack(
-                [load(paths[i]) for i in order[start : start + batch_size]]
-            )
-            yield batch
+        for first in range(0, len(order) - batch_size + 1, batch_size):
+            if produced >= start:
+                yield np.stack([load(paths[i]) for i in order[first : first + batch_size]])
             produced += 1
             if num_batches is not None and produced >= num_batches:
                 return
@@ -110,6 +110,7 @@ def npy_dataset(
     shard_index: int = 0,
     num_shards: int = 1,
     num_batches: Optional[int] = None,
+    start: int = 0,
 ) -> Iterator[np.ndarray]:
     """Batches from .npy shard file(s): `path` is one .npy file or a
     directory of them; each holds [N, H, W, C] or [N, C, H, W] images
@@ -117,7 +118,8 @@ def npy_dataset(
     lazily; an ImageNet-scale shard set streams one file at a time),
     distributed across hosts file-wise when there are >= num_shards files,
     row-wise otherwise. Yields [b, 3, H, W] float32 in [-1, 1], shuffling
-    rows within each shard pass."""
+    rows within each shard pass, from batch `start` (the passes' shuffles
+    are drawn, no row of a skipped batch is read)."""
     if os.path.isdir(path):
         files = sorted(
             os.path.join(path, f)
@@ -166,8 +168,9 @@ def npy_dataset(
         for f in files:
             arr = np.load(f, mmap_mode="r")
             order = rows(arr)
-            for start in range(0, len(order) - batch_size + 1, batch_size):
-                yield to_batch(arr, order[start : start + batch_size])
+            for first in range(0, len(order) - batch_size + 1, batch_size):
+                if produced >= start:
+                    yield to_batch(arr, order[first : first + batch_size])
                 produced += 1
                 if num_batches is not None and produced >= num_batches:
                     return

@@ -20,10 +20,18 @@ the devices (one per rank, by global rank; ranks that share a card pass
 lands on the CPU unless a CPU device is passed. The backend is explicit:
 "nccl" by default for CUDA devices, "gloo" for the CPU, and nothing
 switches backends after a failure.
+
+The mesh's groups are made here, one `new_group` a line of each axis, with
+the collective timeout GROUP_TIMEOUT_S, and never reuse the default group.
+So a rank that fails before a step's all-reduce leaves its peers an error
+after GROUP_TIMEOUT_S, not a hang, and a mesh made after that (a supervised
+gang's next attempt, train/cli.py `--distributed --supervise`) runs on
+groups the failure never touched.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional, Sequence, Tuple
 
@@ -34,6 +42,9 @@ from torch.distributed.device_mesh import DeviceMesh
 from glom_tpu_torch.utils.config import MeshConfig
 
 BACKENDS = ("nccl", "gloo")
+# Every rank mesh's collective timeout, in seconds: long enough for a rank
+# that builds the kernels on its first step while its peers wait.
+GROUP_TIMEOUT_S = 300
 
 
 def default_backend(device) -> str:
@@ -117,9 +128,10 @@ def initialize_multihost(
 def make_mesh(
     cfg: MeshConfig, devices: Optional[Sequence] = None, backend: Optional[str] = None
 ) -> Tuple[DeviceMesh, torch.device]:
-    """(DeviceMesh of shape (data, seq, model) over every rank, this
-    rank's device). Brings the process group up from the environment when
-    it is not up yet; its backend must be `backend` when one is named."""
+    """(DeviceMesh of shape (data, seq, model) over every rank on groups
+    of its own (see the module docstring), this rank's device). Brings the
+    process group up from the environment when it is not up yet; its
+    backend must be `backend` when one is named."""
     device = rank_device(devices)
     initialize_multihost(backend=backend, device=device)
     if not dist.is_initialized():
@@ -137,9 +149,17 @@ def make_mesh(
     if device.type == "cuda":
         torch.cuda.set_device(device)
     # Row-major over (data, seq, model): also slice-major for a hybrid mesh,
-    # since the data axis is outermost.
+    # since the data axis is outermost. Every rank makes every line's group,
+    # in the same order, and keeps its own line of each axis.
     ranks = torch.arange(world).reshape(cfg.shape)
-    mesh = DeviceMesh(device.type, ranks, mesh_dim_names=cfg.axis_names)
+    timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
+    mine = []
+    for dim, size in enumerate(cfg.shape):
+        for line in ranks.movedim(dim, -1).reshape(-1, size).tolist():
+            group = dist.new_group(ranks=line, timeout=timeout)
+            if dist.get_rank() in line:
+                mine.append(group)
+    mesh = DeviceMesh.from_group(mine, device.type, mesh=ranks, mesh_dim_names=cfg.axis_names)
     return mesh, device
 
 

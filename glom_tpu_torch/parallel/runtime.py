@@ -63,6 +63,7 @@ from glom_tpu_torch.parallel.ulysses import make_ulysses_consensus
 from glom_tpu_torch.telemetry import counters as tele_counters
 from glom_tpu_torch.telemetry import diagnostics as diag
 from glom_tpu_torch.telemetry.comm_time import CollectiveTimeSampler, collective_time_records
+from glom_tpu_torch.tracing import flight
 from glom_tpu_torch.tracing.memory import memory_record, model_live_bytes_total
 from glom_tpu_torch.train.objectives import init_denoise
 from glom_tpu_torch.train.trainer import (
@@ -382,7 +383,6 @@ class DistributedTrainer:
         self._step = build(True)
         self._step_fast = build(False)
         self._compile_tracker: set = set()
-        self.in_step = False
         self._static_record = self._analytic_record(gparams)
         # The measured collective counters: the ZeRO step's named sites
         # counted over its first real step (collective shapes do not change
@@ -433,8 +433,8 @@ class DistributedTrainer:
             dtype=torch.float32, device=self.device,
         )
         counting = self._counters
-        self.in_step = True
-        try:
+        # A SIGTERM inside the step waits for its end (tracing/flight.py).
+        with flight.optimizer_step():
             if counting is not None:
                 with tele_counters.recording(counting):
                     self.state, metrics = fn(self.state, img, self.generator)
@@ -449,8 +449,6 @@ class DistributedTrainer:
                         interval=self.tcfg.collective_timing_interval, device=self.device)
             else:
                 self.state, metrics = fn(self.state, img, self.generator)
-        finally:
-            self.in_step = False
         return self._annotate(metrics)
 
     def _annotate(self, metrics: dict) -> dict:

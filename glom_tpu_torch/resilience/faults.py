@@ -1,11 +1,12 @@
 """Deterministic fault injection: seedable, scoped, stamped.
 
-The port's copy of the part of `glom_tpu/resilience/faults.py` that the
-training side's recovery machinery is tested with: the FaultPlan every
-injector consults, the stamped "fault" and "recovery" emitters, and the
-injectors for a raising callable (`plan.wrap`), a poisoned batch
-(`nan_storm`), a failing dispatch (`dispatch_fault`), a failing elastic
-spawn (`spawn_fault`) and a torn checkpoint (`truncate_newest_checkpoint`).
+The port's copy of `glom_tpu/resilience/faults.py`: the FaultPlan every
+injector consults, the stamped "fault" and "recovery" emitters, and one
+injector a fault class: a raising callable (`plan.wrap`), a backend flap
+(`probe_flap`), a failing dispatch (`dispatch_fault`), a failing elastic
+spawn (`spawn_fault`), a queue stall (`queue_stall`), a poisoned batch
+(`nan_storm`), a lost or late barrier message (`message_loss`,
+`barrier_delay`) and a torn checkpoint (`truncate_newest_checkpoint`).
 The contract, in order of importance:
 
   * DETERMINISTIC: every injection decision comes from a FaultPlan, a
@@ -207,6 +208,20 @@ class FaultPlan:
 # -- injectors ------------------------------------------------------------
 
 
+def probe_flap(plan: FaultPlan, site: str = "watchdog-probe"):
+    """Backend-flap injector for BackendWatchdog.set_probe_fault: on
+    scheduled probe calls the REAL probe result is replaced with None (the
+    backend looks down); off-schedule calls pass through untouched. The
+    state machine then walks its genuine up/down/flapping transitions."""
+
+    def fault(n: Optional[int]) -> Optional[int]:
+        if plan.fires(site, probe_result=None if n is None else int(n)):
+            return None
+        return n
+
+    return fault
+
+
 def dispatch_fault(
     plan: FaultPlan,
     site: str = "engine-dispatch",
@@ -257,6 +272,26 @@ def spawn_fault(
     return hook
 
 
+def queue_stall(
+    plan: FaultPlan,
+    site: str = "queue-stall",
+    *,
+    stall_s: float = 0.05,
+    sleep: Callable[[float], None] = time.sleep,
+):
+    """Queue-stall injector: a hook that SLEEPS on scheduled calls. Attach
+    it as an engine fault_hook (dispatch slows, the bounded queue backs up,
+    the degradation ladder feels real pressure) or wrap any callable via
+    plan.wrap(fn, site, before=queue_stall(...))."""
+
+    def hook(ctx: Optional[dict] = None) -> None:
+        del ctx
+        if plan.fires(site, stall_s=stall_s):
+            sleep(stall_s)
+
+    return hook
+
+
 def nan_storm(
     data: Iterator,
     plan: FaultPlan,
@@ -278,6 +313,42 @@ def nan_storm(
             yield poisoned
         else:
             yield batch
+
+
+def message_loss(plan: FaultPlan, site: str = "barrier-msg"):
+    """Barrier-message-loss injector for the pod coordinator's transports
+    (DirectoryTransport / StoreTransport(fault_hook=...)): on scheduled
+    posts the message is silently DROPPED, and the waiting peers must abort
+    the round loudly at the deadline (coordinator.BarrierAbort, stamped).
+    ctx carries the round, phase and host, so the stamped fault reconciles
+    one-to-one against the abort it caused."""
+
+    def hook(ctx: dict) -> bool:
+        return plan.fires(site, **{k: ctx.get(k) for k in ("round", "phase", "host")})
+
+    return hook
+
+
+def barrier_delay(
+    plan: FaultPlan,
+    site: str = "barrier-delay",
+    *,
+    delay_s: float = 0.5,
+    sleep: Callable[[float], None] = time.sleep,
+):
+    """Deadline-overrun injector for the same transport seam: scheduled
+    posts are STALLED by `delay_s` before the message lands (late, not
+    lost). Past the round's grace deadline this forces the waiting peers
+    into the loud abort path; under it, it proves slow-but-alive hosts
+    still commit."""
+
+    def hook(ctx: dict) -> bool:
+        if plan.fires(site, delay_s=delay_s,
+                      **{k: ctx.get(k) for k in ("round", "phase", "host")}):
+            sleep(delay_s)
+        return False  # never dropped, only delayed
+
+    return hook
 
 
 def truncate_newest_checkpoint(

@@ -12,7 +12,7 @@
                                                          decision chain
 
 glom_tpu's compare and perfetto subcommands come with ROADMAP queue A
-item 9.
+item 9 (its part 9g).
 """
 
 import sys

@@ -12,7 +12,8 @@ recoveries), fed by the sinks that already see every record
       storm_window_s: the NaN-cascade signature),
     * SIGTERM / interpreter exit (install_process_hooks; a SIGTERM first
       runs the checkpoint hook, so a preempted run leaves a resumable
-      step),
+      step; one that lands inside an optimizer step waits for the step's
+      end, see `optimizer_step`),
     * an unhandled exception inside fit_loop (the trainer calls
       dump_flight_recorder before re-raising).
 
@@ -24,16 +25,66 @@ raises into the caller.
 Registration is process-global: sinks call `observe_event(rec)` (a no-op
 until `set_global_flight_recorder`). In-process callers that register one
 (the training CLI) unregister it on the way out.
+
+The trainers update their parameters and Adam moments in place, so a
+SIGTERM save taken in the middle of a step would copy a mix of two steps
+(glom_tpu swaps an immutable state in one assignment, and its hook always
+sees a whole step). Both trainers run each step inside `optimizer_step()`:
+a SIGTERM that lands there (on the main thread, where Python runs signal
+handlers) is deferred to the step's end, and the whole handler (the
+checkpoint hook, the dump, the chained handler) runs the moment the step
+returns, its save bounded by what is left of the deadline that started at
+the signal. The saved state is the one after the step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
 from collections import deque
 from pathlib import Path
 from typing import Callable, List, Optional
+
+# The main thread's optimizer-step depth, and the SIGTERM handlers deferred
+# to its end (optimizer_step). Only the main thread runs Python signal
+# handlers, so only its steps defer them.
+_STEP_DEPTH = 0
+_DEFERRED: List[Callable[[Optional[BaseException]], None]] = []
+
+
+def in_optimizer_step() -> bool:
+    """Whether the main thread is inside an optimizer step."""
+    return _STEP_DEPTH > 0
+
+
+@contextlib.contextmanager
+def optimizer_step():
+    """Run one optimizer step with SIGTERM's handler deferred to its end.
+
+    The trainers wrap each step in this (train/trainer.py,
+    parallel/runtime.py). A handler installed by install_process_hooks
+    that fires inside it only records itself; when the outermost step
+    returns, each deferred handler runs with the step's exception (None
+    when it finished), so a preemption save copies a whole step. On any
+    thread but the main one this is a no-op."""
+    global _STEP_DEPTH
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    _STEP_DEPTH += 1
+    failed: Optional[BaseException] = None
+    try:
+        yield
+    except BaseException as e:
+        failed = e
+        raise
+    finally:
+        _STEP_DEPTH -= 1
+        if _STEP_DEPTH == 0:
+            while _DEFERRED:
+                _DEFERRED.pop(0)(failed)
 
 
 class FlightRecorder:
@@ -167,14 +218,30 @@ class FlightRecorder:
             self._checkpoint_fn = checkpoint_fn
             self._checkpoint_deadline_s = deadline_s
 
-    def _preemption_checkpoint(self) -> None:
+    def _preemption_checkpoint(
+        self,
+        signalled: Optional[float] = None,
+        step_failed: Optional[BaseException] = None,
+    ) -> None:
         """Run the bounded checkpoint hook; never raises (the SIGTERM
-        handler must always reach the dump and the chained handler)."""
+        handler must always reach the dump and the chained handler).
+        `signalled` is the monotonic time the signal arrived: a handler
+        deferred to a step's end gets what is left of the deadline. A
+        step that raised leaves no whole state to save (`step_failed`):
+        the hook is not run and the record says why."""
         with self._lock:
             fn = self._checkpoint_fn
             deadline = self._checkpoint_deadline_s
         if fn is None:
             return
+        deferred_s = 0.0 if signalled is None else time.monotonic() - signalled
+        if step_failed is not None:
+            failure = step_failed
+
+            def fn():
+                raise RuntimeError(
+                    "the optimizer step the signal landed in raised "
+                    f"({type(failure).__name__}): no whole state to save")
         try:
             from glom_tpu_torch.telemetry import schema
 
@@ -191,7 +258,7 @@ class FlightRecorder:
                 target=run, name="glom-preempt-ckpt", daemon=True
             )
             worker.start()
-            worker.join(timeout=deadline)
+            worker.join(timeout=max(0.0, deadline - deferred_s))
             elapsed = time.monotonic() - t0
             ok = not worker.is_alive() and result[1] is None
             rec = {
@@ -201,6 +268,10 @@ class FlightRecorder:
                 "elapsed_s": round(elapsed, 3),
                 "wall_time_s": round(time.time(), 3),
             }
+            if signalled is not None:
+                # The signal landed inside an optimizer step: the save
+                # waited this long for the step to end.
+                rec["deferred_s"] = round(deferred_s, 3)
             if isinstance(result[0], dict):
                 # Pod-mode hooks (resilience/coordinator.pod_preemption_
                 # save) return the whole barrier outcome — committed
@@ -236,7 +307,9 @@ class FlightRecorder:
         from a non-main thread (where signal.signal raises) skips the
         signal hook silently. When a checkpoint hook is set
         (set_checkpoint_hook), SIGTERM first runs the bounded preemption
-        save so the dump records a resumable step. Returns self."""
+        save so the dump records a resumable step. Inside an optimizer
+        step the handler defers itself to the step's end
+        (optimizer_step). Returns self."""
         if on_exit:
             import atexit
 
@@ -247,8 +320,8 @@ class FlightRecorder:
             try:
                 prev = signal.getsignal(signal.SIGTERM)
 
-                def _handler(signum, frame):
-                    self._preemption_checkpoint()
+                def _run(signum, frame, signalled=None, step_failed=None):
+                    self._preemption_checkpoint(signalled, step_failed)
                     self.dump("sigterm")
                     if callable(prev):
                         prev(signum, frame)
@@ -258,6 +331,16 @@ class FlightRecorder:
                         return
                     else:
                         raise SystemExit(128 + signum)
+
+                def _handler(signum, frame):
+                    if in_optimizer_step():
+                        # The parameters are half updated: run at the
+                        # step's end (optimizer_step), within the deadline.
+                        t = time.monotonic()
+                        _DEFERRED.append(
+                            lambda failed: _run(signum, frame, t, failed))
+                        return
+                    _run(signum, frame)
 
                 signal.signal(signal.SIGTERM, _handler)
             except ValueError:

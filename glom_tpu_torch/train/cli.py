@@ -32,9 +32,19 @@ backend watchdog (telemetry/watchdog.py) every S seconds, registered
 globally for the run, so every record stamps its backend state and the
 retry policies fail fast on a backend that is down.
 
-Flags whose machinery is not ported raise NotImplementedError naming the
-ROADMAP queue A item that brings it: the pod coordinator and
-`--supervise` across ranks (`--pod-*`; item 9).
+Pods and gangs (resilience/coordinator.py): `--pod-index I --pod-count N
+--pod-dir DIR` make this process host I of an N-host pod whose checkpoint
+directory is `<root>/host_I`; the hosts meet over a DirectoryTransport in
+DIR. A SIGTERM then saves through the two-phase barrier (every host commits
+one common step, or the round aborts loudly), the resume reconciles to the
+newest step valid on every host, and `--supervise` restarts the pod as a
+gang. With `--distributed --supervise R` every rank is a gang member (host =
+rank) over a StoreTransport on the process group's store: rank 0 writes the
+global state to --checkpoint-dir, one copy that every rank restores, a
+rank's failure restarts every rank from its newest step, and each attempt
+builds the rank mesh afresh on groups whose collectives time out after
+`parallel/mesh.GROUP_TIMEOUT_S`, so peers left waiting in a collective by
+a failed rank raise instead of hanging.
 """
 
 from __future__ import annotations
@@ -46,7 +56,12 @@ import os
 import sys
 import tempfile
 
-_NOT_PORTED = "{} is not ported yet: ROADMAP queue A item {}"
+# How long a relaunched pod host waits for its peers at the resume
+# rendezvous. Every host of the pod is relaunched together: a host
+# relaunched alone aborts after this long, since it cannot tell a peer that
+# is down from one still training, whose newest steps its reconciliation
+# would quarantine.
+POD_RESUME_DEADLINE_S = 120.0
 
 
 def _nonneg_int(s: str) -> int:
@@ -133,12 +148,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="checkpoint retention (the newest N steps)",
     )
     p.add_argument("--resume", action="store_true", help="resume from latest ckpt")
-    p.add_argument("--pod-index", type=int, default=None, metavar="I",
-                   help="pod coordination (not ported, ROADMAP item 9)")
-    p.add_argument("--pod-count", type=int, default=None, metavar="N",
-                   help="pod coordination (not ported, ROADMAP item 9)")
-    p.add_argument("--pod-dir", default=None, metavar="DIR",
-                   help="pod coordination (not ported, ROADMAP item 9)")
+    p.add_argument(
+        "--pod-index", type=int, default=None, metavar="I",
+        help="this process's host index in a pod (with --pod-count and "
+        "--pod-dir; --checkpoint-dir must be <root>/host_I)",
+    )
+    p.add_argument(
+        "--pod-count", type=int, default=None, metavar="N",
+        help="hosts in the pod (>= 2): SIGTERM saves through the two-phase "
+        "barrier, resume reconciles to the newest common step",
+    )
+    p.add_argument(
+        "--pod-dir", default=None, metavar="DIR",
+        help="shared coordination directory of the pod's barrier rounds and "
+        "commit markers",
+    )
     p.add_argument(
         "--supervise", type=_nonneg_int, default=None, metavar="RESTARTS",
         help="run under the fit_supervised restart loop: on an unhandled "
@@ -188,17 +212,45 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Flags whose machinery is not ported: raise, never fall back."""
-    refusals = (
-        ("--supervise across ranks (the gang coordinator)",
-         args.supervise is not None and (args.distributed or args.check_parity), 9),
-        ("--pod-index/--pod-count/--pod-dir",
-         any(a is not None for a in (args.pod_index, args.pod_count, args.pod_dir)), 9),
+def _pod_setup(args, writer):
+    """(PodCoordinator, peer host dirs) for a pod run; (None, None) for the
+    single-host path. Partial pod flags fail loudly: a pod member that fell
+    back to a single-host save would resume inconsistently."""
+    pod_args = (args.pod_index, args.pod_count, args.pod_dir)
+    if all(a is None for a in pod_args):
+        return None, None
+    if any(a is None for a in pod_args):
+        raise SystemExit("--pod-index/--pod-count/--pod-dir come together (pod coordination)")
+    if args.pod_count < 2:
+        raise SystemExit("--pod-count must be >= 2 (one host is the single-host path; drop "
+                         "the pod flags)")
+    if not args.checkpoint_dir:
+        raise SystemExit("pod coordination requires --checkpoint-dir (the pod root's "
+                         "host_<i> dir)")
+    from glom_tpu_torch.resilience.coordinator import (
+        DirectoryTransport,
+        PodCoordinator,
+        peer_host_dirs,
     )
-    for flag, asked, item in refusals:
-        if asked:
-            raise NotImplementedError(_NOT_PORTED.format(flag, item))
+
+    try:
+        peers = peer_host_dirs(args.checkpoint_dir, args.pod_index, args.pod_count)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    transport = DirectoryTransport(args.pod_dir, args.pod_index, args.pod_count)
+    return PodCoordinator(transport, writer=writer), peers
+
+
+def _check_supervise(args) -> None:
+    if not args.checkpoint_dir:
+        raise SystemExit("--supervise requires --checkpoint-dir (the restart loop resumes "
+                         "from checkpoints)")
+    if args.check_parity or args.profile_dir or args.trace_steps:
+        raise SystemExit("--supervise does not compose with --check-parity/--profile-dir/"
+                         "--trace-steps (one concern per run)")
+    if args.prefetch > 0:
+        print("note: --prefetch is ignored under --supervise (the data stream is rebuilt "
+              "per attempt)", file=sys.stderr)
 
 
 def _trace_capture(args, writer):
@@ -212,7 +264,9 @@ def _trace_capture(args, writer):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if (args.distributed or args.check_parity) and args.pod_index is not None:
+        raise SystemExit("--pod-* runs one process a host; the ranks of --distributed "
+                         "--supervise are their own gang")
     if args.trace_steps and args.profile_dir:
         # One profiler session at a time: the step window would open inside
         # the whole-run session.
@@ -323,25 +377,23 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
     if args.data_dir is not None:
         from glom_tpu_torch.data import file_dataset
 
-        def make_data(batch_size, image_size, seed=0):
-            return file_dataset(args.data_dir, batch_size, image_size, seed=seed)
+        def make_data(batch_size, image_size, seed=0, start=0):
+            return file_dataset(args.data_dir, batch_size, image_size, seed=seed, start=start)
     else:
         make_data = shapes_dataset if args.data == "shapes" else gaussian_dataset
+
+    pod_coord, pod_peers = _pod_setup(args, writer)
 
     if args.supervise is not None:
         # The restart loop owns the trainer, data and checkpoint lifecycle
         # of each attempt (factories: a crashed attempt's state never leaks).
         from glom_tpu_torch.train.supervise import TrainSupervisor, fit_supervised
 
-        if not args.checkpoint_dir:
-            raise SystemExit("--supervise requires --checkpoint-dir (the "
-                             "restart loop resumes from checkpoints)")
-        if args.prefetch > 0:
-            print("note: --prefetch is ignored under --supervise (the data "
-                  "stream is rebuilt per attempt)", file=sys.stderr)
+        _check_supervise(args)
         fit_supervised(
             lambda: Trainer(cfg, tcfg, metrics_writer=writer, device=device),
-            lambda: make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed),
+            lambda start: make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed,
+                                    start=start),
             args.steps,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
@@ -350,10 +402,11 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
             metrics_writer=writer,
             max_to_keep=args.checkpoint_keep,
             preemption_deadline_s=args.preempt_deadline,
+            gang=pod_coord,
+            pod_peers=pod_peers,
         )
         return 0
 
-    data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed)
     trainer = Trainer(cfg, tcfg, metrics_writer=writer, device=device)
 
     ckpt = None
@@ -362,11 +415,21 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
     if args.checkpoint_dir:
         from glom_tpu_torch.telemetry import schema
         from glom_tpu_torch.tracing.flight import get_global_flight_recorder
-        from glom_tpu_torch.utils.checkpoint import CheckpointManager, preemption_save
+        from glom_tpu_torch.utils.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(
-            args.checkpoint_dir, metrics_writer=writer, max_to_keep=args.checkpoint_keep
+            args.checkpoint_dir, metrics_writer=writer, max_to_keep=args.checkpoint_keep,
+            pod_peers=pod_peers,
         )
+        epoch = None
+        if pod_coord is not None and args.resume:
+            # A relaunched pod reconciles together: every host is up (its old
+            # lifetime's writes stopped) before any reconciles, and none
+            # trains before all have, since a fast host's new steps would
+            # otherwise count as common steps to a slower peer that still
+            # holds its old lifetime's copies. The rounds are keyed on this
+            # launch's epoch, so no earlier lifetime's arrivals fill them.
+            epoch = pod_coord.launch_epoch(deadline_s=POD_RESUME_DEADLINE_S)
         if args.resume and ckpt.latest_step() is not None:
             start_step, trainer.state = ckpt.restore(
                 state=trainer.state, generator=trainer.generator
@@ -377,27 +440,30 @@ def _train_body(args, cfg, tcfg, writer, device) -> int:
                 kind="recovery",
             ))
             print(f"resumed from step {start_step}", file=sys.stderr)
+        if epoch is not None:
+            pod_coord.gang_barrier("reconciled", epoch, deadline_s=POD_RESUME_DEADLINE_S)
         fr_live = get_global_flight_recorder()
         if fr_live is not None:
             # Preemption grace path: SIGTERM saves the live state, bounded
-            # by --preempt-deadline, then dumps the flight ring.
-            def _preempt_save(trainer=trainer):
-                if trainer.in_step:
-                    raise RuntimeError(
-                        "SIGTERM landed inside an optimizer step: no "
-                        "consistent state to save"
-                    )
-                return preemption_save(
-                    args.checkpoint_dir, trainer.state, int(trainer.state.step),
-                    generator=trainer.generator, metrics_writer=writer,
-                )
+            # by --preempt-deadline, then dumps the flight ring (a SIGTERM
+            # inside a step saves at the step's end). In a pod the save
+            # rides the two-phase barrier: every host commits ONE common
+            # step or the round aborts loudly.
+            from glom_tpu_torch.train.supervise import preemption_hook
 
-            fr_live.set_checkpoint_hook(_preempt_save, deadline_s=args.preempt_deadline)
+            fr_live.set_checkpoint_hook(
+                preemption_hook(trainer, args.checkpoint_dir, metrics_writer=writer,
+                                gang=pod_coord, deadline_s=args.preempt_deadline,
+                                start=start_step),
+                deadline_s=args.preempt_deadline)
 
     remaining = args.steps - start_step
     if remaining <= 0:
         print("nothing to do (already past --steps)", file=sys.stderr)
         return 0
+    # The seeded stream from the first batch not trained on: the resumed run
+    # is the uninterrupted one.
+    data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed, start=start_step)
     if args.prefetch > 0:
         # Wrap ONCE, outside the checkpoint-span loop: a per-span wrap would
         # drop its staged batches at every span boundary.
@@ -445,8 +511,8 @@ def _train_distributed(args, preset, cfg, tcfg, writer, device) -> int:
     if args.data_dir is not None:
         from glom_tpu_torch.data import file_dataset
 
-        def make_data(batch_size, image_size, seed=0):
-            return file_dataset(args.data_dir, batch_size, image_size, seed=seed)
+        def make_data(batch_size, image_size, seed=0, start=0):
+            return file_dataset(args.data_dir, batch_size, image_size, seed=seed, start=start)
     else:
         make_data = shapes_dataset if args.data == "shapes" else gaussian_dataset
 
@@ -476,6 +542,8 @@ def _train_distributed(args, preset, cfg, tcfg, writer, device) -> int:
           file=sys.stderr)
     trainer = None
     try:
+        if args.supervise is not None:
+            return _supervise_ranks(args, cfg, tcfg, writer, scaled, devices, make_data)
         trainer = DistributedTrainer(
             cfg, tcfg, scaled.mesh, sp_strategy=scaled.sp_strategy, metrics_writer=writer,
             devices=devices, backend=args.dist_backend,
@@ -488,6 +556,56 @@ def _train_distributed(args, preset, cfg, tcfg, writer, device) -> int:
             dist.destroy_process_group()
         if store is not None:
             store.cleanup()
+
+
+def _supervise_ranks(args, cfg, tcfg, writer, scaled, devices, make_data) -> int:
+    """--distributed --supervise: this rank is gang member `rank` over a
+    StoreTransport on the process group's store. Rank 0 writes the one
+    global-state copy in --checkpoint-dir, which every rank restores. Each
+    attempt builds its DistributedTrainer (and so its rank mesh, on groups
+    of its own) after the restart barrier."""
+    import torch.distributed as dist
+
+    from glom_tpu_torch.parallel import DistributedTrainer, mesh
+    from glom_tpu_torch.parallel.mesh import initialize_multihost, rank_device
+    from glom_tpu_torch.resilience.coordinator import PodCoordinator, StoreTransport
+    from glom_tpu_torch.train.supervise import TrainSupervisor, fit_supervised
+
+    _check_supervise(args)
+    # Under torch.distributed.run the group comes up here, before the gang's
+    # store is taken from it (a trainer would bring it up itself).
+    initialize_multihost(backend=args.dist_backend, device=rank_device(devices))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    # A relaunch under the same torch.distributed.run agent reuses its
+    # store: the restart count keeps each launch's rounds apart.
+    store = dist.PrefixStore(
+        f"glom-gang/{os.environ.get('TORCHELASTIC_RESTART_COUNT', '0')}/",
+        dist.distributed_c10d._get_default_store())
+    gang = PodCoordinator(StoreTransport(store, rank, world), writer=writer)
+
+    def make_trainer():
+        return DistributedTrainer(
+            cfg, tcfg, scaled.mesh, sp_strategy=scaled.sp_strategy, metrics_writer=writer,
+            devices=devices, backend=args.dist_backend,
+        )
+
+    fit_supervised(
+        make_trainer,
+        lambda start: make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed, start=start),
+        args.steps,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        log_every=args.log_every,
+        supervisor=TrainSupervisor(max_restarts=args.supervise, writer=writer),
+        metrics_writer=writer,
+        max_to_keep=args.checkpoint_keep,
+        preemption_deadline_s=args.preempt_deadline,
+        gang=gang,
+        # A member that failed waits here for peers still held in a
+        # collective until its timeout.
+        gang_barrier_deadline_s=mesh.GROUP_TIMEOUT_S + 60.0,
+    )
+    return 0
 
 
 def _run_ranks(args, cfg, tcfg, writer, trainer, make_data) -> int:
@@ -510,7 +628,6 @@ def _run_ranks(args, cfg, tcfg, writer, trainer, make_data) -> int:
         dist.broadcast_object_list(worst, src=0)
         return 0 if worst[0] < 1e-2 else 1
 
-    data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed)
     ckpt = None
     start_step = 0
     if args.checkpoint_dir:
@@ -533,6 +650,7 @@ def _run_ranks(args, cfg, tcfg, writer, trainer, make_data) -> int:
     if remaining <= 0:
         print("nothing to do (already past --steps)", file=sys.stderr)
         return 0
+    data = make_data(tcfg.batch_size, cfg.image_size, seed=tcfg.seed, start=start_step)
     if args.prefetch > 0:
         from glom_tpu_torch.data import prefetch_to_device
 

@@ -580,7 +580,6 @@ class Trainer:
         # Persistent across fit() calls: span 2+ of a checkpointed run is
         # warm, and its first steps are steady-state samples.
         self._compile_tracker: set = set()
-        self.in_step = False
 
     def _run(self, fn, batch) -> dict:
         img = torch.as_tensor(
@@ -588,12 +587,10 @@ class Trainer:
             dtype=torch.float32, device=self.device,
         )
         # The parameters and optimizer state change in place inside the
-        # step: a preemption save must not copy them half-updated.
-        self.in_step = True
-        try:
+        # step: a SIGTERM that lands here is deferred to the step's end,
+        # so the preemption save copies a whole step (tracing/flight.py).
+        with flight.optimizer_step():
             self.state, metrics = fn(self.state, img, self.generator)
-        finally:
-            self.in_step = False
         metrics["vjp_path"] = self.vjp_path
         metrics["grad_accum"] = self.grad_accum
         metrics.update(self._static_record)

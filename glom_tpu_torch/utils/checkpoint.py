@@ -197,6 +197,76 @@ def load_payload(state, payload: dict, generator: Optional[torch.Generator] = No
     return state._replace(step=int(payload["step"]))
 
 
+# -- pure-file pod helpers: these judge and move PEER hosts' steps, whose
+# managers live in other processes ------------------------------------------
+
+# step_valid_in_dir results keyed by the manifest's (mtime_ns, size), held at
+# module level because the pod read side sweeps peer dirs on every
+# reconcile. The manifest-absent fallback is never cached (one is_dir()), so
+# the preemption retention poll stays live while an async commit lands.
+_step_valid_cache: Dict[Tuple[str, int], Tuple[Tuple[int, int], bool]] = {}
+
+
+def step_valid_in_dir(directory, step: int) -> bool:
+    """True when `step` is safe to restore from `directory`, judged from
+    files alone: a present manifest must verify bit for bit; an absent
+    manifest falls back to the committed step directory (the contract of
+    CheckpointManager.verify_step, manager-free so it can judge a PEER
+    host's directory)."""
+    directory = Path(directory)
+    step_dir = directory / str(int(step))
+    mpath = directory / f"manifest_{int(step)}.json"
+    try:
+        st = mpath.stat()
+    except OSError:
+        return step_dir.is_dir()
+    sig = (st.st_mtime_ns, st.st_size)
+    key = (str(directory), int(step))
+    cached = _step_valid_cache.get(key)
+    if cached is not None and cached[0] == sig:
+        return cached[1]
+    try:
+        with open(mpath) as fh:
+            manifest = json.load(fh)
+    except (OSError, json.JSONDecodeError):
+        ok = False
+    else:
+        ok = not verify_manifest(step_dir, manifest)
+    _step_valid_cache[key] = (sig, ok)
+    return ok
+
+
+def quarantine_step_in_dir(directory, step: int) -> Optional[str]:
+    """Move one step OUT of a host directory's step namespace (to the hidden
+    `.quarantine/<step>_<ts>`) and drop its manifest: the pure-file half of
+    the manager's quarantine, callable against PEER directories. Tolerant of
+    races (relaunched hosts reconcile concurrently over shared storage; the
+    one that moved the directory first wins). Returns the quarantine path
+    (None when already gone)."""
+    directory = Path(directory)
+    step = int(step)
+    step_dir = directory / str(step)
+    dest: Optional[Path] = None
+    if step_dir.is_dir():
+        qdir = directory / ".quarantine"
+        try:
+            qdir.mkdir(exist_ok=True)
+            dest = qdir / f"{step}_{time.strftime('%Y%m%d_%H%M%S')}"
+            step_dir.rename(dest)
+        except OSError:
+            dest = None
+        if dest is None and step_dir.is_dir():
+            # The rename failed with the step still in place: keep the
+            # manifest, the evidence that marks the step invalid (without
+            # it the absent-manifest fallback would call the step valid).
+            return None
+    try:
+        (directory / f"manifest_{step}.json").unlink()
+    except OSError:
+        pass
+    return str(dest) if dest is not None else None
+
+
 class _SpanSink:
     """Writer shim for the checkpoint spans: forwards to the manager's
     metrics_writer when one is attached, else to the flight recorder."""
@@ -219,9 +289,10 @@ class CheckpointManager:
     span, each with its step; with `metrics_writer` they land in the run's
     metrics stream. A save at a step at or below the newest committed one
     is declined (returns False), as Orbax declines it. `max_to_keep`
-    newest steps are kept. `pod_peers` (the pod's reconciled restore) is
-    not ported (ROADMAP queue A item 9: the pod coordinator); a distributed
-    run's checkpoint is the global state (DistributedTrainer.save_checkpoint)."""
+    newest steps are kept. `pod_peers` names the sibling hosts' directories
+    (pod mode: the read side reconciles to steps valid on every host); a
+    distributed run's checkpoint is the global state
+    (DistributedTrainer.save_checkpoint)."""
 
     def __init__(
         self,
@@ -232,15 +303,12 @@ class CheckpointManager:
         metrics_writer=None,
         pod_peers=None,
     ):
-        if pod_peers:
-            raise NotImplementedError(
-                "CheckpointManager(pod_peers=...) is not ported yet: ROADMAP "
-                "queue A item 9"
-            )
         if max_to_keep < 1:
             raise ValueError(f"max_to_keep {max_to_keep} must be >= 1")
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
+        # None: the single-host contract, unchanged.
+        self.pod_peers: List[Path] = [Path(p) for p in (pod_peers or [])]
         self.max_to_keep = max_to_keep
         self._async = async_save
         self.metrics_writer = metrics_writer
@@ -398,10 +466,12 @@ class CheckpointManager:
 
     def valid_steps(self) -> List[int]:
         """Ascending steps that pass verification: the only steps the
-        restore path hands out."""
+        restore path hands out. In pod mode a step must verify on EVERY
+        host, so latest_step() is the newest COMMON step."""
         with self._op_lock:
             self._drain()
-            return [s for s in self.all_steps() if self.verify_step(s)]
+            return [s for s in self.all_steps() if self.verify_step(s)
+                    and all(step_valid_in_dir(p, s) for p in self.pod_peers)]
 
     def latest_step(self) -> Optional[int]:
         """Newest verified step (None when nothing valid exists)."""
@@ -454,8 +524,12 @@ class CheckpointManager:
         fails verification, or that verifies (no manifest) but fails to
         load, is skipped with a stamped "recovery" event and quarantined,
         and the previous one restores. A named step that fails
-        verification raises CheckpointCorruptError. Returns (step, state),
-        or (step, (state, levels)) with with_levels."""
+        verification raises CheckpointCorruptError. In pod mode step=None
+        also requires the candidate to be valid on every peer: a
+        half-committed step is quarantined on EVERY host ("quarantine-
+        half-step"), and a step torn here is quarantined on the peers too.
+        Returns (step, state), or (step, (state, levels)) with
+        with_levels."""
         with self._op_lock:
             self._drain()
             if step is not None:
@@ -471,13 +545,35 @@ class CheckpointManager:
             last_exc: Optional[BaseException] = None
             for s in candidates:
                 if step is None and not self.verify_step(s):
-                    self._emit_recovery({
+                    rec = {
                         "action": "skip-torn-checkpoint",
                         "step": int(s),
                         "note": "manifest verification failed",
                         "quarantined": self._quarantine_torn(s),
-                    })
+                    }
+                    if self.pod_peers:
+                        # A step torn HERE is half-committed for the pod:
+                        # the peers' copies go with it.
+                        rec["peer_quarantined"] = {
+                            str(p): quarantine_step_in_dir(p, s) for p in self.pod_peers}
+                    self._emit_recovery(rec)
                     continue
+                if step is None and self.pod_peers:
+                    invalid = [str(p) for p in self.pod_peers if not step_valid_in_dir(p, s)]
+                    if invalid:
+                        # Valid here, torn or absent on a peer: quarantine it
+                        # on EVERY host and fall back to the previous one.
+                        self._emit_recovery({
+                            "action": "quarantine-half-step",
+                            "step": int(s),
+                            "invalid_hosts": invalid,
+                            "quarantined": {
+                                "self": self._quarantine_torn(s),
+                                **{str(p): quarantine_step_in_dir(p, s)
+                                   for p in self.pod_peers},
+                            },
+                        })
+                        continue
                 try:
                     # The state loads to the host: the params are copied into
                     # the trainer's tensors, and the optimizer's load moves

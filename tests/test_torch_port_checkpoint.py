@@ -10,10 +10,12 @@ restored state whose next step equals the uninterrupted run's bit for bit.
 
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
 import torch
+from torch.optim.optimizer import register_optimizer_step_pre_hook
 
 from glom_tpu.data import synthetic as jsynthetic
 from glom_tpu.resilience import FaultPlan as JFaultPlan
@@ -26,7 +28,16 @@ from glom_tpu.utils import config as jconfig
 from glom_tpu_torch import GlomConfig, TrainConfig, Trainer
 from glom_tpu_torch.data import shapes_dataset
 from glom_tpu_torch.models.core import param_leaves
-from glom_tpu_torch.resilience import FaultPlan, InjectedFault, truncate_newest_checkpoint
+from glom_tpu_torch.resilience import (
+    DirectoryTransport,
+    FaultPlan,
+    InjectedFault,
+    PodCoordinator,
+    truncate_newest_checkpoint,
+)
+from glom_tpu_torch.resilience.coordinator import GANG_DONE_ROUND
+from glom_tpu_torch.telemetry import schema
+from glom_tpu_torch.tracing import flight
 from glom_tpu_torch.train import TrainSupervisor, fit_supervised
 from glom_tpu_torch.utils import checkpoint as ckpt
 
@@ -202,8 +213,12 @@ class TestManager:
         assert not mgr.save(4, tr.state) and not mgr.save(2, tr.state)
         with pytest.raises(ValueError):
             ckpt.CheckpointManager(str(tmp_path), max_to_keep=0)
-        with pytest.raises(NotImplementedError, match="item"):
-            ckpt.CheckpointManager(str(tmp_path), pod_peers=[str(tmp_path)])
+        # Pod mode: a step counts only where every peer holds it too.
+        peer = tmp_path.parent / f"{tmp_path.name}_peer"
+        pod = ckpt.CheckpointManager(str(tmp_path), pod_peers=[str(peer)])
+        assert pod.valid_steps() == [] and pod.latest_step() is None
+        ckpt.CheckpointManager(str(peer), async_save=False).save(4, tr.state)
+        assert pod.valid_steps() == [4]
 
     @pytest.mark.parametrize("async_save", [True, False])
     def test_write_failure_leaves_previous_steps_valid(self, tmp_path, monkeypatch,
@@ -272,6 +287,133 @@ class TestManager:
         assert mgr.valid_steps() == [1]
 
 
+# -- a SIGTERM inside an optimizer step -------------------------------------------
+
+
+@pytest.fixture
+def sigterm_recorder(tmp_path):
+    """A flight recorder whose SIGTERM hook chains to a handler that only
+    records the signal, so the process lives on; the handler before it is
+    put back afterwards."""
+    prev = signal.getsignal(signal.SIGTERM)
+    delivered = []
+    signal.signal(signal.SIGTERM, lambda signum, frame: delivered.append(signum))
+    fr = flight.FlightRecorder(str(tmp_path / "fr")).install_process_hooks(on_exit=False)
+    flight.set_global_flight_recorder(fr)
+    try:
+        yield delivered
+    finally:
+        flight.set_global_flight_recorder(None)
+        signal.signal(signal.SIGTERM, prev)
+
+
+def sigterm_inside_step(at):
+    """SIGTERM this process from inside the `at`-th optimizer step (0-based),
+    before its in-place update: Python runs the handler at the next
+    bytecode, inside the step."""
+    count = [0]
+
+    def hook(opt, args, kwargs):
+        if count[0] == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        count[0] += 1
+
+    return register_optimizer_step_pre_hook(hook)
+
+
+def preemption_records(fr_dir):
+    """The preemption-checkpoint records of the SIGTERM dumps."""
+    recs = []
+    for name in sorted(os.listdir(fr_dir)):
+        with open(os.path.join(fr_dir, name)) as fh:
+            dump = [json.loads(ln) for ln in fh]
+        if dump[0]["trigger"] == "sigterm":
+            recs += dump[1:]
+    return [r for r in recs if r.get("action") == "preemption-checkpoint"]
+
+
+def payload_tensors(path):
+    payload = torch.load(path, weights_only=True)
+    opt = payload["optimizer"]["state"]
+    return ([payload["params"][k] for k in sorted(payload["params"])],
+            [v for i in sorted(opt) for k, v in sorted(opt[i].items())],
+            payload["generator"], payload["step"])
+
+
+class TestSigtermInsideAStep:
+    """The parameters and Adam's moments update in place, so a save taken
+    mid-step would mix two steps. A SIGTERM that lands inside a step is
+    held to the step's end: the preemption save is ok and holds the state
+    after that step, bit for bit the uninterrupted run's."""
+
+    AT = 2  # the signal lands in the third step; the save holds step 3
+
+    def _check(self, tmp_path, saved_dir, clean_dir, fr_dir="fr"):
+        (rec,) = preemption_records(tmp_path / fr_dir)
+        assert rec["ok"] is True, rec
+        assert rec["step"] == self.AT + 1 and rec["deferred_s"] >= 0
+        assert schema.validate_record(rec) == []
+        got = payload_tensors(saved_dir / str(self.AT + 1) / ckpt.STATE_FILE)
+        want = payload_tensors(clean_dir / str(self.AT + 1) / ckpt.STATE_FILE)
+        assert got[3] == want[3] == self.AT + 1
+        assert_same(got[:3], want[:3])
+
+    def test_fit_supervised(self, tmp_path, sigterm_recorder):
+        handle = sigterm_inside_step(self.AT)
+        try:
+            fit_supervised(tiny_trainer, lambda: iter(batches(4)), 4,
+                           checkpoint_dir=str(tmp_path / "a"), checkpoint_every=4, log_every=1)
+        finally:
+            handle.remove()
+        assert sigterm_recorder == [signal.SIGTERM]  # the chained handler ran
+        fit_supervised(tiny_trainer, lambda: iter(batches(4)), self.AT + 1,
+                       checkpoint_dir=str(tmp_path / "b"), checkpoint_every=self.AT + 1,
+                       log_every=1)
+        self._check(tmp_path, tmp_path / "a", tmp_path / "b")
+        assert ckpt.CheckpointManager(str(tmp_path / "a")).valid_steps() == [3, 4]
+
+    def test_training_cli(self, tmp_path, sigterm_recorder):
+        from glom_tpu_torch.train import cli
+
+        base = ["--preset", "mnist", "--device", "cpu", "--batch-size", "4", "--log-every", "1",
+                "--prefetch", "0"]
+        handle = sigterm_inside_step(self.AT)
+        try:
+            assert cli.main(base + ["--steps", "4", "--checkpoint-every", "4",
+                                    "--checkpoint-dir", str(tmp_path / "a"),
+                                    "--flight-recorder", str(tmp_path / "cli_fr")]) == 0
+        finally:
+            handle.remove()
+        assert sigterm_recorder == [signal.SIGTERM]
+        assert cli.main(base + ["--steps", str(self.AT + 1), "--checkpoint-every",
+                                str(self.AT + 1), "--checkpoint-dir", str(tmp_path / "b")]) == 0
+        self._check(tmp_path, tmp_path / "a", tmp_path / "b", fr_dir="cli_fr")
+
+    def test_a_step_that_raises_saves_nothing(self, tmp_path, sigterm_recorder):
+        """The step the signal landed in raised: no whole state exists, so
+        the hook is not run and the record says why."""
+        tr = tiny_trainer()
+        fr = flight.get_global_flight_recorder()
+        saved = []
+        fr.set_checkpoint_hook(lambda: saved.append(1))
+        handle = sigterm_inside_step(0)
+
+        def raising(opt, args, kwargs):
+            raise InjectedFault("the update failed")
+
+        bad = register_optimizer_step_pre_hook(raising)
+        try:
+            with pytest.raises(InjectedFault):
+                tr.step(batches(1)[0])
+        finally:
+            handle.remove()
+            bad.remove()
+            fr.set_checkpoint_hook(None)
+        (rec,) = preemption_records(tmp_path / "fr")
+        assert rec["ok"] is False and "raised (InjectedFault)" in rec["note"] and not saved
+        assert sigterm_recorder == [signal.SIGTERM]
+
+
 # -- the restart supervisor --------------------------------------------------------
 
 
@@ -338,18 +480,54 @@ class TestSupervisor:
         assert faulted.state.step == clean.state.step == 6
         assert_same(snapshot(faulted), snapshot(clean))
 
+    def test_a_factory_that_takes_start_is_asked_for_it(self, tmp_path):
+        """A make_data with a `start` parameter gets the restored step and
+        is not replayed; the run ends bit for bit on the uninterrupted one."""
+        starts, trainers = [], []
+
+        def make_data(start):
+            starts.append(start)
+
+            def gen():
+                for i, batch in enumerate(shapes_dataset(2, 8, start=start)):
+                    if start == 0 and i == 3:
+                        raise InjectedFault("injected trainer crash")
+                    yield batch
+            return gen()
+
+        def make_trainer():
+            trainers.append(Trainer(GlomConfig(**TINY), TrainConfig(batch_size=2),
+                                    device="cpu"))
+            return trainers[-1]
+
+        fit_supervised(make_trainer, make_data, 6, checkpoint_dir=str(tmp_path / "a"),
+                       supervisor=TrainSupervisor(max_restarts=2, backoff_s=0.25,
+                                                  sleep=lambda s: None), **self.KW)
+        _, _, clean = self._ours(tmp_path / "b", at=None)
+        assert starts == [0, 2] and trainers[-1].state.step == 6
+        assert_same(snapshot(trainers[-1]), snapshot(clean))
+
     def test_gives_up_and_reraises(self, tmp_path):
         with pytest.raises(InjectedFault):
             self._ours(tmp_path, at=tuple(range(100)), max_restarts=1)
 
     def test_already_complete_returns_and_gang_refused(self, tmp_path):
+        """A complete checkpoint returns at once; in a gang the member first
+        meets the restart barrier and then posts its done flag, as
+        glom_tpu's does."""
         self._ours(tmp_path, at=None, steps=2)
         hist, w, _ = self._ours(tmp_path, at=None, steps=2)
         assert hist == [] and _recovery_shape(w.records) == [
             ("resume-from-checkpoint", 1, 2, None)]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fit_supervised(tiny_trainer, lambda: iter([]), 1, checkpoint_dir=str(tmp_path),
-                           gang=object())
+        gw = ListWriter()
+        gang = PodCoordinator(DirectoryTransport(tmp_path / "coord", 0, 1), writer=gw)
+        assert fit_supervised(tiny_trainer, lambda: iter([]), 2, checkpoint_dir=str(tmp_path),
+                              gang=gang, metrics_writer=gw) == []
+        assert gang.transport.read_all(GANG_DONE_ROUND, "done") == {0: {"host": 0, "steps": 2}}
+        assert [(r["kind"], r.get("phase") or r.get("action")) for r in gw.records
+                if r["kind"] in ("barrier", "recovery")] == [
+            ("barrier", "arrive"), ("barrier", "complete"),
+            ("recovery", "resume-from-checkpoint"), ("barrier", "done")]
 
     def test_backoff_matches_glom_tpu(self):
         kw = dict(max_restarts=4, backoff_s=0.5, backoff_factor=3.0, backoff_max_s=5.0,

@@ -63,6 +63,18 @@ class TestTrainAndResume:
         assert run(tmp, "--steps", "6", "--resume") == 0  # nothing left to do
         assert "nothing to do" in capfd.readouterr().err
 
+    def test_resume_continues_the_data_stream(self, trained, tmp_path):
+        """The resumed run skips the batches the checkpoint already trained
+        on (glom_tpu's CLI restarts its stream), so 4 steps + a resume to 6
+        end bit for bit on an uninterrupted 6-step run's state."""
+        tmp, _ = trained
+        assert run(tmp_path, "--steps", "6", "--checkpoint-every", "6") == 0
+        assert run(tmp, "--steps", "6", "--checkpoint-every", "2", "--resume") == 0
+        got, want = (torch.load(d / "ckpt" / "6" / "state.pt", weights_only=True)
+                     for d in (tmp, tmp_path))
+        assert all(torch.equal(got["params"][k], v) for k, v in want["params"].items())
+        assert torch.equal(got["generator"], want["generator"])
+
 
 def test_supervised_run(tmp_path):
     assert run(tmp_path, "--steps", "4", "--checkpoint-every", "2", "--supervise", "1") == 0
@@ -101,16 +113,50 @@ def test_parser_matches_glom_tpu():
     (["--telemetry-level", "full"], 9),
 ])
 def test_refused_flags(flags, item, tmp_path):
-    """Only the pod coordinator's flags stay refused (item 9's A9e). Item
-    8's (training across ranks) are ported: launched alone each runs as
-    glom_tpu's does on one device -- one rank, ZeRO resolved to stage 0 and
-    the quantized reduce off (dp 1), --check-parity exiting 0. The rest of
-    item 9's run on the CPU, each checked in its records: the watchdog's
-    transition and state, the whole-run and the step-window traces, the
-    per-level agreement."""
+    """No flag is refused any more: items 8 and 9 are ported. Item 8's
+    (training across ranks), launched alone, each run as glom_tpu's does on
+    one device -- one rank, ZeRO resolved to stage 0 and the quantized
+    reduce off (dp 1), --check-parity exiting 0. Item 9's run on the CPU,
+    each checked in its records: the watchdog's transition and state, the
+    whole-run and the step-window traces, the per-level agreement, and the
+    pod flags (two hosts, one after the other, then host 0 resuming from
+    the newest step both hold, with glom_tpu's refusals of partial flags)."""
     if "--pod-index" in flags:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue A item {item}"):
-            cli.main(BASE + ["--steps", "1", *flags])
+        pod = ["--pod-count", "2", "--pod-dir", str(tmp_path / "coord"), "--steps", "2",
+               "--checkpoint-every", "1", "--prefetch", "0"]
+        for host, steps in ((0, "2"), (1, "1")):
+            assert cli.main(BASE + [*pod, "--pod-index", str(host), "--steps", steps,
+                                    "--checkpoint-dir", str(tmp_path / f"host_{host}")]) == 0
+        metrics = tmp_path / "m.jsonl"
+        # host 1 is up, and has stopped, before host 0 resumes: its arrivals
+        # at the resume rendezvous come from a thread standing in for it
+        import threading
+
+        from glom_tpu_torch.resilience import DirectoryTransport, PodCoordinator
+
+        peer = PodCoordinator(DirectoryTransport(tmp_path / "coord", 1, 2), poll_s=0.01)
+        t = threading.Thread(target=lambda: peer.gang_barrier(
+            "reconciled", peer.launch_epoch(deadline_s=60.0), deadline_s=60.0))
+        t.start()
+        assert cli.main(BASE + [*pod, "--pod-index", "0", "--steps", "3", "--resume",
+                                "--checkpoint-dir", str(tmp_path / "host_0"),
+                                "--metrics-file", str(metrics)]) == 0
+        t.join(60.0)
+        recs = records(metrics)
+        # host 0's step 2 is half-committed (host 1 stopped at 1): quarantined
+        assert [(r["action"], r["step"]) for r in recs if r["kind"] == "recovery"] == [
+            ("quarantine-half-step", 2), ("resume-from-checkpoint", 1)]
+        assert [r["step"] for r in recs if r["kind"] == "train_step"] == [1, 2]
+        for bad, why in (([*pod, "--pod-index", "0"], "come together"),
+                         (["--pod-index", "0", "--pod-count", "2", "--pod-dir", "x"],
+                          "requires --checkpoint-dir"),
+                         ([*pod, "--pod-index", "0", "--checkpoint-dir", str(tmp_path / "c")],
+                          "host_0"),
+                         ([*pod, "--pod-index", "0", "--pod-count", "1"], "must be >= 2")):
+            if why == "come together":
+                bad = [a for a in bad if a not in ("--pod-dir", str(tmp_path / "coord"))]
+            with pytest.raises(SystemExit, match=why):
+                cli.main(BASE + bad)
         return
     metrics = tmp_path / "m.jsonl"
     if item == 9:

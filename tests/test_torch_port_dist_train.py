@@ -405,3 +405,100 @@ def test_a_failing_rank_fails_the_call(tmp_path):
     """A rank's exception reaches the caller with its traceback."""
     with pytest.raises(AssertionError, match="rank 1 fails on purpose"):
         ranks.run(2, [("fail_on", {"rank_to_fail": 1})], tmp_path, timeout=120)
+
+
+# -- preemption and the gang across ranks ------------------------------------------
+
+
+def test_sigterm_inside_a_distributed_step_saves_a_whole_step(tmp_path):
+    """DistributedTrainer's step defers SIGTERM's handler to its end, as
+    the Trainer's does: the save is ok and holds the step after the one the
+    signal landed in, bit for bit an uninterrupted run's (one rank, whose
+    main thread runs the handler)."""
+    (res,) = ranks.run(1, [("sigterm_in_step", dict(
+        cfg_kw=CFG_KW, tcfg_kw=dict(BASE, noise_std=0.5), directory=str(tmp_path), at=1,
+        steps=3))], tmp_path, timeout=240)
+    (out,) = res
+    (rec,) = out["records"]
+    assert rec["ok"] is True and rec["step"] == 2 and "deferred_s" in rec, rec
+    assert out["delivered"] == [15] and out["valid_steps"] == [2, 3]
+    assert out["params_equal"] and out["optimizer_equal"] and out["generator_equal"]
+
+
+GANG_STEPS = 6
+GANG_TIMEOUT_S = 5.0
+
+
+def _gang_argv(tmp, name):
+    return ["--preset", "mnist", "--device", "cpu", "--distributed", "--dist-backend", "gloo",
+            "--batch-size", "4", "--steps", str(GANG_STEPS), "--checkpoint-every", "2",
+            "--log-every", "1", "--prefetch", "0", "--supervise", "1",
+            "--checkpoint-dir", str(tmp / name / "ckpt"),
+            "--metrics-file", str(tmp / name / "m.jsonl")]
+
+
+@pytest.fixture(scope="module")
+def gang_runs(tmp_path_factory):
+    """The CLI's 2-rank gang three times: uninterrupted; rank 1 failing at
+    a checkpoint-span boundary (before batch 4), which leaves rank 0 in
+    step 4's gradient all-reduce; rank 1 failing inside its fourth
+    optimizer step, after that step's all-reduce, so rank 0 finishes the
+    step and writes step 4. The groups' timeout is 5 s."""
+    tmp = tmp_path_factory.mktemp("gang")
+    out = {}
+    for name, fault in (("clean", None),
+                        ("boundary", {"rank": 1, "kind": "boundary", "at": 4}),
+                        ("in_step", {"rank": 1, "kind": "in_step", "at": 3})):
+        out[name] = ranks.run(2, [("gang_cli", dict(argv=_gang_argv(tmp, name), fault=fault,
+                                                    group_timeout_s=GANG_TIMEOUT_S))],
+                              tmp, timeout=300)
+    return tmp, out
+
+
+def _gang_records(tmp, name):
+    import json
+
+    with open(tmp / name / "m.jsonl") as fh:
+        return [json.loads(ln) for ln in fh]
+
+
+@pytest.mark.parametrize("name, resume_at", [("boundary", 4), ("in_step", 4)])
+def test_gang_restarts_from_the_common_step(gang_runs, name, resume_at):
+    """A failed rank restarts the gang: both ranks resume from the newest
+    step of the gang's one copy, on fresh groups, within the groups'
+    timeout plus the restart budget, and end bit for bit on the
+    uninterrupted run's parameters."""
+    tmp, out = gang_runs
+    (clean0,), (clean1,) = out["clean"]
+    (r0,), (r1,) = out[name]
+    assert [r0["rc"], r1["rc"], r1["fired"]] == [0, 0, True]
+    assert r0["steps"][-1] == r1["steps"][-1] == clean0["steps"][-1] == GANG_STEPS
+    for got in (r0, r1, clean1):
+        assert got["params"].keys() == clean0["params"].keys()
+        for k, v in clean0["params"].items():
+            np.testing.assert_array_equal(got["params"][k], v)
+    recs = _gang_records(tmp, name)
+    restarts = [r for r in recs if r.get("action") == "restart"]
+    resumes = [r for r in recs if r.get("action") == "resume-from-checkpoint"]
+    assert len(restarts) == 1 and any(e in restarts[0]["exception"]
+                                      for e in ("CollectiveError", "GangRestart"))
+    assert [(r["step"], r["attempt"]) for r in resumes] == [(resume_at, 2)]
+    assert sorted({r["step"] for r in recs if r.get("kind") == "train_step"}) == list(
+        range(GANG_STEPS))
+    arrivals = {r["round"] for r in recs if r.get("kind") == "barrier"
+                and r["phase"] == "complete"}
+    assert {"restart-e1", "restart-e2"} <= arrivals
+    assert max(r0["seconds"], r1["seconds"]) < out["clean"][0][0]["seconds"] + (
+        GANG_TIMEOUT_S + 60.0)
+
+
+def test_gang_clean_run_matches_the_single_ranks(gang_runs):
+    tmp, out = gang_runs
+    (c0,), (c1,) = out["clean"]
+    assert [c0["rc"], c1["rc"], c0["steps"], c1["steps"]] == [0, 0, [2, 4, 6], [2, 4, 6]]
+    # One global-state copy, rank 0's, in the checkpoint dir itself.
+    assert sorted(p.name for p in (tmp / "clean" / "ckpt").iterdir()
+                  if p.is_dir() and not p.name.startswith(".")) == ["2", "4", "6"]
+    recs = _gang_records(tmp, "clean")
+    assert not [r for r in recs if r.get("action") == "restart"]
+    assert [r["phase"] for r in recs if r.get("kind") == "barrier"][-1] == "done"

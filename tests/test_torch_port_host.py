@@ -241,6 +241,39 @@ class TestLoaders:
                              _batches(jloaders.file_dataset(path, 2, 8, **kw))):
             np.testing.assert_array_equal(got, want)
 
+    @pytest.mark.parametrize("start", [1, 7])
+    @pytest.mark.parametrize("source", ["shapes", "gaussian", "folder", "npy_one", "npy_shards"])
+    def test_start_is_the_stream_from_that_batch(self, files, source, start, monkeypatch):
+        """`start=k` (a resumed run's data) is glom_tpu's stream with its
+        first k batches dropped; the file loaders read no image of a
+        skipped batch (7 crosses an epoch of the folder and the shards)."""
+        import itertools
+
+        from PIL import Image
+
+        import glom_tpu_torch.data as port
+
+        make = {
+            "shapes": lambda m, **kw: m.shapes_dataset(2, 8, seed=4, **kw),
+            "gaussian": lambda m, **kw: m.gaussian_dataset(2, 8, seed=4, **kw),
+            "folder": lambda m, **kw: m.image_folder_dataset(
+                str(files["root"] / "png"), 2, 8, seed=4, **kw),
+            "npy_one": lambda m, **kw: m.npy_dataset(str(files["one"]), 2, 8, seed=4, **kw),
+            "npy_shards": lambda m, **kw: m.npy_dataset(str(files["root"] / "shards"), 2, 8,
+                                                        seed=4, **kw),
+        }[source]
+        jmod = jsynthetic if source in ("shapes", "gaussian") else jloaders
+        want = [np.asarray(b, np.float32)
+                for b in itertools.islice(make(jmod), start, start + 3)]
+        opened = []
+        real_open = Image.open
+        monkeypatch.setattr(Image, "open", lambda *a, **kw: opened.append(a) or real_open(*a, **kw))
+        got = _batches(make(port, start=start))
+        for g, w in zip(got, want):
+            assert g.dtype == np.float32
+            np.testing.assert_array_equal(g, w)
+        assert len(opened) == (6 if source == "folder" else 0)
+
     def test_loader_errors(self, files, tmp_path):
         with pytest.raises(FileNotFoundError):
             next(image_folder_dataset(str(tmp_path), 2, 8))

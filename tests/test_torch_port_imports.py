@@ -50,7 +50,8 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.parallel.serve_mesh", "glom_tpu_torch.serve.mesh_follower",
                    "glom_tpu_torch.telemetry.counters", "glom_tpu_torch.telemetry.comm_time",
                    "glom_tpu_torch.tracing.capture", "glom_tpu_torch.tracing.memory",
-                   "glom_tpu_torch.tracing.nvtx"):
+                   "glom_tpu_torch.tracing.nvtx", "glom_tpu_torch.resilience.coordinator",
+                   "glom_tpu_torch.resilience.chaos", "glom_tpu_torch.resilience.__main__"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         if not path.exists():  # a package

@@ -782,7 +782,153 @@ def serve_cli(argv, out):
         return {"rc": rc, "records": [json.loads(ln) for ln in fh]}
 
 
+def sigterm_in_step(cfg_kw, tcfg_kw, directory, at, steps):
+    """fit_supervised over a DistributedTrainer with a SIGTERM delivered
+    inside its `at`-th optimizer step (the handler chained to one that only
+    records it): the preemption-checkpoint records of the SIGTERM dump, and
+    whether the saved step equals an uninterrupted run's, bit for bit."""
+    import json
+    import os
+    import signal
+
+    import torch.distributed as dist
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.parallel import DistributedTrainer
+    from glom_tpu_torch.tracing import flight
+    from glom_tpu_torch.train import fit_supervised
+    from glom_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+    from glom_tpu_torch.utils.config import GlomConfig, MeshConfig, TrainConfig
+
+    cfg, tcfg = GlomConfig(**cfg_kw), TrainConfig(**tcfg_kw)
+    world = dist.get_world_size()
+
+    def make_trainer():
+        return DistributedTrainer(cfg, tcfg, MeshConfig(data=world), devices=["cpu"] * world,
+                                  backend="gloo")
+
+    def make_data():
+        return shapes_dataset(tcfg.batch_size, cfg.image_size, seed=3)
+
+    delivered = []
+    prev = signal.signal(signal.SIGTERM, lambda signum, frame: delivered.append(signum))
+    fr = flight.FlightRecorder(os.path.join(directory, "fr")).install_process_hooks(on_exit=False)
+    flight.set_global_flight_recorder(fr)
+    count = [0]
+
+    def hook(opt, args, kwargs):
+        if count[0] == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        count[0] += 1
+
+    handle = register_optimizer_step_pre_hook(hook)
+    try:
+        fit_supervised(make_trainer, make_data, steps, checkpoint_dir=os.path.join(directory, "a"),
+                       checkpoint_every=steps, log_every=1)
+    finally:
+        handle.remove()
+        flight.set_global_flight_recorder(None)
+        signal.signal(signal.SIGTERM, prev)
+    fit_supervised(make_trainer, make_data, at + 1, checkpoint_dir=os.path.join(directory, "b"),
+                   checkpoint_every=at + 1, log_every=1)
+    recs = []
+    for name in sorted(os.listdir(os.path.join(directory, "fr"))):
+        with open(os.path.join(directory, "fr", name)) as fh:
+            dump = [json.loads(ln) for ln in fh]
+        if dump[0]["trigger"] == "sigterm":
+            recs += [r for r in dump if r.get("action") == "preemption-checkpoint"]
+    got, want = (torch.load(os.path.join(directory, d, str(at + 1), STATE_FILE),
+                            weights_only=True) for d in ("a", "b"))
+    return {
+        "delivered": delivered,
+        "records": recs,
+        "valid_steps": CheckpointManager(os.path.join(directory, "a")).valid_steps(),
+        "params_equal": all(torch.equal(got["params"][k], want["params"][k])
+                            for k in want["params"]) and got["params"].keys() == want["params"].keys(),
+        "optimizer_equal": all(
+            torch.equal(got["optimizer"]["state"][i][k], v) if torch.is_tensor(v)
+            else got["optimizer"]["state"][i][k] == v
+            for i, st in want["optimizer"]["state"].items() for k, v in st.items()),
+        "generator_equal": torch.equal(got["generator"], want["generator"]),
+    }
+
+
+def gang_cli(argv, fault=None, group_timeout_s=None):
+    """The training CLI with `--distributed --supervise` on every rank of
+    the group that is up, each rank a gang member. `fault` = {"rank": r,
+    "kind": "boundary" | "in_step", "at": k} plants one failure on rank r
+    in the first attempt: "boundary" raises from the data stream before
+    batch k, "in_step" inside the k-th optimizer step (0-based). The
+    groups' collective timeout is `group_timeout_s`. Returns the exit code
+    (or the exception), the seconds, whether the fault fired, and the
+    steps and newest parameters of the gang's checkpoint as this rank reads
+    them."""
+    import os
+
+    import torch.distributed as dist
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    import glom_tpu_torch.data as data_mod
+    from glom_tpu_torch.parallel import mesh as mesh_mod
+    from glom_tpu_torch.resilience import InjectedFault
+    from glom_tpu_torch.train import cli
+    from glom_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world))
+    saved_timeout, shapes = mesh_mod.GROUP_TIMEOUT_S, data_mod.shapes_dataset
+    if group_timeout_s is not None:
+        mesh_mod.GROUP_TIMEOUT_S = group_timeout_s
+    fired, handle = [False], None
+    if fault is not None and fault["rank"] == rank:
+        if fault["kind"] == "boundary":
+            def faulty(*a, **kw):
+                for i, batch in enumerate(shapes(*a, **kw)):
+                    if i == fault["at"] and not fired[0]:
+                        fired[0] = True
+                        raise InjectedFault("injected fault at a step boundary")
+                    yield batch
+
+            data_mod.shapes_dataset = faulty
+        else:
+            count = [0]
+
+            def hook(opt, args, kwargs):
+                count[0] += 1
+                if count[0] == fault["at"] + 1 and not fired[0]:
+                    fired[0] = True
+                    raise InjectedFault("injected fault inside an optimizer step")
+
+            handle = register_optimizer_step_pre_hook(hook)
+    t0 = time.monotonic()
+    try:
+        rc = cli.main(argv)
+    except BaseException as e:  # noqa: BLE001 - returned to the test
+        rc = f"{type(e).__name__}: {e}"[:500]
+    finally:
+        seconds = time.monotonic() - t0
+        mesh_mod.GROUP_TIMEOUT_S, data_mod.shapes_dataset = saved_timeout, shapes
+        if handle is not None:
+            handle.remove()
+    ck = argv[argv.index("--checkpoint-dir") + 1]
+    final = int(argv[argv.index("--steps") + 1])
+    until = time.monotonic() + 60.0
+    # Rank 0 writes the gang's one copy; another rank may return before
+    # rank 0's writer has committed the last step.
+    while True:
+        steps = CheckpointManager(ck).valid_steps() if os.path.isdir(ck) else []
+        if rc != 0 or final in steps or time.monotonic() >= until:
+            break
+        time.sleep(0.1)
+    params = {}
+    if steps:
+        payload = torch.load(os.path.join(ck, str(steps[-1]), STATE_FILE), weights_only=True)
+        params = {k: _np(v) for k, v in payload["params"].items()}
+    return {"rc": rc, "seconds": seconds, "fired": fired[0], "steps": steps, "params": params}
+
+
 CASES = {f.__name__: f for f in (fail_on, loss_grads, trainer_run, checkpoint_roundtrip, sp_bodies,
                                  consensus_fns, collective_grads, mesh_facts, glom_mesh,
                                  serve_mesh, sharded_pool, elastic_fleet, engine_meshes,
-                                 serve_cli)}
+                                 serve_cli, sigterm_in_step, gang_cli)}
