@@ -191,9 +191,32 @@ after:
     faults resumed from the common step and ending bit for bit on the clean
     run (`dist_gang`); `--scenario kill-serve` and `ramp-serve` through the
     serve CLI (`chaos_serve`). Each kernel's launches there ride the kernels
-    line as `resilience_launches`.
+    line as `resilience_launches`. preempt_train's four interrupted runs
+    (three harnesses, `--chaos-preempt`, and the in-step pair) run at once
+    beside its clean run, and train_cli_distributed's `--check-parity`
+    launch beside its first ZeRO-2 launch.
+  * the operator's tooling: `lint` first, right after the build and before
+    the card is touched (`python -m glom_tpu_torch.analysis
+    glom_tpu_torch` must exit 0: glom-lint's lockset, lock-order,
+    signal-safety and schema-emit over the port); at the end `bench_emit`
+    (`sinks.bench_bootstrap` on the card, then two arms of the same code in
+    turns, each writing stamped bench rows through `sinks.emit` to its own
+    file: a flagship bucket-8 dispatch as p50 ms and column-iters/s, a
+    batch-8 loop step as p50 ms, the best of 12 rows an arm, exact
+    launches, both files linted; its launches ride the kernels line as
+    `bench_launches`), `compare_gate` (`python -m glom_tpu_torch.telemetry
+    compare`: A vs B passes at glom_tpu's 5 %, a copy with the dispatch
+    rows x 1.5 and the rate rows x 0.5 fails naming exactly those two, a
+    copy whose step rows are bench_bootstrap's UNMEASURED record reads the
+    metric as missing and passes) and `perfetto_trace` (the streams of
+    train_cli_trace, preempt_pod, serve_cli_elastic and preempt_train's
+    flight dumps, kept from their phases, through `python -m
+    glom_tpu_torch.telemetry perfetto`: one X event a timed span, a barrier
+    track a pod host and a flow chain a committed round, a flow for each
+    decision that actuated a scale event, events in time order).
 
-It prints one JSON line per phase. The last line is
+It prints one JSON line per phase (with `elapsed_s`, the seconds since the
+script started). The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -949,19 +972,29 @@ def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
                 "--nproc-per-node", "2", "--monitor-interval", "0.1", "-m", "glom_tpu_torch.train.cli", "--preset",
                 cli_preset, "--distributed", "--dist-backend", "gloo", "--device",
                 device, "--batch-size", str(DIST_DP_BATCH), "--log-every", "1"]
-        runs = []
-        for extra in (["--zero-stage", "2", "--steps", "4", "--checkpoint-every", "2",
-                       "--checkpoint-dir", ck, "--metrics-file", metrics,
-                       "--telemetry-level", "scalars"],
-                      ["--zero-stage", "2", "--steps", "6", "--checkpoint-every", "2",
-                       "--checkpoint-dir", ck, "--metrics-file", metrics, "--resume",
-                       "--telemetry-level", "scalars"],
-                      ["--check-parity", "--steps", "3"]):
-            t1 = time.perf_counter()
-            p = subprocess.run(base + extra, capture_output=True, text=True, timeout=600,
-                               cwd=os.path.dirname(os.path.abspath(__file__)))
-            p.seconds = time.perf_counter() - t1
-            runs.append(p)
+        root = os.path.dirname(os.path.abspath(__file__))
+
+        def launch(extra):
+            return time.perf_counter(), subprocess.Popen(
+                base + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+
+        def finish(started):
+            t1, proc = started
+            out, err = proc.communicate(timeout=600)
+            done = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+            done.seconds = time.perf_counter() - t1
+            return done
+
+        # The --check-parity launch shares nothing with the ZeRO-2 pair: it
+        # runs beside the first of them (four ranks on the card).
+        parity = launch(["--check-parity", "--steps", "3"])
+        runs = [finish(launch(["--zero-stage", "2", "--steps", "4", "--checkpoint-every", "2",
+                               "--checkpoint-dir", ck, "--metrics-file", metrics,
+                               "--telemetry-level", "scalars"]))]
+        runs.append(finish(launch(["--zero-stage", "2", "--steps", "6", "--checkpoint-every",
+                                   "2", "--checkpoint-dir", ck, "--metrics-file", metrics,
+                                   "--resume", "--telemetry-level", "scalars"])))
+        runs.append(finish(parity))
         lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", metrics],
                               capture_output=True, text=True, timeout=120,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -2060,7 +2093,8 @@ def _case_serve_mesh_timing(rank, device, cfg_kw):
 DIST_CASES.update({"coll_timing": _case_coll_timing, "serve_mesh_timing": _case_serve_mesh_timing})
 
 
-def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8") -> dict:
+def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8",
+                     keep_dir: str = None) -> dict:
     """train_telemetry_full, dist_collective_timing and serve_mesh_timing
     (one 2-rank spawn on `dev`), train_cli_trace and watchdog (the CLI at
     `cli_preset`, batch 8); returns the
@@ -2069,6 +2103,7 @@ def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8")
     import contextlib
     import io
     import os
+    import shutil
     import statistics
     import tempfile
 
@@ -2297,6 +2332,8 @@ def telemetry_phases(cfg, dev, smi: str, *, cli_preset: str = "imagenet224-dp8")
                 metrics = os.path.join(tmp, f"{name}.jsonl")
                 rc, err, launches = run_cli(base + extra + ["--metrics-file", metrics])
                 add(launches)
+                if keep_dir and name == "trace_steps":  # for perfetto_trace
+                    shutil.copy(metrics, os.path.join(keep_dir, "train_cli_trace.jsonl"))
                 with open(metrics) as fh:
                     recs = [json.loads(ln) for ln in fh]
                 trace_dir = os.path.join(tmp, "window" if name == "trace_steps" else "run")
@@ -2429,6 +2466,12 @@ GANG_TIMEOUT_S = 10.0
 RES_TIMEOUT_S = 300
 # resume_seek skips this many batches of the preset's batch.
 SEEK_SKIP = 8
+# chaos_serve's ramp-serve load (requests x gap ms a phase): the harness's
+# default spike of 56 requests gave a p99 of 436.5 ms on one host and 138.5
+# ms on another, under the scenario's 150 ms rule, so the fleet never grew
+# there; 200 at once (bucket 4: 50 dispatches) breaches it on a fast host
+# and stays under the flagship preset's queue depth of 256.
+CHAOS_RAMP = "4x100,200x0,12x250"
 
 
 def _count_steps(cls, path: str):
@@ -2467,6 +2510,29 @@ def _counted_train_cli(out_dir: str, argv: list) -> int:
 
     _count_steps(Trainer, os.path.join(out_dir, f"steps_{os.getpid()}.jsonl"))
     return train_cli.main(argv)
+
+
+def _chaos_preempt(offset: str, steps_dir: str, argv: list) -> int:
+    """`python -m glom_tpu_torch.resilience ARGV` (a preempt-train scenario)
+    with its training workers counted into STEPS_DIR and its SIGTERM sent
+    OFFSET seconds after the checkpoints it waits for: preempt_train runs
+    its three offsets as three of these at once. The harness's stamped
+    records go to stdout."""
+    import os
+
+    from glom_tpu_torch.resilience import chaos
+
+    wait = chaos._wait_for_checkpoints
+
+    def late(proc, ckpt_dir, n, deadline):
+        ok = wait(proc, ckpt_dir, n, deadline)
+        time.sleep(float(offset))
+        return ok
+
+    os.makedirs(steps_dir, exist_ok=True)
+    chaos._wait_for_checkpoints = late
+    chaos.TRAIN_WORKER = [os.path.abspath(__file__), "--counted-train-cli", steps_dir]
+    return chaos.main(argv)
 
 
 def _sigterm_train_cli(out_dir: str, at: str, argv: list) -> int:
@@ -2543,7 +2609,8 @@ def _gang_cli_rank(spec_path: str, argv: list) -> int:
 
 def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
                       batch: int = RES_BATCH, steps: int = RES_STEPS,
-                      gang_batch: int = GANG_BATCH, serve_preset: str = None) -> dict:
+                      gang_batch: int = GANG_BATCH, serve_preset: str = None,
+                      keep_dir: str = None) -> dict:
     """preempt_train, preempt_pod and chaos_serve (python -m
     glom_tpu_torch.resilience at `preset` on `dev`) and dist_gang (the CLI's
     2-rank gang under torch.distributed.run on `dev`); returns the launches
@@ -2630,12 +2697,43 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
             "--batch-size", str(batch), "--kill-after", str(RES_KILL_AFTER),
             "--timeout", str(RES_TIMEOUT_S)]
 
-    # -- preempt_train: SIGTERM at three offsets, each resumed, against one
-    # uninterrupted run of the same worker's arguments, in this process -----------------
+    # -- preempt_train: SIGTERM at three offsets, each resumed, and one from inside a
+    # step, against one uninterrupted run of the same worker's arguments in this
+    # process. The four interrupted runs are subprocesses, started first and run at
+    # once beside the clean run: each is its own harness, workers and directory --------
+    import threading
+
     from glom_tpu_torch.train import cli as train_cli
     from glom_tpu_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
+    offset_procs = {}
+    for off in PREEMPT_OFFSETS_S:
+        d = os.path.join(work, f"preempt_{off}")
+        offset_procs[off] = subprocess.Popen(
+            [sys.executable, "-u", here, "--chaos-preempt", repr(off), os.path.join(d, "steps"),
+             "--dir", d, "--scenario", "preempt-train", *base],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root)
+    # ... and one SIGTERM the worker sends itself inside its 4th optimizer step
+    # (the chaos harness's land between steps), then the same worker resumed.
+    d_in = os.path.join(work, "preempt_in_step")
+    paths_in = {"ckpt": os.path.join(d_in, "ckpt"), "metrics": os.path.join(d_in, "metrics.jsonl"),
+                "flight": os.path.join(d_in, "flight")}
+    os.makedirs(os.path.join(d_in, "steps"))
+    cli_args = chaos._worker_cmd(chaos.build_parser().parse_args(["--dir", d_in, *base]),
+                                 paths_in)
+    cli_args = cli_args[cli_args.index("--preset"):]
+    in_step = []
+
+    def run_in_step():
+        for entry in (["--sigterm-train-cli", os.path.join(d_in, "steps"), "3"],
+                      ["--counted-train-cli", os.path.join(d_in, "steps")]):
+            in_step.append(subprocess.run([sys.executable, "-u", here, *entry, *cli_args],
+                                          capture_output=True, text=True,
+                                          timeout=RES_TIMEOUT_S, cwd=root))
+
+    in_step_thread = threading.Thread(target=run_in_step)
+    in_step_thread.start()
     clean_dir = os.path.join(work, "clean")
     os.makedirs(clean_dir)
     clean_args = chaos.build_parser().parse_args(["--dir", clean_dir, *base])
@@ -2657,22 +2755,18 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
                     if r.get("kind") == "train_step"}
     clean_final = payload(os.path.join(clean_paths["ckpt"], str(steps), STATE_FILE))
     clean_exact, clean_routes, clean_n = launch_check(step_rows(clean_dir))
-    wait = chaos._wait_for_checkpoints
     runs = []
     for off in PREEMPT_OFFSETS_S:
         d = os.path.join(work, f"preempt_{off}")
-
-        def late(proc, ckpt_dir, n, deadline, _off=off):
-            ok = wait(proc, ckpt_dir, n, deadline)
-            time.sleep(_off)
-            return ok
-
-        chaos._wait_for_checkpoints = late
-        try:
-            rc, stamped = run_chaos(["--dir", d, "--scenario", "preempt-train", *base],
-                                   os.path.join(d, "steps"))
-        finally:
-            chaos._wait_for_checkpoints = wait
+        out, _ = offset_procs[off].communicate(timeout=2 * RES_TIMEOUT_S)
+        rc = offset_procs[off].returncode
+        stamped = []
+        for ln in out.splitlines():
+            if ln.startswith("{"):
+                try:
+                    stamped.append(json.loads(ln))
+                except ValueError:
+                    pass
         summary = ([r for r in stamped if r.get("event") == "chaos-summary"] or [{}])[-1]
         recs = records(os.path.join(d, "metrics.jsonl"))
         saves = []
@@ -2700,19 +2794,10 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
                                                 for s, v in losses.items()),
             steps_logged=sorted(losses),
             final_bitwise=os.path.exists(final) and bitwise(payload(final), clean_final),
-            exact_launches=exact, routes=routes, counted_steps=n_rows))
-    # ... and one SIGTERM the worker sends itself inside its 4th optimizer step
-    # (the chaos harness's land between steps), then the same worker resumed.
-    d = os.path.join(work, "preempt_in_step")
-    paths = {"ckpt": os.path.join(d, "ckpt"), "metrics": os.path.join(d, "metrics.jsonl"),
-             "flight": os.path.join(d, "flight")}
-    os.makedirs(os.path.join(d, "steps"))
-    cli_args = chaos._worker_cmd(chaos.build_parser().parse_args(["--dir", d, *base]), paths)
-    cli_args = cli_args[cli_args.index("--preset"):]
-    in_step = [subprocess.run([sys.executable, "-u", here, *entry, *cli_args],
-                              capture_output=True, text=True, timeout=RES_TIMEOUT_S, cwd=root)
-               for entry in (["--sigterm-train-cli", os.path.join(d, "steps"), "3"],
-                             ["--counted-train-cli", os.path.join(d, "steps")])]
+            exact_launches=exact, routes=routes, counted_steps=n_rows,
+            harness_tail=None if rc == 0 else out[-2000:]))
+    in_step_thread.join(timeout=2 * RES_TIMEOUT_S)
+    d, paths = d_in, paths_in
     recs = records(paths["metrics"])
     saves = []
     for dump in sorted(glob.glob(os.path.join(d, "flight", "flight_*.jsonl"))):
@@ -2744,6 +2829,11 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
                   and r["losses_bitwise"] and r["final_bitwise"] and r["exact_launches"]
                   for r in runs)
           and runs[-1]["grace_deferred_ms"] is not None and runs[-1]["resumed_from"] == 4)
+    if keep_dir:  # the flight dumps, for perfetto_trace
+        os.makedirs(os.path.join(keep_dir, "preempt_train"), exist_ok=True)
+        for i, dump in enumerate(sorted(glob.glob(os.path.join(work, "preempt_*", "flight",
+                                                               "flight_*.jsonl")))):
+            shutil.copy(dump, os.path.join(keep_dir, "preempt_train", f"{i:03d}.jsonl"))
     emit("preempt_train", nvidia_smi=smi, preset=preset, batch=batch, steps=steps,
          kill_after=RES_KILL_AFTER, clean_rc=clean.returncode, clean_routes=clean_routes,
          clean_counted_steps=clean_n, clean_exact_launches=clean_exact, runs=runs,
@@ -2777,6 +2867,12 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
     ok = (rc == 0 and summary.get("ok") is True and marker is not None
           and marker["step"] == min(int(v) for v in marker["proposals"].values())
           and all(v == [marker["step"]] for v in resumes.values()) and exact)
+    if keep_dir:  # both hosts' streams, for perfetto_trace
+        os.makedirs(os.path.join(keep_dir, "preempt_pod"), exist_ok=True)
+        for h in (0, 1):
+            src = os.path.join(d, f"metrics_h{h}.jsonl")
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(keep_dir, "preempt_pod", f"metrics_h{h}.jsonl"))
     emit("preempt_pod", nvidia_smi=smi, preset=preset, batch=batch, steps=steps, hosts=2,
          rc=rc, summary=summary, marker=marker, resumes=resumes, barrier_round_ms=round_ms,
          barrier_save_ms=save_ms, kill_gap_s=0.5, exact_launches=exact, routes=routes,
@@ -2901,9 +2997,11 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
     serve = {}
     for scenario in ("kill-serve", "ramp-serve"):
         d = os.path.join(work, scenario)
+        ramp = ["--ramp", CHAOS_RAMP] if scenario == "ramp-serve" else []
         rc, stamped = run_chaos(["--dir", d, "--scenario", scenario, "--device", str(dev),
                                 "--preset", serve_preset or preset,
-                                "--timeout", str(RES_TIMEOUT_S)], os.path.join(d, "steps"))
+                                "--timeout", str(RES_TIMEOUT_S), *ramp],
+                               os.path.join(d, "steps"))
         summary = ([r for r in stamped if r.get("event") == "chaos-summary"] or [{}])[-1]
         serve[scenario] = dict(rc=rc, summary=summary)
     ok = all(v["rc"] == 0 and v["summary"].get("ok") is True for v in serve.values())
@@ -2915,8 +3013,334 @@ def resilience_phases(cfg, dev, smi: str, *, preset: str = "imagenet224-dp8",
     return dist_kernel_launches(total)
 
 
+# -- the operator's tooling (lint, bench_emit, compare_gate, perfetto_trace) ----------
+# bench_emit: two arms of the same code measured in turns, each writing its own
+# stamped bench rows; a row is the p50 of BENCH_DISPATCHES dispatches or
+# BENCH_STEPS steps, and the compare gate takes the best of BENCH_REPEATS rows.
+BENCH_REPEATS = 12
+BENCH_DISPATCHES = 5
+BENCH_STEPS = 3
+BENCH_BATCH = 8
+BENCH_THRESHOLD = 0.05  # glom_tpu's default; compare_gate does not move it
+BENCH_METRICS = {
+    "dispatch": ("serve_dispatch_p50_ms[bucket=8,T=12,bf16]", "ms"),
+    "rate": ("serve_column_iters_per_s[bucket=8,T=12,bf16]", "column-iters/s"),
+    "step": ("train_step_p50_ms[batch=8,loop,bf16]", "ms"),
+}
+
+
+def lint_phase() -> None:
+    """`python -m glom_tpu_torch.analysis glom_tpu_torch` in a subprocess,
+    before anything touches the card: it must exit 0 (glom_tpu's pre-flight
+    step 0). Prints the findings, the suppressions (inline pragmas and the
+    port's baseline entries), the warnings and the seconds."""
+    import os
+    import re
+
+    from glom_tpu_torch.analysis import baseline as baseline_mod
+    from glom_tpu_torch.analysis.__main__ import DEFAULT_BASELINE
+    from glom_tpu_torch.analysis.core import load_modules
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "glom_tpu_torch.analysis", "glom_tpu_torch"],
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    findings = [ln for ln in lines if re.match(r"^\S+:\d+:\d+: \[", ln)]
+    warnings = [ln for ln in lines if ln.startswith("warning:")]
+    modules, _ = load_modules([os.path.join(root, "glom_tpu_torch")])
+    pragmas = [f"{m.relpath.split('glom_tpu_torch/', 1)[-1]}:{pr.line} "
+               f"ok[{','.join(sorted(pr.checkers))}] {pr.reason}"
+               for m in modules for pr in m.pragmas]
+    baseline = baseline_mod.load(DEFAULT_BASELINE)["suppressions"]
+    ok = (proc.returncode == 0 and "glom-lint: clean" in proc.stdout and not findings
+          and not baseline_mod.unreviewed({"suppressions": baseline}))
+    emit("lint", rc=proc.returncode, findings=findings, pragmas=pragmas,
+         baseline_entries=sorted(baseline), warnings=warnings, modules=len(modules),
+         seconds=seconds, ok=ok,
+         output_tail=None if ok else (proc.stdout + proc.stderr)[-3000:])
+    if not ok:
+        raise AssertionError("lint: glom-lint found something in the port")
+
+
+def bench_emit(cfg, dev, smi: str, out_dir: str) -> tuple:
+    """bench_bootstrap on the card, then two arms of the same code in turns,
+    each emitting stamped bench rows through sinks.emit to its own JSONL
+    file: a flagship bucket-8 dispatch (T = 12, bf16) as p50 ms and
+    column-iters/s, and a batch-8 loop training step as p50 ms. Every
+    dispatch launches exactly 24 K1 and 12 K2, every step the loop's
+    kernels. Returns ({arm: path}, each kernel's launches over the arms)."""
+    import os
+
+    import torch
+
+    from glom_tpu_torch import InferenceEngine, ServeConfig, TrainConfig
+    from glom_tpu_torch.data import shapes_dataset
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.telemetry import schema, sinks, watchdog
+    from glom_tpu_torch.train import create_train_state, default_recon_index, make_train_step
+
+    t0 = time.perf_counter()
+    up = sinks.bench_bootstrap(BENCH_METRICS["dispatch"][0], "ms", device_type="cuda")
+    wd = watchdog.get_global_watchdog()
+    boot = wd.record() if wd is not None else {}
+    if not up or boot.get("backend_state") != "up" or not (boot.get("backend_devices") or 0) >= 1:
+        watchdog.set_global_watchdog(None)
+        raise AssertionError(f"bench_emit: bench_bootstrap on the card: {up}, {boot}")
+    T = cfg.default_iters
+    k = default_recon_index(T)
+    want_step = _full(_loop_launches(k))
+    want_disp = _full({"K1 fwd": 2 * T, "K1 fwd add": T, "K2 fwd": T})
+    eng = InferenceEngine(cfg, ServeConfig(buckets=(BENCH_BATCH,), max_batch=BENCH_BATCH,
+                                           compute_dtype="bfloat16", use_pallas=True),
+                          params=init_glom(cfg, generator=torch.Generator().manual_seed(SEED)),
+                          device=dev)
+    eng.warmup()
+    tcfg = TrainConfig(batch_size=BENCH_BATCH, compute_dtype="bfloat16", use_pallas=True)
+    step = make_train_step(cfg, tcfg, with_grad_norm=False, device=dev)
+    state, _ = create_train_state(cfg, tcfg, params=_dist_params(cfg, SEED), device=dev)
+    noise = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    imgs = torch.randn(BENCH_BATCH, cfg.channels, cfg.image_size, cfg.image_size, generator=gen)
+    batch = torch.from_numpy(next(shapes_dataset(BENCH_BATCH, cfg.image_size,
+                                                 seed=SEED + 41))).to(dev)
+    state, _ = step(state, batch, noise)  # the step's first call, untimed
+    torch.cuda.synchronize(dev)
+    total = {key: 0 for key in DIST_COUNTERS}
+    exact = {"dispatch": True, "step": True}
+    paths = {arm: os.path.join(out_dir, f"bench_{arm}.jsonl") for arm in ("A", "B")}
+    files = {arm: open(path, "w") for arm, path in paths.items()}
+    ms = {arm: {"dispatch": [], "step": []} for arm in paths}
+
+    def counted(kind, n, fn):
+        _dist_counts(reset=True)
+        out = fn()
+        got = _dist_counts()
+        for key, v in got.items():
+            total[key] += v
+        want = want_disp if kind == "dispatch" else want_step
+        exact[kind] = exact[kind] and got == {key: v * n for key, v in want.items()}
+        return out
+
+    def dispatches():
+        xs = []
+        for _ in range(BENCH_DISPATCHES):
+            t1 = time.perf_counter()
+            eng.infer(imgs)  # ends in a synchronize and the host reads
+            xs.append(1e3 * (time.perf_counter() - t1))
+        return xs
+
+    def steps():
+        nonlocal state
+        xs = []
+        for _ in range(BENCH_STEPS):
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            state, _ = step(state, batch, noise)
+            torch.cuda.synchronize(dev)
+            xs.append(1e3 * (time.perf_counter() - t1))
+        return xs
+
+    try:
+        for rep in range(BENCH_REPEATS):
+            for arm in (("A", "B") if rep % 2 == 0 else ("B", "A")):
+                d = statistics.median(counted("dispatch", BENCH_DISPATCHES, dispatches))
+                s = statistics.median(counted("step", BENCH_STEPS, steps))
+                ms[arm]["dispatch"].append(d)
+                ms[arm]["step"].append(s)
+                common = dict(arm=arm, repeat=rep, backend_state="up", nvidia_smi=smi)
+                for key, value, n in (("dispatch", d, BENCH_DISPATCHES),
+                                      ("rate", BENCH_BATCH * T / (d / 1e3), BENCH_DISPATCHES),
+                                      ("step", s, BENCH_STEPS)):
+                    metric, unit = BENCH_METRICS[key]
+                    sinks.emit({"metric": metric, "value": value, "unit": unit, "samples": n,
+                                **common}, stream=files[arm])
+    finally:
+        for fh in files.values():
+            fh.close()
+        watchdog.set_global_watchdog(None)
+    lint = {arm: subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", path],
+                                capture_output=True, text=True, timeout=120).returncode
+            for arm, path in paths.items()}
+    rows = {}
+    for arm, path in paths.items():
+        with open(path) as fh:
+            rows[arm] = [json.loads(ln) for ln in fh]
+    stamped = all(r.get("kind") == "bench" and r.get("schema_version") == schema.SCHEMA_VERSION
+                  and r.get("backend_state") == "up" for rr in rows.values() for r in rr)
+    best = {arm: {"dispatch_ms": min(v["dispatch"]), "step_ms": min(v["step"]),
+                  "column_iters_per_s": BENCH_BATCH * T / (min(v["dispatch"]) / 1e3)}
+            for arm, v in ms.items()}
+    spread = {key: abs(best["A"][key] - best["B"][key]) / best["A"][key] for key in best["A"]}
+    ok = (all(exact.values()) and all(rc == 0 for rc in lint.values()) and stamped
+          and all(len(rr) == 3 * BENCH_REPEATS for rr in rows.values()))
+    emit("bench_emit", nvidia_smi=smi, bootstrap=boot, repeats=BENCH_REPEATS,
+         dispatches_per_row=BENCH_DISPATCHES, steps_per_row=BENCH_STEPS, batch=BENCH_BATCH,
+         iters=T, best=best, best_rel_diff=spread,
+         p50_of_rows={arm: {kk: statistics.median(v[kk]) for kk in v} for arm, v in ms.items()},
+         exact_launches=exact, want_per_dispatch={"K1": 2 * T, "K1 add": T, "K2": T},
+         want_per_step=want_step, lint_rc=lint, rows={arm: len(rr) for arm, rr in rows.items()},
+         launches=dist_kernel_launches(total), seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("bench_emit failed its checks")
+    del eng, state
+    return paths, dist_kernel_launches(total)
+
+
+def compare_gate(smi: str, paths: dict, out_dir: str) -> None:
+    """`python -m glom_tpu_torch.telemetry compare` over bench_emit's files:
+    A against B passes; B with the dispatch p50 rows x 1.5 and the
+    column-iters/s rows x 0.5 fails naming exactly those two metrics; B with
+    its step rows replaced by bench_bootstrap's UNMEASURED record reports
+    that metric missing, not regressed, and passes (also under
+    --fail-on-missing, as glom_tpu's gate does)."""
+    import os
+
+    from glom_tpu_torch.telemetry import sinks, watchdog
+    from glom_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    with open(paths["B"]) as fh:
+        rows_b = [json.loads(ln) for ln in fh]
+    dispatch, _ = BENCH_METRICS["dispatch"]
+    rate, _ = BENCH_METRICS["rate"]
+    step, step_unit = BENCH_METRICS["step"]
+    seeded = os.path.join(out_dir, "bench_B_seeded.jsonl")
+    with open(seeded, "w") as fh:
+        for r in rows_b:
+            r = dict(r)
+            if r["metric"] == dispatch:
+                r["value"] *= 1.5
+            elif r["metric"] == rate:
+                r["value"] *= 0.5
+            fh.write(json.dumps(r) + "\n")
+    outage = os.path.join(out_dir, "bench_B_unmeasured.jsonl")
+    with open(outage, "w") as fh:
+        for r in rows_b:
+            if r["metric"] != step:
+                fh.write(json.dumps(r) + "\n")
+        # bench_bootstrap's own record for an outage: its probe answers no
+        # device (kind "error", value null, the bare label)
+        probe = metrics.probe_device_count
+        metrics.probe_device_count = lambda timeout=120.0, device_type="cuda": None
+        try:
+            measurable = sinks.bench_bootstrap(step, step_unit, stream=fh)
+        finally:
+            metrics.probe_device_count = probe
+            watchdog.set_global_watchdog(None)
+    if measurable:
+        raise AssertionError("compare_gate: bench_bootstrap with its probe down returned True")
+
+    def gate(base, new, *flags):
+        p = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "compare", base, new,
+                            "--threshold", str(BENCH_THRESHOLD), *flags],
+                           capture_output=True, text=True, timeout=120)
+        report = [ln.split(None, 1) for ln in p.stderr.splitlines() if ln.strip()]
+        by = {}
+        for tag, rest in report:
+            by.setdefault(tag, []).append(rest.split(":")[0].split(" ")[0])
+        summary = json.loads(p.stdout.strip().splitlines()[-1]) if p.stdout.strip() else {}
+        return dict(rc=p.returncode, by_status=by, summary=summary, report=p.stderr[-1500:])
+
+    clean = gate(paths["A"], paths["B"])
+    regressed = gate(paths["A"], seeded)
+    missing = gate(paths["A"], outage)
+    missing_strict = gate(paths["A"], outage, "--fail-on-missing")
+    ok = (clean["rc"] == 0 and not clean["by_status"].get("REGRESSION")
+          and regressed["rc"] == 1
+          and sorted(regressed["by_status"].get("REGRESSION", [])) == sorted([dispatch, rate])
+          and missing["rc"] == 0 and missing_strict["rc"] == 0
+          and missing["by_status"].get("UNMEASURED_IN_NEW") == [step]
+          and not missing["by_status"].get("REGRESSION")
+          and not missing["by_status"].get("MISSING_IN_NEW"))
+    emit("compare_gate", nvidia_smi=smi, threshold=BENCH_THRESHOLD, a_vs_b=clean,
+         seeded_regression=regressed, unmeasured=missing, unmeasured_fail_on_missing=missing_strict,
+         seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError("compare_gate failed its checks")
+
+
+def perfetto_trace(smi: str, streams: dict, out_dir: str) -> None:
+    """`python -m glom_tpu_torch.telemetry perfetto ... -o` over the JSONL
+    streams earlier phases kept ({name: [paths]}: train_cli_trace's spans,
+    preempt_pod's two hosts, serve_cli_elastic's decisions and dispatches,
+    preempt_train's flight dumps), one trace. Checks it is trace JSON with
+    one X event a timed span record (dur >= 0), one barrier track a pod
+    host and a flow chain a committed round, a decision flow for each
+    decision_id that actuated a scale event, and its events in time
+    order."""
+    import os
+
+    from glom_tpu_torch.telemetry import perfetto, schema
+
+    t0 = time.perf_counter()
+    inputs = [p for name in sorted(streams) for p in streams[name]]
+    out = os.path.join(out_dir, "run.perfetto.json")
+    proc = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "perfetto", *inputs,
+                           "-o", out], capture_output=True, text=True, timeout=300)
+    convert_s = time.perf_counter() - t0
+    with open(out) as fh:
+        trace = json.load(fh)
+    evs = trace["traceEvents"]
+    recs = {}
+    for name in streams:
+        recs[name] = []
+        for p in streams[name]:
+            with open(p) as fh:
+                recs[name] += [r for _, r in schema.iter_json_lines(fh)]
+    every = [r for rr in recs.values() for r in rr]
+    timed = [r for r in every if r.get("kind", schema.infer_kind(r)) == "span" and "t_start" in r]
+    # timed spans' complete events (the dispatch phase slices are X events too)
+    xs = [e for e in evs if e["ph"] == "X" and isinstance(e.get("args"), dict)
+          and e["args"].get("kind") == "span"]
+    slices = sum(1 for e in evs if e["ph"] == "X") - len(xs)
+    hosts = sorted({r["host"] for r in recs.get("preempt_pod", [])
+                    if r.get("kind") == "barrier" and isinstance(r.get("host"), int)})
+    tracks = sorted(e["args"]["name"] for e in evs
+                    if e["ph"] == "M" and str(e["args"].get("name", "")).startswith("barrier host"))
+    committed = sorted({r["round"] for r in recs.get("preempt_pod", [])
+                        if r.get("kind") == "barrier" and r.get("phase") == "commit"
+                        and isinstance(r.get("round"), str)})
+    chains = {}
+    for e in evs:
+        if e.get("cat") == "barrier":
+            chains.setdefault(e["id"], []).append(e["ph"])
+    round_chains = {rnd: chains.get(f"barrier:{rnd}", []) for rnd in committed}
+    decided = sorted({(r.get("fleet") or "fleet0", r["decision_id"])
+                      for r in recs.get("serve_cli_elastic", [])
+                      if r.get("event") in perfetto._SCALE_EVENTS
+                      and isinstance(r.get("decision_id"), int)})
+    flows = {e["id"] for e in evs if e.get("cat") == "decision"}
+    missing_flows = [f"decision:{f}:{d}" for f, d in decided if f"decision:{f}:{d}" not in flows]
+    ts = [e["ts"] for e in evs if e["ph"] != "M"]
+    in_order = all(a <= b for a, b in zip(ts, ts[1:]))
+    counts = collections.Counter(e["ph"] for e in evs)
+    ok = (proc.returncode == 0 and isinstance(evs, list) and bool(evs)
+          and len(timed) > 0 and len(xs) == len(timed) and all(e["dur"] >= 0 for e in xs)
+          and len(hosts) == 2 and tracks == [f"barrier host {h}" for h in hosts]
+          and bool(committed) and all(c and c[0] == "s" and len(c) >= 2
+                                      for c in round_chains.values())
+          and bool(decided) and not missing_flows and in_order)
+    emit("perfetto_trace", nvidia_smi=smi, inputs={k: len(v) for k, v in streams.items()},
+         records={k: len(v) for k, v in recs.items()}, events=len(evs), by_phase=dict(counts),
+         timed_spans=len(timed), x_events=len(xs), dispatch_slices=slices, barrier_tracks=tracks,
+         committed_rounds={r: len(c) for r, c in round_chains.items()},
+         decisions_actuated=len(decided), decision_flows=len(flows),
+         missing_decision_flows=missing_flows, in_order=in_order, trace_bytes=os.path.getsize(out),
+         convert_seconds=convert_s, seconds=time.perf_counter() - t0, ok=ok,
+         stderr_tail=None if proc.returncode == 0 else proc.stderr[-2000:])
+    if not ok:
+        raise AssertionError("perfetto_trace failed its checks")
+
+
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 class _Tap:
@@ -3400,7 +3824,7 @@ def serve_host_stack(cfg, params, dev, engine, ragged, fixed_loop, compare,
     return dict(batcher_launches)
 
 
-def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
+def serve_elastic(cfg, params, dev, cli_argv=None, keep_dir=None) -> dict:
     """The elastic fleet on the card: flagship bf16 bucket engines, each with
     a POOL_PAGES-page pool, behind DynamicBatcher with the Autoscaler, in
     two phases (serve_elastic, serve_cli_elastic). `cli_argv` is the serve
@@ -4006,6 +4430,10 @@ def serve_elastic(cfg, params, dev, cli_argv=None) -> dict:
         if os.path.exists(out):
             with open(out) as fh:
                 recs = [json.loads(line) for line in fh if line.startswith("{")]
+            if keep_dir:  # for perfetto_trace
+                import shutil
+
+                shutil.copy(out, os.path.join(keep_dir, "serve_cli_elastic.jsonl"))
     summary = [r for r in recs if r.get("event") == "summary"]
     n_ramp = sum(int(p.split("x")[0]) for p in CLI_ELASTIC_RAMP.split(","))
     s = summary[-1] if summary else {}
@@ -4063,6 +4491,9 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas,
          allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
+
+    # -- lint: glom-lint over the port, before the card is touched ------------------
+    lint_phase()
 
     # -- device --------------------------------------------------------------
     smi = subprocess.run(
@@ -5831,7 +6262,11 @@ def main() -> int:
         cfg, params, dev, engine, ragged, lambda imgs: same_step_fixed(imgs)[0], compare)
 
     # -- serve: the elastic fleet (Autoscaler, spares, drains, migration) --------
-    elastic_launches = serve_elastic(cfg, params, dev)
+    # The streams perfetto_trace converts at the end, kept from their phases.
+    import tempfile
+
+    keep = tempfile.mkdtemp(prefix="glom_streams_")
+    elastic_launches = serve_elastic(cfg, params, dev, keep_dir=keep)
 
     # -- train: the flagship denoising trainer, the second main path -------------
     from glom_tpu_torch import TrainConfig, Trainer
@@ -6442,12 +6877,30 @@ def main() -> int:
     # and mesh engines, profiler captures, the memory probe, the watchdog --------------
     gc.collect()
     torch.cuda.empty_cache()
-    telemetry_launches = telemetry_phases(cfg, dev, smi)
+    telemetry_launches = telemetry_phases(cfg, dev, smi, keep_dir=keep)
 
     # -- resilience: preemption saves, the pod barrier, the gang across ranks, serve chaos
     gc.collect()
     torch.cuda.empty_cache()
-    resilience_launches = resilience_phases(cfg, dev, smi)
+    resilience_launches = resilience_phases(cfg, dev, smi, keep_dir=keep)
+
+    # -- the operator's tooling: stamped bench rows on the card, the regression gate
+    # over them, the Perfetto trace of the kept streams ---------------------------------
+    import glob
+    import shutil
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_paths, bench_launches = bench_emit(cfg, dev, smi, keep)
+    compare_gate(smi, bench_paths, keep)
+    streams = {
+        "train_cli_trace": sorted(glob.glob(os.path.join(keep, "train_cli_trace.jsonl"))),
+        "preempt_pod": sorted(glob.glob(os.path.join(keep, "preempt_pod", "*.jsonl"))),
+        "serve_cli_elastic": sorted(glob.glob(os.path.join(keep, "serve_cli_elastic.jsonl"))),
+        "preempt_train": sorted(glob.glob(os.path.join(keep, "preempt_train", "*.jsonl"))),
+    }
+    perfetto_trace(smi, streams, keep)
+    shutil.rmtree(keep, ignore_errors=True)
 
     # -- kernels -----------------------------------------------------------------
     k1_paths = {k: timings[k]["path"] for k in ("k1_bwd_b8", "k1_bwd_add_b8", "k1_bwd_acc_b8",
@@ -6555,6 +7008,9 @@ def main() -> int:
         # ... and in the resilience phases' training workers (every counted
         # step of preempt_train, preempt_pod and dist_gang).
         kd["resilience_launches"] = resilience_launches[kd["name"]]
+        # ... and in bench_emit's two arms (the bucket-8 dispatches and the
+        # batch-8 loop steps behind its bench rows).
+        kd["bench_launches"] = bench_launches[kd["name"]]
     if min(kd["launches"] for kd in kernels) == 0:
         raise AssertionError(f"a kernel ran no time on its main path: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6606,6 +7062,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--counted-train-cli":
         # A training worker of the resilience phases' chaos scenarios.
         sys.exit(_counted_train_cli(sys.argv[2], sys.argv[3:]))
+    if len(sys.argv) > 3 and sys.argv[1] == "--chaos-preempt":
+        # One preempt_train offset's harness (resilience_phases).
+        sys.exit(_chaos_preempt(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if len(sys.argv) > 3 and sys.argv[1] == "--sigterm-train-cli":
         # preempt_train's worker whose SIGTERM lands inside a step.
         sys.exit(_sigterm_train_cli(sys.argv[2], sys.argv[3], sys.argv[4:]))

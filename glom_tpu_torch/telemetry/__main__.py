@@ -2,6 +2,10 @@
 
     python -m glom_tpu_torch.telemetry FILE...           lint JSONL logs against
                                                          the versioned schema
+    python -m glom_tpu_torch.telemetry compare BASE NEW  bench-trajectory
+                                                         regression gate
+    python -m glom_tpu_torch.telemetry perfetto FILE...  span/flight JSONL ->
+                                                         Perfetto JSON trace
     python -m glom_tpu_torch.telemetry trace FILE...     rebuild one request's
                                                          causal tree
     python -m glom_tpu_torch.telemetry aggregate PATH... merge N hosts' streams
@@ -11,14 +15,22 @@
     python -m glom_tpu_torch.telemetry audit FILE...     replay the elastic
                                                          decision chain
 
-glom_tpu's compare and perfetto subcommands come with ROADMAP queue A
-item 9 (its part 9g).
+The lint, compare and perfetto entries touch no device: they read files
+only.
 """
 
 import sys
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
+    if argv and argv[0] == "compare":
+        from glom_tpu_torch.telemetry.compare import main as compare_main
+
+        sys.exit(compare_main(argv[1:]))
+    if argv and argv[0] == "perfetto":
+        from glom_tpu_torch.telemetry.perfetto import main as perfetto_main
+
+        sys.exit(perfetto_main(argv[1:]))
     if argv and argv[0] == "trace":
         from glom_tpu_torch.telemetry.tracectx import main as trace_main
 

@@ -395,6 +395,7 @@ class CheckpointManager:
         try:
             self._write_step(step, payload, levels)
         except BaseException as e:  # noqa: BLE001 - relayed at the next drain
+            # glom-lint: ok[lockset] read only by _drain, after its join() of this thread
             self._writer_error = e
 
     def _retire_old_steps(self) -> None:
@@ -411,6 +412,12 @@ class CheckpointManager:
                 self._manifest_path(step).unlink()
             except OSError:
                 pass
+            # The writer thread may not take _op_lock (the caller holds it
+            # while joining the writer). An entry is only used after
+            # verify_step stats its manifest, unlinked above before this
+            # pop: a verify racing the retirement finds no manifest and
+            # drops the entry itself.
+            # glom-lint: ok[lockset] the manifest's unlink above orders this before any use
             self._verify_cache.pop(step, None)
 
     def _quarantine_torn(self, step: int) -> Optional[str]:

@@ -281,7 +281,11 @@ class MetricsWriter:
             if self.echo:
                 sys.stdout.write(line + "\n")
                 sys.stdout.flush()
-        if self._tb is not None:
+        # The tensorboard writer is tested under the lock: close() clears it
+        # under the same lock, so a write racing a close skips the mirror.
+        with self._lock:
+            if self._tb is None:
+                return
             scalars = {
                 k: float(v)
                 for k, v in rec.items()
@@ -289,11 +293,10 @@ class MetricsWriter:
                 and not isinstance(v, bool)
                 and k != "schema_version"  # constant stamp, not a signal
             }
-            with self._lock:
-                step = int(scalars.pop("step", self._seq))
-                self._seq = step + 1
-                for k, v in scalars.items():
-                    self._tb.add_scalar(k, v, step)
+            step = int(scalars.pop("step", self._seq))
+            self._seq = step + 1
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, v, step)
 
     def close(self):
         with self._lock:

@@ -16,7 +16,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "glom_tpu_torch").rglob("*.py")) + [
-    REPO / name for name in ("chip_smoke.py", "chip_timing.py", "port_ab.py", "kernel_probe.py")
+    REPO / name for name in ("chip_smoke.py", "chip_timing.py", "port_ab.py", "kernel_probe.py",
+                             "rank_start.py")
 ]
 FORBIDDEN = ("jax", "jaxlib", "glom_tpu")
 
@@ -51,7 +52,14 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.telemetry.counters", "glom_tpu_torch.telemetry.comm_time",
                    "glom_tpu_torch.tracing.capture", "glom_tpu_torch.tracing.memory",
                    "glom_tpu_torch.tracing.nvtx", "glom_tpu_torch.resilience.coordinator",
-                   "glom_tpu_torch.resilience.chaos", "glom_tpu_torch.resilience.__main__"):
+                   "glom_tpu_torch.resilience.chaos", "glom_tpu_torch.resilience.__main__",
+                   "glom_tpu_torch.telemetry.sinks", "glom_tpu_torch.telemetry.compare",
+                   "glom_tpu_torch.telemetry.perfetto", "glom_tpu_torch.analysis",
+                   "glom_tpu_torch.analysis.__main__", "glom_tpu_torch.analysis.core",
+                   "glom_tpu_torch.analysis.astutil", "glom_tpu_torch.analysis.project",
+                   "glom_tpu_torch.analysis.cache", "glom_tpu_torch.analysis.baseline",
+                   "glom_tpu_torch.analysis.lockset", "glom_tpu_torch.analysis.sighandler",
+                   "glom_tpu_torch.analysis.schema_emit", "glom_tpu_torch.ops.consensus_chunked"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         if not path.exists():  # a package
@@ -119,3 +127,28 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.prebuild(["grouped_mlp"])
     assert not (tmp_path / "build").exists()
+
+
+def test_the_file_readers_import_no_torch():
+    """`import glom_tpu_torch` is lazy (as glom_tpu's is), so the tools that
+    read files only start without torch: glom-lint and the telemetry CLI's
+    lint, compare and perfetto."""
+    readers = ["glom_tpu_torch", "glom_tpu_torch.analysis.__main__",
+               "glom_tpu_torch.telemetry.__main__", "glom_tpu_torch.telemetry.schema",
+               "glom_tpu_torch.telemetry.compare", "glom_tpu_torch.telemetry.perfetto",
+               "glom_tpu_torch.telemetry.sinks", "glom_tpu_torch.telemetry.audit",
+               "glom_tpu_torch.telemetry.aggregate"]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {readers!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)[:5]\n"
+        "import glom_tpu_torch\n"
+        "assert glom_tpu_torch.GlomConfig().dim == 512 and 'torch' in sys.modules\n"
+        "print('lazy')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "lazy"
