@@ -33,6 +33,20 @@ model (ImageNet-224, patch 14, L = 6, d = 512, bf16, random weights from a
 seed), each with every launch count set to 0 just before it and read just
 after:
 
+  * the imagenet224-pod width (glom_tpu's widest kernel width, L = 12, d =
+    1024, f = 4096): every kernel's wide instance against its plain
+    version (K1 at [12, 2048, 1024], K2's forward, backward pair and
+    combine at [12, 8, 256, 1024] and at d = 704, the one-sweep at [2, 1,
+    1024, 1024], K4 at 32 pages of d = 768 and 1024; bf16 and f32, at the
+    bars of the flagship's phases), timed beside their bounds and library
+    calls; then the pod model itself, random weights from SEED, 12
+    iterations: three bf16 remat steps at batch 8 on the loop and at batch
+    2 on the per-iteration route (exact launches, p50, peak MiB), the f32
+    loss and gradients of a step on each route against the plain route, a
+    bucket-8 dispatch (24 K1, 12 K2; f32 and bf16 against the plain f32
+    path) and a 32-page ragged dispatch (24 K1, 12 K4, 0 K2; f32 against
+    the plain banded and bucket routes). The wide instances ride the
+    kernels line with their pod launches (`*_wide`);
   * serving: every bucket through InferenceEngine, with the launch counts
     of that run, its float32 parity with the plain path and the bf16
     answer's distance from that path;
@@ -265,6 +279,18 @@ LONGROW_F32_BAR = 1.4e-4
 # there (kernel_probe.py k4, seeds 0-7; tests/test_torch_port_gpu.py's
 # K4_PEAKED_WGMMA_BARS). Flat inputs and "fma" keep K2's bars.
 K4_PEAKED_WGMMA_BARS = (1e-2, 0.25)
+# glom_tpu's imagenet224-pod preset (utils/presets.py): L = 12, d = 1024,
+# f = 4096, 224 px at patch 14 (n = 256), bf16, remat. Its phases train at
+# batch 8 (the loop) and 2 (the per-iteration route) with 12 iterations (the
+# loss reads 7, as the flagship's), and serve bucket 8 at T = 12: depth cut
+# from the preset's 24 iterations and batch 256.
+POD_PRESET = "imagenet224-pod"
+POD_LEVELS, POD_DIM = 12, 1024
+POD_ITERS = 12
+POD_TRAIN_BATCH = 8
+POD_SCAN_BATCH = 2
+POD_STEPS = 6  # log_every 3: four steps timed (the first of each variant left out)
+POD_DISPATCHES = 5
 # Batch-8 steps timed per route in the loop / per-iteration A/B.
 AB_ROUNDS = 10
 # Dispatches per ragged ladder entry and per route in the serve phases.
@@ -4698,7 +4724,7 @@ def main() -> int:
     for k4_pt, pages, counts, inputs in [(pt, P_sig, k4_counts, "flat")] + k4_extra:
         maps, spans, used = ragged_maps(counts, pages, k4_pt, dev)
         for dtype in (bf16, f32):
-            instance = k4.k4_instance(dtype, k4_pt)
+            instance = k4.k4_instance(dtype, k4_pt, d)
             rtol, atol = (K4_PEAKED_WGMMA_BARS if inputs == "peaked" and instance == "wgmma"
                           else k4_bars[dtype])
             for attend_self in (False, True):
@@ -5093,6 +5119,235 @@ def main() -> int:
     if failures:
         raise AssertionError(f"long-row / combined-grid kernel mismatch: {failures}")
 
+    # -- the imagenet224-pod width (L = 12, d = 1024) kernels vs plain ----------------
+    # glom_tpu sizes its kernels for d <= 1024 and ships the imagenet224-pod
+    # preset at that width. Past d = 640 (K2) and 512 (K4) the port runs its
+    # wide instances (the key tile streamed over d, 512-column groups; f32 in
+    # smaller tiles), and K1's f32 forward and bf16 recompute take 16-row
+    # blocks: each held here at the bars the phases above use, on inputs from
+    # a generator of their own (later phases draw as before). K2 also at an
+    # odd width, d = 704 (a last column group of three chunks); K4 at d = 768.
+    gen_pod = torch.Generator().manual_seed(SEED + 20)
+
+    def randn_pod(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(*shape, generator=gen_pod) * scale).to(dev, dtype)
+
+    Lp, dp, fp = POD_LEVELS, POD_DIM, 4 * POD_DIM
+    Mp = POD_TRAIN_BATCH * n
+
+    def pod_ffw(G):
+        return GroupedFFWParams(
+            torch.randn(G, dp, fp, generator=gen_pod) * dp ** -0.5,
+            torch.randn(G, fp, generator=gen_pod) * 0.1,
+            torch.randn(G, fp, dp, generator=gen_pod) * fp ** -0.5,
+            torch.randn(G, dp, generator=gen_pod) * 0.1)
+
+    pod_ffws = {"bottom_up": pod_ffw(Lp), "top_down": pod_ffw(Lp - 1)}
+    pod_pos = torch.randn(n, dp, generator=gen_pod)
+    pod_err = {}
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        for which, G in (("bottom_up", Lp), ("top_down", Lp - 1)):
+            params = GroupedFFWParams(*(t.to(dev, dtype) for t in pod_ffws[which]))
+            x = randn_pod(G, Mp, dp, dtype=dtype)
+            add = pod_pos.to(dev, dtype) if which == "top_down" else None
+            got = k1.fused_grouped_ffw_lm(params, x, add=add)
+            torch.cuda.synchronize()
+            rtol, atol = bars[dtype]
+            ok, abs_err, rel_err, ratio = compare(got, k1.grouped_mlp_plain(params, x, add),
+                                                  rtol, atol)
+            if dtype == bf16:
+                pod_err[f"k1_{which}"] = abs_err
+            emit("k1_vs_plain", which=f"pod_{which}", shape=list(x.shape), f=fp,
+                 addend_rows=None if add is None else n, dtype=str(dtype), max_abs_err=abs_err,
+                 max_rel_err=rel_err, rtol=rtol, atol=atol, bar_ratio=ratio, ok=ok)
+            if not ok:
+                failures.append(f"K1 pod {which} {dtype}")
+            # The backward: the saved pre (bf16) or f32's, and in bf16 also
+            # the recompute (16-row WMMA row pass at this width).
+            g = randn_pod(G, Mp, dp, dtype=dtype)
+            for recompute in ((False, True) if dtype == bf16 else (False,)):
+                pre = None
+                if k1.save_pre_ok(params, x) and not recompute:
+                    pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+                got = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+                torch.cuda.synchronize()
+                want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+                pairs = [("dx", got[0], want[0]),
+                         *((nm, a, b) for nm, a, b in zip(("dw1", "db1", "dw2", "db2"),
+                                                           got[1], want[1]))]
+                if add is not None:
+                    pairs.append(("da", got[2], want[2]))
+                err = check_bwd("K1", dict(which=f"pod_{which}", shape=[G, Mp, dp],
+                                           dtype=str(dtype), saved_pre=pre is not None),
+                                pairs, BWD_BARS["K1"][dname])
+                if dtype == bf16 and which == "bottom_up":
+                    pod_err["k1_bwd_recompute" if recompute else "k1_bwd"] = err
+            # The loop's accumulating backward from the saved pre, with
+            # incoming totals as large as one call's gradients.
+            pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)[1]
+            fresh = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+            acc = GroupedFFWParams(*(randn_pod(*t.shape) * float(t.float().abs().max())
+                                     for t in fresh[1]))
+            da_in = None if add is None else randn_pod(n, dp) * float(fresh[2].float().abs().max())
+            want = k1.grouped_mlp_bwd_plain(
+                params, x, g, add, pre, GroupedFFWParams(*(t.clone() for t in acc)),
+                None if da_in is None else da_in.clone())
+            got = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+            torch.cuda.synchronize()
+            pairs = [("dx", got[0], want[0]),
+                     *((nm, a, b) for nm, a, b in zip(("dw1", "db1", "dw2", "db2"),
+                                                      got[1], want[1]))]
+            if add is not None:
+                pairs.append(("da", got[2], want[2]))
+            check_bwd("K1 acc", dict(which=f"pod_{which}", shape=[G, Mp, dp], dtype=str(dtype)),
+                      pairs, BWD_BARS["K1"][dname], phase="k1_bwd_acc_vs_plain")
+
+    # K2 forward: the pod's bucket-8 row, global and local, attend_self both
+    # ways; the odd width at the edge rows of the 64-row tiles.
+    for dtype in (bf16, f32):
+        for shape, sd, radius, attend_self in (
+            ((Lp, 8, n, dp), side, 0.0, False), ((Lp, 8, n, dp), side, 0.0, True),
+            ((Lp, 8, n, dp), side, 3.0, False), ((3, 2, 96, 704), 1, 0.0, False),
+            ((3, 2, n, 704), side, 3.0, True),
+        ):
+            lv, bu, td = consensus_inputs(shape, dtype, g=gen_pod)
+            got = k2.fused_consensus_update(lv, bu, td, side=sd, radius=radius,
+                                            attend_self=attend_self, stats=True)
+            torch.cuda.synchronize()
+            want = k2.consensus_update_plain(lv, bu, td, side=sd, radius=radius,
+                                             attend_self=attend_self)
+            rtol, atol = cons_bars[dtype]
+            ok, abs_err, rel_err, ratio = compare(got[0], want, rtol, atol)
+            if dtype == bf16 and shape == (Lp, 8, n, dp) and radius == 0 and not attend_self:
+                pod_err["k2"] = abs_err
+            emit("k2_vs_plain", shape=list(shape), dtype=str(dtype), radius=radius,
+                 attend_self=attend_self, edge_case=False, pod_width=True, max_abs_err=abs_err,
+                 max_rel_err=rel_err, rtol=rtol, atol=atol, bar_ratio=ratio, ok=ok)
+            if not ok:
+                failures.append(f"K2 pod {shape} {dtype} r={radius} self={attend_self}")
+
+    # K2 backward, the pair and the combine: peaked levels at global
+    # consensus and radius 3, flat ones in a radius-1 window, the odd width.
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        bar = BWD_BARS["K2"][dname]
+        for shape, sd, radius, attend_self, kind, combine in (
+            ((Lp, 2, n, dp), side, 0.0, False, "peaked", False),
+            ((Lp, 2, n, dp), side, 3.0, True, "peaked", False),
+            ((Lp, 2, n, dp), side, 1.0, False, "flat", False),
+            ((3, 2, 96, 704), 1, 0.0, False, "peaked", False),
+            ((Lp, 8, n, dp), side, 0.0, False, "peaked", True),
+            ((3, 2, n, 704), side, 1.0, False, "flat", True),
+        ):
+            lv = (consensus_inputs(shape, dtype, g=gen_pod)[0] if kind == "peaked"
+                  else randn_pod(*shape, dtype=dtype))
+            bu, td = randn_pod(*shape, dtype=dtype), randn_pod(shape[0] - 1, *shape[1:],
+                                                               dtype=dtype)
+            kw = dict(side=sd, radius=radius, attend_self=attend_self)
+            _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+            g = randn_pod(*shape, dtype=dtype)
+            streams = {}
+            if combine:
+                streams = dict(dx_bu=randn_pod(*shape, dtype=dtype),
+                               dx_td=randn_pod(shape[0] - 1, *shape[1:], dtype=dtype))
+            dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=combine, **streams, **kw)
+            dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, combine=combine,
+                                              **streams, **kw)
+            via_entry = k2.consensus_update_bwd(lv, g, m, l, combine=combine, **streams, **kw)
+            torch.cuda.synchronize()
+            want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **streams, **kw)
+            want_dlv, want_dmean, parts = k2.consensus_bwd_dkv_plain(
+                lv, g, m, l, want_dq, want_dd, parts=True, **streams, **kw)
+            case = dict(shape=list(shape), dtype=str(dtype), radius=radius,
+                        attend_self=attend_self, levels=kind, pod_width=True,
+                        instance=k2.k2_bwd_instance(dtype, *shape[-2:]),
+                        entry_equals_passes=all(map(torch.equal, via_entry, (dlv, dmean))))
+            if combine:
+                allowed = bar * float(want_dmean.float().abs().max())
+                case["term_over_allowed"] = {
+                    nm: float(t.float().abs().max()) / 4.0 / allowed
+                    for nm, t in (("dg", g), ("dx_bu", streams["dx_bu"]),
+                                  ("dx_td", streams["dx_td"]))}
+            else:
+                allowed = bar * float(want_dlv.float().abs().max())
+                case["term_over_allowed"] = {
+                    "dq": float(want_dq.abs().max()) / allowed,
+                    "dv": float(parts["dv"].abs().max()) / allowed,
+                    "dxn": float(parts["dxn"].abs().max()) / allowed}
+            err = check_bwd("K2 combine" if combine else "K2", case,
+                            [("dq", dq, want_dq), ("dd", dd, want_dd), ("dlevels", dlv, want_dlv),
+                             ("dmean", dmean, want_dmean)],
+                            bar, phase="k2_bwd_combine_vs_plain" if combine else None)
+            if kind == "peaked" and min(case["term_over_allowed"].values()) <= 1.0:
+                failures.append(f"K2 pod bwd terms too small to check: {case}")
+            if dtype == bf16 and shape[-1] == dp and radius == 0:
+                pod_err["k2_bwd_combine" if combine else "k2_bwd"] = err
+
+    # The one-sweep backward at a row that keeps the phase short.
+    for dtype in (bf16, f32):
+        dname = "bf16" if dtype == bf16 else "f32"
+        shape, so = (2, 1, 1024, dp), 32
+        lv = consensus_inputs(shape, dtype, g=gen_pod)[0]
+        kw = dict(side=so, radius=0.0, attend_self=False)
+        bu, td = randn_pod(*shape, dtype=dtype), randn_pod(1, *shape[1:], dtype=dtype)
+        _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+        g = randn_pod(*shape, dtype=dtype)
+        got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+        again = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+        torch.cuda.synchronize()
+        want = k2.consensus_bwd_onesweep_plain(lv, g, m, l, cons, **kw)
+        abs_err, ratio = err_over_max(got, want)
+        mismatch = float((got != want).float().mean())
+        bar = ONESWEEP_BARS[dname]
+        mbar = ONESWEEP_MISMATCH_BAR if dtype == bf16 else None
+        repeat = bool(torch.equal(got, again))
+        ok = ratio <= bar and (mbar is None or mismatch <= mbar) and repeat
+        emit("k2_onesweep_vs_plain", shape=list(shape), dtype=str(dtype), radius=0.0,
+             attend_self=False, levels="peaked", pod_width=True, max_abs_err=abs_err,
+             err_over_max=ratio, bar=bar, bar_ratio=ratio / bar, mismatch_share=mismatch,
+             mismatch_bar=mbar, mismatch_bar_ratio=None if mbar is None else mismatch / mbar,
+             bitwise_repeat=repeat, ok=ok)
+        if not ok:
+            failures.append(f"K2 pod one-sweep {dtype}")
+
+    # K4 at the pod width's 32-page signature (d = 1024) and at d = 768:
+    # "wgmma_wide" in bf16, "fma" with 16-row blocks in f32, flat and peaked.
+    for k4_d, inputs in ((dp, "flat"), (dp, "peaked"), (768, "flat")):
+        maps, spans, used = ragged_maps(k4_counts, P_sig, pt, dev)
+        for dtype in (bf16, f32):
+            instance = k4.k4_instance(dtype, pt, k4_d)
+            rtol, atol = (K4_PEAKED_WGMMA_BARS if inputs == "peaked" and instance != "fma"
+                          else k4_bars[dtype])
+            T4 = P_sig * pt
+            if inputs == "flat":
+                lv = randn_pod(T4, Lp, k4_d, dtype=dtype, scale=2.0)
+            else:
+                coef = torch.randn(T4, Lp, 4, generator=gen_pod)
+                basis = torch.randn(Lp, 4, k4_d, generator=gen_pod)
+                lv = (4.0 * torch.einsum("tlr,lrd->tld", coef, basis)).contiguous().to(dev,
+                                                                                       dtype)
+            kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
+            got = k4.banded_ragged_consensus(lv, **kw)
+            torch.cuda.synchronize()
+            want = k4.banded_ragged_consensus_plain(lv, **kw)
+            rows = [compare(got[a:b], want[a:b], rtol, atol) for a, b in spans]
+            unused = compare(got[used:], want[used:], rtol, atol)
+            ok = all(w[0] for w in rows) and unused[0]
+            abs_err = max(w[1] for w in rows)
+            if dtype == bf16 and k4_d == dp and inputs == "flat":
+                pod_err["k4"] = abs_err
+            emit("k4_vs_plain", shape=[T4, Lp, k4_d], page_tokens=pt, window=window,
+                 dtype=str(dtype), instance=instance, inputs=inputs, attend_self=False,
+                 rows=k4_counts, pod_width=True, max_abs_err=abs_err,
+                 max_rel_err=max(w[2] for w in rows), rtol=rtol, atol=atol,
+                 bar_ratio=max(w[3] for w in rows), unused_pages=(T4 - used) // pt,
+                 unused_max_abs_err=unused[1], unused_bar_ratio=unused[3], ok=ok)
+            if not ok:
+                failures.append(f"K4 pod d={k4_d} {dtype} {inputs}")
+    if failures:
+        raise AssertionError(f"pod-width kernel/plain mismatch: {failures}")
+
     # -- timing ----------------------------------------------------------------
     def bound(ops, nbytes, peak_ops):
         t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -5101,11 +5356,12 @@ def main() -> int:
     timings = {}
 
     def record_timing(label, shape, ms, plain_ms, ops, nbytes, library_ms=None,
-                      peak=PEAK_BF16, library_seq_ms=None, **extra):
-        """Keep and print one bf16 kernel's times beside its bound (its
-        operations at `peak`: the bf16 tensor rate, or f32 for K4's "fma").
+                      peak=PEAK_BF16, library_seq_ms=None, precision="bfloat16", **extra):
+        """Keep and print one kernel's times beside its bound (its operations
+        at `peak`: the bf16 tensor rate, or f32 for the "fma" instances).
         library_seq_ms: a short sequence of PyTorch calls for the same
-        function, where no one call computes it."""
+        function, where no one call computes it. precision: the inputs'
+        dtype (bf16 unless said)."""
         b_ms, b_by = bound(ops, nbytes, peak)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               library_ms=library_ms)
@@ -5116,7 +5372,7 @@ def main() -> int:
                                if k in extra})
         if library_seq_ms is not None:
             timings[label]["library_seq_ms"] = library_seq_ms
-        emit("timing", kernel=label, shape=shape, dtype="bfloat16", ms=ms,
+        emit("timing", kernel=label, shape=shape, dtype=precision, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ratio_to_bound=ms / b_ms,
              library_ms=library_ms, library_seq_ms=library_seq_ms, **extra)
 
@@ -5290,7 +5546,7 @@ def main() -> int:
         lib_gap = float((library().float().permute(0, 2, 1, 3).reshape(P_sig * pt, L, d)[:used]
                          - k4.banded_ragged_consensus(lv, **self_kw)[:used].float()).abs().max())
         full_ops = 4 * L * d * P_sig * pt * window
-        instance = k4.k4_instance(bf16, pt)
+        instance = k4.k4_instance(bf16, pt, d)
         peak = PEAK_BF16 if instance == "wgmma" else PEAK_F32
         record_timing(label, [P_sig * pt, L, d], ms, plain_ms, k4_ops(counts),
                       2 * 2 * P_sig * pt * L * d, library_ms=lib_ms, peak=peak,
@@ -5596,6 +5852,157 @@ def main() -> int:
                       "normalised k, v = levels, bf16, attend_self=True), retain_graph"),
         library_kernels=lib_kernels, products=dict(bound=5, design=8, executed=13),
         two_pass_ms=twopass_ms, **bwd_kernels(onesweep, lv_r, calls=2))
+
+    # -- the imagenet224-pod width's instances, timed ------------------------------------
+    # bf16 at the pod path's shapes: K1's forward and backward (the saved
+    # pre, and the 16-row recompute) at the loop's rows; K2's wide forward
+    # at bucket 8; its wide backward as the batch-2 per-iteration step calls
+    # it (the pair) and as the batch-8 loop does (the combine, with the two
+    # streams); K4's wide instance at 32 full-resolution pages. Library
+    # calls as above, at d = 1024.
+    pod_params = {w: GroupedFFWParams(*(t.to(dev, bf16) for t in pod_ffws[w]))
+                  for w in pod_ffws}
+    x = randn_pod(Lp, Mp, dp, dtype=bf16)
+    g = randn_pod(Lp, Mp, dp, dtype=bf16)
+    params = pod_params["bottom_up"]
+    pre = k1.fused_grouped_ffw_lm(params, x, save_pre=True)[1]
+    record_timing("k1_pod_b8", [Lp, Mp, dp], time_ms(lambda: k1.fused_grouped_ffw_lm(params, x)),
+                  time_ms(lambda: k1.grouped_mlp_plain(params, x, None)),
+                  4 * Lp * Mp * dp * fp, 2 * (2 * Lp * Mp * dp + 2 * Lp * dp * fp + Lp * (fp + dp)),
+                  library_seq_ms=time_ms(lambda: k1_library_seq(params, x)),
+                  library_seq_call=k1_seq_call)
+    for label, p_in in (("k1_bwd_pod_b8", pre), ("k1_bwd_recompute_pod_b8", None)):
+        def k1_pod_bwd(p_in=p_in):
+            return k1.grouped_mlp_bwd(params, x, g, pre=p_in)
+        # Products: the saved pre's four (dh, dx, dw1, dw2), the recompute's
+        # five (z again); bytes: x, g, w1, w2 (and pre) read, dx and the
+        # weight gradients written.
+        record_timing(label, [Lp, Mp, dp], time_ms(k1_pod_bwd),
+                      time_ms(lambda p_in=p_in: k1.grouped_mlp_bwd_plain(params, x, g, None,
+                                                                          p_in)),
+                      (8 if p_in is not None else 10) * Lp * Mp * dp * fp,
+                      2 * (3 * Lp * Mp * dp + (Lp * Mp * fp if p_in is not None else 0)
+                           + 4 * Lp * dp * fp + Lp * (fp + dp)),
+                      library_seq_ms=k1_seq_bwd_ms(params, x, g),
+                      library_seq_call=k1_seq_bwd_call, **k1_bwd_profile(k1_pod_bwd))
+    del x, g, pre
+    lv = consensus_inputs((Lp, 8, n, dp), bf16, g=gen_pod)[0]
+    bu, td = randn_pod(Lp, 8, n, dp, dtype=bf16), randn_pod(Lp - 1, 8, n, dp, dtype=bf16)
+    q_s, k_s, v_s = k2_qkv(lv)
+    record_timing("k2_pod_b8", [Lp, 8, n, dp],
+                  time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=side)),
+                  time_ms(lambda: k2.consensus_update_plain(lv, bu, td, side=side)),
+                  4 * Lp * 8 * n * n * dp, 2 * (4 * Lp - 1) * 8 * n * dp,
+                  library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call,
+                  instance="wgmma_wide",
+                  **prepass_host(lambda: k2.fused_consensus_update(lv, bu, td, side=side)))
+    for label, B_t, streams in (("k2_bwd_pod_b2", 2, False), ("k2_bwd_combine_pod_b8", 8, True)):
+        lv_t = lv[:, :B_t].contiguous()
+        g_t = randn_pod(Lp, B_t, n, dp, dtype=bf16)
+        _, m_t, l_t = k2.fused_consensus_update(lv_t, g_t, g_t[1:], side=side, stats=True)
+        kw = dict(side=side)
+        if streams:
+            kw.update(combine=True, dx_bu=randn_pod(Lp, B_t, n, dp, dtype=bf16),
+                      dx_td=randn_pod(Lp - 1, B_t, n, dp, dtype=bf16))
+        plain_kw = {k_: v_ for k_, v_ in kw.items() if k_ != "combine"}
+        elems = Lp * B_t * n * dp
+        q_b, k_b, v_b = (t.clone().requires_grad_() for t in k2_qkv(lv_t))
+        att_b = sdpa(q_b, k_b, v_b)
+        g_b = g_t.reshape(Lp * B_t, 1, n, dp)
+        lib_ms = time_ms(lambda: torch.autograd.grad(att_b, (q_b, k_b, v_b), grad_outputs=g_b,
+                                                     retain_graph=True))
+        del att_b
+
+        def k2_pod_bwd(lv_t=lv_t, g_t=g_t, m_t=m_t, l_t=l_t, kw=kw):
+            return k2.consensus_update_bwd(lv_t, g_t, m_t, l_t, **kw)
+        # The single-tile form's five products; bytes: levels, g (and the
+        # two streams), m, l read, dlevels and dmean written.
+        record_timing(label, [Lp, B_t, n, dp], time_ms(k2_pod_bwd),
+                      time_ms(lambda: k2.consensus_update_bwd_plain(lv_t, g_t, m_t, l_t,
+                                                                    **plain_kw)),
+                      5 * 2 * Lp * B_t * n * n * dp,
+                      2 * (4 + (2 if streams else 0)) * elems + 4 * 2 * Lp * B_t * n,
+                      library_ms=lib_ms, library_call=k2_lib_bwd_call,
+                      **bwd_kernels(k2_pod_bwd, lv_t))
+    del lv, bu, td, q_s, k_s, v_s
+    counts_full = [256] * 8
+    maps, _, used = ragged_maps(counts_full, P_sig, pt, dev)
+    lv = randn_pod(P_sig * pt, Lp, dp, dtype=bf16, scale=2.0)
+    kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
+    band0, len_page = k4.page_maps(maps["row_start"], maps["row_len"], pt)
+    pages = (band0[:, None].long() + torch.arange(window // pt, device=dev)).clamp(max=P_sig - 1)
+    kv = lv.float().view(P_sig, pt, Lp, dp)
+    khat = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+    q_h = kv.permute(0, 2, 1, 3).to(bf16)
+    k_h = khat[pages].reshape(P_sig, window, Lp, dp).permute(0, 2, 1, 3).contiguous().to(bf16)
+    v_h = kv[pages].reshape(P_sig, window, Lp, dp).permute(0, 2, 1, 3).contiguous().to(bf16)
+    del kv, khat
+    record_timing("k4_pod_ragged32_full", [P_sig * pt, Lp, dp],
+                  time_ms(lambda: k4.banded_ragged_consensus(lv, **kw), reps=100),
+                  time_ms(lambda: k4.banded_ragged_consensus_plain(lv, **kw)),
+                  4 * Lp * dp * pt * P_sig * window, 2 * 2 * P_sig * pt * Lp * dp,
+                  library_ms=time_ms(lambda: sdpa(q_h, k_h, v_h)), rows=counts_full,
+                  instance=k4.k4_instance(bf16, pt, dp),
+                  library_call=lib_call.replace(", an additive length mask", "") + " (no mask: "
+                  "every slot of these rows is valid)",
+                  **prepass_host(lambda: k4.banded_ragged_consensus(lv, **kw),
+                                 "banded_consensus_kernel"))
+    del lv, q_h, k_h, v_h, pod_params
+    # The f32 instances at the same shapes (the pod's f32 parity phases run
+    # them; operations at the f32 peak): K1's forward in 16-row blocks, K2's
+    # forward in 8-key tiles and its backward pair in 8-row tiles, K4's
+    # "fma" in 16-row blocks; library: the same calls in f32.
+    f32_params = GroupedFFWParams(*(t.to(dev, f32) for t in pod_ffws["bottom_up"]))
+    x = randn_pod(Lp, Mp, dp)
+    record_timing("k1_pod_b8_f32", [Lp, Mp, dp],
+                  time_ms(lambda: k1.fused_grouped_ffw_lm(f32_params, x), reps=3),
+                  time_ms(lambda: k1.grouped_mlp_plain(f32_params, x, None), reps=3),
+                  4 * Lp * Mp * dp * fp,
+                  4 * (2 * Lp * Mp * dp + 2 * Lp * dp * fp + Lp * (fp + dp)), peak=PEAK_F32,
+                  library_seq_ms=time_ms(lambda: k1_library_seq(f32_params, x), reps=3),
+                  library_seq_call=k1_seq_call, precision="float32")
+    del x, f32_params
+    lv = consensus_inputs((Lp, 2, n, dp), f32, g=gen_pod)[0]
+    bu, td = randn_pod(Lp, 2, n, dp), randn_pod(Lp - 1, 2, n, dp)
+    q_s, k_s, v_s = k2_qkv(lv)
+    record_timing("k2_pod_b2_f32", [Lp, 2, n, dp],
+                  time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=side), reps=5),
+                  time_ms(lambda: k2.consensus_update_plain(lv, bu, td, side=side), reps=5),
+                  4 * Lp * 2 * n * n * dp, 4 * (4 * Lp - 1) * 2 * n * dp, peak=PEAK_F32,
+                  library_ms=time_ms(lambda: sdpa(q_s, k_s, v_s)), library_call=k2_lib_call,
+                  instance="fma", precision="float32")
+    g_t = randn_pod(Lp, 2, n, dp)
+    _, m_t, l_t = k2.fused_consensus_update(lv, g_t, g_t[1:], side=side, stats=True)
+    q_b, k_b, v_b = (t.clone().requires_grad_() for t in (q_s, k_s, v_s))
+    att_b = sdpa(q_b, k_b, v_b)
+    lib_ms = time_ms(lambda: torch.autograd.grad(att_b, (q_b, k_b, v_b),
+                                                 grad_outputs=g_t.reshape(Lp * 2, 1, n, dp),
+                                                 retain_graph=True))
+    del att_b
+    record_timing("k2_bwd_pod_b2_f32", [Lp, 2, n, dp],
+                  time_ms(lambda: k2.consensus_update_bwd(lv, g_t, m_t, l_t, side=side), reps=3),
+                  time_ms(lambda: k2.consensus_update_bwd_plain(lv, g_t, m_t, l_t, side=side),
+                          reps=3),
+                  5 * 2 * Lp * 2 * n * n * dp, 4 * 4 * Lp * 2 * n * dp + 4 * 2 * Lp * 2 * n,
+                  peak=PEAK_F32, library_ms=lib_ms, library_call=k2_lib_bwd_call,
+                  instance="fma", precision="float32")
+    del lv, bu, td, q_s, k_s, v_s, g_t, q_b, k_b, v_b
+    lv = randn_pod(P_sig * pt, Lp, dp, scale=2.0)
+    kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
+    kv = lv.view(P_sig, pt, Lp, dp)
+    khat = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+    q_f = kv.permute(0, 2, 1, 3)
+    k_f = khat[pages].reshape(P_sig, window, Lp, dp).permute(0, 2, 1, 3).contiguous()
+    v_f = kv[pages].reshape(P_sig, window, Lp, dp).permute(0, 2, 1, 3).contiguous()
+    record_timing("k4_pod_ragged32_full_f32", [P_sig * pt, Lp, dp],
+                  time_ms(lambda: k4.banded_ragged_consensus(lv, **kw), reps=5),
+                  time_ms(lambda: k4.banded_ragged_consensus_plain(lv, **kw), reps=5),
+                  4 * Lp * dp * pt * P_sig * window, 2 * 4 * P_sig * pt * Lp * dp, peak=PEAK_F32,
+                  library_ms=time_ms(lambda: sdpa(q_f, k_f, v_f)), rows=counts_full,
+                  instance=k4.k4_instance(f32, pt, dp), library_call="the same SDPA call in f32",
+                  precision="float32")
+    del lv, kv, khat, q_f, k_f, v_f
+    torch.cuda.empty_cache()
 
     # -- serve: the main path ----------------------------------------------------
     cfg = GlomConfig()  # flagship: dim 512, L 6, 224 px, patch 14
@@ -6522,6 +6929,191 @@ def main() -> int:
     if not took_loop or worst > LOOP_F32_BAR:
         raise AssertionError("f32 loop training gradients disagree with the plain route")
 
+    # -- the imagenet224-pod model: training and serving at L = 12, d = 1024 -----------
+    import gc
+
+    # glom_tpu's second shipped configuration at its full width (the preset's
+    # model: 224 px, patch 14, n = 256, L = 12, d = 1024, f = 4096, bf16),
+    # random weights from SEED, 12 iterations (the loss reads 7). Each path
+    # with every launch count set to 0 just before and read just after.
+    from glom_tpu_torch.utils.presets import get_preset
+
+    pod = get_preset(POD_PRESET)
+    cfg_pod = pod.model
+    if ((cfg_pod.levels, cfg_pod.dim, cfg_pod.dim * cfg_pod.mult, cfg_pod.num_patches)
+            != (POD_LEVELS, POD_DIM, 4 * POD_DIM, n) or not (pod.train.remat
+                                                               and pod.train.use_pallas)):
+        raise AssertionError(f"{POD_PRESET}: {cfg_pod}, {pod.train}")
+    kp = default_recon_index(POD_ITERS)  # 7
+    dparams_pod = init_denoise(cfg_pod, generator=torch.Generator().manual_seed(SEED))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Training, bf16 with remat: batch 8 on the whole-loop VJP (the pre-only
+    # K1 recomputes each iteration's pre-activations), batch 2 on the
+    # per-iteration route (each iteration's forward runs again in the
+    # backward under checkpoint).
+    want_pod_loop = launches_per_step({"K1 fwd": kp, "K1 fwd cat": kp, "K2 fwd": kp,
+                                       "K1 pre": kp, "K1 pre cat": kp, "K1 bwd acc": kp,
+                                       "K1 bwd acc cat": kp, "K2 combine dq": kp,
+                                       "K2 combine dkv": kp})
+    want_pod_scan = launches_per_step({"K1 fwd": 4 * kp, "K1 fwd add": 2 * kp, "K2 fwd": 2 * kp,
+                                       "K1 bwd": 2 * kp, "K1 bwd add": kp, "K2 bwd dq": kp,
+                                       "K2 bwd dkv": kp})
+    pod_train = {}
+    for phase, batch, want, route in (("train_pod_loop", POD_TRAIN_BATCH, want_pod_loop,
+                                       "fused_loop"),
+                                      ("train_pod_scan", POD_SCAN_BATCH, want_pod_scan,
+                                       "scan_blockwise")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg_pod = TrainConfig(batch_size=batch, compute_dtype="bfloat16", use_pallas=True,
+                               remat=True, iters=POD_ITERS, learning_rate=pod.train.learning_rate,
+                               noise_std=pod.train.noise_std)
+        _, recs, got = drive_trainer(phase, tcfg_pod, POD_STEPS, want, (route, 1),
+                                     model=(cfg_pod, dparams_pod))
+        pod_train[route] = dict(batch=batch, step_time_p50_ms=recs[-1]["step_time_p50_ms"],
+                                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                                launches=got)
+    emit("train_pod", preset=POD_PRESET, iters=kp, remat=True,
+         routes={r: {k_: v_ for k_, v_ in t.items() if k_ != "launches"}
+                 for r, t in pod_train.items()})
+
+    # f32 loss and gradients of one step against the plain route, batch 2 on
+    # the per-iteration route and batch 8 on the loop (remat: the loop's
+    # gradients are the non-remat loop's bit for bit, train_remat_grads).
+    pod_model = (cfg_pod, dparams_pod)
+    pod_kw = dict(iters=POD_ITERS, model=pod_model)
+    img_p2 = torch.from_numpy(next(shapes_dataset(2, cfg_pod.image_size, seed=SEED + 5))).to(dev)
+    noise_p2 = randn_pod(2, 3, cfg_pod.image_size, cfg_pod.image_size)
+    reset_counts()
+    scan32 = loss_and_grads(img_p2, noise_p2, use_pallas=True, remat=True, **pod_kw)
+    scan32_launches = {key: v for key, v in counts().items() if v}
+    took_scan = scan32_launches.get("K2 bwd dkv") == kp and "K2 combine dkv" not in scan32_launches
+    worst_scan = parity("train_pod_parity_f32", scan32,
+                        loss_and_grads(img_p2, noise_p2, **pod_kw), TRAIN_F32_BAR, batch=2,
+                        iters=kp, vjp_path="scan_blockwise", took_the_route=took_scan,
+                        launches=scan32_launches)
+    del scan32
+    img_p8 = torch.from_numpy(next(shapes_dataset(8, cfg_pod.image_size, seed=SEED + 6))).to(dev)
+    noise_p8 = randn_pod(8, 3, cfg_pod.image_size, cfg_pod.image_size)
+    reset_counts()
+    loop32 = loss_and_grads(img_p8, noise_p8, use_pallas=True, remat=True, **pod_kw)
+    loop32_launches = {key: v for key, v in counts().items() if v}
+    took_loop = loop32_launches.get("K2 combine dkv") == kp and "K2 bwd dkv" not in loop32_launches
+    worst_loop = parity("train_pod_parity_f32", loop32,
+                        loss_and_grads(img_p8, noise_p8, **pod_kw), LOOP_F32_BAR, batch=8,
+                        iters=kp, vjp_path="fused_loop", took_the_route=took_loop,
+                        launches=loop32_launches)
+    del loop32
+    if not (took_scan and took_loop) or worst_scan > TRAIN_F32_BAR or worst_loop > LOOP_F32_BAR:
+        raise AssertionError("f32 pod training gradients disagree with the plain route")
+
+    # Serving: bucket 8 at T = 12, 24 K1 and 12 K2 launches a dispatch.
+    params_pod = init_glom(cfg_pod, generator=torch.Generator().manual_seed(SEED))
+    eng_pod = InferenceEngine(cfg_pod, ServeConfig(buckets=(8,), max_batch=8, iters=POD_ITERS,
+                                                   compute_dtype="bfloat16", use_pallas=True),
+                              params=params_pod, device="cuda")
+    eng_pod.warmup()
+    imgs_pod = [torch.randn(8, 3, 224, 224, generator=gen_pod) for _ in range(POD_DISPATCHES)]
+    k1.LAUNCHES = k1.LAUNCHES_ADD = k2.LAUNCHES = 0
+    pod_lat = []
+    for imgs in imgs_pod:
+        before = (k1.LAUNCHES, k2.LAUNCHES)
+        res = eng_pod.infer(imgs)
+        got = (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1])
+        if got != (2 * POD_ITERS, POD_ITERS):
+            raise AssertionError(f"pod bucket 8: launches (K1, K2) {got} != "
+                                 f"{(2 * POD_ITERS, POD_ITERS)}")
+        if (tuple(res.levels.shape) != (8, n, Lp, dp)
+                or not bool(torch.isfinite(res.levels.float()).all())):
+            raise AssertionError("pod bucket 8: bad result shape or non-finite values")
+        pod_lat.append(res.latency_s)
+    pod_launches = {"grouped_mlp_fwd": k1.LAUNCHES - k1.LAUNCHES_ADD,
+                    "grouped_mlp_fwd_add": k1.LAUNCHES_ADD, "consensus_update_fwd": k2.LAUNCHES}
+    p50_pod = statistics.median(pod_lat)
+    # f32 against the plain f32 path, and the bf16 answer against it too.
+    img_s2 = torch.randn(2, 3, 224, 224, generator=gen_pod)
+    f32_pod = InferenceEngine(cfg_pod, ServeConfig(buckets=(2,), max_batch=2, iters=POD_ITERS,
+                                                   compute_dtype="float32", use_pallas=True),
+                              params=params_pod, device="cuda")
+    fused32 = f32_pod.infer(img_s2).levels.float()
+    with torch.inference_mode():
+        plain32 = glom_forward(map_params(lambda t: t.to(dev), params_pod), img_s2.to(dev),
+                               cfg_pod, iters=POD_ITERS, use_pallas=False)
+    ok32, err32, rel32, ratio32 = compare(fused32, plain32, 2e-3, 2e-4)
+    bf16_pod = eng_pod.infer(torch.cat([img_s2, torch.zeros(6, 3, 224, 224)])).levels[:2]
+    ok16, err16, _, _ = compare(bf16_pod, plain32, 0.0, BF16_SERVE_ATOL)
+    emit("serve_pod", preset=POD_PRESET, bucket=8, iters=POD_ITERS, dispatches=len(pod_lat),
+         p50_ms=1e3 * p50_pod, min_ms=1e3 * min(pod_lat),
+         column_iters_per_s=8 * POD_ITERS / p50_pod,
+         launches_per_dispatch={"K1": 2 * POD_ITERS, "K2": POD_ITERS}, launches=pod_launches,
+         f32_max_abs_err=err32, f32_max_rel_err=rel32, f32_bar_ratio=ratio32, rtol=2e-3,
+         atol=2e-4, f32_ok=ok32, bf16_vs_f32_max_abs_err=err16, bf16_atol=BF16_SERVE_ATOL,
+         bf16_ok=ok16)
+    if not (ok32 and ok16):
+        raise AssertionError("pod serve path disagrees with the plain f32 path")
+    del f32_pod, fused32
+
+    # The ragged route at the pod width: 32 pages of full-resolution rows
+    # through K4's wide instance, 24 K1, 12 K4 and 0 K2 launches a dispatch;
+    # f32 against the plain banded route and one row against the bucket route.
+    rcfg_pod = ServeConfig(ragged=True, ragged_attention="banded-pallas", use_pallas=True,
+                           compute_dtype="bfloat16", max_batch=8, iters=POD_ITERS)
+    rag_pod = InferenceEngine(cfg_pod, rcfg_pod, params=params_pod, device="cuda")
+    if rag_pod.page_tokens != pt:
+        raise AssertionError(f"pod page_tokens {rag_pod.page_tokens} != {pt}")
+    flats = [pack_ragged([torch.randn(3, 224, 224, generator=gen_pod).numpy() for _ in range(8)],
+                         cfg_pod.patch_size, pt, 32) for _ in range(POD_DISPATCHES + 1)]
+    rag_pod.infer_ragged(*flats[0])  # warm
+    k1.LAUNCHES = k4.LAUNCHES = k2.LAUNCHES = 0
+    rag_lat = []
+    for flat, n_p in flats[1:]:
+        before = ragged_counts()
+        res = rag_pod.infer_ragged(flat, n_p)
+        got = tuple(a - b for a, b in zip(ragged_counts(), before))
+        if got != (2 * POD_ITERS, POD_ITERS, 0):
+            raise AssertionError(f"pod ragged: launches (K1, K4, K2) {got} != "
+                                 f"{(2 * POD_ITERS, POD_ITERS, 0)}")
+        if (tuple(res.levels.shape) != (32 * pt, Lp, dp)
+                or not bool(torch.isfinite(res.levels.float()).all())):
+            raise AssertionError("pod ragged: bad result shape or values")
+        rag_lat.append(res.latency_s)
+    pod_ragged_launches = {"grouped_mlp_fwd": k1.LAUNCHES, "banded_consensus_fwd": k4.LAUNCHES,
+                           "consensus_update_fwd": k2.LAUNCHES}
+    r32_pod = {mode: InferenceEngine(cfg_pod, dataclasses.replace(
+        rcfg_pod, compute_dtype="float32", ragged_attention=mode), params=params_pod,
+        device="cuda") for mode in ("banded-pallas", "banded")}
+    flat, n_p = ragged_batch(mix32, r32_pod["banded"].pick_pages(9))
+    got, want = (r32_pod[m_].infer_ragged(flat, n_p).levels for m_ in ("banded-pallas", "banded"))
+    _, spans, _ = ragged_maps(mix32, len(flat) // pt, pt, dev)
+    span_cmp = [compare(got[a:b], want[a:b], 2e-3, 2e-4) for a, b in spans]
+    img1 = torch.randn(1, 3, 224, 224, generator=gen_pod)
+    flat1, n1 = pack_ragged([img1[0].numpy()], cfg_pod.patch_size, pt, 4)
+    row = r32_pod["banded-pallas"].infer_ragged(flat1, n1).levels[:n]
+    bucket1 = InferenceEngine(cfg_pod, ServeConfig(buckets=(1,), max_batch=1, iters=POD_ITERS,
+                                                   compute_dtype="float32", use_pallas=True),
+                              params=params_pod, device="cuda")
+    row_cmp = compare(row, bucket1.infer(img1).levels[0], 2e-3, 2e-4)
+    ok = all(c[0] for c in span_cmp) and row_cmp[0]
+    emit("serve_pod_ragged", preset=POD_PRESET, pages=32, rows=[n] * 8, iters=POD_ITERS,
+         dispatches=len(rag_lat), p50_ms=1e3 * statistics.median(rag_lat),
+         min_ms=1e3 * min(rag_lat),
+         valid_patch_iters_per_s=8 * n * POD_ITERS / statistics.median(rag_lat),
+         launches_per_dispatch={"K1": 2 * POD_ITERS, "K4": POD_ITERS, "K2": 0},
+         launches=pod_ragged_launches, f32_rows=mix32, rtol=2e-3, atol=2e-4,
+         banded_pallas_vs_banded_max_abs_err=max(c[1] for c in span_cmp),
+         banded_pallas_vs_banded_bar_ratio=max(c[3] for c in span_cmp),
+         full_row_vs_bucket_max_abs_err=row_cmp[1], full_row_vs_bucket_bar_ratio=row_cmp[3],
+         ok=ok)
+    if not ok:
+        raise AssertionError("f32 pod ragged route disagrees with the plain banded or bucket "
+                             "route")
+    del eng_pod, rag_pod, r32_pod, bucket1, params_pod, dparams_pod
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- train: long global rows (n = 4096) through the one-sweep K2 backward ---------
     # GlomConfig at 896 px, patch 14: side 64, n = 4096, global consensus,
     # flagship widths; batch 2 resolves to the per-iteration route, whose K2
@@ -6980,10 +7572,40 @@ def main() -> int:
                         replaces="glom_tpu/kernels/banded_consensus.py:174",
                         launches=ragged_launches["banded_consensus_fwd"], max_abs_err=k4_err,
                         **timings["k4_ragged32_full"]))
+    # The imagenet224-pod width's instances, each with its launches on the pod
+    # path that drives it (serve_pod's dispatches; train_pod's steps for
+    # K2's backward: the pair on the batch-2 per-iteration route, the
+    # combine on the batch-8 loop; serve_pod_ragged's for K4) and its times
+    # at the pod shapes.
+    pod_scan, pod_loop = pod_train["scan_blockwise"]["launches"], pod_train["fused_loop"][
+        "launches"]
+    for kname, src, replaces, n_launch, err, tkey, also in (
+        ("consensus_update_fwd_wide", "consensus_update.cu",
+         "glom_tpu/kernels/consensus_update.py:473", pod_launches["consensus_update_fwd"],
+         pod_err["k2"], "k2_pod_b8", None),
+        ("consensus_update_bwd_wide", "consensus_update_bwd.cu",
+         "glom_tpu/kernels/consensus_update.py:1142", pod_scan["K2 bwd dq"]
+         + pod_scan["K2 bwd dkv"], pod_err["k2_bwd"], "k2_bwd_pod_b2",
+         ["glom_tpu/kernels/consensus_update.py:1179"]),
+        ("consensus_update_bwd_combine_wide", "consensus_update_bwd.cu", loop_src + "826",
+         pod_loop["K2 combine dq"] + pod_loop["K2 combine dkv"], pod_err["k2_bwd_combine"],
+         "k2_bwd_combine_pod_b8", None),
+        ("banded_consensus_fwd_wide", "banded_consensus.cu",
+         "glom_tpu/kernels/banded_consensus.py:174",
+         pod_ragged_launches["banded_consensus_fwd"], pod_err["k4"], "k4_pod_ragged32_full",
+         None),
+    ):
+        kernels.append(dict(name=kname, route="cuda", source=csrc + src, replaces=replaces,
+                            launches=n_launch, max_abs_err=err, **timings[tkey]))
+        if also:
+            kernels[-1]["also_replaces"] = also
     # The serving device layer's paths run these kernels again: their
     # launches on the paged bucket route and on the ragged route from the
-    # pool (each counted from 0 over its timed turns).
+    # pool (each counted from 0 over its timed turns). The pod width's
+    # instances run on the pod paths only.
     for kd in kernels:
+        if kd["name"].endswith("_wide"):
+            continue
         if kd["name"] in paged_launches:
             kd["paged_launches"] = paged_launches[kd["name"]]
         if kd["name"] in rp_launches:

@@ -22,12 +22,13 @@
 // block here owns one level of the query rows of one page and streams its
 // row's band, a key tile at a time, through shared memory, with a running
 // max, sum and accumulator per query row (an online softmax, as the
-// Pallas kernel's over band pages). Two instances, chosen by the caller
-// (glom_tpu_torch/kernels/banded_consensus.py:k4_instance) and checked
-// here:
+// Pallas kernel's over band pages). Three instances, which the C entry
+// derives from the dtype, pt and d (instance_for; the wrapper's
+// glom_tpu_torch/kernels/banded_consensus.py:k4_instance repeats the rule
+// to allocate the scratch):
 //
 // "wgmma" (bf16, pt a multiple of 64: the flagship's pages of 64 and
-// their multiples), Hopper's tensor cores on sm90_attn.cuh:
+// their multiples, d <= 512), Hopper's tensor cores on sm90_attn.cuh:
 //   * a pre-pass (sm90::khat_kernel) writes khat = kv / max(||kv||, 1e-12),
 //     rounded once to bf16, for all T * L rows into a [T, L, d] scratch
 //     the caller allocates: a key row is normalised once a launch, not once
@@ -58,16 +59,31 @@
 // them, consensus_update.py:505 and :184); scores, the softmax statistics
 // and the sums are f32; the output is cast once.
 //
+// "wgmma_wide" (bf16, pt a multiple of 64, 512 < d <= 1024: glom_tpu's
+// imagenet224-pod width): the same attention on sm90_attn.cuh's wide key
+// loop, Q resident and each tile's khat streamed a 64-column box at a time
+// through a ring of four (a whole 64 x d key tile no longer fits beside Q
+// and V), and a third grid dimension of 512-column groups of the output,
+// each of which recomputes the scores, as K2's forward does past d = 512.
+//
 // "fma" (f32, and bf16 at pt < 64), the CUDA cores: everything after the
 // load is f32, as in the Pallas body (k normalised in f32, f32 scores, p
-// kept in f32, f32 products and sums; FMA), the output is cast once. A
+// kept in f32, f32 products and sums; FMA), the output is cast once, with
+// two sums taken in f64 and rounded once: a key's squared norm and each
+// score's d products. Two f32 summation orders of the same scores differ
+// by up to three times K4's f32 bar at d = 1024 on peaked levels (an f32
+// plain version against an f64 one, NVIDIA H100), so the kernel and its
+// plain version (`banded_ragged_consensus_plain`) round the exact sums. A
 // block owns up to 32 query rows and streams 32 key rows a step,
 // normalising each key row as it loads it. Each warp owns four query rows:
 // its lanes hold one key each for the scores and the softmax step, and 4 x
 // 4 x (d / 128) accumulator values each for p . v, with p handed across
-// lanes by shuffles. A page with len_page 0 walks the whole band, every
-// slot masked, so its output is the uniform average of the clamped band:
-// finite, as in the Pallas kernel.
+// lanes by shuffles. Past d = 512 (up to 1024) a block owns 16 query rows
+// and streams 16 key rows (three tiles of 32 rows x d in f32 would take
+// 396 KB of shared memory at d = 1024), and a lane holds up to 8 chunks.
+// A page with len_page 0 walks the whole band, every slot masked, so its
+// output is the uniform average of the clamped band: finite, as in the
+// Pallas kernel.
 //
 // Bound on the H100: bytes, for "wgmma". At the largest flagship ragged
 // signature (P = 32, pt = 64, T = 2048, W = 256, bf16) one launch reads and
@@ -97,7 +113,9 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;        // query rows per warp
 constexpr int TILE = 32;       // query rows per block, key rows per step
-constexpr int MAX_CHUNKS = 4;  // d / 128 at most: d <= 512
+constexpr int WIDE_TILE = 16;  // the same past NARROW_D
+constexpr int NARROW_D = 512;  // d of the narrow instances: 4 chunks of 128, one column group
+constexpr int MAX_D = sm90::ATTN_MAX_D;  // 8 chunks of 128
 using sm90::NEG_MAX;
 using sm90::SELF_VALUE;
 static_assert(WARPS * ROWS == TILE, "each warp owns four query rows of the tile");
@@ -162,28 +180,30 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
-// Shared-memory layout: q rows [TILE][ldq] (T), normalised k [TILE][ldk]
-// (f32), raw v [TILE][ldv] (T). The pads keep 16-byte rows and spread the
+// Shared-memory layout: q rows [TQ][ldq] (T), normalised k [TQ][ldk]
+// (f32), raw v [TQ][ldv] (T). The pads keep 16-byte rows and spread the
 // k rows that a warp's lanes read over the banks.
-template <typename T>
+template <typename T, int TQ>
 struct Layout {
   int ldq, ldk, ldv;
   size_t k_off, v_off, bytes;
   __host__ __device__ explicit Layout(int d) : ldq(d + 8), ldk(d + 4), ldv(d + 8) {
-    k_off = align128(sizeof(T) * TILE * ldq);
-    v_off = k_off + align128(sizeof(float) * TILE * ldk);
-    bytes = v_off + align128(sizeof(T) * TILE * ldv);
+    k_off = align128(sizeof(T) * TQ * ldq);
+    v_off = k_off + align128(sizeof(float) * TQ * ldk);
+    bytes = v_off + align128(sizeof(T) * TQ * ldv);
   }
 };
 
-template <typename T>
+// MAX_CHUNKS: a lane's 128-column chunks (d / 128 at most); TQ: query rows
+// a block and key rows a step (`tile` is min(pt, TQ)).
+template <typename T, int MAX_CHUNKS, int TQ>
 __global__ void __launch_bounds__(THREADS)
 banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
                         const int* __restrict__ row_start, const int* __restrict__ row_len,
                         int P, int pt, int L, int d, int n_band, int tile, int attend_self,
                         float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> lay(d);
+  const Layout<T, TQ> lay(d);
   T* qs = reinterpret_cast<T*>(smem);
   float* ks = reinterpret_cast<float*>(smem + lay.k_off);
   T* vs = reinterpret_cast<T*>(smem + lay.v_off);
@@ -200,7 +220,7 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
   const int row0 = warp * ROWS;  // this warp's first query row in the tile
 
   // Query rows of this level; rows past the tile are zeros (never written).
-  for (int e = tid * 4; e < TILE * d; e += THREADS * 4) {
+  for (int e = tid * 4; e < TQ * d; e += THREADS * 4) {
     const int r = e / d, c = e - r * d;
     typename Vec4<T>::raw v{};
     if (r < tile) v = load_raw(lv_l + (size_t)(q0 + r) * tstride + c);
@@ -233,7 +253,7 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
     for (int r = warp; r < tile; r += WARPS) {
       const T* src = lv_l + (size_t)(kv0 + r) * tstride;
       float4 x[MAX_CHUNKS];
-      float ss = 0.0f;
+      double ss = 0.0;  // the squared norm in f64, its sqrt rounded once
 #pragma unroll
       for (int c = 0; c < MAX_CHUNKS; ++c) {
         if (c < nc) {
@@ -241,13 +261,15 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
           const typename Vec4<T>::raw raw = load_raw(src + col);
           store_raw(vs + r * lay.ldv + col, raw);
           x[c] = to_f4(raw);
-          ss = fmaf(x[c].x, x[c].x, ss);
-          ss = fmaf(x[c].y, x[c].y, ss);
-          ss = fmaf(x[c].z, x[c].z, ss);
-          ss = fmaf(x[c].w, x[c].w, ss);
+          ss = fma((double)x[c].x, (double)x[c].x, ss);
+          ss = fma((double)x[c].y, (double)x[c].y, ss);
+          ss = fma((double)x[c].z, (double)x[c].z, ss);
+          ss = fma((double)x[c].w, (double)x[c].w, ss);
         }
       }
-      const float denom = fmaxf(sqrtf(warp_sum(ss)), 1e-12f);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      const float denom = fmaxf((float)sqrt(ss), 1e-12f);
 #pragma unroll
       for (int c = 0; c < MAX_CHUNKS; ++c) {
         if (c < nc) {
@@ -258,9 +280,11 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
       }
     }
     __syncthreads();
+    if (row0 >= TQ) continue;  // TQ = 16: warps 4 .. 7 only stage keys
 
-    // Scores: lane = key row of the step, four query rows per warp.
-    float s[ROWS] = {0.f, 0.f, 0.f, 0.f};
+    // Scores: lane = key row of the step, four query rows per warp, each an
+    // f64 sum of f32 products, rounded once (as the plain version's).
+    double s[ROWS] = {0.0, 0.0, 0.0, 0.0};
     if (lane < tile) {
       const float* kr = ks + lane * lay.ldk;
       const T* qr = qs + row0 * lay.ldq;
@@ -269,10 +293,10 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
 #pragma unroll
         for (int i = 0; i < ROWS; ++i) {
           const float4 qq = load_f4(qr + i * lay.ldq + c);
-          s[i] = fmaf(qq.x, kk.x, s[i]);
-          s[i] = fmaf(qq.y, kk.y, s[i]);
-          s[i] = fmaf(qq.z, kk.z, s[i]);
-          s[i] = fmaf(qq.w, kk.w, s[i]);
+          s[i] = fma((double)qq.x, (double)kk.x, s[i]);
+          s[i] = fma((double)qq.y, (double)kk.y, s[i]);
+          s[i] = fma((double)qq.z, (double)kk.z, s[i]);
+          s[i] = fma((double)qq.w, (double)kk.w, s[i]);
         }
       }
     }
@@ -284,7 +308,7 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
     for (int i = 0; i < ROWS; ++i) {
       float si = -INFINITY;
       if (lane < tile) {
-        si = s[i] * scale;
+        si = (float)s[i] * scale;
         if (!attend_self && self0 + lane == q0 + row0 + i) si = SELF_VALUE;
         if (w0 + lane >= len) si = NEG_MAX;
       }
@@ -340,51 +364,70 @@ banded_consensus_kernel(const T* __restrict__ lv, T* __restrict__ out,
   }
 }
 
-template <typename T>
-int launch_fma(const void* lv, void* out, const int* row_start, const int* row_len, int P,
-               int pt, int L, int d, int n_band, int attend_self, cudaStream_t stream) {
+template <typename T, int MAX_CHUNKS, int TQ>
+int launch_fma_tiles(const void* lv, void* out, const int* row_start, const int* row_len, int P,
+                     int pt, int L, int d, int n_band, int attend_self, cudaStream_t stream) {
   static bool lifted[sm90::MAX_DEVICES];
-  const cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel<T>, lifted);
+  const cudaError_t err =
+      sm90::lift_smem_cap(banded_consensus_kernel<T, MAX_CHUNKS, TQ>, lifted);
   if (err != cudaSuccess) return (int)err;
-  const int tile = pt < TILE ? pt : TILE;
+  const int tile = pt < TQ ? pt : TQ;
   const dim3 grid(P * pt / tile, L);
   const float scale = (float)(1.0 / sqrt((double)d));
-  banded_consensus_kernel<T><<<grid, THREADS, Layout<T>(d).bytes, stream>>>(
+  banded_consensus_kernel<T, MAX_CHUNKS, TQ><<<grid, THREADS, Layout<T, TQ>(d).bytes, stream>>>(
       static_cast<const T*>(lv), static_cast<T*>(out), row_start, row_len, P, pt, L, d,
       n_band, tile, attend_self, scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_fma(const void* lv, void* out, const int* row_start, const int* row_len, int P,
+               int pt, int L, int d, int n_band, int attend_self, cudaStream_t stream) {
+  return d > NARROW_D ? launch_fma_tiles<T, MAX_D / 128, WIDE_TILE>(
+                            lv, out, row_start, row_len, P, pt, L, d, n_band, attend_self, stream)
+                      : launch_fma_tiles<T, NARROW_D / 128, TILE>(
+                            lv, out, row_start, row_len, P, pt, L, d, n_band, attend_self, stream);
+}
+
 // --- "wgmma": bf16, pt a multiple of 64, on sm90_attn.cuh --------------------
 
 using bf16 = __nv_bfloat16;
-// The instances, as kernels/banded_consensus.py:K4_INSTANCES numbers them.
-constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1;
+// The instances' names by number; kernels/banded_consensus.py reads them
+// from this line (K4_INSTANCES).
+const char* const INSTANCE_NAMES[] = {"fma", "wgmma", "wgmma_wide"};
+constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1, INSTANCE_WGMMA_WIDE = 2;
 
-int instance_for(int is_bf16, int pt) {
-  return is_bf16 && pt % sm90::ATTN_ROWS == 0 ? INSTANCE_WGMMA : INSTANCE_FMA;
+// The rule kernels/banded_consensus.py:k4_instance repeats for its scratch.
+int instance_for(int is_bf16, int pt, int d) {
+  if (!is_bf16 || pt % sm90::ATTN_ROWS != 0) return INSTANCE_FMA;
+  return d > NARROW_D ? INSTANCE_WGMMA_WIDE : INSTANCE_WGMMA;
 }
 
-// Grid: (T / 64, L). lv_map and k_map: the levels and khat [T, L, d] as
-// {d, L, T} maps with a 64 x 1 x 64 box (token_map).
+// Grid: (T / 64, L, 512-column groups: one unless WIDE). lv_map and k_map:
+// the levels and khat [T, L, d] as {d, L, T} maps with a 64 x 1 x 64 box
+// (token_map).
+template <bool WIDE>
 __global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
 banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
                               const __grid_constant__ CUtensorMap k_map, bf16* __restrict__ out,
                               const int* __restrict__ row_start,
                               const int* __restrict__ row_len, int P, int pt, int L, int d,
                               int n_band, int attend_self, float scale) {
-  constexpr int BOX = sm90::ATTN_BOX, KEYS = sm90::ATTN_KEYS;
+  constexpr int BOX = sm90::ATTN_BOX, KEYS = sm90::ATTN_KEYS, NC = sm90::ATTN_NC;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const sm90::AttnLayout lay(d);
+  using Lay = sm90::AttnSmem<WIDE>;
+  const Lay lay(d);
   unsigned char* qs = smem;
   unsigned char* ks = smem + lay.k_off;
   unsigned char* vs = smem + lay.v_off;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;
-  uint64_t* v_full = bars + 2;
+  uint64_t* k_full = bars + 1;  // Lay::K_BARS
+  uint64_t* v_full = bars + 1 + Lay::K_BARS;
+  // The block's first 64-column chunk of the output (its column group).
+  const int chunk0 = WIDE ? 2 * NC * blockIdx.z : 0;
 
   const int t0 = blockIdx.x * sm90::ATTN_ROWS;  // the block's first query token
   const int l = blockIdx.y;
@@ -407,16 +450,22 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
     for (int c = 0; c < lay.boxes; ++c)
       sm90::tma_load_3d(ks + c * BOX, &k_map, 64 * c, l, row, k_full);
   };
+  // The wide form's box step b: box b % boxes of key tile b / boxes, into
+  // ring stage b % ATTN_KRING.
+  auto load_kbox = [&](int b) {
+    const int st = b % sm90::ATTN_KRING, c = b % lay.boxes;
+    sm90::mbar_expect_tx(k_full + st, BOX);
+    sm90::tma_load_3d(ks + st * BOX, &k_map, 64 * c, l, key_token(b / lay.boxes), k_full + st);
+  };
   auto load_v = [&](int it) {
     const int row = key_token(it);
-    sm90::mbar_expect_tx(v_full, lay.boxes * BOX);
-    for (int c = 0; c < lay.boxes; ++c)
-      sm90::tma_load_3d(vs + c * BOX, &lv_map, 64 * c, l, row, v_full);
+    const int chunks = WIDE ? min(2 * NC, lay.boxes - chunk0) : lay.boxes;
+    sm90::mbar_expect_tx(v_full, chunks * BOX);
+    for (int c = 0; c < chunks; ++c)
+      sm90::tma_load_3d(vs + c * BOX, &lv_map, 64 * (chunk0 + c), l, row, v_full);
   };
   if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
-    sm90::mbar_init(k_full, 1);
-    sm90::mbar_init(v_full, 1);
+    for (int i = 0; i < 2 + Lay::K_BARS; ++i) sm90::mbar_init(bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -424,7 +473,12 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
     sm90::mbar_expect_tx(q_full, lay.boxes * BOX);
     for (int c = 0; c < lay.boxes; ++c)
       sm90::tma_load_3d(qs + c * BOX, &lv_map, 64 * c, l, t0, q_full);
-    load_k(0);
+    if constexpr (WIDE) {
+      const int steps = n_slots / KEYS * lay.boxes;
+      for (int b = 0; b < sm90::ATTN_KRING && b < steps; ++b) load_kbox(b);
+    } else {
+      load_k(0);
+    }
     load_v(0);
   }
 
@@ -458,8 +512,15 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
   };
   float o[sm90::ATTN_NC][sm90::ACC64];
   float m_a, m_b, l_a, l_b;
-  sm90::attn_key_loop(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
-                      n_slots / KEYS, d, scale, load_k, load_v, mask);
+  auto load_k_step = [&](int it) {
+    if constexpr (WIDE) {
+      load_kbox(it);  // a box step
+    } else {
+      load_k(it);
+    }
+  };
+  sm90::attn_key_loop<WIDE>(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
+                            n_slots / KEYS, d, scale, load_k_step, load_v, mask);
 
   // Epilogue: out = O / l through the warp's stage (k and v are free),
   // 16-byte row segments at the token stride L * d.
@@ -471,7 +532,7 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
   bf16* dst = out + (size_t)(t0 + w16) * ld + (size_t)l * d;
 #pragma unroll
   for (int c = 0; c < sm90::ATTN_NC; ++c) {
-    const int chunk = sm90::ATTN_NC * (threadIdx.x / 128) + c;  // 64-column chunk of d
+    const int chunk = chunk0 + NC * (threadIdx.x / 128) + c;  // 64-column chunk of d
     if (chunk >= lay.boxes) continue;  // past d: its box was not loaded
     sm90::stage_cons(o[c], l_a, inv_a, l_b, inv_b, stage);
     __syncwarp();
@@ -498,20 +559,23 @@ cudaError_t token_map(CUtensorMap* map, const void* ptr, int d, int L, int T) {
 }
 
 // The pre-pass and the attention.
+template <bool WIDE>
 int launch_wgmma(const bf16* lv, bf16* out, bf16* khat, const int* row_start,
                  const int* row_len, int P, int pt, int L, int d, int n_band, int attend_self,
                  cudaStream_t stream) {
   static bool lifted[sm90::MAX_DEVICES];
   const int T = P * pt;
-  cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel_wgmma, lifted);
+  cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel_wgmma<WIDE>, lifted);
   CUtensorMap lv_map, k_map;
   if (err == cudaSuccess) err = token_map(&lv_map, lv, d, L, T);
   if (err == cudaSuccess) err = token_map(&k_map, khat, d, L, T);
   if (err == cudaSuccess) err = sm90::launch_khat(lv, khat, (size_t)T * L, d, stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(T / sm90::ATTN_ROWS, L);
+  const int groups = (d / 64 + 2 * sm90::ATTN_NC - 1) / (2 * sm90::ATTN_NC);
+  const dim3 grid(T / sm90::ATTN_ROWS, L, groups);
   const float scale = (float)(1.0 / sqrt((double)d));
-  banded_consensus_kernel_wgmma<<<grid, sm90::ATTN_THREADS, sm90::AttnLayout(d).bytes, stream>>>(
+  banded_consensus_kernel_wgmma<WIDE><<<grid, sm90::ATTN_THREADS, sm90::AttnSmem<WIDE>(d).bytes,
+                                        stream>>>(
       lv_map, k_map, out, row_start, row_len, P, pt, L, d, n_band, attend_self, scale);
   return (int)cudaGetLastError();
 }
@@ -520,25 +584,32 @@ int launch_wgmma(const bf16* lv, bf16* out, bf16* khat, const int* row_start,
 
 extern "C" {
 
+// The instance a launch of these arguments runs, by name (instance_for).
+const char* banded_consensus_instance(int is_bf16, int pt, int d) {
+  return INSTANCE_NAMES[instance_for(is_bf16, pt, d)];
+}
+
 // lv, out: [P * pt, L, d], contiguous, one dtype (is_bf16 selects bf16,
 // else f32), not aliased; row_start, row_len: int32 [P * pt] on the device;
-// n_band = window / pt; d a multiple of 128, at most 512; pt <= 32 or a
-// multiple of 32. `instance` must be the one the caller's rule gives: 1
-// ("wgmma") for bf16 with pt a multiple of 64, with khat a bf16
-// [P * pt, L, d] scratch and lv 16-byte aligned; else 0 ("fma") with khat
-// NULL. A mismatch returns cudaErrorInvalidValue. Returns a cudaError_t.
+// n_band = window / pt; d a multiple of 128, at most 1024; pt <= 32 or a
+// multiple of 32 (past d = 512 for "fma": <= 16 or a multiple of 16). The
+// instance follows from is_bf16, pt and d (instance_for): "wgmma" and
+// "wgmma_wide" take khat, a bf16 [P * pt, L, d] scratch, and lv 16-byte
+// aligned; "fma" takes khat NULL. A mismatch returns
+// cudaErrorInvalidValue. Returns a cudaError_t.
 int banded_consensus_fwd(const void* lv, void* out, void* khat, const int* row_start,
                          const int* row_len, int P, int pt, int L, int d, int n_band,
-                         int attend_self, int is_bf16, int instance, void* stream) {
-  if (P < 1 || pt < 1 || L < 1 || n_band < 1 || d < 128 || d % 128 != 0 ||
-      d > 128 * MAX_CHUNKS || (pt > TILE && pt % TILE != 0) ||
-      instance != instance_for(is_bf16, pt) || (khat != nullptr) != (instance == INSTANCE_WGMMA))
+                         int attend_self, int is_bf16, void* stream) {
+  const int instance = instance_for(is_bf16, pt, d);
+  const int tile = instance == INSTANCE_FMA && d > NARROW_D ? WIDE_TILE : TILE;
+  if (P < 1 || pt < 1 || L < 1 || n_band < 1 || d < 128 || d % 128 != 0 || d > MAX_D ||
+      (pt > tile && pt % tile != 0) || (khat != nullptr) != (instance != INSTANCE_FMA))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (instance == INSTANCE_WGMMA)
-    return launch_wgmma(static_cast<const bf16*>(lv), static_cast<bf16*>(out),
-                        static_cast<bf16*>(khat), row_start, row_len, P, pt, L, d, n_band,
-                        attend_self, s);
+  if (instance != INSTANCE_FMA)
+    return (instance == INSTANCE_WGMMA_WIDE ? launch_wgmma<true> : launch_wgmma<false>)(
+        static_cast<const bf16*>(lv), static_cast<bf16*>(out), static_cast<bf16*>(khat),
+        row_start, row_len, P, pt, L, d, n_band, attend_self, s);
   return is_bf16 ? launch_fma<bf16>(lv, out, row_start, row_len, P, pt, L, d, n_band,
                                     attend_self, s)
                  : launch_fma<float>(lv, out, row_start, row_len, P, pt, L, d, n_band,

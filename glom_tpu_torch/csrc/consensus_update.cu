@@ -45,6 +45,11 @@
 //     warpgroups pass before it is refilled: k for tile j + 1 loads while
 //     tile j's softmax and P . V run, v for tile j + 1 while tile j + 1's
 //     scores do.
+//   * Past d = 640 (the wide instance, up to d = 1024: glom_tpu's
+//     imagenet224-pod width) a whole 64 x d k tile no longer fits beside
+//     the resident q tile and v's 512 columns, so k streams a 64-column box
+//     at a time through sm90_attn.cuh's ring of four boxes and S is summed
+//     over d box by box (`attn_key_loop<true>`); the rest is the same.
 //   * Two warpgroups each compute the whole S = Q . K^T (wgmma m64n64k16,
 //     both operands in shared memory, f32 in registers), its masks and the
 //     online softmax in registers (a row's max and sum over the four
@@ -68,6 +73,9 @@
 // f32 runs on the CUDA cores with FMA (the reference's f32 arithmetic): a
 // block owns 16 query rows, normalizes each 16-key tile's k rows as it
 // loads them, and keeps the online softmax's accumulator in shared memory.
+// Where tiles of 16 keys no longer fit beside the query rows and the
+// accumulator (from d = 896 on; 265,856 bytes at d = 1024), key tiles take
+// 8 rows.
 //
 // The output must not alias the input: other row tiles still read it.
 // Plain C interface (no PyTorch headers), bound with ctypes.
@@ -104,13 +112,16 @@ __device__ __forceinline__ Window live_tiles(int i0, int rows, int tile, int n, 
 
 constexpr int F32_THREADS = 256;  // 8 warps
 constexpr int F32_WARPS = F32_THREADS / 32;
-constexpr int F32_TI = 16, F32_TJ = 16, F32_PAD = 1;  // PAD spreads rows over banks
+constexpr int F32_TI = 16, F32_PAD = 1;  // PAD spreads rows over banks
+// Key rows a tile: 16, or 8 where 16 do not fit (F32_WIDE_TJ).
+constexpr int F32_TJ = 16, F32_WIDE_TJ = 8;
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
 // Shared-memory layout, every section 128-byte aligned.
+template <int TJ_>
 struct F32Layout {
-  static constexpr int TI = F32_TI, TJ = F32_TJ;
+  static constexpr int TI = F32_TI, TJ = TJ_;
   int ld, ldacc, lds, ldp;
   size_t q_off, k_off, v_off, acc_off, s_off, p_off, st_off, bytes;
   __host__ __device__ explicit F32Layout(int d)
@@ -126,16 +137,16 @@ struct F32Layout {
   }
 };
 
-template <bool SAVE_CONS>
+template <bool SAVE_CONS, int TJ>
 __global__ void __launch_bounds__(F32_THREADS)
 consensus_update_kernel_f32(const float* __restrict__ lv, const float* __restrict__ bu,
                             const float* __restrict__ td, float* __restrict__ out,
                             float* __restrict__ m_out, float* __restrict__ l_out,
                             float* __restrict__ cons_out, int L, int B, int n, int d, int side,
                             int reach, float r2, int attend_self, float scale) {
-  constexpr int TI = F32_TI, TJ = F32_TJ;
+  constexpr int TI = F32_TI;
   extern __shared__ __align__(128) unsigned char smem[];
-  const F32Layout lay(d);
+  const F32Layout<TJ> lay(d);
   float* qs = reinterpret_cast<float*>(smem + lay.q_off);   // [TI][ld] levels rows (q)
   float* ks = reinterpret_cast<float*>(smem + lay.k_off);   // [TJ][ld] normalized k
   float* vs = reinterpret_cast<float*>(smem + lay.v_off);   // [TJ][ld] raw rows (v)
@@ -182,9 +193,9 @@ consensus_update_kernel_f32(const float* __restrict__ lv, const float* __restric
     }
     __syncthreads();
 
-    // S = qs . ks^T (f32), one score per thread.
-    static_assert(TI * TJ == F32_THREADS, "one score per thread");
-    {
+    // S = qs . ks^T (f32), one score per thread (half the threads at TJ = 8).
+    static_assert(TI * TJ <= F32_THREADS, "one score per thread");
+    if (tid < TI * TJ) {
       const int r = tid / TJ, j = tid % TJ;
       float s = 0.0f;
       for (int c = 0; c < d; ++c) s = fmaf(qs[r * lay.ld + c], ks[j * lay.ld + c], s);
@@ -261,7 +272,7 @@ constexpr int ROWS = sm90::ATTN_ROWS;
 constexpr int KEYS = sm90::ATTN_KEYS;
 constexpr int BOX_BYTES = sm90::ATTN_BOX;
 constexpr int NC = sm90::ATTN_NC;  // a warpgroup's 64-column chunks; a block's 2 NC
-constexpr int MAX_D = 640;         // Q and K tiles of 64 rows x d, and V's 512 columns, fit
+constexpr int MAX_D = sm90::ATTN_MAX_D;  // the wide instance past sm90::ATTN_NARROW_D
 
 __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
@@ -269,7 +280,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
 
 // Grid: (row blocks, column groups of 512, L * B). lv_map and
 // k_map are [L * B, n, d] bf16 maps with a 64 x 64 box (sm90::make_map).
-template <bool SAVE_CONS>
+template <bool SAVE_CONS, bool WIDE>
 __global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
 consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -281,14 +292,15 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const sm90::AttnLayout lay(d);
+  using Lay = sm90::AttnSmem<WIDE>;
+  const Lay lay(d);
   unsigned char* qs = smem;
   unsigned char* ks = smem + lay.k_off;
   unsigned char* vs = smem + lay.v_off;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;
-  uint64_t* v_full = bars + 2;
+  uint64_t* k_full = bars + 1;  // Lay::K_BARS
+  uint64_t* v_full = bars + 1 + Lay::K_BARS;
 
   const int i0 = blockIdx.x * ROWS;
   const int chunk0 = 2 * NC * blockIdx.y;  // the block's first 64-column chunk
@@ -304,6 +316,14 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
     for (int c = 0; c < lay.boxes; ++c)
       sm90::tma_load_3d(ks + c * BOX_BYTES, &k_map, 64 * c, jt * KEYS, z, k_full);
   };
+  // The wide form's box step b of the key loop: box b % boxes of live tile
+  // b / boxes, into ring stage b % ATTN_KRING.
+  auto load_kbox = [&](int b) {
+    const int st = b % sm90::ATTN_KRING, c = b % lay.boxes;
+    const int jt = win.j_lo + b / lay.boxes;
+    sm90::mbar_expect_tx(k_full + st, BOX_BYTES);
+    sm90::tma_load_3d(ks + st * BOX_BYTES, &k_map, 64 * c, jt * KEYS, z, k_full + st);
+  };
   auto load_v = [&](int jt) {
     const int chunks = min(2 * NC, lay.boxes - chunk0);
     sm90::mbar_expect_tx(v_full, chunks * BOX_BYTES);
@@ -311,9 +331,7 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
       sm90::tma_load_3d(vs + c * BOX_BYTES, &lv_map, 64 * (chunk0 + c), jt * KEYS, z, v_full);
   };
   if (loader) {
-    sm90::mbar_init(q_full, 1);
-    sm90::mbar_init(k_full, 1);
-    sm90::mbar_init(v_full, 1);
+    for (int i = 0; i < 2 + Lay::K_BARS; ++i) sm90::mbar_init(bars + i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -321,7 +339,12 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
     sm90::mbar_expect_tx(q_full, lay.boxes * BOX_BYTES);
     for (int c = 0; c < lay.boxes; ++c)
       sm90::tma_load_3d(qs + c * BOX_BYTES, &lv_map, 64 * c, i0, z, q_full);
-    load_k(win.j_lo);
+    if constexpr (WIDE) {
+      const int steps = (win.j_hi - win.j_lo) * lay.boxes;
+      for (int b = 0; b < sm90::ATTN_KRING && b < steps; ++b) load_kbox(b);
+    } else {
+      load_k(win.j_lo);
+    }
     load_v(win.j_lo);
     // The epilogue's bu and td rows into L2 meanwhile.
     const size_t row0 = (size_t)z * n + i0;
@@ -369,9 +392,16 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
       }
     }
   };
-  sm90::attn_key_loop(
-      o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full, win.j_hi - win.j_lo, d, scale,
-      [&](int it) { load_k(win.j_lo + it); }, [&](int it) { load_v(win.j_lo + it); }, mask);
+  auto load_k_step = [&](int it) {
+    if constexpr (WIDE) {
+      load_kbox(it);  // a box step
+    } else {
+      load_k(win.j_lo + it);
+    }
+  };
+  sm90::attn_key_loop<WIDE>(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
+                            win.j_hi - win.j_lo, d, scale, load_k_step,
+                            [&](int it) { load_v(win.j_lo + it); }, mask);
 
   // Epilogue (k and v are free: the key loop ended on a barrier).
   const bool top = g == L - 1;
@@ -445,17 +475,32 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
 
 // --- host side ----------------------------------------------------------------
 
+template <bool SAVE_CONS, int TJ>
+int launch_f32_tiles(const float* lv, const float* bu, const float* td, float* out,
+                     float* m_out, float* l_out, float* cons_out, int L, int B, int n, int d,
+                     int side, int reach, float r2, int attend_self, float scale,
+                     cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_f32<SAVE_CONS, TJ>, lifted);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n / F32_TI, B, L);
+  consensus_update_kernel_f32<SAVE_CONS, TJ><<<grid, F32_THREADS, F32Layout<TJ>(d).bytes,
+                                               stream>>>(
+      lv, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2, attend_self, scale);
+  return (int)cudaGetLastError();
+}
+
 template <bool SAVE_CONS>
 int launch_f32(const float* lv, const float* bu, const float* td, float* out, float* m_out,
                float* l_out, float* cons_out, int L, int B, int n, int d, int side, int reach,
                float r2, int attend_self, float scale, cudaStream_t stream) {
-  static bool lifted[sm90::MAX_DEVICES];
-  const cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_f32<SAVE_CONS>, lifted);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n / F32_TI, B, L);
-  consensus_update_kernel_f32<SAVE_CONS><<<grid, F32_THREADS, F32Layout(d).bytes, stream>>>(
-      lv, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2, attend_self, scale);
-  return (int)cudaGetLastError();
+  return F32Layout<F32_TJ>(d).bytes > sm90::SMEM_OPTIN
+             ? launch_f32_tiles<SAVE_CONS, F32_WIDE_TJ>(lv, bu, td, out, m_out, l_out, cons_out,
+                                                        L, B, n, d, side, reach, r2,
+                                                        attend_self, scale, stream)
+             : launch_f32_tiles<SAVE_CONS, F32_TJ>(lv, bu, td, out, m_out, l_out, cons_out, L,
+                                                   B, n, d, side, reach, r2, attend_self, scale,
+                                                   stream);
 }
 
 // A [slots, n, d] bf16 map with the kernel's 64 x 64 box (cached).
@@ -466,13 +511,13 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, int d, int n, int slots)
   return sm90::cached_map(map, ptr, dims, strides, box);
 }
 
-// The pre-pass and the main kernel.
-template <bool SAVE_CONS>
+// The pre-pass and the main kernel (the wide instance past ATTN_NARROW_D).
+template <bool SAVE_CONS, bool WIDE>
 int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float* m_out,
                 float* l_out, bf16* cons_out, bf16* khat, int L, int B, int n, int d, int side,
                 int reach, float r2, int attend_self, float scale, cudaStream_t stream) {
   static bool lifted[sm90::MAX_DEVICES];
-  cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_bf16<SAVE_CONS>, lifted);
+  cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_bf16<SAVE_CONS, WIDE>, lifted);
   CUtensorMap lv_map, k_map;
   if (err == cudaSuccess) err = tile_map(&lv_map, lv, d, n, L * B);
   if (err == cudaSuccess) err = tile_map(&k_map, khat, d, n, L * B);
@@ -480,8 +525,8 @@ int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float
   err = sm90::launch_khat(lv, khat, (size_t)L * B * n, d, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + ROWS - 1) / ROWS, (d / 64 + 2 * NC - 1) / (2 * NC), L * B);
-  consensus_update_kernel_bf16<SAVE_CONS><<<grid, sm90::ATTN_THREADS, sm90::AttnLayout(d).bytes,
-                                            stream>>>(
+  consensus_update_kernel_bf16<SAVE_CONS, WIDE><<<grid, sm90::ATTN_THREADS,
+                                                  sm90::AttnSmem<WIDE>(d).bytes, stream>>>(
       lv_map, k_map, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2,
       attend_self, scale);
   return (int)cudaGetLastError();
@@ -497,17 +542,17 @@ extern "C" {
 // m_out and l_out); khat: bf16 [L, B, n, d] scratch for the normalized
 // keys (bf16 only; NULL for f32); side: patch-grid side (n = side^2 for a
 // local radius); radius <= 0 means global consensus. bf16 needs n % 32 ==
-// 0, d % 64 == 0, d <= 640 and 16-byte-aligned tensors; f32 n % 16 == 0
-// and d % 64 == 0. Returns a cudaError_t.
+// 0 and 16-byte-aligned tensors, f32 n % 16 == 0; both d % 64 == 0 and d
+// <= 1024. Returns a cudaError_t.
 int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* out,
                          float* m_out, float* l_out, void* cons_out, void* khat, int L, int B,
                          int n, int d, int side, double radius, int attend_self, int is_bf16,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int row_tile = is_bf16 ? 32 : F32_TI;
-  if (L < 2 || B < 1 || n % row_tile != 0 || d % 64 != 0 || side < 1 ||
+  if (L < 2 || B < 1 || n % row_tile != 0 || d % 64 != 0 || d > MAX_D || side < 1 ||
       (m_out == nullptr) != (l_out == nullptr) || (cons_out != nullptr && m_out == nullptr) ||
-      (is_bf16 && (khat == nullptr || d > MAX_D)))
+      (is_bf16 && khat == nullptr))
     return (int)cudaErrorInvalidValue;
   const int reach = radius > 0 ? (int)(radius + 1.0) * side : 0;
   const float r2 = (float)(radius * radius);
@@ -518,11 +563,18 @@ int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* o
     const auto* t = static_cast<const bf16*>(td);
     auto* o = static_cast<bf16*>(out);
     auto* k = static_cast<bf16*>(khat);
-    return cons_out != nullptr
-               ? launch_bf16<true>(x, b, t, o, m_out, l_out, static_cast<bf16*>(cons_out), k, L,
-                                   B, n, d, side, reach, r2, attend_self, scale, s)
-               : launch_bf16<false>(x, b, t, o, m_out, l_out, nullptr, k, L, B, n, d, side,
-                                    reach, r2, attend_self, scale, s);
+    auto* c = static_cast<bf16*>(cons_out);
+    if (sm90::attn_wide(d))
+      return c != nullptr ? launch_bf16<true, true>(x, b, t, o, m_out, l_out, c, k, L, B, n, d,
+                                                    side, reach, r2, attend_self, scale, s)
+                          : launch_bf16<false, true>(x, b, t, o, m_out, l_out, nullptr, k, L, B,
+                                                     n, d, side, reach, r2, attend_self, scale,
+                                                     s);
+    return c != nullptr ? launch_bf16<true, false>(x, b, t, o, m_out, l_out, c, k, L, B, n, d,
+                                                   side, reach, r2, attend_self, scale, s)
+                        : launch_bf16<false, false>(x, b, t, o, m_out, l_out, nullptr, k, L, B,
+                                                    n, d, side, reach, r2, attend_self, scale,
+                                                    s);
   }
   const auto* x = static_cast<const float*>(lv);
   const auto* b = static_cast<const float*>(bu);

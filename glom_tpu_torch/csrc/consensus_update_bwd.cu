@@ -57,8 +57,9 @@
 // dv) and ds are rounded before theirs, every sum is f32, and dlevels is
 // rounded once (twice in the one-sweep form, as above).
 //
-// Two instances, chosen by the caller (kernels/consensus_update.py:
-// k2_bwd_instance) and checked again by the C entries:
+// Three instances, which the C entries derive from the dtype and shape
+// (instance_for; kernels/consensus_update.py:k2_bwd_instance repeats the
+// rule to allocate the scratches):
 //
 //   * "wgmma", bf16 at n % 32 == 0, d % 64 == 0, d <= 640, on Hopper's
 //     tensor cores (sm_90a; the shapes, barriers and pre-pass are
@@ -90,6 +91,11 @@
 //     key passes recomputes the block's whole S (and dP), so the tensor
 //     cores run 17 (two-pass) or 13 (one-sweep) products' worth, where the
 //     TPU kernels need five.
+//   * "wgmma_wide", bf16 at 640 < d <= 1024 (glom_tpu's imagenet224-pod
+//     width), the same products on a layout that streams the contraction
+//     over d (see "the wide instance" below): a block owns one 512-column
+//     group of its output, dv and dk come out in f32, and a finishing pass
+//     a row applies the norm VJP;
 //   * "fma", f32, the parity instance, on the CUDA cores: the dq pass
 //     streams 16-key tiles twice (dd, then ds and dq += ds . k in shared
 //     memory), normalising each tile's keys as it loads them; the dkv pass
@@ -139,8 +145,10 @@ __host__ __device__ __forceinline__ void window(int t0, int extent, int tile, in
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 // dq pass: TI query rows a block, TJ key rows a step. dkv pass: KJ key rows
-// a block, KI query rows a step. PAD spreads rows over banks.
-constexpr int TI = 16, TJ = 16, KJ = 16, KI = 16, PAD = 1;
+// a block, KI query rows a step. All are F32_T, or F32_WIDE_T for a pass
+// whose layout at F32_T exceeds a block's shared memory (the dkv pass from
+// d = 640 on, the dq pass past d = 704). PAD spreads rows over banks.
+constexpr int F32_T = 16, F32_WIDE_T = 8, PAD = 1;
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 
@@ -227,6 +235,7 @@ __device__ __forceinline__ void gemm_acc(const float* P, int ldp, const float* V
   }
 }
 
+template <int TI, int TJ>
 struct DqLayout {
   int ld, ldacc, lds;
   size_t dc_off, k_off, v_off, acc_off, s_off, dp_off, ds_off, st_off, bytes;
@@ -243,7 +252,7 @@ struct DqLayout {
   }
 };
 
-template <bool ONESWEEP>
+template <bool ONESWEEP, int TI, int TJ>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dq_kernel(const float* __restrict__ lv, const float* __restrict__ gout,
                         const float* __restrict__ dx_bu, const float* __restrict__ dx_td,
@@ -253,7 +262,7 @@ consensus_bwd_dq_kernel(const float* __restrict__ lv, const float* __restrict__ 
                         int n, int d, int side, int reach, float r2, int attend_self,
                         float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DqLayout lay(d);
+  const DqLayout<TI, TJ> lay(d);
   float* qs = reinterpret_cast<float*>(smem);                   // [TI][ld] query rows
   float* dcs = reinterpret_cast<float*>(smem + lay.dc_off);     // [TI][ld] dcons
   float* ks = reinterpret_cast<float*>(smem + lay.k_off);       // [TJ][ld] normalized k
@@ -350,6 +359,7 @@ consensus_bwd_dq_kernel(const float* __restrict__ lv, const float* __restrict__ 
   if (tid < TI) dd_out[slab + i0 + tid] = dd_row[tid];
 }
 
+template <int KJ, int KI>
 struct DkvLayout {
   int ld, ldacc, lds;
   size_t k_off, dv_off, dk_off, q_off, dc_off, s_off, dp_off, p_off, ds_off, st_off, bytes;
@@ -368,7 +378,7 @@ struct DkvLayout {
   }
 };
 
-template <bool ONESWEEP>
+template <bool ONESWEEP, int KJ, int KI>
 __global__ void __launch_bounds__(THREADS)
 consensus_bwd_dkv_kernel(const float* __restrict__ lv, const float* __restrict__ gout,
                          const float* __restrict__ dx_bu, const float* __restrict__ dx_td,
@@ -378,7 +388,7 @@ consensus_bwd_dkv_kernel(const float* __restrict__ lv, const float* __restrict__
                          float* __restrict__ dmean_out, int L, int B, int n, int d, int side,
                          int reach, float r2, int attend_self, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DkvLayout lay(d);
+  const DkvLayout<KJ, KI> lay(d);
   float* xj = reinterpret_cast<float*>(smem);                   // [KJ][ld] raw key rows (v)
   float* kj = reinterpret_cast<float*>(smem + lay.k_off);       // [KJ][ld] normalized k
   float* dv = reinterpret_cast<float*>(smem + lay.dv_off);      // [KJ][ldacc]
@@ -478,7 +488,7 @@ consensus_bwd_dkv_kernel(const float* __restrict__ lv, const float* __restrict__
 
 // ====================================== bf16: "wgmma", Hopper's tensor cores
 
-constexpr int MAX_D = 640;                // 2 warpgroups x NC chunks of 64 columns (WIDE)
+constexpr int NARROW_D = 640;             // 2 warpgroups x NC chunks of 64 columns (WIDE)
 constexpr int RBOX = sm90::ATTN_BOX;      // a resident box: 64 rows x 64 bf16 columns
 constexpr int ROWS = sm90::ATTN_ROWS;     // rows a block owns: one wgmma m64
 constexpr int WG_THREADS = sm90::ATTN_THREADS;  // two warpgroups
@@ -1339,16 +1349,490 @@ consensus_bwd_dk_sm90(const __grid_constant__ CUtensorMap kj_map,
   }
 }
 
+// ---- the wide instance (640 < d <= 1024)
+//
+// At glom_tpu's imagenet224-pod width (d = 1024) the resident operands of
+// the passes above no longer fit: the dq pass's Q and dcons tiles alone are
+// 256 KB, and a block's f32 sums of 64 rows x d would take all 255
+// registers a thread. So a wide block owns 64 rows and one group of up to
+// 512 output columns (a grid dimension, as the forward's column groups),
+// and streams the contraction of its scores over d, a 64-column box at a
+// time: box step b (tile b / boxes, box b % boxes) fills stage b %
+// WIDE_RING of a ring with the box of each A operand (64 rows) and each B
+// operand (NT rows), released through named barrier 1 + stage. Each tile's
+// accumulating product reads the group's columns of its streamed operand
+// from a two-stage group ring (named barriers 5 and 6). Every group
+// recomputes the tile's scores. The key side writes f32 dv and f32 dk (the
+// norm VJP needs the whole row), and a finishing pass, a warp a row,
+// applies the norm VJP and writes dlevels (and dmean).
+
+constexpr int WIDE_NT = 32;                               // rows of a streamed tile
+constexpr int WIDE_NC = 4;                                // a warpgroup's chunks of the group
+constexpr int WIDE_RING = 4;                              // box stages
+constexpr int WIDE_TBOX = WIDE_NT * 128;                  // an NT-row box
+constexpr int WIDE_GROUP = 2 * WIDE_NC * WIDE_TBOX;       // a tile's group boxes
+constexpr int MAX_D = 1024;  // the wide instance's widest row
+
+// Ring stages at 0 (each: NP A boxes, then NP B boxes), two group stages,
+// the barriers full[WIDE_RING], gfull[2].
+template <int NP>
+struct WideSmem {
+  static constexpr int STAGE = NP * (RBOX + WIDE_TBOX);
+  static constexpr int GROUP_OFF = WIDE_RING * STAGE;
+  static constexpr int BAR_OFF = GROUP_OFF + 2 * WIDE_GROUP;
+  static constexpr int BYTES = 1024 + BAR_OFF + (WIDE_RING + 2) * 8;
+};
+
+__host__ __device__ constexpr int wide_groups(int d) {
+  return (d / 64 + 2 * WIDE_NC - 1) / (2 * WIDE_NC);
+}
+
+// acc0 (and acc1) [64 x NT] of tile u, summed over d through the box ring:
+// acc_p = A_p . B_p^T. `load(b)` issues box step b into its stage (thread
+// 0, once both warpgroups are past step b - WIDE_RING).
+template <int NP, class Load>
+__device__ __forceinline__ void wide_scores(float (&acc0)[WIDE_NT / 2],
+                                            float (&acc1)[WIDE_NT / 2], int u, int boxes,
+                                            int steps, uint32_t ring, uint64_t* full, int w,
+                                            bool loader, const Load& load) {
+  using S = WideSmem<NP>;
+#pragma unroll
+  for (int i = 0; i < WIDE_NT / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+  for (int c = 0; c < boxes; ++c) {
+    const int b = u * boxes + c, s = b % WIDE_RING;
+    const uint32_t st = ring + s * S::STAGE;
+    sm90::mbar_wait(full + s, (b / WIDE_RING) & 1);
+    sm90::fence_acc(acc0);
+    sm90::fence_acc(acc1);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss<WIDE_NT>(acc0, sm90::smem_desc(st + kk * 32, 16, 1024),
+                        sm90::smem_desc(st + NP * RBOX + kk * 32, 16, 1024));
+      if constexpr (NP == 2)
+        wgmma_ss<WIDE_NT>(acc1, sm90::smem_desc(st + RBOX + kk * 32, 16, 1024),
+                          sm90::smem_desc(st + 2 * RBOX + WIDE_TBOX + kk * 32, 16, 1024));
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(acc0);
+    sm90::fence_acc(acc1);
+    named_pass(1 + s, w);
+    if (loader && b + WIDE_RING < steps) load(b + WIDE_RING);
+  }
+}
+
+// f32 [64 rows x the group's chunks] of a warpgroup's sums into out (row
+// stride d), times `mul`; rows past n are not stored.
+__device__ __forceinline__ void wide_store(const float (&acc)[WIDE_NC][sm90::ACC64], float* out,
+                                           size_t row_a, bool ok_a, bool ok_b, int chunk0,
+                                           int boxes, int w, int cq, int d, float mul) {
+#pragma unroll
+  for (int c = 0; c < WIDE_NC; ++c) {
+    const int chunk = chunk0 + w * WIDE_NC + c;
+    if (chunk >= boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * chunk + 8 * jj + cq;
+      if (ok_a)
+        *reinterpret_cast<float2*>(out + row_a * d + col) =
+            make_float2(acc[c][4 * jj] * mul, acc[c][4 * jj + 1] * mul);
+      if (ok_b)
+        *reinterpret_cast<float2*>(out + (row_a + 8) * d + col) =
+            make_float2(acc[c][4 * jj + 2] * mul, acc[c][4 * jj + 3] * mul);
+    }
+  }
+}
+
+// Grid: (query blocks of 64, column groups, L * B). The dq pass of the
+// passes above on the wide layout: A operands q, dcons (64-row maps), B
+// operands khat, levels (NT-row maps); the group ring holds khat's group
+// columns. Writes f32 dq of the group, and dd (group 0).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dq_wide(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, float* __restrict__ dq_out,
+                      float* __restrict__ dd, int onesweep, int n, int d, int side, int reach,
+                      float r2, int attend_self, float scale) {
+  constexpr int NT = WIDE_NT, NC = WIDE_NC, ACC = NT / 2;
+  using S = WideSmem<2>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* group = smem + S::GROUP_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* gfull = full + WIDE_RING;
+
+  const int i0 = blockIdx.x * ROWS, z = blockIdx.z;
+  const int chunk0 = 2 * NC * blockIdx.y, boxes = d / 64;
+  const int gchunks = min(2 * NC, boxes - chunk0);
+  const size_t zn = (size_t)z * n;
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = threadIdx.x == 0;
+  int j_lo, j_hi;
+  window(i0, ROWS, NT, n / NT, reach, j_lo, j_hi);
+  const int tiles = j_hi - j_lo;
+  const int total = (onesweep ? 1 : 2) * tiles;  // tiles over both sweeps
+  const int steps = total * boxes;
+
+  auto load_step = [&](int b) {
+    const int s = b % WIDE_RING, c = b % boxes, jt = j_lo + (b / boxes) % tiles;
+    unsigned char* st = smem + s * S::STAGE;
+    sm90::mbar_expect_tx(full + s, S::STAGE);
+    sm90::tma_load_3d(st, &q_map, 64 * c, i0, z, full + s);
+    sm90::tma_load_3d(st + RBOX, &dc_map, 64 * c, i0, z, full + s);
+    sm90::tma_load_3d(st + 2 * RBOX, &k_map, 64 * c, jt * NT, z, full + s);
+    sm90::tma_load_3d(st + 2 * RBOX + WIDE_TBOX, &v_map, 64 * c, jt * NT, z, full + s);
+  };
+  auto load_group = [&](int v) {  // sweep 1's tile v: khat's group columns
+    const int s = v & 1;
+    sm90::mbar_expect_tx(gfull + s, gchunks * WIDE_TBOX);
+    for (int c = 0; c < gchunks; ++c)
+      sm90::tma_load_3d(group + s * WIDE_GROUP + c * WIDE_TBOX, &k_map, 64 * (chunk0 + c),
+                        (j_lo + v) * NT, z, gfull + s);
+  };
+  if (loader) {
+    for (int i = 0; i < WIDE_RING + 2; ++i) sm90::mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    for (int b = 0; b < WIDE_RING && b < steps; ++b) load_step(b);
+    for (int v = 0; v < 2 && v < tiles; ++v) load_group(v);
+  }
+
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int i_a = i0 + r_a, i_b = i0 + r_b;
+  const bool ok_a = i_a < n, ok_b = i_b < n;
+  const float m_a = ok_a ? m_in[zn + i_a] : 0.0f, m_b = ok_b ? m_in[zn + i_b] : 0.0f;
+  const float l_a = ok_a ? l_in[zn + i_a] : 1.0f, l_b = ok_b ? l_in[zn + i_b] : 1.0f;
+  const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
+  float D_a = 0.0f, D_b = 0.0f;
+  if (onesweep) {
+    D_a = ok_a ? dd[zn + i_a] : 0.0f;
+    D_b = ok_b ? dd[zn + i_b] : 0.0f;
+  }
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  const uint32_t ring = sm90::smem_u32(smem), group_addr = sm90::smem_u32(group);
+
+  // Tile u's S and dP, then p in sc, scaled and masked. Returns whether the
+  // tile holds self scores.
+  auto scores = [&](int u, float (&sc)[ACC], float (&dp)[ACC]) {
+    wide_scores<2>(sc, dp, u, boxes, steps, ring, full, w, loader, load_step);
+    const int j0 = (j_lo + u % tiles) * NT;
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = __fmul_rn(sc[i], scale);
+    const bool diag = !attend_self && j0 < i0 + ROWS && i0 < j0 + NT;
+    if (diag || reach > 0) mask_tile<NT>(sc, i_a, j0, cq, diag, side, reach, r2);
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * jj + e] = prob(sc[4 * jj + e], m_a, l_a, inv_a);
+        sc[4 * jj + 2 + e] = prob(sc[4 * jj + 2 + e], m_b, l_b, inv_b);
+      }
+    }
+    return diag;
+  };
+
+  int u = 0;
+  for (; u < total - tiles; ++u) {  // sweep 0 (two-pass forms): dd = sum_j p dP
+    float sc[ACC], dp[ACC];
+    scores(u, sc, dp);
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        D_a = fmaf(sc[4 * jj + e], dp[4 * jj + e], D_a);
+        D_b = fmaf(sc[4 * jj + 2 + e], dp[4 * jj + 2 + e], D_b);
+      }
+    }
+  }
+  if (!onesweep) {  // a row's four threads hold its sums
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      D_a = __fadd_rn(D_a, __shfl_xor_sync(0xffffffffu, D_a, o));
+      D_b = __fadd_rn(D_b, __shfl_xor_sync(0xffffffffu, D_b, o));
+    }
+  }
+  for (; u < total; ++u) {  // ds, rounded, and dq += ds . k over the group
+    float sc[ACC], dp[ACC];
+    const bool diag = scores(u, sc, dp);
+    const int v = u - (total - tiles), j0 = (j_lo + v) * NT;
+    uint32_t a[NT / 4];
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 8 * jj + cq + e;
+        ds[e] = __fmul_rn(sc[4 * jj + e], __fsub_rn(dp[4 * jj + e], D_a));
+        ds[2 + e] = __fmul_rn(sc[4 * jj + 2 + e], __fsub_rn(dp[4 * jj + 2 + e], D_b));
+        if (diag && j == i_a) ds[e] = 0.0f;
+        if (diag && j == i_b) ds[2 + e] = 0.0f;
+      }
+      a[2 * jj] = sm90::pack_bf16(ds[0], ds[1]);
+      a[2 * jj + 1] = sm90::pack_bf16(ds[2], ds[3]);
+    }
+    sm90::mbar_wait(gfull + (v & 1), (v >> 1) & 1);
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, group_addr + (v & 1) * WIDE_GROUP + w * NC * WIDE_TBOX);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    named_pass(5 + (v & 1), w);
+    if (loader && v + 2 < tiles) load_group(v + 2);
+  }
+
+  if (!onesweep && blockIdx.y == 0 && w == 0 && t % 4 == 0) {
+    if (ok_a) dd[zn + i_a] = D_a;
+    if (ok_b) dd[zn + i_b] = D_b;
+  }
+  wide_store(acc, dq_out, zn + i_a, ok_a, ok_b, chunk0, boxes, w, cq, d, scale);
+}
+
+// Grid: (key blocks of 64, column groups, L * B). The key side on the wide
+// layout: S^T = khat_j . Q_i^T from A khat (64-row map) and B levels (NT
+// rows); DK adds dP^T = v_j . dcons_i^T (A levels, B dcons). The group ring
+// holds dcons's group columns (dv += p^T . dcons_i) or the levels' (DK: dk
+// += ds^T . Q_i). Writes f32 dv, or f32 dk * scale before the norm VJP.
+// The maps are the kernels' own __grid_constant__ parameters (below).
+template <bool DK>
+__device__ __forceinline__ void key_wide(const CUtensorMap& kj_map, const CUtensorMap& vj_map,
+                                         const CUtensorMap& q_map, const CUtensorMap& dc_map,
+                                         const float* __restrict__ m_in,
+                                         const float* __restrict__ l_in,
+                                         const float* __restrict__ dd, float* __restrict__ out,
+                                         int n, int d, int side, int reach, float r2,
+                                         int attend_self, float scale) {
+  constexpr int NT = WIDE_NT, NC = WIDE_NC, ACC = NT / 2, NP = DK ? 2 : 1;
+  using S = WideSmem<NP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* group = smem + S::GROUP_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* gfull = full + WIDE_RING;
+
+  const int j0 = blockIdx.x * ROWS, z = blockIdx.z;
+  const int chunk0 = 2 * NC * blockIdx.y, boxes = d / 64;
+  const int gchunks = min(2 * NC, boxes - chunk0);
+  const size_t zn = (size_t)z * n;
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = threadIdx.x == 0;
+  int i_lo, i_hi;
+  window(j0, ROWS, NT, n / NT, reach, i_lo, i_hi);
+  const int tiles = i_hi - i_lo, steps = tiles * boxes;
+  const CUtensorMap* gmap = DK ? &q_map : &dc_map;
+
+  auto load_step = [&](int b) {
+    const int s = b % WIDE_RING, c = b % boxes, it = i_lo + b / boxes;
+    unsigned char* st = smem + s * S::STAGE;
+    sm90::mbar_expect_tx(full + s, S::STAGE);
+    sm90::tma_load_3d(st, &kj_map, 64 * c, j0, z, full + s);
+    if constexpr (DK) sm90::tma_load_3d(st + RBOX, &vj_map, 64 * c, j0, z, full + s);
+    sm90::tma_load_3d(st + NP * RBOX, &q_map, 64 * c, it * NT, z, full + s);
+    if constexpr (DK)
+      sm90::tma_load_3d(st + 2 * RBOX + WIDE_TBOX, &dc_map, 64 * c, it * NT, z, full + s);
+  };
+  auto load_group = [&](int v) {
+    const int s = v & 1;
+    sm90::mbar_expect_tx(gfull + s, gchunks * WIDE_TBOX);
+    for (int c = 0; c < gchunks; ++c)
+      sm90::tma_load_3d(group + s * WIDE_GROUP + c * WIDE_TBOX, gmap, 64 * (chunk0 + c),
+                        (i_lo + v) * NT, z, gfull + s);
+  };
+  if (loader) {
+    for (int i = 0; i < WIDE_RING + 2; ++i) sm90::mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    for (int b = 0; b < WIDE_RING && b < steps; ++b) load_step(b);
+    for (int v = 0; v < 2 && v < tiles; ++v) load_group(v);
+  }
+
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int j_a = j0 + r_a, j_b = j0 + r_b;
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  const uint32_t ring = sm90::smem_u32(smem), group_addr = sm90::smem_u32(group);
+
+  for (int u = 0; u < tiles; ++u) {
+    const int i0t = (i_lo + u) * NT;
+    ColStats<NT> cs;
+    cs.load(m_in, l_in, DK ? dd : nullptr, zn + i0t, cq);
+    float sc[ACC], dp[ACC];
+    wide_scores<NP>(sc, dp, u, boxes, steps, ring, full, w, loader, load_step);
+    const bool diag =
+        key_probs<NT>(sc, cs, j_a, j0, i0t, cq, attend_self, side, reach, r2, scale);
+    if constexpr (DK) {
+#pragma unroll
+      for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * jj + e, i = i0t + 8 * jj + cq + e;
+          float& da = sc[4 * jj + e];
+          float& db = sc[4 * jj + 2 + e];
+          da = __fmul_rn(da, __fsub_rn(dp[4 * jj + e], cs.D[k]));
+          db = __fmul_rn(db, __fsub_rn(dp[4 * jj + 2 + e], cs.D[k]));
+          if (diag && i == j_a) da = 0.0f;
+          if (diag && i == j_b) db = 0.0f;
+        }
+      }
+    }
+    uint32_t a[NT / 4];
+    pack_rows<NT>(sc, a);  // p^T (the diagonal keeps its p) or ds^T, rounded
+    sm90::mbar_wait(gfull + (u & 1), (u >> 1) & 1);
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, group_addr + (u & 1) * WIDE_GROUP + w * NC * WIDE_TBOX);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    named_pass(5 + (u & 1), w);
+    if (loader && u + 2 < tiles) load_group(u + 2);
+  }
+  wide_store(acc, out, zn + j_a, j_a < n, j_b < n, chunk0, boxes, w, cq, d, DK ? scale : 1.0f);
+}
+
+// The wide dv and dk passes, named apart for the profiles.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dv_wide(const __grid_constant__ CUtensorMap kj_map,
+                      const __grid_constant__ CUtensorMap vj_map,
+                      const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, const float* __restrict__ dd,
+                      float* __restrict__ dv_out, int n, int d, int side, int reach, float r2,
+                      int attend_self, float scale) {
+  key_wide<false>(kj_map, vj_map, q_map, dc_map, m_in, l_in, dd, dv_out, n, d, side, reach, r2,
+                  attend_self, scale);
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+consensus_bwd_dk_wide(const __grid_constant__ CUtensorMap kj_map,
+                      const __grid_constant__ CUtensorMap vj_map,
+                      const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
+                      const float* __restrict__ l_in, const float* __restrict__ dd,
+                      float* __restrict__ dk_out, int n, int d, int side, int reach, float r2,
+                      int attend_self, float scale) {
+  key_wide<true>(kj_map, vj_map, q_map, dc_map, m_in, l_in, dd, dk_out, n, d, side, reach, r2,
+                 attend_self, scale);
+}
+
+// A warp a row of [L, B, n, d]: dk (f32, scaled) through the VJP of k = x /
+// max(||x||, 1e-12), then dlevels = dcons + dq + dv + normVJP(dk) and dmean
+// = dcons rounded, dcons = cot / div with the combine's streams; the
+// one-sweep form rounds g / div + dv + normVJP(dk) first, adds dq and
+// writes no dmean (the dk pass's epilogue above, row-wise).
+__global__ void __launch_bounds__(32 * sm90::KHAT_ROWS)
+consensus_bwd_finish_wide(const bf16* __restrict__ lv, const bf16* __restrict__ gout,
+                          const bf16* __restrict__ dx_bu, const bf16* __restrict__ dx_td,
+                          const float* __restrict__ dq, const float* __restrict__ dv,
+                          const float* __restrict__ dk, bf16* __restrict__ dlv_out,
+                          bf16* __restrict__ dmean_out, int onesweep, int L, int B, int n,
+                          int d) {
+  const size_t row = (size_t)blockIdx.x * sm90::KHAT_ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (size_t)L * B * n) return;
+  const int g = (int)(row / ((size_t)B * n));
+  const size_t plane = (size_t)B * n * d;
+  const float div = g == L - 1 ? 3.0f : 4.0f;
+  const float inv_div = __fdiv_rn(1.0f, div);
+  const bool bu = dx_bu != nullptr && g < L - 1, td = dx_bu != nullptr && g >= 1;
+  float xx = 0.0f, kx = 0.0f;
+  for (int c = lane; c < d / 8; c += 32) {
+    const size_t off = row * d + 8 * c;
+    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(lv + off));
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+    const float4 k0 = __ldg(reinterpret_cast<const float4*>(dk + off));
+    const float4 k1 = __ldg(reinterpret_cast<const float4*>(dk + off + 4));
+    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = __bfloat162float(xe[e]);
+      xx = fmaf(x, x, xx);
+      kx = fmaf(kk[e], x, kx);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    xx += __shfl_xor_sync(0xffffffffu, xx, o);
+    kx += __shfl_xor_sync(0xffffffffu, kx, o);
+  }
+  const float norm = sqrtf(xx);
+  const float inv = 1.0f / fmaxf(norm, 1e-12f);
+  for (int c = lane; c < d / 8; c += 32) {
+    const size_t off = row * d + 8 * c;
+    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(lv + off));
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+    const float4 k0 = __ldg(reinterpret_cast<const float4*>(dk + off));
+    const float4 k1 = __ldg(reinterpret_cast<const float4*>(dk + off + 4));
+    const float4 q0 = __ldg(reinterpret_cast<const float4*>(dq + off));
+    const float4 q1 = __ldg(reinterpret_cast<const float4*>(dq + off + 4));
+    const float4 v0 = __ldg(reinterpret_cast<const float4*>(dv + off));
+    const float4 v1 = __ldg(reinterpret_cast<const float4*>(dv + off + 4));
+    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+    const float dqe[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const float dve[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gout + off));
+    uint4 bv = gv, tv = gv;
+    if (bu) bv = __ldg(reinterpret_cast<const uint4*>(dx_bu + off + plane));
+    if (td) tv = __ldg(reinterpret_cast<const uint4*>(dx_td + off - plane));
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    const bf16* be = reinterpret_cast<const bf16*>(&bv);
+    const bf16* te = reinterpret_cast<const bf16*>(&tv);
+    uint4 ov, mv;
+    bf16* oe = reinterpret_cast<bf16*>(&ov);
+    bf16* me = reinterpret_cast<bf16*>(&mv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = __bfloat162float(xe[e]);
+      const float dxn = kk[e] * inv - (norm >= 1e-12f ? kx * x * inv * inv / norm : 0.0f);
+      float c = __bfloat162float(ge[e]);
+      if (onesweep) {
+        const bf16 partial =
+            __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(c, inv_div), dve[e]), dxn));
+        oe[e] = __float2bfloat16(__fadd_rn(__bfloat162float(partial), dqe[e]));
+      } else {
+        if (bu) c = __fadd_rn(c, __bfloat162float(be[e]));
+        if (td) c = __fadd_rn(c, __bfloat162float(te[e]));
+        const float dcons = __fdiv_rn(c, div);
+        oe[e] = __float2bfloat16(__fadd_rn(__fadd_rn(__fadd_rn(dcons, dqe[e]), dve[e]), dxn));
+        me[e] = __float2bfloat16(dcons);
+      }
+    }
+    *reinterpret_cast<uint4*>(dlv_out + off) = ov;
+    if (!onesweep) *reinterpret_cast<uint4*>(dmean_out + off) = mv;
+  }
+}
+
 // ========================================================= host side
 
-// The instances, as kernels/consensus_update.py:K2_BWD_INSTANCES numbers
-// them: "fma" for f32, "wgmma" for bf16 where n % 32 == 0, d % 64 == 0 and
-// d <= MAX_D; -1 where no instance takes the shape.
-constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1;
+// The instances' names by number; kernels/consensus_update.py reads them
+// from this line (K2_BWD_INSTANCES).
+const char* const INSTANCE_NAMES[] = {"fma", "wgmma", "wgmma_wide"};
+constexpr int INSTANCE_FMA = 0, INSTANCE_WGMMA = 1, INSTANCE_WGMMA_WIDE = 2;
 
+// The instance the C entries run for a shape (the rule that
+// kernels/consensus_update.py:k2_bwd_instance repeats for its scratches):
+// "fma" for f32 where n % 16 == 0, "wgmma" for bf16 where n % 32 == 0 and
+// d <= NARROW_D, "wgmma_wide" for bf16 past it; d % 64 == 0 and d <=
+// MAX_D for all; -1 where none takes the shape.
 int instance_for(int is_bf16, int n, int d) {
-  if (!is_bf16) return n % TI == 0 && d % 64 == 0 ? INSTANCE_FMA : -1;
-  return n % 32 == 0 && d % 64 == 0 && d <= MAX_D ? INSTANCE_WGMMA : -1;
+  if (d % 64 != 0 || d > MAX_D) return -1;
+  if (!is_bf16) return n % F32_T == 0 ? INSTANCE_FMA : -1;
+  if (n % 32 != 0) return -1;
+  return d <= NARROW_D ? INSTANCE_WGMMA : INSTANCE_WGMMA_WIDE;
 }
 
 struct Geometry {
@@ -1361,25 +1845,58 @@ Geometry geometry(int d, int side, double radius) {
           (float)(1.0 / sqrt((double)d))};
 }
 
-bool valid(int L, int B, int n, int d, int side, int is_bf16, int instance, const void* dx_bu,
-           const void* dx_td) {
+// The arguments every entry checks, and the scratches an instance takes:
+// khat and dv for both "wgmma" forms, dk for "wgmma_wide" (NULL where not
+// taken). `dv`/`dk` are passed as "taken" flags where an entry has none.
+bool valid(int L, int B, int n, int d, int side, int instance, const void* dx_bu,
+           const void* dx_td, bool khat, bool dv, bool dk) {
+  const bool wg = instance == INSTANCE_WGMMA || instance == INSTANCE_WGMMA_WIDE;
   return L >= 2 && B >= 1 && side >= 1 && (dx_bu == nullptr) == (dx_td == nullptr) &&
-         instance >= 0 && instance == instance_for(is_bf16, n, d);
+         instance >= 0 && khat == wg && dv == wg && dk == (instance == INSTANCE_WGMMA_WIDE);
 }
 
 // ---- f32
+
+template <bool ONESWEEP, int T>
+int launch_dq_f32_tiles(const float* lv, const float* gout, const float* dx_bu,
+                        const float* dx_td, const float* cons, const float* m, const float* l,
+                        float* dq, float* dd, float* dcons, int L, int B, int n, int d,
+                        const Geometry& geo, int side, int attend_self, cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_kernel<ONESWEEP, T, T>, lifted);
+  if (err != cudaSuccess) return (int)err;
+  consensus_bwd_dq_kernel<ONESWEEP, T, T><<<dim3(n / T, B, L), THREADS, DqLayout<T, T>(d).bytes,
+                                            stream>>>(
+      lv, gout, dx_bu, dx_td, cons, m, l, dq, dd, dcons, L, B, n, d, side, geo.reach, geo.r2,
+      attend_self, geo.scale);
+  return (int)cudaGetLastError();
+}
 
 template <bool ONESWEEP>
 int launch_dq_f32(const float* lv, const float* gout, const float* dx_bu, const float* dx_td,
                   const float* cons, const float* m, const float* l, float* dq, float* dd,
                   float* dcons, int L, int B, int n, int d, const Geometry& geo, int side,
                   int attend_self, cudaStream_t stream) {
+  return (DqLayout<F32_T, F32_T>(d).bytes <= sm90::SMEM_OPTIN
+              ? launch_dq_f32_tiles<ONESWEEP, F32_T>
+              : launch_dq_f32_tiles<ONESWEEP, F32_WIDE_T>)(
+      lv, gout, dx_bu, dx_td, cons, m, l, dq, dd, dcons, L, B, n, d, geo, side, attend_self,
+      stream);
+}
+
+template <bool ONESWEEP, int T>
+int launch_dkv_f32_tiles(const float* lv, const float* gout, const float* dx_bu,
+                         const float* dx_td, const float* m, const float* l, const float* dq,
+                         const float* dd, const float* dcons, float* dlv, float* dmean, int L,
+                         int B, int n, int d, const Geometry& geo, int side, int attend_self,
+                         cudaStream_t stream) {
   static bool lifted[sm90::MAX_DEVICES];
-  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_kernel<ONESWEEP>, lifted);
+  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dkv_kernel<ONESWEEP, T, T>, lifted);
   if (err != cudaSuccess) return (int)err;
-  consensus_bwd_dq_kernel<ONESWEEP><<<dim3(n / TI, B, L), THREADS, DqLayout(d).bytes, stream>>>(
-      lv, gout, dx_bu, dx_td, cons, m, l, dq, dd, dcons, L, B, n, d, side, geo.reach, geo.r2,
-      attend_self, geo.scale);
+  consensus_bwd_dkv_kernel<ONESWEEP, T, T><<<dim3(n / T, B, L), THREADS,
+                                             DkvLayout<T, T>(d).bytes, stream>>>(
+      lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L, B, n, d, side, geo.reach,
+      geo.r2, attend_self, geo.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1388,14 +1905,11 @@ int launch_dkv_f32(const float* lv, const float* gout, const float* dx_bu, const
                    const float* m, const float* l, const float* dq, const float* dd,
                    const float* dcons, float* dlv, float* dmean, int L, int B, int n, int d,
                    const Geometry& geo, int side, int attend_self, cudaStream_t stream) {
-  static bool lifted[sm90::MAX_DEVICES];
-  const cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dkv_kernel<ONESWEEP>, lifted);
-  if (err != cudaSuccess) return (int)err;
-  consensus_bwd_dkv_kernel<ONESWEEP><<<dim3(n / KJ, B, L), THREADS, DkvLayout(d).bytes,
-                                       stream>>>(
-      lv, gout, dx_bu, dx_td, m, l, dq, dd, dcons, dlv, dmean, L, B, n, d, side, geo.reach,
-      geo.r2, attend_self, geo.scale);
-  return (int)cudaGetLastError();
+  return (DkvLayout<F32_T, F32_T>(d).bytes <= sm90::SMEM_OPTIN
+              ? launch_dkv_f32_tiles<ONESWEEP, F32_T>
+              : launch_dkv_f32_tiles<ONESWEEP, F32_WIDE_T>)(lv, gout, dx_bu, dx_td, m, l, dq,
+                                                            dd, dcons, dlv, dmean, L, B, n, d,
+                                                            geo, side, attend_self, stream);
 }
 
 // ---- bf16
@@ -1470,10 +1984,68 @@ cudaError_t launch_key_side_sm90(const bf16* lv, const bf16* gout, const bf16* d
   return cudaGetLastError();
 }
 
+// The wide instance's dq pass.
+cudaError_t launch_dq_wide(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
+                           const float* l, float* dq, float* dd, int onesweep, int L, int B,
+                           int n, int d, const Geometry& geo, int side, int attend_self,
+                           cudaStream_t stream) {
+  static bool lifted[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_wide, lifted);
+  CUtensorMap q_map, dc_map, k_map, v_map;
+  const int slots = L * B;
+  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&k_map, khat, d, n, slots, WIDE_NT);
+  if (err == cudaSuccess) err = row_map(&v_map, lv, d, n, slots, WIDE_NT);
+  if (err != cudaSuccess) return err;
+  consensus_bwd_dq_wide<<<dim3((n + ROWS - 1) / ROWS, wide_groups(d), slots), WG_THREADS,
+                          WideSmem<2>::BYTES, stream>>>(q_map, dc_map, k_map, v_map, m, l, dq,
+                                                        dd, onesweep, n, d, side, geo.reach,
+                                                        geo.r2, attend_self, geo.scale);
+  return cudaGetLastError();
+}
+
+// The wide instance's key side: the dv pass, the dk pass, then the finish
+// (khat and dcons written).
+cudaError_t launch_key_side_wide(const bf16* lv, const bf16* gout, const bf16* dx_bu,
+                                 const bf16* dx_td, const bf16* dcons, const bf16* khat,
+                                 const float* m, const float* l, const float* dq,
+                                 const float* dd, float* dv, float* dk, bf16* dlv, bf16* dmean,
+                                 int onesweep, int L, int B, int n, int d, const Geometry& geo,
+                                 int side, int attend_self, cudaStream_t stream) {
+  static bool lifted_dv[sm90::MAX_DEVICES], lifted_dk[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dv_wide, lifted_dv);
+  if (err == cudaSuccess) err = sm90::lift_smem_cap(consensus_bwd_dk_wide, lifted_dk);
+  CUtensorMap kj_map, vj_map, q_map, dc_map;
+  const int slots = L * B;
+  if (err == cudaSuccess) err = row_map(&kj_map, khat, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&vj_map, lv, d, n, slots, ROWS);
+  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, WIDE_NT);
+  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, WIDE_NT);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + ROWS - 1) / ROWS, wide_groups(d), slots);
+  consensus_bwd_dv_wide<<<grid, WG_THREADS, WideSmem<1>::BYTES, stream>>>(
+      kj_map, vj_map, q_map, dc_map, m, l, dd, dv, n, d, side, geo.reach, geo.r2, attend_self,
+      geo.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  consensus_bwd_dk_wide<<<grid, WG_THREADS, WideSmem<2>::BYTES, stream>>>(
+      kj_map, vj_map, q_map, dc_map, m, l, dd, dk, n, d, side, geo.reach, geo.r2, attend_self,
+      geo.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t rows = (size_t)L * B * n;
+  consensus_bwd_finish_wide<<<(unsigned)((rows + sm90::KHAT_ROWS - 1) / sm90::KHAT_ROWS),
+                              32 * sm90::KHAT_ROWS, 0, stream>>>(
+      lv, gout, dx_bu, dx_td, dq, dv, dk, dlv, dmean, onesweep, L, B, n, d);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dq_bf16(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
                            const float* l, float* dq, float* dd, int onesweep, int L, int B,
                            int n, int d, const Geometry& geo, int side, int attend_self,
                            cudaStream_t stream) {
+  if (d > NARROW_D)
+    return launch_dq_wide(lv, dcons, khat, m, l, dq, dd, onesweep, L, B, n, d, geo, side,
+                          attend_self, stream);
   return d > 512 ? launch_dq_sm90<true>(lv, dcons, khat, m, l, dq, dd, onesweep, L, B, n, d, geo,
                                         side, attend_self, stream)
                  : launch_dq_sm90<false>(lv, dcons, khat, m, l, dq, dd, onesweep, L, B, n, d,
@@ -1483,9 +2055,12 @@ cudaError_t launch_dq_bf16(const bf16* lv, const bf16* dcons, const bf16* khat, 
 cudaError_t launch_key_side_bf16(const bf16* lv, const bf16* gout, const bf16* dx_bu,
                                  const bf16* dx_td, const bf16* dcons, const bf16* khat,
                                  const float* m, const float* l, const float* dq,
-                                 const float* dd, float* dv, bf16* dlv, bf16* dmean,
+                                 const float* dd, float* dv, float* dk, bf16* dlv, bf16* dmean,
                                  int onesweep, int L, int B, int n, int d, const Geometry& geo,
                                  int side, int attend_self, cudaStream_t stream) {
+  if (d > NARROW_D)
+    return launch_key_side_wide(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd, dv, dk, dlv,
+                                dmean, onesweep, L, B, n, d, geo, side, attend_self, stream);
   return d > 512 ? launch_key_side_sm90<true>(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd,
                                               dv, dlv, dmean, onesweep, L, B, n, d, geo, side,
                                               attend_self, stream)
@@ -1503,17 +2078,19 @@ extern "C" {
 // neither (the combine's streams); m, l: the forward's f32 [L, B, n] row
 // statistics; dq: f32 [L, B, n, d] and dd: f32 [L, B, n] outputs; dcons:
 // the [L, B, n, d] output, in the levels dtype, of the rounded dcons;
-// khat: the "wgmma" instance's bf16 [L, B, n, d] scratch (NULL for "fma").
-// `instance` must be instance_for's. Contiguous, on the current device,
-// bf16 tensors 16-byte aligned. Returns a cudaError_t.
+// khat: the "wgmma" instances' bf16 [L, B, n, d] scratch (NULL for "fma").
+// The instance follows from is_bf16, n and d (instance_for). Contiguous, on
+// the current device, bf16 tensors 16-byte aligned. Returns a cudaError_t.
 int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
                             const void* dx_td, const float* m, const float* l, float* dq,
                             float* dd, void* dcons, void* khat, int L, int B, int n, int d,
-                            int side, double radius, int attend_self, int is_bf16, int instance,
+                            int side, double radius, int attend_self, int is_bf16,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!valid(L, B, n, d, side, is_bf16, instance, dx_bu, dx_td) || dcons == nullptr ||
-      (khat != nullptr) != (instance == INSTANCE_WGMMA))
+  const int instance = instance_for(is_bf16, n, d);
+  const bool wg = instance != INSTANCE_FMA, wide = instance == INSTANCE_WGMMA_WIDE;
+  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, wg, wide) ||
+      dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
   if (instance == INSTANCE_FMA)
@@ -1535,19 +2112,22 @@ int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
 
 // The dq pass's inputs plus its dq, dd and rounded dcons; dlv, dmean:
 // [L, B, n, d] in the levels dtype; "wgmma" also takes khat (bf16) and dv
-// (f32 [L, B, n, d]) scratches, NULL for "fma". khat_ready: khat already
-// holds the normalised keys (the dq pass of the same call wrote them);
-// else the call writes them first.
+// (f32 [L, B, n, d]) scratches, "wgmma_wide" also dk (f32 [L, B, n, d]),
+// NULL where not taken. khat_ready: khat already holds the normalised keys
+// (the dq pass of the same call wrote them); else the call writes them
+// first.
 int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu,
                              const void* dx_td, const float* m, const float* l,
                              const float* dq, const float* dd, const void* dcons, void* khat,
-                             int khat_ready, float* dv, void* dlv, void* dmean, int L, int B,
-                             int n, int d, int side, double radius, int attend_self,
-                             int is_bf16, int instance, void* stream) {
+                             int khat_ready, float* dv, float* dk, void* dlv, void* dmean, int L,
+                             int B, int n, int d, int side, double radius, int attend_self,
+                             int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wg = instance == INSTANCE_WGMMA;
-  if (!valid(L, B, n, d, side, is_bf16, instance, dx_bu, dx_td) || dcons == nullptr ||
-      (khat != nullptr) != wg || (dv != nullptr) != wg || (khat_ready && !wg))
+  const int instance = instance_for(is_bf16, n, d);
+  const bool wg = instance != INSTANCE_FMA;
+  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, dv != nullptr,
+             dk != nullptr) ||
+      dcons == nullptr || (khat_ready && !wg))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
   if (!wg)
@@ -1565,7 +2145,7 @@ int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu
   return (int)launch_key_side_bf16(x, static_cast<const bf16*>(gout),
                                    static_cast<const bf16*>(dx_bu),
                                    static_cast<const bf16*>(dx_td),
-                                   static_cast<const bf16*>(dcons), k, m, l, dq, dd, dv,
+                                   static_cast<const bf16*>(dcons), k, m, l, dq, dd, dv, dk,
                                    static_cast<bf16*>(dlv), static_cast<bf16*>(dmean), 0, L, B,
                                    n, d, geo, side, attend_self, s);
 }
@@ -1574,17 +2154,20 @@ int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu
 // attention output, then the key side, which writes the complete dlevels.
 // lv, gout, cons: [L, B, n, d] in the levels dtype; m, l: the forward's f32
 // [L, B, n]; dq (f32 [L, B, n, d]), dd (f32 [L, B, n]) and dcons ([L, B, n,
-// d], levels dtype), and for "wgmma" khat (bf16) and dv (f32): workspaces
-// the launches hand over; dlv: [L, B, n, d].
+// d], levels dtype), and for the "wgmma" instances khat (bf16) and dv
+// (f32), for "wgmma_wide" also dk (f32): workspaces the launches hand over;
+// dlv: [L, B, n, d].
 int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* cons,
                                   const float* m, const float* l, float* dq, float* dd,
-                                  void* dcons, void* khat, float* dv, void* dlv, int L, int B,
-                                  int n, int d, int side, double radius, int attend_self,
-                                  int is_bf16, int instance, void* stream) {
+                                  void* dcons, void* khat, float* dv, float* dk, void* dlv, int L,
+                                  int B, int n, int d, int side, double radius, int attend_self,
+                                  int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wg = instance == INSTANCE_WGMMA;
-  if (!valid(L, B, n, d, side, is_bf16, instance, nullptr, nullptr) || cons == nullptr ||
-      dcons == nullptr || (khat != nullptr) != wg || (dv != nullptr) != wg)
+  const int instance = instance_for(is_bf16, n, d);
+  const bool wg = instance != INSTANCE_FMA;
+  if (!valid(L, B, n, d, side, instance, nullptr, nullptr, khat != nullptr, dv != nullptr,
+             dk != nullptr) ||
+      cons == nullptr || dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
   if (!wg) {
@@ -1607,10 +2190,17 @@ int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* 
   if (err == cudaSuccess)
     err = launch_dq_bf16(x, dc, k, m, l, dq, dd, 1, L, B, n, d, geo, side, attend_self, s);
   if (err == cudaSuccess)
-    err = launch_key_side_bf16(x, g, nullptr, nullptr, dc, k, m, l, dq, dd, dv,
+    err = launch_key_side_bf16(x, g, nullptr, nullptr, dc, k, m, l, dq, dd, dv, dk,
                                static_cast<bf16*>(dlv), nullptr, 1, L, B, n, d, geo, side,
                                attend_self, s);
   return (int)err;
+}
+
+// The instance the entries run for these arguments, by name, or NULL
+// where none takes them (instance_for).
+const char* consensus_update_bwd_instance(int is_bf16, int n, int d) {
+  const int instance = instance_for(is_bf16, n, d);
+  return instance < 0 ? nullptr : INSTANCE_NAMES[instance];
 }
 
 const char* consensus_update_bwd_error_string(int err) {

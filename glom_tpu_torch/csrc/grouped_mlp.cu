@@ -64,7 +64,9 @@
 // each slab's h in the same [G, R, f] buffer.
 //
 // f32: the exact erf GELU and FMA on the CUDA cores (below), the reference
-// kernel's rules for that dtype.
+// kernel's rules for that dtype. A block owns 32 rows, or 16 where 32 rows'
+// input and output tiles exceed a block's shared memory (from d = 896 on:
+// 270,336 bytes at d = 1024, glom_tpu's imagenet224-pod width).
 //
 // Plain C interface (no PyTorch headers), bound with ctypes.
 
@@ -75,7 +77,9 @@
 
 namespace {
 
-constexpr int TM = 32;        // f32: rows of x per block
+constexpr int TM = 32;        // f32: rows of x per block (M's multiple)
+constexpr int WIDE_TM = 16;   // f32: the same where TM rows do not fit
+constexpr int MAX_D = 1024;          // the widest d the f32 tiles are sized for
 constexpr int FC = 64;        // f32: hidden columns per chunk
 constexpr int THREADS = 256;  // f32: 8 warps
 
@@ -249,7 +253,7 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* a, int n, const bf16* w1, const 
 // each thread one hidden column and 8 rows; phase two gives each thread
 // whole output columns (all TM rows in registers) so every w2 value is
 // read once.
-template <bool SAVE_PRE, bool PRE_ONLY>
+template <bool SAVE_PRE, bool PRE_ONLY, int TM>
 __global__ void __launch_bounds__(THREADS)
 mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
             const float* __restrict__ w1, const float* __restrict__ b1,
@@ -321,18 +325,16 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ a, int n,
   }
 }
 
-size_t f32_smem_bytes(int d) { return sizeof(float) * (2 * TM * d + TM * FC); }
+size_t f32_smem_bytes(int tm, int d) { return sizeof(float) * (2 * tm * d + tm * FC); }
 
-// One f32 launch of the forward, with the pre-activation store compiled in
-// (training) or out (serving), or of the pre-only recompute.
-template <bool SAVE_PRE, bool PRE_ONLY = false>
-cudaError_t launch_f32(const void* x, const void* a, int n, const void* w1, const void* b1,
-                       const void* w2, const void* b2, void* out, void* pre, int G, int M,
-                       int d, int f, int split, int x_lo, cudaStream_t s) {
+template <bool SAVE_PRE, bool PRE_ONLY, int TM_>
+cudaError_t launch_f32_rows(const void* x, const void* a, int n, const void* w1, const void* b1,
+                            const void* w2, const void* b2, void* out, void* pre, int G, int M,
+                            int d, int f, int split, int x_lo, cudaStream_t s) {
   static bool lifted[sm90::MAX_DEVICES];
-  cudaError_t err = sm90::lift_smem_cap(mlp_fwd_f32<SAVE_PRE, PRE_ONLY>, lifted);
+  cudaError_t err = sm90::lift_smem_cap(mlp_fwd_f32<SAVE_PRE, PRE_ONLY, TM_>, lifted);
   if (err != cudaSuccess) return err;
-  mlp_fwd_f32<SAVE_PRE, PRE_ONLY><<<dim3(M / TM, G), THREADS, f32_smem_bytes(d), s>>>(
+  mlp_fwd_f32<SAVE_PRE, PRE_ONLY, TM_><<<dim3(M / TM_, G), THREADS, f32_smem_bytes(TM_, d), s>>>(
       static_cast<const float*>(x), static_cast<const float*>(a), n,
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out),
@@ -340,8 +342,21 @@ cudaError_t launch_f32(const void* x, const void* a, int n, const void* w1, cons
   return cudaGetLastError();
 }
 
+// One f32 launch of the forward, with the pre-activation store compiled in
+// (training) or out (serving), or of the pre-only recompute.
+template <bool SAVE_PRE, bool PRE_ONLY = false>
+cudaError_t launch_f32(const void* x, const void* a, int n, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* out, void* pre, int G, int M,
+                       int d, int f, int split, int x_lo, cudaStream_t s) {
+  return (f32_smem_bytes(TM, d) <= sm90::SMEM_OPTIN
+              ? launch_f32_rows<SAVE_PRE, PRE_ONLY, TM>
+              : launch_f32_rows<SAVE_PRE, PRE_ONLY, WIDE_TM>)(
+      x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f, split, x_lo, s);
+}
+
 bool valid(const void* a, int n, int G, int M, int d, int f, int split, int x_lo) {
-  return G >= 1 && M % TM == 0 && d % 64 == 0 && f % FC == 0 && split >= 0 && split <= G &&
+  return G >= 1 && M % TM == 0 && d % 64 == 0 && d <= MAX_D && f % FC == 0 && split >= 0 &&
+         split <= G &&
          x_lo >= 0 && (a != nullptr) == (split > 0) && (a == nullptr || (n >= 1 && M % n == 0));
 }
 

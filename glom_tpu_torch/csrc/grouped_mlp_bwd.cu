@@ -124,7 +124,9 @@ using bf16 = __nv_bfloat16;
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int FC = 64;        // hidden columns per chunk of the row pass
-constexpr int TMB = 32;       // rows per row-pass block, bf16
+constexpr int TMB = 32;       // rows per row-pass block, bf16 (M's multiple)
+constexpr int WIDE_TMB = 16;  // the same where TMB rows do not fit (RowBf16Layout)
+constexpr int MAX_D = 1024;          // the widest d the row tiles are sized for
 constexpr int TMF = 16;       // rows per row-pass block, f32
 constexpr int WT = 64;        // weight-pass output tile
 constexpr int WK = 32;        // weight-pass rows staged per step
@@ -404,7 +406,10 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Shared memory of the bf16 recompute row pass.
+// Shared memory of the bf16 recompute row pass: TMB rows, or WIDE_TMB from
+// d = 832 on, where 32 rows' g, x and f32 dx tiles exceed a block's shared
+// memory (285,696 bytes at d = 1024, glom_tpu's imagenet224-pod width).
+template <int TMB>
 struct RowBf16Layout {
   int ld, ldacc, ldc, ldcb;
   size_t x_off, acc_off, dh_off, z_off, dp_off, bytes;
@@ -419,6 +424,7 @@ struct RowBf16Layout {
   }
 };
 
+template <int TMB>
 __global__ void __launch_bounds__(THREADS)
 mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
                   const bf16* __restrict__ w1, const bf16* __restrict__ b1,
@@ -426,7 +432,7 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
                   bf16* __restrict__ dx, float* __restrict__ dx32, bf16* __restrict__ h_ws,
                   bf16* __restrict__ dpre_ws, int M, int d, int f, int split, int x_lo) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const RowBf16Layout lay(d);
+  const RowBf16Layout<TMB> lay(d);
   bf16* gs = reinterpret_cast<bf16*>(smem);
   bf16* xs = reinterpret_cast<bf16*>(smem + lay.x_off);
   float* acc = reinterpret_cast<float*>(smem + lay.acc_off);
@@ -463,8 +469,8 @@ mlp_bwd_rows_bf16(const bf16* __restrict__ x, const bf16* __restrict__ a, int n,
 
   for (int c0 = 0; c0 < f; c0 += FC) {
     // dh [TM, FC] = g . w2[c0:c0+FC, :]^T and z = xa . w1[:, c0:c0+FC]:
-    // one 16x16 tile a warp.
-    {
+    // one 16x16 tile a warp (half the warps at WIDE_TMB).
+    if (warp < (TMB / 16) * (FC / 16)) {
       const int rf = warp / (FC / 16), cf = warp % (FC / 16);
       FragA af;
       FragC t;
@@ -857,7 +863,8 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
   const int tm = is_bf16 ? TMB : TMF;
   const bool add = a != nullptr;
   const bool saved_sm90 = is_bf16 && pre != nullptr;
-  if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || f % WT != 0 || dpre_ws == nullptr ||
+  if (G < 1 || M % tm != 0 || M % WK != 0 || d % WT != 0 || d > MAX_D || f % WT != 0 ||
+      dpre_ws == nullptr ||
       ((pre == nullptr || is_bf16) && h_ws == nullptr) || split < 0 || split > G || x_lo < 0 ||
       add != (split > 0) ||
       (add && (n < 1 || M % n != 0 || da == nullptr || dx32_ws == nullptr)) ||
@@ -874,13 +881,19 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
                          static_cast<bf16*>(xa_ws), G, M, d, f, split, x_lo, accumulate != 0, s);
     if (err != cudaSuccess) return (int)err;
   } else {
-    static bool lifted_bf16[sm90::MAX_DEVICES], lifted_f32[sm90::MAX_DEVICES];
+    static bool lifted_bf16[sm90::MAX_DEVICES], lifted_bf16_wide[sm90::MAX_DEVICES];
+    static bool lifted_f32[sm90::MAX_DEVICES];
     const dim3 rows(M / tm, G);
     const dim3 weights((d / WT) * (f / WT), G, 2);
     if (is_bf16) {
-      err = sm90::lift_smem_cap(mlp_bwd_rows_bf16, lifted_bf16);
+      const bool narrow = RowBf16Layout<TMB>(d).bytes <= sm90::SMEM_OPTIN;
+      err = narrow ? sm90::lift_smem_cap(mlp_bwd_rows_bf16<TMB>, lifted_bf16)
+                   : sm90::lift_smem_cap(mlp_bwd_rows_bf16<WIDE_TMB>, lifted_bf16_wide);
       if (err != cudaSuccess) return (int)err;
-      mlp_bwd_rows_bf16<<<rows, THREADS, RowBf16Layout(d).bytes, s>>>(
+      auto rows_bf16 = narrow ? mlp_bwd_rows_bf16<TMB> : mlp_bwd_rows_bf16<WIDE_TMB>;
+      const dim3 row_grid(M / (narrow ? TMB : WIDE_TMB), G);
+      rows_bf16<<<row_grid, THREADS,
+                  narrow ? RowBf16Layout<TMB>(d).bytes : RowBf16Layout<WIDE_TMB>(d).bytes, s>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
           static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
           static_cast<const bf16*>(w2), static_cast<const bf16*>(gout), static_cast<bf16*>(dx),

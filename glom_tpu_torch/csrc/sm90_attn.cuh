@@ -11,7 +11,18 @@
 //   * `attn_key_loop`, the key loop of a block of 64 query rows: two
 //     warpgroups (ATTN_THREADS, thread 0 the loader) each compute the whole
 //     S = Q . K^T of a 64-key tile, the caller's masks, the online softmax
-//     in registers, and O += P . V over their halves of up to 512 columns;
+//     in registers, and O += P . V over their halves of up to 512 columns.
+//     Two forms, chosen by d (`attn_wide`): up to ATTN_NARROW_D a block
+//     keeps the 64 x d Q tile and a whole 64 x d K tile resident; past it
+//     (the pod width, d = 1024, where Q, K and V's 512 columns would take
+//     328,728 bytes) Q stays resident and K streams through a ring of
+//     ATTN_KRING 64-column boxes, so S is summed over d a box at a time. Q
+//     stays resident rather than streaming beside K because the epilogue
+//     reads it again, a streamed Q would be fetched again for every key
+//     tile, and the shared memory it would free buys no second block (a
+//     block's 256 threads at about 205 registers each hold an SM alone);
+//     chosen by that count, the streamed form not built. The ring's four
+//     boxes keep three loads in flight behind the box the tensor cores read;
 //   * `stage_cons` / `staged8`, the epilogue's pass of O / l through shared
 //     memory, and `cached_map`, the host's cache of tensor maps.
 //
@@ -126,21 +137,32 @@ constexpr int ATTN_THREADS = 256;  // two warpgroups: 255 registers a thread, O'
 constexpr int ATTN_STAGE_BYTES = 16 * 64 * 4;  // a warp's 16 rows x 64 columns of f32
 constexpr int KHAT_ROWS = 8;                   // pre-pass rows a block: one a warp
 
+constexpr int ATTN_NARROW_D = 640;  // widest d with a resident K tile
+constexpr int ATTN_MAX_D = 1024;    // widest d of the wide form: Q, the K ring and V fit
+constexpr int ATTN_KRING = 4;       // the wide form's K boxes in flight
+
+__host__ __device__ constexpr bool attn_wide(int d) { return d > ATTN_NARROW_D; }
+
 // Shared-memory layout from a 1024-byte-aligned base (the swizzle's period):
-// q [d/64 boxes], k [d/64 boxes], v [the block's 2 ATTN_NC chunks], then
-// the barriers q_full, k_full, v_full. The epilogue's staging reuses k and v.
-struct AttnLayout {
+// q [d/64 boxes], k [d/64 boxes, or the wide form's ATTN_KRING], v [the
+// block's 2 ATTN_NC chunks], then the barriers q_full, k_full [1 or
+// ATTN_KRING], v_full. The epilogue's staging reuses k and v.
+template <bool WIDE>
+struct AttnSmem {
+  static constexpr int K_BARS = WIDE ? ATTN_KRING : 1;
   int boxes, k_off, v_off, bar_off, bytes;
-  __host__ __device__ explicit AttnLayout(int d) {
+  __host__ __device__ explicit AttnSmem(int d) {
     boxes = d / 64;
+    const int k_boxes = WIDE ? ATTN_KRING : boxes;
     k_off = boxes * ATTN_BOX;
-    v_off = 2 * boxes * ATTN_BOX;
-    const int kv = (boxes + 2 * ATTN_NC) * ATTN_BOX;
+    v_off = k_off + k_boxes * ATTN_BOX;
+    const int kv = (k_boxes + 2 * ATTN_NC) * ATTN_BOX;
     const int stage = ATTN_THREADS / 32 * ATTN_STAGE_BYTES;
     bar_off = k_off + (kv > stage ? kv : stage);
-    bytes = 1024 + bar_off + 3 * 8;
+    bytes = 1024 + bar_off + (2 + K_BARS) * 8;
   }
 };
+using AttnLayout = AttnSmem<false>;
 
 // k = x / max(||x||, 1e-12) of one row of d bf16 values, in f32, rounded,
 // by the calling warp (`lane` its lane): 16-byte loads (d a multiple of 8).
@@ -218,7 +240,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // k ring once both warpgroups are past tile it - 1's k rows, `load_v(it)`
 // the v ring once past its v rows (each a single-stage ring: an mbarrier
 // the load completes and a named barrier, 1 or 2, that warpgroup 1
-// arrives at and warpgroup 0 waits on). Per key tile it < tiles: S = Q .
+// arrives at and warpgroup 0 waits on). The WIDE form's k ring holds
+// ATTN_KRING boxes instead, box step b (tile b / (d/64), its 64-column box
+// b % (d/64)) in stage b % ATTN_KRING on k_full[stage], released through
+// named barrier 4 + stage; thread 0 has issued steps 0 .. ATTN_KRING - 1,
+// and `load_k(b)` issues step b once step b - ATTN_KRING's box is read.
+// Per key tile it < tiles: S = Q .
 // K^T over d (K step kk covers columns 16 kk .. 16 kk + 15, in box kk / 4,
 // 32 bytes further along its 128-byte rows each step); S scaled;
 // `mask(it, s)` edits the thread's scores (columns 8 jj + 2 (t % 4) + {0,
@@ -230,7 +257,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // on; a warp whose rows kept their max skips the rescale by 1). On return
 // both warpgroups are past their last products, so k and v may become the
 // epilogue's staging area.
-template <class LoadK, class LoadV, class Mask>
+template <bool WIDE = false, class LoadK, class LoadV, class Mask>
 __device__ __forceinline__ void attn_key_loop(float (&o)[ATTN_NC][ACC64], float& m_a, float& m_b,
                                               float& l_a, float& l_b, const unsigned char* qs,
                                               const unsigned char* ks, const unsigned char* vs,
@@ -255,21 +282,45 @@ __device__ __forceinline__ void attn_key_loop(float (&o)[ATTN_NC][ACC64], float&
     float s[ACC64];
 #pragma unroll
     for (int i = 0; i < ACC64; ++i) s[i] = 0.0f;
-    mbar_wait(k_full, it & 1);
-    fence_acc(s);
-    wgmma_fence();
-    for (int kk = 0; kk < k_steps; ++kk) {
-      const uint32_t off = (kk / 4) * ATTN_BOX + (kk % 4) * 32;
-      wgmma_m64n64k16_ss(s, smem_desc(q_addr + off, 16, 1024), smem_desc(k_addr + off, 16, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(s);
-    if (w == 1) {
-      named_barrier_arrive(1, ATTN_THREADS);
+    if constexpr (WIDE) {
+      const int boxes = d / 64, steps = tiles * boxes;
+      for (int c = 0; c < boxes; ++c) {
+        const int b = it * boxes + c, st = b % ATTN_KRING;
+        mbar_wait(k_full + st, (b / ATTN_KRING) & 1);
+        fence_acc(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_ss(s, smem_desc(q_addr + c * ATTN_BOX + kk * 32, 16, 1024),
+                             smem_desc(k_addr + st * ATTN_BOX + kk * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(s);
+        if (w == 1) {
+          named_barrier_arrive(4 + st, ATTN_THREADS);
+        } else {
+          named_barrier_sync(4 + st, ATTN_THREADS);
+          if (loader && b + ATTN_KRING < steps) load_k(b + ATTN_KRING);
+        }
+      }
     } else {
-      named_barrier_sync(1, ATTN_THREADS);
-      if (loader && it + 1 < tiles) load_k(it + 1);
+      mbar_wait(k_full, it & 1);
+      fence_acc(s);
+      wgmma_fence();
+      for (int kk = 0; kk < k_steps; ++kk) {
+        const uint32_t off = (kk / 4) * ATTN_BOX + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(s, smem_desc(q_addr + off, 16, 1024),
+                           smem_desc(k_addr + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      if (w == 1) {
+        named_barrier_arrive(1, ATTN_THREADS);
+      } else {
+        named_barrier_sync(1, ATTN_THREADS);
+        if (loader && it + 1 < tiles) load_k(it + 1);
+      }
     }
 
 #pragma unroll

@@ -593,6 +593,9 @@ inline cudaError_t make_mnmajor_map(CUtensorMap* map, const void* ptr, int K, in
 // Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
 // once per device (`done` flags which devices are set).
 constexpr int MAX_DEVICES = 64;
+// That limit on sm_90 (227 KB): the layouts that hold d-wide tiles pick
+// their smaller tiles where the larger exceed it.
+constexpr size_t SMEM_OPTIN = 232448;
 
 template <typename Kernel>
 cudaError_t lift_smem_cap(Kernel kernel, bool* done) {

@@ -17,8 +17,10 @@ default), all at once. ptxas' report
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -130,6 +132,19 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, restype
             _LIBS[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def instance_names(name: str) -> tuple:
+    """The kernel instances' names of `csrc/<name>.cu` in the C entry's
+    numbering, read once from its `INSTANCE_NAMES` array (the one place
+    they are written), so the wrappers' rules name what the C side runs
+    without a build."""
+    text = (CSRC / f"{name}.cu").read_text()
+    found = re.search(r"INSTANCE_NAMES\[\]\s*=\s*\{([^}]*)\}", text)
+    if found is None:
+        raise KernelError(f"{name}.cu declares no INSTANCE_NAMES")
+    return tuple(re.findall(r'"([^"]+)"', found.group(1)))
 
 
 def check(err: int, what: str, error_string) -> None:

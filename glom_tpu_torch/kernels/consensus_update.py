@@ -22,13 +22,17 @@ on Hopper's tensor cores (wgmma, TMA); f32 runs on the CUDA cores.
 `_consensus_bwd_dkv_kernel` with two passes that cover every n: the dq pass
 (f32 dq and dd) and the dkv pass (dv, dk through the norm VJP, and the
 complete dlevels = dmean + dq + dv + normVJP(dk), plus dmean). Its
-arithmetic is the single-tile kernel's (`_small_bwd_math`). Two instances,
-one rule (`k2_bwd_instance`, checked again by the C entries): "wgmma" for
-bf16 (Hopper's tensor cores; the dq pass first runs a pre-pass that
-writes the normalised k and the rounded dcons to scratches the wrapper
-allocates, `bwd_workspaces`, and the dkv pass, a dv launch and a dk launch,
-reads that k, or normalises the keys again when called on its own), "fma"
-for f32 (the CUDA cores). Their combine
+arithmetic is the single-tile kernel's (`_small_bwd_math`). Three
+instances, one rule (the C entries derive the instance from the dtype and
+shape; `k2_bwd_instance` repeats the rule for the scratches): "wgmma" for
+bf16 up to d = 640 (Hopper's tensor cores; the dq pass first runs a
+pre-pass that writes the normalised k and the rounded dcons to scratches
+the wrapper allocates, `bwd_workspaces`, and the dkv pass, a dv launch and
+a dk launch, reads that k, or normalises the keys again when called on its
+own), "wgmma_wide" for bf16 at 640 < d <= 1024 (glom_tpu's
+imagenet224-pod width: the same passes streaming d, a 512-column group of
+the output a block, and a finishing launch for the norm VJP), "fma" for
+f32 (the CUDA cores). Every kernel takes d <= MAX_D = 1024. Their combine
 mode is glom_tpu's `fused_loop._cons_bwd_combine_kernel`, the whole-loop
 VJP's consensus backward: the output cotangent of a level is the sum, in
 f32, of the previous iteration's dlevels and the slot-shifted input
@@ -78,10 +82,12 @@ LAUNCHES_CONS = 0
 LAUNCHES_BWD_ONESWEEP = 0
 
 WIDTH_MULTIPLE = 64  # d must be a multiple of this
+MAX_D = 1024  # the widest row any K2 kernel takes (glom_tpu sizes K2 for d <= 1024)
 ROW_TILE = {torch.bfloat16: 32, torch.float32: 16}  # n must be a multiple
 TMA_ALIGN = 16  # bytes: the bf16 kernels read by TMA and in 16-byte vectors
-BWD_MAX_D = 640  # the "wgmma" backward's widest row (csrc/consensus_update_bwd.cu)
-K2_BWD_INSTANCES = ("fma", "wgmma")  # the backward C entries' instance numbers
+# The widest row of the bf16 kernels with resident 64 x d tiles (the forward
+# and the "wgmma" backward); past it the wide instances stream d.
+NARROW_D = 640
 
 _NEG_MAX = torch.finfo(torch.float32).min
 
@@ -94,10 +100,10 @@ _SIGNATURES = {
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
-    "consensus_update_bwd_dq": ([*[_P] * 10, *[_I] * 5, _D, _I, _I, _I, _P], _I),
-    "consensus_update_bwd_dkv": ([*[_P] * 10, _I, *[_P] * 3, *[_I] * 5, _D, _I, _I, _I, _P],
-                                 _I),
-    "consensus_update_bwd_onesweep": ([*[_P] * 11, *[_I] * 5, _D, _I, _I, _I, _P], _I),
+    "consensus_update_bwd_dq": ([*[_P] * 10, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_dkv": ([*[_P] * 10, _I, *[_P] * 4, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_onesweep": ([*[_P] * 12, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_instance": ([_I, _I, _I], ctypes.c_char_p),
     "consensus_update_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -106,6 +112,14 @@ _BWD_SIGNATURES = {
 # block resident beside the tiles), not a measurement on the card.
 _SMALL_BWD_N = 512
 _ONESWEEP_BUDGET = 48 * 1024 * 1024
+
+
+def __getattr__(name):
+    """K2_BWD_INSTANCES: the C entry's instance names by number, read from the C
+    source on first use (importing the module opens no file)."""
+    if name == "K2_BWD_INSTANCES":
+        return _build.instance_names("consensus_update_bwd")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _pick_tile(n: int) -> int:
@@ -340,19 +354,23 @@ def consensus_bwd_onesweep_plain(
 
 
 def k2_bwd_instance(dtype: torch.dtype, n: int, d: int) -> str:
-    """The backward kernels' instance for a launch: "wgmma" for bfloat16
-    where n % 32 == 0, d % 64 == 0 and d <= BWD_MAX_D (the bf16 forward's
-    shapes), "fma" for float32. A rule by dtype and shape: other shapes
-    raise ValueError, nothing falls back."""
+    """The backward kernels' instance for a launch, the rule the C entries
+    apply (`instance_for`, csrc/consensus_update_bwd.cu): "wgmma" for
+    bfloat16 where n % 32 == 0, d % 64 == 0 and d <= NARROW_D,
+    "wgmma_wide" for bfloat16 at NARROW_D < d <= MAX_D, "fma" for
+    float32 at d <= MAX_D. Other shapes raise ValueError, nothing falls
+    back."""
+    if dtype not in ROW_TILE:
+        raise ValueError(f"dtype {dtype}: the backward takes bfloat16 or float32")
+    if d > MAX_D:
+        raise ValueError(f"no backward for d={d}: K2 takes d <= {MAX_D}")
     if dtype == torch.float32:
         return "fma"
-    if dtype == torch.bfloat16:
-        if n % ROW_TILE[dtype] or d % WIDTH_MULTIPLE or d > BWD_MAX_D:
-            raise ValueError(
-                f"no bf16 backward for n={n}, d={d}: it needs n % {ROW_TILE[dtype]} == 0, "
-                f"d % {WIDTH_MULTIPLE} == 0 and d <= {BWD_MAX_D}")
-        return "wgmma"
-    raise ValueError(f"dtype {dtype}: the backward takes bfloat16 or float32")
+    if n % ROW_TILE[dtype] or d % WIDTH_MULTIPLE:
+        raise ValueError(
+            f"no bf16 backward for n={n}, d={d}: it needs n % {ROW_TILE[dtype]} == 0, "
+            f"d % {WIDTH_MULTIPLE} == 0 and d <= {MAX_D}")
+    return "wgmma" if d <= NARROW_D else "wgmma_wide"
 
 
 def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
@@ -361,10 +379,12 @@ def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
     them is enqueued. form: "dq" (the "wgmma" pre-pass's normalised keys),
     "dkv" (the keys, and the f32 dv the dk launch reads: what the dkv pass
     needs alone, and what `consensus_update_bwd` hands to both passes) or
-    "onesweep" (also f32 dq, f32 dd and the rounded dcons). "fma" needs
-    neither keys nor dv."""
+    "onesweep" (also f32 dq, f32 dd and the rounded dcons). "wgmma_wide"
+    also takes the f32 dk its finishing pass reads; "fma" needs neither
+    keys nor dv."""
     L, B, n, d = levels_lm.shape
-    wgmma = k2_bwd_instance(levels_lm.dtype, n, d) == "wgmma"
+    instance = k2_bwd_instance(levels_lm.dtype, n, d)
+    wgmma = instance != "fma"
     ws = {}
     if form == "onesweep":
         ws["dq"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
@@ -376,6 +396,8 @@ def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
         ws["khat"] = torch.empty_like(levels_lm)
         if form != "dq":
             ws["dv"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
+            if instance == "wgmma_wide":
+                ws["dk"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
     return ws
 
 
@@ -402,6 +424,8 @@ def _check_levels(levels_lm, *, side, radius) -> None:
         raise ValueError("levels must be contiguous")
     if d % WIDTH_MULTIPLE:
         raise ValueError(f"d={d} must be a multiple of {WIDTH_MULTIPLE}")
+    if d > MAX_D:
+        raise ValueError(f"d={d}: K2 takes d <= {MAX_D}")
     if n % ROW_TILE[dt]:
         raise ValueError(f"n={n} must be a multiple of {ROW_TILE[dt]} in {dt}")
     if radius > 0 and side * side != n:
@@ -503,7 +527,7 @@ def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu=None, dx_td=None, co
     start for every tensor, views of the loop's carry slots included."""
     _check_levels(levels_lm, side=side, radius=radius)
     L, B, n, d = levels_lm.shape
-    wgmma = k2_bwd_instance(levels_lm.dtype, n, d) == "wgmma"
+    wgmma = k2_bwd_instance(levels_lm.dtype, n, d) != "fma"
     if (dx_bu is None) != (dx_td is None):
         raise ValueError("dx_bu and dx_td come together")
     if dx_bu is not None and not combine:
@@ -529,17 +553,16 @@ def _check_bwd_args(levels_lm, g, m, l, side, radius, dx_bu=None, dx_td=None, co
 
 
 def _bwd_call(levels_lm):
-    """(library, stream, is_bf16, instance number) of a backward launch."""
-    instance = K2_BWD_INSTANCES.index(k2_bwd_instance(levels_lm.dtype, *levels_lm.shape[-2:]))
+    """(library, stream, is_bf16) of a backward launch."""
     return (_bwd_lib(), torch.cuda.current_stream(levels_lm.device).cuda_stream,
-            int(levels_lm.dtype == torch.bfloat16), instance)
+            int(levels_lm.dtype == torch.bfloat16))
 
 
 def _launch_dq(levels_lm, g, m, l, khat, *, side, radius, attend_self, dx_bu, dx_td,
                combine):
     """Enqueue the dq pass ("wgmma": its pre-pass writes the normalised keys
     into khat): (dq, dd, dcons)."""
-    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
+    lib, stream, is_bf16 = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
     dq = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
     dd = levels_lm.new_empty((L, B, n, 1), dtype=torch.float32)
@@ -547,7 +570,7 @@ def _launch_dq(levels_lm, g, m, l, khat, *, side, radius, attend_self, dx_bu, dx
     err = lib.consensus_update_bwd_dq(
         levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
         l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), _ptr(khat),
-        L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
+        L, B, n, d, side, float(radius), int(attend_self), is_bf16, stream,
     )
     _build.check(err, "consensus_update_bwd_dq", lib.consensus_update_bwd_error_string)
     _build.count(globals(), "LAUNCHES_BWD_COMBINE_DQ" if combine else "LAUNCHES_BWD_DQ")
@@ -558,15 +581,15 @@ def _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, khat_ready, *, side, radi
                 attend_self, dx_bu, dx_td, combine):
     """Enqueue the dkv pass with the scratches ws ("dkv" form); khat_ready:
     ws["khat"] already holds the keys the dq pass wrote. (dlevels, dmean)."""
-    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
+    lib, stream, is_bf16 = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
     dlv = torch.empty_like(levels_lm)
     dmean = torch.empty_like(levels_lm)
     err = lib.consensus_update_bwd_dkv(
         levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
         l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), _ptr(ws.get("khat")),
-        int(khat_ready), _ptr(ws.get("dv")), dlv.data_ptr(), dmean.data_ptr(),
-        L, B, n, d, side, float(radius), int(attend_self), is_bf16, instance, stream,
+        int(khat_ready), _ptr(ws.get("dv")), _ptr(ws.get("dk")), dlv.data_ptr(),
+        dmean.data_ptr(), L, B, n, d, side, float(radius), int(attend_self), is_bf16, stream,
     )
     _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
     _build.count(globals(), "LAUNCHES_BWD_COMBINE_DKV" if combine else "LAUNCHES_BWD_DKV")
@@ -614,15 +637,15 @@ def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend
     if levels_lm.device.type != "cuda":
         raise ValueError(f"no kernel for device {levels_lm.device}")
     _check_bwd_args(levels_lm, g, m, l, side, radius, cons=cons)
-    lib, stream, is_bf16, instance = _bwd_call(levels_lm)
+    lib, stream, is_bf16 = _bwd_call(levels_lm)
     L, B, n, d = levels_lm.shape
     ws = bwd_workspaces(levels_lm, "onesweep")  # held until the launches are enqueued
     dlv = torch.empty_like(levels_lm)
     err = lib.consensus_update_bwd_onesweep(
         levels_lm.data_ptr(), g.data_ptr(), cons.data_ptr(), m.data_ptr(), l.data_ptr(),
         ws["dq"].data_ptr(), ws["dd"].data_ptr(), ws["dcons"].data_ptr(),
-        _ptr(ws.get("khat")), _ptr(ws.get("dv")), dlv.data_ptr(), L, B, n, d, side,
-        float(radius), int(attend_self), is_bf16, instance, stream,
+        _ptr(ws.get("khat")), _ptr(ws.get("dv")), _ptr(ws.get("dk")), dlv.data_ptr(), L, B,
+        n, d, side, float(radius), int(attend_self), is_bf16, stream,
     )
     _build.check(err, "consensus_update_bwd_onesweep", lib.consensus_update_bwd_error_string)
     _build.count(globals(), "LAUNCHES_BWD_ONESWEEP")

@@ -62,6 +62,7 @@ from typing import Optional
 import torch
 
 from glom_tpu_torch.kernels.consensus_update import (
+    MAX_D,
     ROW_TILE as CONS_ROW_TILE,
     WIDTH_MULTIPLE as CONS_WIDTH_MULTIPLE,
     consensus_update_bwd,
@@ -112,7 +113,11 @@ def loop_supported(
     shape rules (d and f multiples of 64, rows a multiple of K1's row tile,
     n a multiple of K2's, the positional table one row per patch, a square
     patch grid under a radius), L >= 2, iters >= 1, a dtype the kernels
-    take, n <= MAX_LOOP_N, and the residuals within `RESIDUAL_BUDGET`."""
+    take, n <= MAX_LOOP_N, and the residuals within `RESIDUAL_BUDGET`.
+    Past the kernels' widest row (d > MAX_D = 1024) no route runs, and it
+    raises ValueError."""
+    if d > MAX_D:
+        raise ValueError(f"d={d}: the port's kernels take d <= {MAX_D}")
     M = B * n
     if iters < 1 or L < 2 or itemsize not in _CONS_ROW_TILE:
         return False

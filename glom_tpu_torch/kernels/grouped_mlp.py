@@ -86,6 +86,10 @@ LAUNCHES_BWD_ACC_CAT = 0
 
 ROW_TILE = 32  # M must be a multiple of this (the f32 kernel's rows a block)
 WIDTH_MULTIPLE = 64  # d and f must be multiples of this
+# The widest d the f32 and bf16-recompute row tiles are sized for (16-row
+# blocks from d = 832 on in the recompute, 896 in the f32 forward; glom_tpu
+# sizes its kernels for d <= 1024).
+MAX_D = 1024
 GEMM_ROW_TILE = 128  # the bf16 GEMM's rows a tile (csrc/sm90_gemm.cuh BM)
 # Cap on the bf16 forward's [G, R, f] hidden scratch: past it the two
 # passes run over row slabs (`slab_rows`).
@@ -320,6 +324,8 @@ def check_kernel_args(
             raise ValueError(f"{name} must be 16-byte aligned")
     if d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE:
         raise ValueError(f"d={d} and f={f} must be multiples of {WIDTH_MULTIPLE}")
+    if d > MAX_D:
+        raise ValueError(f"d={d}: K1 takes d <= {MAX_D}")
     if M % ROW_TILE:
         raise ValueError(f"M={M} must be a multiple of {ROW_TILE}")
     if add is not None and M % add.shape[0]:

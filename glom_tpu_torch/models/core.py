@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from glom_tpu_torch.kernels.consensus_update import (
+    MAX_D,
     consensus_update_vjp,
     fused_consensus_update,
 )
@@ -275,11 +276,14 @@ def resolve_vjp_path(
     for route parity. Where glom_tpu answers 'scan_dense' on the TPU for a
     small global-consensus batch, the port answers 'scan_blockwise': its
     K2 backward kernel runs at every batch. Its `loop_supported` has the
-    port's own limits (see kernels/fused_loop.py).
+    port's own limits (see kernels/fused_loop.py). On the card a width past
+    the kernels' (d > MAX_D = 1024) raises ValueError: no route runs it.
     """
     if not use_pallas or custom_consensus or not _on_card(device):
         return "scan_dense"
     n, d, L = cfg.num_patches, cfg.dim, cfg.levels
+    if d > MAX_D:
+        raise ValueError(f"d={d}: the port's kernels take d <= {MAX_D}")
     if (
         not scan_only
         and not return_all

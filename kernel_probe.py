@@ -2,7 +2,7 @@
 """Build, check and time one of the port's bf16 kernels on one NVIDIA GPU,
 quickly.
 
-    python3 kernel_probe.py k1|k1bwd|k2|k2bwd|k4 [ROOT ...]
+    python3 kernel_probe.py k1|k1bwd|k2|k2bwd|k4|k4f32 [ROOT ...]
 
 Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
 package with one change can be held against this one in one run on the
@@ -62,7 +62,16 @@ kernel's source (printing ptxas' registers and spills), then:
     every band full and with the test's row mix, and at pages of 128, each
     by kernel (k pre-pass, attention) and beside
     scaled_dot_product_attention on the band gathered beforehand, in f32
-    and in bf16; and the host's time a call, whole and in its parts.
+    and in bf16; and the host's time a call, whole and in its parts;
+  * k4f32 (`csrc/banded_consensus.cu`): K4's f32 "fma" instance and its
+    plain version on peaked levels (rank 4 a level, as chip_smoke.py's
+    k4_vs_plain) at the flagship's ragged signature ([2048, 6, 512]) and
+    the imagenet224-pod width's ([2048, 12, 1024]), pages of 64, and at
+    pages of 16 ([192, 3, 1024]), attend_self both ways: the kernel
+    against the plain version, and each against an f64 form of the plain
+    version, as the largest error over K4's f32 bar (rtol 2e-4, atol
+    2e-5), and the largest absolute error. Where the kernel refuses the
+    shape (a tree before d = 1024 was taken) it says so.
 
 Device times are CUDA events (chip_timing.time_ms, L2 warm), host times the
 median of batches started on an idle card (chip_timing.host_us). The
@@ -81,7 +90,8 @@ import time
 
 SOURCES = {"k1": ["grouped_mlp"], "k1bwd": ["grouped_mlp", "grouped_mlp_bwd"],
            "k2": ["consensus_update"],
-           "k2bwd": ["consensus_update", "consensus_update_bwd"], "k4": ["banded_consensus"]}
+           "k2bwd": ["consensus_update", "consensus_update_bwd"], "k4": ["banded_consensus"],
+           "k4f32": ["banded_consensus"]}
 
 
 def probe(kernel: str, root: str) -> int:
@@ -110,7 +120,7 @@ def probe(kernel: str, root: str) -> int:
 
     tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
     return {"k1": probe_k1, "k1bwd": probe_k1bwd, "k2": probe_k2, "k2bwd": probe_k2bwd,
-            "k4": probe_k4}[kernel](torch, **tools)
+            "k4": probe_k4, "k4f32": probe_k4f32}[kernel](torch, **tools)
 
 
 def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
@@ -477,7 +487,7 @@ def probe_k4(torch, rn, time_ms, host_us, device_us) -> int:
                             ("unused", (used, lv.shape[0]))]:
                         diff = (got[a:b] - want[a:b]).abs()
                         scale = rtol * want[a:b].abs()
-                        key = (k4.k4_instance(bf16, pt), inputs, part, pt, attend_self)
+                        key = (k4.k4_instance(bf16, pt, d), inputs, part, pt, attend_self)
                         bar = cards.k4_bars(bf16, pt, inputs)
                         worst_bar[key] = max(worst_bar.get(key, 0.0), float(
                             (diff / (bar[1] + bar[0] * want[a:b].abs())).max()))
@@ -508,13 +518,13 @@ def probe_k4(torch, rn, time_ms, host_us, device_us) -> int:
             return k4.banded_ragged_consensus(lv, **kw)
 
         out, khat = torch.empty_like(lv), k4.khat_scratch(lv, pt)
-        inst = k4.K4_INSTANCES.index(k4.k4_instance(lv.dtype, pt))
+        inst = k4.K4_INSTANCES.index(k4.k4_instance(lv.dtype, pt, d))
         stream = torch.cuda.current_stream().cuda_stream
 
         def bare():
             err = lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), k4._ptr(khat),
                                            kw["row_start"].data_ptr(), kw["row_len"].data_ptr(),
-                                           P, pt, L, d, window // pt, 0, 1, inst, stream)
+                                           P, pt, L, d, window // pt, 0, 1, stream)
             assert err == 0, err
 
         # SDPA on the band gathered beforehand (attend_self, an additive
@@ -545,6 +555,79 @@ def probe_k4(torch, rn, time_ms, host_us, device_us) -> int:
                              lv, kw["row_start"], kw["row_len"], window, pt)),
                          allocs=host_us(lambda: (torch.empty_like(lv), k4.khat_scratch(lv, pt))),
                          bare_c_call=host_us(bare)))), flush=True)
+    return int(fail)
+
+
+def probe_k4f32(torch, rn, time_ms, host_us, device_us) -> int:
+    import glom_tpu_torch.kernels.banded_consensus as k4
+    from glom_tpu_torch.utils.helpers import TOKEN_ATTEND_SELF_VALUE
+
+    f32, f64 = torch.float32, torch.float64
+    rtol, atol = 2e-4, 2e-5  # K4's f32 bar (chip_smoke.py's k4_bars, the -m gpu tests')
+
+    def plain64(levels, row_start, row_len, window, page_tokens, attend_self):
+        """banded_ragged_consensus_plain with every step in f64."""
+        T, L, d = levels.shape
+        pt = page_tokens
+        P, n_band = T // pt, window // pt
+        band0, len_page = k4.page_maps(row_start, row_len, pt)
+        kv = levels.to(f64)
+        k = kv / torch.linalg.vector_norm(kv, dim=-1, keepdim=True).clamp_min(1e-12)
+        raw = band0[:, None] + torch.arange(n_band, device="cuda", dtype=torch.int32)
+        band = raw.clamp(max=P - 1).long()
+        q = kv.view(P, pt, L, d)
+        kb = k.view(P, pt, L, d)[band].reshape(P, window, L, d)
+        vb = q[band].reshape(P, window, L, d)
+        s = torch.einsum("pqld,pwld->pqlw", q, kb) * d ** -0.5
+        if not attend_self:
+            u = torch.arange(pt, device="cuda", dtype=torch.int32)
+            slot = (raw[:, :, None] * pt + u).reshape(P, 1, window)
+            tok = torch.arange(T, device="cuda", dtype=torch.int32).view(P, pt, 1)
+            s = s.masked_fill((slot == tok)[:, :, None, :], TOKEN_ATTEND_SELF_VALUE)
+        w = torch.arange(window, device="cuda", dtype=torch.int32)
+        s = s.masked_fill((w[None, :] >= len_page[:, None])[:, None, None, :],
+                          float(torch.finfo(f32).min))
+        return torch.einsum("pqlw,pwld->pqld", torch.softmax(s, dim=-1), vb).reshape(T, L, d)
+
+    def ratio(a, b):
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    mix = [256, 144, 64, 16, 256, 49, 0, 256, 144, 64, 16, 256, 49, 100, 16]
+    fail = False
+    for label, pt, pages, counts, L, d in (("flagship", 64, 32, mix, 6, 512),
+                                           ("pod", 64, 32, mix, 12, 1024),
+                                           ("pod_pages16", 16, 12, [64, 37, 1, 16], 3, 1024)):
+        T = pages * pt
+        rs, rl = torch.zeros(T, dtype=torch.int32), torch.zeros(T, dtype=torch.int32)
+        off = 0
+        for c in counts:
+            k_ = -(-c // pt)
+            rs[off * pt:(off + k_) * pt], rl[off * pt:(off + k_) * pt] = off * pt, c
+            off += k_
+        rs[off * pt:] = off * pt
+        gen = torch.Generator().manual_seed(3)
+        coef, basis = torch.randn(T, L, 4, generator=gen), torch.randn(L, 4, d, generator=gen)
+        lv = (4.0 * torch.einsum("tlr,lrd->tld", coef, basis)).contiguous().to("cuda")
+        window = 256 if pt == 64 else 64
+        for attend_self in (False, True):
+            kw = dict(row_start=rs.cuda(), row_len=rl.cuda(), window=window, page_tokens=pt,
+                      attend_self=attend_self)
+            want64 = plain64(lv, **kw)
+            p32 = k4.banded_ragged_consensus_plain(lv, **kw).to(f64)
+            row = dict(reading="k4_f32_noise", shape=[T, L, d], page_tokens=pt,
+                       attend_self=attend_self, bar=[rtol, atol],
+                       plain_vs_f64_bar_ratio=ratio(p32, want64),
+                       plain_vs_f64_max_abs=float((p32 - want64).abs().max()))
+            try:
+                got = k4.banded_ragged_consensus(lv, **kw).to(f64)
+            except ValueError as e:
+                row["kernel"] = f"refused: {e}"
+            else:
+                row.update(kernel_vs_plain_bar_ratio=ratio(got, p32),
+                           kernel_vs_f64_bar_ratio=ratio(got, want64),
+                           kernel_vs_f64_max_abs=float((got - want64).abs().max()))
+                fail |= row["kernel_vs_plain_bar_ratio"] > 1.0
+            print(json.dumps(dict(row, case=label)), flush=True)
     return int(fail)
 
 

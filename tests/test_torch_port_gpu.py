@@ -81,7 +81,10 @@ def _close(got, want, bars):
 
 # K1 shapes: small, the flagship, and edge shapes of the bf16 GEMM (M not a
 # multiple of its 128-row tile, d = 64 and f = 192 not of its 128 columns).
-K1_SHAPES = [(256, 128, 512), (2048, 512, 2048), (2080, 64, 192), (2112, 64, 192)]
+# (M, d, f): ... and glom_tpu's imagenet224-pod width (d = 1024, f = 4096),
+# where the f32 forward and the bf16 recompute take 16-row blocks.
+K1_SHAPES = [(256, 128, 512), (2048, 512, 2048), (2080, 64, 192), (2112, 64, 192),
+             (2048, 1024, 4096)]
 
 
 def _addend_rows(M):
@@ -115,7 +118,10 @@ def test_grouped_mlp_kernel(dev, dtype, with_add, M, d, f):
 K2_CASES = [(dt, 3, 2, 64, 8, 128, r) for dt in DTYPES for r in (0.0, 2.0)] + [
     (torch.bfloat16, 2, 2, n, side, 512, r)
     for n, side, r in ((32, 1, 0.0), (96, 1, 0.0), (160, 1, 0.0), (256, 16, 0.0),
-                       (256, 16, 3.0), (4096, 64, 0.0), (4096, 64, 3.0))]
+                       (256, 16, 3.0), (4096, 64, 0.0), (4096, 64, 3.0))] + [
+    # The wide instances (d > 640: k streamed by 64-column boxes; f32 in
+    # 8-key tiles) at an odd width and the imagenet224-pod width.
+    (dt, 2, 2, 256, 16, d, r) for dt in DTYPES for d in (704, 1024) for r in (0.0, 3.0)]
 # The forward's row statistics against the plain version (chip_smoke.py's
 # stat_bars): in bf16 a k element may round the other way in the two
 # versions (its norm summed in another order), moving a column of scores.
@@ -239,7 +245,7 @@ def test_consensus_update_bf16_rows_do_not_depend_on_batch(dev):
         assert torch.equal(a, b) and torch.equal(a[:, 3:4], c)
 
 
-K2_WIDTHS = [64, 128, 384, 576, 640]
+K2_WIDTHS = [64, 128, 384, 576, 640, 704, 768, 1024]
 
 
 @pytest.mark.parametrize("d", K2_WIDTHS)
@@ -255,9 +261,9 @@ def test_consensus_update_bf16_widths(dev, d):
 
 
 def test_consensus_update_bf16_refuses_wide_rows(dev):
-    """d > 640: the q and k tiles no longer fit in shared memory."""
-    lv = torch.zeros(2, 1, 64, 704, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="consensus_update_fwd"):
+    """d > 1024: past the widest row of every K2 kernel."""
+    lv = torch.zeros(2, 1, 64, 1088, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d <= 1024"):
         k2.fused_consensus_update(lv, lv.clone(), lv[:1].clone(), side=1)
 
 
@@ -815,6 +821,14 @@ K2_BWD_WGMMA_CASES = [
     (2, 1, 96, 1, 640, 0.0, "peaked"),
     (2, 1, 256, 16, 512, 1.0, "flat"),
 ]
+# The "wgmma_wide" instance (640 < d <= 1024): an odd width (a last group of
+# 3 chunks) and the imagenet224-pod width, peaked and flat, local and global.
+K2_BWD_WIDE_CASES = [
+    (2, 1, 96, 1, 704, 0.0, "peaked"),
+    (2, 2, 64, 8, 1024, 1.0, "flat"),
+    (2, 1, 256, 16, 1024, 0.0, "peaked"),
+    (3, 1, 64, 8, 768, 3.0, "peaked"),
+]
 K2_BWD_FORMS = ["pair", "combine", "onesweep"]
 
 
@@ -864,6 +878,25 @@ def test_consensus_bwd_wgmma(dev, L, B, n, side, d, radius, inputs, attend_self,
                        attend_self, form)
     for name, (got, want) in res.items():
         _rel_close(got, want, K2_BWD_BARS[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("L,B,n,side,d,radius,inputs", K2_BWD_WIDE_CASES)
+@pytest.mark.parametrize("attend_self", [False, True])
+@pytest.mark.parametrize("form", K2_BWD_FORMS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_consensus_bwd_wide(dev, L, B, n, side, d, radius, inputs, attend_self, form, dtype):
+    """The backward past d = 640 against its plain version at K2_BWD_BARS:
+    bf16 on "wgmma_wide", f32 on "fma" with 8-row tiles where 16 do not
+    fit; both C entries name the instance the wrapper's rule names."""
+    want_instance = "wgmma_wide" if dtype == torch.bfloat16 else "fma"
+    assert k2.k2_bwd_instance(dtype, n, d) == want_instance
+    lib = k2._bwd_lib()
+    assert lib.consensus_update_bwd_instance(int(dtype == torch.bfloat16), n, d).decode() == \
+        want_instance
+    res = _k2_bwd_case(np.random.default_rng(34), L, B, n, side, d, radius, inputs,
+                       attend_self, form, dtype)
+    for name, (got, want) in res.items():
+        _rel_close(got, want, K2_BWD_BARS[dtype], name)
 
 
 @pytest.mark.parametrize("form", K2_BWD_FORMS)
@@ -932,8 +965,17 @@ def test_consensus_bwd_without_allocator_cache(dev):
 
 
 def test_consensus_bwd_entry_refuses_another_instance(dev):
-    """The C entries check the caller's instance against their own rule."""
+    """The C entries derive the instance from the dtype and shape, as the
+    wrapper's rule does, and refuse the scratches that instance does not
+    take and the shapes no instance takes."""
     lib = k2._bwd_lib()
+    for is_bf16, n_r, d_r in ((1, 64, 128), (1, 64, 640), (1, 64, 704), (1, 256, 1024),
+                              (0, 64, 1024)):
+        dtype = torch.bfloat16 if is_bf16 else torch.float32
+        assert lib.consensus_update_bwd_instance(is_bf16, n_r, d_r).decode() == \
+            k2.k2_bwd_instance(dtype, n_r, d_r)
+    assert lib.consensus_update_bwd_instance(1, 48, 128) is None
+    assert lib.consensus_update_bwd_instance(1, 64, 1088) is None
     L, B, n, d = 2, 1, 64, 128
     lv = torch.zeros(L, B, n, d, device=dev, dtype=torch.bfloat16)
     m = torch.zeros(L, B, n, 1, device=dev)
@@ -941,18 +983,17 @@ def test_consensus_bwd_entry_refuses_another_instance(dev):
     dcons, khat = torch.empty_like(lv), torch.empty_like(lv)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def dq_pass(scratch, is_bf16, instance, n=n):
+    def dq_pass(scratch, is_bf16, n=n):
         return lib.consensus_update_bwd_dq(
             lv.data_ptr(), lv.data_ptr(), None, None, m.data_ptr(), m.data_ptr(),
             dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), k2._ptr(scratch), L, B, n, d, 1,
-            0.0, 0, is_bf16, instance, stream)
+            0.0, 0, is_bf16, stream)
 
-    # "fma" asked for bf16, "wgmma" without its scratch or for f32, a shape
-    # no bf16 instance takes (n = 48): each an invalid value.
-    for scratch, is_bf16, instance, rows in ((khat, 1, 0, n), (None, 1, 1, n), (khat, 0, 1, n),
-                                             (None, 1, 0, n), (khat, 1, 1, 48)):
-        assert dq_pass(scratch, is_bf16, instance, rows) == 1, (is_bf16, instance, rows)
-    assert dq_pass(khat, 1, 1) == 0
+    # "wgmma" without its scratch, "fma" (f32) with one, a shape no bf16
+    # instance takes (n = 48): each an invalid value.
+    for scratch, is_bf16, rows in ((None, 1, n), (khat, 0, n), (khat, 1, 48)):
+        assert dq_pass(scratch, is_bf16, rows) == 1, (is_bf16, rows)
+    assert dq_pass(khat, 1) == 0
     torch.cuda.synchronize()
 
 
@@ -982,6 +1023,10 @@ K4_CASES = [
     (64, 512, [256, 144, 64, 16, 256, 49], 16),  # the flagship's page size and width
     (128, 512, [256, 200, 64, 128], 7),
     (16, 256, [64, 37, 1, 16], 12),  # pages of fewer than 32 tokens; d = 256
+    # Past d = 512: "wgmma_wide" in bf16, "fma" with 16-row blocks.
+    (64, 768, [256, 100, 64], 8),
+    (64, 1024, [256, 144, 64, 16, 256, 49], 16),  # the imagenet224-pod width
+    (16, 1024, [64, 37, 1, 16], 12),
 ]
 # Flat levels (iid, rms 2: score std about 0.09, the self slot's about 2)
 # and peaked ones (rank 4, rms 8: score std about 4), where p's rounding
@@ -1023,7 +1068,7 @@ def k4_bars(dtype, pt, inputs):
     peaked inputs on the "wgmma" instance."""
     import glom_tpu_torch.kernels.banded_consensus as k4
 
-    if inputs == "peaked" and k4.k4_instance(dtype, pt) == "wgmma":
+    if inputs == "peaked" and k4.k4_instance(dtype, pt, 512) != "fma":
         return K4_PEAKED_WGMMA_BARS
     return K4_BARS[dtype]
 
@@ -1091,7 +1136,7 @@ def test_banded_consensus_without_allocator_cache(dev):
         "rs = torch.arange(1024, dtype=torch.int32) // 256 * 256\n"
         "kw = dict(row_start=rs.cuda(), row_len=torch.full((1024,), 200, dtype=torch.int32)"
         ".cuda(), window=256, page_tokens=64)\n"
-        "assert k4.k4_instance(lv.dtype, 64) == 'wgmma'\n"
+        "assert k4.k4_instance(lv.dtype, 64, 512) == 'wgmma'\n"
         "got = [k4.banded_ragged_consensus(lv, **kw) for _ in range(3)]\n"
         "want = k4.banded_ragged_consensus_plain(lv, **kw)\n"
         f"torch.testing.assert_close(got[0].float(), want.float(), "
@@ -1105,22 +1150,28 @@ def test_banded_consensus_without_allocator_cache(dev):
 
 
 def test_banded_consensus_entry_refuses_another_instance(dev):
-    """The C entry checks the caller's instance against its own rule."""
+    """The C entry derives the instance from the dtype, pages and width, as
+    the wrapper's rule does, and refuses a scratch that instance does not
+    take ("wgmma" needs it, "fma" takes none)."""
     import glom_tpu_torch.kernels.banded_consensus as k4
 
+    lib = k4._lib()
+    for is_bf16, pt, d in ((1, 64, 128), (1, 64, 1024), (1, 16, 512), (0, 64, 1024)):
+        dtype = torch.bfloat16 if is_bf16 else torch.float32
+        assert lib.banded_consensus_instance(is_bf16, pt, d).decode() == \
+            k4.k4_instance(dtype, pt, d)
     lv, kw, _, _ = _k4_case(np.random.default_rng(25), torch.bfloat16, 64, 128, [64], 2,
                             "flat", False)
     rs, rl = kw["row_start"], kw["row_len"]
     out, khat = torch.empty_like(lv), torch.empty_like(lv)
-    lib = k4._lib()
     stream = torch.cuda.current_stream().cuda_stream
-    for instance, scratch in ((0, None), (1, None), (0, khat)):  # "wgmma" needs its scratch
+    for is_bf16, scratch in ((1, None), (0, khat)):
         err = lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), k4._ptr(scratch),
-                                       rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0, 1,
-                                       instance, stream)
-        assert err == 1, (instance, err)  # cudaErrorInvalidValue
+                                       rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0,
+                                       is_bf16, stream)
+        assert err == 1, (is_bf16, err)  # cudaErrorInvalidValue
     assert lib.banded_consensus_fwd(lv.data_ptr(), out.data_ptr(), khat.data_ptr(),
-                                    rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0, 1, 1,
+                                    rs.data_ptr(), rl.data_ptr(), 2, 64, 3, 128, 1, 0, 1,
                                     stream) == 0
     torch.cuda.synchronize()
 

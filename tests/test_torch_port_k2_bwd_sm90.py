@@ -30,6 +30,9 @@ L, B, N, D = 3, 2, 64, 128
     (BF16, 4096, 512, "wgmma"),  # the long row
     (BF16, 96, 576, "wgmma"),  # 16-row tiles past d = 512
     (BF16, 96, 640, "wgmma"),
+    (BF16, 96, 704, "wgmma_wide"),  # past the resident tiles: d streamed
+    (BF16, 256, 1024, "wgmma_wide"),  # the imagenet224-pod width
+    (F32, 256, 1024, "fma"),
 ])
 def test_instance_rule(dtype, n, d, want):
     assert k2.k2_bwd_instance(dtype, n, d) == want
@@ -39,7 +42,8 @@ def test_instance_rule(dtype, n, d, want):
 @pytest.mark.parametrize("dtype,n,d", [
     (BF16, 48, 128),  # n not a multiple of 32
     (BF16, 64, 96),  # d not a multiple of 64
-    (BF16, 64, 704),  # past the widest row the resident tiles fit
+    (BF16, 64, 1088),  # past the widest row any K2 kernel takes (d <= 1024)
+    (F32, 64, 1088),
     (torch.float16, 64, 128),
 ])
 def test_instance_rule_refuses(dtype, n, d):
@@ -107,9 +111,9 @@ def test_loop_carry_slot_views_pass(dtype):
 
 
 def test_refuses_wide_bf16_rows():
-    lv = torch.zeros(2, 1, 64, 704, dtype=BF16)
+    lv = torch.zeros(2, 1, 64, 1088, dtype=BF16)
     m = torch.zeros(2, 1, 64, 1)
-    with pytest.raises(ValueError, match="d <= 640"):
+    with pytest.raises(ValueError, match="d <= 1024"):
         k2._check_bwd_args(lv, lv, m, m, 8, 0.0)
 
 
@@ -131,6 +135,21 @@ def test_workspaces(dtype, form, want):
     assert all(t.device == lv.device and t.is_contiguous() for t in ws.values())
     ptrs = [t.data_ptr() for t in ws.values()]
     assert len(set(ptrs)) == len(ptrs) and lv.data_ptr() not in ptrs
+
+
+@pytest.mark.parametrize("form,want", [
+    ("dq", {"khat": BF16}),
+    ("dkv", {"khat": BF16, "dv": F32, "dk": F32}),
+    ("onesweep", {"dq": F32, "dd": F32, "dcons": BF16, "khat": BF16, "dv": F32, "dk": F32}),
+])
+def test_workspaces_wide(form, want):
+    """"wgmma_wide" (the imagenet224-pod width, d = 1024) also hands its
+    finishing pass the f32 dk."""
+    lv = torch.zeros(2, 1, 256, 1024, dtype=BF16)
+    ws = k2.bwd_workspaces(lv, form)
+    assert {k: t.dtype for k, t in ws.items()} == want
+    for k, t in ws.items():
+        assert tuple(t.shape) == ((2, 1, 256, 1) if k == "dd" else tuple(lv.shape))
 
 
 def test_workspaces_refuse_unknown_form():

@@ -164,7 +164,7 @@ class TestK4Plain:
         tk4.check_kernel_args(ok, maps["row_start"], maps["row_len"], 128, 64)
         for lv, window, pt, match in (
             (torch.zeros(T, 2, 96), 128, 64, "multiple of 128"),
-            (torch.zeros(T, 2, 640), 128, 64, "at most"),
+            (torch.zeros(T, 2, 1152), 128, 64, "at most"),
             (torch.zeros(T, 2, 128, dtype=torch.float16), 128, 64, "dtype"),
             (torch.zeros(T, 128, 2).transpose(1, 2), 128, 64, "contiguous"),
             (ok, 100, 64, "page-aligned"),
@@ -186,7 +186,7 @@ class TestK4Plain:
         (torch.float32, 16, "fma"),
     ])
     def test_k4_instance(self, dtype, pt, instance):
-        assert tk4.k4_instance(dtype, pt) == instance
+        assert tk4.k4_instance(dtype, pt, 512) == instance
         assert instance in tk4.K4_INSTANCES
 
     @pytest.mark.parametrize("dtype,pt", [
@@ -197,7 +197,7 @@ class TestK4Plain:
         "fma" has none."""
         lv = torch.zeros(4 * pt, 3, 128, dtype=dtype)
         khat = tk4.khat_scratch(lv, pt)
-        if tk4.k4_instance(dtype, pt) == "fma":
+        if tk4.k4_instance(dtype, pt, 128) == "fma":
             assert khat is None
         else:
             assert khat.shape == lv.shape and khat.dtype == torch.bfloat16
