@@ -38,8 +38,11 @@ after:
     version (K1 at [12, 2048, 1024], K2's forward, backward pair and
     combine at [12, 8, 256, 1024] and at d = 704, the one-sweep at [2, 1,
     1024, 1024], K4 at 32 pages of d = 768 and 1024; bf16 and f32, at the
-    bars of the flagship's phases), timed beside their bounds and library
-    calls; then the pod model itself, random weights from SEED, 12
+    bars of the flagship's phases; K2's and K4's two-block clusters also
+    on mirrored levels, whose mirrored output quarters must agree bit for
+    bit, and their launch config read back from the card), timed beside
+    their bounds and library calls; then the pod model itself, random
+    weights from SEED, 12
     iterations: three bf16 remat steps at batch 8 on the loop and at batch
     2 on the per-iteration route (exact launches, p50, peak MiB), the f32
     loss and gradients of a step on each route against the plain route, a
@@ -1536,7 +1539,13 @@ POOL_CHAIN_CAP = 3
 POOL_STREAMS = 4
 POOL_FRAMES = 6
 ELASTIC_MESH_RANKS = 6
-ELASTIC_MESH_RAMP = "8x20,240x0,120x40"
+# The quiet tail (120 requests 250 ms apart, 30 s) keeps traffic on the fleet until
+# both scale-ins have landed. The first drain takes the engine with the most
+# headroom, ties to the highest name: the cold-spawned engine2, which often
+# holds no session. The CLI stops scaling at the first scale-in that lands
+# after the traffic, so without the tail a run could end on that drain alone
+# and migrate nothing to read back.
+ELASTIC_MESH_RAMP = "8x20,240x0,120x40,120x250"
 ELASTIC_MESH_ARGV = ["--preset", "imagenet224-dp8", "--mesh-data", "2", "--buckets", "2,4,8,16",
                      "--dist-backend", "gloo", "--elastic", "--min-engines", "1",
                      "--max-engines", "3", "--warm-pool", "1", "--streams", "64",
@@ -1803,6 +1812,93 @@ def _elastic_cli_rank(check_path: str, argv: list) -> int:
     return rc
 
 
+def serve_cli_mesh_elastic(dev, smi: str, cli_argv=ELASTIC_MESH_ARGV) -> dict:
+    """The serve CLI with `cli_argv` under torch.distributed.run, six ranks
+    on `dev` (three 2-rank engine groups): every request served once, the
+    decisions' chains in order, lint and audit clean, at least one promotion,
+    scale-out and scale-in, and every drain migration read back page for
+    page. Returns the phase's record; raises naming each failed check."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="glom_serve_elastic_mesh_") as tmp:
+        out, check = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "migrations.json")
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(ELASTIC_MESH_RANKS), "--monitor-interval", "0.1",
+                os.path.abspath(__file__), "--serve-cli-rank", check, *cli_argv,
+                "--device", str(dev), "--out", out]
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=root)
+        cli_s = time.perf_counter() - t0
+        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                              capture_output=True, text=True, timeout=120, cwd=root)
+        audit = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "audit", out],
+                               capture_output=True, text=True, timeout=120, cwd=root)
+        recs, migrations = [], []
+        if os.path.exists(out):
+            with open(out) as fh:
+                recs = [json.loads(ln) for ln in fh if ln.startswith("{")]
+        if os.path.exists(check):
+            with open(check) as fh:
+                migrations = json.load(fh)["migrations"]
+    summary = [r for r in recs if r.get("event") == "summary"]
+    s = summary[-1] if summary else {}
+    el = s.get("elastic") or {}
+    ramp = cli_argv[cli_argv.index("--ramp") + 1]
+    n_ramp = sum(int(p.split("x")[0]) for p in ramp.split(","))
+    served = sorted(r["id"] for r in recs if r.get("event") == "response" and r.get("ok"))
+    # Each decision's chain in order: the decisions numbered in turn, every
+    # event after the decision it names (the audit replays the rest).
+    last, chains_ok = 0, True
+    for r in recs:
+        if r.get("kind") == "decision":
+            chains_ok = chains_ok and r["decision_id"] == last + 1
+            last = r["decision_id"]
+        elif r.get("decision_id") is not None and r.get("kind") == "serve":
+            chains_ok = chains_ok and 1 <= r["decision_id"] <= last
+    decided = {r["decision_id"]: r["wall_time"] for r in recs if r.get("kind") == "decision"}
+    admissions = [(r["engine"], round(1e3 * (r["wall_time"] - decided[r["decision_id"]]), 3),
+                   r.get("spare") is True or any(
+                       q.get("event") == "spare_promote" and q["decision_id"] == r["decision_id"]
+                       for q in recs))
+                  for r in recs if r.get("event") == "admission_open"]
+    releases = [{"engine": r["engine"], "freed_mib_by_rank": {
+        rk: b / 2 ** 20 for rk, b in r["freed_bytes_by_rank"].items()}}
+        for r in recs if r.get("event") == "engine_release" and "freed_bytes_by_rank" in r]
+    groups = [(r["group"], r["state"], r["generation"]) for r in recs
+              if r.get("event") == "rank_group"]
+    migrated_ok = (sum(m["checked"] for m in migrations) > 0
+                   and all(m["bitwise"] == m["checked"] for m in migrations))
+    checks = {
+        "exit_0": proc.returncode == 0, "lint_0": lint.returncode == 0,
+        "audit_0": audit.returncode == 0, "one_summary": len(summary) == 1,
+        "all_served": s.get("n_requests") == s.get("n_served") == n_ramp,
+        "served_once": served == list(range(n_ramp)), "chains_in_order": chains_ok,
+        "migrated_bitwise": migrated_ok, "promoted": el.get("n_promotions", 0) >= 1,
+        "scaled_out": el.get("n_scale_outs", 0) >= 1, "scaled_in": el.get("n_scale_ins", 0) >= 1,
+        "released_on_every_rank": all(
+            all(b > 0 for rk, b in rel["freed_mib_by_rank"].items() if rk != "0")
+            for rel in releases)}
+    ok = all(checks.values())
+    rec = dict(nvidia_smi=smi, ranks=ELASTIC_MESH_RANKS,
+               argv=cli_argv, rc=proc.returncode, lint_rc=lint.returncode,
+               audit_rc=audit.returncode, seconds=cli_s, requests=s.get("n_requests"),
+               served=s.get("n_served"), served_once=served == list(range(n_ramp)),
+               chains_in_order=chains_ok, elastic={kk: v for kk, v in el.items()
+                                                   if isinstance(v, (int, float, str, list))},
+               decision_to_admission_ms=admissions, releases=releases, rank_groups=groups,
+               migrations=migrations, migrated_bitwise=migrated_ok, checks=checks, ok=ok,
+               stderr_tail=None if ok else (proc.stderr[-3000:] + audit.stderr[-500:]))
+    emit("serve_cli_mesh_elastic", **rec)
+    if not ok:
+        failed = [name for name, good in checks.items() if not good]
+        raise AssertionError(f"serve_cli_mesh_elastic failed {failed}: rc {proc.returncode}, "
+                             f"lint {lint.returncode}, audit {audit.returncode}, "
+                             f"elastic {rec['elastic']}, migrations {migrations}")
+    return rec
+
+
 def sharded_phases(cfg, dev, smi: str, *, cli_argv=ELASTIC_MESH_ARGV) -> tuple:
     """dist_tp_levels and serve_mesh_pool (one 2-rank spawn on `dev`), then
     serve_cli_mesh_elastic (six ranks under torch.distributed.run, the serve
@@ -1893,75 +1989,7 @@ def sharded_phases(cfg, dev, smi: str, *, cli_argv=ELASTIC_MESH_ARGV) -> tuple:
     if not ok:
         raise AssertionError("serve_mesh_pool failed its checks")
 
-    # -- serve_cli_mesh_elastic: torch.distributed.run, six ranks on the card -----------
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="glom_serve_elastic_mesh_") as tmp:
-        out, check = os.path.join(tmp, "serve.jsonl"), os.path.join(tmp, "migrations.json")
-        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc-per-node", str(ELASTIC_MESH_RANKS), "--monitor-interval", "0.1",
-                os.path.abspath(__file__), "--serve-cli-rank", check, *cli_argv,
-                "--device", str(dev), "--out", out]
-        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=root)
-        cli_s = time.perf_counter() - t0
-        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
-                              capture_output=True, text=True, timeout=120, cwd=root)
-        audit = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", "audit", out],
-                               capture_output=True, text=True, timeout=120, cwd=root)
-        recs, migrations = [], []
-        if os.path.exists(out):
-            with open(out) as fh:
-                recs = [json.loads(ln) for ln in fh if ln.startswith("{")]
-        if os.path.exists(check):
-            with open(check) as fh:
-                migrations = json.load(fh)["migrations"]
-    summary = [r for r in recs if r.get("event") == "summary"]
-    s = summary[-1] if summary else {}
-    el = s.get("elastic") or {}
-    ramp = cli_argv[cli_argv.index("--ramp") + 1]
-    n_ramp = sum(int(p.split("x")[0]) for p in ramp.split(","))
-    served = sorted(r["id"] for r in recs if r.get("event") == "response" and r.get("ok"))
-    # Each decision's chain in order: the decisions numbered in turn, every
-    # event after the decision it names (the audit replays the rest).
-    last, chains_ok = 0, True
-    for r in recs:
-        if r.get("kind") == "decision":
-            chains_ok = chains_ok and r["decision_id"] == last + 1
-            last = r["decision_id"]
-        elif r.get("decision_id") is not None and r.get("kind") == "serve":
-            chains_ok = chains_ok and 1 <= r["decision_id"] <= last
-    decided = {r["decision_id"]: r["wall_time"] for r in recs if r.get("kind") == "decision"}
-    admissions = [(r["engine"], round(1e3 * (r["wall_time"] - decided[r["decision_id"]]), 3),
-                   r.get("spare") is True or any(
-                       q.get("event") == "spare_promote" and q["decision_id"] == r["decision_id"]
-                       for q in recs))
-                  for r in recs if r.get("event") == "admission_open"]
-    releases = [{"engine": r["engine"], "freed_mib_by_rank": {
-        rk: b / 2 ** 20 for rk, b in r["freed_bytes_by_rank"].items()}}
-        for r in recs if r.get("event") == "engine_release" and "freed_bytes_by_rank" in r]
-    groups = [(r["group"], r["state"], r["generation"]) for r in recs
-              if r.get("event") == "rank_group"]
-    migrated_ok = (sum(m["checked"] for m in migrations) > 0
-                   and all(m["bitwise"] == m["checked"] for m in migrations))
-    ok = (proc.returncode == 0 and lint.returncode == 0 and audit.returncode == 0
-          and len(summary) == 1 and s.get("n_requests") == s.get("n_served") == n_ramp
-          and served == list(range(n_ramp)) and chains_ok and migrated_ok
-          and el.get("n_promotions", 0) >= 1 and el.get("n_scale_outs", 0) >= 1
-          and el.get("n_scale_ins", 0) >= 1
-          and all(all(b > 0 for rk, b in rel["freed_mib_by_rank"].items() if rk != "0")
-                  for rel in releases))
-    emit("serve_cli_mesh_elastic", nvidia_smi=smi, ranks=ELASTIC_MESH_RANKS,
-         argv=cli_argv, rc=proc.returncode, lint_rc=lint.returncode,
-         audit_rc=audit.returncode, seconds=cli_s, requests=s.get("n_requests"),
-         served=s.get("n_served"), served_once=served == list(range(n_ramp)),
-         chains_in_order=chains_ok, elastic={kk: v for kk, v in el.items()
-                                             if isinstance(v, (int, float, str, list))},
-         decision_to_admission_ms=admissions, releases=releases, rank_groups=groups,
-         migrations=migrations, migrated_bitwise=migrated_ok, ok=ok,
-         stderr_tail=None if ok else (proc.stderr[-3000:] + audit.stderr[-500:]))
-    if not ok:
-        raise AssertionError(f"serve_cli_mesh_elastic: rc {proc.returncode}, lint "
-                             f"{lint.returncode}, audit {audit.returncode}")
+    serve_cli_mesh_elastic(dev, smi, cli_argv)
     return dist_kernel_launches(train_total), dist_kernel_launches(pool_total)
 
 
@@ -3363,6 +3391,14 @@ def perfetto_trace(smi: str, streams: dict, out_dir: str) -> None:
 _T0 = time.perf_counter()
 
 
+def _nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def emit(phase: str, **kw) -> None:
     """One phase's JSON line, with the seconds since the script started."""
     print(json.dumps({"phase": phase, **kw,
@@ -4522,10 +4558,7 @@ def main() -> int:
     lint_phase()
 
     # -- device --------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _nvidia_smi()
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(smi, flush=True)
@@ -5122,9 +5155,11 @@ def main() -> int:
     # -- the imagenet224-pod width (L = 12, d = 1024) kernels vs plain ----------------
     # glom_tpu sizes its kernels for d <= 1024 and ships the imagenet224-pod
     # preset at that width. Past d = 640 (K2) and 512 (K4) the port runs its
-    # wide instances (the key tile streamed over d, 512-column groups; f32 in
-    # smaller tiles), and K1's f32 forward and bf16 recompute take 16-row
-    # blocks: each held here at the bars the phases above use, on inputs from
+    # wide instances (bf16 forwards: a two-block cluster for each 64 query
+    # rows, a 512-column group of d a block; K2's backward d streamed in
+    # 512-column groups; f32 in smaller tiles), and K1's f32 forward and
+    # bf16 recompute take 16-row blocks: each held here at the bars the
+    # phases above use, on inputs from
     # a generator of their own (later phases draw as before). K2 also at an
     # odd width, d = 704 (a last column group of three chunks); K4 at d = 768.
     gen_pod = torch.Generator().manual_seed(SEED + 20)
@@ -5226,6 +5261,44 @@ def main() -> int:
                  max_rel_err=rel_err, rtol=rtol, atol=atol, bar_ratio=ratio, ok=ok)
             if not ok:
                 failures.append(f"K2 pod {shape} {dtype} r={radius} self={attend_self}")
+
+    # The wide instances run each 64 query rows as a cluster of two blocks
+    # that add the two halves of every score: both blocks (and their four
+    # warpgroups) must hold the same S, m, l and P, bit for bit. On levels
+    # whose columns mirror by quarter ([A, B, B, A]; bu and td alike) the
+    # output's mirrored quarters come from different blocks and
+    # warpgroups, so they agree bit for bit only if every score and every p
+    # was rounded alike in both. The launch config (clusters of two, the
+    # producer warp, the shared memory) is read back from the card once.
+    wide_launch = {"k2": k2.wide_launch(), "k4": k4.wide_launch()}
+    emit("wide_launch", **wide_launch)
+    if min(v["max_active_clusters"] for v in wide_launch.values()) < 1:
+        failures.append(f"wide launch holds no cluster: {wide_launch}")
+
+    def mirrored(x):
+        h = x[..., :dp // 2]
+        return torch.cat([h, h[..., dp // 4:], h[..., :dp // 4]], -1).contiguous()
+
+    def mirror_agrees(x):
+        q = dp // 4
+        return bool(torch.equal(x[..., :q], x[..., 3 * q:])
+                    and torch.equal(x[..., q:2 * q], x[..., 2 * q:3 * q]))
+
+    for radius in (0.0, 3.0):
+        lv, bu, td = (mirrored(t) for t in consensus_inputs((Lp, 8, n, dp), bf16, g=gen_pod))
+        got = k2.fused_consensus_update(lv, bu, td, side=side, radius=radius, cons=True)
+        torch.cuda.synchronize()
+        want = k2.consensus_update_plain(lv, bu, td, side=side, radius=radius)
+        rtol, atol = cons_bars[bf16]
+        ok, abs_err, rel_err, ratio = compare(got[0], want, rtol, atol)
+        agree = mirror_agrees(got[0]) and mirror_agrees(got[3])
+        emit("k2_vs_plain", shape=[Lp, 8, n, dp], dtype=str(bf16), radius=radius,
+             attend_self=False, edge_case=False, pod_width=True, mirrored=True,
+             mirror_bitwise=agree, max_abs_err=abs_err, max_rel_err=rel_err, rtol=rtol,
+             atol=atol, bar_ratio=ratio, ok=ok and agree)
+        if not (ok and agree):
+            failures.append(f"K2 pod mirrored r={radius}: bar {ok}, halves bitwise {agree}")
+    del lv, bu, td, got, want
 
     # K2 backward, the pair and the combine: peaked levels at global
     # consensus and radius 3, flat ones in a radius-1 window, the odd width.
@@ -5345,6 +5418,26 @@ def main() -> int:
                  unused_max_abs_err=unused[1], unused_bar_ratio=unused[3], ok=ok)
             if not ok:
                 failures.append(f"K4 pod d={k4_d} {dtype} {inputs}")
+    # "wgmma_wide" on mirrored levels (see K2's mirrored case above).
+    maps, spans, used = ragged_maps(k4_counts, P_sig, pt, dev)
+    lv = mirrored(randn_pod(P_sig * pt, Lp, dp, dtype=bf16, scale=2.0))
+    kw = dict(maps, window=window, page_tokens=pt, attend_self=False)
+    got = k4.banded_ragged_consensus(lv, **kw)
+    torch.cuda.synchronize()
+    want = k4.banded_ragged_consensus_plain(lv, **kw)
+    rtol, atol = k4_bars[bf16]
+    rows = [compare(got[a:b], want[a:b], rtol, atol) for a, b in spans + [(used, P_sig * pt)]]
+    agree = mirror_agrees(got)
+    ok = all(w[0] for w in rows)
+    emit("k4_vs_plain", shape=[P_sig * pt, Lp, dp], page_tokens=pt, window=window,
+         dtype=str(bf16), instance=k4.k4_instance(bf16, pt, dp), inputs="flat",
+         attend_self=False, rows=k4_counts, pod_width=True, mirrored=True,
+         mirror_bitwise=agree, max_abs_err=max(w[1] for w in rows),
+         max_rel_err=max(w[2] for w in rows), rtol=rtol, atol=atol,
+         bar_ratio=max(w[3] for w in rows), ok=ok and agree)
+    if not (ok and agree):
+        failures.append(f"K4 pod mirrored: bar {ok}, halves bitwise {agree}")
+    del lv, got, want
     if failures:
         raise AssertionError(f"pod-width kernel/plain mismatch: {failures}")
 
@@ -7641,12 +7734,12 @@ def main() -> int:
     return 0
 
 
-def _repeat_serve_elastic(n: int) -> int:
-    """`python3 chip_smoke.py --repeat-serve-elastic N`: the flagship's
-    serve_elastic phase alone, N times on one card (a timing-dependent
-    phase's failure rate). Each pass prints its record on stdout and its
-    outcome on stderr; the last stdout line lists the outcomes. Exit 1 if
-    any pass failed."""
+def _repeat_phase(phase: str, n: int) -> int:
+    """`python3 chip_smoke.py --repeat-serve-elastic N` (the flagship's
+    serve_elastic) or `--repeat-serve-cli-mesh-elastic N`: one
+    timing-dependent phase alone, N times on one card (its failure rate).
+    Each pass prints its record on stdout and its outcome on stderr; the
+    last stdout line lists the outcomes. Exit 1 if any pass failed."""
     import torch
 
     from glom_tpu_torch import GlomConfig
@@ -7660,24 +7753,35 @@ def _repeat_serve_elastic(n: int) -> int:
     torch.backends.cudnn.allow_tf32 = False
     _build.prebuild()
     dev = torch.device("cuda", 0)
-    cfg = GlomConfig()
-    params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+    if phase == "serve_elastic":
+        cfg = GlomConfig()
+        params = init_glom(cfg, generator=torch.Generator().manual_seed(SEED))
+
+        def run():
+            serve_elastic(cfg, params, dev)
+    else:
+        smi = _nvidia_smi()
+
+        def run():
+            serve_cli_mesh_elastic(dev, smi)
     outcomes = []
     for i in range(n):
         t0 = time.perf_counter()
         try:
-            serve_elastic(cfg, params, dev)
+            run()
             outcomes.append(dict(ok=True, seconds=time.perf_counter() - t0))
         except AssertionError as e:
             outcomes.append(dict(ok=False, seconds=time.perf_counter() - t0, error=str(e)[:600]))
-        print(f"serve_elastic pass {i}: {outcomes[-1]}", file=sys.stderr, flush=True)
-    print(json.dumps({"repeat_serve_elastic": outcomes}), flush=True)
+        print(f"{phase} pass {i}: {outcomes[-1]}", file=sys.stderr, flush=True)
+    print(json.dumps({f"repeat_{phase}": outcomes}), flush=True)
     return 0 if all(o["ok"] for o in outcomes) else 1
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--repeat-serve-elastic":
-        sys.exit(_repeat_serve_elastic(int(sys.argv[2])))
+        sys.exit(_repeat_phase("serve_elastic", int(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--repeat-serve-cli-mesh-elastic":
+        sys.exit(_repeat_phase("serve_cli_mesh_elastic", int(sys.argv[2])))
     if len(sys.argv) > 2 and sys.argv[1] == "--serve-cli-rank":
         # One rank of serve_cli_mesh_elastic (under torch.distributed.run).
         sys.exit(_elastic_cli_rank(sys.argv[2], sys.argv[3:]))

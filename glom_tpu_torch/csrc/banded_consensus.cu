@@ -60,11 +60,18 @@
 // and the sums are f32; the output is cast once.
 //
 // "wgmma_wide" (bf16, pt a multiple of 64, 512 < d <= 1024: glom_tpu's
-// imagenet224-pod width): the same attention on sm90_attn.cuh's wide key
-// loop, Q resident and each tile's khat streamed a 64-column box at a time
-// through a ring of four (a whole 64 x d key tile no longer fits beside Q
-// and V), and a third grid dimension of 512-column groups of the output,
-// each of which recomputes the scores, as K2's forward does past d = 512.
+// imagenet224-pod width): the same attention on sm90_attn.cuh's wide form
+// (attn_pair_*), a third grid dimension of 512-column groups whose two
+// blocks for each (query block, level) run as a cluster: block g holds only
+// its 512 columns of Q, khat and V, sums the partial scores over them, and
+// the pair adds the two partials (rank 0's first) after an exchange through
+// distributed shared memory, so each score is computed once; the two
+// warpgroups split the keys (32 each), exchange their row maxima, sums and
+// P, and each loads its own khat (its 32 keys x the block's 512 columns)
+// and V (64 keys x its 256 columns) a tile at a time with one TMA load
+// each. Both
+// blocks walk the same tiles (the page's band and len), so neither waits on
+// an exchange its peer skips.
 //
 // "fma" (f32, and bf16 at pt < 64), the CUDA cores: everything after the
 // load is f32, as in the Pallas body (k normalised in f32, f32 scores, p
@@ -405,7 +412,9 @@ int instance_for(int is_bf16, int pt, int d) {
 
 // Grid: (T / 64, L, 512-column groups: one unless WIDE). lv_map and k_map:
 // the levels and khat [T, L, d] as {d, L, T} maps with a 64 x 1 x 64 box
-// (token_map).
+// (token_map); WIDE: 4-D maps of [d / 64, T, L, 64] (wide_token_map) with
+// boxes of 4 chunks x 64 tokens (lv) and 8 chunks x 32 tokens (k), and the
+// two column groups of each (query block, level) run as a cluster.
 template <bool WIDE>
 __global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
 banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
@@ -417,15 +426,7 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  using Lay = sm90::AttnSmem<WIDE>;
-  const Lay lay(d);
-  unsigned char* qs = smem;
-  unsigned char* ks = smem + lay.k_off;
-  unsigned char* vs = smem + lay.v_off;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
-  uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;  // Lay::K_BARS
-  uint64_t* v_full = bars + 1 + Lay::K_BARS;
+  const int boxes = d / 64;
   // The block's first 64-column chunk of the output (its column group).
   const int chunk0 = WIDE ? 2 * NC * blockIdx.z : 0;
 
@@ -438,55 +439,22 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
   // the key tile holding the row's last valid slot.
   const int W = n_band * pt;
   const int n_slots = len > 0 ? min(W, (len + KEYS - 1) / KEYS * KEYS) : W;
+  const int tiles = n_slots / KEYS;
 
   // Key tile it's first key token: its band page clamped to the last page.
   auto key_token = [&](int it) {
     const int w0 = KEYS * it, j = w0 / pt;
     return min(band0 + j, P - 1) * pt + (w0 - j * pt);
   };
-  auto load_k = [&](int it) {
-    const int row = key_token(it);
-    sm90::mbar_expect_tx(k_full, lay.boxes * BOX);
-    for (int c = 0; c < lay.boxes; ++c)
-      sm90::tma_load_3d(ks + c * BOX, &k_map, 64 * c, l, row, k_full);
-  };
-  // The wide form's box step b: box b % boxes of key tile b / boxes, into
-  // ring stage b % ATTN_KRING.
-  auto load_kbox = [&](int b) {
-    const int st = b % sm90::ATTN_KRING, c = b % lay.boxes;
-    sm90::mbar_expect_tx(k_full + st, BOX);
-    sm90::tma_load_3d(ks + st * BOX, &k_map, 64 * c, l, key_token(b / lay.boxes), k_full + st);
-  };
-  auto load_v = [&](int it) {
-    const int row = key_token(it);
-    const int chunks = WIDE ? min(2 * NC, lay.boxes - chunk0) : lay.boxes;
-    sm90::mbar_expect_tx(v_full, chunks * BOX);
-    for (int c = 0; c < chunks; ++c)
-      sm90::tma_load_3d(vs + c * BOX, &lv_map, 64 * (chunk0 + c), l, row, v_full);
-  };
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2 + Lay::K_BARS; ++i) sm90::mbar_init(bars + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    sm90::mbar_expect_tx(q_full, lay.boxes * BOX);
-    for (int c = 0; c < lay.boxes; ++c)
-      sm90::tma_load_3d(qs + c * BOX, &lv_map, 64 * c, l, t0, q_full);
-    if constexpr (WIDE) {
-      const int steps = n_slots / KEYS * lay.boxes;
-      for (int b = 0; b < sm90::ATTN_KRING && b < steps; ++b) load_kbox(b);
-    } else {
-      load_k(0);
-    }
-    load_v(0);
-  }
 
   // The thread's two rows of the block (wgmma's accumulator fragment) and
   // its column pairs.
   const int lane = threadIdx.x % 32, cq = 2 * (lane % 4);
   const int r_a = 16 * ((threadIdx.x % 128) / 32) + lane / 4, r_b = r_a + 8;
-  auto mask = [&](int it, float (&s)[sm90::ACC64]) {
+  // s holds slots w0 + key0 + 8 jj + cq + {0, 1} of the tile (the
+  // accumulator fragment, m64n64 or the wide form's m64n32).
+  auto mask = [&](int it, auto& s, int key0 = 0) {
+    constexpr int JJ = sizeof(s) / sizeof(float) / 4;
     const int w0 = KEYS * it, j = w0 / pt;
     // Slot w0 + col sits at band position (band0 + j) * pt + w0 % pt + col
     // (unclamped); both that and t0 are multiples of 64, so the self slots
@@ -495,10 +463,10 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
     const bool edge = w0 + KEYS > len;  // the tile holding len; every tile when len = 0
     if (diag || edge) {
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = 8 * jj + cq + e;
+          const int col = key0 + 8 * jj + cq + e;
           float& sa = s[4 * jj + e];
           float& sb = s[4 * jj + 2 + e];
           if (diag) {
@@ -512,28 +480,76 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
   };
   float o[sm90::ATTN_NC][sm90::ACC64];
   float m_a, m_b, l_a, l_b;
-  auto load_k_step = [&](int it) {
-    if constexpr (WIDE) {
-      load_kbox(it);  // a box step
-    } else {
-      load_k(it);
+  unsigned char* stage_base;
+  if constexpr (WIDE) {
+    const uint32_t rank = sm90::cluster_rank();  // == blockIdx.z: the cluster spans z
+    const int nb = min(2 * NC, boxes - chunk0);  // the block's boxes of d
+    sm90::attn_pair_init(smem);
+    sm90::attn_pair_loop(
+        o, m_a, m_b, l_a, l_b, smem, tiles, nb, scale, rank,
+        [&](unsigned char* dst, int half, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &lv_map, 0, l, t0, chunk0 + NC * half, bar);
+        },
+        [&](unsigned char* dst, int it, int kw, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &k_map, 0, l, key_token(it) + sm90::PAIR_KEYS * kw, chunk0,
+                            bar);
+        },
+        [&](unsigned char* dst, int it, int kw, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &lv_map, 0, l, key_token(it), chunk0 + NC * kw, bar);
+        },
+        mask, [](unsigned char*, uint64_t*) {}, [](unsigned char*, uint64_t*) {});
+    stage_base = smem + sm90::AttnPairSmem::K_OFF;
+  } else {
+    using Lay = sm90::AttnSmem;
+    const Lay lay(d);
+    unsigned char* qs = smem;
+    unsigned char* ks = smem + lay.k_off;
+    unsigned char* vs = smem + lay.v_off;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+    uint64_t* q_full = bars;
+    uint64_t* k_full = bars + 1;
+    uint64_t* v_full = bars + 2;
+    auto load_k = [&](int it) {
+      const int row = key_token(it);
+      sm90::mbar_expect_tx(k_full, lay.boxes * BOX);
+      for (int c = 0; c < lay.boxes; ++c)
+        sm90::tma_load_3d(ks + c * BOX, &k_map, 64 * c, l, row, k_full);
+    };
+    auto load_v = [&](int it) {
+      const int row = key_token(it);
+      sm90::mbar_expect_tx(v_full, lay.boxes * BOX);
+      for (int c = 0; c < lay.boxes; ++c)
+        sm90::tma_load_3d(vs + c * BOX, &lv_map, 64 * c, l, row, v_full);
+    };
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 3; ++i) sm90::mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-  };
-  sm90::attn_key_loop<WIDE>(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
-                            n_slots / KEYS, d, scale, load_k_step, load_v, mask);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(q_full, lay.boxes * BOX);
+      for (int c = 0; c < lay.boxes; ++c)
+        sm90::tma_load_3d(qs + c * BOX, &lv_map, 64 * c, l, t0, q_full);
+      load_k(0);
+      load_v(0);
+    }
+    sm90::attn_key_loop(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full, tiles, d,
+                        scale, load_k, load_v, mask);
+    stage_base = ks;
+  }
 
   // Epilogue: out = O / l through the warp's stage (k and v are free),
   // 16-byte row segments at the token stride L * d.
   const int warp = threadIdx.x / 32;
   const int w16 = 16 * (warp % 4);  // the warp's first row of the block
-  float2* stage = reinterpret_cast<float2*>(ks + warp * sm90::ATTN_STAGE_BYTES);
+  float2* stage = reinterpret_cast<float2*>(stage_base + warp * sm90::ATTN_STAGE_BYTES);
   const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
   const size_t ld = (size_t)L * d;
   bf16* dst = out + (size_t)(t0 + w16) * ld + (size_t)l * d;
 #pragma unroll
   for (int c = 0; c < sm90::ATTN_NC; ++c) {
     const int chunk = chunk0 + NC * (threadIdx.x / 128) + c;  // 64-column chunk of d
-    if (chunk >= lay.boxes) continue;  // past d: its box was not loaded
+    if (chunk >= boxes) continue;  // past d: its box was not loaded
     sm90::stage_cons(o[c], l_a, inv_a, l_b, inv_b, stage);
     __syncwarp();
 #pragma unroll
@@ -547,6 +563,7 @@ banded_consensus_kernel_wgmma(const __grid_constant__ CUtensorMap lv_map,
     }
     __syncwarp();
   }
+  if constexpr (WIDE) sm90::cluster_sync();  // the peer no longer reads or writes here
 }
 
 // [T, L, d] bf16 as a {d, L, T} map with a 64 x 1 x 64 box: a box is 64
@@ -555,6 +572,18 @@ cudaError_t token_map(CUtensorMap* map, const void* ptr, int d, int L, int T) {
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)L, (cuuint64_t)T};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)L * d * 2};
   const cuuint32_t box[3] = {64, 1, 64};
+  return sm90::cached_map(map, ptr, dims, strides, box);
+}
+
+// [T, L, d] bf16 as a 4-D map {64, L, T, d / 64} (a column within its
+// 64-column chunk, the level, the token, the chunk) whose box is `chunks`
+// chunks x `tokens` tokens of one level: one load lands them as `chunks`
+// swizzled 64-column boxes (cached).
+cudaError_t wide_token_map(CUtensorMap* map, const void* ptr, int d, int L, int T, int tokens,
+                           int chunks) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)L, (cuuint64_t)T, (cuuint64_t)d / 64};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)L * d * 2, 128};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)tokens, (cuuint32_t)chunks};
   return sm90::cached_map(map, ptr, dims, strides, box);
 }
 
@@ -567,15 +596,26 @@ int launch_wgmma(const bf16* lv, bf16* out, bf16* khat, const int* row_start,
   const int T = P * pt;
   cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel_wgmma<WIDE>, lifted);
   CUtensorMap lv_map, k_map;
-  if (err == cudaSuccess) err = token_map(&lv_map, lv, d, L, T);
-  if (err == cudaSuccess) err = token_map(&k_map, khat, d, L, T);
+  if constexpr (WIDE) {
+    if (err == cudaSuccess)
+      err = wide_token_map(&lv_map, lv, d, L, T, sm90::ATTN_KEYS, sm90::ATTN_NC);
+    if (err == cudaSuccess)
+      err = wide_token_map(&k_map, khat, d, L, T, sm90::PAIR_KEYS, sm90::PAIR_BOXES);
+  } else {
+    if (err == cudaSuccess) err = token_map(&lv_map, lv, d, L, T);
+    if (err == cudaSuccess) err = token_map(&k_map, khat, d, L, T);
+  }
   if (err == cudaSuccess) err = sm90::launch_khat(lv, khat, (size_t)T * L, d, stream);
   if (err != cudaSuccess) return (int)err;
   const int groups = (d / 64 + 2 * sm90::ATTN_NC - 1) / (2 * sm90::ATTN_NC);
   const dim3 grid(T / sm90::ATTN_ROWS, L, groups);
   const float scale = (float)(1.0 / sqrt((double)d));
-  banded_consensus_kernel_wgmma<WIDE><<<grid, sm90::ATTN_THREADS, sm90::AttnSmem<WIDE>(d).bytes,
-                                        stream>>>(
+  if constexpr (WIDE)
+    return (int)sm90::launch_pair(banded_consensus_kernel_wgmma<true>, grid, 2, stream, lv_map,
+                                  k_map, out, row_start, row_len, P, pt, L, d, n_band,
+                                  attend_self, scale);
+  banded_consensus_kernel_wgmma<false><<<grid, sm90::ATTN_THREADS, sm90::AttnSmem(d).bytes,
+                                         stream>>>(
       lv_map, k_map, out, row_start, row_len, P, pt, L, d, n_band, attend_self, scale);
   return (int)cudaGetLastError();
 }
@@ -614,6 +654,20 @@ int banded_consensus_fwd(const void* lv, void* out, void* khat, const int* row_s
                                     attend_self, s)
                  : launch_fma<float>(lv, out, row_start, row_len, P, pt, L, d, n_band,
                                      attend_self, s);
+}
+
+// "wgmma_wide"'s launch (sm90::launch_pair): blocks of sm90::ATTN_THREADS
+// threads and sm90::AttnPairSmem::BYTES of shared memory in clusters of two
+// along grid z, and how many such clusters the device holds at once
+// (cudaOccupancyMaxActiveClusters). Returns a cudaError_t.
+int banded_consensus_wide_launch(int* threads, int* smem_bytes, int* cluster, int* clusters) {
+  static bool lifted[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(banded_consensus_kernel_wgmma<true>, lifted);
+  *threads = sm90::ATTN_THREADS;
+  *smem_bytes = sm90::AttnPairSmem::BYTES;
+  *cluster = sm90::PAIR_CLUSTER;
+  if (err == cudaSuccess) err = sm90::pair_clusters(banded_consensus_kernel_wgmma<true>, 2, clusters);
+  return (int)err;
 }
 
 const char* banded_consensus_error_string(int err) {

@@ -37,19 +37,25 @@
 //     key rows are normalized once a launch, not once for every query block
 //     that reads them.
 //   * The main kernel gives a block 64 query rows of one (level, image) and
-//     up to 512 output columns (d > 512 takes a second block of columns,
-//     which recomputes the same scores). Its thread 0 loads the block's q
-//     rows once and then, tile after tile of 64 keys, the normalized k rows
-//     and the v rows by TMA (128-byte swizzle) into two single-stage rings,
-//     each an mbarrier that the load completes and a named barrier both
-//     warpgroups pass before it is refilled: k for tile j + 1 loads while
-//     tile j's softmax and P . V run, v for tile j + 1 while tile j + 1's
-//     scores do.
+//     up to 512 output columns (d > 512 takes a second block of columns).
+//     Up to d = 640 its thread 0 loads the block's q rows once and then,
+//     tile after tile of 64 keys, the normalized k rows and the v rows by
+//     TMA (128-byte swizzle) into two single-stage rings, each an mbarrier
+//     that the load completes and a named barrier both warpgroups pass
+//     before it is refilled: k for tile j + 1 loads while tile j's softmax
+//     and P . V run, v for tile j + 1 while tile j + 1's scores do; the
+//     second block of columns (d = 576, 640) recomputes the same scores.
 //   * Past d = 640 (the wide instance, up to d = 1024: glom_tpu's
-//     imagenet224-pod width) a whole 64 x d k tile no longer fits beside
-//     the resident q tile and v's 512 columns, so k streams a 64-column box
-//     at a time through sm90_attn.cuh's ring of four boxes and S is summed
-//     over d box by box (`attn_key_loop<true>`); the rest is the same.
+//     imagenet224-pod width) the two column blocks of each 64 query rows
+//     run as a cluster (sm90_attn.cuh's attn_pair_*): block g holds only
+//     its 512 columns of q, k and v, sums the partial scores over them, and
+//     the pair adds the two partials after an exchange through distributed
+//     shared memory, so each score is computed once. Its warpgroups split
+//     the keys (32 each) and exchange their row maxima, sums and P; each
+//     loads its own k (its 32 keys x the block's 512 columns) and v (64
+//     keys x its 256 columns) a tile at a time with one TMA load each, the
+//     next tile's as soon as this tile's products retire. The rest below
+//     is the narrow form's.
 //   * Two warpgroups each compute the whole S = Q . K^T (wgmma m64n64k16,
 //     both operands in shared memory, f32 in registers), its masks and the
 //     online softmax in registers (a row's max and sum over the four
@@ -64,9 +70,15 @@
 //   * Under a local radius only the live key tiles (glom_tpu's _window) are
 //     loaded. Query rows past n load as zeros and are not stored; key
 //     columns past n load as zeros and are masked to finfo(float32).min.
-//   * Tile shapes, the K order and the rounding points are fixed, no sum is
-//     split across blocks and nothing is atomic: a row's bits depend
-//     neither on B, nor on the grid, nor on which launch computed them.
+//   * Tile shapes, the K order and the rounding points are fixed and
+//     nothing is atomic: a row's bits depend neither on B, nor on the grid,
+//     nor on which launch computed them. Up to d = 640 no sum is split
+//     across blocks; past it each score is split across the cluster's two
+//     blocks, columns 0 .. 511 and 512 .. d - 1, each half summed in the
+//     tensor core's fixed K order and the two added once, rank 0's first
+//     (an addition of two terms, so both blocks form the same bits), and a
+//     row's softmax sum across its two warpgroups' 32 keys, keys 0 .. 31
+//     first.
 // Kept out of device memory: the [n, n] scores and probabilities and the
 // f32 output sums; the attention output `cons` unless asked for.
 //
@@ -278,12 +290,23 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
 }
 
-// Grid: (row blocks, column groups of 512, L * B). lv_map and
-// k_map are [L * B, n, d] bf16 maps with a 64 x 64 box (sm90::make_map).
+// The wide instance's epilogue operands: bu and td as wide_map maps (2
+// chunks x 64 rows a box), loaded into the freed k and v as the key loop
+// ends. Unused (zero) in the narrow instance.
+struct EpilogueMaps {
+  CUtensorMap bu, td;
+};
+
+// Grid: (row blocks, column groups of 512, L * B). lv_map and k_map are
+// [L * B, n, d] bf16 maps with a 64 x 64 box (tile_map); WIDE: 4-D maps
+// of [L * B, d / 64, n, 64] (wide_map) with boxes of 4 chunks x 64 rows
+// (lv) and 8 chunks x 32 rows (k), and the two column groups of each (row
+// block, slot) run as a cluster.
 template <bool SAVE_CONS, bool WIDE>
 __global__ void __launch_bounds__(sm90::ATTN_THREADS, 1)
 consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
                              const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ EpilogueMaps epi,
                              const bf16* __restrict__ bu, const bf16* __restrict__ td,
                              bf16* __restrict__ out, float* __restrict__ m_out,
                              float* __restrict__ l_out, bf16* __restrict__ cons_out, int L, int B,
@@ -292,68 +315,15 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  using Lay = sm90::AttnSmem<WIDE>;
-  const Lay lay(d);
-  unsigned char* qs = smem;
-  unsigned char* ks = smem + lay.k_off;
-  unsigned char* vs = smem + lay.v_off;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
-  uint64_t* q_full = bars;
-  uint64_t* k_full = bars + 1;  // Lay::K_BARS
-  uint64_t* v_full = bars + 1 + Lay::K_BARS;
-
+  const int boxes = d / 64;
   const int i0 = blockIdx.x * ROWS;
   const int chunk0 = 2 * NC * blockIdx.y;  // the block's first 64-column chunk
   const int z = blockIdx.z;                // slot g * B + b
   const int g = z / B;
   const Window win = live_tiles(i0, ROWS, KEYS, n, reach);
   const int w = threadIdx.x / 128, t = threadIdx.x % 128;
-  const bool loader = threadIdx.x == 0;  // issues every TMA load of the block
+  const int tiles = win.j_hi - win.j_lo;
 
-  // Key tile jt's normalized k rows, and its v rows for the block's chunks.
-  auto load_k = [&](int jt) {
-    sm90::mbar_expect_tx(k_full, lay.boxes * BOX_BYTES);
-    for (int c = 0; c < lay.boxes; ++c)
-      sm90::tma_load_3d(ks + c * BOX_BYTES, &k_map, 64 * c, jt * KEYS, z, k_full);
-  };
-  // The wide form's box step b of the key loop: box b % boxes of live tile
-  // b / boxes, into ring stage b % ATTN_KRING.
-  auto load_kbox = [&](int b) {
-    const int st = b % sm90::ATTN_KRING, c = b % lay.boxes;
-    const int jt = win.j_lo + b / lay.boxes;
-    sm90::mbar_expect_tx(k_full + st, BOX_BYTES);
-    sm90::tma_load_3d(ks + st * BOX_BYTES, &k_map, 64 * c, jt * KEYS, z, k_full + st);
-  };
-  auto load_v = [&](int jt) {
-    const int chunks = min(2 * NC, lay.boxes - chunk0);
-    sm90::mbar_expect_tx(v_full, chunks * BOX_BYTES);
-    for (int c = 0; c < chunks; ++c)
-      sm90::tma_load_3d(vs + c * BOX_BYTES, &lv_map, 64 * (chunk0 + c), jt * KEYS, z, v_full);
-  };
-  if (loader) {
-    for (int i = 0; i < 2 + Lay::K_BARS; ++i) sm90::mbar_init(bars + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (loader) {
-    sm90::mbar_expect_tx(q_full, lay.boxes * BOX_BYTES);
-    for (int c = 0; c < lay.boxes; ++c)
-      sm90::tma_load_3d(qs + c * BOX_BYTES, &lv_map, 64 * c, i0, z, q_full);
-    if constexpr (WIDE) {
-      const int steps = (win.j_hi - win.j_lo) * lay.boxes;
-      for (int b = 0; b < sm90::ATTN_KRING && b < steps; ++b) load_kbox(b);
-    } else {
-      load_k(win.j_lo);
-    }
-    load_v(win.j_lo);
-    // The epilogue's bu and td rows into L2 meanwhile.
-    const size_t row0 = (size_t)z * n + i0;
-    const uint32_t bytes = (uint32_t)(min(ROWS, n - i0) * d * 2);
-    prefetch_l2(bu + row0 * d, bytes);
-    if (g < L - 1) prefetch_l2(td + row0 * d, bytes);
-  }
-
-  const int c_first = NC * w;  // this warpgroup's chunks of the block's O
   // The thread's two rows (wgmma's accumulator fragment) and column pairs.
   const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8;
   const int cq = 2 * (t % 4);
@@ -361,19 +331,20 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   const int ri_a = i_a / side, ci_a = i_a - ri_a * side;
   const int ri_b = i_b / side, ci_b = i_b - ri_b * side;
 
-  float o[NC][sm90::ACC64];
-  float m_a, m_b, l_a, l_b;
   // The masks a key tile needs: the diagonal (attend_self off), the
-  // radius, key columns past n (zero rows of the map).
-  auto mask = [&](int it, float (&s)[sm90::ACC64]) {
+  // radius, key columns past n (zero rows of the map). s holds keys key0 +
+  // 8 jj + cq + {0, 1} of the tile (the accumulator fragment, m64n64 or the
+  // wide form's m64n32).
+  auto mask = [&](int it, auto& s, int key0 = 0) {
+    constexpr int JJ = sizeof(s) / sizeof(float) / 4;
     const int j0 = (win.j_lo + it) * KEYS;
     const bool diag = !attend_self && j0 < i0 + ROWS && i0 < j0 + KEYS;
     if (diag || reach > 0 || j0 + KEYS > n) {
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
+      for (int jj = 0; jj < JJ; ++jj) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int j = j0 + 8 * jj + cq + e;
+          const int j = j0 + key0 + 8 * jj + cq + e;
           float& sa = s[4 * jj + e];
           float& sb = s[4 * jj + 2 + e];
           if (diag) {
@@ -392,18 +363,102 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
       }
     }
   };
-  auto load_k_step = [&](int it) {
-    if constexpr (WIDE) {
-      load_kbox(it);  // a box step
-    } else {
-      load_k(win.j_lo + it);
-    }
-  };
-  sm90::attn_key_loop<WIDE>(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full,
-                            win.j_hi - win.j_lo, d, scale, load_k_step,
-                            [&](int it) { load_v(win.j_lo + it); }, mask);
 
-  // Epilogue (k and v are free: the key loop ended on a barrier).
+  float o[NC][sm90::ACC64];
+  float m_a, m_b, l_a, l_b;
+  unsigned char* qs = smem;  // the epilogue's q: box chunk - q_chunk0
+  unsigned char* stage_base;
+  int q_chunk0;
+  if constexpr (WIDE) {
+    using S = sm90::AttnPairSmem;
+    const uint32_t rank = sm90::cluster_rank();  // == blockIdx.y: the cluster spans y
+    const int nb = min(2 * NC, boxes - chunk0);  // the block's boxes of d
+    sm90::attn_pair_init(smem);
+    if (threadIdx.x == 0) {  // the epilogue's bu and td rows into L2 meanwhile
+      const size_t row0 = (size_t)z * n + i0;
+      const uint32_t bytes = (uint32_t)(min(ROWS, n - i0) * d * 2);
+      prefetch_l2(bu + row0 * d, bytes);
+      if (g < L - 1) prefetch_l2(td + row0 * d, bytes);
+    }
+    const int row0 = win.j_lo * KEYS;  // key tile it's first row: row0 + KEYS it
+    // Pair `pair` of the warpgroup's chunks of bu and td: [bu 2 chunks][td 2 chunks].
+    auto load_epi = [&](unsigned char* dst, int pair, uint64_t* bar) {
+      const int chunk = chunk0 + NC * w + 2 * pair;
+      sm90::mbar_expect_tx(bar, (g < L - 1 ? 2 : 1) * 2 * BOX_BYTES);
+      sm90::tma_load_4d(dst, &epi.bu, 0, i0, chunk, z, bar);
+      if (g < L - 1) sm90::tma_load_4d(dst + 2 * BOX_BYTES, &epi.td, 0, i0, chunk, z, bar);
+    };
+    sm90::attn_pair_loop(
+        o, m_a, m_b, l_a, l_b, smem, tiles, nb, scale, rank,
+        [&](unsigned char* dst, int half, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &lv_map, 0, i0, chunk0 + NC * half, z, bar);
+        },
+        [&](unsigned char* dst, int it, int kw, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &k_map, 0, row0 + KEYS * it + sm90::PAIR_KEYS * kw, chunk0, z,
+                            bar);
+        },
+        [&](unsigned char* dst, int it, int kw, uint64_t* bar) {
+          sm90::tma_load_4d(dst, &lv_map, 0, row0 + KEYS * it, chunk0 + NC * kw, z, bar);
+        },
+        mask,
+        // The epilogue's bu (and, below the top level, td) rows of the
+        // warpgroup's first two chunks into its freed k, of its last two
+        // into its freed v: the first pair's load overlaps the last P . V,
+        // the second's the first pair's epilogue.
+        [&](unsigned char* dst, uint64_t* bar) { load_epi(dst, 0, bar); },
+        [&](unsigned char* dst, uint64_t* bar) { load_epi(dst, 1, bar); });
+    stage_base = smem + S::XS_OFF;
+    q_chunk0 = chunk0;
+  } else {
+    using Lay = sm90::AttnSmem;
+    const Lay lay(d);
+    unsigned char* ks = smem + lay.k_off;
+    unsigned char* vs = smem + lay.v_off;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+    uint64_t* q_full = bars;
+    uint64_t* k_full = bars + 1;
+    uint64_t* v_full = bars + 2;
+    const bool loader = threadIdx.x == 0;  // issues every TMA load of the block
+
+    // Key tile jt's normalized k rows, and its v rows for the block's chunks.
+    auto load_k = [&](int jt) {
+      sm90::mbar_expect_tx(k_full, lay.boxes * BOX_BYTES);
+      for (int c = 0; c < lay.boxes; ++c)
+        sm90::tma_load_3d(ks + c * BOX_BYTES, &k_map, 64 * c, jt * KEYS, z, k_full);
+    };
+    auto load_v = [&](int jt) {
+      const int chunks = min(2 * NC, lay.boxes - chunk0);
+      sm90::mbar_expect_tx(v_full, chunks * BOX_BYTES);
+      for (int c = 0; c < chunks; ++c)
+        sm90::tma_load_3d(vs + c * BOX_BYTES, &lv_map, 64 * (chunk0 + c), jt * KEYS, z, v_full);
+    };
+    if (loader) {
+      for (int i = 0; i < 3; ++i) sm90::mbar_init(bars + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (loader) {
+      sm90::mbar_expect_tx(q_full, lay.boxes * BOX_BYTES);
+      for (int c = 0; c < lay.boxes; ++c)
+        sm90::tma_load_3d(qs + c * BOX_BYTES, &lv_map, 64 * c, i0, z, q_full);
+      load_k(win.j_lo);
+      load_v(win.j_lo);
+      // The epilogue's bu and td rows into L2 meanwhile.
+      const size_t row0 = (size_t)z * n + i0;
+      const uint32_t bytes = (uint32_t)(min(ROWS, n - i0) * d * 2);
+      prefetch_l2(bu + row0 * d, bytes);
+      if (g < L - 1) prefetch_l2(td + row0 * d, bytes);
+    }
+    sm90::attn_key_loop(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full, tiles, d,
+                        scale, [&](int it) { load_k(win.j_lo + it); },
+                        [&](int it) { load_v(win.j_lo + it); }, mask);
+    stage_base = ks;
+    q_chunk0 = 0;
+  }
+
+  const int c_first = NC * w;  // this warpgroup's chunks of the block's O
+
+  // Epilogue (the staging area is free: the key loop ended on a barrier).
   const bool top = g == L - 1;
   if (m_out != nullptr && chunk0 == 0 && w == 0 && t % 4 == 0) {
     if (i_a < n) {
@@ -417,23 +472,39 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int w16 = 16 * (warp % 4);  // the warp's first row of the block
-  float2* stage = reinterpret_cast<float2*>(ks + warp * sm90::ATTN_STAGE_BYTES);
+  float2* stage = reinterpret_cast<float2*>(stage_base + warp * sm90::ATTN_STAGE_BYTES);
   const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int chunk = chunk0 + c_first + c;  // 64-column chunk of d
-    if (chunk >= lay.boxes) continue;        // past d: its box was not loaded
+    const unsigned char* epi_base = nullptr;  // the wide form's bu and td of this chunk pair
+    if constexpr (WIDE) {  // waited for past d too: no load may land after the block ends
+      using S = sm90::AttnPairSmem;
+      epi_base = c < 2 ? smem + S::K_OFF + w * sm90::PAIR_KTILE
+                       : smem + S::V_OFF + w * sm90::PAIR_VTILE;
+      if (c % 2 == 0) sm90::mbar_wait(reinterpret_cast<uint64_t*>(smem + S::BAR_OFF) +
+                                      S::E_FULL + 2 * w + c / 2, 0);
+    }
+    if (chunk >= boxes) continue;  // past d: its box was not loaded
     // This chunk's bu and td segments (lane k of 8 takes columns 8k .. 8k+7
     // of rows rw, four rows a pass), loaded before the stage is written.
     uint4 bv[4], tv[4];
 #pragma unroll
     for (int pass = 0; pass < 4; ++pass) {
       const int rw = 4 * pass + lane / 8, k = lane % 8, i = i0 + w16 + rw;
-      const size_t off = ((size_t)z * n + i) * d + 64 * chunk + 8 * k;
       bv[pass] = tv[pass] = make_uint4(0, 0, 0, 0);
-      if (i < n) {
-        bv[pass] = __ldg(reinterpret_cast<const uint4*>(bu + off));
-        if (!top) tv[pass] = __ldg(reinterpret_cast<const uint4*>(td + off));
+      if constexpr (WIDE) {  // the warpgroup's rows load_epi loaded (zeros past n)
+        const int qrow = w16 + rw;
+        const unsigned char* seg = epi_base + (c % 2) * BOX_BYTES + qrow * 128 +
+                                   ((k ^ (qrow & 7)) * 16);
+        bv[pass] = *reinterpret_cast<const uint4*>(seg);
+        if (!top) tv[pass] = *reinterpret_cast<const uint4*>(seg + 2 * BOX_BYTES);
+      } else {
+        const size_t off = ((size_t)z * n + i) * d + 64 * chunk + 8 * k;
+        if (i < n) {
+          bv[pass] = __ldg(reinterpret_cast<const uint4*>(bu + off));
+          if (!top) tv[pass] = __ldg(reinterpret_cast<const uint4*>(td + off));
+        }
       }
     }
     sm90::stage_cons(o[c], l_a, inv_a, l_b, inv_b, stage);  // cons = O / l
@@ -446,8 +517,8 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
         float cons[8];
         sm90::staged8(stage, rw, k, cons);
         const int qrow = w16 + rw;
-        const uint4 qv = *reinterpret_cast<const uint4*>(qs + chunk * BOX_BYTES + qrow * 128 +
-                                                         ((k ^ (qrow & 7)) * 16));
+        const uint4 qv = *reinterpret_cast<const uint4*>(
+            qs + (chunk - q_chunk0) * BOX_BYTES + qrow * 128 + ((k ^ (qrow & 7)) * 16));
         const size_t off = ((size_t)z * n + i) * d + 64 * chunk + 8 * k;
         const bf16* qe = reinterpret_cast<const bf16*>(&qv);
         const bf16* be = reinterpret_cast<const bf16*>(&bv[pass]);
@@ -471,6 +542,7 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
     }
     __syncwarp();
   }
+  if constexpr (WIDE) sm90::cluster_sync();  // the peer no longer reads or writes here
 }
 
 // --- host side ----------------------------------------------------------------
@@ -511,6 +583,18 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, int d, int n, int slots)
   return sm90::cached_map(map, ptr, dims, strides, box);
 }
 
+// A [slots, n, d] bf16 tensor as a 4-D map {64, n, d / 64, slots} (a
+// column within its 64-column chunk, the row, the chunk, the slot) whose
+// box is `chunks` chunks x `rows` rows: one load lands them as `chunks`
+// swizzled 64-column boxes (cached).
+cudaError_t wide_map(CUtensorMap* map, const void* ptr, int d, int n, int slots, int rows,
+                     int chunks) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)d / 64, (cuuint64_t)slots};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, 128, (cuuint64_t)d * n * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, (cuuint32_t)chunks, 1};
+  return sm90::cached_map(map, ptr, dims, strides, box);
+}
+
 // The pre-pass and the main kernel (the wide instance past ATTN_NARROW_D).
 template <bool SAVE_CONS, bool WIDE>
 int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float* m_out,
@@ -519,15 +603,30 @@ int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float
   static bool lifted[sm90::MAX_DEVICES];
   cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_bf16<SAVE_CONS, WIDE>, lifted);
   CUtensorMap lv_map, k_map;
-  if (err == cudaSuccess) err = tile_map(&lv_map, lv, d, n, L * B);
-  if (err == cudaSuccess) err = tile_map(&k_map, khat, d, n, L * B);
+  if constexpr (WIDE) {
+    if (err == cudaSuccess) err = wide_map(&lv_map, lv, d, n, L * B, KEYS, NC);
+    if (err == cudaSuccess)
+      err = wide_map(&k_map, khat, d, n, L * B, sm90::PAIR_KEYS, sm90::PAIR_BOXES);
+  } else {
+    if (err == cudaSuccess) err = tile_map(&lv_map, lv, d, n, L * B);
+    if (err == cudaSuccess) err = tile_map(&k_map, khat, d, n, L * B);
+  }
   if (err != cudaSuccess) return (int)err;
   err = sm90::launch_khat(lv, khat, (size_t)L * B * n, d, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + ROWS - 1) / ROWS, (d / 64 + 2 * NC - 1) / (2 * NC), L * B);
-  consensus_update_kernel_bf16<SAVE_CONS, WIDE><<<grid, sm90::ATTN_THREADS,
-                                                  sm90::AttnSmem<WIDE>(d).bytes, stream>>>(
-      lv_map, k_map, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2,
+  EpilogueMaps epi = {};
+  if constexpr (WIDE) {
+    err = wide_map(&epi.bu, bu, d, n, L * B, KEYS, 2);
+    if (err == cudaSuccess) err = wide_map(&epi.td, td, d, n, (L - 1) * B, KEYS, 2);
+    if (err != cudaSuccess) return (int)err;
+    return (int)sm90::launch_pair(consensus_update_kernel_bf16<SAVE_CONS, true>, grid, 1, stream,
+                                  lv_map, k_map, epi, bu, td, out, m_out, l_out, cons_out, L, B,
+                                  n, d, side, reach, r2, attend_self, scale);
+  }
+  consensus_update_kernel_bf16<SAVE_CONS, false><<<grid, sm90::ATTN_THREADS,
+                                                   sm90::AttnSmem(d).bytes, stream>>>(
+      lv_map, k_map, epi, bu, td, out, m_out, l_out, cons_out, L, B, n, d, side, reach, r2,
       attend_self, scale);
   return (int)cudaGetLastError();
 }
@@ -585,6 +684,22 @@ int consensus_update_fwd(const void* lv, const void* bu, const void* td, void* o
                                 d, side, reach, r2, attend_self, scale, s)
              : launch_f32<false>(x, b, t, o, m_out, l_out, nullptr, L, B, n, d, side, reach, r2,
                                  attend_self, scale, s);
+}
+
+// The wide instance's launch (sm90::launch_pair): blocks of
+// sm90::ATTN_THREADS threads and sm90::AttnPairSmem::BYTES of shared
+// memory in clusters of two along grid y, and how many such clusters the
+// device holds at once (cudaOccupancyMaxActiveClusters). Returns a
+// cudaError_t.
+int consensus_update_wide_launch(int* threads, int* smem_bytes, int* cluster, int* clusters) {
+  static bool lifted[sm90::MAX_DEVICES];
+  cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_bf16<false, true>, lifted);
+  *threads = sm90::ATTN_THREADS;
+  *smem_bytes = sm90::AttnPairSmem::BYTES;
+  *cluster = sm90::PAIR_CLUSTER;
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters(consensus_update_kernel_bf16<false, true>, 1, clusters);
+  return (int)err;
 }
 
 const char* consensus_update_error_string(int err) {

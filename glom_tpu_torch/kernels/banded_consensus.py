@@ -55,6 +55,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "banded_consensus_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "banded_consensus_instance": ([_I, _I, _I], ctypes.c_char_p),
+    "banded_consensus_wide_launch": ([_P] * 4, _I),
     "banded_consensus_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -69,6 +70,19 @@ def __getattr__(name):
 
 def _lib() -> ctypes.CDLL:
     return _build.load("banded_consensus", _SIGNATURES)
+
+
+def wide_launch() -> dict:
+    """The launch of K4's "wgmma_wide" on the current card:
+    threads a block, dynamic shared memory a block (bytes), blocks a cluster
+    (the two 512-column groups, along grid z) and the most such clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    lib = _lib()
+    err = lib.banded_consensus_wide_launch(*(ctypes.byref(v) for v in vals))
+    _build.check(err, "banded_consensus_wide_launch", lib.banded_consensus_error_string)
+    return dict(zip(("threads", "smem_bytes", "cluster", "max_active_clusters"),
+                    (v.value for v in vals)))
 
 
 def k4_instance(dtype: torch.dtype, page_tokens: int, d: int) -> str:

@@ -97,6 +97,7 @@ _SIGNATURES = {
     "consensus_update_fwd": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _I, _I, _P], _I,
     ),
+    "consensus_update_wide_launch": ([_P] * 4, _I),
     "consensus_update_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
@@ -156,6 +157,19 @@ def use_onesweep(levels_shape, itemsize: int) -> bool:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("consensus_update", _SIGNATURES)
+
+
+def wide_launch() -> dict:
+    """The launch of K2's bf16 forward past d = 640 on the current card:
+    threads a block, dynamic shared memory a block (bytes), blocks a cluster
+    (the two 512-column groups, along grid y) and the most such clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    lib = _lib()
+    err = lib.consensus_update_wide_launch(*(ctypes.byref(v) for v in vals))
+    _build.check(err, "consensus_update_wide_launch", lib.consensus_update_error_string)
+    return dict(zip(("threads", "smem_bytes", "cluster", "max_active_clusters"),
+                    (v.value for v in vals)))
 
 
 def _bwd_lib() -> ctypes.CDLL:

@@ -2,7 +2,7 @@
 """Build, check and time one of the port's bf16 kernels on one NVIDIA GPU,
 quickly.
 
-    python3 kernel_probe.py k1|k1bwd|k2|k2bwd|k4|k4f32 [ROOT ...]
+    python3 kernel_probe.py k1|k1bwd|k2|k2bwd|k4|k4f32|pair [ROOT ...]
 
 Each ROOT (default ".") holds a `glom_tpu_torch/` to probe, so a copy of the
 package with one change can be held against this one in one run on the
@@ -71,7 +71,19 @@ kernel's source (printing ptxas' registers and spills), then:
     against the plain version, and each against an f64 form of the plain
     version, as the largest error over K4's f32 bar (rtol 2e-4, atol
     2e-5), and the largest absolute error. Where the kernel refuses the
-    shape (a tree before d = 1024 was taken) it says so.
+    shape (a tree before d = 1024 was taken) it says so;
+  * pair (`csrc/consensus_update.cu`, `csrc/banded_consensus.cu`): the
+    wide forms past d = 640 / 512 (`csrc/sm90_attn.cuh`'s two-block
+    cluster, `attn_pair_loop`): device times of K2's forward at [12, 8,
+    256, 1024] and K4's at 32 full pages [2048, 12, 1024], each by kernel
+    (k pre-pass, attention) and beside scaled_dot_product_attention on the
+    same q, normalised k, v ([96, 1, 256, 1024]; K4 on the band gathered
+    beforehand); then, from a copy of ROOT's package built under
+    ROOT/build/ with thread 0 of every block writing clock64() at the
+    loop's phase boundaries (the original is not touched), the median over
+    K2's 768 blocks of each phase's cycles: the Q load, and per key tile
+    the scores (S), the exchange with the peer block, the softmax's step,
+    P . V; then the epilogue. A tree without the wide pair loop says so.
 
 Device times are CUDA events (chip_timing.time_ms, L2 warm), host times the
 median of batches started on an idle card (chip_timing.host_us). The
@@ -82,6 +94,7 @@ It exits nonzero without a card or on a failed check.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -91,7 +104,60 @@ import time
 SOURCES = {"k1": ["grouped_mlp"], "k1bwd": ["grouped_mlp", "grouped_mlp_bwd"],
            "k2": ["consensus_update"],
            "k2bwd": ["consensus_update", "consensus_update_bwd"], "k4": ["banded_consensus"],
-           "k4f32": ["banded_consensus"]}
+           "k4f32": ["banded_consensus"], "pair": ["consensus_update", "banded_consensus"]}
+
+# The pair probe's instrumentation: (source, anchor, code put before it
+# ("<") or after it (">")).
+# Stamp i of a block is clock64() at a phase boundary, read back through
+# `probe_read` (phases: 0 before the Q wait, 1 after it; tile it's 2 + 4 it
+# at its start, 3 + 4 it after its scores, 4 + 4 it after the exchange, 5 +
+# 4 it before P . V; 18 the loop's end; 19 the epilogue's end).
+PAIR_STAMPS = [
+    ("sm90_attn.cuh", ">", "namespace sm90 {\n",
+     "__device__ long long g_probe[2048][24];\n"
+     "__device__ __forceinline__ void stamp(int i) {\n"
+     "  const int blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);\n"
+     "  if (threadIdx.x == 0 && blk < 2048) g_probe[blk][i] = clock64();\n}\n"),
+    ("sm90_attn.cuh", ">", "  cluster_sync();  // both blocks' barriers are set up\n",
+     "  stamp(0);\n"),
+    ("sm90_attn.cuh", ">",
+     "  for (int it = 0; it < tiles; ++it) {\n    const bool refill = loader && it + 1 < tiles;\n",
+     "    if (it == 0) stamp(1);\n    if (it < 4) stamp(2 + 4 * it);\n"),
+    ("sm90_attn.cuh", ">", "      tail_k(ks, e_full);\n    }\n", "    if (it < 4) stamp(3 + 4 * it);\n"),
+    ("sm90_attn.cuh", ">", "rank == 0 ? peer[e] : own);\n      }\n    }\n",
+     "    if (it < 4) stamp(4 + 4 * it);\n"),
+    ("sm90_attn.cuh", "<",
+     "    mbar_wait(v_full, it & 1);\n#pragma unroll\n    for (int c = 0; c < ATTN_NC; ++c) "
+     "fence_acc(o[c]);\n    wgmma_fence();\n#pragma unroll\n    for (int c = 0; c < ATTN_NC; ++c)\n"
+     "#pragma unroll\n", "    if (it < 4) stamp(5 + 4 * it);\n"),
+    ("sm90_attn.cuh", ">", "      tail_v(vs, e_full + 1);\n    }\n  }\n", "  stamp(18);\n"),
+    ("consensus_update.cu", ">", "    __syncwarp();\n  }\n", "  if constexpr (WIDE) sm90::stamp(19);\n"),
+    ("consensus_update.cu", ">", 'extern "C" {\n',
+     "int probe_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, sm90::g_probe, sizeof(sm90::g_probe));\n}\n"),
+]
+
+
+def instrument(root: str):
+    """A copy of ROOT's package under ROOT/build/kernel_probe_pair with the
+    pair probe's stamps, or None where ROOT has no wide pair loop."""
+    import shutil
+
+    src = os.path.join(root, "glom_tpu_torch")
+    attn = os.path.join(src, "csrc", "sm90_attn.cuh")
+    if not os.path.exists(attn) or "attn_pair_loop" not in open(attn).read():
+        return None
+    dst = os.path.join(root, "build", "kernel_probe_pair")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, os.path.join(dst, "glom_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for name, where, anchor, code in PAIR_STAMPS:
+        path = os.path.join(dst, "glom_tpu_torch", "csrc", name)
+        text = open(path).read()
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"pair probe: anchor not found once in {name}: {anchor!r}")
+        open(path, "w").write(text.replace(anchor, code + anchor if where == "<" else anchor + code))
+    return dst
 
 
 def probe(kernel: str, root: str) -> int:
@@ -120,7 +186,7 @@ def probe(kernel: str, root: str) -> int:
 
     tools = dict(rn=rn, time_ms=time_ms, host_us=host_us, device_us=device_us_by_kernel)
     return {"k1": probe_k1, "k1bwd": probe_k1bwd, "k2": probe_k2, "k2bwd": probe_k2bwd,
-            "k4": probe_k4, "k4f32": probe_k4f32}[kernel](torch, **tools)
+            "k4": probe_k4, "k4f32": probe_k4f32, "pair": probe_pair}[kernel](torch, **tools)
 
 
 def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
@@ -631,6 +697,59 @@ def probe_k4f32(torch, rn, time_ms, host_us, device_us) -> int:
     return int(fail)
 
 
+def probe_pair(torch, rn, time_ms, host_us, device_us) -> int:
+    import numpy as np
+
+    import glom_tpu_torch.kernels.banded_consensus as k4
+    import glom_tpu_torch.kernels.consensus_update as k2
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    key = (lambda name: "khat" if "khat" in name else "attention" if "_kernel" in name
+           else "other")
+    lv, bu, td = rn(12, 8, 256, 1024), rn(12, 8, 256, 1024), rn(11, 8, 256, 1024)
+    q = lv.reshape(96, 1, 256, 1024)
+    k = k2._normalized_k(lv).to(lv.dtype).reshape(96, 1, 256, 1024)
+
+    def k2_call():
+        return k2.fused_consensus_update(lv, bu, td, side=16)
+    print(json.dumps({"case": "k2_pod_b8", "ms": time_ms(k2_call), "sdpa_ms": time_ms(
+        lambda: sdpa(q, k, q)), "by_kernel_us": device_us(k2_call, key=key)}), flush=True)
+    pt, P = 64, 32
+    rs = (torch.arange(P * pt, dtype=torch.int32) // 256 * 256).to("cuda")
+    rl = torch.full((P * pt,), 256, dtype=torch.int32, device="cuda")
+    lv4 = rn(P * pt, 12, 1024, scale=2.0)
+    kw = dict(row_start=rs, row_len=rl, window=256, page_tokens=pt)
+    band = lv4.view(P // 4, 4 * pt, 12, 1024).permute(0, 2, 1, 3)  # each row's band: its pages
+    kb = (band.float() / band.float().norm(dim=-1, keepdim=True).clamp_min(1e-12)).to(lv4.dtype)
+    print(json.dumps({"case": "k4_pod_ragged32_full", "ms": time_ms(
+        lambda: k4.banded_ragged_consensus(lv4, **kw)), "sdpa_ms": time_ms(
+        lambda: sdpa(band, kb, band)), "by_kernel_us": device_us(
+        lambda: k4.banded_ragged_consensus(lv4, **kw), key=key)}), flush=True)
+    lib = k2._lib()
+    if not hasattr(lib, "probe_read"):  # the package as it stands: times only
+        return 0
+    k2_call()
+    torch.cuda.synchronize()
+    stamps = np.zeros((2048, 24), np.int64)
+    lib.probe_read.argtypes = [ctypes.c_void_p]
+    if lib.probe_read(stamps.ctypes.data) != 0:
+        print("pair: probe_read failed", flush=True)
+        return 1
+    blocks = stamps[:768]
+    phases = {"q_load": np.median(blocks[:, 1] - blocks[:, 0])}
+    for it in range(4):
+        b = 2 + 4 * it
+        nxt = blocks[:, b + 4] if it < 3 else blocks[:, 18]
+        for j, nm in enumerate(("scores", "exchange", "softmax", "pv")):
+            end = blocks[:, b + j + 1] if j < 3 else nxt
+            phases[f"tile{it}_{nm}"] = np.median(end - blocks[:, b + j])
+    phases["epilogue"] = np.median(blocks[:, 19] - blocks[:, 18])
+    phases["block"] = np.median(blocks[:, 19] - blocks[:, 0])
+    print(json.dumps({"case": "k2_pod_b8_phases_cycles",
+                      **{k_: float(v) for k_, v in phases.items()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--child":
         return probe(sys.argv[2], os.path.abspath(sys.argv[3]))
@@ -643,6 +762,12 @@ def main() -> int:
     rc = 0
     for root in sys.argv[2:] or ["."]:
         print("== root", root, flush=True)
+        if sys.argv[1] == "pair":  # the uninstrumented times, then the stamped copy's phases
+            cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]
+            rc |= subprocess.run(cmd, timeout=900).returncode
+            root = instrument(os.path.abspath(root))
+            if root is None:
+                continue
         cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]
         rc |= subprocess.run(cmd, timeout=900).returncode
     return rc

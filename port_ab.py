@@ -33,6 +33,16 @@ drift of the card between runs. Per tree it prints one JSON line:
   * K4 (the banded ragged consensus) at the flagship's largest ragged
     signature in bf16 ([2048, 6, 512]: 32 pages of 64 tokens, window 256,
     every band full), with the host's time a call (`k4_host_us_r32`);
+  * a SHA-256 of the flagship K2 bucket-8 output and of the K4 32-page
+    output on these seed-0 inputs (`k2_b8_sha256`, `k4_r32_sha256`), so two
+    trees' flagship kernels can be shown bit for bit equal;
+  * the imagenet224-pod width (d = 1024, L = 12), the wide instances: K2's
+    forward at [12, 8, 256, 1024] alone and with the softmax statistics
+    (`k2_pod_b8_ms`, `k2_pod_b8_stats_ms`), K4 at 32 full pages
+    [2048, 12, 1024] (`k4_pod_ragged32_ms`), and the imagenet224-pod
+    preset served in bf16 at 12 iterations from seed-0 weights: bucket 8
+    (`serve_pod_b8_*`) and 32 pages of eight rows (`serve_pod_ragged32_*`),
+    p50 and min over N dispatches;
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
     min over N dispatches (host clock ending in a synchronize), and the peak
     device memory of one dispatch (`serve_b8_peak_mib`);
@@ -195,6 +205,21 @@ def child(tree: str, dispatches: int) -> dict:
     lv4, k4_kw = k4_inputs(randn)
     out["k4_fwd_ragged32_ms"] = time_ms(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
     out["k4_host_us_r32"] = host_us(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
+    out["k2_b8_sha256"] = sha256(k2.fused_consensus_update(lv, bu, td, side=16))
+    out["k4_r32_sha256"] = sha256(k4.banded_ragged_consensus(lv4, **k4_kw))
+    del lv4
+
+    # The imagenet224-pod width: the wide instances, then the preset served.
+    Lp, dp = 12, 1024
+    lv, bu, td = randn(Lp, 8, n, dp), randn(Lp, 8, n, dp), randn(Lp - 1, 8, n, dp)
+    out["k2_pod_b8_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
+    out["k2_pod_b8_stats_ms"] = time_ms(
+        lambda: k2.fused_consensus_update(lv, bu, td, side=16, stats=True))
+    del lv, bu, td
+    lv4, k4_kw = k4_inputs(randn, L=Lp, d=dp)
+    out["k4_pod_ragged32_ms"] = time_ms(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
+    del lv4
+    out.update(serve_pod(dispatches, gen))
 
     cfg = GlomConfig()
     engine = InferenceEngine(
@@ -288,7 +313,7 @@ def child(tree: str, dispatches: int) -> dict:
     return out
 
 
-def k4_inputs(randn):
+def k4_inputs(randn, L=6, d=512):
     """K4's bf16 levels at the flagship's largest ragged signature (32 pages
     of 64 tokens, eight full-resolution rows: every band full) and the
     wrapper's keywords, on the card."""
@@ -297,8 +322,54 @@ def k4_inputs(randn):
     pt, P = 64, 32
     rs = (torch.arange(P * pt, dtype=torch.int32) // 256 * 256).to("cuda")
     rl = torch.full((P * pt,), 256, dtype=torch.int32, device="cuda")
-    return randn(P * pt, 6, 512, scale=2.0), dict(row_start=rs, row_len=rl, window=256,
-                                                   page_tokens=pt)
+    return randn(P * pt, L, d, scale=2.0), dict(row_start=rs, row_len=rl, window=256,
+                                                 page_tokens=pt)
+
+
+def sha256(t) -> str:
+    """The SHA-256 of a tensor's bytes (its bits, not its values)."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def serve_pod(dispatches: int, gen) -> dict:
+    """The imagenet224-pod preset (L = 12, d = 1024) served in bf16 at 12
+    iterations from seed-0 weights: bucket 8 through K2's wide forward and
+    32 pages of eight full rows through K4's wide instance, p50 and min over
+    `dispatches` each (host clock ending in a synchronize)."""
+    import torch
+    from glom_tpu_torch import InferenceEngine, ServeConfig
+    from glom_tpu_torch.models.core import init_glom
+    from glom_tpu_torch.serve import pack_ragged
+    from glom_tpu_torch.utils.presets import get_preset
+
+    cfg = get_preset("imagenet224-pod").model
+    params = init_glom(cfg, generator=torch.Generator().manual_seed(0))
+    out = {}
+    engine = InferenceEngine(cfg, ServeConfig(buckets=(8,), max_batch=8, iters=12,
+                                              compute_dtype="bfloat16", use_pallas=True),
+                             params=params, device="cuda")
+    engine.warmup()
+    lat = sorted(engine.infer(torch.randn(8, 3, 224, 224, generator=gen)).latency_s * 1e3
+                 for _ in range(dispatches))
+    out.update(serve_pod_b8_p50_ms=lat[len(lat) // 2], serve_pod_b8_min_ms=lat[0])
+    del engine
+    ragged = InferenceEngine(
+        cfg, ServeConfig(ragged=True, ragged_attention="banded-pallas", use_pallas=True,
+                         compute_dtype="bfloat16", max_batch=8, iters=12),
+        params=params, device="cuda")
+    ragged.warmup_ragged()
+    lat = []
+    for _ in range(dispatches):
+        imgs = torch.randn(8, 3, 224, 224, generator=gen)
+        flat, n_p = pack_ragged(list(imgs.numpy()), cfg.patch_size, ragged.page_tokens, 32)
+        lat.append(ragged.infer_ragged(flat, n_p).latency_s * 1e3)
+    lat.sort()
+    out.update(serve_pod_ragged32_p50_ms=lat[len(lat) // 2], serve_pod_ragged32_min_ms=lat[0])
+    return out
 
 
 def host_pairs(trees: list, rounds: int) -> dict:

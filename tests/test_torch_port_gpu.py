@@ -232,17 +232,39 @@ def test_grouped_mlp_biases_at_an_allocation_end(dev, G, M, d, f):
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-def test_consensus_update_bf16_rows_do_not_depend_on_batch(dev):
+@pytest.mark.parametrize("d", [512, 1024])
+def test_consensus_update_bf16_rows_do_not_depend_on_batch(dev, d):
     """Image b alone gives the bits it gives inside a batch of 8, and two
-    launches give the same bits."""
+    launches give the same bits; at d = 1024 on the wide instance, whose
+    two-block clusters add each score's two halves once."""
     rng = np.random.default_rng(21)
-    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 6, 8, 256, 512, torch.bfloat16))
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 6, 8, 256, d, torch.bfloat16))
     full = k2.fused_consensus_update(lv, bu, td, side=16, cons=True)
     again = k2.fused_consensus_update(lv, bu, td, side=16, cons=True)
     one = k2.fused_consensus_update(*(t[:, 3:4].contiguous() for t in (lv, bu, td)), side=16,
                                     cons=True)
     for a, b, c in zip(full, again, one):
         assert torch.equal(a, b) and torch.equal(a[:, 3:4], c)
+
+
+@pytest.mark.parametrize("d", [704, 1024])
+def test_consensus_update_bf16_wide_stats_under_radius(dev, d):
+    """The wide instance's m and l (written by the first column block of
+    each cluster) and cons under a radius, attend_self off, against the
+    plain version; the rows past the radius window of each tile are masked
+    in both blocks alike."""
+    rng = np.random.default_rng(23)
+    lv, bu, td = (t.to(dev) for t in _consensus_inputs(rng, 4, 2, 256, d, torch.bfloat16))
+    kw = dict(side=16, radius=3.0, attend_self=False)
+    stats = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
+    got = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
+    for a, b in zip(stats, got):
+        assert torch.equal(a, b)
+    want = k2.consensus_update_plain(lv, bu, td, cons=True, **kw)
+    _close(got[0], want[0], K2_BARS[torch.bfloat16])
+    _close(got[1], want[1], K2_STAT_BARS[torch.bfloat16]["m"])
+    _close(got[2], want[2], K2_STAT_BARS[torch.bfloat16]["l"])
+    _close(got[3], want[3], K2_CONS_BARS[torch.bfloat16])
 
 
 K2_WIDTHS = [64, 128, 384, 576, 640, 704, 768, 1024]
@@ -1102,6 +1124,48 @@ def test_banded_consensus_kernel(dev, dtype, attend_self, pt, d, counts, pages, 
     want = k4.banded_ragged_consensus_plain(lv, **kw)
     for s, e in spans + [(used, lv.shape[0])]:
         _close(got[s:e], want[s:e], k4_bars(dtype, pt, inputs))
+
+
+def test_banded_consensus_wide_row_does_not_depend_on_pages(dev):
+    """"wgmma_wide" (d = 1024): a row's bits alone on its own pages equal
+    its bits among 32 pages, and two launches give the same bits."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    pt, d, counts = 64, 1024, [256, 144, 64, 16, 256, 49, 0, 256, 144, 64, 16, 256, 49, 100, 16]
+    rs, rl, spans, _ = _ragged_maps(counts, 32, pt)
+    lv = _k4_levels(np.random.default_rng(24), 32 * pt, 3, d, "peaked").to(dev, torch.bfloat16)
+    assert k4.k4_instance(lv.dtype, pt, d) == "wgmma_wide"
+    kw = dict(window=256, page_tokens=pt, attend_self=False)
+    full = k4.banded_ragged_consensus(lv, row_start=rs.to(dev), row_len=rl.to(dev), **kw)
+    again = k4.banded_ragged_consensus(lv, row_start=rs.to(dev), row_len=rl.to(dev), **kw)
+    assert torch.equal(full, again)
+    for i in (0, 4, 7):  # full rows of 256: at the start, in the middle, after an empty slot
+        s, e = spans[i]
+        alone = k4.banded_ragged_consensus(
+            lv[s:e].contiguous(), row_start=torch.zeros(e - s, dtype=torch.int32, device=dev),
+            row_len=torch.full((e - s,), counts[i], dtype=torch.int32, device=dev), **kw)
+        assert torch.equal(alone, full[s:e])
+
+
+@pytest.mark.parametrize("inputs", K4_INPUTS)
+def test_banded_consensus_wide_empty_pages_clamped_band(dev, inputs):
+    """"wgmma_wide" (d = 1024) on pages with len_page 0 after the last row,
+    whose band runs past the last page (the clamp): both blocks of each
+    cluster walk the whole masked band, and every row span and the empty
+    pages agree with the plain version."""
+    import glom_tpu_torch.kernels.banded_consensus as k4
+
+    pt, d, pages, counts = 64, 1024, 15, [256, 144, 64, 256, 49]
+    rs, rl, spans, used = _ragged_maps(counts, pages, pt)
+    assert used // pt + 256 // pt > pages and int(rl[used:].max()) == 0
+    lv = _k4_levels(np.random.default_rng(25), pages * pt, 3, d, inputs).to(dev, torch.bfloat16)
+    kw = dict(row_start=rs.to(dev), row_len=rl.to(dev), window=256, page_tokens=pt,
+              attend_self=False)
+    got = k4.banded_ragged_consensus(lv, **kw)
+    torch.cuda.synchronize()
+    want = k4.banded_ragged_consensus_plain(lv, **kw)
+    for s, e in spans + [(used, lv.shape[0])]:
+        _close(got[s:e], want[s:e], k4_bars(torch.bfloat16, pt, inputs))
 
 
 @pytest.mark.parametrize("pt", [64, 128])
