@@ -4795,10 +4795,13 @@ def main() -> int:
 
     def check_bwd(kernel, case, pairs, bar, phase=None):
         """Compare each (name, got, want); record and emit; return the
-        largest max-abs error. A case's `entry_equals_passes`, where it has
-        one, must hold too."""
+        largest max-abs error. A case's `entry_equals_passes`,
+        `bitwise_repeat` and `mirror_bitwise`, where it has them, must hold
+        too."""
         errs = {name: err_over_max(got, want) for name, got, want in pairs}
-        ok = all(r <= bar for _, r in errs.values()) and case.get("entry_equals_passes", True)
+        ok = (all(r <= bar for _, r in errs.values())
+              and all(case.get(k, True) for k in ("entry_equals_passes", "bitwise_repeat",
+                                                   "mirror_bitwise")))
         emit(phase or f"{kernel.lower()}_bwd_vs_plain", **case, bar=bar,
              max_abs_err={k: v[0] for k, v in errs.items()},
              err_over_max={k: v[1] for k, v in errs.items()},
@@ -5274,6 +5277,14 @@ def main() -> int:
     emit("wide_launch", **wide_launch)
     if min(v["max_active_clusters"] for v in wide_launch.values()) < 1:
         failures.append(f"wide launch holds no cluster: {wide_launch}")
+    # K2's wide backward: each pass (dq, dv, dk) a two-block cluster for
+    # each 64 rows; the clusters the card holds at once against those the
+    # pod's calls launch.
+    wide_bwd = k2.wide_bwd_launch()
+    emit("wide_bwd_launch", **wide_bwd,
+         pod_calls={f"b{B}": k2.wide_bwd_grid(Lp, B, n, dp) for B in (2, 8)})
+    if min(wide_bwd["max_active_clusters"].values()) < 1:
+        failures.append(f"wide backward launch holds no cluster: {wide_bwd}")
 
     def mirrored(x):
         h = x[..., :dp // 2]
@@ -5301,33 +5312,47 @@ def main() -> int:
     del lv, bu, td, got, want
 
     # K2 backward, the pair and the combine: peaked levels at global
-    # consensus and radius 3, flat ones in a radius-1 window, the odd width.
+    # consensus and radius 3, flat ones in a radius-1 window, the odd width;
+    # each call made twice (the same bits: nothing is atomic). In bf16 also
+    # on mirrored levels, cotangent and streams ([A, B, B, A] by quarter):
+    # the wide passes' two blocks of a cluster add each score tile's halves
+    # and the dk pass's norm sums once, so the mirrored quarters of dq,
+    # dlevels and dmean, written by different blocks and warpgroups, agree
+    # bit for bit only if both blocks hold the same S, dP and sums.
     for dtype in (bf16, f32):
         dname = "bf16" if dtype == bf16 else "f32"
         bar = BWD_BARS["K2"][dname]
-        for shape, sd, radius, attend_self, kind, combine in (
-            ((Lp, 2, n, dp), side, 0.0, False, "peaked", False),
-            ((Lp, 2, n, dp), side, 3.0, True, "peaked", False),
-            ((Lp, 2, n, dp), side, 1.0, False, "flat", False),
-            ((3, 2, 96, 704), 1, 0.0, False, "peaked", False),
-            ((Lp, 8, n, dp), side, 0.0, False, "peaked", True),
-            ((3, 2, n, 704), side, 1.0, False, "flat", True),
+        for shape, sd, radius, attend_self, kind, combine, mirror in (
+            ((Lp, 2, n, dp), side, 0.0, False, "peaked", False, False),
+            ((Lp, 2, n, dp), side, 3.0, True, "peaked", False, False),
+            ((Lp, 2, n, dp), side, 1.0, False, "flat", False, False),
+            ((3, 2, 96, 704), 1, 0.0, False, "peaked", False, False),
+            ((Lp, 8, n, dp), side, 0.0, False, "peaked", True, False),
+            ((3, 2, n, 704), side, 1.0, False, "flat", True, False),
+            ((Lp, 2, n, dp), side, 0.0, False, "peaked", False, True),
+            ((Lp, 8, n, dp), side, 3.0, False, "peaked", True, True),
         ):
+            if mirror and dtype != bf16:
+                continue
             lv = (consensus_inputs(shape, dtype, g=gen_pod)[0] if kind == "peaked"
                   else randn_pod(*shape, dtype=dtype))
             bu, td = randn_pod(*shape, dtype=dtype), randn_pod(shape[0] - 1, *shape[1:],
                                                                dtype=dtype)
-            kw = dict(side=sd, radius=radius, attend_self=attend_self)
-            _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
             g = randn_pod(*shape, dtype=dtype)
             streams = {}
             if combine:
                 streams = dict(dx_bu=randn_pod(*shape, dtype=dtype),
                                dx_td=randn_pod(shape[0] - 1, *shape[1:], dtype=dtype))
+            if mirror:
+                lv, g = mirrored(lv), mirrored(g)
+                streams = {k_: mirrored(v_) for k_, v_ in streams.items()}
+            kw = dict(side=sd, radius=radius, attend_self=attend_self)
+            _, m, l = k2.fused_consensus_update(lv, bu, td, stats=True, **kw)
             dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=combine, **streams, **kw)
             dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, combine=combine,
                                               **streams, **kw)
             via_entry = k2.consensus_update_bwd(lv, g, m, l, combine=combine, **streams, **kw)
+            again = k2.consensus_update_bwd(lv, g, m, l, combine=combine, **streams, **kw)
             torch.cuda.synchronize()
             want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **streams, **kw)
             want_dlv, want_dmean, parts = k2.consensus_bwd_dkv_plain(
@@ -5335,7 +5360,11 @@ def main() -> int:
             case = dict(shape=list(shape), dtype=str(dtype), radius=radius,
                         attend_self=attend_self, levels=kind, pod_width=True,
                         instance=k2.k2_bwd_instance(dtype, *shape[-2:]),
-                        entry_equals_passes=all(map(torch.equal, via_entry, (dlv, dmean))))
+                        entry_equals_passes=all(map(torch.equal, via_entry, (dlv, dmean))),
+                        bitwise_repeat=all(map(torch.equal, again, via_entry)))
+            if mirror:
+                case.update(mirrored=True, mirror_bitwise=all(
+                    mirror_agrees(t) for t in (dq, dlv, dmean, *via_entry)))
             if combine:
                 allowed = bar * float(want_dmean.float().abs().max())
                 case["term_over_allowed"] = {
@@ -5354,18 +5383,21 @@ def main() -> int:
                             bar, phase="k2_bwd_combine_vs_plain" if combine else None)
             if kind == "peaked" and min(case["term_over_allowed"].values()) <= 1.0:
                 failures.append(f"K2 pod bwd terms too small to check: {case}")
-            if dtype == bf16 and shape[-1] == dp and radius == 0:
+            if dtype == bf16 and shape[-1] == dp and radius == 0 and not mirror:
                 pod_err["k2_bwd_combine" if combine else "k2_bwd"] = err
 
-    # The one-sweep backward at a row that keeps the phase short.
-    for dtype in (bf16, f32):
+    # The one-sweep backward at a row that keeps the phase short (bf16 also
+    # on mirrored levels and cotangent).
+    for dtype, mirror in ((bf16, False), (f32, False), (bf16, True)):
         dname = "bf16" if dtype == bf16 else "f32"
         shape, so = (2, 1, 1024, dp), 32
         lv = consensus_inputs(shape, dtype, g=gen_pod)[0]
         kw = dict(side=so, radius=0.0, attend_self=False)
         bu, td = randn_pod(*shape, dtype=dtype), randn_pod(1, *shape[1:], dtype=dtype)
-        _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
         g = randn_pod(*shape, dtype=dtype)
+        if mirror:
+            lv, g = mirrored(lv), mirrored(g)
+        _, m, l, cons = k2.fused_consensus_update(lv, bu, td, cons=True, **kw)
         got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
         again = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
         torch.cuda.synchronize()
@@ -5375,14 +5407,16 @@ def main() -> int:
         bar = ONESWEEP_BARS[dname]
         mbar = ONESWEEP_MISMATCH_BAR if dtype == bf16 else None
         repeat = bool(torch.equal(got, again))
-        ok = ratio <= bar and (mbar is None or mismatch <= mbar) and repeat
+        agree = mirror_agrees(got) if mirror else None
+        ok = ratio <= bar and (mbar is None or mismatch <= mbar) and repeat and agree is not False
         emit("k2_onesweep_vs_plain", shape=list(shape), dtype=str(dtype), radius=0.0,
-             attend_self=False, levels="peaked", pod_width=True, max_abs_err=abs_err,
+             attend_self=False, levels="peaked", pod_width=True, mirrored=mirror,
+             mirror_bitwise=agree, max_abs_err=abs_err,
              err_over_max=ratio, bar=bar, bar_ratio=ratio / bar, mismatch_share=mismatch,
              mismatch_bar=mbar, mismatch_bar_ratio=None if mbar is None else mismatch / mbar,
              bitwise_repeat=repeat, ok=ok)
         if not ok:
-            failures.append(f"K2 pod one-sweep {dtype}")
+            failures.append(f"K2 pod one-sweep {dtype} mirrored={mirror}")
 
     # K4 at the pod width's 32-page signature (d = 1024) and at d = 768:
     # "wgmma_wide" in bf16, "fma" with 16-row blocks in f32, flat and peaked.
@@ -5979,6 +6013,57 @@ def main() -> int:
                       library_seq_ms=k1_seq_bwd_ms(params, x, g),
                       library_seq_call=k1_seq_bwd_call, **k1_bwd_profile(k1_pod_bwd))
     del x, g, pre
+    # The pod loop's combined K1 grid (2 Lp - 1 = 23 groups of [Mp, dp], f =
+    # 4 dp): the forward with its saved pre, the pre-only launch of remat
+    # and the accumulating backward, 7 of each a loop step. Bytes as the
+    # flagship's rows above.
+    Gp = 2 * Lp - 1
+    wcat_p = k1.cat_params(pod_params["top_down"], pod_params["bottom_up"])
+    carry_p = randn_pod(Lp + 1, Mp, dp, dtype=bf16)
+    add_p = pod_pos.to(dev, bf16)
+    pre_p = k1.fused_grouped_ffw_lm(wcat_p, carry_p, add=add_p, save_pre=True, cat=True)[1]
+    dmean_p = randn_pod(Lp, Mp, dp, dtype=bf16)
+    acc_p = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat_p))
+    da_p = torch.zeros(n, dp, device=dev)
+    x_cat_p = torch.cat([(carry_p[2:].view(Lp - 1, -1, n, dp) + add_p).view(Lp - 1, Mp, dp),
+                         carry_p[:Lp]])
+    carry_bytes_p = 2 * (Lp + 1) * Mp * dp
+    w_bytes_p = 2 * (2 * Gp * dp * fp + Gp * (fp + dp))
+    for label, run, plain, ops, nbytes in (
+        ("k1_fwd_cat_pod_b8",
+         lambda: k1.fused_grouped_ffw_lm(wcat_p, carry_p, add=add_p, save_pre=True, cat=True),
+         lambda: k1.grouped_mlp_plain(wcat_p, carry_p, add_p, save_pre=True, cat=True),
+         4 * Gp * Mp * dp * fp,
+         carry_bytes_p + w_bytes_p + 2 * n * dp + 2 * Gp * Mp * (dp + fp)),
+        ("k1_pre_cat_pod_b8", lambda: k1.grouped_mlp_pre(wcat_p, carry_p, add=add_p, cat=True),
+         lambda: k1.grouped_mlp_pre_plain(wcat_p, carry_p, add_p, cat=True),
+         2 * Gp * Mp * dp * fp,
+         carry_bytes_p + 2 * (Gp * dp * fp + Gp * fp + n * dp + Gp * Mp * fp)),
+        ("k1_bwd_acc_cat_pod_b8",
+         lambda: k1.grouped_mlp_bwd(wcat_p, carry_p, dmean_p, add=add_p, pre=pre_p, acc=acc_p,
+                                    da_in=da_p, cat=True),
+         lambda: k1.grouped_mlp_bwd_plain(wcat_p, carry_p, dmean_p, add_p, pre_p, acc_p, da_p,
+                                          cat=True),
+         8 * Gp * Mp * dp * fp,
+         carry_bytes_p + 2 * (Gp * Mp * fp + Lp * Mp * dp + 2 * Gp * dp * fp + n * dp
+                              + Gp * Mp * dp) + 4 * 2 * (2 * Gp * dp * fp + Gp * (fp + dp)
+                                                         + n * dp)),
+    ):
+        if label == "k1_fwd_cat_pod_b8":
+            lib = dict(library_seq_ms=time_ms(lambda: k1_library_seq(wcat_p, x_cat_p)),
+                       library_seq_call=k1_seq_call + ", over the 23 groups' concatenated input")
+        elif label == "k1_pre_cat_pod_b8":
+            lib = dict(library_ms=time_ms(lambda: torch.baddbmm(wcat_p.b1[:, None], x_cat_p,
+                                                                 wcat_p.w1)),
+                       library_call="torch.baddbmm over the 23 groups after x + tile(add)")
+        else:
+            lib = dict(library_seq_ms=k1_seq_bwd_ms(wcat_p, x_cat_p,
+                                                    torch.cat([dmean_p[:Lp - 1], dmean_p])),
+                       library_seq_call=k1_seq_bwd_call + ", over the 23 groups",
+                       **k1_bwd_profile(run))
+        record_timing(label, [Gp, Mp, dp], time_ms(run), time_ms(plain, reps=5), ops, nbytes,
+                      **lib)
+    del wcat_p, carry_p, pre_p, dmean_p, acc_p, da_p, x_cat_p
     lv = consensus_inputs((Lp, 8, n, dp), bf16, g=gen_pod)[0]
     bu, td = randn_pod(Lp, 8, n, dp, dtype=bf16), randn_pod(Lp - 1, 8, n, dp, dtype=bf16)
     q_s, k_s, v_s = k2_qkv(lv)
@@ -6010,14 +6095,41 @@ def main() -> int:
             return k2.consensus_update_bwd(lv_t, g_t, m_t, l_t, **kw)
         # The single-tile form's five products; bytes: levels, g (and the
         # two streams), m, l read, dlevels and dmean written.
+        # Products a pair: the bound's five, the design's ten (S and dP
+        # twice, dq; S, dv; S, dP, dk), each computed once a cluster.
         record_timing(label, [Lp, B_t, n, dp], time_ms(k2_pod_bwd),
                       time_ms(lambda: k2.consensus_update_bwd_plain(lv_t, g_t, m_t, l_t,
                                                                     **plain_kw)),
                       5 * 2 * Lp * B_t * n * n * dp,
                       2 * (4 + (2 if streams else 0)) * elems + 4 * 2 * Lp * B_t * n,
                       library_ms=lib_ms, library_call=k2_lib_bwd_call,
+                      products=dict(bound=5, design=10, executed=10),
                       **bwd_kernels(k2_pod_bwd, lv_t))
     del lv, bu, td, q_s, k_s, v_s
+    # The one-sweep backward at the pod width (the long-row form, at the
+    # row the pod phases check it on): eight products, each once.
+    ow_shape = (2, 1, 1024, dp)
+    lv_o = consensus_inputs(ow_shape, bf16, g=gen_pod)[0]
+    _, m_o, l_o, cons_o = k2.fused_consensus_update(lv_o, lv_o, lv_o[1:], side=32, cons=True)
+    g_o = randn_pod(*ow_shape, dtype=bf16)
+    q_o, k_o, v_o = (t.clone().requires_grad_() for t in k2_qkv(lv_o))
+    att_o = sdpa(q_o, k_o, v_o)
+    lib_ms = time_ms(lambda: torch.autograd.grad(att_o, (q_o, k_o, v_o),
+                                                 grad_outputs=g_o.reshape(2, 1, 1024, dp),
+                                                 retain_graph=True))
+    del att_o
+
+    def onesweep_pod():
+        return k2.consensus_bwd_onesweep(lv_o, g_o, m_o, l_o, cons_o, side=32)
+    elems_o = 2 * 1024 * dp
+    record_timing("k2_bwd_onesweep_pod_width", list(ow_shape), time_ms(onesweep_pod),
+                  time_ms(lambda: k2.consensus_bwd_onesweep_plain(lv_o, g_o, m_o, l_o, cons_o,
+                                                                  side=32)),
+                  5 * 2 * 2 * 1024 * 1024 * dp, 2 * 4 * elems_o + 4 * 2 * 2 * 1024,
+                  library_ms=lib_ms, library_call=k2_lib_bwd_call,
+                  products=dict(bound=5, design=8, executed=8),
+                  **bwd_kernels(onesweep_pod, lv_o))
+    del lv_o, g_o, m_o, l_o, cons_o, q_o, k_o, v_o
     counts_full = [256] * 8
     maps, _, used = ragged_maps(counts_full, P_sig, pt, dev)
     lv = randn_pod(P_sig * pt, Lp, dp, dtype=bf16, scale=2.0)

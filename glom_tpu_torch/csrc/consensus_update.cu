@@ -286,10 +286,6 @@ constexpr int BOX_BYTES = sm90::ATTN_BOX;
 constexpr int NC = sm90::ATTN_NC;  // a warpgroup's 64-column chunks; a block's 2 NC
 constexpr int MAX_D = sm90::ATTN_MAX_D;  // the wide instance past sm90::ATTN_NARROW_D
 
-__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
-}
-
 // The wide instance's epilogue operands: bu and td as wide_map maps (2
 // chunks x 64 rows a box), loaded into the freed k and v as the key loop
 // ends. Unused (zero) in the narrow instance.
@@ -377,8 +373,8 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
     if (threadIdx.x == 0) {  // the epilogue's bu and td rows into L2 meanwhile
       const size_t row0 = (size_t)z * n + i0;
       const uint32_t bytes = (uint32_t)(min(ROWS, n - i0) * d * 2);
-      prefetch_l2(bu + row0 * d, bytes);
-      if (g < L - 1) prefetch_l2(td + row0 * d, bytes);
+      sm90::prefetch_l2(bu + row0 * d, bytes);
+      if (g < L - 1) sm90::prefetch_l2(td + row0 * d, bytes);
     }
     const int row0 = win.j_lo * KEYS;  // key tile it's first row: row0 + KEYS it
     // Pair `pair` of the warpgroup's chunks of bu and td: [bu 2 chunks][td 2 chunks].
@@ -446,8 +442,8 @@ consensus_update_kernel_bf16(const __grid_constant__ CUtensorMap lv_map,
       // The epilogue's bu and td rows into L2 meanwhile.
       const size_t row0 = (size_t)z * n + i0;
       const uint32_t bytes = (uint32_t)(min(ROWS, n - i0) * d * 2);
-      prefetch_l2(bu + row0 * d, bytes);
-      if (g < L - 1) prefetch_l2(td + row0 * d, bytes);
+      sm90::prefetch_l2(bu + row0 * d, bytes);
+      if (g < L - 1) sm90::prefetch_l2(td + row0 * d, bytes);
     }
     sm90::attn_key_loop(o, m_a, m_b, l_a, l_b, qs, ks, vs, q_full, k_full, v_full, tiles, d,
                         scale, [&](int it) { load_k(win.j_lo + it); },
@@ -583,18 +579,6 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, int d, int n, int slots)
   return sm90::cached_map(map, ptr, dims, strides, box);
 }
 
-// A [slots, n, d] bf16 tensor as a 4-D map {64, n, d / 64, slots} (a
-// column within its 64-column chunk, the row, the chunk, the slot) whose
-// box is `chunks` chunks x `rows` rows: one load lands them as `chunks`
-// swizzled 64-column boxes (cached).
-cudaError_t wide_map(CUtensorMap* map, const void* ptr, int d, int n, int slots, int rows,
-                     int chunks) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)d / 64, (cuuint64_t)slots};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, 128, (cuuint64_t)d * n * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, (cuuint32_t)chunks, 1};
-  return sm90::cached_map(map, ptr, dims, strides, box);
-}
-
 // The pre-pass and the main kernel (the wide instance past ATTN_NARROW_D).
 template <bool SAVE_CONS, bool WIDE>
 int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float* m_out,
@@ -604,9 +588,9 @@ int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float
   cudaError_t err = sm90::lift_smem_cap(consensus_update_kernel_bf16<SAVE_CONS, WIDE>, lifted);
   CUtensorMap lv_map, k_map;
   if constexpr (WIDE) {
-    if (err == cudaSuccess) err = wide_map(&lv_map, lv, d, n, L * B, KEYS, NC);
+    if (err == cudaSuccess) err = sm90::wide_map(&lv_map, lv, d, n, L * B, KEYS, NC);
     if (err == cudaSuccess)
-      err = wide_map(&k_map, khat, d, n, L * B, sm90::PAIR_KEYS, sm90::PAIR_BOXES);
+      err = sm90::wide_map(&k_map, khat, d, n, L * B, sm90::PAIR_KEYS, sm90::PAIR_BOXES);
   } else {
     if (err == cudaSuccess) err = tile_map(&lv_map, lv, d, n, L * B);
     if (err == cudaSuccess) err = tile_map(&k_map, khat, d, n, L * B);
@@ -617,8 +601,8 @@ int launch_bf16(const bf16* lv, const bf16* bu, const bf16* td, bf16* out, float
   const dim3 grid((n + ROWS - 1) / ROWS, (d / 64 + 2 * NC - 1) / (2 * NC), L * B);
   EpilogueMaps epi = {};
   if constexpr (WIDE) {
-    err = wide_map(&epi.bu, bu, d, n, L * B, KEYS, 2);
-    if (err == cudaSuccess) err = wide_map(&epi.td, td, d, n, (L - 1) * B, KEYS, 2);
+    err = sm90::wide_map(&epi.bu, bu, d, n, L * B, KEYS, 2);
+    if (err == cudaSuccess) err = sm90::wide_map(&epi.td, td, d, n, (L - 1) * B, KEYS, 2);
     if (err != cudaSuccess) return (int)err;
     return (int)sm90::launch_pair(consensus_update_kernel_bf16<SAVE_CONS, true>, grid, 1, stream,
                                   lv_map, k_map, epi, bu, td, out, m_out, l_out, cons_out, L, B,

@@ -92,10 +92,11 @@
 //     cores run 17 (two-pass) or 13 (one-sweep) products' worth, where the
 //     TPU kernels need five.
 //   * "wgmma_wide", bf16 at 640 < d <= 1024 (glom_tpu's imagenet224-pod
-//     width), the same products on a layout that streams the contraction
-//     over d (see "the wide instance" below): a block owns one 512-column
-//     group of its output, dv and dk come out in f32, and a finishing pass
-//     a row applies the norm VJP;
+//     width), the same pre-pass and passes with each 64 rows a cluster of
+//     two blocks, block g holding columns 512 g .. 512 g + 511 of d (see
+//     "the wide instance" below): the pair adds each score tile's two
+//     halves once, so the tensor cores run the design's ten (eight)
+//     products, and the dk pass applies the norm VJP and writes dlevels;
 //   * "fma", f32, the parity instance, on the CUDA cores: the dq pass
 //     streams 16-key tiles twice (dd, then ds and dq += ds . k in shared
 //     memory), normalising each tile's keys as it loads them; the dkv pass
@@ -1352,78 +1353,96 @@ consensus_bwd_dk_sm90(const __grid_constant__ CUtensorMap kj_map,
 // ---- the wide instance (640 < d <= 1024)
 //
 // At glom_tpu's imagenet224-pod width (d = 1024) the resident operands of
-// the passes above no longer fit: the dq pass's Q and dcons tiles alone are
-// 256 KB, and a block's f32 sums of 64 rows x d would take all 255
-// registers a thread. So a wide block owns 64 rows and one group of up to
-// 512 output columns (a grid dimension, as the forward's column groups),
-// and streams the contraction of its scores over d, a 64-column box at a
-// time: box step b (tile b / boxes, box b % boxes) fills stage b %
-// WIDE_RING of a ring with the box of each A operand (64 rows) and each B
-// operand (NT rows), released through named barrier 1 + stage. Each tile's
-// accumulating product reads the group's columns of its streamed operand
-// from a two-stage group ring (named barriers 5 and 6). Every group
-// recomputes the tile's scores. The key side writes f32 dv and f32 dk (the
-// norm VJP needs the whole row), and a finishing pass, a warp a row,
-// applies the norm VJP and writes dlevels (and dmean).
+// the passes above no longer fit a block (the dq pass's Q and dcons tiles
+// alone are 256 KB), and a block's f32 sums of 64 rows x d would take all
+// 255 registers a thread. So each pass runs each 64 rows (queries in the dq
+// pass, keys in the dv and dk passes) as a cluster of two blocks, as the
+// wide forward does (sm90_attn.cuh:attn_pair_loop): block g, its rank,
+// holds columns 512 g .. 512 g + 511 of every operand (at d = 704 rank 1
+// holds three 64-column boxes; the rest load as zeros), both as its share
+// of the scores' contraction and as its share of the output's columns. A
+// block holds two resident operands A1 and A2 (its 64 rows, 64 KB each) and
+// streams two tiles B1 and B2 (32 rows, 32 KB each, one stage); per tile:
+//
+//   the dq pass:  S = Q . k^T (A1 . B1^T), dP = dcons . v^T (A2 . B2^T),
+//                 dq += ds . k (B1);
+//   the dv pass:  S^T = k_j . Q^T (A1 . B1^T), dv += p^T . dcons (B2);
+//   the dk pass:  S^T, dP^T = v_j . dcons^T (A2 . B2^T), dk += ds^T . Q (B1).
+//
+// Each score tile is computed once a cluster and sweep:
+//   - in the dq and dk passes warpgroup 0 computes the block's partial S
+//     and warpgroup 1 its partial dP (wgmma m64n32k16 over the block's
+//     boxes, one instruction stream on operand addresses that depend on
+//     the warpgroup); each adds the peer block's same partial after an
+//     st.async exchange (sm90::pair_exchange, rank 0's half first);
+//     warpgroup 0 turns S into p; the warpgroups swap p and dP through
+//     `xq` (named barrier 1), so all four warpgroups of the pair hold the
+//     same p, dP, D and ds, bit for bit;
+//   - in the dv pass warpgroup w sums S^T over the block's boxes 4 w .. 4 w
+//     + 3, the warpgroups add their halves (warpgroup 0's first) through
+//     `xq`, and the pair adds the two blocks' sums;
+//   - each warpgroup accumulates its four 64-column chunks of the block's
+//     output (m64n64k16 with the rounded ds or p^T as the register A
+//     operand, B the streamed tile's chunks, MN-major).
+// The two-pass forms compute ten products a pair (S and dP twice; S, dP,
+// dq; S, dv; S, dP, dk), the one-sweep form eight, each once.
+//
+// The dk pass applies the norm VJP in its epilogue: each block sums its
+// half of every key row's kx and xx (warpgroup 0's chunks first), the pair
+// swaps the halves through distributed shared memory (rank 0's first), and
+// the block writes the complete bf16 dlevels (and dmean) of its columns
+// from the staged dxn, f32 dq and dv and the cotangent (the combine's
+// streams): no f32 dk reaches device memory.
+//
+// Loads (4-D TMA boxes, sm90::wide_map: a resident operand as two boxes of
+// 64 rows x 4 chunks, a streamed tile as one of 32 rows x 8 chunks): thread
+// 0 loads the resident operands and B1, thread 128 loads B2, each refill as
+// soon as the tile's last reader is done with it: B1 after the S product
+// in the dq pass's first sweep and in the dv pass, after both warpgroups'
+// accumulating products in the dq pass's second sweep and the dk pass
+// (named barrier NB_B1); B2 after warpgroup 1's dP product in the dq and
+// dk passes, after both accumulating products in the dv pass (NB_B2).
 
-constexpr int WIDE_NT = 32;                               // rows of a streamed tile
-constexpr int WIDE_NC = 4;                                // a warpgroup's chunks of the group
-constexpr int WIDE_RING = 4;                              // box stages
-constexpr int WIDE_TBOX = WIDE_NT * 128;                  // an NT-row box
-constexpr int WIDE_GROUP = 2 * WIDE_NC * WIDE_TBOX;       // a tile's group boxes
-constexpr int MAX_D = 1024;  // the wide instance's widest row
+constexpr int WIDE_NT = sm90::PAIR_KEYS;  // rows of a streamed tile: S is m64n32
+constexpr int WIDE_NC = sm90::ATTN_NC;    // a warpgroup's chunks of its block's columns
+constexpr int WIDE_ACC = sm90::ACC32;     // f32 sums a thread holds for m64n32
+constexpr int MAX_D = 1024;               // the wide instance's widest row
 
-// Ring stages at 0 (each: NP A boxes, then NP B boxes), two group stages,
-// the barriers full[WIDE_RING], gfull[2].
-template <int NP>
+// Shared memory from a 1024-byte-aligned base: A1, A2 (PAIR_BOXES boxes
+// each), B1, B2 (one 4-D box each), then xs, the peer's partial for each
+// warpgroup ([2][4][128] float4: thread t's sums 4i .. 4i + 3 at [w][i][t]),
+// and xq, each warpgroup's half for the other ([2][4][128] float4), then the
+// barriers. The dk pass's epilogue stages dxn ([64][512 + 8] f32) over A1,
+// A2 and B1, and its row sums over xq and xs.
 struct WideSmem {
-  static constexpr int STAGE = NP * (RBOX + WIDE_TBOX);
-  static constexpr int GROUP_OFF = WIDE_RING * STAGE;
-  static constexpr int BAR_OFF = GROUP_OFF + 2 * WIDE_GROUP;
-  static constexpr int BYTES = 1024 + BAR_OFF + (WIDE_RING + 2) * 8;
+  static constexpr int A_BYTES = sm90::PAIR_BOXES * RBOX;
+  static constexpr int B_BYTES = sm90::PAIR_KTILE;
+  static constexpr int B_OFF = 2 * A_BYTES;
+  static constexpr int XS_OFF = B_OFF + 2 * B_BYTES;
+  static constexpr int XQ_OFF = XS_OFF + 2 * 4 * 128 * 16;
+  static constexpr int BAR_OFF = XQ_OFF + 2 * 4 * 128 * 16;
+  // a_full; b_full [2]; s_full [2]; s_empty [2].
+  static constexpr int A_FULL = 0, B_FULL = 1, S_FULL = 3, S_EMPTY = 5, BARS = 7;
+  static constexpr int BYTES = 1024 + BAR_OFF + BARS * 8;
+  static constexpr int STAGE_PITCH = sm90::PAIR_BOXES * 64 + 8;  // floats a staged dxn row
 };
+static_assert(WideSmem::BYTES <= 232448, "the wide passes fit a block's shared memory");
+static_assert(ROWS * WideSmem::STAGE_PITCH * 4 <= WideSmem::XS_OFF,
+              "the dk epilogue's staging stays clear of the row sums");
 
-__host__ __device__ constexpr int wide_groups(int d) {
-  return (d / 64 + 2 * WIDE_NC - 1) / (2 * WIDE_NC);
+// Named barriers: the warpgroups' swap through xq; warpgroup w has read the
+// peer's sums (the dv pass, its 128 threads); the other warpgroup has read
+// xq[w]; B1 and B2 free; the dk pass's products all retired.
+constexpr int NB_X = 1, NB_PEER = 2, NB_FREE = 4, NB_B1 = 6, NB_B2 = 7, NB_END = 8;
+
+enum WidePass { PASS_DQ, PASS_DV, PASS_DK };
+
+inline dim3 wide_grid(int n, int slots) {
+  return dim3((n + ROWS - 1) / ROWS, sm90::PAIR_CLUSTER, slots);
 }
 
-// acc0 (and acc1) [64 x NT] of tile u, summed over d through the box ring:
-// acc_p = A_p . B_p^T. `load(b)` issues box step b into its stage (thread
-// 0, once both warpgroups are past step b - WIDE_RING).
-template <int NP, class Load>
-__device__ __forceinline__ void wide_scores(float (&acc0)[WIDE_NT / 2],
-                                            float (&acc1)[WIDE_NT / 2], int u, int boxes,
-                                            int steps, uint32_t ring, uint64_t* full, int w,
-                                            bool loader, const Load& load) {
-  using S = WideSmem<NP>;
-#pragma unroll
-  for (int i = 0; i < WIDE_NT / 2; ++i) acc0[i] = acc1[i] = 0.0f;
-  for (int c = 0; c < boxes; ++c) {
-    const int b = u * boxes + c, s = b % WIDE_RING;
-    const uint32_t st = ring + s * S::STAGE;
-    sm90::mbar_wait(full + s, (b / WIDE_RING) & 1);
-    sm90::fence_acc(acc0);
-    sm90::fence_acc(acc1);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_ss<WIDE_NT>(acc0, sm90::smem_desc(st + kk * 32, 16, 1024),
-                        sm90::smem_desc(st + NP * RBOX + kk * 32, 16, 1024));
-      if constexpr (NP == 2)
-        wgmma_ss<WIDE_NT>(acc1, sm90::smem_desc(st + RBOX + kk * 32, 16, 1024),
-                          sm90::smem_desc(st + 2 * RBOX + WIDE_TBOX + kk * 32, 16, 1024));
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_acc(acc0);
-    sm90::fence_acc(acc1);
-    named_pass(1 + s, w);
-    if (loader && b + WIDE_RING < steps) load(b + WIDE_RING);
-  }
-}
-
-// f32 [64 rows x the group's chunks] of a warpgroup's sums into out (row
-// stride d), times `mul`; rows past n are not stored.
+// f32 [64 rows x the warpgroup's chunks] of a warpgroup's sums into out
+// (row stride d), times `mul`; rows past n and chunks past d are not stored.
 __device__ __forceinline__ void wide_store(const float (&acc)[WIDE_NC][sm90::ACC64], float* out,
                                            size_t row_a, bool ok_a, bool ok_b, int chunk0,
                                            int boxes, int w, int cq, int d, float mul) {
@@ -1444,10 +1463,422 @@ __device__ __forceinline__ void wide_store(const float (&acc)[WIDE_NC][sm90::ACC
   }
 }
 
-// Grid: (query blocks of 64, column groups, L * B). The dq pass of the
-// passes above on the wide layout: A operands q, dcons (64-row maps), B
-// operands khat, levels (NT-row maps); the group ring holds khat's group
-// columns. Writes f32 dq of the group, and dd (group 0).
+// One wide pass, run by both blocks of each cluster (grid wide_grid: 64-row
+// blocks, the pair along y, L * B slots). The maps are the kernels' own
+// __grid_constant__ parameters (below): a1_map, a2_map with a box of 64
+// rows x 4 chunks, b1_map, b2_map with one of 32 rows x 8 chunks. The dq
+// pass writes f32 dq of the block's columns (out) and dd (rank 0; the
+// one-sweep form reads D from dd); the dv pass f32 dv (out); the dk pass
+// dlevels (and dmean) of the block's columns.
+template <int PASS>
+__device__ __forceinline__ void wide_pass(
+    const CUtensorMap& a1_map, const CUtensorMap& a2_map, const CUtensorMap& b1_map,
+    const CUtensorMap& b2_map, const float* __restrict__ m_in, const float* __restrict__ l_in,
+    float* __restrict__ dd, float* __restrict__ out, const float* __restrict__ dq_in,
+    const float* __restrict__ dv_in, const bf16* __restrict__ gout,
+    const bf16* __restrict__ dx_bu, const bf16* __restrict__ dx_td, bf16* __restrict__ dlv_out,
+    bf16* __restrict__ dmean_out, int onesweep, int L, int B, int n, int d, int side, int reach,
+    float r2, int attend_self, float scale) {
+  constexpr bool DQ = PASS == PASS_DQ, DV = PASS == PASS_DV, DK = PASS == PASS_DK;
+  constexpr int NT = WIDE_NT, ACC = WIDE_ACC, NC = WIDE_NC;
+  using S = WideSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
+  const bool loader = t == 0;  // thread 0: A and B1; thread 128: B2
+  uint64_t* a_full = bars + S::A_FULL;
+  uint64_t* b_full = bars + S::B_FULL;
+  uint64_t* s_full = bars + S::S_FULL + w;
+  uint64_t* s_empty = bars + S::S_EMPTY + w;
+  const uint32_t rank = sm90::cluster_rank();  // == blockIdx.y: the cluster spans y
+  const int r0 = blockIdx.x * ROWS, z = blockIdx.z;
+  const int boxes = d / 64, chunk0 = sm90::PAIR_BOXES * (int)rank;
+  const int nb = min(sm90::PAIR_BOXES, boxes - chunk0);  // the block's boxes of d
+  const size_t zn = (size_t)z * n;
+  int lo, hi;
+  window(r0, ROWS, NT, n / NT, reach, lo, hi);
+  const int tiles = hi - lo;
+  const int total = (DQ && !onesweep ? 2 : 1) * tiles;  // tiles over both sweeps
+  const int first_acc = total - tiles;  // the first tile with an accumulating product
+
+  // Tile u's B1 (k = 0) or B2 (k = 1): the block's columns of 32 rows.
+  auto load_b = [&](int k, int u) {
+    sm90::mbar_expect_tx(b_full + k, S::B_BYTES);
+    sm90::tma_load_4d(smem + S::B_OFF + k * S::B_BYTES, k ? &b2_map : &b1_map, 0,
+                      (lo + u % tiles) * NT, chunk0, z, b_full + k);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::BARS; ++i) sm90::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader) {
+    if (w == 0) {
+      constexpr int A = DV ? 1 : 2;  // the dv pass holds A1 only
+      sm90::mbar_expect_tx(a_full, A * S::A_BYTES);
+      for (int k = 0; k < A; ++k)
+        for (int h = 0; h < 2; ++h)
+          sm90::tma_load_4d(smem + k * S::A_BYTES + h * NC * RBOX, k ? &a2_map : &a1_map, 0, r0,
+                            chunk0 + NC * h, z, a_full);
+    }
+    load_b(w, 0);
+  }
+  sm90::cluster_sync();  // both blocks' barriers are set up
+
+  // The thread's two rows (wgmma's accumulator fragment) and column pairs;
+  // rows past n (the last block of an n = 32 x odd row) are zeros and are
+  // not stored. The dq pass's row statistics (m = 0, l = 1 past n).
+  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
+  const int row_a = r0 + r_a, row_b = r0 + r_b;
+  const bool ok_a = row_a < n, ok_b = row_b < n;
+  float m_a = 0.0f, m_b = 0.0f, l_a = 1.0f, l_b = 1.0f, D_a = 0.0f, D_b = 0.0f;
+  if constexpr (DQ) {
+    if (ok_a) m_a = m_in[zn + row_a], l_a = l_in[zn + row_a];
+    if (ok_b) m_b = m_in[zn + row_b], l_b = l_in[zn + row_b];
+    if (onesweep) {
+      D_a = ok_a ? dd[zn + row_a] : 0.0f;
+      D_b = ok_b ? dd[zn + row_b] : 0.0f;
+    }
+  }
+  const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
+  const float4* xs = reinterpret_cast<const float4*>(smem + S::XS_OFF) + w * 4 * 128 + t;
+  const uint32_t xs_peer = sm90::cluster_addr(sm90::smem_u32(xs), rank ^ 1);
+  const uint32_t s_full_peer = sm90::cluster_addr(sm90::smem_u32(s_full), rank ^ 1);
+  const uint32_t s_empty_peer = sm90::cluster_addr(sm90::smem_u32(s_empty), rank ^ 1);
+  float4* xq = reinterpret_cast<float4*>(smem + S::XQ_OFF);
+  float acc[NC][sm90::ACC64];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
+  // The warpgroup's score operands: A_{w+1} . B_{w+1}^T over the block's
+  // boxes (dq, dk), or boxes 4 w .. 4 w + 3 of A1 . B1^T (dv); and the B of
+  // its accumulating product: its chunks of B1 (dq, dk) or B2 (dv).
+  const uint32_t base = sm90::smem_u32(smem);
+  const uint32_t sa = base + (DV ? w * NC * RBOX : w * S::A_BYTES);
+  const uint32_t sb = base + S::B_OFF + (DV ? w * NC * sm90::PAIR_KBOX : w * S::B_BYTES);
+  const int score_boxes = DV ? NC : nb;
+  const uint32_t ab = base + S::B_OFF + (DV ? S::B_BYTES : 0) + w * NC * sm90::PAIR_KBOX;
+
+  // Write the warpgroup's 16 sums into xq[w] (once the other warpgroup has
+  // read the previous ones), swap, and return the other's in o.
+  auto swap = [&](const float (&s)[ACC], float (&o)[ACC], int u) {
+    if (u > 0) sm90::named_barrier_sync(NB_FREE + w, WG_THREADS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xq[(w * 4 + i) * 128 + t] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+    sm90::named_barrier_sync(NB_X, WG_THREADS);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = xq[((w ^ 1) * 4 + i) * 128 + t];
+      o[4 * i] = v.x, o[4 * i + 1] = v.y, o[4 * i + 2] = v.z, o[4 * i + 3] = v.w;
+    }
+    if (u + 1 < total) sm90::named_barrier_arrive(NB_FREE + (w ^ 1), WG_THREADS);
+  };
+
+  sm90::mbar_wait(a_full, 0);
+  for (int u = 0; u < total; ++u) {
+    const int c0 = (lo + u % tiles) * NT;  // the tile's first key (dq) or query (dv, dk)
+    const bool acc_tile = u >= first_acc, last = u + 1 == total;
+    const bool diag = !attend_self && c0 < r0 + ROWS && r0 < c0 + NT;
+    ColStats<NT> cs;
+    if constexpr (!DQ) cs.load(m_in, l_in, DK ? dd : nullptr, zn + c0, cq);
+    float sc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) sc[i] = 0.0f;
+    sm90::mbar_wait(b_full + (DV ? 0 : w), u & 1);
+    sm90::fence_acc(sc);
+    sm90::wgmma_fence();
+    for (int c = 0; c < score_boxes; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_m64n32k16_ss(sc, sm90::smem_desc(sa + c * RBOX + kk * 32, 16, 1024),
+                                 sm90::smem_desc(sb + c * sm90::PAIR_KBOX + kk * 32, 16, 1024));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_acc(sc);
+
+    uint32_t a[NT / 4];  // the accumulating product's A: ds or p^T, rounded
+    if constexpr (DV) {
+      float o[ACC];
+      swap(sc, o, u);  // the block's S^T: warpgroup 0's boxes first
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) sc[i] = __fadd_rn(w == 0 ? sc[i] : o[i], w == 0 ? o[i] : sc[i]);
+      if (threadIdx.x == 0 && !last) load_b(0, u + 1);  // both S^T products have retired
+      sm90::pair_exchange(sc, xs, xs_peer, s_full, s_full_peer, s_empty, u, rank, loader);
+      if (!last) {  // the warpgroup's slot is read: free it in the peer
+        sm90::named_barrier_sync(NB_PEER + w, 128);
+        if (loader) sm90::mbar_arrive_cluster(s_empty_peer);
+      }
+      key_probs<NT>(sc, cs, row_a, r0, c0, cq, attend_self, side, reach, r2, scale);
+      pack_rows<NT>(sc, a);  // p^T rounded: the diagonal keeps its p
+    } else {
+      // B2 is free once warpgroup 1's dP has retired; B1 once the dq pass's
+      // first-sweep S has.
+      if (loader && !last && (w == 1 || !acc_tile)) load_b(w, u + 1);
+      sm90::pair_exchange(sc, xs, xs_peer, s_full, s_full_peer, s_empty, u, rank, loader);
+      if (w == 0) {  // S -> p, scaled and masked
+        if constexpr (DQ) {
+#pragma unroll
+          for (int i = 0; i < ACC; ++i) sc[i] = __fmul_rn(sc[i], scale);
+          if (diag || reach > 0) mask_tile<NT>(sc, row_a, c0, cq, diag, side, reach, r2);
+#pragma unroll
+          for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              sc[4 * jj + e] = prob(sc[4 * jj + e], m_a, l_a, inv_a);
+              sc[4 * jj + 2 + e] = prob(sc[4 * jj + 2 + e], m_b, l_b, inv_b);
+            }
+          }
+        } else {
+          key_probs<NT>(sc, cs, row_a, r0, c0, cq, attend_self, side, reach, r2, scale);
+        }
+      }
+      float o[ACC];
+      swap(sc, o, u);
+      // Both warpgroups are past the peer's sums (read before NB_X).
+      if (loader && !last) sm90::mbar_arrive_cluster(s_empty_peer);
+      float p[ACC], dp[ACC];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        p[i] = w == 0 ? sc[i] : o[i];
+        dp[i] = w == 0 ? o[i] : sc[i];
+      }
+      if (!acc_tile) {  // the dq pass's first sweep: dd = sum_j p dP
+#pragma unroll
+        for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            D_a = fmaf(p[4 * jj + e], dp[4 * jj + e], D_a);
+            D_b = fmaf(p[4 * jj + 2 + e], dp[4 * jj + 2 + e], D_b);
+          }
+        }
+        if (u + 1 == first_acc) {  // a row's four threads hold its sums
+#pragma unroll
+          for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+            D_a = __fadd_rn(D_a, __shfl_xor_sync(0xffffffffu, D_a, o2));
+            D_b = __fadd_rn(D_b, __shfl_xor_sync(0xffffffffu, D_b, o2));
+          }
+        }
+        continue;
+      }
+      // ds = p (dP - D), 0 on the diagonal without attend_self.
+#pragma unroll
+      for (int jj = 0; jj < NT / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * jj + e, col = c0 + 8 * jj + cq + e;
+          const float Da = DQ ? D_a : cs.D[k], Db = DQ ? D_b : cs.D[k];
+          float da = __fmul_rn(p[4 * jj + e], __fsub_rn(dp[4 * jj + e], Da));
+          float db = __fmul_rn(p[4 * jj + 2 + e], __fsub_rn(dp[4 * jj + 2 + e], Db));
+          if (diag && col == row_a) da = 0.0f;
+          if (diag && col == row_b) db = 0.0f;
+          sc[4 * jj + e] = da;
+          sc[4 * jj + 2 + e] = db;
+        }
+      }
+      pack_rows<NT>(sc, a);
+    }
+
+    // dq += ds . k, dk += ds^T . Q (B1) or dv += p^T . dcons (B2) over the
+    // warpgroup's chunks.
+    sm90::mbar_wait(b_full + (DV ? 1 : 0), u & 1);
+    fence_all(acc);
+    sm90::wgmma_fence();
+    rs_product<NT, NC>(acc, a, ab);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_all(acc);
+    if (!last) {  // the accumulating products' B is free once both have retired
+      const int id = DV ? NB_B2 : NB_B1, refill = DV ? 1 : 0;
+      if (w != refill) {
+        sm90::named_barrier_arrive(id, WG_THREADS);
+      } else {
+        sm90::named_barrier_sync(id, WG_THREADS);
+        if (loader) load_b(refill, u + 1);
+      }
+    }
+  }
+
+  if constexpr (DQ) {
+    if (!onesweep && rank == 0 && w == 0 && t % 4 == 0) {
+      if (ok_a) dd[zn + row_a] = D_a;
+      if (ok_b) dd[zn + row_b] = D_b;
+    }
+    wide_store(acc, out, zn + row_a, ok_a, ok_b, chunk0, boxes, w, cq, d, scale);
+    return;
+  }
+  if constexpr (DV) {
+    wide_store(acc, out, zn + row_a, ok_a, ok_b, chunk0, boxes, w, cq, d, 1.0f);
+    return;
+  }
+
+  // The dk pass's epilogue. The norm VJP's row sums kx = sum_c (scale dk_c)
+  // x_c and xx = sum_c x_c^2 (x: A2, the key rows' levels), each warpgroup
+  // over its chunks, then the block's (warpgroup 0's first), then the
+  // pair's (rank 0's first).
+  sm90::named_barrier_sync(NB_END, WG_THREADS);  // every product done: xq is free
+  float kx_a = 0.0f, kx_b = 0.0f, xx_a = 0.0f, xx_b = 0.0f;
+  const unsigned char* xbox = smem + S::A_BYTES + w * NC * RBOX;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (chunk0 + w * NC + c >= boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 xa = resident_pair(xbox + c * RBOX, r_a, jj, cq);
+      const float2 xb = resident_pair(xbox + c * RBOX, r_b, jj, cq);
+      kx_a = fmaf(acc[c][4 * jj] * scale, xa.x, kx_a);
+      kx_a = fmaf(acc[c][4 * jj + 1] * scale, xa.y, kx_a);
+      kx_b = fmaf(acc[c][4 * jj + 2] * scale, xb.x, kx_b);
+      kx_b = fmaf(acc[c][4 * jj + 3] * scale, xb.y, kx_b);
+      xx_a = fmaf(xa.x, xa.x, fmaf(xa.y, xa.y, xx_a));
+      xx_b = fmaf(xb.x, xb.x, fmaf(xb.y, xb.y, xx_b));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    kx_a += __shfl_xor_sync(0xffffffffu, kx_a, o);
+    kx_b += __shfl_xor_sync(0xffffffffu, kx_b, o);
+    xx_a += __shfl_xor_sync(0xffffffffu, xx_a, o);
+    xx_b += __shfl_xor_sync(0xffffffffu, xx_b, o);
+  }
+  float* red = reinterpret_cast<float*>(smem + S::XQ_OFF);  // [2 warpgroups][kx, xx][64]
+  float* half = reinterpret_cast<float*>(smem + S::XS_OFF);  // the block's [kx, xx][64]
+  if (t % 4 == 0) {
+    red[w * 2 * ROWS + r_a] = kx_a;
+    red[w * 2 * ROWS + r_b] = kx_b;
+    red[w * 2 * ROWS + ROWS + r_a] = xx_a;
+    red[w * 2 * ROWS + ROWS + r_b] = xx_b;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * ROWS)
+    half[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[2 * ROWS + threadIdx.x]);
+  sm90::cluster_sync();  // both blocks' halves are written
+  const uint32_t peer_half = sm90::cluster_addr(sm90::smem_u32(half), rank ^ 1);
+  auto both = [&](int i) {  // row sum i of the pair, rank 0's half first
+    const float own = half[i], other = sm90::ld_cluster_f32(peer_half + 4 * i);
+    return __fadd_rn(rank == 0 ? own : other, rank == 0 ? other : own);
+  };
+  kx_a = both(r_a);
+  kx_b = both(r_b);
+  const float norm_a = sqrtf(both(ROWS + r_a)), norm_b = sqrtf(both(ROWS + r_b));
+  sm90::cluster_sync();  // the peer has read this block's halves
+  const float ninv_a = 1.0f / fmaxf(norm_a, 1e-12f), ninv_b = 1.0f / fmaxf(norm_b, 1e-12f);
+  const float rnorm_a = __frcp_rn(norm_a), rnorm_b = __frcp_rn(norm_b);
+
+  // dxn = dk inv - kx x inv^2 / norm, in the accumulators; each division
+  // rounded as IEEE division from the row's RN(1 / norm) (sm90::div_rn:
+  // three operations and no branch, where the division's slow-path check
+  // kept 8 warps from overlapping them).
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (chunk0 + w * NC + c >= boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 xa = resident_pair(xbox + c * RBOX, r_a, jj, cq);
+      const float2 xb = resident_pair(xbox + c * RBOX, r_b, jj, cq);
+      const float x[4] = {xa.x, xa.y, xb.x, xb.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool a_row = e < 2;
+        const float kx = a_row ? kx_a : kx_b, norm = a_row ? norm_a : norm_b;
+        const float inv = a_row ? ninv_a : ninv_b, rnorm = a_row ? rnorm_a : rnorm_b;
+        const float dkc = acc[c][4 * jj + e] * scale;
+        acc[c][4 * jj + e] =
+            dkc * inv - (norm >= 1e-12f ? sm90::div_rn(kx * x[e] * inv * inv, norm, rnorm) : 0.0f);
+      }
+    }
+  }
+
+  // dxn staged as [64][STAGE_PITCH] f32 over A1, A2 and B1 (free: every
+  // product is done and x is read), then dlevels (and dmean) of the block's
+  // columns as whole 16-byte segments of 8 columns, consecutive threads on
+  // consecutive segments of a row, each thread's SEGS segments' loads
+  // issued before any of them is used.
+  constexpr int pitch = S::STAGE_PITCH;
+  float* dxn_s = reinterpret_cast<float*>(smem);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (chunk0 + w * NC + c >= boxes) continue;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * (w * NC + c) + 8 * jj + cq;
+      *reinterpret_cast<float2*>(dxn_s + r_a * pitch + col) =
+          make_float2(acc[c][4 * jj], acc[c][4 * jj + 1]);
+      *reinterpret_cast<float2*>(dxn_s + r_b * pitch + col) =
+          make_float2(acc[c][4 * jj + 2], acc[c][4 * jj + 3]);
+    }
+  }
+  __syncthreads();
+  const int g = z / B, col0 = 64 * chunk0;
+  const size_t plane = (size_t)B * n * d;
+  const bool bu = dx_bu != nullptr && g < L - 1, td = dx_bu != nullptr && g >= 1;
+  const float div = g == L - 1 ? 3.0f : 4.0f;
+  const float inv_div = __fdiv_rn(1.0f, div);
+  constexpr int SEGS = 4;
+  const int row_segs = nb * 8, segs = ROWS * row_segs;
+  for (int s0 = threadIdx.x; s0 < segs; s0 += SEGS * WG_THREADS) {
+    float4 xs4[SEGS][2], q4[SEGS][2], v4[SEGS][2];
+    uint4 gv[SEGS], bv[SEGS], tv[SEGS];
+    size_t off[SEGS];
+    bool ok[SEGS];
+#pragma unroll
+    for (int k = 0; k < SEGS; ++k) {
+      const int seg = s0 + k * WG_THREADS, r = seg / row_segs, c8 = seg - r * row_segs;
+      ok[k] = seg < segs && r0 + r < n;
+      off[k] = (zn + r0 + r) * d + col0 + 8 * c8;
+      if (!ok[k]) continue;
+      xs4[k][0] = *reinterpret_cast<const float4*>(dxn_s + r * pitch + 8 * c8);
+      xs4[k][1] = *reinterpret_cast<const float4*>(dxn_s + r * pitch + 8 * c8 + 4);
+      q4[k][0] = __ldg(reinterpret_cast<const float4*>(dq_in + off[k]));
+      q4[k][1] = __ldg(reinterpret_cast<const float4*>(dq_in + off[k] + 4));
+      v4[k][0] = __ldg(reinterpret_cast<const float4*>(dv_in + off[k]));
+      v4[k][1] = __ldg(reinterpret_cast<const float4*>(dv_in + off[k] + 4));
+      gv[k] = bv[k] = tv[k] = __ldg(reinterpret_cast<const uint4*>(gout + off[k]));
+      if (bu) bv[k] = __ldg(reinterpret_cast<const uint4*>(dx_bu + off[k] + plane));
+      if (td) tv[k] = __ldg(reinterpret_cast<const uint4*>(dx_td + off[k] - plane));
+    }
+#pragma unroll
+    for (int k = 0; k < SEGS; ++k) {
+      if (!ok[k]) continue;
+      const float dxn[8] = {xs4[k][0].x, xs4[k][0].y, xs4[k][0].z, xs4[k][0].w,
+                            xs4[k][1].x, xs4[k][1].y, xs4[k][1].z, xs4[k][1].w};
+      const float dq[8] = {q4[k][0].x, q4[k][0].y, q4[k][0].z, q4[k][0].w,
+                           q4[k][1].x, q4[k][1].y, q4[k][1].z, q4[k][1].w};
+      const float dv[8] = {v4[k][0].x, v4[k][0].y, v4[k][0].z, v4[k][0].w,
+                           v4[k][1].x, v4[k][1].y, v4[k][1].z, v4[k][1].w};
+      const bf16* ge = reinterpret_cast<const bf16*>(&gv[k]);
+      const bf16* be = reinterpret_cast<const bf16*>(&bv[k]);
+      const bf16* te = reinterpret_cast<const bf16*>(&tv[k]);
+      uint4 ov, mv;
+      bf16* oe = reinterpret_cast<bf16*>(&ov);
+      bf16* me = reinterpret_cast<bf16*>(&mv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        float x = __bfloat162float(ge[e]);
+        if (onesweep) {
+          const bf16 partial =
+              __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(x, inv_div), dv[e]), dxn[e]));
+          oe[e] = __float2bfloat16(__fadd_rn(__bfloat162float(partial), dq[e]));
+        } else {
+          if (bu) x = __fadd_rn(x, __bfloat162float(be[e]));
+          if (td) x = __fadd_rn(x, __bfloat162float(te[e]));
+          const float dcons = sm90::div_rn(x, div, inv_div);  // x / div, rounded as IEEE
+          oe[e] = __float2bfloat16(__fadd_rn(__fadd_rn(__fadd_rn(dcons, dq[e]), dv[e]), dxn[e]));
+          me[e] = __float2bfloat16(dcons);
+        }
+      }
+      *reinterpret_cast<uint4*>(dlv_out + off[k]) = ov;
+      if (!onesweep) *reinterpret_cast<uint4*>(dmean_out + off[k]) = mv;
+    }
+  }
+}
+
+// The wide passes, named apart for the profiles. dq: A levels (q) and the
+// rounded dcons, B khat and levels (v). dv: A khat (k_j), B levels (Q) and
+// dcons. dk: A khat and levels (v_j), B levels and dcons.
 __global__ void __launch_bounds__(WG_THREADS, 1)
 consensus_bwd_dq_wide(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap dc_map,
@@ -1456,265 +1887,20 @@ consensus_bwd_dq_wide(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ l_in, float* __restrict__ dq_out,
                       float* __restrict__ dd, int onesweep, int n, int d, int side, int reach,
                       float r2, int attend_self, float scale) {
-  constexpr int NT = WIDE_NT, NC = WIDE_NC, ACC = NT / 2;
-  using S = WideSmem<2>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* group = smem + S::GROUP_OFF;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
-  uint64_t* gfull = full + WIDE_RING;
-
-  const int i0 = blockIdx.x * ROWS, z = blockIdx.z;
-  const int chunk0 = 2 * NC * blockIdx.y, boxes = d / 64;
-  const int gchunks = min(2 * NC, boxes - chunk0);
-  const size_t zn = (size_t)z * n;
-  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
-  const bool loader = threadIdx.x == 0;
-  int j_lo, j_hi;
-  window(i0, ROWS, NT, n / NT, reach, j_lo, j_hi);
-  const int tiles = j_hi - j_lo;
-  const int total = (onesweep ? 1 : 2) * tiles;  // tiles over both sweeps
-  const int steps = total * boxes;
-
-  auto load_step = [&](int b) {
-    const int s = b % WIDE_RING, c = b % boxes, jt = j_lo + (b / boxes) % tiles;
-    unsigned char* st = smem + s * S::STAGE;
-    sm90::mbar_expect_tx(full + s, S::STAGE);
-    sm90::tma_load_3d(st, &q_map, 64 * c, i0, z, full + s);
-    sm90::tma_load_3d(st + RBOX, &dc_map, 64 * c, i0, z, full + s);
-    sm90::tma_load_3d(st + 2 * RBOX, &k_map, 64 * c, jt * NT, z, full + s);
-    sm90::tma_load_3d(st + 2 * RBOX + WIDE_TBOX, &v_map, 64 * c, jt * NT, z, full + s);
-  };
-  auto load_group = [&](int v) {  // sweep 1's tile v: khat's group columns
-    const int s = v & 1;
-    sm90::mbar_expect_tx(gfull + s, gchunks * WIDE_TBOX);
-    for (int c = 0; c < gchunks; ++c)
-      sm90::tma_load_3d(group + s * WIDE_GROUP + c * WIDE_TBOX, &k_map, 64 * (chunk0 + c),
-                        (j_lo + v) * NT, z, gfull + s);
-  };
-  if (loader) {
-    for (int i = 0; i < WIDE_RING + 2; ++i) sm90::mbar_init(full + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (loader) {
-    for (int b = 0; b < WIDE_RING && b < steps; ++b) load_step(b);
-    for (int v = 0; v < 2 && v < tiles; ++v) load_group(v);
-  }
-
-  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
-  const int i_a = i0 + r_a, i_b = i0 + r_b;
-  const bool ok_a = i_a < n, ok_b = i_b < n;
-  const float m_a = ok_a ? m_in[zn + i_a] : 0.0f, m_b = ok_b ? m_in[zn + i_b] : 0.0f;
-  const float l_a = ok_a ? l_in[zn + i_a] : 1.0f, l_b = ok_b ? l_in[zn + i_b] : 1.0f;
-  const float inv_a = __frcp_rn(l_a), inv_b = __frcp_rn(l_b);
-  float D_a = 0.0f, D_b = 0.0f;
-  if (onesweep) {
-    D_a = ok_a ? dd[zn + i_a] : 0.0f;
-    D_b = ok_b ? dd[zn + i_b] : 0.0f;
-  }
-  float acc[NC][sm90::ACC64];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
-  const uint32_t ring = sm90::smem_u32(smem), group_addr = sm90::smem_u32(group);
-
-  // Tile u's S and dP, then p in sc, scaled and masked. Returns whether the
-  // tile holds self scores.
-  auto scores = [&](int u, float (&sc)[ACC], float (&dp)[ACC]) {
-    wide_scores<2>(sc, dp, u, boxes, steps, ring, full, w, loader, load_step);
-    const int j0 = (j_lo + u % tiles) * NT;
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) sc[i] = __fmul_rn(sc[i], scale);
-    const bool diag = !attend_self && j0 < i0 + ROWS && i0 < j0 + NT;
-    if (diag || reach > 0) mask_tile<NT>(sc, i_a, j0, cq, diag, side, reach, r2);
-#pragma unroll
-    for (int jj = 0; jj < NT / 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[4 * jj + e] = prob(sc[4 * jj + e], m_a, l_a, inv_a);
-        sc[4 * jj + 2 + e] = prob(sc[4 * jj + 2 + e], m_b, l_b, inv_b);
-      }
-    }
-    return diag;
-  };
-
-  int u = 0;
-  for (; u < total - tiles; ++u) {  // sweep 0 (two-pass forms): dd = sum_j p dP
-    float sc[ACC], dp[ACC];
-    scores(u, sc, dp);
-#pragma unroll
-    for (int jj = 0; jj < NT / 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        D_a = fmaf(sc[4 * jj + e], dp[4 * jj + e], D_a);
-        D_b = fmaf(sc[4 * jj + 2 + e], dp[4 * jj + 2 + e], D_b);
-      }
-    }
-  }
-  if (!onesweep) {  // a row's four threads hold its sums
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      D_a = __fadd_rn(D_a, __shfl_xor_sync(0xffffffffu, D_a, o));
-      D_b = __fadd_rn(D_b, __shfl_xor_sync(0xffffffffu, D_b, o));
-    }
-  }
-  for (; u < total; ++u) {  // ds, rounded, and dq += ds . k over the group
-    float sc[ACC], dp[ACC];
-    const bool diag = scores(u, sc, dp);
-    const int v = u - (total - tiles), j0 = (j_lo + v) * NT;
-    uint32_t a[NT / 4];
-#pragma unroll
-    for (int jj = 0; jj < NT / 8; ++jj) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = j0 + 8 * jj + cq + e;
-        ds[e] = __fmul_rn(sc[4 * jj + e], __fsub_rn(dp[4 * jj + e], D_a));
-        ds[2 + e] = __fmul_rn(sc[4 * jj + 2 + e], __fsub_rn(dp[4 * jj + 2 + e], D_b));
-        if (diag && j == i_a) ds[e] = 0.0f;
-        if (diag && j == i_b) ds[2 + e] = 0.0f;
-      }
-      a[2 * jj] = sm90::pack_bf16(ds[0], ds[1]);
-      a[2 * jj + 1] = sm90::pack_bf16(ds[2], ds[3]);
-    }
-    sm90::mbar_wait(gfull + (v & 1), (v >> 1) & 1);
-    fence_all(acc);
-    sm90::wgmma_fence();
-    rs_product<NT, NC>(acc, a, group_addr + (v & 1) * WIDE_GROUP + w * NC * WIDE_TBOX);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    fence_all(acc);
-    named_pass(5 + (v & 1), w);
-    if (loader && v + 2 < tiles) load_group(v + 2);
-  }
-
-  if (!onesweep && blockIdx.y == 0 && w == 0 && t % 4 == 0) {
-    if (ok_a) dd[zn + i_a] = D_a;
-    if (ok_b) dd[zn + i_b] = D_b;
-  }
-  wide_store(acc, dq_out, zn + i_a, ok_a, ok_b, chunk0, boxes, w, cq, d, scale);
+  wide_pass<PASS_DQ>(q_map, dc_map, k_map, v_map, m_in, l_in, dd, dq_out, nullptr, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, onesweep, 0, 1, n, d, side,
+                     reach, r2, attend_self, scale);
 }
 
-// Grid: (key blocks of 64, column groups, L * B). The key side on the wide
-// layout: S^T = khat_j . Q_i^T from A khat (64-row map) and B levels (NT
-// rows); DK adds dP^T = v_j . dcons_i^T (A levels, B dcons). The group ring
-// holds dcons's group columns (dv += p^T . dcons_i) or the levels' (DK: dk
-// += ds^T . Q_i). Writes f32 dv, or f32 dk * scale before the norm VJP.
-// The maps are the kernels' own __grid_constant__ parameters (below).
-template <bool DK>
-__device__ __forceinline__ void key_wide(const CUtensorMap& kj_map, const CUtensorMap& vj_map,
-                                         const CUtensorMap& q_map, const CUtensorMap& dc_map,
-                                         const float* __restrict__ m_in,
-                                         const float* __restrict__ l_in,
-                                         const float* __restrict__ dd, float* __restrict__ out,
-                                         int n, int d, int side, int reach, float r2,
-                                         int attend_self, float scale) {
-  constexpr int NT = WIDE_NT, NC = WIDE_NC, ACC = NT / 2, NP = DK ? 2 : 1;
-  using S = WideSmem<NP>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1024(smem_raw);
-  unsigned char* group = smem + S::GROUP_OFF;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
-  uint64_t* gfull = full + WIDE_RING;
-
-  const int j0 = blockIdx.x * ROWS, z = blockIdx.z;
-  const int chunk0 = 2 * NC * blockIdx.y, boxes = d / 64;
-  const int gchunks = min(2 * NC, boxes - chunk0);
-  const size_t zn = (size_t)z * n;
-  const int w = threadIdx.x / 128, t = threadIdx.x % 128;
-  const bool loader = threadIdx.x == 0;
-  int i_lo, i_hi;
-  window(j0, ROWS, NT, n / NT, reach, i_lo, i_hi);
-  const int tiles = i_hi - i_lo, steps = tiles * boxes;
-  const CUtensorMap* gmap = DK ? &q_map : &dc_map;
-
-  auto load_step = [&](int b) {
-    const int s = b % WIDE_RING, c = b % boxes, it = i_lo + b / boxes;
-    unsigned char* st = smem + s * S::STAGE;
-    sm90::mbar_expect_tx(full + s, S::STAGE);
-    sm90::tma_load_3d(st, &kj_map, 64 * c, j0, z, full + s);
-    if constexpr (DK) sm90::tma_load_3d(st + RBOX, &vj_map, 64 * c, j0, z, full + s);
-    sm90::tma_load_3d(st + NP * RBOX, &q_map, 64 * c, it * NT, z, full + s);
-    if constexpr (DK)
-      sm90::tma_load_3d(st + 2 * RBOX + WIDE_TBOX, &dc_map, 64 * c, it * NT, z, full + s);
-  };
-  auto load_group = [&](int v) {
-    const int s = v & 1;
-    sm90::mbar_expect_tx(gfull + s, gchunks * WIDE_TBOX);
-    for (int c = 0; c < gchunks; ++c)
-      sm90::tma_load_3d(group + s * WIDE_GROUP + c * WIDE_TBOX, gmap, 64 * (chunk0 + c),
-                        (i_lo + v) * NT, z, gfull + s);
-  };
-  if (loader) {
-    for (int i = 0; i < WIDE_RING + 2; ++i) sm90::mbar_init(full + i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (loader) {
-    for (int b = 0; b < WIDE_RING && b < steps; ++b) load_step(b);
-    for (int v = 0; v < 2 && v < tiles; ++v) load_group(v);
-  }
-
-  const int r_a = 16 * (t / 32) + (t % 32) / 4, r_b = r_a + 8, cq = 2 * (t % 4);
-  const int j_a = j0 + r_a, j_b = j0 + r_b;
-  float acc[NC][sm90::ACC64];
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < sm90::ACC64; ++i) acc[c][i] = 0.0f;
-  const uint32_t ring = sm90::smem_u32(smem), group_addr = sm90::smem_u32(group);
-
-  for (int u = 0; u < tiles; ++u) {
-    const int i0t = (i_lo + u) * NT;
-    ColStats<NT> cs;
-    cs.load(m_in, l_in, DK ? dd : nullptr, zn + i0t, cq);
-    float sc[ACC], dp[ACC];
-    wide_scores<NP>(sc, dp, u, boxes, steps, ring, full, w, loader, load_step);
-    const bool diag =
-        key_probs<NT>(sc, cs, j_a, j0, i0t, cq, attend_self, side, reach, r2, scale);
-    if constexpr (DK) {
-#pragma unroll
-      for (int jj = 0; jj < NT / 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = 2 * jj + e, i = i0t + 8 * jj + cq + e;
-          float& da = sc[4 * jj + e];
-          float& db = sc[4 * jj + 2 + e];
-          da = __fmul_rn(da, __fsub_rn(dp[4 * jj + e], cs.D[k]));
-          db = __fmul_rn(db, __fsub_rn(dp[4 * jj + 2 + e], cs.D[k]));
-          if (diag && i == j_a) da = 0.0f;
-          if (diag && i == j_b) db = 0.0f;
-        }
-      }
-    }
-    uint32_t a[NT / 4];
-    pack_rows<NT>(sc, a);  // p^T (the diagonal keeps its p) or ds^T, rounded
-    sm90::mbar_wait(gfull + (u & 1), (u >> 1) & 1);
-    fence_all(acc);
-    sm90::wgmma_fence();
-    rs_product<NT, NC>(acc, a, group_addr + (u & 1) * WIDE_GROUP + w * NC * WIDE_TBOX);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    fence_all(acc);
-    named_pass(5 + (u & 1), w);
-    if (loader && u + 2 < tiles) load_group(u + 2);
-  }
-  wide_store(acc, out, zn + j_a, j_a < n, j_b < n, chunk0, boxes, w, cq, d, DK ? scale : 1.0f);
-}
-
-// The wide dv and dk passes, named apart for the profiles.
 __global__ void __launch_bounds__(WG_THREADS, 1)
 consensus_bwd_dv_wide(const __grid_constant__ CUtensorMap kj_map,
-                      const __grid_constant__ CUtensorMap vj_map,
                       const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
-                      const float* __restrict__ l_in, const float* __restrict__ dd,
-                      float* __restrict__ dv_out, int n, int d, int side, int reach, float r2,
-                      int attend_self, float scale) {
-  key_wide<false>(kj_map, vj_map, q_map, dc_map, m_in, l_in, dd, dv_out, n, d, side, reach, r2,
-                  attend_self, scale);
+                      const float* __restrict__ l_in, float* __restrict__ dv_out, int n, int d,
+                      int side, int reach, float r2, int attend_self, float scale) {
+  wide_pass<PASS_DV>(kj_map, kj_map, q_map, dc_map, m_in, l_in, nullptr, dv_out, nullptr,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 1, n, d, side,
+                     reach, r2, attend_self, scale);
 }
 
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -1723,97 +1909,14 @@ consensus_bwd_dk_wide(const __grid_constant__ CUtensorMap kj_map,
                       const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap dc_map, const float* __restrict__ m_in,
                       const float* __restrict__ l_in, const float* __restrict__ dd,
-                      float* __restrict__ dk_out, int n, int d, int side, int reach, float r2,
-                      int attend_self, float scale) {
-  key_wide<true>(kj_map, vj_map, q_map, dc_map, m_in, l_in, dd, dk_out, n, d, side, reach, r2,
-                 attend_self, scale);
-}
-
-// A warp a row of [L, B, n, d]: dk (f32, scaled) through the VJP of k = x /
-// max(||x||, 1e-12), then dlevels = dcons + dq + dv + normVJP(dk) and dmean
-// = dcons rounded, dcons = cot / div with the combine's streams; the
-// one-sweep form rounds g / div + dv + normVJP(dk) first, adds dq and
-// writes no dmean (the dk pass's epilogue above, row-wise).
-__global__ void __launch_bounds__(32 * sm90::KHAT_ROWS)
-consensus_bwd_finish_wide(const bf16* __restrict__ lv, const bf16* __restrict__ gout,
-                          const bf16* __restrict__ dx_bu, const bf16* __restrict__ dx_td,
-                          const float* __restrict__ dq, const float* __restrict__ dv,
-                          const float* __restrict__ dk, bf16* __restrict__ dlv_out,
-                          bf16* __restrict__ dmean_out, int onesweep, int L, int B, int n,
-                          int d) {
-  const size_t row = (size_t)blockIdx.x * sm90::KHAT_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (size_t)L * B * n) return;
-  const int g = (int)(row / ((size_t)B * n));
-  const size_t plane = (size_t)B * n * d;
-  const float div = g == L - 1 ? 3.0f : 4.0f;
-  const float inv_div = __fdiv_rn(1.0f, div);
-  const bool bu = dx_bu != nullptr && g < L - 1, td = dx_bu != nullptr && g >= 1;
-  float xx = 0.0f, kx = 0.0f;
-  for (int c = lane; c < d / 8; c += 32) {
-    const size_t off = row * d + 8 * c;
-    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(lv + off));
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-    const float4 k0 = __ldg(reinterpret_cast<const float4*>(dk + off));
-    const float4 k1 = __ldg(reinterpret_cast<const float4*>(dk + off + 4));
-    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float x = __bfloat162float(xe[e]);
-      xx = fmaf(x, x, xx);
-      kx = fmaf(kk[e], x, kx);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    xx += __shfl_xor_sync(0xffffffffu, xx, o);
-    kx += __shfl_xor_sync(0xffffffffu, kx, o);
-  }
-  const float norm = sqrtf(xx);
-  const float inv = 1.0f / fmaxf(norm, 1e-12f);
-  for (int c = lane; c < d / 8; c += 32) {
-    const size_t off = row * d + 8 * c;
-    const uint4 xv = __ldg(reinterpret_cast<const uint4*>(lv + off));
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-    const float4 k0 = __ldg(reinterpret_cast<const float4*>(dk + off));
-    const float4 k1 = __ldg(reinterpret_cast<const float4*>(dk + off + 4));
-    const float4 q0 = __ldg(reinterpret_cast<const float4*>(dq + off));
-    const float4 q1 = __ldg(reinterpret_cast<const float4*>(dq + off + 4));
-    const float4 v0 = __ldg(reinterpret_cast<const float4*>(dv + off));
-    const float4 v1 = __ldg(reinterpret_cast<const float4*>(dv + off + 4));
-    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-    const float dqe[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-    const float dve[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(gout + off));
-    uint4 bv = gv, tv = gv;
-    if (bu) bv = __ldg(reinterpret_cast<const uint4*>(dx_bu + off + plane));
-    if (td) tv = __ldg(reinterpret_cast<const uint4*>(dx_td + off - plane));
-    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-    const bf16* be = reinterpret_cast<const bf16*>(&bv);
-    const bf16* te = reinterpret_cast<const bf16*>(&tv);
-    uint4 ov, mv;
-    bf16* oe = reinterpret_cast<bf16*>(&ov);
-    bf16* me = reinterpret_cast<bf16*>(&mv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float x = __bfloat162float(xe[e]);
-      const float dxn = kk[e] * inv - (norm >= 1e-12f ? kx * x * inv * inv / norm : 0.0f);
-      float c = __bfloat162float(ge[e]);
-      if (onesweep) {
-        const bf16 partial =
-            __float2bfloat16(__fadd_rn(__fadd_rn(__fmul_rn(c, inv_div), dve[e]), dxn));
-        oe[e] = __float2bfloat16(__fadd_rn(__bfloat162float(partial), dqe[e]));
-      } else {
-        if (bu) c = __fadd_rn(c, __bfloat162float(be[e]));
-        if (td) c = __fadd_rn(c, __bfloat162float(te[e]));
-        const float dcons = __fdiv_rn(c, div);
-        oe[e] = __float2bfloat16(__fadd_rn(__fadd_rn(__fadd_rn(dcons, dqe[e]), dve[e]), dxn));
-        me[e] = __float2bfloat16(dcons);
-      }
-    }
-    *reinterpret_cast<uint4*>(dlv_out + off) = ov;
-    if (!onesweep) *reinterpret_cast<uint4*>(dmean_out + off) = mv;
-  }
+                      const float* __restrict__ dq_in, const float* __restrict__ dv_in,
+                      const bf16* __restrict__ gout, const bf16* __restrict__ dx_bu,
+                      const bf16* __restrict__ dx_td, bf16* __restrict__ dlv_out,
+                      bf16* __restrict__ dmean_out, int onesweep, int L, int B, int n, int d,
+                      int side, int reach, float r2, int attend_self, float scale) {
+  wide_pass<PASS_DK>(kj_map, vj_map, q_map, dc_map, m_in, l_in, const_cast<float*>(dd),
+                     nullptr, dq_in, dv_in, gout, dx_bu, dx_td, dlv_out, dmean_out, onesweep, L,
+                     B, n, d, side, reach, r2, attend_self, scale);
 }
 
 // ========================================================= host side
@@ -1846,13 +1949,13 @@ Geometry geometry(int d, int side, double radius) {
 }
 
 // The arguments every entry checks, and the scratches an instance takes:
-// khat and dv for both "wgmma" forms, dk for "wgmma_wide" (NULL where not
-// taken). `dv`/`dk` are passed as "taken" flags where an entry has none.
+// khat and dv for both "wgmma" instances (NULL for "fma"). `dv` is passed
+// as a "taken" flag where an entry has none.
 bool valid(int L, int B, int n, int d, int side, int instance, const void* dx_bu,
-           const void* dx_td, bool khat, bool dv, bool dk) {
+           const void* dx_td, bool khat, bool dv) {
   const bool wg = instance == INSTANCE_WGMMA || instance == INSTANCE_WGMMA_WIDE;
   return L >= 2 && B >= 1 && side >= 1 && (dx_bu == nullptr) == (dx_td == nullptr) &&
-         instance >= 0 && khat == wg && dv == wg && dk == (instance == INSTANCE_WGMMA_WIDE);
+         instance >= 0 && khat == wg && dv == wg;
 }
 
 // ---- f32
@@ -1984,7 +2087,8 @@ cudaError_t launch_key_side_sm90(const bf16* lv, const bf16* gout, const bf16* d
   return cudaGetLastError();
 }
 
-// The wide instance's dq pass.
+// The wide instance's dq pass: a cluster of two blocks for each 64 query
+// rows (sm90::launch_pair_smem, the pair along grid y).
 cudaError_t launch_dq_wide(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
                            const float* l, float* dq, float* dd, int onesweep, int L, int B,
                            int n, int d, const Geometry& geo, int side, int attend_self,
@@ -1993,24 +2097,24 @@ cudaError_t launch_dq_wide(const bf16* lv, const bf16* dcons, const bf16* khat, 
   cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_wide, lifted);
   CUtensorMap q_map, dc_map, k_map, v_map;
   const int slots = L * B;
-  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, ROWS);
-  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, ROWS);
-  if (err == cudaSuccess) err = row_map(&k_map, khat, d, n, slots, WIDE_NT);
-  if (err == cudaSuccess) err = row_map(&v_map, lv, d, n, slots, WIDE_NT);
+  if (err == cudaSuccess) err = sm90::wide_map(&q_map, lv, d, n, slots, ROWS, WIDE_NC);
+  if (err == cudaSuccess) err = sm90::wide_map(&dc_map, dcons, d, n, slots, ROWS, WIDE_NC);
+  if (err == cudaSuccess)
+    err = sm90::wide_map(&k_map, khat, d, n, slots, WIDE_NT, sm90::PAIR_BOXES);
+  if (err == cudaSuccess) err = sm90::wide_map(&v_map, lv, d, n, slots, WIDE_NT, sm90::PAIR_BOXES);
   if (err != cudaSuccess) return err;
-  consensus_bwd_dq_wide<<<dim3((n + ROWS - 1) / ROWS, wide_groups(d), slots), WG_THREADS,
-                          WideSmem<2>::BYTES, stream>>>(q_map, dc_map, k_map, v_map, m, l, dq,
-                                                        dd, onesweep, n, d, side, geo.reach,
-                                                        geo.r2, attend_self, geo.scale);
-  return cudaGetLastError();
+  return sm90::launch_pair_smem(consensus_bwd_dq_wide, wide_grid(n, slots), 1, WideSmem::BYTES,
+                                stream, q_map, dc_map, k_map, v_map, m, l, dq, dd, onesweep, n,
+                                d, side, geo.reach, geo.r2, attend_self, geo.scale);
 }
 
-// The wide instance's key side: the dv pass, the dk pass, then the finish
-// (khat and dcons written).
+// The wide instance's key side, the dv pass then the dk pass (khat and
+// dcons written), each a cluster of two blocks for each 64 key rows; the
+// dk pass writes the complete dlevels (and dmean).
 cudaError_t launch_key_side_wide(const bf16* lv, const bf16* gout, const bf16* dx_bu,
                                  const bf16* dx_td, const bf16* dcons, const bf16* khat,
                                  const float* m, const float* l, const float* dq,
-                                 const float* dd, float* dv, float* dk, bf16* dlv, bf16* dmean,
+                                 const float* dd, float* dv, bf16* dlv, bf16* dmean,
                                  int onesweep, int L, int B, int n, int d, const Geometry& geo,
                                  int side, int attend_self, cudaStream_t stream) {
   static bool lifted_dv[sm90::MAX_DEVICES], lifted_dk[sm90::MAX_DEVICES];
@@ -2018,25 +2122,21 @@ cudaError_t launch_key_side_wide(const bf16* lv, const bf16* gout, const bf16* d
   if (err == cudaSuccess) err = sm90::lift_smem_cap(consensus_bwd_dk_wide, lifted_dk);
   CUtensorMap kj_map, vj_map, q_map, dc_map;
   const int slots = L * B;
-  if (err == cudaSuccess) err = row_map(&kj_map, khat, d, n, slots, ROWS);
-  if (err == cudaSuccess) err = row_map(&vj_map, lv, d, n, slots, ROWS);
-  if (err == cudaSuccess) err = row_map(&q_map, lv, d, n, slots, WIDE_NT);
-  if (err == cudaSuccess) err = row_map(&dc_map, dcons, d, n, slots, WIDE_NT);
+  if (err == cudaSuccess) err = sm90::wide_map(&kj_map, khat, d, n, slots, ROWS, WIDE_NC);
+  if (err == cudaSuccess) err = sm90::wide_map(&vj_map, lv, d, n, slots, ROWS, WIDE_NC);
+  if (err == cudaSuccess) err = sm90::wide_map(&q_map, lv, d, n, slots, WIDE_NT, sm90::PAIR_BOXES);
+  if (err == cudaSuccess)
+    err = sm90::wide_map(&dc_map, dcons, d, n, slots, WIDE_NT, sm90::PAIR_BOXES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + ROWS - 1) / ROWS, wide_groups(d), slots);
-  consensus_bwd_dv_wide<<<grid, WG_THREADS, WideSmem<1>::BYTES, stream>>>(
-      kj_map, vj_map, q_map, dc_map, m, l, dd, dv, n, d, side, geo.reach, geo.r2, attend_self,
-      geo.scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  consensus_bwd_dk_wide<<<grid, WG_THREADS, WideSmem<2>::BYTES, stream>>>(
-      kj_map, vj_map, q_map, dc_map, m, l, dd, dk, n, d, side, geo.reach, geo.r2, attend_self,
-      geo.scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t rows = (size_t)L * B * n;
-  consensus_bwd_finish_wide<<<(unsigned)((rows + sm90::KHAT_ROWS - 1) / sm90::KHAT_ROWS),
-                              32 * sm90::KHAT_ROWS, 0, stream>>>(
-      lv, gout, dx_bu, dx_td, dq, dv, dk, dlv, dmean, onesweep, L, B, n, d);
-  return cudaGetLastError();
+  const dim3 grid = wide_grid(n, slots);
+  err = sm90::launch_pair_smem(consensus_bwd_dv_wide, grid, 1, WideSmem::BYTES, stream, kj_map,
+                               q_map, dc_map, m, l, dv, n, d, side, geo.reach, geo.r2,
+                               attend_self, geo.scale);
+  if (err != cudaSuccess) return err;
+  return sm90::launch_pair_smem(consensus_bwd_dk_wide, grid, 1, WideSmem::BYTES, stream, kj_map,
+                                vj_map, q_map, dc_map, m, l, dd, dq, (const float*)dv, gout,
+                                dx_bu, dx_td, dlv, dmean, onesweep, L, B, n, d, side, geo.reach,
+                                geo.r2, attend_self, geo.scale);
 }
 
 cudaError_t launch_dq_bf16(const bf16* lv, const bf16* dcons, const bf16* khat, const float* m,
@@ -2055,11 +2155,11 @@ cudaError_t launch_dq_bf16(const bf16* lv, const bf16* dcons, const bf16* khat, 
 cudaError_t launch_key_side_bf16(const bf16* lv, const bf16* gout, const bf16* dx_bu,
                                  const bf16* dx_td, const bf16* dcons, const bf16* khat,
                                  const float* m, const float* l, const float* dq,
-                                 const float* dd, float* dv, float* dk, bf16* dlv, bf16* dmean,
+                                 const float* dd, float* dv, bf16* dlv, bf16* dmean,
                                  int onesweep, int L, int B, int n, int d, const Geometry& geo,
                                  int side, int attend_self, cudaStream_t stream) {
   if (d > NARROW_D)
-    return launch_key_side_wide(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd, dv, dk, dlv,
+    return launch_key_side_wide(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd, dv, dlv,
                                 dmean, onesweep, L, B, n, d, geo, side, attend_self, stream);
   return d > 512 ? launch_key_side_sm90<true>(lv, gout, dx_bu, dx_td, dcons, khat, m, l, dq, dd,
                                               dv, dlv, dmean, onesweep, L, B, n, d, geo, side,
@@ -2088,8 +2188,8 @@ int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int instance = instance_for(is_bf16, n, d);
-  const bool wg = instance != INSTANCE_FMA, wide = instance == INSTANCE_WGMMA_WIDE;
-  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, wg, wide) ||
+  const bool wg = instance != INSTANCE_FMA;
+  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, wg) ||
       dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
@@ -2111,22 +2211,20 @@ int consensus_update_bwd_dq(const void* lv, const void* gout, const void* dx_bu,
 }
 
 // The dq pass's inputs plus its dq, dd and rounded dcons; dlv, dmean:
-// [L, B, n, d] in the levels dtype; "wgmma" also takes khat (bf16) and dv
-// (f32 [L, B, n, d]) scratches, "wgmma_wide" also dk (f32 [L, B, n, d]),
-// NULL where not taken. khat_ready: khat already holds the normalised keys
-// (the dq pass of the same call wrote them); else the call writes them
-// first.
+// [L, B, n, d] in the levels dtype; both "wgmma" instances also take khat
+// (bf16) and dv (f32 [L, B, n, d]) scratches, NULL for "fma". khat_ready:
+// khat already holds the normalised keys (the dq pass of the same call
+// wrote them); else the call writes them first.
 int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu,
                              const void* dx_td, const float* m, const float* l,
                              const float* dq, const float* dd, const void* dcons, void* khat,
-                             int khat_ready, float* dv, float* dk, void* dlv, void* dmean, int L,
-                             int B, int n, int d, int side, double radius, int attend_self,
-                             int is_bf16, void* stream) {
+                             int khat_ready, float* dv, void* dlv, void* dmean, int L, int B,
+                             int n, int d, int side, double radius, int attend_self, int is_bf16,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int instance = instance_for(is_bf16, n, d);
   const bool wg = instance != INSTANCE_FMA;
-  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, dv != nullptr,
-             dk != nullptr) ||
+  if (!valid(L, B, n, d, side, instance, dx_bu, dx_td, khat != nullptr, dv != nullptr) ||
       dcons == nullptr || (khat_ready && !wg))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
@@ -2145,7 +2243,7 @@ int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu
   return (int)launch_key_side_bf16(x, static_cast<const bf16*>(gout),
                                    static_cast<const bf16*>(dx_bu),
                                    static_cast<const bf16*>(dx_td),
-                                   static_cast<const bf16*>(dcons), k, m, l, dq, dd, dv, dk,
+                                   static_cast<const bf16*>(dcons), k, m, l, dq, dd, dv,
                                    static_cast<bf16*>(dlv), static_cast<bf16*>(dmean), 0, L, B,
                                    n, d, geo, side, attend_self, s);
 }
@@ -2155,18 +2253,16 @@ int consensus_update_bwd_dkv(const void* lv, const void* gout, const void* dx_bu
 // lv, gout, cons: [L, B, n, d] in the levels dtype; m, l: the forward's f32
 // [L, B, n]; dq (f32 [L, B, n, d]), dd (f32 [L, B, n]) and dcons ([L, B, n,
 // d], levels dtype), and for the "wgmma" instances khat (bf16) and dv
-// (f32), for "wgmma_wide" also dk (f32): workspaces the launches hand over;
-// dlv: [L, B, n, d].
+// (f32): workspaces the launches hand over; dlv: [L, B, n, d].
 int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* cons,
                                   const float* m, const float* l, float* dq, float* dd,
-                                  void* dcons, void* khat, float* dv, float* dk, void* dlv, int L,
-                                  int B, int n, int d, int side, double radius, int attend_self,
+                                  void* dcons, void* khat, float* dv, void* dlv, int L, int B,
+                                  int n, int d, int side, double radius, int attend_self,
                                   int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int instance = instance_for(is_bf16, n, d);
   const bool wg = instance != INSTANCE_FMA;
-  if (!valid(L, B, n, d, side, instance, nullptr, nullptr, khat != nullptr, dv != nullptr,
-             dk != nullptr) ||
+  if (!valid(L, B, n, d, side, instance, nullptr, nullptr, khat != nullptr, dv != nullptr) ||
       cons == nullptr || dcons == nullptr)
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(d, side, radius);
@@ -2190,9 +2286,32 @@ int consensus_update_bwd_onesweep(const void* lv, const void* gout, const void* 
   if (err == cudaSuccess)
     err = launch_dq_bf16(x, dc, k, m, l, dq, dd, 1, L, B, n, d, geo, side, attend_self, s);
   if (err == cudaSuccess)
-    err = launch_key_side_bf16(x, g, nullptr, nullptr, dc, k, m, l, dq, dd, dv, dk,
+    err = launch_key_side_bf16(x, g, nullptr, nullptr, dc, k, m, l, dq, dd, dv,
                                static_cast<bf16*>(dlv), nullptr, 1, L, B, n, d, geo, side,
                                attend_self, s);
+  return (int)err;
+}
+
+// The wide instance's launches (sm90::launch_pair_smem): blocks of
+// `threads` threads and `smem_bytes` of shared memory in clusters of
+// `cluster` blocks along grid y, and how many such clusters the device
+// holds at once (cudaOccupancyMaxActiveClusters) for the dq, dv and dk
+// passes. Returns a cudaError_t.
+int consensus_update_bwd_wide_launch(int* threads, int* smem_bytes, int* cluster,
+                                     int* clusters_dq, int* clusters_dv, int* clusters_dk) {
+  static bool lifted[3][sm90::MAX_DEVICES];
+  *threads = WG_THREADS;
+  *smem_bytes = WideSmem::BYTES;
+  *cluster = sm90::PAIR_CLUSTER;
+  cudaError_t err = sm90::lift_smem_cap(consensus_bwd_dq_wide, lifted[0]);
+  if (err == cudaSuccess) err = sm90::lift_smem_cap(consensus_bwd_dv_wide, lifted[1]);
+  if (err == cudaSuccess) err = sm90::lift_smem_cap(consensus_bwd_dk_wide, lifted[2]);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters(consensus_bwd_dq_wide, 1, clusters_dq, WideSmem::BYTES);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters(consensus_bwd_dv_wide, 1, clusters_dv, WideSmem::BYTES);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters(consensus_bwd_dk_wide, 1, clusters_dk, WideSmem::BYTES);
   return (int)err;
 }
 

@@ -496,6 +496,50 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
   }
 }
 
+// A warpgroup's exchange of its m64n32 partial sums with the same
+// warpgroup of the peer block (`it` counts the exchanges): once the peer has
+// read this thread's previous sums (s_empty's phase it - 1, which the peer
+// arrives at remotely), the thread's 16 sums go into its slot in the peer by
+// st.async, completing the peer's s_full by bytes (`arm`: the warpgroup's
+// thread 0 arms this block's s_full with the peer's bytes); then the peer's
+// sums are read from this block's slot `xs` (float4 i at xs[128 i]) and s =
+// S_rank0 + S_rank1, rank 0's half first, so both blocks hold the same bits.
+__device__ __forceinline__ void pair_exchange(float (&s)[ACC32], const float4* xs,
+                                              uint32_t xs_peer, uint64_t* s_full,
+                                              uint32_t s_full_peer, uint64_t* s_empty, int it,
+                                              uint32_t rank, bool arm) {
+  mbar_wait_cluster(s_empty, (it & 1) ^ 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st_async_f4(xs_peer + i * 128 * 16, s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3],
+                s_full_peer);
+  if (arm) mbar_expect_tx(s_full, 128 * ACC32 * 4);
+  mbar_wait(s_full, it & 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = xs[i * 128];
+    const float peer[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float own = s[4 * i + e];
+      s[4 * i + e] = __fadd_rn(rank == 0 ? own : peer[e], rank == 0 ? peer[e] : own);
+    }
+  }
+}
+
+// `bytes` (a multiple of 16) from p (16-byte aligned) into L2, without
+// waiting: a bulk prefetch.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// An f32 from another block's shared memory (a shared::cluster address).
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // Thread 0 sets up the wide form's barriers (one arrival each: a loader's
 // or the peer's); the cluster syncs later (attn_pair_loop), after the
 // first loads are under way, so neither block arrives at or writes into the
@@ -627,23 +671,7 @@ __device__ __forceinline__ void attn_pair_loop(float (&o)[ATTN_NC][ACC64], float
       tail_k(ks, e_full);
     }
 
-    mbar_wait_cluster(s_empty, (it & 1) ^ 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st_async_f4(xs_peer + i * 128 * 16, s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3],
-                  s_full_peer);
-    if (loader) mbar_expect_tx(s_full, 128 * ACC32 * 4);
-    mbar_wait(s_full, it & 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = xs[i * 128];
-      const float peer[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float own = s[4 * i + e];
-        s[4 * i + e] = __fadd_rn(rank == 0 ? own : peer[e], rank == 0 ? peer[e] : own);
-      }
-    }
+    pair_exchange(s, xs, xs_peer, s_full, s_full_peer, s_empty, it, rank, loader);
 
 #pragma unroll
     for (int i = 0; i < ACC32; ++i) s[i] = __fmul_rn(s[i], scale);
@@ -827,14 +855,14 @@ inline cudaError_t cached_map(CUtensorMap* map, const void* ptr, const cuuint64_
 
 // The wide form's launch config: `grid` in clusters of PAIR_CLUSTER blocks
 // along grid dimension `axis` (1: y, 2: z: the column groups), blocks of
-// ATTN_THREADS threads and AttnPairSmem::BYTES of shared memory (the
-// kernel's cap lifted by the caller).
-inline cudaLaunchConfig_t pair_config(dim3 grid, int axis, cudaStream_t stream,
+// ATTN_THREADS threads and `bytes` of shared memory (AttnPairSmem::BYTES
+// for the forwards; the kernel's cap lifted by the caller).
+inline cudaLaunchConfig_t pair_config(dim3 grid, int axis, int bytes, cudaStream_t stream,
                                       cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(ATTN_THREADS);
-  cfg.dynamicSmemBytes = AttnPairSmem::BYTES;
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 1;
@@ -846,20 +874,41 @@ inline cudaLaunchConfig_t pair_config(dim3 grid, int axis, cudaStream_t stream,
 }
 
 template <class... Params, class... Args>
-cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, int axis, cudaStream_t stream,
-                        const Args&... args) {
+cudaError_t launch_pair_smem(void (*kernel)(Params...), dim3 grid, int axis, int bytes,
+                             cudaStream_t stream, const Args&... args) {
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pair_config(grid, axis, stream, &attr);
+  const cudaLaunchConfig_t cfg = pair_config(grid, axis, bytes, stream, &attr);
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// How many clusters of the wide form's launch the device holds at once.
+template <class... Params, class... Args>
+cudaError_t launch_pair(void (*kernel)(Params...), dim3 grid, int axis, cudaStream_t stream,
+                        const Args&... args) {
+  return launch_pair_smem(kernel, grid, axis, AttnPairSmem::BYTES, stream, args...);
+}
+
+// How many clusters of the wide form's launch (`bytes` of shared memory a
+// block) the device holds at once.
 template <class... Params>
-cudaError_t pair_clusters(void (*kernel)(Params...), int axis, int* clusters) {
+cudaError_t pair_clusters(void (*kernel)(Params...), int axis, int* clusters,
+                          int bytes = AttnPairSmem::BYTES) {
   cudaLaunchAttribute attr;
   const dim3 grid(1, axis == 1 ? PAIR_CLUSTER : 1, axis == 2 ? PAIR_CLUSTER : 1);
-  const cudaLaunchConfig_t cfg = pair_config(grid, axis, 0, &attr);
+  const cudaLaunchConfig_t cfg = pair_config(grid, axis, bytes, 0, &attr);
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// A [slots, n, d] bf16 tensor as a 4-D map {64, n, d / 64, slots} (a
+// column within its 64-column chunk, the row, the chunk, the slot) whose
+// box is `chunks` chunks x `rows` rows: one load lands them as `chunks`
+// swizzled 64-column boxes of `rows` rows each (cached). Chunks past d and
+// rows past n load as zeros.
+inline cudaError_t wide_map(CUtensorMap* map, const void* ptr, int d, int n, int slots, int rows,
+                            int chunks) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)n, (cuuint64_t)d / 64, (cuuint64_t)slots};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, 128, (cuuint64_t)d * n * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, (cuuint32_t)chunks, 1};
+  return cached_map<4>(map, ptr, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -30,9 +30,10 @@ pre-pass that writes the normalised k and the rounded dcons to scratches
 the wrapper allocates, `bwd_workspaces`, and the dkv pass, a dv launch and
 a dk launch, reads that k, or normalises the keys again when called on its
 own), "wgmma_wide" for bf16 at 640 < d <= 1024 (glom_tpu's
-imagenet224-pod width: the same passes streaming d, a 512-column group of
-the output a block, and a finishing launch for the norm VJP), "fma" for
-f32 (the CUDA cores). Every kernel takes d <= MAX_D = 1024. Their combine
+imagenet224-pod width: the same passes, each 64 rows a cluster of two
+blocks that hold one 512-column half of d each and add each score tile's
+two halves once; `wide_bwd_launch`, `wide_bwd_grid`), "fma" for f32 (the
+CUDA cores). Every kernel takes d <= MAX_D = 1024. Their combine
 mode is glom_tpu's `fused_loop._cons_bwd_combine_kernel`, the whole-loop
 VJP's consensus backward: the output cotangent of a level is the sum, in
 f32, of the previous iteration's dlevels and the slot-shifted input
@@ -102,8 +103,9 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "consensus_update_bwd_dq": ([*[_P] * 10, *[_I] * 5, _D, _I, _I, _P], _I),
-    "consensus_update_bwd_dkv": ([*[_P] * 10, _I, *[_P] * 4, *[_I] * 5, _D, _I, _I, _P], _I),
-    "consensus_update_bwd_onesweep": ([*[_P] * 12, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_dkv": ([*[_P] * 10, _I, *[_P] * 3, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_onesweep": ([*[_P] * 11, *[_I] * 5, _D, _I, _I, _P], _I),
+    "consensus_update_bwd_wide_launch": ([_P] * 6, _I),
     "consensus_update_bwd_instance": ([_I, _I, _I], ctypes.c_char_p),
     "consensus_update_bwd_error_string": ([_I], ctypes.c_char_p),
 }
@@ -174,6 +176,36 @@ def wide_launch() -> dict:
 
 def _bwd_lib() -> ctypes.CDLL:
     return _build.load("consensus_update_bwd", _BWD_SIGNATURES)
+
+
+def wide_bwd_launch() -> dict:
+    """The launches of K2's bf16 backward past d = 640 ("wgmma_wide") on the
+    current card: threads a block, dynamic shared memory a block (bytes),
+    blocks a cluster (the two 512-column halves of d, along grid y) and the
+    most such clusters the card holds at once for each pass
+    (cudaOccupancyMaxActiveClusters)."""
+    vals = [ctypes.c_int(0) for _ in range(6)]
+    lib = _bwd_lib()
+    err = lib.consensus_update_bwd_wide_launch(*(ctypes.byref(v) for v in vals))
+    _build.check(err, "consensus_update_bwd_wide_launch", lib.consensus_update_bwd_error_string)
+    t, smem, cluster, *clusters = (v.value for v in vals)
+    return dict(threads=t, smem_bytes=smem, cluster=cluster,
+                max_active_clusters=dict(zip(("dq", "dv", "dk"), clusters)))
+
+
+def wide_bwd_grid(L: int, B: int, n: int, d: int) -> dict:
+    """The "wgmma_wide" backward's launch geometry, the rule the C launches
+    apply (`wide_grid`, csrc/consensus_update_bwd.cu): a grid of (64-row
+    blocks, 2, L * B) blocks in clusters of two along y, each pass alike,
+    and each rank's columns [lo, hi) of d, 512 a block (the last block's
+    share is what remains: 192 columns at d = 704)."""
+    if not NARROW_D < d <= MAX_D or d % WIDTH_MULTIPLE:
+        raise ValueError(f"d={d}: the wide backward takes {NARROW_D} < d <= {MAX_D}, "
+                         f"d % {WIDTH_MULTIPLE} == 0")
+    half = 512
+    return dict(grid=(-(-n // 64), 2, L * B), cluster=(1, 2, 1),
+                clusters=-(-n // 64) * L * B,
+                columns=[(0, half), (half, d)])
 
 
 def _masked_scores(levels_lm, k, *, side, radius, attend_self):
@@ -393,9 +425,10 @@ def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
     them is enqueued. form: "dq" (the "wgmma" pre-pass's normalised keys),
     "dkv" (the keys, and the f32 dv the dk launch reads: what the dkv pass
     needs alone, and what `consensus_update_bwd` hands to both passes) or
-    "onesweep" (also f32 dq, f32 dd and the rounded dcons). "wgmma_wide"
-    also takes the f32 dk its finishing pass reads; "fma" needs neither
-    keys nor dv."""
+    "onesweep" (also f32 dq, f32 dd and the rounded dcons). Both "wgmma"
+    instances take the same set ("wgmma_wide" applies the norm VJP in its
+    dk pass, so no f32 dk leaves the card's shared memory); "fma" needs
+    neither keys nor dv."""
     L, B, n, d = levels_lm.shape
     instance = k2_bwd_instance(levels_lm.dtype, n, d)
     wgmma = instance != "fma"
@@ -410,8 +443,6 @@ def bwd_workspaces(levels_lm: torch.Tensor, form: str) -> dict:
         ws["khat"] = torch.empty_like(levels_lm)
         if form != "dq":
             ws["dv"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
-            if instance == "wgmma_wide":
-                ws["dk"] = levels_lm.new_empty((L, B, n, d), dtype=torch.float32)
     return ws
 
 
@@ -602,7 +633,7 @@ def _launch_dkv(levels_lm, g, m, l, dq, dd, dcons, ws, khat_ready, *, side, radi
     err = lib.consensus_update_bwd_dkv(
         levels_lm.data_ptr(), g.data_ptr(), _ptr(dx_bu), _ptr(dx_td), m.data_ptr(),
         l.data_ptr(), dq.data_ptr(), dd.data_ptr(), dcons.data_ptr(), _ptr(ws.get("khat")),
-        int(khat_ready), _ptr(ws.get("dv")), _ptr(ws.get("dk")), dlv.data_ptr(),
+        int(khat_ready), _ptr(ws.get("dv")), dlv.data_ptr(),
         dmean.data_ptr(), L, B, n, d, side, float(radius), int(attend_self), is_bf16, stream,
     )
     _build.check(err, "consensus_update_bwd_dkv", lib.consensus_update_bwd_error_string)
@@ -658,7 +689,7 @@ def consensus_bwd_onesweep(levels_lm, g, m, l, cons, *, side, radius=0.0, attend
     err = lib.consensus_update_bwd_onesweep(
         levels_lm.data_ptr(), g.data_ptr(), cons.data_ptr(), m.data_ptr(), l.data_ptr(),
         ws["dq"].data_ptr(), ws["dd"].data_ptr(), ws["dcons"].data_ptr(),
-        _ptr(ws.get("khat")), _ptr(ws.get("dv")), _ptr(ws.get("dk")), dlv.data_ptr(), L, B,
+        _ptr(ws.get("khat")), _ptr(ws.get("dv")), dlv.data_ptr(), L, B,
         n, d, side, float(radius), int(attend_self), is_bf16, stream,
     )
     _build.check(err, "consensus_update_bwd_onesweep", lib.consensus_update_bwd_error_string)

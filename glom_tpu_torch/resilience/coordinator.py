@@ -229,6 +229,13 @@ class StoreTransport:
         if phase != POD_COMMIT_PHASE:
             self.store.append(self._index_key(self.host), key + "\n")
         self.store.set(key, json.dumps({"host": self.host, **payload}))
+        # A TCPStore's set returns before its server has applied it, and a
+        # peer's read on another connection may be served first. One round
+        # trip on this connection (the server answers a connection's
+        # commands in order) makes the message visible to every host before
+        # post returns, as a file rename or glom_tpu's blocking key_value_set
+        # does.
+        self.store.check([key])
         return True
 
     def read_all(self, round_id: str, phase: str) -> Dict[int, dict]:

@@ -53,7 +53,20 @@ kernel's source (printing ptxas' registers and spills), then:
     256, 512] and of the one-sweep at [6, 2, 4096, 512], each by kernel and
     beside the backward of scaled_dot_product_attention on the same q,
     normalised k, v (with the kernels that ran it), and the host's time a
-    call;
+    call; then the same for "wgmma_wide" (past d = 640: each pass a
+    two-block cluster for each 64 rows): the readings over the card tests'
+    wide cases (K2_BWD_WIDE_CASES), forms and seeds 0-7, device times by
+    kernel of the pair at [12, 2, 256, 1024], the combine at [12, 8, 256,
+    1024] and the one-sweep at [2, 1, 1024, 1024], each beside SDPA's
+    backward; then, from a copy of ROOT's package built under ROOT/build/
+    with thread 0 of every block writing clock64() at each wide pass's phase
+    boundaries, the median over the combine's 768 blocks of each pass's
+    phases in cycles: the set-up, per tile (the first four that accumulate)
+    the score product, the exchange (the pair's and the warpgroups' swap,
+    p and ds) and the accumulating product with the refill, the loop, and
+    the epilogue (the dk pass's: the norm sums across the pair, dxn, its
+    staging, the rows of dlevels and dmean).
+    A tree without the cluster passes gives times only;
   * k4 (`csrc/banded_consensus.cu`): the same readings for K4 over the
     cases of the `-m gpu` tests (K4_CASES, flat and peaked inputs, both
     attend_self, seeds 0-7), per instance, over the row spans and the
@@ -124,7 +137,8 @@ PAIR_STAMPS = [
      "  for (int it = 0; it < tiles; ++it) {\n    const bool refill = loader && it + 1 < tiles;\n",
      "    if (it == 0) stamp(1);\n    if (it < 4) stamp(2 + 4 * it);\n"),
     ("sm90_attn.cuh", ">", "      tail_k(ks, e_full);\n    }\n", "    if (it < 4) stamp(3 + 4 * it);\n"),
-    ("sm90_attn.cuh", ">", "rank == 0 ? peer[e] : own);\n      }\n    }\n",
+    ("sm90_attn.cuh", ">",
+     "    pair_exchange(s, xs, xs_peer, s_full, s_full_peer, s_empty, it, rank, loader);\n",
      "    if (it < 4) stamp(4 + 4 * it);\n"),
     ("sm90_attn.cuh", "<",
      "    mbar_wait(v_full, it & 1);\n#pragma unroll\n    for (int c = 0; c < ATTN_NC; ++c) "
@@ -138,20 +152,74 @@ PAIR_STAMPS = [
 ]
 
 
-def instrument(root: str):
-    """A copy of ROOT's package under ROOT/build/kernel_probe_pair with the
-    pair probe's stamps, or None where ROOT has no wide pair loop."""
+# The k2bwd probe's instrumentation of the wide backward passes
+# (csrc/consensus_update_bwd.cu:wide_pass; pass 0 dq, 1 dv, 2 dk). Stamp i
+# of a block: 0 after the cluster's set-up, 1 after the resident operands
+# landed; for the v-th tile that accumulates (v < 4) 2 + 3 v at its start,
+# 3 + 3 v after its score product, 4 + 3 v before its accumulating product;
+# 14 at the loop's end; 15 after the epilogue; in the dk pass 16 after the
+# pair's norm sums, 17 after dxn, 18 after dxn is staged (the row loop
+# follows).
+BWD_WIDE_STAMPS = [
+    ("consensus_update_bwd.cu", ">", "enum WidePass { PASS_DQ, PASS_DV, PASS_DK };\n",
+     "__device__ long long g_bwd_probe[3][2048][24];\n"
+     "__device__ __forceinline__ void bwd_stamp(int pass, int i) {\n"
+     "  const int blk = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);\n"
+     "  if (threadIdx.x == 0 && blk < 2048) g_bwd_probe[pass][blk][i] = clock64();\n}\n"),
+    ("consensus_update_bwd.cu", ">",
+     "  sm90::cluster_sync();  // both blocks' barriers are set up\n", "  bwd_stamp(PASS, 0);\n"),
+    ("consensus_update_bwd.cu", ">", "  sm90::mbar_wait(a_full, 0);\n", "  bwd_stamp(PASS, 1);\n"),
+    ("consensus_update_bwd.cu", ">",
+     "    const bool acc_tile = u >= first_acc, last = u + 1 == total;\n",
+     "    const int v_ = u - first_acc;\n"
+     "    if (v_ >= 0 && v_ < 4) bwd_stamp(PASS, 2 + 3 * v_);\n"),
+    ("consensus_update_bwd.cu", "<",
+     "    uint32_t a[NT / 4];  // the accumulating product's A: ds or p^T, rounded\n",
+     "    if (v_ >= 0 && v_ < 4) bwd_stamp(PASS, 3 + 3 * v_);\n"),
+    ("consensus_update_bwd.cu", "<",
+     "    // dq += ds . k, dk += ds^T . Q (B1) or dv += p^T . dcons (B2) over the\n",
+     "    if (v_ < 4) bwd_stamp(PASS, 4 + 3 * v_);\n"),
+    ("consensus_update_bwd.cu", "<",
+     "  if constexpr (DQ) {\n    if (!onesweep && rank == 0 && w == 0 && t % 4 == 0) {\n",
+     "  bwd_stamp(PASS, 14);\n"),
+    ("consensus_update_bwd.cu", "<", "    return;\n  }\n  if constexpr (DV) {\n",
+     "    bwd_stamp(PASS, 15);\n"),
+    ("consensus_update_bwd.cu", "<", "    return;\n  }\n\n  // The dk pass's epilogue.",
+     "    bwd_stamp(PASS, 15);\n"),
+    ("consensus_update_bwd.cu", ">",
+     "  sm90::cluster_sync();  // the peer has read this block's halves\n",
+     "  bwd_stamp(PASS, 16);\n"),
+    ("consensus_update_bwd.cu", "<",
+     "  // dxn staged as [64][STAGE_PITCH] f32 over A1, A2 and B1 (free: every\n",
+     "  bwd_stamp(PASS, 17);\n"),
+    ("consensus_update_bwd.cu", "<",
+     "  const float div = g == L - 1 ? 3.0f : 4.0f;\n"
+     "  const float inv_div = __fdiv_rn(1.0f, div);\n  constexpr int SEGS = 4;\n",
+     "  bwd_stamp(PASS, 18);\n"),
+    ("consensus_update_bwd.cu", "<", "}\n\n// The wide passes, named apart for the profiles.",
+     "  bwd_stamp(PASS, 15);\n"),
+    ("consensus_update_bwd.cu", ">", 'extern "C" {\n',
+     "int bwd_probe_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, g_bwd_probe, sizeof(g_bwd_probe));\n}\n"),
+]
+
+
+def instrument(root: str, stamps=None, marker="attn_pair_loop", path="sm90_attn.cuh",
+               name="kernel_probe_pair"):
+    """A copy of ROOT's package under ROOT/build/NAME with `stamps` (the
+    pair probe's by default), or None where ROOT's csrc/PATH lacks MARKER."""
     import shutil
 
+    stamps = PAIR_STAMPS if stamps is None else stamps
     src = os.path.join(root, "glom_tpu_torch")
-    attn = os.path.join(src, "csrc", "sm90_attn.cuh")
-    if not os.path.exists(attn) or "attn_pair_loop" not in open(attn).read():
+    attn = os.path.join(src, "csrc", path)
+    if not os.path.exists(attn) or marker not in open(attn).read():
         return None
-    dst = os.path.join(root, "build", "kernel_probe_pair")
+    dst = os.path.join(root, "build", name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, os.path.join(dst, "glom_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for name, where, anchor, code in PAIR_STAMPS:
+    for name, where, anchor, code in stamps:
         path = os.path.join(dst, "glom_tpu_torch", "csrc", name)
         text = open(path).read()
         if text.count(anchor) != 1:
@@ -425,6 +493,8 @@ def probe_k2bwd(torch, rn, time_ms, host_us, device_us) -> int:
 
     import glom_tpu_torch.kernels.consensus_update as k2
 
+    if hasattr(k2._bwd_lib(), "bwd_probe_read"):  # the stamped copy: phases only
+        return wide_bwd_phases(torch, rn, np, k2)
     cards = card_tests()
     bar = cards.K2_BWD_BARS[torch.bfloat16]
 
@@ -508,7 +578,99 @@ def probe_k2bwd(torch, rn, time_ms, host_us, device_us) -> int:
                           tflops_5_products=10 * Lr * Br * nr * nr * d / ms / 1e9,
                           device_us=device_us(onesweep, calls=2, key=kernel_key),
                           host_us=host_us(onesweep, batches=3, calls=3))), flush=True)
+    return int(fail) | probe_k2bwd_wide(torch, rn, time_ms, device_us, np, k2, cards, rel,
+                                        sdpa_bwd)
+
+
+def probe_k2bwd_wide(torch, rn, time_ms, device_us, np, k2, cards, rel, sdpa_bwd) -> int:
+    """k2bwd's "wgmma_wide" part: readings over the wide cases, then device
+    times by kernel at the imagenet224-pod width beside SDPA's backward."""
+    bar = cards.K2_BWD_BARS[torch.bfloat16]
+    worst = {}
+    for form in cards.K2_BWD_FORMS:
+        for case in cards.K2_BWD_WIDE_CASES:
+            for attend_self in (False, True):
+                for seed in range(8):
+                    res = cards._k2_bwd_case(np.random.default_rng(seed), *case, attend_self,
+                                             form)
+                    for name, (got, want) in res.items():
+                        r = rel(got, want) / bar
+                        if r >= worst.get((form, name), (-1.0,))[0]:
+                            worst[(form, name)] = (r, list(case))
+    for (form, name), (r, case) in sorted(worst.items()):
+        print(json.dumps(dict(reading="k2_bwd_bf16_wide", form=form, output=name, bar=bar,
+                              seeds=8, max_bar_ratio=r, worst_case=case)), flush=True)
+    fail = max(v[0] for v in worst.values()) > 1.0
+
+    def kernel_key(name):
+        for part in ("prepass", "dq_wide", "dv_wide", "dk_wide", "finish_wide", "khat"):
+            if part in name:
+                return part
+        return "other"
+
+    d = 1024
+    for label, (L, B, n), side, form in (
+            ("k2_bwd_pod_b2", (12, 2, 256), 16, "pair"),
+            ("k2_bwd_combine_pod_b8", (12, 8, 256), 16, "combine"),
+            ("k2_bwd_onesweep_pod_width", (2, 1, 1024), 32, "onesweep")):
+        lv, g = rn(L, B, n, d, scale=8.0), rn(L, B, n, d)
+        if form == "onesweep":
+            _, m, l, cons = k2.fused_consensus_update(lv, lv, lv[1:], side=side, cons=True)
+
+            def run():
+                return k2.consensus_bwd_onesweep(lv, g, m, l, cons, side=side)
+        else:
+            _, m, l = k2.fused_consensus_update(lv, lv, lv[1:], side=side, stats=True)
+            kw = dict(side=side)
+            if form == "combine":
+                kw.update(combine=True, dx_bu=rn(L, B, n, d), dx_td=rn(L - 1, B, n, d))
+
+            def run(kw=kw):
+                return k2.consensus_update_bwd(lv, g, m, l, **kw)
+        lib_ms, lib_kernels = sdpa_bwd(lv, g)
+        ms = time_ms(run)
+        print(json.dumps(dict(timing=label, shape=[L, B, n, d], ms=ms, sdpa_bwd_ms=lib_ms,
+                              sdpa_bwd_kernels=lib_kernels,
+                              tflops_5_products=10 * L * B * n * n * d / ms / 1e9,
+                              device_us=device_us(run, key=kernel_key))), flush=True)
     return int(fail)
+
+
+def wide_bwd_phases(torch, rn, np, k2) -> int:
+    """The stamped copy's phases of the wide passes in cycles (median over
+    the combine's blocks at [12, 8, 256, 1024])."""
+    L, B, n, d = 12, 8, 256, 1024
+    lv, g = rn(L, B, n, d, scale=8.0), rn(L, B, n, d)
+    _, m, l = k2.fused_consensus_update(lv, lv, lv[1:], side=16, stats=True)
+    k2.consensus_update_bwd(lv, g, m, l, side=16, combine=True, dx_bu=rn(L, B, n, d),
+                            dx_td=rn(L - 1, B, n, d))
+    torch.cuda.synchronize()
+    stamps = np.zeros((3, 2048, 24), np.int64)
+    lib = k2._bwd_lib()
+    lib.bwd_probe_read.argtypes = [ctypes.c_void_p]
+    if lib.bwd_probe_read(stamps.ctypes.data) != 0:
+        print("k2bwd: bwd_probe_read failed", flush=True)
+        return 1
+    blocks = 4 * 2 * L * B
+    for p, name in enumerate(("dq", "dv", "dk")):
+        st = stamps[p, :blocks]
+        phases = {"setup": np.median(st[:, 1] - st[:, 0])}
+        for v in range(4):
+            b = 2 + 3 * v
+            nxt = st[:, b + 3] if v < 3 else st[:, 14]
+            phases[f"tile{v}_scores"] = np.median(st[:, b + 1] - st[:, b])
+            phases[f"tile{v}_exchange"] = np.median(st[:, b + 2] - st[:, b + 1])
+            phases[f"tile{v}_accumulate"] = np.median(nxt - st[:, b + 2])
+        phases["loop"] = np.median(st[:, 14] - st[:, 1])
+        phases["epilogue"] = np.median(st[:, 15] - st[:, 14])
+        if name == "dk":
+            for key, a, b in (("norm_sums", 14, 16), ("dxn", 16, 17), ("stage", 17, 18),
+                              ("rows", 18, 15)):
+                phases[f"epilogue_{key}"] = np.median(st[:, b] - st[:, a])
+        phases["block"] = np.median(st[:, 15] - st[:, 0])
+        print(json.dumps({"case": f"k2_bwd_combine_pod_b8_{name}_phases_cycles",
+                          **{k_: float(v_) for k_, v_ in phases.items()}}), flush=True)
+    return 0
 
 
 def card_tests():
@@ -762,10 +924,12 @@ def main() -> int:
     rc = 0
     for root in sys.argv[2:] or ["."]:
         print("== root", root, flush=True)
-        if sys.argv[1] == "pair":  # the uninstrumented times, then the stamped copy's phases
+        if sys.argv[1] in ("pair", "k2bwd"):  # the times, then the stamped copy's phases
             cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]
             rc |= subprocess.run(cmd, timeout=900).returncode
-            root = instrument(os.path.abspath(root))
+            root = (instrument(os.path.abspath(root)) if sys.argv[1] == "pair" else
+                    instrument(os.path.abspath(root), BWD_WIDE_STAMPS, "wide_pass",
+                               "consensus_update_bwd.cu", "kernel_probe_k2bwd"))
             if root is None:
                 continue
         cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]

@@ -33,16 +33,27 @@ drift of the card between runs. Per tree it prints one JSON line:
   * K4 (the banded ragged consensus) at the flagship's largest ragged
     signature in bf16 ([2048, 6, 512]: 32 pages of 64 tokens, window 256,
     every band full), with the host's time a call (`k4_host_us_r32`);
-  * a SHA-256 of the flagship K2 bucket-8 output and of the K4 32-page
+  * a SHA-256 of the flagship K2 bucket-8 output, of K2's backward there
+    (dlevels and dmean of the pair and of the combine with its two streams:
+    `k2_bwd_b8_sha256`, `k2_bwd_combine_b8_sha256`) and of the K4 32-page
     output on these seed-0 inputs (`k2_b8_sha256`, `k4_r32_sha256`), so two
     trees' flagship kernels can be shown bit for bit equal;
   * the imagenet224-pod width (d = 1024, L = 12), the wide instances: K2's
     forward at [12, 8, 256, 1024] alone and with the softmax statistics
-    (`k2_pod_b8_ms`, `k2_pod_b8_stats_ms`), K4 at 32 full pages
-    [2048, 12, 1024] (`k4_pod_ragged32_ms`), and the imagenet224-pod
-    preset served in bf16 at 12 iterations from seed-0 weights: bucket 8
-    (`serve_pod_b8_*`) and 32 pages of eight rows (`serve_pod_ragged32_*`),
-    p50 and min over N dispatches;
+    (`k2_pod_b8_ms`, `k2_pod_b8_stats_ms`), K2's backward ("wgmma_wide")
+    as the per-iteration step calls it at [12, 2, 256, 1024]
+    (`k2_bwd_pod_b2_ms`), as the loop calls it with its two streams at
+    [12, 8, 256, 1024] (`k2_bwd_combine_pod_b8_ms`, and that call's own
+    peak `k2_bwd_combine_pod_b8_call_peak_mib`: outputs and scratch) and
+    the one-sweep at [2, 1, 1024, 1024] (`k2_bwd_onesweep_pod_width_ms`),
+    K4 at 32 full pages [2048, 12, 1024] (`k4_pod_ragged32_ms`), and the
+    imagenet224-pod preset served in bf16 at 12 iterations from seed-0
+    weights: bucket 8 (`serve_pod_b8_*`) and 32 pages of eight rows
+    (`serve_pod_ragged32_*`), p50 and min over N dispatches; where the tree
+    has the trainer, the preset's bf16 training step with remat at 12
+    iterations, batch 8 on the loop (`train_pod_b8_*`) and batch 2 on the
+    per-iteration route (`train_pod_b2_*`): p50 and min over N steps after
+    two warm-up steps, and the peak device memory of one step;
   * the flagship served in bf16 through InferenceEngine at bucket 8: p50 and
     min over N dispatches (host clock ending in a synchronize), and the peak
     device memory of one dispatch (`serve_b8_peak_mib`);
@@ -196,6 +207,10 @@ def child(tree: str, dispatches: int) -> dict:
             streams = dict(dx_bu=randn(L, 8, n, d), dx_td=randn(L - 1, 8, n, d))
             out["k2_bwd_combine_ms"] = time_ms(lambda: k2.consensus_update_bwd(
                 lv, g, m, l, side=16, combine=True, **streams))
+            out["k2_bwd_b8_sha256"] = sha256(torch.cat(
+                k2.consensus_update_bwd(lv, g, m, l, side=16)))
+            out["k2_bwd_combine_b8_sha256"] = sha256(torch.cat(k2.consensus_update_bwd(
+                lv, g, m, l, side=16, combine=True, **streams)))
             lr = randn(L, 2, 4096, d, scale=8.0)
             _, mr, lr_, cons = k2.fused_consensus_update(lr, lr, lr[1:], side=64, cons=True)
             gr = randn(L, 2, 4096, d)
@@ -215,7 +230,30 @@ def child(tree: str, dispatches: int) -> dict:
     out["k2_pod_b8_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
     out["k2_pod_b8_stats_ms"] = time_ms(
         lambda: k2.fused_consensus_update(lv, bu, td, side=16, stats=True))
-    del lv, bu, td
+    del bu, td
+    if has_bwd:
+        for label, B in (("k2_bwd_pod_b2", 2), ("k2_bwd_combine_pod_b8", 8)):
+            lv_b, g = lv[:, :B].contiguous(), randn(Lp, B, n, dp)
+            _, m, l = k2.fused_consensus_update(lv_b, g, g[1:], side=16, stats=True)
+            kw = dict(side=16)
+            if B == 8:
+                kw.update(combine=True, dx_bu=randn(Lp, B, n, dp), dx_td=randn(Lp - 1, B, n, dp))
+            out[f"{label}_ms"] = time_ms(lambda: k2.consensus_update_bwd(lv_b, g, m, l, **kw))
+        torch.cuda.synchronize()  # the combine call's own peak: outputs and scratch
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        k2.consensus_update_bwd(lv_b, g, m, l, **kw)
+        torch.cuda.synchronize()
+        out["k2_bwd_combine_pod_b8_call_peak_mib"] = (
+            (torch.cuda.max_memory_allocated() - held) / 2 ** 20)
+        del lv_b, g, m, l, kw
+        lo = randn(2, 1, 1024, dp, scale=8.0)
+        _, mo, lo_, cons = k2.fused_consensus_update(lo, lo, lo[1:], side=32, cons=True)
+        go = randn(2, 1, 1024, dp)
+        out["k2_bwd_onesweep_pod_width_ms"] = time_ms(
+            lambda: k2.consensus_bwd_onesweep(lo, go, mo, lo_, cons, side=32))
+        del lo, mo, lo_, cons, go
+    del lv
     lv4, k4_kw = k4_inputs(randn, L=Lp, d=dp)
     out["k4_pod_ragged32_ms"] = time_ms(lambda: k4.banded_ragged_consensus(lv4, **k4_kw))
     del lv4
@@ -285,6 +323,7 @@ def child(tree: str, dispatches: int) -> dict:
                         f"train_{tag}_min_ms": steps[0], f"train_{tag}_peak_mib": peak,
                         f"train_{tag}_vjp_path": step.vjp_path})
         out.update(train_steps=len(steps))
+        out.update(train_pod(dispatches, gen, dev))
 
         cfg_long = GlomConfig(image_size=896)  # n = 4096
         tcfg = TrainConfig(batch_size=2, compute_dtype="bfloat16", use_pallas=True)
@@ -369,6 +408,49 @@ def serve_pod(dispatches: int, gen) -> dict:
         lat.append(ragged.infer_ragged(flat, n_p).latency_s * 1e3)
     lat.sort()
     out.update(serve_pod_ragged32_p50_ms=lat[len(lat) // 2], serve_pod_ragged32_min_ms=lat[0])
+    return out
+
+
+def train_pod(steps_n: int, gen, dev) -> dict:
+    """The imagenet224-pod preset's bf16 training step with remat at 12
+    iterations (`make_train_step` without the grad norm): batch 8 on the
+    whole-loop VJP and batch 2 on the per-iteration route, p50 and min over
+    `steps_n` steps after two warm-up steps (host clock ending in a
+    synchronize), and the peak device memory of one step."""
+    import torch
+    from glom_tpu_torch import TrainConfig
+    from glom_tpu_torch.train import create_train_state, init_denoise, make_train_step
+    from glom_tpu_torch.utils.presets import get_preset
+
+    pod = get_preset("imagenet224-pod")
+    cfg = pod.model
+    params = init_denoise(cfg, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for tag, batch in (("b8", 8), ("b2", 2)):
+        tcfg = TrainConfig(batch_size=batch, compute_dtype="bfloat16", use_pallas=True,
+                           remat=True, iters=12, learning_rate=pod.train.learning_rate,
+                           noise_std=pod.train.noise_std)
+        step = make_train_step(cfg, tcfg, with_grad_norm=False, device="cuda")
+        state, _ = create_train_state(cfg, tcfg, params=params, device="cuda")
+        noise_gen = torch.Generator(device=dev).manual_seed(0)
+        imgs = torch.randn(batch, 3, cfg.image_size, cfg.image_size, generator=gen).to(dev)
+        steps = []
+        for i in range(steps_n + 2):  # the first two warm up
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, _ = step(state, imgs, noise_gen)
+            torch.cuda.synchronize()
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            if i >= 2:
+                steps.append(1e3 * (time.perf_counter() - t0))
+        steps.sort()
+        out.update({f"train_pod_{tag}_p50_ms": steps[len(steps) // 2],
+                    f"train_pod_{tag}_min_ms": steps[0], f"train_pod_{tag}_peak_mib": peak,
+                    f"train_pod_{tag}_vjp_path": step.vjp_path})
+        del state, step
     return out
 
 

@@ -169,6 +169,18 @@ class TestTransports:
         assert t.post("r1", "saved", {"step": 3})
         assert [e["fault"] for e in plan.events()] == ["barrier-message-loss"]
 
+    def test_post_is_visible_to_a_peer_when_it_returns(self, transports):
+        """A message is readable by another host as soon as post returns.
+        Over a TCPStore each host has its own connection, and a set is not
+        yet applied when the client returns from it: before post waited for
+        a round trip, a peer reading at once could miss it (the gang-stop
+        flag, read right after it was posted)."""
+        a, b = transports.make(0, 2), transports.make(1, 2)
+        missed = [i for i in range(500)
+                  if not (a.post(f"v{i}", "stop", {"i": i})
+                          and b.read_all(f"v{i}", "stop") == {0: {"host": 0, "i": i}})]
+        assert missed == []
+
     def test_bad_host_rejected(self, tmp_path):
         with pytest.raises(ValueError):
             DirectoryTransport(tmp_path, 2, 2)

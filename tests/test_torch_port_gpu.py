@@ -921,6 +921,79 @@ def test_consensus_bwd_wide(dev, L, B, n, side, d, radius, inputs, attend_self, 
         _rel_close(got, want, K2_BWD_BARS[dtype], name)
 
 
+def _mirrored(x):
+    """x's last axis laid out [A, B, B, A] by quarter, from its first half."""
+    d = x.shape[-1]
+    h = x[..., :d // 2]
+    return torch.cat([h, h[..., d // 4:], h[..., :d // 4]], -1).contiguous()
+
+
+def _mirror_agrees(x):
+    q = x.shape[-1] // 4
+    return (torch.equal(x[..., :q], x[..., 3 * q:])
+            and torch.equal(x[..., q:2 * q], x[..., 2 * q:3 * q]))
+
+
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("form", K2_BWD_FORMS)
+def test_consensus_bwd_wide_mirrored_quarters_agree(dev, d, form):
+    """"wgmma_wide" on levels, cotangent and streams mirrored by quarter of
+    d: the mirrored quarters of dq, dlevels and dmean are written by
+    different blocks of a cluster and different warpgroups, so they agree
+    bit for bit only if both blocks add each score tile's halves, and the
+    norm VJP's row sums, alike; and every output stays within its bar."""
+    rng = np.random.default_rng(36)
+    L, B, n, side = 3, 2, 256, 16
+    lv = _mirrored(_consensus_inputs(rng, L, B, n, d, torch.bfloat16)[0]).cuda()
+    g = _mirrored(_rand(rng, L, B, n, d).to(torch.bfloat16)).cuda()
+    kw = dict(side=side, radius=1.0 if form == "combine" else 0.0, attend_self=False)
+    assert k2.k2_bwd_instance(torch.bfloat16, n, d) == "wgmma_wide"
+    bar = K2_BWD_BARS[torch.bfloat16]
+    if form == "onesweep":
+        _, m, l, cons = k2.fused_consensus_update(lv, lv, lv[1:], cons=True, **kw)
+        got = k2.consensus_bwd_onesweep(lv, g, m, l, cons, **kw)
+        assert _mirror_agrees(got)
+        _rel_close(got, k2.consensus_bwd_onesweep_plain(lv, g, m, l, cons, **kw), bar, "dlevels")
+        return
+    streams = {}
+    if form == "combine":
+        streams = {k: _mirrored(_rand(rng, *s).to(torch.bfloat16)).cuda()
+                   for k, s in (("dx_bu", (L, B, n, d)), ("dx_td", (L - 1, B, n, d)))}
+    _, m, l = k2.fused_consensus_update(lv, lv, lv[1:], stats=True, **kw)
+    combine = form == "combine"
+    dq, dd, dcons = k2.consensus_bwd_dq(lv, g, m, l, combine=combine, **streams, **kw)
+    dlv, dmean = k2.consensus_bwd_dkv(lv, g, m, l, dq, dd, dcons, combine=combine, **streams,
+                                      **kw)
+    for name, t in (("dq", dq), ("dlevels", dlv), ("dmean", dmean)):
+        assert _mirror_agrees(t), name
+    want_dq, want_dd = k2.consensus_bwd_dq_plain(lv, g, m, l, **streams, **kw)
+    want_dlv, want_dmean = k2.consensus_bwd_dkv_plain(lv, g, m, l, want_dq, want_dd, **streams,
+                                                      **kw)
+    for name, got, want in (("dq", dq, want_dq), ("dlevels", dlv, want_dlv),
+                            ("dmean", dmean, want_dmean)):
+        _rel_close(got, want, bar, name)
+
+
+@pytest.mark.parametrize("form", K2_BWD_FORMS)
+def test_consensus_bwd_wide_repeats_bit_for_bit(dev, form):
+    """Two launches of "wgmma_wide" on the same inputs give the same bits:
+    the pair adds its halves in a fixed order and nothing is atomic."""
+    runs = [_k2_bwd_case(np.random.default_rng(35), 2, 2, 256, 16, 1024, 0.0, "peaked", False,
+                         form) for _ in range(2)]
+    for name in runs[0]:
+        assert torch.equal(runs[0][name][0], runs[1][name][0]), name
+
+
+def test_wide_bwd_launch_holds_clusters(dev):
+    """The wide passes launch as two-block clusters that fit a block's
+    shared memory, and the card holds at least one cluster of each."""
+    got = k2.wide_bwd_launch()
+    assert (got["threads"], got["cluster"]) == (256, 2)
+    assert got["smem_bytes"] <= 232448
+    assert set(got["max_active_clusters"]) == {"dq", "dv", "dk"}
+    assert min(got["max_active_clusters"].values()) >= 1
+
+
 @pytest.mark.parametrize("form", K2_BWD_FORMS)
 def test_consensus_bwd_wgmma_repeats_bit_for_bit(dev, form):
     """Two launches on the same inputs give the same bits (no atomics, fixed

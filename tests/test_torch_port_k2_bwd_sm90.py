@@ -139,17 +139,56 @@ def test_workspaces(dtype, form, want):
 
 @pytest.mark.parametrize("form,want", [
     ("dq", {"khat": BF16}),
-    ("dkv", {"khat": BF16, "dv": F32, "dk": F32}),
-    ("onesweep", {"dq": F32, "dd": F32, "dcons": BF16, "khat": BF16, "dv": F32, "dk": F32}),
+    ("dkv", {"khat": BF16, "dv": F32}),
+    ("onesweep", {"dq": F32, "dd": F32, "dcons": BF16, "khat": BF16, "dv": F32}),
 ])
 def test_workspaces_wide(form, want):
-    """"wgmma_wide" (the imagenet224-pod width, d = 1024) also hands its
-    finishing pass the f32 dk."""
+    """"wgmma_wide" (the imagenet224-pod width, d = 1024) takes the same
+    scratches as "wgmma": its dk pass applies the norm VJP itself, so no
+    f32 dk is handed to a finishing launch."""
     lv = torch.zeros(2, 1, 256, 1024, dtype=BF16)
     ws = k2.bwd_workspaces(lv, form)
     assert {k: t.dtype for k, t in ws.items()} == want
     for k, t in ws.items():
         assert tuple(t.shape) == ((2, 1, 256, 1) if k == "dd" else tuple(lv.shape))
+
+
+@pytest.mark.parametrize("d", [704, 768, 1024])
+@pytest.mark.parametrize("form", ["dq", "dkv", "onesweep"])
+def test_workspaces_wide_widths_match_narrow(d, form):
+    """Every width of "wgmma_wide" allocates what "wgmma" allocates for the
+    same form, at its own shape: no dk scratch at any width."""
+    wide = k2.bwd_workspaces(torch.zeros(2, 1, 96, d, dtype=BF16), form)
+    narrow = k2.bwd_workspaces(torch.zeros(2, 1, 96, 640, dtype=BF16), form)
+    assert k2.k2_bwd_instance(BF16, 96, d) == "wgmma_wide"
+    assert {k: t.dtype for k, t in wide.items()} == {k: t.dtype for k, t in narrow.items()}
+    assert "dk" not in wide
+    for k, t in wide.items():
+        assert tuple(t.shape) == ((2, 1, 96, 1) if k == "dd" else (2, 1, 96, d))
+
+
+@pytest.mark.parametrize("L,B,n,d,rows,upper", [
+    (12, 2, 256, 1024, 4, 1024),  # the pod's per-iteration pair: 96 clusters
+    (12, 8, 256, 1024, 4, 1024),  # the pod loop's combine: 384 clusters
+    (3, 2, 96, 704, 2, 704),  # an odd width: rank 1 holds three 64-column boxes
+    (3, 1, 64, 768, 1, 768),  # rank 1 holds four boxes
+])
+def test_wide_bwd_grid(L, B, n, d, rows, upper):
+    """The wide backward's clusters: two blocks for each 64 rows of a slot,
+    the pair along y; rank 0 holds columns 0-511, rank 1 the rest of d."""
+    geo = k2.wide_bwd_grid(L, B, n, d)
+    assert geo["grid"] == (rows, 2, L * B)
+    assert geo["cluster"] == (1, 2, 1)
+    assert geo["clusters"] == rows * L * B
+    assert geo["columns"] == [(0, 512), (512, upper)]
+    lo, hi = geo["columns"][1]
+    assert (hi - lo) % 64 == 0 and 0 < hi - lo <= 512
+
+
+@pytest.mark.parametrize("d", [640, 1088, 960 + 32])
+def test_wide_bwd_grid_refuses_other_widths(d):
+    with pytest.raises(ValueError, match="wide backward"):
+        k2.wide_bwd_grid(2, 1, 64, d)
 
 
 def test_workspaces_refuse_unknown_form():
