@@ -40,8 +40,12 @@ after:
     1024, 1024], K4 at 32 pages of d = 768 and 1024; bf16 and f32, at the
     bars of the flagship's phases; K2's and K4's two-block clusters also
     on mirrored levels, whose mirrored output quarters must agree bit for
-    bit, and their launch config read back from the card), timed beside
-    their bounds and library calls; then the pod model itself, random
+    bit, and their launch config read back from the card; K1's pair
+    instance, two-block clusters that multicast A, at M = 160 and 2048:
+    the combined grid bit for bit its split launches, pre-only bit for bit
+    the saved pre, repeats, rows independent of the grid and 640-row slabs
+    bit for bit, `k1.gemm_launch()`'s clusters), timed beside their
+    bounds and library calls (K1's rows by pass); then the pod model itself, random
     weights from SEED, 12
     iterations: three bf16 remat steps at batch 8 on the loop and at batch
     2 on the per-iteration route (exact launches, p50, peak MiB), the f32
@@ -49,7 +53,7 @@ after:
     bucket-8 dispatch (24 K1, 12 K2; f32 and bf16 against the plain f32
     path) and a 32-page ragged dispatch (24 K1, 12 K4, 0 K2; f32 against
     the plain banded and bucket routes). The wide instances ride the
-    kernels line with their pod launches (`*_wide`);
+    kernels line with their pod launches (`*_wide`, K1's `*_pair`);
   * serving: every bucket through InferenceEngine, with the launch counts
     of that run, its float32 parity with the plain path and the bf16
     answer's distance from that path;
@@ -608,50 +612,77 @@ def _dist_child(rank, world, init, device, cases, q):
             dist.destroy_process_group()
 
 
-def _dist_spawn(world: int, cases, device: str = "cuda:0") -> list:
-    """[(case, kwargs), ...] on `world` gloo ranks on `device` -> each
-    rank's {i: the i-th case's result, "staged": {i: the ops its gloo calls
-    staged through host memory}}. Raises with the failing ranks'
-    tracebacks."""
+def _dist_start(world: int, cases, device: str = "cuda:0") -> tuple:
+    """Starts [(case, kwargs), ...] on `world` gloo ranks on `device`, a
+    store of their own: the handle `_dist_collect` takes. Two spawns may run
+    at once."""
     import os
-    import queue
     import tempfile
 
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    results, errors = {}, []
-    with tempfile.TemporaryDirectory(prefix="glom_dist_") as tmp:
-        init = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_dist_child, args=(r, world, init, device, cases, q))
-                 for r in range(world)]
+    tmp = tempfile.TemporaryDirectory(prefix="glom_dist_")
+    init = "file://" + os.path.join(tmp.name, "store")
+    procs = [ctx.Process(target=_dist_child, args=(r, world, init, device, cases, q))
+             for r in range(world)]
+    try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + DIST_TIMEOUT_S
-        try:
-            while len(results) + len(errors) < world:
-                try:
-                    rank, status, payload = q.get(timeout=1.0)
-                except queue.Empty:
-                    dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                    if dead or time.monotonic() > deadline:
-                        errors.append(f"ranks exited {dead} or timed out")
-                        break
-                    continue
-                if status == "ok":
-                    results[rank] = payload
-                else:
-                    errors.append(f"rank {rank}:\n{payload}")
-        finally:
-            for p in procs:
-                p.join(30)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
+    except BaseException:
+        _dist_collect((world, q, procs, tmp), abort=True)
+        raise
+    return world, q, procs, tmp
+
+
+def _dist_collect(handle: tuple, abort: bool = False) -> list:
+    """Waits for `_dist_start`'s ranks -> each rank's {i: the i-th case's
+    result, "staged": {i: the ops its gloo calls staged through host
+    memory}}; joins (or kills) every rank and removes the store. Raises
+    with the failing ranks' tracebacks. `abort` kills the ranks at once
+    (a phase that failed beside them) and raises."""
+    import queue
+
+    world, q, procs, tmp = handle
+    results, errors = {}, []
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    if abort:
+        errors.append("aborted: the phase beside these ranks failed")
+    try:
+        while len(results) + len(errors) < world and not abort:
+            try:
+                rank, status, payload = q.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    errors.append(f"ranks exited {dead} or timed out")
+                    break
+                continue
+            if status == "ok":
+                results[rank] = payload
+            else:
+                errors.append(f"rank {rank}:\n{payload}")
+    finally:
+        for p in procs:
+            if p.pid is None:
+                continue
+            p.join(0 if abort else 30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        tmp.cleanup()
     if errors:
         raise AssertionError("a rank failed:\n" + "\n".join(errors))
     return [results[r] for r in range(world)]
+
+
+def _dist_spawn(world: int, cases, device: str = "cuda:0") -> list:
+    """[(case, kwargs), ...] on `world` gloo ranks on `device` -> each
+    rank's {i: the i-th case's result, "staged": {i: the ops its gloo calls
+    staged through host memory}}. Raises with the failing ranks'
+    tracebacks."""
+    return _dist_collect(_dist_start(world, cases, device))
 
 
 def _loop_launches(k):
@@ -871,14 +902,23 @@ def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
                   patch_size=cfg.patch_size)
     device = str(dev)
 
-    # -- dist_dp2, dist_zero, dist_sp (ring, ulysses), dist_tp2: one 2-rank spawn --
+    # -- dist_dp2, dist_zero, dist_sp (ring, ulysses), dist_tp2: one 2-rank spawn,
+    # and beside it dist_sp's 4-rank halo spawn (six ranks on the card at once) --
     t0 = time.perf_counter()
-    res2 = _dist_spawn(2, [
-        ("dp2", {"cfg_kw": cfg_kw}), ("zero", {"cfg_kw": cfg_kw}),
-        ("sp", {"strategy": "ring", "seq": 2, "cfg_kw": cfg_kw}),
-        ("sp", {"strategy": "ulysses", "seq": 2, "cfg_kw": cfg_kw}),
-        ("tp2", {"cfg_kw": cfg_kw}),
-    ], device)
+    halo = _dist_start(4, [("sp", {"strategy": "halo", "seq": 4, "cfg_kw": halo_cfg})], device)
+    try:
+        res2 = _dist_spawn(2, [
+            ("dp2", {"cfg_kw": cfg_kw}), ("zero", {"cfg_kw": cfg_kw}),
+            ("sp", {"strategy": "ring", "seq": 2, "cfg_kw": cfg_kw}),
+            ("sp", {"strategy": "ulysses", "seq": 2, "cfg_kw": cfg_kw}),
+            ("tp2", {"cfg_kw": cfg_kw}),
+        ], device)
+    except BaseException:
+        try:
+            _dist_collect(halo, abort=True)
+        except AssertionError:
+            pass
+        raise
     spawn2_s = time.perf_counter() - t0
     staged = [r["staged"] for r in res2]
     for r in res2:
@@ -941,9 +981,9 @@ def dist_phases(cfg, dev, smi: str, *, halo_cfg=DIST_HALO_CFG,
     if not zok:
         raise AssertionError("dist_zero failed its bars")
 
-    # -- dist_sp: ring and Ulysses at seq 2 (above), halo at seq 4 (imagenet256-local) --
-    t0 = time.perf_counter()
-    res_h = _dist_spawn(4, [("sp", {"strategy": "halo", "seq": 4, "cfg_kw": halo_cfg})], device)
+    # -- dist_sp: ring and Ulysses at seq 2 (above), halo at seq 4 (imagenet256-local;
+    # its spawn started beside the 2-rank one: the seconds from then) --
+    res_h = _dist_collect(halo)
     halo_s = time.perf_counter() - t0
     want_sp = _full(_per_op_launches(k, with_k2=False))
     sp_rows, sp_ok = {}, True
@@ -1386,6 +1426,35 @@ def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
     # The kernels count launches on the card only (a CPU run, the dry run of
     # these phases, takes the plain versions).
     counted = dev.type == "cuda"
+    # serve_cli_mesh's two ranks start first and run beside the spawn (its
+    # checks read no time): four ranks on the card at once.
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli_tmp = tempfile.TemporaryDirectory(prefix="glom_serve_mesh_cli_")
+    cli_out = os.path.join(cli_tmp.name, "serve.jsonl")
+    cli_t0 = time.perf_counter()
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "--monitor-interval", "0.1", "-m", "glom_tpu_torch.serve", *cli_argv, "--device",
+         str(dev), "--out", cli_out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+    try:
+        return _mesh_phases(cfg, dev, smi, cli_argv, cfg_kw, page_tokens, total, add, counted,
+                            (cli_proc, cli_t0, cli_out, root))
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.communicate()
+        cli_tmp.cleanup()
+
+
+def _mesh_phases(cfg, dev, smi, cli_argv, cfg_kw, page_tokens, total, add, counted, cli):
+    """mesh_phases' checks, with serve_cli_mesh's run `cli` (process, start
+    time, its --out file, the repo root) started beside the spawn."""
+    import os
+    import statistics
+
+    import torch
+
     t0 = time.perf_counter()
     res = _dist_spawn(2, [("mesh_forward", {"cfg_kw": cfg_kw}),
                           ("serve_mesh", {"cfg_kw": cfg_kw})], str(dev))
@@ -1493,22 +1562,16 @@ def mesh_phases(cfg, dev, smi: str, *, cli_argv=MESH_CLI_ARGV) -> dict:
     if not ok:
         raise AssertionError("serve_mesh failed its checks")
 
-    # -- serve_cli_mesh: torch.distributed.run, 2 ranks on the card ---------------------
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="glom_serve_mesh_cli_") as tmp:
-        out = os.path.join(tmp, "serve.jsonl")
-        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                "--nproc-per-node", "2", "--monitor-interval", "0.1", "-m",
-                "glom_tpu_torch.serve", *cli_argv, "--device", str(dev), "--out", out]
-        proc = subprocess.run(argv, capture_output=True, text=True, timeout=600,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
-                              capture_output=True, text=True, timeout=120,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        recs = []
-        if os.path.exists(out):
-            with open(out) as fh:
-                recs = [json.loads(ln) for ln in fh]
+    # -- serve_cli_mesh: torch.distributed.run, 2 ranks on the card (started above) -----
+    proc, t0, out, root = cli
+    stdout, stderr = proc.communicate(timeout=600)
+    proc = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, stderr)
+    lint = subprocess.run([sys.executable, "-m", "glom_tpu_torch.telemetry", out],
+                          capture_output=True, text=True, timeout=120, cwd=root)
+    recs = []
+    if os.path.exists(out):
+        with open(out) as fh:
+            recs = [json.loads(ln) for ln in fh]
     summary = [r for r in recs if r.get("event") == "summary"]
     n_req = int(cli_argv[cli_argv.index("--synthetic") + 1])
     ok = (proc.returncode == 0 and lint.returncode == 0 and len(summary) == 1
@@ -3083,11 +3146,25 @@ BENCH_METRICS = {
 }
 
 
-def lint_phase() -> None:
-    """`python -m glom_tpu_torch.analysis glom_tpu_torch` in a subprocess,
-    before anything touches the card: it must exit 0 (glom_tpu's pre-flight
-    step 0). Prints the findings, the suppressions (inline pragmas and the
-    port's baseline entries), the warnings and the seconds."""
+def lint_start() -> tuple:
+    """Starts `python -m glom_tpu_torch.analysis glom_tpu_torch` in a
+    subprocess: (start time, process), for `lint_phase`. main() starts it
+    before the kernels' build, which it runs beside (glom-lint needs no
+    card and one core)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "glom_tpu_torch.analysis", "glom_tpu_torch"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def lint_phase(started: tuple = None) -> None:
+    """glom-lint over the port (`lint_start`'s subprocess, started here
+    unless `started` is given), before anything touches the card: it must
+    exit 0 (glom_tpu's pre-flight step 0). Prints the findings, the
+    suppressions (inline pragmas and the port's baseline entries), the
+    warnings and the seconds from its start to its exit."""
     import os
     import re
 
@@ -3096,9 +3173,14 @@ def lint_phase() -> None:
     from glom_tpu_torch.analysis.core import load_modules
 
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "glom_tpu_torch.analysis", "glom_tpu_torch"],
-                          cwd=root, capture_output=True, text=True, timeout=300)
+    t0, lint_proc = started if started is not None else lint_start()
+    try:
+        out, err = lint_proc.communicate(timeout=300)
+    finally:
+        if lint_proc.poll() is None:
+            lint_proc.kill()
+            lint_proc.wait()
+    proc = subprocess.CompletedProcess(lint_proc.args, lint_proc.returncode, out, err)
     seconds = time.perf_counter() - t0
     lines = proc.stdout.splitlines()
     findings = [ln for ln in lines if re.match(r"^\S+:\d+:\d+: \[", ln)]
@@ -4542,9 +4624,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    # -- build ---------------------------------------------------------------
+    # -- build (glom-lint runs beside it: the lint phase below) -------------------
+    lint = lint_start()
     t0 = time.perf_counter()
-    logs = _build.prebuild()
+    try:
+        logs = _build.prebuild()
+    except BaseException:
+        lint[1].kill()
+        lint[1].wait()
+        raise
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -4555,7 +4643,7 @@ def main() -> int:
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     # -- lint: glom-lint over the port, before the card is touched ------------------
-    lint_phase()
+    lint_phase(lint)
 
     # -- device --------------------------------------------------------------
     smi = _nvidia_smi()
@@ -5241,6 +5329,121 @@ def main() -> int:
             check_bwd("K1 acc", dict(which=f"pod_{which}", shape=[G, Mp, dp], dtype=str(dtype)),
                       pairs, BWD_BARS["K1"][dname], phase="k1_bwd_acc_vs_plain")
 
+    # K1's pair instance at the pod width ("wgmma_pair": two-block clusters
+    # that multicast A, csrc/sm90_gemm.cuh), bf16, on inputs from a generator
+    # of its own: the launch config read back from the card; at M = 160 and
+    # 2048 the combined grid (L = 3: 5 groups) bit for bit its two split
+    # launches (out, saved pre, pre-only, dx, totals, da) and against the
+    # plain versions at K1's bars; the pre-only launch bit for bit the saved
+    # pre; repeats bit for bit; a group's rows the same bits alone as inside
+    # the grid, and the first 1,024 rows as inside 2,048; row slabs of 640
+    # rows (5 row tiles) bit for bit one pass.
+    gemm_launch = k1.gemm_launch()
+    emit("k1_gemm_launch", instance=k1.gemm_instance(dp, fp), **gemm_launch)
+    if k1.gemm_instance(dp, fp) != "wgmma_pair" or min(
+            gemm_launch["max_active_clusters"].values()) < 1:
+        failures.append(f"K1 pair launch holds no cluster: {gemm_launch}")
+    gen_pair = torch.Generator().manual_seed(SEED + 24)
+
+    def randn_pair(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen_pair) * scale).to(dev, dtype)
+
+    def pair_ffw(G):
+        return GroupedFFWParams(randn_pair(G, dp, fp, scale=dp ** -0.5),
+                                randn_pair(G, fp, scale=0.1),
+                                randn_pair(G, fp, dp, scale=fp ** -0.5),
+                                randn_pair(G, dp, scale=0.1))
+
+    L3, n_pair = 3, 32
+    bu_pair, td_pair = pair_ffw(L3), pair_ffw(L3 - 1)
+    w_pair = k1.cat_params(td_pair, bu_pair)
+    add_pair = randn_pair(n_pair, dp)
+    for M_p in (160, Mp):
+        carry, dmean = randn_pair(L3 + 1, M_p, dp), randn_pair(L3, M_p, dp)
+        out, pre = k1.fused_grouped_ffw_lm(w_pair, carry, add=add_pair, save_pre=True, cat=True)
+        out_td, pre_td = k1.fused_grouped_ffw_lm(td_pair, carry[2:], add=add_pair, save_pre=True)
+        out_bu, pre_bu = k1.fused_grouped_ffw_lm(bu_pair, carry[:L3], save_pre=True)
+        pre_only = k1.grouped_mlp_pre(w_pair, carry, add=add_pair, cat=True)
+        acc = GroupedFFWParams(*(randn_pair(*t.shape, dtype=f32) for t in w_pair))
+        da_in = randn_pair(n_pair, dp, dtype=f32)
+        acc0, da0 = GroupedFFWParams(*(t.clone() for t in acc)), da_in.clone()
+        acc_td = GroupedFFWParams(*(t[:L3 - 1].clone() for t in acc))
+        acc_bu = GroupedFFWParams(*(t[L3 - 1:].clone() for t in acc))
+        da_split = da_in.clone()
+
+        def bwd_cat(acc=acc, da_in=da_in):
+            return k1.grouped_mlp_bwd(w_pair, carry, dmean, add=add_pair, pre=pre, acc=acc,
+                                      da_in=da_in, cat=True)
+        dx, grads, da = bwd_cat()
+        dx_td, _, _ = k1.grouped_mlp_bwd(td_pair, carry[2:], dmean[:L3 - 1], add=add_pair,
+                                         pre=pre_td, acc=acc_td, da_in=da_split)
+        dx_bu, _, _ = k1.grouped_mlp_bwd(bu_pair, carry[:L3], dmean, pre=pre_bu, acc=acc_bu)
+        acc_again = GroupedFFWParams(*(t.clone() for t in acc0))
+        again = bwd_cat(acc_again, da0.clone())
+        torch.cuda.synchronize()
+        equal = {
+            "fwd_out": torch.equal(out, torch.cat([out_td, out_bu])),
+            "fwd_pre": torch.equal(pre, torch.cat([pre_td, pre_bu])),
+            "pre_only": torch.equal(pre_only, pre),
+            "bwd_dx": torch.equal(dx, torch.cat([dx_td, dx_bu])),
+            "bwd_totals": all(torch.equal(a, torch.cat([t, b]))
+                              for a, t, b in zip(grads, acc_td, acc_bu)),
+            "bwd_da": torch.equal(da, da_split),
+            "fwd_repeat": all(torch.equal(a, b) for a, b in zip(
+                (out, pre), k1.fused_grouped_ffw_lm(w_pair, carry, add=add_pair, save_pre=True,
+                                                    cat=True))),
+            "bwd_repeat": torch.equal(again[0], dx) and torch.equal(again[2], da)
+            and all(torch.equal(a, b) for a, b in zip(again[1], grads)),
+        }
+        want_out, want_pre = k1.grouped_mlp_plain(w_pair, carry, add_pair, save_pre=True, cat=True)
+        want = k1.grouped_mlp_bwd_plain(w_pair, carry, dmean, add_pair, pre, acc0, da0, cat=True)
+        vs_plain = {"fwd": compare(out, want_out, *bars[bf16]),
+                    "pre": compare(pre_only, want_pre, *bars[bf16])}
+        bwd_ratio = {nm: err_over_max(a, b)[1] / BWD_BARS["K1"]["bf16"]
+                     for nm, a, b in zip(("dx", "dw1", "db1", "dw2", "db2", "da"),
+                                         (dx, *grads, da), (want[0], *want[1], want[2]))}
+        ok_p = all(r[0] for r in vs_plain.values()) and max(bwd_ratio.values()) <= 1.0
+        if M_p == Mp:
+            pod_err.update(k1_cat_fwd=vs_plain["fwd"][1], k1_cat_pre=vs_plain["pre"][1],
+                           k1_cat_bwd=err_over_max(dx, want[0])[0])
+        emit("k1_pair_vs_plain", groups=2 * L3 - 1, shape=[L3 + 1, M_p, dp], f=fp,
+             instance=k1.gemm_instance(dp, fp), equal_to_split=equal,
+             max_abs_err_vs_plain={"fwd": vs_plain["fwd"][1], "pre": vs_plain["pre"][1]},
+             bar_ratio_vs_plain={"fwd": vs_plain["fwd"][3], "pre": vs_plain["pre"][3],
+                                 **{f"bwd_{k_}": v_ for k_, v_ in bwd_ratio.items()}},
+             ok=all(equal.values()) and ok_p)
+        if not (all(equal.values()) and ok_p):
+            failures.append(f"K1 pair M={M_p}: {equal} {bwd_ratio}")
+    # A group's rows alone and inside the grid; the first half of the rows.
+    x3, g3 = randn_pair(L3, Mp, dp), randn_pair(L3, Mp, dp)
+
+    def pair_rows(p, xs, gs):
+        out, pre = k1.fused_grouped_ffw_lm(p, xs, add=add_pair, save_pre=True)
+        return (out, pre, k1.grouped_mlp_pre(p, xs, add=add_pair),
+                k1.grouped_mlp_bwd(p, xs, gs, add=add_pair, pre=pre)[0])
+    full = pair_rows(bu_pair, x3, g3)
+    alone = pair_rows(GroupedFFWParams(*(t[1:2].contiguous() for t in bu_pair)),
+                      x3[1:2].contiguous(), g3[1:2].contiguous())
+    half = pair_rows(bu_pair, x3[:, :Mp // 2].contiguous(), g3[:, :Mp // 2].contiguous())
+    grid_free = all(torch.equal(a[1:2], b) and torch.equal(a[:, :Mp // 2], c)
+                    for a, b, c in zip(full, alone, half))
+    # Row slabs of 640 rows against one pass (the hidden scratch's cap
+    # lowered for the call).
+    cap = k1.H_SCRATCH_CAP
+    k1.H_SCRATCH_CAP = L3 * 640 * fp * 2
+    try:
+        slab_R = k1.slab_rows(L3, Mp, fp)
+        slabs = (*k1.fused_grouped_ffw_lm(bu_pair, x3, add=add_pair, save_pre=True),
+                 k1.grouped_mlp_pre(bu_pair, x3, add=add_pair))
+    finally:
+        k1.H_SCRATCH_CAP = cap
+    slabs_equal = slab_R == 640 and all(torch.equal(a, b) for a, b in zip(full[:3], slabs))
+    emit("k1_pair_bitwise", shape=[L3, Mp, dp], f=fp, rows_independent_of_grid=grid_free,
+         slab_rows=slab_R, slabs_equal_one_pass=slabs_equal, ok=grid_free and slabs_equal)
+    if not (grid_free and slabs_equal):
+        failures.append(f"K1 pair grid-free {grid_free}, slabs {slabs_equal}")
+    del bu_pair, td_pair, w_pair, x3, g3, full, alone, half, slabs
+
     # K2 forward: the pod's bucket-8 row, global and local, attend_self both
     # ways; the odd width at the edge rows of the 64-row tiles.
     for dtype in (bf16, f32):
@@ -5531,7 +5734,7 @@ def main() -> int:
     k1_bwd_names = ("mlp_bwd_addend_bf16", "mlp_bwd_dh_sm90", "mlp_bwd_dx_sm90",
                     "mlp_bwd_dw_sm90", "da_reduce", "mlp_bwd_rows_bf16", "mlp_bwd_weights_bf16")
 
-    def k1_bwd_profile(run):
+    def k1_bwd_profile(run, host_batches=9):
         for _ in range(3):
             us = device_us_by_kernel(run, calls=10, key=lambda name: next(
                 (k for k in k1_bwd_names if k in name), "other"))
@@ -5542,7 +5745,15 @@ def main() -> int:
         path = ("sm90" if "mlp_bwd_dh_sm90" in us else
                 "wmma" if "mlp_bwd_rows_bf16" in us else "unknown")
         return dict(kernels_ms={k: v / 1e3 for k, v in us.items()},
-                    host_us_per_call=host_us(run), path=path)
+                    host_us_per_call=host_us(run, batches=host_batches), path=path)
+
+    # K1's forward launches by kernel: the addend's xa, pass 1, pass 2.
+    k1_fwd_names = ("mlp_fwd_addend_bf16", "mlp_fwd_hidden_bf16", "mlp_fwd_out_bf16")
+
+    def k1_fwd_profile(run):
+        us = device_us_by_kernel(run, calls=5, key=lambda name: next(
+            (k for k in k1_fwd_names if k in name), "other"))
+        return dict(kernels_ms={k: v / 1e3 for k, v in us.items()})
 
     def with_add(x, add):
         G = x.shape[0]
@@ -5997,7 +6208,8 @@ def main() -> int:
                   time_ms(lambda: k1.grouped_mlp_plain(params, x, None)),
                   4 * Lp * Mp * dp * fp, 2 * (2 * Lp * Mp * dp + 2 * Lp * dp * fp + Lp * (fp + dp)),
                   library_seq_ms=time_ms(lambda: k1_library_seq(params, x)),
-                  library_seq_call=k1_seq_call)
+                  library_seq_call=k1_seq_call, instance=k1.gemm_instance(dp, fp),
+                  **k1_fwd_profile(lambda: k1.fused_grouped_ffw_lm(params, x)))
     for label, p_in in (("k1_bwd_pod_b8", pre), ("k1_bwd_recompute_pod_b8", None)):
         def k1_pod_bwd(p_in=p_in):
             return k1.grouped_mlp_bwd(params, x, g, pre=p_in)
@@ -6011,7 +6223,11 @@ def main() -> int:
                       2 * (3 * Lp * Mp * dp + (Lp * Mp * fp if p_in is not None else 0)
                            + 4 * Lp * dp * fp + Lp * (fp + dp)),
                       library_seq_ms=k1_seq_bwd_ms(params, x, g),
-                      library_seq_call=k1_seq_bwd_call, **k1_bwd_profile(k1_pod_bwd))
+                      library_seq_call=k1_seq_bwd_call,
+                      # The recompute's 60 ms calls: the host's time a call
+                      # over 3 batches of 20, not 9 (about 7 s of the card).
+                      **k1_bwd_profile(k1_pod_bwd, host_batches=9 if p_in is not None else 3),
+                      **({"instance": k1.gemm_instance(dp, fp)} if p_in is not None else {}))
     del x, g, pre
     # The pod loop's combined K1 grid (2 Lp - 1 = 23 groups of [Mp, dp], f =
     # 4 dp): the forward with its saved pre, the pre-only launch of remat
@@ -6051,18 +6267,20 @@ def main() -> int:
     ):
         if label == "k1_fwd_cat_pod_b8":
             lib = dict(library_seq_ms=time_ms(lambda: k1_library_seq(wcat_p, x_cat_p)),
-                       library_seq_call=k1_seq_call + ", over the 23 groups' concatenated input")
+                       library_seq_call=k1_seq_call + ", over the 23 groups' concatenated input",
+                       **k1_fwd_profile(run))
         elif label == "k1_pre_cat_pod_b8":
             lib = dict(library_ms=time_ms(lambda: torch.baddbmm(wcat_p.b1[:, None], x_cat_p,
                                                                  wcat_p.w1)),
-                       library_call="torch.baddbmm over the 23 groups after x + tile(add)")
+                       library_call="torch.baddbmm over the 23 groups after x + tile(add)",
+                       **k1_fwd_profile(run))
         else:
             lib = dict(library_seq_ms=k1_seq_bwd_ms(wcat_p, x_cat_p,
                                                     torch.cat([dmean_p[:Lp - 1], dmean_p])),
                        library_seq_call=k1_seq_bwd_call + ", over the 23 groups",
                        **k1_bwd_profile(run))
         record_timing(label, [Gp, Mp, dp], time_ms(run), time_ms(plain, reps=5), ops, nbytes,
-                      **lib)
+                      instance=k1.gemm_instance(dp, fp), **lib)
     del wcat_p, carry_p, pre_p, dmean_p, acc_p, da_p, x_cat_p
     lv = consensus_inputs((Lp, 8, n, dp), bf16, g=gen_pod)[0]
     bu, td = randn_pod(Lp, 8, n, dp, dtype=bf16), randn_pod(Lp - 1, 8, n, dp, dtype=bf16)
@@ -7784,7 +8002,24 @@ def main() -> int:
     # at the pod shapes.
     pod_scan, pod_loop = pod_train["scan_blockwise"]["launches"], pod_train["fused_loop"][
         "launches"]
-    for kname, src, replaces, n_launch, err, tkey, also in (
+    # K1's pair instance ("wgmma_pair") at the pod width: its serving and
+    # per-iteration launches (grouped_mlp.py's sites) and the loop's
+    # combined-grid launches (fused_loop.py's), with their pod times.
+    pair_rows = (
+        ("grouped_mlp_fwd_pair", "grouped_mlp.cu", "glom_tpu/kernels/grouped_mlp.py:170",
+         pod_launches["grouped_mlp_fwd"] + pod_launches["grouped_mlp_fwd_add"],
+         pod_err["k1_bottom_up"], "k1_pod_b8", ["glom_tpu/kernels/grouped_mlp.py:218"]),
+        ("grouped_mlp_bwd_pair", "grouped_mlp_bwd.cu", "glom_tpu/kernels/grouped_mlp.py:503",
+         pod_scan["K1 bwd"], pod_err["k1_bwd"], "k1_bwd_pod_b8",
+         ["glom_tpu/kernels/grouped_mlp.py:543"]),
+        ("grouped_mlp_fwd_cat_pair", "grouped_mlp.cu", loop_src + "354", pod_loop["K1 fwd cat"],
+         pod_err["k1_cat_fwd"], "k1_fwd_cat_pod_b8", None),
+        ("grouped_mlp_pre_cat_pair", "grouped_mlp.cu", loop_src + "387", pod_loop["K1 pre cat"],
+         pod_err["k1_cat_pre"], "k1_pre_cat_pod_b8", None),
+        ("grouped_mlp_bwd_acc_cat_pair", "grouped_mlp_bwd.cu", loop_src + "525",
+         pod_loop["K1 bwd acc cat"], pod_err["k1_cat_bwd"], "k1_bwd_acc_cat_pod_b8", None),
+    )
+    for kname, src, replaces, n_launch, err, tkey, also in (*pair_rows,
         ("consensus_update_fwd_wide", "consensus_update.cu",
          "glom_tpu/kernels/consensus_update.py:473", pod_launches["consensus_update_fwd"],
          pod_err["k2"], "k2_pod_b8", None),
@@ -7809,7 +8044,7 @@ def main() -> int:
     # pool (each counted from 0 over its timed turns). The pod width's
     # instances run on the pod paths only.
     for kd in kernels:
-        if kd["name"].endswith("_wide"):
+        if kd["name"].endswith(("_wide", "_pair")):
             continue
         if kd["name"] in paged_launches:
             kd["paged_launches"] = paged_launches[kd["name"]]

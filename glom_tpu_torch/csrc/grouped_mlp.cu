@@ -51,7 +51,10 @@
 //     reads that scratch for groups below split and x in place for the
 //     rest (the mainloop's group rule).
 // Rows past M and columns past f or d are zero-filled by TMA on load and
-// masked on store, so any M % 32 == 0 and d, f % 64 == 0 run.
+// masked on store, so any M % 32 == 0 and d, f % 64 == 0 run. At d = 1024
+// (`sm90::pair_instance`) both passes run the mainloop's pair instance
+// (two-block clusters that multicast A; the `PAIR` kernels): their stores
+// leave by TMA, and a tile's bias pairs are read into registers once.
 //
 // Kept out of device memory: every f32 sum (in registers from the first
 // product to its rounding) and, in f32, the [G, M, f] hidden layer (in
@@ -72,6 +75,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sm90_gemm.cuh"
 
@@ -180,48 +185,146 @@ struct OutEpilogue {
   }
 };
 
-// The two passes' kernels, named for profiles.
+// The pair instance's epilogues (sm90_gemm.cuh): the same arithmetic and
+// rounding points as those above, the stores by TMA from the warp stage. A
+// tile's bias pairs are read once into registers (`tile`), ahead of any
+// write to the stage: read from global memory per pair, after the previous
+// pair's write to the stage, each waited out a round trip to L1.
+__device__ __forceinline__ void bias_pairs(__nv_bfloat162 (&bb)[sm90::BN / 8], const bf16* bias,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < sm90::BN / 8; ++j)
+    bb[j] = *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + 2 * (t % 4));
+}
+
+// Pass 1: pre = round(sum + b1) (SAVE_PRE), h = round(GELU_tanh(sum + b1))
+// (STORE_H), as HiddenEpilogue.
 template <bool SAVE_PRE, bool STORE_H>
+struct HiddenPairEpilogue {
+  CUtensorMap pre_map;  // [G, M, f], box [64, 16, 1] (SAVE_PRE)
+  CUtensorMap h_map;    // [G, R, f], box [64, 16, 1] (STORE_H)
+  const bf16* b1;
+  __device__ __forceinline__ void half(const float (&acc)[sm90::ACC],
+                                       const __nv_bfloat162 (&bb)[sm90::BN / 8], int g,
+                                       int abs_row, int rel_row, int col0, int t,
+                                       uint32_t* stage) const {
+    if constexpr (SAVE_PRE)
+      sm90::pair_store_half(acc, t, stage, &pre_map, col0, abs_row, g,
+                            [&](int j, float v0, float v1) {
+                              const float2 z = __bfloat1622float2(bb[j]);
+                              return __floats2bfloat162_rn(v0 + z.x, v1 + z.y);
+                            });
+    if constexpr (STORE_H)
+      sm90::pair_store_half(acc, t, stage, &h_map, col0, rel_row, g,
+                            [&](int j, float v0, float v1) {
+                              const float2 z = __bfloat1622float2(bb[j]);
+                              return __floats2bfloat162_rn(gelu_tanh(v0 + z.x),
+                                                           gelu_tanh(v1 + z.y));
+                            });
+  }
+  __device__ void tile(const float (&acc0)[sm90::ACC], const float (&acc1)[sm90::ACC], int g,
+                       int abs_row, int rel_row, int col0, int t, uint32_t* stage,
+                       const sm90::Shape& s) const {
+    __nv_bfloat162 bb[sm90::BN / 8];
+    bias_pairs(bb, b1 + (size_t)g * s.N + col0, t);
+    half(acc0, bb, g, abs_row, rel_row, col0, t, stage);
+    half(acc1, bb, g, abs_row + 64, rel_row + 64, col0, t, stage);
+  }
+};
+
+// Pass 2: out = round(sum + b2), as OutEpilogue.
+struct OutPairEpilogue {
+  CUtensorMap out_map;  // [G, M, d], box [64, 16, 1]
+  const bf16* b2;
+  __device__ void tile(const float (&acc0)[sm90::ACC], const float (&acc1)[sm90::ACC], int g,
+                       int abs_row, int, int col0, int t, uint32_t* stage,
+                       const sm90::Shape& s) const {
+    __nv_bfloat162 bb[sm90::BN / 8];
+    bias_pairs(bb, b2 + (size_t)g * s.N + col0, t);
+    auto out_of = [&](int j, float v0, float v1) {
+      const float2 z = __bfloat1622float2(bb[j]);
+      return __floats2bfloat162_rn(v0 + z.x, v1 + z.y);
+    };
+    sm90::pair_store_half(acc0, t, stage, &out_map, col0, abs_row, g, out_of);
+    sm90::pair_store_half(acc1, t, stage, &out_map, col0, abs_row + 64, g, out_of);
+  }
+};
+
+// The two passes' kernels, named for profiles; PAIR: the pair instance.
+template <bool SAVE_PRE, bool STORE_H, bool PAIR>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_fwd_hidden_bf16(const __grid_constant__ CUtensorMap a_lo,
                     const __grid_constant__ CUtensorMap a_hi,
                     const __grid_constant__ CUtensorMap b, const sm90::Shape shape,
-                    const HiddenEpilogue<SAVE_PRE, STORE_H> epi) {
-  sm90::gemm_tiles(a_lo, a_hi, b, shape, epi);
+                    const __grid_constant__ std::conditional_t<
+                        PAIR, HiddenPairEpilogue<SAVE_PRE, STORE_H>,
+                        HiddenEpilogue<SAVE_PRE, STORE_H>> epi) {
+  sm90::gemm_tiles<false, false, false, PAIR>(a_lo, a_hi, b, shape, epi);
 }
 
+template <bool PAIR>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_fwd_out_bf16(const __grid_constant__ CUtensorMap a_lo, const __grid_constant__ CUtensorMap a_hi,
                  const __grid_constant__ CUtensorMap b, const sm90::Shape shape,
-                 const OutEpilogue epi) {
-  sm90::gemm_tiles(a_lo, a_hi, b, shape, epi);
+                 const __grid_constant__ std::conditional_t<PAIR, OutPairEpilogue, OutEpilogue> epi) {
+  sm90::gemm_tiles<false, false, false, PAIR>(a_lo, a_hi, b, shape, epi);
 }
 
-// Pass 1 over one slab: pre and h (training), h (serving) or pre alone.
-template <bool SAVE_PRE, bool STORE_H>
-cudaError_t hidden_pass(const CUtensorMap& xa_map, const CUtensorMap& x_map,
-                        const CUtensorMap& w1_map, const sm90::Shape& shape,
-                        const HiddenEpilogue<SAVE_PRE, STORE_H>& epi, cudaStream_t s) {
-  static bool lifted[sm90::MAX_DEVICES];
-  return sm90::launch_tiles(mlp_fwd_hidden_bf16<SAVE_PRE, STORE_H>, lifted,
-                            sm90::tile_count(shape), s, xa_map, x_map, w1_map, shape, epi);
+// A pass's launch flags (shared-memory cap lifted, per device) and, for the
+// pair instance, the clusters each device holds at once.
+struct PassLaunch {
+  bool lifted[sm90::MAX_DEVICES];
+  int clusters[sm90::MAX_DEVICES];
+};
+
+template <bool SAVE_PRE, bool STORE_H, bool PAIR>
+PassLaunch hidden_launch;
+template <bool PAIR>
+PassLaunch out_launch;
+
+// One launch of a pass: the single-block grid, or the pair instance's
+// clusters.
+template <bool PAIR, class... Params, class... Args>
+cudaError_t launch_pass(void (*kernel)(Params...), PassLaunch& state, int tiles, cudaStream_t s,
+                        const Args&... args) {
+  if constexpr (PAIR)
+    return sm90::launch_pairs(kernel, state.lifted, state.clusters, tiles, s, args...);
+  else
+    return sm90::launch_tiles(kernel, state.lifted, tiles, s, args...);
 }
 
 // The bf16 forward over row slabs of R rows: per slab, the addend's xa
 // (split > 0), pass 1, and pass 2 unless out is NULL (the pre-only entry).
 // h: [G, R, f] scratch (NULL for pre-only); xa: [split, R, d] scratch.
+template <bool PAIR>
 cudaError_t fwd_bf16(const bf16* x, const bf16* a, int n, const bf16* w1, const bf16* b1,
                      const bf16* w2, const bf16* b2, bf16* out, bf16* pre, bf16* h, bf16* xa,
                      int G, int M, int d, int f, int split, int x_lo, int R, cudaStream_t s) {
   CUtensorMap x_map, xa_map, w1_map, h_map, w2_map;
   const bool pre_only = out == nullptr;
-  cudaError_t err = sm90::make_kmajor_map(&x_map, x, d, M, split < G ? G - split : 1);
-  if (err == cudaSuccess) err = split > 0 ? sm90::make_kmajor_map(&xa_map, xa, d, R, split) : err;
+  const int a_box = PAIR ? 64 : sm90::BM;  // the pair's blocks load half of A each
+  cudaError_t err = sm90::make_kmajor_map(&x_map, x, d, M, split < G ? G - split : 1, a_box);
+  if (err == cudaSuccess)
+    err = split > 0 ? sm90::make_kmajor_map(&xa_map, xa, d, R, split, a_box) : err;
   if (err == cudaSuccess) err = sm90::make_mnmajor_map(&w1_map, w1, d, f, G);
-  if (err == cudaSuccess && !pre_only) err = sm90::make_kmajor_map(&h_map, h, f, R, G);
+  if (err == cudaSuccess && !pre_only) err = sm90::make_kmajor_map(&h_map, h, f, R, G, a_box);
   if (err == cudaSuccess && !pre_only) err = sm90::make_mnmajor_map(&w2_map, w2, f, d, G);
+  CUtensorMap pre_st, h_st, out_st;  // the pair instance's store maps
+  if (PAIR && err == cudaSuccess && pre != nullptr) err = sm90::make_store_map(&pre_st, pre, f, M, G);
+  if (PAIR && err == cudaSuccess && !pre_only) err = sm90::make_store_map(&h_st, h, f, R, G);
+  if (PAIR && err == cudaSuccess && !pre_only) err = sm90::make_store_map(&out_st, out, d, M, G);
   if (err != cudaSuccess) return err;
   if (split == 0) xa_map = x_map;  // not read: no group is below split
+  // Pass 1's epilogue for each instance and store choice.
+  auto hidden = [&](auto save_pre, auto store_h) {
+    constexpr bool S = decltype(save_pre)::value, H = decltype(store_h)::value;
+    if constexpr (PAIR)
+      return HiddenPairEpilogue<S, H>{pre_st, h_st, b1};
+    else
+      return HiddenEpilogue<S, H>{b1, pre, h, M, R};
+  };
+  using T = std::true_type;
+  using F = std::false_type;
   for (int r0 = 0; r0 < M && err == cudaSuccess; r0 += R) {
     const int rows = M - r0 < R ? M - r0 : R;
     if (split > 0) {
@@ -232,17 +335,27 @@ cudaError_t fwd_bf16(const bf16* x, const bf16* a, int n, const bf16* w1, const 
       if (err != cudaSuccess) break;
     }
     const sm90::Shape s1{d, f, G, split, r0, r0 + rows};
+    const int tiles1 = sm90::tile_count(s1);
     if (pre_only)
-      err = hidden_pass(xa_map, x_map, w1_map, s1, HiddenEpilogue<true, false>{b1, pre, h, M, R}, s);
+      err = launch_pass<PAIR>(mlp_fwd_hidden_bf16<true, false, PAIR>,
+                              hidden_launch<true, false, PAIR>, tiles1, s, xa_map, x_map, w1_map,
+                              s1, hidden(T{}, F{}));
     else if (pre != nullptr)
-      err = hidden_pass(xa_map, x_map, w1_map, s1, HiddenEpilogue<true, true>{b1, pre, h, M, R}, s);
+      err = launch_pass<PAIR>(mlp_fwd_hidden_bf16<true, true, PAIR>,
+                              hidden_launch<true, true, PAIR>, tiles1, s, xa_map, x_map, w1_map,
+                              s1, hidden(T{}, T{}));
     else
-      err = hidden_pass(xa_map, x_map, w1_map, s1, HiddenEpilogue<false, true>{b1, pre, h, M, R}, s);
+      err = launch_pass<PAIR>(mlp_fwd_hidden_bf16<false, true, PAIR>,
+                              hidden_launch<false, true, PAIR>, tiles1, s, xa_map, x_map, w1_map,
+                              s1, hidden(F{}, T{}));
     if (err != cudaSuccess || pre_only) continue;
     const sm90::Shape s2{f, d, G, G, r0, r0 + rows};  // every group reads the h scratch
-    static bool lifted_out[sm90::MAX_DEVICES];
-    err = sm90::launch_tiles(mlp_fwd_out_bf16, lifted_out, sm90::tile_count(s2), s, h_map, h_map,
-                             w2_map, s2, OutEpilogue{b2, out, M});
+    if constexpr (PAIR)
+      err = launch_pass<PAIR>(mlp_fwd_out_bf16<PAIR>, out_launch<PAIR>, sm90::tile_count(s2), s,
+                              h_map, h_map, w2_map, s2, OutPairEpilogue{out_st, b2});
+    else
+      err = launch_pass<PAIR>(mlp_fwd_out_bf16<PAIR>, out_launch<PAIR>, sm90::tile_count(s2), s,
+                              h_map, h_map, w2_map, s2, OutEpilogue{b2, out, M});
   }
   return err;
 }
@@ -388,11 +501,12 @@ int grouped_mlp_fwd(const void* x, const void* a, int n, const void* w1, const v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
-                         static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-                         static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-                         static_cast<bf16*>(out), static_cast<bf16*>(pre), static_cast<bf16*>(h),
-                         static_cast<bf16*>(xa), G, M, d, f, split, x_lo, R, s);
+    return (int)(sm90::pair_instance(d, f) ? fwd_bf16<true> : fwd_bf16<false>)(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(out),
+        static_cast<bf16*>(pre), static_cast<bf16*>(h), static_cast<bf16*>(xa), G, M, d, f,
+        split, x_lo, R, s);
   return (int)(pre != nullptr ? launch_f32<true>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f,
                                                  split, x_lo, s)
                               : launch_f32<false>(x, a, n, w1, b1, w2, b2, out, pre, G, M, d, f,
@@ -410,12 +524,46 @@ int grouped_mlp_pre(const void* x, const void* a, int n, const void* w1, const v
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
-                         static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), nullptr,
-                         nullptr, nullptr, static_cast<bf16*>(pre), nullptr,
-                         static_cast<bf16*>(xa), G, M, d, f, split, x_lo, R, s);
+    return (int)(sm90::pair_instance(d, f) ? fwd_bf16<true> : fwd_bf16<false>)(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(a), n,
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1), nullptr, nullptr, nullptr,
+        static_cast<bf16*>(pre), nullptr, static_cast<bf16*>(xa), G, M, d, f, split, x_lo, R, s);
   return (int)launch_f32<true, true>(x, a, n, w1, b1, nullptr, nullptr, nullptr, pre, G, M, d,
                                      f, split, x_lo, s);
+}
+
+// The GEMM instances of K1's bf16 launches by number (kernels/grouped_mlp.py
+// reads them from this line: K1_GEMM_INSTANCES): the single-block grid
+// and the pair instance (sm90_gemm.cuh, `sm90::pair_instance`).
+const char* const INSTANCE_NAMES[] = {"wgmma", "wgmma_pair"};
+
+// The pair instance's forward launches (sm90::launch_pairs): threads a
+// block, dynamic shared memory a block (bytes), blocks a cluster, and how
+// many clusters the device holds at once for pass 1 with the saved pre
+// (training), pass 1 alone (serving), the pre-only launch and pass 2.
+// Returns a cudaError_t.
+int grouped_mlp_gemm_launch(int* threads, int* smem_bytes, int* cluster, int* clusters_hidden,
+                            int* clusters_serve, int* clusters_pre, int* clusters_out) {
+  *threads = sm90::THREADS;
+  *smem_bytes = sm90::SMEM_BYTES;
+  *cluster = sm90::PAIR_BLOCKS;
+  cudaError_t err = sm90::lift_smem_cap(mlp_fwd_hidden_bf16<true, true, true>,
+                                        hidden_launch<true, true, true>.lifted);
+  if (err == cudaSuccess)
+    err = sm90::lift_smem_cap(mlp_fwd_hidden_bf16<false, true, true>,
+                              hidden_launch<false, true, true>.lifted);
+  if (err == cudaSuccess)
+    err = sm90::lift_smem_cap(mlp_fwd_hidden_bf16<true, false, true>,
+                              hidden_launch<true, false, true>.lifted);
+  if (err == cudaSuccess) err = sm90::lift_smem_cap(mlp_fwd_out_bf16<true>, out_launch<true>.lifted);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters_resident(mlp_fwd_hidden_bf16<true, true, true>, clusters_hidden);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters_resident(mlp_fwd_hidden_bf16<false, true, true>, clusters_serve);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters_resident(mlp_fwd_hidden_bf16<true, false, true>, clusters_pre);
+  if (err == cudaSuccess) err = sm90::pair_clusters_resident(mlp_fwd_out_bf16<true>, clusters_out);
+  return (int)err;
 }
 
 const char* grouped_mlp_error_string(int err) {

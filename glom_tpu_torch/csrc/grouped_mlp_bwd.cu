@@ -67,6 +67,12 @@
 //       TMA cannot add: the addend's groups read an [split, M, d] scratch
 //       xa = round(x + a[r mod n]) (`mlp_bwd_addend_bf16`, the forward's
 //       rounding point), the others x in place.
+//   At d = 1024 (`sm90::pair_instance`) the dx and weight passes run the
+//   mainloop's pair instance (two-block clusters that multicast A; the
+//   `<true>` kernels): dx is stored by TMA, the weight pass stores its bf16
+//   gradients by TMA or, in accumulate mode, adds its tiles to the f32
+//   totals by TMA reductions (no load of the totals on the consumer's
+//   path). dh runs the single-block grid at every width (PERF.md).
 // * bf16 recompute (pre == NULL, past SAVE_PRE_LIMIT only, on no measured
 //   route; it replaces :_mlp_bwd_kernel in bf16): glom_tpu's
 //   _mlp_bwd_kernel keeps z unrounded in f32, so the first product is
@@ -317,7 +323,69 @@ struct DwEpilogue {
   }
 };
 
-// The three passes' kernels, named for profiles.
+// The pair instance's epilogues (sm90_gemm.cuh): the same arithmetic and
+// rounding points as those above, its bf16 outputs stored from the warp
+// stage by TMA and its f32 totals added by TMA reductions. The dh pass runs
+// the single-block instance at every width (PERF.md: its K loop is
+// 16 steps and its epilogue the longer part; on two-block clusters the
+// pass ran 4 % slower, with an epilogue that took the saved pre in by
+// cp.async and stored h and dpre by TMA 11 % slower).
+
+// dx: rounded once and stored by TMA; the addend's groups (g < split) also
+// store the f32 sums for da_reduce.
+struct DxPairEpilogue {
+  CUtensorMap dx_map;  // [G, M, d], box [64, 16, 1]
+  float* dx32;
+  int M, split;
+  __device__ void operator()(const float (&acc)[sm90::ACC], int g, int abs_row, int, int col0,
+                             int t, uint32_t* stage, const sm90::Shape& s) const {
+    sm90::pair_store_half(acc, t, stage, &dx_map, col0, abs_row, g,
+                          [](int, float v0, float v1) { return round2(v0, v1); });
+    if (g < split) {
+      const size_t at = ((size_t)g * M + abs_row) * s.N + col0;
+      const int rows = s.row_end - abs_row;
+      sm90::for_each_pair(acc, t, [&](int r, int c, float v0, float v1) {
+        if (r < rows)
+          *reinterpret_cast<float2*>(dx32 + at + (size_t)r * s.N + c) = make_float2(v0, v1);
+      });
+    }
+  }
+};
+
+// The weight pass: problem 0 is dw1 [G, d, f] with db1 [G, f], problem 1
+// dw2 [G, f, d] with db2 [G, d] (shape.id), as DwEpilogue. With ACC the
+// tile's sums are added to the f32 totals by TMA reductions from the warp
+// stage (`sm90::pair_reduce_half`, cp.reduce.async.bulk .add.f32) and the
+// column sums with `red.global.add`, so no load of the totals is on the
+// consumer's path. Each element of the totals still takes exactly one add,
+// total + this call's sum (one block owns it, and an IEEE add commutes),
+// rounded to nearest like the load-add-store. Without ACC the tile is
+// rounded and stored by TMA.
+template <bool ACC>
+struct DwPairEpilogue {
+  // ACC: the f32 totals dw1 [G, d, f], dw2 [G, f, d], box [32, 16, 1]; else
+  // the bf16 gradients, box [64, 16, 1].
+  CUtensorMap out_map[2];
+  void* colsum[2];
+  __device__ void operator()(const float (&acc)[sm90::ACC], int g, int abs_row, int, int col0,
+                             int t, uint32_t* stage, const sm90::Shape& s) const {
+    if constexpr (ACC)
+      sm90::pair_reduce_half(acc, t, stage, &out_map[s.id], col0, abs_row, g);
+    else
+      sm90::pair_store_half(acc, t, stage, &out_map[s.id], col0, abs_row, g,
+                            [](int, float v0, float v1) { return round2(v0, v1); });
+  }
+  __device__ void col_sum(float v, int g, int col, const sm90::Shape& s) const {
+    if (col >= s.N) return;
+    const size_t at = (size_t)g * s.N + col;
+    if constexpr (ACC)
+      atomicAdd(static_cast<float*>(colsum[s.id]) + at, v);
+    else
+      static_cast<bf16*>(colsum[s.id])[at] = __float2bfloat16(v);
+  }
+};
+
+// The three passes' kernels, named for profiles; PAIR: the pair instance.
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_bwd_dh_sm90(const __grid_constant__ CUtensorMap g_map,
                 const __grid_constant__ CUtensorMap w2_map, const sm90::Shape shape,
@@ -325,44 +393,62 @@ mlp_bwd_dh_sm90(const __grid_constant__ CUtensorMap g_map,
   sm90::gemm_tiles<false, true>(g_map, g_map, w2_map, shape, epi);
 }
 
+template <bool PAIR>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_bwd_dx_sm90(const __grid_constant__ CUtensorMap dpre_map,
                 const __grid_constant__ CUtensorMap w1_map, const sm90::Shape shape,
-                const DxEpilogue epi) {
-  sm90::gemm_tiles<false, true>(dpre_map, dpre_map, w1_map, shape, epi);
+                const __grid_constant__ std::conditional_t<PAIR, DxPairEpilogue, DxEpilogue> epi) {
+  sm90::gemm_tiles<false, true, false, PAIR>(dpre_map, dpre_map, w1_map, shape, epi);
 }
 
-template <bool ACC>
+template <bool ACC, bool PAIR>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 mlp_bwd_dw_sm90(const __grid_constant__ CUtensorMap xa_map,
                 const __grid_constant__ CUtensorMap x_map,
                 const __grid_constant__ CUtensorMap dpre_map,
                 const __grid_constant__ CUtensorMap h_map,
                 const __grid_constant__ CUtensorMap g_map,
-                const sm90::Shape s1, const sm90::Shape s2, const DwEpilogue<ACC> epi) {
+                const sm90::Shape s1, const sm90::Shape s2,
+                const __grid_constant__
+                std::conditional_t<PAIR, DwPairEpilogue<ACC>, DwEpilogue<ACC>> epi) {
   const sm90::Operands ops[2] = {{&xa_map, &x_map, &dpre_map, s1}, {&h_map, &h_map, &g_map, s2}};
-  sm90::gemm_problems<true, false, true>(ops, epi);
+  sm90::gemm_problems<true, false, true, PAIR>(ops, epi);
 }
+
+// Each pass's launch flags (shared-memory cap lifted, per device) and, for
+// the pair instance, the clusters each device holds at once.
+struct PassLaunch {
+  bool lifted[2][sm90::MAX_DEVICES];
+  int clusters[sm90::MAX_DEVICES];
+};
+
 
 // The bf16 saved-pre backward: [xa], dh, dx, the weight pass. The
 // cotangent has max(split, G - split) slots (every slot a group reads), x
-// G - split past x_lo's (the forward's x map).
+// G - split past x_lo's (the forward's x map). d and f alone pick the
+// instance (`sm90::pair_instance`).
+PassLaunch launch_dh, launch_dx, launch_dw[2];
+
 cudaError_t bwd_bf16_saved(const bf16* x, const bf16* a, int n, const bf16* w1, const bf16* w2,
                            const bf16* pre, const bf16* gout, bf16* dx, void* dw1, void* db1,
                            void* dw2, void* db2, bf16* h_ws, bf16* dpre_ws, float* dx32,
                            bf16* xa, int G, int M, int d, int f, int split, int x_lo,
                            bool accumulate, cudaStream_t s) {
   const int g_slots = split > G - split ? split : G - split;
+  const bool pair = sm90::pair_instance(d, f);
+  const int a_box = pair ? 64 : sm90::BM;  // the pair's blocks load half of A each
   CUtensorMap g_a, w2_b, dpre_a, w1_b, xa_mn, x_mn, dpre_b, h_mn, g_b;
   cudaError_t err = sm90::make_kmajor_map(&g_a, gout, d, M, g_slots);
   if (err == cudaSuccess) err = sm90::make_kmajor_map(&w2_b, w2, d, f, G);
-  if (err == cudaSuccess) err = sm90::make_kmajor_map(&dpre_a, dpre_ws, f, M, G);
+  if (err == cudaSuccess) err = sm90::make_kmajor_map(&dpre_a, dpre_ws, f, M, G, a_box);
   if (err == cudaSuccess) err = sm90::make_kmajor_map(&w1_b, w1, f, d, G);
   if (err == cudaSuccess) err = sm90::make_mnmajor_map(&x_mn, x, M, d, split < G ? G - split : 1);
   if (err == cudaSuccess && split > 0) err = sm90::make_mnmajor_map(&xa_mn, xa, M, d, split);
   if (err == cudaSuccess) err = sm90::make_mnmajor_map(&dpre_b, dpre_ws, M, f, G);
   if (err == cudaSuccess) err = sm90::make_mnmajor_map(&h_mn, h_ws, M, f, G);
   if (err == cudaSuccess) err = sm90::make_mnmajor_map(&g_b, gout, M, d, g_slots);
+  CUtensorMap dx_st;  // the pair instance's store map of dx
+  if (err == cudaSuccess && pair) err = sm90::make_store_map(&dx_st, dx, d, M, G);
   if (err != cudaSuccess) return err;
   if (split == 0) xa_mn = x_mn;  // not read: no group is below split
   if (split > 0) {
@@ -371,17 +457,21 @@ cudaError_t bwd_bf16_saved(const bf16* x, const bf16* a, int n, const bf16* w1, 
     mlp_bwd_addend_bf16<<<blocks, 256, 0, s>>>(x, a, n, xa, split, x_lo, M, d);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  static bool lifted_dh[sm90::MAX_DEVICES], lifted_dx[sm90::MAX_DEVICES],
-      lifted_dw[2][sm90::MAX_DEVICES];
   // dh: the cotangent's slots by the group rule, w2 [f, d] K-major.
   const sm90::Shape s_dh{d, f, G, split, 0, M};
-  err = sm90::launch_tiles(mlp_bwd_dh_sm90, lifted_dh, sm90::tile_count(s_dh), s, g_a, w2_b, s_dh,
-                           DhEpilogue{pre, h_ws, dpre_ws, M});
+  err = sm90::launch_tiles(mlp_bwd_dh_sm90, launch_dh.lifted[0], sm90::tile_count(s_dh), s, g_a,
+                           w2_b, s_dh, DhEpilogue{pre, h_ws, dpre_ws, M});
   if (err != cudaSuccess) return err;
   // dx: dpre at slot g for every group (split 0), w1 [d, f] K-major.
   const sm90::Shape s_dx{f, d, G, 0, 0, M};
-  err = sm90::launch_tiles(mlp_bwd_dx_sm90, lifted_dx, sm90::tile_count(s_dx), s, dpre_a, w1_b,
-                           s_dx, DxEpilogue{dx, dx32, M, split});
+  const int dx_tiles = sm90::tile_count(s_dx);
+  if (pair)
+    err = sm90::launch_pairs(mlp_bwd_dx_sm90<true>, launch_dx.lifted[1], launch_dx.clusters,
+                             dx_tiles, s, dpre_a, w1_b, s_dx,
+                             DxPairEpilogue{dx_st, dx32, M, split});
+  else
+    err = sm90::launch_tiles(mlp_bwd_dx_sm90<false>, launch_dx.lifted[0], dx_tiles, s, dpre_a,
+                             w1_b, s_dx, DxEpilogue{dx, dx32, M, split});
   if (err != cudaSuccess) return err;
   // dw1 = xa^T . dpre (A: xa for the addend's groups, x for the rest);
   // dw2 = h^T . g (A: h at slot g; B: the cotangent by the group rule).
@@ -390,12 +480,32 @@ cudaError_t bwd_bf16_saved(const bf16* x, const bf16* a, int n, const bf16* w1, 
   s_dw2.b_split = split;
   s_dw2.id = 1;
   const int tiles = sm90::tile_count(s_dw1) + sm90::tile_count(s_dw2);
+  PassLaunch& dw = launch_dw[accumulate ? 1 : 0];
+  if (pair) {
+    // The weight gradients' maps: the f32 totals reduced into (accumulate
+    // mode), or the bf16 gradients stored.
+    CUtensorMap grads[2];
+    err = accumulate ? sm90::make_f32_map(&grads[0], dw1, f, d, G)
+                     : sm90::make_store_map(&grads[0], dw1, f, d, G);
+    if (err == cudaSuccess)
+      err = accumulate ? sm90::make_f32_map(&grads[1], dw2, d, f, G)
+                       : sm90::make_store_map(&grads[1], dw2, d, f, G);
+    if (err != cudaSuccess) return err;
+    if (accumulate)
+      return sm90::launch_pairs(mlp_bwd_dw_sm90<true, true>, dw.lifted[1], dw.clusters, tiles, s,
+                                xa_mn, x_mn, dpre_b, h_mn, g_b, s_dw1, s_dw2,
+                                DwPairEpilogue<true>{{grads[0], grads[1]}, {db1, db2}});
+    return sm90::launch_pairs(mlp_bwd_dw_sm90<false, true>, dw.lifted[1], dw.clusters, tiles, s,
+                              xa_mn, x_mn, dpre_b, h_mn, g_b, s_dw1, s_dw2,
+                              DwPairEpilogue<false>{{grads[0], grads[1]}, {db1, db2}});
+  }
   if (accumulate)
-    return sm90::launch_tiles(mlp_bwd_dw_sm90<true>, lifted_dw[1], tiles, s, xa_mn, x_mn, dpre_b,
-                              h_mn, g_b, s_dw1, s_dw2,
+    return sm90::launch_tiles(mlp_bwd_dw_sm90<true, false>, dw.lifted[0], tiles, s, xa_mn, x_mn,
+                              dpre_b, h_mn, g_b, s_dw1, s_dw2,
                               DwEpilogue<true>{{dw1, dw2}, {db1, db2}});
-  return sm90::launch_tiles(mlp_bwd_dw_sm90<false>, lifted_dw[0], tiles, s, xa_mn, x_mn, dpre_b,
-                            h_mn, g_b, s_dw1, s_dw2, DwEpilogue<false>{{dw1, dw2}, {db1, db2}});
+  return sm90::launch_tiles(mlp_bwd_dw_sm90<false, false>, dw.lifted[0], tiles, s, xa_mn, x_mn,
+                            dpre_b, h_mn, g_b, s_dw1, s_dw2,
+                            DwEpilogue<false>{{dw1, dw2}, {db1, db2}});
 }
 
 // ------------------------------------------------ bf16 recompute, f32 (row pass)
@@ -939,6 +1049,23 @@ int grouped_mlp_bwd(const void* x, const void* a, int n, const void* w1, const v
                                                  static_cast<bf16*>(da), split, M, n, d, 0);
   }
   return (int)cudaGetLastError();
+}
+
+// The pair instance's backward launches (sm90::launch_pairs): how many
+// clusters of two the device holds at once for the dx and weight passes
+// (the weight pass in accumulate mode and plain). Returns a cudaError_t.
+int grouped_mlp_bwd_gemm_launch(int* clusters_dx, int* clusters_dw_acc, int* clusters_dw) {
+  cudaError_t err = sm90::lift_smem_cap(mlp_bwd_dx_sm90<true>, launch_dx.lifted[1]);
+  if (err == cudaSuccess)
+    err = sm90::lift_smem_cap(mlp_bwd_dw_sm90<true, true>, launch_dw[1].lifted[1]);
+  if (err == cudaSuccess)
+    err = sm90::lift_smem_cap(mlp_bwd_dw_sm90<false, true>, launch_dw[0].lifted[1]);
+  if (err == cudaSuccess) err = sm90::pair_clusters_resident(mlp_bwd_dx_sm90<true>, clusters_dx);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters_resident(mlp_bwd_dw_sm90<true, true>, clusters_dw_acc);
+  if (err == cudaSuccess)
+    err = sm90::pair_clusters_resident(mlp_bwd_dw_sm90<false, true>, clusters_dw);
+  return (int)err;
 }
 
 const char* grouped_mlp_bwd_error_string(int err) {

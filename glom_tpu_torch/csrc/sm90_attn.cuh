@@ -434,25 +434,6 @@ __device__ __forceinline__ void attn_key_loop(float (&o)[ATTN_NC][ACC64], float&
 
 // --- the wide form: a two-block cluster ----------------------------------------
 
-// The block's rank in its cluster, and the shared::cluster address of the
-// same offset in block `rank`'s shared memory.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// Every thread of the cluster arrives, then waits (release and acquire at
-// cluster scope). Not the .aligned form: a warp's lanes may reach it apart.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // Four f32 into another block's shared memory at `addr`, completing 16
 // bytes of the transaction count of its mbarrier at `bar` (both
 // shared::cluster addresses).

@@ -67,13 +67,35 @@
 // it when its tile starts, to bring the tile's lines into L2 while the K
 // loop runs.
 //
+// The pair instance (PAIR): the same tiles, K order and rounding points on
+// a persistent grid of two-block clusters. The two blocks of a cluster take
+// the two tiles of a pair, tiles 2i and 2i + 1 of the launch: the same
+// rows of A and adjacent column blocks (the launch's every N a multiple of
+// 2 BN, so no pair straddles a row block, a group or a problem), and for
+// each K step each block TMA-loads one 64-row half of A's stage with
+// .multicast::cluster into both blocks' stages, and its own B. A stage's
+// `full` barrier so completes on both halves' bytes, and its `empty`
+// barrier counts two releases, its own consumer's and the peer's (a remote
+// arrive), before the producer refills it: each block's L2 reads of A are
+// halved, a quarter of the operand bytes (PERF.md: the 128 x 128 tiles fed
+// from L2 at 64 FLOP a byte wait on their loads). Cluster c's ring r takes
+// pairs c + (r + 2k) * clusters, so both blocks walk the same pairs in the
+// same order. A producer drains its ring's `empty` barriers before it
+// exits, so no block leaves while the peer may still write into it or
+// arrive on it. Its epilogues may store through TMA (`pair_store_half`,
+// from a warp stage laid out as two swizzled 64-column boxes, `pair_at`)
+// and add to f32 totals through TMA reductions (`pair_reduce_half`), so a
+// consumer's results leave without LSU round trips: a result is the same
+// bits as the single-block instance's, tile for tile.
+//
 // A user writes a __global__ wrapper that calls `gemm_tiles` (one problem)
 // or `gemm_problems` (up to two problems of one instance in one persistent
 // grid, the second's tiles after the first's) with its epilogue (so
 // profiles name the kernel), encodes its maps on the host with
 // `make_kmajor_map` / `make_mnmajor_map` (cuTensorMapEncodeTiled, looked up
 // at run time with cudaGetDriverEntryPoint, so the library links only the
-// CUDA runtime), and starts it with `launch_tiles`.
+// CUDA runtime), and starts it with `launch_tiles` (`launch_pairs` for the
+// pair instance).
 
 #pragma once
 
@@ -181,6 +203,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// The block's rank in its cluster, and the shared::cluster address of the
+// same offset in block `rank`'s shared memory.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of the cluster arrives, then waits (release and acquire at
+// cluster scope). Not the .aligned form: a warp's lanes may reach it apart.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrive on another block's mbarrier at `bar` (a shared::cluster address)
+// with the default release at CTA scope: the pair instance's consumers
+// free a stage in both blocks this way once their products that read it
+// have retired (wgmma_wait). A release at cluster scope
+// (`mbar_arrive_cluster`, sm90_attn.cuh) fences every K step and stalls the
+// warpgroup's next wgmma (PERF.md: the K loops' products took 2.5x as
+// long with it).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // One 3-D TMA tile load, global -> shared, completing on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, uint64_t* bar) {
@@ -189,6 +241,55 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// The same load into the same offset of both blocks of a two-block
+// cluster, completing on the mbarrier at `bar`'s offset in each.
+__device__ __forceinline__ void tma_load_3d_pair(void* dst, const CUtensorMap* map, int c0, int c1,
+                                                 int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(static_cast<uint16_t>(3))
+      : "memory");
+}
+
+// One 3-D TMA tile store, shared -> global, in this thread's bulk group;
+// elements past the map's extent are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// One 3-D TMA reduction, shared -> global: the f32 box at `src` added
+// element by element to the map's box (cp.reduce.async.bulk .add), in this
+// thread's bulk group.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's bulk stores have read their shared memory (it may be
+// written again) / have completed.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Order this thread's shared-memory writes before a later TMA read of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A wgmma shared-memory descriptor for a 128-byte-swizzled operand:
@@ -324,16 +425,113 @@ __device__ __forceinline__ void store_half(const float (&d)[ACC], int t, uint32_
   flush_stage(stage, t, dst, ld, rows, cols);
 }
 
+// The pair instance's warp stage: the same 16 rows x BN bf16 columns as
+// two 64-column boxes [2][16 rows][128 bytes], each in TMA's 128-byte
+// swizzle (16-byte chunk k of row rw at chunk k ^ (rw % 8)), so a TMA store
+// takes a box as it lies; neither the fragment's pairs nor whole 16-byte
+// row segments conflict on banks. The u32 of the pair at (warp row rw,
+// column c):
+constexpr int PAIR_BOX_ROWS = 16;  // a warp's rows: a store box is [64 columns x 16 rows]
+__device__ __forceinline__ uint32_t& pair_at(uint32_t* stage, int rw, int c) {
+  return stage[(c / 64) * 512 + rw * 32 + (((c % 64) / 2) ^ ((rw & 7) << 2))];
+}
+
+// Store the warp's staged rows through TMA: its two 64-column boxes at
+// columns col0, col0 + 64 and rows row0 + 16 (warp) .. of slot `slot` of
+// `map` (a [slots, rows, N] bf16 map with box [64, 16, 1]). Lane 0 issues
+// them after every lane's writes are fenced for the async proxy; the warp
+// writes its stage again only after `pair_reuse`.
+__device__ __forceinline__ void pair_flush(const uint32_t* stage, int t, const CUtensorMap* map,
+                                           int col0, int row0, int slot) {
+  fence_proxy_async();
+  __syncwarp();
+  if (t % 32 == 0) {
+    const int row = row0 + 16 * (t / 32);
+    tma_store_3d(map, stage, col0, row, slot);
+    tma_store_3d(map, stage + 512, col0 + 64, row, slot);
+    bulk_commit();
+  }
+}
+
+// Before a warp writes its stage again: its last TMA stores have read it.
+__device__ __forceinline__ void pair_reuse(int t) {
+  if (t % 32 == 0) bulk_wait_read();
+  __syncwarp();
+}
+
+// store_half for the pair instance: f(j, v0, v1) gives the __nv_bfloat162
+// of each of the thread's pairs (columns 8 j + 2 (t % 4) + {0, 1}, j a
+// constant of the unrolled loop, of both its rows), which goes through the
+// warp's stage (pair_at) and leaves by TMA (pair_flush) at (col0, row0,
+// slot) of `map`.
+template <class F>
+__device__ __forceinline__ void pair_store_half(const float (&d)[ACC], int t, uint32_t* stage,
+                                                const CUtensorMap* map, int col0, int row0,
+                                                int slot, F&& f) {
+  const int rw = (t % 32) / 4, c = 2 * (t % 4);
+  pair_reuse(t);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const __nv_bfloat162 a = f(j, d[4 * j], d[4 * j + 1]), b = f(j, d[4 * j + 2], d[4 * j + 3]);
+    pair_at(stage, rw, 8 * j + c) = *reinterpret_cast<const uint32_t*>(&a);
+    pair_at(stage, rw + 8, 8 * j + c) = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  pair_flush(stage, t, map, col0, row0, slot);
+}
+
+// The pair instance's f32 warp stage for a reduction: 16 rows x 64
+// columns of f32 as two 32-column boxes [2][16 rows][128 bytes] in TMA's
+// 128-byte swizzle. The float at (warp row rw, column c < 64):
+__device__ __forceinline__ float* pair_f32_at(uint32_t* stage, int rw, int c) {
+  return reinterpret_cast<float*>(stage) + (c / 32) * 512 + rw * 32 +
+         ((((c % 32) / 4) ^ (rw & 7)) * 4) + c % 4;
+}
+
+// Add one 64-row half of f32 sums to an f32 [slots, rows, N] tensor through
+// TMA reductions (`map`: box [32, 16, 1] f32): per 64-column round the
+// warp stages its 16 rows and lane 0 adds the two boxes at (col0 + 64
+// round (+ 32), row0 + 16 warp, slot).
+__device__ __forceinline__ void pair_reduce_half(const float (&d)[ACC], int t, uint32_t* stage,
+                                                 const CUtensorMap* map, int col0, int row0,
+                                                 int slot) {
+  const int rw = (t % 32) / 4, c = 2 * (t % 4);
+#pragma unroll
+  for (int round = 0; round < BN / 64; ++round) {
+    pair_reuse(t);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * round + jj;
+      *reinterpret_cast<float2*>(pair_f32_at(stage, rw, 8 * jj + c)) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<float2*>(pair_f32_at(stage, rw + 8, 8 * jj + c)) =
+          make_float2(d[4 * j + 2], d[4 * j + 3]);
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (t % 32 == 0) {
+      const int row = row0 + 16 * (t / 32);
+      tma_reduce_add_3d(map, stage, col0 + 64 * round, row, slot);
+      tma_reduce_add_3d(map, stage + 512, col0 + 64 * round + 32, row, slot);
+      bulk_commit();
+    }
+  }
+}
+
 // Bring the 128-byte line at p into L2.
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
-// Whether an epilogue defines prefetch().
+// Whether an epilogue defines prefetch() or tile() (both halves in one
+// call, in place of two calls of operator()).
 template <class E, class = void>
 struct has_prefetch : std::false_type {};
 template <class E>
 struct has_prefetch<E, std::void_t<decltype(&E::prefetch)>> : std::true_type {};
+template <class E, class = void>
+struct has_tile : std::false_type {};
+template <class E>
+struct has_tile<E, std::void_t<decltype(&E::tile)>> : std::true_type {};
 
 // --- the tiles -----------------------------------------------------------
 
@@ -353,15 +551,18 @@ __device__ __forceinline__ TilePos tile_pos(int tile, int m_tiles, int n_tiles) 
 // dynamic shared memory) over P problems of one instance, problem q's tiles
 // numbered after problem q-1's. Block b takes tiles b, b + gridDim.x, ...;
 // consumer warpgroup c (and its ring and producer) the c-th, (c+2)-th, ...
-// of those. Epilogue::operator()(acc, g, abs_row, rel_row, col0, t, stage,
-// shape) gets the sums of one 64-row half starting at abs_row (rel_row
-// within the slab) and the tile's columns from col0, as thread t of the
-// warpgroup holds them, `stage`, the warp's STAGE_OUT bytes for
-// `store_half`, and the problem's shape. With COLSUM, a tile of the first
-// row block first calls Epilogue::col_sum(sum, g, col, shape) with the sum
-// over K of its column col = col0 + t of B. The maps must be the wrapper's
-// __grid_constant__ parameters.
-template <bool A_MN, bool B_KMAJOR, bool COLSUM, int P, class Epilogue>
+// of those. PAIR (launched by `launch_pairs`): cluster b / 2 takes pairs b /
+// 2, b / 2 + clusters, ... in the same way, rank q tile 2 i + q of pair i.
+// Epilogue::operator()(acc, g, abs_row, rel_row, col0, t, stage, shape)
+// gets the sums of one 64-row half starting at abs_row (rel_row within the
+// slab) and the tile's columns from col0, as thread t of the warpgroup
+// holds them, `stage`, the warp's STAGE_OUT bytes for `store_half` (PAIR:
+// `pair_store_half`), and the problem's shape. With COLSUM, a tile of the
+// first row block first calls Epilogue::col_sum(sum, g, col, shape) with
+// the sum over K of its column col = col0 + t of B. The maps must be the
+// wrapper's __grid_constant__ parameters; PAIR takes a K-major A map whose
+// box is 64 rows (`make_kmajor_map(..., 64)`).
+template <bool A_MN, bool B_KMAJOR, bool COLSUM, bool PAIR, int P, class Epilogue>
 __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Epilogue& epi) {
   static_assert(P == 1 || P == 2, "one or two problems a launch");
   static_assert(!(COLSUM && B_KMAJOR), "column sums read B's MN-major stages");
@@ -382,6 +583,12 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
     p = tile_pos(second ? tile - tiles0 : tile, (s.row_end - s.row0 + BM - 1) / BM,
                  (s.N + BN - 1) / BN);
   };
+  // The work items (tiles, or PAIR's pairs) and this block's unit of the
+  // grid that walks them (the block, or its cluster).
+  const uint32_t rank = PAIR ? cluster_rank() : 0;
+  const int items = PAIR ? tiles / 2 : tiles;
+  const int units = PAIR ? gridDim.x / 2 : gridDim.x;
+  const int unit = PAIR ? blockIdx.x / 2 : blockIdx.x;
   // Warpgroup c < CONSUMERS is a consumer; the last warpgroup holds the
   // producers, its warp r serving ring r.
   const bool producer = threadIdx.x >= 128 * CONSUMERS;
@@ -395,17 +602,22 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
   uint64_t* empty = full + STAGES;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < CONSUMERS * 2 * STAGES; ++i) mbar_init(bars + i, 1);
+    // PAIR: a stage's `empty` takes both blocks' consumers' releases.
+    for (int i = 0; i < CONSUMERS * 2 * STAGES; ++i)
+      mbar_init(bars + i, PAIR && i % (2 * STAGES) >= STAGES ? 2 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // PAIR: neither block loads into or arrives at the other before both are
+  // set up.
+  if constexpr (PAIR) cluster_sync();
+  else __syncthreads();
 
   if (producer) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (ring >= CONSUMERS || t != 0) return;
     int it = 0;  // the ring's K steps so far, over all its tiles
-    for (int tile = blockIdx.x + ring * gridDim.x; tile < tiles;
-         tile += CONSUMERS * gridDim.x) {
+    for (int item = unit + ring * units; item < items; item += CONSUMERS * units) {
+      const int tile = PAIR ? 2 * item + rank : item;
       Operands op;
       TilePos p;
       locate(tile, op, p);
@@ -419,6 +631,7 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
       // (MN-major B) is not loaded (its sums are masked at the store).
       const int a_boxes = A_MN ? min(BM / 64, (sh.row_end - sh.row0 - p.row + 63) / 64) : 0;
       const int b_boxes = B_KMAJOR ? 0 : min(BN / 64, (sh.N - p.col) / 64);
+      // PAIR: both halves of A arrive, one from each block.
       const uint32_t bytes = (A_MN ? a_boxes * A_BOX : A_STAGE) +
                              (B_KMAJOR ? B_STAGE : b_boxes * B_BOX);
       const int k_tiles = (sh.K + BK - 1) / BK;
@@ -426,7 +639,16 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
         const int s = it % STAGES;
         if (it >= STAGES) mbar_wait(empty + s, (it / STAGES - 1) & 1);
         mbar_expect_tx(full + s, bytes);
-        if constexpr (A_MN) {
+        if constexpr (PAIR) {  // this block's half of A, into both blocks
+          if constexpr (A_MN) {
+            if (static_cast<int>(rank) < a_boxes)
+              tma_load_3d_pair(sa + s * A_STAGE + rank * A_BOX, am, arow + 64 * rank, kt * BK,
+                               slot, full + s);
+          } else {
+            tma_load_3d_pair(sa + s * A_STAGE + rank * A_BOX, am, kt * BK, arow + 64 * rank, slot,
+                             full + s);
+          }
+        } else if constexpr (A_MN) {
           for (int j = 0; j < a_boxes; ++j)
             tma_load_3d(sa + s * A_STAGE + j * A_BOX, am, arow + 64 * j, kt * BK, slot, full + s);
         } else {
@@ -441,12 +663,26 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
         }
       }
     }
+    if constexpr (PAIR) {
+      // Drain: both blocks' consumers have released every stage this ring
+      // filled, so the peer neither writes into nor arrives at this block
+      // after it exits.
+      for (int j = 0; j < STAGES; ++j, ++it)
+        if (it >= STAGES) mbar_wait(empty + it % STAGES, (it / STAGES - 1) & 1);
+    }
     return;
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // PAIR: the peer's `empty` barriers, which this consumer also releases.
+  const uint32_t peer_empty = PAIR ? cluster_addr(smem_u32(empty), rank ^ 1) : 0;
+  auto release = [&](int s) {
+    mbar_arrive(empty + s);
+    if constexpr (PAIR) mbar_arrive_remote(peer_empty + 8 * s);
+  };
   int it = 0;  // the ring's K steps so far, as its producer counts them
-  for (int tile = blockIdx.x + ring * gridDim.x; tile < tiles; tile += CONSUMERS * gridDim.x) {
+  for (int item = unit + ring * units; item < items; item += CONSUMERS * units) {
+    const int tile = PAIR ? 2 * item + rank : item;
     Operands op;
     TilePos p;
     locate(tile, op, p);
@@ -501,29 +737,38 @@ __device__ __forceinline__ void gemm_problems(const Operands (&ops)[P], const Ep
       wgmma_wait<1>();  // the previous step's products have retired
       fence_acc(acc0);
       fence_acc(acc1);
-      if (kt > 0 && t == 0) mbar_arrive(empty + (it - 1) % STAGES);
+      if (kt > 0 && t == 0) release((it - 1) % STAGES);
     }
     wgmma_wait<0>();
     fence_acc(acc0);
     fence_acc(acc1);
-    if (t == 0) mbar_arrive(empty + (it - 1) % STAGES);
+    if (t == 0) release((it - 1) % STAGES);
     if constexpr (COLSUM) {
       if (sums) epi.col_sum((csum[0] + csum[1]) + (csum[2] + csum[3]), p.g, p.col + t, op.shape);
     }
     uint32_t* stage = reinterpret_cast<uint32_t*>(stages_out + (threadIdx.x / 32) * STAGE_OUT);
-    epi(acc0, p.g, abs_row, p.row, p.col, t, stage, op.shape);
-    epi(acc1, p.g, abs_row + 64, p.row + 64, p.col, t, stage, op.shape);
+    if constexpr (has_tile<Epilogue>::value) {
+      epi.tile(acc0, acc1, p.g, abs_row, p.row, p.col, t, stage, op.shape);
+    } else {
+      epi(acc0, p.g, abs_row, p.row, p.col, t, stage, op.shape);
+      epi(acc1, p.g, abs_row + 64, p.row + 64, p.col, t, stage, op.shape);
+    }
+  }
+  // PAIR: the epilogues' TMA stores have completed before the block exits.
+  if constexpr (PAIR) {
+    if (t % 32 == 0) bulk_wait();
   }
 }
 
 // One problem (the forward's passes): A K-major and B MN-major unless the
 // instance says otherwise.
-template <bool A_MN = false, bool B_KMAJOR = false, bool COLSUM = false, class Epilogue>
+template <bool A_MN = false, bool B_KMAJOR = false, bool COLSUM = false, bool PAIR = false,
+          class Epilogue>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap& a_lo, const CUtensorMap& a_hi,
                                            const CUtensorMap& b, const Shape& shape,
                                            const Epilogue& epi) {
   const Operands ops[1] = {{&a_lo, &a_hi, &b, shape}};
-  gemm_problems<A_MN, B_KMAJOR, COLSUM>(ops, epi);
+  gemm_problems<A_MN, B_KMAJOR, COLSUM, PAIR>(ops, epi);
 }
 
 // --- host side --------------------------------------------------------------
@@ -549,18 +794,18 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 3-D bf16 map with the 128-byte swizzle: extents dims (innermost
-// first), the byte strides of dims 1 and 2, and the box (box[0] = 64).
-// Out-of-bounds elements load as zeros.
+// A 3-D map (bf16 unless `type` says otherwise) with the 128-byte swizzle:
+// extents dims (innermost first), the byte strides of dims 1 and 2, and the
+// box (box[0] elements: 128 bytes). Out-of-bounds elements load as zeros.
 inline cudaError_t make_map_3d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[3],
-                               const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3]) {
+                               const cuuint64_t (&strides)[2], const cuuint32_t (&box)[3],
+                               CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                          strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -578,16 +823,34 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int inner, int ro
 }
 
 // A K-major operand map ([slots, rows, K], box BM x BK: A, or B of a
-// B_KMAJOR instance with rows = N, BN = BM) and an MN-major one ([slots, K,
-// rows], box BK x 64: B, or A of an A_MN instance with rows = its rows).
+// B_KMAJOR instance with rows = N, BN = BM; the pair instance's A: box 64 x
+// BK, a block's half) and an MN-major one ([slots, K, rows], box BK x 64:
+// B, or A of an A_MN instance with rows = its rows).
 static_assert(BM == BN, "one K-major box serves A and B");
 inline cudaError_t make_kmajor_map(CUtensorMap* map, const void* ptr, int K, int rows,
-                                   int slots) {
-  return make_map(map, ptr, K, rows, slots, BK, BM);
+                                   int slots, int box_rows = BM) {
+  return make_map(map, ptr, K, rows, slots, BK, box_rows);
 }
 inline cudaError_t make_mnmajor_map(CUtensorMap* map, const void* ptr, int K, int rows,
                                     int slots) {
   return make_map(map, ptr, rows, K, slots, 64, BK);
+}
+
+// The pair instance's reduction map of an f32 total [slots, rows, N]: box
+// [32 columns x PAIR_BOX_ROWS rows] (`pair_reduce_half`).
+inline cudaError_t make_f32_map(CUtensorMap* map, const void* ptr, int N, int rows, int slots) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(slots)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 4,
+                                 static_cast<cuuint64_t>(N) * rows * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(PAIR_BOX_ROWS), 1};
+  return make_map_3d(map, ptr, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+}
+
+// The pair instance's store map of a bf16 output [slots, rows, N]: box [64
+// columns x PAIR_BOX_ROWS rows] (a warp stage's box, `pair_flush`).
+inline cudaError_t make_store_map(CUtensorMap* map, const void* ptr, int N, int rows, int slots) {
+  return make_map(map, ptr, N, rows, slots, 64, PAIR_BOX_ROWS);
 }
 
 // Lift a kernel's dynamic shared-memory cap to the device's opt-in limit,
@@ -639,6 +902,80 @@ cudaError_t launch_tiles(Kernel kernel, bool* lifted, int tiles, cudaStream_t st
   if (tiles <= 0) return cudaSuccess;
   kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// --- the pair instance's launch ------------------------------------------------
+
+// Blocks a cluster of the pair instance.
+constexpr int PAIR_BLOCKS = 2;
+
+// The pair instance takes K1's forward passes, the pre-only launch and the
+// backward's dx and weight passes (its dh pass runs the single-block grid
+// at every width) where every N of those passes, d or f, is a whole number
+// of tile pairs: d and f multiples of 2 BN. Of those widths it takes the
+// one it was measured at against the single-block grid, d = 1024 (the
+// imagenet224-pod width; PERF.md): the flagship's d = 512, f = 2048 fits
+// but keeps the single-block grid until port_ab.py shows the pair no
+// slower there. The rule reads d and f alone: every launch of a pass at
+// one width (plain, addend, combined grid, any G, M, split or slab) runs
+// the same instance (kernels/grouped_mlp.py gemm_instance states it too).
+inline bool pair_instance(int d, int f) {
+  return d % (2 * BN) == 0 && f % (2 * BN) == 0 && d == 1024;
+}
+
+// The pair instance's launch config: `blocks` blocks in clusters of two
+// along x.
+inline cudaLaunchConfig_t pair_launch_config(int blocks, cudaStream_t stream,
+                                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = PAIR_BLOCKS;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of `kernel` (a pair-instance wrapper, its shared-memory
+// cap lifted) the device holds at once.
+template <class... Params>
+cudaError_t pair_clusters_resident(void (*kernel)(Params...), int* clusters) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = pair_launch_config(PAIR_BLOCKS, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// One persistent grid of the pair instance over `tiles` tiles (even): a
+// cluster for each cluster the device holds at once (read once per device
+// into `clusters`), or one a pair where there are fewer pairs.
+template <class... Params, class... Args>
+cudaError_t launch_pairs(void (*kernel)(Params...), bool* lifted, int* clusters, int tiles,
+                         cudaStream_t stream, const Args&... args) {
+  cudaError_t err = lift_smem_cap(kernel, lifted);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  int resident = 0;
+  if (dev < MAX_DEVICES && clusters[dev] > 0) {
+    resident = clusters[dev];
+  } else {
+    if ((err = pair_clusters_resident(kernel, &resident)) != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) clusters[dev] = resident;
+  }
+  if (resident <= 0) return cudaErrorInvalidConfiguration;
+  if (tiles % PAIR_BLOCKS != 0) return cudaErrorInvalidValue;
+  if (tiles <= 0) return cudaSuccess;
+  const int pairs = tiles / PAIR_BLOCKS;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      pair_launch_config(PAIR_BLOCKS * (pairs < resident ? pairs : resident), stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 }  // namespace sm90

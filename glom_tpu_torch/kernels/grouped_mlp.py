@@ -54,6 +54,13 @@ forward launches, `LAUNCHES_ADD` those with an addend; `LAUNCHES_PRE` and
 `LAUNCHES_PRE_ADD` the pre-only launches; `LAUNCHES_BWD` and
 `LAUNCHES_BWD_ADD` backward launches, and `LAUNCHES_BWD_ACC` and
 `LAUNCHES_BWD_ACC_ADD` those in accumulate mode (counted there only).
+The GEMM passes run one of two instances of the mainloop, picked by d and
+f alone (`gemm_instance`; the names are `csrc/grouped_mlp.cu`'s
+`INSTANCE_NAMES`, `K1_GEMM_INSTANCES`): the single-block grid, or at d =
+1024 "wgmma_pair", two-block clusters that multicast A, for the forward,
+the pre-only launch and the backward's dx and weight passes (the dh pass
+keeps the single-block grid); `gemm_launch()` reads the pair instance's
+launch back from the card.
 `LAUNCHES_CAT`, `LAUNCHES_PRE_CAT` and `LAUNCHES_BWD_ACC_CAT` count the
 combined-grid launches, which count in `LAUNCHES`, `LAUNCHES_PRE` and
 `LAUNCHES_BWD_ACC` too, but not in the `_ADD` counts. Every count moves
@@ -102,10 +109,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "grouped_mlp_fwd": ([_P, _P, _I, *[_P] * 8, *[_I] * 8, _P], _I),
     "grouped_mlp_pre": ([_P, _P, _I, *[_P] * 4, *[_I] * 8, _P], _I),
+    "grouped_mlp_gemm_launch": ([_P] * 7, _I),
     "grouped_mlp_error_string": ([_I], ctypes.c_char_p),
 }
 _BWD_SIGNATURES = {
     "grouped_mlp_bwd": ([_P, _P, _I, *[_P] * 15, *[_I] * 8, _P], _I),
+    "grouped_mlp_bwd_gemm_launch": ([_P] * 3, _I),
     "grouped_mlp_bwd_error_string": ([_I], ctypes.c_char_p),
 }
 # The combined grid's top-down groups read carry slots 2..L (glom_tpu's
@@ -119,6 +128,58 @@ def _lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     return _build.load("grouped_mlp_bwd", _BWD_SIGNATURES)
+
+
+def __getattr__(name):
+    """K1_GEMM_INSTANCES: the bf16 GEMM instances' names by number, read from
+    the C source on first use (importing the module opens no file)."""
+    if name == "K1_GEMM_INSTANCES":
+        return _build.instance_names("grouped_mlp")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+PAIR_TILES = 2 * GEMM_ROW_TILE  # the columns a pair instance's cluster takes (two tiles)
+PAIR_MEASURED_D = 1024  # the one width the pair instance was measured at (PERF.md)
+
+
+def gemm_instance(d: int, f: int) -> str:
+    """The GEMM instance K1's bf16 launches run at width (d, f), the rule
+    the C entries apply (`sm90::pair_instance`): "wgmma_pair" (two-block
+    clusters that multicast A, the epilogues' stores by TMA, the weight
+    totals added by TMA reductions) where every N of its passes is a whole
+    number of tile pairs (d and f multiples of 256) and d is the one width
+    it was measured at, 1024; else "wgmma" (the single-block grid). The
+    backward's dh pass runs "wgmma" at every width. It reads d and f alone,
+    so the forward, the pre-only launch and the backward, plain, with an
+    addend or over the combined grid, at any G, M, split or slab, run one
+    instance a pass."""
+    if d % WIDTH_MULTIPLE or f % WIDTH_MULTIPLE or d <= 0 or f <= 0:
+        raise ValueError(f"d={d} and f={f} must be positive multiples of {WIDTH_MULTIPLE}")
+    if d > MAX_D:
+        raise ValueError(f"d={d}: K1 takes d <= {MAX_D}")
+    pair = d % PAIR_TILES == 0 and f % PAIR_TILES == 0 and d == PAIR_MEASURED_D
+    return _build.instance_names("grouped_mlp")[1 if pair else 0]
+
+
+def gemm_launch() -> dict:
+    """The pair instance's launches on the current card: threads a block,
+    dynamic shared memory a block (bytes), blocks a cluster, and the most
+    such clusters the card holds at once for each kernel
+    (cudaOccupancyMaxActiveClusters): pass 1 with the saved pre, pass 1
+    alone (serving), the pre-only launch, pass 2, and the backward's dx and
+    weight passes (accumulating and plain; dh runs the single-block grid)."""
+    vals = [ctypes.c_int(0) for _ in range(7)]
+    lib = _lib()
+    err = lib.grouped_mlp_gemm_launch(*(ctypes.byref(v) for v in vals))
+    _build.check(err, "grouped_mlp_gemm_launch", lib.grouped_mlp_error_string)
+    bwd = [ctypes.c_int(0) for _ in range(3)]
+    blib = _bwd_lib()
+    err = blib.grouped_mlp_bwd_gemm_launch(*(ctypes.byref(v) for v in bwd))
+    _build.check(err, "grouped_mlp_bwd_gemm_launch", blib.grouped_mlp_bwd_error_string)
+    threads, smem, cluster, *fwd = (v.value for v in vals)
+    names = ("hidden_save_pre", "hidden", "pre_only", "out", "dx", "dw_acc", "dw")
+    return dict(threads=threads, smem_bytes=smem, cluster=cluster,
+                max_active_clusters=dict(zip(names, [*fwd, *(v.value for v in bwd)])))
 
 
 def refuse_grad(*tensors) -> None:

@@ -16,7 +16,17 @@ kernel's source (printing ptxas' registers and spills), then:
     and `torch.baddbmm` at bucket 8 (bottom-up [6, 2048, 512], top-down
     [5, 2048, 512] with the addend), of the forward at bucket 1 and of the
     combined 11-group grid; the host's time a call at bucket 1; device time
-    by kernel of the bucket-8 forward and the combined grid;
+    by kernel of the bucket-8 forward and the combined grid; then at the
+    imagenet224-pod width (d = 1024, f = 4096) the serving forward [12,
+    2048, 1024] with and without the saved pre and the combined grid [23,
+    2048, 1024] with the saved pre and pre-only, each by pass (hidden, out,
+    addend) beside the seq forward (baddbmm, tanh GELU, baddbmm) and
+    `torch.baddbmm`; then, from a copy of ROOT's package built under
+    ROOT/build/ with the GEMM mainloop stamped (GEMM_STAMPS: thread 0 of
+    each consumer writes clock64() at each tile's start, after its K loop
+    and after its epilogue, and sums its waits on `full`; each producer
+    sums its waits on `empty`), the serving forward's two passes by tile
+    in cycles (`gemm_phases`);
   * k1bwd (`csrc/grouped_mlp_bwd.cu`, with the forward for the saved
     pre): a structured check of the bf16 saved-pre backward's operand
     orders at G = 1, M = d = 128, f = 256 (x and g identity rows, w2[n, k]
@@ -30,7 +40,10 @@ kernel's source (printing ptxas' registers and spills), then:
     512] and top-down [5, 2048, 512] with the addend, both in accumulate
     mode, and the 11-group combined grid) beside autograd through
     baddbmm, tanh GELU and baddbmm, each by kernel, with the host's time a
-    call;
+    call; then at the pod width the plain backward [12, 2048, 1024] and
+    the combined grid's accumulating backward [23, 2048, 1024] by pass
+    beside the seq backward, and the stamped copy's dh, dx and weight
+    passes of the accumulating backward by tile in cycles;
   * k2 (`csrc/consensus_update.cu`): the largest distance of out and cons
     from the plain version over the bf16 cases of the `-m gpu` tests
     (K2_CASES, K2_WIDTHS) and seeds 0-7, in units of K2_BARS and as the
@@ -204,6 +217,57 @@ BWD_WIDE_STAMPS = [
 ]
 
 
+# The k1 / k1bwd probes' instrumentation of the GEMM mainloop
+# (csrc/sm90_gemm.cuh:gemm_problems). Thread 0 of each consumer warpgroup
+# writes, for each of its first 64 tiles, clock64() at the tile's start, the
+# cycles it spent in the K loop's waits on `full`, clock64() after the K
+# loop's last wgmma retired and after the tile's epilogue; the producer
+# thread of each ring the cycles it spent waiting on `empty` over the
+# launch. A launch's slot: 2 for a two-problem launch (the weight pass), 0
+# where K < N (dh, the forward's pass 1), else 1 (dx, pass 2). Both
+# libraries (grouped_mlp, grouped_mlp_bwd) read theirs with
+# `gemm_probe_read`.
+GEMM_STAMPS = [
+    ("sm90_gemm.cuh", ">", "namespace sm90 {\n",
+     "__device__ long long g_gemm_probe[3][132][2][64][4];\n"
+     "__device__ long long g_gemm_empty[3][132][2];\n"
+     "__device__ int g_gemm_tiles[3][132][2];\n"),
+    ("sm90_gemm.cuh", ">", "  const int t = producer ? threadIdx.x % 32 : threadIdx.x % 128;\n",
+     "  const int probe_pass = P == 2 ? 2 : (ops[0].shape.K < ops[0].shape.N ? 0 : 1);\n"
+     "  const bool probe_on = blockIdx.x < 132 && t == 0 && ring < CONSUMERS;\n"
+     "  int probe_tile = 0;\n  long long probe_fw = 0, probe_ew = 0;\n"),
+    ("sm90_gemm.cuh", ">", "        const int s = it % STAGES;\n",
+     "        const long long probe_e0 = clock64();\n"),
+    ("sm90_gemm.cuh", "<", "        mbar_expect_tx(full + s, bytes);\n",
+     "        probe_ew += clock64() - probe_e0;\n"),
+    ("sm90_gemm.cuh", "<", "    return;\n  }\n\n  asm volatile(\"setmaxnreg.inc",
+     "    if (probe_on) g_gemm_empty[probe_pass][blockIdx.x][ring] = probe_ew;\n"),
+    ("sm90_gemm.cuh", "<",
+     "    if constexpr (has_prefetch<Epilogue>::value) epi.prefetch(",
+     "    const long long probe_s0 = clock64();\n    probe_fw = 0;\n"),
+    ("sm90_gemm.cuh", "<", "      mbar_wait(full + s, (it / STAGES) & 1);\n",
+     "      const long long probe_w0 = clock64();\n"),
+    ("sm90_gemm.cuh", ">", "      mbar_wait(full + s, (it / STAGES) & 1);\n",
+     "      probe_fw += clock64() - probe_w0;\n"),
+    ("sm90_gemm.cuh", ">", "    wgmma_wait<0>();\n", "    const long long probe_k = clock64();\n"),
+    ("sm90_gemm.cuh", "<",
+     ("  }\n  // PAIR: the epilogues' TMA stores have completed before the block exits.\n",
+      "  }\n}\n\n// One problem (the forward's passes)"),
+     "    if (probe_on && probe_tile < 64) {\n"
+     "      long long* q = g_gemm_probe[probe_pass][blockIdx.x][ring][probe_tile];\n"
+     "      q[0] = probe_s0; q[1] = probe_fw; q[2] = probe_k; q[3] = clock64();\n    }\n"
+     "    ++probe_tile;\n"),
+    ("sm90_gemm.cuh", "<", "}\n\n// One problem (the forward's passes)",
+     "  if (probe_on) g_gemm_tiles[probe_pass][blockIdx.x][ring] = probe_tile;\n"),
+    *((src, ">", 'extern "C" {\n',
+       "int gemm_probe_read(void* tiles, void* empty, void* counts) {\n"
+       "  cudaError_t e = cudaMemcpyFromSymbol(tiles, sm90::g_gemm_probe, sizeof(sm90::g_gemm_probe));\n"
+       "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(empty, sm90::g_gemm_empty, sizeof(sm90::g_gemm_empty));\n"
+       "  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(counts, sm90::g_gemm_tiles, sizeof(sm90::g_gemm_tiles));\n"
+       "  return (int)e;\n}\n") for src in ("grouped_mlp.cu", "grouped_mlp_bwd.cu")),
+]
+
+
 def instrument(root: str, stamps=None, marker="attn_pair_loop", path="sm90_attn.cuh",
                name="kernel_probe_pair"):
     """A copy of ROOT's package under ROOT/build/NAME with `stamps` (the
@@ -222,6 +286,8 @@ def instrument(root: str, stamps=None, marker="attn_pair_loop", path="sm90_attn.
     for name, where, anchor, code in stamps:
         path = os.path.join(dst, "glom_tpu_torch", "csrc", name)
         text = open(path).read()
+        if isinstance(anchor, tuple):  # alternatives: this tree's form, an older tree's
+            anchor = next((a for a in anchor if a in text), anchor[0])
         if text.count(anchor) != 1:
             raise RuntimeError(f"pair probe: anchor not found once in {name}: {anchor!r}")
         open(path, "w").write(text.replace(anchor, code + anchor if where == "<" else anchor + code))
@@ -261,6 +327,10 @@ def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
     import glom_tpu_torch.kernels.grouped_mlp as k1
     from glom_tpu_torch.ops.ffw import GroupedFFWParams
 
+    if hasattr(k1._lib(), "gemm_probe_read"):  # the stamped copy: phases only
+        x, p12 = rn(12, 2048, 1024), pod_ffw(rn, GroupedFFWParams, 12)
+        k1.fused_grouped_ffw_lm(p12, x, save_pre=True)
+        return gemm_phases(torch, k1._lib(), "k1_fwd_pod_b8", ("hidden", "out"))
     dev, bf16 = torch.device("cuda", 0), torch.bfloat16
     G, M, d, f = 1, 128, 128, 256
     x = torch.zeros(G, M, d)
@@ -306,6 +376,115 @@ def probe_k1(torch, rn, time_ms, host_us, device_us) -> int:
         timing="cat_grid", shape=list(carry.shape), fwd_save_pre_ms=time_ms(cat_fwd),
         pre_ms=time_ms(lambda: k1.grouped_mlp_pre(wcat, carry, add=add, cat=True)),
         device_us=device_us(cat_fwd))), flush=True)
+    del p6, p5, wcat, carry
+
+    # The imagenet224-pod width (d = 1024, f = 4096): the serving forward
+    # [12, 2048, 1024] and the loop's combined grid [23, 2048, 1024], by pass.
+    def pass_key(name):
+        return next((k for k in ("hidden", "out", "addend") if f"mlp_fwd_{k}" in name), "other")
+
+    def seq(p, x_in):
+        h = torch.nn.functional.gelu(torch.baddbmm(p.b1[:, None], x_in, p.w1), approximate="tanh")
+        return torch.baddbmm(p.b2[:, None], h, p.w2)
+
+    Lp, n, dp, fp = 12, 256, 1024, 4096
+    p12, p11, add_p = (pod_ffw(rn, GroupedFFWParams, 12), pod_ffw(rn, GroupedFFWParams, 11),
+                       rn(n, dp))
+    x12 = rn(Lp, 8 * n, dp)
+    print(json.dumps(dict(
+        timing="k1_pod_b8", shape=list(x12.shape), f=fp,
+        fwd_ms=time_ms(lambda: k1.fused_grouped_ffw_lm(p12, x12)),
+        fwd_save_pre_ms=time_ms(lambda: k1.fused_grouped_ffw_lm(p12, x12, save_pre=True)),
+        seq_ms=time_ms(lambda: seq(p12, x12)),
+        device_us=device_us(lambda: k1.fused_grouped_ffw_lm(p12, x12), key=pass_key))),
+        flush=True)
+    wcat, carry = k1.cat_params(p11, p12), rn(Lp + 1, 8 * n, dp)
+    x_cat = torch.cat([(carry[2:].view(Lp - 1, -1, n, dp) + add_p).view(Lp - 1, 8 * n, dp),
+                       carry[:Lp]])
+
+    def cat_fwd():
+        return k1.fused_grouped_ffw_lm(wcat, carry, add=add_p, save_pre=True, cat=True)
+
+    def cat_pre():
+        return k1.grouped_mlp_pre(wcat, carry, add=add_p, cat=True)
+
+    print(json.dumps(dict(
+        timing="k1_cat_pod_b8", shape=[2 * Lp - 1, 8 * n, dp], f=fp,
+        fwd_save_pre_ms=time_ms(cat_fwd), pre_ms=time_ms(cat_pre),
+        seq_ms=time_ms(lambda: seq(wcat, x_cat)),
+        baddbmm_ms=time_ms(lambda: torch.baddbmm(wcat.b1[:, None], x_cat, wcat.w1)),
+        fwd_device_us=device_us(cat_fwd, key=pass_key),
+        pre_device_us=device_us(cat_pre, key=pass_key))), flush=True)
+    return 0
+
+
+def pod_ffw(rn, GroupedFFWParams, G, d=1024, f=4096):
+    """Random bf16 weights of G groups at the imagenet224-pod width."""
+    return GroupedFFWParams(rn(G, d, f, scale=d ** -0.5), rn(G, f, scale=0.1),
+                            rn(G, f, d, scale=f ** -0.5), rn(G, d, scale=0.1))
+
+
+def gemm_phases(torch, lib, case, names) -> int:
+    """The stamped copy's readings of the GEMM mainloop after one call
+    (GEMM_STAMPS; `names` are the call's launch slots 0, 1, 2), per launch:
+    the median over all tiles of a consumer's K loop, its waits on `full`
+    inside it and its epilogue, in cycles (the first tile of each consumer
+    apart, since it waits for the ring's first fills); each block's span
+    from its first tile's start to its last epilogue's end; the share of the
+    span in which neither consumer is in a K loop (both in epilogues, or
+    one done and the other in an epilogue), and the share of the consumers'
+    K-loop cycles spent waiting on `full`; the producers' waits on `empty`
+    as a share of the span."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    tiles = np.zeros((3, 132, 2, 64, 4), np.int64)
+    empty = np.zeros((3, 132, 2), np.int64)
+    counts = np.zeros((3, 132, 2), np.int32)
+    lib.gemm_probe_read.argtypes = [ctypes.c_void_p] * 3
+    if lib.gemm_probe_read(tiles.ctypes.data, empty.ctypes.data, counts.ctypes.data) != 0:
+        print("gemm_probe_read failed", flush=True)
+        return 1
+    for slot, name in enumerate(names):
+        kl, fw, ep, first, idle, wait_share, empty_share, spans = [], [], [], [], [], [], [], []
+        for b in range(132):
+            n_t = [min(int(counts[slot, b, c]), 64) for c in range(2)]
+            if min(n_t) == 0:
+                continue
+            rows = [tiles[slot, b, c, :n_t[c]] for c in range(2)]
+            start = min(int(r[0, 0]) for r in rows)
+            end = max(int(r[-1, 3]) for r in rows)
+            spans.append(end - start)
+            loops = sorted((int(q[0]), int(q[2])) for r in rows for q in r)
+            busy, cur_s, cur_e = 0, None, None
+            for s_, e_ in loops:
+                if cur_e is None or s_ > cur_e:
+                    busy += 0 if cur_e is None else cur_e - cur_s
+                    cur_s, cur_e = s_, e_
+                else:
+                    cur_e = max(cur_e, e_)
+            busy += cur_e - cur_s
+            idle.append(1.0 - busy / (end - start))
+            loop_cycles = sum(int(q[2] - q[0]) for r in rows for q in r)
+            wait_share.append(sum(int(q[1]) for r in rows for q in r) / loop_cycles)
+            empty_share.append(float(empty[slot, b].sum()) / 2 / (end - start))
+            for r in rows:
+                first.append(int(r[0, 2] - r[0, 0]))
+                kl += [int(q[2] - q[0]) for q in r[1:]]
+                fw += [int(q[1]) for q in r[1:]]
+                ep += [int(q[3] - q[2]) for q in r]
+        if not spans:
+            continue
+        print(json.dumps(dict(
+            case=f"{case}_{name}_cycles", blocks=len(spans),
+            tiles_a_consumer=float(np.median(counts[slot][counts[slot] > 0])),
+            k_loop=float(np.median(kl)) if kl else None,
+            full_wait_in_k_loop=float(np.median(fw)) if fw else None,
+            epilogue=float(np.median(ep)), first_tile_k_loop=float(np.median(first)),
+            block_span=float(np.median(spans)),
+            share_no_k_loop=float(np.median(idle)),
+            share_k_loop_waiting_full=float(np.median(wait_share)),
+            producer_empty_wait_share=float(np.median(empty_share)))), flush=True)
     return 0
 
 
@@ -314,6 +493,15 @@ def probe_k1bwd(torch, rn, time_ms, host_us, device_us) -> int:
     from glom_tpu_torch.ops.ffw import GroupedFFWParams
 
     dev, bf16, f32 = torch.device("cuda", 0), torch.bfloat16, torch.float32
+    Lp, n, dp, fp = 12, 256, 1024, 4096
+    if hasattr(k1._bwd_lib(), "gemm_probe_read"):  # the stamped copy: phases only
+        wcat = k1.cat_params(pod_ffw(rn, GroupedFFWParams, Lp - 1), pod_ffw(rn, GroupedFFWParams, Lp))
+        carry, dmean, add_p = rn(Lp + 1, 8 * n, dp), rn(Lp, 8 * n, dp), rn(n, dp)
+        pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add_p, save_pre=True, cat=True)[1]
+        acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+        k1.grouped_mlp_bwd(wcat, carry, dmean, add=add_p, pre=pre, acc=acc,
+                           da_in=torch.zeros(n, dp, device=dev), cat=True)
+        return gemm_phases(torch, k1._bwd_lib(), "k1_bwd_acc_cat_pod_b8", ("dh", "dx", "dw"))
     G, M, d, f = 1, 128, 128, 256
     r = torch.arange(M)[:, None]
     eye = torch.eye(M, d)[None]
@@ -402,6 +590,33 @@ def probe_k1bwd(torch, rn, time_ms, host_us, device_us) -> int:
                               tflops=8 * shape[0] * shape[1] * d * f / ms / 1e9,
                               device_us=device_us(run, key=kernel_key),
                               host_us=host_us(run))), flush=True)
+    del rows, p6, p5, wcat, carry, dmean, pre_cat, acc_cat
+
+    # The imagenet224-pod width (d = 1024, f = 4096): the plain backward
+    # [12, 2048, 1024] and the loop's accumulating combined grid [23, 2048,
+    # 1024], by pass.
+    p12, p11, add_p = (pod_ffw(rn, GroupedFFWParams, Lp), pod_ffw(rn, GroupedFFWParams, Lp - 1),
+                       rn(n, dp))
+    x12, g12 = rn(Lp, 8 * n, dp), rn(Lp, 8 * n, dp)
+    pre12 = k1.fused_grouped_ffw_lm(p12, x12, save_pre=True)[1]
+    wcat = k1.cat_params(p11, p12)
+    carry, dmean = rn(Lp + 1, 8 * n, dp), rn(Lp, 8 * n, dp)
+    pre_cat = k1.fused_grouped_ffw_lm(wcat, carry, add=add_p, save_pre=True, cat=True)[1]
+    acc_cat = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+    da_cat = torch.zeros(n, dp, device=dev)
+    x_cat = torch.cat([(carry[2:].view(Lp - 1, -1, n, dp) + add_p).view(Lp - 1, 8 * n, dp),
+                       carry[:Lp]])
+    for label, shape, run, seq_ms in (
+            ("k1_bwd_pod_b8", [Lp, 8 * n, dp],
+             lambda: k1.grouped_mlp_bwd(p12, x12, g12, pre=pre12), seq_bwd_ms(p12, x12, g12)),
+            ("k1_bwd_acc_cat_pod_b8", [2 * Lp - 1, 8 * n, dp],
+             lambda: k1.grouped_mlp_bwd(wcat, carry, dmean, add=add_p, pre=pre_cat, acc=acc_cat,
+                                        da_in=da_cat, cat=True),
+             seq_bwd_ms(wcat, x_cat, torch.cat([dmean[:Lp - 1], dmean])))):
+        ms = time_ms(run)
+        print(json.dumps(dict(timing=label, shape=shape, f=fp, ms=ms, seq_bwd_ms=seq_ms,
+                              tflops=8 * shape[0] * shape[1] * dp * fp / ms / 1e9,
+                              device_us=device_us(run, key=kernel_key))), flush=True)
     return 0
 
 
@@ -924,12 +1139,14 @@ def main() -> int:
     rc = 0
     for root in sys.argv[2:] or ["."]:
         print("== root", root, flush=True)
-        if sys.argv[1] in ("pair", "k2bwd"):  # the times, then the stamped copy's phases
+        if sys.argv[1] in ("pair", "k2bwd", "k1", "k1bwd"):  # times, then the stamped phases
             cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]
             rc |= subprocess.run(cmd, timeout=900).returncode
-            root = (instrument(os.path.abspath(root)) if sys.argv[1] == "pair" else
-                    instrument(os.path.abspath(root), BWD_WIDE_STAMPS, "wide_pass",
-                               "consensus_update_bwd.cu", "kernel_probe_k2bwd"))
+            stamped = {"pair": (PAIR_STAMPS, "attn_pair_loop", "sm90_attn.cuh"),
+                       "k2bwd": (BWD_WIDE_STAMPS, "wide_pass", "consensus_update_bwd.cu"),
+                       "k1": (GEMM_STAMPS, "gemm_problems", "sm90_gemm.cuh"),
+                       "k1bwd": (GEMM_STAMPS, "gemm_problems", "sm90_gemm.cuh")}[sys.argv[1]]
+            root = instrument(os.path.abspath(root), *stamped, f"kernel_probe_{sys.argv[1]}")
             if root is None:
                 continue
         cmd = [sys.executable, os.path.abspath(__file__), "--child", sys.argv[1], root]

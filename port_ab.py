@@ -38,6 +38,19 @@ drift of the card between runs. Per tree it prints one JSON line:
     `k2_bwd_b8_sha256`, `k2_bwd_combine_b8_sha256`) and of the K4 32-page
     output on these seed-0 inputs (`k2_b8_sha256`, `k4_r32_sha256`), so two
     trees' flagship kernels can be shown bit for bit equal;
+  * a SHA-256 of the flagship's K1 outputs: the bucket-8 forward's out and
+    saved pre (bottom-up) and out (top-down), the bottom-up backward's dx
+    and weight gradients, and the combined grid's accumulating backward
+    (dx, the totals, da) from zeroed totals (`k1_fwd_b8_sha256`,
+    `k1_bwd_b8_sha256`, `k1_bwd_acc_cat_b8_sha256`);
+  * K1 at the imagenet224-pod width (d = 1024, f = 4096): the serving
+    forward and the plain backward at [12, 2048, 1024] (`k1_pod_b8_ms`,
+    `k1_bwd_pod_b8_ms`), the loop's combined grid [23, 2048, 1024] with
+    the saved pre, pre-only and accumulating (`k1_fwd_cat_pod_b8_ms`,
+    `k1_pre_cat_pod_b8_ms`, `k1_bwd_acc_cat_pod_b8_ms`), each with its
+    device time by pass (`*_passes`, ms: hidden, out, addend; dh, dx, dw,
+    da_reduce) and the library's time (`*_seq_ms`, `*_seq_bwd_ms`,
+    `*_baddbmm_ms`), and a SHA-256 of its outputs (`*_sha256`);
   * the imagenet224-pod width (d = 1024, L = 12), the wide instances: K2's
     forward at [12, 8, 256, 1024] alone and with the softmax statistics
     (`k2_pod_b8_ms`, `k2_pod_b8_stats_ms`), K2's backward ("wgmma_wide")
@@ -179,6 +192,17 @@ def child(tree: str, dispatches: int) -> dict:
         bwd_cat()
         torch.cuda.synchronize()
         out["k1_bwd_acc_cat_call_peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    if has_bwd:  # the flagship's K1 outputs, for bit-for-bit comparison across trees
+        out["k1_fwd_b8_sha256"] = sha256(torch.cat([
+            t.flatten() for t in (*k1.fused_grouped_ffw_lm(bu_params, bu_x, save_pre=True),
+                                  k1.fused_grouped_ffw_lm(td_params, bu_x[:L - 1], add=pos))]))
+        out["k1_bwd_b8_sha256"] = sha256(torch.cat([
+            t.flatten().float() for t in (lambda r: (r[0], *r[1]))(
+                k1.grouped_mlp_bwd(bu_params, bu_x, bu_g, pre=pre_bu))]))
+        acc.w1.zero_(), acc.b1.zero_(), acc.w2.zero_(), acc.b2.zero_(), da_in.zero_()
+        dx_cat = bwd_cat()[0]
+        out["k1_bwd_acc_cat_b8_sha256"] = sha256(torch.cat(
+            [dx_cat.flatten().float(), *(t.flatten() for t in acc), da_in.flatten()]))
     x1 = randn(L, n, d)
     out["k1_fwd_bottom_up_b1_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
     out["k1_host_us_b1"] = host_us(lambda: k1.fused_grouped_ffw_lm(bu_params, x1))
@@ -224,8 +248,11 @@ def child(tree: str, dispatches: int) -> dict:
     out["k4_r32_sha256"] = sha256(k4.banded_ragged_consensus(lv4, **k4_kw))
     del lv4
 
-    # The imagenet224-pod width: the wide instances, then the preset served.
+    # The imagenet224-pod width: K1 (d = 1024, f = 4096), the wide instances,
+    # then the preset served.
     Lp, dp = 12, 1024
+    if has_bwd:
+        out.update(k1_pod(k1, GroupedFFWParams, randn, time_ms, torch, dev, n))
     lv, bu, td = randn(Lp, 8, n, dp), randn(Lp, 8, n, dp), randn(Lp - 1, 8, n, dp)
     out["k2_pod_b8_ms"] = time_ms(lambda: k2.fused_consensus_update(lv, bu, td, side=16))
     out["k2_pod_b8_stats_ms"] = time_ms(
@@ -350,6 +377,90 @@ def child(tree: str, dispatches: int) -> dict:
         out.update(train_longrow_p50_ms=steps[len(steps) // 2], train_longrow_min_ms=steps[0],
                    train_longrow_peak_mib=peak, train_longrow_vjp_path=step.vjp_path)
     return out
+
+
+def k1_pod(k1, GroupedFFWParams, randn, time_ms, torch, dev, n) -> dict:
+    """K1 at the imagenet224-pod width (d = 1024, f = 4096): the serving
+    forward and the plain backward at [12, 2048, 1024]; the loop's combined
+    grid [23, 2048, 1024]: the forward with its saved pre, the pre-only
+    launch and the accumulating backward. Each row's device time by pass
+    (torch.profiler) beside the library's (`seq`: baddbmm, tanh GELU,
+    baddbmm; `seq_bwd`: autograd through them; `baddbmm`: the pre-only's
+    one call), and a SHA-256 of every output (out, pre, dx, the weight
+    gradients, the totals, da). Times by pass are under `*_passes`, in ms."""
+    from chip_timing import device_us_by_kernel
+
+    Lp, dp, fp, M = 12, 1024, 4096, 2048
+    res = {}
+
+    def ffw(G):
+        return GroupedFFWParams(randn(G, dp, fp, scale=dp ** -0.5), randn(G, fp, scale=0.1),
+                                randn(G, fp, dp, scale=fp ** -0.5), randn(G, dp, scale=0.1))
+
+    def by_pass(run):
+        keys = ("hidden", "out", "addend", "dh_sm90", "dx_sm90", "dw_sm90", "da_reduce")
+        us = device_us_by_kernel(run, calls=3, key=lambda name: next(
+            (k for k in keys if k in name), "other"))
+        return {k: v / 1e3 for k, v in us.items()}
+
+    def seq(p, x_in):
+        h = torch.nn.functional.gelu(torch.baddbmm(p.b1[:, None], x_in, p.w1), approximate="tanh")
+        return torch.baddbmm(p.b2[:, None], h, p.w2)
+
+    def seq_bwd_ms(p, x_in, g):
+        leaves = [t.detach().clone().requires_grad_() for t in (x_in, *p)]
+        y = seq(GroupedFFWParams(*leaves[1:]), leaves[0])
+        return time_ms(lambda: torch.autograd.grad(y, leaves, grad_outputs=g, retain_graph=True))
+
+    p12, p11, add = ffw(Lp), ffw(Lp - 1), randn(n, dp)
+    x, g = randn(Lp, M, dp), randn(Lp, M, dp)
+    pre = k1.fused_grouped_ffw_lm(p12, x, save_pre=True)[1]
+    res["k1_pod_b8_ms"] = time_ms(lambda: k1.fused_grouped_ffw_lm(p12, x))
+    res["k1_pod_b8_passes"] = by_pass(lambda: k1.fused_grouped_ffw_lm(p12, x))
+    res["k1_pod_b8_seq_ms"] = time_ms(lambda: seq(p12, x))
+    res["k1_bwd_pod_b8_ms"] = time_ms(lambda: k1.grouped_mlp_bwd(p12, x, g, pre=pre))
+    res["k1_bwd_pod_b8_passes"] = by_pass(lambda: k1.grouped_mlp_bwd(p12, x, g, pre=pre))
+    res["k1_bwd_pod_b8_seq_bwd_ms"] = seq_bwd_ms(p12, x, g)
+    res["k1_pod_b8_sha256"] = sha256(torch.cat([
+        t.flatten() for t in (*k1.fused_grouped_ffw_lm(p12, x, save_pre=True),
+                              k1.fused_grouped_ffw_lm(p11, x[:Lp - 1], add=add))]))
+    res["k1_bwd_pod_b8_sha256"] = sha256(torch.cat([
+        t.flatten().float() for t in (lambda r: (r[0], *r[1]))(
+            k1.grouped_mlp_bwd(p12, x, g, pre=pre))]))
+    del x, g, pre
+    wcat, carry, dmean = k1.cat_params(p11, p12), randn(Lp + 1, M, dp), randn(Lp, M, dp)
+    x_cat = torch.cat([(carry[2:].view(Lp - 1, -1, n, dp) + add).view(Lp - 1, M, dp),
+                       carry[:Lp]])
+    pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)[1]
+    acc = GroupedFFWParams(*(torch.zeros(t.shape, device=dev) for t in wcat))
+    da_in = torch.zeros(n, dp, device=dev)
+
+    def fwd():
+        return k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)
+
+    def pre_only():
+        return k1.grouped_mlp_pre(wcat, carry, add=add, cat=True)
+
+    def bwd():
+        return k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre, acc=acc, da_in=da_in,
+                                  cat=True)
+
+    for label, run in (("k1_fwd_cat_pod_b8", fwd), ("k1_pre_cat_pod_b8", pre_only),
+                       ("k1_bwd_acc_cat_pod_b8", bwd)):
+        res[f"{label}_ms"] = time_ms(run)
+        res[f"{label}_passes"] = by_pass(run)
+    res["k1_fwd_cat_pod_b8_seq_ms"] = time_ms(lambda: seq(wcat, x_cat))
+    res["k1_pre_cat_pod_b8_baddbmm_ms"] = time_ms(
+        lambda: torch.baddbmm(wcat.b1[:, None], x_cat, wcat.w1))
+    res["k1_bwd_acc_cat_pod_b8_seq_bwd_ms"] = seq_bwd_ms(
+        wcat, x_cat, torch.cat([dmean[:Lp - 1], dmean]))
+    res["k1_fwd_cat_pod_b8_sha256"] = sha256(torch.cat([t.flatten() for t in (*fwd(), pre_only())]))
+    for t in (*acc, da_in):
+        t.zero_()
+    dx = bwd()[0]
+    res["k1_bwd_acc_cat_pod_b8_sha256"] = sha256(torch.cat(
+        [dx.flatten().float(), *(t.flatten() for t in acc), da_in.flatten()]))
+    return res
 
 
 def k4_inputs(randn, L=6, d=512):

@@ -770,6 +770,173 @@ def test_forward_instance_unchanged_by_the_backward(dev, with_add, M, d, f):
     _close(pre, k1.grouped_mlp_pre_plain(params, x, add), K1_BARS[torch.bfloat16])
 
 
+# -- K1's pair instance at the imagenet224-pod width (d = 1024, f = 4096) ----------
+# Two-block clusters that multicast A (csrc/sm90_gemm.cuh, "wgmma_pair"): the
+# same tiles, K order and rounding points as the single-block instance, so
+# every bit the single-block rules promise holds here too.
+
+POD_D, POD_F = 1024, 4096
+
+
+def _pod_inputs(rng, G, M, with_add):
+    params = _ffw_params(rng, G, POD_D, POD_F, torch.device("cuda", 0), torch.bfloat16)
+    x, g = (_rand(rng, G, M, POD_D).to("cuda", torch.bfloat16) for _ in range(2))
+    add = _rand(rng, 32, POD_D).to("cuda", torch.bfloat16) if with_add else None
+    return params, x, g, add
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("M", [160, 2048])
+def test_grouped_mlp_pair_instance(dev, with_add, M):
+    """Forward, pre-only, plain and accumulating backward at the pod width
+    against the plain versions at K1's bars; the pre-only launch equals the
+    saved pre bit for bit."""
+    assert k1.gemm_instance(POD_D, POD_F) == "wgmma_pair"
+    rng = np.random.default_rng(41)
+    params, x, g, add = _pod_inputs(rng, 2, M, with_add)
+    out, pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)
+    want_out, want_pre = k1.grouped_mlp_plain(params, x, add, save_pre=True)
+    _close(out, want_out, K1_BARS[torch.bfloat16])
+    _close(pre, want_pre, K1_BARS[torch.bfloat16])
+    assert torch.equal(k1.grouped_mlp_pre(params, x, add=add), pre)
+    assert torch.equal(k1.fused_grouped_ffw_lm(params, x, add=add), out)
+    names = ("dx", "dw1", "db1", "dw2", "db2", "da")
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre)
+    for name, got, exp in zip(names, (dx, *grads, da), (want[0], *want[1], want[2])):
+        if exp is not None:
+            _rel_close(got, exp, K1_BWD_BARS[torch.bfloat16], name)
+    acc = GroupedFFWParams(*(_rand(rng, *t.shape, scale=4.0).to(dev) for t in params))
+    da_in = _rand(rng, 32, POD_D, scale=32.0).to(dev) if with_add else None
+    want_acc = GroupedFFWParams(*(t.clone() for t in acc))
+    want = k1.grouped_mlp_bwd_plain(params, x, g, add, pre, want_acc,
+                                    None if da_in is None else da_in.clone())
+    dx, grads, da = k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+    for name, got, exp in zip(names, (dx, *grads, da), (want[0], *want[1], want[2])):
+        if exp is not None:
+            _rel_close(got, exp, K1_BWD_BARS[torch.bfloat16], name)
+
+
+@pytest.mark.parametrize("M", [160, 2048])
+def test_grouped_mlp_pair_cat_equals_split(dev, M):
+    """The combined grid (2L-1 groups) at the pod width against its two
+    split launches on the same carry and dmean, bit for bit: the forward's
+    out and saved pre, the pre-only launch, and the accumulating backward's
+    dx, totals and da."""
+    rng = np.random.default_rng(43)
+    L, n, dtype = 3, 32, torch.bfloat16
+    bu = _ffw_params(rng, L, POD_D, POD_F, dev, dtype)
+    td = _ffw_params(rng, L - 1, POD_D, POD_F, dev, dtype)
+    wcat = k1.cat_params(td, bu)
+    carry, dmean = _rand(rng, L + 1, M, POD_D).to(dev, dtype), _rand(rng, L, M, POD_D).to(dev, dtype)
+    add = _rand(rng, n, POD_D).to(dev, dtype)
+    out, pre = k1.fused_grouped_ffw_lm(wcat, carry, add=add, save_pre=True, cat=True)
+    out_td, pre_td = k1.fused_grouped_ffw_lm(td, carry[2:], add=add, save_pre=True)
+    out_bu, pre_bu = k1.fused_grouped_ffw_lm(bu, carry[:L], save_pre=True)
+    assert torch.equal(out, torch.cat([out_td, out_bu]))
+    assert torch.equal(pre, torch.cat([pre_td, pre_bu]))
+    assert torch.equal(k1.grouped_mlp_pre(wcat, carry, add=add, cat=True), pre)
+    acc = GroupedFFWParams(*(_rand(rng, *t.shape).to(dev) for t in wcat))
+    da_in = _rand(rng, n, POD_D).to(dev)
+    acc_td = GroupedFFWParams(*(t[: L - 1].clone() for t in acc))
+    acc_bu = GroupedFFWParams(*(t[L - 1:].clone() for t in acc))
+    da_split = da_in.clone()
+    dx, grads, da = k1.grouped_mlp_bwd(wcat, carry, dmean, add=add, pre=pre, acc=acc,
+                                       da_in=da_in, cat=True)
+    dx_td, _, _ = k1.grouped_mlp_bwd(td, carry[2:], dmean[: L - 1], add=add, pre=pre_td,
+                                     acc=acc_td, da_in=da_split)
+    dx_bu, _, _ = k1.grouped_mlp_bwd(bu, carry[:L], dmean, pre=pre_bu, acc=acc_bu)
+    assert torch.equal(dx, torch.cat([dx_td, dx_bu]))
+    assert all(torch.equal(a, torch.cat([t, b])) for a, t, b in zip(grads, acc_td, acc_bu))
+    assert torch.equal(da, da_split)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_grouped_mlp_pair_repeats_bit_for_bit(dev, accumulate):
+    """Two calls on the same inputs give the same bits: each tile, its
+    column sums and each element of the totals belong to one consumer, and
+    each element takes one reduction a call."""
+    rng = np.random.default_rng(47)
+    params, x, g, add = _pod_inputs(rng, 2, 2048, True)
+    out, pre = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)
+    again = k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True)
+    assert torch.equal(out, again[0]) and torch.equal(pre, again[1])
+    acc0 = GroupedFFWParams(*(_rand(rng, *t.shape).to(dev) for t in params))
+    da0 = _rand(rng, 32, POD_D).to(dev)
+
+    def run():
+        if not accumulate:
+            return k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre)
+        acc, da_in = GroupedFFWParams(*(t.clone() for t in acc0)), da0.clone()
+        return k1.grouped_mlp_bwd(params, x, g, add=add, pre=pre, acc=acc, da_in=da_in)
+
+    first, second = run(), run()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_pair_rows_do_not_depend_on_the_grid(dev, with_add):
+    """At the pod width a row's output, saved pre, pre-only pre and dx are
+    the same bits whether its group runs inside G = 3 or alone, and whether
+    its rows run at M = 2048 or as the first half of it."""
+    rng = np.random.default_rng(53)
+    params, x, g, add = _pod_inputs(rng, 3, 2048, with_add)
+
+    def run(p, xs, gs):
+        out, pre = k1.fused_grouped_ffw_lm(p, xs, add=add, save_pre=True)
+        dx = k1.grouped_mlp_bwd(p, xs, gs, add=add, pre=pre)[0]
+        return out, pre, k1.grouped_mlp_pre(p, xs, add=add), dx
+
+    full = run(params, x, g)
+    alone = run(GroupedFFWParams(*(t[1:2].contiguous() for t in params)), x[1:2].contiguous(),
+                g[1:2].contiguous())
+    half = run(params, x[:, :1024].contiguous(), g[:, :1024].contiguous())
+    for a, b, c in zip(full, alone, half):
+        assert torch.equal(a[1:2], b)
+        assert torch.equal(a[:, :1024], c)
+
+
+@pytest.mark.parametrize("with_add", [False, True])
+def test_grouped_mlp_pair_slabs_equal_one_pass(dev, monkeypatch, with_add):
+    """Row slabs of 640 rows (5 row tiles, an odd count) and a last one of
+    128 at the pod width: the same bits as one pass."""
+    rng = np.random.default_rng(59)
+    G, M = 2, 2048
+    params, x, _, add = _pod_inputs(rng, G, M, with_add)
+    one = (*k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True),
+           k1.grouped_mlp_pre(params, x, add=add))
+    monkeypatch.setattr(k1, "H_SCRATCH_CAP", G * 640 * POD_F * 2)
+    assert k1.slab_rows(G, M, POD_F) == 640
+    slabs = (*k1.fused_grouped_ffw_lm(params, x, add=add, save_pre=True),
+             k1.grouped_mlp_pre(params, x, add=add))
+    assert all(torch.equal(a, b) for a, b in zip(one, slabs))
+
+
+def test_grouped_mlp_gemm_launch_holds_clusters(dev):
+    """The pair instance's launch config read back from the card: clusters
+    of two blocks of 384 threads and 230,496 bytes, and at least one such
+    cluster resident for every kernel (66 on an H100)."""
+    launch = k1.gemm_launch()
+    assert (launch["cluster"], launch["threads"], launch["smem_bytes"]) == (2, 384, 230496)
+    assert min(launch["max_active_clusters"].values()) >= 1, launch
+
+
+@pytest.mark.parametrize("d,f", [(1024, 4096), (1024, 2048), (512, 2048), (1024, 4160)])
+def test_grouped_mlp_instance_by_kernel_names(dev, d, f):
+    """The C entries pick the instance the Python rule names, by the
+    kernels one backward call launches (the pair instance's wrappers are the
+    <true> instances)."""
+    rng = np.random.default_rng(61)
+    params = _ffw_params(rng, 1, d, f, dev, torch.bfloat16)
+    x, g = (_rand(rng, 1, 128, d).to(dev, torch.bfloat16) for _ in range(2))
+    pre = k1.fused_grouped_ffw_lm(params, x, save_pre=True)[1]
+    names = _k1_bwd_kernels(lambda: k1.grouped_mlp_bwd(params, x, g, pre=pre))
+    dx = [name for name in names if "mlp_bwd_dx_sm90" in name]
+    assert len(dx) == 1, names
+    assert ("<true>" in dx[0]) == (k1.gemm_instance(d, f) == "wgmma_pair"), dx
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("radius", [0.0, 3.0])
 def test_consensus_cons_output(dev, dtype, radius):
