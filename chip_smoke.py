@@ -3159,12 +3159,20 @@ def lint_start() -> tuple:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+# glom-lint's checkers, in glom_tpu's order: the lint phase needs all eight.
+LINT_CHECKERS = ("collective-coverage", "axis-environment", "trace-purity",
+                 "donation-safety", "schema-emit", "lockset", "lock-order", "signal-safety")
+
+
 def lint_phase(started: tuple = None) -> None:
     """glom-lint over the port (`lint_start`'s subprocess, started here
     unless `started` is given), before anything touches the card: it must
-    exit 0 (glom_tpu's pre-flight step 0). Prints the findings, the
-    suppressions (inline pragmas and the port's baseline entries), the
-    warnings and the seconds from its start to its exit."""
+    exit 0 (glom_tpu's pre-flight step 0) with all eight checkers active,
+    as the CLI's `--list-checkers` reports them in a subprocess of the same
+    environment. Prints the active checkers, the findings and the suppressions (inline
+    pragmas and the port's baseline entries) each also counted by checker,
+    the warnings and the seconds from its start to its exit."""
+    import collections
     import os
     import re
 
@@ -3182,6 +3190,10 @@ def lint_phase(started: tuple = None) -> None:
             lint_proc.wait()
     proc = subprocess.CompletedProcess(lint_proc.args, lint_proc.returncode, out, err)
     seconds = time.perf_counter() - t0
+    listed = subprocess.run(
+        [sys.executable, "-m", "glom_tpu_torch.analysis", "--list-checkers"], cwd=root,
+        capture_output=True, text=True, timeout=120)
+    checkers = [ln.split()[0] for ln in listed.stdout.splitlines() if ln.strip()]
     lines = proc.stdout.splitlines()
     findings = [ln for ln in lines if re.match(r"^\S+:\d+:\d+: \[", ln)]
     warnings = [ln for ln in lines if ln.startswith("warning:")]
@@ -3190,14 +3202,30 @@ def lint_phase(started: tuple = None) -> None:
                f"ok[{','.join(sorted(pr.checkers))}] {pr.reason}"
                for m in modules for pr in m.pragmas]
     baseline = baseline_mod.load(DEFAULT_BASELINE)["suppressions"]
+
+    def by_checker(pairs):
+        counts = collections.Counter({name: 0 for name in checkers})
+        for name, n in pairs:
+            counts[name] += n
+        return dict(counts)
+
     ok = (proc.returncode == 0 and "glom-lint: clean" in proc.stdout and not findings
+          and listed.returncode == 0 and tuple(checkers) == LINT_CHECKERS
           and not baseline_mod.unreviewed({"suppressions": baseline}))
-    emit("lint", rc=proc.returncode, findings=findings, pragmas=pragmas,
-         baseline_entries=sorted(baseline), warnings=warnings, modules=len(modules),
-         seconds=seconds, ok=ok,
+    emit("lint", rc=proc.returncode, checkers=checkers, findings=findings,
+         findings_by_checker=by_checker(
+             (re.search(r"\[([\w-]+)\]", f).group(1), 1) for f in findings),
+         pragmas=pragmas,
+         pragmas_by_checker=by_checker(
+             (c, 1) for m in modules for pr in m.pragmas for c in pr.checkers),
+         baseline_entries=sorted(baseline),
+         baseline_by_checker=by_checker(
+             (fp.split("::")[0], e["count"]) for fp, e in baseline.items()),
+         warnings=warnings, modules=len(modules), seconds=seconds, ok=ok,
          output_tail=None if ok else (proc.stdout + proc.stderr)[-3000:])
     if not ok:
-        raise AssertionError("lint: glom-lint found something in the port")
+        raise AssertionError("lint: glom-lint found something in the port, or ran "
+                             f"{checkers} instead of {list(LINT_CHECKERS)}")
 
 
 def bench_emit(cfg, dev, smi: str, out_dir: str) -> tuple:

@@ -20,6 +20,8 @@ start without loading it.
 
 from __future__ import annotations
 
+from glom_tpu_torch.version import __version__
+
 _EXPORTS = {
     "Glom": "glom_tpu_torch.models",
     "GlomParams": "glom_tpu_torch.models",
@@ -80,6 +82,7 @@ __all__ = [
     "ServeResult",
     "TrainConfig",
     "Trainer",
+    "__version__",
     "entry",
     "glom_forward",
     "init_glom",

@@ -1,13 +1,13 @@
 """Shared AST plumbing for the glom-lint checkers.
 
-The port's copy of `glom_tpu/analysis/astutil.py`, without the helpers only
-glom_tpu's jax checkers use (`imported_collective_aliases` and the
-assignment and literal walkers; they return with those checkers' torch
-forms, ROADMAP item A10b). Everything here is deliberately SIMPLE static
-analysis: lexical scope chains, dotted-name rendering, scope labels. The
-checkers trade soundness for zero-dependency CPU-cheap checks that run
-before a card is touched — a miss is acceptable, a crash is not. Pure
-stdlib.
+The port's copy of `glom_tpu/analysis/astutil.py`, with the import table
+the collective checkers read in torch form (`imported_collective_aliases`
+names the port's `parallel.collectives` and `torch.distributed`, where
+glom_tpu's names `jax.lax`). Everything here is deliberately SIMPLE static
+analysis: lexical scope chains, dotted-name rendering, statement-order
+walks. The checkers trade soundness for zero-dependency CPU-cheap checks
+that run before a card is touched — a miss is acceptable, a crash is not.
+Pure stdlib.
 """
 
 from __future__ import annotations
@@ -34,6 +34,12 @@ def dotted(node: ast.AST) -> Optional[str]:
 
 def call_name(call: ast.Call) -> Optional[str]:
     return dotted(call.func)
+
+
+def const_str(node: ast.AST) -> Optional[str]:
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    return None
 
 
 class Scope:
@@ -156,3 +162,58 @@ def qualname_at(
         return "<module>"
     info = index.info_for(fn)
     return info.qualname if info is not None else getattr(fn, "name", "<lambda>")
+
+
+def names_in(node: ast.AST) -> Iterator[ast.Name]:
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Name):
+            yield sub
+
+
+def import_aliases(tree: ast.Module) -> Dict[str, str]:
+    """Map local name -> the dotted name it stands for, over every import
+    of the module (`import torch.func as tf` -> 'torch.func', `from
+    torch.func import vmap` -> 'torch.func.vmap'); `canonical` rewrites a
+    call's dotted name through it."""
+    aliases: Dict[str, str] = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            for a in node.names:
+                aliases[a.asname or a.name] = f"{node.module}.{a.name}"
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.asname:
+                    aliases[a.asname] = a.name
+    return aliases
+
+
+# The modules whose functions are collectives: the port's own wrappers
+# (each over one mesh axis's process group) and torch.distributed itself.
+COLLECTIVES_MODULE = "glom_tpu_torch.parallel.collectives"
+DIST_MODULE = "torch.distributed"
+
+
+def imported_collective_aliases(tree: ast.Module) -> Dict[str, str]:
+    """The part of `import_aliases` that names a collective module or a
+    function imported from one: `import torch.distributed as dist` ->
+    'torch.distributed', `from glom_tpu_torch.parallel.collectives import
+    all_gather` -> 'glom_tpu_torch.parallel.collectives.all_gather';
+    `canonical` rewrites a call's dotted name through it."""
+    modules = (COLLECTIVES_MODULE, DIST_MODULE)
+    return {
+        local: full
+        for local, full in import_aliases(tree).items()
+        if full in modules or full.rpartition(".")[0] in modules
+    }
+
+
+def canonical(name: Optional[str], aliases: Dict[str, str]) -> Optional[str]:
+    """`name` with its first part replaced by what the import table says it
+    stands for ('tf.vmap' -> 'torch.func.vmap'); unchanged otherwise."""
+    if not name:
+        return name
+    head, _, rest = name.partition(".")
+    full = aliases.get(head)
+    if full is None:
+        return name
+    return f"{full}.{rest}" if rest else full

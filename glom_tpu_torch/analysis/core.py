@@ -28,7 +28,7 @@ import re
 import tokenize
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Iterable, List, Optional, Set, Tuple
+from typing import Iterable, List, Optional, Sequence, Set, Tuple
 
 from glom_tpu_torch.analysis.astutil import ModuleIndex, build_parent_map
 
@@ -130,8 +130,19 @@ class Context:
     # results cache them keyed by id(self) (one Context = one run).
     project: Optional[object] = None
     # Scratch channel for project-wide per-checker caches and the
-    # evidence the tests read (the lock-order acquisition edges).
+    # evidence the tests read (the lock-order acquisition edges, the
+    # axis-environment attestation trail).
     scratch: dict = field(default_factory=dict)
+    # Mesh-axis vocabulary: values of module-level *_AXIS string constants
+    # across the scanned tree, plus the MeshConfig.axis_names convention.
+    axis_vocab: Set[str] = field(default_factory=lambda: {"data", "seq", "model"})
+    # Modules (matched by relpath suffix) where every wire-moving
+    # collective must be registered with telemetry.counters.
+    registration_modules: Sequence[str] = (
+        "parallel/manual.py",
+        "parallel/quantized.py",
+        "parallel/serve_mesh.py",
+    )
     # kind registry for the schema-emit checker (filled by the checker on
     # first use: schema.py import, else AST fallback).
     kinds: Optional[Set[str]] = None
@@ -194,23 +205,35 @@ def load_modules(
     return modules, errors
 
 
-# glom_tpu's checkers that read jax's own constructs (the mesh axes of its
-# collectives, traced bodies, donated buffers). Their torch forms are
-# ROADMAP item A10b; asking for one by name says so.
-UNPORTED_CHECKERS = (
-    "collective-coverage",
-    "axis-environment",
-    "trace-purity",
-    "donation-safety",
-)
+def _collect_axis_vocab(modules: List[SourceModule], ctx: Context) -> None:
+    for mod in modules:
+        for node in mod.tree.body:
+            if not isinstance(node, ast.Assign):
+                continue
+            for target in node.targets:
+                if (
+                    isinstance(target, ast.Name)
+                    and target.id.endswith("_AXIS")
+                    and isinstance(node.value, ast.Constant)
+                    and isinstance(node.value.value, str)
+                ):
+                    ctx.axis_vocab.add(node.value.value)
 
 
 def default_checkers() -> List[Checker]:
+    from glom_tpu_torch.analysis.axisenv import AxisEnvironment
+    from glom_tpu_torch.analysis.collectives import CollectiveCoverage
+    from glom_tpu_torch.analysis.donation import DonationSafety
     from glom_tpu_torch.analysis.lockset import LockOrder, Lockset
+    from glom_tpu_torch.analysis.purity import TracePurity
     from glom_tpu_torch.analysis.schema_emit import SchemaEmit
     from glom_tpu_torch.analysis.sighandler import SignalSafety
 
     return [
+        CollectiveCoverage(),
+        AxisEnvironment(),
+        TracePurity(),
+        DonationSafety(),
         SchemaEmit(),
         Lockset(),
         LockOrder(),
@@ -242,7 +265,8 @@ def run(
 
     `scratch`, when given, is used as the Context's scratch dict so
     callers (tests, tooling) can inspect the project-wide evidence the
-    checkers record there — the lock-order acquisition edges."""
+    checkers record there — the lock-order acquisition edges, the
+    axis-environment attestation trail."""
     from glom_tpu_torch.analysis.project import ProjectGraph
 
     modules, findings = load_modules(paths)
@@ -250,16 +274,11 @@ def run(
     if scratch is not None:
         ctx.scratch = scratch
     ctx.project = ProjectGraph(modules)
+    _collect_axis_vocab(modules, ctx)
     active = checkers if checkers is not None else default_checkers()
     if select is not None:
         wanted = set(select)
         unknown = wanted - {c.name for c in active}
-        unported = sorted(unknown & set(UNPORTED_CHECKERS))
-        if unported:
-            raise ValueError(
-                f"checkers not ported yet: {unported} (their torch forms are "
-                "ROADMAP item A10b)"
-            )
         if unknown:
             raise ValueError(f"unknown checkers: {sorted(unknown)}")
         active = [c for c in active if c.name in wanted]

@@ -72,10 +72,10 @@ class Axis(NamedTuple):
     index: int
 
 
-def mesh_axis(mesh, name: str) -> Axis:
-    """The Axis `name` of a DeviceMesh."""
-    size = mesh.mesh.shape[mesh.mesh_dim_names.index(name)]
-    return Axis(name, mesh.get_group(name), size, mesh.get_local_rank(name))
+def mesh_axis(mesh, axis_name: str) -> Axis:
+    """The Axis `axis_name` of a DeviceMesh."""
+    size = mesh.mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+    return Axis(axis_name, mesh.get_group(axis_name), size, mesh.get_local_rank(axis_name))
 
 
 def _staged(op: str, axis: Axis, tensors) -> bool:

@@ -223,6 +223,9 @@ def _ffw_fn(use_pallas: bool, model: Axis, split: str = "hidden"):
         return base
     if split == "levels":
         def ep(p, x, add=None):
+            # Both Functions count their gathers at LEVELS_SITE themselves
+            # (parallel/collectives.py); glom_tpu's levels TP is GSPMD's.
+            # glom-lint: ok[collective-coverage] counted inside, at LEVELS_SITE
             return gather_from_model(base(p, split_to_model(x, model), add=add), model)
 
         return ep
@@ -230,6 +233,10 @@ def _ffw_fn(use_pallas: bool, model: Axis, split: str = "hidden"):
 
     def tp(p, x, add=None):
         ins = [x, p.b2] if add is None else [x, p.b2, add]
+        # Identity forward; its backward all-reduce is the transpose that
+        # glom_tpu's shard_map derives for the registered tp_ffw_psum, which
+        # glom_tpu's counters do not see either.
+        # glom-lint: ok[collective-coverage] backward-only transpose, uncounted in glom_tpu
         x, b2, *rest = copy_to_model(ins, model)
         out = base(p._replace(b2=b2 * inv_mp), x, add=rest[0] if rest else None)
         return reduce_from_model(out, model, site="tp_ffw_psum")
@@ -363,6 +370,9 @@ def make_manual_forward(mesh, cfg: GlomConfig, *, iters: Optional[int] = None,
             # level-major -> the reference layout [.., b, n, L, d]
             out = out.permute(0, 2, 3, 1, 4) if return_all else out.permute(1, 2, 0, 3)
         n_dim, b_dim = (2, 1) if return_all else (1, 0)
+        # The output assembly: glom_tpu's shard_map returns the global array
+        # through out_specs, with no collective its counters see.
+        # glom-lint: ok[collective-coverage] output assembly, glom_tpu's out_specs
         return all_gather(all_gather(out, axes.seq, n_dim), axes.data, b_dim)
 
     if with_levels:
@@ -448,6 +458,10 @@ class _SumGrads(torch.autograd.Function):
     def backward(ctx, *gs):
         gs = [torch.zeros(s, dtype=dt, device=dev) if g is None else g
               for g, (s, dt, dev) in zip(gs, ctx.meta)]
+        # glom_tpu's shard_map transpose of replicated-in params: a reduction
+        # it never writes out or counts (its non-ZeRO manual step is never
+        # recorded).
+        # glom-lint: ok[collective-coverage] glom_tpu's implicit transpose, uncounted
         gs = all_reduce_tensors(all_reduce_tensors(gs, ctx.axes.seq), ctx.axes.data)
         return (None, *gs)
 

@@ -220,24 +220,24 @@ def _scatter_needed_pages_wire(pool_loc: torch.Tensor, page_idx: torch.Tensor, d
     bits = _words(pool_loc)
     contrib = torch.where(mine[..., None, None, None], bits[local],
                           torch.zeros((), dtype=bits.dtype, device=bits.device))
+
+    def scatter_sum(c: torch.Tensor) -> torch.Tensor:
+        # The sum over 'data' of c [k, ...], this rank keeping its slice
+        # [1, ...] (lax.psum_scatter, tiled): the wrapper below counts it.
+        if k == 1:
+            return c
+        out = c.new_empty((1, *c.shape[1:]))
+        transport("reduce_scatter", data.name,
+                  lambda o, i: dist.reduce_scatter_tensor(o, i, group=data.group), out,
+                  c.contiguous())
+        return out
+
     got = tele_counters.timed_collective(
         "page_needed_psum_scatter", DATA_AXIS, "reduce_scatter",
         tele_counters.ring_reduce_scatter_bytes(contrib, k),
-        lambda c: _reduce_scatter_sum(c, data), contrib, collective="psum_scatter", dim=0,
+        scatter_sum, contrib, collective="psum_scatter", dim=0,
     )
     return got.reshape(b_loc, ppr, *bits.shape[1:]).view(pool_loc.dtype)
-
-
-def _reduce_scatter_sum(x: torch.Tensor, data: Axis) -> torch.Tensor:
-    """The sum over 'data' of x [k, ...], this rank keeping its slice
-    [1, ...] (lax.psum_scatter, tiled), uncounted."""
-    if data.size == 1:
-        return x
-    out = x.new_empty((1, *x.shape[1:]))
-    transport("reduce_scatter", data.name,
-              lambda o, i: dist.reduce_scatter_tensor(o, i, group=data.group), out,
-              x.contiguous())
-    return out
 
 
 def _sharded_row_agreement(levels: torch.Tensor, n: int, seq: Axis) -> torch.Tensor:

@@ -255,7 +255,8 @@ def _check_supervise(args) -> None:
 
 def _trace_capture(args, writer):
     """(the step-window TraceCapture or None, the whole-run trace context)."""
-    from glom_tpu_torch.tracing.capture import TraceCapture, trace
+    from glom_tpu_torch.tracing.capture import TraceCapture
+    from glom_tpu_torch.utils.profiling import trace
 
     cap = (TraceCapture.parse(args.trace_steps, args.trace_dir, writer=writer)
            if args.trace_steps else None)

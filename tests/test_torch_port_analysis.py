@@ -1,8 +1,11 @@
 """glom-lint's framework-free checkers in the port (glom_tpu_torch/analysis)
 against glom_tpu's (glom_tpu/analysis).
 
-For each of the four ported checkers (lockset, lock-order, signal-safety,
-schema-emit), the port's linter and glom_tpu's, each restricted to that
+For each of the four checkers that read no framework's constructs
+(lockset, lock-order, signal-safety, schema-emit; the torch forms of the
+other four are held against glom_tpu's by their twin corpus,
+tests/test_torch_port_analysis_jax_rules.py), the port's linter and
+glom_tpu's, each restricted to that
 checker, report the same findings (checker, path, line, column, symbol,
 message and rule key) over every shared fixture under tests/fixtures/ and
 over every inline snippet of glom_tpu's TestLockset, TestLockOrder,
@@ -32,11 +35,12 @@ from glom_tpu_torch.analysis import run as port_run
 from glom_tpu_torch.analysis import baseline as port_baseline
 from glom_tpu_torch.analysis.__main__ import DEFAULT_BASELINE, main as port_main
 from glom_tpu_torch.analysis.cache import AnalysisCache as PortCache
-from glom_tpu_torch.analysis.core import UNPORTED_CHECKERS, default_checkers
+from glom_tpu_torch.analysis.core import default_checkers
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 CHECKERS = ("lockset", "lock-order", "signal-safety", "schema-emit")
+JAX_RULES = ("collective-coverage", "axis-environment", "trace-purity", "donation-safety")
 
 
 def _rows(findings):
@@ -95,10 +99,10 @@ def _eval_str(node, env):
     return value if isinstance(value, str) else None
 
 
-def _snippets():
+def _snippets(classes=SNIPPET_CLASSES):
     """[(case id, source, file name)]: every source glom_tpu's tests in
-    SNIPPET_CLASSES hand to `lint(tmp_path, SRC, name=...)` or write to a
-    file with `.write_text(SRC)`, in the order they appear."""
+    `classes` hand to `lint(tmp_path, SRC, name=...)` or write to a file
+    with `.write_text(SRC)`, in the order they appear."""
     tree = ast.parse((REPO / "tests" / "test_analysis.py").read_text())
     module_env = {}
     for node in tree.body:
@@ -109,7 +113,7 @@ def _snippets():
                 module_env[node.targets[0].id] = value
     cases, seen = [], set()
     for cls in tree.body:
-        if not (isinstance(cls, ast.ClassDef) and cls.name in SNIPPET_CLASSES):
+        if not (isinstance(cls, ast.ClassDef) and cls.name in classes):
             continue
         for fn in cls.body:
             if not isinstance(fn, ast.FunctionDef):
@@ -210,17 +214,41 @@ RACY = (
 
 
 class TestFramework:
-    def test_default_checkers_are_the_four(self):
-        assert sorted(c.name for c in default_checkers()) == sorted(CHECKERS)
+    def test_default_checkers_are_glom_tpus_eight(self):
+        from glom_tpu.analysis.core import default_checkers as tpu_default_checkers
 
-    @pytest.mark.parametrize("name", UNPORTED_CHECKERS)
-    def test_an_unported_checker_names_its_roadmap_item(self, name, tmp_path):
-        path = tmp_path / "m.py"
+        names = [c.name for c in default_checkers()]
+        assert names == [c.name for c in tpu_default_checkers()]
+        assert names[:4] == list(JAX_RULES) and sorted(names[4:]) == sorted(CHECKERS)
+
+    # One seeded site each, in torch form, linted under a registration path.
+    SEEDED = {
+        "collective-coverage": ("import torch.distributed as dist\n"
+                                "def f(t, g):\n"
+                                "    dist.all_reduce(t, group=g)\n"),
+        "axis-environment": ("from glom_tpu_torch.parallel.collectives import all_reduce\n"
+                             "def f(make_mesh, MeshConfig, rank_axes, t):\n"
+                             "    axes = rank_axes(make_mesh(MeshConfig(data=2)))\n"
+                             "    return all_reduce(t, axes.model)\n"),
+        "trace-purity": ("import torch\n"
+                         "@torch.compile\n"
+                         "def f(t):\n"
+                         "    return t.item()\n"),
+        "donation-safety": ("def f(pool, k):\n"
+                            "    return k(pool.buffer())\n"),
+    }
+
+    @pytest.mark.parametrize("name", JAX_RULES)
+    def test_selecting_a_jax_rule_checker_runs_it(self, name, tmp_path):
+        path = tmp_path / "parallel" / "manual.py"
+        path.parent.mkdir()
         path.write_text("x = 1\n")
-        with pytest.raises(ValueError, match="A10b"):
-            port_run([str(path)], select=[name])
-        # glom_tpu has it
+        assert port_run([str(path)], select=[name]) == []
         assert tpu_run([str(path)], select=[name]) == []
+        path.write_text(self.SEEDED[name])
+        found = port_run([str(path)], select=[name])
+        assert [f.checker for f in found] == [name]
+        assert found[0].line == len(self.SEEDED[name].splitlines())
 
     def test_an_unknown_checker_raises(self, tmp_path):
         path = tmp_path / "m.py"
@@ -231,7 +259,10 @@ class TestFramework:
     def test_list_checkers(self, capsys):
         assert port_main(["--list-checkers"]) == 0
         out = capsys.readouterr().out
-        assert sorted(line.split()[0] for line in out.splitlines()) == sorted(CHECKERS)
+        assert [line.split()[0] for line in out.splitlines()] == [
+            c.name for c in default_checkers()]
+        assert sorted(line.split()[0] for line in out.splitlines()) == sorted(
+            CHECKERS + JAX_RULES)
 
     def test_baseline_roundtrip_ratchet_and_refusal(self, tmp_path, capsys):
         bad = tmp_path / "mod.py"
@@ -385,17 +416,25 @@ class TestSelfHost:
         assert Path(DEFAULT_BASELINE) != REPO / "analysis_baseline.json"
         data = port_baseline.load(DEFAULT_BASELINE)
         assert port_baseline.unreviewed(data) == []
-        assert data["suppressions"] == {}
+        # the reviewed entries are the port's own, never glom_tpu's paths
+        assert data["suppressions"]
+        assert all(fp.split("::")[1].startswith("glom_tpu_torch/")
+                   for fp in data["suppressions"])
 
     def test_the_root_baseline_is_never_read(self, tmp_path, monkeypatch, capsys):
         """From the repo root, where glom_tpu's baseline lies, the port's
-        CLI reads its own: glom_tpu's four entries would read as stale."""
+        CLI reads its own: a run over a clean file reports every entry it
+        read as stale, and those are the port's, never glom_tpu's four."""
         monkeypatch.chdir(REPO)
         clean = tmp_path / "m.py"
         clean.write_text("x = 1\n")
         assert port_main([str(clean)]) == 0
         out = capsys.readouterr().out
-        assert "stale" not in out and "glom-lint: clean" in out
+        stale = [line.rsplit(": ", 1)[1] for line in out.splitlines()
+                 if line.startswith("warning: stale baseline entry")]
+        assert not [fp for fp in stale if fp.split("::")[1].startswith("glom_tpu/")]
+        assert sorted(stale) == sorted(port_baseline.load(DEFAULT_BASELINE)["suppressions"])
+        assert "glom-lint: clean" in out
 
     @pytest.mark.parametrize("relpath", ["glom_tpu_torch/utils/checkpoint.py",
                                          "glom_tpu_torch/utils/metrics.py"])

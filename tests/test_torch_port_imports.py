@@ -59,7 +59,10 @@ def test_the_checks_cover_every_module():
                    "glom_tpu_torch.analysis.astutil", "glom_tpu_torch.analysis.project",
                    "glom_tpu_torch.analysis.cache", "glom_tpu_torch.analysis.baseline",
                    "glom_tpu_torch.analysis.lockset", "glom_tpu_torch.analysis.sighandler",
-                   "glom_tpu_torch.analysis.schema_emit", "glom_tpu_torch.ops.consensus_chunked"):
+                   "glom_tpu_torch.analysis.schema_emit", "glom_tpu_torch.ops.consensus_chunked",
+                   "glom_tpu_torch.analysis.collectives", "glom_tpu_torch.analysis.axisenv",
+                   "glom_tpu_torch.analysis.purity", "glom_tpu_torch.analysis.donation",
+                   "glom_tpu_torch.utils.profiling", "glom_tpu_torch.version"):
         assert module in names
         path = REPO / (module.replace(".", "/") + ".py")
         if not path.exists():  # a package
@@ -133,7 +136,10 @@ def test_the_file_readers_import_no_torch():
     """`import glom_tpu_torch` is lazy (as glom_tpu's is), so the tools that
     read files only start without torch: glom-lint and the telemetry CLI's
     lint, compare and perfetto."""
-    readers = ["glom_tpu_torch", "glom_tpu_torch.analysis.__main__",
+    readers = ["glom_tpu_torch", "glom_tpu_torch.version", "glom_tpu_torch.analysis",
+               "glom_tpu_torch.analysis.__main__", "glom_tpu_torch.analysis.collectives",
+               "glom_tpu_torch.analysis.axisenv", "glom_tpu_torch.analysis.purity",
+               "glom_tpu_torch.analysis.donation",
                "glom_tpu_torch.telemetry.__main__", "glom_tpu_torch.telemetry.schema",
                "glom_tpu_torch.telemetry.compare", "glom_tpu_torch.telemetry.perfetto",
                "glom_tpu_torch.telemetry.sinks", "glom_tpu_torch.telemetry.audit",
@@ -144,6 +150,7 @@ def test_the_file_readers_import_no_torch():
         "    importlib.import_module(name)\n"
         "assert 'torch' not in sys.modules, sorted(m for m in sys.modules if 'torch' in m)[:5]\n"
         "import glom_tpu_torch\n"
+        "assert glom_tpu_torch.__version__ == '0.1.0' and 'torch' not in sys.modules\n"
         "assert glom_tpu_torch.GlomConfig().dim == 512 and 'torch' in sys.modules\n"
         "print('lazy')\n"
     )
@@ -152,3 +159,25 @@ def test_the_file_readers_import_no_torch():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "lazy"
+
+
+def test_profiling_and_version_are_glom_tpus():
+    """utils/profiling.py re-exports glom_tpu's names from the port's
+    tracing package, and the version is glom_tpu's."""
+    import glom_tpu.utils.profiling as tpu_profiling
+    import glom_tpu.version as tpu_version
+
+    import glom_tpu_torch
+    import glom_tpu_torch.tracing.capture as capture
+    import glom_tpu_torch.tracing.report as report
+    import glom_tpu_torch.utils.profiling as profiling
+
+    assert profiling.__all__ == tpu_profiling.__all__
+    assert sorted(n for n in vars(profiling) if not n.startswith("_")) == sorted(
+        n for n in vars(tpu_profiling) if not n.startswith("_"))
+    for name in ("trace", "start_server", "annotate"):
+        assert getattr(profiling, name) is getattr(capture, name)
+    for name in ("perf_report", "StepTimer"):
+        assert getattr(profiling, name) is getattr(report, name)
+    assert glom_tpu_torch.__version__ == tpu_version.__version__
+    assert "__version__" in glom_tpu_torch.__all__
